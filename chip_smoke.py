@@ -1,0 +1,248 @@
+"""Smoke test of dali_tpu_torch on one CUDA card.
+
+Run from the repository root: ``python3 chip_smoke.py``. Phases, each raising
+on failure:
+
+1. card name and power limit; build both native libraries from the sources
+   in the checkout and print their build seconds;
+2. the CMN kernel (``csrc/cmn.cu``) against its plain PyTorch version on the
+   card at the main path's shapes ([256, 224, 224, 3] uint8 -> [256, 3, 224,
+   224] float32, mixed mirror flags, a trimmed valid width), max abs diff
+   <= 1e-5, median times of both from CUDA events;
+3. the RN50 training path at full size (batch 256, hybrid_scale=2, 224x224,
+   ImageNet mean/std, FLOAT CHW) on the committed 32-file corpus through
+   ``DALIClassificationIterator``: 3 warm-up + 20 timed batches, each checked
+   for shape, dtype, device and finiteness; the CMN launch count of that run;
+   images/s; per-stage device milliseconds of one instrumented batch;
+4. the same pipeline at a small batch on the card and on the CPU (plain
+   versions): labels equal, images within one uint8 step / std.
+
+The second-to-last line is a JSON object with the kernel table; the last is
+``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest of
+the repository beside it, the script exits non-zero before printing either.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BATCH = 256
+OUT = 224
+WARMUP, TIMED = 3, 20
+MEAN = [0.485 * 255, 0.456 * 255, 0.406 * 255]
+STD = [0.229 * 255, 0.224 * 255, 0.225 * 255]
+LSB_OVER_STD = 1.0 / min(STD)  # one uint8 step after normalization
+
+
+def require(cond, msg):
+    """A check that stays under ``python -O`` (unlike ``assert``)."""
+    if not cond:
+        raise AssertionError(msg)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps=20):
+    """Median milliseconds of ``fn()`` on the current stream (CUDA events)."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def build_phase():
+    from dali_tpu_torch.native import build
+
+    secs = {}
+    for name, fn in (("host", build.host_library), ("kernels", build.kernel_library)):
+        t0 = time.perf_counter()
+        path = fn()
+        secs[name] = time.perf_counter() - t0
+        print(f"built {os.path.relpath(path, HERE)} in {secs[name]:.2f} s")
+    return secs
+
+
+def cmn_phase(card):
+    from dali_tpu_torch.kernels import cmn
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    data = torch.randint(0, 256, (BATCH, OUT, OUT, 3), dtype=torch.uint8, device="cuda", generator=g)
+    mirror = (torch.arange(BATCH, device="cuda") % 2).to(torch.int32)
+    ext_w = torch.full((BATCH,), OUT, dtype=torch.int32, device="cuda")
+    ext_w[::3] = OUT - 37  # trimmed valid width: mirror reverses only these columns
+    zeros = torch.zeros((BATCH,), dtype=torch.int32, device="cuda")
+    args = (data, zeros, zeros, mirror, OUT, OUT, MEAN, STD, 1.0, 0.0, "CHW", torch.float32, ext_w)
+    got = cmn.crop_mirror_normalize(*args)
+    want = cmn.crop_mirror_normalize_plain(*args)
+    torch.cuda.synchronize()
+    require(got.is_cuda and got.shape == (BATCH, 3, OUT, OUT) and got.dtype == torch.float32,
+            f"CMN kernel output {got.device} {tuple(got.shape)} {got.dtype}")
+    err = float((got - want).abs().max())
+    print(f"cmn kernel vs plain: max abs diff {err:.3e} (limit 1e-05)")
+    require(err <= 1e-5, f"CMN kernel disagrees with its plain version: {err}")
+    ms = time_ms(lambda: cmn.crop_mirror_normalize(*args))
+    plain_ms = time_ms(lambda: cmn.crop_mirror_normalize_plain(*args))
+    print(f"cmn [{BATCH},{OUT},{OUT},3] u8 -> f32 CHW: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"({card})")
+    return err, ms, plain_ms
+
+
+def make_pipe(file_list, batch, out, device):
+    from dali_tpu_torch import fn, pipeline_def, types
+
+    @pipeline_def(batch_size=batch, num_threads=os.cpu_count() or 1, seed=42,
+                  prefetch_queue_depth=2, device=device)
+    def rn50_train():
+        jpegs, labels = fn.readers.file(file_list=file_list, random_shuffle=True, name="Reader")
+        images = fn.decoders.image_random_crop(jpegs, device="mixed", hybrid_device_decode=True,
+                                               hybrid_scale=2)
+        images = fn.resize(images, resize_x=out, resize_y=out)
+        mirror = fn.random.coin_flip(probability=0.5)
+        images = fn.crop_mirror_normalize(images, mirror=mirror, dtype=types.FLOAT,
+                                          output_layout="CHW", mean=MEAN, std=STD)
+        return images, labels
+
+    return rn50_train()
+
+
+def write_file_list() -> str:
+    root = os.path.join(HERE, "dali_tpu_torch", "testdata", "rn50")
+    files = sorted(os.path.join(c, f) for c in sorted(os.listdir(root))
+                   for f in sorted(os.listdir(os.path.join(root, c))))
+    require(len(files) == 32, f"expected the 32-file corpus under {root}, found {len(files)}")
+    lines = [f"{os.path.join(root, f)} {int(f.split(os.sep)[0][len('class'):])}"
+             for f in files * (-(-BATCH // len(files)))]
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    path = os.path.join(HERE, "build", "rn50_file_list.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def check_batch(batch):
+    data, label = batch[0]["data"], batch[0]["label"]
+    require(data.is_cuda and data.dtype == torch.float32, f"batch on {data.device} as {data.dtype}")
+    require(tuple(data.shape) == (BATCH, 3, OUT, OUT), f"batch shape {tuple(data.shape)}")
+    require(tuple(label.shape) == (BATCH, 1) and not label.is_floating_point(),
+            f"labels {tuple(label.shape)} {label.dtype}")
+    require(bool(torch.isfinite(data).all()), "non-finite values in a batch")
+
+
+def e2e_phase(card, file_list):
+    from dali_tpu_torch.kernels import cmn
+    from dali_tpu_torch.plugin.pytorch import DALIClassificationIterator
+
+    pipe = make_pipe(file_list, BATCH, OUT, "cuda:0")
+    pipe.build()
+    cmn.COUNTER.launches = 0
+    it = DALIClassificationIterator(pipe)
+    for _ in range(WARMUP):
+        check_batch(next(it))
+    torch.cuda.synchronize()
+    st0 = dict(pipe.executor.stats)
+    t0 = time.perf_counter()
+    for _ in range(TIMED):
+        check_batch(next(it))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    st = {k: v - st0[k] for k, v in pipe.executor.stats.items()}
+    # collect the batches the iterator prefetched, so every run has finished
+    for _ in range(pipe.prefetch_queue_depth):
+        pipe.outputs()
+    torch.cuda.synchronize()
+    launches = cmn.COUNTER.launches
+    ran = WARMUP + TIMED + pipe.prefetch_queue_depth
+    print(f"cmn launches in the main path: {launches} (batches run: {ran}: "
+          f"{WARMUP + TIMED} through the iterator + {pipe.prefetch_queue_depth} prefetched)")
+    require(launches == ran, f"CMN kernel launched {launches} times for {ran} batches")
+    ips = TIMED * BATCH / dt
+    print(f"e2e rn50_train batch {BATCH}: {ips:.1f} images/s over {TIMED} batches ({card})")
+    print(f"during the timed batches: host phase {1e3 * st['host_phase_seconds'] / st['host_batches']:.2f}"
+          f" ms/batch over {st['host_batches']} batches ({os.cpu_count()} host cores); the device"
+          f" stage waited {1e3 * st['device_wait_seconds'] / TIMED:.2f} ms/batch for staged batches")
+
+    ex = pipe.executor
+    ex.record_stage_events = True
+    for _ in range(pipe.prefetch_queue_depth + 2):
+        pipe.schedule_run()
+    for _ in range(pipe.prefetch_queue_depth + 2):
+        pipe.outputs()
+    torch.cuda.synchronize()
+    require(not ex.record_stage_events and ex.stage_events, "the instrumented batch did not run")
+    names = {"h2d": "H2D", "wire": "wire", "_JpegIdctSplitRRC": "IDCT tail",
+             "Resize": "resize", "CropMirrorNormalize": "CMN"}
+    stages = {names[s]: a.elapsed_time(b) for s, a, b in ex.stage_events}
+    print("stage ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" ({card})")
+    pipe.shutdown()
+    return launches, ips, stages
+
+
+def reference_phase(file_list):
+    """The same pipeline at batch 16 on the card and on the CPU."""
+    outs = []
+    for device in ("cuda:0", "cpu"):
+        pipe = make_pipe(file_list, 16, OUT, device)
+        pipe.build()
+        res = [pipe.run() for _ in range(2)]
+        outs.append([(r[0].as_tensor().cpu(), r[1].as_array()) for r in res])
+        pipe.shutdown()
+    worst, frac = 0.0, 0.0
+    for (g_img, g_lab), (c_img, c_lab) in zip(*outs):
+        require((g_lab == c_lab).all(), "labels differ between card and CPU")
+        d = (g_img - c_img).abs()
+        worst = max(worst, float(d.max()))
+        frac = max(frac, float((d > 1e-4).float().mean()))
+    print(f"card vs CPU plain path (batch 16, 2 iterations): max abs diff {worst:.4f} "
+          f"(limit {LSB_OVER_STD:.4f}), fraction > 1e-4: {frac:.2e} (limit 1e-3)")
+    require(worst <= LSB_OVER_STD + 1e-4 and frac <= 1e-3,
+            "the card's output disagrees with the CPU reference path")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import dali_tpu_torch  # noqa: F401  (fails when run outside the repository)
+
+    card = card_line()
+    print(f"card: {card}; torch: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    build_phase()
+    err, ms, plain_ms = cmn_phase(card)
+    file_list = write_file_list()
+    launches, _, _ = e2e_phase(card, file_list)
+    reference_phase(file_list)
+    print(json.dumps({"kernels": [{
+        "name": "crop_mirror_normalize", "route": "cuda",
+        "source": "dali_tpu_torch/csrc/cmn.cu",
+        "replaces": "dali_tpu/kernels/cmn_pallas.py:58",
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

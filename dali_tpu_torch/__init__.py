@@ -1,0 +1,89 @@
+"""dali_tpu_torch — the PyTorch/CUDA port of ``dali_tpu``.
+
+A ``@pipeline_def`` graph of ``fn.*`` operators runs as a host program
+(readers, the hybrid JPEG decoder's entropy stage and cpu ops, in numpy and
+C++) feeding a device program of PyTorch operations and hand-written CUDA
+kernels on one ``torch.device``; outputs are ``torch.Tensor``s on that device.
+
+Ported so far: the RN50 training path —
+``readers.file`` -> ``decoders.image_random_crop(device="mixed",
+hybrid_device_decode=True)`` -> ``resize`` (static size) -> ``random.coin_flip``
++ ``crop_mirror_normalize`` -> ``plugin.pytorch`` iterators. Other ``fn``
+names raise ``NotImplementedError``; ROADMAP.md lists the order of the rest.
+This package imports torch, numpy and the standard library only.
+"""
+
+from __future__ import annotations
+
+from . import types  # noqa: F401
+from ._schema import OpSpec
+from .data_node import DataNode
+
+__version__ = "0.1.0"
+
+
+def _op_call(schema_name, device="cpu", inputs=(), name=None, **kwargs):
+    """Create a graph node in the current pipeline scope (behind every fn.* call)."""
+    from .pipeline import Pipeline
+
+    pipe = Pipeline.current()
+    if pipe is None:
+        raise RuntimeError(f"Operator '{schema_name}' invoked outside a pipeline scope. "
+                           "Use @pipeline_def or `with pipe:`.")
+    spec = OpSpec(schema_name, device=device, name=name, **kwargs)
+    for i in inputs:
+        if not isinstance(i, DataNode):
+            raise TypeError(f"Inputs to '{schema_name}' must be DataNodes, got {type(i)}")
+        spec.AddInput(i)
+    n = len(spec.inputs)
+    if n < spec.schema.min_inputs or n > spec.schema.max_inputs:
+        raise ValueError(f"Operator '{schema_name}' expects between {spec.schema.min_inputs} "
+                         f"and {spec.schema.max_inputs} inputs, got {n}")
+    outs = pipe.add_op(spec).outputs
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+from . import backend  # noqa: E402,F401  (registers the ported operators)
+from . import fn  # noqa: E402
+from .pipeline import Pipeline, pipeline_def  # noqa: E402,F401
+
+
+def _decoders_image_random_crop_fn(*inputs, device=None, hybrid_device_decode=False,
+                                   hybrid_scale=1, hybrid_chroma_full=False,
+                                   random_area=(0.08, 1.0), random_aspect_ratio=(3 / 4, 4 / 3),
+                                   num_attempts=10, seed=-1, **kwargs):
+    """fn.decoders.image_random_crop with ``hybrid_device_decode=True``: the
+    RRC window is sampled on the host and only its DCT blocks are
+    entropy-decoded and shipped; the device finishes the decode (IDCT,
+    chroma, colour) at 1/``hybrid_scale`` resolution. The output is the
+    crop; pair it with fn.resize for RandomResizedCrop."""
+    if not hybrid_device_decode:
+        raise NotImplementedError(
+            "fn.decoders.image_random_crop without hybrid_device_decode is not ported to "
+            "dali_tpu_torch yet; see ROADMAP.md (Queue 1)")
+    if device != "mixed":
+        raise ValueError("hybrid_device_decode requires device='mixed'")
+    if kwargs.get("output_type", types.DALIImageType.RGB) != types.DALIImageType.RGB:
+        raise ValueError("hybrid_device_decode produces RGB only")
+    if kwargs.get("dtype", None) not in (None, types.DALIDataType.UINT8):
+        raise ValueError("hybrid_device_decode produces uint8")
+    if hybrid_scale not in (1, 2, 4):
+        raise ValueError(f"hybrid_scale must be 1, 2, or 4 (got {hybrid_scale})")
+    name = kwargs.pop("name", None)
+    kwargs.pop("output_type", None)
+    kwargs.pop("dtype", None)
+    outs = _op_call(
+        "_JpegCoeffsSplitRRC", device="mixed", inputs=inputs, name=name,
+        hybrid_scale=hybrid_scale, chroma_full=hybrid_chroma_full,
+        random_area=list(random_area), random_aspect_ratio=list(random_aspect_ratio),
+        num_attempts=num_attempts, seed=seed,
+        cache_size=int(kwargs.pop("cache_size", 0) or 0),
+        adjust_orientation=bool(kwargs.pop("adjust_orientation", True)),
+    )
+    if kwargs:
+        raise TypeError(f"fn.decoders.image_random_crop got unexpected arguments {sorted(kwargs)}")
+    return _op_call("_JpegIdctSplitRRC", device="gpu", inputs=list(outs),
+                    hybrid_scale=hybrid_scale, chroma_full=hybrid_chroma_full)
+
+
+fn.decoders.image_random_crop = _decoders_image_random_crop_fn

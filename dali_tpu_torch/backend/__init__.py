@@ -1,0 +1,7 @@
+"""Operator implementations of the port; importing registers them."""
+
+from . import base  # noqa: F401
+from . import readers  # noqa: F401
+from . import random  # noqa: F401
+from . import decoders  # noqa: F401
+from . import image  # noqa: F401

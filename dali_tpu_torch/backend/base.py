@@ -1,0 +1,122 @@
+"""Operator base classes and execution contexts (counterpart of
+``dali_tpu/backend/base.py``).
+
+Host ops (``cpu``/``mixed``) run ``run_batch`` or ``stage_batch_multi`` over
+numpy batches; device ops (``gpu``) run ``lower`` on torch tensors on the
+pipeline's device, eagerly and in graph order. ``device_statics`` and
+``host_output_shapes`` keep the reference's host-side setup pass, so
+per-sample shapes never need a device readback.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+from .._schema import OpSpec
+from ..batch import DeviceBatch, HostBatch
+
+
+class HostCtx:
+    """Per-iteration host context."""
+
+    def __init__(self, pipeline, iteration: int, epoch: int):
+        self.pipeline = pipeline
+        self.batch_size = pipeline.max_batch_size
+        self.iteration = iteration
+        self.epoch = epoch
+        self._arg_batches: Dict[int, Dict[str, HostBatch]] = {}
+
+    def rng(self, op: "Operator", sample_idx: Optional[int] = None) -> np.random.Generator:
+        """Philox stream keyed by (seed [xor op_id << 32], iteration[, sample]).
+
+        Same keying as the reference (``dali_tpu/backend/base.py`` HostCtx.rng),
+        so both packages draw identical shuffles, crop windows and coin flips."""
+        seed = op.spec.GetArgument("seed", -1) if op.spec.schema.has_random_seed else -1
+        explicit = seed is not None and seed >= 0
+        if not explicit:
+            seed = self.pipeline.seed
+        k0 = np.uint64(seed)
+        if not explicit:
+            k0 = k0 ^ (np.uint64(op.op_id) << np.uint64(32))
+        k1 = np.uint64(self.iteration)
+        if sample_idx is not None:
+            k1 = k1 | (np.uint64(sample_idx) << np.uint64(40))
+        return np.random.Generator(np.random.Philox(key=np.array([k0, k1], dtype=np.uint64)))
+
+    def set_arg_batches(self, op_id: int, batches: Dict[str, HostBatch]):
+        self._arg_batches[op_id] = batches
+
+    def arg(self, op: "Operator", name: str, sample_idx: Optional[int] = None, default=None):
+        batches = self._arg_batches.get(op.op_id, {})
+        if name in batches:
+            b = batches[name]
+            if sample_idx is None:
+                return b
+            v = b.samples[sample_idx]
+            return v[()] if v.ndim == 0 else v
+        v = op.spec.GetArgument(name, default)
+        return default if v is None else v
+
+
+class DeviceCtx:
+    """Context of one device-phase run: statics and stacked argument inputs,
+    keyed by op id. The slice draws no device-side randomness, so unlike the
+    reference there is no device key."""
+
+    def __init__(self, arg_arrays, statics):
+        self._arg_arrays = arg_arrays
+        self._statics = statics
+
+    def static(self, op: "Operator"):
+        return self._statics.get(op.op_id)
+
+    def has_tensor_arg(self, op: "Operator", name: str) -> bool:
+        return name in self._arg_arrays.get(op.op_id, {})
+
+    def arg(self, op: "Operator", name: str, default=None):
+        arrs = self._arg_arrays.get(op.op_id, {})
+        if name in arrs:
+            return arrs[name]
+        v = op.spec.GetArgument(name, default)
+        return default if v is None else v
+
+
+class Operator:
+    schema_name: str = None
+    device: str = None
+
+    def __init__(self, spec: OpSpec, op_id: int):
+        self.spec = spec
+        self.op_id = op_id
+        self.pipeline = None
+
+    def run_batch(self, ctx: HostCtx, *inputs: HostBatch) -> Sequence[HostBatch]:
+        raise NotImplementedError(f"{type(self).__name__} has no host implementation")
+
+    def lower(self, dctx: DeviceCtx, *inputs: DeviceBatch) -> Sequence[DeviceBatch]:
+        raise NotImplementedError(f"{type(self).__name__} has no device implementation")
+
+    def device_statics(self, ctx: HostCtx, input_shapes, input_batches):
+        return None
+
+    def host_output_shapes(self, ctx: HostCtx, input_shapes, input_batches):
+        return None
+
+    def save_state(self) -> Optional[dict]:
+        return None
+
+    def restore_state(self, state: dict):
+        pass
+
+    def close(self):
+        pass
+
+    def __repr__(self):
+        return f"<{type(self).__name__} op_id={self.op_id} name={self.spec.name!r}>"
+
+
+class ReaderOperator(Operator):
+    def reader_meta(self) -> dict:
+        raise NotImplementedError

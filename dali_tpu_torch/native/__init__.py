@@ -1,0 +1,223 @@
+"""Host-half bindings of the hybrid JPEG path (counterpart of
+``dali_tpu/native/__init__.py`` for what the main path calls).
+
+* ``jpeg_coef_info`` / ``jpeg_coef_info_batch`` — the header scan, a numpy
+  marker parser of SOF0/SOF1/SOF2 streams (the reference asks libjpeg).
+* ``TaskPool``, ``coef_pack_batch``, ``pack_wire2`` — ctypes bindings of
+  ``build/libdali_tpu_torch_host.so`` (see ``build.py``), built from source at
+  first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import numpy as np
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+
+def host_lib():
+    """The host library, built and loaded once per process."""
+    global _LIB
+    from . import build
+
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build.host_library())
+            vp, ll = ctypes.c_void_p, ctypes.c_longlong
+            ip, lp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_long)
+            llp = ctypes.POINTER(ctypes.c_longlong)
+            lib.dali_tpu_pool_create.restype = vp
+            lib.dali_tpu_pool_create.argtypes = [ctypes.c_int]
+            lib.dali_tpu_pool_destroy.restype = None
+            lib.dali_tpu_pool_destroy.argtypes = [vp]
+            lib.dali_tpu_torch_coef_pack_batch.restype = ctypes.c_int
+            lib.dali_tpu_torch_coef_pack_batch.argtypes = (
+                [vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t),
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int]
+                + [ip] * 8 + [lp] * 4 + [vp] * 7 + [ip, llp, llp,
+                                                    ctypes.POINTER(ctypes.c_void_p), llp])
+            lib.dali_tpu_pack_wire2.restype = None
+            lib.dali_tpu_pack_wire2.argtypes = [vp, vp, ll, vp, ll, vp, vp, ll, ll, ll, ll,
+                                                vp, vp, vp, vp, vp, vp, llp]
+            _LIB = lib
+    return _LIB
+
+
+class TaskPool:
+    """Native worker pool (``tasking.cc``) owned by one decoder operator."""
+
+    def __init__(self, num_threads: int):
+        self._lib = host_lib()
+        self.handle = self._lib.dali_tpu_pool_create(int(num_threads))
+
+    def close(self):
+        if self.handle:
+            self._lib.dali_tpu_pool_destroy(self.handle)
+            self.handle = None
+
+
+# ------------------------------------------------------------------ header scan
+_SOF_SUPPORTED = (0xC0, 0xC1, 0xC2)
+_SOF_ANY = tuple(m for m in range(0xC0, 0xD0) if m not in (0xC4, 0xC8, 0xCC))
+
+
+def jpeg_coef_info(data) -> np.ndarray:
+    """[7] int32 (h, w, y_bh, y_bw, c_bh, c_bw, mode) of one JPEG stream.
+
+    mode 0 = 4:2:0, 1 = 4:4:4 (or grayscale), 2 = 4:2:2, -1 = anything the
+    hybrid wire cannot carry (not a baseline/extended/progressive 8-bit
+    stream, RGB colour space, other sampling, distinct Cb/Cr quant tables).
+    Block extents are MCU-padded, as the interleaved scan codes them."""
+    out = np.zeros(7, np.int32)
+    out[6] = -1
+    b = memoryview(np.ascontiguousarray(data).view(np.uint8).reshape(-1)) \
+        if not isinstance(data, (bytes, bytearray)) else memoryview(data)
+    n = len(b)
+    if n < 4 or b[0] != 0xFF or b[1] != 0xD8:
+        return out
+    pos, jfif, adobe = 2, False, None
+    while pos + 4 <= n:
+        if b[pos] != 0xFF:
+            return out
+        m = b[pos + 1]
+        if m == 0xFF:
+            pos += 1
+            continue
+        if m in (0xD8, 0x01) or 0xD0 <= m <= 0xD7:
+            pos += 2
+            continue
+        if m in (0xD9, 0xDA):
+            return out
+        seg_len = (b[pos + 2] << 8) | b[pos + 3]
+        seg = b[pos + 4:pos + 2 + seg_len]
+        if m == 0xE0 and bytes(seg[:5]) == b"JFIF\x00":
+            jfif = True
+        elif m == 0xEE and bytes(seg[:5]) == b"Adobe" and len(seg) >= 12:
+            adobe = seg[11]
+        elif m in _SOF_ANY:
+            if m not in _SOF_SUPPORTED or len(seg) < 6:
+                return out
+            prec, h, w, nc = seg[0], (seg[1] << 8) | seg[2], (seg[3] << 8) | seg[4], seg[5]
+            if prec != 8 or h == 0 or w == 0 or len(seg) < 6 + 3 * nc:
+                return out
+            comps = [(seg[6 + 3 * i], seg[7 + 3 * i] >> 4, seg[7 + 3 * i] & 15, seg[8 + 3 * i])
+                     for i in range(nc)]
+            if nc == 1:
+                yb, xb = (h + 7) // 8, (w + 7) // 8
+                out[:] = (h, w, yb, xb, yb, xb, 1)
+                return out
+            if nc != 3:
+                return out
+            ids = tuple(c[0] for c in comps)
+            rgb = (not jfif) and (adobe == 0 if adobe is not None else ids == (82, 71, 66))
+            samp = tuple((c[1], c[2]) for c in comps)
+            if rgb or comps[1][3] != comps[2][3]:
+                return out
+            if samp == ((2, 2), (1, 1), (1, 1)):
+                out[:] = (h, w, (h + 15) // 16 * 2, (w + 15) // 16 * 2,
+                          (h + 15) // 16, (w + 15) // 16, 0)
+            elif samp == ((2, 1), (1, 1), (1, 1)):
+                yb = (h + 7) // 8
+                out[:] = (h, w, yb, (w + 15) // 16 * 2, yb, (w + 15) // 16, 2)
+            elif samp == ((1, 1), (1, 1), (1, 1)):
+                yb, xb = (h + 7) // 8, (w + 7) // 8
+                out[:] = (h, w, yb, xb, yb, xb, 1)
+            return out
+        pos += 2 + seg_len
+    return out
+
+
+def jpeg_coef_info_batch(datas) -> np.ndarray:
+    """[n, 7] int32 header scan of a batch (rows as in ``jpeg_coef_info``)."""
+    return np.stack([jpeg_coef_info(d) for d in datas]) if len(datas) else np.zeros((0, 7), np.int32)
+
+
+def decode_idx_blob_bytes(mcus_x: int, mcus_y: int) -> int:
+    """Size of a per-file ROI decode-index blob (jpeg_huff.cc IdxHeader +
+    one IdxEntry per MCU + 1)."""
+    return 16 + (int(mcus_x) * int(mcus_y) + 1) * 24
+
+
+# ------------------------------------------------------------------ batch decode
+def _ptr(a: np.ndarray, ctype=ctypes.c_void_p):
+    return a.ctypes.data_as(ctype) if ctype is not ctypes.c_void_p else ctypes.c_void_p(a.ctypes.data)
+
+
+def coef_pack_batch(pool: TaskPool, datas, ky, kc, blocks, brc0, c_brc0, flat_lens,
+                    idx_blobs=None):
+    """File bytes -> sparse coefficient wire for the crop windows of a batch.
+
+    blocks [n, 4] = window (ybh, ybw, cbh, cbw); brc0 / c_brc0 [n, 2] = luma
+    and chroma block origins; flat_lens = ratcheted plane capacities.
+    Returns (y_dc, y_mask, y_vals, y_total, c_dc, c_mask, c_vals, c_total,
+    q [n, ky²+kc²] int32, offs). Raises ValueError if a sample does not
+    decode."""
+    lib = host_lib()
+    n = len(datas)
+    arrs = [np.ascontiguousarray(d).view(np.uint8).reshape(-1) for d in datas]
+    cols = [np.ascontiguousarray(blocks[:, j], np.int32) for j in range(4)]
+    cols += [np.ascontiguousarray(brc0[:, j], np.int32) for j in range(2)]
+    cols += [np.ascontiguousarray(c_brc0[:, j], np.int32) for j in range(2)]
+    y_n = cols[0].astype(np.int64) * cols[1]
+    c_n = cols[2].astype(np.int64) * cols[3]
+
+    def excl(v):
+        return np.concatenate([[0], np.cumsum(v)[:-1]]).astype(np.int64)
+
+    offs = {"y_dc": excl(y_n), "y_ac": excl(y_n * (ky * ky - 1)),
+            "c_dc": excl(2 * c_n), "c_ac": excl(2 * c_n * (kc * kc - 1))}
+    y_dc = np.empty((flat_lens[0],), np.int16)
+    y_mask = np.empty((flat_lens[0],), np.uint16)
+    y_vals = np.empty((flat_lens[1] + 16,), np.int8)
+    c_dc = np.empty((flat_lens[2],), np.int16)
+    c_mask = np.empty((flat_lens[2],), np.uint16)
+    c_vals = np.empty((flat_lens[3] + 16,), np.int8)
+    q = np.empty((n, ky * ky + kc * kc), np.uint16)
+    oks = (ctypes.c_int * n)()
+    y_total, c_total = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    if idx_blobs is not None:
+        idx_ptrs = (ctypes.c_void_p * n)(*[b.ctypes.data if b is not None else None for b in idx_blobs])
+        idx_caps = (ctypes.c_longlong * n)(*[b.nbytes if b is not None else 0 for b in idx_blobs])
+    else:
+        idx_ptrs = ctypes.cast(None, ctypes.POINTER(ctypes.c_void_p))
+        idx_caps = ctypes.cast(None, ctypes.POINTER(ctypes.c_longlong))
+    ip, lp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_long)
+    lib.dali_tpu_torch_coef_pack_batch(
+        pool.handle,
+        ctypes.cast((ctypes.c_void_p * n)(*[a.ctypes.data for a in arrs]),
+                    ctypes.POINTER(ctypes.c_char_p)),
+        (ctypes.c_size_t * n)(*[a.nbytes for a in arrs]), n, ky, kc,
+        *[_ptr(c, ip) for c in cols],
+        *[_ptr(offs[k], lp) for k in ("y_dc", "y_ac", "c_dc", "c_ac")],
+        _ptr(y_dc), _ptr(y_mask), _ptr(y_vals), _ptr(c_dc), _ptr(c_mask), _ptr(c_vals), _ptr(q),
+        oks, ctypes.byref(y_total), ctypes.byref(c_total), idx_ptrs, idx_caps)
+    bad = [i for i in range(n) if not oks[i]]
+    if bad:
+        raise ValueError(
+            f"hybrid JPEG decode failed for sample(s) {bad}: neither the baseline nor "
+            "the progressive entropy decoder reads them (dali_tpu_torch has no libjpeg "
+            "fallback)")
+    return (y_dc, y_mask, y_vals, int(y_total.value), c_dc, c_mask, c_vals,
+            int(c_total.value), q.astype(np.int32), offs)
+
+
+def pack_wire2(pool: TaskPool, y_vals, y_nnz, c_vals, c_nnz, y_dc, c_dc, ny_blocks,
+               nc_blocks, y_dc_len, c_dc_len, y_nibs, c_nibs, y_dc8, y_esc16, c_dc8, c_esc16):
+    """Nibble-pack both AC value streams (escapes in place at the front of
+    the vals buffers) and escape-pack both DC planes. Returns the escape
+    counts (y_val_esc, c_val_esc, y_dc_esc, c_dc_esc)."""
+    if not (y_nibs.shape[0] >= (y_nnz + 1) // 2 and c_nibs.shape[0] >= (c_nnz + 1) // 2
+            and y_dc8.shape[0] >= y_dc_len and c_dc8.shape[0] >= c_dc_len
+            and y_esc16.shape[0] >= ny_blocks and c_esc16.shape[0] >= nc_blocks):
+        raise ValueError("wire buffers undersized")
+    counts = (ctypes.c_longlong * 4)()
+    host_lib().dali_tpu_pack_wire2(
+        pool.handle, _ptr(y_vals), int(y_nnz), _ptr(c_vals), int(c_nnz), _ptr(y_dc), _ptr(c_dc),
+        int(ny_blocks), int(nc_blocks), int(y_dc_len), int(c_dc_len),
+        _ptr(y_nibs), _ptr(c_nibs), _ptr(y_dc8), _ptr(y_esc16), _ptr(c_dc8), _ptr(c_esc16),
+        counts)
+    return tuple(int(c) for c in counts)

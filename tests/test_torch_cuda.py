@@ -1,0 +1,122 @@
+"""Tests of dali_tpu_torch that need an NVIDIA CUDA card; each skips without
+one. This file imports neither jax nor dali_tpu, so it runs on a machine that
+has only PyTorch with CUDA:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+The CMN kernel (csrc/cmn.cu) is held against its plain PyTorch version on the
+card: float32 within 1e-5 (one fused multiply-add versus a multiply then an
+add), float16 within one half-precision step at the outputs' magnitude
+(2**-8 for |x| < 8; these outputs stay within (-3, 4.3)), since the two
+float32 values may round to neighbouring halves. The RN50 path on the card
+is held against the same pipeline on the CPU: labels equal, images within one
+uint8 step divided by the smallest std, on a bounded fraction of values (the
+resize's uint8 rounding may split a tie differently)."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from dali_tpu_torch import fn, pipeline_def, types
+from dali_tpu_torch.kernels import cmn
+
+pytestmark = pytest.mark.cuda
+
+CORPUS = os.path.join(os.path.dirname(__file__), "..", "dali_tpu_torch", "testdata", "rn50")
+MEAN = [123.675, 116.28, 103.53]
+STD = [58.395, 57.12, 57.375]
+LSB = 1.0 / min(STD) + 1e-4
+MAX_FLIP_FRACTION = 1e-3
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CMN kernel has no CPU mode")
+    return torch.device("cuda:0")
+
+
+def _case(seed, n=16, H=96, W=128, C=3, crop=(64, 80)):
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, (n, H, W, C), dtype=np.uint8)
+    cy = rng.integers(0, H - crop[0] + 1, n).astype(np.int32)
+    cx = rng.integers(0, W - crop[1] + 1, n).astype(np.int32)
+    cx[0] = 13  # not a multiple of 8
+    mirror = (np.arange(n) % 2).astype(np.int32)
+    ext_w = np.full(n, W, np.int32)
+    ext_w[1] = cx[1] + crop[1] - 7  # trimmed valid width on a mirrored sample
+    return data, cy, cx, mirror, ext_w
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("with_mirror", [True, False])
+@pytest.mark.parametrize("out_dtype,atol", [(torch.float32, 1e-5), (torch.float16, 2.0 ** -8)])
+def test_cuda_kernel_matches_plain(card, channels, with_mirror, out_dtype, atol):
+    data, cy, cx, mirror, ext_w = _case(7, C=channels)
+    mean, std = MEAN[:channels], STD[:channels]
+    args = [torch.from_numpy(x).to(card) for x in (data, cy, cx)]
+    args += [torch.from_numpy(mirror).to(card) if with_mirror else None, 64, 80, mean, std]
+    kw = dict(scale=1.5, shift=0.25, out_dtype=out_dtype, ext_w=torch.from_numpy(ext_w).to(card))
+    before = cmn.COUNTER.launches
+    got = cmn.crop_mirror_normalize(*args, **kw)
+    want = cmn.crop_mirror_normalize_plain(*args, **kw)
+    assert cmn.COUNTER.launches == before + 1
+    assert got.is_cuda and got.dtype == out_dtype and tuple(got.shape) == (16, channels, 64, 80)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+def test_cuda_kernel_raises_instead_of_falling_back(card):
+    data, cy, cx, mirror, ext_w = _case(3)
+    args = [torch.from_numpy(x).to(card) for x in (data, cy, cx, mirror)] + [64, 80, MEAN, STD]
+    before = cmn.COUNTER.launches
+    with pytest.raises(NotImplementedError, match="CHW"):
+        cmn.crop_mirror_normalize(*args, output_layout="HWC")
+    with pytest.raises(NotImplementedError, match="uint8"):
+        cmn.crop_mirror_normalize(args[0].float(), *args[1:])
+    with pytest.raises(NotImplementedError, match="contiguous"):
+        cmn.crop_mirror_normalize(args[0].transpose(1, 2), *args[1:])
+    assert cmn.COUNTER.launches == before
+
+
+def _rn50(device):
+    @pipeline_def(batch_size=8, num_threads=2, seed=42, device=device)
+    def rn50_train():
+        jpegs, labels = fn.readers.file(file_root=CORPUS, random_shuffle=True, name="Reader",
+                                        seed=1234)
+        images = fn.decoders.image_random_crop(jpegs, device="mixed", hybrid_device_decode=True,
+                                               hybrid_scale=2, seed=77)
+        images = fn.resize(images, resize_x=64, resize_y=64)
+        mirror = fn.random.coin_flip(probability=0.5, seed=5)
+        images = fn.crop_mirror_normalize(images, mirror=mirror, dtype=types.FLOAT,
+                                          output_layout="CHW", mean=MEAN, std=STD)
+        return images, labels
+
+    pipe = rn50_train()
+    pipe.build()
+    return pipe
+
+
+def _two_batches(device):
+    pipe = _rn50(device)
+    try:
+        return [(imgs.as_tensor(), labels.as_array()) for imgs, labels in
+                (pipe.run() for _ in range(2))]
+    finally:
+        pipe.shutdown()
+
+
+def test_rn50_on_card_matches_cpu(card):
+    before = cmn.COUNTER.launches
+    on_card = _two_batches(card)
+    assert cmn.COUNTER.launches == before + 2
+    on_cpu = _two_batches("cpu")
+    assert cmn.COUNTER.launches == before + 2  # the CPU pipeline runs the plain version
+    for (g_img, g_lab), (c_img, c_lab) in zip(on_card, on_cpu):
+        assert g_img.is_cuda and g_img.dtype == torch.float32
+        assert tuple(g_img.shape) == (8, 3, 64, 64)
+        np.testing.assert_array_equal(g_lab, c_lab)
+        diff = (g_img.cpu() - c_img).abs()
+        assert float(diff.max()) <= LSB
+        assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION

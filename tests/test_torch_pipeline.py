@@ -1,0 +1,197 @@
+"""The RN50 training path end to end in both packages on the CPU: the
+rn50_train pipeline of bench.py at the tools/hybrid_fixture.py shape (64x64
+output, hybrid_scale=2, ImageNet CMN constants), explicit seeds.
+
+Labels must be equal. Images agree within one uint8 step divided by the
+smallest std (0.0176): the decoded uint8 crops are equal, and the resize's
+uint8 rounding may split a tie differently (fraction bounded here, measured
+in PERF.md)."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import dali_tpu
+import dali_tpu_torch
+from dali_tpu_torch.plugin.pytorch import DALIClassificationIterator
+
+CORPUS = os.path.join(os.path.dirname(__file__), "..", "dali_tpu_torch", "testdata", "rn50")
+MEAN = [123.675, 116.28, 103.53]
+STD = [58.395, 57.12, 57.375]
+LSB = 1.0 / min(STD) + 1e-4
+MAX_FLIP_FRACTION = 1e-3
+BATCH = 8
+
+
+def _rn50(pkg, **kw):
+    fn, types = pkg.fn, pkg.types
+
+    @pkg.pipeline_def(batch_size=BATCH, num_threads=2, seed=42, **kw)
+    def rn50_train():
+        jpegs, labels = fn.readers.file(file_root=CORPUS, random_shuffle=True, name="Reader",
+                                        seed=1234)
+        images = fn.decoders.image_random_crop(jpegs, device="mixed", hybrid_device_decode=True,
+                                               hybrid_scale=2, seed=77)
+        images = fn.resize(images, resize_x=64, resize_y=64)
+        mirror = fn.random.coin_flip(probability=0.5, seed=5)
+        images = fn.crop_mirror_normalize(images, mirror=mirror, dtype=types.FLOAT,
+                                          output_layout="CHW", mean=MEAN, std=STD)
+        return images, labels
+
+    pipe = rn50_train()
+    pipe.build()
+    return pipe
+
+
+def _assert_close(got, want):
+    imgs_g, labels_g = got
+    imgs_w, labels_w = want
+    np.testing.assert_array_equal(labels_g, labels_w)
+    assert imgs_g.shape == imgs_w.shape == (BATCH, 3, 64, 64)
+    diff = np.abs(imgs_g - imgs_w)
+    assert diff.max() <= LSB
+    assert (diff > 1e-4).mean() <= MAX_FLIP_FRACTION
+
+
+def _ref_out(outs):
+    return np.asarray(outs[0].as_tensor()), np.asarray(outs[1].as_array())
+
+
+def _port_out(outs):
+    return outs[0].as_tensor().numpy(), outs[1].as_array()
+
+
+def test_rn50_two_iterations_match_dali_tpu():
+    ref = _rn50(dali_tpu)
+    port = _rn50(dali_tpu_torch, device="cpu")
+    try:
+        for _ in range(2):
+            _assert_close(_port_out(port.run()), _ref_out(ref.run()))
+    finally:
+        ref._executor.shutdown()
+        port.shutdown()
+
+
+def test_checkpoint_from_dali_tpu_resumes_in_port():
+    ref = _rn50(dali_tpu, enable_checkpointing=True)
+    try:
+        ref.run()
+        ckpt = ref.checkpoint()
+        want = _ref_out(ref.run())
+    finally:
+        ref._executor.shutdown()
+    assert json.loads(ckpt)["executor"]["iteration"] == 1
+    port = _rn50(dali_tpu_torch, device="cpu", checkpoint=ckpt)
+    try:
+        _assert_close(_port_out(port.run()), want)
+    finally:
+        port.shutdown()
+
+
+def test_port_checkpoint_round_trip():
+    port = _rn50(dali_tpu_torch, device="cpu", enable_checkpointing=True)
+    try:
+        port.run()
+        ckpt = port.checkpoint()
+        want = _port_out(port.run())
+    finally:
+        port.shutdown()
+    again = _rn50(dali_tpu_torch, device="cpu", checkpoint=ckpt)
+    try:
+        got = _port_out(again.run())
+    finally:
+        again.shutdown()
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+
+
+def test_classification_iterator_yields_tensors():
+    port = _rn50(dali_tpu_torch, device="cpu")
+    try:
+        it = DALIClassificationIterator(port, reader_name="Reader")
+        assert len(it) == 4  # 32 files / batch 8
+        batch = next(it)
+        assert isinstance(batch, list) and set(batch[0]) == {"data", "label"}
+        data, label = batch[0]["data"], batch[0]["label"]
+        assert data.dtype == torch.float32 and tuple(data.shape) == (BATCH, 3, 64, 64)
+        assert label.dtype == torch.int32 and tuple(label.shape) == (BATCH, 1)
+        assert bool(torch.isfinite(data).all())
+    finally:
+        port.shutdown()
+
+
+def test_port_never_imports_jax_or_dali_tpu():
+    code = (
+        "import sys\n"
+        "import dali_tpu_torch, dali_tpu_torch.plugin.pytorch, dali_tpu_torch.native.build\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    root = os.path.join(os.path.dirname(__file__), "..")
+    subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)
+
+
+def test_unported_names_raise_not_implemented():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dali_tpu_torch.fn.decoders.image
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dali_tpu_torch.fn.rotate
+
+    @dali_tpu_torch.pipeline_def(batch_size=2, device="cpu")
+    def p():
+        jpegs, _ = dali_tpu_torch.fn.readers.file(file_root=CORPUS)
+        return dali_tpu_torch.fn.decoders.image_random_crop(jpegs, device="mixed")
+
+    with pytest.raises(NotImplementedError, match="hybrid_device_decode"):
+        p().build()
+
+
+def test_cuda_device_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dali_tpu_torch.Pipeline(batch_size=2)
+
+
+def test_shutdown_with_full_queues_stops_threads():
+    """Both bounded queues full and the host stage blocked in put(): shutdown
+    still stops every thread and releases the decoder's task pool."""
+    port = _rn50(dali_tpu_torch, device="cpu", prefetch_queue_depth=1)
+    for _ in range(4):
+        port.schedule_run()
+    ex = port.executor
+    threads = list(ex._threads)
+    port.shutdown()
+    assert threads and not any(t.is_alive() for t in threads)
+    assert all(getattr(impl, "_pool", None) is None for impl in ex.impls.values())
+
+
+@pytest.mark.parametrize("policy,n_batches,last", [("FILL", 3, 12), ("DROP", 2, 12),
+                                                   ("PARTIAL", 3, 8)])
+def test_last_batch_policy_epoch(policy, n_batches, last):
+    """32 files at batch 12: the reference's epoch accounting
+    (base_iterator.py) per LastBatchPolicy, over two epochs with auto_reset."""
+    from dali_tpu_torch.plugin.pytorch import LastBatchPolicy
+
+    @dali_tpu_torch.pipeline_def(batch_size=12, num_threads=2, seed=3, device="cpu")
+    def p():
+        jpegs, labels = dali_tpu_torch.fn.readers.file(file_root=CORPUS, name="Reader")
+        img = dali_tpu_torch.fn.decoders.image_random_crop(
+            jpegs, device="mixed", hybrid_device_decode=True, hybrid_scale=4)
+        return dali_tpu_torch.fn.resize(img, resize_x=8, resize_y=8), labels
+
+    pipe = p()
+    try:
+        it = DALIClassificationIterator(pipe, reader_name="Reader", auto_reset=True,
+                                        last_batch_policy=LastBatchPolicy[policy])
+        assert len(it) == n_batches
+        for _ in range(2):
+            sizes = [b[0]["data"].shape[0] for b in it]
+            assert sizes == [12] * (n_batches - 1) + [last]
+    finally:
+        pipe.shutdown()
