@@ -15,7 +15,15 @@ on failure:
    for shape, dtype, device and finiteness; the CMN launch count of that run;
    images/s; per-stage device milliseconds of one instrumented batch;
 4. the same pipeline at a small batch on the card and on the CPU (plain
-   versions): labels equal, images within one uint8 step / std.
+   versions): labels equal, images within one uint8 step / std;
+5. the ASR mel front end of bench.py's audio lane at full width (batch 32,
+   16 kHz 16-bit clips of 4-10 s from the generated 128-clip corpus, window
+   320, hop 160, nfft 512, 80 mels, dB, normalize over time): 3 warm-up +
+   20 timed batches, each checked for device, dtype, canvas shape, host-known
+   per-sample shapes and finiteness on the valid region; clips/s, host
+   ms/batch, per-stage device ms of one instrumented batch; then batch 8 on
+   the card against the CPU: equal shapes, dB within 1e-3 dB and normalized
+   values within 1e-3.
 
 The second-to-last line is a JSON object with the kernel table; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest of
@@ -31,6 +39,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -40,6 +49,8 @@ WARMUP, TIMED = 3, 20
 MEAN = [0.485 * 255, 0.456 * 255, 0.406 * 255]
 STD = [0.229 * 255, 0.224 * 255, 0.225 * 255]
 LSB_OVER_STD = 1.0 / min(STD)  # one uint8 step after normalization
+AUDIO_BATCH, HOP, NMEL = 32, 160, 80
+AUDIO_TOL = 1e-3  # dB, and normalized units
 
 
 def require(cond, msg):
@@ -217,6 +228,108 @@ def reference_phase(file_list):
             "the card's output disagrees with the CPU reference path")
 
 
+def make_asr_pipe(root, batch, device):
+    """bench.py's asr_frontend on the WAV corpus; returns the decoded audio
+    (for its per-sample lengths), the dB mel and the normalized output."""
+    from dali_tpu_torch import fn, pipeline_def, types
+
+    @pipeline_def(batch_size=batch, seed=7, prefetch_queue_depth=2, device=device)
+    def asr_frontend():
+        enc, _ = fn.readers.file(file_root=root, file_filters=["*.wav"], random_shuffle=True,
+                                 name="R")
+        audio, _rate = fn.decoders.audio(enc, dtype=types.FLOAT, downmix=True, device="mixed")
+        pre = fn.preemphasis_filter(audio, preemph_coeff=0.97)
+        spec = fn.spectrogram(pre, nfft=512, window_length=320, window_step=HOP)
+        mel = fn.mel_filter_bank(spec, sample_rate=16000.0, nfilter=NMEL)
+        db = fn.to_decibels(mel, multiplier=10.0, cutoff_db=-80.0)
+        return audio, db, fn.normalize(db, axes=[1])
+
+    pipe = asr_frontend()
+    pipe.build()
+    return pipe
+
+
+def check_audio_batch(outs, batch):
+    audio, _, out = outs
+    data = out.as_tensor()
+    canvas = audio.as_tensor().shape[1]
+    require(data.is_cuda and data.dtype == torch.float32, f"mel batch on {data.device} as {data.dtype}")
+    require(tuple(data.shape) == (batch, NMEL, canvas // HOP + 1),
+            f"mel batch {tuple(data.shape)} for an audio canvas of {canvas}")
+    require(isinstance(out._shapes, np.ndarray), "per-sample shapes of the output are not host-known")
+    frames = [s[0] // HOP + 1 for s in audio.shape()]
+    require(out.shape() == [(NMEL, f) for f in frames], "per-sample shapes differ from len//160+1")
+    valid = torch.arange(data.shape[2], device=data.device)[None, :] < torch.tensor(
+        frames, device=data.device)[:, None]
+    require(bool((torch.isfinite(data) | ~valid[:, None, :]).all()),
+            "non-finite values in the valid region")
+
+
+def audio_phase(card):
+    from dali_tpu_torch.testdata.make_audio_corpus import ensure_corpus
+
+    t0 = time.perf_counter()
+    root = ensure_corpus()
+    print(f"audio corpus {os.path.relpath(root, HERE)}: 128 clips ready in "
+          f"{time.perf_counter() - t0:.2f} s")
+    pipe = make_asr_pipe(root, AUDIO_BATCH, "cuda:0")
+    ex = pipe.executor
+
+    def step():  # as an iterator runs: take one batch, schedule the next
+        check_audio_batch(pipe.outputs(), AUDIO_BATCH)
+        pipe.schedule_run()
+
+    pipe._prefetch()
+    for _ in range(WARMUP):
+        step()
+    torch.cuda.synchronize()
+    st0 = dict(ex.stats)
+    t0 = time.perf_counter()
+    for _ in range(TIMED):
+        step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    st = {k: v - st0[k] for k, v in ex.stats.items()}
+    for _ in range(pipe.prefetch_queue_depth):
+        pipe.outputs()
+    cps = TIMED * AUDIO_BATCH / dt
+    print(f"e2e asr_frontend batch {AUDIO_BATCH}: {cps:.1f} clips/s over {TIMED} batches ({card})")
+    print(f"during the timed batches: host phase {1e3 * st['host_phase_seconds'] / st['host_batches']:.2f}"
+          f" ms/batch over {st['host_batches']} batches ({os.cpu_count()} host cores); the device"
+          f" stage waited {1e3 * st['device_wait_seconds'] / TIMED:.2f} ms/batch for staged batches"
+          f" ({card})")
+    ex.record_stage_events = True
+    check_audio_batch(pipe.run(), AUDIO_BATCH)
+    torch.cuda.synchronize()
+    require(not ex.record_stage_events and ex.stage_events, "the instrumented batch did not run")
+    names = {"h2d": "H2D", "wire": "boundary", "_AudioToOutput": "int16->float",
+             "PreemphasisFilter": "preemphasis", "Spectrogram": "spectrogram",
+             "MelFilterBank": "mel", "ToDecibels": "dB", "Normalize": "normalize"}
+    stages = {names[s]: a.elapsed_time(b) for s, a, b in ex.stage_events}
+    print("audio stage ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f" ({card})")
+    pipe.shutdown()
+
+    outs = []
+    for device in ("cuda:0", "cpu"):
+        pipe = make_asr_pipe(root, 8, device)
+        outs.append([pipe.run() for _ in range(2)])
+        pipe.shutdown()
+    worst = [0.0, 0.0]
+    for got, want in zip(*outs):
+        for k in (1, 2):
+            g, w = got[k], want[k]
+            require(tuple(g.as_tensor().shape) == tuple(w.as_tensor().shape)
+                    and g.shape() == w.shape(), "card and CPU shapes differ")
+            gs, ws = g.as_cpu(), w.as_cpu()
+            for i in range(len(gs)):
+                worst[k - 1] = max(worst[k - 1], float(abs(gs.at(i) - ws.at(i)).max()))
+    print(f"asr_frontend card vs CPU (batch 8, 2 iterations): max abs diff dB {worst[0]:.3e}, "
+          f"normalized {worst[1]:.3e} (limit {AUDIO_TOL})")
+    require(max(worst) <= AUDIO_TOL, "the card's audio output disagrees with the CPU path")
+    return cps, stages
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -232,6 +345,9 @@ def main():
     file_list = write_file_list()
     launches, _, _ = e2e_phase(card, file_list)
     reference_phase(file_list)
+    t0 = time.perf_counter()
+    audio_phase(card)
+    print(f"audio phase: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "crop_mirror_normalize", "route": "cuda",
         "source": "dali_tpu_torch/csrc/cmn.cu",

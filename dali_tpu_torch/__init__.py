@@ -5,11 +5,19 @@ A ``@pipeline_def`` graph of ``fn.*`` operators runs as a host program
 C++) feeding a device program of PyTorch operations and hand-written CUDA
 kernels on one ``torch.device``; outputs are ``torch.Tensor``s on that device.
 
-Ported so far: the RN50 training path —
-``readers.file`` -> ``decoders.image_random_crop(device="mixed",
-hybrid_device_decode=True)`` -> ``resize`` (static size) -> ``random.coin_flip``
-+ ``crop_mirror_normalize`` -> ``plugin.pytorch`` iterators. Other ``fn``
-names raise ``NotImplementedError``; ROADMAP.md lists the order of the rest.
+Ported so far:
+
+* the RN50 training path — ``readers.file`` ->
+  ``decoders.image_random_crop(device="mixed", hybrid_device_decode=True)`` ->
+  ``resize`` (static size) -> ``random.coin_flip`` + ``crop_mirror_normalize``
+  -> ``plugin.pytorch`` iterators;
+* the ASR mel front end on ragged audio — ``readers.file`` ->
+  ``decoders.audio(device="mixed")`` (WAV) -> ``preemphasis_filter`` ->
+  ``spectrogram`` -> ``mel_filter_bank`` -> ``to_decibels`` -> ``normalize``,
+  and ``mfcc`` / ``nonsilent_region``.
+
+Other ``fn`` names raise ``NotImplementedError``; ROADMAP.md lists the order
+of the rest.
 This package imports torch, numpy and the standard library only.
 """
 
@@ -87,3 +95,23 @@ def _decoders_image_random_crop_fn(*inputs, device=None, hybrid_device_decode=Fa
 
 
 fn.decoders.image_random_crop = _decoders_image_random_crop_fn
+
+
+_default_decoders_audio = fn.decoders.audio
+
+
+def _decoders_audio_fn(*inputs, device=None, **kwargs):
+    """fn.decoders.audio; ``device='mixed'`` decodes on the host and returns
+    the audio on the device. 16-bit PCM crosses as int16 and becomes float
+    there (``_AudioStage`` + ``_AudioToOutput``)."""
+    if device != "mixed":
+        return _default_decoders_audio(*inputs, device=device, **kwargs)
+    name = kwargs.pop("name", None)
+    dtype = kwargs.get("dtype", None)
+    pcm, rate = _op_call("_AudioStage", device="mixed", inputs=inputs, name=name, **kwargs)
+    audio = _op_call("_AudioToOutput", device="gpu", inputs=[pcm],
+                     **({} if dtype is None else {"dtype": dtype}))
+    return audio, rate
+
+
+fn.decoders.audio = _decoders_audio_fn

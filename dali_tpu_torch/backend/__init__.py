@@ -5,3 +5,5 @@ from . import readers  # noqa: F401
 from . import random  # noqa: F401
 from . import decoders  # noqa: F401
 from . import image  # noqa: F401
+from . import audio  # noqa: F401
+from . import generic2  # noqa: F401

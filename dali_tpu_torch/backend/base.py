@@ -2,8 +2,9 @@
 ``dali_tpu/backend/base.py``).
 
 Host ops (``cpu``/``mixed``) run ``run_batch`` or ``stage_batch_multi`` over
-numpy batches; device ops (``gpu``) run ``lower`` on torch tensors on the
-pipeline's device, eagerly and in graph order. ``device_statics`` and
+numpy batches (the default ``run_batch`` calls ``run_sample`` per sample);
+device ops (``gpu``) run ``lower`` on torch tensors on the pipeline's device,
+eagerly and in graph order. ``device_statics`` and
 ``host_output_shapes`` keep the reference's host-side setup pass, so
 per-sample shapes never need a device readback.
 """
@@ -93,7 +94,19 @@ class Operator:
         self.pipeline = None
 
     def run_batch(self, ctx: HostCtx, *inputs: HostBatch) -> Sequence[HostBatch]:
+        """Default: ``run_sample`` per sample; a tuple result gives one
+        output batch per element."""
+        n = len(inputs[0]) if inputs else ctx.batch_size
+        results = [self.run_sample(ctx, i, *(b.samples[i] for b in inputs)) for i in range(n)]
+        n_out = len(results[0]) if isinstance(results[0], tuple) else 1
+        return [HostBatch([r[j] if isinstance(r, tuple) else r for r in results],
+                          layout=self.output_layout(j, inputs)) for j in range(n_out)]
+
+    def run_sample(self, ctx: HostCtx, idx: int, *inputs: np.ndarray):
         raise NotImplementedError(f"{type(self).__name__} has no host implementation")
+
+    def output_layout(self, output_idx: int, inputs) -> str:
+        return inputs[0].layout if inputs else ""
 
     def lower(self, dctx: DeviceCtx, *inputs: DeviceBatch) -> Sequence[DeviceBatch]:
         raise NotImplementedError(f"{type(self).__name__} has no device implementation")
@@ -115,6 +128,13 @@ class Operator:
 
     def __repr__(self):
         return f"<{type(self).__name__} op_id={self.op_id} name={self.spec.name!r}>"
+
+
+# Device ops whose per-sample extents equal their first input's (value-only
+# transforms): the host-side setup pass carries shapes through them, as the
+# reference does (``dali_tpu/backend/base.py`` SHAPE_PRESERVING_SCHEMAS).
+# Only the ported names are listed.
+SHAPE_PRESERVING_SCHEMAS = frozenset({"Normalize", "PreemphasisFilter", "ToDecibels"})
 
 
 class ReaderOperator(Operator):

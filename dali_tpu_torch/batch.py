@@ -8,7 +8,7 @@
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -25,6 +25,14 @@ class HostBatch:
     def __len__(self):
         return len(self.samples)
 
+    @property
+    def dtype(self):
+        return self.samples[0].dtype if self.samples else np.dtype(np.uint8)
+
+    @property
+    def ndim(self):
+        return self.samples[0].ndim if self.samples else 0
+
     def shapes(self) -> np.ndarray:
         return np.array([s.shape for s in self.samples], dtype=np.int32)
 
@@ -34,6 +42,35 @@ class HostBatch:
 
     def __repr__(self):
         return f"HostBatch(n={len(self.samples)}, layout={self.layout!r})"
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pad_and_stack(batch: HostBatch, canvas: Optional[Sequence[int]] = None,
+                  align: Union[Sequence[int], int] = 1, fill=0):
+    """Pad ragged samples onto a common canvas and stack -> (array [N, ...],
+    shapes [N, ndim]). The canvas is the per-dim max rounded up to ``align``,
+    and never smaller than ``canvas`` (the grow-only policy of the boundary)."""
+    n = len(batch.samples)
+    if n == 0:
+        raise ValueError("Cannot pad empty batch")
+    ndim = batch.ndim
+    shapes = batch.shapes()
+    if isinstance(align, int):
+        align = [align] * ndim
+    out_canvas = [round_up(int(shapes[:, d].max()), align[d]) for d in range(ndim)]
+    if canvas is not None:
+        out_canvas = [max(c, int(p)) for c, p in zip(out_canvas, canvas)]
+    # zeros() gets calloc's lazily zeroed pages; np.full writes the canvas once more
+    if isinstance(fill, (int, float)) and fill == 0:
+        out = np.zeros((n, *out_canvas), dtype=batch.dtype)
+    else:
+        out = np.full((n, *out_canvas), fill, dtype=batch.dtype)
+    for i, s in enumerate(batch.samples):
+        out[(i, *(slice(0, e) for e in s.shape))] = s
+    return out, shapes
 
 
 class Staged:
@@ -92,6 +129,10 @@ class DeviceBatch:
         self.shapes = shapes
         self.layout = layout or ""
 
+    def with_data(self, data: torch.Tensor) -> "DeviceBatch":
+        """Same shapes and layout, new values (a value-only op's output)."""
+        return DeviceBatch(data, self.shapes, self.layout)
+
     def extent(self, dim: int) -> torch.Tensor:
         """Per-sample valid extent of sample dimension ``dim`` as int32 [N]."""
         if self.shapes is None:
@@ -99,6 +140,20 @@ class DeviceBatch:
             return torch.full((n,), self.data.shape[1 + dim], dtype=torch.int32,
                               device=self.data.device)
         return self.shapes[:, dim]
+
+    def valid_mask(self) -> Optional[torch.Tensor]:
+        """Boolean [N, *canvas] mask of each sample's valid region, or None
+        when every sample fills the canvas."""
+        if self.shapes is None:
+            return None
+        nd = self.data.dim()
+        mask = None
+        for d in range(nd - 1):
+            idx = torch.arange(self.data.shape[d + 1], device=self.data.device)
+            m = (idx.reshape(*([1] * (d + 1)), -1, *([1] * (nd - d - 2)))
+                 < self.shapes[:, d].reshape(-1, *([1] * (nd - 1))))
+            mask = m if mask is None else mask & m
+        return mask
 
     def __repr__(self):
         return (f"DeviceBatch(shape={tuple(self.data.shape)}, layout={self.layout!r},"

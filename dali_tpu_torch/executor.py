@@ -3,10 +3,14 @@
 
 Two stage threads, as in the reference:
 
-* **host phase** — readers, the hybrid decoder's host half and cpu ops, then
+* **host phase** — readers, the host halves of mixed ops and cpu ops, then
   the boundary staging and the host-side setup pass of the device ops
   (statics and output shapes in numpy: nothing is read back from the device
-  per batch);
+  per batch). A ragged host
+  batch is padded onto a grow-only canvas per boundary edge: the canvas only
+  grows (rounded up to ``PAD_ALIGN`` on spatial dims), which bounds the
+  number of distinct device shapes, and so of cuFFT plans and allocator
+  sizes, as the reference bounds its recompiles;
 * **device phase** — each staged host buffer is copied once to the device
   (pinned, ``non_blocking``, on a copy stream that the compute stream waits
   on through an event), the coefficient wires are decoded, and every device
@@ -27,10 +31,15 @@ import numpy as np
 import torch
 
 from ._schema import get_operator_impl
-from .backend.base import DeviceCtx, HostCtx, Operator, ReaderOperator
-from .batch import DeviceBatch, Esc16Staged, HostBatch, SparseStaged, Staged
+from .backend.base import SHAPE_PRESERVING_SCHEMAS, DeviceCtx, HostCtx, Operator, ReaderOperator
+from .batch import DeviceBatch, Esc16Staged, HostBatch, SparseStaged, Staged, pad_and_stack
 from .kernels import wire
 from .tensors import TensorListCPU, TensorListGPU
+
+
+# Canvas alignment of spatial dims: dali_tpu's default ``pad_align``, so the
+# port's canvases, and so its output shapes, equal the reference's.
+PAD_ALIGN = 64
 
 
 def _edge_key(edge) -> Tuple[int, int]:
@@ -80,6 +89,8 @@ class Executor:
                         "see ROADMAP.md")
                 self.device_arg_edges.append((node.id, name, edge))
 
+        # grow-only padded canvas per ragged boundary edge
+        self._canvas: Dict[Tuple[int, int], List[int]] = {}
         self._iteration = 0
         self._epoch = 0
         self._consumed_ckpt = None
@@ -199,7 +210,7 @@ class Executor:
             impl = self.impls[node.id]
             ctx.set_arg_batches(node.id, {k: env[_edge_key(v)] for k, v in node.spec.arg_inputs.items()})
             ins = [env[_edge_key(e)] for e in node.spec.inputs]
-            if node.device == "mixed":
+            if node.device == "mixed" and hasattr(impl, "stage_batch_multi"):
                 outs = impl.stage_batch_multi(ctx, ins)
             else:
                 outs = impl.run_batch(ctx, *ins)
@@ -213,11 +224,11 @@ class Executor:
             k = _edge_key(edge)
             item = env[k]
             if isinstance(item, HostBatch):
-                if not item.is_uniform():
-                    raise NotImplementedError(
-                        "ragged host batches at the host->device boundary are not ported to "
-                        "dali_tpu_torch yet; see ROADMAP.md")
-                item = Staged(np.stack(item.samples), item.shapes(), item.layout)
+                # a uniform batch stages exact, unless the canvas has grown
+                align = 1 if item.is_uniform() else self._pad_align_for(item)
+                arr, shapes = pad_and_stack(item, canvas=self._canvas.get(k), align=align)
+                self._canvas[k] = list(arr.shape[1:])
+                item = Staged(arr, shapes, item.layout)
             boundary.append(item)
             shape_env[k] = item.shapes
 
@@ -233,6 +244,9 @@ class Executor:
             if st is not None:
                 statics[node.id] = st
             out_shapes = impl.host_output_shapes(ctx, in_shapes, in_batches)
+            if (out_shapes is None and node.spec.schema_name in SHAPE_PRESERVING_SCHEMAS
+                    and in_shapes and in_shapes[0] is not None):
+                out_shapes = [in_shapes[0]] * node.spec.num_outputs()
             for j, sh in enumerate(out_shapes or []):
                 if sh is not None:
                     shape_env[(node.id, j)] = np.asarray(sh)
@@ -246,6 +260,17 @@ class Executor:
             "out_shapes": {_edge_key(o): shape_env.get(_edge_key(o)) for o in self.graph.outputs
                            if o.device == "gpu"},
         }
+
+    def _pad_align_for(self, hb: HostBatch):
+        """Spatial dims align to ``PAD_ALIGN``; channel-like dims ('C', 'N', or
+        an unnamed trailing dim of at most 4) stay exact."""
+        align = [PAD_ALIGN] * hb.ndim
+        for d, name in enumerate(hb.layout[:hb.ndim]):
+            if name in ("C", "N"):
+                align[d] = 1
+        if not hb.layout and hb.ndim >= 1 and hb.samples[0].shape[-1] <= 4:
+            align[-1] = 1
+        return align
 
     # -- device phase -----------------------------------------------------------------
     def _event(self, stream=None):

@@ -11,7 +11,10 @@ add), float16 within one half-precision step at the outputs' magnitude
 float32 values may round to neighbouring halves. The RN50 path on the card
 is held against the same pipeline on the CPU: labels equal, images within one
 uint8 step divided by the smallest std, on a bounded fraction of values (the
-resize's uint8 rounding may split a tie differently)."""
+resize's uint8 rounding may split a tie differently). The ASR mel front end
+on the card is held against the same pipeline on the CPU: equal canvases and
+per-sample shapes, dB within 1e-3 dB and normalized values within 1e-3 on
+each sample's valid region (cuFFT and the card's matmul against the CPU's)."""
 
 import os
 
@@ -34,7 +37,7 @@ MAX_FLIP_FRACTION = 1e-3
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the CMN kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the kernel and the device path run only there")
     return torch.device("cuda:0")
 
 
@@ -120,3 +123,37 @@ def test_rn50_on_card_matches_cpu(card):
         diff = (g_img.cpu() - c_img).abs()
         assert float(diff.max()) <= LSB
         assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+
+
+def _asr(device, root):
+    @pipeline_def(batch_size=8, num_threads=2, seed=7, device=device)
+    def asr_frontend():
+        enc, _ = fn.readers.file(file_root=root, file_filters=["*.wav"], random_shuffle=True,
+                                 name="R", seed=3)
+        audio, _rate = fn.decoders.audio(enc, dtype=types.FLOAT, downmix=True, device="mixed")
+        audio = fn.preemphasis_filter(audio, preemph_coeff=0.97)
+        spec = fn.spectrogram(audio, nfft=512, window_length=320, window_step=160)
+        mel = fn.mel_filter_bank(spec, sample_rate=16000.0, nfilter=80)
+        db = fn.to_decibels(mel, multiplier=10.0, cutoff_db=-80.0)
+        return db, fn.normalize(db, axes=[1])
+
+    pipe = asr_frontend()
+    pipe.build()
+    try:
+        return [pipe.run() for _ in range(2)]
+    finally:
+        pipe.shutdown()
+
+
+def test_asr_frontend_on_card_matches_cpu(card, tmp_path):
+    from dali_tpu_torch.testdata.make_audio_corpus import write_corpus
+
+    root = write_corpus(str(tmp_path), 16, 5, (1.0, 3.0))
+    for got, want in zip(_asr(card, root), _asr("cpu", root)):
+        for g, w in zip(got, want):
+            assert g.as_tensor().is_cuda and g.dtype == torch.float32
+            assert tuple(g.as_tensor().shape) == tuple(w.as_tensor().shape)
+            assert g.shape() == w.shape()
+            gs, ws = g.as_cpu(), w.as_cpu()
+            for i in range(len(gs)):
+                np.testing.assert_allclose(gs.at(i), ws.at(i), rtol=0, atol=1e-3)
