@@ -23,7 +23,21 @@ on failure:
    per-sample shapes and finiteness on the valid region; clips/s, host
    ms/batch, per-stage device ms of one instrumented batch; then batch 8 on
    the card against the CPU: equal shapes, dB within 1e-3 dB and normalized
-   values within 1e-3.
+   values within 1e-3;
+6. EfficientNet-B0's training input with automatic augmentation at full width
+   (batch 256, 224x224): the RN50 reader, hybrid decode and resize, then
+   ``auto_aug.trivial_augment_wide`` (31 bins, fill 128; 3 warm-up + 20 timed
+   batches) and ``auto_aug.auto_augment_image_net`` (3 warm-up + 10 timed),
+   then mirror + CMN through ``DALIClassificationIterator`` with
+   ``enable_conditionals=True``; each batch checked for shape, dtype, device and
+   finiteness, the exact CMN launch count; images/s, host ms/batch by operator
+   schema, boundary edges and the H2D window, device ms of one instrumented
+   batch run alone, by stage (decode, resize, augmentation ops by schema,
+   merges, CMN), peak device memory and the phase's wall time; then both
+   recipes at batch 16 on the card against the CPU (labels equal, at least
+   99.9% of the augmentation output bit-equal), and each policy alone on the
+   same resized batch: TrivialAugment within one step on at most 1e-3 of
+   values, AutoAugment at least 99.9% bit-equal.
 
 The second-to-last line is a JSON object with the kernel table; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest of
@@ -51,6 +65,8 @@ STD = [0.229 * 255, 0.224 * 255, 0.225 * 255]
 LSB_OVER_STD = 1.0 / min(STD)  # one uint8 step after normalization
 AUDIO_BATCH, HOP, NMEL = 32, 160, 80
 AUDIO_TOL = 1e-3  # dB, and normalized units
+AUG_TIMED = {"trivial_augment_wide": 20, "auto_augment_image_net": 10}
+AUG_CHECK_BATCH = 16
 
 
 def require(cond, msg):
@@ -330,6 +346,169 @@ def audio_phase(card):
     return cps, stages
 
 
+def _policy(name, images):
+    from dali_tpu_torch import auto_aug
+
+    if name == "trivial_augment_wide":
+        return auto_aug.trivial_augment_wide(images, num_magnitude_bins=31, fill_value=128)
+    return auto_aug.auto_augment_image_net(images)
+
+
+def make_aug_pipe(file_list, batch, out, device, policy, with_aug=False):
+    """EfficientNet-B0's training input: RN50's reader, decode and resize,
+    then the automatic augmentation ``policy``, mirror and CMN. With
+    ``with_aug`` the uint8 augmentation output and its input are outputs too."""
+    from dali_tpu_torch import fn, pipeline_def, types
+
+    @pipeline_def(batch_size=batch, num_threads=os.cpu_count() or 1, seed=42,
+                  prefetch_queue_depth=2, device=device, enable_conditionals=True)
+    def effnet_train():
+        jpegs, labels = fn.readers.file(file_list=file_list, random_shuffle=True, name="Reader")
+        images = fn.decoders.image_random_crop(jpegs, device="mixed", hybrid_device_decode=True,
+                                               hybrid_scale=2)
+        resized = fn.resize(images, resize_x=out, resize_y=out)
+        augmented = _policy(policy, resized)
+        mirror = fn.random.coin_flip(probability=0.5)
+        images = fn.crop_mirror_normalize(augmented, mirror=mirror, dtype=types.FLOAT,
+                                          output_layout="CHW", mean=MEAN, std=STD)
+        return (images, labels, augmented, resized) if with_aug else (images, labels)
+
+    pipe = effnet_train()
+    pipe.build()
+    return pipe
+
+
+def make_aug_only_pipe(data, device, policy):
+    """The policy alone on a fixed uint8 batch."""
+    from dali_tpu_torch import fn, pipeline_def
+
+    @pipeline_def(batch_size=len(data), num_threads=1, seed=42, device=device,
+                  enable_conditionals=True)
+    def aug_only():
+        return _policy(policy, fn.external_source(source=lambda: data, batch=True,
+                                                  layout="HWC").gpu())
+
+    pipe = aug_only()
+    pipe.build()
+    return pipe
+
+
+def _stage_group(schema):
+    if schema in ("wire", "_JpegIdctSplitRRC"):
+        return "decode"
+    return {"h2d": "H2D", "Resize": "resize", "CropMirrorNormalize": "CMN",
+            "_conditional.Merge": "merges"}.get(schema, schema)
+
+
+def aug_run(card, file_list, policy):
+    """One policy at full width; returns its CMN launches and readings."""
+    from dali_tpu_torch.kernels import cmn
+    from dali_tpu_torch.plugin.pytorch import DALIClassificationIterator
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = make_aug_pipe(file_list, BATCH, OUT, "cuda:0", policy)
+    ex = pipe.executor
+    timed = AUG_TIMED[policy]
+    cmn.COUNTER.launches = 0
+    it = DALIClassificationIterator(pipe)
+    for _ in range(WARMUP):
+        check_batch(next(it))
+    torch.cuda.synchronize()
+    st0, by0 = dict(ex.stats), dict(ex.host_seconds_by_schema)
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        check_batch(next(it))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    st = {k: v - st0[k] for k, v in ex.stats.items()}
+    for _ in range(pipe.prefetch_queue_depth):
+        pipe.outputs()
+    torch.cuda.synchronize()
+    launches = cmn.COUNTER.launches
+    ran = WARMUP + timed + pipe.prefetch_queue_depth
+    require(launches == ran, f"{policy}: CMN kernel launched {launches} times for {ran} batches")
+    ips = timed * BATCH / dt
+    nb = st["host_batches"]
+    host_ms = 1e3 * st["host_phase_seconds"] / nb
+    by = sorted(((k, 1e3 * (v - by0.get(k, 0.0)) / nb) for k, v in ex.host_seconds_by_schema.items()),
+                key=lambda kv: -kv[1])
+    print(f"{policy} batch {BATCH}: {ips:.1f} images/s over {timed} batches; {len(ex.device_ops)} "
+          f"device ops, {len(ex.host_ops)} host ops; cmn launches {launches} ({card})")
+    print(f"{policy} host phase {host_ms:.2f} ms/batch over {nb} batches ({os.cpu_count()} host "
+          f"cores); device stage waited {1e3 * st['device_wait_seconds'] / timed:.2f} ms/batch; "
+          "host ms/batch by schema: " + ", ".join(f"{k} {v:.2f}" for k, v in by if v >= 0.05))
+
+    # one batch alone: no host phase competes with the device thread's launches
+    ex.record_stage_events = True
+    pipe.run()
+    torch.cuda.synchronize()
+    require(not ex.record_stage_events and ex.stage_events, "the instrumented batch did not run")
+    stages = {}
+    for s, a, b in ex.stage_events:
+        g = _stage_group(s)
+        stages[g] = stages.get(g, 0.0) + a.elapsed_time(b)
+    total = sum(v for k, v in stages.items() if k != "H2D")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{policy} boundary edges {len(ex.boundary_edges)}, H2D window {stages.get('H2D', 0):.3f} ms;"
+          f" device ms of one batch {total:.3f}: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(stages.items(), key=lambda kv: -kv[1]))
+          + f"; peak device memory {peak:.2f} GiB ({card})")
+    pipe.shutdown()
+    wall = time.perf_counter() - t_phase
+    print(f"{policy} phase wall time {wall:.1f} s")
+    return launches, ips
+
+
+def aug_check(policy, file_list):
+    """The recipe at batch 16 on the card and on the CPU (plain versions):
+    labels equal, and at least 99.9% of the augmentation output bit-equal (a
+    one-step tie of the resize can move a later posterize, solarize or
+    equalize by more). Then the policy alone on the card's resized batch,
+    card against CPU: TrivialAugment within one step on at most 1e-3 of
+    values, AutoAugment at least 99.9% bit-equal."""
+    outs = []
+    for device in ("cuda:0", "cpu"):
+        pipe = make_aug_pipe(file_list, AUG_CHECK_BATCH, OUT, device, policy, with_aug=True)
+        res = [pipe.run() for _ in range(2)]
+        outs.append([(r[0].as_tensor().cpu(), r[1].as_array(), r[2].as_tensor().cpu(),
+                      r[3].as_tensor().cpu()) for r in res])
+        pipe.shutdown()
+    same, frac_img = 1.0, 0.0
+    for (g_img, g_lab, g_aug, _), (c_img, c_lab, c_aug, _) in zip(*outs):
+        require((g_lab == c_lab).all(), f"{policy}: labels differ between card and CPU")
+        same = min(same, float((g_aug == c_aug).float().mean()))
+        frac_img = max(frac_img, float(((g_img - c_img).abs() > 1e-4).float().mean()))
+    print(f"{policy} recipe card vs CPU (batch {AUG_CHECK_BATCH}, 2 iterations): labels equal, "
+          f"augmentation output bit-equal on {same:.6f} of values (limit 0.999), CMN output "
+          f"> 1e-4 apart on {frac_img:.2e}")
+    require(same >= 0.999, f"{policy}: card and CPU recipe outputs disagree")
+
+    data = outs[0][0][3].numpy()
+    got = []
+    for device in ("cuda:0", "cpu"):
+        pipe = make_aug_only_pipe(data, device, policy)
+        got.append(pipe.run()[0].as_tensor().cpu().to(torch.int32))
+        pipe.shutdown()
+    d = (got[0] - got[1]).abs()
+    worst, frac = int(d.max()), float((d > 0).float().mean())
+    print(f"{policy} alone on the same input, card vs CPU: max diff {worst}, fraction differing "
+          f"{frac:.2e}")
+    if policy == "trivial_augment_wide":
+        require(worst <= 1 and frac <= 1e-3, f"{policy}: card and CPU disagree")
+    else:
+        require(frac <= 1e-3, f"{policy}: less than 99.9% of values bit-equal")
+
+
+def aug_phase(card, file_list):
+    launches = 0
+    for policy in AUG_TIMED:
+        launches += aug_run(card, file_list, policy)[0]
+    for policy in AUG_TIMED:
+        aug_check(policy, file_list)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -348,6 +527,10 @@ def main():
     t0 = time.perf_counter()
     audio_phase(card)
     print(f"audio phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches += aug_phase(card, file_list)
+    print(f"augmentation phase: {time.perf_counter() - t0:.1f} s; CMN launches of the main paths "
+          f"(RN50 and both policies): {launches}")
     print(json.dumps({"kernels": [{
         "name": "crop_mirror_normalize", "route": "cuda",
         "source": "dali_tpu_torch/csrc/cmn.cu",

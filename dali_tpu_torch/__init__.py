@@ -14,7 +14,13 @@ Ported so far:
 * the ASR mel front end on ragged audio — ``readers.file`` ->
   ``decoders.audio(device="mixed")`` (WAV) -> ``preemphasis_filter`` ->
   ``spectrogram`` -> ``mel_filter_bank`` -> ``to_decibels`` -> ``normalize``,
-  and ``mfcc`` / ``nonsilent_region``.
+  and ``mfcc`` / ``nonsilent_region``;
+* automatic augmentation (``dali_tpu_torch.auto_aug``: TrivialAugment Wide,
+  AutoAugment, RandAugment) and what it builds on: DataNode arithmetic,
+  ``math``, ``.gpu()``, ``types.Constant``, ``fn.external_source``,
+  ``enable_conditionals=True``, GPU tensor arguments, host-side operator
+  parameters, and the device warp, rotate, colour, blur, equalize and
+  reduction operators.
 
 Other ``fn`` names raise ``NotImplementedError``; ROADMAP.md lists the order
 of the rest.
@@ -52,8 +58,13 @@ def _op_call(schema_name, device="cpu", inputs=(), name=None, **kwargs):
 
 
 from . import backend  # noqa: E402,F401  (registers the ported operators)
+from . import _conditionals  # noqa: E402,F401
 from . import fn  # noqa: E402
+from . import math  # noqa: E402,F401
 from .pipeline import Pipeline, pipeline_def  # noqa: E402,F401
+from .backend.builtin import external_source as _external_source  # noqa: E402
+
+fn.external_source = _external_source
 
 
 def _decoders_image_random_crop_fn(*inputs, device=None, hybrid_device_decode=False,

@@ -61,8 +61,11 @@ class ArgDef:
     doc: str = ""
     default: Any = None
     tensor_ok: bool = False
+    required: bool = False
 
     def coerce(self, value):
+        if isinstance(value, _types.ScalarConstant):
+            value = value.value
         return None if value is None else _COERCERS[self.type](value)
 
 
@@ -95,6 +98,10 @@ class OpSchema:
         self.num_outputs = n
         return self
 
+    def AddArg(self, name, type, doc="", tensor_ok=False):
+        self.args[name] = ArgDef(name, type, doc, tensor_ok=tensor_ok, required=True)
+        return self
+
     def AddOptionalArg(self, name, type, doc="", default=None, tensor_ok=False):
         self.args[name] = ArgDef(name, type, doc, default=default, tensor_ok=tensor_ok)
         return self
@@ -110,6 +117,10 @@ class OpSchema:
 
     def MakeInternal(self):
         self.is_internal = True
+        return self
+
+    def MakeStateful(self):
+        self.is_stateless = False
         return self
 
     def MakeReader(self):
@@ -195,12 +206,16 @@ class OpSpec:
         self.args: Dict[str, Any] = {}
         self.arg_inputs: Dict[str, Any] = {}
         self.inputs: List[Any] = []
+        self._extra: Dict[str, Any] = {}  # implementation payloads (e.g. a source callable)
         if device not in self.schema.devices:
             raise ValueError(
                 f"Operator '{schema_name}' does not support device '{device}' "
                 f"(supported: {self.schema.devices})")
         for k, v in kwargs.items():
             if v is None:
+                continue
+            if k.startswith("_"):
+                self._extra[k] = v
                 continue
             arg = self.schema.args.get(k)
             if arg is None:
@@ -213,12 +228,15 @@ class OpSpec:
                 self.arg_inputs[k] = v
             else:
                 self.args[k] = arg.coerce(v)
+        for k, arg in self.schema.args.items():
+            if arg.required and k not in self.args and k not in self.arg_inputs:
+                raise TypeError(f"Operator '{schema_name}' missing required argument '{k}'")
 
     def GetArgument(self, name, default=_NO_DEFAULT):
         if name in self.args:
             return self.args[name]
         arg = self.schema.args.get(name)
-        if arg is not None:
+        if arg is not None and not arg.required:
             d = arg.default
             return type(d)(d) if isinstance(d, (list, dict)) else d
         if default is not OpSpec._NO_DEFAULT:

@@ -1,4 +1,5 @@
-"""Normalize (counterpart of ``dali_tpu/backend/generic2.py`` ``Normalize``).
+"""Normalize, Cat, LookupTable and the Full family (counterpart of
+``dali_tpu/backend/generic2.py``).
 
 out = scale * (in - mean) / stddev + shift, with mean and stddev taken over
 ``axes`` unless given, or over the whole batch with ``batch=True``. On the
@@ -124,3 +125,135 @@ class NormalizeGPU(Operator):
         sd = torch.where(sd == 0, torch.ones_like(sd), sd)
         out = spec.GetArgument("scale") * (x - m) / sd + spec.GetArgument("shift")
         return [inp.with_data(out.to(to_torch_type(spec.GetArgument("dtype"))))]
+
+
+# -- Cat (cpu) ---------------------------------------------------------------------------
+
+DALI_SCHEMA("Cat").DocStr("Concatenates samples along an axis.").NumInput(1, 16).NumOutput(
+    1).Devices("cpu", "gpu").AddOptionalArg("axis", ArgType.INT, "Join axis.", 0).AddOptionalArg(
+    "axis_name", ArgType.TENSOR_LAYOUT, "Join axis by name.", None)
+
+
+@register_operator("Cat", "cpu")
+class CatCPU(Operator):
+    def run_batch(self, ctx, *inputs):
+        # axis_name resolves against the first input's layout
+        self._in_layout = inputs[0].layout if inputs else ""
+        return super().run_batch(ctx, *inputs)
+
+    def run_sample(self, ctx, idx, *inputs):
+        axis = self.spec.GetArgument("axis", 0)
+        name = self.spec.GetArgument("axis_name", None)
+        if name:
+            axis = self._in_layout.find(name)
+            if axis < 0:
+                raise ValueError(f"Cat: axis_name={name!r} not found in input layout "
+                                 f"{self._in_layout!r}")
+        return np.concatenate(inputs, axis=axis)
+
+
+# -- LookupTable (cpu, gpu) ---------------------------------------------------------------
+
+DALI_SCHEMA("LookupTable").DocStr(
+    "Maps integer values through a table of `keys` -> `values`."
+).NumInput(1).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
+    "keys", ArgType.INT_VEC, "Keys.", None
+).AddOptionalArg(
+    "values", ArgType.FLOAT_VEC, "Values for the keys.", None
+).AddOptionalArg(
+    "default_value", ArgType.FLOAT, "Value for unmapped keys.", 0.0
+).AddOptionalArg("dtype", ArgType.DATA_TYPE, "Output dtype.", DALIDataType.FLOAT)
+
+
+class _LUTCommon(Operator):
+    """The 65,536-entry float32 table, built once per operator: it depends
+    only on the operator's arguments (the reference rebuilds it per sample)."""
+
+    _lut = None
+
+    def _table(self) -> np.ndarray:
+        if self._lut is None:
+            keys = self.spec.GetArgument("keys", None) or []
+            values = self.spec.GetArgument("values", None) or []
+            lut = np.full(0x10000, self.spec.GetArgument("default_value", 0.0), np.float32)
+            for k, v in zip(keys, values):
+                lut[int(k)] = v
+            self._lut = lut
+        return self._lut
+
+
+@register_operator("LookupTable", "cpu")
+class LookupTableCPU(_LUTCommon):
+    elementwise = True
+
+    def run_sample(self, ctx, idx, x):
+        dt = to_numpy_type(self.spec.GetArgument("dtype", DALIDataType.FLOAT))
+        return self._table()[x.astype(np.int64)].astype(dt)
+
+
+@register_operator("LookupTable", "gpu")
+class LookupTableGPU(_LUTCommon):
+    def lower(self, dctx, inp: DeviceBatch):
+        if getattr(self, "_lut_dev", None) is None or self._lut_dev.device != inp.data.device:
+            self._lut_dev = torch.from_numpy(self._table()).to(inp.data.device)
+        dt = to_torch_type(self.spec.GetArgument("dtype", DALIDataType.FLOAT))
+        # indexed as the reference's device program indexes: negative keys
+        # wrap from the end, keys past it clamp
+        idx = inp.data.to(torch.int32).to(torch.int64)
+        idx = torch.where(idx < 0, idx + 0x10000, idx).clamp(0, 0xFFFF)
+        return [inp.with_data(self._lut_dev[idx].to(dt))]
+
+
+# -- Full / Zeros / Ones and their *Like variants (cpu) ------------------------------------
+
+def _value_schema(name, doc):
+    return (DALI_SCHEMA(name).DocStr(doc).NumInput(0, 1).NumOutput(1).Devices("cpu", "gpu")
+            .AddOptionalArg("shape", ArgType.INT_VEC, "Output shape.", None, tensor_ok=True)
+            .AddOptionalArg("dtype", ArgType.DATA_TYPE, "Output dtype.", None)
+            .AddOptionalArg("layout", ArgType.STRING, "Layout of the output.", None))
+
+
+_value_schema("Zeros", "Batch of zero tensors.")
+_value_schema("Ones", "Batch of one tensors.")
+_value_schema("Full", "Batch filled with `fill_value`.").AddArg(
+    "fill_value", ArgType.FLOAT_VEC, "Fill value(s).", tensor_ok=True)
+_value_schema("ZerosLike", "Zeros with the input's shape.")
+_value_schema("OnesLike", "Ones with the input's shape.")
+_value_schema("FullLike", "`fill_value` with the input's shape.").AddArg(
+    "fill_value", ArgType.FLOAT_VEC, "Fill value(s).", tensor_ok=True)
+
+
+class _ValueOpCPU(Operator):
+    fill = 0.0
+    like = False
+
+    def output_layout(self, output_idx, inputs):
+        explicit = self.spec.GetArgument("layout", None)
+        if explicit:
+            return explicit
+        return inputs[0].layout if (self.like and inputs) else ""
+
+    def run_sample(self, ctx, idx, *inputs):
+        if self.like:
+            shape, base_dt = inputs[0].shape, inputs[0].dtype
+        else:
+            shp = ctx.arg(self, "shape", idx, None)
+            shape = tuple(int(v) for v in np.asarray(shp).reshape(-1)) if shp is not None else ()
+            base_dt = np.dtype(np.int32)
+        dt_arg = self.spec.GetArgument("dtype", None)
+        dt = to_numpy_type(dt_arg) if dt_arg is not None else base_dt
+        fv = self.fill
+        if fv is None:  # Full / FullLike
+            fv = np.asarray(ctx.arg(self, "fill_value", idx, 0.0))
+            if fv.size > 1:
+                return np.broadcast_to(fv.astype(dt), shape if shape else fv.shape).copy()
+            if dt_arg is None and not self.like:
+                dt = fv.dtype
+            fv = fv.reshape(-1)[0]
+        return np.full(shape, fv, dtype=dt)
+
+
+for _nm, _fill, _like in (("Zeros", 0.0, False), ("Ones", 1.0, False), ("Full", None, False),
+                          ("ZerosLike", 0.0, True), ("OnesLike", 1.0, True),
+                          ("FullLike", None, True)):
+    register_operator(_nm, "cpu")(type(_nm + "CPU", (_ValueOpCPU,), {"fill": _fill, "like": _like}))

@@ -5,16 +5,19 @@ Two stage threads, as in the reference:
 
 * **host phase** — readers, the host halves of mixed ops and cpu ops, then
   the boundary staging and the host-side setup pass of the device ops
-  (statics and output shapes in numpy: nothing is read back from the device
-  per batch). A ragged host
+  (parameters, statics, output shapes and layouts in numpy: nothing is read
+  back from the device per batch). A ragged host
   batch is padded onto a grow-only canvas per boundary edge: the canvas only
   grows (rounded up to ``PAD_ALIGN`` on spatial dims), which bounds the
   number of distinct device shapes, and so of cuFFT plans and allocator
   sizes, as the reference bounds its recompiles;
 * **device phase** — each staged host buffer is copied once to the device
   (pinned, ``non_blocking``, on a copy stream that the compute stream waits
-  on through an event), the coefficient wires are decoded, and every device
-  op's ``lower`` runs eagerly in graph order on the compute stream.
+  on through an event; small arrays packed into one buffer), the
+  coefficient wires are decoded, and every device op's ``lower`` runs
+  eagerly in graph order on the compute stream. Each device value is
+  dropped after its last consumer, so a predicated graph holds only its
+  live branches.
 
 The device phase of iteration k overlaps the host phase of iteration k+1;
 ``prefetch_queue_depth`` bounds both queues.
@@ -40,6 +43,13 @@ from .tensors import TensorListCPU, TensorListGPU
 # Canvas alignment of spatial dims: dali_tpu's default ``pad_align``, so the
 # port's canvases, and so its output shapes, equal the reference's.
 PAD_ALIGN = 64
+# host arrays up to this size cross to the device packed in one buffer
+PACK_BYTES = 1 << 16
+_TORCH_DTYPES = {np.dtype(k): v for k, v in (
+    (np.uint8, torch.uint8), (np.int8, torch.int8), (np.int16, torch.int16),
+    (np.uint16, torch.uint16), (np.int32, torch.int32), (np.uint32, torch.uint32),
+    (np.int64, torch.int64), (np.uint64, torch.uint64), (np.float16, torch.float16),
+    (np.float32, torch.float32), (np.float64, torch.float64), (np.bool_, torch.bool))}
 
 
 def _edge_key(edge) -> Tuple[int, int]:
@@ -67,9 +77,11 @@ class Executor:
         for node in graph.ops:
             if node.device == "cpu" and any(i.device == "gpu" for i in node.spec.inputs):
                 raise ValueError(f"CPU operator '{node.instance_name}' cannot consume GPU input")
-        # batch-size providers (readers) run first, as in the reference
+        # batch-size providers (readers, external sources) run first, as in
+        # the reference
         self._providers = {n.id for n in self.host_ops
-                           if n.spec.schema.is_reader and not n.spec.inputs}
+                           if (n.spec.schema.is_reader or n.spec.schema_name == "ExternalSource")
+                           and not n.spec.inputs and not n.spec.arg_inputs}
         self.host_ops.sort(key=lambda n: 0 if n.id in self._providers else 1)
 
         self.boundary_edges: List = []
@@ -80,14 +92,32 @@ class Executor:
             if edge.source.id in host_ids and k not in seen:
                 seen.add(k)
                 self.boundary_edges.append(edge)
+        # argument inputs of device ops: a CPU edge is stacked on the host and
+        # copied with the batch; a GPU edge (e.g. a per-sample reduction as
+        # contrast_center) resolves from the device env
         self.device_arg_edges = []
+        self.device_arg_dev_edges: Dict[Tuple[int, str], Tuple[int, int]] = {}
         for node in self.device_ops:
             for name, edge in node.spec.arg_inputs.items():
-                if edge.source.id not in host_ids or edge.device != "cpu":
-                    raise NotImplementedError(
-                        "device-side argument inputs are not ported to dali_tpu_torch yet; "
-                        "see ROADMAP.md")
-                self.device_arg_edges.append((node.id, name, edge))
+                if edge.source.id in host_ids:
+                    self.device_arg_edges.append((node.id, name, edge))
+                else:
+                    self.device_arg_dev_edges[(node.id, name)] = _edge_key(edge)
+        # each device value is released after its last consumer; graph
+        # outputs stay
+        out_keys = {_edge_key(o) for o in graph.outputs}
+        last_use: Dict[Tuple[int, int], int] = {}
+        for k, node in enumerate(self.device_ops):
+            for e in node.spec.inputs:
+                last_use[_edge_key(e)] = k
+            for name in node.spec.arg_inputs:
+                key = self.device_arg_dev_edges.get((node.id, name))
+                if key is not None:
+                    last_use[key] = k
+        self._release_after: List[List[Tuple[int, int]]] = [[] for _ in self.device_ops]
+        for key, k in last_use.items():
+            if key not in out_keys:
+                self._release_after[k].append(key)
 
         # grow-only padded canvas per ragged boundary edge
         self._canvas: Dict[Tuple[int, int], List[int]] = {}
@@ -108,6 +138,9 @@ class Executor:
         # cumulative host-clock seconds: host phase work, and the device
         # stage's wait for staged batches (its idle time on the host side)
         self.stats = {"host_batches": 0, "host_phase_seconds": 0.0, "device_wait_seconds": 0.0}
+        # cumulative host-clock seconds by operator schema: host ops, and the
+        # host-side setup pass of device ops
+        self.host_seconds_by_schema: Dict[str, float] = {}
 
     # -- lifecycle --------------------------------------------------------------------
     def start(self):
@@ -203,10 +236,16 @@ class Executor:
             self._out_q.put((result, staged.get("ckpt")))
 
     # -- host phase -------------------------------------------------------------------
+    def _timed(self, node, t0):
+        name = node.spec.schema_name
+        self.host_seconds_by_schema[name] = (self.host_seconds_by_schema.get(name, 0.0)
+                                             + time.perf_counter() - t0)
+
     def _host_phase(self, iteration: int) -> dict:
         ctx = HostCtx(self.pipeline, iteration, self._epoch)
         env: Dict[Tuple[int, int], object] = {}
         for node in self.host_ops:
+            t0 = time.perf_counter()
             impl = self.impls[node.id]
             ctx.set_arg_batches(node.id, {k: env[_edge_key(v)] for k, v in node.spec.arg_inputs.items()})
             ins = [env[_edge_key(e)] for e in node.spec.inputs]
@@ -218,8 +257,9 @@ class Executor:
                 env[(node.id, j)] = out
             if node.id in self._providers:
                 ctx.batch_size = len(outs[0])
+            self._timed(node, t0)
 
-        boundary, shape_env = [], {}
+        boundary, shape_env, layout_env = [], {}, {}
         for edge in self.boundary_edges:
             k = _edge_key(edge)
             item = env[k]
@@ -231,15 +271,27 @@ class Executor:
                 item = Staged(arr, shapes, item.layout)
             boundary.append(item)
             shape_env[k] = item.shapes
+            layout_env[k] = item.layout or ""
 
         args = [np.stack([np.asarray(s) for s in env[_edge_key(e)].samples])
                 for _, _, e in self.device_arg_edges]
-        statics = {}
+        statics, params = {}, {}
         for node in self.device_ops:
+            t0 = time.perf_counter()
             impl = self.impls[node.id]
             in_shapes = [shape_env.get(_edge_key(e)) for e in node.spec.inputs]
+            in_layouts = [layout_env.get(_edge_key(e), "") for e in node.spec.inputs]
+            ctx.op_in_layouts[node.id] = in_layouts
+            louts = impl.host_output_layouts(in_layouts) or [""]
+            for j in range(node.spec.num_outputs()):
+                layout_env[(node.id, j)] = louts[min(j, len(louts) - 1)] or ""
             in_batches = [env.get(_edge_key(e)) for e in node.spec.inputs]
             in_batches = [b if isinstance(b, HostBatch) else None for b in in_batches]
+            arg_b = {k: env.get(_edge_key(v)) for k, v in node.spec.arg_inputs.items()}
+            ctx.set_arg_batches(node.id, {k: v for k, v in arg_b.items() if isinstance(v, HostBatch)})
+            p = impl.host_params(ctx, in_shapes)
+            if p:
+                params[node.id] = {name: np.asarray(v) for name, v in p.items()}
             st = impl.device_statics(ctx, in_shapes, in_batches)
             if st is not None:
                 statics[node.id] = st
@@ -250,10 +302,12 @@ class Executor:
             for j, sh in enumerate(out_shapes or []):
                 if sh is not None:
                     shape_env[(node.id, j)] = np.asarray(sh)
+            self._timed(node, t0)
         return {
             "iteration": iteration,
             "boundary": boundary,
             "args": args,
+            "params": params,
             "statics": statics,
             "cpu_outputs": {_edge_key(o): env[_edge_key(o)] for o in self.graph.outputs
                             if o.device != "gpu"},
@@ -279,41 +333,69 @@ class Executor:
         return ev
 
     def _to_device(self, staged: dict, timing: bool):
-        """Copy every staged host buffer to the device once. Returns the
-        same nesting with tensors in place of numpy arrays."""
-        host = []
+        """Copy every staged host array to the device once. Arrays of at
+        most ``PACK_BYTES`` travel packed in one buffer (one pinned copy for
+        the many per-sample scalars of a conditional graph) and are views of
+        it on the device. Returns the boundary groups, the stacked arguments
+        and the parameters with tensors in place of numpy arrays."""
+        groups = []
         for item in staged["boundary"]:
             if isinstance(item, Esc16Staged):
-                host.append((item.dc8, item.esc, item.offsets, item.shapes))
+                groups.append((item.dc8, item.esc, item.offsets, item.shapes))
             elif isinstance(item, SparseStaged):
-                host.append((item.mask.view(np.int16), item.nibs, item.esc, item.offsets,
-                             item.shapes))
+                groups.append((item.mask.view(np.int16), item.nibs, item.esc, item.offsets,
+                               item.shapes))
             else:
-                host.append((item.array, item.shapes))
-        host.append(tuple(staged["args"]))
-        if self.device.type != "cuda":
-            return [tuple(torch.from_numpy(np.array(a)) for a in grp) for grp in host]
-        compute = torch.cuda.current_stream(self.device)
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            start = self._event(self._copy_stream) if timing else None
-            dev = [tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
-                         .to(self.device, non_blocking=True) for a in grp) for grp in host]
-            done = self._event(self._copy_stream) if timing else self._copy_stream.record_event()
-        compute.wait_event(done)
-        for grp in dev:
-            for t in grp:
+                groups.append((item.array, item.shapes))
+        groups.append(tuple(staged["args"]))
+        pkeys = [(op_id, name) for op_id in sorted(staged["params"])
+                 for name in sorted(staged["params"][op_id])]
+        groups.append(tuple(staged["params"][o][n] for o, n in pkeys))
+        flat = [a if a.flags.c_contiguous else a.copy()
+                for a in (np.asarray(a) for grp in groups for a in grp)]
+        small = [i for i, a in enumerate(flat) if a.nbytes <= PACK_BYTES]
+        offsets, pos = [], 0
+        for i in small:
+            offsets.append(pos)
+            pos += -(-flat[i].nbytes // 256) * 256
+        packed = np.empty(pos, np.uint8)
+        for i, off in zip(small, offsets):
+            packed[off:off + flat[i].nbytes] = flat[i].reshape(-1).view(np.uint8)
+        big = [i for i, a in enumerate(flat) if a.nbytes > PACK_BYTES]
+        if self.device.type == "cuda":
+            compute = torch.cuda.current_stream(self.device)
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._copy_stream):
+                start = self._event(self._copy_stream) if timing else None
+                moved = [torch.from_numpy(a).pin_memory().to(self.device, non_blocking=True)
+                         for a in [packed] + [flat[i] for i in big]]
+                done = self._event(self._copy_stream) if timing else self._copy_stream.record_event()
+            compute.wait_event(done)
+            for t in moved:
                 t.record_stream(compute)
-        if timing:
-            self.stage_events.append(("h2d", start, done))
-        return dev
+            if timing:
+                self.stage_events.append(("h2d", start, done))
+        else:
+            moved = [torch.from_numpy(np.array(a)) for a in [packed] + [flat[i] for i in big]]
+        out: List[torch.Tensor] = [None] * len(flat)
+        for i, off in zip(small, offsets):
+            a = flat[i]
+            out[i] = moved[0][off:off + a.nbytes].view(_TORCH_DTYPES[a.dtype]).reshape(a.shape)
+        for i, t in zip(big, moved[1:]):
+            out[i] = t
+        it = iter(out)
+        dev = [tuple(next(it) for _ in grp) for grp in groups]
+        params: Dict[int, Dict[str, torch.Tensor]] = {}
+        for (op_id, name), t in zip(pkeys, dev[-1]):
+            params.setdefault(op_id, {})[name] = t
+        return dev[:-2], dev[-2], params
 
     def _device_phase(self, staged: dict):
         timing = self.record_stage_events and self.device.type == "cuda"
         if timing:
             self.stage_events = []
-        dev = self._to_device(staged, timing)
+        dev, dev_args, params = self._to_device(staged, timing)
         t0 = self._event() if timing else None
         env: Dict[Tuple[int, int], DeviceBatch] = {}
         for edge, item, grp in zip(self.boundary_edges, staged["boundary"], dev):
@@ -333,14 +415,16 @@ class Executor:
         if timing:
             self.stage_events.append(("wire", t0, self._event()))
         arg_arrays: Dict[int, Dict[str, torch.Tensor]] = {}
-        for (op_id, name, _), arr in zip(self.device_arg_edges, dev[-1]):
+        for (op_id, name, _), arr in zip(self.device_arg_edges, dev_args):
             arg_arrays.setdefault(op_id, {})[name] = arr
-        dctx = DeviceCtx(arg_arrays, staged["statics"])
-        for node in self.device_ops:
+        dctx = DeviceCtx(arg_arrays, staged["statics"], params, self.device_arg_dev_edges, env)
+        for node, release in zip(self.device_ops, self._release_after):
             t0 = self._event() if timing else None
             outs = self.impls[node.id].lower(dctx, *[env[_edge_key(e)] for e in node.spec.inputs])
             for j, out in enumerate(outs):
                 env[(node.id, j)] = out
+            for key in release:
+                env.pop(key, None)
             if timing:
                 self.stage_events.append((node.spec.schema_name, t0, self._event()))
         if timing:

@@ -201,12 +201,17 @@ _CTOR_NAMES = ("batch_size", "num_threads", "device_id", "seed", "prefetch_queue
 
 
 def pipeline_def(fn=None, *, enable_conditionals=False, **pipeline_kwargs):
-    """Decorator turning a graph function into a Pipeline factory."""
-    if enable_conditionals:
-        raise NotImplementedError(
-            "enable_conditionals is not ported to dali_tpu_torch yet; see ROADMAP.md")
+    """Decorator turning a graph function into a Pipeline factory;
+    ``enable_conditionals=True`` rewrites its ``if``/``not``/``and``/``or``
+    over DataNodes into per-sample conditionals."""
 
     def actual_decorator(func):
+        graph_func = func
+        if enable_conditionals:
+            from ._conditionals import autograph_convert
+
+            graph_func = autograph_convert(func)
+
         @functools.wraps(func)
         def wrapper(*args, **kwargs):
             ctor_kwargs = dict(pipeline_kwargs)
@@ -214,7 +219,7 @@ def pipeline_def(fn=None, *, enable_conditionals=False, **pipeline_kwargs):
             for k, v in kwargs.items():
                 (ctor_kwargs if k in _CTOR_NAMES else fn_kwargs)[k] = v
             pipe = Pipeline(**ctor_kwargs)
-            pipe._graph_fn = lambda: func(*args, **fn_kwargs)
+            pipe._graph_fn = lambda: graph_func(*args, **fn_kwargs)
             return pipe
 
         wrapper.is_pipeline_def = True

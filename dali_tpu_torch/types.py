@@ -8,6 +8,7 @@ packages. ``to_torch_type`` replaces ``to_jnp_type``.
 from __future__ import annotations
 
 import enum
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -61,7 +62,13 @@ _TO_TORCH = {
     DALIDataType.BFLOAT16: torch.bfloat16,
 }
 
+_FROM_NUMPY = {v: k for k, v in _TO_NUMPY.items()}
+
 UINT8 = DALIDataType.UINT8
+UINT16 = DALIDataType.UINT16
+UINT32 = DALIDataType.UINT32
+UINT64 = DALIDataType.UINT64
+INT8 = DALIDataType.INT8
 INT16 = DALIDataType.INT16
 INT32 = DALIDataType.INT32
 INT64 = DALIDataType.INT64
@@ -75,6 +82,10 @@ def to_numpy_type(t) -> np.dtype:
     if isinstance(t, DALIDataType):
         return _TO_NUMPY[t]
     return np.dtype(t)
+
+
+def from_numpy_type(t) -> DALIDataType:
+    return _FROM_NUMPY[np.dtype(t)]
 
 
 def to_torch_type(t: DALIDataType) -> torch.dtype:
@@ -93,6 +104,9 @@ class DALIImageType(enum.IntEnum):
 
 
 RGB = DALIImageType.RGB
+BGR = DALIImageType.BGR
+GRAY = DALIImageType.GRAY
+YCbCr = DALIImageType.YCbCr
 
 
 class DALIInterpType(enum.IntEnum):
@@ -110,3 +124,66 @@ INTERP_CUBIC = DALIInterpType.INTERP_CUBIC
 INTERP_LANCZOS3 = DALIInterpType.INTERP_LANCZOS3
 INTERP_TRIANGULAR = DALIInterpType.INTERP_TRIANGULAR
 INTERP_GAUSSIAN = DALIInterpType.INTERP_GAUSSIAN
+
+
+@dataclass(frozen=True)
+class ScalarConstant:
+    """A typed scalar usable as an operator argument or in DataNode
+    arithmetic (counterpart of ``dali_tpu.types.ScalarConstant``)."""
+
+    value: object
+    dtype: DALIDataType = None
+
+    def __post_init__(self):
+        if self.dtype is None:
+            if isinstance(self.value, bool):
+                object.__setattr__(self, "dtype", DALIDataType.BOOL)
+            elif isinstance(self.value, int):
+                object.__setattr__(self, "dtype", DALIDataType.INT32)
+            elif isinstance(self.value, float):
+                object.__setattr__(self, "dtype", DALIDataType.FLOAT)
+            else:
+                raise TypeError(f"Unsupported scalar constant {self.value!r}")
+
+
+def Constant(value, dtype=None, shape=None, layout=None, device=None, **kwargs):
+    """A ``ScalarConstant`` for a scalar without a device, else a ``Constant``
+    operator node (counterpart of ``dali_tpu.types.Constant``)."""
+    if shape is None and np.isscalar(value) and not isinstance(value, (bytes, str)):
+        if dtype is not None and device is None:
+            return ScalarConstant(value, dtype if isinstance(dtype, DALIDataType)
+                                  else from_numpy_type(dtype))
+        if device is None:
+            return ScalarConstant(value)
+    from . import fn
+
+    arr = np.asarray(value)
+    if dtype is not None:
+        arr = arr.astype(to_numpy_type(dtype))
+    if shape is not None:
+        arr = np.broadcast_to(arr, shape).copy()
+    flat = arr.reshape(-1)
+    is_float = np.issubdtype(arr.dtype, np.floating)
+    return fn.constant(
+        fdata=[float(v) for v in flat] if is_float else None,
+        idata=None if is_float else [int(v) for v in flat],
+        shape=list(arr.shape),
+        dtype=from_numpy_type(arr.dtype) if arr.dtype in _FROM_NUMPY else None,
+        layout=layout or "",
+        device=device or "cpu",
+        **kwargs,
+    )
+
+
+class BatchInfo:
+    """Passed to per-batch ``external_source`` callbacks that take one
+    argument (counterpart of ``dali_tpu.types.BatchInfo``)."""
+
+    __slots__ = ("iteration", "epoch_idx")
+
+    def __init__(self, iteration, epoch_idx):
+        self.iteration = iteration
+        self.epoch_idx = epoch_idx
+
+    def __repr__(self):
+        return f"BatchInfo(iteration={self.iteration}, epoch_idx={self.epoch_idx})"

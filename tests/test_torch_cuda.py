@@ -14,7 +14,9 @@ uint8 step divided by the smallest std, on a bounded fraction of values (the
 resize's uint8 rounding may split a tie differently). The ASR mel front end
 on the card is held against the same pipeline on the CPU: equal canvases and
 per-sample shapes, dB within 1e-3 dB and normalized values within 1e-3 on
-each sample's valid region (cuFFT and the card's matmul against the CPU's)."""
+each sample's valid region (cuFFT and the card's matmul against the CPU's).
+Automatic augmentation and DataNode arithmetic on the card are held against
+the same graphs on the CPU (the stated limits are in each test)."""
 
 import os
 
@@ -157,3 +159,59 @@ def test_asr_frontend_on_card_matches_cpu(card, tmp_path):
             gs, ws = g.as_cpu(), w.as_cpu()
             for i in range(len(gs)):
                 np.testing.assert_allclose(gs.at(i), ws.at(i), rtol=0, atol=1e-3)
+
+
+def _aug_only(device, policy, data):
+    from dali_tpu_torch import auto_aug
+
+    aug = getattr(auto_aug, policy)
+
+    @pipeline_def(batch_size=len(data), num_threads=1, seed=42, device=device,
+                  enable_conditionals=True)
+    def p():
+        return aug(fn.external_source(source=lambda: data, batch=True, layout="HWC").gpu())
+
+    pipe = p()
+    try:
+        return [pipe.run()[0].as_tensor() for _ in range(2)]
+    finally:
+        pipe.shutdown()
+
+
+@pytest.mark.parametrize("policy", ["trivial_augment_wide", "auto_augment_image_net"])
+def test_auto_augment_on_card_matches_cpu(card, policy):
+    """The policy on the same uint8 batch on the card and on the CPU:
+    TrivialAugment within one step on at most 1e-3 of values (float
+    rounding of the warps and colour matrices), AutoAugment at least 99.9%
+    of values bit-equal (a tie flip can move a later posterize by more)."""
+    data = np.random.default_rng(5).integers(0, 256, (8, 96, 80, 3)).astype(np.uint8)
+    for got, want in zip(_aug_only(card, policy, data), _aug_only("cpu", policy, data)):
+        assert got.is_cuda and got.dtype == torch.uint8 and got.is_contiguous()
+        d = (got.cpu().to(torch.int32) - want.to(torch.int32)).abs()
+        if policy == "trivial_augment_wide":
+            assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+        else:
+            assert float((d > 0).float().mean()) <= 1e-3
+
+
+def test_arithmetic_dtypes_on_card_match_cpu(card):
+    """The reference's promotion holds on the card: uint8 & int32 literal is
+    int32, uint8 * float32 scalar is float32, comparisons are bool."""
+    data = np.random.default_rng(1).integers(1, 256, (4, 5, 3)).astype(np.uint8)
+    scale = np.float32([0.5, 1.5, 2.0, 3.0])
+    outs = []
+    for device in (card, "cpu"):
+        @pipeline_def(batch_size=4, num_threads=1, seed=1, device=device)
+        def p():
+            x = fn.external_source(source=lambda: data, batch=True).gpu()
+            s = fn.external_source(source=lambda: scale, batch=True)
+            return x & 0xF0, x * s, (x > 100) | (s > 1.0), x // 7 - 3 % x
+        pipe = p()
+        try:
+            outs.append([o.as_tensor() for o in pipe.run()])
+        finally:
+            pipe.shutdown()
+    for g, w in zip(*outs):
+        assert g.is_cuda and g.dtype == w.dtype
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    assert [o.dtype for o in outs[1]] == [torch.int32, torch.float32, torch.bool, torch.int32]
