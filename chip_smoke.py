@@ -6,9 +6,15 @@ on failure:
 1. card name and power limit; build both native libraries from the sources
    in the checkout and print their build seconds;
 2. the CMN kernel (``csrc/cmn.cu``) against its plain PyTorch version on the
-   card at the main path's shapes ([256, 224, 224, 3] uint8 -> [256, 3, 224,
-   224] float32, mixed mirror flags, a trimmed valid width), max abs diff
-   <= 1e-5, median times of both from CUDA events;
+   card at the main path's shapes ([256, 224, 224, 3] uint8, mixed mirror
+   flags, trimmed valid widths) in three forms (``tools/bench_cmn.py``):
+   float32 CHW (RN50), float16 CHW, and float16 HWC with ``pad_output``
+   (channels-last mixed precision); float32 within 1e-5, float16 within one
+   half-precision step. For each: the C entry point alone with the L2
+   flushed (median of 30, CUDA events), the wrapper, the plain version, the
+   bytes moved, the HBM bound and the share of it reached; and one
+   ``copy_`` of the permuted input to float32 CHW as a yardstick of the
+   bandwidth one PyTorch call reaches with the same bytes;
 3. the RN50 training path at full size (batch 256, hybrid_scale=2, 224x224,
    ImageNet mean/std, FLOAT CHW) on the committed 32-file corpus through
    ``DALIClassificationIterator``: 3 warm-up + 20 timed batches, each checked
@@ -16,6 +22,13 @@ on failure:
    images/s; per-stage device milliseconds of one instrumented batch;
 4. the same pipeline at a small batch on the card and on the CPU (plain
    versions): labels equal, images within one uint8 step / std;
+4b. the RN50 pipeline in the form channels-last mixed-precision trainers ask
+   for (CMN ``dtype=FLOAT16, output_layout="HWC", pad_output=True``) at
+   batch 256: 3 warm-up + 10 timed batches, each checked for shape [256,
+   224, 224, 4], dtype, device, finiteness and a zero fourth channel; the
+   exact CMN launch count; images/s; then batch 16 on the card against the
+   CPU: labels equal, values within one uint8 step / std plus one float16
+   step;
 5. the ASR mel front end of bench.py's audio lane at full width (batch 32,
    16 kHz 16-bit clips of 4-10 s from the generated 128-clip corpus, window
    320, hop 160, nfft 512, 80 mels, dB, normalize over time): 3 warm-up +
@@ -39,7 +52,9 @@ on failure:
    same resized batch: TrivialAugment within one step on at most 1e-3 of
    values, AutoAugment at least 99.9% bit-equal.
 
-The second-to-last line is a JSON object with the kernel table; the last is
+The kernel table (its CMN entry with the main form's numbers, the launches of
+each path and every form's readings) is the JSON object on the line before
+the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest of
 the repository beside it, the script exits non-zero before printing either.
 """
@@ -48,7 +63,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -67,6 +81,8 @@ AUDIO_BATCH, HOP, NMEL = 32, 160, 80
 AUDIO_TOL = 1e-3  # dB, and normalized units
 AUG_TIMED = {"trivial_augment_wide": 20, "auto_augment_image_net": 10}
 AUG_CHECK_BATCH = 16
+AMP_TIMED = 10
+F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
 
 def require(cond, msg):
@@ -79,21 +95,6 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, reps=20):
-    """Median milliseconds of ``fn()`` on the current stream (CUDA events)."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def build_phase():
@@ -110,30 +111,24 @@ def build_phase():
 
 def cmn_phase(card):
     from dali_tpu_torch.kernels import cmn
+    from dali_tpu_torch.tools import bench_cmn
 
-    g = torch.Generator(device="cuda").manual_seed(0)
-    data = torch.randint(0, 256, (BATCH, OUT, OUT, 3), dtype=torch.uint8, device="cuda", generator=g)
-    mirror = (torch.arange(BATCH, device="cuda") % 2).to(torch.int32)
-    ext_w = torch.full((BATCH,), OUT, dtype=torch.int32, device="cuda")
-    ext_w[::3] = OUT - 37  # trimmed valid width: mirror reverses only these columns
-    zeros = torch.zeros((BATCH,), dtype=torch.int32, device="cuda")
-    args = (data, zeros, zeros, mirror, OUT, OUT, MEAN, STD, 1.0, 0.0, "CHW", torch.float32, ext_w)
-    got = cmn.crop_mirror_normalize(*args)
-    want = cmn.crop_mirror_normalize_plain(*args)
-    torch.cuda.synchronize()
-    require(got.is_cuda and got.shape == (BATCH, 3, OUT, OUT) and got.dtype == torch.float32,
-            f"CMN kernel output {got.device} {tuple(got.shape)} {got.dtype}")
-    err = float((got - want).abs().max())
-    print(f"cmn kernel vs plain: max abs diff {err:.3e} (limit 1e-05)")
-    require(err <= 1e-5, f"CMN kernel disagrees with its plain version: {err}")
-    ms = time_ms(lambda: cmn.crop_mirror_normalize(*args))
-    plain_ms = time_ms(lambda: cmn.crop_mirror_normalize_plain(*args))
-    print(f"cmn [{BATCH},{OUT},{OUT},3] u8 -> f32 CHW: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"({card})")
-    return err, ms, plain_ms
+    forms, copy = bench_cmn.measure(cmn, reps=30)
+    require([f["name"] for f in forms] == [f[0] for f in bench_cmn.FORMS],
+            "the CMN kernel did not run every form")
+    for f in forms:
+        print(f"cmn {f['name']} -> {f['shape_out']}: kernel alone {f['ms']:.4f} ms (cold L2), "
+              f"wrapper {f['wrapper_ms']:.4f} ms, plain {f['plain_ms']:.4f} ms; {f['bytes']} "
+              f"bytes, bound {f['bound_ms']:.4f} ms, {100 * f['bound_share']:.1f}% of it; max "
+              f"abs diff vs plain {f['max_abs_err']:.3e} ({card})")
+        require(f["agrees"], f"CMN kernel disagrees with its plain version in form {f['name']}:"
+                f" max abs diff {f['max_abs_err']}")
+    print(f"yardstick, one copy_ of the permuted input into float32 CHW ({copy['bytes']} bytes): "
+          f"{copy['ms']:.4f} ms cold L2, {100 * copy['bound_share']:.1f}% of the bound ({card})")
+    return forms, copy
 
 
-def make_pipe(file_list, batch, out, device):
+def make_pipe(file_list, batch, out, device, amp=False):
     from dali_tpu_torch import fn, pipeline_def, types
 
     @pipeline_def(batch_size=batch, num_threads=os.cpu_count() or 1, seed=42,
@@ -144,8 +139,9 @@ def make_pipe(file_list, batch, out, device):
                                                hybrid_scale=2)
         images = fn.resize(images, resize_x=out, resize_y=out)
         mirror = fn.random.coin_flip(probability=0.5)
-        images = fn.crop_mirror_normalize(images, mirror=mirror, dtype=types.FLOAT,
-                                          output_layout="CHW", mean=MEAN, std=STD)
+        form = (dict(dtype=types.FLOAT16, output_layout="HWC", pad_output=True) if amp
+                else dict(dtype=types.FLOAT, output_layout="CHW"))
+        images = fn.crop_mirror_normalize(images, mirror=mirror, mean=MEAN, std=STD, **form)
         return images, labels
 
     return rn50_train()
@@ -165,10 +161,13 @@ def write_file_list() -> str:
     return path
 
 
-def check_batch(batch):
+def check_batch(batch, amp=False):
     data, label = batch[0]["data"], batch[0]["label"]
-    require(data.is_cuda and data.dtype == torch.float32, f"batch on {data.device} as {data.dtype}")
-    require(tuple(data.shape) == (BATCH, 3, OUT, OUT), f"batch shape {tuple(data.shape)}")
+    dtype, shape = (torch.float16, (BATCH, OUT, OUT, 4)) if amp else (torch.float32,
+                                                                    (BATCH, 3, OUT, OUT))
+    require(data.is_cuda and data.dtype == dtype, f"batch on {data.device} as {data.dtype}")
+    require(tuple(data.shape) == shape, f"batch shape {tuple(data.shape)}")
+    require(not amp or not bool(data[..., 3].any()), "the padded channel is not zero")
     require(tuple(label.shape) == (BATCH, 1) and not label.is_floating_point(),
             f"labels {tuple(label.shape)} {label.dtype}")
     require(bool(torch.isfinite(data).all()), "non-finite values in a batch")
@@ -223,25 +222,63 @@ def e2e_phase(card, file_list):
     return launches, ips, stages
 
 
-def reference_phase(file_list):
-    """The same pipeline at batch 16 on the card and on the CPU."""
+def reference_phase(file_list, amp=False):
+    """The same pipeline at batch 16 on the card and on the CPU; in the fp16
+    form the limits grow by one float16 step."""
     outs = []
     for device in ("cuda:0", "cpu"):
-        pipe = make_pipe(file_list, 16, OUT, device)
+        pipe = make_pipe(file_list, 16, OUT, device, amp)
         pipe.build()
         res = [pipe.run() for _ in range(2)]
         outs.append([(r[0].as_tensor().cpu(), r[1].as_array()) for r in res])
         pipe.shutdown()
     worst, frac = 0.0, 0.0
+    step = F16_STEP if amp else 1e-4
     for (g_img, g_lab), (c_img, c_lab) in zip(*outs):
         require((g_lab == c_lab).all(), "labels differ between card and CPU")
-        d = (g_img - c_img).abs()
+        d = (g_img.float() - c_img.float()).abs()
         worst = max(worst, float(d.max()))
-        frac = max(frac, float((d > 1e-4).float().mean()))
-    print(f"card vs CPU plain path (batch 16, 2 iterations): max abs diff {worst:.4f} "
-          f"(limit {LSB_OVER_STD:.4f}), fraction > 1e-4: {frac:.2e} (limit 1e-3)")
-    require(worst <= LSB_OVER_STD + 1e-4 and frac <= 1e-3,
+        frac = max(frac, float((d > step).float().mean()))
+    limit = LSB_OVER_STD + step
+    print(f"card vs CPU plain path{' (fp16 HWC form)' if amp else ''} (batch 16, 2 iterations): "
+          f"max abs diff {worst:.4f} (limit {limit:.4f}), fraction > {step:.1e}: {frac:.2e} "
+          "(limit 1e-3)")
+    require(worst <= limit and frac <= 1e-3,
             "the card's output disagrees with the CPU reference path")
+
+
+def amp_phase(card, file_list):
+    """RN50 in the channels-last mixed-precision form; returns its CMN
+    launches and images/s."""
+    from dali_tpu_torch.kernels import cmn
+    from dali_tpu_torch.plugin.pytorch import DALIClassificationIterator
+
+    t_phase = time.perf_counter()
+    pipe = make_pipe(file_list, BATCH, OUT, "cuda:0", amp=True)
+    pipe.build()
+    cmn.COUNTER.launches = 0
+    it = DALIClassificationIterator(pipe)
+    for _ in range(WARMUP):
+        check_batch(next(it), amp=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(AMP_TIMED):
+        check_batch(next(it), amp=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for _ in range(pipe.prefetch_queue_depth):
+        pipe.outputs()
+    torch.cuda.synchronize()
+    launches = cmn.COUNTER.launches
+    ran = WARMUP + AMP_TIMED + pipe.prefetch_queue_depth
+    require(launches == ran, f"AMP form: CMN kernel launched {launches} times for {ran} batches")
+    pipe.shutdown()
+    ips = AMP_TIMED * BATCH / dt
+    print(f"e2e rn50_train fp16 HWC pad_output batch {BATCH}: {ips:.1f} images/s over {AMP_TIMED}"
+          f" batches; cmn launches {launches} for {ran} batches ({card})")
+    reference_phase(file_list, amp=True)
+    print(f"AMP form phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, ips
 
 
 def make_asr_pipe(root, batch, device):
@@ -501,9 +538,9 @@ def aug_check(policy, file_list):
 
 
 def aug_phase(card, file_list):
-    launches = 0
+    launches = {}
     for policy in AUG_TIMED:
-        launches += aug_run(card, file_list, policy)[0]
+        launches[policy] = aug_run(card, file_list, policy)[0]
     for policy in AUG_TIMED:
         aug_check(policy, file_list)
     return launches
@@ -520,22 +557,29 @@ def main():
     print(f"card: {card}; torch: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     build_phase()
-    err, ms, plain_ms = cmn_phase(card)
+    forms, copy = cmn_phase(card)
     file_list = write_file_list()
-    launches, _, _ = e2e_phase(card, file_list)
+    launches = {"rn50": e2e_phase(card, file_list)[0]}
     reference_phase(file_list)
+    launches["rn50_fp16_hwc"] = amp_phase(card, file_list)[0]
     t0 = time.perf_counter()
     audio_phase(card)
     print(f"audio phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches += aug_phase(card, file_list)
-    print(f"augmentation phase: {time.perf_counter() - t0:.1f} s; CMN launches of the main paths "
-          f"(RN50 and both policies): {launches}")
+    launches.update(aug_phase(card, file_list))
+    print(f"augmentation phase: {time.perf_counter() - t0:.1f} s; CMN launches of the main paths: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{
         "name": "crop_mirror_normalize", "route": "cuda",
         "source": "dali_tpu_torch/csrc/cmn.cu",
         "replaces": "dali_tpu/kernels/cmn_pallas.py:58",
-        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": main_form["max_abs_err"], "ms": main_form["ms"],
+        "plain_ms": main_form["plain_ms"], "bound_ms": main_form["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "yardstick_copy_ms": copy["ms"],
+        "forms": [{k: f[k] for k in ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms",
+                                     "bound_share", "max_abs_err")} for f in forms]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 ``dali_tpu/backend/image.py`` ``ResizeGPU`` static-size path and
 ``CropMirrorNormalizeGPU`` 2-D path).
 
-Paths the slice does not run (per-sample resize sizes, ROI, filter
-overrides, sequences/volumes, the pad policy, cpu placements) raise
-``NotImplementedError`` pointing to ROADMAP.md.
+Paths not ported yet (per-sample resize sizes, ROI, filter overrides,
+sequences/volumes, tensor crop sizes, integer CMN outputs, cpu placements)
+raise ``NotImplementedError`` pointing to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -131,13 +131,22 @@ del _args
 
 @register_operator("CropMirrorNormalize", "gpu")
 class CropMirrorNormalizeGPU(Operator):
+    """2-D input: uint8/float16/float32 HWC -> float32/float16 CHW or HWC,
+    through one launch of the CMN kernel (``kernels/cmn.py``)."""
+
     def __init__(self, spec, op_id):
         super().__init__(spec, op_id)
-        if spec.GetArgument("out_of_bounds_policy") == "pad" or spec.GetArgument("pad_output"):
-            raise _not_ported("CropMirrorNormalize(gpu) pad policy / pad_output")
-        for nm in ("crop_h", "crop_w", "crop_d", "crop_pos_x", "crop_pos_y", "crop_pos_z"):
+        for nm in ("crop_h", "crop_w", "crop_d", "crop_pos_z"):
             if nm in spec.arg_inputs:
                 raise _not_ported(f"CropMirrorNormalize(gpu) tensor argument '{nm}'")
+        self.policy = spec.GetArgument("out_of_bounds_policy")
+
+        def floats(name):
+            return tuple(np.asarray(spec.GetArgument(name), np.float32).reshape(-1).tolist())
+
+        # tuples: the kernel wrapper folds them once for the operator's life
+        self.mean, self.std = floats("mean"), floats("std")
+        self.fill = floats("fill_values") if self.policy == "pad" else None
 
     def _crop_size(self):
         crop = self.spec.GetArgument("crop", None)
@@ -147,6 +156,9 @@ class CropMirrorNormalizeGPU(Operator):
         if ch and cw:
             return int(ch), int(cw)
         return None
+
+    def host_output_layouts(self, in_layouts):
+        return [self.spec.GetArgument("output_layout")]
 
     def host_output_shapes(self, ctx, input_shapes, input_batches):
         shapes = input_shapes[0] if input_shapes else None
@@ -159,22 +171,21 @@ class CropMirrorNormalizeGPU(Operator):
         cs = self._crop_size()
         if cs is None:
             oh, ow = h, w
-        elif self.spec.GetArgument("out_of_bounds_policy") == "trim_to_shape":
+        elif self.policy == "trim_to_shape":
             oh, ow = np.minimum(h, cs[0]), np.minimum(w, cs[1])
         else:
             bad = (h < cs[0]) | (w < cs[1])
-            if bad.any():
+            if self.policy == "error" and bad.any():
                 i = int(np.argmax(bad))
                 raise ValueError(
                     f"CropMirrorNormalize: crop window {cs[0]}x{cs[1]} out of bounds for "
                     f"sample {i} of extent {int(h[i])}x{int(w[i])} "
-                    "(out_of_bounds_policy='error'; use 'trim_to_shape')")
+                    "(out_of_bounds_policy='error'; use 'pad' or 'trim_to_shape')")
             oh, ow = np.full_like(h, cs[0]), np.full_like(w, cs[1])
+        oc = np.full_like(c, 4) if self.spec.GetArgument("pad_output") else c
         layout = self.spec.GetArgument("output_layout")
-        cols = {"CHW": [c, oh, ow], "HWC": [oh, ow, c]}.get(layout)
-        if cols is None:
-            raise _not_ported(f"CropMirrorNormalize output_layout {layout!r}")
-        return [np.stack(cols, axis=1)]
+        cols = {"CHW": [oc, oh, ow], "HWC": [oh, ow, oc]}.get(layout)
+        return None if cols is None else [np.stack(cols, axis=1)]
 
     def lower(self, dctx, inp: DeviceBatch):
         if inp.data.dim() != 4:
@@ -183,17 +194,22 @@ class CropMirrorNormalizeGPU(Operator):
         n, H, W, C = inp.data.shape
         crop_h, crop_w = self._crop_size() or (H, W)
         ext_h, ext_w = inp.extent(0), inp.extent(1)
+        truncate = spec.GetArgument("rounding") == "truncate"
 
-        def origin(pos, ext, size):
-            v = float(pos) * (ext - size).to(torch.float32)
-            if spec.GetArgument("rounding") == "truncate":
+        def origin(name, ext, size):
+            pos = dctx.arg(self, name, 0.5)
+            pos = pos.reshape(-1).to(torch.float32) if torch.is_tensor(pos) else float(pos)
+            v = pos * (ext - size).to(torch.float32)
+            if truncate:
                 v = torch.trunc(v)
             else:  # std::round: half away from zero
                 v = torch.trunc(v + torch.copysign(torch.full_like(v, 0.5), v))
-            return torch.clamp(v.to(torch.int32), min=0)
+            v = v.to(torch.int32)
+            # error / trim_to_shape: the window starts inside the image
+            return v if self.policy == "pad" else torch.clamp(v, min=0)
 
-        crop_y = origin(spec.GetArgument("crop_pos_y"), ext_h, crop_h)
-        crop_x = origin(spec.GetArgument("crop_pos_x"), ext_w, crop_w)
+        crop_y = origin("crop_pos_y", ext_h, crop_h)
+        crop_x = origin("crop_pos_x", ext_w, crop_w)
         mirror = dctx.arg(self, "mirror", 0)
         if dctx.has_tensor_arg(self, "mirror"):
             mirror = mirror.reshape(-1)
@@ -203,14 +219,14 @@ class CropMirrorNormalizeGPU(Operator):
             mirror = None
         layout = spec.GetArgument("output_layout")
         out = cmn_kernel.crop_mirror_normalize(
-            inp.data, crop_y, crop_x, mirror, crop_h, crop_w,
-            spec.GetArgument("mean"), spec.GetArgument("std"),
-            float(spec.GetArgument("scale")), float(spec.GetArgument("shift")),
-            layout, to_torch_type(spec.GetArgument("dtype")), ext_w=ext_w)
+            inp.data, crop_y, crop_x, mirror, crop_h, crop_w, self.mean, self.std,
+            float(spec.GetArgument("scale")), float(spec.GetArgument("shift")), layout,
+            to_torch_type(spec.GetArgument("dtype")), bool(spec.GetArgument("pad_output")),
+            ext_h=ext_h, ext_w=ext_w, fill=self.fill)
         shapes = None
-        if spec.GetArgument("out_of_bounds_policy") == "trim_to_shape" and inp.shapes is not None:
+        if self.policy == "trim_to_shape" and inp.shapes is not None:
             oh = torch.clamp(ext_h, max=crop_h)
             ow = torch.clamp(ext_w, max=crop_w)
-            oc = torch.full_like(oh, C)
+            oc = torch.full_like(oh, out.shape[1] if layout == "CHW" else out.shape[-1])
             shapes = torch.stack([oc, oh, ow] if layout == "CHW" else [oh, ow, oc], 1)
         return [DeviceBatch(out, shapes, layout)]

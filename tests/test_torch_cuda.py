@@ -5,13 +5,17 @@ has only PyTorch with CUDA:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 The CMN kernel (csrc/cmn.cu) is held against its plain PyTorch version on the
-card: float32 within 1e-5 (one fused multiply-add versus a multiply then an
-add), float16 within one half-precision step at the outputs' magnitude
-(2**-8 for |x| < 8; these outputs stay within (-3, 4.3)), since the two
-float32 values may round to neighbouring halves. The RN50 path on the card
-is held against the same pipeline on the CPU: labels equal, images within one
-uint8 step divided by the smallest std, on a bounded fraction of values (the
-resize's uint8 rounding may split a tie differently). The ASR mel front end
+card in every form it computes (uint8/float16/float32 input, CHW/HWC,
+pad_output, the clamped window and the pad policy, mirror on and off, batches
+of 1 and of more than 65535 samples): float32 within 1e-5 (one fused
+multiply-add versus a multiply then an add), float16 within one
+half-precision step at the value's magnitude, since the two float32 values
+may round to neighbouring halves. The RN50 path on the card, in its FLOAT CHW
+form and its channels-last mixed-precision form (FLOAT16 HWC, pad_output), is
+held against the same pipeline on the CPU: labels equal, images within one
+uint8 step divided by the smallest std (plus one float16 step in the fp16
+form), on a bounded fraction of values (the resize's uint8 rounding may split
+a tie differently). The ASR mel front end
 on the card is held against the same pipeline on the CPU: equal canvases and
 per-sample shapes, dB within 1e-3 dB and normalized values within 1e-3 on
 each sample's valid region (cuFFT and the card's matmul against the CPU's).
@@ -26,6 +30,7 @@ import torch
 
 from dali_tpu_torch import fn, pipeline_def, types
 from dali_tpu_torch.kernels import cmn
+from dali_tpu_torch.tools.bench_cmn import within_f16_step
 
 pytestmark = pytest.mark.cuda
 
@@ -72,20 +77,80 @@ def test_cuda_kernel_matches_plain(card, channels, with_mirror, out_dtype, atol)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
+MEAN4, STD4 = MEAN + [100.0], STD + [50.0]
+# (crop_h, crop_w, pad policy fill) on a 40 x 48 canvas; crop_w 33 leaves
+# every plane row off the 16-byte grid
+KERNEL_WINDOWS = {"clamp": (24, 33, None), "pad": (30, 53, [0.5, -1.0, 2.0, 4.0])}
+
+
+@pytest.mark.parametrize("window", sorted(KERNEL_WINDOWS))
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float16, torch.float32])
+@pytest.mark.parametrize("channels,pad_output", [(3, False), (3, True), (1, True), (4, False)])
+@pytest.mark.parametrize("layout", ["CHW", "HWC"])
+@pytest.mark.parametrize("with_mirror", [True, False])
+def test_cuda_kernel_matches_plain_every_form(card, window, in_dtype, channels, pad_output,
+                                              layout, with_mirror):
+    crop_h, crop_w, fill = KERNEL_WINDOWS[window]
+    rng = np.random.default_rng(11)
+    n, H, W = 9, 40, 48
+    data = torch.from_numpy(rng.random((n, H, W, channels)) * 255).to(in_dtype)
+    if fill is None:
+        cy = rng.integers(0, H - crop_h + 1, n)
+        cx = rng.integers(0, W - crop_w + 1, n)
+        cx[-1] = 60  # past the canvas: clamped
+    else:
+        cy = rng.integers(-12, H - 8, n)
+        cx = rng.integers(-30, W - 5, n)
+    ext_h = rng.integers(H // 2, H + 1, n)
+    ext_w = rng.integers(W // 2, W + 1, n)
+    mirror = (np.arange(n) % 3 != 1).astype(np.int32) if with_mirror else None
+    dev = [torch.from_numpy(np.asarray(v, np.int32)).to(card) if v is not None else None
+           for v in (cy, cx, mirror, ext_h, ext_w)]
+    for out_dtype in (torch.float32, torch.float16):
+        args = (data.to(card), dev[0], dev[1], dev[2], crop_h, crop_w, MEAN4[:channels],
+                STD4[:channels], 1.5, 0.25, layout, out_dtype, pad_output)
+        kw = dict(ext_h=dev[3], ext_w=dev[4], fill=None if fill is None else fill[:channels])
+        before = cmn.COUNTER.launches
+        got = cmn.crop_mirror_normalize(*args, **kw)
+        torch.cuda.synchronize()
+        assert cmn.COUNTER.launches == before + 1
+        want = cmn.crop_mirror_normalize_plain(*args, **kw)
+        assert got.is_cuda and got.dtype == out_dtype and got.shape == want.shape
+        if out_dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        else:
+            assert within_f16_step(got, want), float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("n,H,W,crop", [(1, 224, 224, (224, 224)), (70000, 6, 7, (4, 5))])
+def test_cuda_kernel_batch_edges(card, n, H, W, crop):
+    """One sample, and more samples than a grid's y or z dimension holds."""
+    g = torch.Generator(device=card).manual_seed(3)
+    data = torch.randint(0, 256, (n, H, W, 3), dtype=torch.uint8, device=card, generator=g)
+    cy = torch.randint(0, H - crop[0] + 1, (n,), dtype=torch.int32, device=card, generator=g)
+    cx = torch.randint(0, W - crop[1] + 1, (n,), dtype=torch.int32, device=card, generator=g)
+    mirror = torch.randint(0, 2, (n,), dtype=torch.int32, device=card, generator=g)
+    args = (data, cy, cx, mirror, *crop, MEAN, STD)
+    got = cmn.crop_mirror_normalize(*args)
+    torch.testing.assert_close(got, cmn.crop_mirror_normalize_plain(*args), rtol=0, atol=1e-5)
+
+
 def test_cuda_kernel_raises_instead_of_falling_back(card):
     data, cy, cx, mirror, ext_w = _case(3)
     args = [torch.from_numpy(x).to(card) for x in (data, cy, cx, mirror)] + [64, 80, MEAN, STD]
     before = cmn.COUNTER.launches
-    with pytest.raises(NotImplementedError, match="CHW"):
-        cmn.crop_mirror_normalize(*args, output_layout="HWC")
-    with pytest.raises(NotImplementedError, match="uint8"):
-        cmn.crop_mirror_normalize(args[0].float(), *args[1:])
+    with pytest.raises(NotImplementedError, match="integer output"):
+        cmn.crop_mirror_normalize(*args, out_dtype=torch.int16)
     with pytest.raises(NotImplementedError, match="contiguous"):
         cmn.crop_mirror_normalize(args[0].transpose(1, 2), *args[1:])
+    with pytest.raises(NotImplementedError, match="uint8/float16/float32"):
+        cmn.crop_mirror_normalize(args[0].to(torch.int16), *args[1:])
+    with pytest.raises(NotImplementedError, match="C <= 4"):
+        cmn.crop_mirror_normalize(args[0].repeat(1, 1, 1, 2), *args[1:])
     assert cmn.COUNTER.launches == before
 
 
-def _rn50(device):
+def _rn50(device, amp=False):
     @pipeline_def(batch_size=8, num_threads=2, seed=42, device=device)
     def rn50_train():
         jpegs, labels = fn.readers.file(file_root=CORPUS, random_shuffle=True, name="Reader",
@@ -94,8 +159,9 @@ def _rn50(device):
                                                hybrid_scale=2, seed=77)
         images = fn.resize(images, resize_x=64, resize_y=64)
         mirror = fn.random.coin_flip(probability=0.5, seed=5)
-        images = fn.crop_mirror_normalize(images, mirror=mirror, dtype=types.FLOAT,
-                                          output_layout="CHW", mean=MEAN, std=STD)
+        form = (dict(dtype=types.FLOAT16, output_layout="HWC", pad_output=True) if amp
+                else dict(dtype=types.FLOAT, output_layout="CHW"))
+        images = fn.crop_mirror_normalize(images, mirror=mirror, mean=MEAN, std=STD, **form)
         return images, labels
 
     pipe = rn50_train()
@@ -103,8 +169,8 @@ def _rn50(device):
     return pipe
 
 
-def _two_batches(device):
-    pipe = _rn50(device)
+def _two_batches(device, amp=False):
+    pipe = _rn50(device, amp)
     try:
         return [(imgs.as_tensor(), labels.as_array()) for imgs, labels in
                 (pipe.run() for _ in range(2))]
@@ -125,6 +191,24 @@ def test_rn50_on_card_matches_cpu(card):
         diff = (g_img.cpu() - c_img).abs()
         assert float(diff.max()) <= LSB
         assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+
+
+def test_rn50_channels_last_amp_on_card_matches_cpu(card):
+    """The form channels-last mixed-precision trainers ask for: FLOAT16 HWC
+    with the channels padded to 4; one CMN launch per batch."""
+    before = cmn.COUNTER.launches
+    on_card = _two_batches(card, amp=True)
+    assert cmn.COUNTER.launches == before + 2
+    on_cpu = _two_batches("cpu", amp=True)
+    step = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; these outputs stay within (-3, 3)
+    for (g_img, g_lab), (c_img, c_lab) in zip(on_card, on_cpu):
+        assert g_img.is_cuda and g_img.dtype == torch.float16
+        assert tuple(g_img.shape) == (8, 64, 64, 4) and g_img.is_contiguous()
+        np.testing.assert_array_equal(g_lab, c_lab)
+        assert not bool(g_img[..., 3].any())  # the padded channel is zero
+        diff = (g_img.cpu().float() - c_img.float()).abs()
+        assert float(diff.max()) <= LSB + step
+        assert float((diff > step).float().mean()) <= MAX_FLIP_FRACTION
 
 
 def _asr(device, root):
