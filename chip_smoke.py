@@ -50,7 +50,24 @@ on failure:
    recipes at batch 16 on the card against the CPU (labels equal, at least
    99.9% of the augmentation output bit-equal), and each policy alone on the
    same resized batch: TrivialAugment within one step on at most 1e-3 of
-   values, AutoAugment at least 99.9% bit-equal.
+   values, AutoAugment at least 99.9% bit-equal;
+7. eager mode, bench.py's ``bench_ndd`` recipe at full width through
+   ``dali_tpu_torch.experimental.dynamic``: eager ``ndd.readers.file`` over
+   the 256-entry file list at batch 256 and the captured frontend (hybrid
+   decode at ``hybrid_scale=2``, resize 224, coin-flip mirror, CMN FLOAT CHW;
+   the capture gets the host's cores as ``num_threads``, as rn50_train does):
+   3 warm-up + 10 timed steps, each checked for shape, dtype, device and
+   finiteness; the exact CMN launch count; images/s and its ratio to phase
+   3's rate. Then pure eager on the card (one decoded uint8 batch ->
+   ``as_batch`` -> ``.gpu()`` -> ``resize`` -> ``crop_mirror_normalize`` with
+   a mirror Batch) against the same calls under ``EvalContext(device="cpu")``,
+   within one uint8 step / std, and a capture of those calls against them;
+8. RN50 fed by a per-sample ``parallel=True`` external source (host cores - 1
+   worker processes, ``fork``) that reads JPEG bytes and labels from the file
+   list, through the same hybrid decode, resize, mirror and CMN and
+   ``DALIClassificationIterator``: 3 warm-up + 10 timed batches checked as in
+   phase 3, the exact CMN launch count, images/s and host ms/batch; then batch
+   16 on the card against the CPU.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings) is the JSON object on the line before
@@ -222,12 +239,14 @@ def e2e_phase(card, file_list):
     return launches, ips, stages
 
 
-def reference_phase(file_list, amp=False):
-    """The same pipeline at batch 16 on the card and on the CPU; in the fp16
-    form the limits grow by one float16 step."""
+def reference_phase(file_list, amp=False, make=None, what=""):
+    """The same pipeline (``make(batch, device)``, by default rn50_train's) at
+    batch 16 on the card and on the CPU; in the fp16 form the limits grow by
+    one float16 step."""
+    make = make or (lambda batch, device: make_pipe(file_list, batch, OUT, device, amp))
     outs = []
     for device in ("cuda:0", "cpu"):
-        pipe = make_pipe(file_list, 16, OUT, device, amp)
+        pipe = make(16, device)
         pipe.build()
         res = [pipe.run() for _ in range(2)]
         outs.append([(r[0].as_tensor().cpu(), r[1].as_array()) for r in res])
@@ -240,7 +259,8 @@ def reference_phase(file_list, amp=False):
         worst = max(worst, float(d.max()))
         frac = max(frac, float((d > step).float().mean()))
     limit = LSB_OVER_STD + step
-    print(f"card vs CPU plain path{' (fp16 HWC form)' if amp else ''} (batch 16, 2 iterations): "
+    print(f"card vs CPU plain path{' (fp16 HWC form)' if amp else ''}{what} (batch 16, 2 "
+          "iterations): "
           f"max abs diff {worst:.4f} (limit {limit:.4f}), fraction > {step:.1e}: {frac:.2e} "
           "(limit 1e-3)")
     require(worst <= limit and frac <= 1e-3,
@@ -546,6 +566,127 @@ def aug_phase(card, file_list):
     return launches
 
 
+def check_images(data, what):
+    require(data.is_cuda and data.dtype == torch.float32, f"{what}: {data.device} {data.dtype}")
+    require(tuple(data.shape) == (BATCH, 3, OUT, OUT), f"{what}: shape {tuple(data.shape)}")
+    require(bool(torch.isfinite(data).all()), f"{what}: non-finite values")
+
+
+def _within_one_step(got, want, what):
+    d = (got.float().cpu() - want.float().cpu()).abs()
+    worst, frac = float(d.max()), float((d > 1e-4).float().mean())
+    print(f"{what}: max abs diff {worst:.4f} (limit {LSB_OVER_STD + 1e-4:.4f}), fraction > 1e-4: "
+          f"{frac:.2e} (limit 1e-3)")
+    require(worst <= LSB_OVER_STD + 1e-4 and frac <= 1e-3, f"{what}: outputs disagree")
+
+
+def ndd_phase(card, file_list, rn50_ips):
+    """bench.py's bench_ndd at full width on the card; returns the CMN
+    launches of the captured path and of the eager path."""
+    import dali_tpu_torch.experimental.dynamic as ndd
+    from dali_tpu_torch import types
+    from dali_tpu_torch.kernels import cmn
+
+    cores = os.cpu_count() or 1
+    t_phase = time.perf_counter()
+    with ndd.EvalContext(seed=42, num_threads=cores, device="cuda:0"):
+        def read_batch():
+            return ndd.readers.file(file_list=file_list, random_shuffle=True, batch_size=BATCH,
+                                    name="R")
+
+        @ndd.capture(num_threads=cores)
+        def frontend(jpegs):
+            images = ndd.decoders.image_random_crop(
+                jpegs, device="mixed", hybrid_device_decode=True, hybrid_scale=2)
+            images = ndd.resize(images, resize_x=OUT, resize_y=OUT)
+            mirror = ndd.random.coin_flip(probability=0.5)
+            return ndd.crop_mirror_normalize(
+                images, mirror=mirror, dtype=types.FLOAT, output_layout="CHW", mean=MEAN,
+                std=STD)
+
+        def step():
+            jpegs, _labels = read_batch()
+            out = frontend(jpegs)
+            check_images(out.as_array(), "ndd step")
+            return out
+
+        cmn.COUNTER.launches = 0
+        for _ in range(WARMUP):
+            step()
+        torch.cuda.synchronize()
+        pipe = frontend._captured_pipelines[BATCH]
+        st0 = dict(pipe.executor.stats)
+        t0 = time.perf_counter()
+        for _ in range(AMP_TIMED):
+            step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        captured = cmn.COUNTER.launches
+        require(captured == WARMUP + AMP_TIMED,
+                f"ndd: CMN kernel launched {captured} times for {WARMUP + AMP_TIMED} steps")
+        st = {k: v - st0[k] for k, v in pipe.executor.stats.items()}
+        ips = AMP_TIMED * BATCH / dt
+        print(f"ndd_rn50 batch {BATCH}: {ips:.1f} images/s over {AMP_TIMED} steps, "
+              f"{100 * ips / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} in this run; captured "
+              f"pipeline host phase {1e3 * st['host_phase_seconds'] / st['host_batches']:.2f} "
+              f"ms/batch; cmn launches {captured} ({card})")
+
+        @ndd.capture(num_threads=cores)
+        def decode(jpegs):
+            return ndd.decoders.image_random_crop(jpegs, device="mixed",
+                                                  hybrid_device_decode=True, hybrid_scale=2)
+
+        decoded = decode(read_batch()[0]).cpu()
+        mirror = ndd.random.coin_flip(probability=0.5, batch_size=BATCH)
+        for p in list(frontend._captured_pipelines.values()) + list(
+                decode._captured_pipelines.values()):
+            p.shutdown()
+
+    def eager(x, m):
+        x = ndd.resize(x.gpu(), resize_x=OUT, resize_y=OUT)
+        return ndd.crop_mirror_normalize(x, mirror=m, dtype=types.FLOAT, output_layout="CHW",
+                                         mean=MEAN, std=STD)
+
+    samples = [decoded.at(i) for i in range(BATCH)]
+    with ndd.EvalContext(seed=42, device="cuda:0"):
+        cmn.COUNTER.launches = 0
+        on_card = eager(ndd.as_batch(samples, layout="HWC"), mirror).as_array()
+        torch.cuda.synchronize()
+        eager_launches = cmn.COUNTER.launches
+        require(eager_launches == 1, f"eager ndd: CMN kernel launched {eager_launches} times")
+        check_images(on_card, "eager ndd")
+        captured_eager = ndd.capture(eager)
+        via_capture = captured_eager(ndd.as_batch(samples, layout="HWC"), mirror).as_array()
+        for p in captured_eager._captured_pipelines.values():
+            p.shutdown()
+    with ndd.EvalContext(seed=42, device="cpu"):
+        on_cpu = eager(ndd.as_batch(samples, layout="HWC"), mirror).as_array()
+    _within_one_step(on_card, on_cpu, f"eager ndd card vs CPU (batch {BATCH})")
+    _within_one_step(via_capture, on_card, f"captured vs eager ndd on the card (batch {BATCH})")
+    print(f"ndd phase: {time.perf_counter() - t_phase:.1f} s")
+    return captured, eager_launches, ips
+
+
+def parallel_phase(card, file_list, rn50_ips):
+    """RN50 fed by a parallel external source
+    (``tools/bench_parallel_es.py``); returns its CMN launches."""
+    from dali_tpu_torch.tools import bench_parallel_es
+
+    t_phase = time.perf_counter()
+    r, launches = bench_parallel_es.measure(file_list, BATCH, WARMUP, AMP_TIMED, check=check_batch)
+    require(launches == r["batches"], f"parallel source: CMN kernel launched {launches} times for "
+            f"{r['batches']} batches")
+    print(f"rn50_parallel_es batch {BATCH}: {r['images_per_s']:.1f} images/s over {AMP_TIMED} "
+          f"batches ({100 * r['images_per_s'] / rn50_ips:.1f}% of rn50_train's rate in this run), "
+          f"{r['workers']} workers; host phase "
+          f"{r['host_ms_per_batch']:.2f} ms/batch; device stage waited "
+          f"{r['device_wait_ms_per_batch']:.2f} ms/batch; cmn launches {launches} ({card})")
+    reference_phase(file_list, make=lambda b, d: bench_parallel_es.make_pipe(file_list, b, d),
+                    what=" (parallel external source)")
+    print(f"parallel source phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, r["images_per_s"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -559,7 +700,8 @@ def main():
     build_phase()
     forms, copy = cmn_phase(card)
     file_list = write_file_list()
-    launches = {"rn50": e2e_phase(card, file_list)[0]}
+    launches, rn50_ips, _ = e2e_phase(card, file_list)
+    launches = {"rn50": launches}
     reference_phase(file_list)
     launches["rn50_fp16_hwc"] = amp_phase(card, file_list)[0]
     t0 = time.perf_counter()
@@ -567,8 +709,10 @@ def main():
     print(f"audio phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches.update(aug_phase(card, file_list))
-    print(f"augmentation phase: {time.perf_counter() - t0:.1f} s; CMN launches of the main paths: "
-          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    print(f"augmentation phase: {time.perf_counter() - t0:.1f} s")
+    launches["ndd_rn50_captured"], launches["ndd_eager"], _ = ndd_phase(card, file_list, rn50_ips)
+    launches["rn50_parallel_es"] = parallel_phase(card, file_list, rn50_ips)[0]
+    print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{
         "name": "crop_mirror_normalize", "route": "cuda",

@@ -17,10 +17,13 @@ Ported so far:
   and ``mfcc`` / ``nonsilent_region``;
 * automatic augmentation (``dali_tpu_torch.auto_aug``: TrivialAugment Wide,
   AutoAugment, RandAugment) and what it builds on: DataNode arithmetic,
-  ``math``, ``.gpu()``, ``types.Constant``, ``fn.external_source``,
-  ``enable_conditionals=True``, GPU tensor arguments, host-side operator
-  parameters, and the device warp, rotate, colour, blur, equalize and
-  reduction operators.
+  ``math``, ``.gpu()``, ``types.Constant``, ``enable_conditionals=True``,
+  GPU tensor arguments, host-side operator parameters, and the device warp,
+  rotate, colour, blur, equalize and reduction operators;
+* ``fn.external_source`` whole (``Pipeline.feed_input``, per-sample and
+  batch sources, ``cycle``, ``num_outputs``, ``parallel=True`` worker
+  processes) and eager mode, ``dali_tpu_torch.experimental.dynamic``
+  (``ndd``), with ``ndd.capture``.
 
 Other ``fn`` names raise ``NotImplementedError``; ROADMAP.md lists the order
 of the rest.
@@ -62,9 +65,9 @@ from . import _conditionals  # noqa: E402,F401
 from . import fn  # noqa: E402
 from . import math  # noqa: E402,F401
 from .pipeline import Pipeline, pipeline_def  # noqa: E402,F401
-from .backend.builtin import external_source as _external_source  # noqa: E402
+from .external_source import external_source  # noqa: E402
 
-fn.external_source = _external_source
+fn.external_source = external_source
 
 
 def _decoders_image_random_crop_fn(*inputs, device=None, hybrid_device_decode=False,

@@ -29,6 +29,7 @@ class ArgType:
     FLOAT_VEC = "float_vec"
     STRING_VEC = "str_vec"
     TENSOR_LAYOUT = "layout"
+    PYTHON_OBJECT = "object"  # a callback or other Python value, passed as is
 
 
 def _as_list(v):
@@ -51,6 +52,7 @@ _COERCERS = {
     ArgType.INT_VEC: lambda v: [int(x) for x in _as_list(v)],
     ArgType.FLOAT_VEC: lambda v: [float(x) for x in _as_list(v)],
     ArgType.STRING_VEC: lambda v: [str(x) for x in _as_list(v)],
+    ArgType.PYTHON_OBJECT: lambda v: v,
 }
 
 
@@ -76,6 +78,7 @@ class OpSchema:
         self.min_inputs = 0
         self.max_inputs = 0
         self.num_outputs = 1
+        self.output_fn = None
         self.args: Dict[str, ArgDef] = {}
         self.devices = ("cpu",)
         self.is_internal = False
@@ -96,6 +99,11 @@ class OpSchema:
 
     def NumOutput(self, n):
         self.num_outputs = n
+        return self
+
+    def OutputFn(self, fn):
+        """The number of outputs as a function of the OpSpec."""
+        self.output_fn = fn
         return self
 
     def AddArg(self, name, type, doc="", tensor_ok=False):
@@ -251,7 +259,8 @@ class OpSpec:
         return self
 
     def num_outputs(self):
-        return self.schema.num_outputs
+        fn = self.schema.output_fn
+        return fn(self) if fn is not None else self.schema.num_outputs
 
     def __repr__(self):
         return f"<OpSpec {self.schema_name}[{self.device}] name={self.name}>"

@@ -10,6 +10,7 @@ from . import color  # noqa: F401
 from . import warp  # noqa: F401
 from . import generic  # noqa: F401
 from . import generic2  # noqa: F401
+from . import generic_gpu  # noqa: F401
 from . import reductions  # noqa: F401
 from . import convolution  # noqa: F401
 from . import enhance  # noqa: F401

@@ -167,6 +167,9 @@ class Operator:
     def restore_state(self, state: dict):
         pass
 
+    def reset_epoch(self):
+        """Start the next epoch after ``Pipeline.reset()``."""
+
     def close(self):
         pass
 
@@ -180,8 +183,8 @@ class Operator:
 # Only the ported names are listed.
 SHAPE_PRESERVING_SCHEMAS = frozenset({
     "Brightness", "BrightnessContrast", "Contrast", "Hsv", "Hue", "Saturation",
-    "experimental.Equalize", "Cast", "LookupTable", "GaussianBlur", "Normalize",
-    "PreemphasisFilter", "ToDecibels", "_conditional.LogicalNot",
+    "experimental.Equalize", "Cast", "Copy", "Flip", "LookupTable", "GaussianBlur",
+    "Laplacian", "Normalize", "PreemphasisFilter", "ToDecibels", "_conditional.LogicalNot",
 })
 
 

@@ -1,5 +1,5 @@
-"""GaussianBlur on the device, 2-D HWC (counterpart of the gpu op of
-``dali_tpu/backend/convolution.py``).
+"""GaussianBlur (2-D HWC) and Laplacian on the device (counterpart of the gpu
+ops of ``dali_tpu/backend/convolution.py``).
 
 As in the reference, the per-sample separable kernels are built on the host
 (``host_params``; sigma and window size may be per-sample arguments), padded
@@ -112,3 +112,66 @@ class GaussianBlurGPU(Operator):
         out = blur_axis(out, w, inp.extent(1), 2)
         dt = self.spec.GetArgument("dtype", None)
         return [inp.with_data(saturate_cast(out, x.dtype if dt is None else to_torch_type(dt)))]
+
+
+DALI_SCHEMA("Laplacian").DocStr(
+    "Laplacian filter: the sum of second derivatives, each a separable "
+    "derivative window along its axis and smoothing windows along the others."
+).NumInput(1).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
+    "window_size", ArgType.INT_VEC, "Derivative window size.", [3]
+).AddOptionalArg(
+    "scale", ArgType.FLOAT_VEC, "Output scale.", [1.0]
+).AddOptionalArg(
+    "normalized_kernel", ArgType.BOOL, "Normalize the windows to unit gain.", False
+).AddOptionalArg("dtype", ArgType.DATA_TYPE, "Output dtype (default float32).", None)
+
+
+def laplacian_windows(size: int):
+    """(derivative, smoothing) windows of an odd ``size``: [1, -2, 1]
+    convolved with a binomial of ``size - 3``, and a binomial of ``size - 1``
+    (OpenCV's Sobel windows)."""
+    deriv = np.array([1.0, -2.0, 1.0], np.float32)
+    for _ in range((size - 3) // 2):
+        deriv = np.convolve(deriv, [1.0, 2.0, 1.0]).astype(np.float32)
+    smooth = np.array([1.0], np.float32)
+    for _ in range((size - 1) // 2):
+        smooth = np.convolve(smooth, [1.0, 2.0, 1.0]).astype(np.float32)
+    return deriv, smooth
+
+
+@register_operator("Laplacian", "gpu")
+class LaplacianGPU(Operator):
+    """[N, H, W, C] images, [N, F, H, W, C] sequences (per frame) and
+    [N, D, H, W, C] volumes (layout starting with "D"); reflect-101 borders
+    at each sample's extent."""
+
+    def lower(self, dctx, inp: DeviceBatch):
+        x = inp.data
+        if x.dim() not in (4, 5):
+            raise NotImplementedError(f"Laplacian(gpu) on {x.dim() - 1}-D samples is not ported "
+                                      "to dali_tpu_torch yet; see ROADMAP.md (Queue 1)")
+        size = int(self.spec.GetArgument("window_size")[0])
+        n = x.shape[0]
+        deriv, smooth = (torch.from_numpy(w).to(x.device)[None].expand(n, -1)
+                         for w in laplacian_windows(size))
+        # the spatial axes of the batch tensor, and the shape columns of each
+        if x.dim() == 4:
+            axes, cols = (1, 2), (0, 1)
+        elif inp.layout.startswith("D"):
+            axes, cols = (1, 2, 3), (0, 1, 2)
+        else:  # a sequence: a 2-D Laplacian per frame
+            axes, cols = (2, 3), (1, 2)
+        if self.spec.GetArgument("normalized_kernel"):
+            scale = 2.0 ** (-(size * len(axes)) + len(axes) + 2)
+        else:
+            scale = float(self.spec.GetArgument("scale")[0])
+        img = x.to(torch.float32)
+        out = None
+        for d_axis in axes:  # the derivative axis; smoothing along the others
+            part = img
+            for axis, col in zip(axes, cols):
+                part = blur_axis(part, deriv if axis == d_axis else smooth, inp.extent(col), axis)
+            out = part if out is None else out + part
+        dt = self.spec.GetArgument("dtype", None)
+        return [inp.with_data(saturate_cast(out * scale,
+                                            torch.float32 if dt is None else to_torch_type(dt)))]

@@ -1,6 +1,6 @@
-"""Resize and CropMirrorNormalize on the device (counterpart of
-``dali_tpu/backend/image.py`` ``ResizeGPU`` static-size path and
-``CropMirrorNormalizeGPU`` 2-D path).
+"""Resize, CropMirrorNormalize and Flip on the device (counterpart of
+``dali_tpu/backend/image.py`` ``ResizeGPU`` static-size path,
+``CropMirrorNormalizeGPU`` 2-D path and ``FlipGPU``).
 
 Paths not ported yet (per-sample resize sizes, ROI, filter overrides,
 sequences/volumes, tensor crop sizes, integer CMN outputs, cpu placements)
@@ -230,3 +230,72 @@ class CropMirrorNormalizeGPU(Operator):
             oc = torch.full_like(oh, out.shape[1] if layout == "CHW" else out.shape[-1])
             shapes = torch.stack([oc, oh, ow] if layout == "CHW" else [oh, ow, oc], 1)
         return [DeviceBatch(out, shapes, layout)]
+
+
+DALI_SCHEMA("Flip").DocStr(
+    "Flips images horizontally, vertically or (volumes) depthwise."
+).NumInput(1).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
+    "horizontal", ArgType.INT, "Flip horizontally.", 1, tensor_ok=True
+).AddOptionalArg(
+    "vertical", ArgType.INT, "Flip vertically.", 0, tensor_ok=True
+).AddOptionalArg(
+    "depthwise", ArgType.INT, "Flip the depth axis of DHWC volumes.", 0, tensor_ok=True
+)
+
+
+def _reversed_index(flag: torch.Tensor, size: int, ext: torch.Tensor) -> torch.Tensor:
+    """[N, size] source index of each position: reversed inside each
+    sample's extent where its flag is set, the identity elsewhere."""
+    pos = torch.arange(size, device=ext.device)[None, :]
+    ext = ext.to(torch.int64)[:, None]
+    return torch.where((flag[:, None] != 0) & (pos < ext), ext - 1 - pos, pos)
+
+
+@register_operator("Flip", "gpu")
+class FlipGPU(Operator):
+    """Per-sample flags; a ragged sample flips within its valid extent.
+    [N, H, W, C] images, [N, F, H, W, C] sequences (H and W of each frame)
+    and [N, D, H, W, C] volumes (layout starting with "D")."""
+
+    def lower(self, dctx, inp: DeviceBatch):
+        data = inp.data
+        n, dev = data.shape[0], data.device
+        if data.dim() not in (4, 5):
+            raise _not_ported(f"Flip(gpu) on {data.dim() - 1}-D samples")
+
+        def flag(name, default):
+            v = dctx.arg(self, name, default)
+            f = (v.reshape(-1).to(dev) if torch.is_tensor(v)
+                 else torch.tensor([int(v)], device=dev))
+            return f.expand(n) if f.numel() == 1 else f
+
+        h, v = flag("horizontal", 1), flag("vertical", 0)
+        vol = data.dim() == 5 and inp.layout.startswith("D")
+        if vol:
+            d = flag("depthwise", 0)
+        if inp.shapes is None:
+            # axes counted from the end: W = -2, H = -3 (HWC, FHWC, DHWC alike)
+            bshape = (n,) + (1,) * (data.dim() - 1)
+            ax_h = data.dim() - 3
+            out = torch.where(h.reshape(bshape) != 0, data.flip(ax_h + 1), data)
+            out = torch.where(v.reshape(bshape) != 0, out.flip(ax_h), out)
+            if vol:
+                out = torch.where(d.reshape(bshape) != 0, out.flip(1), out)
+            return [inp.with_data(out)]
+        b = torch.arange(n, device=dev)
+        if data.dim() == 4:
+            H, W = data.shape[1:3]
+            rows = _reversed_index(v, H, inp.extent(0))
+            cols = _reversed_index(h, W, inp.extent(1))
+            out = data[b[:, None, None], rows[:, :, None], cols[:, None, :]]
+        else:
+            A, H, W = data.shape[1:4]
+            if vol:
+                first = _reversed_index(d, A, inp.extent(0))
+            else:  # a sequence: frames stay in order
+                first = torch.arange(A, device=dev)[None, :].expand(n, A)
+            rows = _reversed_index(v, H, inp.extent(1))
+            cols = _reversed_index(h, W, inp.extent(2))
+            out = data[b[:, None, None, None], first[:, :, None, None], rows[:, None, :, None],
+                       cols[:, None, None, :]]
+        return [inp.with_data(out)]

@@ -56,6 +56,67 @@ def _edge_key(edge) -> Tuple[int, int]:
     return (edge.source.id, edge.source_idx)
 
 
+def pad_align_for(hb: HostBatch) -> List[int]:
+    """Canvas alignment of a ragged host batch: spatial dims align to
+    ``PAD_ALIGN``; channel-like dims ('C', 'N', or an unnamed trailing dim of
+    at most 4) stay exact."""
+    align = [PAD_ALIGN] * hb.ndim
+    for d, name in enumerate(hb.layout[:hb.ndim]):
+        if name in ("C", "N"):
+            align[d] = 1
+    if not hb.layout and hb.ndim >= 1 and hb.samples[0].shape[-1] <= 4:
+        align[-1] = 1
+    return align
+
+
+def stack_arg(hb: HostBatch) -> np.ndarray:
+    """A host argument batch of a device op, stacked [N, ...] for the copy."""
+    return np.stack([np.asarray(s) for s in hb.samples])
+
+
+def setup_device_op(impl: Operator, ctx: HostCtx, in_shapes, in_layouts, in_batches,
+                    arg_batches: Dict[str, HostBatch]):
+    """The host-side setup pass of one device op: its input layouts and host
+    argument batches into ``ctx``, then ``host_params``, ``device_statics``,
+    ``host_output_shapes`` (carried through value-only ops) and the output
+    layouts. ``in_batches`` holds the host batch of each input that crossed
+    from the host, else None. Returns (params as numpy arrays or None,
+    statics, per-output host shapes or None, per-output layouts)."""
+    ctx.op_in_layouts[impl.op_id] = list(in_layouts)
+    ctx.set_arg_batches(impl.op_id, arg_batches)
+    n_out = impl.spec.num_outputs()
+    louts = impl.host_output_layouts(list(in_layouts)) or [""]
+    out_layouts = [louts[min(j, len(louts) - 1)] or "" for j in range(n_out)]
+    p = impl.host_params(ctx, in_shapes)
+    params = {name: np.asarray(v) for name, v in p.items()} if p else None
+    statics = impl.device_statics(ctx, in_shapes, in_batches)
+    out_shapes = impl.host_output_shapes(ctx, in_shapes, in_batches)
+    if (out_shapes is None and impl.spec.schema_name in SHAPE_PRESERVING_SCHEMAS
+            and in_shapes and in_shapes[0] is not None):
+        out_shapes = [in_shapes[0]] * n_out
+    out_shapes = [None if sh is None else np.asarray(sh) for sh in (out_shapes or [])]
+    out_shapes += [None] * (n_out - len(out_shapes))
+    return params, statics, out_shapes, out_layouts
+
+
+def run_device_op(impl: Operator, ctx: HostCtx, inputs: List[DeviceBatch], in_shapes,
+                  in_batches, arg_batches: Dict[str, HostBatch], device: torch.device):
+    """One device op on its own, as eager mode runs it: the setup pass of
+    :func:`setup_device_op`, its parameters and host argument batches copied
+    to ``device``, then ``lower``. Returns (output DeviceBatches, per-output
+    host shapes or None)."""
+    params, statics, out_shapes, _ = setup_device_op(
+        impl, ctx, in_shapes, [b.layout for b in inputs], in_batches, arg_batches)
+
+    def to_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    dctx = DeviceCtx({impl.op_id: {k: to_dev(stack_arg(b)) for k, b in arg_batches.items()}},
+                     {} if statics is None else {impl.op_id: statics},
+                     {impl.op_id: {k: to_dev(v) for k, v in (params or {}).items()}})
+    return list(impl.lower(dctx, *inputs)), out_shapes
+
+
 class Executor:
     def __init__(self, pipeline, graph):
         self.pipeline = pipeline
@@ -124,12 +185,15 @@ class Executor:
         self._iteration = 0
         self._epoch = 0
         self._consumed_ckpt = None
-        self._work_q: "queue.Queue" = queue.Queue()
-        self._device_q: "queue.Queue" = queue.Queue(maxsize=pipeline.cpu_queue_depth)
-        self._out_q: "queue.Queue" = queue.Queue(maxsize=pipeline.gpu_queue_depth)
         self._threads: List[threading.Thread] = []
+        self._new_queues()
         self._shutdown = False
         self._error = None
+        # worker processes of parallel external sources start now, before
+        # any stage thread exists (a fork copies no executor thread)
+        for impl in self.impls.values():
+            if getattr(impl, "parallel", False):
+                impl.start_pool(pipeline)
         self._copy_stream = None
         # per-stage CUDA event pairs of the next device phase, when requested
         # (chip_smoke.py's instrumented batch): [(stage, start, end), ...]
@@ -143,19 +207,28 @@ class Executor:
         self.host_seconds_by_schema: Dict[str, float] = {}
 
     # -- lifecycle --------------------------------------------------------------------
+    def _new_queues(self):
+        self._work_q: "queue.Queue" = queue.Queue()
+        self._device_q: "queue.Queue" = queue.Queue(maxsize=self.pipeline.cpu_queue_depth)
+        self._out_q: "queue.Queue" = queue.Queue(maxsize=self.pipeline.gpu_queue_depth)
+
     def start(self):
         if not self._threads:
+            # each thread is bound to its generation's queues: a thread that
+            # outlives reset() can never feed the next generation's
+            qs = (self._work_q, self._device_q, self._out_q)
             self._threads = [
-                threading.Thread(target=self._host_loop, name="dali-torch-host", daemon=True),
-                threading.Thread(target=self._device_loop, name="dali-torch-device", daemon=True),
+                threading.Thread(target=self._host_loop, args=qs[:2], name="dali-torch-host",
+                                 daemon=True),
+                threading.Thread(target=self._device_loop, args=qs[1:], name="dali-torch-device",
+                                 daemon=True),
             ]
             for t in self._threads:
                 t.start()
 
-    def shutdown(self):
-        """Stop both stage threads, then release the operators' native
-        resources. Queues are drained while joining: a stage thread may be
-        blocked in put() on a full bounded queue."""
+    def _stop_threads(self):
+        """Stop both stage threads. Queues are drained while joining: a stage
+        thread may be blocked in put() on a full bounded queue."""
         self._shutdown = True
         self._work_q.put(None)
         deadline = time.monotonic() + 10
@@ -175,8 +248,26 @@ class Executor:
         if any(t.is_alive() for t in self._threads):
             raise RuntimeError("dali_tpu_torch executor threads did not stop within 10 s")
         self._threads = []
+
+    def shutdown(self):
+        """Stop both stage threads, then release the operators' native
+        resources and worker processes."""
+        self._stop_threads()
         for impl in self.impls.values():
             impl.close()
+
+    def reset(self):
+        """Start the next epoch: clear a raised ``StopIteration`` (or any
+        error), drop the scheduled iterations, restart the stage threads on
+        fresh queues at the next ``schedule_run`` and call each operator's
+        ``reset_epoch``."""
+        self._stop_threads()
+        self._shutdown = False
+        self._error = None
+        self._consumed_ckpt = None
+        self._new_queues()
+        for impl in self.impls.values():
+            impl.reset_epoch()
 
     def schedule_run(self):
         if self._error is not None:
@@ -197,9 +288,9 @@ class Executor:
             self._consumed_ckpt = ckpt
         return result
 
-    def _host_loop(self):
+    def _host_loop(self, work_q, device_q):
         while not self._shutdown:
-            it = self._work_q.get()
+            it = work_q.get()
             if it is None:
                 break
             try:
@@ -212,28 +303,28 @@ class Executor:
                     st["iteration"] = it + 1
                     staged["ckpt"] = st
             except BaseException as e:  # surfaces at the next outputs()
-                self._device_q.put(e)
+                device_q.put(e)
                 return
-            self._device_q.put(staged)
+            device_q.put(staged)
 
-    def _device_loop(self):
+    def _device_loop(self, device_q, out_q):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         while not self._shutdown:
             t0 = time.perf_counter()
-            staged = self._device_q.get()
+            staged = device_q.get()
             self.stats["device_wait_seconds"] += time.perf_counter() - t0
             if staged is None:
                 break
             if isinstance(staged, BaseException):
-                self._out_q.put(staged)
+                out_q.put(staged)
                 return
             try:
                 result = self._device_phase(staged)
             except BaseException as e:
-                self._out_q.put(e)
+                out_q.put(e)
                 return
-            self._out_q.put((result, staged.get("ckpt")))
+            out_q.put((result, staged.get("ckpt")))
 
     # -- host phase -------------------------------------------------------------------
     def _timed(self, node, t0):
@@ -265,7 +356,7 @@ class Executor:
             item = env[k]
             if isinstance(item, HostBatch):
                 # a uniform batch stages exact, unless the canvas has grown
-                align = 1 if item.is_uniform() else self._pad_align_for(item)
+                align = 1 if item.is_uniform() else pad_align_for(item)
                 arr, shapes = pad_and_stack(item, canvas=self._canvas.get(k), align=align)
                 self._canvas[k] = list(arr.shape[1:])
                 item = Staged(arr, shapes, item.layout)
@@ -273,35 +364,27 @@ class Executor:
             shape_env[k] = item.shapes
             layout_env[k] = item.layout or ""
 
-        args = [np.stack([np.asarray(s) for s in env[_edge_key(e)].samples])
-                for _, _, e in self.device_arg_edges]
+        args = [stack_arg(env[_edge_key(e)]) for _, _, e in self.device_arg_edges]
         statics, params = {}, {}
         for node in self.device_ops:
             t0 = time.perf_counter()
-            impl = self.impls[node.id]
-            in_shapes = [shape_env.get(_edge_key(e)) for e in node.spec.inputs]
-            in_layouts = [layout_env.get(_edge_key(e), "") for e in node.spec.inputs]
-            ctx.op_in_layouts[node.id] = in_layouts
-            louts = impl.host_output_layouts(in_layouts) or [""]
-            for j in range(node.spec.num_outputs()):
-                layout_env[(node.id, j)] = louts[min(j, len(louts) - 1)] or ""
             in_batches = [env.get(_edge_key(e)) for e in node.spec.inputs]
-            in_batches = [b if isinstance(b, HostBatch) else None for b in in_batches]
             arg_b = {k: env.get(_edge_key(v)) for k, v in node.spec.arg_inputs.items()}
-            ctx.set_arg_batches(node.id, {k: v for k, v in arg_b.items() if isinstance(v, HostBatch)})
-            p = impl.host_params(ctx, in_shapes)
+            p, st, out_shapes, out_layouts = setup_device_op(
+                self.impls[node.id], ctx,
+                [shape_env.get(_edge_key(e)) for e in node.spec.inputs],
+                [layout_env.get(_edge_key(e), "") for e in node.spec.inputs],
+                [b if isinstance(b, HostBatch) else None for b in in_batches],
+                {k: v for k, v in arg_b.items() if isinstance(v, HostBatch)})
             if p:
-                params[node.id] = {name: np.asarray(v) for name, v in p.items()}
-            st = impl.device_statics(ctx, in_shapes, in_batches)
+                params[node.id] = p
             if st is not None:
                 statics[node.id] = st
-            out_shapes = impl.host_output_shapes(ctx, in_shapes, in_batches)
-            if (out_shapes is None and node.spec.schema_name in SHAPE_PRESERVING_SCHEMAS
-                    and in_shapes and in_shapes[0] is not None):
-                out_shapes = [in_shapes[0]] * node.spec.num_outputs()
-            for j, sh in enumerate(out_shapes or []):
+            for j, lay in enumerate(out_layouts):
+                layout_env[(node.id, j)] = lay
+            for j, sh in enumerate(out_shapes):
                 if sh is not None:
-                    shape_env[(node.id, j)] = np.asarray(sh)
+                    shape_env[(node.id, j)] = sh
             self._timed(node, t0)
         return {
             "iteration": iteration,
@@ -314,17 +397,6 @@ class Executor:
             "out_shapes": {_edge_key(o): shape_env.get(_edge_key(o)) for o in self.graph.outputs
                            if o.device == "gpu"},
         }
-
-    def _pad_align_for(self, hb: HostBatch):
-        """Spatial dims align to ``PAD_ALIGN``; channel-like dims ('C', 'N', or
-        an unnamed trailing dim of at most 4) stay exact."""
-        align = [PAD_ALIGN] * hb.ndim
-        for d, name in enumerate(hb.layout[:hb.ndim]):
-            if name in ("C", "N"):
-                align[d] = 1
-        if not hb.layout and hb.ndim >= 1 and hb.samples[0].shape[-1] <= 4:
-            align[-1] = 1
-        return align
 
     # -- device phase -----------------------------------------------------------------
     def _event(self, stream=None):

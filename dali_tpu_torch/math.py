@@ -1,5 +1,6 @@
 """Element-wise math over DataNodes (counterpart of ``dali_tpu/math.py``):
-each function emits one ``_ArithmeticGenericOp`` node."""
+each function emits one ``_ArithmeticGenericOp`` node; on eager ``ndd``
+Batches it runs that operator at once."""
 
 from __future__ import annotations
 
@@ -11,7 +12,15 @@ def _arithm(op, *args):
         return args[0]._arithm(op, *args[1:])
     if len(args) == 2 and isinstance(args[1], DataNode):
         return args[1]._arithm(op, args[0], reverse=True)
-    raise TypeError(f"math.{op} requires a DataNode argument")
+    from .experimental.dynamic import Batch, _batch_arithm
+
+    if any(isinstance(a, Batch) for a in args):
+        out = _batch_arithm(op, *args)
+        if out is NotImplemented:
+            raise TypeError(f"math.{op}: unsupported operand types "
+                            f"{tuple(type(a).__name__ for a in args)}")
+        return out
+    raise TypeError(f"math.{op} requires a DataNode or dynamic Batch argument")
 
 
 def _unary(op):

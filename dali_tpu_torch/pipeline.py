@@ -34,6 +34,9 @@ class Pipeline:
         *,
         enable_checkpointing: bool = False,
         checkpoint: Optional[str] = None,
+        py_num_workers: int = 1,
+        py_start_method: str = "fork",
+        py_callback_pickler=None,
         device=None,
     ):
         self.max_batch_size = batch_size
@@ -59,6 +62,11 @@ class Pipeline:
         self.gpu_queue_depth = max(1, gpu_d)
         self.prefetch_queue_depth = max(self.cpu_queue_depth, self.gpu_queue_depth)
         self.enable_checkpointing = enable_checkpointing
+        # worker processes of parallel external sources: how many, how
+        # started ("fork" or "spawn") and the module that pickles the source
+        self.py_num_workers = py_num_workers
+        self.py_start_method = py_start_method
+        self.py_callback_pickler = py_callback_pickler
         self._restore_checkpoint = checkpoint
         self._graph_fn = None
         self._graph: Optional[Graph] = None
@@ -147,6 +155,30 @@ class Pipeline:
         self._batches_consumed += 1
         return self._executor.outputs()
 
+    def reset(self):
+        """Start the next epoch after a source raised ``StopIteration``."""
+        if self._executor is not None:
+            self._executor.reset()
+        self._batches_scheduled = 0
+        self._batches_consumed = 0
+
+    def release_outputs(self):
+        """Nothing to recycle: outputs are tensors the caller owns."""
+
+    def feed_input(self, data_node, data, layout=None):
+        """Queue one batch for the ``external_source`` named ``data_node``
+        (a name or the node itself)."""
+        self._require_built()
+        name = data_node if isinstance(data_node, str) else data_node.source.instance_name
+        for node in self._graph.ops:
+            if node.instance_name == name:
+                impl = self._executor.impls[node.id]
+                if not hasattr(impl, "feed"):
+                    raise TypeError(f"Operator '{name}' is not an input operator")
+                impl.feed(data, layout=layout)
+                return
+        raise KeyError(f"No operator named '{name}' in the pipeline")
+
     def _prefetch(self):
         for _ in range(self.prefetch_queue_depth):
             self.schedule_run()
@@ -169,8 +201,11 @@ class Pipeline:
         """JSON checkpoint aligned with the last consumed batch (same format as
         ``dali_tpu``)."""
         self._require_built()
-        payload = json.dumps({"format": "dali_tpu.checkpoint.v1",
-                              "executor": self._executor.consumed_checkpoint_state()})
+        state = self._executor.consumed_checkpoint_state()
+        for name, st in state.get("ops", {}).items():
+            if isinstance(st, dict) and st.get("unresumable_source"):
+                raise ValueError(f"{name}: {st['unresumable_source']}")
+        payload = json.dumps({"format": "dali_tpu.checkpoint.v1", "executor": state})
         if filename:
             with open(filename, "w") as f:
                 f.write(payload)
@@ -197,7 +232,8 @@ class Pipeline:
 
 
 _CTOR_NAMES = ("batch_size", "num_threads", "device_id", "seed", "prefetch_queue_depth",
-               "enable_checkpointing", "checkpoint", "device")
+               "enable_checkpointing", "checkpoint", "py_num_workers", "py_start_method",
+               "py_callback_pickler", "device")
 
 
 def pipeline_def(fn=None, *, enable_conditionals=False, **pipeline_kwargs):

@@ -175,6 +175,23 @@ def Constant(value, dtype=None, shape=None, layout=None, device=None, **kwargs):
     )
 
 
+class SampleInfo:
+    """Passed to per-sample ``external_source`` callbacks that take one
+    argument (counterpart of ``dali_tpu.types.SampleInfo``)."""
+
+    __slots__ = ("idx_in_epoch", "idx_in_batch", "iteration", "epoch_idx")
+
+    def __init__(self, idx_in_epoch, idx_in_batch, iteration, epoch_idx):
+        self.idx_in_epoch = idx_in_epoch
+        self.idx_in_batch = idx_in_batch
+        self.iteration = iteration
+        self.epoch_idx = epoch_idx
+
+    def __repr__(self):
+        return (f"SampleInfo(idx_in_epoch={self.idx_in_epoch}, idx_in_batch={self.idx_in_batch},"
+                f" iteration={self.iteration}, epoch_idx={self.epoch_idx})")
+
+
 class BatchInfo:
     """Passed to per-batch ``external_source`` callbacks that take one
     argument (counterpart of ``dali_tpu.types.BatchInfo``)."""

@@ -20,7 +20,9 @@ on the card is held against the same pipeline on the CPU: equal canvases and
 per-sample shapes, dB within 1e-3 dB and normalized values within 1e-3 on
 each sample's valid region (cuFFT and the card's matmul against the CPU's).
 Automatic augmentation and DataNode arithmetic on the card are held against
-the same graphs on the CPU (the stated limits are in each test)."""
+the same graphs on the CPU (the stated limits are in each test), and so are
+eager mode (ndd: eager resize + CMN, a captured frontend) and a parallel
+external source feeding the RN50 device path, within one uint8 step / std."""
 
 import os
 
@@ -299,3 +301,128 @@ def test_arithmetic_dtypes_on_card_match_cpu(card):
         assert g.is_cuda and g.dtype == w.dtype
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
     assert [o.dtype for o in outs[1]] == [torch.int32, torch.float32, torch.bool, torch.int32]
+
+
+# -- eager mode (ndd) and the parallel external source ---------------------------------------
+
+
+def _eager_resize_cmn(device, imgs, flags):
+    import dali_tpu_torch.experimental.dynamic as ndd
+
+    with ndd.EvalContext(seed=9, device=device):
+        b = ndd.resize(ndd.as_batch(imgs, layout="HWC").gpu(), resize_x=64, resize_y=64)
+        mirror = ndd.as_batch(flags)
+        return ndd.crop_mirror_normalize(b, mirror=mirror, mean=MEAN, std=STD,
+                                         dtype=types.FLOAT, output_layout="CHW").as_array()
+
+
+def test_eager_resize_cmn_on_card_matches_cpu(card):
+    rng = np.random.default_rng(12)
+    imgs = [rng.integers(0, 256, (70 + 9 * i, 90 - 7 * i, 3)).astype(np.uint8) for i in range(6)]
+    flags = [np.int32([i % 2]) for i in range(6)]
+    before = cmn.COUNTER.launches
+    got = _eager_resize_cmn(card, imgs, flags)
+    assert cmn.COUNTER.launches == before + 1
+    want = _eager_resize_cmn("cpu", imgs, flags)
+    assert got.is_cuda and got.dtype == torch.float32 and tuple(got.shape) == (6, 3, 64, 64)
+    diff = (got.cpu() - want).abs()
+    assert float(diff.max()) <= LSB
+    assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+
+
+def _captured_frontend(device, steps=2):
+    import dali_tpu_torch.experimental.dynamic as ndd
+
+    @ndd.capture
+    def frontend(jpegs):
+        images = ndd.decoders.image_random_crop(jpegs, device="mixed",
+                                                hybrid_device_decode=True, hybrid_scale=2)
+        images = ndd.resize(images, resize_x=64, resize_y=64)
+        mirror = ndd.random.coin_flip(probability=0.5)
+        return ndd.crop_mirror_normalize(images, mirror=mirror, dtype=types.FLOAT,
+                                         output_layout="CHW", mean=MEAN, std=STD)
+
+    out = []
+    with ndd.EvalContext(seed=4, device=device):
+        for _ in range(steps):
+            jpegs, labels = ndd.readers.file(file_root=CORPUS, random_shuffle=True,
+                                             batch_size=8, name="R")
+            out.append((frontend(jpegs).as_array(), labels.as_array()))
+    for p in frontend._captured_pipelines.values():
+        p.shutdown()
+    return out
+
+
+def test_captured_frontend_on_card_matches_cpu(card):
+    before = cmn.COUNTER.launches
+    on_card = _captured_frontend(card)
+    assert cmn.COUNTER.launches == before + 2
+    for (g_img, g_lab), (c_img, c_lab) in zip(on_card, _captured_frontend("cpu")):
+        assert g_img.is_cuda and tuple(g_img.shape) == (8, 3, 64, 64)
+        np.testing.assert_array_equal(g_lab, c_lab)
+        diff = (g_img.cpu() - c_img).abs()
+        assert float(diff.max()) <= LSB
+        assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+
+
+class _JpegFiles:
+    """A per-sample source over the committed corpus: (JPEG bytes, label)."""
+
+    def __init__(self):
+        self.files = sorted(os.path.join(CORPUS, c, f) for c in sorted(os.listdir(CORPUS))
+                            for f in sorted(os.listdir(os.path.join(CORPUS, c))))
+
+    def __call__(self, info):
+        path = self.files[info.idx_in_epoch % len(self.files)]
+        with open(path, "rb") as f:
+            data = np.frombuffer(f.read(), np.uint8)
+        return data, np.int32([int(os.path.basename(os.path.dirname(path))[len("class"):])])
+
+
+def _parallel_rn50(device):
+    @pipeline_def(batch_size=8, num_threads=2, seed=42, device=device, py_num_workers=2,
+                  py_start_method="fork")
+    def p():
+        jpegs, labels = fn.external_source(source=_JpegFiles(), num_outputs=2, batch=False,
+                                           parallel=True)
+        images = fn.decoders.image_random_crop(jpegs, device="mixed", hybrid_device_decode=True,
+                                               hybrid_scale=2, seed=77)
+        images = fn.resize(images, resize_x=64, resize_y=64)
+        return fn.crop_mirror_normalize(images, mean=MEAN, std=STD, dtype=types.FLOAT,
+                                        output_layout="CHW"), labels
+
+    pipe = p()
+    pipe.build()
+    try:
+        return [(i.as_tensor(), lab.as_array()) for i, lab in (pipe.run() for _ in range(2))]
+    finally:
+        pipe.shutdown()
+
+
+def test_parallel_external_source_feeds_card_pipeline(card):
+    before = cmn.COUNTER.launches
+    on_card = _parallel_rn50(card)
+    assert cmn.COUNTER.launches == before + 2
+    for (g_img, g_lab), (c_img, c_lab) in zip(on_card, _parallel_rn50("cpu")):
+        assert g_img.is_cuda and tuple(g_img.shape) == (8, 3, 64, 64)
+        np.testing.assert_array_equal(g_lab, c_lab)
+        diff = (g_img.cpu() - c_img).abs()
+        assert float(diff.max()) <= LSB
+        assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+
+
+def test_eager_on_card_raises_without_kernel_library(card, monkeypatch):
+    import dali_tpu_torch.experimental.dynamic as ndd
+    from dali_tpu_torch.native import build
+
+    def missing():
+        raise RuntimeError("kernel library missing")
+
+    monkeypatch.setattr(cmn, "_LIB", None)
+    monkeypatch.setattr(build, "kernel_library", missing)
+    before = cmn.COUNTER.launches
+    with ndd.EvalContext(device=card):
+        b = ndd.as_batch(np.zeros((2, 8, 8, 3), np.uint8), layout="HWC").gpu()
+        with pytest.raises(RuntimeError, match="kernel library missing"):
+            ndd.crop_mirror_normalize(b, mean=MEAN, std=STD)
+    assert cmn.COUNTER.launches == before

@@ -271,8 +271,8 @@ def test_constant_bit_equal(device):
 
 
 def test_unported_paths_raise_not_implemented():
-    """The cv2-based cpu warps, volumes, and external_source options other
-    than a batch source name ROADMAP.md; nothing falls back."""
+    """The cv2-based cpu warps, volumes, and the cpu placements of the
+    device-only operators name ROADMAP.md; nothing falls back."""
     fn = dali_tpu_torch.fn
 
     def build(body):
@@ -294,7 +294,6 @@ def test_unported_paths_raise_not_implemented():
             rot.run()
     finally:
         rot.shutdown()
-    for kw in ({"batch": False}, {"cycle": "quiet"}, {"parallel": True}, {}):
-        src = None if not kw else (lambda: RGB[:2])
+    for op in (fn.flip, fn.laplacian, fn.erase):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(lambda: fn.external_source(source=src, **kw)).build()
+            build(lambda: op(fn.external_source(source=lambda: RGB[:2], batch=True))).build()

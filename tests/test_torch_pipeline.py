@@ -130,6 +130,8 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import sys\n"
         "import dali_tpu_torch, dali_tpu_torch.plugin.pytorch, dali_tpu_torch.native.build\n"
         "import dali_tpu_torch.auto_aug\n"
+        "import dali_tpu_torch.experimental.dynamic, dali_tpu_torch._multiproc\n"
+        "import dali_tpu_torch.external_source, dali_tpu_torch.pickling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2')]\n"
         "assert not bad, bad\n"
     )
