@@ -67,7 +67,22 @@ on failure:
    list, through the same hybrid decode, resize, mirror and CMN and
    ``DALIClassificationIterator``: 3 warm-up + 10 timed batches checked as in
    phase 3, the exact CMN launch count, images/s and host ms/batch; then batch
-   16 on the card against the CPU.
+   16 on the card against the CPU;
+9. the ImageNet training recipe of ``docs/examples/imagenet_training.py`` at
+   full width: the same reader over the 256-entry file list, the whole-image
+   hybrid decode (``decoders.image``, ``hybrid_scale=2``, int8 wire),
+   ``random_resized_crop(size=[224, 224])``, a coin-flip mirror and CMN to
+   FLOAT CHW, batch 256 through ``DALIClassificationIterator``: 3 warm-up +
+   20 timed batches checked as in phase 3, the exact CMN launch count,
+   images/s and its ratio to phase 3's rate, host ms/batch and device wait,
+   device ms by stage of one instrumented batch (H2D, wire, whole-image
+   IDCT tail, RandomResizedCrop, CMN), peak device memory; then batch 16 on
+   the card against the CPU;
+10. the RN50 validation recipe the same way: the decode at
+   ``hybrid_scale=1`` (the dense flat wire: an 8x8 selection does not fit
+   the sparse bitmaps), ``resize(resize_shorter=256,
+   interp_type=INTERP_TRIANGULAR)`` onto its per-sample canvas, CMN
+   ``crop=(224, 224)`` with no mirror; 3 warm-up + 10 timed batches.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings) is the JSON object on the line before
@@ -99,6 +114,7 @@ AUDIO_TOL = 1e-3  # dB, and normalized units
 AUG_TIMED = {"trivial_augment_wide": 20, "auto_augment_image_net": 10}
 AUG_CHECK_BATCH = 16
 AMP_TIMED = 10
+RECIPE_TIMED = {"imagenet_train": 20, "rn50_val": 10}
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
 
@@ -190,38 +206,54 @@ def check_batch(batch, amp=False):
     require(bool(torch.isfinite(data).all()), "non-finite values in a batch")
 
 
-def e2e_phase(card, file_list):
+def drive(pipe, timed, what, amp=False):
+    """Build ``pipe`` and run it through ``DALIClassificationIterator``:
+    WARMUP + ``timed`` batches, each checked, then the prefetched batches
+    collected so every run has finished. The CMN launch count is set to 0
+    just before and must equal the batches run. Returns (images/s, executor
+    stat deltas and host ms/batch by schema over the timed batches,
+    launches)."""
     from dali_tpu_torch.kernels import cmn
     from dali_tpu_torch.plugin.pytorch import DALIClassificationIterator
 
-    pipe = make_pipe(file_list, BATCH, OUT, "cuda:0")
     pipe.build()
+    ex = pipe.executor
     cmn.COUNTER.launches = 0
     it = DALIClassificationIterator(pipe)
     for _ in range(WARMUP):
-        check_batch(next(it))
+        check_batch(next(it), amp=amp)
     torch.cuda.synchronize()
-    st0 = dict(pipe.executor.stats)
+    st0, by0 = dict(ex.stats), dict(ex.host_seconds_by_schema)
     t0 = time.perf_counter()
-    for _ in range(TIMED):
-        check_batch(next(it))
+    for _ in range(timed):
+        check_batch(next(it), amp=amp)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    st = {k: v - st0[k] for k, v in pipe.executor.stats.items()}
-    # collect the batches the iterator prefetched, so every run has finished
+    st = {k: v - st0[k] for k, v in ex.stats.items()}
+    by = {k: 1e3 * (v - by0.get(k, 0.0)) / st["host_batches"]
+          for k, v in ex.host_seconds_by_schema.items()}
     for _ in range(pipe.prefetch_queue_depth):
         pipe.outputs()
     torch.cuda.synchronize()
     launches = cmn.COUNTER.launches
-    ran = WARMUP + TIMED + pipe.prefetch_queue_depth
-    print(f"cmn launches in the main path: {launches} (batches run: {ran}: "
+    ran = WARMUP + timed + pipe.prefetch_queue_depth
+    require(launches == ran, f"{what}: CMN kernel launched {launches} times for {ran} batches")
+    return timed * BATCH / dt, st, by, launches
+
+
+def host_line(st, timed):
+    return (f"host phase {1e3 * st['host_phase_seconds'] / st['host_batches']:.2f} ms/batch over "
+            f"{st['host_batches']} batches ({os.cpu_count()} host cores); the device stage waited "
+            f"{1e3 * st['device_wait_seconds'] / timed:.2f} ms/batch for staged batches")
+
+
+def e2e_phase(card, file_list):
+    pipe = make_pipe(file_list, BATCH, OUT, "cuda:0")
+    ips, st, _, launches = drive(pipe, TIMED, "rn50_train")
+    print(f"cmn launches in the main path: {launches} (batches run: {launches}: "
           f"{WARMUP + TIMED} through the iterator + {pipe.prefetch_queue_depth} prefetched)")
-    require(launches == ran, f"CMN kernel launched {launches} times for {ran} batches")
-    ips = TIMED * BATCH / dt
     print(f"e2e rn50_train batch {BATCH}: {ips:.1f} images/s over {TIMED} batches ({card})")
-    print(f"during the timed batches: host phase {1e3 * st['host_phase_seconds'] / st['host_batches']:.2f}"
-          f" ms/batch over {st['host_batches']} batches ({os.cpu_count()} host cores); the device"
-          f" stage waited {1e3 * st['device_wait_seconds'] / TIMED:.2f} ms/batch for staged batches")
+    print(f"during the timed batches: {host_line(st, TIMED)}")
 
     ex = pipe.executor
     ex.record_stage_events = True
@@ -270,32 +302,12 @@ def reference_phase(file_list, amp=False, make=None, what=""):
 def amp_phase(card, file_list):
     """RN50 in the channels-last mixed-precision form; returns its CMN
     launches and images/s."""
-    from dali_tpu_torch.kernels import cmn
-    from dali_tpu_torch.plugin.pytorch import DALIClassificationIterator
-
     t_phase = time.perf_counter()
     pipe = make_pipe(file_list, BATCH, OUT, "cuda:0", amp=True)
-    pipe.build()
-    cmn.COUNTER.launches = 0
-    it = DALIClassificationIterator(pipe)
-    for _ in range(WARMUP):
-        check_batch(next(it), amp=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(AMP_TIMED):
-        check_batch(next(it), amp=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    for _ in range(pipe.prefetch_queue_depth):
-        pipe.outputs()
-    torch.cuda.synchronize()
-    launches = cmn.COUNTER.launches
-    ran = WARMUP + AMP_TIMED + pipe.prefetch_queue_depth
-    require(launches == ran, f"AMP form: CMN kernel launched {launches} times for {ran} batches")
+    ips, _, _, launches = drive(pipe, AMP_TIMED, "AMP form", amp=True)
     pipe.shutdown()
-    ips = AMP_TIMED * BATCH / dt
     print(f"e2e rn50_train fp16 HWC pad_output batch {BATCH}: {ips:.1f} images/s over {AMP_TIMED}"
-          f" batches; cmn launches {launches} for {ran} batches ({card})")
+          f" batches; cmn launches {launches}, one per batch ({card})")
     reference_phase(file_list, amp=True)
     print(f"AMP form phase: {time.perf_counter() - t_phase:.1f} s")
     return launches, ips
@@ -459,37 +471,15 @@ def _stage_group(schema):
 
 def aug_run(card, file_list, policy):
     """One policy at full width; returns its CMN launches and readings."""
-    from dali_tpu_torch.kernels import cmn
-    from dali_tpu_torch.plugin.pytorch import DALIClassificationIterator
-
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     pipe = make_aug_pipe(file_list, BATCH, OUT, "cuda:0", policy)
-    ex = pipe.executor
     timed = AUG_TIMED[policy]
-    cmn.COUNTER.launches = 0
-    it = DALIClassificationIterator(pipe)
-    for _ in range(WARMUP):
-        check_batch(next(it))
-    torch.cuda.synchronize()
-    st0, by0 = dict(ex.stats), dict(ex.host_seconds_by_schema)
-    t0 = time.perf_counter()
-    for _ in range(timed):
-        check_batch(next(it))
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    st = {k: v - st0[k] for k, v in ex.stats.items()}
-    for _ in range(pipe.prefetch_queue_depth):
-        pipe.outputs()
-    torch.cuda.synchronize()
-    launches = cmn.COUNTER.launches
-    ran = WARMUP + timed + pipe.prefetch_queue_depth
-    require(launches == ran, f"{policy}: CMN kernel launched {launches} times for {ran} batches")
-    ips = timed * BATCH / dt
+    ips, st, by, launches = drive(pipe, timed, policy)
+    ex = pipe.executor
     nb = st["host_batches"]
     host_ms = 1e3 * st["host_phase_seconds"] / nb
-    by = sorted(((k, 1e3 * (v - by0.get(k, 0.0)) / nb) for k, v in ex.host_seconds_by_schema.items()),
-                key=lambda kv: -kv[1])
+    by = sorted(by.items(), key=lambda kv: -kv[1])
     print(f"{policy} batch {BATCH}: {ips:.1f} images/s over {timed} batches; {len(ex.device_ops)} "
           f"device ops, {len(ex.host_ops)} host ops; cmn launches {launches} ({card})")
     print(f"{policy} host phase {host_ms:.2f} ms/batch over {nb} batches ({os.cpu_count()} host "
@@ -687,6 +677,66 @@ def parallel_phase(card, file_list, rn50_ips):
     return launches, r["images_per_s"]
 
 
+def make_imagenet_pipe(file_list, batch, device, recipe):
+    """imagenet_train (whole-image decode at hybrid_scale=2, RandomResizedCrop
+    224, coin-flip mirror, CMN) or rn50_val (decode at hybrid_scale=1,
+    resize_shorter 256, CMN crop 224)."""
+    from dali_tpu_torch import fn, pipeline_def, types
+
+    train = recipe == "imagenet_train"
+
+    @pipeline_def(batch_size=batch, num_threads=os.cpu_count() or 1, seed=42,
+                  prefetch_queue_depth=2, device=device)
+    def imagenet():
+        jpegs, labels = fn.readers.file(file_list=file_list, random_shuffle=True, name="Reader")
+        images = fn.decoders.image(jpegs, device="mixed", hybrid_device_decode=True,
+                                   hybrid_scale=2 if train else 1, hybrid_wire="int8")
+        if train:
+            images = fn.random_resized_crop(images, size=[OUT, OUT])
+            images = fn.crop_mirror_normalize(images, mirror=fn.random.coin_flip(probability=0.5),
+                                              dtype=types.FLOAT, output_layout="CHW", mean=MEAN,
+                                              std=STD)
+        else:
+            images = fn.resize(images, resize_shorter=256, interp_type=types.INTERP_TRIANGULAR)
+            images = fn.crop_mirror_normalize(images, crop=(OUT, OUT), dtype=types.FLOAT,
+                                              output_layout="CHW", mean=MEAN, std=STD)
+        return images, labels
+
+    return imagenet()
+
+
+def imagenet_phase(card, file_list, rn50_ips, recipe):
+    """One recipe at full width; returns its CMN launches and images/s."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = make_imagenet_pipe(file_list, BATCH, "cuda:0", recipe)
+    timed = RECIPE_TIMED[recipe]
+    ips, st, _, launches = drive(pipe, timed, recipe)
+    ex = pipe.executor
+    print(f"{recipe} batch {BATCH}: {ips:.1f} images/s over {timed} batches, "
+          f"{100 * ips / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} in this run; "
+          f"{host_line(st, timed)}; cmn launches {launches} ({card})")
+
+    # one batch alone: no host phase competes with the device thread
+    ex.record_stage_events = True
+    pipe.run()
+    torch.cuda.synchronize()
+    require(not ex.record_stage_events and ex.stage_events, "the instrumented batch did not run")
+    names = {"h2d": "H2D", "_JpegIdctSplit": "IDCT tail", "CropMirrorNormalize": "CMN"}
+    stages = {}
+    for s_name, a, b in ex.stage_events:
+        k = names.get(s_name, s_name)
+        stages[k] = stages.get(k, 0.0) + a.elapsed_time(b)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{recipe} stage ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; peak device memory {peak:.2f} GiB ({card})")
+    pipe.shutdown()
+    reference_phase(file_list, make=lambda b, d: make_imagenet_pipe(file_list, b, d, recipe),
+                    what=f" ({recipe})")
+    print(f"{recipe} phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, ips
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -712,6 +762,8 @@ def main():
     print(f"augmentation phase: {time.perf_counter() - t0:.1f} s")
     launches["ndd_rn50_captured"], launches["ndd_eager"], _ = ndd_phase(card, file_list, rn50_ips)
     launches["rn50_parallel_es"] = parallel_phase(card, file_list, rn50_ips)[0]
+    for recipe in RECIPE_TIMED:
+        launches[recipe] = imagenet_phase(card, file_list, rn50_ips, recipe)[0]
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

@@ -9,8 +9,16 @@ Ported so far:
 
 * the RN50 training path — ``readers.file`` ->
   ``decoders.image_random_crop(device="mixed", hybrid_device_decode=True)`` ->
-  ``resize`` (static size) -> ``random.coin_flip`` + ``crop_mirror_normalize``
-  -> ``plugin.pytorch`` iterators;
+  ``resize`` -> ``random.coin_flip`` + ``crop_mirror_normalize`` ->
+  ``plugin.pytorch`` iterators;
+* the whole-image hybrid decode, ``decoders.image(device="mixed",
+  hybrid_device_decode=True, hybrid_wire="int8")``, and the coefficient
+  cache (``cache_size``) of both hybrid decoders; ``random_resized_crop``
+  and every form of ``resize`` on the device (per-sample sizes, the
+  keep-aspect modes, ``max_size``, filter overrides, ``save_attrs``, tensor
+  sizes, FHWC sequences and DHWC volumes): the ImageNet/EfficientNet
+  training recipe (decode, then ``random_resized_crop``) and the RN50
+  validation recipe (``resize_shorter``, then CMN ``crop``);
 * the ASR mel front end on ragged audio — ``readers.file`` ->
   ``decoders.audio(device="mixed")`` (WAV) -> ``preemphasis_filter`` ->
   ``spectrogram`` -> ``mel_filter_bank`` -> ``to_decibels`` -> ``normalize``,
@@ -70,6 +78,53 @@ from .external_source import external_source  # noqa: E402
 fn.external_source = external_source
 
 
+def _check_hybrid_args(device, hybrid_scale, kwargs):
+    """The argument checks both hybrid decoders share; pops the checked
+    ``output_type`` and ``dtype`` from ``kwargs``."""
+    if device != "mixed":
+        raise ValueError("hybrid_device_decode requires device='mixed'")
+    if kwargs.pop("output_type", types.DALIImageType.RGB) != types.DALIImageType.RGB:
+        raise ValueError("hybrid_device_decode produces RGB only")
+    if kwargs.pop("dtype", None) not in (None, types.DALIDataType.UINT8):
+        raise ValueError("hybrid_device_decode produces uint8")
+    if hybrid_scale not in (1, 2, 4):
+        raise ValueError(f"hybrid_scale must be 1, 2, or 4 (got {hybrid_scale})")
+
+
+def _decoders_image_fn(*inputs, device=None, hybrid_device_decode=False, hybrid_scale=1,
+                       hybrid_chroma_full=False, hybrid_wire="int16", **kwargs):
+    """fn.decoders.image with ``hybrid_device_decode=True``: the host
+    entropy-decodes every DCT block and ships the coefficients (DC int16, AC
+    saturated to int8 with ``hybrid_wire="int8"``); the device finishes the
+    decode (IDCT, chroma, colour) at 1/``hybrid_scale`` resolution. Builds
+    the reference's two nodes, ``_JpegCoeffsSplit`` then ``_JpegIdctSplit``."""
+    if not hybrid_device_decode:
+        raise NotImplementedError(
+            "fn.decoders.image without hybrid_device_decode is not ported to dali_tpu_torch "
+            "yet; see ROADMAP.md (Queue 1 item 1c)")
+    _check_hybrid_args(device, hybrid_scale, kwargs)
+    if hybrid_wire not in ("int16", "int8"):
+        raise ValueError(f"hybrid_wire must be 'int16' or 'int8' (got {hybrid_wire!r})")
+    if hybrid_wire == "int16":
+        raise NotImplementedError(
+            "fn.decoders.image with hybrid_wire='int16' (the default) is not ported to "
+            "dali_tpu_torch yet; see ROADMAP.md (Queue 1 item 1b); hybrid_wire='int8' is")
+    name = kwargs.pop("name", None)
+    outs = _op_call(
+        "_JpegCoeffsSplit", device="mixed", inputs=inputs, name=name,
+        hybrid_scale=hybrid_scale, chroma_full=hybrid_chroma_full,
+        cache_size=int(kwargs.pop("cache_size", 0) or 0),
+        adjust_orientation=bool(kwargs.pop("adjust_orientation", True)),
+    )
+    if kwargs:
+        raise TypeError(f"fn.decoders.image got unexpected arguments {sorted(kwargs)}")
+    return _op_call("_JpegIdctSplit", device="gpu", inputs=list(outs),
+                    hybrid_scale=hybrid_scale, chroma_full=hybrid_chroma_full)
+
+
+fn.decoders.image = _decoders_image_fn
+
+
 def _decoders_image_random_crop_fn(*inputs, device=None, hybrid_device_decode=False,
                                    hybrid_scale=1, hybrid_chroma_full=False,
                                    random_area=(0.08, 1.0), random_aspect_ratio=(3 / 4, 4 / 3),
@@ -82,18 +137,9 @@ def _decoders_image_random_crop_fn(*inputs, device=None, hybrid_device_decode=Fa
     if not hybrid_device_decode:
         raise NotImplementedError(
             "fn.decoders.image_random_crop without hybrid_device_decode is not ported to "
-            "dali_tpu_torch yet; see ROADMAP.md (Queue 1)")
-    if device != "mixed":
-        raise ValueError("hybrid_device_decode requires device='mixed'")
-    if kwargs.get("output_type", types.DALIImageType.RGB) != types.DALIImageType.RGB:
-        raise ValueError("hybrid_device_decode produces RGB only")
-    if kwargs.get("dtype", None) not in (None, types.DALIDataType.UINT8):
-        raise ValueError("hybrid_device_decode produces uint8")
-    if hybrid_scale not in (1, 2, 4):
-        raise ValueError(f"hybrid_scale must be 1, 2, or 4 (got {hybrid_scale})")
+            "dali_tpu_torch yet; see ROADMAP.md (Queue 1 item 1c)")
+    _check_hybrid_args(device, hybrid_scale, kwargs)
     name = kwargs.pop("name", None)
-    kwargs.pop("output_type", None)
-    kwargs.pop("dtype", None)
     outs = _op_call(
         "_JpegCoeffsSplitRRC", device="mixed", inputs=inputs, name=name,
         hybrid_scale=hybrid_scale, chroma_full=hybrid_chroma_full,

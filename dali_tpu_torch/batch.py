@@ -85,6 +85,23 @@ class Staged:
         self.layout = layout
 
 
+class FlatStaged:
+    """A boundary batch staged flat: each sample's payload dense at
+    ``offsets`` of the 1-D ``flat`` buffer, with no padding; the device
+    scatters it onto the padded per-sample ``canvas`` (counterpart of
+    ``dali_tpu.executor._FlatStaged``; the hybrid-JPEG planes whose
+    coefficient selection does not fit the 16-bit sparse bitmaps)."""
+
+    __slots__ = ("flat", "offsets", "shapes", "canvas", "layout")
+
+    def __init__(self, flat, offsets, shapes, canvas, layout=""):
+        self.flat = flat
+        self.offsets = np.asarray(offsets, np.int32)
+        self.shapes = shapes
+        self.canvas = tuple(int(c) for c in canvas)
+        self.layout = layout
+
+
 class Esc16Staged:
     """An int16 plane escape-packed to int8 (hybrid-JPEG DC): ``dc8`` holds
     values in [-127, 127], the marker -128 points at the next int16 of

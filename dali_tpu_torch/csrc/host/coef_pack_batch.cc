@@ -5,13 +5,15 @@
 // (dali_tpu/native/src/jpeg_coeffs_split.cc). Each sample goes through the
 // from-scratch baseline decoder (jpeg_huff.cc ..._crop_pack_idx), which emits
 // the zigzag-convention bitmaps + contiguous value streams directly; a stream
-// it declines (SOF2) goes through the progressive decoder into dense scratch
-// planes and is compacted into the same convention. There is no libjpeg
-// fallback: a sample neither decoder reads is reported in `oks` and the
-// caller raises.
+// it declines goes into dense scratch planes and is compacted into the same
+// convention: SOF2 through the progressive decoder, grayscale through the
+// dense baseline read (zero chroma planes, chroma quant table of 1s, as the
+// reference's libjpeg fallback writes them). There is no libjpeg fallback: a
+// sample none of them reads is reported in `oks` and the caller raises.
 
 #include <cstdint>
 #include <cstring>
+#include <initializer_list>
 #include <vector>
 
 extern "C" {
@@ -25,6 +27,10 @@ int dali_tpu_jpeg_huff_read_coeffs_split_crop_pack_idx(
     unsigned short*, int, int, int, int, int, int, int, int, unsigned char*,
     long long);
 int dali_tpu_jpeg_huff_progressive_read_coeffs_split_crop(
+    const char*, size_t, int, int, short*, signed char*, short*, signed char*,
+    short*, signed char*, unsigned short*, int, int, int, int, int, int, int,
+    int);
+int dali_tpu_jpeg_huff_read_coeffs_split_crop(
     const char*, size_t, int, int, short*, signed char*, short*, signed char*,
     short*, signed char*, unsigned short*, int, int, int, int, int, int, int,
     int);
@@ -90,10 +96,13 @@ void run_pack_job(void* p) {
     if ((long)y_s.size() < y_n * nac_y + 16) y_s.resize(y_n * nac_y + 16);
     if ((long)cb_s.size() < c_n * nac_c + 16) cb_s.resize(c_n * nac_c + 16);
     if ((long)cr_s.size() < c_n * nac_c + 16) cr_s.resize(c_n * nac_c + 16);
-    rc = dali_tpu_jpeg_huff_progressive_read_coeffs_split_crop(
-        j->data, j->len, j->ky, j->kc, j->y_dc, y_s.data(), j->cb_dc,
-        cb_s.data(), j->cr_dc, cr_s.data(), j->q, j->bh, j->bw, j->cbh,
-        j->cbw, j->y_br0, j->y_bc0, j->c_br0, j->c_bc0);
+    for (auto read : {dali_tpu_jpeg_huff_progressive_read_coeffs_split_crop,
+                      dali_tpu_jpeg_huff_read_coeffs_split_crop}) {
+      rc = read(j->data, j->len, j->ky, j->kc, j->y_dc, y_s.data(), j->cb_dc,
+                cb_s.data(), j->cr_dc, cr_s.data(), j->q, j->bh, j->bw, j->cbh,
+                j->cbw, j->y_br0, j->y_bc0, j->c_br0, j->c_bc0);
+      if (rc == 0) break;
+    }
     if (rc == 0) {
       *j->y_nnz = dali_tpu_sparse_pack_i8_perm(y_s.data(), y_n, nac_y,
                                                j->perm_y, j->y_mask,

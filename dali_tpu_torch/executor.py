@@ -35,7 +35,8 @@ import torch
 
 from ._schema import get_operator_impl
 from .backend.base import SHAPE_PRESERVING_SCHEMAS, DeviceCtx, HostCtx, Operator, ReaderOperator
-from .batch import DeviceBatch, Esc16Staged, HostBatch, SparseStaged, Staged, pad_and_stack
+from .batch import (DeviceBatch, Esc16Staged, FlatStaged, HostBatch, SparseStaged, Staged,
+                    pad_and_stack)
 from .kernels import wire
 from .tensors import TensorListCPU, TensorListGPU
 
@@ -417,6 +418,8 @@ class Executor:
             elif isinstance(item, SparseStaged):
                 groups.append((item.mask.view(np.int16), item.nibs, item.esc, item.offsets,
                                item.shapes))
+            elif isinstance(item, FlatStaged):
+                groups.append((item.flat, item.offsets, item.shapes))
             else:
                 groups.append((item.array, item.shapes))
         groups.append(tuple(staged["args"]))
@@ -479,6 +482,9 @@ class Executor:
                 mask, nibs, esc, offs, shapes = grp
                 data = wire.unsparse_boundary(mask, wire.decode_nib_stream(nibs, esc), offs,
                                               shapes, item.canvas)
+            elif isinstance(item, FlatStaged):
+                flat, offs, shapes = grp
+                data = wire.unflatten_boundary(flat, offs, shapes, item.canvas)
             else:
                 data, shapes = grp
                 if (item.shapes == np.asarray(item.array.shape[1:1 + item.shapes.shape[1]])).all():

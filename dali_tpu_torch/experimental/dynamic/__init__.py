@@ -450,7 +450,7 @@ def _make_image_decoder(name):
         schema = "decoders." + "".join(w.capitalize() for w in name.split("_"))
         if "hybrid_device_decode" in kwargs:
             raise TypeError(f"Operator '{schema}' got unexpected argument 'hybrid_device_decode'")
-        raise _not_ported(f"decoders.{name} (eager, host-decoded)", "Queue 1 item 5")
+        raise _not_ported(f"decoders.{name} (eager, host-decoded)", "Queue 1 item 1c")
 
     decoder.__name__ = decoder.__qualname__ = name
     return decoder

@@ -1,9 +1,10 @@
 """Separable resize of padded batches (plain PyTorch).
 
-Counterpart of ``dali_tpu/kernels/resample.py`` ``resample_batch`` (2-D
-path): per-sample dense interpolation matrices ``A_y [out_h, H]`` and
-``A_x [out_w, W]`` built by direct window evaluation, then two batched
-matrix products ``A_y @ img @ A_x^T`` in float32 with TF32 off (the
+Counterpart of ``dali_tpu/kernels/resample.py`` ``resample_batch`` and
+``resample_volume_batch``: per-sample dense interpolation matrices
+``A_y [out_h, H]`` and ``A_x [out_w, W]`` (and ``A_z [out_d, D]`` for
+volumes) built by direct window evaluation over a per-sample ROI, then
+batched matrix products ``A_y @ img @ A_x^T`` in float32 with TF32 off (the
 reference runs them at ``Precision.HIGHEST``). Integer outputs are rounded
 half to even and clipped. No Pallas kernel exists for this stage; the
 tap-gather hand kernel is queued in ROADMAP.md (B3).
@@ -115,29 +116,82 @@ def _full_fp32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def resample_batch(data: torch.Tensor, extents, out_h: int, out_w: int,
-                   interp: DALIInterpType = DALIInterpType.INTERP_LINEAR,
-                   antialias: bool = True, out_dtype=None) -> torch.Tensor:
-    """Resize padded [N, H, W, C] (valid extents [N, 2] or None) to
-    [N, out_h, out_w, C]; the ROI is each sample's whole valid extent."""
-    n, H, W, C = data.shape
-    dev = data.device
-    if extents is None:
-        extents = torch.tensor([[H, W]], dtype=torch.int32, device=dev).expand(n, 2)
-    ext_f = extents[:, :2].to(torch.float32)
-    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
-    Ay = interp_matrix(out_h, zero, ext_f[:, 0], extents[:, 0], interp,
-                       max_taps(interp, H / out_h, antialias), antialias, H)
-    Ax = interp_matrix(out_w, zero, ext_f[:, 1], extents[:, 1], interp,
-                       max_taps(interp, W / out_w, antialias), antialias, W)
-    img = data.to(torch.float32)
-    with _full_fp32_matmul():
-        tmp = torch.bmm(Ay, img.reshape(n, H, W * C)).reshape(n, out_h, W, C)
-        tmp = tmp.permute(0, 2, 1, 3).reshape(n, W, out_h * C)
-        out = torch.bmm(Ax, tmp).reshape(n, out_w, out_h, C).permute(0, 2, 1, 3)
+def _cast_out(out: torch.Tensor, out_dtype) -> torch.Tensor:
     if out_dtype is not None and out_dtype != torch.float32:
         if not out_dtype.is_floating_point:
             info = torch.iinfo(out_dtype)
             out = torch.clamp(torch.round(out), info.min, info.max)
         out = out.to(out_dtype)
     return out.contiguous()
+
+
+def _full_extents(n: int, canvas, extents, dev) -> torch.Tensor:
+    if extents is None:
+        return torch.tensor([list(canvas)], dtype=torch.int32, device=dev).expand(n, len(canvas))
+    return extents[:, :len(canvas)]
+
+
+def resample_batch(data: torch.Tensor, extents, roi_start, roi_size, out_h: int, out_w: int,
+                   interp: DALIInterpType = DALIInterpType.INTERP_LINEAR,
+                   antialias: bool = True, out_dtype=None, taps_y: int = None,
+                   taps_x: int = None) -> torch.Tensor:
+    """Resize padded [N, H, W, C] to [N, out_h, out_w, C].
+
+    ``extents`` [N, >=2] valid (H, W) or None (the whole canvas);
+    ``roi_start`` / ``roi_size`` [N, 2] float (y, x) / (h, w), by default
+    the origin and each sample's valid extent. ``taps_y`` / ``taps_x``
+    override the canvas-ratio tap bound: a caller whose per-sample ROI
+    stretch exceeds the canvas ratio (Resize packing each output into the
+    front of a larger canvas) passes a bound from the true per-sample scale,
+    or heavy downscales get too few antialias taps."""
+    n, H, W, C = data.shape
+    dev = data.device
+    extents = _full_extents(n, (H, W), extents, dev)
+    if roi_start is None:
+        roi_start = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    if roi_size is None:
+        roi_size = extents.to(torch.float32)
+    roi_start, roi_size = roi_start.to(torch.float32), roi_size.to(torch.float32)
+    if taps_y is None:
+        taps_y = max_taps(interp, H / out_h, antialias)
+    if taps_x is None:
+        taps_x = max_taps(interp, W / out_w, antialias)
+    Ay = interp_matrix(out_h, roi_start[:, 0], roi_size[:, 0], extents[:, 0], interp, taps_y,
+                       antialias, H)
+    Ax = interp_matrix(out_w, roi_start[:, 1], roi_size[:, 1], extents[:, 1], interp, taps_x,
+                       antialias, W)
+    img = data.to(torch.float32)
+    with _full_fp32_matmul():
+        tmp = torch.bmm(Ay, img.reshape(n, H, W * C)).reshape(n, out_h, W, C)
+        tmp = tmp.permute(0, 2, 1, 3).reshape(n, W, out_h * C)
+        out = torch.bmm(Ax, tmp).reshape(n, out_w, out_h, C).permute(0, 2, 1, 3)
+    return _cast_out(out, out_dtype)
+
+
+def resample_volume_batch(data: torch.Tensor, extents, out_d: int, out_h: int, out_w: int,
+                          interp: DALIInterpType = DALIInterpType.INTERP_LINEAR,
+                          antialias: bool = True, out_dtype=None) -> torch.Tensor:
+    """Resize padded [N, D, H, W, C] volumes (valid extents [N, >=3] or
+    None) to [N, out_d, out_h, out_w, C]: three separable products (depth,
+    then rows, then columns), each over the sample's whole valid extent."""
+    n, D, H, W, C = data.shape
+    dev = data.device
+    extents = _full_extents(n, (D, H, W), extents, dev)
+    ext_f = extents.to(torch.float32)
+    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    def axis(k, out_size, canvas):
+        return interp_matrix(out_size, zero, ext_f[:, k], extents[:, k], interp,
+                             max_taps(interp, canvas / out_size, antialias), antialias, canvas)
+
+    Az, Ay, Ax = axis(0, out_d, D), axis(1, out_h, H), axis(2, out_w, W)
+    img = data.to(torch.float32)
+    with _full_fp32_matmul():
+        t = torch.bmm(Az, img.reshape(n, D, H * W * C))                     # [n, q, H*W*C]
+        t = t.reshape(n, out_d, H, W * C).permute(0, 2, 1, 3).reshape(n, H, out_d * W * C)
+        t = torch.bmm(Ay, t)                                                 # [n, o, q*W*C]
+        t = t.reshape(n, out_h, out_d, W, C).permute(0, 3, 2, 1, 4).reshape(
+            n, W, out_d * out_h * C)
+        t = torch.bmm(Ax, t)                                                 # [n, p, q*o*C]
+        out = t.reshape(n, out_w, out_d, out_h, C).permute(0, 2, 3, 1, 4)
+    return _cast_out(out, out_dtype)

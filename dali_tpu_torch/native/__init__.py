@@ -3,9 +3,9 @@
 
 * ``jpeg_coef_info`` / ``jpeg_coef_info_batch`` — the header scan, a numpy
   marker parser of SOF0/SOF1/SOF2 streams (the reference asks libjpeg).
-* ``TaskPool``, ``coef_pack_batch``, ``pack_wire2`` — ctypes bindings of
-  ``build/libdali_tpu_torch_host.so`` (see ``build.py``), built from source at
-  first use.
+* ``TaskPool``, ``coef_pack_batch``, ``pack_wire2``, ``coef_dense_batch``,
+  ``pack_wire`` — ctypes bindings of ``build/libdali_tpu_torch_host.so`` (see
+  ``build.py``), built from source at first use.
 """
 
 from __future__ import annotations
@@ -43,6 +43,15 @@ def host_lib():
             lib.dali_tpu_pack_wire2.restype = None
             lib.dali_tpu_pack_wire2.argtypes = [vp, vp, ll, vp, ll, vp, vp, ll, ll, ll, ll,
                                                 vp, vp, vp, vp, vp, vp, llp]
+            lib.dali_tpu_torch_coef_dense_batch.restype = ctypes.c_int
+            lib.dali_tpu_torch_coef_dense_batch.argtypes = (
+                [vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t),
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int]
+                + [ip] * 8 + [lp] * 4 + [vp] * 5 + [ip])
+            ci = ctypes.c_int
+            lib.dali_tpu_pack_wire.restype = None
+            lib.dali_tpu_pack_wire.argtypes = [vp, vp, ll, ci, vp, ll, ci, vp, vp, ll, ll,
+                                               vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, llp]
             _LIB = lib
     return _LIB
 
@@ -147,21 +156,12 @@ def _ptr(a: np.ndarray, ctype=ctypes.c_void_p):
     return a.ctypes.data_as(ctype) if ctype is not ctypes.c_void_p else ctypes.c_void_p(a.ctypes.data)
 
 
-def coef_pack_batch(pool: TaskPool, datas, ky, kc, blocks, brc0, c_brc0, flat_lens,
-                    idx_blobs=None):
-    """File bytes -> sparse coefficient wire for the crop windows of a batch.
-
-    blocks [n, 4] = window (ybh, ybw, cbh, cbw); brc0 / c_brc0 [n, 2] = luma
-    and chroma block origins; flat_lens = ratcheted plane capacities.
-    Returns (y_dc, y_mask, y_vals, y_total, c_dc, c_mask, c_vals, c_total,
-    q [n, ky²+kc²] int32, offs). Raises ValueError if a sample does not
-    decode."""
-    lib = host_lib()
-    n = len(datas)
+def _batch_args(datas, blocks, brc0, c_brc0, ky, kc):
+    """The per-sample arguments both batch entries share: file byte arrays,
+    the eight int32 block columns and the four plane offset arrays."""
     arrs = [np.ascontiguousarray(d).view(np.uint8).reshape(-1) for d in datas]
-    cols = [np.ascontiguousarray(blocks[:, j], np.int32) for j in range(4)]
-    cols += [np.ascontiguousarray(brc0[:, j], np.int32) for j in range(2)]
-    cols += [np.ascontiguousarray(c_brc0[:, j], np.int32) for j in range(2)]
+    cols = [np.ascontiguousarray(a[:, j], np.int32)
+            for a, k in ((blocks, 4), (brc0, 2), (c_brc0, 2)) for j in range(k)]
     y_n = cols[0].astype(np.int64) * cols[1]
     c_n = cols[2].astype(np.int64) * cols[3]
 
@@ -170,6 +170,38 @@ def coef_pack_batch(pool: TaskPool, datas, ky, kc, blocks, brc0, c_brc0, flat_le
 
     offs = {"y_dc": excl(y_n), "y_ac": excl(y_n * (ky * ky - 1)),
             "c_dc": excl(2 * c_n), "c_ac": excl(2 * c_n * (kc * kc - 1))}
+    n = len(arrs)
+    ip, lp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_long)
+    args = [ctypes.cast((ctypes.c_void_p * n)(*[a.ctypes.data for a in arrs]),
+                        ctypes.POINTER(ctypes.c_char_p)),
+            (ctypes.c_size_t * n)(*[a.nbytes for a in arrs]), n, ky, kc,
+            *[_ptr(c, ip) for c in cols],
+            *[_ptr(offs[k], lp) for k in ("y_dc", "y_ac", "c_dc", "c_ac")]]
+    # the arrays stay referenced through the call
+    return args, offs, (arrs, cols), (y_n, c_n)
+
+
+def _raise_bad(oks, n):
+    bad = [i for i in range(n) if not oks[i]]
+    if bad:
+        raise ValueError(
+            f"hybrid JPEG decode failed for sample(s) {bad}: neither the baseline nor "
+            "the progressive entropy decoder reads them (dali_tpu_torch has no libjpeg "
+            "fallback)")
+
+
+def coef_pack_batch(pool: TaskPool, datas, ky, kc, blocks, brc0, c_brc0, flat_lens,
+                    idx_blobs=None):
+    """File bytes -> sparse coefficient wire for the block windows of a batch.
+
+    blocks [n, 4] = window (ybh, ybw, cbh, cbw); brc0 / c_brc0 [n, 2] = luma
+    and chroma block origins; flat_lens = ratcheted plane capacities.
+    Returns (y_dc, y_mask, y_vals, y_total, c_dc, c_mask, c_vals, c_total,
+    q [n, ky²+kc²] int32, offs). Raises ValueError if a sample does not
+    decode."""
+    lib = host_lib()
+    n = len(datas)
+    args, offs, _keep, _ = _batch_args(datas, blocks, brc0, c_brc0, ky, kc)
     y_dc = np.empty((flat_lens[0],), np.int16)
     y_mask = np.empty((flat_lens[0],), np.uint16)
     y_vals = np.empty((flat_lens[1] + 16,), np.int8)
@@ -185,24 +217,64 @@ def coef_pack_batch(pool: TaskPool, datas, ky, kc, blocks, brc0, c_brc0, flat_le
     else:
         idx_ptrs = ctypes.cast(None, ctypes.POINTER(ctypes.c_void_p))
         idx_caps = ctypes.cast(None, ctypes.POINTER(ctypes.c_longlong))
-    ip, lp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_long)
     lib.dali_tpu_torch_coef_pack_batch(
-        pool.handle,
-        ctypes.cast((ctypes.c_void_p * n)(*[a.ctypes.data for a in arrs]),
-                    ctypes.POINTER(ctypes.c_char_p)),
-        (ctypes.c_size_t * n)(*[a.nbytes for a in arrs]), n, ky, kc,
-        *[_ptr(c, ip) for c in cols],
-        *[_ptr(offs[k], lp) for k in ("y_dc", "y_ac", "c_dc", "c_ac")],
+        pool.handle, *args,
         _ptr(y_dc), _ptr(y_mask), _ptr(y_vals), _ptr(c_dc), _ptr(c_mask), _ptr(c_vals), _ptr(q),
         oks, ctypes.byref(y_total), ctypes.byref(c_total), idx_ptrs, idx_caps)
-    bad = [i for i in range(n) if not oks[i]]
-    if bad:
-        raise ValueError(
-            f"hybrid JPEG decode failed for sample(s) {bad}: neither the baseline nor "
-            "the progressive entropy decoder reads them (dali_tpu_torch has no libjpeg "
-            "fallback)")
+    _raise_bad(oks, n)
     return (y_dc, y_mask, y_vals, int(y_total.value), c_dc, c_mask, c_vals,
             int(c_total.value), q.astype(np.int32), offs)
+
+
+def coef_dense_batch(pool: TaskPool, datas, ky, kc, blocks, brc0, c_brc0, flat_lens=(0, 0, 0, 0)):
+    """File bytes -> dense coefficient planes of the block windows of a
+    batch (``coef_dense_batch.cc``), each sample's planes packed at ``offs``
+    with no padding: y_dc int16 [ybh*ybw], y_ac int8 [ybh*ybw*(ky²-1)], c_dc
+    int16 [2*cbh*cbw] (Cb then Cr), c_ac int8 [2*cbh*cbw*(kc²-1)]. Zero
+    origins and the image's block extents read whole images. The buffers
+    hold at least ``flat_lens`` elements (ratcheted plane capacities).
+    Returns (y_dc, y_ac, c_dc, c_ac, q [n, ky²+kc²] int32, offs). Raises
+    ValueError if a sample does not decode."""
+    n = len(datas)
+    args, offs, _keep, (y_n, c_n) = _batch_args(datas, blocks, brc0, c_brc0, ky, kc)
+    need = (y_n.sum(), (y_n * (ky * ky - 1)).sum(), 2 * c_n.sum(),
+            (2 * c_n * (kc * kc - 1)).sum())
+    y_dc, y_ac, c_dc, c_ac = (np.empty((max(int(m), int(f)),), dt) for m, f, dt in zip(
+        need, flat_lens, (np.int16, np.int8, np.int16, np.int8)))
+    q = np.empty((n, ky * ky + kc * kc), np.uint16)
+    oks = (ctypes.c_int * n)()
+    host_lib().dali_tpu_torch_coef_dense_batch(
+        pool.handle, *args, _ptr(y_dc), _ptr(y_ac), _ptr(c_dc), _ptr(c_ac), _ptr(q), oks)
+    _raise_bad(oks, n)
+    return y_dc, y_ac, c_dc, c_ac, q.astype(np.int32), offs
+
+
+def pack_wire(pool: TaskPool, y_ac, ny_blocks, nac_y, c_ac, nc_blocks, nac_c, y_dc, c_dc,
+              y_dc_len, c_dc_len, y_mask, y_nibs, y_vals, c_mask, c_nibs, c_vals,
+              y_dc8, y_esc16, c_dc8, c_esc16):
+    """Dense planes -> the sparse wire in one call (``sparse_pack.cc``
+    ``dali_tpu_pack_wire``): both AC planes to bitmaps + nibble-packed
+    values (escapes in place at the front of the vals buffers), both DC
+    planes escape-packed to int8. Returns (y_nnz, y_val_esc, c_nnz,
+    c_val_esc, y_dc_esc, c_dc_esc)."""
+    if not (y_ac.dtype == c_ac.dtype == np.int8 and y_dc.dtype == c_dc.dtype == np.int16):
+        raise ValueError("pack_wire takes int8 AC and int16 DC planes")
+    if not (y_vals.shape[0] >= ny_blocks * nac_y + 16 and c_vals.shape[0] >= nc_blocks * nac_c + 16
+            and y_nibs.shape[0] >= (ny_blocks * nac_y + 1) // 2
+            and c_nibs.shape[0] >= (nc_blocks * nac_c + 1) // 2
+            and y_mask.shape[0] >= ny_blocks and c_mask.shape[0] >= nc_blocks
+            and y_dc8.shape[0] >= y_dc_len and c_dc8.shape[0] >= c_dc_len
+            and y_dc.shape[0] >= ny_blocks and c_dc.shape[0] >= nc_blocks
+            and y_ac.shape[0] >= ny_blocks * nac_y and c_ac.shape[0] >= nc_blocks * nac_c
+            and y_esc16.shape[0] >= ny_blocks and c_esc16.shape[0] >= nc_blocks):
+        raise ValueError("wire buffers undersized")
+    counts = (ctypes.c_longlong * 6)()
+    host_lib().dali_tpu_pack_wire(
+        pool.handle, _ptr(y_ac), int(ny_blocks), int(nac_y), _ptr(c_ac), int(nc_blocks),
+        int(nac_c), _ptr(y_dc), _ptr(c_dc), int(y_dc_len), int(c_dc_len), _ptr(y_mask),
+        _ptr(y_nibs), _ptr(y_vals), _ptr(c_mask), _ptr(c_nibs), _ptr(c_vals), _ptr(y_dc8),
+        _ptr(y_esc16), _ptr(c_dc8), _ptr(c_esc16), counts)
+    return tuple(int(c) for c in counts)
 
 
 def pack_wire2(pool: TaskPool, y_vals, y_nnz, c_vals, c_nnz, y_dc, c_dc, ny_blocks,

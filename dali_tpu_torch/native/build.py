@@ -3,7 +3,7 @@
 * ``build/libdali_tpu_torch_host.so`` — the hybrid-JPEG host half: the
   libjpeg-free entropy decoder, wire packer and task pool of the JAX package
   (``dali_tpu/native/src/{jpeg_huff,sparse_pack,tasking}.cc``, read in place)
-  plus the port's batch entry ``csrc/host/coef_pack_batch.cc``. g++ with
+  plus the port's batch entries ``csrc/host/coef_{pack,dense}_batch.cc``. g++ with
   ``-march=native``: compiled on the machine that runs it, never shipped.
 * ``build/libdali_tpu_torch_kernels.so`` — the CUDA kernels (``csrc/*.cu``),
   nvcc for ``sm_90a``, a plain C interface loaded with ctypes.
@@ -38,6 +38,7 @@ HOST_SOURCES = [
     os.path.join(_REF_SRC, "sparse_pack.cc"),
     os.path.join(_REF_SRC, "tasking.cc"),
     os.path.join(_PKG, "csrc", "host", "coef_pack_batch.cc"),
+    os.path.join(_PKG, "csrc", "host", "coef_dense_batch.cc"),
 ]
 KERNEL_SOURCES = [os.path.join(_PKG, "csrc", "cmn.cu")]
 

@@ -22,7 +22,10 @@ each sample's valid region (cuFFT and the card's matmul against the CPU's).
 Automatic augmentation and DataNode arithmetic on the card are held against
 the same graphs on the CPU (the stated limits are in each test), and so are
 eager mode (ndd: eager resize + CMN, a captured frontend) and a parallel
-external source feeding the RN50 device path, within one uint8 step / std."""
+external source feeding the RN50 device path, within one uint8 step / std,
+and so are the ImageNet training recipe (whole-image hybrid decode,
+RandomResizedCrop) and the RN50 validation recipe (decode at scale 1,
+resize_shorter onto a per-sample canvas, CMN crop)."""
 
 import os
 
@@ -426,3 +429,83 @@ def test_eager_on_card_raises_without_kernel_library(card, monkeypatch):
         with pytest.raises(RuntimeError, match="kernel library missing"):
             ndd.crop_mirror_normalize(b, mean=MEAN, std=STD)
     assert cmn.COUNTER.launches == before
+
+
+# -- the ImageNet recipes: whole-image decode, RandomResizedCrop, per-sample Resize -------------
+
+
+def _imagenet(device, recipe):
+    train = recipe == "imagenet_train"
+
+    @pipeline_def(batch_size=8, num_threads=2, seed=42, device=device)
+    def p():
+        jpegs, labels = fn.readers.file(file_root=CORPUS, random_shuffle=True, name="Reader",
+                                        seed=1234)
+        images = fn.decoders.image(jpegs, device="mixed", hybrid_device_decode=True,
+                                   hybrid_scale=2 if train else 1, hybrid_wire="int8")
+        if train:
+            resized = fn.random_resized_crop(images, size=[224, 224])
+            out = fn.crop_mirror_normalize(resized, mirror=fn.random.coin_flip(probability=0.5),
+                                           dtype=types.FLOAT, output_layout="CHW", mean=MEAN,
+                                           std=STD)
+        else:
+            resized = fn.resize(images, resize_shorter=256, interp_type=types.INTERP_TRIANGULAR)
+            out = fn.crop_mirror_normalize(resized, crop=(224, 224), dtype=types.FLOAT,
+                                           output_layout="CHW", mean=MEAN, std=STD)
+        return out, labels, images, resized
+
+    pipe = p()
+    pipe.build()
+    try:
+        return [[o.as_tensor() if i != 1 else o.as_array() for i, o in enumerate(r)] + [
+            r[2].shape(), r[3].shape()] for r in (pipe.run() for _ in range(2))]
+    finally:
+        pipe.shutdown()
+
+
+@pytest.mark.parametrize("recipe", ["imagenet_train", "rn50_val"])
+def test_imagenet_recipes_on_card_match_cpu(card, recipe):
+    """One CMN launch per batch; labels and host-known shapes equal; the
+    decoded and resized uint8 images within one step on at most 1e-3 of
+    values (float evaluation on two devices may split a rounding tie); CMN
+    output within one uint8 step / std."""
+    before = cmn.COUNTER.launches
+    on_card = _imagenet(card, recipe)
+    assert cmn.COUNTER.launches == before + 2
+    on_cpu = _imagenet("cpu", recipe)
+    for (g_img, g_lab, g_dec, g_res, g_dsh, g_rsh), (c_img, c_lab, c_dec, c_res, c_dsh, c_rsh) in zip(
+            on_card, on_cpu):
+        assert g_img.is_cuda and g_img.dtype == torch.float32
+        assert tuple(g_img.shape) == (8, 3, 224, 224)
+        np.testing.assert_array_equal(g_lab, c_lab)
+        assert g_dsh == c_dsh and g_rsh == c_rsh
+        for g, c in ((g_dec, c_dec), (g_res, c_res)):
+            assert g.is_cuda and g.dtype == torch.uint8 and g.shape == c.shape
+            d = (g.cpu().to(torch.int16) - c.to(torch.int16)).abs()
+            assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= MAX_FLIP_FRACTION
+        diff = (g_img.cpu() - c_img).abs()
+        assert float(diff.max()) <= LSB
+        assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+
+
+def test_unported_image_paths_raise_on_card(card):
+    """What is not ported raises, with the ROADMAP item, rather than falling
+    back to another path."""
+    def build(make):
+        @pipeline_def(batch_size=2, num_threads=1, device=card)
+        def p():
+            jpegs, _ = fn.readers.file(file_root=CORPUS)
+            return make(jpegs)
+
+        p().build()
+
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1b"):
+        build(lambda j: fn.decoders.image(j, device="mixed", hybrid_device_decode=True))
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1c"):
+        build(lambda j: fn.decoders.image(j, device="mixed"))
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 5h"):
+        build(lambda j: fn.random_resized_crop(j, size=[8, 8]))
+    with pytest.raises(NotImplementedError, match="never reads"):
+        build(lambda j: fn.resize(fn.decoders.image(j, device="mixed", hybrid_device_decode=True,
+                                                    hybrid_wire="int8"),
+                                  resize_shorter=8, roi_start=[0.0, 0.0]))

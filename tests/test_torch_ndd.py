@@ -330,7 +330,7 @@ def test_eager_decoders_do_what_dali_tpu_does():
         with pytest.raises(TypeError, match="hybrid_device_decode"):
             ndd.decoders.image_random_crop(jpegs, device="mixed", hybrid_device_decode=True)
         for dec in (ndd.decoders.image_random_crop, ndd.decoders.image):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 1c"):
                 dec(jpegs, device="mixed")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ndd.water

@@ -1,11 +1,15 @@
-"""The RN50 training path end to end in both packages on the CPU: the
-rn50_train pipeline of bench.py at the tools/hybrid_fixture.py shape (64x64
-output, hybrid_scale=2, ImageNet CMN constants), explicit seeds.
+"""The image recipes end to end in both packages on the CPU: the rn50_train
+pipeline of bench.py at the tools/hybrid_fixture.py shape (64x64 output,
+hybrid_scale=2, ImageNet CMN constants, explicit seeds), and at full output
+size the ImageNet training recipe of docs/examples/imagenet_training.py
+(whole-image decode, RandomResizedCrop 224, implicit seeds) and the RN50
+validation recipe (resize_shorter 256, CMN crop 224).
 
 Labels must be equal. Images agree within one uint8 step divided by the
-smallest std (0.0176): the decoded uint8 crops are equal, and the resize's
+smallest std (0.0176): the decoded uint8 images are equal, and the resize's
 uint8 rounding may split a tie differently (fraction bounded here, measured
-in PERF.md)."""
+in PERF.md). The recipes hold the whole-image decode bit-equal, against
+dali_tpu with debug=True (its jit fuses multiply-adds into FMAs)."""
 
 import json
 import os
@@ -132,6 +136,8 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.auto_aug\n"
         "import dali_tpu_torch.experimental.dynamic, dali_tpu_torch._multiproc\n"
         "import dali_tpu_torch.external_source, dali_tpu_torch.pickling\n"
+        "import dali_tpu_torch.backend.decoders, dali_tpu_torch.backend.image\n"
+        "import dali_tpu_torch.kernels.resample, dali_tpu_torch.native\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2')]\n"
         "assert not bad, bad\n"
     )
@@ -139,9 +145,95 @@ def test_port_never_imports_jax_or_dali_tpu():
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)
 
 
+def _imagenet(pkg, train, batch=BATCH, **kw):
+    """imagenet_train (decode at hybrid_scale=2, RandomResizedCrop 224,
+    coin-flip mirror) or rn50_val (decode at hybrid_scale=1, resize_shorter
+    256 with a triangular filter, CMN crop 224, no mirror). Outputs: CMN
+    images, labels, the decoded images, the resized images."""
+    fn, types = pkg.fn, pkg.types
+
+    @pkg.pipeline_def(batch_size=batch, num_threads=2, seed=42, **kw)
+    def recipe():
+        jpegs, labels = fn.readers.file(file_root=CORPUS, random_shuffle=True, name="Reader",
+                                        seed=1234)
+        images = fn.decoders.image(jpegs, device="mixed", hybrid_device_decode=True,
+                                   hybrid_scale=2 if train else 1, hybrid_wire="int8")
+        if train:
+            resized = fn.random_resized_crop(images, size=[224, 224])
+            mirror = fn.random.coin_flip(probability=0.5)
+            out = fn.crop_mirror_normalize(resized, mirror=mirror, dtype=types.FLOAT,
+                                           output_layout="CHW", mean=MEAN, std=STD)
+        else:
+            resized = fn.resize(images, resize_shorter=256, interp_type=types.INTERP_TRIANGULAR)
+            out = fn.crop_mirror_normalize(resized, crop=(224, 224), dtype=types.FLOAT,
+                                           output_layout="CHW", mean=MEAN, std=STD)
+        return out, labels, images, resized
+
+    pipe = recipe()
+    pipe.build()
+    return pipe
+
+
+def _recipe_out(outs):
+    def host(t):
+        x = t.as_tensor()
+        return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    return ([host(o) for o in (outs[0], outs[2], outs[3])], np.asarray(outs[1].as_array()),
+            [[tuple(int(v) for v in s) for s in o.shape()] for o in (outs[2], outs[3])])
+
+
+def _assert_recipe_close(got, want):
+    (g_img, g_dec, g_res), g_lab, g_shapes = got
+    (w_img, w_dec, w_res), w_lab, w_shapes = want
+    np.testing.assert_array_equal(g_lab, w_lab)
+    assert g_shapes == w_shapes
+    assert g_dec.shape == w_dec.shape and g_res.shape == w_res.shape
+    for i, (h, w, _) in enumerate(g_shapes[0]):
+        np.testing.assert_array_equal(g_dec[i, :h, :w], w_dec[i, :h, :w])
+    d = np.abs(g_res.astype(np.int16) - w_res.astype(np.int16))
+    assert d.max() <= 1 and (d > 0).mean() <= MAX_FLIP_FRACTION
+    assert g_img.shape == w_img.shape == (BATCH, 3, 224, 224)
+    diff = np.abs(g_img - w_img)
+    assert diff.max() <= LSB
+    assert (diff > 1e-4).mean() <= MAX_FLIP_FRACTION
+
+
+@pytest.mark.parametrize("recipe", ["imagenet_train", "rn50_val"])
+def test_imagenet_recipes_two_iterations_match_dali_tpu(recipe):
+    train = recipe == "imagenet_train"
+    ref = _imagenet(dali_tpu, train, debug=True)
+    port = _imagenet(dali_tpu_torch, train, device="cpu")
+    try:
+        for _ in range(2):
+            _assert_recipe_close(_recipe_out(port.run()), _recipe_out(ref.run()))
+    finally:
+        ref._executor.shutdown()
+        port.shutdown()
+
+
+def test_imagenet_checkpoint_from_dali_tpu_resumes_in_port():
+    """The reader, RandomResizedCrop and coin_flip states of a dali_tpu
+    checkpoint continue in the port: implicit seeds key on op ids, so the
+    port's graph must be the reference's node for node."""
+    ref = _imagenet(dali_tpu, True, debug=True, enable_checkpointing=True)
+    try:
+        ref.run()
+        ckpt = ref.checkpoint()
+        want = _recipe_out(ref.run())
+    finally:
+        ref._executor.shutdown()
+    assert json.loads(ckpt)["executor"]["iteration"] == 1
+    port = _imagenet(dali_tpu_torch, True, device="cpu", checkpoint=ckpt)
+    try:
+        _assert_recipe_close(_recipe_out(port.run()), want)
+    finally:
+        port.shutdown()
+
+
 def test_unported_names_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dali_tpu_torch.fn.decoders.image
+        dali_tpu_torch.fn.decoders.image_crop
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dali_tpu_torch.fn.water
 
