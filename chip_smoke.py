@@ -82,7 +82,21 @@ on failure:
    ``hybrid_scale=1`` (the dense flat wire: an 8x8 selection does not fit
    the sparse bitmaps), ``resize(resize_shorter=256,
    interp_type=INTERP_TRIANGULAR)`` onto its per-sample canvas, CMN
-   ``crop=(224, 224)`` with no mirror; 3 warm-up + 10 timed batches.
+   ``crop=(224, 224)`` with no mirror; 3 warm-up + 10 timed batches;
+11. rn50_host_decode, the training recipe of DALI's PyTorch ResNet-50
+   example with the decode on the host: ``decoders.image_random_crop(
+   device="mixed", random_area=[0.1, 1.0], random_aspect_ratio=[0.8, 1.25],
+   num_attempts=100)`` (the libjpeg-free C++ decode of the whole image on the
+   host cores, then the window), ``resize`` to 224x224 with a triangular
+   filter, coin-flip mirror and CMN to FLOAT CHW, on the same reader at batch
+   256: 3 warm-up + 20 timed batches, checked and reported as phase 9 (H2D of
+   the crops, resize, CMN), then batch 16 on the card against the CPU;
+12. proxy_int16_wire, ``docs/examples/pytorch_proxy_training.py``'s graph on
+   the same reader at batch 256: ``decoders.image(device="mixed",
+   hybrid_device_decode=True)`` on its default int16 wire at
+   ``hybrid_scale=1``, ``random_resized_crop(size=[224, 224])``, coin-flip
+   CMN; 3 warm-up + 10 timed batches, reported as phase 9 (H2D of the int16
+   planes, IDCT tail, RandomResizedCrop, CMN), then batch 16 against the CPU.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings) is the JSON object on the line before
@@ -114,7 +128,8 @@ AUDIO_TOL = 1e-3  # dB, and normalized units
 AUG_TIMED = {"trivial_augment_wide": 20, "auto_augment_image_net": 10}
 AUG_CHECK_BATCH = 16
 AMP_TIMED = 10
-RECIPE_TIMED = {"imagenet_train": 20, "rn50_val": 10}
+RECIPE_TIMED = {"imagenet_train": 20, "rn50_val": 10, "rn50_host_decode": 20,
+                "proxy_int16_wire": 10}
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
 
@@ -679,8 +694,11 @@ def parallel_phase(card, file_list, rn50_ips):
 
 def make_imagenet_pipe(file_list, batch, device, recipe):
     """imagenet_train (whole-image decode at hybrid_scale=2, RandomResizedCrop
-    224, coin-flip mirror, CMN) or rn50_val (decode at hybrid_scale=1,
-    resize_shorter 256, CMN crop 224)."""
+    224, coin-flip mirror, CMN), rn50_val (decode at hybrid_scale=1,
+    resize_shorter 256, CMN crop 224), rn50_host_decode (host decode with the
+    random crop, resize 224 triangular, coin-flip CMN) or proxy_int16_wire
+    (int16-wire decode at hybrid_scale=1, RandomResizedCrop 224, coin-flip
+    CMN)."""
     from dali_tpu_torch import fn, pipeline_def, types
 
     train = recipe == "imagenet_train"
@@ -689,6 +707,19 @@ def make_imagenet_pipe(file_list, batch, device, recipe):
                   prefetch_queue_depth=2, device=device)
     def imagenet():
         jpegs, labels = fn.readers.file(file_list=file_list, random_shuffle=True, name="Reader")
+        if recipe in ("rn50_host_decode", "proxy_int16_wire"):
+            if recipe == "rn50_host_decode":
+                images = fn.decoders.image_random_crop(
+                    jpegs, device="mixed", output_type=types.RGB, random_area=[0.1, 1.0],
+                    random_aspect_ratio=[0.8, 1.25], num_attempts=100)
+                images = fn.resize(images, resize_x=OUT, resize_y=OUT,
+                                   interp_type=types.INTERP_TRIANGULAR)
+            else:
+                images = fn.decoders.image(jpegs, device="mixed", hybrid_device_decode=True)
+                images = fn.random_resized_crop(images, size=[OUT, OUT])
+            return fn.crop_mirror_normalize(images, mirror=fn.random.coin_flip(probability=0.5),
+                                            dtype=types.FLOAT, output_layout="CHW", mean=MEAN,
+                                            std=STD), labels
         images = fn.decoders.image(jpegs, device="mixed", hybrid_device_decode=True,
                                    hybrid_scale=2 if train else 1, hybrid_wire="int8")
         if train:
@@ -722,7 +753,8 @@ def imagenet_phase(card, file_list, rn50_ips, recipe):
     pipe.run()
     torch.cuda.synchronize()
     require(not ex.record_stage_events and ex.stage_events, "the instrumented batch did not run")
-    names = {"h2d": "H2D", "_JpegIdctSplit": "IDCT tail", "CropMirrorNormalize": "CMN"}
+    names = {"h2d": "H2D", "_JpegIdctSplit": "IDCT tail", "_JpegIdct": "IDCT tail",
+             "CropMirrorNormalize": "CMN"}
     stages = {}
     for s_name, a, b in ex.stage_events:
         k = names.get(s_name, s_name)

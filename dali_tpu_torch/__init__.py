@@ -11,9 +11,12 @@ Ported so far:
   ``decoders.image_random_crop(device="mixed", hybrid_device_decode=True)`` ->
   ``resize`` -> ``random.coin_flip`` + ``crop_mirror_normalize`` ->
   ``plugin.pytorch`` iterators;
-* the whole-image hybrid decode, ``decoders.image(device="mixed",
-  hybrid_device_decode=True, hybrid_wire="int8")``, and the coefficient
-  cache (``cache_size``) of both hybrid decoders; ``random_resized_crop``
+* image decode: the host-decoded ``decoders.image``,
+  ``image_random_crop``, ``image_crop``, ``image_slice`` (cpu and mixed) and
+  ``peek_image_shape``, JPEG through a libjpeg-free C++ decoder; the
+  whole-image hybrid decode, ``decoders.image(device="mixed",
+  hybrid_device_decode=True)`` on the int16 wire (the default) and the int8
+  wire, and the coefficient cache (``cache_size``) of the hybrid decoders; ``random_resized_crop``
   and every form of ``resize`` on the device (per-sample sizes, the
   keep-aspect modes, ``max_size``, filter overrides, ``save_attrs``, tensor
   sizes, FHWC sequences and DHWC volumes): the ImageNet/EfficientNet
@@ -91,53 +94,60 @@ def _check_hybrid_args(device, hybrid_scale, kwargs):
         raise ValueError(f"hybrid_scale must be 1, 2, or 4 (got {hybrid_scale})")
 
 
+_default_decoders_image = fn.decoders.image
+
+
 def _decoders_image_fn(*inputs, device=None, hybrid_device_decode=False, hybrid_scale=1,
                        hybrid_chroma_full=False, hybrid_wire="int16", **kwargs):
-    """fn.decoders.image with ``hybrid_device_decode=True``: the host
-    entropy-decodes every DCT block and ships the coefficients (DC int16, AC
-    saturated to int8 with ``hybrid_wire="int8"``); the device finishes the
-    decode (IDCT, chroma, colour) at 1/``hybrid_scale`` resolution. Builds
-    the reference's two nodes, ``_JpegCoeffsSplit`` then ``_JpegIdctSplit``."""
+    """fn.decoders.image. Without ``hybrid_device_decode`` the host decodes
+    (``decoders.Image``). With it the host entropy-decodes every DCT block
+    and ships the coefficients, and the device finishes the decode (IDCT,
+    chroma, colour) at 1/``hybrid_scale`` resolution: the int16 wire
+    (``_JpegCoeffs`` then ``_JpegIdct``, the default) or, with
+    ``hybrid_wire="int8"``, DC int16 and AC saturated to int8
+    (``_JpegCoeffsSplit`` then ``_JpegIdctSplit``), as the reference builds
+    them."""
     if not hybrid_device_decode:
-        raise NotImplementedError(
-            "fn.decoders.image without hybrid_device_decode is not ported to dali_tpu_torch "
-            "yet; see ROADMAP.md (Queue 1 item 1c)")
+        return _default_decoders_image(*inputs, device=device, **kwargs)
     _check_hybrid_args(device, hybrid_scale, kwargs)
     if hybrid_wire not in ("int16", "int8"):
         raise ValueError(f"hybrid_wire must be 'int16' or 'int8' (got {hybrid_wire!r})")
-    if hybrid_wire == "int16":
-        raise NotImplementedError(
-            "fn.decoders.image with hybrid_wire='int16' (the default) is not ported to "
-            "dali_tpu_torch yet; see ROADMAP.md (Queue 1 item 1b); hybrid_wire='int8' is")
     name = kwargs.pop("name", None)
+    coeffs, idct = (("_JpegCoeffs", "_JpegIdct") if hybrid_wire == "int16"
+                    else ("_JpegCoeffsSplit", "_JpegIdctSplit"))
     outs = _op_call(
-        "_JpegCoeffsSplit", device="mixed", inputs=inputs, name=name,
+        coeffs, device="mixed", inputs=inputs, name=name,
         hybrid_scale=hybrid_scale, chroma_full=hybrid_chroma_full,
         cache_size=int(kwargs.pop("cache_size", 0) or 0),
         adjust_orientation=bool(kwargs.pop("adjust_orientation", True)),
     )
     if kwargs:
         raise TypeError(f"fn.decoders.image got unexpected arguments {sorted(kwargs)}")
-    return _op_call("_JpegIdctSplit", device="gpu", inputs=list(outs),
+    return _op_call(idct, device="gpu", inputs=list(outs),
                     hybrid_scale=hybrid_scale, chroma_full=hybrid_chroma_full)
 
 
 fn.decoders.image = _decoders_image_fn
 
 
+_default_decoders_image_random_crop = fn.decoders.image_random_crop
+
+
 def _decoders_image_random_crop_fn(*inputs, device=None, hybrid_device_decode=False,
                                    hybrid_scale=1, hybrid_chroma_full=False,
                                    random_area=(0.08, 1.0), random_aspect_ratio=(3 / 4, 4 / 3),
                                    num_attempts=10, seed=-1, **kwargs):
-    """fn.decoders.image_random_crop with ``hybrid_device_decode=True``: the
-    RRC window is sampled on the host and only its DCT blocks are
-    entropy-decoded and shipped; the device finishes the decode (IDCT,
-    chroma, colour) at 1/``hybrid_scale`` resolution. The output is the
-    crop; pair it with fn.resize for RandomResizedCrop."""
+    """fn.decoders.image_random_crop. Without ``hybrid_device_decode`` the host
+    decodes and crops (``decoders.ImageRandomCrop``). With it the RRC window
+    is sampled on the host and only its DCT blocks are entropy-decoded and
+    shipped; the device finishes the decode (IDCT, chroma, colour) at
+    1/``hybrid_scale`` resolution. The output is the crop; pair it with
+    fn.resize for RandomResizedCrop."""
     if not hybrid_device_decode:
-        raise NotImplementedError(
-            "fn.decoders.image_random_crop without hybrid_device_decode is not ported to "
-            "dali_tpu_torch yet; see ROADMAP.md (Queue 1 item 1c)")
+        return _default_decoders_image_random_crop(
+            *inputs, device=device, random_area=list(random_area),
+            random_aspect_ratio=list(random_aspect_ratio), num_attempts=num_attempts,
+            seed=seed, **kwargs)
     _check_hybrid_args(device, hybrid_scale, kwargs)
     name = kwargs.pop("name", None)
     outs = _op_call(

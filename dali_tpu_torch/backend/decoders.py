@@ -1,9 +1,17 @@
-"""Hybrid JPEG decode: host entropy decode, device IDCT (counterpart of
-``dali_tpu/backend/decoders.py`` ``_JpegCoeffsSplit`` / ``_JpegIdctSplit``,
-the whole-image int8 wire, and ``_JpegCoeffsSplitRRC`` /
-``_JpegIdctSplitRRC``, the decode fused with RandomResizedCrop's window).
+"""Image decoders (counterpart of ``dali_tpu/backend/decoders.py``).
 
-Host half (``mixed``): header scan, the checks of the reference (EXIF
+* Host decode: ``decoders.Image``, ``ImageRandomCrop``, ``ImageCrop`` (cpu
+  and mixed), ``decoders.ImageSlice`` (``dali_tpu/backend/misc2.py``) and
+  ``PeekImageShape``. JPEG decodes through the libjpeg-free C++ decoder
+  (``imgcodec``, ``csrc/host/jpeg_decode.cc``); the mixed ``decoders.Image``
+  decodes a batch straight into its padded boundary canvas.
+* Hybrid decode, host entropy decode and device IDCT: the int16 wire
+  (``_JpegCoeffs`` / ``_JpegIdct``, whole images, full-precision planes), the
+  split int8 wire (``_JpegCoeffsSplit`` / ``_JpegIdctSplit``) and the decode
+  fused with RandomResizedCrop's window (``_JpegCoeffsSplitRRC`` /
+  ``_JpegIdctSplitRRC``).
+
+Host half of the split wire (``mixed``): header scan, the checks of the reference (EXIF
 orientation, sampling modes), then the blocks to decode: the whole image, or
 the RRC window (same Philox draws as the reference) snapped to the MCU grid
 with the exact chroma halo. One native call entropy-decodes those blocks
@@ -24,8 +32,10 @@ import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, Esc16Staged, FlatStaged, HostBatch, SparseStaged, Staged
-from .. import native
+from .. import imgcodec, native
+from ..imgcodec import exif_orientation
 from ..kernels import jpeg as jk
+from ..types import DALIDataType, DALIImageType, to_numpy_type
 from .base import Operator
 
 _DECODE_IDX_CAP = 256 << 20  # bytes of ROI decode-index blobs kept per op
@@ -37,49 +47,6 @@ def _content_key(k, d):
     if not k:
         return None
     return (k, len(d), bytes(d[:8]), bytes(d[-8:]))
-
-
-def exif_orientation(data) -> int:
-    """EXIF orientation (1-8, 1 = upright) from a JPEG's APP1 segment, or 1."""
-    data = bytes(data[:65536])
-    n = len(data)
-    if n < 4 or data[0] != 0xFF or data[1] != 0xD8:
-        return 1
-    pos = 2
-    while pos + 4 <= n:
-        if data[pos] != 0xFF:
-            return 1
-        marker = data[pos + 1]
-        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
-            pos += 2
-            continue
-        if marker in (0xDA, 0xD9):
-            return 1
-        seg_len = (data[pos + 2] << 8) | data[pos + 3]
-        if marker == 0xE1 and data[pos + 4:pos + 10] == b"Exif\x00\x00":
-            tiff = pos + 10
-            if tiff + 8 > n:
-                return 1
-            order = {b"II": "little", b"MM": "big"}.get(data[tiff:tiff + 2])
-            if order is None:
-                return 1
-
-            def u16(o):
-                return int.from_bytes(data[o:o + 2], order)
-
-            ifd = tiff + int.from_bytes(data[tiff + 4:tiff + 8], order)
-            if ifd + 2 > n:
-                return 1
-            for i in range(u16(ifd)):
-                e = ifd + 2 + 12 * i
-                if e + 12 > n:
-                    return 1
-                if u16(e) == 0x0112:
-                    v = u16(e + 8)
-                    return v if 1 <= v <= 8 else 1
-            return 1
-        pos += 2 + seg_len
-    return 1
 
 
 def sample_rrc_window(rng, h, w, random_area, random_aspect_ratio, num_attempts):
@@ -298,7 +265,10 @@ class _HybridCoeffs(Operator):
         self._check_exif(datas, keys)
         infos = self._infos(datas, keys)
         modes = infos[:, 6]
-        if (modes < 0).any() or (modes > 2).any():
+        if (modes < 0).any():
+            for d in (d for d, m in zip(datas, modes) if m < 0):
+                # a form no decoder of this package reads raises NotImplementedError
+                native.jpeg_scaled_dims(d)
             raise ValueError("hybrid_device_decode requires grayscale or 3-component YCbCr "
                              "4:2:0/4:2:2/4:4:4 JPEGs")
         if (modes != modes[0]).any():
@@ -612,3 +582,676 @@ class JpegIdctSplitRRC(JpegIdctSplit):
         shapes = torch.stack([(roi[:, 2] + denom - 1) // denom, (roi[:, 3] + denom - 1) // denom,
                               torch.full_like(roi[:, 2], 3)], 1)
         return [DeviceBatch(out, shapes, "HWC")]
+
+
+# ================================ host-decoded images (decoders.Image and kin) ====================
+# Counterpart of dali_tpu/backend/decoders.py:25-523, misc2.py:271-345 and
+# decoders.py:1400-1440. JPEG decodes through the libjpeg-free C++ decoder,
+# uint8-equal to the libjpeg-turbo decode of the reference; other formats
+# raise (imgcodec.NOT_JPEG).
+
+def _decoder_schema(name):
+    return (
+        DALI_SCHEMA(name)
+        .NumInput(1)
+        .NumOutput(1)
+        .Devices("cpu", "mixed")
+        .AddOptionalArg("output_type", ArgType.IMAGE_TYPE, "Output color space.", DALIImageType.RGB)
+        .AddOptionalArg("dtype", ArgType.DATA_TYPE, "Output dtype (uint8).", None)
+        .AddOptionalArg("hybrid_huffman_threshold", ArgType.INT, "Compatibility no-op.", 1000000)
+        .AddOptionalArg("device_memory_padding", ArgType.INT, "Compatibility no-op.", 0)
+        .AddOptionalArg("host_memory_padding", ArgType.INT, "Compatibility no-op.", 0)
+        .AddOptionalArg("hw_decoder_load", ArgType.FLOAT, "Compatibility no-op.", 0.9)
+        .AddOptionalArg("preallocate_width_hint", ArgType.INT, "Canvas width hint.", 0)
+        .AddOptionalArg("preallocate_height_hint", ArgType.INT, "Canvas height hint.", 0)
+        .AddOptionalArg("use_fast_idct", ArgType.BOOL, "Use fast IDCT path.", False)
+        .AddOptionalArg("memory_stats", ArgType.BOOL, "Compatibility no-op.", False)
+        .AddOptionalArg("adjust_orientation", ArgType.BOOL, "Apply EXIF orientation.", True)
+        .AddOptionalArg("jpeg_fancy_upsampling", ArgType.BOOL,
+                        "Triangular chroma upsampling for subsampled JPEGs (libjpeg's fancy "
+                        "path). False = box replication.", True)
+        .AddOptionalArg("device_memory_padding_jpeg2k", ArgType.INT,
+                        "Compatibility no-op (nvJPEG2k buffer hint).", 0)
+        .AddOptionalArg("host_memory_padding_jpeg2k", ArgType.INT,
+                        "Compatibility no-op (nvJPEG2k buffer hint).", 0)
+        .AddOptionalArg("cache_size", ArgType.INT,
+                        "Decoded-image cache size in MB (0 = off), keyed by the reader's "
+                        "source_info.", 0)
+        .AddOptionalArg("cache_type", ArgType.STRING, "'threshold' or 'largest'.", "threshold")
+        .AddOptionalArg("cache_threshold", ArgType.INT, "Only cache images <= this many bytes.", 0)
+        .AddOptionalArg("cache_debug", ArgType.BOOL, "Log cache hits/misses.", False)
+        .AddOptionalArg("cache_batch_copy", ArgType.BOOL, "Compatibility no-op.", True)
+        .AddOptionalArg(
+            "downscale_shorter_hint", ArgType.INT,
+            "Decode JPEGs at the largest DCT scale (1/2, 1/4, 1/8) that keeps the shorter "
+            "edge >= this hint. 0 = full resolution.", 0)
+    )
+
+
+_decoder_schema("decoders.Image").DocStr(
+    """Decodes images to HWC uint8 (reference ``decoders__Image``). JPEG only in
+    this package. device='mixed' decodes on the host straight into the padded
+    boundary canvas; the executor's copy puts it on the device.""")
+
+
+def _as_bytes(encoded):
+    """A sample's encoded bytes as a zero-copy memoryview."""
+    return memoryview(np.ascontiguousarray(encoded).reshape(-1).view(np.uint8))
+
+
+def choose_denom(h: int, w: int, hint: int) -> int:
+    """Largest DCT scale denominator in {1,2,4,8} keeping min(h,w)/denom >= hint."""
+    if hint <= 0:
+        return 1
+    denom = 1
+    for d in (2, 4, 8):
+        if min(h, w) // d >= hint:
+            denom = d
+    return denom
+
+
+class _DecoderCache:
+    """Decoded-image cache (the reference's ``_DecoderCache``): bounded byte
+    budget keyed by source_info. 'threshold' caches anything <= threshold
+    while space remains; 'largest' evicts smaller entries for larger images."""
+
+    def __init__(self, size_mb: int, policy: str, threshold: int, debug: bool = False):
+        self.capacity = size_mb << 20
+        self.policy = policy
+        self.threshold = threshold
+        self.debug = debug
+        self.used = 0
+        self.map = {}
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key):
+        v = self.map.get(key)
+        if v is None:
+            self.misses += 1
+        else:
+            self.hits += 1
+        if self.debug:
+            print(f"[dali_tpu_torch] decoder cache {'hit' if v is not None else 'miss'}: "
+                  f"{key} ({self.hits} hits / {self.misses} misses)")
+        return v
+
+    def insert(self, key, img):
+        if key in self.map:
+            return
+        nbytes = img.nbytes
+        if self.threshold and nbytes > self.threshold:
+            return
+        if self.used + nbytes > self.capacity:
+            if self.policy != "largest":
+                return
+            for k in sorted(self.map, key=lambda k: self.map[k].nbytes):
+                if self.used + nbytes <= self.capacity or self.map[k].nbytes >= nbytes:
+                    break
+                self.used -= self.map[k].nbytes
+                del self.map[k]
+            if self.used + nbytes > self.capacity:
+                return
+        self.map[key] = np.ascontiguousarray(img)
+        self.used += nbytes
+
+
+class _ImageDecoderBase(Operator):
+    def _task_pool(self):
+        return native.shared_pool(self.pipeline.num_threads)
+
+    def _decode(self, data, output_type=None) -> np.ndarray:
+        """One sample, as the reference's ``_decode``: EXIF orientation,
+        ``downscale_shorter_hint``, fancy upsampling and dtype."""
+        out_type = (self.spec.GetArgument("output_type") if output_type is None
+                    else output_type)
+        hint = self.spec.GetArgument("downscale_shorter_hint")
+        denom = 1
+        if hint and imgcodec.is_jpeg(data):
+            try:
+                h, w, _ = imgcodec.peek_shape(data)
+                denom = choose_denom(h, w, hint)
+            except Exception:
+                denom = 1
+        return imgcodec.decode(
+            data, output_type=out_type, denom=denom,
+            adjust_orientation=self.spec.GetArgument("adjust_orientation"),
+            fancy_upsampling=self.spec.GetArgument("jpeg_fancy_upsampling"),
+            dtype=self.spec.GetArgument("dtype"))
+
+    def _decode_all(self, datas, output_type=None):
+        """``_decode`` of every sample, the upright JPEGs of the batch decoded
+        by one native call on the operator's task pool (same output)."""
+        spec = self.spec
+        out_type = spec.GetArgument("output_type") if output_type is None else output_type
+        hint = spec.GetArgument("downscale_shorter_hint")
+        adjust = spec.GetArgument("adjust_orientation")
+        gray = out_type == DALIImageType.GRAY
+        fast, dims, denoms = [], [], []
+        for i, d in enumerate(datas):
+            if imgcodec.is_jpeg(d) and not imgcodec.is_jpeg2000(d) and (
+                    not adjust or imgcodec.exif_orientation(d) == 1):
+                dn = 1
+                if hint:
+                    h, w, _ = imgcodec.peek_shape(d)
+                    dn = choose_denom(h, w, hint)
+                dims.append(native.jpeg_scaled_dims(d, dn))
+                denoms.append(dn)
+                fast.append(i)
+        out = [None] * len(datas)
+        imgs = [np.empty((h, w, 1 if gray else 3), np.uint8) for h, w, _ in dims]
+        if fast:
+            native.decode_jpeg_batch(
+                self._task_pool(), [datas[i] for i in fast], imgs, denoms,
+                [h for h, _, _ in dims], [w for _, w, _ in dims],
+                spec.GetArgument("jpeg_fancy_upsampling"), gray)
+        dtype = spec.GetArgument("dtype")
+        for i, img in zip(fast, imgs):
+            out[i] = imgcodec._convert_dtype(
+                img if gray else imgcodec._convert_from_rgb(img, out_type), dtype)
+        for i, d in enumerate(datas):
+            if out[i] is None:
+                out[i] = self._decode(d, out_type)
+        return out
+
+    def run_batch(self, ctx, inp):
+        datas = [_as_bytes(e) for e in inp.samples]
+        imgs = self._decode_all(datas)
+        return [HostBatch([self._post(ctx, i, img) for i, img in enumerate(imgs)], layout="HWC")]
+
+    def _post(self, ctx, idx, img):
+        return img
+
+    def output_layout(self, output_idx, inputs):
+        return "HWC"
+
+
+@register_operator("decoders.Image", "cpu")
+class ImageDecoderCPU(_ImageDecoderBase):
+    pass
+
+
+@register_operator("decoders.Image", "mixed")
+class ImageDecoderMixed(_ImageDecoderBase):
+    """Host decode whose output lives on the device. ``stage_batch`` decodes
+    the whole batch straight into its slots of the padded boundary canvas
+    with one native call (cache hits by memcpy, misses decoded, then
+    stored); other output types, dtypes, EXIF-rotated or non-JPEG samples
+    take the per-sample path, as in the reference."""
+
+    def __init__(self, spec, op_id):
+        super().__init__(spec, op_id)
+        self._img_cache = None
+        self._exif_scan_cache = {}
+        size = spec.GetArgument("cache_size")
+        if size:
+            self._img_cache = _DecoderCache(
+                size, spec.GetArgument("cache_type"),
+                spec.GetArgument("cache_threshold") or (size << 20),
+                debug=spec.GetArgument("cache_debug"))
+
+    def stage_batch(self, ctx, inputs, canvas):
+        """(arr [N, ch, cw, 3] uint8, shapes [N, 3] int32, layout), or None
+        for the per-sample path. Padding bytes are left uninitialised."""
+        spec = self.spec
+        if spec.GetArgument("output_type") != DALIImageType.RGB:
+            return None
+        if spec.GetArgument("dtype") not in (None, DALIDataType.UINT8):
+            return None
+        inp = inputs[0]
+        n = len(inp.samples)
+        cache = self._img_cache
+        keys = inp.source_info if cache is not None else None
+        hint = spec.GetArgument("downscale_shorter_hint")
+        datas = [_as_bytes(e) for e in inp.samples]
+        srcs = inp.source_info
+        if spec.GetArgument("adjust_orientation"):
+            # per-file orientation verdicts, keyed by content
+            ecache = self._exif_scan_cache
+            for i, d in enumerate(datas):
+                ck = _content_key(srcs[i], d) if srcs and i < len(srcs) and srcs[i] else None
+                orient = ecache.get(ck) if ck else None
+                if orient is None:
+                    orient = imgcodec.exif_orientation(d)
+                    if ck:
+                        if len(ecache) > (1 << 20):
+                            ecache.clear()
+                        ecache[ck] = orient
+                if orient != 1:
+                    return None
+        dims, denoms = [], []
+        for d in datas:
+            if not imgcodec.is_jpeg(d):
+                return None
+            try:
+                h, w, _ = imgcodec.peek_shape(d)
+            except Exception:
+                return None
+            dn = choose_denom(h, w, hint)
+            sh, sw, _ = native.jpeg_scaled_dims(d, dn)
+            dims.append((sh, sw))
+            denoms.append(dn)
+        shapes = np.array([[h, w, 3] for h, w in dims], dtype=np.int32)
+        from ..executor import PAD_ALIGN as align
+
+        ch = max(int(-(-shapes[:, 0].max() // align) * align), canvas[0] if canvas else 0)
+        cw = max(int(-(-shapes[:, 1].max() // align) * align), canvas[1] if canvas else 0)
+        arr = np.empty((n, ch, cw, 3), dtype=np.uint8)
+        hit = [False] * n
+        if cache is not None and keys:
+            for i in range(n):
+                img = cache.get(keys[i]) if keys[i] else None
+                if img is not None and img.shape[0] <= ch and img.shape[1] <= cw:
+                    h, w = img.shape[:2]
+                    arr[i, :h, :w] = img
+                    shapes[i] = (h, w, 3)
+                    hit[i] = True
+        todo = [i for i in range(n) if not hit[i]]
+        if todo:
+            native.decode_jpeg_batch(
+                self._task_pool(), [datas[i] for i in todo], [arr[i] for i in todo],
+                [denoms[i] for i in todo], [int(shapes[i, 0]) for i in todo],
+                [int(shapes[i, 1]) for i in todo], spec.GetArgument("jpeg_fancy_upsampling"))
+        if cache is not None and keys:
+            for i in todo:
+                if keys[i]:
+                    cache.insert(keys[i], arr[i, :shapes[i, 0], :shapes[i, 1]])
+        return arr, shapes, "HWC"
+
+
+# -- decoders.ImageRandomCrop ----------------------------------------------------------------
+_decoder_schema("decoders.ImageRandomCrop").DocStr(
+    """Decode + random crop (reference ``decoders__ImageRandomCrop``): the
+    area/aspect window is sampled from the header size (RandomResizedCrop's
+    draws), the image decoded whole (at a DCT scale under
+    ``downscale_shorter_hint``) and cropped."""
+).AddOptionalArg(
+    "random_area", ArgType.FLOAT_VEC, "Area range of the crop.", [0.08, 1.0]
+).AddOptionalArg(
+    "random_aspect_ratio", ArgType.FLOAT_VEC, "Aspect-ratio range.", [3 / 4, 4 / 3]
+).AddOptionalArg(
+    "num_attempts", ArgType.INT, "Sampling attempts before fallback.", 10
+).AddRandomSeedArg()
+
+
+class _ImageRandomCropBase(_ImageDecoderBase):
+    """The reference's ``run_sample`` over a batch: per sample, its Philox
+    stream and, for an upright RGB uint8 JPEG, the window from the header
+    size and the scale from the window; those samples then decode in one
+    native call. The others decode first and draw the window from the
+    decoded size."""
+
+    def run_batch(self, ctx, inp):
+        spec = self.spec
+        area = spec.GetArgument("random_area")
+        ar = spec.GetArgument("random_aspect_ratio")
+        attempts = spec.GetArgument("num_attempts")
+        hint = spec.GetArgument("downscale_shorter_hint")
+        rgb_u8 = (spec.GetArgument("output_type") == DALIImageType.RGB
+                  and spec.GetArgument("dtype") in (None, DALIDataType.UINT8))
+        adjust = spec.GetArgument("adjust_orientation")
+        datas = [_as_bytes(e) for e in inp.samples]
+        n = len(datas)
+        rngs = [ctx.rng(self, i) for i in range(n)]
+        out = [None] * n
+        fast, wins, denoms, dims = [], [], [], []
+        for i, d in enumerate(datas):
+            if not (rgb_u8 and imgcodec.is_jpeg(d)
+                    and (not adjust or imgcodec.exif_orientation(d) == 1)):
+                continue
+            try:
+                h, w, _ = imgcodec.peek_shape(d)
+            except Exception:
+                continue
+            win = sample_rrc_window(rngs[i], h, w, area, ar, attempts)
+            dn = choose_denom(win[2], win[3], hint) if hint else 1
+            fast.append(i)
+            wins.append(win)
+            denoms.append(dn)
+            dims.append(native.jpeg_scaled_dims(d, dn))
+        imgs = [np.empty((h, w, 3), np.uint8) for h, w, _ in dims]
+        if fast:
+            native.decode_jpeg_batch(self._task_pool(), [datas[i] for i in fast], imgs, denoms,
+                                     [h for h, _, _ in dims], [w for _, w, _ in dims],
+                                     spec.GetArgument("jpeg_fancy_upsampling"))
+        for i, img, (y, x, ch, cw), dn in zip(fast, imgs, wins, denoms):
+            if dn > 1:
+                # crop coordinates in scaled space
+                y, x = y // dn, x // dn
+                ch = max(1, min(ch // dn, img.shape[0] - y))
+                cw = max(1, min(cw // dn, img.shape[1] - x))
+            # a view: the boundary pad (or the consumer) copies it once
+            out[i] = img[y:y + ch, x:x + cw]
+        for i in range(n):
+            if out[i] is None:
+                img = self._decode(datas[i])
+                y, x, ch, cw = sample_rrc_window(rngs[i], img.shape[0], img.shape[1], area, ar,
+                                                 attempts)
+                out[i] = img[y:y + ch, x:x + cw]
+        return [HostBatch(out, layout="HWC")]
+
+
+@register_operator("decoders.ImageRandomCrop", "cpu")
+class ImageRandomCropCPU(_ImageRandomCropBase):
+    pass
+
+
+@register_operator("decoders.ImageRandomCrop", "mixed")
+class ImageRandomCropMixed(_ImageRandomCropBase):
+    pass
+
+
+# -- decoders.ImageCrop ------------------------------------------------------------------------
+_decoder_schema("decoders.ImageCrop").DocStr(
+    "Decode + static crop (reference decoders__ImageCrop)."
+).AddOptionalArg("crop", ArgType.FLOAT_VEC, "Crop (H, W).", None).AddOptionalArg(
+    "crop_pos_x", ArgType.FLOAT, "Horizontal window position [0,1].", 0.5, tensor_ok=True
+).AddOptionalArg(
+    "crop_pos_y", ArgType.FLOAT, "Vertical window position [0,1].", 0.5, tensor_ok=True
+).AddOptionalArg(
+    "crop_w", ArgType.FLOAT, "Crop width.", 0.0, tensor_ok=True
+).AddOptionalArg(
+    "crop_h", ArgType.FLOAT, "Crop height.", 0.0, tensor_ok=True
+).AddOptionalArg(
+    "crop_d", ArgType.FLOAT,
+    "Volumetric crop depth (CropAttr compat; accepted, unused for 2-D images).", 0.0,
+    tensor_ok=True
+).AddOptionalArg(
+    "crop_pos_z", ArgType.FLOAT, "Volumetric window z (CropAttr compat).", 0.5,
+    tensor_ok=True
+).AddOptionalArg(
+    "rounding", ArgType.STRING,
+    'Crop-start integer conversion: "round" or "truncate" (crop_attr.cc).', "round"
+)
+
+
+def crop_round(v, mode):
+    """crop_attr.cc's round_fn_: half away from zero, or truncation toward zero
+    (reference ``generic2._crop_round``)."""
+    v = float(v)
+    if mode == "truncate":
+        return int(v)
+    return int(np.floor(v + 0.5)) if v >= 0 else int(np.ceil(v - 0.5))
+
+
+class _ImageCropBase(_ImageDecoderBase):
+    def _post(self, ctx, idx, img):
+        h, w = img.shape[:2]
+        crop = self.spec.GetArgument("crop")
+        ch = int(ctx.arg(self, "crop_h", idx, 0) or (crop[0] if crop else h))
+        cw = int(ctx.arg(self, "crop_w", idx, 0) or (crop[1] if crop else w))
+        py = float(ctx.arg(self, "crop_pos_y", idx, 0.5))
+        px = float(ctx.arg(self, "crop_pos_x", idx, 0.5))
+        ch, cw = min(ch, h), min(cw, w)
+        rnd = self.spec.GetArgument("rounding")
+        y = crop_round(py * (h - ch), rnd)
+        x = crop_round(px * (w - cw), rnd)
+        return np.ascontiguousarray(img[y:y + ch, x:x + cw])
+
+
+@register_operator("decoders.ImageCrop", "cpu")
+class ImageCropCPU(_ImageCropBase):
+    pass
+
+
+@register_operator("decoders.ImageCrop", "mixed")
+class ImageCropMixed(_ImageCropBase):
+    pass
+
+
+# -- decoders.ImageSlice (reference misc2.py:271-345) ------------------------------------------
+DALI_SCHEMA("decoders.ImageSlice").DocStr(
+    "Decode + slice (reference ``decoders__ImageSlice``): anchor/shape given as "
+    "positional inputs (relative by default)."
+).NumInput(1, 3).NumOutput(1).Devices("cpu", "mixed").AddOptionalArg(
+    "output_type", ArgType.IMAGE_TYPE, "Color space.", None
+).AddOptionalArg(
+    "normalized_anchor", ArgType.BOOL, "Anchor input is relative.", True
+).AddOptionalArg(
+    "normalized_shape", ArgType.BOOL, "Shape input is relative.", True
+).AddOptionalArg(
+    "axes", ArgType.INT_VEC, "Sliced axes.", [1, 0]
+).AddOptionalArg(
+    "axis_names", ArgType.TENSOR_LAYOUT,
+    'Sliced axes by layout letter (takes precedence over `axes`).', None
+).AddOptionalArg(
+    "adjust_orientation", ArgType.BOOL, "Apply EXIF orientation.", True
+).AddOptionalArg(
+    "dtype", ArgType.DATA_TYPE, "Output dtype (uint8).", None
+).AddOptionalArg(
+    "jpeg_fancy_upsampling", ArgType.BOOL,
+    "Triangular chroma upsampling for subsampled JPEGs.", True
+).AddOptionalArg(
+    "device_memory_padding_jpeg2k", ArgType.INT, "Compatibility no-op.", 0
+).AddOptionalArg(
+    "host_memory_padding_jpeg2k", ArgType.INT, "Compatibility no-op.", 0
+)
+
+
+class _ImageSliceBase(_ImageDecoderBase):
+    def run_batch(self, ctx, inp, *pos):
+        spec = self.spec
+        out_type = spec.GetArgument("output_type") or DALIImageType.RGB
+        datas = [_as_bytes(e) for e in inp.samples]
+        imgs = []
+        for d in datas:
+            # the reference decodes full size and converts with astype
+            imgs.append(imgcodec.decode(
+                d, output_type=out_type, adjust_orientation=spec.GetArgument("adjust_orientation"),
+                fancy_upsampling=spec.GetArgument("jpeg_fancy_upsampling")))
+        dt = spec.GetArgument("dtype")
+        out = []
+        for i, img in enumerate(imgs):
+            if dt is not None:
+                img = img.astype(to_numpy_type(dt))
+            out.append(self._slice(img, [p.samples[i] for p in pos]))
+        return [HostBatch(out, layout="HWC")]
+
+    def _slice(self, img, pos):
+        if not pos:
+            return img
+        anchor = np.asarray(pos[0], np.float64).reshape(-1)
+        shape = np.asarray(pos[1], np.float64).reshape(-1) if len(pos) > 1 else None
+        axes = self.spec.GetArgument("axes")
+        names = self.spec.GetArgument("axis_names")
+        if names:  # letters refer to the decoded HWC layout
+            axes = ["HWC".index(ch) for ch in names]
+        dims = np.array([img.shape[a] for a in axes], np.float64)
+        if self.spec.GetArgument("normalized_anchor"):
+            anchor = anchor * dims
+        if shape is not None and self.spec.GetArgument("normalized_shape"):
+            shape = shape * dims
+        sl = [slice(None)] * img.ndim
+        for k, a in enumerate(axes):
+            lo = int(round(anchor[k]))
+            ln = int(round(shape[k])) if shape is not None else img.shape[a] - lo
+            sl[a] = slice(max(lo, 0), max(lo, 0) + ln)
+        return np.ascontiguousarray(img[tuple(sl)])
+
+
+@register_operator("decoders.ImageSlice", "cpu")
+class ImageSliceCPU(_ImageSliceBase):
+    pass
+
+
+@register_operator("decoders.ImageSlice", "mixed")
+class ImageSliceMixed(_ImageSliceBase):
+    pass
+
+
+# -- PeekImageShape (reference decoders.py:1400-1440) ------------------------------------------
+DALI_SCHEMA("PeekImageShape").DocStr(
+    "Image shape from the encoded header without decoding (reference "
+    "``imgcodec/peek_image_shape.cc``)."
+).NumInput(1).NumOutput(1).Devices("cpu").AddOptionalArg(
+    "dtype", ArgType.DATA_TYPE, "Output dtype.", None
+).AddOptionalArg(
+    "image_type", ArgType.IMAGE_TYPE,
+    "Color space the decode would produce: GRAY reports 1 channel.", DALIImageType.RGB
+).AddOptionalArg(
+    "adjust_orientation", ArgType.BOOL,
+    "Report the post-EXIF-rotation shape: orientations 5-8 swap height/width.", True
+)
+
+
+@register_operator("PeekImageShape", "cpu")
+class PeekImageShape(Operator):
+    def run_sample(self, ctx, idx, encoded):
+        data = _as_bytes(encoded)
+        h, w, c = imgcodec.peek_shape(data)
+        if self.spec.GetArgument("adjust_orientation") and imgcodec.is_jpeg(data):
+            if imgcodec.exif_orientation(data) >= 5:
+                h, w = w, h
+        if self.spec.GetArgument("image_type") == DALIImageType.GRAY:
+            c = 1
+        dtype = self.spec.GetArgument("dtype")
+        return np.array([h, w, c], dtype=to_numpy_type(dtype) if dtype is not None else np.int64)
+
+    def output_layout(self, output_idx, inputs):
+        return ""
+
+
+# ================================ the int16 wire: _JpegCoeffs / _JpegIdct ========================
+# Counterpart of dali_tpu/backend/decoders.py:526-884: the host reads the
+# k x k low-frequency corner of every block at full int16 precision, the
+# device dequantises, IDCTs, upsamples chroma and converts colour.
+DALI_SCHEMA("_JpegCoeffs").DocStr(
+    """Host half of the hybrid JPEG decoder, int16 wire: entropy decode only,
+    low-frequency DCT coefficient planes + quant tables. Outputs: (y_coeffs,
+    chroma_coeffs, quant_tables, dims)."""
+).NumInput(1).NumOutput(4).Devices("mixed").MakeInternal().AddOptionalArg(
+    "cache_size", ArgType.INT, "Coefficient cache budget in MB (0 = off).", 0
+).AddOptionalArg(
+    "adjust_orientation", ArgType.BOOL,
+    "EXIF-rotated JPEGs cannot ride the coefficient wire: orientation tags != 1 raise unless "
+    "this is False.", True
+).AddOptionalArg(
+    "hybrid_scale", ArgType.INT, "Decode scale denominator (1, 2, or 4).", 1
+).AddOptionalArg("chroma_full", ArgType.BOOL, "Full-spectrum chroma (2x traffic).", False)
+
+DALI_SCHEMA("_JpegIdct").DocStr(
+    """Device half of the hybrid JPEG decoder, int16 wire: dequantise + scaled
+    IDCT + chroma upsample + BT.601 YCbCr->RGB."""
+).NumInput(4).NumOutput(1).Devices("gpu").MakeInternal().AddOptionalArg(
+    "hybrid_scale", ArgType.INT, "Decode scale denominator (1, 2, or 4).", 1
+).AddOptionalArg("chroma_full", ArgType.BOOL, "Full-spectrum chroma (2x traffic).", False)
+
+@register_operator("_JpegCoeffs", "mixed")
+class JpegCoeffs(_HybridCoeffs):
+    """The reference's ``JpegCoeffs`` (per-sample planes, per-sample cache
+    entries), with the planes written by one native batch call straight into
+    their slots of the two grow-only boundary canvases: exact for a batch of
+    one shape, else aligned as the reference's ``boundary_align`` asks
+    (luma [8, 8], chroma by mode)."""
+
+    def __init__(self, spec, op_id):
+        super().__init__(spec, op_id)
+        self._canvases = [None, None]
+
+    def _canvas_for(self, j, shapes, align):
+        """Grow-only canvas of output j for per-sample ``shapes`` [n, ndim]."""
+        uniform = bool((shapes == shapes[0]).all())
+        a = [1] * shapes.shape[1] if uniform else align
+        want = [-(-int(shapes[:, d].max()) // a[d]) * a[d] for d in range(shapes.shape[1])]
+        prev = self._canvases[j]
+        if prev is not None:
+            want = [max(w, p) for w, p in zip(want, prev)]
+        self._canvases[j] = want
+        return want
+
+    def stage_batch_multi(self, ctx, inputs):
+        ky, kc = _ks(self.spec)
+        datas, keys, infos, mode = self._headers(inputs[0])
+        n = len(datas)
+        blocks = infos[:, 2:6].astype(np.int32)
+        y_shapes = np.concatenate([blocks[:, :2], np.full((n, 1), ky * ky, np.int32)], 1)
+        c_shapes = np.concatenate([np.full((n, 1), 2, np.int32), blocks[:, 2:],
+                                   np.full((n, 1), kc * kc, np.int32)], 1)
+        yc = self._canvas_for(0, y_shapes, [8, 8, 1])
+        cc = self._canvas_for(1, c_shapes, [1, {0: 4, 1: 8, 2: 8}[mode], {0: 4, 1: 8, 2: 4}[mode],
+                                            1])
+        y = np.zeros((n, *yc), np.int16)
+        c = np.zeros((n, *cc), np.int16)
+        q = np.empty((n, ky * ky + kc * kc), np.int32)
+        cache = self._ccache
+        ckeys = ([_content_key(k, d) for k, d in zip(keys, datas)]
+                 if cache is not None and keys else [None] * n)
+        # cache hits by memcpy, in sample order (the reference's order with one
+        # thread); a key seen earlier in the batch hits once its planes are stored
+        read, first = [], {}
+        hit = [None] * n
+        for i, k in enumerate(ckeys):
+            if not k:
+                read.append(i)
+                continue
+            ent = cache["map"].get(k)
+            if ent is not None:
+                hit[i] = ent
+                cache["hits"] += 1
+            elif k in first:
+                hit[i] = first[k]  # resolved after the read
+            else:
+                first[k] = i
+                read.append(i)
+        if read:
+            idx = np.asarray(read)
+            whole = len(read) == n
+            yr, cr = (y, c) if whole else (np.zeros((len(read), *yc), np.int16),
+                                           np.zeros((len(read), *cc), np.int16))
+            q[idx] = native.coef_full_batch(self._task_pool(), [datas[i] for i in read], ky, kc,
+                                            blocks[idx], yr, cr)
+            if not whole:
+                y[idx], c[idx] = yr, cr
+        for i, k in enumerate(ckeys):
+            if k is None:
+                continue
+            ybh, ybw, cbh, cbw = (int(v) for v in blocks[i])
+            if isinstance(hit[i], int):  # a repeat of sample hit[i] in this batch
+                j = hit[i]
+                y[i], c[i], q[i] = y[j], c[j], q[j]
+                cache["hits" if k in cache["map"] else "misses"] += 1
+                continue
+            if hit[i] is not None:
+                ey, ec, eq = hit[i]
+                y[i, :ybh, :ybw] = ey
+                c[i, :, :cbh, :cbw] = ec
+                q[i] = eq
+                continue
+            cache["misses"] += 1
+            ent = (y[i, :ybh, :ybw].copy(), c[i, :, :cbh, :cbw].copy(), q[i].copy())
+            nbytes = sum(a.nbytes for a in ent)
+            if cache["used"] + nbytes <= cache["cap"]:
+                cache["map"][k] = ent
+                cache["used"] += nbytes
+        dims = [np.array([infos[i, 0], infos[i, 1], mode], np.int32) for i in range(n)]
+        return [Staged(y, y_shapes), Staged(c, c_shapes), HostBatch(list(q)), HostBatch(dims)]
+
+
+@register_operator("_JpegIdct", "gpu")
+class JpegIdct(Operator):
+    def host_output_layouts(self, in_layouts):
+        return ["HWC"]
+
+    def device_statics(self, ctx, in_shapes, in_batches):
+        dims = in_batches[3]
+        return (int(np.asarray(dims.samples[0])[2]),) if dims is not None else (0,)
+
+    def host_output_shapes(self, ctx, input_shapes, input_batches):
+        dims_hb = input_batches[3]
+        if dims_hb is None:
+            return None
+        d = int(self.spec.GetArgument("hybrid_scale"))
+        dims = np.stack(dims_hb.samples).astype(np.int64)
+        return [np.stack([-(-dims[:, 0] // d), -(-dims[:, 1] // d), np.full(len(dims), 3)],
+                         1).astype(np.int32)]
+
+    def lower(self, dctx, y_b, c_b, q_b, dims_b):
+        d = int(self.spec.GetArgument("hybrid_scale"))
+        ky = {1: 8, 2: 4, 4: 2}[d]
+        (mode,) = dctx.static(self) or (0,)
+        rgb = jk.jpeg_device_tail(y_b.data, c_b.data, q_b.data, ky, mode,
+                                  bool(self.spec.GetArgument("chroma_full")))
+        dims = dims_b.data.to(torch.int32)
+        shapes = torch.stack([(dims[:, 0] + d - 1) // d, (dims[:, 1] + d - 1) // d,
+                              torch.full_like(dims[:, 0], 3)], 1)
+        return [DeviceBatch(rgb, shapes, "HWC")]

@@ -8,12 +8,14 @@
 // whole-image read of dali_tpu_jpeg_coeffs_split_flat_batch with zero block
 // origins. Each sample goes through the from-scratch baseline decoder
 // (jpeg_huff.cc ..._read_coeffs_split_crop); a stream it declines (SOF2) goes
-// through the progressive decoder with the same contract. There is no
-// libjpeg fallback: a sample neither decoder reads is reported in `oks` and
-// the caller raises.
+// through the progressive decoder with the same contract, and one both
+// decline (progressive grayscale, one scan per component) through the full
+// read, where the reference falls back to libjpeg. A sample none of them
+// reads is reported in `oks` and the caller raises.
 
 #include <cstddef>
 #include <cstdint>
+#include <initializer_list>
 #include <vector>
 
 extern "C" {
@@ -28,6 +30,10 @@ int dali_tpu_jpeg_huff_read_coeffs_split_crop(const char*, size_t, int, int,
                                               int, int, int, int, int, int,
                                               int, int);
 int dali_tpu_jpeg_huff_progressive_read_coeffs_split_crop(
+    const char*, size_t, int, int, short*, signed char*, short*, signed char*,
+    short*, signed char*, unsigned short*, int, int, int, int, int, int, int,
+    int);
+int dali_tpu_torch_jpeg_full_read_coeffs_split_crop(
     const char*, size_t, int, int, short*, signed char*, short*, signed char*,
     short*, signed char*, unsigned short*, int, int, int, int, int, int, int,
     int);
@@ -56,11 +62,12 @@ void run_dense_job(void* p) {
       j->data, j->len, j->ky, j->kc, j->y_dc, j->y_ac, j->cb_dc, j->cb_ac,
       j->cr_dc, j->cr_ac, j->q, j->bh, j->bw, j->cbh, j->cbw, j->y_br0,
       j->y_bc0, j->c_br0, j->c_bc0);
-  if (rc != 0) {
-    rc = dali_tpu_jpeg_huff_progressive_read_coeffs_split_crop(
-        j->data, j->len, j->ky, j->kc, j->y_dc, j->y_ac, j->cb_dc, j->cb_ac,
-        j->cr_dc, j->cr_ac, j->q, j->bh, j->bw, j->cbh, j->cbw, j->y_br0,
-        j->y_bc0, j->c_br0, j->c_bc0);
+  for (auto read : {dali_tpu_jpeg_huff_progressive_read_coeffs_split_crop,
+                    dali_tpu_torch_jpeg_full_read_coeffs_split_crop}) {
+    if (rc == 0) break;
+    rc = read(j->data, j->len, j->ky, j->kc, j->y_dc, j->y_ac, j->cb_dc, j->cb_ac, j->cr_dc,
+              j->cr_ac, j->q, j->bh, j->bw, j->cbh, j->cbw, j->y_br0, j->y_bc0, j->c_br0,
+              j->c_bc0);
   }
   *j->ok = rc == 0 ? 1 : 0;
 }

@@ -8,7 +8,8 @@
 // it declines goes into dense scratch planes and is compacted into the same
 // convention: SOF2 through the progressive decoder, grayscale through the
 // dense baseline read (zero chroma planes, chroma quant table of 1s, as the
-// reference's libjpeg fallback writes them). There is no libjpeg fallback: a
+// reference's libjpeg fallback writes them), and what both decline
+// (progressive grayscale, one scan per component) through the full read. A
 // sample none of them reads is reported in `oks` and the caller raises.
 
 #include <cstdint>
@@ -31,6 +32,10 @@ int dali_tpu_jpeg_huff_progressive_read_coeffs_split_crop(
     short*, signed char*, unsigned short*, int, int, int, int, int, int, int,
     int);
 int dali_tpu_jpeg_huff_read_coeffs_split_crop(
+    const char*, size_t, int, int, short*, signed char*, short*, signed char*,
+    short*, signed char*, unsigned short*, int, int, int, int, int, int, int,
+    int);
+int dali_tpu_torch_jpeg_full_read_coeffs_split_crop(
     const char*, size_t, int, int, short*, signed char*, short*, signed char*,
     short*, signed char*, unsigned short*, int, int, int, int, int, int, int,
     int);
@@ -97,7 +102,8 @@ void run_pack_job(void* p) {
     if ((long)cb_s.size() < c_n * nac_c + 16) cb_s.resize(c_n * nac_c + 16);
     if ((long)cr_s.size() < c_n * nac_c + 16) cr_s.resize(c_n * nac_c + 16);
     for (auto read : {dali_tpu_jpeg_huff_progressive_read_coeffs_split_crop,
-                      dali_tpu_jpeg_huff_read_coeffs_split_crop}) {
+                      dali_tpu_jpeg_huff_read_coeffs_split_crop,
+                      dali_tpu_torch_jpeg_full_read_coeffs_split_crop}) {
       rc = read(j->data, j->len, j->ky, j->kc, j->y_dc, y_s.data(), j->cb_dc,
                 cb_s.data(), j->cr_dc, cr_s.data(), j->q, j->bh, j->bw, j->cbh,
                 j->cbw, j->y_br0, j->y_bc0, j->c_br0, j->c_bc0);

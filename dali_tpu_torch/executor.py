@@ -341,6 +341,17 @@ class Executor:
             impl = self.impls[node.id]
             ctx.set_arg_batches(node.id, {k: env[_edge_key(v)] for k, v in node.spec.arg_inputs.items()})
             ins = [env[_edge_key(e)] for e in node.spec.inputs]
+            if node.device == "mixed" and hasattr(impl, "stage_batch"):
+                # a mixed op may decode straight into its boundary canvas
+                # (the edge's grow-only canvas), or decline (None)
+                k = (node.id, 0)
+                staged = impl.stage_batch(ctx, ins, self._canvas.get(k))
+                if staged is not None:
+                    arr, shapes, layout = staged
+                    self._canvas[k] = list(arr.shape[1:])
+                    env[k] = Staged(arr, shapes, layout)
+                    self._timed(node, t0)
+                    continue
             if node.device == "mixed" and hasattr(impl, "stage_batch_multi"):
                 outs = impl.stage_batch_multi(ctx, ins)
             else:

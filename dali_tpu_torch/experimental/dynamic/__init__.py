@@ -438,19 +438,19 @@ def _make_eager_fn(schema_name):
 
 def _make_image_decoder(name):
     """``ndd.decoders.<name>``: inside a capture, the port's fn wrapper (the
-    hybrid decode); eagerly, what ``dali_tpu`` does: ``hybrid_device_decode``
-    is not an argument of the eager decoder, and the host-decoded path is not
-    ported."""
+    hybrid decode included); eagerly, what ``dali_tpu`` does: the host
+    decodes (``hybrid_device_decode`` is not an argument of the eager
+    decoder)."""
+    schema = "decoders." + "".join(w.capitalize() for w in name.split("_"))
 
     def decoder(*inputs, **kwargs):
         if _in_capture(inputs):
             from ... import fn as fn_root
 
             return getattr(fn_root.decoders, name)(*inputs, **kwargs)
-        schema = "decoders." + "".join(w.capitalize() for w in name.split("_"))
         if "hybrid_device_decode" in kwargs:
             raise TypeError(f"Operator '{schema}' got unexpected argument 'hybrid_device_decode'")
-        raise _not_ported(f"decoders.{name} (eager, host-decoded)", "Queue 1 item 1c")
+        return _eager_call(schema, *inputs, **kwargs)
 
     decoder.__name__ = decoder.__qualname__ = name
     return decoder
@@ -492,7 +492,7 @@ def _populate():
         mod.__dict__.setdefault(_camel_to_snake(last), _make_eager_fn(schema_name))
     decoders = _submodule(this, "decoders")
     for name in ("image", "image_random_crop"):
-        decoders.__dict__.setdefault(name, _make_image_decoder(name))
+        decoders.__dict__[name] = _make_image_decoder(name)
 
 
 _populate()

@@ -6,6 +6,11 @@
 * ``TaskPool``, ``coef_pack_batch``, ``pack_wire2``, ``coef_dense_batch``,
   ``pack_wire`` — ctypes bindings of ``build/libdali_tpu_torch_host.so`` (see
   ``build.py``), built from source at first use.
+* ``coef_full_batch`` / ``jpeg_read_coeffs`` — the int16 coefficient read
+  (counterpart of ``dali_tpu.native.jpeg_read_coeffs``), and
+  ``jpeg_scaled_dims`` / ``decode_jpeg`` / ``decode_jpeg_batch`` — the
+  libjpeg-free pixel decode (``csrc/host/jpeg_decode.cc``), uint8 equal to
+  libjpeg-turbo's ``JDCT_ISLOW`` output.
 """
 
 from __future__ import annotations
@@ -49,6 +54,17 @@ def host_lib():
                  ctypes.c_int, ctypes.c_int, ctypes.c_int]
                 + [ip] * 8 + [lp] * 4 + [vp] * 5 + [ip])
             ci = ctypes.c_int
+            sp = ctypes.POINTER(ctypes.c_void_p)
+            lib.dali_tpu_torch_coef_full_batch.restype = ci
+            lib.dali_tpu_torch_coef_full_batch.argtypes = (
+                [vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t), ci, ci, ci,
+                 sp, ctypes.c_long, sp, sp, ctypes.c_long] + [ip] * 4 + [vp, ip])
+            lib.dali_tpu_torch_jpeg_scaled_dims.restype = ci
+            lib.dali_tpu_torch_jpeg_scaled_dims.argtypes = [vp, ctypes.c_size_t, ci, ip, ip, ip]
+            lib.dali_tpu_torch_decode_jpeg_batch.restype = ci
+            lib.dali_tpu_torch_decode_jpeg_batch.argtypes = [
+                vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t), ip, sp,
+                lp, ip, ip, ci, ci, ci, ip]
             lib.dali_tpu_pack_wire.restype = None
             lib.dali_tpu_pack_wire.argtypes = [vp, vp, ll, ci, vp, ll, ci, vp, vp, ll, ll,
                                                vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, llp]
@@ -67,6 +83,21 @@ class TaskPool:
         if self.handle:
             self._lib.dali_tpu_pool_destroy(self.handle)
             self.handle = None
+
+
+_SHARED_POOLS = {}
+_POOLS_LOCK = threading.Lock()
+
+
+def shared_pool(num_threads: int) -> TaskPool:
+    """A process-wide pool of ``num_threads`` workers (the reference's
+    ``native.shared_pool``): per-call operators, as eager mode makes them,
+    share it instead of each starting threads. Never destroyed."""
+    n = max(int(num_threads), 1)
+    with _POOLS_LOCK:
+        if n not in _SHARED_POOLS:
+            _SHARED_POOLS[n] = TaskPool(n)
+        return _SHARED_POOLS[n]
 
 
 # ------------------------------------------------------------------ header scan
@@ -293,3 +324,134 @@ def pack_wire2(pool: TaskPool, y_vals, y_nnz, c_vals, c_nnz, y_dc, c_dc, ny_bloc
         _ptr(y_nibs), _ptr(c_nibs), _ptr(y_dc8), _ptr(y_esc16), _ptr(c_dc8), _ptr(c_esc16),
         counts)
     return tuple(int(c) for c in counts)
+
+
+# ------------------------------------------------------------------ int16 read and pixel decode
+UNSUPPORTED_JPEG = (
+    "this JPEG is not read by dali_tpu_torch's libjpeg-free decoder (12-bit, arithmetic or "
+    "lossless coding, CMYK/YCCK or RGB colour, or a sampling other than 4:4:4, 4:2:2, 4:2:0 "
+    "and 4:4:0); see ROADMAP.md (Queue 1 item 1e)")
+
+
+def _raise_rc(rcs, what):
+    """Raise for the first sample whose return code is not 0: 1 (a stream
+    the reader does not take) raises NotImplementedError, anything else
+    (corrupt) ValueError, as libjpeg's error exit makes the reference fail."""
+    bad = [i for i, rc in enumerate(rcs) if rc != 0]
+    if not bad:
+        return
+    if any(rcs[i] == 1 for i in bad):
+        raise NotImplementedError(
+            f"{what}: sample(s) {[i for i in bad if rcs[i] == 1]}: {UNSUPPORTED_JPEG}")
+    raise ValueError(f"{what} failed for sample(s) {bad}: corrupt JPEG stream")
+
+
+def _byte_arrays(datas):
+    arrs = [np.ascontiguousarray(np.frombuffer(d, np.uint8) if isinstance(d, (bytes, bytearray))
+                                 else d).view(np.uint8).reshape(-1) for d in datas]
+    n = len(arrs)
+    ptrs = ctypes.cast((ctypes.c_void_p * n)(*[a.ctypes.data for a in arrs]),
+                       ctypes.POINTER(ctypes.c_char_p))
+    return arrs, ptrs, (ctypes.c_size_t * n)(*[a.nbytes for a in arrs])
+
+
+def _pool_handle(pool):
+    return None if pool is None else pool.handle
+
+
+def coef_full_batch(pool, datas, ky, kc, blocks, y_canvas, c_canvas):
+    """The int16 coefficient wire of a batch, written into padded canvases:
+    sample i's k x k corners (luma ky, chroma kc, natural order) over its
+    ``blocks[i]`` = (ybh, ybw, cbh, cbw) extent, at the top left of
+    ``y_canvas[i]`` [YH, YW, ky²] and ``c_canvas[i]`` [2, CH, CW, kc²] (int16,
+    C-contiguous). Blocks past a component's real extent are zero; grayscale
+    streams get zero chroma and a chroma table of ones. Returns the tables
+    [n, ky²+kc²] int32; raises for a sample that does not read."""
+    n = len(datas)
+    arrs, ptrs, lens = _byte_arrays(datas)
+    if not (y_canvas.dtype == c_canvas.dtype == np.int16 and y_canvas.flags.c_contiguous
+            and c_canvas.flags.c_contiguous and y_canvas.shape[0] >= n
+            and c_canvas.shape[0] >= n and y_canvas.shape[3] == ky * ky
+            and c_canvas.shape[4] == kc * kc):
+        raise ValueError("coef_full_batch: canvases must be C-contiguous int16 "
+                         "[n, YH, YW, ky²] and [n, 2, CH, CW, kc²]")
+    blocks = np.asarray(blocks, np.int32)
+    if n and ((blocks[:, 0] > y_canvas.shape[1]).any() or (blocks[:, 1] > y_canvas.shape[2]).any()
+              or (blocks[:, 2] > c_canvas.shape[2]).any()
+              or (blocks[:, 3] > c_canvas.shape[3]).any()):
+        raise ValueError("coef_full_batch: block extents exceed the canvases")
+    cols = [np.ascontiguousarray(blocks[:, j]) for j in range(4)]
+    vpp = ctypes.c_void_p * n
+    y_ptrs = vpp(*[y_canvas[i].ctypes.data for i in range(n)])
+    cb_ptrs = vpp(*[c_canvas[i, 0].ctypes.data for i in range(n)])
+    cr_ptrs = vpp(*[c_canvas[i, 1].ctypes.data for i in range(n)])
+    q = np.empty((n, ky * ky + kc * kc), np.uint16)
+    rcs = (ctypes.c_int * n)()
+    ip = ctypes.POINTER(ctypes.c_int)
+    host_lib().dali_tpu_torch_coef_full_batch(
+        _pool_handle(pool), ptrs, lens, n, int(ky), int(kc), y_ptrs, int(y_canvas.shape[2]),
+        cb_ptrs, cr_ptrs, int(c_canvas.shape[3]), *[_ptr(c, ip) for c in cols], _ptr(q), rcs)
+    _raise_rc(list(rcs), "JPEG coefficient read")
+    del arrs
+    return q.astype(np.int32)
+
+
+def jpeg_read_coeffs(data, ky: int, kc: int, y_bh: int, y_bw: int, c_bh: int, c_bw: int):
+    """One stream's int16 coefficient planes: (y [y_bh, y_bw, ky²] int16,
+    c [2, c_bh, c_bw, kc²] int16, q [ky²+kc²] uint16), the layout of
+    ``dali_tpu.native.jpeg_read_coeffs``. Raises where that returns None."""
+    y = np.zeros((1, y_bh, y_bw, ky * ky), np.int16)
+    c = np.zeros((1, 2, c_bh, c_bw, kc * kc), np.int16)
+    q = coef_full_batch(None, [data], ky, kc, [[y_bh, y_bw, c_bh, c_bw]], y, c)
+    return y[0], c[0], q[0].astype(np.uint16)
+
+
+def jpeg_scaled_dims(data, denom: int = 1):
+    """(h, w, components) of a JPEG decoded at 1/denom scale (rounded up, as
+    libjpeg does). Raises for a stream the decoder does not take."""
+    arrs, ptrs, lens = _byte_arrays([data])
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = host_lib().dali_tpu_torch_jpeg_scaled_dims(
+        arrs[0].ctypes.data, lens[0], int(denom), ctypes.byref(h),
+        ctypes.byref(w), ctypes.byref(c))
+    if rc == -3:
+        raise ValueError(f"JPEG scale denominator must be 1, 2, 4 or 8 (got {denom})")
+    _raise_rc([rc], "JPEG header read")
+    return h.value, w.value, c.value
+
+
+def decode_jpeg_batch(pool, datas, dsts, denoms, heights, widths, fancy=True, gray=False):
+    """Decode a batch of JPEGs with one native call, each into the top left
+    of its destination view ``dsts[i]`` (uint8 [>=h, >=w, 3] or, with
+    ``gray``, [>=h, >=w, 1]; rows may be strided, pixels contiguous).
+    Raises for a sample that does not decode."""
+    n = len(datas)
+    if any(int(d) not in (1, 2, 4, 8) for d in denoms):
+        raise ValueError(f"JPEG scale denominators must be 1, 2, 4 or 8 (got {list(denoms)})")
+    arrs, ptrs, lens = _byte_arrays(datas)
+    ch = 1 if gray else 3
+    for i, d in enumerate(dsts):
+        if (d.dtype != np.uint8 or d.shape[0] < heights[i] or d.shape[1] < widths[i]
+                or d.shape[2] != ch or d.strides[1] != ch or d.strides[2] != 1):
+            raise ValueError("decode_jpeg_batch: destination too small or not pixel-contiguous")
+    ci = ctypes.c_int * n
+    rcs = ci()
+    host_lib().dali_tpu_torch_decode_jpeg_batch(
+        _pool_handle(pool), ptrs, lens, ci(*[int(v) for v in denoms]),
+        (ctypes.c_void_p * n)(*[d.ctypes.data for d in dsts]),
+        (ctypes.c_long * n)(*[d.strides[0] for d in dsts]), ci(*[int(v) for v in heights]),
+        ci(*[int(v) for v in widths]), 1 if fancy else 0, 1 if gray else 0, n, rcs)
+    if any(rc == -2 for rc in rcs):
+        raise ValueError("decode_jpeg_batch: decoded size differs from the expected size")
+    _raise_rc(list(rcs), "JPEG decode")
+    del arrs
+
+
+def decode_jpeg(data, denom: int = 1, fancy_upsampling: bool = True, gray: bool = False):
+    """One JPEG to HWC uint8, RGB or (``gray``) one channel, at 1/denom scale
+    (counterpart of ``dali_tpu.native.decode_jpeg``, which returns None where
+    this raises)."""
+    h, w, _ = jpeg_scaled_dims(data, denom)
+    out = np.empty((h, w, 1 if gray else 3), np.uint8)
+    decode_jpeg_batch(None, [data], [out], [denom], [h], [w], fancy_upsampling, gray)
+    return out

@@ -1,9 +1,10 @@
 """Build the port's two native libraries from the sources in the checkout.
 
-* ``build/libdali_tpu_torch_host.so`` — the hybrid-JPEG host half: the
-  libjpeg-free entropy decoder, wire packer and task pool of the JAX package
-  (``dali_tpu/native/src/{jpeg_huff,sparse_pack,tasking}.cc``, read in place)
-  plus the port's batch entries ``csrc/host/coef_{pack,dense}_batch.cc``. g++ with
+* ``build/libdali_tpu_torch_host.so`` — the host half of JPEG decode, all
+  libjpeg-free C++ in ``csrc/host/``: the entropy decoder (``jpeg_huff.cc``,
+  int8 and int16 coefficient stores), the wire packer (``sparse_pack.cc``),
+  the task pool (``tasking.cc``), the pixel decoder (``jpeg_decode.cc``) and
+  the batch entries ``coef_{pack,dense}_batch.cc``. g++ with
   ``-march=native``: compiled on the machine that runs it, never shipped.
 * ``build/libdali_tpu_torch_kernels.so`` — the CUDA kernels (``csrc/*.cu``),
   nvcc for ``sm_90a``, a plain C interface loaded with ctypes.
@@ -31,15 +32,13 @@ from typing import List
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(_PKG)
 BUILD_DIR = os.path.join(_ROOT, "build")
-_REF_SRC = os.path.join(_ROOT, "dali_tpu", "native", "src")
+_HOST_SRC = os.path.join(_PKG, "csrc", "host")
 
-HOST_SOURCES = [
-    os.path.join(_REF_SRC, "jpeg_huff.cc"),
-    os.path.join(_REF_SRC, "sparse_pack.cc"),
-    os.path.join(_REF_SRC, "tasking.cc"),
-    os.path.join(_PKG, "csrc", "host", "coef_pack_batch.cc"),
-    os.path.join(_PKG, "csrc", "host", "coef_dense_batch.cc"),
-]
+HOST_SOURCES = [os.path.join(_HOST_SRC, f) for f in (
+    "jpeg_huff.cc", "sparse_pack.cc", "tasking.cc", "coef_pack_batch.cc",
+    "coef_dense_batch.cc", "coef_full_batch.cc", "jpeg_decode.cc")]
+# headers the host sources include: hashed into the stamp, not compiled
+HOST_HEADERS = [os.path.join(_HOST_SRC, "jpeg_full.h")]
 KERNEL_SOURCES = [os.path.join(_PKG, "csrc", "cmn.cu")]
 
 
@@ -60,20 +59,30 @@ def _cpu_flags() -> str:
         return platform.machine()
 
 
-def _build(name: str, sources: List[str], cmd_prefix: List[str], cmd_suffix: List[str]) -> str:
-    out = os.path.join(BUILD_DIR, name)
+def stamp(sources: List[str], cmd_prefix: List[str], cmd_suffix: List[str]) -> str:
+    """Hash of the command line, the CPU flags under ``-march=native``, and
+    each source's path (relative to the package) and bytes: adding, dropping,
+    renaming or editing a source changes it."""
     h = hashlib.sha256(" ".join(cmd_prefix + cmd_suffix).encode())
     if "-march=native" in cmd_prefix:
         h.update(_cpu_flags().encode())
     for s in sources:
+        h.update(os.path.relpath(s, _PKG).encode() + b"\0")
         with open(s, "rb") as f:
-            h.update(f.read())
-    stamp = h.hexdigest()
+            data = f.read()
+        h.update(len(data).to_bytes(8, "little") + data)
+    return h.hexdigest()
+
+
+def _build(name: str, sources: List[str], cmd_prefix: List[str], cmd_suffix: List[str],
+           headers: List[str] = ()) -> str:
+    out = os.path.join(BUILD_DIR, name)
+    stamp_ = stamp(list(sources) + list(headers), cmd_prefix, cmd_suffix)
 
     def fresh():
         try:
             with open(out + ".stamp") as f:
-                return f.read() == stamp and os.path.exists(out)
+                return f.read() == stamp_ and os.path.exists(out)
         except OSError:
             return False
 
@@ -92,7 +101,7 @@ def _build(name: str, sources: List[str], cmd_prefix: List[str], cmd_suffix: Lis
             raise RuntimeError(f"building {name} failed:\n{e.stderr}") from None
         os.replace(tmp, out)
         with open(out + ".stamp.tmp", "w") as f:
-            f.write(stamp)
+            f.write(stamp_)
         os.replace(out + ".stamp.tmp", out + ".stamp")
     return out
 
@@ -102,7 +111,7 @@ def host_library() -> str:
         "libdali_tpu_torch_host.so", HOST_SOURCES,
         ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
          "-Wl,--no-undefined"],
-        ["-lpthread"])
+        ["-lpthread"], HOST_HEADERS)
 
 
 def kernel_library() -> str:

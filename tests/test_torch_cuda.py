@@ -25,7 +25,9 @@ eager mode (ndd: eager resize + CMN, a captured frontend) and a parallel
 external source feeding the RN50 device path, within one uint8 step / std,
 and so are the ImageNet training recipe (whole-image hybrid decode,
 RandomResizedCrop) and the RN50 validation recipe (decode at scale 1,
-resize_shorter onto a per-sample canvas, CMN crop)."""
+resize_shorter onto a per-sample canvas, CMN crop), and the host-decode
+recipes (ImageRandomCrop on the host, and the int16 hybrid wire). The mixed
+host decoders' device outputs equal the CPU run's bit for bit."""
 
 import os
 
@@ -499,13 +501,118 @@ def test_unported_image_paths_raise_on_card(card):
 
         p().build()
 
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1b"):
-        build(lambda j: fn.decoders.image(j, device="mixed", hybrid_device_decode=True))
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1c"):
-        build(lambda j: fn.decoders.image(j, device="mixed"))
+    def run(data, **kw):
+        arr = np.frombuffer(data, np.uint8)
+
+        @pipeline_def(batch_size=2, num_threads=1, device=card)
+        def p():
+            return fn.decoders.image(fn.external_source(source=lambda: [arr, arr], batch=True), **kw)
+
+        pipe = p()
+        pipe.build()
+        try:
+            pipe.run()
+        finally:
+            pipe.shutdown()
+
+    # a PNG signature and IHDR: not JPEG; a JPEG whose frame is 12-bit
+    png = b"\x89PNG\r\n\x1a\n" + b"\x00\x00\x00\rIHDR" + bytes(17)
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1d"):
+        run(png, device="mixed")
+    first = open(sorted(os.path.join(r, f) for r, _, fs in os.walk(CORPUS) for f in fs)[0],
+                 "rb").read()
+    sof = first.index(b"\xff\xc0")
+    twelve_bit = first[:sof + 4] + b"\x0c" + first[sof + 5:]
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1e"):
+        run(twelve_bit, device="mixed")
     with pytest.raises(NotImplementedError, match=r"Queue 1 item 5h"):
         build(lambda j: fn.random_resized_crop(j, size=[8, 8]))
     with pytest.raises(NotImplementedError, match="never reads"):
         build(lambda j: fn.resize(fn.decoders.image(j, device="mixed", hybrid_device_decode=True,
                                                     hybrid_wire="int8"),
                                   resize_shorter=8, roi_start=[0.0, 0.0]))
+
+
+# -- host decode and the int16 wire ------------------------------------------------------------
+
+
+def _host_decoders(device):
+    @pipeline_def(batch_size=8, num_threads=2, seed=42, device=device)
+    def p():
+        jpegs, labels = fn.readers.file(file_root=CORPUS, random_shuffle=True, name="Reader",
+                                        seed=1234)
+        return (fn.decoders.image(jpegs, device="mixed"),
+                fn.decoders.image_random_crop(jpegs, device="mixed", seed=3,
+                                              downscale_shorter_hint=100),
+                fn.decoders.image_crop(jpegs, device="mixed", crop=(100, 120)),
+                fn.decoders.image_slice(jpegs, device="mixed"),
+                fn.decoders.image(jpegs, device="mixed", hybrid_device_decode=True),
+                labels)
+
+    pipe = p()
+    pipe.build()
+    try:
+        return [[(o.as_tensor(), o.shape()) for o in r[:5]] for r in (pipe.run() for _ in range(2))]
+    finally:
+        pipe.shutdown()
+
+
+def test_host_decoders_and_int16_wire_on_card_match_cpu(card):
+    """The mixed host decoders' device outputs are the CPU run's, bit for bit
+    (the decode is the same host code; the card only receives it); the int16
+    wire, whose IDCT runs on the card, within one uint8 step on at most 1e-3
+    of values."""
+    for g_run, c_run in zip(_host_decoders(card), _host_decoders("cpu")):
+        for k, ((g, g_sh), (c, c_sh)) in enumerate(zip(g_run, c_run)):
+            assert g.is_cuda and g.dtype == torch.uint8 and g.shape == c.shape
+            assert g_sh == c_sh
+            # each sample's valid region (the host decode leaves canvas padding unset)
+            g = torch.cat([g[i, :h, :w].reshape(-1).cpu() for i, (h, w, _) in enumerate(g_sh)])
+            c = torch.cat([c[i, :h, :w].reshape(-1) for i, (h, w, _) in enumerate(c_sh)])
+            if k < 4:
+                assert torch.equal(g, c)
+            else:
+                d = (g.to(torch.int16) - c.to(torch.int16)).abs()
+                assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= MAX_FLIP_FRACTION
+
+
+def _host_recipe(device, recipe):
+    @pipeline_def(batch_size=16, num_threads=2, seed=42, device=device)
+    def p():
+        jpegs, labels = fn.readers.file(file_root=CORPUS, random_shuffle=True, name="Reader",
+                                        seed=1234)
+        if recipe == "rn50_host_decode":
+            images = fn.decoders.image_random_crop(
+                jpegs, device="mixed", output_type=types.RGB, random_area=[0.1, 1.0],
+                random_aspect_ratio=[0.8, 1.25], num_attempts=100)
+            images = fn.resize(images, resize_x=224, resize_y=224,
+                               interp_type=types.INTERP_TRIANGULAR)
+        else:
+            images = fn.decoders.image(jpegs, device="mixed", hybrid_device_decode=True)
+            images = fn.random_resized_crop(images, size=[224, 224])
+        out = fn.crop_mirror_normalize(images, mirror=fn.random.coin_flip(probability=0.5),
+                                       dtype=types.FLOAT, output_layout="CHW", mean=MEAN, std=STD)
+        return out, labels
+
+    pipe = p()
+    pipe.build()
+    try:
+        return [(r[0].as_tensor(), r[1].as_array()) for r in (pipe.run() for _ in range(2))]
+    finally:
+        pipe.shutdown()
+
+
+@pytest.mark.parametrize("recipe", ["rn50_host_decode", "proxy_int16_wire"])
+def test_host_decode_recipes_on_card_match_cpu(card, recipe):
+    """One CMN launch per batch; labels equal; images within one uint8 step /
+    std on at most 1e-3 of values."""
+    before = cmn.COUNTER.launches
+    on_card = _host_recipe(card, recipe)
+    assert cmn.COUNTER.launches == before + 2
+    for (g_img, g_lab), (c_img, c_lab) in zip(on_card, _host_recipe("cpu", recipe)):
+        assert g_img.is_cuda and g_img.dtype == torch.float32
+        assert tuple(g_img.shape) == (16, 3, 224, 224)
+        np.testing.assert_array_equal(g_lab, c_lab)
+        diff = (g_img.cpu() - c_img).abs()
+        assert float(diff.max()) <= LSB
+        assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION

@@ -326,10 +326,28 @@ def test_not_ported_decoder_forms_raise():
 
         p().build()
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md \(Queue 1 item 1b\)"):
-        build(device="mixed", hybrid_device_decode=True)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md \(Queue 1 item 1c\)"):
-        build(device="mixed")
+    def run(data, **kw):
+        arr = np.frombuffer(data, np.uint8)
+
+        @dali_tpu_torch.pipeline_def(batch_size=2, device="cpu")
+        def p():
+            return fn.decoders.image(fn.external_source(source=lambda: [arr, arr]), **kw)
+
+        pipe = p()
+        pipe.build()
+        try:
+            pipe.run()
+        finally:
+            pipe.shutdown()
+
+    img = cv2.imread(_corpus_files(1)[0])
+    # a non-JPEG input, and a JPEG sampling the libjpeg-free decoder does not read
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 1d"):
+        run(cv2.imencode(".png", img)[1].tobytes(), device="mixed")
+    s411 = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                      cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])[1].tobytes()
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md \(Queue 1 item 1e\)"):
+        run(s411, device="cpu")
     with pytest.raises(ValueError, match="hybrid_wire"):
         build(device="mixed", hybrid_device_decode=True, hybrid_wire="int4")
     with pytest.raises(ValueError, match="device='mixed'"):

@@ -16,6 +16,7 @@ import os
 import subprocess
 import sys
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -137,8 +138,9 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.experimental.dynamic, dali_tpu_torch._multiproc\n"
         "import dali_tpu_torch.external_source, dali_tpu_torch.pickling\n"
         "import dali_tpu_torch.backend.decoders, dali_tpu_torch.backend.image\n"
-        "import dali_tpu_torch.kernels.resample, dali_tpu_torch.native\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2')]\n"
+        "import dali_tpu_torch.kernels.resample, dali_tpu_torch.native, dali_tpu_torch.imgcodec\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
     )
     root = os.path.join(os.path.dirname(__file__), "..")
@@ -233,17 +235,24 @@ def test_imagenet_checkpoint_from_dali_tpu_resumes_in_port():
 
 def test_unported_names_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dali_tpu_torch.fn.decoders.image_crop
+        dali_tpu_torch.fn.decoders.inflate
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dali_tpu_torch.fn.water
+    png = np.frombuffer(cv2.imencode(".png", np.zeros((8, 8, 3), np.uint8))[1].tobytes(),
+                        np.uint8)
 
     @dali_tpu_torch.pipeline_def(batch_size=2, device="cpu")
     def p():
-        jpegs, _ = dali_tpu_torch.fn.readers.file(file_root=CORPUS)
-        return dali_tpu_torch.fn.decoders.image_random_crop(jpegs, device="mixed")
+        enc = dali_tpu_torch.fn.external_source(source=lambda: [png, png])
+        return dali_tpu_torch.fn.decoders.image_random_crop(enc, device="mixed")
 
-    with pytest.raises(NotImplementedError, match="hybrid_device_decode"):
-        p().build()
+    pipe = p()
+    pipe.build()
+    try:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 1d"):
+            pipe.run()
+    finally:
+        pipe.shutdown()
 
 
 def test_cuda_device_without_card_raises():
