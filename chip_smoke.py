@@ -96,7 +96,15 @@ on failure:
    hybrid_device_decode=True)`` on its default int16 wire at
    ``hybrid_scale=1``, ``random_resized_crop(size=[224, 224])``, coin-flip
    CMN; 3 warm-up + 10 timed batches, reported as phase 9 (H2D of the int16
-   planes, IDCT tail, RandomResizedCrop, CMN), then batch 16 against the CPU.
+   planes, IDCT tail, RandomResizedCrop, CMN), then batch 16 against the CPU;
+13. imagenet_forms, phase 11's recipe over every image form an ImageNet-like
+   corpus holds: the 32 corpus files and every fixture of
+   ``dali_tpu_torch/testdata/codecs`` (CMYK, YCCK, RGB-colour, 4:1:1 and
+   h=4 JPEGs, partly interleaved scans, a progressive JPEG cut at 60%, PNG
+   under a ``.JPEG`` name, 16-bit and palette PNGs, 24-bit and RLE8 BMPs)
+   repeated to 256 entries, so each batch holds every form; 3 warm-up + 10
+   timed batches reported as phase 9, then batch 64 on the card against the
+   CPU; then the single-threaded host decode time of each form (ms/image).
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings) is the JSON object on the line before
@@ -130,6 +138,7 @@ AUG_CHECK_BATCH = 16
 AMP_TIMED = 10
 RECIPE_TIMED = {"imagenet_train": 20, "rn50_val": 10, "rn50_host_decode": 20,
                 "proxy_int16_wire": 10}
+FORMS_TIMED, FORMS_CHECK_BATCH, FORMS_DECODE_REPS = 10, 64, 10
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
 
@@ -195,15 +204,21 @@ def make_pipe(file_list, batch, out, device, amp=False):
     return rn50_train()
 
 
-def write_file_list() -> str:
+def write_file_list(forms=False) -> str:
+    """The 32-file corpus repeated to BATCH entries, ``path label`` lines;
+    with ``forms``, the image-form fixtures join it (label 2)."""
     root = os.path.join(HERE, "dali_tpu_torch", "testdata", "rn50")
     files = sorted(os.path.join(c, f) for c in sorted(os.listdir(root))
                    for f in sorted(os.listdir(os.path.join(root, c))))
     require(len(files) == 32, f"expected the 32-file corpus under {root}, found {len(files)}")
-    lines = [f"{os.path.join(root, f)} {int(f.split(os.sep)[0][len('class'):])}"
-             for f in files * (-(-BATCH // len(files)))]
+    entries = [f"{os.path.join(root, f)} {int(f.split(os.sep)[0][len('class'):])}" for f in files]
+    if forms:
+        codecs = os.path.join(HERE, "dali_tpu_torch", "testdata", "codecs")
+        entries += [f"{os.path.join(codecs, f)} 2" for f in sorted(os.listdir(codecs))]
+    lines = (entries * (-(-BATCH // len(entries))))[:max(BATCH, len(entries))]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
-    path = os.path.join(HERE, "build", "rn50_file_list.txt")
+    path = os.path.join(HERE, "build", "imagenet_forms_file_list.txt" if forms
+                        else "rn50_file_list.txt")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return path
@@ -286,14 +301,14 @@ def e2e_phase(card, file_list):
     return launches, ips, stages
 
 
-def reference_phase(file_list, amp=False, make=None, what=""):
+def reference_phase(file_list, amp=False, make=None, what="", batch=16):
     """The same pipeline (``make(batch, device)``, by default rn50_train's) at
-    batch 16 on the card and on the CPU; in the fp16 form the limits grow by
+    ``batch`` on the card and on the CPU; in the fp16 form the limits grow by
     one float16 step."""
     make = make or (lambda batch, device: make_pipe(file_list, batch, OUT, device, amp))
     outs = []
     for device in ("cuda:0", "cpu"):
-        pipe = make(16, device)
+        pipe = make(batch, device)
         pipe.build()
         res = [pipe.run() for _ in range(2)]
         outs.append([(r[0].as_tensor().cpu(), r[1].as_array()) for r in res])
@@ -306,7 +321,7 @@ def reference_phase(file_list, amp=False, make=None, what=""):
         worst = max(worst, float(d.max()))
         frac = max(frac, float((d > step).float().mean()))
     limit = LSB_OVER_STD + step
-    print(f"card vs CPU plain path{' (fp16 HWC form)' if amp else ''}{what} (batch 16, 2 "
+    print(f"card vs CPU plain path{' (fp16 HWC form)' if amp else ''}{what} (batch {batch}, 2 "
           "iterations): "
           f"max abs diff {worst:.4f} (limit {limit:.4f}), fraction > {step:.1e}: {frac:.2e} "
           "(limit 1e-3)")
@@ -736,15 +751,17 @@ def make_imagenet_pipe(file_list, batch, device, recipe):
     return imagenet()
 
 
-def imagenet_phase(card, file_list, rn50_ips, recipe):
-    """One recipe at full width; returns its CMN launches and images/s."""
+def imagenet_phase(card, file_list, rn50_ips, recipe, name=None, timed=None, check_batch=16):
+    """One recipe at full width (reported as ``name``); returns its CMN
+    launches and images/s."""
     t_phase = time.perf_counter()
+    name = name or recipe
     torch.cuda.reset_peak_memory_stats()
     pipe = make_imagenet_pipe(file_list, BATCH, "cuda:0", recipe)
-    timed = RECIPE_TIMED[recipe]
-    ips, st, _, launches = drive(pipe, timed, recipe)
+    timed = timed or RECIPE_TIMED[recipe]
+    ips, st, _, launches = drive(pipe, timed, name)
     ex = pipe.executor
-    print(f"{recipe} batch {BATCH}: {ips:.1f} images/s over {timed} batches, "
+    print(f"{name} batch {BATCH}: {ips:.1f} images/s over {timed} batches, "
           f"{100 * ips / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} in this run; "
           f"{host_line(st, timed)}; cmn launches {launches} ({card})")
 
@@ -760,12 +777,43 @@ def imagenet_phase(card, file_list, rn50_ips, recipe):
         k = names.get(s_name, s_name)
         stages[k] = stages.get(k, 0.0) + a.elapsed_time(b)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"{recipe} stage ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+    print(f"{name} stage ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
           + f"; peak device memory {peak:.2f} GiB ({card})")
     pipe.shutdown()
     reference_phase(file_list, make=lambda b, d: make_imagenet_pipe(file_list, b, d, recipe),
-                    what=f" ({recipe})")
-    print(f"{recipe} phase: {time.perf_counter() - t_phase:.1f} s")
+                    what=f" ({name})", batch=check_batch)
+    print(f"{name} phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, ips
+
+
+def forms_phase(card, rn50_ips):
+    """imagenet_forms: rn50_host_decode over every image form; then each
+    form's single-threaded host decode (``imgcodec.decode``, RGB uint8, the
+    route the reference takes). Returns the CMN launches and images/s."""
+    from dali_tpu_torch import imgcodec
+
+    file_list = write_file_list(forms=True)
+    launches, ips = imagenet_phase(card, file_list, rn50_ips, "rn50_host_decode",
+                                   name="imagenet_forms", timed=FORMS_TIMED,
+                                   check_batch=FORMS_CHECK_BATCH)
+    with open(file_list) as f:
+        paths = list(dict.fromkeys(line.split()[0] for line in f if line.strip()))
+    per_form = {}
+    for path in [paths[0]] + [p for p in paths if os.sep + "codecs" + os.sep in p]:
+        with open(path, "rb") as f:
+            data = f.read()
+        img = imgcodec.decode(data)
+        require(img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3,
+                f"{path}: decoded to {img.shape} {img.dtype}")
+        t0 = time.perf_counter()
+        for _ in range(FORMS_DECODE_REPS):
+            imgcodec.decode(data)
+        ms = 1e3 * (time.perf_counter() - t0) / FORMS_DECODE_REPS
+        key = "baseline_420.jpg" if path == paths[0] else os.path.basename(path)
+        per_form[key] = round(ms, 3)
+        print(f"host decode {key} {img.shape[1]}x{img.shape[0]}: {ms:.3f} ms/image, one thread "
+              f"({card})")
+    print("imagenet_forms decode ms/image: " + json.dumps(per_form))
     return launches, ips
 
 
@@ -796,6 +844,7 @@ def main():
     launches["rn50_parallel_es"] = parallel_phase(card, file_list, rn50_ips)[0]
     for recipe in RECIPE_TIMED:
         launches[recipe] = imagenet_phase(card, file_list, rn50_ips, recipe)[0]
+    launches["imagenet_forms"] = forms_phase(card, rn50_ips)[0]
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

@@ -267,8 +267,12 @@ class _HybridCoeffs(Operator):
         modes = infos[:, 6]
         if (modes < 0).any():
             for d in (d for d, m in zip(datas, modes) if m < 0):
-                # a form no decoder of this package reads raises NotImplementedError
-                native.jpeg_scaled_dims(d)
+                # a JPEG form no decoder of this package reads raises
+                # NotImplementedError; the rest raise as the reference does
+                try:
+                    native.jpeg_scaled_dims(d)
+                except ValueError:
+                    pass
             raise ValueError("hybrid_device_decode requires grayscale or 3-component YCbCr "
                              "4:2:0/4:2:2/4:4:4 JPEGs")
         if (modes != modes[0]).any():
@@ -586,9 +590,10 @@ class JpegIdctSplitRRC(JpegIdctSplit):
 
 # ================================ host-decoded images (decoders.Image and kin) ====================
 # Counterpart of dali_tpu/backend/decoders.py:25-523, misc2.py:271-345 and
-# decoders.py:1400-1440. JPEG decodes through the libjpeg-free C++ decoder,
-# uint8-equal to the libjpeg-turbo decode of the reference; other formats
-# raise (imgcodec.NOT_JPEG).
+# decoders.py:1400-1440. Each sample takes the reference's route (imgcodec):
+# JPEGs in one native batch call per batch, which reports per sample the
+# route the reference takes (libjpeg, or cv2 for CMYK/YCCK); PNG and BMP per
+# sample; GIF, TIFF and WebP raise (imgcodec.NOT_JPEG).
 
 def _decoder_schema(name):
     return (
@@ -719,15 +724,42 @@ class _ImageDecoderBase(Operator):
             fancy_upsampling=self.spec.GetArgument("jpeg_fancy_upsampling"),
             dtype=self.spec.GetArgument("dtype"))
 
+    def _jpeg_batch(self, datas, idx, denoms, gray=False):
+        """Decode ``datas[i]`` for i in ``idx`` at ``denoms`` in one native
+        call: (images, codes), the code of each sample as
+        ``native.decode_jpeg_batch`` gives it. A header the decoder cannot
+        read gives no image and code -1: the per-sample path raises for it."""
+        dims, keep = [], []
+        for i, dn in zip(idx, denoms):
+            try:
+                dims.append(native.jpeg_scaled_dims(datas[i], dn)[:2])
+                keep.append(True)
+            except (ValueError, NotImplementedError):
+                dims.append(None)
+                keep.append(False)
+        imgs = [np.empty((hw[0], hw[1], 1 if gray else 3), np.uint8) if hw else None
+                for hw in dims]
+        run = [j for j in range(len(idx)) if keep[j]]
+        codes = [-1] * len(idx)
+        if run:
+            rcs = native.decode_jpeg_batch(
+                self._task_pool(), [datas[idx[j]] for j in run], [imgs[j] for j in run],
+                [denoms[j] for j in run], [dims[j][0] for j in run], [dims[j][1] for j in run],
+                self.spec.GetArgument("jpeg_fancy_upsampling"), gray)
+            for j, rc in zip(run, rcs):
+                codes[j] = rc
+        return imgs, codes
+
     def _decode_all(self, datas, output_type=None):
-        """``_decode`` of every sample, the upright JPEGs of the batch decoded
-        by one native call on the operator's task pool (same output)."""
+        """``_decode`` of every sample, the JPEGs of the batch (upright, or
+        with ``adjust_orientation`` off) decoded by one native call on the
+        operator's task pool (same output)."""
         spec = self.spec
         out_type = spec.GetArgument("output_type") if output_type is None else output_type
         hint = spec.GetArgument("downscale_shorter_hint")
         adjust = spec.GetArgument("adjust_orientation")
         gray = out_type == DALIImageType.GRAY
-        fast, dims, denoms = [], [], []
+        fast, denoms = [], []
         for i, d in enumerate(datas):
             if imgcodec.is_jpeg(d) and not imgcodec.is_jpeg2000(d) and (
                     not adjust or imgcodec.exif_orientation(d) == 1):
@@ -735,20 +767,18 @@ class _ImageDecoderBase(Operator):
                 if hint:
                     h, w, _ = imgcodec.peek_shape(d)
                     dn = choose_denom(h, w, hint)
-                dims.append(native.jpeg_scaled_dims(d, dn))
                 denoms.append(dn)
                 fast.append(i)
         out = [None] * len(datas)
-        imgs = [np.empty((h, w, 1 if gray else 3), np.uint8) for h, w, _ in dims]
-        if fast:
-            native.decode_jpeg_batch(
-                self._task_pool(), [datas[i] for i in fast], imgs, denoms,
-                [h for h, _, _ in dims], [w for _, w, _ in dims],
-                spec.GetArgument("jpeg_fancy_upsampling"), gray)
+        imgs, codes = self._jpeg_batch(datas, fast, denoms, gray)
         dtype = spec.GetArgument("dtype")
-        for i, img in zip(fast, imgs):
-            out[i] = imgcodec._convert_dtype(
-                img if gray else imgcodec._convert_from_rgb(img, out_type), dtype)
+        for i, img, rc in zip(fast, imgs, codes):
+            if rc == native.ROUTE_LIBJPEG:
+                out[i] = imgcodec._convert_dtype(
+                    img if gray else imgcodec._convert_from_rgb(img, out_type), dtype)
+            elif rc == native.ROUTE_CV2:
+                out[i] = imgcodec.cv2_route_output(
+                    img, imgcodec.exif_orientation(datas[i]), out_type, dtype)
         for i, d in enumerate(datas):
             if out[i] is None:
                 out[i] = self._decode(d, out_type)
@@ -825,10 +855,10 @@ class ImageDecoderMixed(_ImageDecoderBase):
                 return None
             try:
                 h, w, _ = imgcodec.peek_shape(d)
-            except Exception:
+                dn = choose_denom(h, w, hint)
+                sh, sw, _ = native.jpeg_scaled_dims(d, dn)
+            except (ValueError, NotImplementedError):
                 return None
-            dn = choose_denom(h, w, hint)
-            sh, sw, _ = native.jpeg_scaled_dims(d, dn)
             dims.append((sh, sw))
             denoms.append(dn)
         shapes = np.array([[h, w, 3] for h, w in dims], dtype=np.int32)
@@ -848,10 +878,22 @@ class ImageDecoderMixed(_ImageDecoderBase):
                     hit[i] = True
         todo = [i for i in range(n) if not hit[i]]
         if todo:
-            native.decode_jpeg_batch(
+            fancy = spec.GetArgument("jpeg_fancy_upsampling")
+            rcs = native.decode_jpeg_batch(
                 self._task_pool(), [datas[i] for i in todo], [arr[i] for i in todo],
                 [denoms[i] for i in todo], [int(shapes[i, 0]) for i in todo],
-                [int(shapes[i, 1]) for i in todo], spec.GetArgument("jpeg_fancy_upsampling"))
+                [int(shapes[i, 1]) for i in todo], fancy)
+            for i, rc in zip(todo, rcs):
+                if rc == native.ROUTE_LIBJPEG or (
+                        rc == native.ROUTE_CV2 and imgcodec.exif_orientation(datas[i]) == 1):
+                    continue
+                # what libjpeg declines the reference decodes again through
+                # imgcodec at the same scale, clipped into the slot
+                img = imgcodec.decode(datas[i], output_type=DALIImageType.RGB,
+                                      denom=denoms[i], fancy_upsampling=fancy)
+                h, w = min(img.shape[0], ch), min(img.shape[1], cw)
+                shapes[i] = (h, w, 3)
+                arr[i, :h, :w] = img[:h, :w]
         if cache is not None and keys:
             for i in todo:
                 if keys[i]:
@@ -879,7 +921,9 @@ class _ImageRandomCropBase(_ImageDecoderBase):
     stream and, for an upright RGB uint8 JPEG, the window from the header
     size and the scale from the window; those samples then decode in one
     native call. The others decode first and draw the window from the
-    decoded size."""
+    decoded size, and so do the JPEGs libjpeg declines (CMYK, YCCK): the
+    reference draws for them twice, from the header and, after libjpeg fails,
+    from the decoded size with the same generator."""
 
     def run_batch(self, ctx, inp):
         spec = self.spec
@@ -894,7 +938,7 @@ class _ImageRandomCropBase(_ImageDecoderBase):
         n = len(datas)
         rngs = [ctx.rng(self, i) for i in range(n)]
         out = [None] * n
-        fast, wins, denoms, dims = [], [], [], []
+        fast, wins, denoms, redo = [], [], [], {}
         for i, d in enumerate(datas):
             if not (rgb_u8 and imgcodec.is_jpeg(d)
                     and (not adjust or imgcodec.exif_orientation(d) == 1)):
@@ -904,17 +948,19 @@ class _ImageRandomCropBase(_ImageDecoderBase):
             except Exception:
                 continue
             win = sample_rrc_window(rngs[i], h, w, area, ar, attempts)
-            dn = choose_denom(win[2], win[3], hint) if hint else 1
             fast.append(i)
             wins.append(win)
-            denoms.append(dn)
-            dims.append(native.jpeg_scaled_dims(d, dn))
-        imgs = [np.empty((h, w, 3), np.uint8) for h, w, _ in dims]
-        if fast:
-            native.decode_jpeg_batch(self._task_pool(), [datas[i] for i in fast], imgs, denoms,
-                                     [h for h, _, _ in dims], [w for _, w, _ in dims],
-                                     spec.GetArgument("jpeg_fancy_upsampling"))
-        for i, img, (y, x, ch, cw), dn in zip(fast, imgs, wins, denoms):
+            denoms.append(choose_denom(win[2], win[3], hint) if hint else 1)
+        imgs, codes = self._jpeg_batch(datas, fast, denoms)
+        for i, img, (y, x, ch, cw), dn, rc in zip(fast, imgs, wins, denoms, codes):
+            if rc != native.ROUTE_LIBJPEG:
+                # libjpeg declines it: the reference decodes it again through
+                # _decode, whose scale comes from the image, not the window
+                h, w, _ = imgcodec.peek_shape(datas[i])
+                same = (rc == native.ROUTE_CV2 and imgcodec.exif_orientation(datas[i]) == 1
+                        and (choose_denom(h, w, hint) if hint else 1) == dn)
+                redo[i] = img if same else None
+                continue
             if dn > 1:
                 # crop coordinates in scaled space
                 y, x = y // dn, x // dn
@@ -924,7 +970,9 @@ class _ImageRandomCropBase(_ImageDecoderBase):
             out[i] = img[y:y + ch, x:x + cw]
         for i in range(n):
             if out[i] is None:
-                img = self._decode(datas[i])
+                img = redo.get(i)
+                if img is None:
+                    img = self._decode(datas[i])
                 y, x, ch, cw = sample_rrc_window(rngs[i], img.shape[0], img.shape[1], area, ar,
                                                  attempts)
                 out[i] = img[y:y + ch, x:x + cw]

@@ -41,6 +41,7 @@ void run_coef_job(void* p) {
   CoefJob* j = static_cast<CoefJob*>(p);
   dali_tpu_torch::JpegFull f;
   *j->rc = dali_tpu_torch::jpeg_read_full(reinterpret_cast<const uint8_t*>(j->data), j->len, &f);
+  if (*j->rc == 0 && !f.wire_form()) *j->rc = 1;  // the wire carries YCbCr and grayscale only
   if (*j->rc != 0) return;
   for (int c = 0; c < 3; c++) {
     const int k = c == 0 ? j->ky : j->kc;

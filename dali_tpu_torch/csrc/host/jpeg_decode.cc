@@ -1,23 +1,32 @@
 // Host JPEG pixel decode without libjpeg: the counterpart of
 // dali_tpu/native/src/jpeg_decode.cc, which decodes through libjpeg-turbo
-// with JDCT_ISLOW. This file follows libjpeg-turbo's decompression of the
-// coefficients that jpeg_read_full (jpeg_huff.cc) reads, stage by stage, so
-// that the uint8 output is libjpeg's:
+// with JDCT_ISLOW, and of the cv2 route the reference takes for the JPEGs
+// libjpeg will not give as RGB (CMYK and YCCK). This file follows
+// libjpeg-turbo 2.1's decompression of the coefficients that jpeg_read_full
+// (jpeg_huff.cc) reads, stage by stage, so that the uint8 output is libjpeg's:
 //
+//  * block smoothing of progressive streams whose coefficients are not all
+//    known (jdcoefct.c smoothing_ok / decompress_smooth_data): estimates of
+//    the first nine AC coefficients, and of DC where no AC is known, from the
+//    5x5 neighbourhood of DC values;
 //  * scaled decode (denom 1, 2, 4, 8): output ceil(w/denom) x ceil(h/denom);
 //    each component's IDCT size starts at 8/denom and doubles while that
-//    replaces chroma upsampling (jdmaster.c jpeg_calc_output_dimensions);
+//    replaces upsampling (jdmaster.c jpeg_calc_output_dimensions);
 //  * IDCTs: the 8x8 integer islow (jidctint.c) and the reduced 4x4, 2x2, 1x1
 //    (jidctred.c), 13 constant bits, 2 pass-1 bits, and the post-IDCT range
-//    limit that wraps the value to 10 bits before clamping (RANGE_MASK);
-//  * upsampling (jdsample.c): fancy h2v1, h1v2 and h2v2 (triangular, with
-//    alternating rounding biases and edge rows repeated), else box
-//    replication; fancy only above 1/8 scale, and h2v1/h2v2 fancy only for
-//    chroma wider than 2 samples. libjpeg's merged upsampler (no fancy
-//    upsampling) equals box replication followed by colour conversion;
-//  * YCbCr -> RGB through the fixed-point tables of jdcolor.c (16 bits);
-//    grayscale output of a colour stream is the Y plane, RGB output of a
-//    grayscale stream replicates it.
+//    limit of the x86-64 build (idct_limit below);
+//  * upsampling (jdsample.c), for any integral ratio of sampling factors:
+//    fancy h2v1, h1v2 and h2v2 (triangular, with alternating rounding biases
+//    and edge rows repeated), else box replication (int_upsample); fancy only
+//    above 1/8 scale, and h2v1/h2v2 fancy only for components wider than 2
+//    samples. libjpeg's merged upsampler (no fancy upsampling) equals box
+//    replication followed by colour conversion;
+//  * colour (jdcolor.c): YCbCr -> RGB through the fixed-point tables (16
+//    bits), RGB passed through, RGB -> grey, YCbCr -> grey as the Y plane,
+//    grey -> RGB replicated, YCCK -> CMYK;
+//  * the cv2 route (OpenCV's JPEG reader, grfmt_jpeg.cpp): libjpeg's CMYK
+//    samples with fancy upsampling, then OpenCV's CMYK -> BGR or CMYK -> grey
+//    (imgcodecs utils.cpp icvCvt_CMYK2BGR_8u_C4C3R / icvCvt_CMYK2Gray_8u_C4C1R).
 
 #include <algorithm>
 #include <cstdint>
@@ -35,8 +44,14 @@ constexpr int kPass1Bits = 2;
 
 inline int64_t descale(int64_t x, int n) { return (x + ((int64_t)1 << (n - 1))) >> n; }
 
-// the post-IDCT range limit: wrap to 10 bits (x & RANGE_MASK), then clamp
+// The post-IDCT range limit. libjpeg-turbo's SIMD IDCTs (8x8 islow, 4x4 and
+// 2x2 on x86-64) saturate: +128, then clamp. Its C 1x1 IDCT wraps the value
+// to 10 bits first (x & RANGE_MASK). The two agree within [-512, 511].
 inline uint8_t idct_limit(int64_t x) {
+  x += 128;
+  return (uint8_t)(x < 0 ? 0 : x > 255 ? 255 : x);
+}
+inline uint8_t idct_limit_wrap(int64_t x) {
   int v = (int)(x & 1023);
   v = v < 512 ? v + 128 : v - 1024 + 128;
   return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
@@ -234,7 +249,7 @@ void idct_2x2(const short* in, const uint16_t* q, uint8_t* out, long stride) {
 
 // jidctred.c jpeg_idct_1x1
 void idct_1x1(const short* in, const uint16_t* q, uint8_t* out, long) {
-  out[0] = idct_limit(descale((int64_t)in[0] * q[0], 3));
+  out[0] = idct_limit_wrap(descale((int64_t)in[0] * q[0], 3));
 }
 
 // One component's IDCT output: bh*s x bw*s samples, s = its IDCT size.
@@ -246,7 +261,7 @@ struct Plane {
   const uint8_t* row(int r) const { return px.data() + (long)r * stride; }
 };
 
-void idct_plane(const JpegFull& f, int c, int s, Plane* p) {
+void idct_plane(const JpegFull& f, int c, const short* coef, int s, Plane* p) {
   p->s = s;
   p->stride = (long)f.bw[c] * s;
   p->px.resize((size_t)p->stride * f.bh[c] * s);
@@ -254,7 +269,7 @@ void idct_plane(const JpegFull& f, int c, int s, Plane* p) {
   p->dh = (int)(((long)f.H * f.v[c] * s + 8L * f.vmax - 1) / (8L * f.vmax));
   void (*idct)(const short*, const uint16_t*, uint8_t*, long) =
       s == 8 ? idct_8x8 : s == 4 ? idct_4x4 : s == 2 ? idct_2x2 : idct_1x1;
-  const short* blk = f.coef[c].data();
+  const short* blk = coef;
   for (int br = 0; br < f.bh[c]; br++)
     for (int bc = 0; bc < f.bw[c]; bc++, blk += 64)
       idct(blk, f.q[c], p->px.data() + (long)br * s * p->stride + (long)bc * s, p->stride);
@@ -350,7 +365,9 @@ struct Upsampler {
   }
 };
 
-void pick_method(const JpegFull& f, int c, int min_s, bool fancy, Upsampler* u) {
+// Returns false where libjpeg fails: a ratio of sampling factors that is
+// not integral (JERR_FRACT_SAMPLE_NOTIMPL).
+bool pick_method(const JpegFull& f, int c, int min_s, bool fancy, Upsampler* u) {
   const Plane& P = *u->p;
   const int h_in = f.h[c] * P.s / min_s, v_in = f.v[c] * P.s / min_s;
   const int h_out = f.hmax, v_out = f.vmax;
@@ -363,12 +380,164 @@ void pick_method(const JpegFull& f, int c, int min_s, bool fancy, Upsampler* u) 
     u->method = kH1V2Fancy;
   } else if (h_in * 2 == h_out && v_in * 2 == v_out && do_fancy && P.dw > 2) {
     u->method = kH2V2Fancy;
-  } else {
+  } else if (h_out % h_in == 0 && v_out % v_in == 0) {
     u->method = kBox;
+  } else {
+    return false;
   }
   u->hexp = h_out / h_in;
   u->vexp = v_out / v_in;
+  return true;
 }
+
+// ---------------------------------------------------------------------------
+// Block smoothing (libjpeg-turbo 2.1 jdcoefct.c).
+
+// Natural positions of the coefficients smoothing estimates, in zigzag
+// order 1-9 (coef_bits index): AC01 AC10 AC20 AC11 AC02 AC03 AC12 AC21 AC30.
+constexpr int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+// smoothing_ok: every component's DC partly known and its first ten
+// quantisers nonzero, and some coefficient 1-9 of some component not known
+// to full precision.
+bool smoothing_ok(const JpegFull& f) {
+  if (!f.progressive) return false;
+  bool useful = false;
+  for (int c = 0; c < f.ncomp; c++) {
+    for (int k = 0; k < 10; k++)
+      if (f.q[c][kSmoothPos[k]] == 0) return false;
+    if (f.coef_bits[c][0] < 0) return false;
+    for (int k = 1; k < 10; k++)
+      if (f.coef_bits[c][k] != 0) useful = true;
+  }
+  return useful;
+}
+
+// One estimate: the coefficient's prediction from num, limited to what its
+// unknown low bits can hold.
+inline short smooth_pred(int64_t num, int64_t q, int al) {
+  int pred = (int)(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+  if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  return (short)(num >= 0 ? pred : -pred);
+}
+
+// decompress_smooth_data over component c: out gets its blocks, each with
+// the estimates applied to coefficients still zero and not known exactly.
+void smooth_plane(const JpegFull& f, int c, std::vector<short>* out) {
+  const int bh = f.bh[c], bw = f.bw[c], V = f.v[c];
+  const short* in = f.coef[c].data();
+  out->assign(in, in + (size_t)bh * bw * 64);
+  const int last = (f.H + 8 * f.vmax - 1) / (8 * f.vmax) - 1;  // last iMCU row
+  // libjpeg's latches: the scan in progress when the data ran out counts
+  // only for the iMCU rows it reached; later rows see the status before it
+  int cur[10], prev[10];
+  for (int k = 0; k < 10; k++) {
+    cur[k] = f.coef_bits[c][k];
+    prev[k] = f.nscans > 1 ? f.prev_bits[c][k] : -1;
+  }
+  const int64_t Q00 = f.q[c][0], Q01 = f.q[c][1], Q10 = f.q[c][8], Q20 = f.q[c][16],
+                Q11 = f.q[c][9], Q02 = f.q[c][2], Q03 = f.q[c][3], Q12 = f.q[c][10],
+                Q21 = f.q[c][17], Q30 = f.q[c][24];
+  auto dc = [&](int r, int b) -> int64_t { return in[((size_t)r * bw + b) * 64]; };
+  for (int r = 0; r < bh; r++) {
+    const int imcu = r / V, brow = r % V;
+    const int block_rows = imcu < last ? V : (bh % V ? bh % V : V);
+    // neighbouring block rows as libjpeg's buffer pointers give them
+    const int rp = (brow > 0 || imcu > 0) ? r - 1 : r;
+    const int rpp = (brow > 1 || imcu > 1) ? r - 2 : rp;
+    const int rn = (brow < block_rows - 1 || imcu < last) ? r + 1 : r;
+    const int rnn = (brow < block_rows - 2 || imcu + 1 < last) ? r + 2 : rn;
+    const int* bits = imcu > f.last_good_row ? prev : cur;
+    bool change_dc = true;
+    for (int k = 1; k < 10; k++)
+      if (bits[k] != -1) change_dc = false;
+    const int rows[5] = {rpp, rp, r, rn, rnn};
+    // libjpeg's sliding registers D[1..25] = DC01..DC25, rows top to bottom:
+    // all start at column 0; the first block loads column 1 into the fourth
+    // register only, each block loads column b + 2 into the fifth while one
+    // exists (a component two blocks wide keeps column 0 there)
+    int64_t D[26];
+    for (int i = 0; i < 5; i++)
+      for (int j = 0; j < 5; j++) D[1 + i * 5 + j] = dc(rows[i], 0);
+    for (int b = 0; b < bw; b++) {
+      short* ws = out->data() + ((size_t)r * bw + b) * 64;
+      for (int i = 0; i < 5; i++) {
+        if (b == 0 && bw > 1) D[4 + i * 5] = dc(rows[i], 1);
+        if (b + 1 < bw - 1) D[5 + i * 5] = dc(rows[i], b + 2);
+      }
+      int al;
+      if ((al = bits[1]) != 0 && ws[1] == 0) {
+        const int64_t num =
+            Q00 * (change_dc ? (-D[1] - D[2] + D[4] + D[5] - 3 * D[6] + 13 * D[7] - 13 * D[9] +
+                                3 * D[10] - 3 * D[11] + 38 * D[12] - 38 * D[14] + 3 * D[15] -
+                                3 * D[16] + 13 * D[17] - 13 * D[19] + 3 * D[20] - D[21] - D[22] +
+                                D[24] + D[25])
+                             : (-7 * D[11] + 50 * D[12] - 50 * D[14] + 7 * D[15]));
+        ws[1] = smooth_pred(num, Q01, al);
+      }
+      if ((al = bits[2]) != 0 && ws[8] == 0) {
+        const int64_t num =
+            Q00 * (change_dc ? (-D[1] - 3 * D[2] - 3 * D[3] - 3 * D[4] - D[5] - D[6] +
+                                13 * D[7] + 38 * D[8] + 13 * D[9] - D[10] + D[16] - 13 * D[17] -
+                                38 * D[18] - 13 * D[19] + D[20] + D[21] + 3 * D[22] + 3 * D[23] +
+                                3 * D[24] + D[25])
+                             : (-7 * D[3] + 50 * D[8] - 50 * D[18] + 7 * D[23]));
+        ws[8] = smooth_pred(num, Q10, al);
+      }
+      if ((al = bits[3]) != 0 && ws[16] == 0) {
+        const int64_t num =
+            Q00 * (change_dc ? (D[3] + 2 * D[7] + 7 * D[8] + 2 * D[9] - 5 * D[12] - 14 * D[13] -
+                                5 * D[14] + 2 * D[17] + 7 * D[18] + 2 * D[19] + D[23])
+                             : (-D[3] + 13 * D[8] - 24 * D[13] + 13 * D[18] - D[23]));
+        ws[16] = smooth_pred(num, Q20, al);
+      }
+      if ((al = bits[4]) != 0 && ws[9] == 0) {
+        const int64_t num =
+            Q00 * (change_dc ? (-D[1] + D[5] + 9 * D[7] - 9 * D[9] - 9 * D[17] + 9 * D[19] +
+                                D[21] - D[25])
+                             : (D[10] + D[16] - 10 * D[17] + 10 * D[19] - D[2] - D[20] + D[22] -
+                                D[24] + D[4] - D[6] + 10 * D[7] - 10 * D[9]));
+        ws[9] = smooth_pred(num, Q11, al);
+      }
+      if ((al = bits[5]) != 0 && ws[2] == 0) {
+        const int64_t num =
+            Q00 * (change_dc ? (2 * D[7] - 5 * D[8] + 2 * D[9] + D[11] + 7 * D[12] - 14 * D[13] +
+                                7 * D[14] + D[15] + 2 * D[17] - 5 * D[18] + 2 * D[19])
+                             : (-D[11] + 13 * D[12] - 24 * D[13] + 13 * D[14] - D[15]));
+        ws[2] = smooth_pred(num, Q02, al);
+      }
+      if (change_dc) {
+        if ((al = bits[6]) != 0 && ws[3] == 0)
+          ws[3] = smooth_pred(Q00 * (D[7] - D[9] + 2 * D[12] - 2 * D[14] + D[17] - D[19]), Q03, al);
+        if ((al = bits[7]) != 0 && ws[10] == 0)
+          ws[10] = smooth_pred(Q00 * (D[7] - 3 * D[8] + D[9] - D[17] + 3 * D[18] - D[19]), Q12, al);
+        if ((al = bits[8]) != 0 && ws[17] == 0)
+          ws[17] = smooth_pred(Q00 * (D[7] - D[9] - 3 * D[12] + 3 * D[14] + D[17] - D[19]), Q21, al);
+        if ((al = bits[9]) != 0 && ws[24] == 0)
+          ws[24] = smooth_pred(Q00 * (D[7] + 2 * D[8] + D[9] - D[17] - 2 * D[18] - D[19]), Q30, al);
+        const int64_t num =
+            Q00 * (-2 * D[1] - 6 * D[2] - 8 * D[3] - 6 * D[4] - 2 * D[5] - 6 * D[6] + 6 * D[7] +
+                   42 * D[8] + 6 * D[9] - 6 * D[10] - 8 * D[11] + 42 * D[12] + 152 * D[13] +
+                   42 * D[14] - 8 * D[15] - 6 * D[16] + 6 * D[17] + 42 * D[18] + 6 * D[19] -
+                   6 * D[20] - 2 * D[21] - 6 * D[22] - 8 * D[23] - 6 * D[24] - 2 * D[25]);
+        ws[0] = smooth_pred(num, Q00, 0);
+      }
+      for (int i = 0; i < 5; i++)
+        for (int j = 1; j < 5; j++) D[i * 5 + j] = D[i * 5 + j + 1];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Colour conversion of one output row.
+
+// jdcolor.c build_rgb_y_table: R_Y, G_Y, B_Y (+ ONE_HALF)
+constexpr int64_t kRY = 19595, kGY = 38470, kBY = 7471;
+// OpenCV's grey weights (imgcodecs utils.cpp: cR, cG, cB at SCALE 14)
+constexpr int kCvR = 4899, kCvG = 9617, kCvB = 1868;
+
+// OpenCV icvCvt_CMYK2BGR's per-channel step
+inline int cv_cmyk(int x, int k) { return k - ((255 - x) * k >> 8); }
 
 }  // namespace
 
@@ -389,63 +558,108 @@ int dali_tpu_torch_jpeg_scaled_dims(const char* data, size_t len, int denom, int
 
 // Decode into a strided destination: RGB (3 bytes a pixel) or, with gray,
 // one byte a pixel. Rows are dst_stride bytes apart; the image is written at
-// the top left. Returns 0; 1 unsupported stream; -1 corrupt; -2 the output
-// size is not expect_h x expect_w; -3 bad denom.
+// the top left. Returns 0 for a stream decoded as libjpeg gives it; 2 for a
+// CMYK or YCCK stream, which libjpeg will not give as RGB or grey and the
+// reference decodes through cv2 (its output is cv2's: fancy upsampling
+// always, OpenCV's CMYK conversion); 1 unsupported stream; -1 corrupt (or a
+// stream libjpeg fails on, or a CMYK/YCCK stream that ends before its EOI
+// marker); -2 the output size is not expect_h x expect_w;
+// -3 bad denom.
 int dali_tpu_torch_decode_jpeg_into(const char* data, size_t len, int denom, unsigned char* dst,
                                     long dst_stride, int expect_h, int expect_w, int fancy,
                                     int gray) {
+  using dali_tpu_torch::kCMYK;
+  using dali_tpu_torch::kGray;
+  using dali_tpu_torch::kRGB;
+  using dali_tpu_torch::kYCbCr;
+  using dali_tpu_torch::kYCCK;
   if (denom != 1 && denom != 2 && denom != 4 && denom != 8) return -3;
   // per-thread scratch, reused across the images a pool worker decodes
   thread_local JpegFull f;
-  thread_local Plane planes[3];
+  thread_local Plane planes[4];
+  thread_local std::vector<short> smoothed[4];
   thread_local std::vector<uint8_t> rows;
   int rc = dali_tpu_torch::jpeg_read_full(reinterpret_cast<const uint8_t*>(data), len, &f);
   if (rc != 0) return rc;
   const int oh = (f.H + denom - 1) / denom, ow = (f.W + denom - 1) / denom;
   if (oh != expect_h || ow != expect_w) return -2;
+  const bool cv2_route = f.color == kCMYK || f.color == kYCCK;
+  if (!cv2_route && f.color != kGray && f.color != kYCbCr && f.color != kRGB) return -1;
+  // OpenCV's data source suspends at the end of the data, and cv2 fails
+  if (cv2_route && !f.eoi) return -1;
+  // the reference's grey decode and cv2 leave libjpeg's fancy upsampling on
+  if (gray || cv2_route) fancy = 1;
   const int min_s = 8 / denom;
-  const int ncomp_used = (gray || f.ncomp == 1) ? 1 : 3;
-  for (int c = 0; c < ncomp_used; c++) {
-    // chroma is scaled up by a larger IDCT where that replaces upsampling
+  const int nused = (f.color == kGray || (gray && f.color == kYCbCr)) ? 1 : f.ncomp;
+  const bool smooth = smoothing_ok(f);
+  Upsampler ups[4];
+  for (int c = 0; c < nused; c++) {
+    // a component is scaled up by a larger IDCT where that replaces upsampling
     int s = min_s;
     while (s < 8 && (f.hmax * min_s) % (f.h[c] * s * 2) == 0 &&
            (f.vmax * min_s) % (f.v[c] * s * 2) == 0)
       s *= 2;
-    idct_plane(f, c, s, &planes[c]);
+    const short* coef = f.coef[c].data();
+    if (smooth) {
+      smooth_plane(f, c, &smoothed[c]);
+      coef = smoothed[c].data();
+    }
+    idct_plane(f, c, coef, s, &planes[c]);
+    ups[c].p = &planes[c];
+    if (!pick_method(f, c, min_s, fancy != 0, &ups[c])) return -1;
   }
-  if (ncomp_used == 1) {
-    const Plane& Y = planes[0];
-    for (int r = 0; r < oh; r++) {
-      unsigned char* o = dst + (long)r * dst_stride;
-      const uint8_t* y = Y.row(r);
+  rows.resize(4 * (size_t)ow);
+  uint8_t* in[4] = {rows.data(), rows.data() + ow, rows.data() + 2 * ow, rows.data() + 3 * ow};
+  for (int r = 0; r < oh; r++) {
+    for (int c = 0; c < nused; c++) ups[c].row(r, ow, in[c]);
+    unsigned char* o = dst + (long)r * dst_stride;
+    const uint8_t *c0 = in[0], *c1 = in[1], *c2 = in[2], *c3 = in[3];
+    if (nused == 1) {
       if (gray) {
-        std::memcpy(o, y, ow);
+        std::memcpy(o, c0, ow);
       } else {
-        for (int x = 0; x < ow; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = y[x];
+        for (int x = 0; x < ow; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = c0[x];
+      }
+    } else if (f.color == kYCbCr) {
+      for (int x = 0; x < ow; x++) {
+        const int y = c0[x], cb = c1[x], cr = c2[x];
+        o[3 * x] = clamp255(y + kYcc.cr_r[cr]);
+        o[3 * x + 1] = clamp255(y + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+        o[3 * x + 2] = clamp255(y + kYcc.cb_b[cb]);
+      }
+    } else if (f.color == kRGB) {
+      if (gray) {
+        for (int x = 0; x < ow; x++)
+          o[x] = (uint8_t)((kRY * c0[x] + kGY * c1[x] + kBY * c2[x] + 32768) >> 16);
+      } else {
+        for (int x = 0; x < ow; x++) {
+          o[3 * x] = c0[x];
+          o[3 * x + 1] = c1[x];
+          o[3 * x + 2] = c2[x];
+        }
+      }
+    } else {  // CMYK or YCCK: libjpeg's CMYK samples, then OpenCV's conversion
+      for (int x = 0; x < ow; x++) {
+        int cc = c0[x], m = c1[x], yy = c2[x];
+        const int k = c3[x];
+        if (f.color == kYCCK) {  // jdcolor.c ycck_cmyk_convert
+          const int y = c0[x], cb = c1[x], cr = c2[x];
+          cc = clamp255(255 - (y + kYcc.cr_r[cr]));
+          m = clamp255(255 - (y + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16)));
+          yy = clamp255(255 - (y + kYcc.cb_b[cb]));
+        }
+        const int R = cv_cmyk(cc, k), G = cv_cmyk(m, k), B = cv_cmyk(yy, k);
+        if (gray) {
+          o[x] = (uint8_t)((B * kCvB + G * kCvG + R * kCvR + (1 << 13)) >> 14);
+        } else {
+          o[3 * x] = (uint8_t)R;
+          o[3 * x + 1] = (uint8_t)G;
+          o[3 * x + 2] = (uint8_t)B;
+        }
       }
     }
-    return 0;
   }
-  Upsampler ups[3];
-  for (int c = 0; c < 3; c++) {
-    ups[c].p = &planes[c];
-    pick_method(f, c, min_s, fancy != 0, &ups[c]);
-  }
-  rows.resize(3 * (size_t)ow);
-  uint8_t *yr = rows.data(), *cbr = yr + ow, *crr = cbr + ow;
-  for (int r = 0; r < oh; r++) {
-    ups[0].row(r, ow, yr);
-    ups[1].row(r, ow, cbr);
-    ups[2].row(r, ow, crr);
-    unsigned char* o = dst + (long)r * dst_stride;
-    for (int x = 0; x < ow; x++) {
-      const int y = yr[x], cb = cbr[x], cr = crr[x];
-      o[3 * x] = clamp255(y + kYcc.cr_r[cr]);
-      o[3 * x + 1] = clamp255(y + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
-      o[3 * x + 2] = clamp255(y + kYcc.cb_b[cb]);
-    }
-  }
-  return 0;
+  return cv2_route ? 2 : 0;
 }
 
 }  // extern "C"

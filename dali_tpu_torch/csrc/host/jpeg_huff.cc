@@ -591,51 +591,88 @@ struct Parser {
 
   // Resume the marker walk at input position `from` (just after a scan's
   // entropy data): handles DHT/DQT/DRI between scans, stops at the next
-  // SOS (returns 0, scan_start set) or EOI (returns 0, saw_eoi).
+  // SOS (returns 0, scan_start set) or EOI (returns 0, saw_eoi). A stream
+  // that ends before the next marker, or inside an APPn/COM segment, returns
+  // -2: libjpeg's inserted EOI ends it cleanly. A bad table segment returns
+  // -1 (libjpeg fails); one the data ends inside is read as libjpeg reads it
+  // (cut_segment).
   int parse_next_scan(const uint8_t* from) {
     pos = (size_t)(from - d);
     for (;;) {
       int b;
-      if (!u8(&b)) return -1;
+      if (!u8(&b)) return -2;
       if (b != 0xFF) continue;
       int m;
       do {
-        if (!u8(&m)) return -1;
+        if (!u8(&m)) return -2;
       } while (m == 0xFF);
       if (m == 0x00 || m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
       if (m == 0xD9) {
         saw_eoi = true;
         return 0;
       }
-      int L;
-      if (!u16(&L) || L < 2) return -1;
-      size_t seg_end = pos + (size_t)L - 2;
-      if (seg_end > n) return -1;
-      int rc = 0;
-      switch (m) {
-        case 0xC4:
-          rc = parse_dht(seg_end);
-          break;
-        case 0xDB:
-          rc = parse_dqt(seg_end);
-          break;
-        case 0xDD: {
-          int v;
-          if (L != 4 || !u16(&v)) return -1;
-          ri = v;
-          break;
-        }
-        case 0xDA:
-          rc = parse_sos(seg_end);
-          if (rc) return rc;
-          scan_start = d + pos;
-          return 0;
-        default:
-          break;  // APPn/COM: skip
-      }
-      if (rc) return rc;
-      pos = seg_end;
+      const bool table = m == 0xC4 || m == 0xDB || m == 0xDD || m == 0xDA;
+      if (pos + 2 > n || pos + ((d[pos] << 8) | d[pos + 1]) > n) return table ? cut_segment() : -2;
+      int rc = segment(m);
+      if (rc != 1) return rc;
     }
+  }
+
+  // One segment between scans at pos (its length field): 0 an SOS (scan_start
+  // set), -1 bad, 1 another segment read (pos past it).
+  int segment(int m) {
+    int L;
+    if (!u16(&L) || L < 2) return -1;
+    size_t seg_end = pos + (size_t)L - 2;
+    if (seg_end > n) return -1;
+    int rc = 0;
+    switch (m) {
+      case 0xC4:
+        rc = parse_dht(seg_end);
+        break;
+      case 0xDB:
+        rc = parse_dqt(seg_end);
+        break;
+      case 0xDD: {
+        int v;
+        if (L != 4 || !u16(&v)) return -1;
+        ri = v;
+        break;
+      }
+      case 0xDA:
+        rc = parse_sos(seg_end);
+        if (rc) return -1;
+        scan_start = d + pos;
+        return 0;
+      default:
+        break;  // APPn/COM: skip
+    }
+    if (rc) return -1;
+    pos = seg_end;
+    return 1;
+  }
+
+  // A DHT, DQT, DRI or SOS segment the data ends inside, read as libjpeg
+  // reads it: its memory source supplies an EOI marker (FF D9, again and
+  // again) for the missing bytes. A bad segment fails (-1); a good DHT, DQT
+  // or DRI is followed by that EOI (-2); a good SOS starts a scan with no
+  // data (0), whose first MCU libjpeg decodes from zero bits.
+  int cut_segment() {
+    std::vector<uint8_t> pad(d, d + n);
+    pad.resize(n + 65540);
+    for (size_t i = n; i < pad.size(); i++) pad[i] = (i - n) % 2 ? 0xD9 : 0xFF;
+    const uint8_t* d0 = d;
+    const size_t n0 = n;
+    const int m = d[pos - 1];
+    d = pad.data();
+    n = pad.size();
+    const int rc = segment(m);
+    d = d0;
+    n = n0;
+    if (rc < 0) return -1;
+    if (rc == 1) return -2;
+    scan_start = d0 + n0;
+    return 0;
   }
 
   int parse_sof(size_t seg_end) {
@@ -706,7 +743,8 @@ struct Parser {
 
   int parse_sos(size_t seg_end) {
     if (!sof_seen) return -1;
-    if (!u8(&ns) || ns < 1 || ns > 4) return -1;
+    const size_t seg_start = pos;
+    if (!u8(&ns) || ns < 1 || ns > 4 || seg_end - seg_start != (size_t)(2 * ns + 4)) return -1;
     for (int i = 0; i < ns; i++) {
       int cs, tdta;
       if (!u8(&cs) || !u8(&tdta)) return -1;
@@ -903,7 +941,7 @@ int decode_scan(const Parser& ps, const CompStateT<AC>* cs, const uint8_t* pend,
   uint64_t acc = 0;
   int cnt = 0;
   size_t next_rst = 0;
-  int pred0 = 0, pred1 = 0, pred2 = 0;
+  int pred0 = 0, pred1 = 0, pred2 = 0, pred3 = 0;
   const int ri = ps.ri;
   int togo = ri;
   IdxState ix;
@@ -995,12 +1033,12 @@ int decode_scan(const Parser& ps, const CompStateT<AC>* cs, const uint8_t* pend,
         p = us.buf.data() + us.rst_off[next_rst++];
         acc = 0;
         cnt = 0;
-        pred0 = pred1 = pred2 = 0;
+        pred0 = pred1 = pred2 = pred3 = 0;
         togo = ri;
       }
       for (int ci = 0; ci < nc; ci++) {
         const auto& C = cs[ci];
-        int& pred = ci == 0 ? pred0 : ci == 1 ? pred1 : pred2;
+        int& pred = ci == 0 ? pred0 : ci == 1 ? pred1 : ci == 2 ? pred2 : pred3;
         for (int nb = C.v * C.h; nb > 0; nb--) {
           if (((p - buf0) << 3) - cnt > (long)bits_len) return 0;
           REFILL();
@@ -1123,7 +1161,7 @@ int decode_scan(const Parser& ps, const CompStateT<AC>* cs, const uint8_t* pend,
     signed char* cur_base;
     unsigned short* mask_row;
     int* len_slot;
-  } rows[3][4];
+  } rows[4][4];
 
   int len_sink;
   for (int my = skip_my; my < stop_my; my++) {
@@ -1175,13 +1213,16 @@ int decode_scan(const Parser& ps, const CompStateT<AC>* cs, const uint8_t* pend,
         if (next_rst < us.rst_off.size()) {
           p = us.buf.data() + us.rst_off[next_rst++];  // past pad bits + RSTn
         } else if (EXACT) {
-          p = buf0 + us.len + 1;  // no marker left: past the end for good
+          // no marker left: libjpeg decodes this MCU from zero bits unless
+          // the data had already run out; either way the data is over
+          const bool over = ((p - buf0) << 3) - cnt > (long)bits_len;
+          p = buf0 + us.len + (over ? 1 : 0);
         } else {
           return 0;  // corrupt: keep zeros
         }
         acc = 0;
         cnt = 0;
-        pred0 = pred1 = pred2 = 0;
+        pred0 = pred1 = pred2 = pred3 = 0;
         togo = ri;
       }
       if (EXACT && ((p - buf0) << 3) - cnt > (long)bits_len) {
@@ -1190,7 +1231,7 @@ int decode_scan(const Parser& ps, const CompStateT<AC>* cs, const uint8_t* pend,
       }
       for (int ci = 0; ci < nc; ci++) {
         const auto& C = cs[ci];
-        int& pred = ci == 0 ? pred0 : ci == 1 ? pred1 : pred2;
+        int& pred = ci == 0 ? pred0 : ci == 1 ? pred1 : ci == 2 ? pred2 : pred3;
         for (int v = 0; v < C.v; v++) {
           RowState& R = rows[ci][v];
           for (int h = 0; h < C.h; h++) {
@@ -1735,6 +1776,19 @@ struct BitRd {
   }
 };
 
+// A restart boundary of a progressive scan: the reader moves past the next
+// RSTn. With no marker left (a stream cut short), libjpeg decodes the next
+// MCU from zero bits unless the data had already run out (false: stop).
+inline bool restart(BitRd& br, const Unstuffed& us, size_t* next_rst) {
+  if (*next_rst < us.rst_off.size()) {
+    br.init(us, us.rst_off[(*next_rst)++]);
+    return true;
+  }
+  if (br.exhausted()) return false;
+  br.init(us, us.len);
+  return true;
+}
+
 inline int extend_recv(BitRd& br, int s) {
   if (s == 0) return 0;
   int v = br.bits(s);
@@ -1751,23 +1805,26 @@ struct ProgComp {
 };
 
 // DC first/refine scan (interleaved over the scan's components, or single).
-// Returns 0 ok, -1 corrupt.
+// Returns 0 ok, -1 corrupt. *good gets the iMCU row of the last MCU begun
+// before the data ran out (libjpeg's last_good_iMCU_row).
 int prog_dc_scan(const Parser& ps, ProgComp* pc, const int* scan_idx, int nsc,
-                 const Unstuffed& us, int mcus_x, int stop_my) {
+                 const Unstuffed& us, int mcus_x, int stop_my, int* good) {
   BitRd br;
   br.init(us, 0);
   size_t next_rst = 0;
   int ri = ps.ri, togo = ri;
   const int ah = ps.ah, al = ps.al;
+  for (int i = 0; i < nsc; i++)
+    if (ah == 0 && !ps.htdc[ps.scan_td[i]].valid) return -1;  // no such table
   for (int i = 0; i < nsc; i++) pc[scan_idx[i]].last_dc = 0;
   const bool single = nsc == 1;
   // rows bound: MCU rows when interleaved, component block rows when single
   const int nx = single ? pc[scan_idx[0]].real_bw : mcus_x;
   for (int my = 0; my < stop_my; my++) {
     for (int mx = 0; mx < nx; mx++) {
+      if (!br.exhausted()) *good = single ? my / pc[scan_idx[0]].v : my;
       if (ri && togo == 0) {
-        if (next_rst >= us.rst_off.size()) return -1;
-        br.init(us, us.rst_off[next_rst++]);
+        if (!restart(br, us, &next_rst)) return -1;
         for (int i = 0; i < nsc; i++) pc[scan_idx[i]].last_dc = 0;
         togo = ri;
       }
@@ -1804,19 +1861,20 @@ int prog_dc_scan(const Parser& ps, ProgComp* pc, const int* scan_idx, int nsc,
 
 // AC first scan (ah == 0), single component, band [ss, se].
 int prog_ac_first(const Parser& ps, ProgComp& C, int scan_slot,
-                  const Unstuffed& us, int row_end) {
+                  const Unstuffed& us, int row_end, int* good) {
   BitRd br;
   br.init(us, 0);
   size_t next_rst = 0;
   int ri = ps.ri, togo = ri;
   const HuffTbl* act = &ps.htac[ps.scan_ta[scan_slot]];
+  if (!act->valid) return -1;  // no such table
   const int ss = ps.ss, se = ps.se, al = ps.al;
   long eobrun = 0;
   for (int brow = 0; brow < row_end; brow++) {
     for (int bcol = 0; bcol < C.real_bw; bcol++) {
+      if (!br.exhausted()) *good = brow / C.v;
       if (ri && togo == 0) {
-        if (next_rst >= us.rst_off.size()) return -1;
-        br.init(us, us.rst_off[next_rst++]);
+        if (!restart(br, us, &next_rst)) return -1;
         eobrun = 0;
         togo = ri;
       }
@@ -1855,20 +1913,21 @@ int prog_ac_first(const Parser& ps, ProgComp& C, int scan_slot,
 // AC refinement scan (ah > 0), single component, band [ss, se].
 // Mirrors T.81 G.2 / the classic decode_mcu_AC_refine control flow.
 int prog_ac_refine(const Parser& ps, ProgComp& C, int scan_slot,
-                   const Unstuffed& us, int row_end) {
+                   const Unstuffed& us, int row_end, int* good) {
   BitRd br;
   br.init(us, 0);
   size_t next_rst = 0;
   int ri = ps.ri, togo = ri;
   const HuffTbl* act = &ps.htac[ps.scan_ta[scan_slot]];
+  if (!act->valid) return -1;  // no such table
   const int ss = ps.ss, se = ps.se, al = ps.al;
   const short p1 = (short)(1 << al), m1 = (short)(-(1 << al));
   long eobrun = 0;
   for (int brow = 0; brow < row_end; brow++) {
     for (int bcol = 0; bcol < C.real_bw; bcol++) {
+      if (!br.exhausted()) *good = brow / C.v;
       if (ri && togo == 0) {
-        if (next_rst >= us.rst_off.size()) return -1;
-        br.init(us, us.rst_off[next_rst++]);
+        if (!restart(br, us, &next_rst)) return -1;
         eobrun = 0;
         togo = ri;
       }
@@ -1947,21 +2006,25 @@ int read_frame(Parser& ps, JpegFull* f) {
   int rc = ps.parse();
   if (rc != 0) return rc;
   if (ps.prec != 8 || ps.H <= 0 || ps.W <= 0) return 1;
-  if (ps.ncomp != 1 && ps.ncomp != 3) return 1;  // CMYK/YCCK and others
   const int nc = ps.ncomp;
-  if (nc == 3) {
-    // libjpeg's colour-space guess (jdapimin.c default_decompress_parms)
-    bool rgb = !ps.jfif && (ps.adobe >= 0 ? ps.adobe == 0
-                                          : (ps.comp[0].id == 82 && ps.comp[1].id == 71 &&
-                                             ps.comp[2].id == 66));
-    if (rgb) return 1;
-    for (int i = 1; i < 3; i++)
-      if (ps.comp[i].h != 1 || ps.comp[i].v != 1) return 1;
-    if (ps.comp[0].h > 2 || ps.comp[0].v > 2) return 1;
+  // libjpeg's colour-space guess (jdapimin.c default_decompress_parms)
+  int color = kUnknown;
+  if (nc == 1) {
+    color = kGray;
+  } else if (nc == 3) {
+    if (ps.jfif)
+      color = kYCbCr;
+    else if (ps.adobe >= 0)
+      color = ps.adobe == 0 ? kRGB : kYCbCr;
+    else
+      color = ps.comp[0].id == 82 && ps.comp[1].id == 71 && ps.comp[2].id == 66 ? kRGB : kYCbCr;
+  } else if (nc == 4) {
+    color = ps.adobe > 0 ? kYCCK : kCMYK;  // Adobe transform 0 or no marker: CMYK
   }
   f->H = ps.H;
   f->W = ps.W;
   f->ncomp = nc;
+  f->color = color;
   f->progressive = ps.progressive;
   int hmax = 1, vmax = 1;
   for (int i = 0; i < nc; i++) {
@@ -1979,6 +2042,23 @@ int read_frame(Parser& ps, JpegFull* f) {
   return 0;
 }
 
+// libjpeg's checks of a progressive scan's parameters (jdphuff.c
+// start_pass_phuff_decoder: an error, not a warning) and its update of the
+// progression status of coefficients 0-9 of each component in the scan.
+bool prog_scan_start(const Parser& ps, JpegFull* f) {
+  const bool dc = ps.ss == 0;
+  if (dc ? ps.se != 0 : (ps.ss > ps.se || ps.se > 63 || ps.ns != 1)) return false;
+  if ((ps.ah != 0 && ps.al != ps.ah - 1) || ps.al > 13) return false;
+  f->nscans++;
+  for (int s = 0; s < ps.ns; s++) {
+    const int c = ps.scan_comp[s];
+    for (int k = std::min(ps.ss, 1); k <= std::min(std::max(ps.se, 9), 9); k++)
+      f->prev_bits[c][k] = f->nscans > 1 ? f->coef_bits[c][k] : 0;
+    for (int k = ps.ss; k <= std::min(ps.se, 9); k++) f->coef_bits[c][k] = ps.al;
+  }
+  return true;
+}
+
 }  // namespace
 
 int jpeg_read_header(const uint8_t* data, size_t len, JpegFull* f) {
@@ -1994,6 +2074,11 @@ int jpeg_read_full(const uint8_t* data, size_t len, JpegFull* f) {
   const int mcus_x = (ps.W + 8 * hmax - 1) / (8 * hmax);
   const int mcus_y = (ps.H + 8 * vmax - 1) / (8 * vmax);
   for (int i = 0; i < nc; i++) f->coef[i].assign((size_t)f->bh[i] * f->bw[i] * 64, 0);
+  for (int i = 0; i < 4; i++)
+    for (int k = 0; k < 10; k++) f->coef_bits[i][k] = f->prev_bits[i][k] = -1;
+  f->nscans = 0;
+  f->last_good_row = mcus_y - 1;
+  f->eoi = false;
   // zigzag index -> slot of the AC store, which starts at coefficient 1 of
   // the block: natural index - 1
   signed char zmap[64];
@@ -2001,10 +2086,11 @@ int jpeg_read_full(const uint8_t* data, size_t len, JpegFull* f) {
 
   if (!ps.progressive) {
     for (;;) {
-      if (ps.ss != 0 || ps.se != 63 || ps.ah != 0 || ps.al != 0) return -1;
       const bool single = ps.ns == 1;
-      if (!single && ps.ns != nc) return 1;  // partly interleaved scans
-      CompStateT<short> cs[3];
+      int blocks = 0;
+      for (int s = 0; s < ps.ns; s++) blocks += f->h[ps.scan_comp[s]] * f->v[ps.scan_comp[s]];
+      if (!single && blocks > 10) return -1;  // libjpeg's D_MAX_BLOCKS_IN_MCU
+      CompStateT<short> cs[4];
       for (int s = 0; s < ps.ns; s++) {
         const int i = ps.scan_comp[s], td = ps.scan_td[s], ta = ps.scan_ta[s];
         if (!ps.htdc[td].valid || !ps.htac[ta].valid || !ps.fdc[td] || !ps.fac[ta]) return -1;
@@ -2023,11 +2109,13 @@ int jpeg_read_full(const uint8_t* data, size_t len, JpegFull* f) {
       // a stream that ends before EOI ends here, as libjpeg's inserted EOI does
       if (end == nullptr || end >= data + len) break;
       const uint8_t* prev = ps.scan_start;
-      if (ps.parse_next_scan(end) != 0 || ps.saw_eoi || ps.scan_start <= prev) break;
+      const int pr = ps.parse_next_scan(end);
+      if (pr == -1) return -1;
+      if (pr != 0 || ps.saw_eoi || ps.scan_start <= prev) break;
     }
   } else {
-    ProgComp pc[3];
-    std::vector<short> zz[3];
+    ProgComp pc[4];
+    std::vector<short> zz[4];
     for (int i = 0; i < nc; i++) {
       ProgComp& C = pc[i];
       C.h = f->h[i];
@@ -2042,25 +2130,30 @@ int jpeg_read_full(const uint8_t* data, size_t len, JpegFull* f) {
     }
     thread_local Unstuffed tl_fus;
     for (;;) {
+      if (!prog_scan_start(ps, f)) return -1;
+      for (int s = 0; s < ps.ns; s++)
+        if (ps.ss == 0 ? ps.ah == 0 && !ps.htdc[ps.scan_td[s]].valid
+                       : !ps.htac[ps.scan_ta[s]].valid)
+          return -1;
       const uint8_t* cursor = ps.scan_start;
       unstuff_scan(cursor, data + len, &tl_fus);
       int idx[4];
       for (int s = 0; s < ps.ns; s++) idx[s] = ps.scan_comp[s];
-      int r2;
+      int r2, good = 0;
       if (ps.ss == 0) {
-        if (ps.se != 0) return -1;
         r2 = prog_dc_scan(ps, pc, idx, ps.ns, tl_fus, mcus_x,
-                          ps.ns == 1 ? pc[idx[0]].rows_dec : mcus_y);
+                          ps.ns == 1 ? pc[idx[0]].rows_dec : mcus_y, &good);
       } else {
-        if (ps.ns != 1 || ps.se > 63 || ps.ss > ps.se) return -1;
         ProgComp& C = pc[idx[0]];
-        r2 = ps.ah == 0 ? prog_ac_first(ps, C, 0, tl_fus, C.rows_dec)
-                        : prog_ac_refine(ps, C, 0, tl_fus, C.rows_dec);
+        r2 = ps.ah == 0 ? prog_ac_first(ps, C, 0, tl_fus, C.rows_dec, &good)
+                        : prog_ac_refine(ps, C, 0, tl_fus, C.rows_dec, &good);
       }
+      f->last_good_row = good;
       // a scan that breaks off keeps what it decoded, and the stream ends
       if (r2 != 0 || tl_fus.in_end >= data + len) break;
-      if (ps.parse_next_scan(tl_fus.in_end) != 0 || ps.saw_eoi || ps.scan_start <= cursor)
-        break;
+      const int pr = ps.parse_next_scan(tl_fus.in_end);
+      if (pr == -1) return -1;
+      if (pr != 0 || ps.saw_eoi || ps.scan_start <= cursor) break;
     }
     for (int i = 0; i < nc; i++) {
       short* dst = f->coef[i].data();
@@ -2076,6 +2169,7 @@ int jpeg_read_full(const uint8_t* data, size_t len, JpegFull* f) {
     if (!ps.qok[ps.comp[i].tq]) return -1;
     std::memcpy(f->q[i], ps.qt[ps.comp[i].tq], sizeof(f->q[i]));
   }
+  f->eoi = ps.saw_eoi;
   return 0;
 }
 
@@ -2096,6 +2190,7 @@ int dali_tpu_torch_jpeg_full_read_coeffs_split_crop(
   dali_tpu_torch::JpegFull f;
   int rc = dali_tpu_torch::jpeg_read_full(reinterpret_cast<const uint8_t*>(data), len, &f);
   if (rc != 0) return rc;
+  if (!f.wire_form()) return 1;
   short* dcs[3] = {y_dc, cb_dc, cr_dc};
   signed char* acs[3] = {y_ac, cb_ac, cr_ac};
   for (int c = 0; c < 3; c++) {
@@ -2347,6 +2442,7 @@ int dali_tpu_jpeg_huff_progressive_read_coeffs_split_crop(
   // Pass 2: decode the kept scans in order
   const uint8_t* cursor = ps.scan_start;
   size_t si = 0;
+  int good = 0;  // unused here: the wire applies no block smoothing
   for (;;) {
     unstuff_scan(cursor, data + len, &tl_pus);
     if (si >= heads.size()) return 1;
@@ -2357,13 +2453,13 @@ int dali_tpu_jpeg_huff_progressive_read_coeffs_split_crop(
     if (decode_this) {
       if (ps.ss == 0) {
         int my_end = ps.ns == 1 ? pc[idx[0]].rows_dec : stop_my;
-        if (prog_dc_scan(ps, pc, idx, ps.ns, tl_pus, mcus_x, my_end) != 0)
+        if (prog_dc_scan(ps, pc, idx, ps.ns, tl_pus, mcus_x, my_end, &good) != 0)
           return 1;
       } else {
         ProgComp& C = pc[idx[0]];
         int r2 = (ps.ah == 0)
-                     ? prog_ac_first(ps, C, 0, tl_pus, C.rows_dec)
-                     : prog_ac_refine(ps, C, 0, tl_pus, C.rows_dec);
+                     ? prog_ac_first(ps, C, 0, tl_pus, C.rows_dec, &good)
+                     : prog_ac_refine(ps, C, 0, tl_pus, C.rows_dec, &good);
         if (r2 != 0) return 1;
       }
     }

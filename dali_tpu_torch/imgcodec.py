@@ -1,27 +1,39 @@
 """Image codec layer: header peeks and decode (counterpart of
 ``dali_tpu/imgcodec.py``).
 
-JPEG decodes through the port's libjpeg-free C++ decoder
-(``native.decode_jpeg``, ``csrc/host/jpeg_decode.cc``), uint8-equal to
-libjpeg-turbo's ``JDCT_ISLOW`` output, which is what the reference decodes
-with. The reference falls back to cv2 and PIL for every other format; the
-port has neither, so a non-JPEG input raises ``NotImplementedError``. The
-header peeks (JPEG SOF, PNG IHDR, BMP, GIF, WebP) are pure Python, as in the
-reference.
+The reference decodes each sample along one of two routes, and the port
+gives each route's output without either library:
+
+* libjpeg-turbo (``dali_tpu.native``) for the JPEGs it gives as RGB or grey:
+  the port's libjpeg-free C++ decoder (``native.decode_jpeg_routed``,
+  ``csrc/host/jpeg_decode.cc``), uint8-equal to its ``JDCT_ISLOW`` output;
+* ``cv2.imdecode`` for everything else it reads: CMYK and YCCK JPEGs (the
+  same C++ decoder reports this route and gives OpenCV's CMYK conversion),
+  PNG (chunks and zlib inflate here, pixels in ``csrc/host/png_decode.cc``)
+  and BMP (``csrc/host/bmp_decode.cc``). On this route GRAY is cv2's
+  ``IMREAD_GRAYSCALE``, 16-bit PNG samples stay 16-bit until the dtype
+  conversion, ``denom`` applies to JPEG only, and the EXIF orientation that
+  cv2 applies itself (JPEG APP1, PNG eXIf) is applied.
+
+GIF, TIFF, WebP and the other formats cv2 reads raise ``NotImplementedError``.
+The header peeks (JPEG SOF, PNG IHDR, BMP, GIF, WebP) are pure Python, as in
+the reference.
 """
 
 from __future__ import annotations
 
 import struct
+import zlib
 
 import numpy as np
 
 from . import native
 from .types import DALIDataType, DALIImageType, to_numpy_type
 
-NOT_JPEG = ("only JPEG decodes in dali_tpu_torch; PNG, BMP, GIF, WebP, TIFF and the other "
+NOT_JPEG = ("only JPEG, PNG and BMP decode in dali_tpu_torch; GIF, TIFF, WebP and the other "
             "formats the reference decodes through cv2/PIL are not ported (see ROADMAP.md, "
-            "Queue 1 item 1d)")
+            "Queue 1 items 1c-1e)")
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def exif_orientation(data) -> int:
@@ -44,28 +56,33 @@ def exif_orientation(data) -> int:
             return 1
         seg_len = (data[pos + 2] << 8) | data[pos + 3]
         if marker == 0xE1 and data[pos + 4:pos + 10] == b"Exif\x00\x00":
-            tiff = pos + 10
-            if tiff + 8 > n:
-                return 1
-            order = {b"II": "little", b"MM": "big"}.get(bytes(data[tiff:tiff + 2]))
-            if order is None:
-                return 1
-
-            def u16(o):
-                return int.from_bytes(data[o:o + 2], order)
-
-            ifd = tiff + int.from_bytes(data[tiff + 4:tiff + 8], order)
-            if ifd + 2 > n:
-                return 1
-            for i in range(u16(ifd)):
-                e = ifd + 2 + 12 * i
-                if e + 12 > n:
-                    return 1
-                if u16(e) == 0x0112:
-                    v = u16(e + 8)
-                    return v if 1 <= v <= 8 else 1
-            return 1
+            return _tiff_orientation(data, pos + 10)
         pos += 2 + seg_len
+    return 1
+
+
+def _tiff_orientation(data, tiff) -> int:
+    """The orientation tag of the TIFF structure at ``tiff`` (EXIF), or 1."""
+    n = len(data)
+    if tiff + 8 > n:
+        return 1
+    order = {b"II": "little", b"MM": "big"}.get(bytes(data[tiff:tiff + 2]))
+    if order is None:
+        return 1
+
+    def u16(o):
+        return int.from_bytes(data[o:o + 2], order)
+
+    ifd = tiff + int.from_bytes(data[tiff + 4:tiff + 8], order)
+    if ifd + 2 > n:
+        return 1
+    for i in range(u16(ifd)):
+        e = ifd + 2 + 12 * i
+        if e + 12 > n:
+            return 1
+        if u16(e) == 0x0112:
+            v = u16(e + 8)
+            return v if 1 <= v <= 8 else 1
     return 1
 
 
@@ -125,6 +142,12 @@ def decode(data: bytes, output_type=DALIImageType.RGB, denom: int = 1,
         raise NotImplementedError(
             "JPEG 2000 decode is not supported (the reference delegates to the proprietary "
             "nvJPEG2000)")
+    gray = output_type == DALIImageType.GRAY
+    if is_png(data):
+        return cv2_route_output(*decode_png(data, gray), output_type, dtype)
+    if is_bmp(data):
+        _check_size(*native.bmp_shape(data))
+        return cv2_route_output(native.decode_bmp(data, gray), 1, output_type, dtype)
     if not is_jpeg(data):
         raise NotImplementedError(NOT_JPEG)
     if adjust_orientation:
@@ -133,10 +156,92 @@ def decode(data: bytes, output_type=DALIImageType.RGB, denom: int = 1,
             img = decode(data, output_type, denom, adjust_orientation=False,
                          fancy_upsampling=fancy_upsampling, dtype=dtype)
             return np.ascontiguousarray(apply_orientation(img, o))
-    if output_type == DALIImageType.GRAY:
-        return _convert_dtype(native.decode_jpeg(data, denom, fancy_upsampling, gray=True), dtype)
-    img = native.decode_jpeg(data, denom, fancy_upsampling)
+    img, route = native.decode_jpeg_routed(data, denom, fancy_upsampling, gray)
+    if route == native.ROUTE_CV2:
+        return cv2_route_output(img, exif_orientation(data), output_type, dtype)
+    if gray:
+        return _convert_dtype(img, dtype)
     return _convert_dtype(_convert_from_rgb(img, output_type), dtype)
+
+
+def cv2_route_output(img, orientation, output_type, dtype):
+    """The reference's output for a sample decoded by cv2.imdecode: ``img``
+    is what cv2 decoded (RGB, or one channel for GRAY) before the EXIF
+    orientation cv2 applies itself."""
+    img = apply_orientation(img, orientation)
+    if output_type == DALIImageType.GRAY:
+        return np.ascontiguousarray(_convert_dtype(img, dtype))
+    if output_type == DALIImageType.BGR:
+        return np.ascontiguousarray(_convert_dtype(img[:, :, ::-1], dtype))
+    if output_type == DALIImageType.YCbCr:
+        # YCbCr is defined on the 8-bit range: narrow first, then widen
+        return _convert_dtype(_rgb_to_ycbcr(_convert_dtype(img, None)), dtype)
+    return np.ascontiguousarray(_convert_dtype(img, dtype))
+
+
+def decode_png(data, gray=False):
+    """(pixels, EXIF orientation) of a PNG as cv2.imdecode reads it with
+    IMREAD_ANYDEPTH: HWC RGB or one grey channel, uint16 for 16-bit images.
+    The chunk walk follows libpng: a bad CRC fails a critical chunk and
+    drops an ancillary one; the stream must reach IEND."""
+    d = memoryview(data)
+    pos, hdr, plte, idat, gamma, srgb, orient, sbit = 8, None, b"", [], 0, False, 1, b""
+    while True:
+        if pos + 12 > len(d):
+            raise ValueError("PNG decode failed: the stream ends before IEND")
+        n = int.from_bytes(d[pos:pos + 4], "big")
+        kind = bytes(d[pos + 4:pos + 8])
+        body = d[pos + 8:pos + 8 + n]
+        if pos + 12 + n > len(d):
+            raise ValueError("PNG decode failed: the stream ends before IEND")
+        crc = int.from_bytes(d[pos + 8 + n:pos + 12 + n], "big")
+        pos += 12 + n
+        if zlib.crc32(kind + body) != crc:
+            if kind[0] & 0x20:  # ancillary: libpng warns and drops it
+                continue
+            raise ValueError(f"PNG decode failed: CRC error in {kind.decode('latin-1')}")
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body[:13])
+        elif kind == b"PLTE":
+            plte = bytes(body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"gAMA" and n == 4:
+            g = int.from_bytes(body, "big")
+            gamma = g if 16 <= g <= 625000000 else gamma
+        elif kind == b"sRGB":
+            srgb = True
+        elif kind == b"sBIT":
+            sbit = bytes(body)
+        elif kind == b"eXIf":
+            orient = _tiff_orientation(bytes(body), 0)
+        elif kind == b"IEND":
+            break
+    if hdr is None or not idat:
+        raise ValueError("PNG decode failed: no IHDR or no IDAT")
+    w, h, bit_depth, color_type, _, _, interlace = hdr
+    _check_size(h, w)
+    if (bit_depth, color_type) not in _PNG_FORMS or interlace > 1 or (color_type == 3
+                                                                       and not plte):
+        raise ValueError("PNG decode failed: invalid IHDR")
+    try:
+        raw = zlib.decompressobj().decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"PNG decode failed: {e}") from None
+    # libpng's 16-bit gamma tables keep the precision sBIT gives the colour
+    sig_bit = max(sbit[:3]) if color_type in (2, 6) and len(sbit) >= 3 else 0
+    return native.png_decode(raw, w, h, bit_depth, color_type, interlace, plte,
+                             45455 if srgb else gamma, sig_bit, gray), orient
+
+
+def _check_size(h, w):
+    """OpenCV's limits on a decoded image (validateInputImageSize)."""
+    if not (0 < w <= 1 << 20 and 0 < h <= 1 << 20 and w * h <= 1 << 30):
+        raise ValueError(f"image size {h}x{w} exceeds cv2.imdecode's limits")
+
+
+_PNG_FORMS = {(b, 0) for b in (1, 2, 4, 8, 16)} | {(8, 2), (16, 2), (8, 4), (16, 4), (8, 6),
+                                                    (16, 6)} | {(b, 3) for b in (1, 2, 4, 8)}
 
 
 def _convert_from_rgb(rgb: np.ndarray, output_type) -> np.ndarray:
@@ -168,11 +273,19 @@ def is_jpeg(data: bytes) -> bool:
     return len(data) > 3 and data[0] == 0xFF and data[1] == 0xD8
 
 
+def is_png(data: bytes) -> bool:
+    return bytes(data[:8]) == PNG_SIGNATURE
+
+
+def is_bmp(data: bytes) -> bool:
+    return bytes(data[:2]) == b"BM"
+
+
 def peek_shape(data: bytes):
     """(h, w, c) from the header without a full decode."""
     if is_jpeg(data):
         return _peek_jpeg(data)
-    if data[:8] == b"\x89PNG\r\n\x1a\n":
+    if is_png(data):
         w, h = struct.unpack(">II", data[16:24])
         c = {0: 1, 2: 3, 3: 3, 4: 2, 6: 4}.get(data[25], 3)
         return h, w, c

@@ -10,7 +10,11 @@
   (counterpart of ``dali_tpu.native.jpeg_read_coeffs``), and
   ``jpeg_scaled_dims`` / ``decode_jpeg`` / ``decode_jpeg_batch`` — the
   libjpeg-free pixel decode (``csrc/host/jpeg_decode.cc``), uint8 equal to
-  libjpeg-turbo's ``JDCT_ISLOW`` output.
+  libjpeg-turbo's ``JDCT_ISLOW`` output, or for CMYK/YCCK streams to the
+  reference's cv2 route.
+* ``png_decode`` and ``bmp_shape`` / ``decode_bmp`` — the PNG and BMP pixel
+  stages (``csrc/host/png_decode.cc``, ``bmp_decode.cc``), uint8/uint16
+  equal to ``cv2.imdecode``.
 """
 
 from __future__ import annotations
@@ -65,6 +69,14 @@ def host_lib():
             lib.dali_tpu_torch_decode_jpeg_batch.argtypes = [
                 vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t), ip, sp,
                 lp, ip, ip, ci, ci, ci, ip]
+            u8p, sz = ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t
+            lib.dali_tpu_torch_png_decode.restype = ci
+            lib.dali_tpu_torch_png_decode.argtypes = [u8p, sz, ci, ci, ci, ci, ci, u8p, ci, ci,
+                                                      ci, ci, vp]
+            lib.dali_tpu_torch_bmp_info.restype = ci
+            lib.dali_tpu_torch_bmp_info.argtypes = [u8p, sz, ip, ip]
+            lib.dali_tpu_torch_bmp_decode.restype = ci
+            lib.dali_tpu_torch_bmp_decode.argtypes = [u8p, sz, ci, vp]
             lib.dali_tpu_pack_wire.restype = None
             lib.dali_tpu_pack_wire.argtypes = [vp, vp, ll, ci, vp, ll, ci, vp, vp, ll, ll,
                                                vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, llp]
@@ -328,16 +340,23 @@ def pack_wire2(pool: TaskPool, y_vals, y_nnz, c_vals, c_nnz, y_dc, c_dc, ny_bloc
 
 # ------------------------------------------------------------------ int16 read and pixel decode
 UNSUPPORTED_JPEG = (
-    "this JPEG is not read by dali_tpu_torch's libjpeg-free decoder (12-bit, arithmetic or "
-    "lossless coding, CMYK/YCCK or RGB colour, or a sampling other than 4:4:4, 4:2:2, 4:2:0 "
-    "and 4:4:0); see ROADMAP.md (Queue 1 item 1e)")
+    "this JPEG is not read by dali_tpu_torch's libjpeg-free decoder: arithmetic coding "
+    "(ROADMAP.md, Queue 1 item 1a), or 12-bit precision or lossless coding (item 1b)")
+
+# Codes of a decoded sample from ``decode_jpeg_batch``: the route the
+# reference takes for it. libjpeg decodes the stream, or (CMYK and YCCK, which
+# libjpeg will not give as RGB or grey) it falls back to cv2.imdecode; the
+# port's output is that route's.
+ROUTE_LIBJPEG = 0
+ROUTE_CV2 = 2
 
 
 def _raise_rc(rcs, what):
-    """Raise for the first sample whose return code is not 0: 1 (a stream
-    the reader does not take) raises NotImplementedError, anything else
-    (corrupt) ValueError, as libjpeg's error exit makes the reference fail."""
-    bad = [i for i, rc in enumerate(rcs) if rc != 0]
+    """Raise for the first sample whose return code is not a decoded one: 1
+    (a stream the reader does not take) raises NotImplementedError, anything
+    else (corrupt) ValueError, as libjpeg's error exit makes the reference
+    fail."""
+    bad = [i for i, rc in enumerate(rcs) if rc not in (ROUTE_LIBJPEG, ROUTE_CV2)]
     if not bad:
         return
     if any(rcs[i] == 1 for i in bad):
@@ -424,7 +443,9 @@ def decode_jpeg_batch(pool, datas, dsts, denoms, heights, widths, fancy=True, gr
     """Decode a batch of JPEGs with one native call, each into the top left
     of its destination view ``dsts[i]`` (uint8 [>=h, >=w, 3] or, with
     ``gray``, [>=h, >=w, 1]; rows may be strided, pixels contiguous).
-    Raises for a sample that does not decode."""
+    Returns each sample's code: ``ROUTE_LIBJPEG`` or ``ROUTE_CV2`` when it
+    decoded, 1 for a form the decoder does not read, -1 for a corrupt
+    stream; the caller decides what a failed sample raises."""
     n = len(datas)
     if any(int(d) not in (1, 2, 4, 8) for d in denoms):
         raise ValueError(f"JPEG scale denominators must be 1, 2, 4 or 8 (got {list(denoms)})")
@@ -443,15 +464,71 @@ def decode_jpeg_batch(pool, datas, dsts, denoms, heights, widths, fancy=True, gr
         ci(*[int(v) for v in widths]), 1 if fancy else 0, 1 if gray else 0, n, rcs)
     if any(rc == -2 for rc in rcs):
         raise ValueError("decode_jpeg_batch: decoded size differs from the expected size")
-    _raise_rc(list(rcs), "JPEG decode")
     del arrs
+    return list(rcs)
+
+
+def decode_jpeg_routed(data, denom: int = 1, fancy_upsampling: bool = True, gray: bool = False):
+    """(image, code): one JPEG to HWC uint8, RGB or (``gray``) one channel,
+    at 1/denom scale, with the route it took (``ROUTE_LIBJPEG`` or
+    ``ROUTE_CV2``). Raises for a stream that does not decode."""
+    h, w, _ = jpeg_scaled_dims(data, denom)
+    out = np.empty((h, w, 1 if gray else 3), np.uint8)
+    rcs = decode_jpeg_batch(None, [data], [out], [denom], [h], [w], fancy_upsampling, gray)
+    _raise_rc(rcs, "JPEG decode")
+    return out, rcs[0]
 
 
 def decode_jpeg(data, denom: int = 1, fancy_upsampling: bool = True, gray: bool = False):
     """One JPEG to HWC uint8, RGB or (``gray``) one channel, at 1/denom scale
     (counterpart of ``dali_tpu.native.decode_jpeg``, which returns None where
-    this raises)."""
-    h, w, _ = jpeg_scaled_dims(data, denom)
+    this raises, and None for CMYK/YCCK streams, which this decodes as the
+    reference's cv2 route does)."""
+    return decode_jpeg_routed(data, denom, fancy_upsampling, gray)[0]
+
+
+# ------------------------------------------------------------------ PNG and BMP pixels
+def _u8(a):
+    a = np.ascontiguousarray(np.frombuffer(a, np.uint8) if isinstance(a, (bytes, bytearray))
+                             else a).view(np.uint8).reshape(-1)
+    return a, a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def png_decode(raw, w, h, bit_depth, color_type, interlace, plte=b"", gamma=0, sig_bit=0,
+               gray=False):
+    """The pixels of a PNG from its inflated IDAT stream (``png_decode.cc``):
+    HWC RGB or (``gray``) one channel, uint16 for a 16-bit image, else uint8,
+    as cv2.imdecode gives them (channel order aside). ``plte``: the PLTE
+    bytes; ``gamma``: the file gamma in 1/100000 (gAMA, or sRGB's), 0 if none;
+    ``sig_bit``: the largest colour sBIT value, 0 if none. Raises ValueError
+    where libpng fails."""
+    raw, rawp = _u8(raw)
+    pal, palp = _u8(plte or b"\0")
+    out = np.empty((h, w, 1 if gray else 3), np.uint16 if bit_depth == 16 else np.uint8)
+    rc = host_lib().dali_tpu_torch_png_decode(
+        rawp, raw.nbytes, int(w), int(h), int(bit_depth), int(color_type), int(interlace), palp,
+        len(plte) // 3, int(gamma), int(sig_bit), 1 if gray else 0, out.ctypes.data)
+    if rc != 0:
+        raise ValueError("PNG decode failed: not enough image data or a bad filter type")
+    return out
+
+
+def bmp_shape(data):
+    """(h, w) of a BMP as OpenCV reads it; ValueError for a header it rejects."""
+    arr, p = _u8(data)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    if host_lib().dali_tpu_torch_bmp_info(p, arr.nbytes, ctypes.byref(h), ctypes.byref(w)) != 0:
+        raise ValueError("BMP decode failed: unsupported or corrupt header")
+    return h.value, w.value
+
+
+def decode_bmp(data, gray=False):
+    """One BMP to HWC uint8, RGB or (``gray``) one channel, as cv2.imdecode
+    gives it (channel order aside; ``bmp_decode.cc``). Raises ValueError where
+    OpenCV's reader fails."""
+    h, w = bmp_shape(data)
+    arr, p = _u8(data)
     out = np.empty((h, w, 1 if gray else 3), np.uint8)
-    decode_jpeg_batch(None, [data], [out], [denom], [h], [w], fancy_upsampling, gray)
+    if host_lib().dali_tpu_torch_bmp_decode(p, arr.nbytes, 1 if gray else 0, out.ctypes.data) != 0:
+        raise ValueError("BMP decode failed: corrupt or truncated pixel data")
     return out

@@ -3,8 +3,9 @@
 * ``build/libdali_tpu_torch_host.so`` — the host half of JPEG decode, all
   libjpeg-free C++ in ``csrc/host/``: the entropy decoder (``jpeg_huff.cc``,
   int8 and int16 coefficient stores), the wire packer (``sparse_pack.cc``),
-  the task pool (``tasking.cc``), the pixel decoder (``jpeg_decode.cc``) and
-  the batch entries ``coef_{pack,dense}_batch.cc``. g++ with
+  the task pool (``tasking.cc``), the pixel decoders (``jpeg_decode.cc``,
+  ``png_decode.cc``, ``bmp_decode.cc``) and the batch entries
+  ``coef_{pack,dense,full}_batch.cc``. g++ with
   ``-march=native``: compiled on the machine that runs it, never shipped.
 * ``build/libdali_tpu_torch_kernels.so`` — the CUDA kernels (``csrc/*.cu``),
   nvcc for ``sm_90a``, a plain C interface loaded with ctypes.
@@ -36,7 +37,8 @@ _HOST_SRC = os.path.join(_PKG, "csrc", "host")
 
 HOST_SOURCES = [os.path.join(_HOST_SRC, f) for f in (
     "jpeg_huff.cc", "sparse_pack.cc", "tasking.cc", "coef_pack_batch.cc",
-    "coef_dense_batch.cc", "coef_full_batch.cc", "jpeg_decode.cc")]
+    "coef_dense_batch.cc", "coef_full_batch.cc", "jpeg_decode.cc", "png_decode.cc",
+    "bmp_decode.cc")]
 # headers the host sources include: hashed into the stamp, not compiled
 HOST_HEADERS = [os.path.join(_HOST_SRC, "jpeg_full.h")]
 KERNEL_SOURCES = [os.path.join(_PKG, "csrc", "cmn.cu")]

@@ -515,15 +515,14 @@ def test_unported_image_paths_raise_on_card(card):
         finally:
             pipe.shutdown()
 
-    # a PNG signature and IHDR: not JPEG; a JPEG whose frame is 12-bit
-    png = b"\x89PNG\r\n\x1a\n" + b"\x00\x00\x00\rIHDR" + bytes(17)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1d"):
-        run(png, device="mixed")
+    # a GIF signature: a format not ported; a JPEG whose frame is 12-bit
+    with pytest.raises(NotImplementedError, match=r"Queue 1 items 1c-1e"):
+        run(b"GIF89a" + bytes(26), device="mixed")
     first = open(sorted(os.path.join(r, f) for r, _, fs in os.walk(CORPUS) for f in fs)[0],
                  "rb").read()
     sof = first.index(b"\xff\xc0")
     twelve_bit = first[:sof + 4] + b"\x0c" + first[sof + 5:]
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1e"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1a\), or 12-bit"):
         run(twelve_bit, device="mixed")
     with pytest.raises(NotImplementedError, match=r"Queue 1 item 5h"):
         build(lambda j: fn.random_resized_crop(j, size=[8, 8]))
@@ -576,10 +575,10 @@ def test_host_decoders_and_int16_wire_on_card_match_cpu(card):
                 assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= MAX_FLIP_FRACTION
 
 
-def _host_recipe(device, recipe):
+def _host_recipe(device, recipe, root=CORPUS):
     @pipeline_def(batch_size=16, num_threads=2, seed=42, device=device)
     def p():
-        jpegs, labels = fn.readers.file(file_root=CORPUS, random_shuffle=True, name="Reader",
+        jpegs, labels = fn.readers.file(file_root=root, random_shuffle=True, name="Reader",
                                         seed=1234)
         if recipe == "rn50_host_decode":
             images = fn.decoders.image_random_crop(
@@ -612,6 +611,70 @@ def test_host_decode_recipes_on_card_match_cpu(card, recipe):
     for (g_img, g_lab), (c_img, c_lab) in zip(on_card, _host_recipe("cpu", recipe)):
         assert g_img.is_cuda and g_img.dtype == torch.float32
         assert tuple(g_img.shape) == (16, 3, 224, 224)
+        np.testing.assert_array_equal(g_lab, c_lab)
+        diff = (g_img.cpu() - c_img).abs()
+        assert float(diff.max()) <= LSB
+        assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+
+
+# -- every image form an ImageNet-like corpus holds, decoded on the host ------------------------
+CODECS = os.path.join(os.path.dirname(__file__), "..", "dali_tpu_torch", "testdata", "codecs")
+
+
+def _mixed_root(tmp_path):
+    """Five corpus JPEGs and every committed image-form fixture (CMYK, YCCK,
+    RGB-colour, 4:1:1 and h=4 JPEGs, partly interleaved scans, a cut
+    progressive JPEG, PNGs, BMPs) in one class folder."""
+    d = tmp_path / "c"
+    d.mkdir()
+    files = sorted(os.path.join(CORPUS, c, f) for c in sorted(os.listdir(CORPUS))
+                   for f in sorted(os.listdir(os.path.join(CORPUS, c))))[:5]
+    for path in files + [os.path.join(CODECS, f) for f in sorted(os.listdir(CODECS))]:
+        with open(path, "rb") as src:
+            (d / os.path.basename(path)).write_bytes(src.read())
+    return str(tmp_path)
+
+
+def _mixed_decoders(device, root, op):
+    @pipeline_def(batch_size=9, num_threads=2, seed=42, device=device)
+    def p():
+        jpegs, labels = fn.readers.file(file_root=root, random_shuffle=True, name="Reader",
+                                        seed=1234)
+        if op == "image":
+            return fn.decoders.image(jpegs, device="mixed"), labels
+        return fn.decoders.image_random_crop(jpegs, device="mixed", seed=3), labels
+
+    pipe = p()
+    pipe.build()
+    try:
+        return [(r[0].as_tensor(), r[0].shape()) for r in (pipe.run() for _ in range(2))]
+    finally:
+        pipe.shutdown()
+
+
+@pytest.mark.parametrize("op", ["image", "image_random_crop"])
+def test_mixed_forms_host_decode_on_card_matches_cpu(card, tmp_path, op):
+    """Batches that mix every form: the mixed decoders' device outputs are the
+    CPU run's, bit for bit, in each sample's valid region."""
+    root = _mixed_root(tmp_path)
+    for (g, g_sh), (c, c_sh) in zip(_mixed_decoders(card, root, op),
+                                    _mixed_decoders("cpu", root, op)):
+        assert g.is_cuda and g.dtype == torch.uint8 and g_sh == c_sh
+        g = torch.cat([g[i, :h, :w].reshape(-1).cpu() for i, (h, w, _) in enumerate(g_sh)])
+        c = torch.cat([c[i, :h, :w].reshape(-1) for i, (h, w, _) in enumerate(c_sh)])
+        assert torch.equal(g, c)
+
+
+def test_mixed_forms_rn50_host_decode_on_card_matches_cpu(card, tmp_path):
+    """rn50_host_decode over every form: one CMN launch per batch; labels
+    equal; images within one uint8 step / std on at most 1e-3 of values."""
+    root = _mixed_root(tmp_path)
+    before = cmn.COUNTER.launches
+    on_card = _host_recipe(card, "rn50_host_decode", root)
+    assert cmn.COUNTER.launches == before + 2
+    for (g_img, g_lab), (c_img, c_lab) in zip(on_card, _host_recipe("cpu", "rn50_host_decode",
+                                                                    root)):
+        assert g_img.is_cuda and tuple(g_img.shape) == (16, 3, 224, 224)
         np.testing.assert_array_equal(g_lab, c_lab)
         diff = (g_img.cpu() - c_img).abs()
         assert float(diff.max()) <= LSB

@@ -341,13 +341,14 @@ def test_not_ported_decoder_forms_raise():
             pipe.shutdown()
 
     img = cv2.imread(_corpus_files(1)[0])
-    # a non-JPEG input, and a JPEG sampling the libjpeg-free decoder does not read
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 1d"):
-        run(cv2.imencode(".png", img)[1].tobytes(), device="mixed")
-    s411 = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                                      cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])[1].tobytes()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md \(Queue 1 item 1e\)"):
-        run(s411, device="cpu")
+    # a format not ported, and a JPEG form the libjpeg-free decoder does not read
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 items 1c-1e"):
+        run(b"GIF89a" + bytes(26), device="mixed")
+    data = cv2.imencode(".jpg", img)[1].tobytes()
+    sof = data.index(b"\xff\xc0")
+    arithmetic = data[:sof + 1] + b"\xc9" + data[sof + 2:]
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 1a"):
+        run(arithmetic, device="cpu")
     with pytest.raises(ValueError, match="hybrid_wire"):
         build(device="mixed", hybrid_device_decode=True, hybrid_wire="int4")
     with pytest.raises(ValueError, match="device='mixed'"):

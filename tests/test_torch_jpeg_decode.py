@@ -7,15 +7,13 @@
   ``dali_tpu.native.decode_jpeg``, RGB and grayscale output, at 1/1, 1/2,
   1/4 and 1/8 scale, fancy upsampling on and off.
 
-Tolerance: none, uint8 and int16 bit-equal, except the pixels of a truncated
-progressive stream (libjpeg's block smoothing of incomplete coefficients is
-not ported, ROADMAP.md Queue 3): there the coefficients are bit-equal and the
-pixel mismatch is pinned below its measured bound. Test streams are the
-committed corpus re-encoded here with cv2 and PIL (4:4:0 and 4:1:1 through
-cv2's sampling flags), and a non-interleaved baseline stream written by a
-small Huffman encoder below."""
+Tolerance: none, uint8 and int16 bit-equal, truncated progressive streams
+included (libjpeg block-smooths their incomplete coefficients, and so does
+the port). Test streams are the committed corpus re-encoded here with cv2
+and PIL (4:4:0 and 4:1:1 through cv2's sampling flags), and a
+non-interleaved baseline stream written by a small Huffman encoder below.
+The other image forms are in ``test_torch_image_formats.py``."""
 
-import io
 import os
 
 import cv2
@@ -210,16 +208,13 @@ def test_truncated_baseline_stream_zero_fills(rst, frac):
 
 @pytest.mark.parametrize("frac", [0.3, 0.6, 0.95])
 def test_truncated_progressive_stream_bounded(frac):
-    """Coefficients bit-equal; pixels differ where libjpeg block-smooths the
-    incomplete coefficients (not ported): the measured mismatch fraction on
-    this file stays under its pinned bound, 0.97 (ROADMAP.md Queue 3)."""
+    """Coefficients and pixels bit-equal: libjpeg block-smooths the
+    coefficients an incomplete progressive stream left unknown, and so does
+    the port, at every scale and in both upsampling modes."""
     data = _encode(_base(4), "420", progressive=True)
     cut = data[:int(len(data) * frac)]
     _assert_read_equal(cut, ks=[(8, 8)])
-    want = ref_native.decode_jpeg(cut)
-    got = port_native.decode_jpeg(cut)
-    assert got.shape == want.shape
-    assert float(np.mean(got != want)) <= 0.97
+    _assert_decode_equal(cut)
 
 
 # -- a non-interleaved (one scan per component) baseline stream --------------------------------
@@ -341,15 +336,16 @@ def test_pixel_decode_non_interleaved_baseline(sampling):
 
 # -- streams the decoder does not take, the batch entry, the build ------------------------------
 def test_unsupported_streams_raise_not_implemented():
-    from PIL import Image
-
-    s411 = cv2.imencode(".jpg", _base(), [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                                          cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])[1].tobytes()
-    buf = io.BytesIO()
-    Image.new("CMYK", (16, 16), (10, 20, 30, 40)).save(buf, format="JPEG")
-    for data in (s411, buf.getvalue()):
-        with pytest.raises(NotImplementedError, match=r"Queue 1 item 1e"):
-            port_native.decode_jpeg(data)
+    """The forms still declined: arithmetic coding (SOF9), 12-bit precision
+    and lossless coding (SOF3), each patched into a corpus stream's frame."""
+    data = _encode(_base())
+    sof = data.index(b"\xff\xc0")
+    sof9 = data[:sof + 1] + b"\xc9" + data[sof + 2:]
+    twelve = data[:sof + 4] + b"\x0c" + data[sof + 5:]
+    sof3 = data[:sof + 1] + b"\xc3" + data[sof + 2:]
+    for bad, item in ((sof9, "1a"), (twelve, "1b"), (sof3, "1b")):
+        with pytest.raises(NotImplementedError, match=rf"Queue 1 item {item}|item {item}\)"):
+            port_native.decode_jpeg(bad)
     with pytest.raises(ValueError, match="corrupt"):
         port_native.decode_jpeg(_encode(_base())[:60])
 
@@ -381,3 +377,16 @@ def test_stamp_changes_with_the_source_list():
     assert build.stamp(build.HOST_SOURCES + build.HOST_HEADERS, cmd, []) != base
     assert build.stamp(list(reversed(build.HOST_SOURCES)), cmd, []) != base
     assert build.stamp(build.HOST_SOURCES, cmd + ["-g"], []) != base
+
+
+def test_progressive_scan_without_its_table_fails():
+    """A progressive scan that names a Huffman table no DHT defined: libjpeg
+    fails (JERR_NO_HUFF_TABLE), and so does the port, reading no table
+    memory that was never written."""
+    data = _encode(_base(4), "420", progressive=True)
+    dht = data.index(b"\xff\xc4")
+    assert data[dht + 4] == 0x00  # the first table: DC, slot 0
+    bad = data[:dht + 4] + b"\x03" + data[dht + 5:]  # now DC slot 3
+    assert ref_native.decode_jpeg(bad) is None
+    with pytest.raises(ValueError, match="corrupt"):
+        port_native.decode_jpeg(bad)
