@@ -104,10 +104,36 @@ on failure:
    under a ``.JPEG`` name, 16-bit and palette PNGs, 24-bit and RLE8 BMPs)
    repeated to 256 entries, so each batch holds every form; 3 warm-up + 10
    timed batches reported as phase 9, then batch 64 on the card against the
-   CPU; then the single-threaded host decode time of each form (ms/image).
+   CPU; then the single-threaded host decode time of each form (ms/image);
+14. the SSD300 detection input of ``docs/examples/ssd_detection.py`` at full
+   width (``tools/bench_ssd.py``): ``readers.coco`` over the corpus under an
+   annotation file made from seed 0 (256 entries, COCO's box-count shape;
+   ``testdata/make_coco_annotations.py``), ``random_bbox_crop``, the window
+   decoded on the host, resize 300x300, coin-flip ``bb_flip`` and mirror, CMN
+   FLOAT CHW and ``box_encoder`` on SSD300's 8,732 default boxes, batch 64
+   through ``DALIGenericIterator``, in two forms: ssd_train (the example:
+   box ops on the host; 3 warm-up + 20 timed) and ssd_device_encode (DALI's
+   upstream SSD300 recipe: mixed decode of the window, ``hsv`` and
+   ``brightness_contrast``, ``bb_flip`` and ``box_encoder`` on the card; 3 +
+   10). Each batch checked (images, dense [64, 8732, 4] float32 and [64,
+   8732] int32 encoder outputs, on the card in the second form), the exact
+   CMN launch count; images/s and its share of rn50_train's, host ms/batch
+   (also by operator schema), device wait, device ms by stage of one batch
+   alone (H2D, Resize, CMN, BoxEncoder, ...), peak device memory; then one
+   more batch with its CMN call recorded, and the kernel's output on that
+   batch ([64, 300, 300, 3] uint8 in ssd_train, float32 from
+   ``brightness_contrast`` in ssd_device_encode) held against the plain
+   version on the same arguments within 1e-5, and both timed on it beside
+   the HBM bound (the kernel alone with the L2 flushed). Then batch
+   16 on the card against the CPU: ssd_train's labels, boxes and encoded
+   outputs equal, images within one uint8 step / std on at most 1e-3 of
+   values; the card's BoxEncoder against the host encoder on the boxes it
+   received (labels equal, or each mismatch a tie, printed; boxes within
+   1e-6).
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
-each path and every form's readings) is the JSON object on the line before
+each path and every form's readings, the two SSD paths' own batches among
+them) is the JSON object on the line before
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest of
 the repository beside it, the script exits non-zero before printing either.
@@ -139,6 +165,9 @@ AMP_TIMED = 10
 RECIPE_TIMED = {"imagenet_train": 20, "rn50_val": 10, "rn50_host_decode": 20,
                 "proxy_int16_wire": 10}
 FORMS_TIMED, FORMS_CHECK_BATCH, FORMS_DECODE_REPS = 10, 64, 10
+SSD_BATCH, SSD_CHECK_BATCH = 64, 16
+SSD_TIMED = {"ssd_train": 20, "ssd_device_encode": 10}
+FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
 
@@ -817,6 +846,72 @@ def forms_phase(card, rn50_ips):
     return launches, ips
 
 
+def ssd_phase(card, rn50_ips):
+    """Phase 14: both SSD forms at batch 64, then the checks at batch 16;
+    returns the CMN launches of each form."""
+    from dali_tpu_torch.testdata.make_coco_annotations import write_annotations
+    from dali_tpu_torch.tools import bench_ssd
+
+    t_phase = time.perf_counter()
+    ann = write_annotations(os.path.join(HERE, "build", "coco_annotations.json"), 0)
+    launches, held = {}, {}
+    for form, timed in SSD_TIMED.items():
+        r = bench_ssd.measure(form, ann, SSD_BATCH, WARMUP, timed)
+        launches[form] = r["cmn_launches"]
+        stages = ", ".join(f"{k} {v:.3f}" for k, v in r["stage_ms"].items())
+        print(f"{form} batch {SSD_BATCH}: {r['images_per_s']:.1f} images/s over {timed} batches, "
+              f"{100 * r['images_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} in this "
+              f"run; host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} host "
+              f"cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; cmn "
+              f"launches {launches[form]} ({card})")
+        print(f"{form} host ms/batch by schema: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in r["host_ms_by_schema"].items() if v >= 0.05))
+        print(f"{form} stage ms of one batch alone: {stages}; peak device memory "
+              f"{r['peak_gib']:.2f} GiB ({card})")
+        c = r["cmn"]
+        held[form] = c
+        print(f"{form} CMN kernel on the path's own batch {c['shape_in']} {c['dtype_in']} -> "
+              f"{c['shape_out']} float32: max abs diff vs plain {c['max_abs_err']:.3e} (limit "
+              f"{bench_ssd.CMN_ATOL:g}; path launches {launches[form]}); kernel alone "
+              f"{c['ms']:.4f} ms (cold L2), wrapper {c['wrapper_ms']:.4f} ms, plain "
+              f"{c['plain_ms']:.4f} ms; {c['bytes']} bytes, bound {c['bound_ms']:.4f} ms, "
+              f"{100 * c['bound_share']:.1f}% of it ({card})")
+
+    anchors = bench_ssd.dboxes300_coco()
+    runs = {}
+    for device in ("cuda:0", "cpu"):
+        pipe = bench_ssd.make_pipe(ann, SSD_CHECK_BATCH, device, "ssd_train", with_boxes=True)
+        pipe.build()
+        runs[device] = [[o.as_tensor().cpu() if k == 0 else o
+                         for k, o in enumerate(pipe.run())] for _ in range(2)]
+        pipe.shutdown()
+    for got, want in zip(runs["cuda:0"], runs["cpu"]):
+        for k, what in ((1, "encoded boxes"), (2, "encoded labels"), (3, "boxes"), (4, "labels")):
+            require(all(np.array_equal(got[k].at(i), want[k].at(i))
+                        for i in range(SSD_CHECK_BATCH)), f"ssd_train: {what} differ card vs CPU")
+    _within_one_step(torch.cat([r[0] for r in runs["cuda:0"]]),
+                     torch.cat([r[0] for r in runs["cpu"]]),
+                     f"ssd_train card vs CPU (batch {SSD_CHECK_BATCH}, 2 iterations; boxes, labels "
+                     "and encoded outputs equal)")
+    pipe = bench_ssd.make_pipe(ann, SSD_CHECK_BATCH, "cuda:0", "ssd_device_encode",
+                               with_boxes=True)
+    pipe.build()
+    ties, matched = [], 0
+    for _ in range(2):
+        _, eb, el, boxes, labels = pipe.run()
+        for i in range(SSD_CHECK_BATCH):
+            ties += bench_ssd.check_against_cpu_encoder(boxes.at(i), labels.at(i), eb.at(i),
+                                                        el.at(i), anchors)
+            matched += int((el.at(i) > 0).sum())
+    pipe.shutdown()
+    require(matched > 0, "ssd_device_encode: the encoder matched no anchor")
+    print(f"ssd_device_encode BoxEncoder on the card vs the host encoder (batch {SSD_CHECK_BATCH}, "
+          f"2 iterations, {matched} matched anchors): boxes within 1e-6, {len(ties)} label "
+          f"mismatches, each a tie: {ties}")
+    print(f"ssd phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, held
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -845,6 +940,8 @@ def main():
     for recipe in RECIPE_TIMED:
         launches[recipe] = imagenet_phase(card, file_list, rn50_ips, recipe)[0]
     launches["imagenet_forms"] = forms_phase(card, rn50_ips)[0]
+    ssd_launches, ssd_cmn = ssd_phase(card, rn50_ips)
+    launches.update(ssd_launches)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{
@@ -855,8 +952,9 @@ def main():
         "max_abs_err": main_form["max_abs_err"], "ms": main_form["ms"],
         "plain_ms": main_form["plain_ms"], "bound_ms": main_form["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "yardstick_copy_ms": copy["ms"],
-        "forms": [{k: f[k] for k in ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms",
-                                     "bound_share", "max_abs_err")} for f in forms]}]}))
+        "forms": [{k: f[k] for k in FORM_KEYS} for f in forms]
+        + [dict({k: c[k] for k in FORM_KEYS if k != "name"}, name=f"{path}_path_batch",
+                shape_in=c["shape_in"], dtype_in=c["dtype_in"]) for path, c in ssd_cmn.items()]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,7 @@
 from . import base  # noqa: F401
 from . import builtin  # noqa: F401
 from . import readers  # noqa: F401
+from . import readers2  # noqa: F401
 from . import random  # noqa: F401
 from . import decoders  # noqa: F401
 from . import image  # noqa: F401
@@ -16,3 +17,7 @@ from . import convolution  # noqa: F401
 from . import enhance  # noqa: F401
 from . import arithm  # noqa: F401
 from . import audio  # noqa: F401
+from . import bbox  # noqa: F401
+from . import bbox_extra  # noqa: F401
+from . import tail  # noqa: F401
+from . import segmentation  # noqa: F401

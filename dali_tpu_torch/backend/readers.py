@@ -1,4 +1,4 @@
-"""readers.File (counterpart of ``dali_tpu/backend/readers.py``).
+"""``BaseReader`` and readers.File (counterpart of ``dali_tpu/backend/readers.py``).
 
 The sample-index stream (shuffling buffer, shard math, epoch wrap) and its
 checkpoint state are the reference's, draw for draw, so a checkpoint written
@@ -144,15 +144,88 @@ DALI_SCHEMA("readers.File").DocStr(
 )
 
 
-@register_operator("readers.File", "cpu")
-class FileReader(ReaderOperator):
+class BaseReader(ReaderOperator):
+    """Shared reader plumbing (counterpart of ``dali_tpu/backend/readers.py``
+    ``BaseReader``): the dataset index and its ``IndexedLoader`` are built at
+    first use, and a checkpoint restored before that is applied then."""
+
     def __init__(self, spec, op_id):
         super().__init__(spec, op_id)
         self._loader: Optional[IndexedLoader] = None
         self._pending_state = None
+
+    def _build_index(self):
+        raise NotImplementedError
+
+    def _num_samples(self) -> int:
+        raise NotImplementedError
+
+    def _read_payload(self, index: int):
+        """One sample's outputs: an array, or a tuple with one per output."""
+        raise NotImplementedError
+
+    def _ensure_loader(self):
+        if self._loader is None:
+            self._build_index()
+            spec = self.spec
+            seed = spec.GetArgument("seed", -1)
+            if seed is None or seed < 0:
+                seed = self.pipeline.seed + self.op_id
+            self._loader = IndexedLoader(
+                self._num_samples,
+                shard_id=spec.GetArgument("shard_id"), num_shards=spec.GetArgument("num_shards"),
+                random_shuffle=spec.GetArgument("random_shuffle"),
+                initial_fill=spec.GetArgument("initial_fill"),
+                stick_to_shard=spec.GetArgument("stick_to_shard"),
+                pad_last_batch=spec.GetArgument("pad_last_batch"),
+                batch_size=self.pipeline.max_batch_size, seed=seed,
+                shuffle_after_epoch=bool(spec.GetArgument("shuffle_after_epoch")),
+                shuffle_after_epoch_seed=int(spec.GetArgument("shuffle_after_epoch_seed")))
+            if self._pending_state is not None:
+                self._loader.restore_state(self._pending_state)
+                self._pending_state = None
+
+    def run_batch(self, ctx: HostCtx):
+        self._ensure_loader()
+        payloads = [self._read_payload(self._loader.read_index()) for _ in range(ctx.batch_size)]
+        if not isinstance(payloads[0], tuple):
+            return [HostBatch(payloads)]
+        return [HostBatch([p[j] for p in payloads]) for j in range(len(payloads[0]))]
+
+    def reader_meta(self):
+        self._ensure_loader()
+        ld = self._loader
+        return {
+            "epoch_size": ld.num_samples,
+            "epoch_size_padded": ld.shard_size_padded * ld.num_shards
+            if ld.pad_last_batch else ld.num_samples,
+            "number_of_shards": ld.num_shards,
+            "shard_id": ld.shard_id,
+            "pad_last_batch": 1 if ld.pad_last_batch else 0,
+            "stick_to_shard": 1 if ld.stick_to_shard else 0,
+        }
+
+    def save_state(self):
+        if self._loader is None:
+            return {"loader": self._pending_state} if self._pending_state else None
+        return {"loader": self._loader.save_state()}
+
+    def restore_state(self, state):
+        inner = state.get("loader") if state else None
+        if inner is None:
+            return
+        if self._loader is not None:
+            self._loader.restore_state(inner)
+        else:
+            self._pending_state = inner
+
+
+@register_operator("readers.File", "cpu")
+class FileReader(BaseReader):
+    def __init__(self, spec, op_id):
+        super().__init__(spec, op_id)
         self._files: Optional[List[str]] = None
         self._labels: Optional[List[int]] = None
-        self._mmaps = {}
 
     def _build_index(self):
         spec = self.spec
@@ -195,40 +268,21 @@ class FileReader(ReaderOperator):
         if not self._files:
             raise ValueError("readers.file found no files")
 
-    def _ensure_loader(self):
-        if self._loader is None:
-            self._build_index()
-            spec = self.spec
-            seed = spec.GetArgument("seed", -1)
-            if seed is None or seed < 0:
-                seed = self.pipeline.seed + self.op_id
-            self._loader = IndexedLoader(
-                lambda: len(self._files),
-                shard_id=spec.GetArgument("shard_id"), num_shards=spec.GetArgument("num_shards"),
-                random_shuffle=spec.GetArgument("random_shuffle"),
-                initial_fill=spec.GetArgument("initial_fill"),
-                stick_to_shard=spec.GetArgument("stick_to_shard"),
-                pad_last_batch=spec.GetArgument("pad_last_batch"),
-                batch_size=self.pipeline.max_batch_size, seed=seed,
-                shuffle_after_epoch=bool(spec.GetArgument("shuffle_after_epoch")),
-                shuffle_after_epoch_seed=int(spec.GetArgument("shuffle_after_epoch_seed")))
-            if self._pending_state is not None:
-                self._loader.restore_state(self._pending_state)
-                self._pending_state = None
+    def _num_samples(self) -> int:
+        return len(self._files)
 
     def _read_payload(self, index: int) -> np.ndarray:
         path = self._files[index]
         if self.spec.GetArgument("dont_use_mmap"):
             with open(path, "rb") as f:
                 return np.frombuffer(f.read(), dtype=np.uint8)
-        mm = self._mmaps.get(path)
-        if mm is None:
-            with open(path, "rb") as f:
-                try:
-                    mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
-                except (ValueError, OSError):  # empty file / unmappable fs
-                    return np.frombuffer(f.read(), dtype=np.uint8)
-            self._mmaps[path] = mm
+        # a mapping per read, no cache: the array keeps its mapping (and the
+        # mapping's file descriptor) alive only as long as the sample lives
+        with open(path, "rb") as f:
+            try:
+                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+            except (ValueError, OSError):  # empty file / unmappable fs
+                return np.frombuffer(f.read(), dtype=np.uint8)
         return np.frombuffer(mm, dtype=np.uint8)
 
     def run_batch(self, ctx: HostCtx):
@@ -238,30 +292,3 @@ class FileReader(ReaderOperator):
         labels = [np.array([self._labels[i]], dtype=np.int32) for i in indices]
         return [HostBatch(datas, source_info=[self._files[i] for i in indices]),
                 HostBatch(labels)]
-
-    def reader_meta(self):
-        self._ensure_loader()
-        ld = self._loader
-        return {
-            "epoch_size": ld.num_samples,
-            "epoch_size_padded": ld.shard_size_padded * ld.num_shards
-            if ld.pad_last_batch else ld.num_samples,
-            "number_of_shards": ld.num_shards,
-            "shard_id": ld.shard_id,
-            "pad_last_batch": 1 if ld.pad_last_batch else 0,
-            "stick_to_shard": 1 if ld.stick_to_shard else 0,
-        }
-
-    def save_state(self):
-        if self._loader is None:
-            return {"loader": self._pending_state} if self._pending_state else None
-        return {"loader": self._loader.save_state()}
-
-    def restore_state(self, state):
-        inner = state.get("loader") if state else None
-        if inner is None:
-            return
-        if self._loader is not None:
-            self._loader.restore_state(inner)
-        else:
-            self._pending_state = inner

@@ -7,7 +7,8 @@ rotation about the sample center. WarpAffine takes the reference's route for
 each batch: the separable route when every matrix is axis-aligned, the gather
 route otherwise (``device_statics``). Rotate keeps the input size
 (``keep_size``) or grows the canvas to the rotated extent, rounded up to 32
-and latched. Sequences and volumes raise ``NotImplementedError``.
+and latched. Sequences and volumes raise ``NotImplementedError``. The
+host CoordFlip of the same reference file is here too.
 """
 
 from __future__ import annotations
@@ -199,3 +200,35 @@ class RotateGPU(Operator):
         channels = torch.full((sizes.shape[0], 1), inp.data.shape[3], dtype=torch.int32,
                               device=sizes.device)
         return [DeviceBatch(out, torch.cat([sizes, channels], dim=1), inp.layout or "HWC")]
+
+
+# ======================================== CoordFlip ==================================================
+
+DALI_SCHEMA("CoordFlip").DocStr(
+    "Flips coordinates in [0,1] about a center per axis."
+).NumInput(1).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
+    "flip_x", ArgType.INT, "Flip x.", 1, tensor_ok=True
+).AddOptionalArg(
+    "flip_y", ArgType.INT, "Flip y.", 0, tensor_ok=True
+).AddOptionalArg(
+    "flip_z", ArgType.INT, "Flip z.", 0, tensor_ok=True
+).AddOptionalArg(
+    "layout", ArgType.TENSOR_LAYOUT, "Coordinate layout ('x', 'xy', 'xyz').", "xy"
+).AddOptionalArg("center_x", ArgType.FLOAT, "Flip center x.", 0.5).AddOptionalArg(
+    "center_y", ArgType.FLOAT, "Flip center y.", 0.5).AddOptionalArg(
+    "center_z", ArgType.FLOAT, "Flip center z.", 0.5)
+
+
+@register_operator("CoordFlip", "cpu")
+class CoordFlip(Operator):
+    """The host CoordFlip (``dali_tpu/backend/warp.py`` ``CoordFlip``); the
+    device one is in ``generic_gpu.py``."""
+
+    def run_sample(self, ctx, idx, coords):
+        out = coords.astype(np.float32).copy()
+        layout = self.spec.GetArgument("layout")
+        for axis, default in (("x", 1), ("y", 0), ("z", 0)):
+            i = layout.find(axis)
+            if int(np.asarray(ctx.arg(self, f"flip_{axis}", idx, default))) and i >= 0:
+                out[..., i] = 2 * self.spec.GetArgument(f"center_{axis}") - out[..., i]
+        return out

@@ -32,9 +32,16 @@ def __getattr__(name):
     raise _not_ported(name)
 
 
+# tokens kept whole, as the reference's fn module keeps them
+_SPECIAL_CASES = {"b_box": "bbox", "mx_net": "mxnet", "tf_record": "tfrecord"}
+
+
 def _camel_to_snake(name: str) -> str:
     s = re.sub(r"(.)([A-Z][a-z]+)", r"\1_\2", name)
-    return re.sub(r"([a-z0-9])([A-Z])", r"\1_\2", s).lower()
+    s = re.sub(r"([a-z0-9])([A-Z])", r"\1_\2", s).lower()
+    for k, v in _SPECIAL_CASES.items():
+        s = s.replace(k, v)
+    return s
 
 
 def _make_fn(schema_name: str):

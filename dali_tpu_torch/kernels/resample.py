@@ -8,6 +8,11 @@ batched matrix products ``A_y @ img @ A_x^T`` in float32 with TF32 off (the
 reference runs them at ``Precision.HIGHEST``). Integer outputs are rounded
 half to even and clipped. No Pallas kernel exists for this stage; the
 tap-gather hand kernel is queued in ROADMAP.md (B3).
+
+Divisions by a constant divide by a tensor (``_div``): on CUDA, PyTorch
+computes ``tensor / python_number`` as a product with the float32
+reciprocal, one ulp away from the quotient for many values, which moved
+the card's interpolation positions off the CPU's (and the reference's).
 """
 
 from __future__ import annotations
@@ -27,6 +32,11 @@ _BASE_RADIUS = {
     DALIInterpType.INTERP_GAUSSIAN: 2.0,
     DALIInterpType.INTERP_LANCZOS3: 3.0,
 }
+
+
+def _div(t: torch.Tensor, d: float) -> torch.Tensor:
+    """``t / d`` as a correctly rounded quotient on every device."""
+    return t / torch.full((), d, dtype=t.dtype, device=t.device)
 
 
 def _window(interp: DALIInterpType, t: torch.Tensor) -> torch.Tensor:
@@ -52,7 +62,7 @@ def _window(interp: DALIInterpType, t: torch.Tensor) -> torch.Tensor:
             v = torch.where(torch.abs(v) < 1e-8, 1e-8, v)
             return torch.sin(math.pi * v) / (math.pi * v)
 
-        return torch.where(x < 3.0, sinc(x) * sinc(x / 3.0), 0.0)
+        return torch.where(x < 3.0, sinc(x) * sinc(_div(x, 3.0)), 0.0)
     raise ValueError(f"Unsupported interp {interp}")
 
 
@@ -78,7 +88,7 @@ def interp_matrix(out_size: int, roi_start, roi_size, extent, interp, taps: int,
     Edge-clamped taps keep their raw-position weights and land on the edge
     rows, as in the reference's gather tap plan."""
     dev = roi_size.device
-    scale = roi_size / out_size                                           # [N]
+    scale = _div(roi_size, out_size)                                      # [N]
     x = (torch.arange(out_size, dtype=torch.float32, device=dev)[None, :] + 0.5) \
         * scale[:, None] + roi_start[:, None]                             # [N, out]
     ext = extent.to(torch.int32)[:, None, None]

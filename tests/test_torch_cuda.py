@@ -679,3 +679,195 @@ def test_mixed_forms_rn50_host_decode_on_card_matches_cpu(card, tmp_path):
         diff = (g_img.cpu() - c_img).abs()
         assert float(diff.max()) <= LSB
         assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+
+
+# ---------------------------------------------------------------- the detection lane
+
+SSD_BATCH = 64
+
+
+def _ssd_boxes(seed, n=SSD_BATCH):
+    """Ragged ltrb boxes in [0, 1] with COCO's count shape (geometric, mean
+    ~7.3, at most 50; sample 5 empty) and int32 labels."""
+    rng = np.random.default_rng(seed)
+    boxes, labels = [], []
+    for i in range(n):
+        k = 0 if i == 5 else min(50, int(rng.geometric(1 / 7.3)))
+        wh = np.exp(rng.uniform(np.log(0.02), np.log(0.9), (k, 2)))
+        lt = rng.uniform(0, 1, (k, 2)) * (1 - wh)
+        boxes.append(np.concatenate([lt, lt + wh], 1).astype(np.float32))
+        labels.append(rng.integers(1, 81, k).astype(np.int32))
+    return boxes, labels
+
+
+def _card_and_host(card, graph):
+    """One batch of ``graph`` on the card (host ops run on the host)."""
+    @pipeline_def(batch_size=SSD_BATCH, num_threads=2, seed=21, device=card)
+    def p():
+        return graph()
+
+    pipe = p()
+    pipe.build()
+    try:
+        return pipe.run()
+    finally:
+        pipe.shutdown()
+
+
+def test_bb_flip_gpu_matches_cpu(card):
+    boxes, _ = _ssd_boxes(1)
+    for ltrb in (True, False):
+        def graph():
+            b = fn.external_source(source=lambda: boxes, batch=True)
+            h = fn.random.coin_flip(probability=0.5)
+            v = fn.random.coin_flip(probability=0.5)
+            return (fn.bb_flip(b.gpu(), ltrb=ltrb, horizontal=h, vertical=v),
+                    fn.bb_flip(b, ltrb=ltrb, horizontal=h, vertical=v))
+
+        gpu, cpu = _card_and_host(card, graph)
+        assert gpu.as_tensor().is_cuda and gpu.shape() == cpu.shape()
+        for i in range(SSD_BATCH):
+            np.testing.assert_allclose(gpu.at(i), cpu.at(i), rtol=0, atol=1e-6)
+
+
+def test_coord_flip_gpu_matches_cpu(card):
+    rng = np.random.default_rng(2)
+    pts = [rng.uniform(0, 1, (int(rng.integers(0, 40)), 3)).astype(np.float32)
+           for _ in range(SSD_BATCH)]
+
+    def graph():
+        p = fn.external_source(source=lambda: pts, batch=True)
+        fx = fn.random.coin_flip(probability=0.5)
+        fz = fn.random.coin_flip(probability=0.5)
+        kw = dict(layout="xyz", flip_x=fx, flip_y=1, flip_z=fz, center_x=0.3, center_z=0.7)
+        return fn.coord_flip(p.gpu(), **kw), fn.coord_flip(p, **kw)
+
+    gpu, cpu = _card_and_host(card, graph)
+    assert gpu.as_tensor().is_cuda
+    for i in range(SSD_BATCH):
+        np.testing.assert_allclose(gpu.at(i), cpu.at(i), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("offset", [False, True])
+def test_box_encoder_gpu_matches_cpu(card, offset):
+    """SSD300's 8,732 anchors at batch 64: dense [64, 8732, 4] float32 and
+    [64, 8732] int32 on the card; labels equal to the host encoder's (or a
+    printed tie), boxes within 1e-6 (offset form: 1e-5)."""
+    from dali_tpu_torch.tools import bench_ssd
+
+    anchors = bench_ssd.dboxes300_coco()
+    boxes, labels = _ssd_boxes(3)
+    kw = dict(anchors=anchors.reshape(-1), criteria=0.5)
+    if offset:
+        kw.update(offset=True, stds=[0.1, 0.1, 0.2, 0.2], scale=1.0)
+
+    def graph():
+        b = fn.external_source(source=lambda: boxes, batch=True)
+        lab = fn.external_source(source=lambda: labels, batch=True)
+        return fn.box_encoder(b.gpu(), lab.gpu(), **kw) + fn.box_encoder(b, lab, **kw)
+
+    gb, gl, cb, cl = _card_and_host(card, graph)
+    assert gb.as_tensor().is_cuda and tuple(gb.as_tensor().shape) == (SSD_BATCH, 8732, 4)
+    assert gl.as_tensor().dtype == torch.int32 and tuple(gl.as_tensor().shape) == (SSD_BATCH, 8732)
+    matched = 0
+    for i in range(SSD_BATCH):
+        if offset:
+            np.testing.assert_array_equal(gl.at(i), cl.at(i))
+            np.testing.assert_allclose(gb.at(i), cb.at(i), rtol=0, atol=1e-5)
+        else:
+            ties = bench_ssd.check_against_cpu_encoder(boxes[i], labels[i], gb.at(i), gl.at(i),
+                                                       anchors)
+            if ties:
+                print(f"sample {i}: ties {ties}")
+        matched += int((gl.at(i) > 0).sum())
+    assert matched > SSD_BATCH * 5
+
+
+def test_ssd_recipe_on_card_matches_cpu(card, tmp_path):
+    """ssd_train at batch 8 (host encoder): one CMN launch per batch; labels
+    and encoded labels equal; images within one uint8 step / std on at most
+    1e-3 of values. ssd_device_encode: its device encoder against the host
+    encoder on the boxes it received."""
+    from dali_tpu_torch.testdata.make_coco_annotations import write_annotations
+    from dali_tpu_torch.tools import bench_ssd
+
+    ann = write_annotations(str(tmp_path / "coco.json"), 0)
+    anchors = bench_ssd.dboxes300_coco()
+    runs = {}
+    for device in (card, "cpu"):
+        pipe = bench_ssd.make_pipe(ann, 8, device, "ssd_train", with_boxes=True, num_threads=2)
+        pipe.build()
+        before = cmn.COUNTER.launches
+        try:
+            runs[str(device)] = [pipe.run() for _ in range(2)]
+        finally:
+            pipe.shutdown()
+        if device == card:
+            assert cmn.COUNTER.launches == before + 2
+    for got, want in zip(runs[str(card)], runs["cpu"]):
+        diff = (got[0].as_tensor().cpu() - want[0].as_tensor()).abs()
+        assert float(diff.max()) <= LSB
+        assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+        for k in (1, 2, 3, 4):
+            for i in range(8):
+                np.testing.assert_array_equal(got[k].at(i), want[k].at(i))
+    pipe = bench_ssd.make_pipe(ann, 8, card, "ssd_device_encode", with_boxes=True,
+                               num_threads=2)
+    pipe.build()
+    try:
+        for _ in range(2):
+            images, eb, el, boxes, labels = pipe.run()
+            assert eb.as_tensor().is_cuda and bool(torch.isfinite(images.as_tensor()).all())
+            for i in range(8):
+                bench_ssd.check_against_cpu_encoder(boxes.at(i), labels.at(i), eb.at(i),
+                                                    el.at(i), anchors)
+    finally:
+        pipe.shutdown()
+
+
+@pytest.mark.parametrize("form", ["ssd_train", "ssd_device_encode"])
+def test_ssd_cmn_on_card_matches_plain(card, tmp_path, form):
+    """The CMN kernel's output on the batch each SSD form gives it (uint8
+    in ssd_train, float32 from brightness_contrast in ssd_device_encode)
+    equals the plain version on the same arguments within 1e-5."""
+    from dali_tpu_torch.testdata.make_coco_annotations import write_annotations
+    from dali_tpu_torch.tools import bench_ssd
+
+    ann = write_annotations(str(tmp_path / "coco.json"), 0)
+    pipe = bench_ssd.make_pipe(ann, 8, card, form, num_threads=2)
+    pipe.build()
+    try:
+        with bench_ssd.recording_cmn([]) as calls:
+            pipe.run()
+    finally:
+        pipe.shutdown()
+    args = calls[0][0]
+    assert args[0].is_cuda and args[0].dtype == (torch.uint8 if form == "ssd_train"
+                                                 else torch.float32)
+    assert bench_ssd.hold_cmn(calls[0]) <= bench_ssd.CMN_ATOL
+
+
+def test_resample_matrices_on_card_equal_cpu(card):
+    """The interpolation matrices of the resize, built on the card, agree
+    with the CPU's: the scale is a correctly rounded quotient on both
+    devices, not a product with a reciprocal (which moved the card's
+    positions by up to ~2e-5 at the far end of a 300-wide output). Linear
+    upscales (two taps) are equal bit for bit; the antialiased downscales
+    sum more taps into their norm, in the device's order, so they agree
+    within 1e-6."""
+    from dali_tpu_torch.kernels import resample
+    from dali_tpu_torch.types import DALIInterpType
+
+    roi = torch.tensor([213.0, 150.0, 377.0, 640.0, 97.0, 300.0])
+    ext = roi.to(torch.int32)
+    for interp in (DALIInterpType.INTERP_LINEAR, DALIInterpType.INTERP_TRIANGULAR):
+        for out in (224, 300):
+            taps = resample.max_taps(interp, 640 / out, True)
+            args = (torch.zeros(6), roi, ext, interp, taps, True, 640)
+            want = resample.interp_matrix(out, *args)
+            got = resample.interp_matrix(out, *(a.to(card) if torch.is_tensor(a) else a
+                                                 for a in args)).cpu()
+            assert float((got - want).abs().max()) <= 1e-6, (interp, out)
+            up = roi < out
+            if interp == DALIInterpType.INTERP_LINEAR:
+                assert torch.equal(got[up], want[up]), out

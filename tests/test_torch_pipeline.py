@@ -297,3 +297,55 @@ def test_last_batch_policy_epoch(policy, n_batches, last):
             assert sizes == [12] * (n_batches - 1) + [last]
     finally:
         pipe.shutdown()
+
+
+def test_file_reader_mapped_reads_equal_plain_reads():
+    """readers.File maps each file per read (no cache); the bytes equal
+    those of plain reads (``dont_use_mmap``), batch after batch."""
+    got = {}
+    for mmap_off in (False, True):
+        @dali_tpu_torch.pipeline_def(batch_size=BATCH, num_threads=1, seed=3, device="cpu")
+        def p():
+            return dali_tpu_torch.fn.readers.file(file_root=CORPUS, random_shuffle=True,
+                                                  dont_use_mmap=mmap_off, name="Reader")
+
+        pipe = p()
+        pipe.build()
+        try:
+            got[mmap_off] = [pipe.run() for _ in range(3)]
+        finally:
+            pipe.shutdown()
+    for (a, la), (b, lb) in zip(got[False], got[True]):
+        np.testing.assert_array_equal(la.as_array(), lb.as_array())
+        for i in range(BATCH):
+            np.testing.assert_array_equal(a.at(i), b.at(i))
+
+
+def test_file_reader_reads_more_files_than_the_descriptor_limit(tmp_path):
+    """An epoch over more files than the process may hold open (a soft
+    descriptor limit of 1024, the common default): a mapping lives only as
+    long as its sample, so the rest of the process can still open files
+    (an unbounded cache of mappings held one descriptor per file read)."""
+    for i in range(1100):
+        (tmp_path / f"f{i:04d}.bin").write_bytes(bytes([i % 256]) * 16)
+    code = (
+        "import resource, sys, numpy as np\n"
+        "resource.setrlimit(resource.RLIMIT_NOFILE, (1024, resource.getrlimit("
+        "resource.RLIMIT_NOFILE)[1]))\n"
+        "import dali_tpu_torch as d\n"
+        f"files = [r'{tmp_path}/f%04d.bin' % i for i in range(1100)]\n"
+        "@d.pipeline_def(batch_size=100, num_threads=1, seed=1, device='cpu')\n"
+        "def p():\n"
+        "    return d.fn.readers.file(files=files)[0]\n"
+        "pipe = p(); pipe.build()\n"
+        "for it in range(11):\n"
+        "    out = pipe.run()[0]\n"
+        "    assert all(int(out.at(i)[0]) == (it * 100 + i) % 256 for i in range(100))\n"
+        "extra = [open(files[0], 'rb') for _ in range(64)]\n"
+        "for f in extra:\n"
+        "    f.close()\n"
+        "pipe.shutdown(); print('read', 1100)\n")
+    root = os.path.join(os.path.dirname(__file__), "..")
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0 and "read 1100" in r.stdout, r.stderr[-2000:]
