@@ -129,11 +129,37 @@ on failure:
    outputs equal, images within one uint8 step / std on at most 1e-3 of
    values; the card's BoxEncoder against the host encoder on the boxes it
    received (labels equal, or each mismatch a tie, printed; boxes within
-   1e-6).
+   1e-6);
+15-16. ImageNet training fed by stored-format readers at batch 256
+   (``tools/bench_readers.py``), over the corpus repeated to 1,024 samples
+   and written in the run: wds_train (``docs/examples/webdataset_ingest.py``'s
+   recipe: ``readers.webdataset`` over 4 tar shards with ``wds2idx`` index
+   files, the whole-image hybrid decode at ``hybrid_scale=2`` on the int8
+   wire, ``random_resized_crop(224)``, coin-flip CMN FLOAT CHW) and
+   tfrecord_train (DALI's TensorFlow ResNet-50 input: ``readers.tfrecord``
+   over 4 files with ``tfrecord2idx`` index files, ``image/encoded`` and
+   ``image/class/label`` int64 [1], the host decode of
+   ``decoders.image_random_crop(device="mixed")`` with its default window
+   arguments, resize 224x224, coin-flip CMN FLOAT HWC); each 3 warm-up + 10
+   timed batches through ``DALIGenericIterator``, checked (images on the
+   card and finite, labels on the host), the exact CMN launch count;
+   images/s and its share of rn50_train's, host ms/batch (by operator
+   schema), device wait, device ms by stage of one batch alone, peak
+   device memory; the CMN kernel held against its plain version on one
+   more batch of the path and timed on it beside the HBM bound; then batch
+   16 on the card against the CPU (labels equal, images within one uint8
+   step / std on at most 1e-3 of values);
+17. numpy_volumes: ``readers.numpy(device="gpu")`` over 4 float32 volumes
+   of BraTS's ``[4, 155, 240, 240]`` (143 MB each, seed 0) at batch 2,
+   whole and as the ``[4, 128, 128, 128]`` centre ROI over axes 1-3: 3
+   warm-up + 10 timed batches, each on ``cuda:0`` with its shape and
+   dtype; GB/s delivered, host ms/batch, device wait, the H2D ms of one
+   batch alone; the first two batches bit-equal to the cpu reader's; the
+   files deleted at the end.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
-each path and every form's readings, the two SSD paths' own batches among
-them) is the JSON object on the line before
+each path and every form's readings, the SSD and reader paths' own batches
+among them) is the JSON object on the line before
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest of
 the repository beside it, the script exits non-zero before printing either.
@@ -167,6 +193,7 @@ RECIPE_TIMED = {"imagenet_train": 20, "rn50_val": 10, "rn50_host_decode": 20,
 FORMS_TIMED, FORMS_CHECK_BATCH, FORMS_DECODE_REPS = 10, 64, 10
 SSD_BATCH, SSD_CHECK_BATCH = 64, 16
 SSD_TIMED = {"ssd_train": 20, "ssd_device_encode": 10}
+READER_TIMED, READER_CHECK_BATCH = 10, 16
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -912,6 +939,54 @@ def ssd_phase(card, rn50_ips):
     return launches, held
 
 
+def readers_phase(card, rn50_ips):
+    """Phases 15-17: wds_train and tfrecord_train at batch 256, each then at
+    batch 16 against the CPU, and numpy_volumes; returns the CMN launches
+    and the kernel's readings on each recipe's own batch."""
+    from dali_tpu_torch.tools import bench_readers
+
+    t_phase = time.perf_counter()
+    data = bench_readers.write_datasets(os.path.join(HERE, "build", "reader_datasets"))
+    print(f"reader datasets: {bench_readers.SAMPLES} samples as {bench_readers.FILES} tar shards "
+          f"and {bench_readers.FILES} TFRecord files, written in "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    launches, held = {}, {}
+    for form in bench_readers.FORMS:
+        r = bench_readers.measure(form, data[form], BATCH, WARMUP, READER_TIMED)
+        launches[form] = r["cmn_launches"]
+        held[form] = c = r["cmn"]
+        print(f"{form} batch {BATCH}: {r['images_per_s']:.1f} images/s over {READER_TIMED} "
+              f"batches, {100 * r['images_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} "
+              f"in this run; host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} "
+              f"host cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; cmn "
+              f"launches {launches[form]} ({card})")
+        print(f"{form} host ms/batch by schema: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in r["host_ms_by_schema"].items() if v >= 0.05))
+        print(f"{form} stage ms of one batch alone: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in r["stage_ms"].items())
+              + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+        print(f"{form} CMN kernel on the path's own batch {c['shape_in']} {c['dtype_in']} -> "
+              f"{c['shape_out']} float32: max abs diff vs plain {c['max_abs_err']:.3e} (limit "
+              f"1e-05; path launches {launches[form]}); kernel alone {c['ms']:.4f} ms (cold L2), "
+              f"wrapper {c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} "
+              f"bytes, bound {c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+        reference_phase(None, make=lambda b, d, form=form: bench_readers.make_pipe(
+            form, data[form], b, d), what=f" ({form})", batch=READER_CHECK_BATCH)
+    written, volumes = bench_readers.numpy_phase(
+        os.path.join(HERE, "build", "reader_datasets", "volumes"), warmup=WARMUP,
+        timed=READER_TIMED)
+    for v in volumes:
+        print(f"numpy_volumes {v['form']} batch {v['batch']} ({v['bytes_per_batch']} bytes): "
+              f"{v['gb_per_s']:.3f} GB/s over {v['timed']} batches; host phase "
+              f"{v['host_ms_per_batch']:.2f} ms/batch; device stage waited "
+              f"{v['device_wait_ms_per_batch']:.2f} ms/batch; H2D of one batch alone "
+              f"{v['h2d_ms']:.3f} ms; on cuda:0, {v['bit_equal_batches']} batches bit-equal to "
+              f"the cpu reader's ({card})")
+    print(f"numpy volumes written in {written:.2f} s and deleted; readers phase: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, held
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -940,8 +1015,11 @@ def main():
     for recipe in RECIPE_TIMED:
         launches[recipe] = imagenet_phase(card, file_list, rn50_ips, recipe)[0]
     launches["imagenet_forms"] = forms_phase(card, rn50_ips)[0]
-    ssd_launches, ssd_cmn = ssd_phase(card, rn50_ips)
+    ssd_launches, path_cmn = ssd_phase(card, rn50_ips)
     launches.update(ssd_launches)
+    reader_launches, reader_cmn = readers_phase(card, rn50_ips)
+    launches.update(reader_launches)
+    path_cmn.update(reader_cmn)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{
@@ -954,7 +1032,7 @@ def main():
         "bound_by": "bytes", "library_ms": None, "yardstick_copy_ms": copy["ms"],
         "forms": [{k: f[k] for k in FORM_KEYS} for f in forms]
         + [dict({k: c[k] for k in FORM_KEYS if k != "name"}, name=f"{path}_path_batch",
-                shape_in=c["shape_in"], dtype_in=c["dtype_in"]) for path, c in ssd_cmn.items()]}]}))
+                shape_in=c["shape_in"], dtype_in=c["dtype_in"]) for path, c in path_cmn.items()]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,15 @@ Ported so far:
 * ``fn.external_source`` whole (``Pipeline.feed_input``, per-sample and
   batch sources, ``cycle``, ``num_outputs``, ``parallel=True`` worker
   processes) and eager mode, ``dali_tpu_torch.experimental.dynamic``
-  (``ndd``), with ``ndd.capture``.
+  (``ndd``), with ``ndd.capture``;
+* the COCO detection lane (``readers.coco`` with its polygon and pixelwise
+  masks, the bbox and segmentation operators, ``box_encoder`` on the host
+  or the card);
+* the dataset readers and raw inputs: ``readers.webdataset``, ``tfrecord``
+  (``dali_tpu_torch.tfrecord`` declares its features), ``numpy`` (cpu and
+  ``device="gpu"``), ``sequence``, ``mxnet``, ``caffe``, ``caffe2``,
+  ``nemo_asr``, ``fits``, ``decoders.numpy``, ``decoders.inflate``,
+  ``io.file.read``, and ``s3://`` roots (``_s3.py``).
 
 Other ``fn`` names raise ``NotImplementedError``; ROADMAP.md lists the order
 of the rest.
@@ -79,6 +87,23 @@ from .pipeline import Pipeline, pipeline_def  # noqa: E402,F401
 from .external_source import external_source  # noqa: E402
 
 fn.external_source = external_source
+
+from . import tfrecord  # noqa: E402,F401
+
+
+def _tfrecord_fn(path=None, index_path=None, features=None, name=None, **kwargs):
+    """fn.readers.tfrecord: a dict of DataNodes keyed by feature name, in the
+    order of ``features`` (``dali_tpu_torch.tfrecord`` declares them)."""
+    if not features:
+        raise ValueError("readers.tfrecord requires `features`")
+    outs = _op_call("readers.TFRecord", device="cpu", inputs=(), name=name, path=path,
+                    index_path=index_path, _features=dict(features), **kwargs)
+    if not isinstance(outs, tuple):
+        outs = (outs,)
+    return dict(zip(features.keys(), outs))
+
+
+fn.readers.tfrecord = _tfrecord_fn
 
 
 def _check_hybrid_args(device, hybrid_scale, kwargs):

@@ -215,6 +215,12 @@ class OpSpec:
         self.arg_inputs: Dict[str, Any] = {}
         self.inputs: List[Any] = []
         self._extra: Dict[str, Any] = {}  # implementation payloads (e.g. a source callable)
+        if device == "gpu" and "gpu" not in self.schema.devices and self.schema.is_reader \
+                and "mixed" in self.schema.devices:
+            # a reader DALI runs with device='gpu' (numpy through GPUDirect
+            # Storage) reads on the host and returns the batch on the device:
+            # the mixed placement, as in the reference
+            device = self.device = "mixed"
         if device not in self.schema.devices:
             raise ValueError(
                 f"Operator '{schema_name}' does not support device '{device}' "

@@ -4,6 +4,8 @@ from . import base  # noqa: F401
 from . import builtin  # noqa: F401
 from . import readers  # noqa: F401
 from . import readers2  # noqa: F401
+from . import readers3  # noqa: F401
+from . import raw  # noqa: F401
 from . import random  # noqa: F401
 from . import decoders  # noqa: F401
 from . import image  # noqa: F401

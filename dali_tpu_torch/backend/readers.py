@@ -2,8 +2,9 @@
 
 The sample-index stream (shuffling buffer, shard math, epoch wrap) and its
 checkpoint state are the reference's, draw for draw, so a checkpoint written
-by ``dali_tpu`` resumes here at the same sample. Remote (s3://) roots are not
-ported.
+by ``dali_tpu`` resumes here at the same sample. ``s3://`` roots list and
+read through the port's SigV4 client (``_s3.py``), in the reference's order,
+so local and s3 copies of a dataset shard alike.
 """
 
 from __future__ import annotations
@@ -164,6 +165,9 @@ class BaseReader(ReaderOperator):
         """One sample's outputs: an array, or a tuple with one per output."""
         raise NotImplementedError
 
+    def _payload_layouts(self):
+        return [""]
+
     def _ensure_loader(self):
         if self._loader is None:
             self._build_index()
@@ -188,9 +192,11 @@ class BaseReader(ReaderOperator):
     def run_batch(self, ctx: HostCtx):
         self._ensure_loader()
         payloads = [self._read_payload(self._loader.read_index()) for _ in range(ctx.batch_size)]
+        layouts = self._payload_layouts()
         if not isinstance(payloads[0], tuple):
-            return [HostBatch(payloads)]
-        return [HostBatch([p[j] for p in payloads]) for j in range(len(payloads[0]))]
+            return [HostBatch(payloads, layout=layouts[0])]
+        return [HostBatch([p[j] for p in payloads], layout=layouts[j] if j < len(layouts) else "")
+                for j in range(len(payloads[0]))]
 
     def reader_meta(self):
         self._ensure_loader()
@@ -232,8 +238,6 @@ class FileReader(BaseReader):
         files = spec.GetArgument("files", None)
         file_list = spec.GetArgument("file_list", None)
         file_root = spec.GetArgument("file_root", None)
-        if file_root and file_root.startswith("s3://"):
-            raise NotImplementedError("s3:// roots are not ported to dali_tpu_torch; see ROADMAP.md")
         self._files, self._labels = [], []
         if files:
             labels = spec.GetArgument("labels", None)
@@ -250,6 +254,8 @@ class FileReader(BaseReader):
                     path, _, label = line.rpartition(" ")
                     self._files.append(path if os.path.isabs(path) else os.path.join(base, path))
                     self._labels.append(int(label))
+        elif file_root and file_root.startswith("s3://"):
+            self._list_s3(file_root)
         elif file_root:
             filters = spec.GetArgument("file_filters")
             match = fnmatch.fnmatchcase if spec.GetArgument("case_sensitive_filter") else fnmatch.fnmatch
@@ -268,11 +274,41 @@ class FileReader(BaseReader):
         if not self._files:
             raise ValueError("readers.file found no files")
 
+    def _list_s3(self, file_root: str):
+        """An s3:// root's files and labels: labels enumerate every
+        first-level prefix, matching files or not, and files are those one
+        level down, as the local listing takes them."""
+        from .. import _s3
+
+        filters = self.spec.GetArgument("file_filters")
+        case_sensitive = self.spec.GetArgument("case_sensitive_filter")
+        match = fnmatch.fnmatchcase if case_sensitive else fnmatch.fnmatch
+        root_prefix = file_root.rstrip("/") + "/"
+        subdirs, by_dir = set(), {}
+        for uri in sorted(_s3.list_uris(file_root)):
+            sub, _, fname = uri[len(root_prefix):].partition("/")
+            if not fname:
+                continue
+            subdirs.add(sub)
+            if "/" in fname:
+                continue
+            name = fname if case_sensitive else fname.lower()
+            if any(match(name, pat) for pat in filters):
+                by_dir.setdefault(sub, []).append(uri)
+        for label, sub in enumerate(sorted(subdirs)):
+            for uri in sorted(by_dir.get(sub, [])):
+                self._files.append(uri)
+                self._labels.append(label)
+
     def _num_samples(self) -> int:
         return len(self._files)
 
     def _read_payload(self, index: int) -> np.ndarray:
         path = self._files[index]
+        if path.startswith("s3://"):
+            from .. import _s3
+
+            return np.frombuffer(_s3.read_bytes(path), dtype=np.uint8)
         if self.spec.GetArgument("dont_use_mmap"):
             with open(path, "rb") as f:
                 return np.frombuffer(f.read(), dtype=np.uint8)

@@ -26,8 +26,11 @@ external source feeding the RN50 device path, within one uint8 step / std,
 and so are the ImageNet training recipe (whole-image hybrid decode,
 RandomResizedCrop) and the RN50 validation recipe (decode at scale 1,
 resize_shorter onto a per-sample canvas, CMN crop), and the host-decode
-recipes (ImageRandomCrop on the host, and the int16 hybrid wire). The mixed
-host decoders' device outputs equal the CPU run's bit for bit."""
+recipes (ImageRandomCrop on the host, and the int16 hybrid wire), and the
+reader-fed recipes (WebDataset shards into the whole-image hybrid decode,
+TFRecords into the host decode with CMN to HWC). The mixed host decoders'
+device outputs, the mixed Numpy reader's (device="gpu") and decoders.numpy's
+equal the CPU run's bit for bit."""
 
 import os
 
@@ -871,3 +874,89 @@ def test_resample_matrices_on_card_equal_cpu(card):
             up = roi < out
             if interp == DALIInterpType.INTERP_LINEAR:
                 assert torch.equal(got[up], want[up]), out
+
+
+@pytest.mark.parametrize("roi", [False, True], ids=["whole", "roi"])
+def test_numpy_reader_on_card_equals_cpu_reader(card, tmp_path, roi):
+    """readers.numpy(device="gpu") returns the batch on cuda:0, bit-equal
+    to the cpu reader's on the same files and seed (small volumes)."""
+    from dali_tpu_torch.testdata.make_reader_datasets import write_npy_volumes
+
+    files = write_npy_volumes(str(tmp_path), 3, (2, 9, 20, 16), seed=1)
+    kw = dict(roi_start=[1, 2, 3], roi_shape=[5, 8, 8], roi_axes=[1, 2, 3]) if roi else {}
+    outs = {}
+    for reader_device in ("gpu", "cpu"):
+        @pipeline_def(batch_size=2, num_threads=1, seed=5, device=card)
+        def volumes():
+            return fn.readers.numpy(files=files, device=reader_device, random_shuffle=True, **kw)
+
+        pipe = volumes()
+        pipe.build()
+        try:
+            outs[reader_device] = [pipe.run()[0] for _ in range(3)]
+        finally:
+            pipe.shutdown()
+    for got, want in zip(outs["gpu"], outs["cpu"]):
+        t = got.as_tensor()
+        assert t.is_cuda and t.device == torch.device("cuda:0") and t.dtype == torch.float32
+        assert torch.equal(t.cpu(), torch.from_numpy(np.stack([want.at(i) for i in range(2)])))
+
+
+def test_numpy_decoder_mixed_on_card_equals_cpu(card):
+    """decoders.numpy(device="mixed") on the card equals the cpu decoder."""
+    import io
+
+    rng = np.random.default_rng(2)
+    blobs = []
+    for a in (rng.standard_normal((3, 5)).astype(np.float32),
+              np.asfortranarray(rng.standard_normal((3, 5)).astype(np.float32)),
+              rng.standard_normal((3, 5)).astype(">f4")):
+        buf = io.BytesIO()
+        np.save(buf, a)
+        blobs.append(np.frombuffer(buf.getvalue(), np.uint8))
+
+    @pipeline_def(batch_size=3, num_threads=1, seed=5, device=card)
+    def decode():
+        enc = fn.external_source(source=lambda: blobs, batch=True)
+        return fn.decoders.numpy(enc, device="mixed"), fn.decoders.numpy(enc, device="cpu")
+
+    pipe = decode()
+    pipe.build()
+    try:
+        got, want = pipe.run()
+    finally:
+        pipe.shutdown()
+    assert got.as_tensor().is_cuda
+    for i in range(3):
+        np.testing.assert_array_equal(got.as_cpu().at(i), want.at(i))
+
+
+@pytest.mark.parametrize("form", ["wds_train", "tfrecord_train"])
+def test_reader_recipes_on_card_match_cpu(card, tmp_path, form):
+    """wds_train and tfrecord_train (tools/bench_readers.py) at batch 16 on
+    the card against the CPU: one CMN launch per batch, labels equal,
+    images within one uint8 step / std on at most 1e-3 of values; the CMN
+    kernel's output on the path's own batch equals the plain version within
+    1e-5."""
+    from dali_tpu_torch.tools import bench_readers, bench_ssd
+
+    data = bench_readers.write_datasets(str(tmp_path), samples=64)[form]
+    runs = {}
+    for device in (card, "cpu"):
+        pipe = bench_readers.make_pipe(form, data, 16, device, num_threads=2)
+        pipe.build()
+        before = cmn.COUNTER.launches
+        try:
+            runs[str(device)] = [pipe.run() for _ in range(2)]
+            if device == card:
+                assert cmn.COUNTER.launches == before + 2
+                with bench_ssd.recording_cmn([]) as calls:
+                    pipe.run()
+        finally:
+            pipe.shutdown()
+    for got, want in zip(runs[str(card)], runs["cpu"]):
+        np.testing.assert_array_equal(got[1].as_array(), want[1].as_array())
+        diff = (got[0].as_tensor().cpu() - want[0].as_tensor()).abs()
+        assert float(diff.max()) <= LSB
+        assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+    assert bench_ssd.hold_cmn(calls[0]) <= bench_ssd.CMN_ATOL

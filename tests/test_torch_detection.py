@@ -530,12 +530,18 @@ def test_random_bbox_crop_ignored_arguments_raise(kw, item):
 
 
 def test_coco_pixelwise_masks_raise(coco):
+    """``pixelwise_masks`` no longer raises: the port's masks (its own
+    polygon fill) equal dali_tpu's (``cv2.fillPoly``), beside the polygon
+    outputs and image ids."""
     def graph(fn, types):
         return tuple(fn.readers.coco(file_root=CORPUS, annotations_file=coco,
-                                     pixelwise_masks=True))
+                                     pixelwise_masks=True, polygon_masks=True, image_ids=True))
 
-    with pytest.raises(NotImplementedError, match=r"cv2.fillPoly; see ROADMAP.md, Queue 1 item 0"):
-        _build(dali_tpu_torch, graph, batch=2)
+    port, ref = _run_both(graph, iters=2, batch=4)
+    _assert_equal(port, ref)
+    masks = [m for it in port for m in it[5]]
+    assert all(m.dtype == np.int32 and m.ndim == 3 and m.shape[2] == 1 for m in masks)
+    assert any(m.max() > 0 for m in masks)
 
 
 # ---------------------------------------------------------------- gpu operators (torch CPU)

@@ -336,7 +336,7 @@ def test_eager_decoders_do_what_dali_tpu_does():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ndd.water
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ndd.readers.numpy
+            ndd.readers.video
     with ref_ndd.EvalContext():
         jpegs, _ = _read(ref_ndd)
         with pytest.raises(TypeError, match="hybrid_device_decode"):

@@ -234,7 +234,7 @@ def test_imagenet_checkpoint_from_dali_tpu_resumes_in_port():
 
 def test_unported_names_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dali_tpu_torch.fn.decoders.inflate
+        dali_tpu_torch.fn.decoders.video
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dali_tpu_torch.fn.water
     gif = np.frombuffer(b"GIF89a" + bytes(26), np.uint8)
