@@ -155,7 +155,34 @@ on failure:
    warm-up + 10 timed batches, each on ``cuda:0`` with its shape and
    dtype; GB/s delivered, host ms/batch, device wait, the H2D ms of one
    batch alone; the first two batches bit-equal to the cpu reader's; the
-   files deleted at the end.
+   files deleted at the end;
+18. serialized_rn50 (``tools/bench_frontend.py``): phase 3's graph at batch
+   256 over the corpus repeated to 16 batches (``build/rn50_file_list_x16.txt``),
+   built through the ``ops`` class API with checkpointing on,
+   ``serialize()``d and rebuilt by ``Pipeline.deserialize`` on ``cuda:0``
+   with no Python definition, driven through ``DALIClassificationIterator(
+   reader_name="Reader", prepare_first_batch=False)``: 3 warm-up + 10 timed
+   batches, each bit-equal to the source pipeline's batch; after batch 5
+   the iterator's ``checkpoints()`` rebuild the pipeline (``checkpoint=``,
+   ``restore_counter``) and its next 3 batches equal the uninterrupted
+   run's; the exact CMN launch count; ``executor_statistics()`` and the dot
+   file (``build/serialized_rn50.dot``); the CMN kernel held against its
+   plain version on one more batch of the path and timed on it; images/s
+   beside rn50_train's;
+19. effnet_shape_translate: phase 6's TrivialAugment Wide recipe with
+   ``shape=[224, 224]``, so its translates read each image's shape on the
+   card (``Shapes``, ``Cast``, a subscript, their matrix built there): 3
+   warm-up + 10 timed batches reported as phase 6, then batch 16 against
+   the CPU as phase 6 checks it;
+20. volumes_zscore: ``readers.numpy(device="gpu")`` over 4 BraTS-sized
+   volumes at batch 2, ``reshape(layout="CDHW")``, a 128^3 ``slice`` at
+   ``random.uniform`` relative starts, per-channel ``reductions.mean`` and
+   ``std_dev`` over DHW, ``(x - mean) / std`` and ``stack`` of the
+   normalised and raw windows: 3 warm-up + 10 timed batches checked for
+   shape, device and finiteness; GB/s of volumes read, host ms/batch,
+   device ms by stage of one batch alone; the first two batches on the card
+   against the CPU: windows bit-equal, the stacked output within 1e-5
+   relative.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -185,7 +212,8 @@ STD = [0.229 * 255, 0.224 * 255, 0.225 * 255]
 LSB_OVER_STD = 1.0 / min(STD)  # one uint8 step after normalization
 AUDIO_BATCH, HOP, NMEL = 32, 160, 80
 AUDIO_TOL = 1e-3  # dB, and normalized units
-AUG_TIMED = {"trivial_augment_wide": 20, "auto_augment_image_net": 10}
+AUG_TIMED = {"trivial_augment_wide": 20, "auto_augment_image_net": 10,
+             "effnet_shape_translate": 10}
 AUG_CHECK_BATCH = 16
 AMP_TIMED = 10
 RECIPE_TIMED = {"imagenet_train": 20, "rn50_val": 10, "rn50_host_decode": 20,
@@ -194,6 +222,7 @@ FORMS_TIMED, FORMS_CHECK_BATCH, FORMS_DECODE_REPS = 10, 64, 10
 SSD_BATCH, SSD_CHECK_BATCH = 64, 16
 SSD_TIMED = {"ssd_train": 20, "ssd_device_encode": 10}
 READER_TIMED, READER_CHECK_BATCH = 10, 16
+FRONTEND_TIMED, VOLUMES_TIMED = 10, 10
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -260,9 +289,10 @@ def make_pipe(file_list, batch, out, device, amp=False):
     return rn50_train()
 
 
-def write_file_list(forms=False) -> str:
-    """The 32-file corpus repeated to BATCH entries, ``path label`` lines;
-    with ``forms``, the image-form fixtures join it (label 2)."""
+def write_file_list(forms=False, repeat=1) -> str:
+    """The 32-file corpus repeated to ``repeat`` batches of BATCH entries,
+    ``path label`` lines; with ``forms``, the image-form fixtures join it
+    (label 2)."""
     root = os.path.join(HERE, "dali_tpu_torch", "testdata", "rn50")
     files = sorted(os.path.join(c, f) for c in sorted(os.listdir(root))
                    for f in sorted(os.listdir(os.path.join(root, c))))
@@ -271,10 +301,12 @@ def write_file_list(forms=False) -> str:
     if forms:
         codecs = os.path.join(HERE, "dali_tpu_torch", "testdata", "codecs")
         entries += [f"{os.path.join(codecs, f)} 2" for f in sorted(os.listdir(codecs))]
-    lines = (entries * (-(-BATCH // len(entries))))[:max(BATCH, len(entries))]
+    n = BATCH * repeat
+    lines = (entries * (-(-n // len(entries))))[:max(n, len(entries))]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     path = os.path.join(HERE, "build", "imagenet_forms_file_list.txt" if forms
-                        else "rn50_file_list.txt")
+                        else "rn50_file_list.txt" if repeat == 1
+                        else f"rn50_file_list_x{repeat}.txt")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return path
@@ -506,6 +538,9 @@ def _policy(name, images):
 
     if name == "trivial_augment_wide":
         return auto_aug.trivial_augment_wide(images, num_magnitude_bins=31, fill_value=128)
+    if name == "effnet_shape_translate":
+        return auto_aug.trivial_augment_wide(images, num_magnitude_bins=31, fill_value=128,
+                                             shape=[OUT, OUT])
     return auto_aug.auto_augment_image_net(images)
 
 
@@ -564,6 +599,12 @@ def aug_run(card, file_list, policy):
     ips, st, by, launches = drive(pipe, timed, policy)
     ex = pipe.executor
     nb = st["host_batches"]
+    if policy == "effnet_shape_translate":
+        shape_ops = sorted({n.spec.schema_name for n in ex.device_ops} & {
+            "Shapes", "Cast", "_TensorSubscript", "Reshape", "Cat", "Full"})
+        require({"Shapes", "_TensorSubscript"} <= set(shape_ops),
+                "the shape-relative translates did not run on the card")
+        print(f"{policy}: shape ops on the card each batch: {', '.join(shape_ops)}")
     host_ms = 1e3 * st["host_phase_seconds"] / nb
     by = sorted(by.items(), key=lambda kv: -kv[1])
     print(f"{policy} batch {BATCH}: {ips:.1f} images/s over {timed} batches; {len(ex.device_ops)} "
@@ -627,17 +668,17 @@ def aug_check(policy, file_list):
     worst, frac = int(d.max()), float((d > 0).float().mean())
     print(f"{policy} alone on the same input, card vs CPU: max diff {worst}, fraction differing "
           f"{frac:.2e}")
-    if policy == "trivial_augment_wide":
+    if policy != "auto_augment_image_net":
         require(worst <= 1 and frac <= 1e-3, f"{policy}: card and CPU disagree")
     else:
         require(frac <= 1e-3, f"{policy}: less than 99.9% of values bit-equal")
 
 
-def aug_phase(card, file_list):
+def aug_phase(card, file_list, policies=("trivial_augment_wide", "auto_augment_image_net")):
     launches = {}
-    for policy in AUG_TIMED:
+    for policy in policies:
         launches[policy] = aug_run(card, file_list, policy)[0]
-    for policy in AUG_TIMED:
+    for policy in policies:
         aug_check(policy, file_list)
     return launches
 
@@ -987,6 +1028,64 @@ def readers_phase(card, rn50_ips):
     return launches, held
 
 
+def frontend_phase(card, file_list, rn50_ips):
+    """Phases 18-20: serialized_rn50, effnet_shape_translate and
+    volumes_zscore; returns the CMN launches of each path and the kernel's
+    readings on serialized_rn50's batch."""
+    from dali_tpu_torch.kernels import cmn
+    from dali_tpu_torch.tools import bench_frontend, bench_ssd
+
+    t_phase = time.perf_counter()
+    dot = os.path.join(HERE, "build", "serialized_rn50.dot")
+    # an epoch of 16 batches: the iterator stops at the end of its reader's epoch
+    r, launches, pipe = bench_frontend.serialized_rn50(
+        write_file_list(repeat=16), BATCH, OUT, "cuda:0", warmup=WARMUP, timed=FRONTEND_TIMED,
+        dot_file=dot)
+    print(f"serialized_rn50 batch {BATCH}: {r['images_per_s']:.1f} images/s over {r['timed']} "
+          f"batches, {100 * r['images_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} in "
+          f"this run; host phase {r['host_ms_per_batch']:.2f} ms/batch, device stage waited "
+          f"{r['device_wait_ms_per_batch']:.2f} ms/batch; cmn launches {launches} ({card})")
+    print(f"serialized_rn50: a {r['payload_bytes']}-byte payload of the ops-built graph, "
+          f"deserialized on cuda:0; {r['batches_equal']} batches bit-equal to the source "
+          f"pipeline's; resumed from the iterator's checkpoints after batch "
+          f"{bench_frontend.CHECKPOINT_AFTER} (counter {r['counter']}): {r['resumed_equal']} "
+          f"batches equal to the uninterrupted run's; dot file {os.path.relpath(dot, HERE)} "
+          f"({os.path.getsize(dot)} bytes)")
+    print("serialized_rn50 executor_statistics(): " + json.dumps(pipe.executor_statistics()))
+    with bench_ssd.recording_cmn([]) as calls:
+        pipe.run()
+    pipe.shutdown()
+    c = dict(bench_ssd.time_cmn(calls[0]), max_abs_err=bench_ssd.hold_cmn(calls[0]))
+    print(f"serialized_rn50 CMN kernel on the path's own batch {c['shape_in']} {c['dtype_in']} -> "
+          f"{c['shape_out']} float32: max abs diff vs plain {c['max_abs_err']:.3e} (limit 1e-05; "
+          f"path launches {launches}); kernel alone {c['ms']:.4f} ms (cold L2), wrapper "
+          f"{c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} bytes, bound "
+          f"{c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+    out = {"serialized_rn50": launches}
+
+    t0 = time.perf_counter()
+    out["effnet_shape_translate"], ips = aug_run(card, file_list, "effnet_shape_translate")
+    print(f"effnet_shape_translate: {100 * ips / rn50_ips:.1f}% of rn50_train's rate")
+    aug_check("effnet_shape_translate", file_list)
+    print(f"effnet_shape_translate phase: {time.perf_counter() - t0:.1f} s")
+
+    cmn.COUNTER.launches = 0
+    written, v = bench_frontend.volumes_phase(os.path.join(HERE, "build", "frontend_volumes"),
+                                              warmup=WARMUP, timed=VOLUMES_TIMED)
+    out["volumes_zscore"] = cmn.COUNTER.launches
+    print(f"volumes_zscore batch {v['batch']} ({v['bytes_per_batch']} bytes of volumes): "
+          f"{v['gb_per_s']:.3f} GB/s over {v['timed']} batches; host phase "
+          f"{v['host_ms_per_batch']:.2f} ms/batch; device stage waited "
+          f"{v['device_wait_ms_per_batch']:.2f} ms/batch; stage ms of one batch alone: "
+          + ", ".join(f"{k} {ms:.3f}" for k, ms in v["stage_ms"].items()) + f" ({card})")
+    print(f"volumes_zscore card vs CPU ({v['checked_batches']} batches): windows bit-equal, "
+          f"stacked output {v['max_rel_err']:.3e} apart relative (limit 1e-05); volumes written "
+          f"in {written:.2f} s and deleted; cmn launches {out['volumes_zscore']} (no CMN on this "
+          "path)")
+    print(f"front-end phases: {time.perf_counter() - t_phase:.1f} s")
+    return out, {"serialized_rn50": c}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1020,6 +1119,9 @@ def main():
     reader_launches, reader_cmn = readers_phase(card, rn50_ips)
     launches.update(reader_launches)
     path_cmn.update(reader_cmn)
+    frontend_launches, frontend_cmn = frontend_phase(card, file_list, rn50_ips)
+    launches.update(frontend_launches)
+    path_cmn.update(frontend_cmn)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

@@ -42,17 +42,29 @@ Ported so far:
   (``dali_tpu_torch.tfrecord`` declares its features), ``numpy`` (cpu and
   ``device="gpu"``), ``sequence``, ``mxnet``, ``caffe``, ``caffe2``,
   ``nemo_asr``, ``fits``, ``decoders.numpy``, ``decoders.inflate``,
-  ``io.file.read``, and ``s3://`` roots (``_s3.py``).
+  ``io.file.read``, and ``s3://`` roots (``_s3.py``);
+* the front end and the PyTorch plugin: ``Pipeline`` with the reference's
+  parameters, ``serialize``/``deserialize`` of the reference's document
+  (payloads cross between the packages), the ``ops`` class API, custom
+  operators (``DALI_SCHEMA``, ``register_operator``, ``plugin_manager``),
+  the legacy operator names whose targets are ported, ``feed_ndarray`` and
+  the iterators' checkpoints;
+* the shape, tensor and value ops and the reductions: ``shapes`` and
+  subscripts, ``cast_like``, ``expand_dims``, ``squeeze``, ``one_hot``,
+  ``reshape``, ``slice``, ``crop``, ``stack``, ``cat``, ``permute_batch``,
+  ``get_property``, ``paste``, the Zeros/Ones/Full family, the eight
+  ``reductions`` and ``reinterpret``.
 
-Other ``fn`` names raise ``NotImplementedError``; ROADMAP.md lists the order
-of the rest.
+Other ``fn`` and ``ops`` names raise ``NotImplementedError`` naming their
+ROADMAP.md Queue 1 item; ROADMAP.md lists the order of the rest.
 This package imports torch, numpy and the standard library only.
 """
 
 from __future__ import annotations
 
 from . import types  # noqa: F401
-from ._schema import OpSpec
+from ._schema import (DALI_SCHEMA, GetSchema, OpSpec, RegisteredSchemas,  # noqa: F401
+                      register_operator)
 from .data_node import DataNode
 
 __version__ = "0.1.0"
@@ -82,11 +94,14 @@ def _op_call(schema_name, device="cpu", inputs=(), name=None, **kwargs):
 from . import backend  # noqa: E402,F401  (registers the ported operators)
 from . import _conditionals  # noqa: E402,F401
 from . import fn  # noqa: E402
+from . import ops  # noqa: E402
 from . import math  # noqa: E402,F401
-from .pipeline import Pipeline, pipeline_def  # noqa: E402,F401
-from .external_source import external_source  # noqa: E402
+from . import plugin_manager  # noqa: E402,F401
+from .pipeline import Pipeline, do_not_convert, pipeline_def  # noqa: E402,F401
+from .external_source import ExternalSource, external_source  # noqa: E402
 
 fn.external_source = external_source
+ops.ExternalSource = ExternalSource
 
 from . import tfrecord  # noqa: E402,F401
 

@@ -8,6 +8,7 @@ validation and defaults; implementations register per (schema, device).
 
 from __future__ import annotations
 
+import enum
 import inspect
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -160,6 +161,7 @@ class OpSchema:
 
 _registry: Dict[str, OpSchema] = {}
 _impl_registry: Dict[Tuple[str, str], Any] = {}
+_alias_targets: Dict[str, str] = {}  # legacy alias schema name -> canonical name
 
 
 def DALI_SCHEMA(name: str) -> OpSchema:
@@ -176,6 +178,10 @@ def GetSchema(name: str) -> OpSchema:
         raise KeyError(f"No schema registered under '{name}'") from None
 
 
+def TryGetSchema(name: str) -> Optional[OpSchema]:
+    return _registry.get(name)
+
+
 def RegisteredSchemas() -> List[str]:
     return sorted(_registry)
 
@@ -190,13 +196,26 @@ def register_operator(schema_name: str, device: str = "cpu"):
     return deco
 
 
+def _resolve(schema_name: str, device: str):
+    """The implementation of (schema, device), looking an alias up through
+    its target at call time: the target may register after the alias."""
+    impl = _impl_registry.get((schema_name, device))
+    if impl is None and schema_name in _alias_targets:
+        impl = _impl_registry.get((_alias_targets[schema_name], device))
+    return impl
+
+
 def get_operator_impl(schema_name: str, device: str):
-    try:
-        return _impl_registry[(schema_name, device)]
-    except KeyError:
+    impl = _resolve(schema_name, device)
+    if impl is None:
         raise NotImplementedError(
             f"Operator '{schema_name}' on device '{device}' is not ported to "
-            "dali_tpu_torch yet; see ROADMAP.md (Queue 1)") from None
+            "dali_tpu_torch yet; see ROADMAP.md (Queue 1)")
+    return impl
+
+
+def has_operator_impl(schema_name: str, device: str) -> bool:
+    return _resolve(schema_name, device) is not None
 
 
 class OpSpec:
@@ -204,7 +223,8 @@ class OpSpec:
 
     _NO_DEFAULT = object()
 
-    def __init__(self, schema_name: str, device: str = "cpu", name: Optional[str] = None, **kwargs):
+    def __init__(self, schema_name: str, device: str = "cpu", name: Optional[str] = None,
+                 _defer_required: bool = False, **kwargs):
         from .data_node import DataNode
 
         self.schema = GetSchema(schema_name)
@@ -242,9 +262,16 @@ class OpSpec:
                 self.arg_inputs[k] = v
             else:
                 self.args[k] = arg.coerce(v)
+        if not _defer_required:
+            self.validate_required()
+
+    def validate_required(self):
+        """Raise for a required argument given neither as a value nor as an
+        argument input. ``Graph.deserialize`` defers it until the argument
+        inputs are wired."""
         for k, arg in self.schema.args.items():
             if arg.required and k not in self.args and k not in self.arg_inputs:
-                raise TypeError(f"Operator '{schema_name}' missing required argument '{k}'")
+                raise TypeError(f"Operator '{self.schema_name}' missing required argument '{k}'")
 
     def GetArgument(self, name, default=_NO_DEFAULT):
         if name in self.args:
@@ -267,6 +294,10 @@ class OpSpec:
     def num_outputs(self):
         fn = self.schema.output_fn
         return fn(self) if fn is not None else self.schema.num_outputs
+
+    def serializable_args(self):
+        """The constant arguments as JSON values (enums as their ints)."""
+        return {k: int(v) if isinstance(v, enum.IntEnum) else v for k, v in self.args.items()}
 
     def __repr__(self):
         return f"<OpSpec {self.schema_name}[{self.device}] name={self.name}>"

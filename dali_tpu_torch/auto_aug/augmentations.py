@@ -6,9 +6,11 @@ and PIL-compatible parameter mappings. Each builds the same graph nodes in the
 same order as the reference, so implicit-seed random streams (keyed by op
 id) draw the same values.
 
-The translates that read the image shape (``translate_x``/``translate_y``,
-``shape=`` in the policies) need ``fn.shapes`` and DataNode subscripts, which
-are not ported: they raise ``NotImplementedError``."""
+The translates relative to the image shape (``translate_x``/``translate_y``,
+``shape=`` in the policies) read it with ``fn.shapes`` and a subscript; on
+device data their matrix is built on the device, its constants included
+(the reference builds the constants on the host, which a device ``cat``
+cannot take)."""
 
 from __future__ import annotations
 
@@ -23,15 +25,19 @@ def _warp(data, matrix_node_or_list, fill_value=128):
 
 
 def _stack_matrix(mxx, mxy, tx, myx, myy, ty):
-    """Build a per-sample flat 2x3 matrix DataNode from scalar DataNodes/consts."""
+    """A per-sample flat 2x3 matrix DataNode from scalar DataNodes and
+    constants, on the device when any of them is there."""
     from ..data_node import DataNode
 
+    values = (mxx, mxy, tx, myx, myy, ty)
+    device = "gpu" if any(isinstance(v, DataNode) and v.device == "gpu" for v in values) else "cpu"
     nodes = []
-    for v in (mxx, mxy, tx, myx, myy, ty):
+    for v in values:
         if isinstance(v, DataNode):
             nodes.append(fn.reshape(fn.cast(v, dtype=types.FLOAT), shape=[1]))
         else:
-            nodes.append(fn.full(fill_value=[float(v)], shape=[1], dtype=types.FLOAT))
+            nodes.append(fn.full(fill_value=[float(v)], shape=[1], dtype=types.FLOAT,
+                                 device=device))
     return fn.cat(*nodes, axis=0)
 
 
@@ -47,15 +53,11 @@ def shear_y(data, shear, fill_value=128):
     return _warp(data, m, fill_value)
 
 
-def _use_shape_not_ported():
-    return NotImplementedError("the shape-relative translates (fn.shapes and DataNode "
-                               "subscripts) are not ported to dali_tpu_torch yet; see "
-                               "ROADMAP.md (Queue 1)")
-
-
 @augmentation(mag_range=(0.0, 1.0), randomly_negate=True, name="translate_x")
 def translate_x(data, rel_offset, fill_value=128):
-    raise _use_shape_not_ported()
+    shape = fn.cast(fn.shapes(data), dtype=types.FLOAT)
+    m = _stack_matrix(1.0, 0.0, rel_offset * shape[1], 0.0, 1.0, 0.0)
+    return _warp(data, m, fill_value)
 
 
 @augmentation(mag_range=(0, 250), randomly_negate=True, name="translate_x_no_shape")
@@ -66,7 +68,9 @@ def translate_x_no_shape(data, offset, fill_value=128):
 
 @augmentation(mag_range=(0.0, 1.0), randomly_negate=True, name="translate_y")
 def translate_y(data, rel_offset, fill_value=128):
-    raise _use_shape_not_ported()
+    shape = fn.cast(fn.shapes(data), dtype=types.FLOAT)
+    m = _stack_matrix(1.0, 0.0, 0.0, 0.0, 1.0, rel_offset * shape[0])
+    return _warp(data, m, fill_value)
 
 
 @augmentation(mag_range=(0, 250), randomly_negate=True, name="translate_y_no_shape")

@@ -171,10 +171,8 @@ def get_svhn_policy() -> Policy:
 
 def auto_augment(data, policy_name: str = "image_net", shape=None, fill_value=128, seed=None, **kwargs):
     """One-call AutoAugment."""
-    if shape is not None:
-        raise a._use_shape_not_ported()
     if policy_name in ("image_net", "image_net_policy"):
-        policy = get_image_net_policy(use_shape=False)
+        policy = get_image_net_policy(use_shape=shape is not None)
     elif policy_name in ("reduced_cifar10", "cifar10"):
         policy = get_reduced_cifar10_policy()
     elif policy_name == "svhn":

@@ -64,9 +64,7 @@ def apply_rand_augment(augmentations, data, n: int, m: int, num_magnitude_bins: 
 def rand_augment(data, n: int, m: int, num_magnitude_bins: int = 31, shape=None, fill_value=128,
                  monotonic_mag: bool = True, excluded=None, seed=None, **kwargs):
     """RandAugment with the standard suite."""
-    if shape is not None:
-        raise a._use_shape_not_ported()
-    augs = get_rand_augment_suite(use_shape=False, monotonic_mag=monotonic_mag)
+    augs = get_rand_augment_suite(use_shape=shape is not None, monotonic_mag=monotonic_mag)
     if excluded:
         augs = [x for x in augs if x.name not in excluded]
     return apply_rand_augment(augs, data, n, m, num_magnitude_bins=num_magnitude_bins,

@@ -40,9 +40,7 @@ def get_trivial_augment_suite(use_shape: bool = False):
 
 def trivial_augment_wide(data, num_magnitude_bins: int = 31, shape=None, fill_value=128,
                          excluded=None, seed=None, **kwargs):
-    if shape is not None:
-        raise a._use_shape_not_ported()
-    augs = get_trivial_augment_suite(use_shape=False)
+    augs = get_trivial_augment_suite(use_shape=shape is not None)
     if excluded:
         augs = [x for x in augs if x.name not in excluded]
     kwargs.setdefault("fill_value", fill_value)

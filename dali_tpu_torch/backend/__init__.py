@@ -23,3 +23,4 @@ from . import bbox  # noqa: F401
 from . import bbox_extra  # noqa: F401
 from . import tail  # noqa: F401
 from . import segmentation  # noqa: F401
+from . import parity  # noqa: F401  (last: aliases the ported operators)

@@ -78,7 +78,10 @@ class DeviceCtx:
     randomness is not ported: every ported random op draws on the host, so
     unlike the reference there is no device key."""
 
-    def __init__(self, arg_arrays, statics, params=None, dev_arg_edges=None, env=None):
+    def __init__(self, arg_arrays, statics, params=None, dev_arg_edges=None, env=None,
+                 batch_size=None):
+        # the iteration's batch size, for device ops with no input
+        self.batch_size = batch_size
         self._arg_arrays = arg_arrays
         self._statics = statics
         self._params = params or {}
@@ -90,6 +93,9 @@ class DeviceCtx:
 
     def param(self, op: "Operator", name: str):
         return self._params[op.op_id][name]
+
+    def has_param(self, op: "Operator", name: str) -> bool:
+        return name in self._params.get(op.op_id, {})
 
     def has_tensor_arg(self, op: "Operator", name: str) -> bool:
         return (name in self._arg_arrays.get(op.op_id, {})
@@ -183,7 +189,7 @@ class Operator:
 # Only the ported names are listed.
 SHAPE_PRESERVING_SCHEMAS = frozenset({
     "Brightness", "BrightnessContrast", "Contrast", "Hsv", "Hue", "Saturation",
-    "experimental.Equalize", "Cast", "Copy", "Flip", "LookupTable", "GaussianBlur",
+    "Equalize", "experimental.Equalize", "Cast", "CastLike", "Copy", "Flip", "LookupTable", "GaussianBlur",
     "Laplacian", "Normalize", "PreemphasisFilter", "ToDecibels", "_conditional.LogicalNot",
 })
 

@@ -862,8 +862,7 @@ class ImageDecoderMixed(_ImageDecoderBase):
             dims.append((sh, sw))
             denoms.append(dn)
         shapes = np.array([[h, w, 3] for h, w in dims], dtype=np.int32)
-        from ..executor import PAD_ALIGN as align
-
+        align = ctx.pipeline.pad_align
         ch = max(int(-(-shapes[:, 0].max() // align) * align), canvas[0] if canvas else 0)
         cw = max(int(-(-shapes[:, 1].max() // align) * align), canvas[1] if canvas else 0)
         arr = np.empty((n, ch, cw, 3), dtype=np.uint8)

@@ -1,7 +1,13 @@
-"""Erase, BbFlip, BoxEncoder and CoordFlip on the device (counterpart of
-``dali_tpu/backend/generic_gpu.py`` ``EraseGPU``, ``BbFlipGPU`` and
-``BoxEncoderGPU``, and of ``dali_tpu/backend/straggler_gpu.py``
-``CoordFlipGPU``; Erase's schema is ``dali_tpu/backend/generic2.py``'s).
+"""Slice, the subscript op, Erase, Paste, the Zeros/Ones/Full value ops,
+BbFlip, BoxEncoder and CoordFlip on the device (counterpart of
+``dali_tpu/backend/generic_gpu.py``, and of
+``dali_tpu/backend/straggler_gpu.py`` ``CoordFlipGPU``; the schemas of Slice,
+Erase and the value ops are ``generic2.py``'s).
+
+Ops with ragged outputs (Slice, the subscript, Paste) follow the reference's
+grow-only canvas: the host setup pass computes each sample's window and
+output extents, the output canvas only grows (rounded up), and the extents
+ride along as the batch's shapes.
 
 The box operators run as plain batched PyTorch over the padded ``[N, M, 4]``
 box canvas, with each sample's box count from ``DeviceBatch.shapes``: the
@@ -15,7 +21,197 @@ import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch
+from ..types import to_torch_type
 from .base import Operator
+from .generic2 import _slice_axes
+
+
+def _round_up(v, align=8):
+    return int(-(-int(v) // align) * align)
+
+
+def _gather_axis(x, axis, idx):
+    """``x`` [N, ...] indexed along ``axis`` (>= 1) by the per-sample
+    indices ``idx`` [N, size]."""
+    size = idx.shape[1]
+    idx = idx.reshape((idx.shape[0],) + (1,) * (axis - 1) + (size,) + (1,) * (x.dim() - axis - 1))
+    return torch.gather(x, axis, idx.expand(*x.shape[:axis], size, *x.shape[axis + 1:]))
+
+
+class _GrowCanvasOp(Operator):
+    """The grow-only output canvas of a device op with ragged outputs."""
+
+    def __init__(self, spec, op_id):
+        super().__init__(spec, op_id)
+        self._grow = {}
+
+    def _grow_to(self, dim, value, align=8):
+        self._grow[dim] = max(self._grow.get(dim, 0), _round_up(value, align))
+        return self._grow[dim]
+
+
+@register_operator("Slice", "gpu")
+class SliceGPU(_GrowCanvasOp):
+    """Each sample's (anchor, shape) is resolved on the host from the
+    arguments; the device gathers the window with indices clamped to the
+    canvas and, under the "pad" policy, fills what lies outside the sample.
+    A batch whose windows all fill the output canvas comes out uniform."""
+
+    def _resolve_windows(self, ctx, shapes):
+        spec = self.spec
+        n, ndim = shapes.shape
+        lays = ctx.in_layouts(self)
+        axes = _slice_axes(spec, lays[0] if lays else "", ndim)
+        dims = shapes[:, axes].astype(np.float64)
+
+        def geta(name):
+            vals = []
+            for i in range(n):
+                v = ctx.arg(self, name, i, None)
+                if v is None:
+                    return None
+                vals.append(np.asarray(v, np.float64).reshape(-1))
+            return np.stack(vals, 0)
+
+        anchor = geta("start")
+        if anchor is None:
+            ra = geta("rel_start")
+            anchor = ra * dims if ra is not None else np.zeros((n, len(axes)))
+        shape = geta("shape")
+        if shape is None:
+            rs = geta("rel_shape")
+            shape = rs * dims if rs is not None else None
+        if shape is None:
+            end = geta("end")
+            if end is None:
+                re = geta("rel_end")
+                end = re * dims if re is not None else None
+            shape = (end - anchor) if end is not None else dims - anchor
+        anchor = np.round(anchor).astype(np.int64)
+        shape = np.maximum(np.round(shape).astype(np.int64), 0)
+        policy = spec.GetArgument("out_of_bounds_policy")
+        if policy == "error" and ((anchor < 0).any() or (anchor + shape > dims).any()):
+            raise ValueError("Slice(gpu): window out of bounds (policy 'error')")
+        if policy == "trim_to_shape":
+            hi = np.minimum(anchor + shape, dims.astype(np.int64))
+            anchor = np.maximum(anchor, 0)
+            shape = np.maximum(hi - anchor, 0)
+        return axes, anchor.astype(np.int32), shape.astype(np.int32)
+
+    def host_params(self, ctx, input_shapes):
+        shapes = input_shapes[0]
+        if shapes is None:
+            raise RuntimeError("Slice(gpu) requires host-known input shapes")
+        if len(input_shapes) > 1:
+            raise NotImplementedError("Slice(gpu): pass anchor/shape as arguments "
+                                      "(start=/shape=/rel_*), not positional inputs")
+        axes, anchor, shp = self._resolve_windows(ctx, np.asarray(shapes))
+        out = np.asarray(shapes).astype(np.int32).copy()
+        out[:, axes] = shp
+        self._axes = axes
+        sizes = tuple(self._grow_to(k, max(int(shp[:, k].max()), 1)) for k in range(len(axes)))
+        self._statics = sizes + (bool((shp == np.asarray(sizes)).all()),)
+        self._out = out
+        return {"slice_anchor": anchor, "slice_out": out}
+
+    def device_statics(self, ctx, input_shapes, input_batches):
+        return self._statics
+
+    def host_output_shapes(self, ctx, input_shapes, input_batches):
+        return [self._out]
+
+    def lower(self, dctx, inp: DeviceBatch):
+        anchor = dctx.param(self, "slice_anchor").to(torch.int64)
+        out_ext = dctx.param(self, "slice_out")
+        *sizes, exact = dctx.static(self)
+        data = inp.data
+        n, canvas = data.shape[0], list(data.shape[1:])
+        in_ext = inp.shapes if inp.shapes is not None else torch.tensor(
+            [canvas], dtype=torch.int32, device=data.device).expand(n, -1)
+        pad = self.spec.GetArgument("out_of_bounds_policy") == "pad"
+        out, valid = data, None
+        for k, a in enumerate(self._axes):
+            # the output canvas may exceed the input's ("pad" windows larger
+            # than the sample): indices clamp, the mask below fills
+            coord = anchor[:, k:k + 1] + torch.arange(sizes[k], device=data.device)
+            out = _gather_axis(out, 1 + a, coord.clamp(0, canvas[a] - 1))
+            if pad:
+                v = ((coord >= 0) & (coord < in_ext[:, a:a + 1])
+                     & (torch.arange(sizes[k], device=data.device) < out_ext[:, a:a + 1]))
+                v = v.reshape((n,) + (1,) * a + (sizes[k],) + (1,) * (len(canvas) - a - 1))
+                valid = v if valid is None else valid & v
+        if valid is not None:
+            fill = float(self.spec.GetArgument("fill_values")[0])
+            out = torch.where(valid, out, torch.tensor(fill, device=out.device).to(out.dtype))
+        dt = self.spec.GetArgument("dtype", None)
+        if dt is not None:
+            out = out.to(to_torch_type(dt))
+        uniform = exact and inp.shapes is None
+        return [DeviceBatch(out, None if uniform else out_ext, inp.layout)]
+
+
+@register_operator("_TensorSubscript", "gpu")
+class TensorSubscriptGPU(_GrowCanvasOp):
+    """Per-sample ``lo:hi`` windows on a grow-only canvas; an index takes a
+    window of one and drops the dim. Negative bounds count from each
+    sample's end."""
+
+    def _windows(self, ctx, shapes):
+        nd = self.spec.GetArgument("num_subscripts")
+        n = shapes.shape[0]
+        lo = np.zeros((n, nd), np.int64)
+        ln = np.zeros((n, nd), np.int64)
+        drop = [d for d in range(nd) if ctx.arg(self, f"at_{d}", 0, None) is not None]
+        for d in range(nd):
+            for i in range(n):
+                dim = int(shapes[i, d])
+                at = ctx.arg(self, f"at_{d}", i, None)
+                if at is not None:
+                    lo[i, d], ln[i, d] = (int(np.asarray(at)) % dim if dim else 0), 1
+                    continue
+                lo_v = ctx.arg(self, f"lo_{d}", i, None)
+                hi_v = ctx.arg(self, f"hi_{d}", i, None)
+                l = 0 if lo_v is None else int(np.asarray(lo_v))
+                l = l % (dim or 1) if l < 0 else l
+                h = dim if hi_v is None else int(np.asarray(hi_v))
+                h = h % (dim or 1) if h < 0 else min(h, dim)
+                lo[i, d], ln[i, d] = l, max(h - l, 0)
+        return lo, ln, drop
+
+    def host_params(self, ctx, input_shapes):
+        shapes = input_shapes[0]
+        if shapes is None:
+            raise RuntimeError("subscript(gpu) requires host-known input shapes")
+        shapes = np.asarray(shapes)
+        lo, ln, drop = self._windows(ctx, shapes)
+        self._statics = (tuple(self._grow_to(d, max(int(ln[:, d].max()), 1))
+                               for d in range(ln.shape[1])), tuple(drop))
+        out = shapes.astype(np.int32).copy()
+        out[:, :ln.shape[1]] = ln
+        self._out = out[:, [d for d in range(shapes.shape[1]) if d not in drop]]
+        return {"sub_lo": lo.astype(np.int32), "sub_out": self._out}
+
+    def host_output_shapes(self, ctx, input_shapes, input_batches):
+        return [self._out]
+
+    def device_statics(self, ctx, input_shapes, input_batches):
+        return self._statics
+
+    def lower(self, dctx, inp: DeviceBatch):
+        lo = dctx.param(self, "sub_lo").to(torch.int64)
+        out_ext = dctx.param(self, "sub_out")
+        sizes, drop = dctx.static(self)
+        out = inp.data
+        canvas = list(out.shape[1:])
+        for d, size in enumerate(sizes):
+            size = 1 if d in drop else min(size, canvas[d])
+            coord = (lo[:, d:d + 1] + torch.arange(size, device=out.device)).clamp(
+                0, canvas[d] - 1)
+            out = _gather_axis(out, 1 + d, coord)
+        if drop:
+            keep = [d for d in range(len(canvas)) if d not in drop]
+            out = out.reshape(out.shape[0], *(out.shape[1 + d] for d in keep))
+        return [DeviceBatch(out, out_ext if out_ext.shape[1] else None, "")]
 
 DALI_SCHEMA("Erase").DocStr("Erases (fills) regions.").NumInput(1).NumOutput(1).Devices(
     "cpu", "gpu").AddOptionalArg(
@@ -278,3 +474,157 @@ class CoordFlipGPU(Operator):
             c = float(spec.GetArgument(f"center_{axis}"))
             out[..., i] = torch.where(flag, 2.0 * c - out[..., i], out[..., i])
         return [inp.with_data(out)]
+
+
+DALI_SCHEMA("Paste").DocStr("Pastes the image into a larger filled canvas.").NumInput(
+    1).NumOutput(1).Devices("cpu", "gpu").AddArg(
+    "ratio", ArgType.FLOAT, "Canvas enlargement ratio (>= 1).", tensor_ok=True
+).AddOptionalArg(
+    "paste_x", ArgType.FLOAT, "Horizontal position [0,1].", 0.5, tensor_ok=True
+).AddOptionalArg(
+    "paste_y", ArgType.FLOAT, "Vertical position [0,1].", 0.5, tensor_ok=True
+).AddOptionalArg(
+    "fill_value", ArgType.FLOAT_VEC, "Canvas fill (per channel).", [0.0]
+).AddOptionalArg(
+    "min_canvas_size", ArgType.FLOAT, "Minimum canvas extent.", 0.0
+).AddOptionalArg(
+    "n_channels", ArgType.INT,
+    "Number of output channels; the fill_value list must match. Defaults to the input's "
+    "channel count.", None)
+
+
+@register_operator("Paste", "gpu")
+class PasteGPU(_GrowCanvasOp):
+    """Each HWC sample at its (paste_y, paste_x) position in a canvas of
+    ``ratio`` times its size, filled elsewhere; the canvas grows in steps
+    of 32."""
+
+    def host_params(self, ctx, input_shapes):
+        shapes = input_shapes[0]
+        if shapes is None:
+            raise RuntimeError("Paste(gpu) requires host-known input shapes")
+        shapes = np.asarray(shapes)
+        n = shapes.shape[0]
+        mins = int(self.spec.GetArgument("min_canvas_size"))
+        out = np.zeros((n, 3), np.int32)
+        pos = np.zeros((n, 2), np.int32)
+        for i in range(n):
+            r = float(np.asarray(ctx.arg(self, "ratio", i, 1.0)))
+            px = float(np.asarray(ctx.arg(self, "paste_x", i, 0.5)))
+            py = float(np.asarray(ctx.arg(self, "paste_y", i, 0.5)))
+            h, w = int(shapes[i, 0]), int(shapes[i, 1])
+            ch = max(int(round(h * r)), mins, h)
+            cw = max(int(round(w * r)), mins, w)
+            out[i] = (ch, cw, shapes[i, 2] if shapes.shape[1] > 2 else 0)
+            pos[i] = (int(round(py * (ch - h))), int(round(px * (cw - w))))
+        self._statics = (self._grow_to(0, out[:, 0].max(), 32),
+                         self._grow_to(1, out[:, 1].max(), 32))
+        self._out = out
+        return {"paste_pos": pos, "paste_out": out}
+
+    def device_statics(self, ctx, input_shapes, input_batches):
+        return self._statics
+
+    def host_output_shapes(self, ctx, input_shapes, input_batches):
+        out = self._out
+        nc = self.spec.GetArgument("n_channels", None)
+        if nc is not None and out.shape[0] and int(nc) > int(out[0, 2]):
+            out = out.copy()
+            out[:, 2] = int(nc)
+        return [out]
+
+    def lower(self, dctx, inp: DeviceBatch):
+        pos = dctx.param(self, "paste_pos").to(torch.int64)
+        out_ext = dctx.param(self, "paste_out")
+        ch, cw = dctx.static(self)
+        data = inp.data
+        n, H, W, C = data.shape
+        dev = data.device
+        fv = torch.tensor(self.spec.GetArgument("fill_value"), dtype=torch.float32,
+                          device=dev).to(data.dtype)
+        ext = inp.shapes if inp.shapes is not None else torch.tensor(
+            [[H, W, C]], dtype=torch.int32, device=dev).expand(n, -1)
+        # out[y, x] = img[y - py, x - px] inside the pasted box, fill elsewhere
+        rows = torch.arange(ch, device=dev)[None] - pos[:, :1]
+        cols = torch.arange(cw, device=dev)[None] - pos[:, 1:]
+        g = _gather_axis(_gather_axis(data, 1, rows.clamp(0, H - 1)), 2, cols.clamp(0, W - 1))
+        inside = (((rows >= 0) & (rows < ext[:, :1]))[:, :, None, None]
+                  & ((cols >= 0) & (cols < ext[:, 1:2]))[:, None, :, None])
+        canvas = (fv.reshape(1, 1, 1, -1) if fv.numel() > 1 else fv.reshape(1, 1, 1, 1))
+        out = torch.where(inside, g, canvas)
+        nc = self.spec.GetArgument("n_channels", None)
+        if nc is not None and int(nc) > C:
+            extra = int(nc) - C
+            fpad = fv.reshape(-1)[C:] if fv.numel() >= int(nc) else fv.reshape(-1)[-1:]
+            out = torch.cat([out, fpad.expand(*out.shape[:-1], extra)], dim=-1)
+            out_ext = torch.cat([out_ext[:, :2], torch.full_like(out_ext[:, 2:], int(nc))], 1)
+        return [DeviceBatch(out, out_ext, inp.layout or "HWC")]
+
+
+class _ValueOpGPU(Operator):
+    """Zeros, Ones and Full (a constant ``shape``), and their *Like forms
+    (the input's shape), made on the device. A fill value of k entries fills
+    the last dim. The dtype is ``dtype``, else the input's (Like), the fill
+    value's (Full) or int32."""
+
+    fill = 0.0
+    like = False
+
+    def host_output_shapes(self, ctx, input_shapes, input_batches):
+        if self.like:
+            return [input_shapes[0]]
+        shp = self.spec.GetArgument("shape", None)
+        if shp is None:
+            return None
+        return [np.tile(np.asarray(shp, np.int32).reshape(-1), (ctx.batch_size, 1))]
+
+    def _fill_value(self, dctx, n, device):
+        """[n] scalar fills, or [n, k] for a k-vector ``fill_value``."""
+        if self.fill is not None:
+            return torch.full((n,), self.fill, dtype=torch.float32, device=device)
+        v = dctx.arg(self, "fill_value", 0.0)
+        if dctx.has_tensor_arg(self, "fill_value"):
+            # 32-bit, as the reference's device program holds them
+            v = v.reshape(n, -1)
+            narrow = {torch.float64: torch.float32, torch.int64: torch.int32}
+            return v.to(narrow.get(v.dtype, v.dtype))
+        arr = np.asarray(v, np.float32).reshape(-1)
+        if arr.size > 1:
+            return torch.from_numpy(arr).to(device)[None].expand(n, -1)
+        return torch.full((n,), float(arr[0]), dtype=torch.float32, device=device)
+
+    def lower(self, dctx, *inputs):
+        dt_arg = self.spec.GetArgument("dtype", None)
+        if self.like:
+            inp = inputs[0]
+            n, device = inp.data.shape[0], inp.data.device
+            dt = to_torch_type(dt_arg) if dt_arg is not None else inp.data.dtype
+            fv = self._fill_value(dctx, n, device)
+            nd = inp.data.dim()
+            fv = (fv.reshape((n,) + (1,) * (nd - 2) + (fv.shape[1],))
+                  if fv.dim() == 2 and fv.shape[1] > 1 else fv.reshape((n,) + (1,) * (nd - 1)))
+            return [DeviceBatch(fv.to(dt).expand(inp.data.shape).contiguous(), inp.shapes,
+                                inp.layout)]
+        if dctx.has_tensor_arg(self, "shape"):
+            raise NotImplementedError(f"{type(self).__name__}: per-sample `shape` on gpu is not "
+                                      "supported; generate on cpu and .gpu() the result")
+        n, device = dctx.batch_size, self.pipeline.device
+        shp = self.spec.GetArgument("shape", None)
+        shape = tuple(int(v) for v in np.asarray(shp).reshape(-1)) if shp is not None else ()
+        fv = self._fill_value(dctx, n, device)
+        if dt_arg is not None:
+            dt = to_torch_type(dt_arg)
+        else:
+            dt = fv.dtype if self.fill is None else torch.int32
+        if fv.dim() == 2 and fv.shape[1] > 1:
+            shape = shape or (fv.shape[1],)
+            fv = fv.reshape((n,) + (1,) * (len(shape) - 1) + (fv.shape[1],))
+        else:
+            fv = fv.reshape((n,) + (1,) * len(shape))
+        return [DeviceBatch(fv.to(dt).expand((n,) + shape).contiguous(), None, "")]
+
+
+for _nm, _fill, _like in (("Zeros", 0.0, False), ("Ones", 1.0, False), ("Full", None, False),
+                          ("ZerosLike", 0.0, True), ("OnesLike", 1.0, True),
+                          ("FullLike", None, True)):
+    register_operator(_nm, "gpu")(type(_nm + "GPU", (_ValueOpGPU,), {"fill": _fill, "like": _like}))

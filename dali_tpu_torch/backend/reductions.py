@@ -1,6 +1,9 @@
-"""reductions.Mean, Min and Max (counterpart of ``dali_tpu/backend/reductions.py``):
-the cpu ops in numpy, the gpu ops in torch on uniform batches only, as in
-the reference."""
+"""The reductions Sum, Mean, Max, Min, MeanSquare, RootMeanSquare, StdDev
+and Variance (counterpart of ``dali_tpu/backend/reductions.py``): the cpu
+ops in numpy, the gpu ops in torch on uniform batches only, as in the
+reference. StdDev and Variance take an optional second input, the mean
+(with or without the reduced dims), and ``ddof``; the sum of squares is
+divided by ``max(n - ddof, 1)``."""
 
 from __future__ import annotations
 
@@ -12,15 +15,18 @@ from ..batch import DeviceBatch
 from ..types import to_numpy_type, to_torch_type
 from .base import Operator
 
-_KINDS = ("Mean", "Max", "Min")
+_KINDS = ("Sum", "Mean", "Max", "Min", "MeanSquare", "RootMeanSquare", "StdDev", "Variance")
+_WITH_MEAN = ("StdDev", "Variance")
 
 for _k in _KINDS:
-    (DALI_SCHEMA(f"reductions.{_k}").DocStr(f"{_k} reduction over `axes` (default: all).")
-     .NumInput(1).NumOutput(1).Devices("cpu", "gpu")
-     .AddOptionalArg("axes", ArgType.INT_VEC, "Reduction axes (default: all).", None)
-     .AddOptionalArg("axis_names", ArgType.TENSOR_LAYOUT, "Axes by layout name.", None)
-     .AddOptionalArg("keep_dims", ArgType.BOOL, "Keep reduced dims as size 1.", False)
-     .AddOptionalArg("dtype", ArgType.DATA_TYPE, "Output dtype.", None))
+    _s = (DALI_SCHEMA(f"reductions.{_k}").DocStr(f"{_k} reduction over `axes` (default: all).")
+          .NumInput(1, 2 if _k in _WITH_MEAN else 1).NumOutput(1).Devices("cpu", "gpu")
+          .AddOptionalArg("axes", ArgType.INT_VEC, "Reduction axes (default: all).", None)
+          .AddOptionalArg("axis_names", ArgType.TENSOR_LAYOUT, "Axes by layout name.", None)
+          .AddOptionalArg("keep_dims", ArgType.BOOL, "Keep reduced dims as size 1.", False)
+          .AddOptionalArg("dtype", ArgType.DATA_TYPE, "Output dtype.", None))
+    if _k in _WITH_MEAN:
+        _s.AddOptionalArg("ddof", ArgType.INT, "Delta degrees of freedom.", 0)
 
 
 def _axes_of(spec, ndim, layout=""):
@@ -40,17 +46,51 @@ def _axes_of(spec, ndim, layout=""):
     return tuple(range(ndim))
 
 
-def _reduce_np(kind, x, axes, keep):
+def _reduce_np(kind, x, axes, keep, ddof=0, mean=None):
+    if kind == "Max":
+        return np.max(x, axis=axes, keepdims=keep)
+    if kind == "Min":
+        return np.min(x, axis=axes, keepdims=keep)
+    x = x.astype(np.float32)
+    if kind == "Sum":
+        return np.sum(x, axis=axes, keepdims=keep)
     if kind == "Mean":
-        return np.mean(x.astype(np.float32), axis=axes, keepdims=keep)
-    return (np.max if kind == "Max" else np.min)(x, axis=axes, keepdims=keep)
+        return np.mean(x, axis=axes, keepdims=keep)
+    if kind == "MeanSquare":
+        return np.mean(x * x, axis=axes, keepdims=keep)
+    if kind == "RootMeanSquare":
+        return np.sqrt(np.mean(x * x, axis=axes, keepdims=keep))
+    m = np.mean(x, axis=axes, keepdims=True) if mean is None else _keep_reduced(mean, x, axes)
+    n = int(np.prod([x.shape[a] for a in axes]))
+    var = np.sum((x - m) ** 2, axis=axes, keepdims=keep) / max(n - ddof, 1)
+    return np.sqrt(var) if kind == "StdDev" else var
 
 
-def _reduce_torch(kind, x, axes, keep):
+def _reduce_torch(kind, x, axes, keep, ddof=0, mean=None):
+    if kind == "Max":
+        return torch.amax(x, dim=axes, keepdim=keep)
+    if kind == "Min":
+        return torch.amin(x, dim=axes, keepdim=keep)
+    x = x.to(torch.float32)
+    if kind == "Sum":
+        return torch.sum(x, dim=axes, keepdim=keep)
     if kind == "Mean":
-        return torch.mean(x.to(torch.float32), dim=axes, keepdim=keep)
-    return torch.amax(x, dim=axes, keepdim=keep) if kind == "Max" else torch.amin(
-        x, dim=axes, keepdim=keep)
+        return torch.mean(x, dim=axes, keepdim=keep)
+    if kind == "MeanSquare":
+        return torch.mean(x * x, dim=axes, keepdim=keep)
+    if kind == "RootMeanSquare":
+        return torch.sqrt(torch.mean(x * x, dim=axes, keepdim=keep))
+    m = torch.mean(x, dim=axes, keepdim=True) if mean is None else _keep_reduced(mean, x, axes)
+    n = int(np.prod([x.shape[a] for a in axes]))
+    var = torch.sum((x - m) ** 2, dim=axes, keepdim=keep) / max(n - ddof, 1)
+    return torch.sqrt(var) if kind == "StdDev" else var
+
+
+def _keep_reduced(m, x, axes):
+    """A mean given without the reduced dims, reshaped to broadcast."""
+    if m.ndim == x.ndim:
+        return m
+    return m.reshape([1 if a in axes else x.shape[a] for a in range(x.ndim)])
 
 
 class _ReductionCPU(Operator):
@@ -60,10 +100,13 @@ class _ReductionCPU(Operator):
         self._in_layout = inputs[0].layout if inputs else ""
         return super().run_batch(ctx, *inputs)
 
-    def run_sample(self, ctx, idx, x):
-        axes = _axes_of(self.spec, x.ndim, self._in_layout)
-        out = np.asarray(_reduce_np(self.kind, x, axes, self.spec.GetArgument("keep_dims")))
-        dt = self.spec.GetArgument("dtype", None)
+    def run_sample(self, ctx, idx, x, *mean_in):
+        spec = self.spec
+        axes = _axes_of(spec, x.ndim, self._in_layout)
+        ddof = spec.GetArgument("ddof") if self.kind in _WITH_MEAN else 0
+        mean = np.asarray(mean_in[0], np.float32) if mean_in else None
+        out = np.asarray(_reduce_np(self.kind, x, axes, spec.GetArgument("keep_dims"), ddof, mean))
+        dt = spec.GetArgument("dtype", None)
         return out.astype(to_numpy_type(dt)) if dt is not None else out
 
     def output_layout(self, output_idx, inputs):
@@ -86,13 +129,16 @@ class _ReductionGPU(Operator):
             return [out]
         return [sh[:, [a for a in range(sh.shape[1]) if a not in set(axes)]]]
 
-    def lower(self, dctx, inp: DeviceBatch):
+    def lower(self, dctx, inp: DeviceBatch, *mean_in):
         if inp.shapes is not None:
             raise NotImplementedError(
                 f"reductions.{self.kind}(gpu) requires uniform batches (pad first)")
-        axes = tuple(a + 1 for a in _axes_of(self.spec, inp.data.dim() - 1, inp.layout))
-        out = _reduce_torch(self.kind, inp.data, axes, self.spec.GetArgument("keep_dims"))
-        dt = self.spec.GetArgument("dtype", None)
+        spec = self.spec
+        axes = tuple(a + 1 for a in _axes_of(spec, inp.data.dim() - 1, inp.layout))
+        ddof = spec.GetArgument("ddof") if self.kind in _WITH_MEAN else 0
+        mean = mean_in[0].data.to(torch.float32) if mean_in else None
+        out = _reduce_torch(self.kind, inp.data, axes, spec.GetArgument("keep_dims"), ddof, mean)
+        dt = spec.GetArgument("dtype", None)
         if dt is not None:
             out = out.to(to_torch_type(dt))
         return [DeviceBatch(out, None, "")]

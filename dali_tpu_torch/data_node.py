@@ -1,6 +1,8 @@
 """Symbolic graph edge (counterpart of ``dali_tpu/data_node.py``).
 
-``.gpu()`` inserts a ``_CopyToDevice`` node; arithmetic and comparison
+``.gpu()`` inserts a ``_CopyToDevice`` node, ``shape()`` a ``Shapes`` node
+and a subscript (``x[1]``, ``x[lo:hi, -1]``, with DataNode bounds as
+argument inputs) a ``_TensorSubscript`` node; arithmetic and comparison
 operators on DataNodes emit one ``_ArithmeticGenericOp`` node per Python
 operator, with Python scalars as ``$v:t`` literals of an explicit DALI type.
 An expression with any input on the device runs there, and its CPU inputs are
@@ -33,6 +35,43 @@ class DataNode:
         if self.device == "cpu":
             return self
         raise ValueError("device->host transfers inside the graph are not supported")
+
+    def shape(self, dtype=None, device="cpu"):
+        """Per-sample shapes as a new DataNode (``Shapes`` on this edge's
+        device)."""
+        from . import _op_call
+
+        return _op_call("Shapes", device=self.device, inputs=[self],
+                        dtype=dtype or _types.INT64)
+
+    @property
+    def property(self):
+        raise NotImplementedError("Use fn.get_property")
+
+    def __getitem__(self, idx):
+        """Per-sample subscript: integers and ``lo:hi`` slices (bounds may be
+        negative, or DataNodes); Ellipsis, strides and newaxis raise."""
+        from . import _op_call
+
+        if not isinstance(idx, tuple):
+            idx = (idx,)
+        kwargs = {}
+        for d, i in enumerate(idx):
+            if i is Ellipsis:
+                raise NotImplementedError("Ellipsis subscript not supported yet")
+            if isinstance(i, slice):
+                if i.step not in (None, 1):
+                    raise NotImplementedError("Strided subscript not supported yet")
+                if i.start is not None:
+                    kwargs[f"lo_{d}"] = _sub_arg(i.start)
+                if i.stop is not None:
+                    kwargs[f"hi_{d}"] = _sub_arg(i.stop)
+            elif i is None:
+                raise NotImplementedError("newaxis subscript not supported yet")
+            else:
+                kwargs[f"at_{d}"] = _sub_arg(i)
+        return _op_call("_TensorSubscript", device=self.device, inputs=[self],
+                        num_subscripts=len(idx), **kwargs)
 
     def _arithm(self, op: str, *others, reverse=False):
         from . import _op_call
@@ -151,6 +190,10 @@ class DataNode:
     def __repr__(self):
         src = self.source.instance_name if self.source is not None else None
         return f"DataNode(name={self.name!r}, device={self.device!r}, source={src!r})"
+
+
+def _sub_arg(v):
+    return v if isinstance(v, DataNode) else int(v)
 
 
 def _scalar_desc(value, dtype: Optional[_types.DALIDataType]) -> str:

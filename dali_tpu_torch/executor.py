@@ -8,7 +8,7 @@ Two stage threads, as in the reference:
   (parameters, statics, output shapes and layouts in numpy: nothing is read
   back from the device per batch). A ragged host
   batch is padded onto a grow-only canvas per boundary edge: the canvas only
-  grows (rounded up to ``PAD_ALIGN`` on spatial dims), which bounds the
+  grows (rounded up to the pipeline's ``pad_align`` on spatial dims), which bounds the
   number of distinct device shapes, and so of cuFFT plans and allocator
   sizes, as the reference bounds its recompiles;
 * **device phase** — each staged host buffer is copied once to the device
@@ -39,10 +39,12 @@ from .batch import (DeviceBatch, Esc16Staged, FlatStaged, HostBatch, SparseStage
                     pad_and_stack)
 from .kernels import wire
 from .tensors import TensorListCPU, TensorListGPU
+from .types import DALIDataType, to_numpy_type
 
 
-# Canvas alignment of spatial dims: dali_tpu's default ``pad_align``, so the
-# port's canvases, and so its output shapes, equal the reference's.
+# Canvas alignment of spatial dims where no pipeline sets one (eager mode):
+# dali_tpu's default ``pad_align``, so the port's canvases, and so its output
+# shapes, equal the reference's.
 PAD_ALIGN = 64
 # host arrays up to this size cross to the device packed in one buffer
 PACK_BYTES = 1 << 16
@@ -57,11 +59,11 @@ def _edge_key(edge) -> Tuple[int, int]:
     return (edge.source.id, edge.source_idx)
 
 
-def pad_align_for(hb: HostBatch) -> List[int]:
+def pad_align_for(hb: HostBatch, pad_align: int = PAD_ALIGN) -> List[int]:
     """Canvas alignment of a ragged host batch: spatial dims align to
-    ``PAD_ALIGN``; channel-like dims ('C', 'N', or an unnamed trailing dim of
+    ``pad_align``; channel-like dims ('C', 'N', or an unnamed trailing dim of
     at most 4) stay exact."""
-    align = [PAD_ALIGN] * hb.ndim
+    align = [pad_align] * hb.ndim
     for d, name in enumerate(hb.layout[:hb.ndim]):
         if name in ("C", "N"):
             align[d] = 1
@@ -114,7 +116,8 @@ def run_device_op(impl: Operator, ctx: HostCtx, inputs: List[DeviceBatch], in_sh
 
     dctx = DeviceCtx({impl.op_id: {k: to_dev(stack_arg(b)) for k, b in arg_batches.items()}},
                      {} if statics is None else {impl.op_id: statics},
-                     {impl.op_id: {k: to_dev(v) for k, v in (params or {}).items()}})
+                     {impl.op_id: {k: to_dev(v) for k, v in (params or {}).items()}},
+                     batch_size=ctx.batch_size)
     return list(impl.lower(dctx, *inputs)), out_shapes
 
 
@@ -200,9 +203,13 @@ class Executor:
         # (chip_smoke.py's instrumented batch): [(stage, start, end), ...]
         self.record_stage_events = False
         self.stage_events: List[Tuple[str, object, object]] = []
-        # cumulative host-clock seconds: host phase work, and the device
-        # stage's wait for staged batches (its idle time on the host side)
-        self.stats = {"host_batches": 0, "host_phase_seconds": 0.0, "device_wait_seconds": 0.0}
+        # cumulative host-clock seconds: host phase work, the host stage's
+        # wait for room in the queue, the device phase's work and its wait
+        # for staged batches (its idle time on the host side); the host
+        # phase's thread CPU seconds; batches done by each stage
+        self.stats = {"host_batches": 0, "host_phase_seconds": 0.0, "host_phase_cpu_seconds": 0.0,
+                      "host_stall_seconds": 0.0, "device_wait_seconds": 0.0,
+                      "device_phase_seconds": 0.0, "iterations_completed": 0}
         # cumulative host-clock seconds by operator schema: host ops, and the
         # host-side setup pass of device ops
         self.host_seconds_by_schema: Dict[str, float] = {}
@@ -295,18 +302,21 @@ class Executor:
             if it is None:
                 break
             try:
-                t0 = time.perf_counter()
+                t0, c0 = time.perf_counter(), time.thread_time()
                 staged = self._host_phase(it)
-                self.stats["host_phase_seconds"] += time.perf_counter() - t0
-                self.stats["host_batches"] += 1
                 if self.pipeline.enable_checkpointing:
                     st = self.checkpoint_state()
                     st["iteration"] = it + 1
                     staged["ckpt"] = st
+                t1, c1 = time.perf_counter(), time.thread_time()
+                self.stats["host_phase_seconds"] += t1 - t0
+                self.stats["host_phase_cpu_seconds"] += c1 - c0
+                self.stats["host_batches"] += 1
             except BaseException as e:  # surfaces at the next outputs()
                 device_q.put(e)
                 return
             device_q.put(staged)
+            self.stats["host_stall_seconds"] += time.perf_counter() - t1
 
     def _device_loop(self, device_q, out_q):
         if self.device.type == "cuda":
@@ -321,7 +331,10 @@ class Executor:
                 out_q.put(staged)
                 return
             try:
+                t1 = time.perf_counter()
                 result = self._device_phase(staged)
+                self.stats["device_phase_seconds"] += time.perf_counter() - t1
+                self.stats["iterations_completed"] += 1
             except BaseException as e:
                 out_q.put(e)
                 return
@@ -368,7 +381,8 @@ class Executor:
             item = env[k]
             if isinstance(item, HostBatch):
                 # a uniform batch stages exact, unless the canvas has grown
-                align = 1 if item.is_uniform() else pad_align_for(item)
+                align = (1 if item.is_uniform()
+                         else pad_align_for(item, self.pipeline.pad_align))
                 arr, shapes = pad_and_stack(item, canvas=self._canvas.get(k), align=align)
                 self._canvas[k] = list(arr.shape[1:])
                 item = Staged(arr, shapes, item.layout)
@@ -400,6 +414,7 @@ class Executor:
             self._timed(node, t0)
         return {
             "iteration": iteration,
+            "batch_size": ctx.batch_size,
             "boundary": boundary,
             "args": args,
             "params": params,
@@ -506,7 +521,8 @@ class Executor:
         arg_arrays: Dict[int, Dict[str, torch.Tensor]] = {}
         for (op_id, name, _), arr in zip(self.device_arg_edges, dev_args):
             arg_arrays.setdefault(op_id, {})[name] = arr
-        dctx = DeviceCtx(arg_arrays, staged["statics"], params, self.device_arg_dev_edges, env)
+        dctx = DeviceCtx(arg_arrays, staged["statics"], params, self.device_arg_dev_edges, env,
+                         batch_size=staged["batch_size"])
         for node, release in zip(self.device_ops, self._release_after):
             t0 = self._event() if timing else None
             outs = self.impls[node.id].lower(dctx, *[env[_edge_key(e)] for e in node.spec.inputs])
@@ -523,11 +539,60 @@ class Executor:
             k = _edge_key(out)
             if out.device == "gpu":
                 db = env[k]
-                results.append(TensorListGPU(db.data, staged["out_shapes"].get(k), db.layout))
+                results.append(TensorListGPU(db.data, staged["out_shapes"].get(k), db.layout,
+                                             device_shapes=db.shapes))
             else:
                 hb = staged["cpu_outputs"][k]
                 results.append(TensorListCPU(hb.samples, hb.layout))
+        if self.pipeline.output_dtype is not None or self.pipeline.output_ndim is not None:
+            self._validate_outputs(results)
         return tuple(results)
+
+    def statistics(self) -> dict:
+        """The reference's executor statistics where the port has the
+        thing: the stage counters and seconds (``device_wait_seconds`` is
+        the reference's ``device_stall_seconds``; ``device_dispatches``
+        counts device phases), the boundary canvases, and the host seconds
+        by operator schema as ``host_breakdown_seconds``."""
+        out = dict(self.stats)
+        out["device_stall_seconds"] = out["device_wait_seconds"]
+        out["device_dispatches"] = out["iterations_completed"]
+        # the host thread may grow a canvas meanwhile: copy until it holds
+        for _ in range(8):
+            try:
+                out["canvases"] = {str(k): list(v) for k, v in self._canvas.items()}
+                out["host_breakdown_seconds"] = dict(self.host_seconds_by_schema)
+                break
+            except RuntimeError:
+                continue
+        return out
+
+    def _validate_outputs(self, results):
+        """The pipeline's declared ``output_dtype`` / ``output_ndim``, per
+        output; the ndim of a device output is its canvas's, read without
+        the per-sample shapes."""
+        want_dt, want_nd = self.pipeline.output_dtype, self.pipeline.output_ndim
+        n = len(results)
+        dts = want_dt if isinstance(want_dt, (list, tuple)) else [want_dt] * n
+        nds = want_nd if isinstance(want_nd, (list, tuple)) else [want_nd] * n
+        for i, tl in enumerate(results):
+            dt = dts[i] if i < len(dts) else None
+            nd = nds[i] if i < len(nds) else None
+            if dt is not None:
+                got = (torch.empty(0, dtype=tl.dtype).numpy().dtype
+                       if isinstance(tl, TensorListGPU) else np.dtype(tl.dtype))
+                want = to_numpy_type(DALIDataType(int(dt)))
+                if got != want:
+                    raise RuntimeError(f"Pipeline output {i}: declared output_dtype "
+                                       f"{DALIDataType(int(dt))!r} but got {got}")
+            if nd is not None:
+                if isinstance(tl, TensorListGPU):
+                    got_nd = tl.as_tensor().dim() - 1
+                else:
+                    got_nd = tl.at(0).ndim if len(tl) else int(nd)
+                if got_nd != int(nd):
+                    raise RuntimeError(f"Pipeline output {i}: declared output_ndim {nd} but got "
+                                       f"{got_nd}-D samples")
 
     # -- metadata / checkpointing ---------------------------------------------------------
     def reader_meta(self) -> Dict[str, dict]:

@@ -34,13 +34,12 @@ import torch
 from ..._schema import GetSchema, OpSpec, RegisteredSchemas, get_operator_impl
 from ...backend.base import HostCtx
 from ...batch import DeviceBatch, HostBatch, pad_and_stack
-from ...executor import pad_align_for, run_device_op
-from ...fn import _camel_to_snake
+from ...executor import PAD_ALIGN, pad_align_for, run_device_op
+from ...fn import _camel_to_snake, not_ported
 
 
-def _not_ported(path: str, where: str = "Queue 1"):
-    return NotImplementedError(
-        f"ndd.{path} is not ported to dali_tpu_torch yet; see ROADMAP.md ({where})")
+def _not_ported(path: str):
+    return not_ported(path, api="ndd")
 
 
 class EvalContext:
@@ -325,6 +324,7 @@ class _EagerPipelineShim:
         self.py_num_workers = 1
         self.py_start_method = "fork"
         self.py_callback_pickler = None
+        self.pad_align = PAD_ALIGN
 
 
 def _fn_for_schema(schema_name: str):

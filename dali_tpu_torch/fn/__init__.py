@@ -1,7 +1,7 @@
 """Functional API generated from the schema registry: every ported,
 non-internal schema becomes a snake_case function nested by its dotted path
 (``readers.File`` -> ``fn.readers.file``). Names of operators that are not
-ported raise ``NotImplementedError`` pointing to ROADMAP.md."""
+ported raise ``NotImplementedError`` naming their ROADMAP.md Queue 1 item."""
 
 from __future__ import annotations
 
@@ -12,9 +12,24 @@ import types as _pytypes
 from .._schema import GetSchema, RegisteredSchemas
 
 
-def _not_ported(path: str):
-    return NotImplementedError(
-        f"fn.{path} is not ported to dali_tpu_torch yet; see ROADMAP.md (Queue 1)")
+def not_ported(path: str, api: str = "fn", shown: str = None) -> NotImplementedError:
+    """The error of an operator name the port lacks, with its ROADMAP.md
+    Queue 1 item where one is known (``path`` is the dotted snake_case
+    name, ``shown`` the name as the caller wrote it)."""
+    from ..backend.parity import QUEUE_ITEMS
+
+    items = {_snake_path(k): v for k, v in QUEUE_ITEMS.items()}
+    # a namespace none of whose operators is ported: its operators' item
+    within = {v for k, v in items.items() if k.startswith(path + ".")}
+    item = items.get(path) or (within.pop() if len(within) == 1 else None)
+    where = f"Queue 1, {item}" if item else "Queue 1"
+    return NotImplementedError(f"{api}.{shown or path} is not ported to dali_tpu_torch yet; see "
+                               f"ROADMAP.md ({where})")
+
+
+def _snake_path(schema_name: str) -> str:
+    *parts, last = schema_name.split(".")
+    return ".".join(parts + [_camel_to_snake(last)])
 
 
 class _Namespace(_pytypes.ModuleType):
@@ -23,13 +38,13 @@ class _Namespace(_pytypes.ModuleType):
     def __getattr__(self, name):
         if name.startswith("_"):
             raise AttributeError(name)
-        raise _not_ported(f"{self.__name__.split('.fn.', 1)[1]}.{name}")
+        raise not_ported(f"{self.__name__.split('.fn.', 1)[1]}.{name}")
 
 
 def __getattr__(name):
     if name.startswith("_"):
         raise AttributeError(name)
-    raise _not_ported(name)
+    raise not_ported(name)
 
 
 # tokens kept whole, as the reference's fn module keeps them

@@ -111,5 +111,13 @@ def dumps(obj, *, by_value_all=False) -> bytes:
     return buf.getvalue()
 
 
+class _Unpickler(pickle.Unpickler):
+    """Reads the reference's by-value functions with this module's rebuild
+    helpers (the same format), so loading them imports no ``dali_tpu``."""
+
+    def find_class(self, module, name):
+        return super().find_class(__name__ if module == "dali_tpu.pickling" else module, name)
+
+
 def loads(blob: bytes):
-    return pickle.loads(blob)
+    return _Unpickler(io.BytesIO(blob)).load()

@@ -10,6 +10,7 @@ ids and auto-generated instance names follow the reference, so a
 from __future__ import annotations
 
 import functools
+import inspect
 import json
 import threading
 from typing import List, Optional
@@ -24,22 +25,45 @@ _pipeline_tls = threading.local()
 
 
 class Pipeline:
+    """Data pipeline: define, build, run. The parameters are the reference's,
+    in its order; those that concern its executor or a CUDA stream
+    (``exec_pipelined``, ``exec_async``, ``bytes_per_sample``,
+    ``set_affinity``, ``max_streams``, ``default_cuda_stream_priority``,
+    ``exec_dynamic``) are accepted and ignored, as there. ``debug`` is
+    accepted: the port always runs its device ops eagerly. ``pad_align``
+    rounds the spatial dims of a ragged batch's canvas; ``output_dtype`` and
+    ``output_ndim`` are checked on every ``outputs()``. ``device`` is the
+    port's own: the ``torch.device`` of the device-side outputs."""
+
     def __init__(
         self,
         batch_size: int = -1,
         num_threads: int = -1,
         device_id: Optional[int] = None,
         seed: int = -1,
+        exec_pipelined: bool = True,
         prefetch_queue_depth=2,
+        exec_async: bool = True,
+        bytes_per_sample: int = 0,
+        set_affinity: bool = False,
+        max_streams: int = -1,
+        default_cuda_stream_priority: int = 0,
         *,
+        enable_conditionals: bool = False,
         enable_checkpointing: bool = False,
         checkpoint: Optional[str] = None,
         py_num_workers: int = 1,
         py_start_method: str = "fork",
         py_callback_pickler=None,
+        output_dtype=None,
+        output_ndim=None,
+        pad_align: int = 64,
+        max_batch_size: Optional[int] = None,
+        exec_dynamic: bool = False,
+        debug: bool = False,
         device=None,
     ):
-        self.max_batch_size = batch_size
+        self.max_batch_size = max_batch_size if max_batch_size is not None else batch_size
         if self.max_batch_size is None or self.max_batch_size < 1:
             raise ValueError("batch_size must be a positive integer")
         self.num_threads = num_threads if num_threads and num_threads > 0 else 4
@@ -61,12 +85,17 @@ class Pipeline:
         self.cpu_queue_depth = max(1, cpu_d)
         self.gpu_queue_depth = max(1, gpu_d)
         self.prefetch_queue_depth = max(self.cpu_queue_depth, self.gpu_queue_depth)
+        self.enable_conditionals = enable_conditionals
         self.enable_checkpointing = enable_checkpointing
         # worker processes of parallel external sources: how many, how
         # started ("fork" or "spawn") and the module that pickles the source
         self.py_num_workers = py_num_workers
         self.py_start_method = py_start_method
         self.py_callback_pickler = py_callback_pickler
+        self.pad_align = int(pad_align)
+        self.output_dtype = output_dtype
+        self.output_ndim = output_ndim
+        self.debug = bool(debug)
         self._restore_checkpoint = checkpoint
         self._graph_fn = None
         self._graph: Optional[Graph] = None
@@ -155,6 +184,9 @@ class Pipeline:
         self._batches_consumed += 1
         return self._executor.outputs()
 
+    def share_outputs(self):
+        return self.outputs()
+
     def reset(self):
         """Start the next epoch after a source raised ``StopIteration``."""
         if self._executor is not None:
@@ -183,10 +215,81 @@ class Pipeline:
         for _ in range(self.prefetch_queue_depth):
             self.schedule_run()
 
+    def epoch_size(self, name: Optional[str] = None):
+        """The padded epoch size of the reader ``name``, or of every reader
+        by name."""
+        meta = self.reader_meta()
+        if name is not None:
+            return meta[name]["epoch_size_padded"]
+        return {k: v["epoch_size_padded"] for k, v in meta.items()}
+
     def reader_meta(self, name: Optional[str] = None):
         self._require_built()
         meta = self._executor.reader_meta()
         return meta[name] if name is not None else meta
+
+    def executor_statistics(self):
+        self._require_built()
+        return self._executor.statistics()
+
+    def serialize(self, filename: Optional[str] = None, include_callables: bool = False) -> str:
+        """The built graph and the pipeline's parameters as the reference's
+        JSON document (``Pipeline.deserialize`` of either package reads it).
+        ``include_callables`` embeds by-value pickles of sources and
+        callables, so the payload then contains code."""
+        self._require_built()
+        params = {
+            "batch_size": self.max_batch_size,
+            "num_threads": self.num_threads,
+            "device_id": self.device_id,
+            "seed": self.seed,
+            "prefetch_queue_depth": {"cpu_size": self.cpu_queue_depth,
+                                     "gpu_size": self.gpu_queue_depth},
+            "pad_align": self.pad_align,
+            "enable_checkpointing": self.enable_checkpointing,
+            "enable_conditionals": self.enable_conditionals,
+            "output_dtype": ([int(d) for d in self.output_dtype]
+                             if isinstance(self.output_dtype, (list, tuple))
+                             else None if self.output_dtype is None else int(self.output_dtype)),
+            "output_ndim": self.output_ndim,
+        }
+        payload = self._graph.serialize(params, include_callables=include_callables)
+        if filename:
+            with open(filename, "w") as f:
+                f.write(payload)
+        return payload
+
+    @classmethod
+    def deserialize(cls, serialized_pipeline: Optional[str] = None,
+                    filename: Optional[str] = None, **kwargs):
+        """A pipeline from :meth:`serialize`'s payload (of either package)
+        with no Python definition; ``kwargs`` override its parameters, and
+        ``device=`` places it. An unknown parameter raises ``TypeError``,
+        but for the reference's ``transfer_chunk_bytes`` (a TPU transfer
+        setting, dropped)."""
+        if serialized_pipeline is None:
+            with open(filename) as f:
+                serialized_pipeline = f.read()
+        params = json.loads(serialized_pipeline).get("params", {})
+        params.update(kwargs)
+        params.pop("transfer_chunk_bytes", None)
+        unknown = set(params) - set(inspect.signature(cls.__init__).parameters)
+        if unknown:
+            raise TypeError(f"Pipeline.deserialize got unknown parameter(s) {sorted(unknown)}")
+        params.setdefault("batch_size", 1)
+        params.setdefault("num_threads", 4)
+        pipe = cls(**params)
+        graph = Graph.deserialize(serialized_pipeline)
+        pipe._traced_ops = list(graph.ops)
+        pipe._next_op_id = len(graph.ops)
+        pipe._outputs_raw = tuple(graph.outputs)
+        return pipe
+
+    def save_graph_to_dot_file(self, filename: str, **kwargs):
+        """Write the built graph in Graphviz's dot language."""
+        self._require_built()
+        with open(filename, "w") as f:
+            f.write(self._graph.to_dot())
 
     @property
     def batch_size(self):
@@ -231,9 +334,9 @@ class Pipeline:
             pass
 
 
-_CTOR_NAMES = ("batch_size", "num_threads", "device_id", "seed", "prefetch_queue_depth",
-               "enable_checkpointing", "checkpoint", "py_num_workers", "py_start_method",
-               "py_callback_pickler", "device")
+# the decorator's own keyword sets enable_conditionals
+_CTOR_NAMES = frozenset(inspect.signature(Pipeline.__init__).parameters) - {
+    "self", "enable_conditionals"}
 
 
 def pipeline_def(fn=None, *, enable_conditionals=False, **pipeline_kwargs):
@@ -254,7 +357,7 @@ def pipeline_def(fn=None, *, enable_conditionals=False, **pipeline_kwargs):
             fn_kwargs = {}
             for k, v in kwargs.items():
                 (ctor_kwargs if k in _CTOR_NAMES else fn_kwargs)[k] = v
-            pipe = Pipeline(**ctor_kwargs)
+            pipe = Pipeline(enable_conditionals=enable_conditionals, **ctor_kwargs)
             pipe._graph_fn = lambda: graph_func(*args, **fn_kwargs)
             return pipe
 
@@ -262,3 +365,10 @@ def pipeline_def(fn=None, *, enable_conditionals=False, **pipeline_kwargs):
         return wrapper
 
     return actual_decorator(fn) if fn is not None else actual_decorator
+
+
+def do_not_convert(fn):
+    """Exempt ``fn`` from the conditional rewrite of
+    ``enable_conditionals=True``."""
+    fn._dali_do_not_convert = True
+    return fn

@@ -1,5 +1,6 @@
 """Base framework iterator: epoch accounting, LastBatchPolicy, multi-pipeline
-aggregation (counterpart of ``dali_tpu/plugin/base_iterator.py``)."""
+aggregation and resumable checkpoints (counterpart of
+``dali_tpu/plugin/base_iterator.py``)."""
 
 from __future__ import annotations
 
@@ -17,12 +18,24 @@ class LastBatchPolicy(enum.Enum):
 
 class DALIGenericIterator:
     """Iterates one or more pipelines, yielding per-pipeline output dicts.
-    Subclasses convert them with ``_to_framework``."""
+    Subclasses convert them with ``_to_framework``.
+
+    ``prepare_first_batch=False`` schedules the first runs at the first
+    ``next()`` instead of here. ``fill_last_batch``, DALI's deprecated form
+    of the policy, sets ``last_batch_policy`` to FILL (True) or PARTIAL
+    (False) when given. To resume a training loop, rebuild the pipelines
+    from ``checkpoints()["pipelines"]`` (``checkpoint=``; the pipelines need
+    ``enable_checkpointing=True``) and pass ``checkpoints()["counter"]`` to
+    ``restore_counter``."""
 
     def __init__(self, pipelines, output_map: List[str], size: int = -1,
                  reader_name: Optional[str] = None, auto_reset: bool = False,
-                 last_batch_padded: bool = False,
-                 last_batch_policy: LastBatchPolicy = LastBatchPolicy.FILL):
+                 fill_last_batch: Optional[bool] = None, last_batch_padded: bool = False,
+                 last_batch_policy: LastBatchPolicy = LastBatchPolicy.FILL,
+                 prepare_first_batch: bool = True):
+        if fill_last_batch is not None:
+            last_batch_policy = LastBatchPolicy.FILL if fill_last_batch else \
+                LastBatchPolicy.PARTIAL
         if not isinstance(pipelines, (list, tuple)):
             pipelines = [pipelines]
         if len(set(output_map)) != len(output_map):
@@ -50,9 +63,16 @@ class DALIGenericIterator:
         else:
             self._size = self._size_no_pad = size
         self._counter = 0
+        self._prefetched = False
         for p in self._pipes:
             p._require_built()
+        if prepare_first_batch:
+            self._prefetch()
+
+    def _prefetch(self):
+        for p in self._pipes:
             p._prefetch()
+        self._prefetched = True
 
     @property
     def size(self):
@@ -77,6 +97,8 @@ class DALIGenericIterator:
             if self._auto_reset:
                 self.reset()
             raise StopIteration
+        if not self._prefetched:
+            self._prefetch()
         left = self._size_no_pad - self._counter if self._size > 0 else None
         batches = []
         for p in self._pipes:
@@ -110,12 +132,22 @@ class DALIGenericIterator:
             else:
                 self._counter = 0
 
+    def checkpoints(self):
+        """The iterator's position in the epoch and each pipeline's
+        checkpoint, aligned with the last batch this iterator returned."""
+        return {"counter": self._counter, "pipelines": [p.checkpoint() for p in self._pipes]}
+
+    def restore_counter(self, counter: int):
+        """Resume the epoch accounting at ``checkpoints()["counter"]``."""
+        self._counter = int(counter)
+
     @staticmethod
     def _trim(v, n):
         if isinstance(v, TensorListCPU):
             return TensorListCPU([v.at(i) for i in range(n)], v.layout())
         shapes = None if v._shapes is None else v._shapes[:n]
-        return TensorListGPU(v.as_tensor()[:n], shapes, v.layout())
+        dev = None if v._device_shapes is None else v._device_shapes[:n]
+        return TensorListGPU(v.as_tensor()[:n], shapes, v.layout(), device_shapes=dev)
 
     def _to_framework(self, batches):
         return batches

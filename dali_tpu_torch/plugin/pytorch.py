@@ -8,8 +8,33 @@ pipeline, like the reference.
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from ..tensors import TensorListCPU
 from .base_iterator import DALIGenericIterator as _Base
 from .base_iterator import LastBatchPolicy  # noqa: F401
+
+
+def to_torch_type(np_dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype."""
+    return torch.from_numpy(np.empty(0, dtype=np_dtype)).dtype
+
+
+def feed_ndarray(tensor_list, arr: torch.Tensor, cuda_stream=None) -> torch.Tensor:
+    """Copy a whole batch into the preallocated ``arr``: a ``TensorListGPU``
+    device to device (no host hop; on ``cuda_stream`` when given), a
+    ``TensorListCPU`` from its stacked samples."""
+    if isinstance(tensor_list, TensorListCPU):
+        src = torch.from_numpy(np.ascontiguousarray(tensor_list.as_array()))
+    else:
+        src = tensor_list.as_tensor()
+    if cuda_stream is not None:
+        with torch.cuda.stream(cuda_stream):
+            arr.copy_(src, non_blocking=True)
+    else:
+        arr.copy_(src)
+    return arr
 
 
 class DALIGenericIterator(_Base):

@@ -28,6 +28,10 @@ class TensorListCPU:
     def layout(self) -> str:
         return self._layout
 
+    @property
+    def dtype(self) -> np.dtype:
+        return self._samples[0].dtype if self._samples else np.dtype(np.uint8)
+
     def shape(self):
         return [tuple(s.shape) for s in self._samples]
 
@@ -43,12 +47,25 @@ class TensorListCPU:
 
 class TensorListGPU:
     """Device batch: padded tensor [N, *canvas] + host-known per-sample shapes
-    (numpy [N, ndim], or ``None`` when every sample fills the canvas)."""
+    (numpy [N, ndim], or ``None`` when every sample fills the canvas). An
+    operator that propagates no host shapes leaves its batch's device
+    extents (``device_shapes``), read back only when asked for."""
 
-    def __init__(self, data: torch.Tensor, shapes: Optional[np.ndarray] = None, layout: str = ""):
+    def __init__(self, data: torch.Tensor, shapes: Optional[np.ndarray] = None, layout: str = "",
+                 device_shapes: Optional[torch.Tensor] = None):
         self._data = data
         self._shapes = shapes
         self._layout = layout or ""
+        if shapes is None and device_shapes is not None:
+            self._device_shapes = device_shapes
+        else:
+            self._device_shapes = None
+
+    def _host_shapes(self) -> Optional[np.ndarray]:
+        if self._shapes is None and self._device_shapes is not None:
+            self._shapes = self._device_shapes.cpu().numpy()
+            self._device_shapes = None
+        return self._shapes
 
     def __len__(self):
         return int(self._data.shape[0])
@@ -62,16 +79,17 @@ class TensorListGPU:
 
     def is_dense_tensor(self) -> bool:
         """True iff every sample fills the padded canvas exactly."""
-        if self._shapes is None:
+        sh = self._host_shapes()
+        if sh is None:
             return True
-        sh = self._shapes
         return sh.shape[1] == self._data.dim() - 1 and bool(
             (sh == np.asarray(self._data.shape[1:])).all())
 
     def shape(self):
-        if self._shapes is None:
+        sh = self._host_shapes()
+        if sh is None:
             return [tuple(self._data.shape[1:])] * len(self)
-        return [tuple(int(x) for x in row) for row in self._shapes]
+        return [tuple(int(x) for x in row) for row in sh]
 
     def as_tensor(self) -> torch.Tensor:
         """The padded device tensor itself (no copy)."""
@@ -79,9 +97,10 @@ class TensorListGPU:
 
     def _crop(self, host: torch.Tensor, i: int) -> np.ndarray:
         arr = host.numpy()
-        if self._shapes is None:
+        sh = self._host_shapes()
+        if sh is None:
             return arr
-        return arr[tuple(slice(0, int(e)) for e in self._shapes[i])]
+        return arr[tuple(slice(0, int(e)) for e in sh[i])]
 
     def at(self, i) -> np.ndarray:
         """Sample ``i`` on the host, cropped to its valid extent."""

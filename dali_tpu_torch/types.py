@@ -64,6 +64,7 @@ _TO_TORCH = {
 
 _FROM_NUMPY = {v: k for k, v in _TO_NUMPY.items()}
 
+NO_TYPE = DALIDataType.NO_TYPE
 UINT8 = DALIDataType.UINT8
 UINT16 = DALIDataType.UINT16
 UINT32 = DALIDataType.UINT32
@@ -76,6 +77,9 @@ FLOAT16 = DALIDataType.FLOAT16
 FLOAT = DALIDataType.FLOAT
 FLOAT64 = DALIDataType.FLOAT64
 BOOL = DALIDataType.BOOL
+STRING = DALIDataType.STRING
+# the reference's TPU type; in the port it is torch.bfloat16 (to_torch_type)
+BFLOAT16 = DALIDataType.BFLOAT16
 
 
 def to_numpy_type(t) -> np.dtype:
@@ -107,6 +111,7 @@ RGB = DALIImageType.RGB
 BGR = DALIImageType.BGR
 GRAY = DALIImageType.GRAY
 YCbCr = DALIImageType.YCbCr
+ANY_DATA = DALIImageType.ANY_DATA
 
 
 class DALIInterpType(enum.IntEnum):
@@ -124,6 +129,21 @@ INTERP_CUBIC = DALIInterpType.INTERP_CUBIC
 INTERP_LANCZOS3 = DALIInterpType.INTERP_LANCZOS3
 INTERP_TRIANGULAR = DALIInterpType.INTERP_TRIANGULAR
 INTERP_GAUSSIAN = DALIInterpType.INTERP_GAUSSIAN
+
+
+class PipelineAPIType(enum.Enum):
+    BASIC = 0
+    ITERATOR = 1
+    SCHEDULED = 2
+
+
+def layout_find_dim(layout: str, dim_name: str) -> int:
+    """The index of ``dim_name`` in ``layout``; raises ``ValueError`` when it
+    is not there."""
+    idx = layout.find(dim_name)
+    if idx < 0:
+        raise ValueError(f"Dimension '{dim_name}' not found in layout '{layout}'")
+    return idx
 
 
 @dataclass(frozen=True)

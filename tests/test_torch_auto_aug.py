@@ -163,12 +163,21 @@ def test_graph_identity(policy):
 
 
 def test_shape_relative_translates_not_ported():
-    @dali_tpu_torch.pipeline_def(batch_size=2, device="cpu")
+    """The shape-relative translates are ported now: ``shape=`` builds a
+    graph that reads each image's shape on the device and runs (held
+    against dali_tpu in ``tests/test_torch_shape_ops.py``)."""
+    @dali_tpu_torch.pipeline_def(batch_size=N, device="cpu", enable_conditionals=True)
     def p():
         return dali_tpu_torch.auto_aug.trivial_augment_wide(_src(dali_tpu_torch), shape=[64, 64])
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p().build()
+    pipe = p()
+    pipe.build()
+    try:
+        ops = {(n.spec.schema_name, n.device) for n in pipe._graph.ops}
+        assert {("Shapes", "gpu"), ("_TensorSubscript", "gpu")} <= ops
+        assert tuple(pipe.run()[0].as_tensor().shape) == (N, 64, 64, 3)
+    finally:
+        pipe.shutdown()
 
 
 def _recipe(pkg, policy, batch=4, out=64, **kw):

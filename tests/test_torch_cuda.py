@@ -960,3 +960,144 @@ def test_reader_recipes_on_card_match_cpu(card, tmp_path, form):
         assert float(diff.max()) <= LSB
         assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
     assert bench_ssd.hold_cmn(calls[0]) <= bench_ssd.CMN_ATOL
+
+
+def _file_list(tmp_path, n):
+    files = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(CORPUS) for f in fs)
+    path = tmp_path / "files.txt"
+    path.write_text("".join(f"{f} {i % 2}\n" for i, f in enumerate((files * 4)[:n])))
+    return str(path)
+
+
+def test_serialized_rn50_on_card_matches_cpu(card, tmp_path):
+    """serialized_rn50 (tools/bench_frontend.py) at batch 16: on the card
+    each deserialized batch equals the ops-built source's and the resume
+    from the iterator's checkpoints equals the uninterrupted run (one CMN
+    launch per batch); then the payload rebuilt on the card and on the CPU:
+    labels equal, images within one uint8 step / std on at most 1e-3 of
+    values."""
+    from dali_tpu_torch import Pipeline
+    from dali_tpu_torch.tools import bench_frontend
+
+    files = _file_list(tmp_path, n=128)
+    r, launches, pipe = bench_frontend.serialized_rn50(files, 16, 64, card, warmup=1, timed=7)
+    payload = pipe.serialize()
+    pipe.shutdown()
+    assert launches == 8 + pipe.prefetch_queue_depth and r["resumed_equal"] == 3
+    runs = []
+    for device in (card, "cpu"):
+        again = Pipeline.deserialize(payload, device=device)
+        again.build()
+        try:
+            runs.append([(o[0].as_tensor().cpu(), o[1].as_array())
+                         for o in (again.run() for _ in range(2))])
+        finally:
+            again.shutdown()
+    for (g_img, g_lab), (c_img, c_lab) in zip(*runs):
+        np.testing.assert_array_equal(g_lab, c_lab)
+        diff = (g_img - c_img).abs()
+        assert float(diff.max()) <= LSB
+        assert float((diff > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+
+
+def test_shape_relative_trivial_augment_on_card_matches_cpu(card):
+    """TrivialAugment Wide with ``shape=`` (effnet_shape_translate's policy):
+    its translates read each image's shape on the card; within one step on
+    at most 1e-3 of values of the CPU run."""
+    from dali_tpu_torch import auto_aug
+
+    data = np.random.default_rng(8).integers(0, 256, (16, 96, 80, 3)).astype(np.uint8)
+    outs = []
+    for device in (card, "cpu"):
+        @pipeline_def(batch_size=16, num_threads=1, seed=42, device=device,
+                      enable_conditionals=True)
+        def p():
+            x = fn.external_source(source=lambda: data, batch=True, layout="HWC").gpu()
+            return auto_aug.trivial_augment_wide(x, shape=[96, 80])
+
+        pipe = p()
+        pipe.build()
+        try:
+            assert {"Shapes", "_TensorSubscript"} <= {n.spec.schema_name
+                                                     for n in pipe.executor.device_ops}
+            outs.append([pipe.run()[0].as_tensor() for _ in range(2)])
+        finally:
+            pipe.shutdown()
+    for got, want in zip(*outs):
+        assert got.is_cuda and got.dtype == torch.uint8
+        d = (got.cpu().to(torch.int32) - want.to(torch.int32)).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+
+def test_volumes_zscore_on_card_matches_cpu(card, tmp_path):
+    """volumes_zscore's graph on smaller volumes: windows bit-equal card vs
+    CPU, the normalised output within 1e-5 relative."""
+    from dali_tpu_torch.testdata.make_reader_datasets import write_npy_volumes
+    from dali_tpu_torch.tools import bench_frontend
+
+    files = write_npy_volumes(str(tmp_path), 3, (4, 40, 48, 48), 0)
+    assert bench_frontend.check_volumes_against_cpu(files, 2, 2, window=32,
+                                                    devices=(card, "cpu")) <= 1e-5
+
+
+def test_feed_ndarray_into_cuda_tensor(card):
+    """A device batch copies into a preallocated CUDA tensor on the card,
+    also on a given stream; a host batch copies in from the host."""
+    from dali_tpu_torch.plugin.pytorch import feed_ndarray
+
+    data = np.random.default_rng(3).integers(0, 256, (4, 6, 5, 3)).astype(np.uint8)
+
+    @pipeline_def(batch_size=4, num_threads=1, device=card)
+    def p():
+        x = fn.external_source(source=lambda: data, batch=True, layout="HWC")
+        return x, x.gpu()
+
+    pipe = p()
+    pipe.build()
+    try:
+        host, dev = pipe.run()
+    finally:
+        pipe.shutdown()
+    stream = torch.cuda.Stream()
+    for tl, s in ((dev, None), (dev, stream), (host, None)):
+        arr = torch.empty((4, 6, 5, 3), dtype=torch.uint8, device=card)
+        assert feed_ndarray(tl, arr, cuda_stream=s) is arr
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(arr.cpu().numpy(), data)
+
+
+def test_shapes_on_card_read_nothing_back(card, monkeypatch):
+    """``Shapes`` and a subscript of it on the card use the shapes the host
+    propagated: no device tensor is read back while the pipeline runs."""
+    ragged = [np.zeros((10 + 3 * i, 20 - 2 * i, 3), np.uint8) for i in range(4)]
+    reads = []
+    for name in ("cpu", "numpy", "item", "tolist", "__bool__", "__int__", "__float__",
+                 "__index__", "to"):
+        orig = getattr(torch.Tensor, name)
+
+        def wrapped(self, *a, _orig=orig, _name=name, **k):
+            if self.is_cuda and (_name != "to" or any(
+                    str(v).startswith("cpu") for v in list(a) + list(k.values()))):
+                reads.append(_name)
+            return _orig(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, wrapped)
+
+    @pipeline_def(batch_size=4, num_threads=1, device=card)
+    def p():
+        shape = fn.shapes(fn.external_source(source=lambda: ragged, batch=True,
+                                             layout="HWC").gpu())
+        return shape, fn.cast(shape, dtype=types.FLOAT)[1]
+
+    pipe = p()
+    pipe.build()
+    try:
+        shape, width = pipe.run()
+        assert not reads, reads
+    finally:
+        pipe.shutdown()
+    monkeypatch.undo()
+    assert shape.as_tensor().is_cuda and shape.as_tensor().dtype == torch.int64
+    np.testing.assert_array_equal(shape.as_tensor().cpu().numpy(), [s.shape for s in ragged])
+    np.testing.assert_array_equal(width.as_tensor().cpu().numpy(),
+                                  [float(s.shape[1]) for s in ragged])

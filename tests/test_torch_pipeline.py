@@ -138,6 +138,8 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.external_source, dali_tpu_torch.pickling\n"
         "import dali_tpu_torch.backend.decoders, dali_tpu_torch.backend.image\n"
         "import dali_tpu_torch.kernels.resample, dali_tpu_torch.native, dali_tpu_torch.imgcodec\n"
+        "import dali_tpu_torch.ops, dali_tpu_torch.plugin_manager, dali_tpu_torch.backend.parity\n"
+        "import dali_tpu_torch.tools.bench_frontend\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
