@@ -182,7 +182,32 @@ on failure:
    shape, device and finiteness; GB/s of volumes read, host ms/batch,
    device ms by stage of one batch alone; the first two batches on the card
    against the CPU: windows bit-equal, the stacked output within 1e-5
-   relative.
+   relative;
+21. rn50_affine_mixup (``tools/bench_affine_mixup.py``): phase 3's reader,
+   decode and resize, then DALI's geometric-transforms recipe (a rotation,
+   scale, shear and translation composed by ``transforms.*`` on the host
+   from host random draws, applied by ``warp_affine(inverse_map=False)`` on
+   the card), ``noise.gaussian`` with a per-sample stddev drawn on the card
+   (``random.uniform(device="gpu")``), CMN with a coin-flip mirror, and
+   mixup with ``batch_permutation`` and ``random.beta(0.2, 0.2)``, through
+   ``DALIGenericIterator`` at batch 256: 3 warm-up + 10 timed batches, each
+   checked for shape, dtype, device and finiteness; the exact CMN launch
+   count; images/s beside rn50_train's; host ms/batch by schema; device ms
+   by stage of one batch run alone; peak memory; the CMN kernel held
+   against its plain version on one more batch of the path and timed on
+   it; then batch 16 on the card against the CPU: host draws (labels,
+   permuted labels, lam, matrices, permutation) equal, warped images within
+   one uint8 step on at most 1e-3 of values, the device noise by its
+   distribution (the mean and mean square of noisy - warped within 3
+   standard errors of the exact moments of a rounded, clipped normal of
+   each sample's drawn stddev), mixup equal to its formula, and the same
+   seed twice bit-identical on the card;
+22. random_ops: every device random and noise operator at [256, 224, 224,
+   3] on the card, by moments within 3 standard errors and KS tests
+   against scipy (p > 1e-3); Water, Sphere, GridMask and ColorTwist card
+   against CPU (within one uint8 step on at most 1e-3 of values) and
+   Jitter's determinism; ``docs/examples/custom_operators.py``'s graph with
+   ``fn.torch_function`` on the card, to the example's asserted values.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -223,6 +248,7 @@ SSD_BATCH, SSD_CHECK_BATCH = 64, 16
 SSD_TIMED = {"ssd_train": 20, "ssd_device_encode": 10}
 READER_TIMED, READER_CHECK_BATCH = 10, 16
 FRONTEND_TIMED, VOLUMES_TIMED = 10, 10
+AFFINE_TIMED, AFFINE_CHECK_BATCH = 10, 16
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -1086,6 +1112,67 @@ def frontend_phase(card, file_list, rn50_ips):
     return out, {"serialized_rn50": c}
 
 
+def affine_mixup_phase(card, file_list, rn50_ips):
+    """Phase 21: rn50_affine_mixup; returns its CMN launches and the
+    kernel's readings on the path's own batch."""
+    from dali_tpu_torch.tools import bench_affine_mixup, bench_ssd
+
+    t0 = time.perf_counter()
+    r = bench_affine_mixup.run_path(file_list, BATCH, OUT, warmup=WARMUP, timed=AFFINE_TIMED)
+    print(f"rn50_affine_mixup batch {BATCH}: {r['images_per_s']:.1f} images/s over {r['timed']} "
+          f"batches, {100 * r['images_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} in "
+          f"this run; {r['device_ops']} device ops, {r['host_ops']} host ops; cmn launches "
+          f"{r['cmn_launches']} ({card})")
+    print(f"rn50_affine_mixup host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} "
+          f"host cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; host "
+          "ms/batch by schema: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                             r["host_ms_by_schema"].items() if v >= 0.05))
+    print(f"rn50_affine_mixup device ms of one batch alone {r['device_ms']:.3f}: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(r["stage_ms"].items(), key=lambda kv: -kv[1]))
+        + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    pipe = bench_affine_mixup.make_pipe(file_list, BATCH, OUT, "cuda:0")
+    with bench_ssd.recording_cmn([]) as calls:
+        pipe.run()
+    pipe.shutdown()
+    c = dict(bench_ssd.time_cmn(calls[0]), max_abs_err=bench_ssd.hold_cmn(calls[0]))
+    print(f"rn50_affine_mixup CMN kernel on the path's own batch {c['shape_in']} {c['dtype_in']} "
+          f"-> {c['shape_out']} float32: max abs diff vs plain {c['max_abs_err']:.3e} (limit "
+          f"1e-05; path launches {r['cmn_launches']}); kernel alone {c['ms']:.4f} ms (cold L2), "
+          f"wrapper {c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} bytes, "
+          f"bound {c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+    k = bench_affine_mixup.check_against_cpu(file_list, AFFINE_CHECK_BATCH, OUT)
+    print(f"rn50_affine_mixup card vs CPU (batch {k['batch']}, {k['iterations']} iterations): "
+          f"labels, permuted labels, lam, matrices and permutations equal; warped images max diff "
+          f"{k['warped_max_diff']} on {k['warped_frac_differing']:.2e} of values (limits 1, "
+          f"1e-3); device noise z-scores of the mean and mean square (limit 3): "
+          + ", ".join(f"{a:+.2f} {b:+.2f}" for a, b in k["noise_z"])
+          + f"; mixup {k['mix_max_err']:.1e} from its formula; the same seed twice bit-identical "
+          "on the card")
+    print(f"rn50_affine_mixup phase: {time.perf_counter() - t0:.1f} s")
+    return r["cmn_launches"], c
+
+
+def random_ops_phase(card):
+    """Phase 22: the device random and noise ops at full size, the gpu
+    distortion ops card vs CPU, and the custom-operators example."""
+    from dali_tpu_torch.tools import bench_affine_mixup
+
+    t0 = time.perf_counter()
+    r = bench_affine_mixup.random_ops(BATCH, (OUT, OUT, 3))
+    print(f"device random ops at {r['shape']}: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in r.items() if k.endswith(("_p", "_z")))
+        + " (KS p > 1e-3, |z| <= 3); a new iteration draws a new stream; device ms of one batch: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in r["stage_ms"].items()) + f" ({card})")
+    d = bench_affine_mixup.distortion_ops()
+    print("gpu distortion ops card vs CPU: " + ", ".join(
+        f"{k} max diff {v['max_diff']} on {v['frac_differing']:.2e}" for k, v in d.items()
+        if isinstance(v, dict)) + "; jitter deterministic, new displacements per iteration")
+    c = bench_affine_mixup.custom_operators()
+    print(f"custom_operators example with fn.torch_function on the card: {c['outputs_checked']} "
+          "outputs equal the example's asserted values")
+    print(f"random ops phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1122,6 +1209,9 @@ def main():
     frontend_launches, frontend_cmn = frontend_phase(card, file_list, rn50_ips)
     launches.update(frontend_launches)
     path_cmn.update(frontend_cmn)
+    launches["rn50_affine_mixup"], path_cmn["rn50_affine_mixup"] = affine_mixup_phase(
+        card, file_list, rn50_ips)
+    random_ops_phase(card)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

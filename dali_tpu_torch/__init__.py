@@ -53,7 +53,13 @@ Ported so far:
   subscripts, ``cast_like``, ``expand_dims``, ``squeeze``, ``one_hot``,
   ``reshape``, ``slice``, ``crop``, ``stack``, ``cat``, ``permute_batch``,
   ``get_property``, ``paste``, the Zeros/Ones/Full family, the eight
-  ``reductions`` and ``reinterpret``.
+  ``reductions`` and ``reinterpret``;
+* the random and noise ops on the host and the device (device draws from a
+  ``torch.Generator`` keyed by seed and the batch's iteration), the
+  ``transforms`` matrix generators and ``coord_transform``, the Python
+  function ops with ``fn.torch_function`` in place of ``fn.jax_function``,
+  and ``water``, ``sphere``, ``jitter``, ``grid_mask`` and ``color_twist``
+  on the device.
 
 Other ``fn`` and ``ops`` names raise ``NotImplementedError`` naming their
 ROADMAP.md Queue 1 item; ROADMAP.md lists the order of the rest.
@@ -225,3 +231,30 @@ def _decoders_audio_fn(*inputs, device=None, **kwargs):
 
 
 fn.decoders.audio = _decoders_audio_fn
+
+
+def _make_function_op(schema_name, device):
+    def wrapper(*inputs, function=None, name=None, **kwargs):
+        if function is None:
+            raise ValueError(f"{schema_name} requires `function`")
+        return _op_call(schema_name, device=device, inputs=inputs, name=name, _function=function,
+                        **kwargs)
+
+    return wrapper
+
+
+# the callables ride OpSpec._extra: they are not serialized (unless
+# serialize(include_callables=True) pickles them by value)
+fn.python_function = _make_function_op("PythonFunction", "cpu")
+fn.dl_tensor_python_function = _make_function_op("DLTensorPythonFunction", "cpu")
+fn.torch_python_function = _make_function_op("TorchPythonFunction", "cpu")
+fn.torch_function = _make_function_op("_TorchFunction", "gpu")
+
+
+def _jax_function(*inputs, **kwargs):
+    raise TypeError("fn.jax_function runs JAX code, which dali_tpu_torch does not import; write "
+                    "the function in torch and call fn.torch_function (it receives the batched "
+                    "device tensors [N, ...])")
+
+
+fn.jax_function = _jax_function

@@ -65,6 +65,7 @@ class ArgDef:
     default: Any = None
     tensor_ok: bool = False
     required: bool = False
+    per_sample: bool = False  # as a tensor: one value per sample
 
     def coerce(self, value):
         if isinstance(value, _types.ScalarConstant):
@@ -107,12 +108,15 @@ class OpSchema:
         self.output_fn = fn
         return self
 
-    def AddArg(self, name, type, doc="", tensor_ok=False):
-        self.args[name] = ArgDef(name, type, doc, tensor_ok=tensor_ok, required=True)
+    def AddArg(self, name, type, doc="", tensor_ok=False, per_sample=False):
+        self.args[name] = ArgDef(name, type, doc, tensor_ok=tensor_ok, required=True,
+                                 per_sample=per_sample)
         return self
 
-    def AddOptionalArg(self, name, type, doc="", default=None, tensor_ok=False):
-        self.args[name] = ArgDef(name, type, doc, default=default, tensor_ok=tensor_ok)
+    def AddOptionalArg(self, name, type, doc="", default=None, tensor_ok=False,
+                       per_sample=False):
+        self.args[name] = ArgDef(name, type, doc, default=default, tensor_ok=tensor_ok,
+                                 per_sample=per_sample)
         return self
 
     def AddRandomSeedArg(self):
@@ -208,9 +212,12 @@ def _resolve(schema_name: str, device: str):
 def get_operator_impl(schema_name: str, device: str):
     impl = _resolve(schema_name, device)
     if impl is None:
+        from .backend.parity import device_item
+
+        item = device_item(_alias_targets.get(schema_name, schema_name), device)
         raise NotImplementedError(
             f"Operator '{schema_name}' on device '{device}' is not ported to "
-            "dali_tpu_torch yet; see ROADMAP.md (Queue 1)")
+            f"dali_tpu_torch yet; see ROADMAP.md (Queue 1{', ' + item if item else ''})")
     return impl
 
 

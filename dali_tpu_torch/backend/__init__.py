@@ -7,6 +7,7 @@ from . import readers2  # noqa: F401
 from . import readers3  # noqa: F401
 from . import raw  # noqa: F401
 from . import random  # noqa: F401
+from . import random_gpu  # noqa: F401
 from . import decoders  # noqa: F401
 from . import image  # noqa: F401
 from . import color  # noqa: F401
@@ -22,5 +23,8 @@ from . import audio  # noqa: F401
 from . import bbox  # noqa: F401
 from . import bbox_extra  # noqa: F401
 from . import tail  # noqa: F401
+from . import straggler_gpu  # noqa: F401
+from . import interop  # noqa: F401
+from . import distortion  # noqa: F401
 from . import segmentation  # noqa: F401
 from . import parity  # noqa: F401  (last: aliases the ported operators)

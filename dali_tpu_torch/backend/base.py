@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .._schema import OpSpec
 from ..batch import DeviceBatch, HostBatch
@@ -41,14 +42,7 @@ class HostCtx:
 
         Same keying as the reference (``dali_tpu/backend/base.py`` HostCtx.rng),
         so both packages draw identical shuffles, crop windows and coin flips."""
-        seed = op.spec.GetArgument("seed", -1) if op.spec.schema.has_random_seed else -1
-        explicit = seed is not None and seed >= 0
-        if not explicit:
-            seed = self.pipeline.seed
-        k0 = np.uint64(seed)
-        if not explicit:
-            k0 = k0 ^ (np.uint64(op.op_id) << np.uint64(32))
-        k1 = np.uint64(self.iteration)
+        k0, k1 = philox_key(op, self.pipeline.seed, self.iteration)
         if sample_idx is not None:
             k1 = k1 | (np.uint64(sample_idx) << np.uint64(40))
         return np.random.Generator(np.random.Philox(key=np.array([k0, k1], dtype=np.uint64)))
@@ -70,16 +64,42 @@ class HostCtx:
         return default if v is None else v
 
 
+def philox_key(op: "Operator", pipeline_seed: int, iteration: int):
+    """The (k0, k1) key of an op's stream in one iteration: an explicit
+    ``seed`` gives (seed, iteration), otherwise (pipeline seed xor op_id <<
+    32, iteration), as the reference keys its host streams."""
+    seed = op.spec.GetArgument("seed", -1) if op.spec.schema.has_random_seed else -1
+    explicit = seed is not None and seed >= 0
+    k0 = np.uint64(seed if explicit else pipeline_seed)
+    if not explicit:
+        k0 = k0 ^ (np.uint64(op.op_id) << np.uint64(32))
+    return k0, np.uint64(iteration)
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finalizer: a bijection of 64-bit words that spreads every
+    input bit over the whole output (the CPU generator reads the low 32)."""
+    m = (1 << 64) - 1
+    x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9 & m
+    x = (x ^ (x >> 27)) * 0x94D049BB133111EB & m
+    return x ^ (x >> 31)
+
+
 class DeviceCtx:
     """Context of one device-phase run, keyed by op id: statics, host
     parameters and argument inputs. An argument input on a CPU edge arrives
     stacked [N, ...]; one on a GPU edge resolves from the device env
-    (``dev_arg_edges`` maps (op id, name) to its env key). Device-side
-    randomness is not ported: every ported random op draws on the host, so
-    unlike the reference there is no device key."""
+    (``dev_arg_edges`` maps (op id, name) to its env key).
+
+    Device draws come from :meth:`generator`: a ``torch.Generator`` on the
+    batch's device, seeded from the key of the host streams and the batch's
+    own iteration (not the executor's counter, which runs ahead by the
+    prefetch depth). The same seed and iteration give the same draws; torch's
+    generators cannot reproduce the reference's threefry, so device draws
+    match the reference in distribution only (ROADMAP.md Queue 3)."""
 
     def __init__(self, arg_arrays, statics, params=None, dev_arg_edges=None, env=None,
-                 batch_size=None):
+                 batch_size=None, seed=None, iteration=None, device=None):
         # the iteration's batch size, for device ops with no input
         self.batch_size = batch_size
         self._arg_arrays = arg_arrays
@@ -87,6 +107,20 @@ class DeviceCtx:
         self._params = params or {}
         self._dev_arg_edges = dev_arg_edges or {}
         self._env = env
+        self.seed = seed
+        self.iteration = iteration
+        self.device = device
+
+    def generator(self, op: "Operator") -> torch.Generator:
+        """A fresh generator on the batch's device for ``op``'s draws in this
+        iteration; pass it as ``generator=`` to every draw, so the process's
+        global generators (the trainer's) are never touched."""
+        if self.seed is None or self.iteration is None or self.device is None:
+            raise RuntimeError(f"{op.spec.schema_name}: this device context has no random key")
+        k0, k1 = philox_key(op, self.seed, self.iteration)
+        g = torch.Generator(device=self.device)
+        g.manual_seed(_mix64(int(k0) ^ _mix64(int(k1) + 0x9E3779B97F4A7C15 & (1 << 64) - 1)))
+        return g
 
     def static(self, op: "Operator"):
         return self._statics.get(op.op_id)
@@ -188,9 +222,11 @@ class Operator:
 # reference does (``dali_tpu/backend/base.py`` SHAPE_PRESERVING_SCHEMAS).
 # Only the ported names are listed.
 SHAPE_PRESERVING_SCHEMAS = frozenset({
-    "Brightness", "BrightnessContrast", "Contrast", "Hsv", "Hue", "Saturation",
-    "Equalize", "experimental.Equalize", "Cast", "CastLike", "Copy", "Flip", "LookupTable", "GaussianBlur",
-    "Laplacian", "Normalize", "PreemphasisFilter", "ToDecibels", "_conditional.LogicalNot",
+    "Brightness", "BrightnessContrast", "Contrast", "Hsv", "Hue", "Saturation", "ColorTwist",
+    "Equalize", "experimental.Equalize", "Cast", "CastLike", "Copy", "Flip", "GridMask",
+    "Jitter", "Sphere", "Water", "LookupTable", "GaussianBlur", "Laplacian", "Normalize",
+    "noise.Gaussian", "noise.SaltAndPepper", "noise.Shot", "PreemphasisFilter", "ToDecibels",
+    "_conditional.LogicalNot",
 })
 
 

@@ -141,3 +141,34 @@ class ColorSpaceConversionGPU(Operator):
             shapes = shapes.clone()
             shapes[:, -1] = out.shape[-1]
         return [DeviceBatch(out, shapes, inp.layout)]
+
+
+DALI_SCHEMA("ColorTwist").DocStr(
+    "Hue, saturation, brightness and contrast in one pass: the YIQ hue/saturation matrix, "
+    "then out = brightness * (center + contrast * (x - center)) about half the range."
+).NumInput(1).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
+    "hue", ArgType.FLOAT, "Hue rotation (degrees).", 0.0, tensor_ok=True, per_sample=True
+).AddOptionalArg(
+    "saturation", ArgType.FLOAT, "Saturation multiplier.", 1.0, tensor_ok=True, per_sample=True
+).AddOptionalArg(
+    "brightness", ArgType.FLOAT, "Brightness multiplier.", 1.0, tensor_ok=True, per_sample=True
+).AddOptionalArg(
+    "contrast", ArgType.FLOAT, "Contrast factor.", 1.0, tensor_ok=True, per_sample=True
+).AddOptionalArg("dtype", ArgType.DATA_TYPE, "Output dtype.", None).AddOptionalArg(
+    "image_type", ArgType.IMAGE_TYPE, "Colour space (RGB assumed).", DALIImageType.RGB)
+
+
+@register_operator("ColorTwist", "gpu")
+class ColorTwistGPU(Operator):
+    def lower(self, dctx, inp: DeviceBatch):
+        x, n = inp.data, inp.data.shape[0]
+        h, s, b, c = (_batchwise(dctx, self, nm, d, n, x.device)
+                      for nm, d in (("hue", 0.0), ("saturation", 1.0), ("brightness", 1.0),
+                                    ("contrast", 1.0)))
+        mats = pw.color_twist_matrices(h, s, torch.ones((n,), dtype=torch.float32,
+                                                          device=x.device))
+        out = pw.apply_color_matrices(x.to(torch.float32), mats)
+        center = 0.5 * pw.dtype_range(x.dtype)
+        extra = (1,) * (x.dim() - 1)
+        out = b.reshape(n, *extra) * (center + c.reshape(n, *extra) * (out - center))
+        return [inp.with_data(pw.saturate_cast(out, _out_dtype(self.spec, x.dtype)))]

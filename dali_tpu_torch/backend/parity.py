@@ -50,44 +50,51 @@ _LEGACY = {
 # The ROADMAP.md Queue 1 item of each dali_tpu operator the port lacks.
 _VIDEO = ("decoders.Video", "experimental.decoders.Video", "experimental.inputs.Video",
           "readers.Video", "readers.VideoResize", "VideoReaderResize", "OpticalFlow")
-_RANDOM = ("random.Normal", "random.Beta", "random.Choice", "BatchPermutation",
-           "noise.Gaussian", "noise.Shot", "noise.SaltAndPepper")
-_PYTHON = ("PythonFunction", "TorchPythonFunction", "DLTensorPythonFunction", "NumbaFunction",
-           "_JaxFunction")
-_TRANSFORMS = ("transforms.Combine", "transforms.Crop", "transforms.Rotation",
-               "transforms.Scale", "transforms.Shear", "transforms.Translation",
-               "TransformTranslation")
-_GPU_OPS = ("ColorTwist", "CoordTransform", "ElementExtract", "FastResizeCropMirror",
-            "GridMask", "Jitter", "JpegCompressionDistortion", "MultiPaste", "PerFrame",
-            "PowerSpectrum", "ResizeCropMirror", "SequenceRearrange", "Sphere", "TensorResize",
-            "Water", "experimental.Clahe", "experimental.Debayer", "experimental.Dilate",
+_GPU_OPS = ("ElementExtract", "FastResizeCropMirror", "JpegCompressionDistortion", "MultiPaste",
+            "PerFrame", "PowerSpectrum", "ResizeCropMirror", "SequenceRearrange", "TensorResize",
+            "experimental.Clahe", "experimental.Debayer", "experimental.Dilate",
             "experimental.Erode", "experimental.Filter", "experimental.MedianBlur",
             "experimental.Remap", "experimental.Resize", "experimental.TensorResize",
             "experimental.WarpPerspective")
 QUEUE_ITEMS = {
     **{n: "item 8" for n in _VIDEO},
-    **{n: "item 5c" for n in _RANDOM},
-    **{n: "item 5f" for n in _PYTHON},
-    **{n: "item 5b" for n in _TRANSFORMS},
     **{n: "item 5g" for n in _GPU_OPS},
     "experimental.AudioResample": "item 4",
     "DumpImage": "item 5h",
 }
 QUEUE_ITEMS.update({a: QUEUE_ITEMS[t] for a, t in _LEGACY.items() if t in QUEUE_ITEMS})
+# Placements the port declares but does not run yet: the cpu ones are item
+# 5h, CMN's item 4, NonsilentRegion's gpu one item 5g.
+_DEVICE_ITEMS = {("CropMirrorNormalize", "cpu"): "item 4", ("NonsilentRegion", "gpu"): "item 5g"}
+
+
+def device_item(schema_name: str, device: str):
+    """The ROADMAP.md Queue 1 item of a (schema, device) the port lacks."""
+    item = _DEVICE_ITEMS.get((schema_name, device)) or QUEUE_ITEMS.get(schema_name)
+    return item or ("item 5h" if device == "cpu" else None)
+
+
+# The one deliberate renaming: the reference's gpu _JaxFunction traces a JAX
+# function into its device program; the port runs a torch function there
+# (fn.torch_function).
+RENAMED = {"_JaxFunction": "_TorchFunction"}
+
+# a deprecated name the reference registers beside its legacy table
+_DEPRECATED = {"TransformTranslation": "transforms.Translation"}
 
 
 def register_aliases():
     """Register every legacy name whose target the port has; return the
-    names left out."""
+    names of the legacy table left out."""
     missing = []
-    for alias, target in _LEGACY.items():
+    for alias, target in {**_LEGACY, **_DEPRECATED}.items():
         if target in _registry:
             _registry.setdefault(alias, _registry[target])
             _alias_targets[alias] = target
             for (name, dev), impl in list(_impl_registry.items()):
                 if name == target:
                     _impl_registry[(alias, dev)] = impl
-        else:
+        elif alias in _LEGACY:
             missing.append(alias)
     return missing
 

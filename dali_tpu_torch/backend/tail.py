@@ -1,6 +1,9 @@
-"""SSDRandomCrop on the host and Reinterpret (counterpart of
-``dali_tpu/backend/tail.py`` ``SSDRandomCrop`` and ``Reinterpret``; the
-reference's other operators of that file are not ported yet)."""
+"""noise.SaltAndPepper (cpu and gpu), noise.Shot on the host, SSDRandomCrop on
+the host and Reinterpret (counterpart of those operators of
+``dali_tpu/backend/tail.py``; the reference's other operators of that file
+are not ported yet). The host noise draws one Philox stream per (op,
+iteration, sample), as the reference does; the device noise draws from
+``DeviceCtx.generator``."""
 
 from __future__ import annotations
 
@@ -12,6 +15,82 @@ from ..batch import DeviceBatch, HostBatch
 from ..types import to_numpy_type, to_torch_type
 from .base import Operator
 from .bbox import _iou
+from .random import per_sample
+
+DALI_SCHEMA("noise.SaltAndPepper").DocStr(
+    "Salt-and-pepper noise: a pixel is corrupted with probability `prob`, to salt with "
+    "probability `salt_vs_pepper` and to pepper otherwise."
+).NumInput(1).NumOutput(1).Devices("cpu", "gpu").AddRandomSeedArg().AddOptionalArg(
+    "prob", ArgType.FLOAT, "Probability a pixel is corrupted.", 0.05, tensor_ok=True,
+    per_sample=True
+).AddOptionalArg(
+    "salt_vs_pepper", ArgType.FLOAT, "Fraction of corrupted pixels that are salt.", 0.5,
+    tensor_ok=True, per_sample=True
+).AddOptionalArg(
+    "salt_val", ArgType.FLOAT, "Salt value (default dtype max).", None
+).AddOptionalArg(
+    "pepper_val", ArgType.FLOAT, "Pepper value (default dtype min).", None
+).AddOptionalArg("per_channel", ArgType.BOOL, "Corrupt channels independently.", False)
+
+
+def _sp_vals(spec, dtype):
+    salt = spec.GetArgument("salt_val", None)
+    pepper = spec.GetArgument("pepper_val", None)
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        return (info.max if salt is None else salt), (info.min if pepper is None else pepper)
+    return (1.0 if salt is None else salt), (0.0 if pepper is None else pepper)
+
+
+@register_operator("noise.SaltAndPepper", "cpu")
+class SaltAndPepperCPU(Operator):
+    def run_sample(self, ctx, idx, x):
+        rng = ctx.rng(self, idx)
+        prob = float(np.asarray(ctx.arg(self, "prob", idx, 0.05)))
+        svp = float(np.asarray(ctx.arg(self, "salt_vs_pepper", idx, 0.5)))
+        salt, pepper = _sp_vals(self.spec, x.dtype)
+        shape = x.shape if self.spec.GetArgument("per_channel", False) else x.shape[:-1] + (1,)
+        u = rng.random(shape)
+        out = np.where(np.broadcast_to(u < prob * svp, x.shape), np.asarray(salt, x.dtype), x)
+        return np.where(np.broadcast_to((u >= prob * svp) & (u < prob), x.shape),
+                        np.asarray(pepper, x.dtype), out)
+
+
+@register_operator("noise.SaltAndPepper", "gpu")
+class SaltAndPepperGPU(Operator):
+    def lower(self, dctx, inp: DeviceBatch):
+        x = inp.data
+        np_dt = torch.empty(0, dtype=x.dtype).numpy().dtype
+        # the values as numpy casts them to the input's dtype
+        salt, pepper = (torch.from_numpy(np.asarray(v, np_dt).reshape(1)).to(x.device)
+                        for v in _sp_vals(self.spec, np_dt))
+        shape = x.shape if self.spec.GetArgument("per_channel", False) else x.shape[:-1] + (1,)
+        prob = per_sample(dctx, self, "prob", 0.05, x.shape[0], x.dim(), x.device)
+        svp = per_sample(dctx, self, "salt_vs_pepper", 0.5, x.shape[0], x.dim(), x.device)
+        u = torch.rand(shape, generator=dctx.generator(self), dtype=torch.float32,
+                       device=x.device)
+        out = torch.where(u < prob * svp, salt, x)
+        return [inp.with_data(torch.where((u >= prob * svp) & (u < prob), pepper, out))]
+
+
+DALI_SCHEMA("noise.Shot").DocStr(
+    "Shot (Poisson) noise: out ~ Poisson(x / factor) * factor; a factor <= 0 passes the input."
+).NumInput(1).NumOutput(1).Devices("cpu", "gpu").AddRandomSeedArg().AddOptionalArg(
+    "factor", ArgType.FLOAT, "Noise factor.", 20.0, tensor_ok=True, per_sample=True)
+
+
+@register_operator("noise.Shot", "cpu")
+class ShotNoiseCPU(Operator):
+    def run_sample(self, ctx, idx, x):
+        rng = ctx.rng(self, idx)
+        factor = float(np.asarray(ctx.arg(self, "factor", idx, 20.0)))
+        if factor <= 0:
+            return x.copy()
+        out = rng.poisson(x.astype(np.float64) / factor).astype(np.float64) * factor
+        if np.issubdtype(x.dtype, np.integer):
+            info = np.iinfo(x.dtype)
+            out = np.clip(out, info.min, info.max)
+        return out.astype(x.dtype)
 
 DALI_SCHEMA("SSDRandomCrop").DocStr(
     "Legacy fused SSD crop: an IoU-constrained window applied to the image, boxes and labels "

@@ -8,7 +8,9 @@ each batch: the separable route when every matrix is axis-aligned, the gather
 route otherwise (``device_statics``). Rotate keeps the input size
 (``keep_size``) or grows the canvas to the rotated extent, rounded up to 32
 and latched. Sequences and volumes raise ``NotImplementedError``. The
-host CoordFlip of the same reference file is here too.
+host CoordFlip, the ``transforms.*`` matrix generators (numpy on the host, in
+float32, composed as the reference composes them) and CoordTransform (cpu
+and gpu) of the same reference file are here too.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch
 from ..kernels import warp as warp_kernel
-from ..types import DALIInterpType, to_torch_type
+from ..types import DALIDataType, DALIInterpType, to_numpy_type, to_torch_type
 from .base import Operator
 
 
@@ -232,3 +234,247 @@ class CoordFlip(Operator):
             if int(np.asarray(ctx.arg(self, f"flip_{axis}", idx, default))) and i >= 0:
                 out[..., i] = 2 * self.spec.GetArgument(f"center_{axis}") - out[..., i]
         return out
+
+
+# =============================== transforms.* (matrix generators) ===================================
+
+
+def _transform_schema(name, doc):
+    return (DALI_SCHEMA(name).DocStr(doc).NumInput(0, 1).NumOutput(1).Devices("cpu")
+            .AddOptionalArg(
+                "reverse_order", ArgType.BOOL,
+                "With an input transform T: False (default) applies this transform after T "
+                "(out = M @ T); True applies it before (out = T @ M).", False))
+
+
+_transform_schema("transforms.Rotation", "Rotation matrix generator.").AddOptionalArg(
+    "angle", ArgType.FLOAT, "Angle (degrees).", 0.0, tensor_ok=True, per_sample=True
+).AddOptionalArg("center", ArgType.FLOAT_VEC, "Rotation center (x, y).", None)
+
+_transform_schema("transforms.Scale", "Scaling matrix generator.").AddOptionalArg(
+    "scale", ArgType.FLOAT_VEC, "Scale factors.", None, tensor_ok=True, per_sample=True
+).AddOptionalArg("center", ArgType.FLOAT_VEC, "Scaling center.", None).AddOptionalArg(
+    "ndim", ArgType.INT, "Number of dims when a scalar `scale` should expand.", None)
+
+_transform_schema("transforms.Translation", "Translation matrix generator.").AddOptionalArg(
+    "offset", ArgType.FLOAT_VEC, "Translation offset.", None, tensor_ok=True, per_sample=True)
+
+_transform_schema("transforms.Shear", "Shear matrix generator.").AddOptionalArg(
+    "shear", ArgType.FLOAT_VEC, "Shear factors (xy, yx).", None, tensor_ok=True,
+    per_sample=True
+).AddOptionalArg(
+    "angles", ArgType.FLOAT_VEC, "Shear angles (degrees).", None, tensor_ok=True,
+    per_sample=True
+).AddOptionalArg("center", ArgType.FLOAT_VEC, "Shear center.", None)
+
+_transform_schema("transforms.Crop", "Crop-window transform generator.").AddOptionalArg(
+    "from_start", ArgType.FLOAT_VEC, "Source window start.", None, tensor_ok=True,
+    per_sample=True
+).AddOptionalArg(
+    "from_end", ArgType.FLOAT_VEC, "Source window end.", None, tensor_ok=True, per_sample=True
+).AddOptionalArg(
+    "to_start", ArgType.FLOAT_VEC, "Destination window start.", None
+).AddOptionalArg("to_end", ArgType.FLOAT_VEC, "Destination window end.", None).AddOptionalArg(
+    "absolute", ArgType.BOOL, "Treat coords as absolute.", False)
+
+DALI_SCHEMA("transforms.Combine").DocStr(
+    "Combines transform matrices, the first applied first."
+).NumInput(1, 8).NumOutput(1).Devices("cpu").AddOptionalArg(
+    "reverse_order", ArgType.BOOL, "Apply inputs right-to-left.", False)
+
+
+class _TransformBase(Operator):
+    """One [2, 3] (x, y) affine matrix per sample, in float32, composed with
+    an input transform as the reference composes them."""
+
+    def _compose(self, m_new, m_in):
+        """``m_new`` applied after ``m_in``."""
+        if m_in is None:
+            return m_new
+        a = m_new[:, :2] @ m_in[:, :2]
+        t = m_new[:, :2] @ m_in[:, 2] + m_new[:, 2]
+        return np.concatenate([a, t[:, None]], axis=1).astype(np.float32)
+
+    def run_sample(self, ctx, idx, *inputs):
+        m_in = np.asarray(inputs[0], np.float32) if inputs else None
+        m = self._matrix(ctx, idx)
+        if self.spec.GetArgument("reverse_order", False) and m_in is not None:
+            return self._compose(m_in, m)
+        return self._compose(m, m_in)
+
+    def output_layout(self, output_idx, inputs):
+        return ""
+
+    def _center(self):
+        return np.asarray(self.spec.GetArgument("center", None) or [0.0, 0.0], np.float32)
+
+
+def _about(m, center):
+    """The linear part ``m`` about ``center``: [m | center - m @ center]."""
+    t = center - m @ center
+    return np.concatenate([m, t[:, None]], axis=1).astype(np.float32)
+
+
+def _vec(ctx, op, name, idx, default):
+    return np.asarray(ctx.arg(op, name, idx, default), np.float32).reshape(-1)
+
+
+@register_operator("transforms.Rotation", "cpu")
+class TRotation(_TransformBase):
+    def _matrix(self, ctx, idx):
+        a = np.deg2rad(float(np.asarray(ctx.arg(self, "angle", idx, 0.0))))
+        c, s = np.cos(a), np.sin(a)
+        return _about(np.array([[c, -s], [s, c]], np.float32), self._center())
+
+
+@register_operator("transforms.Scale", "cpu")
+class TScale(_TransformBase):
+    def _matrix(self, ctx, idx):
+        scale = _vec(ctx, self, "scale", idx, [1.0, 1.0])
+        ndim = self.spec.GetArgument("ndim", None)
+        if ndim and scale.size == 1:
+            scale = np.repeat(scale, int(ndim))
+        return _about(np.diag(scale[:2]).astype(np.float32), self._center())
+
+
+@register_operator("transforms.Translation", "cpu")
+class TTranslation(_TransformBase):
+    def _matrix(self, ctx, idx):
+        off = _vec(ctx, self, "offset", idx, [0.0, 0.0])
+        return np.array([[1, 0, off[0]], [0, 1, off[1]]], np.float32)
+
+
+@register_operator("transforms.Shear", "cpu")
+class TShear(_TransformBase):
+    def _matrix(self, ctx, idx):
+        angles = ctx.arg(self, "angles", idx, None)
+        if angles is not None:
+            shear = np.tan(np.deg2rad(np.asarray(angles, np.float32).reshape(-1)))
+        else:
+            shear = _vec(ctx, self, "shear", idx, [0.0, 0.0])
+        m = np.array([[1, shear[0]], [shear[1] if shear.size > 1 else 0.0, 1]], np.float32)
+        return _about(m, self._center())
+
+
+@register_operator("transforms.Crop", "cpu")
+class TCrop(_TransformBase):
+    def _matrix(self, ctx, idx):
+        fs = _vec(ctx, self, "from_start", idx, [0.0, 0.0])
+        fe = _vec(ctx, self, "from_end", idx, [1.0, 1.0])
+        ts = np.asarray(self.spec.GetArgument("to_start", None) or [0.0, 0.0], np.float32)
+        te = np.asarray(self.spec.GetArgument("to_end", None) or [1.0, 1.0], np.float32)
+        if self.spec.GetArgument("absolute", False):
+            # start and end swap where start > end
+            fs, fe = np.minimum(fs, fe), np.maximum(fs, fe)
+            ts, te = np.minimum(ts, te), np.maximum(ts, te)
+        m = np.diag(((te - ts) / np.where(fe - fs == 0, 1, fe - fs))[:2]).astype(np.float32)
+        t = ts[:2] - m @ fs[:2]
+        return np.concatenate([m, t[:, None]], axis=1).astype(np.float32)
+
+
+@register_operator("transforms.Combine", "cpu")
+class TCombine(_TransformBase):
+    def run_sample(self, ctx, idx, *inputs):
+        mats = [np.asarray(m, np.float32) for m in inputs]
+        if self.spec.GetArgument("reverse_order", False):
+            mats = mats[::-1]
+        out = None
+        for m in mats:
+            out = self._compose(m, out)
+        return out
+
+
+# ====================================== CoordTransform ================================================
+
+DALI_SCHEMA("CoordTransform").DocStr(
+    "Applies an affine transform to point coordinates: out = M @ p + T over the last axis."
+).NumInput(1, 2).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
+    "M", ArgType.FLOAT_VEC, "Row-major matrix.", None, tensor_ok=True, per_sample=True
+).AddOptionalArg(
+    "T", ArgType.FLOAT_VEC, "Translation.", None, tensor_ok=True, per_sample=True
+).AddOptionalArg("dtype", ArgType.DATA_TYPE, "Output dtype.", DALIDataType.FLOAT)
+
+
+@register_operator("CoordTransform", "cpu")
+class CoordTransform(Operator):
+    """A positional matrix input of D + 1 columns carries T as its last
+    column; ``M`` has D columns (its rows are the output's dims)."""
+
+    def run_sample(self, ctx, idx, coords, *mt):
+        pts = coords.astype(np.float32)
+        d = pts.shape[-1]
+        if mt:
+            m = np.asarray(mt[0], np.float32)
+            if m.shape[-1] == d + 1:
+                mat, t = m[:, :d], m[:, d]
+            else:
+                mat, t = m.reshape(d, d), np.zeros(d, np.float32)
+        else:
+            M = ctx.arg(self, "M", idx, None)
+            mat = (np.asarray(M, np.float32).reshape(-1, d) if M is not None
+                   else np.eye(d, dtype=np.float32))
+            if mat.shape[-1] == d + 1:
+                mat, t0 = mat[:, :d], mat[:, d]
+            else:
+                t0 = np.zeros(mat.shape[0], np.float32)
+            T = ctx.arg(self, "T", idx, None)
+            t = np.asarray(T, np.float32).reshape(-1) if T is not None else t0
+        out = pts @ mat.T + t
+        return out.astype(to_numpy_type(self.spec.GetArgument("dtype", DALIDataType.FLOAT)))
+
+
+@register_operator("CoordTransform", "gpu")
+class CoordTransformGPU(Operator):
+    """Points [N, ..., D] on the padded canvas, out = pts @ M^T + T as one
+    batched product; the matrix comes from the ``M``/``T`` arguments
+    (constants or per-sample tensors), a positional matrix input is
+    cpu-only."""
+
+    def host_output_shapes(self, ctx, input_shapes, input_batches):
+        sh = input_shapes[0] if input_shapes else None
+        if sh is None:
+            return None
+        sh = np.asarray(sh)
+        if "M" in self.spec.arg_inputs:
+            # a per-sample M may change the coordinate dim: the device
+            # shapes carry it
+            return None
+        M = self.spec.GetArgument("M", None)
+        if M is None:
+            return [sh]
+        out = sh.copy()
+        out[:, -1] = len(np.asarray(M).reshape(-1)) // int(sh[0, -1])
+        return [out]
+
+    def lower(self, dctx, coords: DeviceBatch, *mt):
+        if mt:
+            raise ValueError("CoordTransform(gpu): pass the matrix via the M/T keyword arguments "
+                             "(a positional matrix input is cpu-only)")
+        pts = coords.data.to(torch.float32)
+        n, d, mid = pts.shape[0], pts.shape[-1], pts.shape[1:-1]
+        dev = pts.device
+
+        def arg(name):
+            v = dctx.arg(self, name, None)
+            if v is None:
+                return None
+            if dctx.has_tensor_arg(self, name):
+                return v.to(device=dev, dtype=torch.float32).reshape(n, -1)
+            return torch.tensor(v, dtype=torch.float32, device=dev).reshape(1, -1)
+
+        m, t = arg("M"), arg("T")
+        if m is not None:
+            out_dim = m.shape[1] // d
+            mat = m.reshape(-1, out_dim, d)
+        else:
+            out_dim = d
+            mat = torch.eye(d, dtype=torch.float32, device=dev)[None]
+        if t is None:
+            t = torch.zeros((1, out_dim), dtype=torch.float32, device=dev)
+        out = torch.einsum("npd,nkd->npk", pts.reshape(n, -1, d), mat.expand(n, -1, -1))
+        out = (out + t.expand(n, -1)[:, None, :]).reshape(n, *mid, out_dim)
+        shapes = coords.shapes
+        if shapes is not None and out_dim != d:  # a dim-raising or -lowering M
+            shapes = torch.cat([shapes[:, :-1], torch.full_like(shapes[:, :1], out_dim)], dim=1)
+        dt = to_torch_type(self.spec.GetArgument("dtype", DALIDataType.FLOAT))
+        return [DeviceBatch(out.to(dt), shapes, coords.layout)]

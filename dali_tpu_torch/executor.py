@@ -117,7 +117,8 @@ def run_device_op(impl: Operator, ctx: HostCtx, inputs: List[DeviceBatch], in_sh
     dctx = DeviceCtx({impl.op_id: {k: to_dev(stack_arg(b)) for k, b in arg_batches.items()}},
                      {} if statics is None else {impl.op_id: statics},
                      {impl.op_id: {k: to_dev(v) for k, v in (params or {}).items()}},
-                     batch_size=ctx.batch_size)
+                     batch_size=ctx.batch_size, seed=ctx.pipeline.seed,
+                     iteration=ctx.iteration, device=torch.device(device))
     return list(impl.lower(dctx, *inputs)), out_shapes
 
 
@@ -521,8 +522,11 @@ class Executor:
         arg_arrays: Dict[int, Dict[str, torch.Tensor]] = {}
         for (op_id, name, _), arr in zip(self.device_arg_edges, dev_args):
             arg_arrays.setdefault(op_id, {})[name] = arr
+        # device draws key on the staged batch's own iteration: the host
+        # phase runs ahead by the prefetch depth
         dctx = DeviceCtx(arg_arrays, staged["statics"], params, self.device_arg_dev_edges, env,
-                         batch_size=staged["batch_size"])
+                         batch_size=staged["batch_size"], seed=self.pipeline.seed,
+                         iteration=staged["iteration"], device=self.device)
         for node, release in zip(self.device_ops, self._release_after):
             t0 = self._event() if timing else None
             outs = self.impls[node.id].lower(dctx, *[env[_edge_key(e)] for e in node.spec.inputs])

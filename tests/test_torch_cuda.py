@@ -30,7 +30,10 @@ recipes (ImageRandomCrop on the host, and the int16 hybrid wire), and the
 reader-fed recipes (WebDataset shards into the whole-image hybrid decode,
 TFRecords into the host decode with CMN to HWC). The mixed host decoders'
 device outputs, the mixed Numpy reader's (device="gpu") and decoders.numpy's
-equal the CPU run's bit for bit."""
+equal the CPU run's bit for bit. The device random and noise operators are
+held by their distributions (a card's generator does not reproduce a CPU
+generator's stream) and leave the global generators untouched; the
+rn50_affine_mixup path's host draws and warped images match the CPU run."""
 
 import os
 
@@ -1101,3 +1104,117 @@ def test_shapes_on_card_read_nothing_back(card, monkeypatch):
     np.testing.assert_array_equal(shape.as_tensor().cpu().numpy(), [s.shape for s in ragged])
     np.testing.assert_array_equal(width.as_tensor().cpu().numpy(),
                                   [float(s.shape[1]) for s in ragged])
+
+
+def _affine_file_list(tmp_path, n=32):
+    files = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(CORPUS) for f in fs)
+    path = tmp_path / "list.txt"
+    path.write_text("".join(f"{f} {i % 2}\n" for i, f in enumerate((files * 2)[:n])))
+    return str(path)
+
+
+def test_affine_mixup_on_card_matches_cpu(card, tmp_path):
+    """rn50_affine_mixup at batch 8, 96 px: host draws equal card vs CPU,
+    warped images within one step, the device noise by its distribution,
+    mixup by its formula, the same seed twice bit-identical on the card."""
+    from dali_tpu_torch.tools import bench_affine_mixup
+
+    r = bench_affine_mixup.check_against_cpu(_affine_file_list(tmp_path), batch=8, out=96)
+    assert r["warped_max_diff"] <= 1 and r["warped_frac_differing"] <= MAX_FLIP_FRACTION
+    assert all(abs(z) <= 3.0 for zs in r["noise_z"] for z in zs)
+
+
+def test_device_random_draws_keep_the_global_cuda_generator(card):
+    torch.cuda.manual_seed(5)
+    before = torch.cuda.get_rng_state()
+    host_before = torch.random.get_rng_state()
+
+    @pipeline_def(batch_size=4, num_threads=1, seed=3, device="cuda:0")
+    def p():
+        x = fn.external_source(source=lambda: [np.zeros((8, 8, 3), np.uint8)] * 4,
+                               batch=True, layout="HWC").gpu()
+        return (fn.random.normal(shape=[16], device="gpu"), fn.noise.gaussian(x, stddev=3.0),
+                fn.noise.shot(x, factor=2.0), fn.random.beta(alpha=0.2, beta=0.2, device="gpu"),
+                fn.jitter(x))
+
+    pipe = p()
+    pipe.build()
+    outs = [[o.as_tensor().clone() for o in pipe.run()] for _ in range(2)]
+    pipe.shutdown()
+    assert all(o.is_cuda for o in outs[0])
+    assert torch.equal(torch.cuda.get_rng_state(), before)
+    assert torch.equal(torch.random.get_rng_state(), host_before)
+    assert not torch.equal(outs[0][0], outs[1][0])
+
+
+def test_device_random_ops_on_card_by_distribution(card):
+    from dali_tpu_torch.tools import bench_affine_mixup
+
+    r = bench_affine_mixup.random_ops(batch=16, shape=(64, 64, 3))
+    assert all(v > bench_affine_mixup.KS_P_MIN for k, v in r.items() if k.endswith("_p"))
+    assert all(abs(v) <= 3.0 for k, v in r.items() if k.endswith("_z"))
+
+
+def test_distortion_ops_on_card_match_cpu(card):
+    from dali_tpu_torch.tools import bench_affine_mixup
+
+    r = bench_affine_mixup.distortion_ops(batch=6, size=(48, 64))
+    assert all(v["max_diff"] <= 1 for v in r.values() if isinstance(v, dict))
+
+
+def test_custom_operators_with_torch_function_on_card(card):
+    from dali_tpu_torch.tools import bench_affine_mixup
+
+    assert bench_affine_mixup.custom_operators()["outputs_checked"] == 4
+
+
+def test_coord_transform_gpu_on_card_matches_cpu(card):
+    rng = np.random.default_rng(4)
+    pts = [rng.uniform(-5, 60, (7 - i, 2)).astype(np.float32) for i in range(4)]
+
+    def run(device):
+        @pipeline_def(batch_size=4, num_threads=1, seed=3, device=device)
+        def p():
+            x = fn.external_source(source=lambda: pts, batch=True).gpu()
+            return fn.coord_transform(x, M=fn.random.uniform(range=[-1.0, 1.0], shape=[4]),
+                                      T=[1.0, -2.0], device="gpu")
+
+        pipe = p()
+        pipe.build()
+        (out,) = pipe.run()
+        pipe.shutdown()
+        return [out.at(i) for i in range(4)]
+
+    for g, c in zip(run("cuda:0"), run("cpu")):
+        assert g.shape == c.shape
+        np.testing.assert_allclose(g, c, rtol=1e-6, atol=1e-5)
+
+
+def test_device_random_checkpoint_resumes_on_card(card):
+    """A checkpoint taken after batch 1 and restored gives the same device
+    draws for batches 2 and 3, on the card."""
+    def build(**kw):
+        @pipeline_def(batch_size=4, num_threads=1, seed=11, device="cuda:0", **kw)
+        def p():
+            x = fn.external_source(source=lambda: [np.full((8, 8, 3), 100, np.uint8)] * 4,
+                                   batch=True, layout="HWC").gpu()
+            return (fn.random.uniform(shape=[32], device="gpu"),
+                    fn.noise.gaussian(x, stddev=fn.random.uniform(range=[1.0, 4.0],
+                                                                  device="gpu")),
+                    fn.jitter(x), fn.random.beta(alpha=0.5, beta=0.5, device="gpu"))
+
+        pipe = p()
+        pipe.build()
+        return pipe
+
+    pipe = build(enable_checkpointing=True)
+    pipe.run()
+    ckpt = pipe.checkpoint()
+    want = [[o.as_tensor().clone() for o in pipe.run()] for _ in range(2)]
+    pipe.shutdown()
+    again = build(checkpoint=ckpt)
+    got = [[o.as_tensor().clone() for o in again.run()] for _ in range(2)]
+    again.shutdown()
+    for g_it, w_it in zip(got, want):
+        assert all(torch.equal(g, w) for g, w in zip(g_it, w_it))
+    assert not torch.equal(want[0][0], want[1][0])

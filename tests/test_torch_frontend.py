@@ -391,12 +391,13 @@ def test_ops_api_builds_the_fn_graph():
 @pytest.mark.parametrize("api", ["fn", "ops"])
 def test_unported_names_name_their_roadmap_item(api):
     mod = getattr(dali_tpu_torch, api)
-    names = (("decoders.video", "item 8"), ("water", "item 5g"), ("python_function", "item 5f"),
-             ("transforms.rotation", "item 5b"), ("noise.gaussian", "item 5c"))
+    names = (("decoders.video", "item 8"), ("multi_paste", "item 5g"),
+             ("experimental.median_blur", "item 5g"), ("experimental.audio_resample", "item 4"),
+             ("dump_image", "item 5h"))
     if api == "ops":
-        names = (("decoders.Video", "item 8"), ("Water", "item 5g"),
-                 ("PythonFunction", "item 5f"), ("transforms.Rotation", "item 5b"),
-                 ("noise.Gaussian", "item 5c"))
+        names = (("decoders.Video", "item 8"), ("MultiPaste", "item 5g"),
+                 ("experimental.MedianBlur", "item 5g"), ("experimental.AudioResample", "item 4"),
+                 ("DumpImage", "item 5h"))
     for path, item in names:
         obj = mod
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md \\(Queue 1, {item}\\)"):
@@ -468,7 +469,7 @@ def test_load_library_by_module_name(plugin_file, monkeypatch):
 RESOLVING = ["FileReader", "COCOReader", "CaffeReader", "Caffe2Reader", "MXNetReader",
              "TFRecordReader", "NumpyReader", "SequenceReader", "NemoAsrReader", "ImageDecoder",
              "ImageDecoderCrop", "ImageDecoderRandomCrop", "ImageDecoderSlice", "AudioDecoder",
-             "Uniform", "CoinFlip", "Equalize", "experimental.decoders.Image",
+             "Uniform", "CoinFlip", "NormalDistribution", "Equalize", "experimental.decoders.Image",
              "experimental.decoders.ImageCrop", "experimental.decoders.ImageRandomCrop",
              "experimental.decoders.ImageSlice", "experimental.Inflate",
              "experimental.readers.Fits", "experimental.PeekImageShape", "reductions.RMS"]
@@ -486,7 +487,7 @@ def test_legacy_names_register_where_the_target_runs():
         devices = {d for (n, d) in _schema._impl_registry if n == target}
         assert {d for (n, d) in _schema._impl_registry if n == alias} == devices, alias
         assert all(_schema.has_operator_impl(alias, d) for d in devices)
-    assert not _schema.has_operator_impl("CoinFlip", "gpu")
+    assert not _schema.has_operator_impl("Equalize", "cpu")
     assert _schema.TryGetSchema("VideoReader") is None
     assert sorted(parity._ALIAS_MISS) == sorted(set(parity._LEGACY) - set(RESOLVING))
 
@@ -522,7 +523,8 @@ def test_legacy_names_run_as_their_targets():
 def test_legacy_name_on_a_device_the_port_lacks_raises():
     @dali_tpu_torch.pipeline_def(batch_size=2, num_threads=1, device="cpu")
     def p():
-        return dali_tpu_torch.fn.coin_flip(device="gpu")
+        return dali_tpu_torch.fn.equalize(dali_tpu_torch.fn.external_source(
+            source=lambda: [np.zeros((4, 4, 3), np.uint8)] * 2, batch=True), device="cpu")
 
     with pytest.raises(NotImplementedError, match="not ported"):
         p().build()

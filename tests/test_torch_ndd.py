@@ -122,8 +122,9 @@ def test_eager_mirror_argument_batch_and_gpu_random_raise():
         b = ndd.as_batch(IMGS, layout="HWC").gpu()
         mirror = ndd.random.coin_flip(probability=0.5, batch_size=4)
         got = ndd.crop_mirror_normalize(b, crop=(30, 30), mirror=mirror, mean=MEAN, std=STD)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ndd.random.uniform(b, range=[0.0, 1.0])
+        # a device random op draws on the device: one value per sample
+        u = ndd.random.uniform(b, range=[0.0, 1.0])
+        assert u.is_gpu and len(u) == 4
     with ref_ndd.EvalContext(seed=3):
         b = ref_ndd.as_batch(IMGS, layout="HWC").gpu()
         m = ref_ndd.random.coin_flip(probability=0.5, batch_size=4)
@@ -334,7 +335,7 @@ def test_eager_decoders_do_what_dali_tpu_does():
             with pytest.raises(NotImplementedError, match="Queue 1 items 1c-1e"):
                 dec(ndd.as_batch([gif, gif]), device="mixed")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ndd.water
+            ndd.multi_paste
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ndd.readers.video
     with ref_ndd.EvalContext():
