@@ -207,7 +207,29 @@ on failure:
    against scipy (p > 1e-3); Water, Sphere, GridMask and ColorTwist card
    against CPU (within one uint8 step on at most 1e-3 of values) and
    Jitter's determinism; ``docs/examples/custom_operators.py``'s graph with
-   ``fn.torch_function`` on the card, to the example's asserted values.
+   ``fn.torch_function`` on the card, to the example's asserted values;
+23. rn50_rcm_jpeg (``tools/bench_rcm_jpeg.py``): phase 3's reader, rn50_val's
+   decode (hybrid, scale 1, int8 wire), ``fast_resize_crop_mirror`` (shorter
+   side to 256, a random 224x224 crop, a coin-flip mirror: one resample),
+   ``jpeg_compression_distortion`` at a quality drawn in [30, 95] and CMN to
+   float CHW, through ``DALIClassificationIterator`` at batch 256: 3 warm-up
+   + 10 timed batches, each checked for shape, dtype, device and finiteness;
+   the exact CMN launch count; images/s beside rn50_train's and rn50_val's;
+   host ms/batch by schema; device ms by stage of one batch run alone; peak
+   memory; the CMN kernel held against its plain version on one more batch
+   of the path and timed on it; then batch 16 on the card against the CPU:
+   labels and host draws equal, resized images within one uint8 step on at
+   most 1e-3 of values, at most 1e-3 of the distorted 8x8 blocks differing,
+   normalised images within one step / std where the distorted pixels agree;
+24. gpu_ops: every other operator of Queue 1 item 5g (Dilate, Erode,
+   MedianBlur at 3 and 5, Clahe, Debayer, Filter 5x5, Remap,
+   WarpPerspective nearest and linear, MultiPaste as a 2x2 mosaic into
+   448x448, ElementExtract, SequenceRearrange, PerFrame, TensorResize,
+   PowerSpectrum, NonsilentRegion) card against CPU at batch 16 (4
+   sequences, 8 clips) within the CPU tests' tolerances, and its device ms
+   on one full batch ([256, 224, 224, 3] uint8 images; [16, 8, 224, 224, 3]
+   sequences; numpy_volumes' two [4, 155, 240, 240] float32 volumes at
+   scale 0.5; asr_frontend's 32 clips), with the phase's peak memory.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -249,6 +271,7 @@ SSD_TIMED = {"ssd_train": 20, "ssd_device_encode": 10}
 READER_TIMED, READER_CHECK_BATCH = 10, 16
 FRONTEND_TIMED, VOLUMES_TIMED = 10, 10
 AFFINE_TIMED, AFFINE_CHECK_BATCH = 10, 16
+RCM_TIMED, RCM_CHECK_BATCH = 10, 16
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -1173,6 +1196,61 @@ def random_ops_phase(card):
     print(f"random ops phase: {time.perf_counter() - t0:.1f} s")
 
 
+def rcm_jpeg_phase(card, file_list, rn50_ips, val_ips):
+    """Phase 23: rn50_rcm_jpeg; returns its CMN launches and the kernel's
+    readings on the path's own batch."""
+    from dali_tpu_torch.tools import bench_rcm_jpeg, bench_ssd
+
+    t0 = time.perf_counter()
+    r = bench_rcm_jpeg.run_path(file_list, BATCH, OUT, warmup=WARMUP, timed=RCM_TIMED)
+    print(f"rn50_rcm_jpeg batch {BATCH}: {r['images_per_s']:.1f} images/s over {r['timed']} "
+          f"batches, {100 * r['images_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} "
+          f"and {100 * r['images_per_s'] / val_ips:.1f}% of rn50_val's {val_ips:.1f} in this run; "
+          f"{r['device_ops']} device ops, {r['host_ops']} host ops; cmn launches "
+          f"{r['cmn_launches']} ({card})")
+    print(f"rn50_rcm_jpeg host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} "
+          f"host cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; host "
+          "ms/batch by schema: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                             r["host_ms_by_schema"].items() if v >= 0.05))
+    print(f"rn50_rcm_jpeg device ms of one batch alone {r['device_ms']:.3f}: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(r["stage_ms"].items(), key=lambda kv: -kv[1]))
+        + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    pipe = bench_rcm_jpeg.make_pipe(file_list, BATCH, "cuda:0")
+    with bench_ssd.recording_cmn([]) as calls:
+        pipe.run()
+    pipe.shutdown()
+    c = dict(bench_ssd.time_cmn(calls[0]), max_abs_err=bench_ssd.hold_cmn(calls[0]))
+    print(f"rn50_rcm_jpeg CMN kernel on the path's own batch {c['shape_in']} {c['dtype_in']} "
+          f"-> {c['shape_out']} float32: max abs diff vs plain {c['max_abs_err']:.3e} (limit "
+          f"1e-05; path launches {r['cmn_launches']}); kernel alone {c['ms']:.4f} ms (cold L2), "
+          f"wrapper {c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} bytes, "
+          f"bound {c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+    k = bench_rcm_jpeg.check_against_cpu(file_list, RCM_CHECK_BATCH, OUT)
+    print(f"rn50_rcm_jpeg card vs CPU (batch {k['batch']}, {k['iterations']} iterations): labels, "
+          f"qualities, crop positions and mirrors equal; resized images max diff "
+          f"{k['resized_max_diff']} on {k['resized_frac_differing']:.2e} of values (limits 1, "
+          f"1e-3); distorted 8x8 blocks differing {k['jpeg_block_share']:.2e} (limit 1e-3, max "
+          f"diff {k['jpeg_max_diff']}); normalised images {k['normalized_max_err']:.2e} apart "
+          f"where the distorted pixels agree (limit {LSB_OVER_STD + 1e-4:.4f})")
+    print(f"rn50_rcm_jpeg phase: {time.perf_counter() - t0:.1f} s")
+    return r["cmn_launches"], c
+
+
+def gpu_ops_phase(card):
+    """Phase 24: the other gpu operators of item 5g, card vs CPU and device
+    ms at full size."""
+    from dali_tpu_torch.tools import bench_rcm_jpeg
+
+    t0 = time.perf_counter()
+    r, peak = bench_rcm_jpeg.gpu_ops(check_batch=16, batch=BATCH, hw=(OUT, OUT))
+    for name, v in r.items():
+        print(f"gpu op {name}: card vs CPU " + ", ".join(
+            f"{k} {x:.3g}" if isinstance(x, float) else f"{k} {x}" for k, x in v["check"].items())
+            + f"; device ms of one batch {v['shape']}: {v['ms']:.3f} ({card})")
+    print(f"gpu ops peak device memory {peak:.2f} GiB; gpu ops phase: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1198,8 +1276,9 @@ def main():
     print(f"augmentation phase: {time.perf_counter() - t0:.1f} s")
     launches["ndd_rn50_captured"], launches["ndd_eager"], _ = ndd_phase(card, file_list, rn50_ips)
     launches["rn50_parallel_es"] = parallel_phase(card, file_list, rn50_ips)[0]
+    recipe_ips = {}
     for recipe in RECIPE_TIMED:
-        launches[recipe] = imagenet_phase(card, file_list, rn50_ips, recipe)[0]
+        launches[recipe], recipe_ips[recipe] = imagenet_phase(card, file_list, rn50_ips, recipe)
     launches["imagenet_forms"] = forms_phase(card, rn50_ips)[0]
     ssd_launches, path_cmn = ssd_phase(card, rn50_ips)
     launches.update(ssd_launches)
@@ -1212,6 +1291,9 @@ def main():
     launches["rn50_affine_mixup"], path_cmn["rn50_affine_mixup"] = affine_mixup_phase(
         card, file_list, rn50_ips)
     random_ops_phase(card)
+    launches["rn50_rcm_jpeg"], path_cmn["rn50_rcm_jpeg"] = rcm_jpeg_phase(
+        card, file_list, rn50_ips, recipe_ips["rn50_val"])
+    gpu_ops_phase(card)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

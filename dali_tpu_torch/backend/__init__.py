@@ -23,6 +23,10 @@ from . import audio  # noqa: F401
 from . import bbox  # noqa: F401
 from . import bbox_extra  # noqa: F401
 from . import tail  # noqa: F401
+from . import sequence  # noqa: F401
+from . import misc  # noqa: F401
+from . import misc2  # noqa: F401
+from . import enhance2  # noqa: F401
 from . import straggler_gpu  # noqa: F401
 from . import interop  # noqa: F401
 from . import distortion  # noqa: F401

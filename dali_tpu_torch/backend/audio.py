@@ -474,7 +474,7 @@ class ToDecibelsGPU(Operator):
 DALI_SCHEMA("NonsilentRegion").DocStr(
     "Finds the leading/trailing non-silence: outputs (begin, length) of the "
     "region above cutoff_db."
-).NumInput(1).NumOutput(2).Devices("cpu").AddOptionalArg(
+).NumInput(1).NumOutput(2).Devices("cpu", "gpu").AddOptionalArg(
     "cutoff_db", ArgType.FLOAT, "Silence threshold relative to reference.", -60.0
 ).AddOptionalArg(
     "window_length", ArgType.INT, "Moving-mean-square window.", 2048

@@ -148,12 +148,28 @@ class DeviceCtx:
         return default if v is None else v
 
 
+def raise_unserved(spec: OpSpec, names):
+    """Raise for an argument among ``names`` that ``spec`` sets to other than
+    its default, or feeds as a tensor: one that this placement cannot serve
+    (and the reference's placement ignores; ROADMAP.md Queue 3)."""
+    for name in names:
+        default = spec.schema.args[name].default
+        if name in spec.arg_inputs or (name in spec.args and spec.args[name] != default):
+            raise NotImplementedError(
+                f"{spec.schema_name}({spec.device}): argument '{name}' is not served on this "
+                "device by dali_tpu_torch; see ROADMAP.md (Queue 3)")
+
+
 class Operator:
     schema_name: str = None
     device: str = None
     # run_sample is an element-wise numpy function of its inputs: a batch
     # whose inputs all share one sample shape runs as one stacked call
     elementwise = False
+    # argument inputs a device op reads only in its host-side setup pass: a
+    # host edge of one is not stacked and copied to the device, so its
+    # samples may differ in shape
+    host_args: tuple = ()
 
     def __init__(self, spec: OpSpec, op_id: int):
         self.spec = spec
@@ -226,7 +242,8 @@ SHAPE_PRESERVING_SCHEMAS = frozenset({
     "Equalize", "experimental.Equalize", "Cast", "CastLike", "Copy", "Flip", "GridMask",
     "Jitter", "Sphere", "Water", "LookupTable", "GaussianBlur", "Laplacian", "Normalize",
     "noise.Gaussian", "noise.SaltAndPepper", "noise.Shot", "PreemphasisFilter", "ToDecibels",
-    "_conditional.LogicalNot",
+    "_conditional.LogicalNot", "JpegCompressionDistortion", "experimental.Clahe",
+    "experimental.MedianBlur", "experimental.Erode", "experimental.Dilate", "PerFrame",
 })
 
 

@@ -175,3 +175,18 @@ class LaplacianGPU(Operator):
         dt = self.spec.GetArgument("dtype", None)
         return [inp.with_data(saturate_cast(out * scale,
                                             torch.float32 if dt is None else to_torch_type(dt)))]
+
+
+# ======================================== Filter ====================================================
+
+# the gpu placement is in tail.py, as in the reference; the cpu one is item 5h
+DALI_SCHEMA("experimental.Filter").DocStr(
+    "General 2D correlation with a per-sample kernel."
+).NumInput(2, 3).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
+    "anchor", ArgType.INT_VEC, "Kernel anchor (default center).", None
+).AddOptionalArg(
+    "border", ArgType.STRING, '"reflect_101", "constant", ...', "reflect_101"
+).AddOptionalArg(
+    "mode", ArgType.STRING, '"same" or "valid".', "same"
+).AddOptionalArg("fill_value", ArgType.FLOAT, "Constant-border fill.", 0.0).AddOptionalArg(
+    "dtype", ArgType.DATA_TYPE, "Output dtype.", None)

@@ -1,6 +1,8 @@
 """Water, Sphere, Jitter and GridMask on the device (counterpart of the gpu
 ops of ``dali_tpu/backend/distortion.py``; their cpu placements are ROADMAP.md
-Queue 1 item 5h).
+Queue 1 item 5h), and the schemas of JpegCompressionDistortion, MedianBlur,
+Dilate and Erode, whose gpu placements are in ``straggler_gpu.py`` as in the
+reference.
 
 The displacement ops gather each output pixel from source coordinates on the
 padded canvas [N, H, W, C], nearest (the reference's default) or bilinear;
@@ -167,3 +169,24 @@ class GridMaskGPU(Operator):
         keep = ((torch.remainder(rx, tile) / tile >= ratio)
                 | (torch.remainder(ry, tile) / tile >= ratio))
         return [inp.with_data(x * keep[..., None].to(x.dtype))]
+
+
+# ============================= JpegCompressionDistortion, MedianBlur, morphology =====================
+
+DALI_SCHEMA("JpegCompressionDistortion").DocStr(
+    "Simulates JPEG compression artifacts: encode at `quality`, decode back."
+).NumInput(1).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
+    "quality", ArgType.FLOAT, "JPEG quality (1..100).", 50.0, tensor_ok=True, per_sample=True)
+
+DALI_SCHEMA("experimental.MedianBlur").DocStr("Median filter.").NumInput(1).NumOutput(1).Devices(
+    "cpu", "gpu").AddOptionalArg("window_size", ArgType.INT_VEC, "Kernel size (odd).", [3])
+
+for _nm, _doc in (("experimental.Dilate", "Dilation"), ("experimental.Erode", "Erosion")):
+    DALI_SCHEMA(_nm).DocStr(f"{_doc} with a rectangular structuring element.").NumInput(
+        1).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
+        "mask_size", ArgType.INT_VEC, "Structuring element size.", [3, 3]
+    ).AddOptionalArg("anchor", ArgType.INT_VEC, "Anchor (-1 = center).", [-1, -1]).AddOptionalArg(
+        "iterations", ArgType.INT, "Number of times the operation is applied.", 1
+    ).AddOptionalArg(
+        "border_mode", ArgType.STRING,
+        '"constant" (outside pixels take the reduction identity) or "replicate".', "constant")

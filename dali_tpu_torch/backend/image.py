@@ -91,7 +91,7 @@ for _args in (
     ("temp_buffer_hint", ArgType.INT, "Compatibility hint.", 0, False),
     ("subpixel_scale", ArgType.BOOL, "Compatibility flag.", True, False),
 ):
-    _resize.AddOptionalArg(*_args[:4], tensor_ok=_args[4])
+    _resize.AddOptionalArg(*_args[:4], tensor_ok=_args[4], per_sample=_args[4])
 
 
 def _apply_max_size(spec, oh, ow):

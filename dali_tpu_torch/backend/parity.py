@@ -1,6 +1,9 @@
-"""Legacy and experimental operator names, and where the names not ported
-yet stand in ROADMAP.md (counterpart of ``dali_tpu/backend/parity.py``
-``_LEGACY`` and ``register_aliases``).
+"""Legacy and experimental operator names, where the names not ported yet
+stand in ROADMAP.md, and the experimental.WarpPerspective and TensorResize
+schemas with WarpPerspective's gpu placement (counterpart of
+``dali_tpu/backend/parity.py`` ``_LEGACY``, ``register_aliases`` and those
+operators; their cpu placements call cv2 in the reference and are ROADMAP.md
+Queue 1 item 5h).
 
 An alias shares its target's schema and is registered on each device the
 port implements the target on (``CoinFlip`` on the cpu, not on the gpu); a
@@ -10,7 +13,15 @@ target implementation registered later is found through
 
 from __future__ import annotations
 
-from .._schema import _alias_targets, _impl_registry, _registry
+import numpy as np
+import torch
+
+from .._schema import DALI_SCHEMA, ArgType, _alias_targets, _impl_registry, _registry, \
+    register_operator
+from ..batch import DeviceBatch
+from ..kernels import warp as warp_kernel
+from ..types import DALIInterpType
+from .base import Operator
 
 _LEGACY = {
     "Clahe": "experimental.Clahe",
@@ -50,22 +61,15 @@ _LEGACY = {
 # The ROADMAP.md Queue 1 item of each dali_tpu operator the port lacks.
 _VIDEO = ("decoders.Video", "experimental.decoders.Video", "experimental.inputs.Video",
           "readers.Video", "readers.VideoResize", "VideoReaderResize", "OpticalFlow")
-_GPU_OPS = ("ElementExtract", "FastResizeCropMirror", "JpegCompressionDistortion", "MultiPaste",
-            "PerFrame", "PowerSpectrum", "ResizeCropMirror", "SequenceRearrange", "TensorResize",
-            "experimental.Clahe", "experimental.Debayer", "experimental.Dilate",
-            "experimental.Erode", "experimental.Filter", "experimental.MedianBlur",
-            "experimental.Remap", "experimental.Resize", "experimental.TensorResize",
-            "experimental.WarpPerspective")
 QUEUE_ITEMS = {
     **{n: "item 8" for n in _VIDEO},
-    **{n: "item 5g" for n in _GPU_OPS},
     "experimental.AudioResample": "item 4",
     "DumpImage": "item 5h",
 }
 QUEUE_ITEMS.update({a: QUEUE_ITEMS[t] for a, t in _LEGACY.items() if t in QUEUE_ITEMS})
 # Placements the port declares but does not run yet: the cpu ones are item
-# 5h, CMN's item 4, NonsilentRegion's gpu one item 5g.
-_DEVICE_ITEMS = {("CropMirrorNormalize", "cpu"): "item 4", ("NonsilentRegion", "gpu"): "item 5g"}
+# 5h, CMN's item 4.
+_DEVICE_ITEMS = {("CropMirrorNormalize", "cpu"): "item 4"}
 
 
 def device_item(schema_name: str, device: str):
@@ -79,8 +83,121 @@ def device_item(schema_name: str, device: str):
 # (fn.torch_function).
 RENAMED = {"_JaxFunction": "_TorchFunction"}
 
-# a deprecated name the reference registers beside its legacy table
-_DEPRECATED = {"TransformTranslation": "transforms.Translation"}
+# a deprecated name and the experimental names the reference registers
+# beside its legacy table (``alias_schema``)
+_DEPRECATED = {"TransformTranslation": "transforms.Translation",
+               "experimental.TensorResize": "TensorResize", "experimental.Resize": "Resize"}
+
+
+# ====================================== WarpPerspective ===========================================
+
+DALI_SCHEMA("experimental.WarpPerspective").DocStr(
+    """Perspective (homography) warp: a per-pixel homography divide and a
+    bilinear or nearest gather. ``matrix`` is the 3x3 destination -> source
+    mapping (``inverse_map=False`` inverts it)."""
+).NumInput(1, 2).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
+    "matrix", ArgType.FLOAT_VEC, "3x3 homography (row-major).", None, tensor_ok=True,
+    per_sample=True
+).AddOptionalArg("size", ArgType.FLOAT_VEC, "Output size (H, W).", None).AddOptionalArg(
+    "fill_value", ArgType.FLOAT, "Out-of-bounds fill.", 0.0
+).AddOptionalArg(
+    "interp_type", ArgType.INTERP_TYPE, "NN or linear.", DALIInterpType.INTERP_LINEAR
+).AddOptionalArg("inverse_map", ArgType.BOOL, "Matrix maps dst->src (True).", True).AddOptionalArg(
+    "border_mode", ArgType.STRING,
+    '"constant" (fill_value outside) or "replicate" (clamp to edge).', "constant"
+).AddOptionalArg(
+    "pixel_origin", ArgType.STRING,
+    '"corner" (default; (0,0) = top-left corner of the top-left pixel) or "center" '
+    "(OpenCV-style).", "corner")
+
+
+def _origin_adjust(m: torch.Tensor) -> torch.Tensor:
+    """The destination -> source map [N, 3, 3] between pixel corners,
+    conjugated to index coordinates: C @ m @ C^-1 with C the shift by -0.5,
+    each product summed in ascending order."""
+    t = m.clone()
+    for j in range(3):  # rows 0 and 1 of C @ m: m[i, j] - 0.5 * m[2, j]
+        t[:, 0, j] = m[:, 0, j] + -0.5 * m[:, 2, j]
+        t[:, 1, j] = m[:, 1, j] + -0.5 * m[:, 2, j]
+    out = t.clone()
+    for i in range(3):  # column 2 of (C @ m) @ C^-1: 0.5 t[i, 0] + 0.5 t[i, 1] + t[i, 2]
+        out[:, i, 2] = t[:, i, 0] * 0.5 + t[:, i, 1] * 0.5 + t[:, i, 2]
+    return out
+
+
+@register_operator("experimental.WarpPerspective", "gpu")
+class WarpPerspectiveGPU(Operator):
+    """``kernels/warp.py`` ``warp_perspective_batch`` with each sample's
+    matrix (the second input, or the ``matrix`` argument), inverted on the
+    device with ``inverse_map=False``. A given ``size`` sets the output; else
+    it keeps the input's canvas and per-sample shapes."""
+
+    def lower(self, dctx, inp: DeviceBatch, *mtx_in):
+        x = inp.data
+        n = x.shape[0]
+        if mtx_in:
+            m = mtx_in[0].data.reshape(n, 3, 3).to(torch.float32)
+        else:
+            raw = dctx.arg(self, "matrix")
+            if raw is None:
+                raise ValueError("experimental.WarpPerspective needs `matrix` or a matrix input")
+            m = torch.as_tensor(np.asarray(raw) if not torch.is_tensor(raw) else raw,
+                                dtype=torch.float32, device=x.device).reshape(-1, 3, 3)
+            m = m.expand(n, 3, 3) if m.shape[0] == 1 else m
+        m = m.to(x.device)
+        if not self.spec.GetArgument("inverse_map"):
+            m = torch.linalg.inv(m)
+        if self.spec.GetArgument("pixel_origin") == "corner":
+            m = _origin_adjust(m)
+        size = self.spec.GetArgument("size", None)
+        out_h, out_w = (int(size[0]), int(size[1])) if size else tuple(x.shape[1:3])
+        out = warp_kernel.warp_perspective_batch(
+            x, m, out_h, out_w, inp.shapes, self.spec.GetArgument("interp_type"),
+            float(self.spec.GetArgument("fill_value")), x.dtype,
+            replicate=self.spec.GetArgument("border_mode") == "replicate")
+        shapes = inp.shapes if inp.shapes is not None and size is None else None
+        return [DeviceBatch(out, shapes, inp.layout or "HWC")]
+
+
+# ====================================== TensorResize ==============================================
+
+# the gpu placement is in straggler_gpu.py, as in the reference
+DALI_SCHEMA("TensorResize").DocStr(
+    "Resizes arbitrary-dimensional tensors."
+).NumInput(1).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
+    "sizes", ArgType.FLOAT_VEC, "Output sizes per resized axis.", None, tensor_ok=True,
+    per_sample=True
+).AddOptionalArg(
+    "scales", ArgType.FLOAT_VEC, "Scale factors per resized axis.", None, tensor_ok=True,
+    per_sample=True
+).AddOptionalArg("axes", ArgType.INT_VEC, "Axes the sizes/scales refer to.", None).AddOptionalArg(
+    "alignment", ArgType.FLOAT, "ROI alignment for rounded extents (0..1); accepted for "
+    "compatibility.", 0.5
+).AddOptionalArg(
+    "interp_type", ArgType.INTERP_TYPE, "Interpolation.", DALIInterpType.INTERP_LINEAR
+).AddOptionalArg("antialias", ArgType.BOOL, "Antialias on downscale.", True).AddOptionalArg(
+    "dtype", ArgType.DATA_TYPE, "Output dtype.", None
+).AddOptionalArg(
+    "axis_names", ArgType.TENSOR_LAYOUT, "Axes to resize named by layout letters.", None
+).AddOptionalArg(
+    "mode", ArgType.STRING, '"default", "stretch", "not_larger", "not_smaller".', "default"
+).AddOptionalArg(
+    "roi_start", ArgType.FLOAT_VEC, "Input ROI origin (per resized axis).", None,
+    tensor_ok=True, per_sample=True
+).AddOptionalArg(
+    "roi_end", ArgType.FLOAT_VEC, "Input ROI end (per resized axis).", None, tensor_ok=True,
+    per_sample=True
+).AddOptionalArg("roi_relative", ArgType.BOOL, "ROI in relative [0,1] coords.", False).AddOptionalArg(
+    "size_rounding", ArgType.STRING,
+    'Fractional output extent rounding: "round", "truncate", "ceil".', "round"
+).AddOptionalArg(
+    "subpixel_scale", ArgType.BOOL, "Adjust scale for fractional sizes.", True
+).AddOptionalArg("mag_filter", ArgType.INTERP_TYPE, "Filter for upscaling.", None).AddOptionalArg(
+    "min_filter", ArgType.INTERP_TYPE, "Filter for downscaling.", None
+).AddOptionalArg(
+    "minibatch_size", ArgType.INT, "Batching hint; accepted for compatibility.", 32
+).AddOptionalArg(
+    "temp_buffer_hint", ArgType.INT, "Scratch-size hint; accepted for compatibility.", 0)
 
 
 def register_aliases():

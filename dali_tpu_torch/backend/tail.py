@@ -1,8 +1,10 @@
 """noise.SaltAndPepper (cpu and gpu), noise.Shot on the host, SSDRandomCrop on
-the host and Reinterpret (counterpart of those operators of
-``dali_tpu/backend/tail.py``; the reference's other operators of that file
-are not ported yet). The host noise draws one Philox stream per (op,
-iteration, sample), as the reference does; the device noise draws from
+the host, Reinterpret, ResizeCropMirror and FastResizeCropMirror on the
+device, and experimental.Filter on the device (counterpart of those
+operators of ``dali_tpu/backend/tail.py``; the reference's readers.NemoAsr
+is in ``readers3.py``, and the cpu placements of the resize and filter ops
+are ROADMAP.md Queue 1 item 5h). The host noise draws one Philox stream per
+(op, iteration, sample), as the reference does; the device noise draws from
 ``DeviceCtx.generator``."""
 
 from __future__ import annotations
@@ -12,10 +14,13 @@ import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
-from ..types import to_numpy_type, to_torch_type
-from .base import Operator
+from ..kernels import resample as resample_kernel
+from ..types import DALIInterpType, to_numpy_type, to_torch_type
+from .base import Operator, raise_unserved
 from .bbox import _iou
-from .random import per_sample
+from .generic2 import _crop_round
+from .image import _pick_filter, compute_resize_size
+from .random import per_sample, saturate
 
 DALI_SCHEMA("noise.SaltAndPepper").DocStr(
     "Salt-and-pepper noise: a pixel is corrupted with probability `prob`, to salt with "
@@ -240,3 +245,246 @@ class ReinterpretGPU(Operator):
             shape = _infer([int(round(v)) for v in req], int(np.prod(data.shape[1:])))
             data = data.reshape(data.shape[0], *shape)
         return [DeviceBatch(data, shapes, self.spec.GetArgument("layout", None) or "")]
+
+
+# ====================================== ResizeCropMirror ==============================================
+
+
+def _resize_crop_mirror_schema(name):
+    return DALI_SCHEMA(name).DocStr(
+        "Fused resize + crop + mirror: one resample of the crop window mapped back through "
+        "the resize scale."
+    ).NumInput(1).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
+        "resize_x", ArgType.FLOAT, "Output width.", 0.0, tensor_ok=True, per_sample=True
+    ).AddOptionalArg(
+        "resize_y", ArgType.FLOAT, "Output height.", 0.0, tensor_ok=True, per_sample=True
+    ).AddOptionalArg(
+        "resize_shorter", ArgType.FLOAT, "Resize shorter edge.", 0.0, tensor_ok=True,
+        per_sample=True
+    ).AddOptionalArg("crop", ArgType.FLOAT_VEC, "Crop size (H, W).", None).AddOptionalArg(
+        "crop_pos_x", ArgType.FLOAT, "Crop x position.", 0.5, tensor_ok=True, per_sample=True
+    ).AddOptionalArg(
+        "crop_pos_y", ArgType.FLOAT, "Crop y position.", 0.5, tensor_ok=True, per_sample=True
+    ).AddOptionalArg(
+        "mirror", ArgType.INT, "Horizontal mirror flag.", 0, tensor_ok=True, per_sample=True
+    ).AddOptionalArg(
+        "interp_type", ArgType.INTERP_TYPE, "Interpolation.", DALIInterpType.INTERP_LINEAR
+    ).AddOptionalArg("antialias", ArgType.BOOL, "Antialiasing for downscaling.", True).AddOptionalArg(
+        "mag_filter", ArgType.INTERP_TYPE, "Filter for upscaling.", None
+    ).AddOptionalArg("min_filter", ArgType.INTERP_TYPE, "Filter for downscaling.", None).AddOptionalArg(
+        "resize_longer", ArgType.FLOAT, "Resize longer edge.", 0.0, tensor_ok=True, per_sample=True
+    ).AddOptionalArg(
+        "size", ArgType.FLOAT_VEC, "Output size (H, W).", None, tensor_ok=True, per_sample=True
+    ).AddOptionalArg(
+        "mode", ArgType.STRING, '"default", "stretch", "not_larger", "not_smaller".', "default"
+    ).AddOptionalArg(
+        "roi_start", ArgType.FLOAT_VEC, "Input ROI origin.", None, tensor_ok=True, per_sample=True
+    ).AddOptionalArg(
+        "roi_end", ArgType.FLOAT_VEC, "Input ROI end.", None, tensor_ok=True, per_sample=True
+    ).AddOptionalArg(
+        "roi_relative", ArgType.BOOL, "ROI given in relative [0,1] coords.", False
+    ).AddOptionalArg(
+        "subpixel_scale", ArgType.BOOL, "Adjust scale for fractional sizes.", True
+    ).AddOptionalArg(
+        "crop_w", ArgType.FLOAT, "Crop width.", 0.0, tensor_ok=True, per_sample=True
+    ).AddOptionalArg(
+        "crop_h", ArgType.FLOAT, "Crop height.", 0.0, tensor_ok=True, per_sample=True
+    ).AddOptionalArg("dtype", ArgType.DATA_TYPE, "Output dtype.", None).AddOptionalArg(
+        "crop_d", ArgType.FLOAT, "Volumetric crop depth (unsupported here).", 0.0
+    ).AddOptionalArg("crop_pos_z", ArgType.FLOAT, "Volumetric z pos.", 0.5).AddOptionalArg(
+        "resize_z", ArgType.FLOAT, "Volumetric resize depth (unsupported here).", 0.0
+    ).AddOptionalArg(
+        "rounding", ArgType.STRING, 'Crop-start integer conversion: "round" or "truncate".',
+        "round"
+    ).AddOptionalArg(
+        "minibatch_size", ArgType.INT, "Batching hint; accepted for compatibility.", 32
+    ).AddOptionalArg(
+        "temp_buffer_hint", ArgType.INT, "Scratch-size hint; accepted for compatibility.", 0)
+
+
+_resize_crop_mirror_schema("ResizeCropMirror")
+_resize_crop_mirror_schema("FastResizeCropMirror")
+
+
+class _RCMGPU(Operator):
+    """Resize, crop and mirror as one resample with a per-sample input ROI:
+    the crop window maps back through each sample's resize scale (host
+    parameters), then ``resample_batch`` reads only that window. The crop
+    extent fixes the output canvas, so it must be a constant; without a crop
+    the batch's output size must be uniform. A mirror flips the columns of
+    the result (a tensor argument per sample, or a constant)."""
+
+    def __init__(self, spec, op_id):
+        super().__init__(spec, op_id)
+        raise_unserved(spec, ("crop_d", "resize_z"))
+        self._filter = None  # the filter override, latched on the first batch
+        self._nocrop_ohw = None
+
+    def _crop_size(self):
+        crop = self.spec.GetArgument("crop", None)
+        if crop:
+            return int(crop[0]), int(crop[1])
+        for nm in ("crop_h", "crop_w"):
+            if nm in self.spec.arg_inputs:
+                raise ValueError(
+                    f"{self.spec.schema_name}(gpu): per-sample tensor {nm} is cpu-only (the "
+                    "crop extent fixes the device output shape)")
+        ch = int(self.spec.GetArgument("crop_h") or 0)
+        cw = int(self.spec.GetArgument("crop_w") or 0)
+        if ch and cw:
+            return ch, cw
+        return None  # no crop: a pure resize
+
+    def host_params(self, ctx, input_shapes):
+        shapes = input_shapes[0]
+        if shapes is None:
+            raise RuntimeError(f"{self.spec.schema_name}(gpu) requires its input's shapes to be "
+                               "known on the host")
+        cs = self._crop_size()
+        n = shapes.shape[0]
+        roi = np.zeros((n, 4), np.float32)  # y0, x0, h, w in input pixels
+        out_sizes = np.zeros((n, 2), np.int32)
+        rnd = self.spec.GetArgument("rounding")
+        rel = self.spec.GetArgument("roi_relative")
+        for i in range(n):
+            h, w = int(shapes[i][0]), int(shapes[i][1])
+            iy0, ix0 = 0.0, 0.0
+            rs = ctx.arg(self, "roi_start", i, None)
+            re_ = ctx.arg(self, "roi_end", i, None)
+            if rs is not None or re_ is not None:
+                s0 = np.asarray(rs if rs is not None else ([0.0, 0.0] if rel else [0, 0]),
+                                np.float64)
+                e0 = np.asarray(re_ if re_ is not None else ([1.0, 1.0] if rel else [h, w]),
+                                np.float64)
+                if rel:
+                    s0, e0 = s0 * [h, w], e0 * [h, w]
+                iy0, ix0 = float(s0[0]), float(s0[1])
+                h = max(int(round(e0[0])) - int(round(s0[0])), 1)
+                w = max(int(round(e0[1])) - int(round(s0[1])), 1)
+            oh, ow = compute_resize_size(h, w, self.spec,
+                                         lambda nm, d=None: ctx.arg(self, nm, i, d))
+            out_sizes[i] = (oh, ow)
+            if cs is None:
+                roi[i] = (iy0, ix0, h, w)
+                continue
+            ch, cw = cs
+            py = float(np.asarray(ctx.arg(self, "crop_pos_y", i, 0.5)))
+            px = float(np.asarray(ctx.arg(self, "crop_pos_x", i, 0.5)))
+            y = max(_crop_round(py * (oh - ch), rnd), 0)
+            x = max(_crop_round(px * (ow - cw), rnd), 0)
+            sy, sx = h / oh, w / ow
+            roi[i] = (iy0 + y * sy, ix0 + x * sx, ch * sy, cw * sx)
+        if cs is None:
+            ohw = {(int(r[0]), int(r[1])) for r in out_sizes}
+            if len(ohw) > 1:
+                raise ValueError(f"{self.spec.schema_name}(gpu) without `crop` needs a "
+                                 "batch-uniform output size; use fn.resize for per-sample sizes")
+            self._nocrop_ohw = next(iter(ohw))
+        if self._filter is None and (self.spec.GetArgument("mag_filter") is not None
+                                     or self.spec.GetArgument("min_filter") is not None):
+            ohw = (np.tile(np.array([cs], np.float32), (n, 1)) if cs
+                   else out_sizes.astype(np.float32))
+            down = int((roi[:, 2] > ohw[:, 0]).sum() + (roi[:, 3] > ohw[:, 1]).sum())
+            up = int((roi[:, 2] < ohw[:, 0]).sum() + (roi[:, 3] < ohw[:, 1]).sum())
+            self._filter = int(_pick_filter(self.spec, down >= up))
+        return {"rcm_roi": roi}
+
+    def device_statics(self, ctx, input_shapes, input_batches):
+        cs = self._crop_size()
+        return (*(cs if cs is not None else self._nocrop_ohw), self._filter)
+
+    def host_output_shapes(self, ctx, input_shapes, input_batches):
+        sh = input_shapes[0] if input_shapes else None
+        if sh is None or np.asarray(sh).shape[1] != 3:
+            return None
+        sh = np.asarray(sh).astype(np.int64)
+        hw = self._crop_size() or self._nocrop_ohw
+        return [np.concatenate([np.tile(np.array([hw], np.int64), (sh.shape[0], 1)), sh[:, 2:]],
+                               1)]
+
+    def host_output_layouts(self, in_layouts):
+        return [(in_layouts[0] if in_layouts else "") or "HWC"]
+
+    def lower(self, dctx, inp: DeviceBatch):
+        out_h, out_w, filt = dctx.static(self)
+        spec = self.spec
+        interp = DALIInterpType(filt if filt is not None else spec.GetArgument("interp_type"))
+        dt = spec.GetArgument("dtype", None)
+        roi = dctx.param(self, "rcm_roi")
+        data = resample_kernel.resample_batch(
+            inp.data, inp.shapes, roi[:, 0:2], roi[:, 2:4], out_h, out_w, interp,
+            bool(spec.GetArgument("antialias")),
+            to_torch_type(dt) if dt is not None else inp.data.dtype)
+        mirror = dctx.arg(self, "mirror", 0)
+        if dctx.has_tensor_arg(self, "mirror"):
+            m = mirror.to(data.device).reshape(-1).to(torch.bool)
+            data = torch.where(m[:, None, None, None], data.flip(2), data)
+        elif int(np.asarray(mirror)):
+            data = data.flip(2)
+        return [DeviceBatch(data, None, inp.layout or "HWC")]
+
+
+register_operator("ResizeCropMirror", "gpu")(type("ResizeCropMirrorGPU", (_RCMGPU,), {}))
+register_operator("FastResizeCropMirror", "gpu")(type("FastResizeCropMirrorGPU", (_RCMGPU,), {}))
+
+
+# ====================================== Filter (gpu) ==================================================
+
+
+def _reflect101(idx: torch.Tensor, ext: torch.Tensor) -> torch.Tensor:
+    """Indices reflected into [0, ext) without repeating the edge
+    (``reflect_101``); idx [N, L] int64, ext [N, 1]."""
+    period = torch.clamp(2 * ext - 2, min=1)
+    r = torch.remainder(idx, period)
+    return torch.where(r >= ext, period - r, r).clamp(max=ext - 1).clamp(min=0)
+
+
+@register_operator("experimental.Filter", "gpu")
+class FilterGPU(Operator):
+    """2-D correlation of each sample with its own kernel [kh, kw] (the
+    second input), anchored at the kernel's centre, with a ``reflect_101``
+    border within each sample's valid extent: one gather and one float32
+    multiply-add per tap, in ascending (row, column) order, so no
+    convolution library (and no TF32) touches the values. The reference's
+    lowering serves neither ``anchor``, ``border``, ``mode``, ``fill_value``,
+    ``dtype`` nor the fill input, and reflects at the canvas edge of a
+    ragged batch (ROADMAP.md Queue 3); here the first raise."""
+
+    def __init__(self, spec, op_id):
+        super().__init__(spec, op_id)
+        raise_unserved(spec, ("anchor", "border", "mode", "fill_value", "dtype"))
+
+    def host_params(self, ctx, input_shapes):
+        if len(input_shapes) > 2:
+            raise NotImplementedError("experimental.Filter(gpu): the fill input is not served on "
+                                      "the device; see ROADMAP.md (Queue 3)")
+        ks = input_shapes[1]
+        if ks is not None and len({tuple(r[:2]) for r in np.asarray(ks).tolist()}) > 1:
+            raise NotImplementedError("experimental.Filter(gpu): kernels of different sizes in "
+                                      "one batch; see ROADMAP.md (Queue 3)")
+        return {}
+
+    def lower(self, dctx, img_b: DeviceBatch, kern_b: DeviceBatch, *fill):
+        x = img_b.data
+        squeeze = x.dim() == 3
+        if squeeze:
+            x = x[..., None]
+        n, H, W = x.shape[:3]
+        dev = x.device
+        k = kern_b.data.to(torch.float32)
+        kh, kw = int(k.shape[1]), int(k.shape[2])
+        ph, pw = kh // 2, kw // 2
+        eh = img_b.extent(0).to(torch.int64)[:, None]
+        ew = img_b.extent(1).to(torch.int64)[:, None]
+        rows = torch.arange(H, device=dev)[None]
+        cols = torch.arange(W, device=dev)[None]
+        nidx = torch.arange(n, device=dev)[:, None, None]
+        acc = None
+        for i in range(kh):
+            iy = _reflect101(rows + (i - ph), eh)[:, :, None]
+            for j in range(kw):
+                ix = _reflect101(cols + (j - pw), ew)[:, None, :]
+                term = x[nidx, iy, ix].to(torch.float32) * k[:, i, j].reshape(n, 1, 1, 1)
+                acc = term if acc is None else acc + term
+        out = saturate(acc, x.dtype)
+        return [img_b.with_data(out[..., 0] if squeeze else out)]

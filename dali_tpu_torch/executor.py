@@ -114,7 +114,8 @@ def run_device_op(impl: Operator, ctx: HostCtx, inputs: List[DeviceBatch], in_sh
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    dctx = DeviceCtx({impl.op_id: {k: to_dev(stack_arg(b)) for k, b in arg_batches.items()}},
+    dctx = DeviceCtx({impl.op_id: {k: to_dev(stack_arg(b)) for k, b in arg_batches.items()
+                                   if k not in impl.host_args}},
                      {} if statics is None else {impl.op_id: statics},
                      {impl.op_id: {k: to_dev(v) for k, v in (params or {}).items()}},
                      batch_size=ctx.batch_size, seed=ctx.pipeline.seed,
@@ -166,7 +167,8 @@ class Executor:
         for node in self.device_ops:
             for name, edge in node.spec.arg_inputs.items():
                 if edge.source.id in host_ids:
-                    self.device_arg_edges.append((node.id, name, edge))
+                    if name not in self.impls[node.id].host_args:
+                        self.device_arg_edges.append((node.id, name, edge))
                 else:
                     self.device_arg_dev_edges[(node.id, name)] = _edge_key(edge)
         # each device value is released after its last consumer; graph

@@ -1,5 +1,5 @@
-"""Affine warps of padded batches on torch tensors (counterpart of
-``dali_tpu/kernels/warp.py``, 2-D HWC).
+"""Affine and perspective warps of padded batches on torch tensors
+(counterpart of ``dali_tpu/kernels/warp.py``, 2-D HWC).
 
 Each output pixel (x, y) samples the input at M @ (x, y, 1) with NN or
 bilinear taps; taps outside the sample's valid extent read ``fill_value``.
@@ -115,3 +115,51 @@ def rotated_canvas_size(h, w, angle_deg):
     a = np.deg2rad(angle_deg)
     c, s = abs(np.cos(a)), abs(np.sin(a))
     return int(np.ceil(h * c + w * s - 0.5)), int(np.ceil(w * c + h * s - 0.5))
+
+
+def warp_perspective_batch(data, matrices, out_h: int, out_w: int, extents=None,
+                           interp=DALIInterpType.INTERP_LINEAR, fill_value: float = 0.0,
+                           out_dtype=None, replicate: bool = False):
+    """Perspective warp: data [N, H, W, C], matrices [N, 3, 3] destination ->
+    source homographies -> [N, out_h, out_w, C]. Each output pixel divides
+    by its homogeneous coordinate (kept away from 0 by 1e-9), then takes NN
+    or bilinear taps clamped to the sample's valid extent; outside it a tap
+    reads ``fill_value``, or the clamped edge with ``replicate``."""
+    n, H, W, C = data.shape
+    dev = data.device
+    ext = _extents(data, extents)
+    m = matrices.to(torch.float32)
+    gy, gx = torch.meshgrid(torch.arange(out_h, dtype=torch.float32, device=dev),
+                            torch.arange(out_w, dtype=torch.float32, device=dev), indexing="ij")
+    gx, gy = gx[None], gy[None]
+
+    def coef(i, j):
+        return m[:, i, j].reshape(n, 1, 1)
+
+    wdiv = coef(2, 0) * gx + coef(2, 1) * gy + coef(2, 2)
+    wdiv = torch.where(torch.abs(wdiv) < 1e-9, 1e-9, wdiv)
+    sx = (coef(0, 0) * gx + coef(0, 1) * gy + coef(0, 2)) / wdiv
+    sy = (coef(1, 0) * gx + coef(1, 1) * gy + coef(1, 2)) / wdiv
+    eh, ew = ext[:, 0].reshape(n, 1, 1), ext[:, 1].reshape(n, 1, 1)
+    flat = data.to(torch.float32).reshape(n, H * W, C)
+
+    def tap(iy, ix):
+        iyc = torch.minimum(iy.clamp(min=0), (eh - 1).clamp(min=0)).clamp(max=H - 1)
+        ixc = torch.minimum(ix.clamp(min=0), (ew - 1).clamp(min=0)).clamp(max=W - 1)
+        lin = (iyc * W + ixc).to(torch.int64)
+        v = torch.gather(flat, 1, lin.reshape(n, -1, 1).expand(n, out_h * out_w, C))
+        v = v.reshape(n, out_h, out_w, C)
+        if replicate:
+            return v
+        valid = (ix >= 0) & (ix < ew) & (iy >= 0) & (iy < eh)
+        return torch.where(valid[..., None], v, torch.full_like(v, fill_value))
+
+    if interp == DALIInterpType.INTERP_NN:
+        out = tap(torch.round(sy).to(torch.int32), torch.round(sx).to(torch.int32))
+    else:
+        x0, y0 = torch.floor(sx), torch.floor(sy)
+        wx, wy = (sx - x0)[..., None], (sy - y0)[..., None]
+        ix0, iy0 = x0.to(torch.int32), y0.to(torch.int32)
+        out = ((tap(iy0, ix0) * (1 - wx) + tap(iy0, ix0 + 1) * wx) * (1 - wy)
+               + (tap(iy0 + 1, ix0) * (1 - wx) + tap(iy0 + 1, ix0 + 1) * wx) * wy)
+    return saturate_cast(out, out_dtype if out_dtype is not None else data.dtype)

@@ -1218,3 +1218,81 @@ def test_device_random_checkpoint_resumes_on_card(card):
     for g_it, w_it in zip(got, want):
         assert all(torch.equal(g, w) for g, w in zip(g_it, w_it))
     assert not torch.equal(want[0][0], want[1][0])
+
+
+# -- the gpu operators of item 5g and the rn50_rcm_jpeg path ---------------------------------
+
+GPU_OP_NAMES = ["experimental.dilate", "experimental.erode", "experimental.median_blur_3",
+                "experimental.median_blur_5", "experimental.clahe", "experimental.debayer",
+                "experimental.filter_5x5", "experimental.remap",
+                "experimental.warp_perspective_nn", "experimental.warp_perspective_linear",
+                "multi_paste_2x2", "element_extract", "sequence_rearrange", "per_frame"]
+
+
+@pytest.mark.parametrize("name", GPU_OP_NAMES)
+def test_gpu_op_on_card_matches_cpu(card, name):
+    """Each image and sequence operator of item 5g at batch 8 (ragged images,
+    4 sequences) on the card against the CPU: bit-equal, or within one step
+    on at most 1e-3 of values (Clahe's scan, Filter, the linear warps)."""
+    from dali_tpu_torch.tools import bench_rcm_jpeg as b
+
+    graph, inputs, tol = b.image_op_cases(np.random.default_rng(4), 8, (64, 80), True)[name]
+    if name in ("element_extract", "sequence_rearrange", "per_frame"):
+        inputs = [(a[:4], lay) for a, lay in inputs]
+    r = b._compare(b._run_op(graph, inputs, "cuda:0"), b._run_op(graph, inputs, "cpu"), tol,
+                   name)
+    assert r["max_diff"] <= (0 if tol == "equal" else 1)
+
+
+def test_gpu_op_outputs_stay_on_card(card):
+    @pipeline_def(batch_size=2, num_threads=1, seed=3, device="cuda:0")
+    def p():
+        x = fn.external_source(source=lambda: [np.zeros((16, 16, 3), np.uint8)] * 2,
+                               batch=True, layout="HWC").gpu()
+        return (fn.experimental.median_blur(x), fn.jpeg_compression_distortion(x, quality=40),
+                fn.fast_resize_crop_mirror(x, resize_x=20, resize_y=20, crop=(8, 8)),
+                fn.experimental.clahe(x), fn.tensor_resize(x, scales=[0.5, 0.5], axes=[0, 1]))
+
+    pipe = p()
+    pipe.build()
+    outs = [o.as_tensor() for o in pipe.run()]
+    pipe.shutdown()
+    assert all(o.is_cuda for o in outs)
+
+
+def test_filter_unserved_argument_raises_on_card(card):
+    @pipeline_def(batch_size=2, num_threads=1, seed=3, device="cuda:0")
+    def p():
+        x = fn.external_source(source=lambda: [np.zeros((16, 16, 3), np.uint8)] * 2,
+                               batch=True, layout="HWC").gpu()
+        k = fn.external_source(source=lambda: [np.ones((3, 3), np.float32)] * 2, batch=True)
+        return fn.experimental.filter(x, k.gpu(), border="constant")
+
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        p().build()
+
+
+def test_jpeg_compression_distortion_on_card_matches_cpu(card):
+    """At a quality per sample on ragged images: at most 1e-3 of the 8x8
+    blocks differ card vs CPU."""
+    from dali_tpu_torch.tools import bench_rcm_jpeg as b
+
+    rng = np.random.default_rng(6)
+    imgs = [rng.integers(0, 256, (96 - 8 * i, 112 - 16 * i, 3), np.uint8) for i in range(4)]
+    q = rng.uniform(20, 95, (4,)).astype(np.float32)
+    graph = lambda fn, t, x, qq: fn.jpeg_compression_distortion(x, quality=qq)  # noqa: E731
+    inputs = [(imgs, "HWC"), (q, "")]
+    card_out = b._run_op(graph, inputs, "cuda:0")
+    cpu_out = b._run_op(graph, inputs, "cpu")
+    share, _ = b.block_diff((g.numpy(), c.numpy()) for g, c in zip(card_out[0], cpu_out[0]))
+    assert share <= b.BLOCK_SHARE_MAX
+
+
+def test_rn50_rcm_jpeg_on_card_matches_cpu(card, tmp_path):
+    """The path at batch 16 on the card against the CPU: labels and host
+    draws equal, resized images within one step, the JPEG block bound, the
+    normalised images within one step / std where the distorted ones agree."""
+    from dali_tpu_torch.tools import bench_rcm_jpeg
+
+    r = bench_rcm_jpeg.check_against_cpu(_affine_file_list(tmp_path, 32), batch=16)
+    assert r["resized_max_diff"] <= 1 and r["jpeg_block_share"] <= 1e-3

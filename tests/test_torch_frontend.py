@@ -391,12 +391,12 @@ def test_ops_api_builds_the_fn_graph():
 @pytest.mark.parametrize("api", ["fn", "ops"])
 def test_unported_names_name_their_roadmap_item(api):
     mod = getattr(dali_tpu_torch, api)
-    names = (("decoders.video", "item 8"), ("multi_paste", "item 5g"),
-             ("experimental.median_blur", "item 5g"), ("experimental.audio_resample", "item 4"),
+    names = (("decoders.video", "item 8"), ("readers.video", "item 8"),
+             ("audio_resample", "item 4"), ("experimental.audio_resample", "item 4"),
              ("dump_image", "item 5h"))
     if api == "ops":
-        names = (("decoders.Video", "item 8"), ("MultiPaste", "item 5g"),
-                 ("experimental.MedianBlur", "item 5g"), ("experimental.AudioResample", "item 4"),
+        names = (("decoders.Video", "item 8"), ("readers.Video", "item 8"),
+                 ("AudioResample", "item 4"), ("experimental.AudioResample", "item 4"),
                  ("DumpImage", "item 5h"))
     for path, item in names:
         obj = mod
@@ -472,7 +472,8 @@ RESOLVING = ["FileReader", "COCOReader", "CaffeReader", "Caffe2Reader", "MXNetRe
              "Uniform", "CoinFlip", "NormalDistribution", "Equalize", "experimental.decoders.Image",
              "experimental.decoders.ImageCrop", "experimental.decoders.ImageRandomCrop",
              "experimental.decoders.ImageSlice", "experimental.Inflate",
-             "experimental.readers.Fits", "experimental.PeekImageShape", "reductions.RMS"]
+             "experimental.readers.Fits", "experimental.PeekImageShape", "reductions.RMS",
+             "Clahe", "Filter", "Debayer"]
 
 
 def test_legacy_names_register_where_the_target_runs():

@@ -335,7 +335,7 @@ def test_eager_decoders_do_what_dali_tpu_does():
             with pytest.raises(NotImplementedError, match="Queue 1 items 1c-1e"):
                 dec(ndd.as_batch([gif, gif]), device="mixed")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ndd.multi_paste
+            ndd.experimental.audio_resample
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ndd.readers.video
     with ref_ndd.EvalContext():

@@ -141,6 +141,10 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.ops, dali_tpu_torch.plugin_manager, dali_tpu_torch.backend.parity\n"
         "import dali_tpu_torch.tools.bench_frontend, dali_tpu_torch.tools.bench_affine_mixup\n"
         "import dali_tpu_torch.plugin.numba, dali_tpu_torch.backend.interop\n"
+        "import dali_tpu_torch.backend.sequence, dali_tpu_torch.backend.misc\n"
+        "import dali_tpu_torch.backend.misc2, dali_tpu_torch.backend.enhance2\n"
+        "import dali_tpu_torch.backend.straggler_gpu, dali_tpu_torch.kernels.warp\n"
+        "import dali_tpu_torch.tools.bench_rcm_jpeg\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
@@ -239,7 +243,7 @@ def test_unported_names_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dali_tpu_torch.fn.decoders.video
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dali_tpu_torch.fn.multi_paste
+        dali_tpu_torch.fn.dump_image
     gif = np.frombuffer(b"GIF89a" + bytes(26), np.uint8)
 
     @dali_tpu_torch.pipeline_def(batch_size=2, device="cpu")
