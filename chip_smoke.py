@@ -7,14 +7,19 @@ on failure:
    in the checkout and print their build seconds;
 2. the CMN kernel (``csrc/cmn.cu``) against its plain PyTorch version on the
    card at the main path's shapes ([256, 224, 224, 3] uint8, mixed mirror
-   flags, trimmed valid widths) in three forms (``tools/bench_cmn.py``):
-   float32 CHW (RN50), float16 CHW, and float16 HWC with ``pad_output``
-   (channels-last mixed precision); float32 within 1e-5, float16 within one
-   half-precision step. For each: the C entry point alone with the L2
-   flushed (median of 30, CUDA events), the wrapper, the plain version, the
-   bytes moved, the HBM bound and the share of it reached; and one
-   ``copy_`` of the permuted input to float32 CHW as a yardstick of the
-   bandwidth one PyTorch call reaches with the same bytes;
+   flags, trimmed valid widths) in five forms (``tools/bench_cmn.py``):
+   float32 CHW (RN50), float16 CHW, float16 HWC with ``pad_output``
+   (channels-last mixed precision), and uint8 and int8 CHW with values
+   pushed past both ends of the type (saturating stores); then two folded
+   forms: two BraTS-sized float32 DHWC volumes' 128^3 windows to float16
+   DCHW (read in place through ``src_index``) and a [16, 8, 224, 224, 3]
+   uint8 sequence batch to float32 FCHW; float32 within 1e-5, float16
+   within one half-precision step, integers equal. For each: the C entry
+   point alone with the L2 flushed (median of 30, CUDA events), the
+   wrapper, the plain version, the bytes moved, the HBM bound and the share
+   of it reached; and one ``copy_`` of the permuted input to float32 CHW as
+   a yardstick of the bandwidth one PyTorch call reaches with the same
+   bytes;
 3. the RN50 training path at full size (batch 256, hybrid_scale=2, 224x224,
    ImageNet mean/std, FLOAT CHW) on the committed 32-file corpus through
    ``DALIClassificationIterator``: 3 warm-up + 20 timed batches, each checked
@@ -229,7 +234,33 @@ on failure:
    sequences, 8 clips) within the CPU tests' tolerances, and its device ms
    on one full batch ([256, 224, 224, 3] uint8 images; [16, 8, 224, 224, 3]
    sequences; numpy_volumes' two [4, 155, 240, 240] float32 volumes at
-   scale 0.5; asr_frontend's 32 clips), with the phase's peak memory.
+   scale 0.5; asr_frontend's 32 clips), with the phase's peak memory;
+25. asr_resample (``tools/bench_dali_cpu.py``): phase 5's graph over the same
+   128 clips written at 48 kHz (``build/audio_corpus_48k``), with
+   ``experimental.audio_resample`` 48 kHz -> 16 kHz on the card (a
+   Kaiser-windowed sinc, 32 taps) between the mixed decode and the
+   preemphasis: 3 warm-up + 10 timed batches of 32, each checked as in
+   phase 5; clips/s beside asr_frontend's, host ms/batch, device ms by stage
+   of one batch alone (AudioResample's among them), peak memory; then batch
+   4 on the card against the CPU: each clip's resampled signal within 1e-5
+   of its peak, the dB mel within 1e-3 dB;
+26. rn50_dali_cpu: DeepLearningExamples' ResNet-50 ``--dali-cpu`` recipe at
+   batch 256 over the corpus: ``decoders.image(device="cpu")``,
+   ``random_resized_crop(device="cpu")`` (224, area [0.08, 1], 100
+   attempts) on the host's threads, ``.gpu()``, coin-flip CMN to float CHW
+   through ``DALIClassificationIterator``: 3 warm-up + 10 timed batches,
+   each checked; the exact CMN launch count; images/s beside rn50_train's;
+   host ms/batch by schema; device ms by stage of one batch alone; peak
+   memory; the CMN kernel held against its plain version on one more batch
+   of the path and timed on it; then batch 16 against the same graph with
+   CMN on the host before ``.gpu()`` (labels equal, images within 1e-5);
+27. host_geometry: docs/examples/serialization.py, transforms_3d.py and
+   audio_processing.py run whole through the port (each asserts its own
+   outputs), then every host geometry and colour operator of the port
+   (Resize, RandomResizedCrop, CropMirrorNormalize, Flip, WarpAffine, Rotate,
+   Transpose, Pad, Erase, Paste and the six colour schemas) on one batch of
+   [256, 224, 224, 3] uint8: host ms per batch on one thread and on the
+   host's cores. No cv2 is imported (checked).
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -272,6 +303,7 @@ READER_TIMED, READER_CHECK_BATCH = 10, 16
 FRONTEND_TIMED, VOLUMES_TIMED = 10, 10
 AFFINE_TIMED, AFFINE_CHECK_BATCH = 10, 16
 RCM_TIMED, RCM_CHECK_BATCH = 10, 16
+ASR_RESAMPLE_TIMED, DALI_CPU_TIMED = 10, 10
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -307,6 +339,7 @@ def cmn_phase(card):
     forms, copy = bench_cmn.measure(cmn, reps=30)
     require([f["name"] for f in forms] == [f[0] for f in bench_cmn.FORMS],
             "the CMN kernel did not run every form")
+    forms += bench_cmn.measure_folds(cmn, reps=30)
     for f in forms:
         print(f"cmn {f['name']} -> {f['shape_out']}: kernel alone {f['ms']:.4f} ms (cold L2), "
               f"wrapper {f['wrapper_ms']:.4f} ms, plain {f['plain_ms']:.4f} ms; {f['bytes']} "
@@ -580,6 +613,83 @@ def audio_phase(card):
           f"normalized {worst[1]:.3e} (limit {AUDIO_TOL})")
     require(max(worst) <= AUDIO_TOL, "the card's audio output disagrees with the CPU path")
     return cps, stages
+
+
+def asr_resample_phase(card, asr_cps):
+    """Phase 25: asr_resample."""
+    from dali_tpu_torch.testdata.make_audio_corpus import ensure_corpus
+    from dali_tpu_torch.tools import bench_dali_cpu
+
+    t0 = time.perf_counter()
+    root = ensure_corpus(rate=int(bench_dali_cpu.IN_RATE))
+    print(f"48 kHz audio corpus {os.path.relpath(root, HERE)}: 128 clips ready in "
+          f"{time.perf_counter() - t0:.2f} s")
+    r = bench_dali_cpu.run_asr_resample(root, AUDIO_BATCH, WARMUP, ASR_RESAMPLE_TIMED)
+    print(f"asr_resample batch {AUDIO_BATCH}: {r['clips_per_s']:.1f} clips/s over {r['timed']} "
+          f"batches, {100 * r['clips_per_s'] / asr_cps:.1f}% of asr_frontend's {asr_cps:.1f} in "
+          f"this run; host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} host "
+          f"cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch ({card})")
+    print("asr_resample device ms of one batch alone: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(r["stage_ms"].items(), key=lambda kv: -kv[1]))
+        + f"; AudioResample {r['resample_ms']:.3f} ms; peak device memory "
+        f"{r['peak_gib']:.2f} GiB ({card})")
+    k = bench_dali_cpu.check_asr_resample(root)
+    print(f"asr_resample card vs CPU (batch {k['batch']}, {k['iterations']} iterations): "
+          f"resampled {k['resampled_rel_to_peak']:.2e} of each clip's peak (limit "
+          f"{bench_dali_cpu.RESAMPLE_RTOL}), dB {k['db_max_diff']:.2e} (limit "
+          f"{bench_dali_cpu.DB_ATOL})")
+    print(f"asr_resample phase: {time.perf_counter() - t0:.1f} s")
+
+
+def dali_cpu_phase(card, file_list, rn50_ips):
+    """Phase 26: rn50_dali_cpu; returns its CMN launches and the kernel's
+    readings on the path's own batch."""
+    from dali_tpu_torch.tools import bench_dali_cpu, bench_ssd
+
+    t0 = time.perf_counter()
+    r = bench_dali_cpu.run_rn50_dali_cpu(file_list, BATCH, WARMUP, DALI_CPU_TIMED)
+    print(f"rn50_dali_cpu batch {BATCH}: {r['images_per_s']:.1f} images/s over {r['timed']} "
+          f"batches, {100 * r['images_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} in "
+          f"this run; cmn launches {r['cmn_launches']} ({card})")
+    print(f"rn50_dali_cpu host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} "
+          f"host cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; host "
+          "ms/batch by schema: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                             r["host_ms_by_schema"].items() if v >= 0.05))
+    print("rn50_dali_cpu device ms of one batch alone: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(r["stage_ms"].items(), key=lambda kv: -kv[1]))
+        + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    pipe = bench_dali_cpu.make_rn50_pipe(file_list, BATCH, "cuda:0")
+    with bench_ssd.recording_cmn([]) as calls:
+        pipe.run()
+    pipe.shutdown()
+    c = dict(bench_ssd.time_cmn(calls[0]), max_abs_err=bench_ssd.hold_cmn(calls[0]))
+    print(f"rn50_dali_cpu CMN kernel on the path's own batch {c['shape_in']} {c['dtype_in']} "
+          f"-> {c['shape_out']} float32: max abs diff vs plain {c['max_abs_err']:.3e} (limit "
+          f"1e-05; path launches {r['cmn_launches']}); kernel alone {c['ms']:.4f} ms (cold L2), "
+          f"wrapper {c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} bytes, "
+          f"bound {c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+    k = bench_dali_cpu.check_rn50_dali_cpu(file_list)
+    print(f"rn50_dali_cpu card CMN vs host CMN (batch {k['batch']}, {k['iterations']} "
+          f"iterations): labels equal, images {k['max_abs_diff']:.3e} apart (limit "
+          f"{bench_dali_cpu.CMN_ATOL})")
+    print(f"rn50_dali_cpu phase: {time.perf_counter() - t0:.1f} s")
+    return r["cmn_launches"], c
+
+
+def host_geometry_phase(card):
+    """Phase 27: the three examples whole and the host ops timed."""
+    from dali_tpu_torch.tools import bench_dali_cpu
+
+    t0 = time.perf_counter()
+    r = bench_dali_cpu.host_geometry(BATCH, (OUT, OUT))
+    require("cv2" not in sys.modules, "cv2 was imported")
+    print("examples run whole through the port: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in r["examples_s"].items()))
+    for name, by_threads in r["host_ms"].items():
+        print(f"host op {name} on [{BATCH}, {OUT}, {OUT}, 3] uint8: " + ", ".join(
+            f"{v:.2f} ms/batch on {n} thread{'s' if n > 1 else ''}"
+            for n, v in sorted(by_threads.items())) + f" ({card})")
+    print(f"host geometry phase: {time.perf_counter() - t0:.1f} s")
 
 
 def _policy(name, images):
@@ -1269,7 +1379,7 @@ def main():
     reference_phase(file_list)
     launches["rn50_fp16_hwc"] = amp_phase(card, file_list)[0]
     t0 = time.perf_counter()
-    audio_phase(card)
+    asr_cps = audio_phase(card)[0]
     print(f"audio phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches.update(aug_phase(card, file_list))
@@ -1294,6 +1404,10 @@ def main():
     launches["rn50_rcm_jpeg"], path_cmn["rn50_rcm_jpeg"] = rcm_jpeg_phase(
         card, file_list, rn50_ips, recipe_ips["rn50_val"])
     gpu_ops_phase(card)
+    asr_resample_phase(card, asr_cps)
+    launches["rn50_dali_cpu"], path_cmn["rn50_dali_cpu"] = dali_cpu_phase(card, file_list,
+                                                                          rn50_ips)
+    host_geometry_phase(card)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

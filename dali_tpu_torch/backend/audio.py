@@ -6,8 +6,9 @@ The device ops run on the padded canvas of a ragged batch and take every
 border and every reduction against each sample's valid extent, so a padded
 sample gives the values its unpadded self gives. ``Spectrogram``,
 ``MelFilterBank`` and ``MFCC`` on the device also infer their output shapes
-on the host, so nothing is read back per batch. Compressed containers
-(FLAC/OGG/MP3) and ``experimental.AudioResample`` are not ported.
+on the host, so nothing is read back per batch. ``experimental.AudioResample``
+resamples on either placement. Compressed containers (FLAC/OGG/MP3) are not
+ported.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
 from ..kernels import signal as sig
-from ..types import DALIDataType, to_numpy_type
+from ..kernels.cmn import saturating_cast
+from ..types import DALIDataType, to_numpy_type, to_torch_type
 from .base import Operator
 
 # ====================================== decoders.Audio ============================================
@@ -501,3 +503,96 @@ class NonsilentRegionCPU(Operator):
 
     def output_layout(self, output_idx, inputs):
         return ""
+
+
+# ====================================== AudioResample =============================================
+
+DALI_SCHEMA("experimental.AudioResample").DocStr(
+    """Resamples audio: ``in_rate``/``out_rate`` or ``scale`` (out/in), or a
+    given ``out_length``. The cpu placement is scipy's polyphase filter, the
+    gpu placement a Kaiser-windowed sinc (``kernels/signal.py``), as in the
+    reference: the two are different functions."""
+).NumInput(1).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
+    "in_rate", ArgType.FLOAT, "Input rate.", None, tensor_ok=True
+).AddOptionalArg(
+    "out_rate", ArgType.FLOAT, "Output rate.", None, tensor_ok=True
+).AddOptionalArg(
+    "scale", ArgType.FLOAT, "Rate scale factor.", None, tensor_ok=True
+).AddOptionalArg(
+    "out_length", ArgType.INT, "Output length.", None, tensor_ok=True
+).AddOptionalArg("quality", ArgType.FLOAT, "Quality 0..100.", 50.0).AddOptionalArg(
+    "dtype", ArgType.DATA_TYPE, "Output dtype.", None
+)
+
+
+class _AudioResampleBase(Operator):
+    def _rates(self, ctx, i):
+        """(in_rate, out_rate) of sample ``i``; ``scale`` reads as (1, scale)."""
+        scale = ctx.arg(self, "scale", i, None)
+        if scale is not None:
+            return 1.0, float(np.asarray(scale))
+        return (float(np.asarray(ctx.arg(self, "in_rate", i, 1.0))),
+                float(np.asarray(ctx.arg(self, "out_rate", i, 1.0))))
+
+
+@register_operator("experimental.AudioResample", "cpu")
+class AudioResampleCPU(_AudioResampleBase):
+    def run_sample(self, ctx, idx, x):
+        out = _resample_audio(x.astype(np.float32), *self._rates(ctx, idx))
+        dt = self.spec.GetArgument("dtype", None)
+        return out.astype(to_numpy_type(dt)) if dt is not None else out
+
+
+@register_operator("experimental.AudioResample", "gpu")
+class AudioResampleGPU(_AudioResampleBase):
+    """Rates and output lengths are per sample, set on the host; outputs sit
+    in the front of a grow-only canvas rounded up to 128. ``quality`` picks
+    16 (<= 30), 32 or 64 (> 80) taps."""
+
+    def __init__(self, spec, op_id):
+        super().__init__(spec, op_id)
+        self._grow = 0
+        self._out_shapes = None
+
+    def host_params(self, ctx, input_shapes):
+        shapes = input_shapes[0]
+        if shapes is None:
+            raise RuntimeError("AudioResample(gpu) requires its input's shapes to be known on "
+                               "the host")
+        shapes = np.asarray(shapes)
+        n = shapes.shape[0]
+        rates = np.zeros((n, 2), np.float32)
+        out_len = np.zeros((n,), np.int32)
+        for i in range(n):
+            in_rate, out_rate = rates[i] = self._rates(ctx, i)
+            ol = ctx.arg(self, "out_length", i, None)
+            out_len[i] = (int(np.asarray(ol)) if ol is not None
+                          else int(round(int(shapes[i, 0]) * out_rate / in_rate)))
+        self._grow = max(self._grow, int(-(-int(out_len.max()) // 128) * 128))
+        self._out_shapes = np.concatenate([out_len[:, None], shapes[:, 1:].astype(np.int32)], 1)
+        return {"rates": rates, "out_len": out_len}
+
+    def device_statics(self, ctx, input_shapes, input_batches):
+        return self._grow
+
+    def host_output_shapes(self, ctx, input_shapes, input_batches):
+        return [self._out_shapes]
+
+    def lower(self, dctx, inp: DeviceBatch):
+        rates = dctx.param(self, "rates")
+        out_len = dctx.param(self, "out_len")
+        quality = float(self.spec.GetArgument("quality"))
+        taps = 16 if quality <= 30 else (64 if quality > 80 else 32)
+        out = sig.sinc_resample(inp.data.to(torch.float32), rates[:, 0], rates[:, 1],
+                                dctx.static(self), taps)
+        dt = self.spec.GetArgument("dtype", None)
+        if dt is not None:
+            out = saturating_cast(out, to_torch_type(dt))
+        n = out.shape[0]
+        if inp.shapes is not None and out.dim() > 2:
+            shapes = torch.cat([out_len[:, None].to(inp.shapes.dtype), inp.shapes[:, 1:]], 1)
+        else:
+            extra = [torch.full((n,), d, dtype=torch.int32, device=out.device)
+                     for d in out.shape[2:]]
+            shapes = torch.stack([out_len.to(torch.int32)] + extra, 1)
+        return [DeviceBatch(out, shapes, inp.layout)]

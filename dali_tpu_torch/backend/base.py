@@ -13,6 +13,7 @@ readback.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -186,13 +187,19 @@ class Operator:
                 out = self.run_sample(ctx, None, *(np.stack(b.samples) for b in inputs))
                 return [HostBatch([out[i, ...] for i in range(n)],
                                   layout=self.output_layout(0, inputs))]
-        results = [self.run_sample(ctx, i, *(b.samples[i] for b in inputs)) for i in range(n)]
+        results = self.map_samples(
+            lambda i: self.run_sample(ctx, i, *(b.samples[i] for b in inputs)), n)
         n_out = len(results[0]) if isinstance(results[0], tuple) else 1
         return [HostBatch([r[j] if isinstance(r, tuple) else r for r in results],
                           layout=self.output_layout(j, inputs)) for j in range(n_out)]
 
     def run_sample(self, ctx: HostCtx, idx: int, *inputs: np.ndarray):
         raise NotImplementedError(f"{type(self).__name__} has no host implementation")
+
+    def map_samples(self, fn, n: int) -> list:
+        """``[fn(i) for i in range(n)]``: inline here, on a thread pool in a
+        ``SamplePool`` operator."""
+        return [fn(i) for i in range(n)]
 
     def output_layout(self, output_idx: int, inputs) -> str:
         return inputs[0].layout if inputs else ""
@@ -245,6 +252,30 @@ SHAPE_PRESERVING_SCHEMAS = frozenset({
     "_conditional.LogicalNot", "JpegCompressionDistortion", "experimental.Clahe",
     "experimental.MedianBlur", "experimental.Erode", "experimental.Dilate", "PerFrame",
 })
+
+
+class SamplePool:
+    """Mixed in before ``Operator``: per-sample calls (``run_batch``'s
+    ``run_sample`` among them) on a thread pool of the pipeline's
+    ``num_threads``, created at first use. For host work that releases the
+    GIL: numpy's einsum and gathers, the host C++."""
+
+    _pool = None
+    thread_name_prefix = "dali-torch-samples"
+
+    def map_samples(self, fn, n):
+        threads = getattr(self.pipeline, "num_threads", 1) or 1
+        if threads <= 1 or n <= 1:
+            return [fn(i) for i in range(n)]
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=threads,
+                                            thread_name_prefix=self.thread_name_prefix)
+        return list(self._pool.map(fn, range(n)))
+
+    def close(self):
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
 
 
 class ReaderOperator(Operator):

@@ -1,10 +1,11 @@
 """Resize, RandomResizedCrop, CropMirrorNormalize and Flip on the device
-(counterpart of ``dali_tpu/backend/image.py`` ``ResizeGPU``,
-``RandomResizedCropGPU``, ``CropMirrorNormalizeGPU`` 2-D path and
-``FlipGPU``).
+and on the host (counterpart of ``dali_tpu/backend/image.py``).
 
-Paths not ported yet (integer CMN outputs, tensor crop sizes, cpu
-placements) raise ``NotImplementedError`` pointing to ROADMAP.md.
+The device ops run the torch resampler (``kernels/resample.py``) and the
+CMN kernel (``kernels/cmn.py``); the host ops run numpy, in the reference's
+order of operations (``kernels/host_resample.py`` for the resamples). What
+the port does not run (Resize ROI, tensor crop sizes of CMN) raises
+``NotImplementedError`` pointing to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -13,19 +14,21 @@ import numpy as np
 import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
-from ..batch import DeviceBatch
+from ..batch import DeviceBatch, HostBatch
 from ..kernels import cmn as cmn_kernel
 from ..kernels import resample as resample_kernel
-from ..types import DALIDataType, DALIImageType, DALIInterpType, to_torch_type
-from .base import Operator
+from ..kernels.host_resample import host_resample, host_resample_volume
+from ..types import DALIDataType, DALIImageType, DALIInterpType, to_numpy_type, to_torch_type
+from .base import Operator, SamplePool, raise_unserved
 from .decoders import sample_rrc_window
+from .generic2 import _crop_round, _crop_round_torch
 
 
 def _not_ported(what: str, item: str = "Queue 1"):
     return NotImplementedError(f"{what} is not ported to dali_tpu_torch yet; see ROADMAP.md ({item})")
 
 
-# what dali_tpu runs only on the cpu: the port's Resize(cpu) comes with item 5h
+# what dali_tpu runs only on the cpu, as the port's Resize(cpu) does
 _CPU_ONLY = "Queue 1 item 5h; dali_tpu runs this on the cpu only"
 
 
@@ -486,10 +489,74 @@ class RandomResizedCropGPU(Operator):
 
 
 @register_operator("Resize", "cpu")
-@register_operator("RandomResizedCrop", "cpu")
-class _HostResizeNotPorted(Operator):
+class ResizeCPU(SamplePool, Operator):
+    """Per sample on the host resampler (``kernels/host_resample.py``), on
+    the pipeline's threads: HW(C) images, and DHWC volumes (4-D samples)
+    with per-sample sizes, each slice resampled in float32, then the depth
+    pass and one quantization. The filter override is picked per sample."""
+
     def __init__(self, spec, op_id):
-        raise _not_ported(f"{spec.schema_name}(cpu)", "Queue 1 item 5h")
+        super().__init__(spec, op_id)
+        # dali_tpu's ResizeCPU never reads these (ROADMAP.md Queue 3)
+        raise_unserved(spec, ("dtype", "roi_start", "roi_end", "roi_relative"))
+
+    def run_sample(self, ctx, idx, img):
+        spec = self.spec
+        antialias = bool(spec.GetArgument("antialias"))
+
+        def sample_arg(nm, dv=None):
+            return ctx.arg(self, nm, idx, dv)
+
+        if img.ndim == 4:
+            d, h, w = img.shape[:3]
+            out_d, out_h, out_w = compute_volumetric_sizes(spec, sample_arg, d, h, w)
+            interp = _pick_filter(spec, out_d * out_h * out_w < d * h * w)
+            out = host_resample_volume(img, out_d, out_h, out_w, interp, antialias)
+        else:
+            h, w = img.shape[:2]
+            out_h, out_w = compute_resize_size(h, w, spec, sample_arg)
+            interp = _pick_filter(spec, out_h < h or out_w < w)
+            out = host_resample(img, out_h, out_w, interp, antialias)
+            if out.ndim == 2:
+                out = out[:, :, None]
+        out = np.ascontiguousarray(out)
+        if spec.GetArgument("save_attrs"):
+            return out, np.array([d, h, w] if img.ndim == 4 else [h, w], np.int32)
+        return out
+
+    def output_layout(self, output_idx, inputs):
+        return "" if output_idx else (inputs[0].layout if inputs else "")
+
+
+@register_operator("RandomResizedCrop", "cpu")
+class RandomResizedCropCPU(SamplePool, Operator):
+    """The gpu op's windows (one Philox stream per batch), each cropped and
+    resampled on the host, on the pipeline's threads; the filter override is
+    picked per sample."""
+
+    def __init__(self, spec, op_id):
+        super().__init__(spec, op_id)
+        raise_unserved(spec, ("dtype",))  # dali_tpu's RandomResizedCropCPU never reads it
+        size = spec.GetArgument("size")
+        self.out_hw = (int(size[0]), int(size[-1]))
+
+    def run_batch(self, ctx, inp: HostBatch):
+        spec = self.spec
+        rng = ctx.rng(self)
+        wins = [sample_rrc_window(rng, int(r[0]), int(r[1]), spec.GetArgument("random_area"),
+                                  spec.GetArgument("random_aspect_ratio"),
+                                  spec.GetArgument("num_attempts"))
+                for r in inp.shapes()]
+        out_h, out_w = self.out_hw
+        antialias = bool(spec.GetArgument("antialias"))
+
+        def one(i):
+            y, x, h, w = (int(v) for v in wins[i])
+            interp = _pick_filter(spec, out_h < h or out_w < w)
+            out = host_resample(inp.samples[i][y:y + h, x:x + w], out_h, out_w, interp, antialias)
+            return out[:, :, None] if out.ndim == 2 else out
+
+        return [HostBatch(self.map_samples(one, len(inp)), layout=inp.layout or "HWC")]
 
 
 _cmn = DALI_SCHEMA("CropMirrorNormalize").DocStr(
@@ -522,24 +589,20 @@ for _args in (
 del _args
 
 
-@register_operator("CropMirrorNormalize", "gpu")
-class CropMirrorNormalizeGPU(Operator):
-    """2-D input: uint8/float16/float32 HWC -> float32/float16 CHW or HWC,
-    through one launch of the CMN kernel (``kernels/cmn.py``)."""
+class _CMNCommon(Operator):
+    # dali_tpu reads these with GetArgument, so a DataNode is ignored and the
+    # whole image (depth) comes out (ROADMAP.md Queue 3); its cpu op reads a
+    # tensor crop_d per sample
+    unread_tensor_args = ("crop_h", "crop_w", "crop_d")
 
     def __init__(self, spec, op_id):
         super().__init__(spec, op_id)
-        for nm in ("crop_h", "crop_w", "crop_d", "crop_pos_z"):
+        for nm in self.unread_tensor_args:
             if nm in spec.arg_inputs:
-                raise _not_ported(f"CropMirrorNormalize(gpu) tensor argument '{nm}'", "Queue 1 item 4")
+                raise _not_ported(
+                    f"CropMirrorNormalize tensor argument '{nm}' (dali_tpu ignores it and does "
+                    "not crop)", "Queue 3, found in the reference")
         self.policy = spec.GetArgument("out_of_bounds_policy")
-
-        def floats(name):
-            return tuple(np.asarray(spec.GetArgument(name), np.float32).reshape(-1).tolist())
-
-        # tuples: the kernel wrapper folds them once for the operator's life
-        self.mean, self.std = floats("mean"), floats("std")
-        self.fill = floats("fill_values") if self.policy == "pad" else None
 
     def _crop_size(self):
         crop = self.spec.GetArgument("crop", None)
@@ -550,16 +613,48 @@ class CropMirrorNormalizeGPU(Operator):
             return int(ch), int(cw)
         return None
 
+
+@register_operator("CropMirrorNormalize", "gpu")
+class CropMirrorNormalizeGPU(_CMNCommon):
+    """uint8/float16/float32 HWC -> float32/float16/uint8/int8/int16/int32
+    CHW or HWC, through one launch of the CMN kernel (``kernels/cmn.py``).
+    DHWC volumes (layout "D...") take their ``crop_d`` window at
+    ``crop_pos_z`` and FHWC sequences ("F...") go whole: depth or frames
+    fold into the batch, each per-sample argument repeats over them, and the
+    output unfolds to [N, D or F, ...] with the layout's leading letter."""
+
+    def __init__(self, spec, op_id):
+        super().__init__(spec, op_id)
+
+        def floats(name):
+            return tuple(np.asarray(spec.GetArgument(name), np.float32).reshape(-1).tolist())
+
+        # tuples: the kernel wrapper folds them once for the operator's life
+        self.mean, self.std = floats("mean"), floats("std")
+        self.fill = floats("fill_values") if self.policy == "pad" else None
+
     def host_output_layouts(self, in_layouts):
-        return [self.spec.GetArgument("output_layout")]
+        base = self.spec.GetArgument("output_layout")
+        lead = (in_layouts[0] if in_layouts else "")[:1]
+        if lead == "D":
+            return ["D" + base.lstrip("FD")]
+        if lead == "F":
+            return [base if base.startswith("F") else "F" + base]
+        return [base]
 
     def host_output_shapes(self, ctx, input_shapes, input_batches):
         shapes = input_shapes[0] if input_shapes else None
         if shapes is None:
             return None
         sh = np.asarray(shapes).astype(np.int64)
-        if sh.shape[1] != 3:
-            raise _not_ported("CropMirrorNormalize(gpu) on sequences or volumes", "Queue 1 item 4")
+        lead = (ctx.in_layouts(self) or [""])[0][:1]
+        if sh.shape[1] == 4 and lead in ("D", "F"):
+            lead_ext = sh[:, 0].copy()
+            if lead == "D" and int(self.spec.GetArgument("crop_d") or 0):
+                lead_ext[:] = int(self.spec.GetArgument("crop_d"))
+            sh = sh[:, 1:]
+        elif sh.shape[1] != 3:
+            return None
         h, w, c = sh[:, 0], sh[:, 1], sh[:, 2]
         cs = self._crop_size()
         if cs is None:
@@ -576,53 +671,165 @@ class CropMirrorNormalizeGPU(Operator):
                     "(out_of_bounds_policy='error'; use 'pad' or 'trim_to_shape')")
             oh, ow = np.full_like(h, cs[0]), np.full_like(w, cs[1])
         oc = np.full_like(c, 4) if self.spec.GetArgument("pad_output") else c
-        layout = self.spec.GetArgument("output_layout")
+        layout = self.spec.GetArgument("output_layout").lstrip("FD")
         cols = {"CHW": [oc, oh, ow], "HWC": [oh, ow, oc]}.get(layout)
-        return None if cols is None else [np.stack(cols, axis=1)]
+        if cols is None:
+            return None
+        if sh.shape[1] != input_shapes[0].shape[1]:
+            cols = [lead_ext] + cols
+        return [np.stack(cols, axis=1)]
 
     def lower(self, dctx, inp: DeviceBatch):
-        if inp.data.dim() != 4:
-            raise _not_ported("CropMirrorNormalize(gpu) on sequences or volumes", "Queue 1 item 4")
+        data = inp.data
+        if data.dim() == 5 and inp.layout[:1] in ("D", "F"):
+            n, depth = data.shape[:2]
+            src = None
+            if inp.layout[0] == "D":
+                src, depth = self._depth_window(dctx, inp)
+            sh = (None if inp.shapes is None
+                  else torch.repeat_interleave(inp.shapes[:, 1:4], data.shape[1], dim=0))
+            slices = DeviceBatch(data.reshape(n * data.shape[1], *data.shape[2:]), sh,
+                                 inp.layout[1:])
+            out = self._lower_2d(dctx, slices, depth, src)
+            layout = inp.layout[0] + out.layout
+            return [DeviceBatch(out.data.reshape(n, depth, *out.data.shape[1:]), None, layout)]
+        if data.dim() != 4:
+            raise _not_ported(f"CropMirrorNormalize(gpu) on {data.dim() - 1}-D samples")
+        return [self._lower_2d(dctx, inp, 1)]
+
+    def _depth_window(self, dctx, inp: DeviceBatch):
+        """(the [N * crop_d] slices of the depth windows at crop_pos_z, as
+        indices into the [N * D] slices; crop_d): rounded, clamped into
+        the volume as a dynamic slice. None for the whole depth."""
+        n, D = inp.data.shape[:2]
+        cd = int(self.spec.GetArgument("crop_d") or 0) or D
+        if cd == D:
+            return None, D
+        pos = dctx.arg(self, "crop_pos_z", 0.5)
+        pos = pos.reshape(-1).to(torch.float32) if torch.is_tensor(pos) else float(pos)
+        z = _crop_round_torch(pos * (inp.extent(0) - cd).to(torch.float32),
+                              self.spec.GetArgument("rounding"))
+        z = torch.clamp(z.to(torch.int64), 0, D - cd)
+        first = torch.arange(n, device=z.device) * D + z.reshape(-1)
+        return (first[:, None] + torch.arange(cd, device=z.device)).reshape(-1), cd
+
+    def _lower_2d(self, dctx, inp: DeviceBatch, repeat: int, src=None) -> DeviceBatch:
+        """One kernel launch over [N, H, W, C] (with ``src``, over those of
+        its samples); per-sample arguments repeat ``repeat`` times (the
+        folded depth or frames)."""
         spec = self.spec
-        n, H, W, C = inp.data.shape
+        n = inp.data.shape[0] if src is None else src.shape[0]
+        H, W, C = inp.data.shape[1:]
         crop_h, crop_w = self._crop_size() or (H, W)
         ext_h, ext_w = inp.extent(0), inp.extent(1)
-        truncate = spec.GetArgument("rounding") == "truncate"
+        if src is not None:
+            ext_h, ext_w = ext_h[src], ext_w[src]
+        rnd = spec.GetArgument("rounding")
+
+        def per_sample(name, default):
+            v = dctx.arg(self, name, default)
+            if torch.is_tensor(v) and repeat > 1:
+                v = torch.repeat_interleave(v.reshape(-1), repeat)
+            return v
 
         def origin(name, ext, size):
-            pos = dctx.arg(self, name, 0.5)
+            pos = per_sample(name, 0.5)
             pos = pos.reshape(-1).to(torch.float32) if torch.is_tensor(pos) else float(pos)
-            v = pos * (ext - size).to(torch.float32)
-            if truncate:
-                v = torch.trunc(v)
-            else:  # std::round: half away from zero
-                v = torch.trunc(v + torch.copysign(torch.full_like(v, 0.5), v))
-            v = v.to(torch.int32)
+            v = _crop_round_torch(pos * (ext - size).to(torch.float32), rnd).to(torch.int32)
             # error / trim_to_shape: the window starts inside the image
             return v if self.policy == "pad" else torch.clamp(v, min=0)
 
         crop_y = origin("crop_pos_y", ext_h, crop_h)
         crop_x = origin("crop_pos_x", ext_w, crop_w)
-        mirror = dctx.arg(self, "mirror", 0)
+        mirror = per_sample("mirror", 0)
         if dctx.has_tensor_arg(self, "mirror"):
             mirror = mirror.reshape(-1)
         elif mirror:
             mirror = torch.full((n,), int(mirror), dtype=torch.int32, device=inp.data.device)
         else:
             mirror = None
-        layout = spec.GetArgument("output_layout")
+        # a leading F or D of the requested layout belongs to the fold
+        layout = spec.GetArgument("output_layout").lstrip("FD")
         out = cmn_kernel.crop_mirror_normalize(
             inp.data, crop_y, crop_x, mirror, crop_h, crop_w, self.mean, self.std,
             float(spec.GetArgument("scale")), float(spec.GetArgument("shift")), layout,
             to_torch_type(spec.GetArgument("dtype")), bool(spec.GetArgument("pad_output")),
-            ext_h=ext_h, ext_w=ext_w, fill=self.fill)
+            ext_h=ext_h, ext_w=ext_w, fill=self.fill, src_index=src)
         shapes = None
         if self.policy == "trim_to_shape" and inp.shapes is not None:
             oh = torch.clamp(ext_h, max=crop_h)
             ow = torch.clamp(ext_w, max=crop_w)
             oc = torch.full_like(oh, out.shape[1] if layout == "CHW" else out.shape[-1])
             shapes = torch.stack([oc, oh, ow] if layout == "CHW" else [oh, ow, oc], 1)
-        return [DeviceBatch(out, shapes, layout)]
+        return DeviceBatch(out, shapes, layout)
+
+
+@register_operator("CropMirrorNormalize", "cpu")
+class CropMirrorNormalizeCPU(_CMNCommon):
+    """Per sample in numpy, in the reference's order of operations
+    (``dali_tpu/backend/image.py`` ``CropMirrorNormalizeCPU``): HWC images
+    and DHWC volumes (``crop_d``, ``crop_pos_z``); every
+    ``out_of_bounds_policy``; ``fill_values`` as output values; the cast is
+    numpy's ``astype``."""
+
+    unread_tensor_args = ("crop_h", "crop_w")
+
+    def run_sample(self, ctx, idx, img):
+        spec = self.spec
+        vol = img.ndim == 4
+        if vol:
+            d, h, w, c = img.shape
+        else:
+            h, w, c = img.shape
+        crop_h, crop_w = self._crop_size() or (h, w)
+        fill = np.asarray(spec.GetArgument("fill_values"), np.float32)
+        rnd = spec.GetArgument("rounding")
+        y = _crop_round(float(ctx.arg(self, "crop_pos_y", idx, 0.5)) * (h - crop_h), rnd)
+        x = _crop_round(float(ctx.arg(self, "crop_pos_x", idx, 0.5)) * (w - crop_w), rnd)
+        if vol:
+            crop_d = int(ctx.arg(self, "crop_d", idx, 0.0) or 0) or d
+            z = _crop_round(float(ctx.arg(self, "crop_pos_z", idx, 0.5)) * (d - crop_d), rnd)
+        oob = y < 0 or x < 0 or y + crop_h > h or x + crop_w > w or (
+            vol and (z < 0 or z + crop_d > d))
+        if oob and self.policy == "error":
+            raise ValueError(
+                f"CropMirrorNormalize: crop window {crop_h}x{crop_w} out of "
+                f"bounds for {h}x{w} (out_of_bounds_policy='error')")
+        if self.policy == "trim_to_shape":
+            y, x = max(y, 0), max(x, 0)
+            crop_h, crop_w = min(crop_h, h - y), min(crop_w, w - x)
+            if vol:
+                z = max(z, 0)
+                crop_d = min(crop_d, d - z)
+        sl = (slice(max(z, 0), z + crop_d),) if vol else ()
+        win = img[sl + (slice(max(y, 0), y + crop_h),
+                        slice(max(x, 0), x + crop_w))].astype(np.float32)
+        oob_mask = None
+        if oob and self.policy == "pad":
+            # pad to the requested window; the mask remembers what was padded
+            pads = [(max(-z, 0), crop_d - win.shape[0] - max(-z, 0))] if vol else []
+            pads += [(max(-y, 0), crop_h - win.shape[-3] - max(-y, 0)),
+                     (max(-x, 0), crop_w - win.shape[-2] - max(-x, 0)), (0, 0)]
+            oob_mask = np.pad(np.zeros(win.shape[:-1], bool), pads[:-1], constant_values=True)
+            win = np.pad(win, pads)
+        if int(np.asarray(ctx.arg(self, "mirror", idx, 0))) != 0:
+            win = win[..., :, ::-1, :]
+            if oob_mask is not None:
+                oob_mask = oob_mask[..., :, ::-1]
+        mean = np.asarray(spec.GetArgument("mean"), np.float32)
+        std = np.asarray(spec.GetArgument("std"), np.float32)
+        scale, shift = float(spec.GetArgument("scale")), float(spec.GetArgument("shift"))
+        out = scale * (win - mean) / std + shift
+        if oob_mask is not None:
+            out[oob_mask] = fill if fill.size == c else fill.reshape(-1)[0]
+        if spec.GetArgument("pad_output") and c < 4:
+            out = np.pad(out, [(0, 0)] * (out.ndim - 1) + [(0, 4 - c)])
+        if spec.GetArgument("output_layout") in ("CHW", "FCHW", "DCHW"):
+            out = np.transpose(out, (0, 3, 1, 2) if out.ndim == 4 else (2, 0, 1))
+        return np.ascontiguousarray(out.astype(to_numpy_type(spec.GetArgument("dtype"))))
+
+    def output_layout(self, output_idx, inputs):
+        return self.spec.GetArgument("output_layout")
 
 
 DALI_SCHEMA("Flip").DocStr(

@@ -12,15 +12,13 @@ canvases [N, ...], run in graph order on the device thread.
 
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
-
 import numpy as np
 import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
 from ..types import DALIDataType, from_numpy_type, to_numpy_type
-from .base import Operator
+from .base import Operator, SamplePool
 
 
 def _function_schema(name, doc, batch_default, devices=("cpu",)):
@@ -44,28 +42,9 @@ _function_schema("TorchPythonFunction", "PythonFunction receiving and returning 
                  "tensors.", False)
 
 
-class _SamplePool:
-    """Per-sample calls of a user callable on a thread pool of the
-    pipeline's ``num_threads``, created at first use."""
+class _HostFunction(SamplePool, Operator):
+    thread_name_prefix = "dali-torch-python-function"
 
-    _pool = None
-
-    def map_samples(self, fn, n):
-        threads = getattr(self.pipeline, "num_threads", 1) or 1
-        if threads <= 1 or n <= 1:
-            return [fn(i) for i in range(n)]
-        if self._pool is None:
-            self._pool = ThreadPoolExecutor(max_workers=threads,
-                                            thread_name_prefix="dali-torch-python-function")
-        return list(self._pool.map(fn, range(n)))
-
-    def close(self):
-        if self._pool is not None:
-            self._pool.shutdown(wait=False, cancel_futures=True)
-            self._pool = None
-
-
-class _HostFunction(_SamplePool, Operator):
     def __init__(self, spec, op_id):
         super().__init__(spec, op_id)
         self._fn = spec._extra.get("_function", spec.GetArgument("function", None))
@@ -166,7 +145,9 @@ DALI_SCHEMA("NumbaFunction").DocStr(
 
 
 @register_operator("NumbaFunction", "cpu")
-class NumbaFunction(_SamplePool, Operator):
+class NumbaFunction(SamplePool, Operator):
+    thread_name_prefix = "dali-torch-python-function"
+
     def __init__(self, spec, op_id):
         super().__init__(spec, op_id)
         self._run_fn = spec._extra.get("_run_fn", spec.GetArgument("run_fn", None))

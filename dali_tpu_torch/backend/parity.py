@@ -63,18 +63,15 @@ _VIDEO = ("decoders.Video", "experimental.decoders.Video", "experimental.inputs.
           "readers.Video", "readers.VideoResize", "VideoReaderResize", "OpticalFlow")
 QUEUE_ITEMS = {
     **{n: "item 8" for n in _VIDEO},
-    "experimental.AudioResample": "item 4",
     "DumpImage": "item 5h",
 }
 QUEUE_ITEMS.update({a: QUEUE_ITEMS[t] for a, t in _LEGACY.items() if t in QUEUE_ITEMS})
-# Placements the port declares but does not run yet: the cpu ones are item
-# 5h, CMN's item 4.
-_DEVICE_ITEMS = {("CropMirrorNormalize", "cpu"): "item 4"}
 
 
 def device_item(schema_name: str, device: str):
-    """The ROADMAP.md Queue 1 item of a (schema, device) the port lacks."""
-    item = _DEVICE_ITEMS.get((schema_name, device)) or QUEUE_ITEMS.get(schema_name)
+    """The ROADMAP.md Queue 1 item of a (schema, device) the port lacks: the
+    cpu placements not ported yet are item 5h."""
+    item = QUEUE_ITEMS.get(schema_name)
     return item or ("item 5h" if device == "cpu" else None)
 
 

@@ -7,7 +7,8 @@ rotation about the sample center. WarpAffine takes the reference's route for
 each batch: the separable route when every matrix is axis-aligned, the gather
 route otherwise (``device_statics``). Rotate keeps the input size
 (``keep_size``) or grows the canvas to the rotated extent, rounded up to 32
-and latched. Sequences and volumes raise ``NotImplementedError``. The
+and latched. Sequences and volumes raise ``NotImplementedError`` on the
+device (the cpu placements, ``host_ops.py``, take them). The
 host CoordFlip, the ``transforms.*`` matrix generators (numpy on the host, in
 float32, composed as the reference composes them) and CoordTransform (cpu
 and gpu) of the same reference file are here too.
@@ -46,10 +47,11 @@ DALI_SCHEMA("WarpAffine").DocStr(
 ).AddOptionalArg("dtype", ArgType.DATA_TYPE, "Output dtype.", None)
 
 
-def _invert_affine(m):
-    a, t = m[:, :2], m[:, 2]
-    ai = np.linalg.inv(a)
-    return np.concatenate([ai, (-ai @ t)[:, None]], axis=1).astype(np.float32)
+def invert_affine(m):
+    """The inverse of a [2, 3] (images) or [3, 4] (volumes) affine map."""
+    nd = m.shape[0]
+    inv = np.linalg.inv(m[:, :nd])
+    return np.concatenate([inv, (-inv @ m[:, nd])[:, None]], axis=1).astype(np.float32)
 
 
 def _require_2d(shapes):
@@ -65,7 +67,7 @@ class WarpAffineGPU(Operator):
         if m.size != 6:
             raise _not_ported(f"WarpAffine with a {m.size}-value matrix (volumes)")
         m = m.reshape(2, 3)
-        return m if self.spec.GetArgument("inverse_map", True) else _invert_affine(m)
+        return m if self.spec.GetArgument("inverse_map", True) else invert_affine(m)
 
     def _out_size(self, h, w):
         size = self.spec.GetArgument("size", None)
@@ -123,7 +125,7 @@ DALI_SCHEMA("Rotate").DocStr(
 ).NumInput(1).NumOutput(1).Devices("cpu", "gpu").AddArg(
     "angle", ArgType.FLOAT, "Rotation angle (degrees, counter-clockwise).", tensor_ok=True
 ).AddOptionalArg(
-    "axis", ArgType.FLOAT_VEC, "Rotation axis of volumes (not ported).", [0.0, 0.0, 1.0],
+    "axis", ArgType.FLOAT_VEC, "Rotation axis of volumes (cpu placement).", [0.0, 0.0, 1.0],
     tensor_ok=True
 ).AddOptionalArg(
     "keep_size", ArgType.BOOL, "Keep the input size instead of growing the canvas.", False

@@ -4,13 +4,19 @@
 // Replaces the Pallas TPU kernel dali_tpu/kernels/cmn_pallas.py (cmn_pallas,
 // body _kernel) and computes the whole 2-D function of dali_tpu/kernels/cmn.py
 // crop_mirror_normalize: uint8, float16 or float32 input with 1-4 channels;
-// float32 or float16 output, CHW or HWC; pad_output; the pad policy.
+// float32, float16, uint8, int8, int16 or int32 output, CHW or HWC;
+// pad_output; the pad policy. Volumes and sequences fold their depth or
+// frames into the batch before the launch (kernels/cmn.py).
 //
 //   out[n, y, x, c] = in[n, cy + y, cx + col(x), c] * a[c] + b[c]
 //                   = fill[c]  under the pad policy, for a source pixel
 //                              outside [0, ext_h) x [0, ext_w)
 //                   = 0        for c >= C (the pad_output channels)
 //   a = scale / std,  b = shift - mean * scale / std      (folded on the host)
+//   x * a + b is a product and a sum, each rounded (no FMA): the reference's
+//   and the plain version's order, so an integer output truncates the same
+//   value. Integer outputs convert as XLA's convert does: toward zero,
+//   saturated to the type's range, NaN to 0.
 //   col(x) = x                          without mirror
 //          = vw - 1 - x        (x < vw) with mirror: the first vw columns
 //          = crop_w - 1 + vw - x (x >= vw) reverse among themselves, the rest too
@@ -19,8 +25,8 @@
 //   with it.
 //
 // What bounds it on this card: HBM bytes. Each output element costs 1-4
-// bytes read and 2-4 bytes written against one FMA, far below the H100's
-// ridge point. The first version of this kernel ran one thread per output
+// bytes read and 1-4 bytes written against a multiply and an add, far
+// below the H100's ridge point. The first version of this kernel ran one thread per output
 // pixel: C one-byte loads and C four-byte stores a thread, 64-bit index
 // arithmetic and the per-sample scalars re-read by every thread, about 30
 // instructions for 15 bytes. This one moves each byte once with few
@@ -42,8 +48,10 @@
 //  * the band's output is one contiguous run per CHW plane (one run in HWC).
 //    A thread takes a group of pixels, computes each pixel's address in the
 //    staged row once and all its channels from it, and writes 16-byte
-//    streaming stores (st.global.cs): 4 float32 or 8 float16 per plane in
-//    CHW, whole 4-channel pixels in HWC, with a scalar head and tail where a
+//    streaming stores (st.global.cs): 4 float32, 8 float16 or 4-16
+//    integers per plane in CHW (integers packed into words as they are
+//    computed, which keeps registers and occupancy as float16's), whole
+//    4-channel pixels in HWC, with a scalar head and tail where a
 //    run does not start or end on 16 bytes. Forms whose runs do not line up
 //    that way (CHW planes that are not a multiple of 16 bytes, HWC with 1-3
 //    channels) go element by element, still with 16-byte stores;
@@ -56,6 +64,7 @@
 
 #include <algorithm>
 #include <climits>
+#include <type_traits>
 
 namespace {
 
@@ -90,7 +99,8 @@ __device__ __forceinline__ int quot(const FastDiv& f, int n) {
 }
 
 struct Params {
-  const uint8_t* in;  // [n, H, W, C] elements of the input type
+  const uint8_t* in;  // [n_in, H, W, C] elements of the input type
+  const int* src;     // null: output sample n reads input sample n; else src[n]
   void* out;          // [n, c_out, crop_h, crop_w] or [n, crop_h, crop_w, c_out]
   const int* crop_y;
   const int* crop_x;
@@ -112,8 +122,53 @@ __device__ __forceinline__ float to_float(uint8_t v) { return static_cast<float>
 __device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_float(float v) { return v; }
 
+template <typename T>
+struct IntRange;
+template <>
+struct IntRange<uint8_t> {
+  static constexpr int lo = 0, hi = 255;
+};
+template <>
+struct IntRange<int8_t> {
+  static constexpr int lo = -128, hi = 127;
+};
+template <>
+struct IntRange<int16_t> {
+  static constexpr int lo = -32768, hi = 32767;
+};
+template <>
+struct IntRange<int32_t> {
+  static constexpr int lo = INT_MIN, hi = INT_MAX;
+};
+
+// Integer outputs: 16 bytes of converted values a vector store.
 template <typename OutT>
-struct Store;
+struct Store {
+  static_assert(std::is_integral<OutT>::value, "integer output");
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(OutT));
+  static __device__ __forceinline__ OutT cvt(float v) {
+    // __float2int_rz truncates and saturates to int32; narrower types clamp
+    const int t = v != v ? 0 : __float2int_rz(v);
+    return static_cast<OutT>(min(max(t, IntRange<OutT>::lo), IntRange<OutT>::hi));
+  }
+  // the converted value's bits in the low bytes of a word
+  static __device__ __forceinline__ unsigned bits(float v) {
+    return static_cast<unsigned>(static_cast<typename std::make_unsigned<OutT>::type>(cvt(v)));
+  }
+  static __device__ __forceinline__ void vec(OutT* p, const float (&v)[kVec]) {
+    constexpr int per = 4 / static_cast<int>(sizeof(OutT));
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      unsigned x = 0;
+#pragma unroll
+      for (int k = 0; k < per; ++k) x |= bits(v[i * per + k]) << (8 * sizeof(OutT) * k);
+      w[i] = x;
+    }
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
+  }
+  static __device__ __forceinline__ void one(OutT* p, float v) { *p = cvt(v); }
+};
 
 template <>
 struct Store<float> {
@@ -187,8 +242,9 @@ __global__ void __launch_bounds__(kThreads) cmn_kernel(const Params p) {
   }
   constexpr int pix = kC * static_cast<int>(sizeof(InT));
   const int span = max(ce - cs, 0) * pix;  // bytes staged of each source row
+  const size_t n_in = p.src ? p.src[n] : n;
   const uintptr_t src0 =
-      reinterpret_cast<uintptr_t>(p.in) + (static_cast<size_t>(n) * p.H * p.W + cs) * pix;
+      reinterpret_cast<uintptr_t>(p.in) + (n_in * p.H * p.W + cs) * pix;
   const size_t src_row = static_cast<size_t>(p.W) * pix;
 
   for (int r = threadIdx.x; r < nrows; r += kThreads) {
@@ -230,7 +286,8 @@ __global__ void __launch_bounds__(kThreads) cmn_kernel(const Params p) {
     const InT* src = reinterpret_cast<const InT*>(stage + (valid ? off + co : 0));
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
-      v[c] = valid ? __fmaf_rn(to_float(src[c]), p.consts[c], p.consts[4 + c]) : p.consts[8 + c];
+      v[c] = valid ? __fadd_rn(__fmul_rn(to_float(src[c]), p.consts[c]), p.consts[4 + c])
+                    : p.consts[8 + c];
     }
 #pragma unroll
     for (int c = kC; c < 4; ++c) v[c] = 0.f;
@@ -257,6 +314,34 @@ __global__ void __launch_bounds__(kThreads) cmn_kernel(const Params p) {
     for (int g = threadIdx.x; g < ngroups; g += kThreads) {
       const int e = head + g * G;
       int y = quot(p.div_w, e), x = e - y * p.crop_w;
+      if constexpr (!kHWC && std::is_integral<OutT>::value) {
+        // CHW integers: up to 16 pixels a group, each converted and packed
+        // into its plane's four words as it is computed (16 x 4 floats
+        // held to the store would cost occupancy)
+        constexpr int per = 4 / static_cast<int>(sizeof(OutT));
+        unsigned words[4][4] = {};
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          float v[4];
+          pixel(y, x, v);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            words[c][i / per] |= Store<OutT>::bits(v[c]) << (8 * sizeof(OutT) * (i % per));
+          }
+          if (++x == p.crop_w) {
+            x = 0;
+            ++y;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (c < p.c_out) {
+            __stcs(reinterpret_cast<uint4*>(run + c * plane + e),
+                   make_uint4(words[c][0], words[c][1], words[c][2], words[c][3]));
+          }
+        }
+        continue;
+      }
       float v[G][4];
 #pragma unroll
       for (int i = 0; i < G; ++i) {
@@ -352,44 +437,67 @@ cudaError_t launch_c(const Params& p, int tiles, int smem, cudaStream_t stream) 
   }
 }
 
+template <typename InT, typename OutT>
+cudaError_t launch_layout(const Params& p, int hwc, int tiles, int smem, cudaStream_t stream) {
+  return hwc ? launch_c<InT, OutT, true>(p, tiles, smem, stream)
+             : launch_c<InT, OutT, false>(p, tiles, smem, stream);
+}
+
 template <typename InT>
-cudaError_t launch_in(const Params& p, int out_fp16, int hwc, int tiles, int smem,
+cudaError_t launch_in(const Params& p, int out_type, int hwc, int tiles, int smem,
                       cudaStream_t stream) {
-  if (out_fp16) {
-    return hwc ? launch_c<InT, __half, true>(p, tiles, smem, stream)
-               : launch_c<InT, __half, false>(p, tiles, smem, stream);
+  switch (out_type) {
+    case 0:
+      return launch_layout<InT, float>(p, hwc, tiles, smem, stream);
+    case 1:
+      return launch_layout<InT, __half>(p, hwc, tiles, smem, stream);
+    case 2:
+      return launch_layout<InT, uint8_t>(p, hwc, tiles, smem, stream);
+    case 3:
+      return launch_layout<InT, int8_t>(p, hwc, tiles, smem, stream);
+    case 4:
+      return launch_layout<InT, int16_t>(p, hwc, tiles, smem, stream);
+    default:
+      return launch_layout<InT, int32_t>(p, hwc, tiles, smem, stream);
   }
-  return hwc ? launch_c<InT, float, true>(p, tiles, smem, stream)
-             : launch_c<InT, float, false>(p, tiles, smem, stream);
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = launched, or nothing to do).
-// in_dtype: 0 uint8, 1 float16, 2 float32. `mirror`, `ext_h` and `ext_w`
+// n is the number of output samples; `src_index` (may be null) gives, for
+// each, the input sample it reads: a volume's depth window or a sequence's
+// frames, folded into the batch without a copy.
+// in_dtype: 0 uint8, 1 float16, 2 float32; out_type: 0 float32, 1 float16,
+// 2 uint8, 3 int8, 4 int16, 5 int32. `mirror`, `ext_h` and `ext_w`
 // may be null. `consts` is a host array of 12 floats: a[4], b[4], fill[4]
 // (the folded constants and the pad policy's output values, zero-padded
 // past C). c_out is C, or 4 with pad_output.
-extern "C" int dali_tpu_torch_cmn(const void* in, void* out, const int* crop_y,
-                                  const int* crop_x, const int* mirror, const int* ext_h,
-                                  const int* ext_w, int n, int H, int W, int C, int crop_h,
-                                  int crop_w, int c_out, int in_dtype, int out_fp16, int hwc,
-                                  int pad_policy, const float* consts, void* stream) {
+extern "C" int dali_tpu_torch_cmn(const void* in, const int* src_index, void* out,
+                                  const int* crop_y, const int* crop_x, const int* mirror,
+                                  const int* ext_h, const int* ext_w, int n, int H, int W, int C,
+                                  int crop_h, int crop_w, int c_out, int in_dtype, int out_type,
+                                  int hwc, int pad_policy, const float* consts, void* stream) {
   if (n <= 0 || crop_h <= 0 || crop_w <= 0) return 0;
   if (C < 1 || C > 4 || c_out < C || c_out > 4 || in_dtype < 0 || in_dtype > 2 ||
+      out_type < 0 || out_type > 5 ||
       (!pad_policy && (crop_h > H || crop_w > W))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static const int kInSize[3] = {1, 2, 4};
+  static const int kOutSize[6] = {4, 2, 1, 1, 2, 4};
+  const int out_size = kOutSize[out_type];
   const long long stride =
       16 * ((static_cast<long long>(crop_w) * C * kInSize[in_dtype] + 15) / 16 + 1);
   // A block takes at least two store groups a thread (a group is the pixels
-  // of one 16-byte store per plane: 4 f32 or 8 f16 in CHW, 1 or 2 pixels in
-  // HWC) and at least kMinPixels. On [256, 224, 224, 3] (NVIDIA H100 80GB
-  // HBM3, 700 W; PERF.md) fewer pixels or more threads a block measured
-  // slower, and f16 CHW took 11% less time with 4096 pixels than with 2048.
-  const int group = hwc ? (out_fp16 ? 2 : 1) : (out_fp16 ? 8 : 4);
-  const int pixels = std::max(kMinPixels, 2 * kThreads * group);
+  // of one 16-byte store per plane: 16 / the output's size in CHW, a quarter
+  // of that in HWC) and at least kMinPixels. On [256, 224, 224, 3] (NVIDIA
+  // H100 80GB HBM3, 700 W; PERF.md) fewer pixels or more threads a block
+  // measured slower, and f16 CHW took 11% less time with 4096 pixels than
+  // with 2048.
+  const int group = hwc ? std::max(1, 4 / out_size) : 16 / out_size;
+  // one-byte outputs take one group a thread (16 pixels in CHW)
+  const int pixels = std::max(kMinPixels, (out_size == 1 ? 1 : 2) * kThreads * group);
   int rows = std::max(1, std::min(std::min(crop_h, kMaxRows), pixels / crop_w));
   const long long col_bytes = 16 * ((4LL * crop_w + 15) / 16);
   while (rows > 1 && kHeaderBytes + col_bytes + rows * stride > kSmemDefault) --rows;
@@ -400,6 +508,7 @@ extern "C" int dali_tpu_torch_cmn(const void* in, void* out, const int* crop_y,
 
   Params p;
   p.in = static_cast<const uint8_t*>(in);
+  p.src = src_index;
   p.out = out;
   p.crop_y = crop_y;
   p.crop_x = crop_x;
@@ -417,7 +526,7 @@ extern "C" int dali_tpu_torch_cmn(const void* in, void* out, const int* crop_y,
   p.row_stride = static_cast<int>(stride);
   p.col_bytes = static_cast<int>(col_bytes);
   p.pad = pad_policy != 0;
-  p.planes_aligned = static_cast<long long>(crop_h) * crop_w * (out_fp16 ? 2 : 4) % 16 == 0;
+  p.planes_aligned = static_cast<long long>(crop_h) * crop_w * out_size % 16 == 0;
   p.div_w = make_div(crop_w);
   p.div_c = make_div(c_out);
   p.div_bands = make_div(p.bands);
@@ -429,13 +538,13 @@ extern "C" int dali_tpu_torch_cmn(const void* in, void* out, const int* crop_y,
   cudaError_t err;
   switch (in_dtype) {
     case 0:
-      err = launch_in<uint8_t>(p, out_fp16, hwc, t, sm, s);
+      err = launch_in<uint8_t>(p, out_type, hwc, t, sm, s);
       break;
     case 1:
-      err = launch_in<__half>(p, out_fp16, hwc, t, sm, s);
+      err = launch_in<__half>(p, out_type, hwc, t, sm, s);
       break;
     default:
-      err = launch_in<float>(p, out_fp16, hwc, t, sm, s);
+      err = launch_in<float>(p, out_type, hwc, t, sm, s);
       break;
   }
   return static_cast<int>(err);

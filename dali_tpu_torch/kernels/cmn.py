@@ -6,8 +6,13 @@ tensor ``crop_mirror_normalize`` launches the hand-written Hopper kernel
 ``csrc/cmn.cu`` and raises on anything that kernel does not take; on a CPU
 tensor it runs ``crop_mirror_normalize_plain``, the plain PyTorch version of
 the same function. Both take uint8, float16 or float32 input with 1-4
-channels and write float32 or float16, CHW or HWC (``""`` is HWC), with
-``pad_output`` appending zero channels up to 4 after normalisation.
+channels and write float32, float16, uint8, int8, int16 or int32, CHW or HWC
+(``""`` is HWC), with ``pad_output`` appending zero channels up to 4 after
+normalisation. ``x * a + b`` is a product and a sum, each rounded, as the
+reference computes it; an integer output converts as the reference's XLA
+convert does: toward zero, saturated to the type's range, NaN to 0
+(``saturating_cast``). Volumes and sequences reach it with their depth or
+frames folded into the batch (``backend/image.py``).
 
 The reference has two window semantics (``cmn.py:51-84``), kept exactly:
 
@@ -43,9 +48,10 @@ class LaunchCounter:
 
 COUNTER = LaunchCounter()
 
-# input dtypes the kernel reads, by the code its entry point takes
+# input and output dtypes the kernel takes, by the codes of its entry point
 _IN_CODES = {torch.uint8: 0, torch.float16: 1, torch.float32: 2}
-_OUT_DTYPES = (torch.float32, torch.float16)
+_OUT_CODES = {torch.float32: 0, torch.float16: 1, torch.uint8: 2, torch.int8: 3, torch.int16: 4,
+              torch.int32: 5}
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -60,7 +66,7 @@ def _kernel_lib():
             lib = ctypes.CDLL(build.kernel_library())
             fn = lib.dali_tpu_torch_cmn
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                            + [ctypes.c_void_p, ctypes.c_void_p])
             _LIB = lib
     return _LIB
@@ -103,12 +109,26 @@ def constants(mean, std, scale, shift, fill, C):
     return _folded(_as_key(mean), _as_key(std), float(scale), float(shift), _as_key(fill), C)
 
 
+def saturating_cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """float32 -> ``dtype`` as XLA's convert: floats round to nearest; an
+    integer type takes the value truncated toward zero, saturated to its
+    range, NaN as 0."""
+    if dtype.is_floating_point:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    t = torch.nan_to_num(torch.trunc(x), nan=0.0, posinf=float(info.max), neginf=float(info.min))
+    if dtype == torch.int32:  # 2**31 - 1 is no float32: clamp below it, then saturate
+        out = t.clamp(float(info.min), 2147483520.0).to(dtype)
+        return torch.where(t >= 2.0 ** 31, torch.full_like(out, info.max), out)
+    return t.clamp(info.min, info.max).to(dtype)
+
+
 def _check_form(output_layout: str, out_dtype) -> bool:
     """True for CHW output; raises on what neither version writes."""
-    if out_dtype not in _OUT_DTYPES:
+    if out_dtype not in _OUT_CODES:
         raise NotImplementedError(
-            f"CropMirrorNormalize writes float32/float16 here; integer output dtypes are not "
-            f"ported to dali_tpu_torch yet (ROADMAP.md Queue 1), got {out_dtype}")
+            "CropMirrorNormalize writes float32, float16 and the integer outputs uint8, int8, "
+            f"int16 and int32 in dali_tpu_torch, got {out_dtype}")
     if output_layout not in ("CHW", "HWC", ""):
         raise ValueError(f"Unsupported output_layout {output_layout!r}")
     return output_layout == "CHW"
@@ -134,10 +154,12 @@ def crop_mirror_normalize_plain(data, crop_y, crop_x, mirror, crop_h: int, crop_
                                 mean, std, scale: float = 1.0, shift: float = 0.0,
                                 output_layout: str = "CHW", out_dtype=torch.float32,
                                 pad_output: bool = False, ext_h=None, ext_w=None,
-                                fill=None) -> torch.Tensor:
+                                fill=None, src_index=None) -> torch.Tensor:
     """Plain PyTorch version: gather the window, ``x * a + b``, fill, pad
     channels, transpose, cast."""
     chw = _check_form(output_layout, out_dtype)
+    if src_index is not None:
+        data = data[torch.as_tensor(src_index, device=data.device).long().reshape(-1)]
     n, H, W, C = data.shape
     dev = data.device
     a, b, f, _ = constants(mean, std, scale, shift, fill, C)
@@ -172,18 +194,19 @@ def crop_mirror_normalize_plain(data, crop_y, crop_x, mirror, crop_h: int, crop_
         out = torch.nn.functional.pad(out, (0, 4 - C))
     if chw:
         out = out.permute(0, 3, 1, 2)
-    return out.to(out_dtype).contiguous()
+    return saturating_cast(out, out_dtype).contiguous()
 
 
 def launch_args(data, crop_y, crop_x, mirror, crop_h: int, crop_w: int, mean, std,
                 scale: float = 1.0, shift: float = 0.0, output_layout: str = "CHW",
                 out_dtype=torch.float32, pad_output: bool = False, ext_h=None, ext_w=None,
-                fill=None):
+                fill=None, src_index=None):
     """Checks a CUDA batch against what the kernel takes and allocates the
     output. Returns (output, the arguments of the C entry point
     ``dali_tpu_torch_cmn``, the tensors and buffers they point into)."""
     chw = _check_form(output_layout, out_dtype)
-    n, H, W, C = data.shape
+    n_in, H, W, C = data.shape
+    n = n_in if src_index is None else int(torch.as_tensor(src_index).numel())
     if data.dtype not in _IN_CODES:
         raise NotImplementedError(f"CMN kernel reads uint8/float16/float32, got {data.dtype}")
     if not data.is_contiguous() or not 1 <= C <= 4:
@@ -194,35 +217,40 @@ def launch_args(data, crop_y, crop_x, mirror, crop_h: int, crop_w: int, mean, st
         _check_window(H, W, crop_h, crop_w)
     dev = data.device
     packed = constants(mean, std, scale, shift, fill, C)[3]
+    src = _int32(src_index, n, dev)  # each in [0, n_in): not checked, that would sync
     per_sample = [_int32(v, n, dev) for v in (crop_y, crop_x, mirror, ext_h, ext_w)]
     c_out = 4 if pad_output and C < 4 else C
     shape = (n, c_out, crop_h, crop_w) if chw else (n, crop_h, crop_w, c_out)
     out = torch.empty(shape, dtype=out_dtype, device=dev)
-    args = (data.data_ptr(), out.data_ptr(),
+    args = (data.data_ptr(), src.data_ptr() if src is not None else None, out.data_ptr(),
             *(t.data_ptr() if t is not None else None for t in per_sample),
             n, H, W, C, crop_h, crop_w, c_out, _IN_CODES[data.dtype],
-            int(out_dtype == torch.float16), int(not chw), int(fill is not None),
+            _OUT_CODES[out_dtype], int(not chw), int(fill is not None),
             packed.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
-    return out, args, (per_sample, packed)
+    return out, args, (per_sample, src, packed)
 
 
 def crop_mirror_normalize(data, crop_y, crop_x, mirror, crop_h: int, crop_w: int,
                           mean, std, scale: float = 1.0, shift: float = 0.0,
                           output_layout: str = "CHW", out_dtype=torch.float32,
                           pad_output: bool = False, ext_h=None, ext_w=None,
-                          fill=None) -> torch.Tensor:
+                          fill=None, src_index=None) -> torch.Tensor:
     """data [N, H, W, C] -> [N, C', crop_h, crop_w] (CHW) or [N, crop_h,
     crop_w, C'] (HWC) ``out_dtype``, C' = 4 with ``pad_output``, else C.
 
     crop_y / crop_x [N] window origins; mirror [N] flags or None; ext_h /
     ext_w [N] valid extents (None = the canvas); fill: output values of
-    out-of-bounds pixels, which selects the pad policy (None = clamp)."""
+    out-of-bounds pixels, which selects the pad policy (None = clamp).
+    ``src_index`` [M] (None = each sample once): output sample i reads
+    input sample src_index[i], and N above is M (a volume's depth window
+    folded into the batch reads its slices in place)."""
     if not data.is_cuda:
         return crop_mirror_normalize_plain(data, crop_y, crop_x, mirror, crop_h, crop_w, mean,
                                            std, scale, shift, output_layout, out_dtype,
-                                           pad_output, ext_h, ext_w, fill)
+                                           pad_output, ext_h, ext_w, fill, src_index)
     out, args, _ = launch_args(data, crop_y, crop_x, mirror, crop_h, crop_w, mean, std, scale,
-                               shift, output_layout, out_dtype, pad_output, ext_h, ext_w, fill)
+                               shift, output_layout, out_dtype, pad_output, ext_h, ext_w, fill,
+                               src_index)
     if out.numel() == 0:
         return out
     err = _kernel_lib().dali_tpu_torch_cmn(*args)

@@ -7,7 +7,8 @@ batched: a signal batch is ``[N, L]`` (a padded canvas) with an optional
 per-sample ``valid_len`` ``[N]``, where the reference vmaps a 1-D function.
 On a CUDA tensor the FFT is cuFFT (``torch.fft.rfft``) and the filter bank a
 float32 matmul, as the reference leaves both to XLA: no Pallas kernel is on
-this path.
+this path. ``sinc_resample`` (AudioResample on the device) is plain torch
+too: the reference computes it in XLA.
 """
 
 from __future__ import annotations
@@ -190,3 +191,67 @@ def moving_mean_square(x: torch.Tensor, window: int) -> torch.Tensor:
     n = xx.shape[0]
     lo = torch.arange(max(n - window + 1, 1), device=x.device)
     return (cs[lo + min(window, n)] - cs[lo]) / window
+
+
+def _i0(x: torch.Tensor) -> torch.Tensor:
+    """Modified Bessel I0 (Abramowitz & Stegun 9.8.1/9.8.2 polynomial fit),
+    the reference's ``_i0``."""
+    ax = x.abs()
+    t = ax / 3.75
+    small = 1.0 + 3.5156229 * t**2 + 3.0899424 * t**4 + 1.2067492 * t**6 + \
+        0.2659732 * t**8 + 0.0360768 * t**10 + 0.0045813 * t**12
+    ti = 3.75 / torch.clamp(ax, min=1e-9)
+    big = (torch.exp(ax) / torch.sqrt(torch.clamp(ax, min=1e-9))) * (
+        0.39894228 + 0.01328592 * ti + 0.00225319 * ti**2 - 0.00157565 * ti**3
+        + 0.00916281 * ti**4 - 0.02057706 * ti**5 + 0.02635537 * ti**6
+        - 0.01647633 * ti**7 + 0.00392377 * ti**8)
+    return torch.where(ax < 3.75, small, big)
+
+
+SINC_CHUNK_BYTES = 32 << 20  # one [N, positions, taps] float32 intermediate
+
+
+def sinc_resample(x: torch.Tensor, in_rate: torch.Tensor, out_rate: torch.Tensor,
+                  out_len: int, taps: int = 32) -> torch.Tensor:
+    """Kaiser-windowed sinc resampling of a batch (the reference's
+    ``sinc_resample``, vmapped): ``x`` [N, L] or [N, L, C] float32 on a
+    canvas of L, per-sample rates [N] float32 -> [N, out_len(, C)].
+
+    Output j of sample i reads the ``taps`` canvas samples around
+    ``j * in_rate / out_rate`` (indices clamped into the canvas, as the
+    reference's are), weighted by a Kaiser (beta 16) window times a sinc
+    whose cutoff scales down for downsampling. Positions stay float32 in the
+    reference's order, so each lands on the same taps. The gather is
+    [N, positions, taps]: positions go in chunks so that one intermediate
+    stays under ``SINC_CHUNK_BYTES``."""
+    n, L = x.shape[:2]
+    dev = x.device
+    in_rate = in_rate.to(device=dev, dtype=torch.float32).reshape(n, 1, 1)
+    out_rate = out_rate.to(device=dev, dtype=torch.float32).reshape(n, 1, 1)
+    step = in_rate / out_rate
+    cutoff = torch.minimum(torch.ones_like(step), out_rate / in_rate)
+    k = torch.arange(-(taps // 2) + 1, taps // 2 + 1, dtype=torch.float32, device=dev)
+    k_int = k.to(torch.int64)
+    i0_beta = _i0(torch.tensor(16.0, device=dev))
+    half_width = taps / 2.0 * cutoff
+    chans = x.shape[2] if x.dim() == 3 else 1
+    out = x.new_empty((n, out_len) + tuple(x.shape[2:]))
+    chunk = max(1, SINC_CHUNK_BYTES // (4 * n * taps * chans))
+    rows = torch.arange(n, device=dev)[:, None, None]
+    for o0 in range(0, out_len, chunk):
+        pos = torch.arange(o0, min(o0 + chunk, out_len), dtype=torch.float32,
+                           device=dev)[None, :, None] * step            # [N, P, 1]
+        base = torch.floor(pos)
+        frac = pos - base
+        arg = (k - frac) * cutoff                                         # [N, P, T]
+        t_norm = arg / half_width
+        w_kaiser = _i0(16.0 * torch.sqrt(torch.clamp(1.0 - t_norm * t_norm, min=0.0))) / i0_beta
+        w = torch.where(t_norm.abs() < 1.0, w_kaiser * torch.sinc(arg) * cutoff,
+                        torch.zeros((), device=dev))
+        idx = torch.clamp(base.to(torch.int64) + k_int, 0, L - 1)
+        g = x[rows, idx]                                                  # [N, P, T(, C)]
+        if g.dim() == 4:
+            out[:, o0:o0 + pos.shape[1]] = torch.einsum("nptc,npt->npc", g, w)
+        else:
+            out[:, o0:o0 + pos.shape[1]] = (g * w).sum(-1)
+    return out

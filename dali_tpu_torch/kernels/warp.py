@@ -6,7 +6,8 @@ bilinear taps; taps outside the sample's valid extent read ``fill_value``.
 Two routes, as in the reference: the gather route for any affine, and the
 separable route for axis-aligned matrices (m01 == m10 == 0), which warps
 with two per-sample interpolation-matrix products. The host-side matrix and
-canvas helpers are the reference's numpy code.
+canvas helpers, and the host warp of one DHWC volume
+(``warp_affine_volumetric_np``), are the reference's numpy code.
 """
 
 from __future__ import annotations
@@ -115,6 +116,55 @@ def rotated_canvas_size(h, w, angle_deg):
     a = np.deg2rad(angle_deg)
     c, s = abs(np.cos(a)), abs(np.sin(a))
     return int(np.ceil(h * c + w * s - 0.5)), int(np.ceil(w * c + h * s - 0.5))
+
+
+def rotation_matrix_3d(angle_deg, axis, center_xyz, out_center_xyz):
+    """Destination -> source rotation of a volume about ``axis`` through a
+    center, [3, 4] in (x, y, z) order (Rodrigues' form, used directly as the
+    destination -> source map: about +z it is ``rotation_matrix``)."""
+    a = np.deg2rad(angle_deg)
+    u = np.asarray(axis, np.float64)
+    nrm = np.linalg.norm(u)
+    u = u / (nrm if nrm > 0 else 1.0)
+    c, s = np.cos(a), np.sin(a)
+    ux, uy, uz = u
+    k = np.array([[0, -uz, uy], [uz, 0, -ux], [-uy, ux, 0]])
+    m = np.eye(3) + s * k + (1 - c) * (k @ k)
+    t = np.asarray(center_xyz, np.float64) - m @ np.asarray(out_center_xyz, np.float64)
+    return np.concatenate([m, t[:, None]], axis=1).astype(np.float32)
+
+
+def warp_affine_volumetric_np(img, m, out_d: int, out_h: int, out_w: int, interp, fill):
+    """One DHWC volume through the [3, 4] destination -> source map ``m`` on
+    the host, in numpy float32: the nearest voxel (rounded half to even) or
+    trilinear taps, ``fill`` outside the volume. Returns float32."""
+    D, H, W, _ = img.shape
+    gz, gy, gx = np.meshgrid(np.arange(out_d, dtype=np.float32),
+                             np.arange(out_h, dtype=np.float32),
+                             np.arange(out_w, dtype=np.float32), indexing="ij")
+    sx = m[0, 0] * gx + m[0, 1] * gy + m[0, 2] * gz + m[0, 3]
+    sy = m[1, 0] * gx + m[1, 1] * gy + m[1, 2] * gz + m[1, 3]
+    sz = m[2, 0] * gx + m[2, 1] * gy + m[2, 2] * gz + m[2, 3]
+    imgf = img.astype(np.float32)
+
+    def tap(iz, iy, ix):
+        valid = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H) & (iz >= 0) & (iz < D)
+        v = imgf[np.clip(iz, 0, D - 1), np.clip(iy, 0, H - 1), np.clip(ix, 0, W - 1)]
+        return np.where(valid[..., None], v, np.float32(fill))
+
+    if interp == DALIInterpType.INTERP_NN:
+        return tap(np.round(sz).astype(np.int32), np.round(sy).astype(np.int32),
+                   np.round(sx).astype(np.int32))
+    z0, y0, x0 = np.floor(sz), np.floor(sy), np.floor(sx)
+    wz, wy, wx = (sz - z0)[..., None], (sy - y0)[..., None], (sx - x0)[..., None]
+    iz0, iy0, ix0 = z0.astype(np.int32), y0.astype(np.int32), x0.astype(np.int32)
+
+    def bilin(iz):
+        v00, v01 = tap(iz, iy0, ix0), tap(iz, iy0, ix0 + 1)
+        v10, v11 = tap(iz, iy0 + 1, ix0), tap(iz, iy0 + 1, ix0 + 1)
+        return (v00 * (1 - wx) + v01 * wx) * (1 - wy) + (v10 * (1 - wx) + v11 * wx) * wy
+
+    return bilin(iz0) * (1 - wz) + bilin(iz0 + 1) * wz
 
 
 def warp_perspective_batch(data, matrices, out_h: int, out_w: int, extents=None,

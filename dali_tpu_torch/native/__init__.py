@@ -15,6 +15,8 @@
 * ``png_decode`` and ``bmp_shape`` / ``decode_bmp`` — the PNG and BMP pixel
   stages (``csrc/host/png_decode.cc``, ``bmp_decode.cc``), uint8/uint16
   equal to ``cv2.imdecode``.
+* ``warp_affine`` — one HWC image through an inverse affine map
+  (``csrc/host/warp_affine.cc``), equal to ``cv2.warpAffine``.
 """
 
 from __future__ import annotations
@@ -80,6 +82,9 @@ def host_lib():
             lib.dali_tpu_pack_wire.restype = None
             lib.dali_tpu_pack_wire.argtypes = [vp, vp, ll, ci, vp, ll, ci, vp, vp, ll, ll,
                                                vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, llp]
+            lib.dali_tpu_torch_warp_affine.restype = ci
+            lib.dali_tpu_torch_warp_affine.argtypes = [vp, ci, ci, ci, ci, vp, ci, ci, vp, ci,
+                                                       ctypes.c_double]
             _LIB = lib
     return _LIB
 
@@ -531,4 +536,30 @@ def decode_bmp(data, gray=False):
     out = np.empty((h, w, 1 if gray else 3), np.uint8)
     if host_lib().dali_tpu_torch_bmp_decode(p, arr.nbytes, 1 if gray else 0, out.ctypes.data) != 0:
         raise ValueError("BMP decode failed: corrupt or truncated pixel data")
+    return out
+
+
+# ------------------------------------------------------------------ affine warp
+_WARP_DTYPES = {np.dtype(np.uint8): 0, np.dtype(np.uint16): 1, np.dtype(np.int16): 2,
+                np.dtype(np.float32): 3, np.dtype(np.float64): 4, np.dtype(np.int8): 5,
+                np.dtype(np.int32): 6}
+
+
+def warp_affine(img: np.ndarray, matrix, out_h: int, out_w: int, nearest: bool,
+                fill: float) -> np.ndarray:
+    """``img`` [H, W, C] through the 2x3 destination -> source ``matrix`` to
+    [out_h, out_w, C]: ``cv2.warpAffine(img, matrix, (out_w, out_h),
+    flags=INTER_NEAREST or INTER_LINEAR | WARP_INVERSE_MAP,
+    borderMode=BORDER_CONSTANT, borderValue=(fill,) * 4)`` (``warp_affine.cc``).
+    Raises ValueError for a dtype or interpolation cv2 refuses."""
+    code = _WARP_DTYPES.get(img.dtype)
+    src = np.ascontiguousarray(img)
+    m = np.ascontiguousarray(np.asarray(matrix, np.float64).reshape(2, 3))
+    h, w, c = src.shape
+    out = np.empty((int(out_h), int(out_w), c), src.dtype)
+    if code is None or host_lib().dali_tpu_torch_warp_affine(
+            src.ctypes.data, h, w, c, code, out.ctypes.data, out.shape[0], out.shape[1],
+            m.ctypes.data, int(bool(nearest)), float(fill)) != 0:
+        raise ValueError(f"warp_affine: {'nearest' if nearest else 'linear'} interpolation of "
+                         f"{img.dtype} images is not supported (as in cv2.warpAffine)")
     return out

@@ -38,7 +38,7 @@ _HOST_SRC = os.path.join(_PKG, "csrc", "host")
 HOST_SOURCES = [os.path.join(_HOST_SRC, f) for f in (
     "jpeg_huff.cc", "sparse_pack.cc", "tasking.cc", "coef_pack_batch.cc",
     "coef_dense_batch.cc", "coef_full_batch.cc", "jpeg_decode.cc", "png_decode.cc",
-    "bmp_decode.cc")]
+    "bmp_decode.cc", "warp_affine.cc")]
 # headers the host sources include: hashed into the stamp, not compiled
 HOST_HEADERS = [os.path.join(_HOST_SRC, "jpeg_full.h")]
 KERNEL_SOURCES = [os.path.join(_PKG, "csrc", "cmn.cu")]
@@ -111,7 +111,7 @@ def _build(name: str, sources: List[str], cmd_prefix: List[str], cmd_suffix: Lis
 def host_library() -> str:
     return _build(
         "libdali_tpu_torch_host.so", HOST_SOURCES,
-        ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+        ["g++", "-O3", "-march=native", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
          "-Wl,--no-undefined"],
         ["-lpthread"], HOST_HEADERS)
 

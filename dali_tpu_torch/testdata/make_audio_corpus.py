@@ -1,4 +1,5 @@
-"""The speech-like 16 kHz corpus of the ASR front end, as 16-bit mono WAV.
+"""The speech-like 16 kHz corpus of the ASR front end, as 16-bit mono WAV
+(and the same signals at 48 kHz, VCTK's rate, for the resampling path).
 
 The signals are those of ``bench.py``'s audio lane (same formula, seed 99,
 128 clips of 4-10 s): harmonics over a wandering f0 plus low white noise.
@@ -7,7 +8,7 @@ the same int16 PCM (float -> int16 as FFmpeg's resampler converts:
 ``round(x * 32768)`` clipped), so the device sees the same data. The corpus
 is written at first use under ``build/`` and never committed.
 
-Usage: python dali_tpu_torch/testdata/make_audio_corpus.py [root]
+Usage: python dali_tpu_torch/testdata/make_audio_corpus.py [root [rate]]
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ import sys
 import numpy as np
 
 RATE = 16000
-DEFAULT_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build", "audio_corpus")
+BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "build")
+DEFAULT_ROOT = os.path.join(BUILD, "audio_corpus")
 
 
 def speech_clip(rng: np.random.Generator, seconds: float, rate: int = RATE) -> np.ndarray:
@@ -51,27 +53,32 @@ def wav_bytes(data: bytes, rate: int = RATE, channels: int = 1, bits: int = 16,
             + b"data" + struct.pack("<I", len(data)) + data)
 
 
-def write_corpus(root: str, n_clips: int, seed: int, seconds=(4.0, 10.0)) -> str:
-    """``n_clips`` clips of uniform(*seconds) s as ``root/clips/cNNNN.wav``
-    (one class folder, the layout ``readers.file`` walks). Returns root."""
+def write_corpus(root: str, n_clips: int, seed: int, seconds=(4.0, 10.0),
+                 rate: int = RATE) -> str:
+    """``n_clips`` clips of uniform(*seconds) s at ``rate`` Hz as
+    ``root/clips/cNNNN.wav`` (one class folder, the layout ``readers.file``
+    walks). Returns root."""
     marker = os.path.join(root, ".complete")
     if os.path.exists(marker):
         return root
     os.makedirs(os.path.join(root, "clips"), exist_ok=True)
     rng = np.random.default_rng(seed)
     for i in range(n_clips):
-        x = speech_clip(rng, float(rng.uniform(*seconds)))
+        x = speech_clip(rng, float(rng.uniform(*seconds)), rate)
         with open(os.path.join(root, "clips", f"c{i:04d}.wav"), "wb") as f:
-            f.write(wav_bytes(to_int16(x).tobytes()))
+            f.write(wav_bytes(to_int16(x).tobytes(), rate))
     with open(marker, "w") as f:
         f.write("ok")
     return root
 
 
-def ensure_corpus(root: str = DEFAULT_ROOT) -> str:
-    """The bench-sized corpus: 128 clips of 4-10 s, seed 99."""
-    return write_corpus(root, 128, 99)
+def ensure_corpus(root: str = DEFAULT_ROOT, rate: int = RATE) -> str:
+    """The bench-sized corpus: 128 clips of 4-10 s, seed 99, at ``rate`` Hz
+    (the 48 kHz one under ``build/audio_corpus_48k`` by default)."""
+    if rate != RATE and root == DEFAULT_ROOT:
+        root = os.path.join(BUILD, f"audio_corpus_{rate // 1000}k")
+    return write_corpus(root, 128, 99, rate=rate)
 
 
 if __name__ == "__main__":
-    print(ensure_corpus(*sys.argv[1:2]))
+    print(ensure_corpus(*sys.argv[1:2], *(int(r) for r in sys.argv[2:3])))

@@ -5,15 +5,21 @@ Run from the repository root on a machine with a CUDA card:
     python dali_tpu_torch/tools/bench_cmn.py [--package-root DIR] [--reps N] [--out PATH]
 
 For each form at the main path's shape ([256, 224, 224, 3] uint8, mixed
-mirror flags, every third sample's valid width trimmed by 37 columns) it
-prints one line: the C entry point alone with the L2 cache flushed before
+mirror flags, every third sample's valid width trimmed by 37 columns; the
+integer forms with mean 64 and std 0.5, which pushes values past both ends
+of the output's range, so the stores saturate) it prints one line: the C entry point alone with the L2 cache flushed before
 each launch (a 64 MiB buffer is written outside the timed window; the
 38.5 MB input would otherwise stay in the 50 MB L2), the same with a warm L2,
 the wrapper ``kernels.cmn.crop_mirror_normalize`` (Python and all), the plain
 PyTorch version, the bytes the function must move (each input byte read once,
 each output byte written once), the HBM bound at 3.35 TB/s, the kernel's
 share of it and its agreement with the plain version (float32 within 1e-5,
-float16 within one half-precision step). It also times one ``copy_`` of the
+float16 within one half-precision step, integers equal). Two folded forms
+follow (``measure_folds``): a DHWC volume batch, two of numpy_volumes'
+BraTS-sized volumes ([155, 240, 240, 4] float32 each), each one's 128^3
+window (crop_d 128 at a per-sample depth) to float16 DCHW, and an FHWC
+sequence batch [16, 8, 224, 224, 3] uint8 to float32 FCHW: one launch over
+the folded slices each, the volume's read in place through ``src_index``. It also times one ``copy_`` of the
 permuted input into a float32 CHW tensor, a single PyTorch call that moves
 the bytes of the first form (a cast and transpose, no crop or normalise), as
 a yardstick of the bandwidth one call reaches; the port never calls it.
@@ -40,12 +46,18 @@ HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM data sheet
 BATCH, SIZE, TRIM = 256, 224, 37
 MEAN = [0.485 * 255, 0.456 * 255, 0.406 * 255]
 STD = [0.229 * 255, 0.224 * 255, 0.225 * 255]
-# name, output dtype, output layout, pad_output
+# (mean, std) that send x * a + b to [-128, 382]: past both ends of uint8 and int8
+SATURATING = ([64.0], [0.5])
+# name, output dtype, output layout, pad_output, (mean, std) (None: ImageNet's)
 FORMS = (
-    ("u8_f32_chw", torch.float32, "CHW", False),
-    ("u8_f16_chw", torch.float16, "CHW", False),
-    ("u8_f16_hwc_pad", torch.float16, "HWC", True),
+    ("u8_f32_chw", torch.float32, "CHW", False, None),
+    ("u8_f16_chw", torch.float16, "CHW", False, None),
+    ("u8_f16_hwc_pad", torch.float16, "HWC", True, None),
+    ("u8_u8_chw_saturating", torch.uint8, "CHW", False, SATURATING),
+    ("u8_i8_chw_saturating", torch.int8, "CHW", False, SATURATING),
 )
+VOLUME_BATCH, VOLUME_SHAPE, VOLUME_CROP = 2, (155, 240, 240, 4), 128
+SEQUENCE_SHAPE = (16, 8, 224, 224, 3)
 
 
 def main_path_inputs(batch: int = BATCH, size: int = SIZE, seed: int = 0):
@@ -105,16 +117,28 @@ def l2_flush_buffer(mib: int = 64):
     return torch.empty(mib << 20, dtype=torch.uint8, device="cuda")
 
 
-def raw_launch(cmn, data, origin, mirror, ext_w, out_dtype, layout, pad_output):
+def agrees(out, want, out_dtype):
+    """(max abs difference, whether it is within the form's tolerance)."""
+    err = float((out.float() - want.float()).abs().max())
+    if out_dtype == torch.float32:
+        return err, err <= 1e-5
+    if out_dtype == torch.float16:
+        return err, within_f16_step(out, want)
+    return err, bool(torch.equal(out, want))
+
+
+def raw_launch(cmn, data, origin, mirror, ext_w, out_dtype, layout, pad_output, norm=None):
     """(output, closure calling the C entry point alone with every argument
     prepared once), or (None, None) where the library has no entry point for
     the form."""
     lib = cmn._kernel_lib()
+    mean, std = norm or (MEAN, STD)
     if hasattr(lib, "dali_tpu_torch_cmn"):
-        out, args, keep = cmn.launch_args(data, origin, origin, mirror, SIZE, SIZE, MEAN, STD,
+        out, args, keep = cmn.launch_args(data, origin, origin, mirror, SIZE, SIZE, mean, std,
                                           1.0, 0.0, layout, out_dtype, pad_output, ext_w=ext_w)
         entry = lib.dali_tpu_torch_cmn
-    elif layout == "CHW" and not pad_output:  # the first kernel's ABI
+    elif (layout == "CHW" and not pad_output and norm is None
+          and out_dtype in (torch.float32, torch.float16)):  # the first kernel's ABI
         n, H, W, C = data.shape
         cy, cx, vw = cmn._window(data, origin, origin, SIZE, SIZE, ext_w)
         a, b = cmn.fold_constants(MEAN, STD, 1.0, 0.0, C)
@@ -141,19 +165,18 @@ def measure(cmn, reps: int = 50):
     data, origin, mirror, ext_w = main_path_inputs()
     flush = l2_flush_buffer()
     forms = []
-    for name, out_dtype, layout, pad in FORMS:
-        out, call = raw_launch(cmn, data, origin, mirror, ext_w, out_dtype, layout, pad)
+    for name, out_dtype, layout, pad, norm in FORMS:
+        out, call = raw_launch(cmn, data, origin, mirror, ext_w, out_dtype, layout, pad, norm)
         if call is None:
             continue
-        args = (data, origin, origin, mirror, SIZE, SIZE, MEAN, STD, 1.0, 0.0, layout, out_dtype)
+        mean, std = norm or (MEAN, STD)
+        args = (data, origin, origin, mirror, SIZE, SIZE, mean, std, 1.0, 0.0, layout, out_dtype)
         kw = dict(ext_w=ext_w, **({"pad_output": True} if pad else {}))
         call()
         want = cmn.crop_mirror_normalize_plain(*args, **kw)
         wrapped = cmn.crop_mirror_normalize(*args, **kw)
         torch.cuda.synchronize()
-        err = float((out.float() - want.float()).abs().max())
-        agrees = (err <= 1e-5 if out_dtype == torch.float32
-                  else within_f16_step(out, want))
+        err, ok = agrees(out, want, out_dtype)
         if not torch.equal(out, wrapped):
             raise AssertionError(f"{name}: the entry point and the wrapper disagree")
         nbytes = form_bytes(data, SIZE, SIZE, out_dtype, pad)
@@ -164,13 +187,73 @@ def measure(cmn, reps: int = 50):
             "warm_ms": time_ms(call, reps),
             "wrapper_ms": time_ms(lambda: cmn.crop_mirror_normalize(*args, **kw), reps),
             "plain_ms": time_ms(lambda: cmn.crop_mirror_normalize_plain(*args, **kw), 10),
-            "max_abs_err": err, "agrees": agrees})
+            "max_abs_err": err, "agrees": ok})
     n, h, w, c = data.shape
     dst = torch.empty((n, c, h, w), dtype=torch.float32, device="cuda")
     copy_ms = time_ms(lambda: dst.copy_(data.permute(0, 3, 1, 2)), reps, flush)
     nbytes = form_bytes(data, h, w, torch.float32, False)
     copy = {"bytes": nbytes, "ms": copy_ms, "bound_share": bound_ms(nbytes) / copy_ms}
     return forms, copy
+
+
+def fold_cases(seed=1):
+    """{name: (keyword arguments of ``crop_mirror_normalize``)} of the two
+    folded forms, their data made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, (d, h, w, c) = VOLUME_BATCH, VOLUME_SHAPE
+    vols = torch.randn((n * d, h, w, c), device="cuda", generator=g) * 50 + 100
+    cd = VOLUME_CROP
+    z = torch.tensor([13, 20], device="cuda")[:n]
+    src = ((torch.arange(n, device="cuda") * d + z)[:, None]
+           + torch.arange(cd, device="cuda")).reshape(-1).to(torch.int32)
+    origin = torch.full((n * cd,), (h - cd) // 2, dtype=torch.int32, device="cuda")
+    seqs = torch.randint(0, 256, SEQUENCE_SHAPE, dtype=torch.uint8, device="cuda", generator=g)
+    frames = SEQUENCE_SHAPE[0] * SEQUENCE_SHAPE[1]
+    mirror = (torch.arange(SEQUENCE_SHAPE[0], device="cuda") % 2).to(torch.int32)
+    zero = torch.zeros((frames,), dtype=torch.int32, device="cuda")
+    return {
+        "f32_dhwc_f16_dchw_fold": dict(
+            data=vols, crop_y=origin, crop_x=origin, mirror=None, crop_h=cd, crop_w=cd,
+            mean=[60.0, 80.0, 100.0, 120.0], std=[40.0, 45.0, 50.0, 55.0],
+            output_layout="CHW", out_dtype=torch.float16, src_index=src),
+        "u8_fhwc_f32_fchw_fold": dict(
+            data=seqs.reshape(frames, *SEQUENCE_SHAPE[2:]), crop_y=zero, crop_x=zero,
+            mirror=torch.repeat_interleave(mirror, SEQUENCE_SHAPE[1]), crop_h=SEQUENCE_SHAPE[2],
+            crop_w=SEQUENCE_SHAPE[3], mean=MEAN, std=STD, output_layout="CHW",
+            out_dtype=torch.float32),
+    }
+
+
+def measure_folds(cmn, reps: int = 30):
+    """The folded forms as ``measure`` reads the others: the C entry point
+    alone with the L2 flushed, the wrapper, the plain version, the bytes of
+    the windows read once and the output written once, the bound."""
+    flush = l2_flush_buffer()
+    lib = cmn._kernel_lib()
+    forms = []
+    for name, kw in fold_cases().items():
+        out, args, keep = cmn.launch_args(**kw)
+
+        def call(args=args, keep=keep):
+            if lib.dali_tpu_torch_cmn(*args) != 0:
+                raise RuntimeError(f"CMN kernel launch failed in form {name}")
+
+        call()
+        want = cmn.crop_mirror_normalize_plain(**kw)
+        torch.cuda.synchronize()
+        err, ok = agrees(out, want, kw["out_dtype"])
+        n, c = out.shape[0], kw["data"].shape[-1]
+        nbytes = n * kw["crop_h"] * kw["crop_w"] * c * (
+            kw["data"].element_size() + out.element_size())
+        ms = time_ms(call, reps, flush)
+        forms.append({
+            "name": name, "shape_in": list(kw["data"].shape), "shape_out": list(out.shape),
+            "bytes": nbytes, "bound_ms": bound_ms(nbytes), "ms": ms,
+            "bound_share": bound_ms(nbytes) / ms, "warm_ms": time_ms(call, reps),
+            "wrapper_ms": time_ms(lambda: cmn.crop_mirror_normalize(**kw), reps),
+            "plain_ms": time_ms(lambda: cmn.crop_mirror_normalize_plain(**kw), 10),
+            "max_abs_err": err, "agrees": ok})
+    return forms
 
 
 def card_line() -> str:
@@ -195,6 +278,8 @@ def main(argv=None):
 
     card = card_line()
     forms, copy = measure(cmn, opts.reps)
+    if "src_index" in cmn.launch_args.__code__.co_varnames:
+        forms += measure_folds(cmn, opts.reps)
     print(f"card: {card}; package: {root}")
     for f in forms:
         print(f"{f['name']} -> {f['shape_out']}: kernel alone {f['ms']:.4f} ms cold L2 "

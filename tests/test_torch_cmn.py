@@ -112,7 +112,7 @@ def test_plain_raises_on_integer_output_and_oversized_window():
     data, cy, cx, mirror, ext_w = _case(1)
     args = [torch.from_numpy(x) for x in (data, cy, cx, mirror)]
     with pytest.raises(NotImplementedError, match="integer output"):
-        port.crop_mirror_normalize(*args, 24, 33, MEAN, STD, out_dtype=torch.uint8)
+        port.crop_mirror_normalize(*args, 24, 33, MEAN, STD, out_dtype=torch.int64)
     with pytest.raises(ValueError, match="exceeds the canvas"):
         port.crop_mirror_normalize(*args, 24, 65, MEAN, STD)
     with pytest.raises(ValueError, match="output_layout"):

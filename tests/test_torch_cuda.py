@@ -153,7 +153,7 @@ def test_cuda_kernel_raises_instead_of_falling_back(card):
     args = [torch.from_numpy(x).to(card) for x in (data, cy, cx, mirror)] + [64, 80, MEAN, STD]
     before = cmn.COUNTER.launches
     with pytest.raises(NotImplementedError, match="integer output"):
-        cmn.crop_mirror_normalize(*args, out_dtype=torch.int16)
+        cmn.crop_mirror_normalize(*args, out_dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="contiguous"):
         cmn.crop_mirror_normalize(args[0].transpose(1, 2), *args[1:])
     with pytest.raises(NotImplementedError, match="uint8/float16/float32"):
@@ -530,8 +530,8 @@ def test_unported_image_paths_raise_on_card(card):
     twelve_bit = first[:sof + 4] + b"\x0c" + first[sof + 5:]
     with pytest.raises(NotImplementedError, match=r"Queue 1 item 1a\), or 12-bit"):
         run(twelve_bit, device="mixed")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 5h"):
-        build(lambda j: fn.random_resized_crop(j, size=[8, 8]))
+    with pytest.raises(NotImplementedError, match=r"Queue 1, item 5h"):
+        build(lambda j: fn.gaussian_blur(j, window_size=3))
     with pytest.raises(NotImplementedError, match="never reads"):
         build(lambda j: fn.resize(fn.decoders.image(j, device="mixed", hybrid_device_decode=True,
                                                     hybrid_wire="int8"),
@@ -1296,3 +1296,150 @@ def test_rn50_rcm_jpeg_on_card_matches_cpu(card, tmp_path):
 
     r = bench_rcm_jpeg.check_against_cpu(_affine_file_list(tmp_path, 32), batch=16)
     assert r["resized_max_diff"] <= 1 and r["jpeg_block_share"] <= 1e-3
+
+
+# ------------------------------------------------------------------ CMN's forms of item 4
+
+INT_OUTPUTS = [torch.uint8, torch.int8, torch.int16, torch.int32]
+
+
+@pytest.mark.parametrize("window", sorted(KERNEL_WINDOWS))
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float16, torch.float32])
+@pytest.mark.parametrize("out_dtype", INT_OUTPUTS)
+@pytest.mark.parametrize("layout,channels,pad_output", [("CHW", 3, False), ("HWC", 4, False),
+                                                        ("HWC", 3, True), ("CHW", 1, True)])
+def test_cuda_kernel_integer_outputs_equal_plain(card, window, in_dtype, out_dtype, layout,
+                                                 channels, pad_output):
+    """The saturating integer stores: x * a + b spans past every type's range
+    (float input adds infinities, NaN and +-3e9); the kernel equals its plain
+    version exactly."""
+    crop_h, crop_w, fill = KERNEL_WINDOWS[window]
+    rng = np.random.default_rng(5)
+    n, H, W = 9, 40, 48
+    vals = rng.random((n, H, W, channels)) * 255
+    if in_dtype != torch.uint8:
+        vals[0, :2] = rng.uniform(-3e4, 3e4, (2, W, channels))
+        vals[1, 0, :4, 0] = [np.nan, np.inf, -np.inf, 60000.0]
+    data = torch.from_numpy(vals).to(in_dtype).to(card)
+    if fill is None:
+        cy, cx = rng.integers(0, H - crop_h + 1, n), rng.integers(0, W - crop_w + 1, n)
+    else:
+        cy, cx = rng.integers(-12, H - 8, n), rng.integers(-30, W - 5, n)
+    dev = [torch.from_numpy(np.asarray(v, np.int32)).to(card)
+           for v in (cy, cx, np.arange(n) % 2, rng.integers(H // 2, H + 1, n),
+                     rng.integers(W // 2, W + 1, n))]
+    for scale in (1.0, 3e5):  # 3e5 sends uint8 input past int32 too
+        args = (data, dev[0], dev[1], dev[2], crop_h, crop_w, [64.0] * channels,
+                [0.01] * channels, scale, 0.5, layout, out_dtype, pad_output)
+        kw = dict(ext_h=dev[3], ext_w=dev[4],
+                  fill=None if fill is None else [300.7, -1.5, 2.0, -40000.0][:channels])
+        before = cmn.COUNTER.launches
+        got = cmn.crop_mirror_normalize(*args, **kw)
+        torch.cuda.synchronize()
+        assert cmn.COUNTER.launches == before + 1
+        want = cmn.crop_mirror_normalize_plain(*args, **kw)
+        assert got.dtype == out_dtype and got.shape == want.shape
+        assert torch.equal(got, want), int((got.long() - want.long()).abs().max())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float16, torch.int16])
+def test_cuda_kernel_src_index_reads_in_place(card, out_dtype):
+    """Output sample i reads input sample src_index[i]: a depth window
+    folded into the batch, held against the plain version."""
+    g = torch.Generator(device=card).manual_seed(3)
+    vols = torch.rand((3 * 10, 20, 24, 2), device=card, generator=g) * 200
+    src = (torch.tensor([0, 14, 22], device=card)[:, None]
+           + torch.arange(6, device=card)).reshape(-1).to(torch.int32)
+    n = src.numel()
+    cy = torch.full((n,), 2, dtype=torch.int32, device=card)
+    mirror = (torch.arange(n, device=card) % 2).to(torch.int32)
+    args = (vols, cy, cy * 3, mirror, 16, 16, [50.0, 60.0], [30.0, 20.0], 1.0, 0.0, "CHW",
+            out_dtype)
+    got = cmn.crop_mirror_normalize(*args, src_index=src)
+    want = cmn.crop_mirror_normalize_plain(*args, src_index=src)
+    assert tuple(got.shape) == (n, 2, 16, 16)
+    if out_dtype == torch.float16:
+        assert within_f16_step(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 if out_dtype.is_floating_point
+                                   else 0)
+
+
+def _cmn_fold_pipe(device, data, layout, **kw):
+    @pipeline_def(batch_size=len(data), num_threads=1, seed=4, device=device)
+    def p():
+        x = fn.external_source(source=lambda: data, batch=True, layout=layout).gpu()
+        m = fn.random.coin_flip(probability=0.5, seed=9)
+        return fn.crop_mirror_normalize(x, mirror=m, mean=[60.0], std=[30.0], **kw)
+
+    pipe = p()
+    pipe.build()
+    try:
+        out = pipe.run()[0]
+        return out.as_tensor().cpu(), out.layout()
+    finally:
+        pipe.shutdown()
+
+
+@pytest.mark.parametrize("layout,kw", [
+    ("DHWC", dict(crop=(16, 20), crop_d=5, crop_pos_z=0.7, output_layout="CHW")),
+    ("DHWC", dict(crop=(12, 12), crop_d=3, dtype=types.UINT8, output_layout="HWC")),
+    ("FHWC", dict(crop=(18, 22), output_layout="FCHW", dtype=types.FLOAT16)),
+], ids=["dchw", "dhwc_uint8", "fchw_float16"])
+def test_cmn_volume_and_sequence_folds_on_card_match_cpu(card, layout, kw):
+    rng = np.random.default_rng(8)
+    lead = 9 if layout == "DHWC" else 4
+    data = [rng.integers(0, 256, (lead, 24, 28, 3)).astype(np.uint8) for _ in range(5)]
+    got, g_lay = _cmn_fold_pipe("cuda:0", data, layout, **kw)
+    want, w_lay = _cmn_fold_pipe("cpu", data, layout, **kw)
+    assert g_lay == w_lay and got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.float16:
+        assert within_f16_step(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 if got.is_floating_point()
+                                   else 0)
+
+
+def test_audio_resample_on_card_matches_cpu(card):
+    """The device sinc resample, per-sample rates, mono and stereo: card vs
+    CPU within 1e-5 of each clip's peak."""
+    rng = np.random.default_rng(6)
+    clips = [rng.uniform(-0.9, 0.9, (n,) + ch).astype(np.float32)
+             for n, ch in ((48000, ()), (30001, ()), (22050, ()), (9000, ()))]
+    rates = [np.float32(r) for r in (48000, 44100, 22050, 16000)]
+    outs = {}
+    for device in ("cuda:0", "cpu"):
+        @pipeline_def(batch_size=4, num_threads=1, seed=2, device=device)
+        def p():
+            x = fn.external_source(source=lambda: clips, batch=True).gpu()
+            r = fn.external_source(source=lambda: rates, batch=True)
+            return fn.experimental.audio_resample(x, in_rate=r, out_rate=16000.0, quality=90.0)
+
+        pipe = p()
+        pipe.build()
+        try:
+            out = pipe.run()[0]
+            outs[device] = [np.asarray(out.as_cpu().at(i)) for i in range(4)]
+        finally:
+            pipe.shutdown()
+    for g, c in zip(outs["cuda:0"], outs["cpu"]):
+        assert g.shape == c.shape
+        assert float(np.abs(g - c).max()) <= 1e-5 * float(np.abs(c).max())
+
+
+def test_rn50_dali_cpu_on_card_cmn_placements_agree(card, tmp_path):
+    """The --dali-cpu recipe at batch 16: CMN on the card against CMN on the
+    host before .gpu(), labels equal, images within 1e-5."""
+    from dali_tpu_torch.tools import bench_dali_cpu
+
+    r = bench_dali_cpu.check_rn50_dali_cpu(_affine_file_list(tmp_path, 32), batch=16)
+    assert r["max_abs_diff"] <= bench_dali_cpu.CMN_ATOL
+
+
+def test_asr_resample_on_card_matches_cpu(card, tmp_path):
+    from dali_tpu_torch.testdata.make_audio_corpus import write_corpus
+    from dali_tpu_torch.tools import bench_dali_cpu
+
+    root = write_corpus(str(tmp_path), 8, 5, (1.0, 2.5), rate=48000)
+    r = bench_dali_cpu.check_asr_resample(root, batch=4)
+    assert r["resampled_rel_to_peak"] <= bench_dali_cpu.RESAMPLE_RTOL

@@ -392,11 +392,11 @@ def test_ops_api_builds_the_fn_graph():
 def test_unported_names_name_their_roadmap_item(api):
     mod = getattr(dali_tpu_torch, api)
     names = (("decoders.video", "item 8"), ("readers.video", "item 8"),
-             ("audio_resample", "item 4"), ("experimental.audio_resample", "item 4"),
+             ("optical_flow", "item 8"), ("experimental.inputs.video", "item 8"),
              ("dump_image", "item 5h"))
     if api == "ops":
         names = (("decoders.Video", "item 8"), ("readers.Video", "item 8"),
-                 ("AudioResample", "item 4"), ("experimental.AudioResample", "item 4"),
+                 ("OpticalFlow", "item 8"), ("experimental.inputs.Video", "item 8"),
                  ("DumpImage", "item 5h"))
     for path, item in names:
         obj = mod
@@ -473,7 +473,7 @@ RESOLVING = ["FileReader", "COCOReader", "CaffeReader", "Caffe2Reader", "MXNetRe
              "experimental.decoders.ImageCrop", "experimental.decoders.ImageRandomCrop",
              "experimental.decoders.ImageSlice", "experimental.Inflate",
              "experimental.readers.Fits", "experimental.PeekImageShape", "reductions.RMS",
-             "Clahe", "Filter", "Debayer"]
+             "Clahe", "Filter", "Debayer", "AudioResample"]
 
 
 def test_legacy_names_register_where_the_target_runs():
@@ -531,8 +531,8 @@ def test_legacy_name_on_a_device_the_port_lacks_raises():
         p().build()
     with pytest.raises(NotImplementedError, match=r"Queue 1, item 8"):
         dali_tpu_torch.fn.video_reader
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 4"):
-        dali_tpu_torch.fn.audio_resample
+    with pytest.raises(NotImplementedError, match=r"Queue 1, item 8"):
+        dali_tpu_torch.ops.VideoReader
 
 
 def test_schema_lookups_and_top_level_names():

@@ -142,14 +142,24 @@ def test_registry_lacks_only_audio_resample_and_the_renamed_jax_function_on_gpu(
     from dali_tpu.backend import parity as ref_parity
     from dali_tpu_torch import _schema
 
-    missing = {(n, d) for (n, d) in ref_schema._impl_registry
-               if (n, d) not in _schema._impl_registry and n not in ref_parity._LEGACY}
-    assert {n for n, d in missing if d == "gpu"} == {"experimental.AudioResample", "_JaxFunction"}
+    # operators of dali_tpu's own modules: tests register others into its registry
+    missing = {(n, d) for (n, d), impl in ref_schema._impl_registry.items()
+               if (n, d) not in _schema._impl_registry and n not in ref_parity._LEGACY
+               and impl.__module__.startswith("dali_tpu.")}
+    # AudioResample came with item 4: on the gpu only the renamed _JaxFunction is left
+    assert {n for n, d in missing if d == "gpu"} == {"_JaxFunction"}
     assert {n for n, d in missing if d == "mixed"} == {
         "decoders.Video", "experimental.decoders.Video", "experimental.inputs.Video",
         "readers.Video", "readers.VideoResize", "VideoReaderResize"}
     cpu = {n for n, d in missing if d == "cpu"}
     assert not cpu & {"ElementExtract", "SequenceRearrange", "PerFrame", "PowerSpectrum"}
+    # item 4 and the first half of item 5h: the cpu placements every
+    # geometry and colour recipe calls
+    assert not cpu & {"experimental.AudioResample", "CropMirrorNormalize", "Resize",
+                      "RandomResizedCrop", "Flip", "WarpAffine", "Rotate", "Transpose", "Pad",
+                      "Erase", "Paste", "Brightness", "Contrast", "BrightnessContrast", "Hue",
+                      "Saturation", "Hsv", "ColorTwist", "ColorSpaceConversion"}
+    assert len(cpu) == 29, sorted(cpu)
     for name in ITEM_5G:
         assert _schema.has_operator_impl(name, "gpu"), name
 

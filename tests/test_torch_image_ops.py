@@ -281,8 +281,8 @@ def test_unported_paths_raise_not_implemented():
             return body()
         return p()
 
-    cpu_warp = build(lambda: fn.warp_affine(fn.external_source(source=lambda: RGB[:2], batch=True),
-                                            matrix=[1, 0, 0, 0, 1, 0]))
+    cpu_warp = build(lambda: fn.experimental.warp_perspective(
+        fn.external_source(source=lambda: RGB[:2], batch=True), matrix=[1, 0, 0, 0, 1, 0, 0, 0, 1]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cpu_warp.build()
     vol = np.zeros((2, 4, 8, 8, 1), np.uint8)
@@ -294,6 +294,6 @@ def test_unported_paths_raise_not_implemented():
             rot.run()
     finally:
         rot.shutdown()
-    for op in (fn.flip, fn.laplacian, fn.erase):
+    for op in (fn.water, fn.laplacian, fn.sphere):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(lambda: op(fn.external_source(source=lambda: RGB[:2], batch=True))).build()

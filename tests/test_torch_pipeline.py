@@ -144,7 +144,8 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.backend.sequence, dali_tpu_torch.backend.misc\n"
         "import dali_tpu_torch.backend.misc2, dali_tpu_torch.backend.enhance2\n"
         "import dali_tpu_torch.backend.straggler_gpu, dali_tpu_torch.kernels.warp\n"
-        "import dali_tpu_torch.tools.bench_rcm_jpeg\n"
+        "import dali_tpu_torch.tools.bench_rcm_jpeg, dali_tpu_torch.tools.bench_dali_cpu\n"
+        "import dali_tpu_torch.backend.host_ops, dali_tpu_torch.kernels.host_resample\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"

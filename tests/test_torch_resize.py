@@ -201,10 +201,12 @@ def test_resize_not_ported_paths_raise():
         with pytest.raises(NotImplementedError, match=what):
             _run(dali_tpu_torch, [_images(13, n=2, lead=(3,))] if what == "sequences" else imgs,
                  "FHWC" if what == "sequences" else "HWC", _make(kw), iters=1, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 5h"):
+    # dali_tpu's ResizeCPU never reads the ROI either (ROADMAP.md Queue 3)
+    with pytest.raises(NotImplementedError, match=r"Resize\(cpu\).*'roi_start'.*Queue 3"):
         _run(dali_tpu_torch, imgs, "HWC",
              lambda fn, x: fn.resize(fn.external_source(source=lambda: imgs[0], batch=True),
-                                     resize_x=8, resize_y=8), iters=1, device="cpu")
+                                     resize_x=8, resize_y=8, roi_start=[0.1, 0.1]),
+             iters=1, device="cpu")
 
 
 # -- RandomResizedCrop ----------------------------------------------------------------------------
@@ -236,9 +238,12 @@ def test_random_resized_crop(kw):
 
 
 def test_random_resized_crop_cpu_raises():
+    """On an argument dali_tpu's RandomResizedCropCPU never reads (ROADMAP.md
+    Queue 3); the placement itself runs (tests/test_torch_host_geometry.py)."""
     imgs = [_images(16)]
-    with pytest.raises(NotImplementedError, match=r"RandomResizedCrop\(cpu\).*Queue 1 item 5h"):
+    with pytest.raises(NotImplementedError, match=r"RandomResizedCrop\(cpu\).*'dtype'.*Queue 3"):
         _run(dali_tpu_torch, imgs, "HWC",
              lambda fn, x: fn.random_resized_crop(
-                 fn.external_source(source=lambda: imgs[0], batch=True), size=[8, 8]),
+                 fn.external_source(source=lambda: imgs[0], batch=True), size=[8, 8],
+                 dtype=dali_tpu_torch.types.FLOAT),
              iters=1, device="cpu")
