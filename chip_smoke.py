@@ -260,7 +260,29 @@ on failure:
    (Resize, RandomResizedCrop, CropMirrorNormalize, Flip, WarpAffine, Rotate,
    Transpose, Pad, Erase, Paste and the six colour schemas) on one batch of
    [256, 224, 224, 3] uint8: host ms per batch on one thread and on the
-   host's cores. No cv2 is imported (checked).
+   host's cores. No cv2 is imported (checked);
+28. rn50_host_augment (``tools/bench_dali_cpu.py``): phase 26's graph with the
+   robustness recipes' host augmentations after the crop, on the host's
+   threads: ``jpeg_compression_distortion`` at a quality drawn from
+   [30, 95], ``gaussian_blur`` at a sigma drawn from [0.1, 2.0] and
+   ``experimental.equalize``; then ``.gpu()`` and CMN as phase 26: 3 warm-up
+   + 10 timed batches of 256, each checked (shapes, finite values, labels in
+   the file list's range); the exact CMN launch count; images/s beside
+   rn50_dali_cpu's in this run; host ms/batch by schema; device ms of one
+   batch alone; peak memory; the CMN kernel held against its plain version
+   on one more batch of the path and timed on it; then batch 16 against the
+   same graph with CMN on the host (labels equal, images within 1e-5);
+29. host_filters: docs/examples/augmentation_gallery.py run whole through the
+   port, then every host operator ported with the filters (GaussianBlur,
+   Laplacian, Filter, Equalize, Water, Sphere, Jitter, GridMask, MedianBlur,
+   Dilate, Erode, Clahe, Debayer bilinear and edge-aware on [256, 224, 224]
+   mosaics, MultiPaste, DumpImage, TensorResize, ResizeCropMirror,
+   FastResizeCropMirror, JpegCompressionDistortion, Remap, WarpPerspective)
+   on one batch of [256, 224, 224, 3] uint8: host ms per batch on one thread
+   and on the host's cores; then each op with both placements on a batch of
+   16 on the host and on the card, held within ``PLACEMENT_BOUNDS`` (JPEG's
+   placements differ by design and Jitter draws from other generators, so
+   neither is compared). No cv2 is imported (checked).
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -304,6 +326,7 @@ FRONTEND_TIMED, VOLUMES_TIMED = 10, 10
 AFFINE_TIMED, AFFINE_CHECK_BATCH = 10, 16
 RCM_TIMED, RCM_CHECK_BATCH = 10, 16
 ASR_RESAMPLE_TIMED, DALI_CPU_TIMED = 10, 10
+HOST_AUGMENT_TIMED = 10
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -641,39 +664,46 @@ def asr_resample_phase(card, asr_cps):
     print(f"asr_resample phase: {time.perf_counter() - t0:.1f} s")
 
 
-def dali_cpu_phase(card, file_list, rn50_ips):
-    """Phase 26: rn50_dali_cpu; returns its CMN launches and the kernel's
-    readings on the path's own batch."""
+def dali_cpu_phase(card, file_list, rn50_ips, augment=False, timed=DALI_CPU_TIMED,
+                   base=None):
+    """Phase 26 (rn50_dali_cpu) or, with ``augment``, phase 28
+    (rn50_host_augment, its rate beside ``base``, rn50_dali_cpu's images/s);
+    returns the path's CMN launches, the kernel's readings on the path's own
+    batch and the path's images/s."""
     from dali_tpu_torch.tools import bench_dali_cpu, bench_ssd
 
+    what = "rn50_host_augment" if augment else "rn50_dali_cpu"
     t0 = time.perf_counter()
-    r = bench_dali_cpu.run_rn50_dali_cpu(file_list, BATCH, WARMUP, DALI_CPU_TIMED)
-    print(f"rn50_dali_cpu batch {BATCH}: {r['images_per_s']:.1f} images/s over {r['timed']} "
-          f"batches, {100 * r['images_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} in "
-          f"this run; cmn launches {r['cmn_launches']} ({card})")
-    print(f"rn50_dali_cpu host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} "
+    r = bench_dali_cpu.run_rn50_dali_cpu(file_list, BATCH, WARMUP, timed, augment=augment)
+    beside = ("" if base is None else
+              f" and {100 * r['images_per_s'] / base:.1f}% of rn50_dali_cpu's {base:.1f}")
+    print(f"{what} batch {BATCH}: {r['images_per_s']:.1f} images/s over {r['timed']} "
+          f"batches, {100 * r['images_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f}"
+          f"{beside} in this run; cmn launches {r['cmn_launches']} ({card})")
+    print(f"{what} host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} "
           f"host cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; host "
           "ms/batch by schema: " + ", ".join(f"{k} {v:.2f}" for k, v in
-                                             r["host_ms_by_schema"].items() if v >= 0.05))
-    print("rn50_dali_cpu device ms of one batch alone: " + ", ".join(
+                                             r["host_ms_by_schema"].items() if v >= 0.05)
+          + f" ({card})")
+    print(f"{what} device ms of one batch alone: " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(r["stage_ms"].items(), key=lambda kv: -kv[1]))
         + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
-    pipe = bench_dali_cpu.make_rn50_pipe(file_list, BATCH, "cuda:0")
+    pipe = bench_dali_cpu.make_rn50_pipe(file_list, BATCH, "cuda:0", augment=augment)
     with bench_ssd.recording_cmn([]) as calls:
         pipe.run()
     pipe.shutdown()
     c = dict(bench_ssd.time_cmn(calls[0]), max_abs_err=bench_ssd.hold_cmn(calls[0]))
-    print(f"rn50_dali_cpu CMN kernel on the path's own batch {c['shape_in']} {c['dtype_in']} "
+    print(f"{what} CMN kernel on the path's own batch {c['shape_in']} {c['dtype_in']} "
           f"-> {c['shape_out']} float32: max abs diff vs plain {c['max_abs_err']:.3e} (limit "
           f"1e-05; path launches {r['cmn_launches']}); kernel alone {c['ms']:.4f} ms (cold L2), "
           f"wrapper {c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} bytes, "
           f"bound {c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
-    k = bench_dali_cpu.check_rn50_dali_cpu(file_list)
-    print(f"rn50_dali_cpu card CMN vs host CMN (batch {k['batch']}, {k['iterations']} "
+    k = bench_dali_cpu.check_rn50_dali_cpu(file_list, augment=augment)
+    print(f"{what} card CMN vs host CMN (batch {k['batch']}, {k['iterations']} "
           f"iterations): labels equal, images {k['max_abs_diff']:.3e} apart (limit "
-          f"{bench_dali_cpu.CMN_ATOL})")
-    print(f"rn50_dali_cpu phase: {time.perf_counter() - t0:.1f} s")
-    return r["cmn_launches"], c
+          f"{bench_dali_cpu.CMN_ATOL}) ({card})")
+    print(f"{what} phase: {time.perf_counter() - t0:.1f} s")
+    return r["cmn_launches"], c, r["images_per_s"]
 
 
 def host_geometry_phase(card):
@@ -690,6 +720,28 @@ def host_geometry_phase(card):
             f"{v:.2f} ms/batch on {n} thread{'s' if n > 1 else ''}"
             for n, v in sorted(by_threads.items())) + f" ({card})")
     print(f"host geometry phase: {time.perf_counter() - t0:.1f} s")
+
+
+def host_filters_phase(card):
+    """Phase 29: augmentation_gallery.py whole, the host filters timed, and
+    the ops' host and card placements held within their bounds."""
+    from dali_tpu_torch.tools import bench_dali_cpu
+
+    t0 = time.perf_counter()
+    r = bench_dali_cpu.host_filters(BATCH, (OUT, OUT))
+    require("cv2" not in sys.modules, "cv2 was imported")
+    print("examples run whole through the port: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in r["examples_s"].items()) + f" ({card})")
+    for name, by_threads in r["host_ms"].items():
+        shape = f"[{BATCH}, {OUT}, {OUT}{'' if name.startswith('experimental.Debayer') else ', 3'}]"
+        print(f"host op {name} on {shape} uint8: " + ", ".join(
+            f"{v:.2f} ms/batch on {n} thread{'s' if n > 1 else ''}"
+            for n, v in sorted(by_threads.items())) + f" ({card})")
+    print("host vs card placements (batch 16, limits max diff / share): " + ", ".join(
+        f"{k} {w:g} on {s:.2e} ({bench_dali_cpu.PLACEMENT_BOUNDS[k][0]} / "
+        f"{bench_dali_cpu.PLACEMENT_BOUNDS[k][1]:g})" for k, (w, s) in r["placements"].items())
+        + f" ({card})")
+    print(f"host filters phase: {time.perf_counter() - t0:.1f} s")
 
 
 def _policy(name, images):
@@ -1405,9 +1457,12 @@ def main():
         card, file_list, rn50_ips, recipe_ips["rn50_val"])
     gpu_ops_phase(card)
     asr_resample_phase(card, asr_cps)
-    launches["rn50_dali_cpu"], path_cmn["rn50_dali_cpu"] = dali_cpu_phase(card, file_list,
-                                                                          rn50_ips)
+    launches["rn50_dali_cpu"], path_cmn["rn50_dali_cpu"], dali_cpu_ips = dali_cpu_phase(
+        card, file_list, rn50_ips)
     host_geometry_phase(card)
+    launches["rn50_host_augment"], path_cmn["rn50_host_augment"], _ = dali_cpu_phase(
+        card, file_list, rn50_ips, augment=True, timed=HOST_AUGMENT_TIMED, base=dali_cpu_ips)
+    host_filters_phase(card)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

@@ -212,9 +212,9 @@ def _resolve(schema_name: str, device: str):
 def get_operator_impl(schema_name: str, device: str):
     impl = _resolve(schema_name, device)
     if impl is None:
-        from .backend.parity import device_item
+        from .backend.parity import QUEUE_ITEMS
 
-        item = device_item(_alias_targets.get(schema_name, schema_name), device)
+        item = QUEUE_ITEMS.get(_alias_targets.get(schema_name, schema_name))
         raise NotImplementedError(
             f"Operator '{schema_name}' on device '{device}' is not ported to "
             f"dali_tpu_torch yet; see ROADMAP.md (Queue 1{', ' + item if item else ''})")

@@ -1,22 +1,31 @@
-"""GaussianBlur (2-D HWC) and Laplacian on the device (counterpart of the gpu
-ops of ``dali_tpu/backend/convolution.py``).
+"""GaussianBlur, Laplacian and experimental.Filter (counterpart of
+``dali_tpu/backend/convolution.py``): the gpu GaussianBlur (2-D HWC) and
+Laplacian, and the cpu placements of all three.
 
-As in the reference, the per-sample separable kernels are built on the host
-(``host_params``; sigma and window size may be per-sample arguments), padded
-to a common length that only grows, and applied along H then W with a
-reflect-101 border bounded by each sample's valid extent, so canvas padding
-never blurs into an image. Sequences and volumes raise."""
+On the device, as in the reference, the per-sample separable kernels are
+built on the host (``host_params``; sigma and window size may be per-sample
+arguments), padded to a common length that only grows, and applied along H
+then W with a reflect-101 border bounded by each sample's valid extent, so
+canvas padding never blurs into an image. Sequences and volumes raise there.
+
+On the host, 2-D samples (HWC, and FHWC sequences frame by frame) run the
+port's C++ (``native.sep_conv_f32`` and ``filter2d_f32``, copies of the
+reference's own kernels); DHWC volumes correlate along D, H and W in numpy
+with a reflect-101 border, as the reference's volumetric route does.
+Integer outputs round half to even and saturate."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import native
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch
+from ..kernels.host_resample import saturate
 from ..kernels.pointwise import saturate_cast
-from ..types import to_torch_type
-from .base import Operator
+from ..types import to_numpy_type, to_torch_type
+from .base import Operator, SamplePool
 
 
 def gaussian_window(size: int, sigma: float):
@@ -38,13 +47,51 @@ DALI_SCHEMA("GaussianBlur").DocStr("Separable Gaussian blur.").NumInput(1).NumOu
 ).AddOptionalArg("dtype", ArgType.DATA_TYPE, "Output dtype.", None)
 
 
-def _blur_params(ctx, op, idx):
-    """(sigma, window) of sample ``idx``; a zero/absent pair means window 3."""
+def _blur_params(ctx, op, idx, naxes=1):
+    """Per-axis (sigma, window) pairs of sample ``idx``; scalars broadcast
+    over the axes, and a zero/absent pair means window 3."""
     sigma = ctx.arg(op, "sigma", idx, None)
     win = ctx.arg(op, "window_size", idx, None)
-    s = float(np.asarray(sigma, np.float64).reshape(-1)[0]) if sigma is not None else 0.0
-    w = int(np.asarray(win, np.int64).reshape(-1)[0]) if win is not None else 0
-    return (s, 3 if s <= 0 and w <= 0 else w)
+    sv = np.asarray(sigma, np.float64).reshape(-1) if sigma is not None else np.zeros(1)
+    wv = np.asarray(win, np.int64).reshape(-1) if win is not None else np.zeros(1, np.int64)
+    out = []
+    for a in range(naxes):
+        s, w = float(sv[a % len(sv)]), int(wv[a % len(wv)])
+        out.append((s, 3 if s <= 0 and w <= 0 else w))
+    return out
+
+
+def conv1d_reflect_np(x: np.ndarray, k: np.ndarray, axis: int) -> np.ndarray:
+    """1-D correlation along ``axis`` with a reflect-101 border, float32."""
+    r = len(k) // 2
+    pads = [(r, r) if a == axis else (0, 0) for a in range(x.ndim)]
+    xp = np.pad(x.astype(np.float32), pads, mode="reflect")
+    out = np.zeros(x.shape, np.float32)
+    sl = [slice(None)] * x.ndim
+    for t, kv in enumerate(np.asarray(k, np.float32)):
+        sl[axis] = slice(t, t + x.shape[axis])
+        out += kv * xp[tuple(sl)]
+    return out
+
+
+def _to_dtype(spec, out: np.ndarray, default) -> np.ndarray:
+    """``out`` in the ``dtype`` argument (else ``default``): integers round
+    half to even and saturate."""
+    dt_arg = spec.GetArgument("dtype", None)
+    return saturate(out, np.dtype(to_numpy_type(dt_arg) if dt_arg is not None else default))
+
+
+class _HostConv(SamplePool, Operator):
+    """FHWC sequences run frame by frame; other 4-D samples are DHWC volumes."""
+
+    def run_batch(self, ctx, *inputs):
+        self._in_layout = inputs[0].layout if inputs else ""
+        return super().run_batch(ctx, *inputs)
+
+    def run_sample(self, ctx, idx, img):
+        if img.ndim == 4 and self._in_layout.startswith("F"):
+            return np.stack([self.run_2d(ctx, idx, fr) for fr in img])
+        return self.run_volume(ctx, idx, img) if img.ndim == 4 else self.run_2d(ctx, idx, img)
 
 
 def blur_axis(img: torch.Tensor, w: torch.Tensor, ext: torch.Tensor, axis: int) -> torch.Tensor:
@@ -84,8 +131,8 @@ class GaussianBlurGPU(Operator):
             if nm in batches:
                 n = len(batches[nm].samples)
                 break
-        rows = [gaussian_window(w, s)[0] for s, w in (_blur_params(ctx, self, i)
-                                                     for i in range(n))]
+        rows = [gaussian_window(w, s)[0] for (s, w), in (_blur_params(ctx, self, i)
+                                                        for i in range(n))]
         K = max(3, max(len(k) for k in rows))
         if K % 2 == 0:
             K += 1
@@ -101,7 +148,8 @@ class GaussianBlurGPU(Operator):
     def lower(self, dctx, inp: DeviceBatch):
         if inp.data.dim() != 4:
             raise NotImplementedError("GaussianBlur(gpu) on sequences or volumes is not ported "
-                                      "to dali_tpu_torch yet; see ROADMAP.md (Queue 1)")
+                                      "to dali_tpu_torch yet; see ROADMAP.md (Queue 1, item "
+                                      "5h.7)")
         x = inp.data
         n = x.shape[0]
         w = dctx.param(self, "gb_w")
@@ -112,6 +160,20 @@ class GaussianBlurGPU(Operator):
         out = blur_axis(out, w, inp.extent(1), 2)
         dt = self.spec.GetArgument("dtype", None)
         return [inp.with_data(saturate_cast(out, x.dtype if dt is None else to_torch_type(dt)))]
+
+
+@register_operator("GaussianBlur", "cpu")
+class GaussianBlurCPU(_HostConv):
+    def run_volume(self, ctx, idx, img):
+        out = img
+        for axis, (s, w) in enumerate(_blur_params(ctx, self, idx, 3)):
+            out = conv1d_reflect_np(out, gaussian_window(w, s)[0], axis)
+        return _to_dtype(self.spec, out, img.dtype)
+
+    def run_2d(self, ctx, idx, img):
+        (s, w), = _blur_params(ctx, self, idx)
+        kernel = gaussian_window(w, s)[0]
+        return _to_dtype(self.spec, native.sep_conv_f32(img, kernel, kernel), img.dtype)
 
 
 DALI_SCHEMA("Laplacian").DocStr(
@@ -139,6 +201,13 @@ def laplacian_windows(size: int):
     return deriv, smooth
 
 
+def _laplacian_scale(spec, size, naxes):
+    """``scale``, or 2^(naxes + 2 - size * naxes) with ``normalized_kernel``."""
+    if spec.GetArgument("normalized_kernel"):
+        return 2.0 ** (-(size * naxes) + naxes + 2)
+    return float(spec.GetArgument("scale")[0])
+
+
 @register_operator("Laplacian", "gpu")
 class LaplacianGPU(Operator):
     """[N, H, W, C] images, [N, F, H, W, C] sequences (per frame) and
@@ -149,7 +218,8 @@ class LaplacianGPU(Operator):
         x = inp.data
         if x.dim() not in (4, 5):
             raise NotImplementedError(f"Laplacian(gpu) on {x.dim() - 1}-D samples is not ported "
-                                      "to dali_tpu_torch yet; see ROADMAP.md (Queue 1)")
+                                      "to dali_tpu_torch yet; see ROADMAP.md (Queue 1, item "
+                                      "5h.7)")
         size = int(self.spec.GetArgument("window_size")[0])
         n = x.shape[0]
         deriv, smooth = (torch.from_numpy(w).to(x.device)[None].expand(n, -1)
@@ -161,10 +231,7 @@ class LaplacianGPU(Operator):
             axes, cols = (1, 2, 3), (0, 1, 2)
         else:  # a sequence: a 2-D Laplacian per frame
             axes, cols = (2, 3), (1, 2)
-        if self.spec.GetArgument("normalized_kernel"):
-            scale = 2.0 ** (-(size * len(axes)) + len(axes) + 2)
-        else:
-            scale = float(self.spec.GetArgument("scale")[0])
+        scale = _laplacian_scale(self.spec, size, len(axes))
         img = x.to(torch.float32)
         out = None
         for d_axis in axes:  # the derivative axis; smoothing along the others
@@ -177,9 +244,33 @@ class LaplacianGPU(Operator):
                                             torch.float32 if dt is None else to_torch_type(dt)))]
 
 
+@register_operator("Laplacian", "cpu")
+class LaplacianCPU(_HostConv):
+    """The sum over the axes of the second derivative along it, smoothed
+    along the others, times the scale; float32 unless ``dtype``."""
+
+    def run_volume(self, ctx, idx, img):
+        size = int(self.spec.GetArgument("window_size")[0])
+        deriv, smooth = laplacian_windows(size)
+        out = np.zeros(img.shape, np.float32)
+        for d_axis in range(3):
+            part = img.astype(np.float32)
+            for axis in range(3):
+                part = conv1d_reflect_np(part, deriv if axis == d_axis else smooth, axis)
+            out += part
+        out *= _laplacian_scale(self.spec, size, 3)
+        return _to_dtype(self.spec, out, np.float32)
+
+    def run_2d(self, ctx, idx, img):
+        size = int(self.spec.GetArgument("window_size")[0])
+        deriv, smooth = laplacian_windows(size)
+        out = (native.sep_conv_f32(img, deriv, smooth) + native.sep_conv_f32(img, smooth, deriv))
+        return _to_dtype(self.spec, out * _laplacian_scale(self.spec, size, 2), np.float32)
+
+
 # ======================================== Filter ====================================================
 
-# the gpu placement is in tail.py, as in the reference; the cpu one is item 5h
+# the gpu placement is in tail.py, as in the reference
 DALI_SCHEMA("experimental.Filter").DocStr(
     "General 2D correlation with a per-sample kernel."
 ).NumInput(2, 3).NumOutput(1).Devices("cpu", "gpu").AddOptionalArg(
@@ -190,3 +281,31 @@ DALI_SCHEMA("experimental.Filter").DocStr(
     "mode", ArgType.STRING, '"same" or "valid".', "same"
 ).AddOptionalArg("fill_value", ArgType.FLOAT, "Constant-border fill.", 0.0).AddOptionalArg(
     "dtype", ArgType.DATA_TYPE, "Output dtype.", None)
+
+
+@register_operator("experimental.Filter", "cpu")
+class FilterCPU(SamplePool, Operator):
+    """2-D correlation of each HW(C) sample with its kernel (``cv2.filter2D``'s
+    convention), with the ``border`` (reflect_101, reflect, replicate, wrap or
+    constant with ``fill_value``, or the third input's per-sample value) and
+    the ``anchor``; ``mode="valid"`` keeps the windows wholly inside."""
+
+    def run_sample(self, ctx, idx, img, kernel, *fill):
+        border = self.spec.GetArgument("border")
+        fill_v = (float(np.asarray(fill[0]).reshape(-1)[0]) if fill
+                  else float(self.spec.GetArgument("fill_value")))
+        kernel = np.asarray(kernel, np.float32)
+        anchor = self.spec.GetArgument("anchor", None)
+        ay = ax = -1
+        if anchor is not None:
+            av = np.asarray(anchor, np.int64).reshape(-1)
+            ay, ax = int(av[0]), int(av[-1])
+        if self.spec.GetArgument("mode") == "valid":
+            oh, ow = img.shape[0] - kernel.shape[0] + 1, img.shape[1] - kernel.shape[1] + 1
+            if oh <= 0 or ow <= 0:
+                raise ValueError(f"filter mode='valid': kernel {tuple(kernel.shape)} does not "
+                                 f"fit inside the input {img.shape[:2]}: no valid window exists")
+            out = native.filter2d_f32(img, kernel, border, fill_v, 0, 0)[:oh, :ow]
+        else:
+            out = native.filter2d_f32(img, kernel, border, fill_v, ay, ax)
+        return _to_dtype(self.spec, out, img.dtype)

@@ -1,14 +1,17 @@
-"""experimental.Equalize on the device (counterpart of the gpu op of
+"""experimental.Equalize on the device and the host (counterpart of
 ``dali_tpu/backend/enhance.py``): the PIL-compatible equalization LUT built
-from a histogram per sample and channel, over each sample's valid region."""
+from a histogram per sample and channel, over each sample's valid region on
+the device, over the whole sample (a sequence's frames together) on the
+host."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .._schema import DALI_SCHEMA, register_operator
 from ..batch import DeviceBatch
-from .base import Operator
+from .base import Operator, SamplePool
 
 DALI_SCHEMA("experimental.Equalize").DocStr(
     "Per-channel histogram equalization (PIL-compatible LUT)."
@@ -46,7 +49,8 @@ class EqualizeGPU(Operator):
     def lower(self, dctx, inp: DeviceBatch):
         if inp.data.dim() != 4:
             raise NotImplementedError("experimental.Equalize(gpu) on sequences is not ported "
-                                      "to dali_tpu_torch yet; see ROADMAP.md (Queue 1)")
+                                      "to dali_tpu_torch yet; see ROADMAP.md (Queue 1, item "
+                                      "5h.7)")
         valid = None
         if inp.shapes is not None:
             H, W = inp.data.shape[1:3]
@@ -55,3 +59,24 @@ class EqualizeGPU(Operator):
             valid = ((rows < inp.extent(0)[:, None, None])
                      & (cols < inp.extent(1)[:, None, None]))
         return [inp.with_data(equalize(inp.data, valid))]
+
+
+def equalize_lut_np(channel: np.ndarray) -> np.ndarray:
+    """The LUT of one channel: step = (count - hist[255]) // 255, entry v =
+    (step // 2 + cumsum(hist)[v - 1]) // step clipped to 255; the identity
+    where step is 0."""
+    hist = np.bincount(channel.reshape(-1), minlength=256)
+    step = (hist.sum() - hist[255]) // 255
+    if step == 0:
+        return np.arange(256, dtype=np.uint8)
+    lut = (np.concatenate([[0], np.cumsum(hist)[:-1]]) + step // 2) // step
+    return np.clip(lut, 0, 255).astype(np.uint8)
+
+
+@register_operator("experimental.Equalize", "cpu")
+class EqualizeCPU(SamplePool, Operator):
+    def run_sample(self, ctx, idx, img):
+        out = np.empty_like(img)
+        for c in range(img.shape[-1]):
+            out[..., c] = equalize_lut_np(img[..., c])[img[..., c]]
+        return out

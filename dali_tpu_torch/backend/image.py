@@ -29,7 +29,7 @@ def _not_ported(what: str, item: str = "Queue 1"):
 
 
 # what dali_tpu runs only on the cpu, as the port's Resize(cpu) does
-_CPU_ONLY = "Queue 1 item 5h; dali_tpu runs this on the cpu only"
+_CPU_ONLY = "Queue 1, item 5h.7; dali_tpu runs this on the cpu only"
 
 
 def _fold_frames(inp: DeviceBatch):

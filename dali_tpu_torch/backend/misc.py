@@ -1,16 +1,25 @@
-"""PowerSpectrum (cpu and gpu) and the MultiPaste schema with its region
-resolution (counterpart of those parts of ``dali_tpu/backend/misc.py``;
-MultiPaste's gpu placement is in ``straggler_gpu.py``, as in the reference,
-its cpu placement is ROADMAP.md Queue 1 item 5h)."""
+"""PowerSpectrum (cpu and gpu), MultiPaste on the host with its schema and
+region resolution, and DumpImage (counterpart of those parts of
+``dali_tpu/backend/misc.py``; MultiPaste's gpu placement is in
+``straggler_gpu.py``, as in the reference).
+
+DumpImage writes each HWC (or CHW) sample of 1 or 3 channels as
+``dump_{iteration}_{i}[_{suffix}].png`` in the working directory, through
+the port's own PNG writer (``write_png``, the standard library's zlib; the
+reference calls cv2.imwrite), and passes its input through."""
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
-from ..batch import DeviceBatch
-from .base import Operator
+from ..batch import DeviceBatch, HostBatch
+from ..kernels.host_resample import saturate
+from .base import Operator, raise_unserved
 
 # ====================================== PowerSpectrum ==============================================
 
@@ -108,3 +117,79 @@ def resolve_mp_regions(op, ctx, i, ids, src_hw, out_hw):
     sh = get("shapes", src_hw)
     z = np.zeros((k, 2), np.int64)
     return (ia if ia is not None else z), (oa if oa is not None else z), sh
+
+
+@register_operator("MultiPaste", "cpu")
+class MultiPasteCPU(Operator):
+    """Each output sample a zero canvas of ``output_size`` (default its own
+    input's extent) in the input's type, with its regions pasted in order,
+    each clipped to its source and to the canvas."""
+
+    def __init__(self, spec, op_id):
+        super().__init__(spec, op_id)
+        raise_unserved(spec, ("dtype",))  # the reference's cpu op keeps the input's type
+
+    def run_batch(self, ctx, inp: HostBatch):
+        out = []
+        for i in range(len(inp)):
+            ids = np.asarray(ctx.arg(self, "in_ids", i), np.int64).reshape(-1)
+            osz = ctx.arg(self, "output_size", i, None)
+            ref = inp.samples[i]
+            oh, ow = (int(osz[0]), int(osz[1])) if osz is not None else ref.shape[:2]
+            canvas = np.zeros((oh, ow, ref.shape[2]), ref.dtype)
+            src_hw = [inp.samples[int(s)].shape[:2] for s in ids]
+            in_anchors, out_anchors, shapes = resolve_mp_regions(self, ctx, i, ids, src_hw,
+                                                                 (oh, ow))
+            for j, sid in enumerate(ids):
+                src = inp.samples[int(sid)]
+                rh, rw = shapes[j] if shapes is not None else src.shape[:2]
+                iy, ix = in_anchors[j]
+                oy, ox = out_anchors[j]
+                rh = int(min(rh, src.shape[0] - iy, oh - oy))
+                rw = int(min(rw, src.shape[1] - ix, ow - ox))
+                if rh > 0 and rw > 0:
+                    canvas[oy:oy + rh, ox:ox + rw] = src[iy:iy + rh, ix:ix + rw]
+            out.append(canvas)
+        return [HostBatch(out, layout=inp.layout or "HWC")]
+
+
+# ====================================== DumpImage ==================================================
+
+DALI_SCHEMA("DumpImage").DocStr(
+    "Writes images to disk for debugging; passes its input through."
+).NumInput(1).NumOutput(1).Devices("cpu").AddOptionalArg(
+    "suffix", ArgType.STRING, "Filename suffix.", ""
+).AddOptionalArg("input_layout", ArgType.TENSOR_LAYOUT, "Layout of the input.", "HWC")
+
+
+def write_png(path: str, img: np.ndarray):
+    """A PNG of ``img`` [H, W, 1] (grey) or [H, W, 3] (RGB): 16 bits a sample
+    for uint16, else 8 (other types saturate to uint8, as cv2.imwrite does);
+    every row unfiltered, zlib-compressed."""
+    if img.dtype != np.uint16:
+        img = saturate(img, np.uint8)
+    h, w, c = img.shape
+    rows = np.ascontiguousarray(img).astype(img.dtype.newbyteorder(">")).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows.view(np.uint8)], 1).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    hdr = struct.pack(">IIBBBBB", w, h, img.dtype.itemsize * 8, 0 if c == 1 else 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", hdr)
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+@register_operator("DumpImage", "cpu")
+class DumpImageCPU(Operator):
+    def run_batch(self, ctx, inp: HostBatch):
+        suffix = self.spec.GetArgument("suffix")
+        layout = inp.layout or self.spec.GetArgument("input_layout")
+        for i, s in enumerate(inp.samples):
+            if layout == "CHW" and s.ndim == 3:
+                s = np.transpose(s, (1, 2, 0))
+            if s.ndim == 3 and s.shape[-1] in (1, 3):
+                write_png(f"dump_{ctx.iteration}_{i}{('_' + suffix) if suffix else ''}.png", s)
+        return [inp]

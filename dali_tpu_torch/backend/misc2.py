@@ -1,6 +1,7 @@
-"""experimental.Remap on the device (counterpart of that operator of
-``dali_tpu/backend/misc2.py``; its cpu placement, which calls cv2 in the
-reference, is ROADMAP.md Queue 1 item 5h).
+"""experimental.Remap on the device and the host (counterpart of that operator
+of ``dali_tpu/backend/misc2.py``). The host placement, where the reference
+calls cv2.remap (a constant border of 0, the maps taken as "center"
+coordinates), runs the port's C++ (``native.remap``, equal to cv2 5.0).
 
 out(x, y) = in(mapx(x, y), mapy(x, y)), bilinear or nearest, over the padded
 canvas with a fill of 0 outside it. ``pixel_origin="corner"`` (the default)
@@ -11,12 +12,14 @@ lowering gathers every map as ``"center"`` (ROADMAP.md Queue 3).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import native
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch
 from ..types import DALIInterpType
-from .base import Operator
+from .base import Operator, SamplePool, raise_unserved
 from .distortion import bilinear_gather
 from .random import saturate
 
@@ -47,3 +50,19 @@ class RemapGPU(Operator):
         ew = torch.full((n,), W, dtype=torch.int32, device=img.device)
         out = bilinear_gather(img, mx, my, 0.0, eh, ew)
         return [DeviceBatch(saturate(out, img.dtype), None, img_b.layout)]
+
+
+@register_operator("experimental.Remap", "cpu")
+class RemapCPU(SamplePool, Operator):
+    """As cv2.remap returns it: one channel comes out [H, W]."""
+
+    def __init__(self, spec, op_id):
+        super().__init__(spec, op_id)
+        raise_unserved(spec, ("pixel_origin",))  # the reference's cpu op reads none
+
+    def run_sample(self, ctx, idx, img, mapx, mapy):
+        mx, my = (np.asarray(m, np.float32) for m in (mapx, mapy))
+        mx, my = (m[..., 0] if m.ndim == 3 and m.shape[-1] == 1 else m for m in (mx, my))
+        out = native.remap(img if img.ndim == 3 else img[:, :, None], mx, my,
+                           self.spec.GetArgument("interp") == DALIInterpType.INTERP_NN)
+        return out[:, :, 0] if out.shape[2] == 1 else out

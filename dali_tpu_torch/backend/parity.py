@@ -1,9 +1,11 @@
 """Legacy and experimental operator names, where the names not ported yet
-stand in ROADMAP.md, and the experimental.WarpPerspective and TensorResize
-schemas with WarpPerspective's gpu placement (counterpart of
+stand in ROADMAP.md, experimental.WarpPerspective (cpu and gpu) and
+TensorResize's schema and cpu placement (counterpart of
 ``dali_tpu/backend/parity.py`` ``_LEGACY``, ``register_aliases`` and those
-operators; their cpu placements call cv2 in the reference and are ROADMAP.md
-Queue 1 item 5h).
+operators). The cpu WarpPerspective, where the reference calls
+cv2.warpPerspective, runs the port's C++ (``native.warp_perspective``, equal
+to cv2 5.0); the cpu TensorResize zooms with scipy.ndimage, as the
+reference does.
 
 An alias shares its target's schema and is registered on each device the
 port implements the target on (``CoinFlip`` on the cpu, not on the gpu); a
@@ -20,8 +22,11 @@ from .._schema import DALI_SCHEMA, ArgType, _alias_targets, _impl_registry, _reg
     register_operator
 from ..batch import DeviceBatch
 from ..kernels import warp as warp_kernel
-from ..types import DALIInterpType
-from .base import Operator
+from .. import native
+from ..kernels.host_resample import saturate
+from ..types import DALIInterpType, to_numpy_type
+from .base import Operator, SamplePool, raise_unserved
+from .generic2 import _crop_round
 
 _LEGACY = {
     "Clahe": "experimental.Clahe",
@@ -61,18 +66,8 @@ _LEGACY = {
 # The ROADMAP.md Queue 1 item of each dali_tpu operator the port lacks.
 _VIDEO = ("decoders.Video", "experimental.decoders.Video", "experimental.inputs.Video",
           "readers.Video", "readers.VideoResize", "VideoReaderResize", "OpticalFlow")
-QUEUE_ITEMS = {
-    **{n: "item 8" for n in _VIDEO},
-    "DumpImage": "item 5h",
-}
+QUEUE_ITEMS = {n: "item 8" for n in _VIDEO}
 QUEUE_ITEMS.update({a: QUEUE_ITEMS[t] for a, t in _LEGACY.items() if t in QUEUE_ITEMS})
-
-
-def device_item(schema_name: str, device: str):
-    """The ROADMAP.md Queue 1 item of a (schema, device) the port lacks: the
-    cpu placements not ported yet are item 5h."""
-    item = QUEUE_ITEMS.get(schema_name)
-    return item or ("item 5h" if device == "cpu" else None)
 
 
 # The one deliberate renaming: the reference's gpu _JaxFunction traces a JAX
@@ -156,6 +151,31 @@ class WarpPerspectiveGPU(Operator):
         return [DeviceBatch(out, shapes, inp.layout or "HWC")]
 
 
+@register_operator("experimental.WarpPerspective", "cpu")
+class WarpPerspectiveCPU(SamplePool, Operator):
+    """Each HW(C) sample through its matrix (the second input, or the
+    ``matrix`` argument; inverted in float32 with ``inverse_map=False``,
+    conjugated by the half-pixel shift with ``pixel_origin="corner"``)."""
+
+    def run_sample(self, ctx, idx, img, *mtx_in):
+        spec = self.spec
+        m = np.asarray(mtx_in[0] if mtx_in else ctx.arg(self, "matrix", idx), np.float32)
+        m = m.reshape(3, 3)
+        if not spec.GetArgument("inverse_map"):
+            m = np.linalg.inv(m).astype(np.float32)
+        if spec.GetArgument("pixel_origin") == "corner":
+            to_corner = np.asarray([[1, 0, 0.5], [0, 1, 0.5], [0, 0, 1]], m.dtype)
+            to_center = np.asarray([[1, 0, -0.5], [0, 1, -0.5], [0, 0, 1]], m.dtype)
+            m = to_center @ m @ to_corner
+        size = spec.GetArgument("size", None)
+        out_h, out_w = (int(size[0]), int(size[1])) if size else img.shape[:2]
+        src = img if img.ndim == 3 else img[:, :, None]
+        out = native.warp_perspective(
+            src, m, out_h, out_w, spec.GetArgument("interp_type") == DALIInterpType.INTERP_NN,
+            spec.GetArgument("border_mode") == "replicate", spec.GetArgument("fill_value"))
+        return out if img.ndim == 3 else out[:, :, 0]
+
+
 # ====================================== TensorResize ==============================================
 
 # the gpu placement is in straggler_gpu.py, as in the reference
@@ -195,6 +215,88 @@ DALI_SCHEMA("TensorResize").DocStr(
     "minibatch_size", ArgType.INT, "Batching hint; accepted for compatibility.", 32
 ).AddOptionalArg(
     "temp_buffer_hint", ArgType.INT, "Scratch-size hint; accepted for compatibility.", 0)
+
+
+_SIZE_ROUNDING = {"round": lambda v: _crop_round(v, "round"), "truncate": int,
+                  "ceil": lambda v: int(-(-v // 1))}
+
+
+@register_operator("TensorResize", "cpu")
+class TensorResizeCPU(SamplePool, Operator):
+    """``scipy.ndimage.zoom`` of each sample in float32 (order 0 nearest,
+    else 1; ``grid_mode=True``, the edge replicated) over the axes given by
+    ``axes`` or ``axis_names`` (default all), to ``sizes`` (rounded by
+    ``size_rounding``, fitted by ``mode``) or by ``scales``, optionally of
+    the ROI first; integer inputs round half to even and saturate unless
+    ``dtype`` (a plain cast) is given."""
+
+    def __init__(self, spec, op_id):
+        super().__init__(spec, op_id)
+        # the reference's cpu op never reads them
+        raise_unserved(spec, ("antialias", "subpixel_scale", "mag_filter", "min_filter"))
+
+    def run_batch(self, ctx, inp):
+        self._in_layout = inp.layout or ""
+        return super().run_batch(ctx, inp)
+
+    def run_sample(self, ctx, idx, x):
+        from scipy import ndimage
+
+        spec = self.spec
+        axes = spec.GetArgument("axes", None)
+        nd = x.ndim
+        names = spec.GetArgument("axis_names", None)
+        if names and not axes:
+            if not self._in_layout:
+                raise ValueError("TensorResize axis_names requires a layout on the input")
+            axes = [self._in_layout.index(ch) for ch in names]
+        if not axes:
+            axes = list(range(nd))
+        rs, re_ = ctx.arg(self, "roi_start", idx, None), ctx.arg(self, "roi_end", idx, None)
+        if rs is not None or re_ is not None:
+            rel = spec.GetArgument("roi_relative")
+            exts = [x.shape[a] for a in axes]
+            s0 = np.asarray(rs if rs is not None else [0.0] * len(axes), np.float64).reshape(-1)
+            e0 = np.asarray(re_ if re_ is not None else ([1.0] * len(axes) if rel else exts),
+                            np.float64).reshape(-1)
+            if rel:
+                s0, e0 = s0 * exts, e0 * exts
+            sl = [slice(None)] * nd
+            for k, a in enumerate(axes):
+                sl[a] = slice(int(round(s0[k])), max(int(round(e0[k])), int(round(s0[k])) + 1))
+            x = x[tuple(sl)]
+        rounding = _SIZE_ROUNDING[spec.GetArgument("size_rounding")]
+        sizes, scales = ctx.arg(self, "sizes", idx, None), ctx.arg(self, "scales", idx, None)
+        zoom = [1.0] * nd
+        for nm, v in (("sizes", sizes), ("scales", scales)):
+            if v is not None and np.asarray(v).reshape(-1).size != len(axes):
+                raise ValueError(
+                    f"TensorResize: `{nm}` has {np.asarray(v).reshape(-1).size} entries but "
+                    f"{len(axes)} axes are being resized (pass `axes`/`axis_names`, or one "
+                    "entry per input dim)")
+        if sizes is not None:
+            sizes = np.asarray(sizes, np.float64).reshape(-1)
+            mode = spec.GetArgument("mode")
+            if mode in ("not_larger", "not_smaller") and sizes.size:
+                ratios = [float(sizes[k]) / x.shape[a] for k, a in enumerate(axes)]
+                r = min(ratios) if mode == "not_larger" else max(ratios)
+                sizes = np.asarray([rounding(x.shape[a] * r) for a in axes], np.float64)
+            for k, a in enumerate(axes):
+                zoom[a] = float(rounding(sizes[k])) / x.shape[a]
+        elif scales is not None:
+            for k, a in enumerate(axes):
+                zoom[a] = float(np.asarray(scales, np.float64).reshape(-1)[k])
+        else:
+            raise ValueError("TensorResize requires `sizes` or `scales`")
+        order = 0 if spec.GetArgument("interp_type") == DALIInterpType.INTERP_NN else 1
+        out = ndimage.zoom(x.astype(np.float32), zoom, order=order, grid_mode=True,
+                           mode="nearest")
+        dt = spec.GetArgument("dtype", None)
+        if dt is not None:
+            out = out.astype(to_numpy_type(dt))
+        elif np.issubdtype(x.dtype, np.integer):
+            out = saturate(out, x.dtype)
+        return np.ascontiguousarray(out)
 
 
 def register_aliases():

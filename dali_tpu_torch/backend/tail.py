@@ -1,11 +1,13 @@
 """noise.SaltAndPepper (cpu and gpu), noise.Shot on the host, SSDRandomCrop on
-the host, Reinterpret, ResizeCropMirror and FastResizeCropMirror on the
-device, and experimental.Filter on the device (counterpart of those
-operators of ``dali_tpu/backend/tail.py``; the reference's readers.NemoAsr
-is in ``readers3.py``, and the cpu placements of the resize and filter ops
-are ROADMAP.md Queue 1 item 5h). The host noise draws one Philox stream per
-(op, iteration, sample), as the reference does; the device noise draws from
-``DeviceCtx.generator``."""
+the host, Reinterpret, ResizeCropMirror and FastResizeCropMirror (cpu and
+gpu), and experimental.Filter on the device (counterpart of those operators
+of ``dali_tpu/backend/tail.py``; the reference's readers.NemoAsr is in
+``readers3.py``, and the cpu Filter is in ``convolution.py``, as in the
+reference). The host noise draws one Philox stream per (op, iteration,
+sample), as the reference does; the device noise draws from
+``DeviceCtx.generator``. The host resize-crop-mirror is one resample of each
+sample over the crop window mapped back through its resize scale
+(``kernels/host_resample.py``), then the mirror."""
 
 from __future__ import annotations
 
@@ -15,8 +17,9 @@ import torch
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
 from ..kernels import resample as resample_kernel
+from ..kernels.host_resample import host_resample
 from ..types import DALIInterpType, to_numpy_type, to_torch_type
-from .base import Operator, raise_unserved
+from .base import Operator, SamplePool, raise_unserved
 from .bbox import _iou
 from .generic2 import _crop_round
 from .image import _pick_filter, compute_resize_size
@@ -304,6 +307,66 @@ def _resize_crop_mirror_schema(name):
 
 _resize_crop_mirror_schema("ResizeCropMirror")
 _resize_crop_mirror_schema("FastResizeCropMirror")
+
+
+class _RCMCPU(SamplePool, Operator):
+    def __init__(self, spec, op_id):
+        super().__init__(spec, op_id)
+        # the reference's cpu op never reads them
+        raise_unserved(spec, ("crop_d", "crop_pos_z", "resize_z", "subpixel_scale"))
+
+    def run_sample(self, ctx, idx, img):
+        spec = self.spec
+        h, w = img.shape[:2]
+        iy0 = ix0 = 0.0
+        rs, re_ = ctx.arg(self, "roi_start", idx, None), ctx.arg(self, "roi_end", idx, None)
+        if rs is not None or re_ is not None:
+            rel = spec.GetArgument("roi_relative")
+            s0 = np.asarray(rs if rs is not None else ([0.0, 0.0] if rel else [0, 0]), np.float64)
+            e0 = np.asarray(re_ if re_ is not None else ([1.0, 1.0] if rel else [h, w]),
+                            np.float64)
+            if rel:
+                s0, e0 = s0 * [h, w], e0 * [h, w]
+            iy0, ix0 = float(s0[0]), float(s0[1])
+            h = max(int(round(e0[0])) - int(round(s0[0])), 1)
+            w = max(int(round(e0[1])) - int(round(s0[1])), 1)
+        out_h, out_w = compute_resize_size(h, w, spec, lambda n, d=None: ctx.arg(self, n, idx, d))
+        crop = spec.GetArgument("crop", None)
+        if not crop:
+            ch_ = int(np.asarray(ctx.arg(self, "crop_h", idx, 0.0)) or 0)
+            cw_ = int(np.asarray(ctx.arg(self, "crop_w", idx, 0.0)) or 0)
+            if ch_ and cw_:
+                crop = [ch_, cw_]
+        if crop:
+            ch, cw = int(crop[0]), int(crop[1])
+            py = float(np.asarray(ctx.arg(self, "crop_pos_y", idx, 0.5)))
+            px = float(np.asarray(ctx.arg(self, "crop_pos_x", idx, 0.5)))
+            rnd = spec.GetArgument("rounding")
+            y = max(_crop_round(py * (out_h - ch), rnd), 0)
+            x = max(_crop_round(px * (out_w - cw), rnd), 0)
+            sy, sx = h / out_h, w / out_w
+            roi_start, roi_size = (iy0 + y * sy, ix0 + x * sx), (ch * sy, cw * sx)
+            to_h, to_w = ch, cw
+        else:
+            roi_start, roi_size = (iy0, ix0), (float(h), float(w))
+            to_h, to_w = out_h, out_w
+        dt = spec.GetArgument("dtype", None)
+        out = host_resample(img, to_h, to_w, _pick_filter(spec, out_h < h or out_w < w),
+                            spec.GetArgument("antialias"), roi_start, roi_size,
+                            out_dtype=to_numpy_type(dt) if dt is not None else None)
+        if out.ndim == 2:
+            out = out[:, :, None]
+        if int(np.asarray(ctx.arg(self, "mirror", idx, 0))):
+            out = out[:, ::-1]
+        return np.ascontiguousarray(out)
+
+    def output_layout(self, j, inputs):
+        return "HWC"
+
+
+register_operator("ResizeCropMirror", "cpu")(type("ResizeCropMirrorCPU", (_RCMCPU,), {}))
+register_operator("FastResizeCropMirror", "cpu")(
+    type("FastResizeCropMirrorCPU", (_RCMCPU,), {}))
 
 
 class _RCMGPU(Operator):

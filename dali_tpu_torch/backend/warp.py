@@ -28,7 +28,7 @@ from .base import Operator
 
 def _not_ported(what):
     return NotImplementedError(f"{what} is not ported to dali_tpu_torch yet; see ROADMAP.md "
-                               "(Queue 1)")
+                               "(Queue 1, item 5h.7)")
 
 
 DALI_SCHEMA("WarpAffine").DocStr(

@@ -568,21 +568,26 @@ int dali_tpu_torch_jpeg_scaled_dims(const char* data, size_t len, int denom, int
 int dali_tpu_torch_decode_jpeg_into(const char* data, size_t len, int denom, unsigned char* dst,
                                     long dst_stride, int expect_h, int expect_w, int fancy,
                                     int gray) {
-  using dali_tpu_torch::kCMYK;
-  using dali_tpu_torch::kGray;
-  using dali_tpu_torch::kRGB;
-  using dali_tpu_torch::kYCbCr;
-  using dali_tpu_torch::kYCCK;
   if (denom != 1 && denom != 2 && denom != 4 && denom != 8) return -3;
   // per-thread scratch, reused across the images a pool worker decodes
   thread_local JpegFull f;
-  thread_local Plane planes[4];
-  thread_local std::vector<short> smoothed[4];
-  thread_local std::vector<uint8_t> rows;
   int rc = dali_tpu_torch::jpeg_read_full(reinterpret_cast<const uint8_t*>(data), len, &f);
   if (rc != 0) return rc;
   const int oh = (f.H + denom - 1) / denom, ow = (f.W + denom - 1) / denom;
   if (oh != expect_h || ow != expect_w) return -2;
+  return dali_tpu_torch::jpeg_decode_pixels(f, denom, dst, dst_stride, fancy, gray);
+}
+
+}  // extern "C"
+
+namespace dali_tpu_torch {
+
+int jpeg_decode_pixels(const JpegFull& f, int denom, unsigned char* dst, long dst_stride,
+                       int fancy, int gray) {
+  thread_local Plane planes[4];
+  thread_local std::vector<short> smoothed[4];
+  thread_local std::vector<uint8_t> rows;
+  const int oh = (f.H + denom - 1) / denom, ow = (f.W + denom - 1) / denom;
   const bool cv2_route = f.color == kCMYK || f.color == kYCCK;
   if (!cv2_route && f.color != kGray && f.color != kYCbCr && f.color != kRGB) return -1;
   // OpenCV's data source suspends at the end of the data, and cv2 fails
@@ -662,7 +667,7 @@ int dali_tpu_torch_decode_jpeg_into(const char* data, size_t len, int denom, uns
   return cv2_route ? 2 : 0;
 }
 
-}  // extern "C"
+}  // namespace dali_tpu_torch
 
 // ---------------------------------------------------------------------------
 // Batch decode on the tasking pool: one call per batch, each sample decoded

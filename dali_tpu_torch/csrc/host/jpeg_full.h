@@ -62,4 +62,11 @@ int jpeg_read_full(const uint8_t* data, size_t len, JpegFull* out);
 // return codes.
 int jpeg_read_header(const uint8_t* data, size_t len, JpegFull* out);
 
+// The pixels of f's coefficients at 1/denom scale (jpeg_decode.cc), into a
+// strided destination of ceil(H/denom) x ceil(W/denom) pixels: RGB, or one
+// byte a pixel with gray. Returns 0 for libjpeg's output, 2 for the cv2
+// route (CMYK and YCCK), -1 where libjpeg or cv2 fails.
+int jpeg_decode_pixels(const JpegFull& f, int denom, unsigned char* dst, long dst_stride,
+                       int fancy, int gray);
+
 }  // namespace dali_tpu_torch

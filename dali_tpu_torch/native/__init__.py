@@ -15,8 +15,15 @@
 * ``png_decode`` and ``bmp_shape`` / ``decode_bmp`` — the PNG and BMP pixel
   stages (``csrc/host/png_decode.cc``, ``bmp_decode.cc``), uint8/uint16
   equal to ``cv2.imdecode``.
-* ``warp_affine`` — one HWC image through an inverse affine map
-  (``csrc/host/warp_affine.cc``), equal to ``cv2.warpAffine``.
+* ``warp_affine``, ``warp_perspective`` and ``remap`` — one HWC image
+  through an inverse affine map, a homography or two coordinate maps
+  (``csrc/host/warp_affine.cc``), equal to ``cv2.warpAffine``,
+  ``cv2.warpPerspective`` and ``cv2.remap``.
+* ``median_blur_u8``, ``morph_u8``, ``clahe_f32``, ``sep_conv_f32``,
+  ``filter2d_f32``, ``debayer_bilinear`` and ``debayer_edge_aware`` — the
+  image filters of ``csrc/host/host_ops.cc``.
+* ``jpeg_encode_coefs`` / ``jpeg_roundtrip`` — the JPEG encoder's front half
+  (``csrc/host/jpeg_encode.cc``) and the round trip through the decoder.
 """
 
 from __future__ import annotations
@@ -85,6 +92,11 @@ def host_lib():
             lib.dali_tpu_torch_warp_affine.restype = ci
             lib.dali_tpu_torch_warp_affine.argtypes = [vp, ci, ci, ci, ci, vp, ci, ci, vp, ci,
                                                        ctypes.c_double]
+            for name in ("dali_tpu_torch_warp_perspective", "dali_tpu_torch_remap"):
+                f = getattr(lib, name)
+                f.restype = ci
+                f.argtypes = [vp, ci, ci, ci, ci, vp, ci, ci] + [vp] * (
+                    2 if name.endswith("remap") else 1) + [ci, ci, ctypes.c_double]
             _LIB = lib
     return _LIB
 
@@ -562,4 +574,203 @@ def warp_affine(img: np.ndarray, matrix, out_h: int, out_w: int, nearest: bool,
             m.ctypes.data, int(bool(nearest)), float(fill)) != 0:
         raise ValueError(f"warp_affine: {'nearest' if nearest else 'linear'} interpolation of "
                          f"{img.dtype} images is not supported (as in cv2.warpAffine)")
+    return out
+
+
+def _warp_call(name, img, out_h, out_w, extra, nearest, replicate, fill):
+    code = _WARP_DTYPES.get(img.dtype)
+    src = np.ascontiguousarray(img)
+    h, w, c = src.shape
+    out = np.empty((int(out_h), int(out_w), c), src.dtype)
+    if code is None or getattr(host_lib(), name)(
+            src.ctypes.data, h, w, c, code, out.ctypes.data, out.shape[0], out.shape[1],
+            *[a.ctypes.data for a in extra], int(bool(nearest)), int(bool(replicate)),
+            float(fill)) != 0:
+        raise ValueError(f"{name[15:]}: {'nearest' if nearest else 'linear'} interpolation of "
+                         f"{img.dtype} images is not supported (as in OpenCV)")
+    return out
+
+
+def warp_perspective(img: np.ndarray, matrix, out_h: int, out_w: int, nearest: bool,
+                     replicate: bool, fill: float) -> np.ndarray:
+    """``img`` [H, W, C] through the 3x3 destination -> source ``matrix`` to
+    [out_h, out_w, C]: ``cv2.warpPerspective(img, matrix, (out_w, out_h),
+    flags=INTER_NEAREST or INTER_LINEAR | WARP_INVERSE_MAP,
+    borderMode=BORDER_REPLICATE or BORDER_CONSTANT, borderValue=(fill,) * 4)``
+    (``warp_affine.cc``)."""
+    m = np.ascontiguousarray(np.asarray(matrix, np.float64).reshape(3, 3))
+    return _warp_call("dali_tpu_torch_warp_perspective", img, out_h, out_w, [m], nearest,
+                      replicate, fill)
+
+
+def remap(img: np.ndarray, mapx: np.ndarray, mapy: np.ndarray, nearest: bool,
+          replicate: bool = False, fill: float = 0.0) -> np.ndarray:
+    """``img`` [H, W, C] sampled at (``mapx``, ``mapy``) [oh, ow] (float32
+    source coordinates): ``cv2.remap(img, mapx, mapy, INTER_NEAREST or
+    INTER_LINEAR)`` with a constant (or replicate) border (``warp_affine.cc``)."""
+    mx = np.ascontiguousarray(mapx, np.float32)
+    my = np.ascontiguousarray(mapy, np.float32)
+    if mx.ndim != 2 or mx.shape != my.shape:
+        raise ValueError(f"remap: maps must be two [H, W] arrays of one shape, got "
+                         f"{mx.shape} and {my.shape}")
+    return _warp_call("dali_tpu_torch_remap", img, mx.shape[0], mx.shape[1], [mx, my], nearest,
+                      replicate, fill)
+
+
+# ------------------------------------------------------------------ image filters
+def _fn(name, argtypes):
+    """A host library entry with its argument types (set once)."""
+    f = getattr(host_lib(), name)
+    if f.argtypes is None:
+        f.restype = ctypes.c_int
+        f.argtypes = argtypes
+    return f
+
+
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _hwc(img, dtype):
+    """(contiguous array, h, w, c) of an HW or HWC image."""
+    img = np.ascontiguousarray(img, dtype)
+    return img, img.shape[0], img.shape[1], img.shape[2] if img.ndim == 3 else 1
+
+
+def median_blur_u8(img: np.ndarray, k: int) -> np.ndarray:
+    """Median of the k x k window, replicate border (``host_ops.cc``, Huang's
+    sliding histogram; ``cv2.medianBlur`` for uint8)."""
+    img, h, w, c = _hwc(img, np.uint8)
+    out = np.empty_like(img)
+    if _fn("dali_tpu_torch_median_blur_u8", [_vp, _ci, _ci, _ci, _ci, _vp])(
+            img.ctypes.data, h, w, c, int(k), out.ctypes.data) != 0:
+        raise ValueError(f"median_blur_u8: bad window {k}")
+    return out
+
+
+def morph_u8(img: np.ndarray, mh: int, mw: int, anchor_y: int, anchor_x: int,
+             iterations: int, dilate: bool, replicate: bool) -> np.ndarray:
+    """Erode or dilate with a full-ones mh x mw element, ``iterations`` times
+    (``host_ops.cc``, separable min/max)."""
+    img, h, w, c = _hwc(img, np.uint8)
+    out = np.empty_like(img)
+    if _fn("dali_tpu_torch_morph_u8", [_vp] + [_ci] * 10 + [_vp])(
+            img.ctypes.data, h, w, c, int(mh), int(mw), int(anchor_y), int(anchor_x),
+            int(iterations), int(bool(dilate)), int(bool(replicate)), out.ctypes.data) != 0:
+        raise ValueError("morph_u8: bad parameters")
+    return out
+
+
+def clahe_f32(plane: np.ndarray, clip: float, tiles_x: int, tiles_y: int,
+              bins: int) -> np.ndarray:
+    """CLAHE of one float32 plane in [0, 255] (``host_ops.cc``)."""
+    plane = np.ascontiguousarray(plane, np.float32)
+    out = np.empty_like(plane)
+    if _fn("dali_tpu_torch_clahe_f32", [_vp, _ci, _ci, _cf, _ci, _ci, _ci, _vp])(
+            plane.ctypes.data, plane.shape[0], plane.shape[1], float(clip), int(tiles_x),
+            int(tiles_y), int(bins), out.ctypes.data) != 0:
+        raise ValueError("clahe_f32: bins must be a power of 2")
+    return out
+
+
+BORDER_CODES = {"reflect_101": 0, "reflect": 1, "replicate": 2, "wrap": 3, "constant": 4}
+
+
+def sep_conv_f32(img: np.ndarray, ky: np.ndarray, kx: np.ndarray, border: str = "reflect_101",
+                 fill: float = 0.0, anchor_y: int = -1, anchor_x: int = -1) -> np.ndarray:
+    """Separable correlation of an HW(C) image, window ``ky`` down the rows
+    and then ``kx`` along them, float32 (``host_ops.cc``)."""
+    img, h, w, c = _hwc(img, np.float32)
+    ky = np.ascontiguousarray(ky, np.float32).reshape(-1)
+    kx = np.ascontiguousarray(kx, np.float32).reshape(-1)
+    out = np.empty_like(img)
+    if _fn("dali_tpu_torch_sep_conv_f32",
+           [_vp, _ci, _ci, _ci, _vp, _ci, _vp, _ci, _ci, _ci, _ci, _cf, _vp])(
+            img.ctypes.data, h, w, c, ky.ctypes.data, ky.size, kx.ctypes.data, kx.size,
+            int(anchor_y), int(anchor_x), BORDER_CODES[border], float(fill),
+            out.ctypes.data) != 0:
+        raise ValueError("sep_conv_f32: bad window or anchor")
+    return out
+
+
+def filter2d_f32(img: np.ndarray, kernel: np.ndarray, border: str = "reflect_101",
+                 fill: float = 0.0, anchor_y: int = -1, anchor_x: int = -1) -> np.ndarray:
+    """2-D correlation of an HW(C) image with ``kernel`` [kh, kw]
+    (``cv2.filter2D``'s convention), float32 (``host_ops.cc``)."""
+    img, h, w, c = _hwc(img, np.float32)
+    kernel = np.ascontiguousarray(kernel, np.float32)
+    if kernel.ndim != 2:
+        raise ValueError("filter2d_f32: kernel must be 2-D")
+    out = np.empty_like(img)
+    if _fn("dali_tpu_torch_filter2d_f32",
+           [_vp, _ci, _ci, _ci, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _vp])(
+            img.ctypes.data, h, w, c, kernel.ctypes.data, kernel.shape[0], kernel.shape[1],
+            int(anchor_y), int(anchor_x), BORDER_CODES[border], float(fill),
+            out.ctypes.data) != 0:
+        raise ValueError("filter2d_f32: bad kernel or anchor")
+    return out
+
+
+def debayer_bilinear(raw: np.ndarray, by: int, bx: int) -> np.ndarray:
+    """Bilinear Bayer -> RGB of a uint8 or uint16 [H, W] mosaic with blue at
+    (by, bx) of each 2x2 tile (``host_ops.cc``)."""
+    names = {np.dtype(np.uint8): "dali_tpu_torch_debayer_bilinear_u8",
+             np.dtype(np.uint16): "dali_tpu_torch_debayer_bilinear_u16"}
+    if raw.dtype not in names:
+        raise TypeError(f"debayer_bilinear: unsupported dtype {raw.dtype}")
+    raw = np.ascontiguousarray(raw)
+    h, w = raw.shape[:2]
+    out = np.empty((h, w, 3), raw.dtype)
+    if _fn(names[raw.dtype], [_vp, _ci, _ci, _ci, _ci, _vp])(
+            raw.ctypes.data, h, w, int(by), int(bx), out.ctypes.data) != 0:
+        raise ValueError("debayer_bilinear: bad size or blue_position")
+    return out
+
+
+# ------------------------------------------------------------------ JPEG round trip
+def jpeg_encode_coefs(img: np.ndarray, quality: int):
+    """The quantised coefficients of a uint8 HWC image (1 grey or 3 RGB
+    channels) at ``quality``, as ``cv2.imencode(".jpg")`` writes them
+    (``jpeg_encode.cc``): (planes, tables), one int16 [bh, bw, 64] plane
+    (natural order) and one uint16 [64] table per component; luma blocks
+    ceil(h / 8) x ceil(w / 8), chroma ceil(h / 16) x ceil(w / 16)."""
+    img, h, w, c = _hwc(img, np.uint8)
+    dims = [(-(-h // 8), -(-w // 8))] + [(-(-h // 16), -(-w // 16))] * (2 if c == 3 else 0)
+    planes = [np.zeros((bh, bw, 64), np.int16) for bh, bw in dims]
+    tables = [np.zeros(64, np.uint16) for _ in dims]
+    if _fn("dali_tpu_torch_jpeg_encode_coefs", [_vp, _ci, _ci, _ci, _ci, _vp, _vp])(
+            img.ctypes.data, h, w, c, int(quality),
+            (ctypes.c_void_p * 3)(*[p.ctypes.data for p in planes]),
+            (ctypes.c_void_p * 3)(*[t.ctypes.data for t in tables])) != 0:
+        raise ValueError(f"jpeg_encode_coefs: {c} channels (1 or 3 are encoded)")
+    return planes, tables
+
+
+def jpeg_roundtrip(img: np.ndarray, quality: int) -> np.ndarray:
+    """A uint8 HWC image (1 grey or 3 RGB channels) encoded as a baseline
+    4:2:0 JPEG at ``quality`` and decoded to RGB uint8 [h, w, 3]: the pixels
+    of ``cv2.imdecode(cv2.imencode(".jpg", ...))`` (``jpeg_encode.cc``, then
+    the decoder of ``jpeg_decode.cc``)."""
+    img, h, w, c = _hwc(img, np.uint8)
+    out = np.empty((h, w, 3), np.uint8)
+    if _fn("dali_tpu_torch_jpeg_roundtrip", [_vp, _ci, _ci, _ci, _ci, _vp])(
+            img.ctypes.data, h, w, c, int(quality), out.ctypes.data) != 0:
+        raise ValueError(f"jpeg_roundtrip: {c} channels (1 or 3 are encoded)")
+    return out
+
+
+def debayer_edge_aware(raw: np.ndarray, start_with_green: int, blue: int) -> np.ndarray:
+    """Edge-aware Bayer demosaic of a uint8 or uint16 [H, W] mosaic
+    (``host_ops.cc``, OpenCV's ``Bayer2RGB_EdgeAware_T``): [H, W, 3] in
+    OpenCV's channel order for the pattern that starts each odd row with
+    green (``start_with_green``) and has ``blue`` in the second column of it."""
+    names = {np.dtype(np.uint8): "dali_tpu_torch_debayer_ea_u8",
+             np.dtype(np.uint16): "dali_tpu_torch_debayer_ea_u16"}
+    if raw.dtype not in names:
+        raise TypeError(f"debayer_edge_aware: unsupported dtype {raw.dtype}")
+    raw = np.ascontiguousarray(raw)
+    h, w = raw.shape[:2]
+    out = np.empty((h, w, 3), raw.dtype)
+    if _fn(names[raw.dtype], [_vp, _ci, _ci, _ci, _ci, _vp])(
+            raw.ctypes.data, h, w, int(start_with_green), int(blue), out.ctypes.data) != 0:
+        raise ValueError("debayer_edge_aware: bad size")
     return out

@@ -5,8 +5,12 @@
   int8 and int16 coefficient stores), the wire packer (``sparse_pack.cc``),
   the task pool (``tasking.cc``), the pixel decoders (``jpeg_decode.cc``,
   ``png_decode.cc``, ``bmp_decode.cc``) and the batch entries
-  ``coef_{pack,dense,full}_batch.cc``. g++ with
-  ``-march=native``: compiled on the machine that runs it, never shipped.
+  ``coef_{pack,dense,full}_batch.cc``, the affine, perspective and remap
+  warps (``warp_affine.cc``), the JPEG encoder's front half
+  (``jpeg_encode.cc``) and the image filters (``host_ops.cc``, compiled into
+  an object of its own with floating-point contraction on, as ``dali_tpu``
+  compiles its copy). g++ with ``-march=native``: compiled on the machine
+  that runs it, never shipped.
 * ``build/libdali_tpu_torch_kernels.so`` — the CUDA kernels (``csrc/*.cu``),
   nvcc for ``sm_90a``, a plain C interface loaded with ctypes.
 
@@ -38,7 +42,10 @@ _HOST_SRC = os.path.join(_PKG, "csrc", "host")
 HOST_SOURCES = [os.path.join(_HOST_SRC, f) for f in (
     "jpeg_huff.cc", "sparse_pack.cc", "tasking.cc", "coef_pack_batch.cc",
     "coef_dense_batch.cc", "coef_full_batch.cc", "jpeg_decode.cc", "png_decode.cc",
-    "bmp_decode.cc", "warp_affine.cc")]
+    "bmp_decode.cc", "warp_affine.cc", "jpeg_encode.cc")]
+# compiled with dali_tpu's own flags (contraction on): its float filters sum
+# into the fused multiply-adds of the reference's library
+HOST_CONTRACT_SOURCES = [os.path.join(_HOST_SRC, "host_ops.cc")]
 # headers the host sources include: hashed into the stamp, not compiled
 HOST_HEADERS = [os.path.join(_HOST_SRC, "jpeg_full.h")]
 KERNEL_SOURCES = [os.path.join(_PKG, "csrc", "cmn.cu")]
@@ -109,8 +116,10 @@ def _build(name: str, sources: List[str], cmd_prefix: List[str], cmd_suffix: Lis
 
 
 def host_library() -> str:
+    filters = _build("host_ops.o", HOST_CONTRACT_SOURCES,
+                     ["g++", "-O3", "-march=native", "-std=c++17", "-fPIC", "-c"], [])
     return _build(
-        "libdali_tpu_torch_host.so", HOST_SOURCES,
+        "libdali_tpu_torch_host.so", HOST_SOURCES + [filters],
         ["g++", "-O3", "-march=native", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
          "-Wl,--no-undefined"],
         ["-lpthread"], HOST_HEADERS)

@@ -41,8 +41,10 @@ import numpy as np
 import pytest
 import torch
 
+import dali_tpu_torch
 from dali_tpu_torch import fn, pipeline_def, types
 from dali_tpu_torch.kernels import cmn
+from dali_tpu_torch.tools import bench_dali_cpu
 from dali_tpu_torch.tools.bench_cmn import within_f16_step
 
 pytestmark = pytest.mark.cuda
@@ -530,8 +532,20 @@ def test_unported_image_paths_raise_on_card(card):
     twelve_bit = first[:sof + 4] + b"\x0c" + first[sof + 5:]
     with pytest.raises(NotImplementedError, match=r"Queue 1 item 1a\), or 12-bit"):
         run(twelve_bit, device="mixed")
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 5h"):
-        build(lambda j: fn.gaussian_blur(j, window_size=3))
+    vols = [np.zeros((3, 6, 8, 1), np.uint8)] * 2
+
+    @pipeline_def(batch_size=2, num_threads=1, device=card)
+    def blur_volumes():
+        return fn.gaussian_blur(fn.external_source(source=lambda: vols, batch=True,
+                                                   layout="DHWC").gpu(), window_size=3)
+
+    pipe = blur_volumes()
+    pipe.build()
+    try:
+        with pytest.raises(NotImplementedError, match=r"Queue 1, item 5h\.7"):
+            pipe.run()
+    finally:
+        pipe.shutdown()
     with pytest.raises(NotImplementedError, match="never reads"):
         build(lambda j: fn.resize(fn.decoders.image(j, device="mixed", hybrid_device_decode=True,
                                                     hybrid_wire="int8"),
@@ -1443,3 +1457,26 @@ def test_asr_resample_on_card_matches_cpu(card, tmp_path):
     root = write_corpus(str(tmp_path), 8, 5, (1.0, 2.5), rate=48000)
     r = bench_dali_cpu.check_asr_resample(root, batch=4)
     assert r["resampled_rel_to_peak"] <= bench_dali_cpu.RESAMPLE_RTOL
+
+
+@pytest.mark.parametrize("name", sorted(bench_dali_cpu.PLACEMENT_BOUNDS))
+def test_host_filter_placements_agree_on_card(card, name):
+    """Each op with a host and a gpu placement on one ragged batch: the host
+    output against the card's, within the bound the CPU tests hold both
+    packages' placements to (``bench_dali_cpu.PLACEMENT_BOUNDS``)."""
+    from dali_tpu_torch.tools import bench_dali_cpu
+
+    pairs = bench_dali_cpu.placement_pairs(dali_tpu_torch, card, batch=8, hw=(96, 120),
+                                           names=[name])
+    bench_dali_cpu.check_placements(pairs)
+
+
+def test_rn50_host_augment_on_card_cmn_placements_agree(card, tmp_path):
+    """The --dali-cpu recipe with the host JPEG, blur and equalize at batch
+    16: CMN on the card against CMN on the host, labels equal, images within
+    1e-5."""
+    from dali_tpu_torch.tools import bench_dali_cpu
+
+    r = bench_dali_cpu.check_rn50_dali_cpu(_affine_file_list(tmp_path, 32), batch=16,
+                                           augment=True)
+    assert r["max_abs_diff"] <= bench_dali_cpu.CMN_ATOL

@@ -393,11 +393,11 @@ def test_unported_names_name_their_roadmap_item(api):
     mod = getattr(dali_tpu_torch, api)
     names = (("decoders.video", "item 8"), ("readers.video", "item 8"),
              ("optical_flow", "item 8"), ("experimental.inputs.video", "item 8"),
-             ("dump_image", "item 5h"))
+             ("readers.video_resize", "item 8"))
     if api == "ops":
         names = (("decoders.Video", "item 8"), ("readers.Video", "item 8"),
                  ("OpticalFlow", "item 8"), ("experimental.inputs.Video", "item 8"),
-                 ("DumpImage", "item 5h"))
+                 ("readers.VideoResize", "item 8"))
     for path, item in names:
         obj = mod
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md \\(Queue 1, {item}\\)"):
@@ -488,7 +488,7 @@ def test_legacy_names_register_where_the_target_runs():
         devices = {d for (n, d) in _schema._impl_registry if n == target}
         assert {d for (n, d) in _schema._impl_registry if n == alias} == devices, alias
         assert all(_schema.has_operator_impl(alias, d) for d in devices)
-    assert not _schema.has_operator_impl("Equalize", "cpu")
+    assert _schema.has_operator_impl("Equalize", "cpu")  # registered later, in item 5h
     assert _schema.TryGetSchema("VideoReader") is None
     assert sorted(parity._ALIAS_MISS) == sorted(set(parity._LEGACY) - set(RESOLVING))
 
@@ -522,13 +522,21 @@ def test_legacy_names_run_as_their_targets():
 
 
 def test_legacy_name_on_a_device_the_port_lacks_raises():
+    """Equalize has both placements since item 5h; its gpu path of sequences
+    (item 5h.7) and the video names (item 8) still raise."""
     @dali_tpu_torch.pipeline_def(batch_size=2, num_threads=1, device="cpu")
     def p():
         return dali_tpu_torch.fn.equalize(dali_tpu_torch.fn.external_source(
-            source=lambda: [np.zeros((4, 4, 3), np.uint8)] * 2, batch=True), device="cpu")
+            source=lambda: [np.zeros((2, 4, 4, 3), np.uint8)] * 2, batch=True,
+            layout="FHWC").gpu())
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        p().build()
+    pipe = p()
+    pipe.build()
+    try:
+        with pytest.raises(NotImplementedError, match=r"not ported.*Queue 1, item 5h\.7"):
+            pipe.run()
+    finally:
+        pipe.shutdown()
     with pytest.raises(NotImplementedError, match=r"Queue 1, item 8"):
         dali_tpu_torch.fn.video_reader
     with pytest.raises(NotImplementedError, match=r"Queue 1, item 8"):

@@ -152,25 +152,39 @@ def test_registry_lacks_only_audio_resample_and_the_renamed_jax_function_on_gpu(
         "decoders.Video", "experimental.decoders.Video", "experimental.inputs.Video",
         "readers.Video", "readers.VideoResize", "VideoReaderResize"}
     cpu = {n for n, d in missing if d == "cpu"}
-    assert not cpu & {"ElementExtract", "SequenceRearrange", "PerFrame", "PowerSpectrum"}
-    # item 4 and the first half of item 5h: the cpu placements every
-    # geometry and colour recipe calls
-    assert not cpu & {"experimental.AudioResample", "CropMirrorNormalize", "Resize",
-                      "RandomResizedCrop", "Flip", "WarpAffine", "Rotate", "Transpose", "Pad",
-                      "Erase", "Paste", "Brightness", "Contrast", "BrightnessContrast", "Hue",
-                      "Saturation", "Hsv", "ColorTwist", "ColorSpaceConversion"}
-    assert len(cpu) == 29, sorted(cpu)
+    # items 4 and 5h: every cpu placement but video's (item 8)
+    assert cpu == {"decoders.Video", "experimental.decoders.Video", "experimental.inputs.Video",
+                   "readers.Video", "readers.VideoResize", "VideoReaderResize", "OpticalFlow"}
     for name in ITEM_5G:
         assert _schema.has_operator_impl(name, "gpu"), name
 
 
-@pytest.mark.parametrize("name", ["ResizeCropMirror", "experimental.MedianBlur", "MultiPaste",
-                                  "JpegCompressionDistortion", "experimental.Clahe"])
+# the gpu paths of sequences and volumes the port does not run yet (item 5h.7)
+_ITEM_5H7 = {
+    "GaussianBlur": lambda fn, x: fn.gaussian_blur(x, sigma=1.0),
+    "experimental.Equalize": lambda fn, x: fn.experimental.equalize(x),
+    "WarpAffine": lambda fn, x: fn.warp_affine(x, matrix=[1.0, 0.0, 1.0, 0.0, 1.0, 0.0]),
+    "Rotate": lambda fn, x: fn.rotate(x, angle=15.0),
+    "Resize": lambda fn, x: fn.resize(x, size=fn.external_source(
+        source=lambda: [np.array([2 + i, 4, 4], np.float32) for i in range(2)], batch=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ITEM_5H7))
 def test_cpu_placements_name_item_5h(name):
+    """Every cpu placement of item 5h is ported; what names it still is the
+    gpu path of DHWC volumes (5h.7), which dali_tpu runs on the cpu only."""
     from dali_tpu_torch._schema import get_operator_impl
 
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 5h"):
-        get_operator_impl(name, "cpu")
+    assert get_operator_impl(name, "cpu")
+    vols = [np.zeros((3 + i, 6, 8, 1), np.uint8) for i in range(2)]
+    pipe = _build(dali_tpu_torch, lambda fn, t: _ITEM_5H7[name](fn, _src(fn, vols, "DHWC").gpu()),
+                  2)
+    try:
+        with pytest.raises(NotImplementedError, match=r"Queue 1, item 5h\.7"):
+            pipe.run()
+    finally:
+        _close(pipe)
 
 
 # ------------------------------------------------------------------ sequences

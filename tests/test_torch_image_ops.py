@@ -271,8 +271,8 @@ def test_constant_bit_equal(device):
 
 
 def test_unported_paths_raise_not_implemented():
-    """The cv2-based cpu warps, volumes, and the cpu placements of the
-    device-only operators name ROADMAP.md; nothing falls back."""
+    """A cpu argument the reference never reads, and the gpu paths of
+    sequences and volumes, name ROADMAP.md; nothing falls back."""
     fn = dali_tpu_torch.fn
 
     def build(body):
@@ -281,10 +281,13 @@ def test_unported_paths_raise_not_implemented():
             return body()
         return p()
 
-    cpu_warp = build(lambda: fn.experimental.warp_perspective(
-        fn.external_source(source=lambda: RGB[:2], batch=True), matrix=[1, 0, 0, 0, 1, 0, 0, 0, 1]))
+    maps = [np.zeros((8, 8), np.float32)] * 2
+    cpu_remap = build(lambda: fn.experimental.remap(
+        fn.external_source(source=lambda: RGB[:2], batch=True),
+        fn.external_source(source=lambda: maps, batch=True),
+        fn.external_source(source=lambda: maps, batch=True), pixel_origin="center"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cpu_warp.build()
+        cpu_remap.build()
     vol = np.zeros((2, 4, 8, 8, 1), np.uint8)
     rot = build(lambda: fn.rotate(fn.external_source(source=lambda: vol, batch=True).gpu(),
                                   angle=10.0))
@@ -294,6 +297,12 @@ def test_unported_paths_raise_not_implemented():
             rot.run()
     finally:
         rot.shutdown()
-    for op in (fn.water, fn.laplacian, fn.sphere):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(lambda: op(fn.external_source(source=lambda: RGB[:2], batch=True))).build()
+    for op in (fn.gaussian_blur, fn.experimental.equalize, fn.warp_affine):
+        pipe = build(lambda: op(fn.external_source(source=lambda: vol, batch=True,
+                                                   layout="DHWC").gpu()))
+        pipe.build()
+        try:
+            with pytest.raises(NotImplementedError, match=r"ROADMAP.md \(Queue 1, item 5h.7\)"):
+                pipe.run()
+        finally:
+            pipe.shutdown()

@@ -364,7 +364,8 @@ def test_decode_batch_into_strided_canvas():
 
 def test_build_compiles_only_port_sources():
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(build.__file__)))
-    for path in build.HOST_SOURCES + build.HOST_HEADERS + build.KERNEL_SOURCES:
+    for path in (build.HOST_SOURCES + build.HOST_CONTRACT_SOURCES + build.HOST_HEADERS
+                 + build.KERNEL_SOURCES):
         assert os.path.commonpath([pkg, os.path.abspath(path)]) == pkg, path
         assert os.path.exists(path), path
 

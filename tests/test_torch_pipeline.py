@@ -146,6 +146,8 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.backend.straggler_gpu, dali_tpu_torch.kernels.warp\n"
         "import dali_tpu_torch.tools.bench_rcm_jpeg, dali_tpu_torch.tools.bench_dali_cpu\n"
         "import dali_tpu_torch.backend.host_ops, dali_tpu_torch.kernels.host_resample\n"
+        "import dali_tpu_torch.backend.convolution, dali_tpu_torch.backend.distortion\n"
+        "import dali_tpu_torch.backend.enhance, dali_tpu_torch.backend.tail\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
@@ -244,7 +246,7 @@ def test_unported_names_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dali_tpu_torch.fn.decoders.video
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dali_tpu_torch.fn.dump_image
+        dali_tpu_torch.fn.optical_flow
     gif = np.frombuffer(b"GIF89a" + bytes(26), np.uint8)
 
     @dali_tpu_torch.pipeline_def(batch_size=2, device="cpu")

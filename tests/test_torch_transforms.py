@@ -247,9 +247,14 @@ def test_distortion_ops_match_dali_tpu(case, uniform):
 
 
 def test_distortion_cpu_placements_name_their_item():
+    """Item 5h ported the cpu placements: each runs, bit-equal to dali_tpu's."""
     for op in ("water", "sphere", "jitter", "grid_mask"):
-        with pytest.raises(NotImplementedError, match=r"Queue 1, item 5h"):
-            _build(dali_tpu_torch, lambda fn, t, op=op: getattr(fn, op)(_src(fn, IMGS, "HWC")))
+        got, want = (_runs(pkg, lambda fn, t, op=op: getattr(fn, op)(_src(fn, IMGS, "HWC")))
+                     for pkg in (dali_tpu_torch, dali_tpu))
+        for g_it, w_it in zip(got, want):
+            for g, w in zip(g_it[0], w_it[0]):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                np.testing.assert_array_equal(g, w)
 
 
 def test_jitter_by_determinism_and_displacement_range():
