@@ -106,7 +106,9 @@ on failure:
    corpus holds: the 32 corpus files and every fixture of
    ``dali_tpu_torch/testdata/codecs`` (CMYK, YCCK, RGB-colour, 4:1:1 and
    h=4 JPEGs, partly interleaved scans, a progressive JPEG cut at 60%, PNG
-   under a ``.JPEG`` name, 16-bit and palette PNGs, 24-bit and RLE8 BMPs)
+   under a ``.JPEG`` name, 16-bit and palette PNGs, 24-bit and RLE8 BMPs,
+   and GIFs: 256-colour, interlaced, transparent, a local table on an
+   offset image, animated)
    repeated to 256 entries, so each batch holds every form; 3 warm-up + 10
    timed batches reported as phase 9, then batch 64 on the card against the
    CPU; then the single-threaded host decode time of each form (ms/image);
@@ -230,7 +232,9 @@ on failure:
    MedianBlur at 3 and 5, Clahe, Debayer, Filter 5x5, Remap,
    WarpPerspective nearest and linear, MultiPaste as a 2x2 mosaic into
    448x448, ElementExtract, SequenceRearrange, PerFrame, TensorResize,
-   PowerSpectrum, NonsilentRegion) card against CPU at batch 16 (4
+   PowerSpectrum, NonsilentRegion; and ColorTwist at brightness 0.9 and Hsv
+   at value 0.9, whose rounding ties the XLA-CPU sum order decides, equal
+   to the CPU's) card against CPU at batch 16 (4
    sequences, 8 clips) within the CPU tests' tolerances, and its device ms
    on one full batch ([256, 224, 224, 3] uint8 images; [16, 8, 224, 224, 3]
    sequences; numpy_volumes' two [4, 155, 240, 240] float32 volumes at
@@ -282,7 +286,32 @@ on failure:
    and on the host's cores; then each op with both placements on a batch of
    16 on the host and on the card, held within ``PLACEMENT_BOUNDS`` (JPEG's
    placements differ by design and Jitter draws from other generators, so
-   neither is compared). No cv2 is imported (checked).
+   neither is compared). No cv2 is imported (checked);
+30. asr_flac: phase 5's asr_frontend over the same 128 clips written as
+   16-bit FLAC (``build/audio_corpus_flac``, by ``testdata/flac_writer.py``
+   at first use), reading ``*.flac`` as bench.py's audio lane does: 3
+   warm-up + 20 timed batches checked as in phase 5; clips/s beside
+   asr_frontend's; the host ms of one batch's decode, FLAC and WAV, on the
+   host's cores; one batch's dB mel on the card bit-equal to the WAV path's;
+31. sequence_augment (``tools/bench_seq_volumes.py``): ``readers.sequence``
+   over 32 sequences of 16 BMP frames of 224x224 panning across the corpus
+   images (``build/sequence_corpus``), 8 sequences a batch; on the card a
+   per-sequence warp from ``fn.transforms.*``, ``gaussian_blur`` (sigma in
+   [0.1, 2]), ``experimental.equalize`` and CMN to FLOAT FCHW (the kernel's
+   FCHW fold): 3 warm-up + 10 timed batches, each checked; frames/s beside
+   rn50_train's images/s; host ms by schema; device ms by stage of one
+   batch alone; peak memory; the exact CMN launch count; the CMN kernel
+   held against its plain version on one more batch and timed on it; then
+   batch 2 on the card against the CPU (each uint8 stage within one step on
+   at most 1e-3 of values, the output within one uint8 step / std);
+32. volume_augment (``tools/bench_seq_volumes.py``): four BraTS-sized
+   float32 volumes ``[4, 155, 240, 240]`` read through the centre 128^3 ROI
+   at batch 2 (``readers.numpy(device="gpu")``), transposed to DHWC,
+   ``gaussian_blur`` (sigma in [0.5, 1.5] on all three axes) and ``rotate``
+   about a random axis by an angle in [-15, 15] degrees, ``keep_size``: 3
+   warm-up + 10 timed batches, each checked; GB/s beside numpy_volumes' ROI
+   rate; device ms by stage; peak memory; then a 64^3 ROI on the card
+   against the CPU within 1e-5 (the files deleted after).
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -327,6 +356,7 @@ AFFINE_TIMED, AFFINE_CHECK_BATCH = 10, 16
 RCM_TIMED, RCM_CHECK_BATCH = 10, 16
 ASR_RESAMPLE_TIMED, DALI_CPU_TIMED = 10, 10
 HOST_AUGMENT_TIMED = 10
+SEQ_TIMED, VOLUME_AUGMENT_TIMED = 10, 10
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -536,14 +566,15 @@ def amp_phase(card, file_list):
     return launches, ips
 
 
-def make_asr_pipe(root, batch, device):
-    """bench.py's asr_frontend on the WAV corpus; returns the decoded audio
-    (for its per-sample lengths), the dB mel and the normalized output."""
+def make_asr_pipe(root, batch, device, ext="wav"):
+    """bench.py's asr_frontend on the WAV (or ``ext``) corpus; returns the
+    decoded audio (for its per-sample lengths), the dB mel and the
+    normalized output."""
     from dali_tpu_torch import fn, pipeline_def, types
 
     @pipeline_def(batch_size=batch, seed=7, prefetch_queue_depth=2, device=device)
     def asr_frontend():
-        enc, _ = fn.readers.file(file_root=root, file_filters=["*.wav"], random_shuffle=True,
+        enc, _ = fn.readers.file(file_root=root, file_filters=[f"*.{ext}"], random_shuffle=True,
                                  name="R")
         audio, _rate = fn.decoders.audio(enc, dtype=types.FLOAT, downmix=True, device="mixed")
         pre = fn.preemphasis_filter(audio, preemph_coeff=0.97)
@@ -573,17 +604,13 @@ def check_audio_batch(outs, batch):
             "non-finite values in the valid region")
 
 
-def audio_phase(card):
-    from dali_tpu_torch.testdata.make_audio_corpus import ensure_corpus
-
-    t0 = time.perf_counter()
-    root = ensure_corpus()
-    print(f"audio corpus {os.path.relpath(root, HERE)}: 128 clips ready in "
-          f"{time.perf_counter() - t0:.2f} s")
-    pipe = make_asr_pipe(root, AUDIO_BATCH, "cuda:0")
+def time_asr(pipe):
+    """WARMUP + TIMED batches of an asr_frontend pipeline as an iterator runs
+    it (take one batch, schedule the next), each checked; (clips/s, executor
+    stat deltas of the timed batches)."""
     ex = pipe.executor
 
-    def step():  # as an iterator runs: take one batch, schedule the next
+    def step():
         check_audio_batch(pipe.outputs(), AUDIO_BATCH)
         pipe.schedule_run()
 
@@ -600,7 +627,19 @@ def audio_phase(card):
     st = {k: v - st0[k] for k, v in ex.stats.items()}
     for _ in range(pipe.prefetch_queue_depth):
         pipe.outputs()
-    cps = TIMED * AUDIO_BATCH / dt
+    return TIMED * AUDIO_BATCH / dt, st
+
+
+def audio_phase(card):
+    from dali_tpu_torch.testdata.make_audio_corpus import ensure_corpus
+
+    t0 = time.perf_counter()
+    root = ensure_corpus()
+    print(f"audio corpus {os.path.relpath(root, HERE)}: 128 clips ready in "
+          f"{time.perf_counter() - t0:.2f} s")
+    pipe = make_asr_pipe(root, AUDIO_BATCH, "cuda:0")
+    ex = pipe.executor
+    cps, st = time_asr(pipe)
     print(f"e2e asr_frontend batch {AUDIO_BATCH}: {cps:.1f} clips/s over {TIMED} batches ({card})")
     print(f"during the timed batches: host phase {1e3 * st['host_phase_seconds'] / st['host_batches']:.2f}"
           f" ms/batch over {st['host_batches']} batches ({os.cpu_count()} host cores); the device"
@@ -1236,7 +1275,7 @@ def readers_phase(card, rn50_ips):
               f"the cpu reader's ({card})")
     print(f"numpy volumes written in {written:.2f} s and deleted; readers phase: "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return launches, held
+    return launches, held, next(v["gb_per_s"] for v in volumes if v["form"] == "roi")
 
 
 def frontend_phase(card, file_list, rn50_ips):
@@ -1413,6 +1452,100 @@ def gpu_ops_phase(card):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+def asr_flac_phase(card, asr_cps):
+    """Phase 30: asr_frontend over the same 128 clips as 16-bit FLAC; the
+    host decode ms of a batch, FLAC and WAV; one batch's dB mel bit-equal
+    to the WAV path's on the card."""
+    from dali_tpu_torch.testdata.make_audio_corpus import ensure_corpus
+    from dali_tpu_torch.tools import bench_seq_volumes as bsv
+
+    t0 = time.perf_counter()
+    wav = ensure_corpus()
+    root = ensure_corpus(fmt="flac")
+    print(f"FLAC audio corpus {os.path.relpath(root, HERE)}: 128 clips ready in "
+          f"{time.perf_counter() - t0:.2f} s")
+    pipe = make_asr_pipe(root, AUDIO_BATCH, "cuda:0", ext="flac")
+    cps, st = time_asr(pipe)
+    pipe.shutdown()
+    print(f"e2e asr_flac batch {AUDIO_BATCH}: {cps:.1f} clips/s over {TIMED} batches, "
+          f"{100 * cps / asr_cps:.1f}% of asr_frontend's {asr_cps:.1f} in this run; host phase "
+          f"{1e3 * st['host_phase_seconds'] / st['host_batches']:.2f} ms/batch "
+          f"({os.cpu_count()} host cores); the device stage waited "
+          f"{1e3 * st['device_wait_seconds'] / TIMED:.2f} ms/batch ({card})")
+    ms = {ext: bsv.host_decode_ms(r, ext, AUDIO_BATCH) for ext, r in (("flac", root), ("wav", wav))}
+    print(f"host decode of {AUDIO_BATCH} clips in one batch call on {os.cpu_count()} cores: "
+          f"FLAC {ms['flac']:.2f} ms, WAV {ms['wav']:.2f} ms ({card})")
+    outs = []
+    for r, ext in ((root, "flac"), (wav, "wav")):
+        pipe = make_asr_pipe(r, AUDIO_BATCH, "cuda:0", ext=ext)
+        res = pipe.run()
+        outs.append((res[1].as_tensor().clone(), res[1].shape()))
+        pipe.shutdown()
+    (g, g_sh), (w, w_sh) = outs
+    require(g.is_cuda and g_sh == w_sh and torch.equal(g, w),
+            "asr_flac: the dB mel of the FLAC batch differs from the WAV batch's on the card")
+    print(f"asr_flac dB mel of one batch {tuple(g.shape)} on the card bit-equal to the WAV path's; "
+          f"asr_flac phase: {time.perf_counter() - t0:.1f} s")
+    return cps
+
+
+def sequence_phase(card, rn50_ips):
+    """Phase 31: sequence_augment (``tools/bench_seq_volumes.py``); returns
+    the CMN launches and the kernel's readings on the path's batch."""
+    from dali_tpu_torch.tools import bench_seq_volumes as bsv
+
+    t0 = time.perf_counter()
+    root = bsv.ensure_sequence_corpus()
+    print(f"sequence corpus {os.path.relpath(root, HERE)}: 32 sequences of {bsv.SEQ_FRAMES} "
+          f"BMP frames ready in {time.perf_counter() - t0:.2f} s")
+    r = bsv.run_sequences(root, warmup=WARMUP, timed=SEQ_TIMED)
+    c = r["cmn"]
+    print(f"sequence_augment batch {r['batch']}x{bsv.SEQ_FRAMES} frames: {r['frames_per_s']:.1f} "
+          f"frames/s over {r['timed']} batches ({100 * r['frames_per_s'] / rn50_ips:.1f}% of "
+          f"rn50_train's {rn50_ips:.1f} images/s in this run); host phase "
+          f"{r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} host cores); device stage "
+          f"waited {r['device_wait_ms_per_batch']:.2f} ms/batch; cmn launches "
+          f"{r['cmn_launches']} ({card})")
+    print("sequence_augment host ms/batch by schema: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in r["host_ms_by_schema"].items() if v >= 0.05))
+    print("sequence_augment device ms of one batch alone: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r["stage_ms"].items())
+        + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    print(f"sequence_augment CMN kernel (FCHW fold) on the path's own batch {c['shape_in']} "
+          f"{c['dtype_in']} -> {c['shape_out']} float32: max abs diff vs plain "
+          f"{c['max_abs_err']:.3e} (limit 1e-05); kernel alone {c['ms']:.4f} ms (cold L2), "
+          f"wrapper {c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} bytes, "
+          f"bound {c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+    k = bsv.check_sequences(root)
+    print(f"sequence_augment card vs CPU (batch {k['batch']}, {k['iterations']} iterations): "
+          + ", ".join(f"{n} max diff {k[n]['max_diff']:.3g} on {k[n]['frac_differing']:.2e} of "
+                      "values" for n in ("warp", "blur", "equalize", "normalized"))
+          + f" (limits one step, one uint8 step / std, on 1e-3); sequence_augment phase: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return r["cmn_launches"], c
+
+
+def volume_phase(card, numpy_roi_gbps):
+    """Phase 32: volume_augment (``tools/bench_seq_volumes.py``)."""
+    from dali_tpu_torch.tools import bench_seq_volumes as bsv
+
+    t0 = time.perf_counter()
+    written, r = bsv.volume_phase(os.path.join(HERE, "build", "volume_augment"), warmup=WARMUP,
+                                  timed=VOLUME_AUGMENT_TIMED)
+    print(f"volume_augment batch {r['batch']} ({r['bytes_per_batch']} bytes of 128^3 ROI): "
+          f"{r['gb_per_s']:.3f} GB/s over {r['timed']} batches, {100 * r['gb_per_s'] / numpy_roi_gbps:.1f}%"
+          f" of numpy_volumes' ROI {numpy_roi_gbps:.3f} GB/s in this run; host phase "
+          f"{r['host_ms_per_batch']:.2f} ms/batch; device stage waited "
+          f"{r['device_wait_ms_per_batch']:.2f} ms/batch ({card})")
+    print("volume_augment device ms of one batch alone: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r["stage_ms"].items())
+        + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    k = r["check"]
+    print(f"volume_augment card vs CPU (batch {k['batch']}, ROI {k['roi']}): max abs diff "
+          f"{k['max_abs_diff']:.3e} (limit {bsv.VOLUME_ATOL}); volumes written in {written:.2f} s "
+          f"and deleted; volume_augment phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1444,7 +1577,7 @@ def main():
     launches["imagenet_forms"] = forms_phase(card, rn50_ips)[0]
     ssd_launches, path_cmn = ssd_phase(card, rn50_ips)
     launches.update(ssd_launches)
-    reader_launches, reader_cmn = readers_phase(card, rn50_ips)
+    reader_launches, reader_cmn, numpy_roi_gbps = readers_phase(card, rn50_ips)
     launches.update(reader_launches)
     path_cmn.update(reader_cmn)
     frontend_launches, frontend_cmn = frontend_phase(card, file_list, rn50_ips)
@@ -1463,6 +1596,9 @@ def main():
     launches["rn50_host_augment"], path_cmn["rn50_host_augment"], _ = dali_cpu_phase(
         card, file_list, rn50_ips, augment=True, timed=HOST_AUGMENT_TIMED, base=dali_cpu_ips)
     host_filters_phase(card)
+    asr_flac_phase(card, asr_cps)
+    launches["sequence_augment"], path_cmn["sequence_augment"] = sequence_phase(card, rn50_ips)
+    volume_phase(card, numpy_roi_gbps)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

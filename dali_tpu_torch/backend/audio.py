@@ -7,8 +7,9 @@ border and every reduction against each sample's valid extent, so a padded
 sample gives the values its unpadded self gives. ``Spectrogram``,
 ``MelFilterBank`` and ``MFCC`` on the device also infer their output shapes
 on the host, so nothing is read back per batch. ``experimental.AudioResample``
-resamples on either placement. Compressed containers (FLAC/OGG/MP3) are not
-ported.
+resamples on either placement. WAV decodes through a built-in parser, FLAC
+through the native decoder (``csrc/host/flac_decode.cc``); OGG and MP3 are
+not ported.
 """
 
 from __future__ import annotations
@@ -74,19 +75,62 @@ def decode_wav(data: bytes):
     return x, float(sample_rate)
 
 
-def decode_audio(data: bytes):
-    """WAV through the built-in parser. Any other container raises: the
-    reference decodes FLAC/OGG/MP3 with a native FFmpeg decoder that the port
-    does not build."""
+_COMPRESSED_NOT_PORTED = ("{} audio is not ported to dali_tpu_torch yet; see ROADMAP.md "
+                          "(Queue 1, item 4b)")
+
+
+def _id3v2_end(data: bytes) -> int:
+    """The offset after a leading ID3v2 tag (0 without one)."""
+    if len(data) < 10 or data[:3] != b"ID3":
+        return 0
+    size = 0
+    for b in data[6:10]:
+        size = (size << 7) | (b & 0x7F)
+    return 10 + size + (10 if data[5] & 0x10 else 0)
+
+
+def audio_container(data: bytes) -> str:
+    """"wav" or "flac" (a leading ID3v2 tag skipped); OGG and MP3 raise
+    NotImplementedError, anything else ValueError."""
     if data[:4] == b"RIFF":
-        return decode_wav(data)
-    raise NotImplementedError(
-        "only WAV audio is ported to dali_tpu_torch; compressed containers (FLAC/OGG/MP3) "
-        "are not yet, see ROADMAP.md (Queue 1)")
+        return "wav"
+    body = data[_id3v2_end(data):]
+    if body[:4] == b"fLaC":
+        return "flac"
+    if body[:4] == b"OggS":
+        raise NotImplementedError(_COMPRESSED_NOT_PORTED.format("OGG"))
+    if data[:3] == b"ID3" or (len(body) > 1 and body[0] == 0xFF and body[1] & 0xE0 == 0xE0):
+        raise NotImplementedError(_COMPRESSED_NOT_PORTED.format("MP3"))
+    raise ValueError("Undecodable audio: not a WAV, FLAC, OGG or MP3 stream")
+
+
+def decode_audio_batch(pool, datas):
+    """(float32 [n] or [n, channels], rate) of each stream: WAV through the
+    built-in parser, FLAC through the native decoder (``flac_decode.cc``),
+    the batch's FLAC streams in one call on ``pool``'s workers. A malformed
+    or CRC-failing FLAC stream raises ValueError, as the reference's FFmpeg
+    decoder failing does."""
+    kinds = [audio_container(d) for d in datas]
+    out = [decode_wav(d) if k == "wav" else None for d, k in zip(datas, kinds)]
+    flac = [i for i, k in enumerate(kinds) if k == "flac"]
+    if flac:
+        from .. import native
+
+        for i, r in zip(flac, native.decode_flac_batch(pool, [datas[i] for i in flac])):
+            if r is None:
+                raise ValueError(f"Undecodable audio (sample {i}): malformed FLAC stream or "
+                                 "a failed CRC")
+            out[i] = r
+    return out
+
+
+def decode_audio(data: bytes):
+    """One stream, as ``decode_audio_batch``."""
+    return decode_audio_batch(None, [data])[0]
 
 
 DALI_SCHEMA("decoders.Audio").DocStr(
-    """Decodes audio (WAV). Outputs (audio, sample_rate)."""
+    """Decodes audio (WAV, FLAC). Outputs (audio, sample_rate)."""
 ).NumInput(1).NumOutput(2).Devices("cpu").AddOptionalArg(
     "sample_rate", ArgType.FLOAT, "Resample to this rate (0 = keep).", 0.0, tensor_ok=True
 ).AddOptionalArg(
@@ -110,23 +154,33 @@ def _resample_audio(x: np.ndarray, in_rate: float, out_rate: float) -> np.ndarra
 
 @register_operator("decoders.Audio", "cpu")
 class AudioDecoderCPU(Operator):
-    def _decode(self, ctx, idx, encoded):
-        """float32 PCM after downmix and resampling, and its rate."""
-        x, rate = decode_audio(np.ascontiguousarray(encoded).tobytes())
-        if self.spec.GetArgument("downmix") and x.ndim == 2:
-            x = x.mean(axis=1)
-        target = float(np.asarray(ctx.arg(self, "sample_rate", idx, 0.0)))
-        if target > 0:
-            x = _resample_audio(x, rate, target)
-            rate = target
-        return x, np.float32(rate)
+    def _decode_batch(self, ctx, samples):
+        """float32 PCM of each sample after downmix and resampling, and its
+        rate; the FLAC streams decode on the pipeline's worker pool."""
+        from .. import native
 
-    def run_sample(self, ctx, idx, encoded):
-        x, rate = self._decode(ctx, idx, encoded)
+        pool = native.shared_pool(getattr(self.pipeline, "num_threads", 1) or 1)
+        decoded = decode_audio_batch(pool, [np.ascontiguousarray(s).tobytes() for s in samples])
+        out = []
+        for idx, (x, rate) in enumerate(decoded):
+            if self.spec.GetArgument("downmix") and x.ndim == 2:
+                x = x.mean(axis=1)
+            target = float(np.asarray(ctx.arg(self, "sample_rate", idx, 0.0)))
+            if target > 0:
+                x = _resample_audio(x, rate, target)
+                rate = target
+            out.append((x, np.float32(rate)))
+        return out
+
+    def run_batch(self, ctx, inp):
         dt = self.spec.GetArgument("dtype")
-        if dt == DALIDataType.INT16:
-            return np.clip(np.round(x * 32767.0), -32768, 32767).astype(np.int16), rate
-        return x.astype(to_numpy_type(dt)), rate
+        pcm, rates = [], []
+        for x, rate in self._decode_batch(ctx, inp.samples):
+            if dt == DALIDataType.INT16:
+                x = np.clip(np.round(x * 32767.0), -32768, 32767).astype(np.int16)
+            pcm.append(x.astype(to_numpy_type(dt)))
+            rates.append(rate)
+        return [HostBatch(pcm, layout="t"), HostBatch(rates, layout="")]
 
     def output_layout(self, output_idx, inputs):
         return "" if output_idx else "t"
@@ -153,16 +207,16 @@ DALI_SCHEMA("_AudioStage").DocStr(
 class AudioStageMixed(AudioDecoderCPU):
     def run_batch(self, ctx, inp):
         as_float = self.spec.GetArgument("dtype") == DALIDataType.FLOAT
-        outs = [self._stage_one(ctx, i, s, as_float) for i, s in enumerate(inp.samples)]
+        outs = [self._stage_one(x, rate, as_float)
+                for x, rate in self._decode_batch(ctx, inp.samples)]
         wire16 = as_float and all(o[2] is not None for o in outs)
         pcm = [o[2] if wire16 else o[0] for o in outs]
         return [HostBatch(pcm, layout=self.output_layout(0, None)),
                 HostBatch([o[1] for o in outs], layout="")]
 
-    def _stage_one(self, ctx, idx, encoded, as_float):
+    def _stage_one(self, x, rate, as_float):
         """(PCM at the requested precision, rate, its int16 form or None).
         The exactness test runs here, per sample."""
-        x, rate = self._decode(ctx, idx, encoded)
         dt = self.spec.GetArgument("dtype")
         if dt == DALIDataType.INT16:
             x = np.clip(np.round(x * 32767.0), -32768, 32767).astype(np.int16)

@@ -125,39 +125,44 @@ class GaussianBlurGPU(Operator):
         self._k_latch = 0
 
     def host_params(self, ctx, input_shapes):
+        # a window per axis of a DHWC volume, one for the two axes otherwise
+        naxes = 3 if (ctx.in_layouts(self) or [""])[0].startswith("D") else 1
         batches = ctx._arg_batches.get(self.op_id, {})
         n = 1
         for nm in ("sigma", "window_size"):
             if nm in batches:
                 n = len(batches[nm].samples)
                 break
-        rows = [gaussian_window(w, s)[0] for (s, w), in (_blur_params(ctx, self, i)
-                                                        for i in range(n))]
-        K = max(3, max(len(k) for k in rows))
+        rows = [[gaussian_window(w, s)[0] for s, w in _blur_params(ctx, self, i, naxes)]
+                for i in range(n)]
+        K = max(3, max(len(k) for row in rows for k in row))
         if K % 2 == 0:
             K += 1
         self._k_latch = max(self._k_latch, K)
         K = self._k_latch
-        wmat = np.zeros((n, K), np.float32)
+        wmat = np.zeros((n, naxes, K), np.float32)
         C = (K - 1) // 2
-        for i, k in enumerate(rows):
-            c = (len(k) - 1) // 2
-            wmat[i, C - c:C - c + len(k)] = k
+        for i, row in enumerate(rows):
+            for a, k in enumerate(row):
+                c = (len(k) - 1) // 2
+                wmat[i, a, C - c:C - c + len(k)] = k
         return {"gb_w": wmat}
 
     def lower(self, dctx, inp: DeviceBatch):
-        if inp.data.dim() != 4:
-            raise NotImplementedError("GaussianBlur(gpu) on sequences or volumes is not ported "
-                                      "to dali_tpu_torch yet; see ROADMAP.md (Queue 1, item "
-                                      "5h.7)")
         x = inp.data
         n = x.shape[0]
-        w = dctx.param(self, "gb_w")
+        w = dctx.param(self, "gb_w")  # [n | 1, naxes, K], naxes 3 on a DHWC volume
         if w.shape[0] == 1 and n != 1:
-            w = w.expand(n, -1)
+            w = w.expand(n, -1, -1)
+        if w.shape[1] == 3:
+            axes = ((1, 0, w[:, 0]), (2, 1, w[:, 1]), (3, 2, w[:, 2]))
+        elif x.dim() == 5:  # a sequence: a 2-D blur of each frame
+            axes = ((2, 1, w[:, 0]), (3, 2, w[:, 0]))
+        else:
+            axes = ((1, 0, w[:, 0]), (2, 1, w[:, 0]))
         out = x.to(torch.float32)
-        out = blur_axis(out, w, inp.extent(0), 1)
-        out = blur_axis(out, w, inp.extent(1), 2)
+        for axis, col, wa in axes:
+            out = blur_axis(out, wa, inp.extent(col), axis)
         dt = self.spec.GetArgument("dtype", None)
         return [inp.with_data(saturate_cast(out, x.dtype if dt is None else to_torch_type(dt)))]
 
@@ -217,9 +222,8 @@ class LaplacianGPU(Operator):
     def lower(self, dctx, inp: DeviceBatch):
         x = inp.data
         if x.dim() not in (4, 5):
-            raise NotImplementedError(f"Laplacian(gpu) on {x.dim() - 1}-D samples is not ported "
-                                      "to dali_tpu_torch yet; see ROADMAP.md (Queue 1, item "
-                                      "5h.7)")
+            raise ValueError(f"Laplacian(gpu) takes HWC images, FHWC sequences and DHWC "
+                             f"volumes, not {x.dim() - 1}-D samples")
         size = int(self.spec.GetArgument("window_size")[0])
         n = x.shape[0]
         deriv, smooth = (torch.from_numpy(w).to(x.device)[None].expand(n, -1)

@@ -592,8 +592,8 @@ class JpegIdctSplitRRC(JpegIdctSplit):
 # Counterpart of dali_tpu/backend/decoders.py:25-523, misc2.py:271-345 and
 # decoders.py:1400-1440. Each sample takes the reference's route (imgcodec):
 # JPEGs in one native batch call per batch, which reports per sample the
-# route the reference takes (libjpeg, or cv2 for CMYK/YCCK); PNG and BMP per
-# sample; GIF, TIFF and WebP raise (imgcodec.NOT_JPEG).
+# route the reference takes (libjpeg, or cv2 for CMYK/YCCK); PNG, BMP and GIF
+# per sample; TIFF and WebP raise (imgcodec.NOT_JPEG).
 
 def _decoder_schema(name):
     return (

@@ -19,18 +19,21 @@ DALI_SCHEMA("experimental.Equalize").DocStr(
 
 
 def equalize(x: torch.Tensor, valid) -> torch.Tensor:
-    """uint8 [N, H, W, C] -> equalized uint8. ``valid`` [N, H, W] bool (or
-    None) masks canvas padding out of the histograms.
+    """uint8 [N, ..., C] -> equalized uint8, one histogram per sample and
+    channel over all of the sample (a sequence's frames or a volume's slices
+    together). ``valid`` [N, ...] bool (or None) masks canvas padding out of
+    the histograms.
 
     Per (sample, channel): step = (count - hist[255]) // 255; the LUT maps v
     to (step // 2 + cumsum(hist)[v - 1]) // step, clipped to 255; a channel
     with step 0 is left as it is."""
-    n, H, W, C = x.shape
-    xi = x.to(torch.int64)
-    planes = xi.permute(0, 3, 1, 2).reshape(n * C, H * W)
+    n, C = x.shape[0], x.shape[-1]
+    xi = x.to(torch.int64).reshape(n, -1, C)
+    P = xi.shape[1]
+    planes = xi.permute(0, 2, 1).reshape(n * C, P)
     base = torch.arange(n * C, device=x.device)[:, None] * 256
     weight = (torch.ones_like(planes) if valid is None else
-              valid.reshape(n, 1, H * W).expand(n, C, H * W).reshape(n * C, H * W).to(torch.int64))
+              valid.reshape(n, 1, P).expand(n, C, P).reshape(n * C, P).to(torch.int64))
     hist = torch.zeros(n * C * 256, dtype=torch.int64, device=x.device)
     hist.index_add_(0, (planes + base).reshape(-1), weight.reshape(-1))
     hist = hist.reshape(n * C, 256)
@@ -41,18 +44,25 @@ def equalize(x: torch.Tensor, valid) -> torch.Tensor:
                                 rounding_mode="floor"), 0, 255)
     mapped = torch.gather(lut, 1, planes)
     out = torch.where((step == 0)[:, None], planes, mapped)
-    return out.reshape(n, C, H, W).permute(0, 2, 3, 1).to(torch.uint8).contiguous()
+    return out.reshape(n, C, P).permute(0, 2, 1).reshape(x.shape).to(torch.uint8).contiguous()
 
 
 @register_operator("experimental.Equalize", "gpu")
 class EqualizeGPU(Operator):
+    """HWC images, ragged or not, and uniform FHWC sequences and DHWC volumes.
+    A ragged batch of sequences or volumes raises: dali_tpu's gpu op fails on
+    it (its padding mask is built from the extents of the first two axes,
+    ROADMAP.md Queue 3), so there is no reference to hold the port against."""
+
     def lower(self, dctx, inp: DeviceBatch):
-        if inp.data.dim() != 4:
-            raise NotImplementedError("experimental.Equalize(gpu) on sequences is not ported "
-                                      "to dali_tpu_torch yet; see ROADMAP.md (Queue 1, item "
-                                      "5h.7)")
         valid = None
         if inp.shapes is not None:
+            if inp.data.dim() != 4:
+                raise NotImplementedError(
+                    "experimental.Equalize(gpu) on a ragged batch of sequences or volumes: "
+                    "dali_tpu's gpu op fails there (a broadcast ValueError: its padding "
+                    "mask spans the first two axes only; ROADMAP.md Queue 3); use a uniform "
+                    "batch or device='cpu'")
             H, W = inp.data.shape[1:3]
             rows = torch.arange(H, device=inp.data.device)[None, :, None]
             cols = torch.arange(W, device=inp.data.device)[None, None, :]

@@ -289,7 +289,9 @@ class CropGPU(_CropCommon):
         ch, cw = self._size()
         lays = ctx.in_layouts(self)
         out = sh.copy()
-        if sh.shape[1] == 4 and (lays[0] if lays else "").startswith("D"):
+        if sh.shape[1] == 4 and not (lays[0] if lays else "").startswith("D"):
+            return None  # lower() refuses a sequence
+        if sh.shape[1] == 4:
             cd = int(self.spec.GetArgument("crop_d") or 0)
             if not cd:  # the window takes the canvas's depth
                 return None
@@ -325,7 +327,13 @@ class CropGPU(_CropCommon):
         else:
             ch, cw = self._size()
             windows = [(py, ch, 0), (px, cw, 1)]
-            if data.dim() == 5 and inp.layout.startswith("D"):
+            if data.dim() == 5 and not inp.layout.startswith("D"):
+                raise ValueError(
+                    f"Crop(gpu): a 5-D batch of layout {inp.layout or '(none)'!r} is not a "
+                    "DHWC volume, and the gpu placement crops only HWC images and DHWC "
+                    "volumes (as dali_tpu's does); crop a sequence with fn.crop(..., "
+                    "device='cpu'), which crops H and W of every frame")
+            if data.dim() == 5:
                 cd = int(self.spec.GetArgument("crop_d") or 0) or data.shape[1]
                 windows = [(self._arg(dctx, "crop_pos_z", n, dev), cd, 0), (py, ch, 1),
                            (px, cw, 2)]

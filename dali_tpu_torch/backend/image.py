@@ -28,8 +28,10 @@ def _not_ported(what: str, item: str = "Queue 1"):
     return NotImplementedError(f"{what} is not ported to dali_tpu_torch yet; see ROADMAP.md ({item})")
 
 
-# what dali_tpu runs only on the cpu, as the port's Resize(cpu) does
-_CPU_ONLY = "Queue 1, item 5h.7; dali_tpu runs this on the cpu only"
+def _cpu_only(what: str):
+    """What dali_tpu's gpu op refuses too; the port's cpu placement runs it."""
+    return NotImplementedError(f"{what} runs on the cpu only, as in dali_tpu: use "
+                               "device='cpu'")
 
 
 def _fold_frames(inp: DeviceBatch):
@@ -248,12 +250,12 @@ class ResizeGPU(Operator):
         spec = self.spec
         if any(nm in spec.arg_inputs for nm in
                ("resize_x", "resize_y", "resize_z", "resize_shorter", "resize_longer", "size")):
-            raise _not_ported("Resize(gpu) per-sample sizes on volumetric (DHWC) inputs", _CPU_ONLY)
+            raise _cpu_only("Resize(gpu) per-sample sizes on volumetric (DHWC) inputs")
         outs = {compute_volumetric_sizes(spec, lambda nm, dv=None: spec.GetArgument(nm, dv),
                                          max(int(r[0]), 1), max(int(r[1]), 1), max(int(r[2]), 1))
                 for r in np.asarray(shapes)}
         if len(outs) != 1:
-            raise _not_ported("Resize(gpu) with per-sample output sizes on volumes", _CPU_ONLY)
+            raise _cpu_only("Resize(gpu) with per-sample output sizes on volumes")
         od, oh, ow = next(iter(outs))
         filt = None
         if self._has_filter_override():
@@ -331,7 +333,7 @@ class ResizeGPU(Operator):
             if (ctx.in_layouts(self) or [""])[0].startswith("D"):
                 return ("vol",) + self._volumetric_out(shapes)
             if self._static_size() is None:
-                raise _not_ported("Resize(gpu) per-sample sizes on sequences", _CPU_ONLY)
+                raise _cpu_only("Resize(gpu) per-sample sizes on sequences")
             return None if self._filter is None else ("filt", self._filter)
         if self._static_size() is not None:
             return None if self._filter is None else ("filt", self._filter)

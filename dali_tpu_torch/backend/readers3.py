@@ -403,7 +403,7 @@ DALI_SCHEMA("readers.NemoAsr").DocStr(
 
 @register_operator("readers.NemoAsr", "cpu")
 class NemoAsrReader(BaseReader):
-    """WAV clips decode through ``audio.decode_audio``; FLAC, OGG and MP3
+    """WAV and FLAC clips decode through ``audio.decode_audio``; OGG and MP3
     raise as ``decoders.audio`` does."""
 
     def __init__(self, spec, op_id):

@@ -1,14 +1,15 @@
-"""WarpAffine and Rotate on the device, 2-D HWC (counterpart of the gpu ops of
-``dali_tpu/backend/warp.py``).
+"""WarpAffine and Rotate on the device (counterpart of the gpu ops of
+``dali_tpu/backend/warp.py``): HWC images, FHWC sequences (each frame
+warped with its sequence's matrix) and DHWC volumes.
 
 The matrices are built on the host (``host_params``): a per-sample
 ``matrix`` argument, inverted there when ``inverse_map=False``, and Rotate's
-rotation about the sample center. WarpAffine takes the reference's route for
-each batch: the separable route when every matrix is axis-aligned, the gather
-route otherwise (``device_statics``). Rotate keeps the input size
-(``keep_size``) or grows the canvas to the rotated extent, rounded up to 32
-and latched. Sequences and volumes raise ``NotImplementedError`` on the
-device (the cpu placements, ``host_ops.py``, take them). The
+rotation about the sample center (about ``axis`` through the center of a
+volume). WarpAffine takes the reference's route for each batch of images or
+frames: the separable route when every matrix is axis-aligned, the gather
+route otherwise (``device_statics``); volumes take the trilinear gather.
+Rotate keeps the input size (``keep_size``) or grows the canvas to the
+rotated extent, rounded up to 32 and latched; a volume keeps its size. The
 host CoordFlip, the ``transforms.*`` matrix generators (numpy on the host, in
 float32, composed as the reference composes them) and CoordTransform (cpu
 and gpu) of the same reference file are here too.
@@ -24,11 +25,6 @@ from ..batch import DeviceBatch
 from ..kernels import warp as warp_kernel
 from ..types import DALIDataType, DALIInterpType, to_numpy_type, to_torch_type
 from .base import Operator
-
-
-def _not_ported(what):
-    return NotImplementedError(f"{what} is not ported to dali_tpu_torch yet; see ROADMAP.md "
-                               "(Queue 1, item 5h.7)")
 
 
 DALI_SCHEMA("WarpAffine").DocStr(
@@ -54,78 +50,114 @@ def invert_affine(m):
     return np.concatenate([inv, (-inv @ m[:, nd])[:, None]], axis=1).astype(np.float32)
 
 
-def _require_2d(shapes):
-    if shapes is not None and np.asarray(shapes).shape[1] != 3:
-        raise _not_ported("warps of sequences and volumes")
+def _is_sequence(ctx, op, shapes) -> bool:
+    lay = (ctx.in_layouts(op) or [""])[0]
+    return shapes is not None and np.asarray(shapes).shape[1] >= 4 and lay.startswith("F")
+
+
+def _is_volume(ctx, op, shapes) -> bool:
+    return (shapes is not None and np.asarray(shapes).shape[1] >= 4
+            and not _is_sequence(ctx, op, shapes))
+
+
+def _per_frame(t: torch.Tensor, frames: int) -> torch.Tensor:
+    return torch.repeat_interleave(t, frames, dim=0)
 
 
 @register_operator("WarpAffine", "gpu")
 class WarpAffineGPU(Operator):
-    def _matrix_for(self, ctx, idx):
+    """HWC images, FHWC sequences (a 2-D warp of each frame, one matrix per
+    sequence) and DHWC volumes (a 3x4 matrix, 12 values)."""
+
+    def _matrix_for(self, ctx, idx, vol):
         m = ctx.arg(self, "matrix", idx, None)
-        m = np.array([[1, 0, 0], [0, 1, 0]], np.float32) if m is None else np.asarray(m, np.float32)
-        if m.size != 6:
-            raise _not_ported(f"WarpAffine with a {m.size}-value matrix (volumes)")
-        m = m.reshape(2, 3)
+        if m is None:
+            m = np.eye(3, 4, dtype=np.float32) if vol else np.eye(2, 3, dtype=np.float32)
+        m = np.asarray(m, np.float32)
+        if m.size not in (6, 12):
+            raise ValueError(f"warp matrix must have 6 (2x3) or 12 (3x4) values, got {m.size}")
+        m = m.reshape((2, 3) if m.size == 6 else (3, 4))
         return m if self.spec.GetArgument("inverse_map", True) else invert_affine(m)
 
-    def _out_size(self, h, w):
+    def _out_size(self, canvas):
         size = self.spec.GetArgument("size", None)
-        return (int(round(size[0])), int(round(size[1]))) if size else (h, w)
+        return tuple(int(round(v)) for v in size) if size else tuple(canvas)
 
     def host_output_shapes(self, ctx, input_shapes, input_batches):
         sh = input_shapes[0] if input_shapes else None
         if sh is None:
             return None
-        _require_2d(sh)
         out = np.asarray(sh).copy()
         size = self.spec.GetArgument("size", None)
-        if size:
-            out[:, 0], out[:, 1] = int(round(size[0])), int(round(size[1]))
+        if size:  # a sequence's spatial columns start after F
+            off = 1 if _is_sequence(ctx, self, sh) and out.shape[1] == len(size) + 2 else 0
+            for k, v in enumerate(size):
+                out[:, off + k] = int(round(v))
         return [out]
 
     def host_params(self, ctx, input_shapes):
-        _require_2d(input_shapes[0])
         if len(input_shapes) > 1:  # the matrices arrive as a device input
             return {}
-        self._mats = np.stack([self._matrix_for(ctx, i) for i in range(ctx.batch_size)])
+        vol = _is_volume(ctx, self, input_shapes[0])
+        self._mats = np.stack([self._matrix_for(ctx, i, vol) for i in range(ctx.batch_size)])
         return {"matrices": self._mats}
 
     def device_statics(self, ctx, input_shapes, input_batches):
-        # axis-aligned batches (scale + translate) take the separable route
-        if len(input_shapes) > 1:
+        # axis-aligned 2-D batches (scale + translate) take the separable route
+        if len(input_shapes) > 1 or self._mats.shape[1:] != (2, 3):
             return "gather"
         sep = not self._mats[:, 0, 1].any() and not self._mats[:, 1, 0].any()
         return "separable" if sep else "gather"
 
     def lower(self, dctx, inp: DeviceBatch, *matrix_input):
-        if inp.data.dim() != 4:
-            raise _not_ported("warps of sequences and volumes")
-        n, H, W, C = inp.data.shape
-        out_h, out_w = self._out_size(H, W)
+        data = inp.data
+        n = data.shape[0]
         if matrix_input:
             if not self.spec.GetArgument("inverse_map", True):
                 raise NotImplementedError("inverse_map=False with tensor matrices on device")
-            mats = matrix_input[0].data.to(torch.float32).reshape(n, 2, 3)
+            mats = matrix_input[0].data.to(torch.float32).reshape(n, -1)
         else:
-            mats = dctx.param(self, "matrices")
+            mats = dctx.param(self, "matrices").reshape(n, -1)
         dt = self.spec.GetArgument("dtype", None)
+        out_dtype = data.dtype if dt is None else to_torch_type(dt)
+        interp = DALIInterpType(self.spec.GetArgument("interp_type"))
+        fill = float(self.spec.GetArgument("fill_value"))
+        if data.dim() == 5 and inp.layout.startswith("F"):
+            from .image import _fold_frames
+
+            folded, unfold = _fold_frames(inp)
+            mats = _per_frame(mats, data.shape[1])
+            data, inp = folded.data, folded
+        else:
+            unfold = None
+        if data.dim() == 5:
+            if mats.shape[1] != 12:
+                raise ValueError("WarpAffine(gpu): a DHWC volume takes a 3x4 matrix "
+                                 f"(12 values), got {mats.shape[1]}")
+            od, oh, ow = self._out_size(data.shape[1:4])
+            out = warp_kernel.warp_affine_volumetric_batch(
+                data, mats.reshape(n, 3, 4), od, oh, ow, inp.shapes, interp, fill, out_dtype)
+            return [DeviceBatch(out, None, inp.layout or "DHWC")]
+        if mats.shape[1] != 6:
+            raise ValueError("WarpAffine(gpu): an image or a sequence's frame takes a 2x3 "
+                             f"matrix (6 values), got {mats.shape[1]}")
+        out_h, out_w = self._out_size(data.shape[1:3])
         kern = (warp_kernel.warp_affine_separable_batch if dctx.static(self) == "separable"
                 else warp_kernel.warp_affine_batch)
-        out = kern(inp.data, mats, out_h, out_w, inp.shapes,
-                   DALIInterpType(self.spec.GetArgument("interp_type")),
-                   float(self.spec.GetArgument("fill_value")),
-                   inp.data.dtype if dt is None else to_torch_type(dt))
-        return [DeviceBatch(out, None, inp.layout or "HWC")]
+        out = DeviceBatch(kern(data, mats.reshape(-1, 2, 3), out_h, out_w, inp.shapes, interp,
+                               fill, out_dtype), None, inp.layout or "HWC")
+        return [out if unfold is None else unfold(out)]
 
 
 DALI_SCHEMA("Rotate").DocStr(
     "Rotation about the image center, counter-clockwise in degrees; the canvas "
-    "grows to the rotated extent unless `keep_size` or `size`."
+    "grows to the rotated extent unless `keep_size` or `size`. Sequences rotate "
+    "each frame; DHWC volumes rotate about `axis` through their center and keep "
+    "their size unless `size` has 3 values."
 ).NumInput(1).NumOutput(1).Devices("cpu", "gpu").AddArg(
     "angle", ArgType.FLOAT, "Rotation angle (degrees, counter-clockwise).", tensor_ok=True
 ).AddOptionalArg(
-    "axis", ArgType.FLOAT_VEC, "Rotation axis of volumes (cpu placement).", [0.0, 0.0, 1.0],
+    "axis", ArgType.FLOAT_VEC, "Rotation axis (x, y, z) of volumes.", [0.0, 0.0, 1.0],
     tensor_ok=True
 ).AddOptionalArg(
     "keep_size", ArgType.BOOL, "Keep the input size instead of growing the canvas.", False
@@ -154,18 +186,41 @@ class RotateGPU(Operator):
             return h, w
         return warp_kernel.rotated_canvas_size(h, w, angle)
 
+    def _volume_params(self, ctx, shapes):
+        n = ctx.batch_size
+        size = self.spec.GetArgument("size", None)
+        fixed = tuple(int(v) for v in size) if size and len(size) == 3 else None
+        mats = np.zeros((n, 3, 4), np.float32)
+        out = shapes.astype(np.int64).copy()
+        for i in range(n):
+            d, h, w = (int(v) for v in shapes[i][:3])
+            od, oh, ow = fixed or (d, h, w)
+            out[i, :3] = (od, oh, ow)
+            angle = float(np.asarray(ctx.arg(self, "angle", i, 0.0)))
+            axis = np.asarray(ctx.arg(self, "axis", i, [0.0, 0.0, 1.0]), np.float64).reshape(-1)
+            mats[i] = warp_kernel.rotation_matrix_3d(
+                angle, axis, ((w - 1) * 0.5, (h - 1) * 0.5, (d - 1) * 0.5),
+                ((ow - 1) * 0.5, (oh - 1) * 0.5, (od - 1) * 0.5))
+        self._vol_size = fixed
+        self._out_shapes = out
+        return {"matrices": mats}
+
     def host_params(self, ctx, input_shapes):
         shapes = input_shapes[0]
         if shapes is None:
             raise RuntimeError("Rotate(gpu) needs host-known input shapes (its canvas math "
                                "runs on the host); the producing op must implement "
                                "host_output_shapes")
-        _require_2d(shapes)
+        shapes = np.asarray(shapes)
+        self._volume = _is_volume(ctx, self, shapes)
+        if self._volume:
+            return self._volume_params(ctx, shapes)
+        hw0 = 1 if _is_sequence(ctx, self, shapes) else 0  # FHWC shapes: (F, H, W, C)
         n = ctx.batch_size
         mats = np.zeros((n, 2, 3), np.float32)
         sizes = np.zeros((n, 2), np.int32)
         for i in range(n):
-            h, w = int(shapes[i][0]), int(shapes[i][1])
+            h, w = int(shapes[i][hw0]), int(shapes[i][hw0 + 1])
             angle = float(np.asarray(ctx.arg(self, "angle", i, 0.0)))
             oh, ow = self._out_size_for(h, w, angle)
             sizes[i] = (oh, ow)
@@ -175,35 +230,56 @@ class RotateGPU(Operator):
             self._grow[d] = max(self._grow[d],
                                 int(-(-sizes[:, d].max() // _GROW_ALIGN) * _GROW_ALIGN))
         self._sizes = sizes
-        self._channels = shapes[:, 2].astype(np.int64)
+        out = shapes.astype(np.int64).copy()
+        out[:, hw0:hw0 + 2] = sizes
+        self._out_shapes = out
         return {"matrices": mats, "out_sizes": sizes}
 
     def host_output_shapes(self, ctx, input_shapes, input_batches):
-        return [np.concatenate([self._sizes.astype(np.int64), self._channels[:, None]], axis=1)]
+        return [self._out_shapes]
 
     def device_statics(self, ctx, input_shapes, input_batches):
-        # a batch of one output size runs at that size; a mixed batch on the
-        # grown canvas, with per-sample extents
+        # a volume keeps its canvas (or takes `size`); a batch of one 2-D
+        # output size runs at that size; a mixed batch on the grown canvas,
+        # with per-sample extents
+        if self._volume:
+            return ("v",) + (self._vol_size or ())
         if (self._sizes == self._sizes[0]).all():
             return ("u", int(self._sizes[0, 0]), int(self._sizes[0, 1]))
         return ("r", self._grow[0], self._grow[1])
 
     def lower(self, dctx, inp: DeviceBatch):
-        if inp.data.dim() != 4:
-            raise _not_ported("Rotate(gpu) of sequences and volumes")
-        kind, out_h, out_w = dctx.static(self)
+        st = dctx.static(self)
         dt = self.spec.GetArgument("dtype", None)
-        out = warp_kernel.warp_affine_batch(
-            inp.data, dctx.param(self, "matrices"), out_h, out_w, inp.shapes,
-            DALIInterpType(self.spec.GetArgument("interp_type")),
-            float(self.spec.GetArgument("fill_value")),
-            inp.data.dtype if dt is None else to_torch_type(dt))
-        if kind == "u":
-            return [DeviceBatch(out, None, inp.layout or "HWC")]
-        sizes = dctx.param(self, "out_sizes")
-        channels = torch.full((sizes.shape[0], 1), inp.data.shape[3], dtype=torch.int32,
-                              device=sizes.device)
-        return [DeviceBatch(out, torch.cat([sizes, channels], dim=1), inp.layout or "HWC")]
+        out_dtype = inp.data.dtype if dt is None else to_torch_type(dt)
+        interp = DALIInterpType(self.spec.GetArgument("interp_type"))
+        fill = float(self.spec.GetArgument("fill_value"))
+        mats = dctx.param(self, "matrices")
+        if st[0] == "v":
+            od, oh, ow = st[1:] or inp.data.shape[1:4]
+            out = warp_kernel.warp_affine_volumetric_batch(
+                inp.data, mats, od, oh, ow, inp.shapes, interp, fill, out_dtype)
+            return [DeviceBatch(out, None, inp.layout or "DHWC")]
+        unfold = None
+        if inp.data.dim() == 5:  # a sequence: each frame on its own
+            from .image import _fold_frames
+
+            frames = inp.data.shape[1]
+            inp, unfold = _fold_frames(inp)
+            mats = _per_frame(mats, frames)
+        kind, out_h, out_w = st
+        out = warp_kernel.warp_affine_batch(inp.data, mats, out_h, out_w, inp.shapes, interp,
+                                            fill, out_dtype)
+        shapes = None
+        if kind == "r":
+            sizes = dctx.param(self, "out_sizes")
+            if unfold is not None:
+                sizes = _per_frame(sizes, frames)
+            channels = torch.full((sizes.shape[0], 1), inp.data.shape[-1], dtype=torch.int32,
+                                  device=sizes.device)
+            shapes = torch.cat([sizes, channels], dim=1)
+        out = DeviceBatch(out, shapes, inp.layout or "HWC")
+        return [out if unfold is None else unfold(out)]
 
 
 # ======================================== CoordFlip ==================================================

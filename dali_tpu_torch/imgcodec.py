@@ -9,13 +9,14 @@ gives each route's output without either library:
   ``csrc/host/jpeg_decode.cc``), uint8-equal to its ``JDCT_ISLOW`` output;
 * ``cv2.imdecode`` for everything else it reads: CMYK and YCCK JPEGs (the
   same C++ decoder reports this route and gives OpenCV's CMYK conversion),
-  PNG (chunks and zlib inflate here, pixels in ``csrc/host/png_decode.cc``)
-  and BMP (``csrc/host/bmp_decode.cc``). On this route GRAY is cv2's
+  PNG (chunks and zlib inflate here, pixels in ``csrc/host/png_decode.cc``),
+  BMP (``csrc/host/bmp_decode.cc``) and GIF (``csrc/host/gif_decode.cc``: the
+  first image on the logical screen). On this route GRAY is cv2's
   ``IMREAD_GRAYSCALE``, 16-bit PNG samples stay 16-bit until the dtype
   conversion, ``denom`` applies to JPEG only, and the EXIF orientation that
   cv2 applies itself (JPEG APP1, PNG eXIf) is applied.
 
-GIF, TIFF, WebP and the other formats cv2 reads raise ``NotImplementedError``.
+TIFF, WebP and the other formats cv2 reads raise ``NotImplementedError``.
 The header peeks (JPEG SOF, PNG IHDR, BMP, GIF, WebP) are pure Python, as in
 the reference.
 """
@@ -30,9 +31,9 @@ import numpy as np
 from . import native
 from .types import DALIDataType, DALIImageType, to_numpy_type
 
-NOT_JPEG = ("only JPEG, PNG and BMP decode in dali_tpu_torch; GIF, TIFF, WebP and the other "
+NOT_JPEG = ("only JPEG, PNG, BMP and GIF decode in dali_tpu_torch; TIFF, WebP and the other "
             "formats the reference decodes through cv2/PIL are not ported (see ROADMAP.md, "
-            "Queue 1 items 1c-1e)")
+            "Queue 1 items 1d-1e)")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
@@ -148,6 +149,9 @@ def decode(data: bytes, output_type=DALIImageType.RGB, denom: int = 1,
     if is_bmp(data):
         _check_size(*native.bmp_shape(data))
         return cv2_route_output(native.decode_bmp(data, gray), 1, output_type, dtype)
+    if is_gif(data):
+        _check_size(*native.gif_shape(data))
+        return cv2_route_output(native.decode_gif(data, gray), 1, output_type, dtype)
     if not is_jpeg(data):
         raise NotImplementedError(NOT_JPEG)
     if adjust_orientation:
@@ -281,6 +285,10 @@ def is_bmp(data: bytes) -> bool:
     return bytes(data[:2]) == b"BM"
 
 
+def is_gif(data: bytes) -> bool:
+    return bytes(data[:6]) in (b"GIF87a", b"GIF89a")
+
+
 def peek_shape(data: bytes):
     """(h, w, c) from the header without a full decode."""
     if is_jpeg(data):
@@ -292,7 +300,7 @@ def peek_shape(data: bytes):
     if data[:2] == b"BM":
         w, h = struct.unpack("<ii", data[18:26])
         return abs(h), w, 3
-    if data[:6] in (b"GIF87a", b"GIF89a"):
+    if is_gif(data):
         w, h = struct.unpack("<HH", data[6:10])
         return h, w, 3
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":

@@ -10,6 +10,9 @@ reference's device lowering, in the same order of operations.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
@@ -34,12 +37,80 @@ def _rgb_to_yiq() -> np.ndarray:
                      [0.211456, -0.522591, 0.311135]], np.float32)
 
 
+def _fma_sum(pairs) -> torch.Tensor:
+    """float32 sum of the products a * b of float32 pairs, in the order of
+    XLA's CPU dot: the first product rounded, then a chain of fused
+    multiply-adds (one rounding per term), so that a value next to a rounding
+    tie lands on the reference's side. On the CPU each fused multiply-add is
+    emulated in float64; on the card ``torch.addcmul`` is one (its CUDA
+    kernel contracts to an FMA: ``tools/bench_color_twist.py`` holds it
+    equal to the emulation)."""
+    acc = None
+    for a, b in pairs:
+        if acc is None:
+            acc = a * b
+        elif acc.is_cuda:
+            acc = torch.addcmul(acc, a, b)
+        else:
+            acc = (acc.to(torch.float64) + a.to(torch.float64) * b.to(torch.float64)).to(
+                torch.float32)
+    return acc
+
+
+def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., 3, 3] @ b [..., 3, 3], each entry summed as ``_fma_sum``."""
+    return _fma_sum((a[..., :, k, None], b[..., None, k, :]) for k in range(3))
+
+
+def _unfused_rows(m: int) -> int:
+    """How many leading rows of XLA's CPU dot [m, 3] x [3, 3] sum their first
+    two columns unfused: whole tiles of 8 rows, or none below 16 rows and
+    from 20 to 23 and 28 to 31 (fitted against jax.numpy for m up to 3,300)."""
+    return 0 if m < 16 or (m < 32 and m % 8 >= 4) else 8 * (m // 8)
+
+
+def _xla_dot(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [..., 3] @ b [3, 3] as XLA's CPU dot of x's rows, flattened to [M, 3],
+    sums it: in the first ``_unfused_rows(M)`` rows the first two columns are
+    summed unfused (each product rounded, added left to right); every other
+    entry takes the chain of ``_fma_sum``."""
+    fused = _fma_sum((x[..., k, None], b[k]) for k in range(3))
+    rows = x[..., 0].numel()
+    u = _unfused_rows(rows)
+    if u == 0:
+        return fused
+    unfused = (x[..., 0, None] * b[0] + x[..., 1, None] * b[1]) + x[..., 2, None] * b[2]
+    tiled = (torch.arange(rows, device=x.device) < u).reshape(*x.shape[:-1], 1)
+    return torch.where(tiled & torch.tensor([True, True, False], device=x.device), unfused, fused)
+
+
+@functools.lru_cache(maxsize=None)
+def _libm():
+    lib = ctypes.CDLL("libm.so.6")
+    for name in ("cosf", "sinf"):
+        getattr(lib, name).restype = ctypes.c_float
+        getattr(lib, name).argtypes = [ctypes.c_float]
+    return lib
+
+
+def _cos_sin(h: torch.Tensor):
+    """cos and sin of float32 radians; on the CPU through the C library's
+    cosf and sinf, which XLA's CPU backend calls (torch's vectorised ones
+    differ from them by an ulp on about 5% of inputs)."""
+    if h.device.type != "cpu":
+        return torch.cos(h), torch.sin(h)
+    vals = h.tolist()
+    return tuple(torch.tensor([f(v) for v in vals], dtype=torch.float32)
+                 for f in (_libm().cosf, _libm().sinf))
+
+
 def color_twist_matrices(hue_deg, saturation, value) -> torch.Tensor:
-    """Per-sample [N, 3, 3] hue/saturation/value matrices from [N] vectors."""
+    """Per-sample [N, 3, 3] hue/saturation/value matrices from [N] vectors,
+    each product summed in XLA-CPU's order (``_xla_dot``, ``_matmul3``)."""
     hue_deg, saturation, value = (v.to(torch.float32).reshape(-1)
                                   for v in (hue_deg, saturation, value))
     h = hue_deg * (np.pi / 180.0)
-    c, s = torch.cos(h), torch.sin(h)
+    c, s = _cos_sin(h)
     zeros, ones = torch.zeros_like(c), torch.ones_like(c)
     hue_mat = torch.stack([torch.stack([ones, zeros, zeros], -1),
                            torch.stack([zeros, c, -s], -1),
@@ -48,12 +119,19 @@ def color_twist_matrices(hue_deg, saturation, value) -> torch.Tensor:
     sat_mat = sv[:, :, None] * torch.eye(3, dtype=torch.float32, device=sv.device)
     to_yiq = torch.from_numpy(_rgb_to_yiq()).to(sv.device)
     from_yiq = torch.from_numpy(np.linalg.inv(_rgb_to_yiq()).astype(np.float32)).to(sv.device)
-    return from_yiq @ (sat_mat @ (hue_mat @ to_yiq))
+    return _matmul3(from_yiq, _matmul3(sat_mat, _xla_dot(hue_mat, to_yiq)))
 
 
 def apply_color_matrices(img: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
-    """img [N, ..., 3] x per-sample mats [N, 3, 3]."""
-    return torch.einsum("n...c,ndc->n...d", img, mats)
+    """img [N, ..., C] x per-sample mats [N, 3, 3] -> [N, ..., 3], summed as
+    ``_fma_sum`` (a batch of one image as the plain dot ``_xla_dot``, as XLA
+    folds it); a 1-channel image broadcasts: x * (m[d, 0] + m[d, 1] + m[d, 2])."""
+    m = mats.reshape(mats.shape[0], *(1,) * (img.dim() - 2), 3, 3)
+    if img.shape[-1] == 1:
+        return img * ((m[..., 0] + m[..., 1]) + m[..., 2])
+    if img.shape[0] == 1 and img.dim() > 3:
+        return _xla_dot(img[0], mats[0].T)[None]
+    return _fma_sum((img[..., c, None], m[..., c]) for c in range(3))
 
 
 def brightness_contrast(img, brightness, brightness_shift, contrast, contrast_center,

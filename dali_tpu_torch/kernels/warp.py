@@ -1,11 +1,12 @@
 """Affine and perspective warps of padded batches on torch tensors
-(counterpart of ``dali_tpu/kernels/warp.py``, 2-D HWC).
+(counterpart of ``dali_tpu/kernels/warp.py``): 2-D HWC, and DHWC volumes.
 
 Each output pixel (x, y) samples the input at M @ (x, y, 1) with NN or
 bilinear taps; taps outside the sample's valid extent read ``fill_value``.
 Two routes, as in the reference: the gather route for any affine, and the
 separable route for axis-aligned matrices (m01 == m10 == 0), which warps
-with two per-sample interpolation-matrix products. The host-side matrix and
+with two per-sample interpolation-matrix products. Volumes take a gather
+route with trilinear taps. The host-side matrix and
 canvas helpers, and the host warp of one DHWC volume
 (``warp_affine_volumetric_np``), are the reference's numpy code.
 """
@@ -100,6 +101,61 @@ def warp_affine_separable_batch(data, matrices, out_h: int, out_w: int, extents=
     lost = 1.0 - a_y.sum(dim=2)[:, :, None] * a_x.sum(dim=2)[:, None, :]
     out = core + lost[..., None] * fill_value
     return saturate_cast(out, out_dtype if out_dtype is not None else data.dtype).contiguous()
+
+
+def warp_affine_volumetric_batch(data, matrices, out_d: int, out_h: int, out_w: int,
+                                 extents=None, interp=DALIInterpType.INTERP_LINEAR,
+                                 fill_value: float = 0.0, out_dtype=None):
+    """Gather route of volumes: data [N, D, H, W, C], matrices [N, 3, 4]
+    destination -> source in (x, y, z) row order, extents [N, >=3] valid
+    (d, h, w) -> [N, out_d, out_h, out_w, C]. Each output voxel samples
+    M @ (x, y, z, 1) with the nearest voxel (rounded half to even) or
+    trilinear taps; taps outside the sample's extent read ``fill_value``."""
+    n, D, H, W, C = data.shape
+    dev = data.device
+    if extents is None:
+        ext = torch.tensor([[D, H, W]], dtype=torch.int32, device=dev).expand(n, 3)
+    else:
+        ext = extents[:, :3].to(torch.int32)
+    m = matrices.to(torch.float32)
+    gz, gy, gx = torch.meshgrid(torch.arange(out_d, dtype=torch.float32, device=dev),
+                                torch.arange(out_h, dtype=torch.float32, device=dev),
+                                torch.arange(out_w, dtype=torch.float32, device=dev),
+                                indexing="ij")
+    gz, gy, gx = gz[None], gy[None], gx[None]
+
+    def coef(i, j):
+        return m[:, i, j].reshape(n, 1, 1, 1)
+
+    sx = coef(0, 0) * gx + coef(0, 1) * gy + coef(0, 2) * gz + coef(0, 3)
+    sy = coef(1, 0) * gx + coef(1, 1) * gy + coef(1, 2) * gz + coef(1, 3)
+    sz = coef(2, 0) * gx + coef(2, 1) * gy + coef(2, 2) * gz + coef(2, 3)
+    ed, eh, ew = (ext[:, k].reshape(n, 1, 1, 1) for k in range(3))
+    flat = data.to(torch.float32).reshape(n, D * H * W, C)
+    count = out_d * out_h * out_w
+
+    def tap(iz, iy, ix):
+        valid = (ix >= 0) & (ix < ew) & (iy >= 0) & (iy < eh) & (iz >= 0) & (iz < ed)
+        lin = ((torch.clamp(iz, 0, D - 1) * H + torch.clamp(iy, 0, H - 1)) * W
+               + torch.clamp(ix, 0, W - 1)).to(torch.int64)
+        v = torch.gather(flat, 1, lin.reshape(n, count, 1).expand(n, count, C))
+        v = v.reshape(n, out_d, out_h, out_w, C)
+        return torch.where(valid[..., None], v, torch.full_like(v, fill_value))
+
+    if interp == DALIInterpType.INTERP_NN:
+        out = tap(torch.round(sz).to(torch.int32), torch.round(sy).to(torch.int32),
+                  torch.round(sx).to(torch.int32))
+    else:
+        z0, y0, x0 = torch.floor(sz), torch.floor(sy), torch.floor(sx)
+        wz, wy, wx = (sz - z0)[..., None], (sy - y0)[..., None], (sx - x0)[..., None]
+        iz0, iy0, ix0 = z0.to(torch.int32), y0.to(torch.int32), x0.to(torch.int32)
+
+        def bilin(iz):
+            return ((tap(iz, iy0, ix0) * (1 - wx) + tap(iz, iy0, ix0 + 1) * wx) * (1 - wy)
+                    + (tap(iz, iy0 + 1, ix0) * (1 - wx) + tap(iz, iy0 + 1, ix0 + 1) * wx) * wy)
+
+        out = bilin(iz0) * (1 - wz) + bilin(iz0 + 1) * wz
+    return saturate_cast(out, out_dtype if out_dtype is not None else data.dtype)
 
 
 def rotation_matrix(angle_deg, center_xy, out_center_xy):

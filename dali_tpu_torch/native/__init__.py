@@ -97,6 +97,17 @@ def host_lib():
                 f.restype = ci
                 f.argtypes = [vp, ci, ci, ci, ci, vp, ci, ci] + [vp] * (
                     2 if name.endswith("remap") else 1) + [ci, ci, ctypes.c_double]
+            lib.dali_tpu_torch_gif_info.restype = ci
+            lib.dali_tpu_torch_gif_info.argtypes = [u8p, sz, ip, ip]
+            lib.dali_tpu_torch_gif_decode.restype = ci
+            lib.dali_tpu_torch_gif_decode.argtypes = [u8p, sz, ci, vp]
+            lib.dali_tpu_torch_flac_decode_batch.restype = ci
+            lib.dali_tpu_torch_flac_decode_batch.argtypes = [
+                vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t), ci,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_float)), llp, ip,
+                ctypes.POINTER(ctypes.c_double), ip]
+            lib.dali_tpu_torch_flac_free.restype = None
+            lib.dali_tpu_torch_flac_free.argtypes = [ctypes.POINTER(ctypes.c_float)]
             _LIB = lib
     return _LIB
 
@@ -504,6 +515,37 @@ def decode_jpeg(data, denom: int = 1, fancy_upsampling: bool = True, gray: bool 
     return decode_jpeg_routed(data, denom, fancy_upsampling, gray)[0]
 
 
+# ------------------------------------------------------------------ FLAC
+def decode_flac_batch(pool, datas):
+    """Decode a batch of FLAC streams with one native call
+    (``flac_decode.cc``), each on a worker of ``pool`` (inline without one).
+    Returns, per stream, (float32 [n] or [n, channels], sample rate), or
+    None for a stream that is malformed or fails a CRC."""
+    n = len(datas)
+    arrs, ptrs, lens = _byte_arrays(datas)
+    fp = ctypes.POINTER(ctypes.c_float)
+    outs = (fp * n)()
+    frames = (ctypes.c_longlong * n)()
+    chans = (ctypes.c_int * n)()
+    rates = (ctypes.c_double * n)()
+    rcs = (ctypes.c_int * n)()
+    lib = host_lib()
+    lib.dali_tpu_torch_flac_decode_batch(_pool_handle(pool), ptrs, lens, n, outs, frames, chans,
+                                         rates, rcs)
+    del arrs
+    res = []
+    for i in range(n):
+        if rcs[i] != 0:
+            res.append(None)
+            continue
+        try:
+            x = np.ctypeslib.as_array(outs[i], shape=(frames[i] * chans[i],)).copy()
+        finally:
+            lib.dali_tpu_torch_flac_free(outs[i])
+        res.append((x.reshape(frames[i], chans[i]) if chans[i] > 1 else x, float(rates[i])))
+    return res
+
+
 # ------------------------------------------------------------------ PNG and BMP pixels
 def _u8(a):
     a = np.ascontiguousarray(np.frombuffer(a, np.uint8) if isinstance(a, (bytes, bytearray))
@@ -548,6 +590,28 @@ def decode_bmp(data, gray=False):
     out = np.empty((h, w, 1 if gray else 3), np.uint8)
     if host_lib().dali_tpu_torch_bmp_decode(p, arr.nbytes, 1 if gray else 0, out.ctypes.data) != 0:
         raise ValueError("BMP decode failed: corrupt or truncated pixel data")
+    return out
+
+
+def gif_shape(data):
+    """(h, w) of a GIF's logical screen; ValueError for a header it rejects."""
+    arr, p = _u8(data)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    if host_lib().dali_tpu_torch_gif_info(p, arr.nbytes, ctypes.byref(h), ctypes.byref(w)) != 0:
+        raise ValueError("GIF decode failed: not a GIF or a corrupt header")
+    return h.value, w.value
+
+
+def decode_gif(data, gray=False):
+    """The first image of a GIF on its logical screen, HWC uint8 RGB or
+    (``gray``) one channel, as cv2.imdecode gives it (channel order aside;
+    ``gif_decode.cc``). Raises ValueError for a malformed stream."""
+    h, w = gif_shape(data)
+    arr, p = _u8(data)
+    out = np.empty((h, w, 1 if gray else 3), np.uint8)
+    if host_lib().dali_tpu_torch_gif_decode(p, arr.nbytes, 1 if gray else 0,
+                                            out.ctypes.data) != 0:
+        raise ValueError("GIF decode failed: corrupt or truncated image data")
     return out
 
 

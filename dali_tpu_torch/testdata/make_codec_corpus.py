@@ -12,7 +12,10 @@ corpus:
 * an 8-bit RGB PNG stored under a ``.JPEG`` name, as ImageNet's
   ``n02105855_2933.JPEG`` is; a 16-bit RGB PNG; a palette PNG with tRNS;
 * a 24-bit BMP and an 8-bit RLE8 BMP;
-* a progressive JPEG cut at 60% of its bytes.
+* a progressive JPEG cut at 60% of its bytes;
+* GIFs (PIL, and ``gif_bytes`` here): a 256-colour GIF87a, an interlaced
+  16-colour one, a GIF89a with a transparent index, a 4-colour local colour
+  table on an image offset in a larger screen, and a two-frame animation.
 
 Forms neither cv2 nor PIL writes (YCCK, RGB colour, h=4 luma, partly
 interleaved scans) come from a one-off writer built here against the system
@@ -170,6 +173,95 @@ def rle8_bmp(index, palette):
     return head + info + pal + bytes(body)
 
 
+def lzw_gif(indices, min_code_size: int) -> bytes:
+    """GIF's variable-width LZW of palette indices (codes LSB first, a clear
+    code first and when the table fills), in sub-blocks of 255 bytes."""
+    clear, eoi = 1 << min_code_size, (1 << min_code_size) + 1
+    codes = [(clear, min_code_size + 1)]
+    table, size, nxt = {}, min_code_size + 1, eoi + 1
+    data = np.asarray(indices, np.uint8).reshape(-1).tolist()
+    prefix = data[0]
+    for k in data[1:]:
+        key = (prefix, k)
+        if key in table:
+            prefix = table[key]
+            continue
+        codes.append((prefix, size))
+        if nxt < 4096:
+            table[key] = nxt
+            nxt += 1
+            if nxt > (1 << size) and size < 12:
+                size += 1
+        else:
+            codes.append((clear, size))
+            table, size, nxt = {}, min_code_size + 1, eoi + 1
+        prefix = k
+    codes += [(prefix, size), (eoi, size)]
+    acc = nbits = 0
+    out = bytearray()
+    for code, width in codes:
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc)
+    blocks = b"".join(bytes([len(out[i:i + 255])]) + out[i:i + 255]
+                      for i in range(0, len(out), 255))
+    return bytes([min_code_size]) + blocks + b"\0"
+
+
+def _table_bits(n: int) -> int:
+    """GIF's colour table size field for ``n`` entries (2^(field + 1) >= n)."""
+    return max(int(np.ceil(np.log2(max(n, 2)))) - 1, 0)
+
+
+def gif_bytes(frames, width, height, global_palette=None, background=0, version=b"GIF89a",
+              loop=None, comment=None):
+    """A GIF file. ``frames``: dicts with ``index`` (uint8 [h, w]),
+    optional ``palette`` (a local colour table, [n, 3]), ``left``/``top``,
+    ``interlace``, ``transparent`` (an index, written in a Graphic Control
+    Extension), ``disposal``, ``delay`` and ``min_code_size``."""
+    out = bytearray(version + width.to_bytes(2, "little") + height.to_bytes(2, "little"))
+    if global_palette is not None:
+        gb = _table_bits(len(global_palette))
+        gpal = np.zeros((2 << gb, 3), np.uint8)
+        gpal[:len(global_palette)] = global_palette
+        out += bytes([0x80 | (7 << 4) | gb, background, 0]) + gpal.tobytes()
+    else:
+        out += bytes([0x70, background, 0])
+    if loop is not None:
+        out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + loop.to_bytes(2, "little") + b"\0"
+    if comment is not None:
+        out += b"\x21\xfe" + bytes([len(comment)]) + comment + b"\0"
+    for f in frames:
+        idx = np.asarray(f["index"], np.uint8)
+        h, w = idx.shape
+        if "transparent" in f or "disposal" in f or "delay" in f:
+            t = f.get("transparent")
+            out += bytes([0x21, 0xF9, 4, (f.get("disposal", 0) << 2) | (t is not None)])
+            out += f.get("delay", 0).to_bytes(2, "little") + bytes([t or 0, 0])
+        packed = 0x40 if f.get("interlace") else 0
+        pal = f.get("palette")
+        if pal is not None:
+            lb = _table_bits(len(pal))
+            lpal = np.zeros((2 << lb, 3), np.uint8)
+            lpal[:len(pal)] = pal
+            packed |= 0x80 | lb
+        out += b"\x2c" + b"".join(v.to_bytes(2, "little") for v in
+                                   (f.get("left", 0), f.get("top", 0), w, h)) + bytes([packed])
+        if pal is not None:
+            out += lpal.tobytes()
+        rows = idx
+        if f.get("interlace"):
+            rows = np.concatenate([idx[0::8], idx[4::8], idx[2::4], idx[1::2]])
+        ncolors = len(pal if pal is not None else global_palette)
+        out += lzw_gif(rows, f.get("min_code_size", max(_table_bits(ncolors) + 1, 2)))
+    return bytes(out + b"\x3b")
+
+
 def build(out=OUT):
     import cv2
     from PIL import Image
@@ -213,9 +305,47 @@ def build(out=OUT):
     prog = cv2.imencode(".jpg", _source(12, 375, 500)[:, :, ::-1], [
         cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
     files["progressive_cut60.jpg"] = prog[:int(len(prog) * 0.6)]
+    files.update(gif_fixtures())
     for name, data in files.items():
         with open(os.path.join(out, name), "wb") as f:
             f.write(data)
+    return files
+
+
+def gif_fixtures():
+    """The GIF forms, each from an rn50 corpus file at an ImageNet-like size
+    (PIL's writer; ``gif_bytes`` for the local colour table on an offset
+    image, which PIL does not write first)."""
+    from PIL import Image
+
+    def quantized(i, h, w, colors):
+        # blocks of 4 pixels, as an upscaled photo has, keep each file small
+        img = Image.fromarray(_source(i, -(-h // 4), -(-w // 4))).quantize(colors)
+        return img.resize((w, h), Image.Resampling.NEAREST)
+
+    def pil_gif(img, **kw):
+        buf = io.BytesIO()
+        img.save(buf, "GIF", **kw)
+        return buf.getvalue()
+
+    files = {"gif87a_palette.gif": pil_gif(quantized(13, 375, 500, 256), interlace=False),
+             "gif_interlaced.gif": pil_gif(quantized(14, 500, 333, 16), interlace=True),
+             "gif89a_transparent.gif": pil_gif(quantized(15, 333, 500, 64), transparency=5,
+                                               interlace=False)}
+    # a local colour table of 4 entries on an image offset in a larger screen,
+    # whose global table holds the background colour
+    q = quantized(16, 240, 320, 4)
+    local = np.asarray(q.getpalette()[:12], np.uint8).reshape(4, 3)
+    files["gif_local_offset.gif"] = gif_bytes(
+        [{"index": np.asarray(q), "palette": local, "left": 90, "top": 70, "transparent": 2}],
+        500, 375, global_palette=np.array([[30, 60, 90], [200, 10, 10]], np.uint8))
+    first = quantized(17, 375, 500, 128)
+    second = first.copy()
+    second.paste(quantized(18, 120, 160, 128), (40, 30))
+    buf = io.BytesIO()
+    first.save(buf, "GIF", save_all=True, append_images=[second], duration=80, loop=0,
+               interlace=False)
+    files["gif_animated.gif"] = buf.getvalue()
     return files
 
 

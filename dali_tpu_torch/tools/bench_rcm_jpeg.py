@@ -279,6 +279,10 @@ def image_op_cases(rng, batch, hw, ragged):
         "sequence_rearrange": (lambda fn, t, s: fn.sequence_rearrange(s, new_order=order), seqs,
                                "equal"),
         "per_frame": (lambda fn, t, s: fn.per_frame(s), seqs, "equal"),
+        # rounding ties of the colour matrices, summed in XLA-CPU's order
+        "color_twist_brightness_0.9": (lambda fn, t, x: fn.color_twist(x, brightness=0.9), imgs,
+                                       "equal"),
+        "hsv_value_0.9": (lambda fn, t, x: fn.hsv(x, value=0.9), imgs, "equal"),
     }
 
 

@@ -67,8 +67,15 @@ def test_decode_wav_bit_equal(kind):
 
 
 def test_compressed_audio_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """FLAC decodes since item 4, so a malformed FLAC stream raises
+    ValueError, as the reference's decoder failing does; OGG and MP3 are not
+    ported and name their ROADMAP item."""
+    with pytest.raises(ValueError, match="malformed FLAC"):
         port_audio.decode_audio(b"fLaC\x00\x00\x00\x22" + bytes(64))
+    for blob in (b"OggS" + bytes(60), b"ID3\x04\x00\x00\x00\x00\x00\x00" + b"\xff\xfb" + bytes(60),
+                 b"\xff\xfb\x90\x00" + bytes(60)):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md \(Queue 1, item 4b\)"):
+            port_audio.decode_audio(blob)
 
 
 @pytest.fixture(scope="module")

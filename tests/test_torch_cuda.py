@@ -33,7 +33,11 @@ device outputs, the mixed Numpy reader's (device="gpu") and decoders.numpy's
 equal the CPU run's bit for bit. The device random and noise operators are
 held by their distributions (a card's generator does not reproduce a CPU
 generator's stream) and leave the global generators untouched; the
-rn50_affine_mixup path's host draws and warped images match the CPU run."""
+rn50_affine_mixup path's host draws and warped images match the CPU run.
+The gpu ops on FHWC sequences and DHWC volumes, the colour-twist rounding
+ties, the sequence_augment and volume_augment graphs and the GIF fixtures
+through the mixed decoders equal the CPU run; the ASR front end on FLAC
+equals it on WAV of the same PCM, bit for bit."""
 
 import os
 
@@ -523,29 +527,32 @@ def test_unported_image_paths_raise_on_card(card):
         finally:
             pipe.shutdown()
 
-    # a GIF signature: a format not ported; a JPEG whose frame is 12-bit
-    with pytest.raises(NotImplementedError, match=r"Queue 1 items 1c-1e"):
-        run(b"GIF89a" + bytes(26), device="mixed")
+    # a TIFF signature: a format not ported (GIF decodes since item 1c); a
+    # JPEG whose frame is 12-bit
+    with pytest.raises(NotImplementedError, match=r"Queue 1 items 1d-1e"):
+        run(b"II*\x00" + bytes(28), device="mixed")
     first = open(sorted(os.path.join(r, f) for r, _, fs in os.walk(CORPUS) for f in fs)[0],
                  "rb").read()
     sof = first.index(b"\xff\xc0")
     twelve_bit = first[:sof + 4] + b"\x0c" + first[sof + 5:]
     with pytest.raises(NotImplementedError, match=r"Queue 1 item 1a\), or 12-bit"):
         run(twelve_bit, device="mixed")
-    vols = [np.zeros((3, 6, 8, 1), np.uint8)] * 2
+    # volumes blur on the card since item 5h.7, as on the CPU
+    vols = [np.random.default_rng(2).integers(0, 256, (3, 6, 8, 1), np.uint8)] * 2
+    blurred = []
+    for device in (card, "cpu"):
+        @pipeline_def(batch_size=2, num_threads=1, device=device)
+        def blur_volumes():
+            return fn.gaussian_blur(fn.external_source(source=lambda: vols, batch=True,
+                                                       layout="DHWC").gpu(), window_size=3)
 
-    @pipeline_def(batch_size=2, num_threads=1, device=card)
-    def blur_volumes():
-        return fn.gaussian_blur(fn.external_source(source=lambda: vols, batch=True,
-                                                   layout="DHWC").gpu(), window_size=3)
-
-    pipe = blur_volumes()
-    pipe.build()
-    try:
-        with pytest.raises(NotImplementedError, match=r"Queue 1, item 5h\.7"):
-            pipe.run()
-    finally:
-        pipe.shutdown()
+        pipe = blur_volumes()
+        pipe.build()
+        try:
+            blurred.append(pipe.run()[0].as_tensor().cpu())
+        finally:
+            pipe.shutdown()
+    assert torch.equal(*blurred)
     with pytest.raises(NotImplementedError, match="never reads"):
         build(lambda j: fn.resize(fn.decoders.image(j, device="mixed", hybrid_device_decode=True,
                                                     hybrid_wire="int8"),
@@ -1480,3 +1487,165 @@ def test_rn50_host_augment_on_card_cmn_placements_agree(card, tmp_path):
     r = bench_dali_cpu.check_rn50_dali_cpu(_affine_file_list(tmp_path, 32), batch=16,
                                            augment=True)
     assert r["max_abs_diff"] <= bench_dali_cpu.CMN_ATOL
+
+
+# -- item 5h.7, F2, FLAC and GIF on the card -------------------------------------------------------
+
+SEQ_VOLUME_OPS = {
+    "warp_affine": lambda x, lay: fn.warp_affine(
+        x, matrix=[0.9, 0.2, 1.0, -0.1, 1.1, 0.5] if lay == "FHWC"
+        else [0.9, 0.1, 0.05, 0.5, -0.1, 1.05, 0.1, 0.2, 0.05, -0.1, 0.95, 0.3]),
+    "rotate": lambda x, lay: fn.rotate(x, angle=15.0, axis=[0.3, 0.5, 1.0]),
+    "gaussian_blur": lambda x, lay: fn.gaussian_blur(
+        x, sigma=[0.8, 1.2, 1.6] if lay == "DHWC" else 1.1),
+    "equalize": lambda x, lay: fn.experimental.equalize(x),
+}
+
+
+def _seq_volume_run(device, name, layout, data):
+    @pipeline_def(batch_size=len(data), num_threads=1, seed=3, device=device)
+    def p():
+        x = fn.external_source(source=lambda: data, batch=True, layout=layout).gpu()
+        return SEQ_VOLUME_OPS[name](x, layout)
+
+    pipe = p()
+    pipe.build()
+    try:
+        out = pipe.run()[0]
+        return [torch.as_tensor(np.asarray(out.as_cpu().at(i))) for i in range(len(data))]
+    finally:
+        pipe.shutdown()
+
+
+# Equalize(gpu) takes uniform sequences and volumes only, as dali_tpu's does
+SEQ_VOLUME_CASES = [(name, layout, ragged) for name in sorted(SEQ_VOLUME_OPS)
+                    for layout in ("FHWC", "DHWC") for ragged in (False, True)
+                    if not (name == "equalize" and ragged)]
+
+
+@pytest.mark.parametrize("name,layout,ragged", SEQ_VOLUME_CASES,
+                         ids=[f"{n}-{lay}-{'ragged' if r else 'uniform'}"
+                              for n, lay, r in SEQ_VOLUME_CASES])
+def test_sequence_and_volume_ops_on_card_match_cpu(card, name, layout, ragged):
+    """Item 5h.7's gpu ops on sequences and volumes, uint8, batch 3: the card
+    equal to the CPU."""
+    rng = np.random.default_rng(9)
+    data = [rng.integers(0, 256, (4 + (i if ragged else 0), 40 + (3 * i if ragged else 0),
+                                  48, 3), np.uint8) for i in range(3)]
+    got, want = (_seq_volume_run(d, name, layout, data) for d in (card, "cpu"))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.uint8
+        assert torch.equal(g, w), name
+
+
+def test_color_twist_ties_on_card_equal_cpu(card):
+    """ColorTwist at brightness 0.9 and Hsv at value 0.9 (rounding ties summed
+    in XLA-CPU's order: fused multiply-adds, ``torch.addcmul`` on the card and
+    emulated in float64 on the CPU): the card equal to the CPU."""
+    from dali_tpu_torch.tools import bench_rcm_jpeg as b
+
+    for name in ("color_twist_brightness_0.9", "hsv_value_0.9"):
+        graph, inputs, tol = b.image_op_cases(np.random.default_rng(4), 8, (64, 80), True)[name]
+        r = b._compare(b._run_op(graph, inputs, "cuda:0"), b._run_op(graph, inputs, "cpu"), tol,
+                       name)
+        assert tol == "equal" and r["max_diff"] == 0
+
+
+def test_colour_products_on_card_equal_cpu(card):
+    """``kernels/pointwise.py``'s sums of products round once per term on
+    both devices (``torch.addcmul`` on the card, a float64 emulation on the
+    CPU): the per-pixel product of a batch of 16 and of one image, and the
+    hue product at 64 and 256 matrices (whole tiles of 8 rows summed
+    unfused), bit-equal."""
+    from dali_tpu_torch.kernels import pointwise as pw
+
+    g = torch.Generator().manual_seed(3)
+    for n in (16, 1):
+        x = torch.randint(0, 256, (n, 60, 250, 3), generator=g).to(torch.float32)
+        m = torch.randn((n, 3, 3), generator=g)
+        want = pw.apply_color_matrices(x, m)
+        assert torch.equal(pw.apply_color_matrices(x.to(card), m.to(card)).cpu(), want)
+    b = torch.randn((3, 3), generator=g)
+    for n in (64, 256):
+        a = torch.randn((n, 3, 3), generator=g)
+        assert torch.equal(pw._xla_dot(a.to(card), b.to(card)).cpu(), pw._xla_dot(a, b))
+        assert torch.equal(pw._matmul3(b.to(card), a.to(card)).cpu(), pw._matmul3(b, a))
+
+
+def test_sequence_augment_on_card_matches_cpu(card, tmp_path):
+    """chip_smoke.py's sequence_augment graph at batch 2 on 4 frames of 64x64:
+    each uint8 stage within one step on at most 1e-3 of values, the FCHW
+    output within one uint8 step / std (tools/bench_seq_volumes.py)."""
+    from dali_tpu_torch.tools import bench_seq_volumes as bsv
+
+    root = bsv.ensure_sequence_corpus(str(tmp_path / "seqs"), frames=4, size=64)
+    r = bsv.check_sequences(root, frames=4, size=64)
+    assert r["equalize"]["max_diff"] <= 1
+
+
+def test_volume_augment_on_card_matches_cpu(card, tmp_path):
+    """chip_smoke.py's volume_augment graph (numpy reader on the card,
+    transpose, blur, rotation about a random axis) on 24^3 windows of three
+    [4, 30, 40, 36] float32 volumes: card vs CPU within 1e-5."""
+    from dali_tpu_torch.testdata.make_reader_datasets import write_npy_volumes
+    from dali_tpu_torch.tools import bench_seq_volumes as bsv
+
+    files = write_npy_volumes(str(tmp_path / "vols"), 3, (4, 30, 40, 36), 1)
+    r = bsv.check_volumes(files, roi_shape=[24, 24, 24], volume=(4, 30, 40, 36))
+    assert r["max_abs_diff"] <= bsv.VOLUME_ATOL
+
+
+def test_asr_frontend_on_flac_equals_wav_on_card(card, tmp_path):
+    """asr_frontend at batch 4 on the card: a FLAC corpus gives the dB mel of
+    the WAV corpus of the same PCM, bit for bit."""
+    from dali_tpu_torch.testdata.make_audio_corpus import write_corpus
+
+    roots = {ext: write_corpus(str(tmp_path / ext), 8, 5, (0.5, 1.25), fmt=ext)
+             for ext in ("wav", "flac")}
+    outs = {}
+    for ext, root in roots.items():
+        @pipeline_def(batch_size=4, num_threads=2, seed=7, device=card)
+        def asr():
+            enc, _ = fn.readers.file(file_root=root, file_filters=[f"*.{ext}"], name="R")
+            audio, _ = fn.decoders.audio(enc, dtype=types.FLOAT, downmix=True, device="mixed")
+            spec = fn.spectrogram(fn.preemphasis_filter(audio), nfft=512, window_length=320,
+                                  window_step=160)
+            return fn.to_decibels(fn.mel_filter_bank(spec, sample_rate=16000.0, nfilter=80))
+
+        pipe = asr()
+        pipe.build()
+        try:
+            outs[ext] = [pipe.run()[0].as_tensor().cpu() for _ in range(2)]
+        finally:
+            pipe.shutdown()
+    for g, w in zip(outs["flac"], outs["wav"]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("decoder", ["image", "image_random_crop"])
+def test_gif_fixtures_mixed_decode_on_card_match_cpu(card, tmp_path, decoder):
+    """The GIF fixtures through the mixed decoders on the card, equal to the
+    same pipeline on the CPU."""
+    import shutil
+
+    codecs = os.path.join(os.path.dirname(CORPUS), "codecs")
+    os.makedirs(tmp_path / "c")
+    for name in sorted(os.listdir(codecs)):
+        if name.endswith(".gif"):
+            shutil.copy(os.path.join(codecs, name), tmp_path / "c" / name)
+    outs = []
+    for device in (card, "cpu"):
+        @pipeline_def(batch_size=5, num_threads=2, seed=5, device=device)
+        def p():
+            gifs, _ = fn.readers.file(file_root=str(tmp_path), file_filters=["*.gif"], name="R")
+            return getattr(fn.decoders, decoder)(gifs, device="mixed")
+
+        pipe = p()
+        pipe.build()
+        try:
+            out = pipe.run()[0]
+            outs.append([torch.as_tensor(np.asarray(out.as_cpu().at(i))) for i in range(5)])
+        finally:
+            pipe.shutdown()
+    for g, w in zip(*outs):
+        assert g.shape == w.shape and torch.equal(g, w)

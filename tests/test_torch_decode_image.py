@@ -341,9 +341,10 @@ def test_not_ported_decoder_forms_raise():
             pipe.shutdown()
 
     img = cv2.imread(_corpus_files(1)[0])
-    # a format not ported, and a JPEG form the libjpeg-free decoder does not read
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 items 1c-1e"):
-        run(b"GIF89a" + bytes(26), device="mixed")
+    # a format not ported (TIFF; GIF decodes since item 1c), and a JPEG form the
+    # libjpeg-free decoder does not read
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 items 1d-1e"):
+        run(b"II*\x00" + bytes(28), device="mixed")
     data = cv2.imencode(".jpg", img)[1].tobytes()
     sof = data.index(b"\xff\xc0")
     arithmetic = data[:sof + 1] + b"\xc9" + data[sof + 2:]

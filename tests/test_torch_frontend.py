@@ -522,18 +522,21 @@ def test_legacy_names_run_as_their_targets():
 
 
 def test_legacy_name_on_a_device_the_port_lacks_raises():
-    """Equalize has both placements since item 5h; its gpu path of sequences
-    (item 5h.7) and the video names (item 8) still raise."""
+    """Equalize has both placements since item 5h, and its gpu path takes
+    uniform sequences since item 5h.7; on a ragged batch of sequences, where
+    dali_tpu's gpu op fails, it raises naming that fault. The video names
+    (item 8) still raise."""
+    seqs = [np.zeros((2, 4 + i, 4, 3), np.uint8) for i in range(2)]
+
     @dali_tpu_torch.pipeline_def(batch_size=2, num_threads=1, device="cpu")
     def p():
         return dali_tpu_torch.fn.equalize(dali_tpu_torch.fn.external_source(
-            source=lambda: [np.zeros((2, 4, 4, 3), np.uint8)] * 2, batch=True,
-            layout="FHWC").gpu())
+            source=lambda: seqs, batch=True, layout="FHWC").gpu())
 
     pipe = p()
     pipe.build()
     try:
-        with pytest.raises(NotImplementedError, match=r"not ported.*Queue 1, item 5h\.7"):
+        with pytest.raises(NotImplementedError, match=r"dali_tpu's gpu op fails there"):
             pipe.run()
     finally:
         pipe.shutdown()

@@ -159,11 +159,13 @@ def test_registry_lacks_only_audio_resample_and_the_renamed_jax_function_on_gpu(
         assert _schema.has_operator_impl(name, "gpu"), name
 
 
-# the gpu paths of sequences and volumes the port does not run yet (item 5h.7)
+# the gpu paths of DHWC volumes of item 5h.7, and Resize with per-sample sizes,
+# which dali_tpu's gpu op refuses
 _ITEM_5H7 = {
     "GaussianBlur": lambda fn, x: fn.gaussian_blur(x, sigma=1.0),
     "experimental.Equalize": lambda fn, x: fn.experimental.equalize(x),
-    "WarpAffine": lambda fn, x: fn.warp_affine(x, matrix=[1.0, 0.0, 1.0, 0.0, 1.0, 0.0]),
+    "WarpAffine": lambda fn, x: fn.warp_affine(x, matrix=[1.0, 0.0, 1.0, 0.0, 1.0, 0.0, 0.0,
+                                                          0.0, 1.0, 0.5, 0.0, 0.0]),
     "Rotate": lambda fn, x: fn.rotate(x, angle=15.0),
     "Resize": lambda fn, x: fn.resize(x, size=fn.external_source(
         source=lambda: [np.array([2 + i, 4, 4], np.float32) for i in range(2)], batch=True)),
@@ -172,19 +174,29 @@ _ITEM_5H7 = {
 
 @pytest.mark.parametrize("name", sorted(_ITEM_5H7))
 def test_cpu_placements_name_item_5h(name):
-    """Every cpu placement of item 5h is ported; what names it still is the
-    gpu path of DHWC volumes (5h.7), which dali_tpu runs on the cpu only."""
+    """Every cpu placement of item 5h is ported, and the gpu placement of
+    each on DHWC volumes does what dali_tpu's gpu lowering does: the same
+    volumes (uint8 bit-equal), or, for Resize with per-sample sizes, which
+    both gpu ops refuse, an error that points to the cpu placement."""
     from dali_tpu_torch._schema import get_operator_impl
 
     assert get_operator_impl(name, "cpu")
-    vols = [np.zeros((3 + i, 6, 8, 1), np.uint8) for i in range(2)]
-    pipe = _build(dali_tpu_torch, lambda fn, t: _ITEM_5H7[name](fn, _src(fn, vols, "DHWC").gpu()),
-                  2)
-    try:
-        with pytest.raises(NotImplementedError, match=r"Queue 1, item 5h\.7"):
-            pipe.run()
-    finally:
-        _close(pipe)
+    vols = [RNG.integers(0, 256, (3, 6, 8, 1), np.uint8) for _ in range(2)]
+
+    def graph(fn, t):
+        return _ITEM_5H7[name](fn, _src(fn, vols, "DHWC").gpu())
+
+    if name == "Resize":
+        for pkg, exc, match in ((dali_tpu_torch, NotImplementedError, "device='cpu'"),
+                                (dali_tpu, Exception, "cpu")):
+            pipe = _build(pkg, graph, 2)
+            try:
+                with pytest.raises(exc, match=match):
+                    pipe.run()
+            finally:
+                _close(pipe)
+        return
+    _bit_equal(*_both(graph, 2))
 
 
 # ------------------------------------------------------------------ sequences

@@ -330,10 +330,10 @@ def test_eager_decoders_do_what_dali_tpu_does():
         jpegs, _ = _read(ndd)
         with pytest.raises(TypeError, match="hybrid_device_decode"):
             ndd.decoders.image_random_crop(jpegs, device="mixed", hybrid_device_decode=True)
-        gif = np.frombuffer(b"GIF89a" + bytes(26), np.uint8)
+        tiff = np.frombuffer(b"II*\x00" + bytes(28), np.uint8)
         for dec in (ndd.decoders.image_random_crop, ndd.decoders.image):
-            with pytest.raises(NotImplementedError, match="Queue 1 items 1c-1e"):
-                dec(ndd.as_batch([gif, gif]), device="mixed")
+            with pytest.raises(NotImplementedError, match="Queue 1 items 1d-1e"):
+                dec(ndd.as_batch([tiff, tiff]), device="mixed")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ndd.optical_flow
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -148,6 +148,8 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.backend.host_ops, dali_tpu_torch.kernels.host_resample\n"
         "import dali_tpu_torch.backend.convolution, dali_tpu_torch.backend.distortion\n"
         "import dali_tpu_torch.backend.enhance, dali_tpu_torch.backend.tail\n"
+        "import dali_tpu_torch.tools.bench_seq_volumes, dali_tpu_torch.testdata.flac_writer\n"
+        "import dali_tpu_torch.testdata.make_audio_corpus, dali_tpu_torch.backend.audio\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
@@ -247,17 +249,17 @@ def test_unported_names_raise_not_implemented():
         dali_tpu_torch.fn.decoders.video
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dali_tpu_torch.fn.optical_flow
-    gif = np.frombuffer(b"GIF89a" + bytes(26), np.uint8)
+    tiff = np.frombuffer(b"II*\x00" + bytes(28), np.uint8)  # GIF decodes since item 1c
 
     @dali_tpu_torch.pipeline_def(batch_size=2, device="cpu")
     def p():
-        enc = dali_tpu_torch.fn.external_source(source=lambda: [gif, gif])
+        enc = dali_tpu_torch.fn.external_source(source=lambda: [tiff, tiff])
         return dali_tpu_torch.fn.decoders.image_random_crop(enc, device="mixed")
 
     pipe = p()
     pipe.build()
     try:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 items 1c-1e"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 items 1d-1e"):
             pipe.run()
     finally:
         pipe.shutdown()
