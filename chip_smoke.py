@@ -107,8 +107,9 @@ on failure:
    ``dali_tpu_torch/testdata/codecs`` (CMYK, YCCK, RGB-colour, 4:1:1 and
    h=4 JPEGs, partly interleaved scans, a progressive JPEG cut at 60%, PNG
    under a ``.JPEG`` name, 16-bit and palette PNGs, 24-bit and RLE8 BMPs,
-   and GIFs: 256-colour, interlaced, transparent, a local table on an
-   offset image, animated)
+   GIFs: 256-colour, interlaced, transparent, a local table on an offset
+   image, animated; WebPs: lossy, lossless, VP8X with alpha; TIFFs: LZW with
+   predictor 2, tiled Deflate, 16-bit RGB, RGBA; a binary PPM)
    repeated to 256 entries, so each batch holds every form; 3 warm-up + 10
    timed batches reported as phase 9, then batch 64 on the card against the
    CPU; then the single-threaded host decode time of each form (ms/image);
@@ -311,7 +312,22 @@ on failure:
    about a random axis by an angle in [-15, 15] degrees, ``keep_size``: 3
    warm-up + 10 timed batches, each checked; GB/s beside numpy_volumes' ROI
    rate; device ms by stage; peak memory; then a 64^3 ROI on the card
-   against the CPU within 1e-5 (the files deleted after).
+   against the CPU within 1e-5 (the files deleted after);
+33. wds_webp_train (``tools/bench_readers.py``): webdataset shards of WebP
+   (``.webp`` + ``.cls``, as img2dataset writes them) from the corpus stored
+   as WebP at quality 85 (``testdata/webp``), repeated to 1,024 samples in
+   4 shards with ``wds2idx`` indexes (``build/reader_datasets/wds_webp``):
+   ``readers.webdataset(ext=["webp", "cls"], random_shuffle=True)``,
+   ``decoders.image_random_crop(device="mixed")`` with its default window
+   arguments (the batch's WebPs in one native call on the task pool),
+   ``resize`` to 224x224 and coin-flip CMN FLOAT CHW at batch 256 through
+   ``DALIGenericIterator``: 3 warm-up + 10 timed batches, each checked; the
+   exact CMN launch count; images/s beside wds_train's in this run; host
+   ms/batch by schema; device ms by stage of one batch alone; peak memory;
+   the WebP decode of one batch in one native call on one thread and on the
+   host's cores; the CMN kernel held against its plain version on one more
+   batch and timed on it; then batch 16 on the card against the CPU (labels
+   equal, images within one uint8 step / std on at most 1e-3 of values).
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -1239,12 +1255,13 @@ def readers_phase(card, rn50_ips):
     t_phase = time.perf_counter()
     data = bench_readers.write_datasets(os.path.join(HERE, "build", "reader_datasets"))
     print(f"reader datasets: {bench_readers.SAMPLES} samples as {bench_readers.FILES} tar shards "
-          f"and {bench_readers.FILES} TFRecord files, written in "
+          f"of JPEG and of WebP and {bench_readers.FILES} TFRecord files, written in "
           f"{time.perf_counter() - t_phase:.2f} s")
-    launches, held = {}, {}
+    launches, held, ips = {}, {}, {}
     for form in bench_readers.FORMS:
         r = bench_readers.measure(form, data[form], BATCH, WARMUP, READER_TIMED)
         launches[form] = r["cmn_launches"]
+        ips[form] = r["images_per_s"]
         held[form] = c = r["cmn"]
         print(f"{form} batch {BATCH}: {r['images_per_s']:.1f} images/s over {READER_TIMED} "
               f"batches, {100 * r['images_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} "
@@ -1275,7 +1292,43 @@ def readers_phase(card, rn50_ips):
               f"the cpu reader's ({card})")
     print(f"numpy volumes written in {written:.2f} s and deleted; readers phase: "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return launches, held, next(v["gb_per_s"] for v in volumes if v["form"] == "roi")
+    return (launches, held, next(v["gb_per_s"] for v in volumes if v["form"] == "roi"), ips,
+            data[bench_readers.WEBP_FORM])
+
+
+def webp_phase(card, wds_ips, data):
+    """Phase 33: wds_webp_train at batch 256 over the WebP shards the
+    readers phase wrote, then at batch 16 against the CPU; returns the CMN
+    launches and the kernel's readings on the path's own batch."""
+    from dali_tpu_torch.tools import bench_readers
+
+    t0 = time.perf_counter()
+    form = bench_readers.WEBP_FORM
+    r = bench_readers.measure(form, data, BATCH, WARMUP, READER_TIMED)
+    c = r["cmn"]
+    print(f"{form} batch {BATCH}: {r['images_per_s']:.1f} images/s over {READER_TIMED} batches, "
+          f"{100 * r['images_per_s'] / wds_ips:.1f}% of wds_train's {wds_ips:.1f} in this run; "
+          f"host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} host cores); "
+          f"device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; cmn launches "
+          f"{r['cmn_launches']} ({card})")
+    print(f"{form} host ms/batch by schema: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in r["host_ms_by_schema"].items() if v >= 0.05))
+    print(f"{form} stage ms of one batch alone: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in r["stage_ms"].items())
+          + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    d = bench_readers.webp_decode_ms(data, BATCH)
+    print(f"{form} WebP decode of one batch ({d['batch']} images, one native call): "
+          f"{d['one_thread_ms']:.1f} ms on one thread, {d['pool_ms']:.1f} ms on {d['threads']} "
+          f"({1e3 * d['batch'] / d['pool_ms']:.1f} images/s) ({card})")
+    print(f"{form} CMN kernel on the path's own batch {c['shape_in']} {c['dtype_in']} -> "
+          f"{c['shape_out']} float32: max abs diff vs plain {c['max_abs_err']:.3e} (limit "
+          f"1e-05; path launches {r['cmn_launches']}); kernel alone {c['ms']:.4f} ms (cold L2), "
+          f"wrapper {c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} bytes, "
+          f"bound {c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+    reference_phase(None, make=lambda b, dev: bench_readers.make_pipe(form, data, b, dev),
+                    what=f" ({form})", batch=READER_CHECK_BATCH)
+    print(f"{form} phase: {time.perf_counter() - t0:.1f} s")
+    return r["cmn_launches"], c
 
 
 def frontend_phase(card, file_list, rn50_ips):
@@ -1577,7 +1630,8 @@ def main():
     launches["imagenet_forms"] = forms_phase(card, rn50_ips)[0]
     ssd_launches, path_cmn = ssd_phase(card, rn50_ips)
     launches.update(ssd_launches)
-    reader_launches, reader_cmn, numpy_roi_gbps = readers_phase(card, rn50_ips)
+    reader_launches, reader_cmn, numpy_roi_gbps, reader_ips, webp_data = readers_phase(
+        card, rn50_ips)
     launches.update(reader_launches)
     path_cmn.update(reader_cmn)
     frontend_launches, frontend_cmn = frontend_phase(card, file_list, rn50_ips)
@@ -1599,6 +1653,8 @@ def main():
     asr_flac_phase(card, asr_cps)
     launches["sequence_augment"], path_cmn["sequence_augment"] = sequence_phase(card, rn50_ips)
     volume_phase(card, numpy_roi_gbps)
+    launches["wds_webp_train"], path_cmn["wds_webp_train"] = webp_phase(
+        card, reader_ips["wds_train"], webp_data)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

@@ -592,8 +592,9 @@ class JpegIdctSplitRRC(JpegIdctSplit):
 # Counterpart of dali_tpu/backend/decoders.py:25-523, misc2.py:271-345 and
 # decoders.py:1400-1440. Each sample takes the reference's route (imgcodec):
 # JPEGs in one native batch call per batch, which reports per sample the
-# route the reference takes (libjpeg, or cv2 for CMYK/YCCK); PNG, BMP and GIF
-# per sample; TIFF and WebP raise (imgcodec.NOT_JPEG).
+# route the reference takes (libjpeg, or cv2 for CMYK/YCCK); WebP, TIFF and
+# PNM in a second native batch call, on the same task pool; PNG, BMP and GIF
+# per sample; the other formats cv2 reads raise (imgcodec.NOT_JPEG).
 
 def _decoder_schema(name):
     return (
@@ -634,9 +635,10 @@ def _decoder_schema(name):
 
 
 _decoder_schema("decoders.Image").DocStr(
-    """Decodes images to HWC uint8 (reference ``decoders__Image``). JPEG only in
-    this package. device='mixed' decodes on the host straight into the padded
-    boundary canvas; the executor's copy puts it on the device.""")
+    """Decodes images to HWC (reference ``decoders__Image``): JPEG, PNG, BMP,
+    GIF, WebP, TIFF and PNM. device='mixed' decodes on the host (a batch's
+    JPEGs straight into the padded boundary canvas); the executor's copy puts
+    it on the device.""")
 
 
 def _as_bytes(encoded):
@@ -779,10 +781,37 @@ class _ImageDecoderBase(Operator):
             elif rc == native.ROUTE_CV2:
                 out[i] = imgcodec.cv2_route_output(
                     img, imgcodec.exif_orientation(datas[i]), out_type, dtype)
+        self._native_batch(datas, out, out_type, gray, dtype)
         for i, d in enumerate(datas):
             if out[i] is None:
                 out[i] = self._decode(d, out_type)
         return out
+
+    def _native_batch(self, datas, out, out_type, gray, dtype):
+        """The WebP, TIFF and PNM samples of ``datas`` in one native call on
+        the operator's task pool, into ``out``. A sample whose header or
+        decode fails is left for the per-sample path, which raises for it."""
+        idx, kinds, bufs, orients, pres = [], [], [], [], []
+        for i, d in enumerate(datas):
+            kind = imgcodec.native_kind(d)
+            if kind is None:
+                continue
+            try:
+                buf, orient, pre = imgcodec.prepare_native(d, kind, gray)
+            except (ValueError, NotImplementedError):
+                continue
+            idx.append(i)
+            kinds.append(kind)
+            bufs.append(buf)
+            orients.append(orient)
+            pres.append(pre)
+        if not idx:
+            return
+        rcs = native.decode_images_batch(self._task_pool(), [datas[i] for i in idx], kinds, bufs,
+                                         gray, pres)
+        for i, buf, orient, rc in zip(idx, bufs, orients, rcs):
+            if rc == 0:
+                out[i] = imgcodec.cv2_route_output(buf, orient, out_type, dtype)
 
     def run_batch(self, ctx, inp):
         datas = [_as_bytes(e) for e in inp.samples]
@@ -967,11 +996,15 @@ class _ImageRandomCropBase(_ImageDecoderBase):
                 cw = max(1, min(cw // dn, img.shape[1] - x))
             # a view: the boundary pad (or the consumer) copies it once
             out[i] = img[y:y + ch, x:x + cw]
+        # the rest decode as decoders.image would (WebP, TIFF and PNM in one
+        # native call), then draw their windows from the decoded sizes
+        todo = [i for i in range(n) if out[i] is None and redo.get(i) is None]
+        decoded = dict(zip(todo, self._decode_all([datas[i] for i in todo])))
         for i in range(n):
             if out[i] is None:
                 img = redo.get(i)
                 if img is None:
-                    img = self._decode(datas[i])
+                    img = decoded[i]
                 y, x, ch, cw = sample_rrc_window(rngs[i], img.shape[0], img.shape[1], area, ar,
                                                  attempts)
                 out[i] = img[y:y + ch, x:x + cw]

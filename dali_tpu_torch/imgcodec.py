@@ -10,15 +10,20 @@ gives each route's output without either library:
 * ``cv2.imdecode`` for everything else it reads: CMYK and YCCK JPEGs (the
   same C++ decoder reports this route and gives OpenCV's CMYK conversion),
   PNG (chunks and zlib inflate here, pixels in ``csrc/host/png_decode.cc``),
-  BMP (``csrc/host/bmp_decode.cc``) and GIF (``csrc/host/gif_decode.cc``: the
-  first image on the logical screen). On this route GRAY is cv2's
-  ``IMREAD_GRAYSCALE``, 16-bit PNG samples stay 16-bit until the dtype
-  conversion, ``denom`` applies to JPEG only, and the EXIF orientation that
-  cv2 applies itself (JPEG APP1, PNG eXIf) is applied.
+  BMP (``csrc/host/bmp_decode.cc``), GIF (``csrc/host/gif_decode.cc``: the
+  first image on the logical screen), WebP (``csrc/host/webp_*.cc``: lossy,
+  lossless and VP8X), TIFF (``csrc/host/tiff_decode.cc``, Deflate strips
+  inflated here) and PNM (``csrc/host/pnm_decode.cc``). On this route GRAY
+  is cv2's ``IMREAD_GRAYSCALE``, 16-bit PNG, TIFF and PNM samples and float
+  TIFF samples keep their depth until the dtype conversion, ``denom``
+  applies to JPEG only, and the orientation that cv2 applies itself (JPEG
+  APP1, PNG eXIf, WebP EXIF, the TIFF Orientation tag) is applied.
 
-TIFF, WebP and the other formats cv2 reads raise ``NotImplementedError``.
-The header peeks (JPEG SOF, PNG IHDR, BMP, GIF, WebP) are pure Python, as in
-the reference.
+JPEG 2000 raises ``NotImplementedError`` as in the reference; so do the
+other formats cv2 reads (PAM, PFM, Radiance HDR, Sun raster, AVIF: ROADMAP
+item 1g) and the TIFF and WebP forms the decoders do not read (items 1h,
+1i). The header peeks (JPEG SOF, PNG IHDR, BMP, GIF, WebP) are pure Python,
+as in the reference; TIFF's and PNM's read the IFD and the header natively.
 """
 
 from __future__ import annotations
@@ -31,9 +36,15 @@ import numpy as np
 from . import native
 from .types import DALIDataType, DALIImageType, to_numpy_type
 
-NOT_JPEG = ("only JPEG, PNG, BMP and GIF decode in dali_tpu_torch; TIFF, WebP and the other "
-            "formats the reference decodes through cv2/PIL are not ported (see ROADMAP.md, "
-            "Queue 1 items 1d-1e)")
+NOT_JPEG = ("JPEG, PNG, BMP, GIF, WebP, TIFF and PNM decode in dali_tpu_torch; the other "
+            "formats the reference decodes through cv2 (PAM, PFM, Radiance HDR, Sun raster, "
+            "AVIF, ...) are not ported (see ROADMAP.md, Queue 1 item 1g)")
+TIFF_NOT_READ = ("this TIFF form is not read by dali_tpu_torch's decoder: JPEG or CCITT "
+                 "compression, CMYK/YCbCr/CIE L*a*b* photometrics, integer or 64-bit samples, "
+                 "10-14 bits per sample, FillOrder 2, pre-5.0 LZW or 16-bit/float planes stored "
+                 "separately (see ROADMAP.md, Queue 1 item 1h)")
+WEBP_NOT_READ = ("this animated WebP is not read by dali_tpu_torch's decoder: only a first frame "
+                 "that covers the canvas opaquely is (see ROADMAP.md, Queue 1 item 1i)")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
@@ -152,6 +163,12 @@ def decode(data: bytes, output_type=DALIImageType.RGB, denom: int = 1,
     if is_gif(data):
         _check_size(*native.gif_shape(data))
         return cv2_route_output(native.decode_gif(data, gray), 1, output_type, dtype)
+    kind = native_kind(data)
+    if kind is not None:
+        out, orient, pre = prepare_native(data, kind, gray)
+        raise_native_rc(native.decode_images_batch(None, [data], [kind], [out], gray, [pre])[0],
+                        kind)
+        return cv2_route_output(out, orient, output_type, dtype)
     if not is_jpeg(data):
         raise NotImplementedError(NOT_JPEG)
     if adjust_orientation:
@@ -181,6 +198,80 @@ def cv2_route_output(img, orientation, output_type, dtype):
         # YCbCr is defined on the 8-bit range: narrow first, then widen
         return _convert_dtype(_rgb_to_ycbcr(_convert_dtype(img, None)), dtype)
     return np.ascontiguousarray(_convert_dtype(img, dtype))
+
+
+_KIND_NAMES = {native.KIND_WEBP: "WebP", native.KIND_TIFF: "TIFF", native.KIND_PNM: "PNM"}
+
+
+def native_kind(data):
+    """``native.KIND_*`` of a WebP, TIFF or PNM stream, else None."""
+    if is_webp(data):
+        return native.KIND_WEBP
+    if is_tiff(data):
+        return native.KIND_TIFF
+    if is_pnm(data):
+        return native.KIND_PNM
+    return None
+
+
+def raise_native_rc(rc, kind):
+    """Raise for a failed ``native.decode_images_batch`` code."""
+    if rc == 1:
+        raise NotImplementedError(TIFF_NOT_READ if kind == native.KIND_TIFF else WEBP_NOT_READ)
+    if rc != 0:
+        raise ValueError(f"{_KIND_NAMES[kind]} decode failed: corrupt or truncated stream")
+
+
+def _inflate_tiff(data, n, lenient):
+    """The Deflate chunks of a TIFF, inflated up to their decoded sizes
+    (libtiff stops there). A chunk zlib fails fails the file, or under
+    ``lenient`` (libtiff's RGBA reader, 8 bits and fewer) gives what inflates
+    before the error: the output of the longest prefix of its bytes that
+    inflates. A short chunk is left for the decoder."""
+    offsets, counts, sizes = native.tiff_chunks(data, n)
+    out = []
+    for off, cnt, size in zip(offsets.tolist(), counts.tolist(), sizes.tolist()):
+        chunk = bytes(data[off:off + cnt])
+        try:
+            out.append(zlib.decompressobj().decompress(chunk, size))
+        except zlib.error as e:
+            if not lenient:
+                raise ValueError(f"TIFF decode failed: {e}") from None
+            lo, hi, best = 0, len(chunk), b""
+            while lo < hi:
+                mid = (lo + hi + 1) // 2
+                try:
+                    best, lo = zlib.decompressobj().decompress(chunk[:mid], size), mid
+                except zlib.error:
+                    hi = mid - 1
+            out.append(best)
+    return out
+
+
+def native_header(data, kind):
+    """(h, w, orientation, dtype, Deflate chunk count) of a WebP, TIFF or PNM
+    as cv2 reads its header. Raises ``ValueError`` where cv2 fails and
+    ``NotImplementedError`` for a form the decoders do not read."""
+    if kind == native.KIND_WEBP:
+        info = native.webp_info(data)
+        info = info if isinstance(info, int) else info + (np.dtype(np.uint8), 0)
+    elif kind == native.KIND_TIFF:
+        info = native.tiff_info(data)
+    else:
+        info = native.pnm_info(data)
+        info = info if isinstance(info, int) else (info[0], info[1], 1, info[2], 0)
+    if isinstance(info, int):
+        raise_native_rc(info, kind)
+    _check_size(info[0], info[1])
+    return info
+
+
+def prepare_native(data, kind, gray):
+    """(output buffer, orientation, inflated chunks or None) for one sample of
+    ``native.decode_images_batch``."""
+    h, w, orient, dt, n_pre = native_header(data, kind)
+    pre = _inflate_tiff(data, n_pre, dt == np.uint8) if n_pre else None
+    return np.empty((h, w, 1 if gray else 3), dt), orient, pre
 
 
 def decode_png(data, gray=False):
@@ -289,6 +380,21 @@ def is_gif(data: bytes) -> bool:
     return bytes(data[:6]) in (b"GIF87a", b"GIF89a")
 
 
+def is_webp(data: bytes) -> bool:
+    """A RIFF file: cv2 reads WebP only, and fails the rest."""
+    return bytes(data[:4]) == b"RIFF"
+
+
+def is_tiff(data: bytes) -> bool:
+    return bytes(data[:4]) in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
+
+
+def is_pnm(data: bytes) -> bool:
+    """P1-P6 followed by whitespace (OpenCV's signature check)."""
+    return (len(data) >= 3 and data[0] == 0x50 and 0x31 <= data[1] <= 0x36
+            and data[2] in b" \t\n\v\f\r")
+
+
 def peek_shape(data: bytes):
     """(h, w, c) from the header without a full decode."""
     if is_jpeg(data):
@@ -314,6 +420,10 @@ def peek_shape(data: bytes):
             w = int.from_bytes(data[24:27], "little") + 1
             h = int.from_bytes(data[27:30], "little") + 1
             return h, w, 3
+    if is_tiff(data) or is_pnm(data):
+        # the reference decodes in full: cv2 turns a TIFF by its Orientation tag
+        h, w, orient, _, _ = native_header(data, native_kind(data))
+        return (w, h, 3) if orient >= 5 else (h, w, 3)
     # the reference falls back to a full decode here
     return decode(data).shape
 

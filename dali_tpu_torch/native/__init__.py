@@ -24,6 +24,10 @@
   image filters of ``csrc/host/host_ops.cc``.
 * ``jpeg_encode_coefs`` / ``jpeg_roundtrip`` — the JPEG encoder's front half
   (``csrc/host/jpeg_encode.cc``) and the round trip through the decoder.
+* ``webp_info``, ``tiff_info`` / ``tiff_chunks``, ``pnm_info`` and
+  ``decode_images_batch`` — the WebP, TIFF and PNM decoders
+  (``csrc/host/webp_*.cc``, ``tiff_decode.cc``, ``pnm_decode.cc``), a batch
+  in one call on the task pool, equal to ``cv2.imdecode``.
 """
 
 from __future__ import annotations
@@ -106,6 +110,17 @@ def host_lib():
                 vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t), ci,
                 ctypes.POINTER(ctypes.POINTER(ctypes.c_float)), llp, ip,
                 ctypes.POINTER(ctypes.c_double), ip]
+            for name in ("webp", "tiff", "pnm"):
+                f = getattr(lib, f"dali_tpu_torch_{name}_info")
+                f.restype = ci
+                f.argtypes = [u8p, sz] + [ip] * {"webp": 3, "tiff": 5, "pnm": 3}[name]
+            u64p = ctypes.POINTER(ctypes.c_uint64)
+            lib.dali_tpu_torch_tiff_chunks.restype = ci
+            lib.dali_tpu_torch_tiff_chunks.argtypes = [u8p, sz, ci, u64p, u64p, u64p]
+            lib.dali_tpu_torch_image_decode_batch.restype = ci
+            lib.dali_tpu_torch_image_decode_batch.argtypes = [
+                vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t), ci, ip, ci,
+                sp, sp, ctypes.POINTER(ctypes.c_size_t), ip, ip, ip]
             lib.dali_tpu_torch_flac_free.restype = None
             lib.dali_tpu_torch_flac_free.argtypes = [ctypes.POINTER(ctypes.c_float)]
             _LIB = lib
@@ -613,6 +628,86 @@ def decode_gif(data, gray=False):
                                             out.ctypes.data) != 0:
         raise ValueError("GIF decode failed: corrupt or truncated image data")
     return out
+
+
+# ------------------------------------------------------------------ WebP, TIFF and PNM
+# kinds of ``decode_images_batch``; depth codes of the info calls
+KIND_WEBP, KIND_TIFF, KIND_PNM = 0, 1, 2
+_DEPTHS = (np.dtype(np.uint8), np.dtype(np.uint16), np.dtype(np.float32))
+
+
+def webp_info(data):
+    """(h, w, EXIF orientation) of a WebP, or the return code (-1 for a file
+    cv2 rejects, 1 for an animation ``webp_decode.cc`` does not read)."""
+    arr, p = _u8(data)
+    h, w, o = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = host_lib().dali_tpu_torch_webp_info(p, arr.nbytes, ctypes.byref(h), ctypes.byref(w),
+                                             ctypes.byref(o))
+    return rc if rc else (h.value, w.value, o.value)
+
+
+def tiff_info(data):
+    """(h, w, Orientation, output dtype, Deflate chunks to inflate) of a TIFF,
+    or the return code (-1 for a file cv2 rejects, 1 for a form
+    ``tiff_decode.cc`` does not read)."""
+    arr, p = _u8(data)
+    v = [ctypes.c_int() for _ in range(5)]
+    rc = host_lib().dali_tpu_torch_tiff_info(p, arr.nbytes, *[ctypes.byref(x) for x in v])
+    if rc:
+        return rc
+    h, w, o, depth, n_pre = (x.value for x in v)
+    return h, w, o, _DEPTHS[depth], n_pre
+
+
+def tiff_chunks(data, n):
+    """Offsets, byte counts and decoded sizes (uint64 [n] each) of a TIFF's
+    first ``n`` strips or tiles."""
+    arr, p = _u8(data)
+    out = [np.zeros(n, np.uint64) for _ in range(3)]
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    if host_lib().dali_tpu_torch_tiff_chunks(p, arr.nbytes, int(n),
+                                             *[_ptr(a, u64p) for a in out]) != 0:
+        raise ValueError("TIFF decode failed: corrupt strip or tile tables")
+    return out
+
+
+def pnm_info(data):
+    """(h, w, output dtype) of a PNM, or -1 for a header cv2 rejects."""
+    arr, p = _u8(data)
+    h, w, depth = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = host_lib().dali_tpu_torch_pnm_info(p, arr.nbytes, ctypes.byref(h), ctypes.byref(w),
+                                            ctypes.byref(depth))
+    return rc if rc else (h.value, w.value, _DEPTHS[depth.value])
+
+
+def decode_images_batch(pool, datas, kinds, dsts, gray=False, pres=None):
+    """Decode WebP, TIFF and PNM samples with one native call
+    (``image_decode_batch.cc``), each on a worker of ``pool`` (inline without
+    one) into ``dsts[i]`` (C-contiguous [h, w, 3], or [h, w, 1] with
+    ``gray``, in the dtype the info call gave). ``pres[i]``: a TIFF's
+    inflated Deflate chunks, or None. Returns each sample's code: 0, -1
+    (corrupt) or 1 (a form not read); the caller decides what a failed
+    sample raises."""
+    n = len(datas)
+    arrs, ptrs, lens = _byte_arrays(datas)
+    for d in dsts:
+        if not d.flags.c_contiguous or d.shape[2] != (1 if gray else 3):
+            raise ValueError("decode_images_batch: destinations must be C-contiguous HWC")
+    pres = pres or [None] * n
+    flat = [c for pre in pres for c in (pre or ())]
+    starts = np.cumsum([0] + [len(pre or ()) for pre in pres])
+    pre_arrs = [np.frombuffer(c, np.uint8) if len(c) else np.zeros(1, np.uint8) for c in flat]
+    m = max(len(flat), 1)
+    pre_ptrs = (ctypes.c_void_p * m)(*[a.ctypes.data for a in pre_arrs])
+    pre_lens = (ctypes.c_size_t * m)(*[len(c) for c in flat])
+    ci = ctypes.c_int * n
+    rcs = ci()
+    host_lib().dali_tpu_torch_image_decode_batch(
+        _pool_handle(pool), ptrs, lens, n, ci(*[int(k) for k in kinds]), 1 if gray else 0,
+        (ctypes.c_void_p * n)(*[d.ctypes.data for d in dsts]), pre_ptrs, pre_lens,
+        ci(*[int(v) for v in starts[:-1]]), ci(*[len(pre or ()) for pre in pres]), rcs)
+    del arrs, pre_arrs
+    return list(rcs)
 
 
 # ------------------------------------------------------------------ affine warp

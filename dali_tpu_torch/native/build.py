@@ -7,8 +7,10 @@
   ``png_decode.cc``, ``bmp_decode.cc``) and the batch entries
   ``coef_{pack,dense,full}_batch.cc``, the affine, perspective and remap
   warps (``warp_affine.cc``), the JPEG encoder's front half
-  (``jpeg_encode.cc``), the FLAC and GIF decoders (``flac_decode.cc``,
-  ``gif_decode.cc``, written from their specifications) and the image filters (``host_ops.cc``, compiled into
+  (``jpeg_encode.cc``), the FLAC, GIF, WebP, TIFF and PNM decoders (``flac_decode.cc``,
+  ``gif_decode.cc``, ``webp_vp8.cc``, ``webp_vp8l.cc``, ``webp_decode.cc``,
+  ``tiff_decode.cc``, ``pnm_decode.cc``, written from their specifications,
+  with their batch entry ``image_decode_batch.cc``) and the image filters (``host_ops.cc``, compiled into
   an object of its own with floating-point contraction on, as ``dali_tpu``
   compiles its copy). g++ with ``-march=native``: compiled on the machine
   that runs it, never shipped.
@@ -43,12 +45,14 @@ _HOST_SRC = os.path.join(_PKG, "csrc", "host")
 HOST_SOURCES = [os.path.join(_HOST_SRC, f) for f in (
     "jpeg_huff.cc", "sparse_pack.cc", "tasking.cc", "coef_pack_batch.cc",
     "coef_dense_batch.cc", "coef_full_batch.cc", "jpeg_decode.cc", "png_decode.cc",
-    "bmp_decode.cc", "warp_affine.cc", "jpeg_encode.cc", "flac_decode.cc", "gif_decode.cc")]
+    "bmp_decode.cc", "warp_affine.cc", "jpeg_encode.cc", "flac_decode.cc", "gif_decode.cc",
+    "webp_vp8.cc", "webp_vp8l.cc", "webp_decode.cc", "tiff_decode.cc", "pnm_decode.cc",
+    "image_decode_batch.cc")]
 # compiled with dali_tpu's own flags (contraction on): its float filters sum
 # into the fused multiply-adds of the reference's library
 HOST_CONTRACT_SOURCES = [os.path.join(_HOST_SRC, "host_ops.cc")]
 # headers the host sources include: hashed into the stamp, not compiled
-HOST_HEADERS = [os.path.join(_HOST_SRC, "jpeg_full.h")]
+HOST_HEADERS = [os.path.join(_HOST_SRC, f) for f in ("jpeg_full.h", "webp.h", "webp_tables.h")]
 KERNEL_SOURCES = [os.path.join(_PKG, "csrc", "cmn.cu")]
 
 

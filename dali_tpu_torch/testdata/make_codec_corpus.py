@@ -15,7 +15,15 @@ corpus:
 * a progressive JPEG cut at 60% of its bytes;
 * GIFs (PIL, and ``gif_bytes`` here): a 256-colour GIF87a, an interlaced
   16-colour one, a GIF89a with a transparent index, a 4-colour local colour
-  table on an image offset in a larger screen, and a two-frame animation.
+  table on an image offset in a larger screen, and a two-frame animation;
+* WebPs (cv2): lossy at quality 85, lossless, and a VP8X file with an alpha
+  chunk (PIL);
+* TIFFs (``tiff_bytes`` here): LZW with predictor 2, tiled Deflate, 16-bit
+  RGB and RGBA with unassociated alpha;
+* a binary PPM (``pnm_bytes`` here).
+
+``webp_corpus`` writes the ``rn50`` corpus again as WebP at quality 85
+(``testdata/webp``, the input of the card's webdataset WebP path).
 
 Forms neither cv2 nor PIL writes (YCCK, RGB colour, h=4 luma, partly
 interleaved scans) come from a one-off writer built here against the system
@@ -24,20 +32,24 @@ OpenCV (cv2), PIL, a C compiler and the libjpeg headers; reading the fixtures
 needs none of them.
 
 Usage: python dali_tpu_torch/testdata/make_codec_corpus.py [out_dir]
+(``out_dir`` for the fixtures; the WebP corpus goes to ``testdata/webp``)
 """
 
 from __future__ import annotations
 
 import io
 import os
+import struct
 import subprocess
 import sys
 import tempfile
+import zlib
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "codecs")
+WEBP_CORPUS = os.path.join(HERE, "webp")
 
 # A libjpeg writer for forms cv2 and PIL do not write. Arguments: raw input
 # (rows of W*C bytes), output, W, H, C (3 RGB or 4 CMYK), colour space
@@ -262,6 +274,186 @@ def gif_bytes(frames, width, height, global_palette=None, background=0, version=
     return bytes(out + b"\x3b")
 
 
+# -- TIFF and PNM writers (forms PIL and cv2 do not write) --------------------------------------
+def _lzw_tiff(data: bytes) -> bytes:
+    """TIFF LZW (MSB-first codes, the code width growing one code early,
+    a clear code before the table fills), as libtiff writes it."""
+    out, acc, nacc = bytearray(), 0, 0
+    width = 9
+
+    def put(code):
+        nonlocal acc, nacc
+        acc = (acc << width) | code
+        nacc += width
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+
+    def reset():
+        return {bytes([i]): i for i in range(256)}, 258
+
+    table, nxt = reset()
+    put(256)
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        table[wc] = nxt
+        nxt += 1
+        if nxt == 4094:
+            put(256)
+            table, nxt = reset()
+            width = 9
+        elif nxt > (1 << width) - 1:
+            width += 1
+        w = bytes([c])
+    if w:
+        put(table[w])
+        nxt += 1
+        if nxt > (1 << width) - 1 and width < 12:
+            width += 1
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def _packbits(data: bytes) -> bytes:
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j - i >= 2:
+            out += bytes([257 - (j - i + 1), data[i]])
+            i = j + 1
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _pack_rows(samples, bps):
+    """Rows of samples [rows, n] to bytes: MSB-first bit packing below 8
+    bits, each row to a byte boundary."""
+    if bps >= 8:
+        return samples.tobytes()
+    rows, n = samples.shape
+    bits = ((samples[:, :, None] >> np.arange(bps - 1, -1, -1)) & 1).reshape(rows, n * bps)
+    return np.packbits(bits.astype(np.uint8), axis=1).tobytes()
+
+
+def tiff_bytes(img, bps=8, photometric=None, compression=1, predictor=1, planar=1, tile=None,
+               rows_per_strip=None, big_endian=False, bigtiff=False, extra=None, orientation=None,
+               colormap=None, sample_format=None):
+    """One TIFF image of ``img`` ([h, w] or [h, w, spp]; uint8 samples for
+    ``bps`` <= 8, uint16 for 16, float32 for 32 with ``sample_format`` 3).
+    ``compression``: 1, 5 (LZW), 8 (Deflate) or 32773 (PackBits); ``tile``:
+    (tile_h, tile_w), else strips of ``rows_per_strip``; ``extra``: the
+    ExtraSamples value of a fourth (or second) sample; ``colormap``: [3, 2**bps]
+    uint16 for photometric 3."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    h, w, spp = img.shape
+    bo = ">" if big_endian else "<"
+    if photometric is None:
+        photometric = 3 if colormap is not None else (2 if spp >= 3 else 1)
+    dt = {16: bo + "u2", 32: bo + ("f4" if sample_format == 3 else "u4")}.get(bps, "u1")
+    planes = [img[:, :, k:k + 1] for k in range(spp)] if planar == 2 else [img]
+    th, tw = tile if tile else (rows_per_strip or h, w)
+    chunks = []
+    for plane in planes:
+        c = plane.shape[2]
+        for y0 in range(0, h, th):
+            for x0 in range(0, w if tile else 1, tw):
+                part = plane[y0:y0 + th, x0:x0 + tw] if tile else plane[y0:y0 + th]
+                if tile:  # edge tiles are padded to the full tile
+                    full = np.zeros((th, tw, c), plane.dtype)
+                    full[:part.shape[0], :part.shape[1]] = part
+                    part = full
+                rows = part.shape[0]
+                if predictor == 2:
+                    wide = part.astype(np.int64)
+                    part = np.concatenate([wide[:, :1], np.diff(wide, axis=1)], axis=1)
+                    part = (part % (1 << bps)).astype(plane.dtype)
+                raw = _pack_rows(part.reshape(rows, -1).astype(dt) if bps >= 8
+                                 else part.reshape(rows, -1).astype(np.uint8), bps)
+                chunks.append(raw if compression == 1 else _lzw_tiff(raw) if compression == 5
+                              else zlib.compress(raw) if compression == 8 else _packbits(raw))
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bps] * spp), (259, 3, [compression]),
+               (262, 3, [photometric]), (277, 3, [spp]), (284, 3, [planar])]
+    if tile:
+        entries += [(322, 3, [tw]), (323, 3, [th]), (324, 16 if bigtiff else 4, None),
+                    (325, 4, [len(c) for c in chunks])]
+    else:
+        entries += [(273, 16 if bigtiff else 4, None), (278, 4, [th]),
+                    (279, 4, [len(c) for c in chunks])]
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
+    if orientation:
+        entries.append((274, 3, [orientation]))
+    if colormap is not None:
+        entries.append((320, 3, list(np.asarray(colormap, np.uint16).reshape(-1))))
+    if extra is not None:
+        entries.append((338, 3, [extra]))
+    if sample_format:
+        entries.append((339, 3, [sample_format] * spp))
+    entries.sort()
+    size = {3: 2, 4: 4, 16: 8}
+    off_fmt, cnt_fmt, ent_len, inline = ("Q", "Q", 20, 8) if bigtiff else ("I", "I", 12, 4)
+    head = 16 if bigtiff else 8
+    ifd_len = (8 if bigtiff else 2) + ent_len * len(entries) + (8 if bigtiff else 4)
+    data_at = head + ifd_len
+    blobs, offsets = bytearray(), []
+    for c in chunks:
+        offsets.append(data_at + len(blobs))
+        blobs += c + (b"\0" if len(c) % 2 else b"")
+    extra_at = data_at + len(blobs)
+    tail = bytearray()
+    ifd = bytearray(struct.pack(bo + ("Q" if bigtiff else "H"), len(entries)))
+    for tag, typ, vals in entries:
+        if vals is None:
+            vals = offsets
+        raw = b"".join(struct.pack(bo + {3: "H", 4: "I", 16: "Q"}[typ], int(v)) for v in vals)
+        ifd += struct.pack(bo + "HH" + cnt_fmt, tag, typ, len(vals))
+        if len(raw) <= inline:
+            ifd += raw.ljust(inline, b"\0")
+        else:
+            ifd += struct.pack(bo + off_fmt, extra_at + len(tail))
+            tail += raw + (b"\0" if len(raw) % 2 else b"")
+        assert size[typ]
+    ifd += struct.pack(bo + off_fmt, 0)
+    magic = (b"MM" if big_endian else b"II") + struct.pack(bo + "H", 43 if bigtiff else 42)
+    if bigtiff:
+        header = magic + struct.pack(bo + "HHQ", 8, 0, head)
+    else:
+        header = magic + struct.pack(bo + "I", head)
+    return bytes(header + ifd + blobs + tail)
+
+
+def pnm_bytes(kind, img, maxval=255, comment=False):
+    """A PNM of ``img`` ([h, w] for P1/P2/P4/P5, [h, w, 3] for P3/P6):
+    ASCII (P1-P3) or binary (P4-P6, 16-bit big-endian above maxval 255)."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    head = f"P{kind}\n" + ("# written by make_codec_corpus\n" if comment else "") + f"{w} {h}\n"
+    if kind not in (1, 4):
+        head += f"{maxval}\n"
+    if kind <= 3:
+        body = "\n".join(" ".join(str(int(v)) for v in row.reshape(-1)) for row in img) + "\n"
+        return head.encode() + body.encode()
+    if kind == 4:
+        return head.encode() + np.packbits(img.astype(bool), axis=1).tobytes()
+    return head.encode() + img.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
 def build(out=OUT):
     import cv2
     from PIL import Image
@@ -306,6 +498,7 @@ def build(out=OUT):
         cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
     files["progressive_cut60.jpg"] = prog[:int(len(prog) * 0.6)]
     files.update(gif_fixtures())
+    files.update(webp_tiff_pnm_fixtures())
     for name, data in files.items():
         with open(os.path.join(out, name), "wb") as f:
             f.write(data)
@@ -349,5 +542,50 @@ def gif_fixtures():
     return files
 
 
+def webp_tiff_pnm_fixtures():
+    """One file of each WebP, TIFF and PNM form, from rn50 corpus files."""
+    import cv2
+    from PIL import Image
+
+    files = {}
+    bgr = _source(19, 375, 500)[:, :, ::-1]
+    files["webp_lossy.webp"] = cv2.imencode(".webp", bgr, [cv2.IMWRITE_WEBP_QUALITY, 85])[1].tobytes()
+    files["webp_lossless.webp"] = cv2.imencode(".webp", _source(20, 240, 320)[:, :, ::-1],
+                                               [cv2.IMWRITE_WEBP_QUALITY, 101])[1].tobytes()
+    rgba = np.dstack([_source(21, 333, 500), np.tile(np.arange(500, dtype=np.uint8)[None] // 2,
+                                                     (333, 1))])
+    buf = io.BytesIO()
+    Image.fromarray(rgba, "RGBA").save(buf, "WEBP", quality=80)
+    files["webp_alpha.webp"] = buf.getvalue()
+    files["tiff_lzw_pred.tif"] = tiff_bytes(_source(22, 240, 320), compression=5, predictor=2,
+                                            rows_per_strip=16)
+    files["tiff_tiled_deflate.tif"] = tiff_bytes(_source(23, 375, 500), compression=8,
+                                                 tile=(128, 128))
+    files["tiff_rgb16.tif"] = tiff_bytes(
+        _source(24, 180, 240).astype(np.uint16) * 257 + np.arange(240, dtype=np.uint16)[None, :, None],
+        bps=16, compression=8, predictor=2, rows_per_strip=32, big_endian=True)
+    alpha = np.tile(np.arange(180, dtype=np.uint8)[:, None] + 60, (1, 240))
+    files["tiff_rgba.tif"] = tiff_bytes(np.dstack([_source(25, 180, 240), alpha]), compression=5,
+                                        extra=2, rows_per_strip=64)
+    files["ppm_binary.ppm"] = pnm_bytes(6, _source(26, 192, 256), comment=True)
+    return files
+
+
+def webp_corpus(out=WEBP_CORPUS):
+    """The rn50 corpus as WebP at quality 85, in the same class folders."""
+    import cv2
+
+    root = os.path.join(HERE, "rn50")
+    for r, _, fs in os.walk(root):
+        for f in sorted(fs):
+            if not f.endswith(".jpg"):
+                continue
+            d = os.path.join(out, os.path.relpath(r, root))
+            os.makedirs(d, exist_ok=True)
+            cv2.imwrite(os.path.join(d, f[:-4] + ".webp"), cv2.imread(os.path.join(r, f)),
+                        [cv2.IMWRITE_WEBP_QUALITY, 85])
+
+
 if __name__ == "__main__":
     build(sys.argv[1] if len(sys.argv) > 1 else OUT)
+    webp_corpus()

@@ -2,10 +2,11 @@
 the committed 32-file corpus (``testdata/rn50``) and from seeds; nothing is
 committed or downloaded.
 
-- ``write_wds_shards``: WebDataset POSIX-tar shards, one ``<key>.jpg`` and
-  one ``<key>.cls`` (the label as ASCII digits) member per sample, keys
-  sorted, with ``wds2idx`` index files (``ext offset size basename`` lines)
-  when asked;
+- ``write_wds_shards``: WebDataset POSIX-tar shards, one ``<key>.jpg`` (or,
+  from the WebP corpus ``testdata/webp``, ``<key>.webp``) and one
+  ``<key>.cls`` (the label as ASCII digits) member per sample, keys sorted,
+  with ``wds2idx`` index files (``ext offset size basename`` lines) when
+  asked;
 - ``write_tfrecords``: TFRecord files of tf.Example records with
   ``image/encoded`` (the JPEG bytes) and ``image/class/label`` (int64 [1]),
   the features of DALI's TensorFlow ResNet-50 example, each with its
@@ -30,16 +31,17 @@ import tarfile
 import numpy as np
 
 CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "rn50")
+WEBP_CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "webp")
 FEATURES = ("image/encoded", "image/class/label")
 
 
-def corpus_samples(n: int):
-    """``n`` (JPEG bytes, label) pairs: the sorted corpus repeated."""
-    files = sorted((c, f) for c in sorted(os.listdir(CORPUS))
-                   for f in sorted(os.listdir(os.path.join(CORPUS, c))))
+def corpus_samples(n: int, corpus: str = CORPUS):
+    """``n`` (encoded image bytes, label) pairs: the sorted corpus repeated."""
+    files = sorted((c, f) for c in sorted(os.listdir(corpus))
+                   for f in sorted(os.listdir(os.path.join(corpus, c))))
     data = []
     for c, f in files:
-        with open(os.path.join(CORPUS, c, f), "rb") as fh:
+        with open(os.path.join(corpus, c, f), "rb") as fh:
             data.append((fh.read(), int(c[len("class"):])))
     return [data[i % len(data)] for i in range(n)]
 
@@ -48,19 +50,21 @@ def _split(n: int, parts: int):
     return [(k * n // parts, (k + 1) * n // parts) for k in range(parts)]
 
 
-def write_wds_shards(root: str, n_samples: int, n_shards: int, index: bool = False):
-    """``n_shards`` tar shards of the first ``n_samples`` corpus samples;
-    returns (shard paths, index paths or None)."""
+def write_wds_shards(root: str, n_samples: int, n_shards: int, index: bool = False,
+                     ext: str = "jpg", corpus: str = CORPUS):
+    """``n_shards`` tar shards of the first ``n_samples`` samples of
+    ``corpus``, the image member named ``<key>.<ext>``; returns (shard
+    paths, index paths or None)."""
     os.makedirs(root, exist_ok=True)
-    samples = corpus_samples(n_samples)
+    samples = corpus_samples(n_samples, corpus)
     paths, index_paths = [], []
     for s, (lo, hi) in enumerate(_split(n_samples, n_shards)):
         path = os.path.join(root, f"shard-{s:05d}.tar")
         with tarfile.open(path, "w", format=tarfile.USTAR_FORMAT) as tar:
             for i in range(lo, hi):
                 jpeg, label = samples[i]
-                for ext, payload in (("jpg", jpeg), ("cls", str(label).encode())):
-                    info = tarfile.TarInfo(f"{i:08d}.{ext}")
+                for member, payload in ((ext, jpeg), ("cls", str(label).encode())):
+                    info = tarfile.TarInfo(f"{i:08d}.{member}")
                     info.size = len(payload)
                     tar.addfile(info, io.BytesIO(payload))
         paths.append(path)
@@ -69,8 +73,8 @@ def write_wds_shards(root: str, n_samples: int, n_shards: int, index: bool = Fal
             with tarfile.open(path) as tar, open(index_paths[-1], "w") as out:
                 for m in tar:
                     if m.isfile():
-                        base, _, ext = m.name.partition(".")
-                        out.write(f"{ext} {m.offset_data} {m.size} {base}\n")
+                        base, _, kind = m.name.partition(".")
+                        out.write(f"{kind} {m.offset_data} {m.size} {base}\n")
     return paths, (index_paths if index else None)
 
 

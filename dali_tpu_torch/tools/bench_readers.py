@@ -13,14 +13,23 @@ card, at full width:
   ``decoders.image_random_crop(device="mixed")`` with its default window
   arguments, ``resize`` to 224x224 and CMN to FLOAT HWC (TensorFlow's
   layout) with a coin-flip mirror;
+- ``wds_webp_train``: webdataset shards of WebP (``.webp`` + ``.cls``, as
+  img2dataset writes them with ``--encode_format webp``), from the corpus
+  stored as WebP at quality 85 (``testdata/webp``):
+  ``readers.webdataset(ext=["webp", "cls"], random_shuffle=True)``, the host
+  decode of ``decoders.image_random_crop(device="mixed")`` with its default
+  window arguments (the WebP samples of a batch in one native call on the
+  operator's task pool), ``resize`` to 224x224 and CMN to FLOAT CHW with a
+  coin-flip mirror;
 - ``numpy_volumes``: ``readers.numpy(device="gpu")`` over float32 volumes
   of BraTS's four modalities at 240x240x155 (``[4, 155, 240, 240]``, 143 MB
   a file), whole or as the ``[4, 128, 128, 128]`` centre ROI over axes
   1-3; batch 2.
 
-The data is written at run time from the committed 32-file corpus and from
-seed 0 (``testdata/make_reader_datasets.py``). ``chip_smoke.py`` runs all
-three after its phase 14;
+The data is written at run time from the committed 32-file corpora and from
+seed 0 (``testdata/make_reader_datasets.py``). ``chip_smoke.py`` runs
+wds_train, tfrecord_train and numpy_volumes after its phase 14 and
+wds_webp_train as its phase 33;
 
     python dali_tpu_torch/tools/bench_readers.py [--form wds_train] [--timed 10]
 
@@ -44,6 +53,8 @@ MEAN = [0.485 * 255, 0.456 * 255, 0.406 * 255]
 STD = [0.229 * 255, 0.224 * 255, 0.225 * 255]
 SIZE = 224
 FORMS = ("wds_train", "tfrecord_train")
+WEBP_FORM = "wds_webp_train"
+ALL_FORMS = FORMS + (WEBP_FORM,)
 SAMPLES, FILES = 1024, 4
 VOLUME = (4, 155, 240, 240)
 ROI_START, ROI_SHAPE = [13, 56, 56], [128, 128, 128]  # the centre 128^3 of 155x240x240
@@ -51,12 +62,16 @@ ROI_START, ROI_SHAPE = [13, 56, 56], [128, 128, 128]  # the centre 128^3 of 155x
 
 def write_datasets(root: str, samples: int = SAMPLES) -> dict:
     """The corpus repeated to ``samples`` as 4 WebDataset shards and 4
-    TFRecord files (256 samples each by default), with their index files,
-    under ``root``; (paths, index paths) by form."""
-    from dali_tpu_torch.testdata.make_reader_datasets import write_tfrecords, write_wds_shards
+    TFRecord files, and its WebP form as 4 WebDataset shards (256 samples
+    each by default), with their index files, under ``root``; (paths, index
+    paths) by form."""
+    from dali_tpu_torch.testdata.make_reader_datasets import (WEBP_CORPUS, write_tfrecords,
+                                                              write_wds_shards)
 
     return {"wds_train": write_wds_shards(os.path.join(root, "wds"), samples, FILES, index=True),
-            "tfrecord_train": write_tfrecords(os.path.join(root, "tfrecord"), samples, FILES)}
+            "tfrecord_train": write_tfrecords(os.path.join(root, "tfrecord"), samples, FILES),
+            WEBP_FORM: write_wds_shards(os.path.join(root, "wds_webp"), samples, FILES,
+                                        index=True, ext="webp", corpus=WEBP_CORPUS)}
 
 
 def make_pipe(form, data, batch, device, num_threads=None, dont_use_mmap=False):
@@ -65,8 +80,8 @@ def make_pipe(form, data, batch, device, num_threads=None, dont_use_mmap=False):
     ``pread`` each record instead of slicing its file's map."""
     from dali_tpu_torch import fn, pipeline_def, tfrecord, types
 
-    if form not in FORMS:
-        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    if form not in ALL_FORMS:
+        raise ValueError(f"form must be one of {ALL_FORMS}, got {form!r}")
     paths, index = data
 
     @pipeline_def(batch_size=batch, num_threads=num_threads or os.cpu_count() or 1, seed=42,
@@ -79,6 +94,13 @@ def make_pipe(form, data, batch, device, num_threads=None, dont_use_mmap=False):
             images = fn.decoders.image(jpegs, device="mixed", hybrid_device_decode=True,
                                        hybrid_scale=2, hybrid_wire="int8")
             images = fn.random_resized_crop(images, size=[SIZE, SIZE])
+            layout = "CHW"
+        elif form == WEBP_FORM:
+            webps, labels = fn.readers.webdataset(paths=paths, index_paths=index,
+                                                  ext=["webp", "cls"], random_shuffle=True,
+                                                  dont_use_mmap=dont_use_mmap, name="Reader")
+            images = fn.decoders.image_random_crop(webps, device="mixed", output_type=types.RGB)
+            images = fn.resize(images, resize_x=SIZE, resize_y=SIZE)
             layout = "CHW"
         else:
             feats = fn.readers.tfrecord(
@@ -99,16 +121,18 @@ def make_pipe(form, data, batch, device, num_threads=None, dont_use_mmap=False):
 
 
 def check_batch(batch, n, form):
-    """One iterator batch: images [n, 3, 224, 224] (wds_train) or [n, 224,
-    224, 3] (tfrecord_train) float32 on the card and finite; labels [n, 1]
-    on the host, uint8 ``.cls`` bytes or int64 class ids in {0, 1}."""
+    """One iterator batch: images [n, 3, 224, 224] (the webdataset forms) or
+    [n, 224, 224, 3] (tfrecord_train) float32 on the card and finite;
+    labels [n, 1] on the host, uint8 ``.cls`` bytes or int64 class ids in
+    {0, 1}."""
     img, labels = batch[0]["images"], batch[0]["labels"]
-    shape = (n, 3, SIZE, SIZE) if form == "wds_train" else (n, SIZE, SIZE, 3)
+    wds = form != "tfrecord_train"
+    shape = (n, 3, SIZE, SIZE) if wds else (n, SIZE, SIZE, 3)
     if not (img.is_cuda and img.dtype == torch.float32 and tuple(img.shape) == shape):
         raise AssertionError(f"{form}: images {tuple(img.shape)} {img.dtype} on {img.device}")
     if not bool(torch.isfinite(img).all()):
         raise AssertionError(f"{form}: non-finite image values")
-    want = (torch.uint8, b"01") if form == "wds_train" else (torch.int64, (0, 1))
+    want = (torch.uint8, b"01") if wds else (torch.int64, (0, 1))
     if (tuple(labels.shape) != (n, 1) or labels.dtype != want[0] or labels.is_cuda
             or not set(labels.reshape(-1).tolist()) <= set(want[1])):
         raise AssertionError(f"{form}: labels {tuple(labels.shape)} {labels.dtype}")
@@ -187,6 +211,34 @@ def measure(form, data, batch=256, warmup=3, timed=10, dont_use_mmap=False):
             "stage_ms": stages, "peak_gib": peak, "cmn_launches": launches, "cmn": held}
 
 
+def webp_decode_ms(data, batch=256, reps=3):
+    """The WebP decode of one batch of the first ``batch`` samples of the
+    shards: ms of one native call on one thread and on a pool of the host's
+    cores, into the buffers the decoder would fill."""
+    import tarfile
+
+    from dali_tpu_torch import imgcodec, native
+
+    datas = []
+    for path in data[0]:
+        with tarfile.open(path) as tar:
+            datas += [tar.extractfile(m).read() for m in tar if m.name.endswith(".webp")]
+    datas = datas[:batch]
+    bufs = [imgcodec.prepare_native(d, native.KIND_WEBP, False)[0] for d in datas]
+    kinds = [native.KIND_WEBP] * len(datas)
+    threads = os.cpu_count() or 1
+    out = {"batch": len(datas), "threads": threads}
+    for name, pool in (("one_thread_ms", None), ("pool_ms", native.shared_pool(threads))):
+        rcs = native.decode_images_batch(pool, datas, kinds, bufs)
+        if rcs != [0] * len(datas):
+            raise AssertionError(f"WebP batch decode failed: {rcs}")
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            native.decode_images_batch(pool, datas, kinds, bufs)
+        out[name] = 1e3 * (time.perf_counter() - t0) / reps
+    return out
+
+
 def make_numpy_pipe(files, batch, roi, device, reader_device="gpu"):
     """``readers.numpy`` over ``files`` at ``batch``, the whole volume or its
     centre ROI, shuffled from seed 42."""
@@ -259,7 +311,7 @@ def numpy_phase(root, n_files=4, seed=0, **kw):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--form", choices=FORMS + ("numpy_volumes",), default="wds_train")
+    ap.add_argument("--form", choices=ALL_FORMS + ("numpy_volumes",), default="wds_train")
     ap.add_argument("--timed", type=int, default=10)
     ap.add_argument("--dont-use-mmap", action="store_true",
                     help="the reader preads each record instead of slicing its file's map")
@@ -274,8 +326,10 @@ def main():
         written, r = numpy_phase(os.path.join(root, "volumes"), timed=args.timed)
         r = {"form": args.form, "write_s": written, "forms": r}
     else:
-        r = measure(args.form, write_datasets(root)[args.form], timed=args.timed,
-                    dont_use_mmap=args.dont_use_mmap)
+        data = write_datasets(root)[args.form]
+        r = measure(args.form, data, timed=args.timed, dont_use_mmap=args.dont_use_mmap)
+        if args.form == WEBP_FORM:
+            r["webp_decode"] = webp_decode_ms(data)
     r["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]

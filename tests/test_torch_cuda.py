@@ -527,10 +527,11 @@ def test_unported_image_paths_raise_on_card(card):
         finally:
             pipe.shutdown()
 
-    # a TIFF signature: a format not ported (GIF decodes since item 1c); a
-    # JPEG whose frame is 12-bit
-    with pytest.raises(NotImplementedError, match=r"Queue 1 items 1d-1e"):
-        run(b"II*\x00" + bytes(28), device="mixed")
+    # a Radiance HDR header: a format not ported (TIFF, WebP and PNM decode
+    # since items 1d-1f); a JPEG whose frame is 12-bit
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1g"):
+        run(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 2 +X 2\n" + bytes(16),
+            device="mixed")
     first = open(sorted(os.path.join(r, f) for r, _, fs in os.walk(CORPUS) for f in fs)[0],
                  "rb").read()
     sof = first.index(b"\xff\xc0")
@@ -1645,6 +1646,37 @@ def test_gif_fixtures_mixed_decode_on_card_match_cpu(card, tmp_path, decoder):
         try:
             out = pipe.run()[0]
             outs.append([torch.as_tensor(np.asarray(out.as_cpu().at(i))) for i in range(5)])
+        finally:
+            pipe.shutdown()
+    for g, w in zip(*outs):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("decoder", ["image", "image_random_crop"])
+def test_webp_tiff_pnm_fixtures_mixed_decode_on_card_match_cpu(card, tmp_path, decoder):
+    """The WebP, TIFF and PNM fixtures through the mixed decoders on the
+    card (one native batch call on the task pool), equal to the same
+    pipeline on the CPU."""
+    import shutil
+
+    codecs = os.path.join(os.path.dirname(CORPUS), "codecs")
+    os.makedirs(tmp_path / "c")
+    names = [n for n in sorted(os.listdir(codecs)) if n.endswith((".webp", ".tif", ".ppm"))]
+    for name in names:
+        shutil.copy(os.path.join(codecs, name), tmp_path / "c" / name)
+    outs = []
+    for device in (card, "cpu"):
+        @pipeline_def(batch_size=len(names), num_threads=2, seed=5, device=device)
+        def p():
+            data, _ = fn.readers.file(file_root=str(tmp_path), name="R")
+            return getattr(fn.decoders, decoder)(data, device="mixed")
+
+        pipe = p()
+        pipe.build()
+        try:
+            out = pipe.run()[0]
+            outs.append([torch.as_tensor(np.asarray(out.as_cpu().at(i)))
+                         for i in range(len(names))])
         finally:
             pipe.shutdown()
     for g, w in zip(*outs):

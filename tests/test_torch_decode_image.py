@@ -341,10 +341,10 @@ def test_not_ported_decoder_forms_raise():
             pipe.shutdown()
 
     img = cv2.imread(_corpus_files(1)[0])
-    # a format not ported (TIFF; GIF decodes since item 1c), and a JPEG form the
-    # libjpeg-free decoder does not read
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 items 1d-1e"):
-        run(b"II*\x00" + bytes(28), device="mixed")
+    # a format not ported (Radiance HDR; TIFF, WebP and PNM decode since items
+    # 1d-1f), and a JPEG form the libjpeg-free decoder does not read
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 1g"):
+        run(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 2 +X 2\n" + bytes(16), device="mixed")
     data = cv2.imencode(".jpg", img)[1].tobytes()
     sof = data.index(b"\xff\xc0")
     arithmetic = data[:sof + 1] + b"\xc9" + data[sof + 2:]

@@ -330,10 +330,12 @@ def test_eager_decoders_do_what_dali_tpu_does():
         jpegs, _ = _read(ndd)
         with pytest.raises(TypeError, match="hybrid_device_decode"):
             ndd.decoders.image_random_crop(jpegs, device="mixed", hybrid_device_decode=True)
-        tiff = np.frombuffer(b"II*\x00" + bytes(28), np.uint8)
+        # a Radiance HDR header: TIFF, WebP and PNM decode since items 1d-1f
+        hdr = np.frombuffer(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 2 +X 2\n"
+                            + bytes(16), np.uint8)
         for dec in (ndd.decoders.image_random_crop, ndd.decoders.image):
-            with pytest.raises(NotImplementedError, match="Queue 1 items 1d-1e"):
-                dec(ndd.as_batch([tiff, tiff]), device="mixed")
+            with pytest.raises(NotImplementedError, match="Queue 1 item 1g"):
+                dec(ndd.as_batch([hdr, hdr]), device="mixed")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ndd.optical_flow
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -249,17 +249,19 @@ def test_unported_names_raise_not_implemented():
         dali_tpu_torch.fn.decoders.video
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dali_tpu_torch.fn.optical_flow
-    tiff = np.frombuffer(b"II*\x00" + bytes(28), np.uint8)  # GIF decodes since item 1c
+    # a Radiance HDR header: TIFF, WebP and PNM decode since items 1d-1f
+    hdr = np.frombuffer(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 2 +X 2\n" + bytes(16),
+                        np.uint8)
 
     @dali_tpu_torch.pipeline_def(batch_size=2, device="cpu")
     def p():
-        enc = dali_tpu_torch.fn.external_source(source=lambda: [tiff, tiff])
+        enc = dali_tpu_torch.fn.external_source(source=lambda: [hdr, hdr])
         return dali_tpu_torch.fn.decoders.image_random_crop(enc, device="mixed")
 
     pipe = p()
     pipe.build()
     try:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 items 1d-1e"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 1g"):
             pipe.run()
     finally:
         pipe.shutdown()
