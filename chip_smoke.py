@@ -327,7 +327,34 @@ on failure:
    the WebP decode of one batch in one native call on one thread and on the
    host's cores; the CMN kernel held against its plain version on one more
    batch and timed on it; then batch 16 on the card against the CPU (labels
-   equal, images within one uint8 step / std on at most 1e-3 of values).
+   equal, images within one uint8 step / std on at most 1e-3 of values);
+34. rn50_dataloader_proxy (``tools/bench_plugins.py``): a PyTorch training
+   loop that keeps its own ``DataLoader``: a ``Dataset`` over the corpus
+   repeated to 1,024 samples returns ``(server.proxy(jpeg bytes), label)``,
+   ``plugin.proxy.DataLoader(server, ds, batch_size=256, num_workers=host
+   cores - 1)`` collates them in workers forked after the pipeline built,
+   and the pipeline (phase 8's graph with ``fn.external_source(name=
+   "jpegs")`` in place of the parallel source) runs on each batch: 3 warm-up
+   + 10 timed batches, each checked; images/s beside rn50_train's and
+   rn50_parallel_es's in this run; host ms and the main process's wait for
+   the workers per batch; the exact CMN launch count; the CMN kernel held
+   against its plain version on one more batch and timed on it; then batch
+   16 on the card against the CPU (labels equal, images within one uint8
+   step / std on at most 1e-3 of values);
+35. rn50_capi_serve (``tools/bench_plugins.py``): the preprocessing Triton's
+   DALI backend runs, rn50_val's recipe fed from
+   ``fn.external_source(name="DALI_INPUT_0")``, written by
+   ``plugin.triton.save_model_repo`` to ``build/model_repo/rn50/1/model.dali``
+   and served through the C API (``dali_tpu_torch/capi``, built here with
+   g++ against this Python into ``build/libdali_tpu_torch_c.so``), driven
+   through ctypes in this process: 3 warm-up + 10 timed batches of 256
+   encoded JPEGs fed with ``daliTpuFeedInput``, run, and every output sample
+   copied out with ``daliTpuCopyOutputSample`` (154 MB a batch, timed);
+   images/s beside rn50_val's in this run; the exact CMN launch count; the
+   CMN kernel held against its plain version on one more batch and timed on
+   it; then ``capi/test_capi.c`` compiled with gcc serves one batch as a
+   subprocess on the card, bit-equal to the document run by
+   ``Pipeline.deserialize`` in Python on the same inputs.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -373,6 +400,7 @@ RCM_TIMED, RCM_CHECK_BATCH = 10, 16
 ASR_RESAMPLE_TIMED, DALI_CPU_TIMED = 10, 10
 HOST_AUGMENT_TIMED = 10
 SEQ_TIMED, VOLUME_AUGMENT_TIMED = 10, 10
+PLUGIN_TIMED = 10
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -1599,6 +1627,64 @@ def volume_phase(card, numpy_roi_gbps):
           f"and deleted; volume_augment phase: {time.perf_counter() - t0:.1f} s")
 
 
+def proxy_phase(card, rn50_ips, parallel_ips):
+    """Phase 34: rn50_dataloader_proxy; returns its CMN launches and the
+    kernel's readings on the path's own batch."""
+    from dali_tpu_torch.tools import bench_plugins
+
+    t0 = time.perf_counter()
+    r = bench_plugins.measure_proxy(BATCH, WARMUP, PLUGIN_TIMED)
+    c = r["cmn"]
+    print(f"rn50_dataloader_proxy batch {BATCH}: {r['images_per_s']:.1f} images/s over "
+          f"{PLUGIN_TIMED} batches, {100 * r['images_per_s'] / rn50_ips:.1f}% of rn50_train's "
+          f"{rn50_ips:.1f} and {100 * r['images_per_s'] / parallel_ips:.1f}% of "
+          f"rn50_parallel_es's {parallel_ips:.1f} in this run; {r['workers']} DataLoader workers; "
+          f"host phase {r['host_ms_per_batch']:.2f} ms/batch; pipeline run "
+          f"{r['run_ms_per_batch']:.2f} ms/batch, waiting for the workers "
+          f"{r['loader_wait_ms_per_batch']:.2f} ms/batch; cmn launches {r['cmn_launches']} "
+          f"({card})")
+    print(f"rn50_dataloader_proxy CMN kernel on the path's own batch {c['shape_in']} "
+          f"{c['dtype_in']} -> {c['shape_out']} float32: max abs diff vs plain "
+          f"{c['max_abs_err']:.3e} (limit 1e-05); kernel alone {c['ms']:.4f} ms (cold L2), "
+          f"wrapper {c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; bound "
+          f"{c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+    worst, frac = bench_plugins.proxy_card_vs_cpu(16)
+    limit = LSB_OVER_STD + 1e-4
+    print(f"card vs CPU plain path (rn50_dataloader_proxy) (batch 16, 2 batches): max abs diff "
+          f"{worst:.4f} (limit {limit:.4f}), fraction > 1.0e-04: {frac:.2e} (limit 1e-3)")
+    require(worst <= limit and frac <= 1e-3,
+            "the card's output disagrees with the CPU reference path")
+    print(f"rn50_dataloader_proxy phase: {time.perf_counter() - t0:.1f} s")
+    return r["cmn_launches"], c
+
+
+def capi_phase(card, val_ips):
+    """Phase 35: rn50_capi_serve; returns its CMN launches and the kernel's
+    readings on the path's own batch."""
+    from dali_tpu_torch.tools import bench_plugins
+
+    t0 = time.perf_counter()
+    r = bench_plugins.measure_serve(BATCH, WARMUP, PLUGIN_TIMED)
+    c = r["cmn"]
+    print(f"C API library built in {r['capi_build_s']:.2f} s: "
+          f"{os.path.relpath(r['library'], HERE)}; model {os.path.relpath(r['model'], HERE)}")
+    print(f"rn50_capi_serve batch {BATCH}: {r['images_per_s']:.1f} images/s over "
+          f"{PLUGIN_TIMED} batches through the C API ({r['copy_out_mb_per_batch']:.1f} MB copied "
+          f"out a batch), {100 * r['images_per_s'] / val_ips:.1f}% of rn50_val's {val_ips:.1f} "
+          f"in this run; cmn launches {r['cmn_launches']} ({card})")
+    print(f"rn50_capi_serve CMN kernel on the path's own batch {c['shape_in']} {c['dtype_in']} "
+          f"-> {c['shape_out']} float32: max abs diff vs plain {c['max_abs_err']:.3e} (limit "
+          f"1e-05); kernel alone {c['ms']:.4f} ms (cold L2), wrapper {c['wrapper_ms']:.4f} ms, "
+          f"plain {c['plain_ms']:.4f} ms; bound {c['bound_ms']:.4f} ms, "
+          f"{100 * c['bound_share']:.1f}% of it ({card})")
+    secs, n = bench_plugins.client_vs_python(r["library"], r["model"], BATCH)
+    print(f"rn50_capi_serve C client (test_capi.c --serve, a subprocess on the card): one batch "
+          f"in {secs:.1f} s with its start, {n} output samples bit-equal to "
+          f"Pipeline.deserialize's run in Python")
+    print(f"rn50_capi_serve phase: {time.perf_counter() - t0:.1f} s")
+    return r["cmn_launches"], c
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1623,7 +1709,7 @@ def main():
     launches.update(aug_phase(card, file_list))
     print(f"augmentation phase: {time.perf_counter() - t0:.1f} s")
     launches["ndd_rn50_captured"], launches["ndd_eager"], _ = ndd_phase(card, file_list, rn50_ips)
-    launches["rn50_parallel_es"] = parallel_phase(card, file_list, rn50_ips)[0]
+    launches["rn50_parallel_es"], parallel_ips = parallel_phase(card, file_list, rn50_ips)
     recipe_ips = {}
     for recipe in RECIPE_TIMED:
         launches[recipe], recipe_ips[recipe] = imagenet_phase(card, file_list, rn50_ips, recipe)
@@ -1655,6 +1741,10 @@ def main():
     volume_phase(card, numpy_roi_gbps)
     launches["wds_webp_train"], path_cmn["wds_webp_train"] = webp_phase(
         card, reader_ips["wds_train"], webp_data)
+    launches["rn50_dataloader_proxy"], path_cmn["rn50_dataloader_proxy"] = proxy_phase(
+        card, rn50_ips, parallel_ips)
+    launches["rn50_capi_serve"], path_cmn["rn50_capi_serve"] = capi_phase(
+        card, recipe_ips["rn50_val"])
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

@@ -791,24 +791,23 @@ class _ImageDecoderBase(Operator):
         """The WebP, TIFF and PNM samples of ``datas`` in one native call on
         the operator's task pool, into ``out``. A sample whose header or
         decode fails is left for the per-sample path, which raises for it."""
-        idx, kinds, bufs, orients, pres = [], [], [], [], []
+        idx, kinds, bufs, orients = [], [], [], []
         for i, d in enumerate(datas):
             kind = imgcodec.native_kind(d)
             if kind is None:
                 continue
             try:
-                buf, orient, pre = imgcodec.prepare_native(d, kind, gray)
+                buf, orient = imgcodec.prepare_native(d, kind, gray)
             except (ValueError, NotImplementedError):
                 continue
             idx.append(i)
             kinds.append(kind)
             bufs.append(buf)
             orients.append(orient)
-            pres.append(pre)
         if not idx:
             return
         rcs = native.decode_images_batch(self._task_pool(), [datas[i] for i in idx], kinds, bufs,
-                                         gray, pres)
+                                         gray)
         for i, buf, orient, rc in zip(idx, bufs, orients, rcs):
             if rc == 0:
                 out[i] = imgcodec.cv2_route_output(buf, orient, out_type, dtype)

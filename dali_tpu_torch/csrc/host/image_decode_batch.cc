@@ -10,13 +10,14 @@
 namespace dali_webp {
 int webp_info(const uint8_t* data, size_t len, int* h, int* w, int* orientation);
 int webp_decode(const uint8_t* data, size_t len, int gray, uint8_t* dst);
+int webp_alpha(const uint8_t* data, size_t len, uint8_t* dst);
 }  // namespace dali_webp
 namespace dali_tiff {
-int info(const uint8_t* data, size_t len, int* h, int* w, int* orientation, int* depth, int* n_pre);
+int info(const uint8_t* data, size_t len, int* h, int* w, int* orientation, int* depth,
+         int* n_chunks);
 int chunks(const uint8_t* data, size_t len, int n, uint64_t* offsets, uint64_t* counts,
            uint64_t* sizes);
-int decode(const uint8_t* data, size_t len, int gray, void* dst, const uint8_t* const* pre,
-           const size_t* pre_lens, int n_pre);
+int decode(const uint8_t* data, size_t len, int gray, void* dst);
 }  // namespace dali_tiff
 namespace dali_pnm {
 int info(const uint8_t* data, size_t len, int* h, int* w, int* depth);
@@ -39,16 +40,13 @@ struct Job {
   size_t len;
   int kind, gray;
   void* dst;
-  const uint8_t* const* pre;
-  const size_t* pre_lens;
-  int n_pre;
   int* rc;
 };
 
 int run(const Job& j) {
   switch (j.kind) {
     case kWebp: return dali_webp::webp_decode(j.data, j.len, j.gray, static_cast<uint8_t*>(j.dst));
-    case kTiff: return dali_tiff::decode(j.data, j.len, j.gray, j.dst, j.pre, j.pre_lens, j.n_pre);
+    case kTiff: return dali_tiff::decode(j.data, j.len, j.gray, j.dst);
     case kPnm: return dali_pnm::decode(j.data, j.len, j.gray, j.dst);
     default: return -1;
   }
@@ -70,10 +68,16 @@ int dali_tpu_torch_webp_info(const uint8_t* data, size_t len, int* h, int* w, in
 }
 
 // (h, w), Orientation, output depth (0 uint8, 1 uint16, 2 float32) and the
-// number of Deflate chunks to inflate first; 0, -1 or 1 (a form not read).
+// number of strips or tiles; 0, -1 or 1 (a form not read).
 int dali_tpu_torch_tiff_info(const uint8_t* data, size_t len, int* h, int* w, int* orientation,
-                             int* depth, int* n_pre) {
-  return dali_tiff::info(data, len, h, w, orientation, depth, n_pre);
+                             int* depth, int* n_chunks) {
+  return dali_tiff::info(data, len, h, w, orientation, depth, n_chunks);
+}
+
+// The alpha plane [h, w] of a still lossy WebP's ALPH chunk: 0, -1 (libwebp
+// fails it) or 1 (no such chunk).
+int dali_tpu_torch_webp_alpha(const uint8_t* data, size_t len, uint8_t* dst) {
+  return dali_webp::webp_alpha(data, len, dst);
 }
 
 int dali_tpu_torch_tiff_chunks(const uint8_t* data, size_t len, int n, uint64_t* offsets,
@@ -88,19 +92,15 @@ int dali_tpu_torch_pnm_info(const uint8_t* data, size_t len, int* h, int* w, int
 
 // Decode ``n`` samples, ``kinds[i]`` 0 WebP, 1 TIFF, 2 PNM, each into
 // ``dsts[i]`` (C-contiguous [h, w, 3] RGB, or [h, w, 1] with ``gray``, in
-// the depth the info call gave). A TIFF's inflated Deflate chunks are
-// ``pre[pre_start[i] ...]``, ``pre_count[i]`` of them. ``rcs[i]``: 0, -1
-// (corrupt) or 1 (a form not read).
+// the depth the info call gave). ``rcs[i]``: 0, -1 (corrupt) or 1 (a form
+// not read).
 int dali_tpu_torch_image_decode_batch(void* pool, const char** datas, const size_t* lens, int n,
-                                      const int* kinds, int gray, void** dsts,
-                                      const uint8_t* const* pre, const size_t* pre_lens,
-                                      const int* pre_start, const int* pre_count, int* rcs) {
+                                      const int* kinds, int gray, void** dsts, int* rcs) {
   std::vector<Job> jobs(n);
   const bool inline_run = pool == nullptr || dali_tpu_pool_num_threads(pool) <= 1;
   for (int i = 0; i < n; i++) {
     jobs[i] = {reinterpret_cast<const uint8_t*>(datas[i]), lens[i], kinds[i], gray, dsts[i],
-               pre ? pre + pre_start[i] : nullptr, pre_lens ? pre_lens + pre_start[i] : nullptr,
-               pre_count ? pre_count[i] : 0, &rcs[i]};
+               &rcs[i]};
     if (inline_run) run_job(&jobs[i]);
     else dali_tpu_task_submit(pool, run_job, &jobs[i], nullptr, 0);
   }

@@ -7,10 +7,10 @@
 // Read: classic (II/MM, 42) and BigTIFF (43) headers, the first IFD; strips
 // and tiles; planar configuration 1 and 2; compression 1 (none), 5 (LZW,
 // MSB-first codes with the early width change), 32773 (PackBits) and 8 /
-// 32946 (Deflate, inflated by the caller: ``pre`` holds each chunk's
-// inflated bytes); predictor 2 at 8, 16 and 32 bits and predictor 3 (the
-// floating-point byte planes) at 32; photometric 0-3; 1, 4 (palette), 8 and
-// 16 bits per sample and 32-bit IEEE float. cv2 takes two routes:
+// 32946 (Deflate, through inflate.cc); predictor 2 at 8, 16 and 32 bits and
+// predictor 3 (the floating-point byte planes) at 32; photometric 0-3; 1, 4
+// (palette), 8 and 16 bits per sample and 32-bit IEEE float. cv2 takes two
+// routes:
 //
 // * 8 bits and fewer go through libtiff's RGBA interface: grey through its
 //   map (x * 255 / range, inverted for min-is-white; 0/255 when bilevel),
@@ -30,6 +30,8 @@
 #include <cstring>
 #include <new>
 #include <vector>
+
+#include "inflate.h"
 
 namespace {
 
@@ -377,9 +379,11 @@ void decode_chunk(const Ifd& f, const Layout& l, const uint8_t* src, size_t n, s
     case 32773:
       ok = packbits_decode(src, n, o, occ);
       break;
-    default:  // Deflate: inflated by the caller, cut where zlib failed
-      ok = n >= occ;
-      std::memcpy(o, src, ok ? occ : n);
+    default: {  // Deflate: what zlib wrote before it failed stays
+      size_t written;
+      const int rc = dali_inflate::inflate_zlib(src, n, o, occ, &written);
+      ok = written == occ && rc != dali_inflate::kError;
+    }
   }
   if (!ok) {
     if (!lenient) bad();
@@ -444,13 +448,10 @@ inline uint32_t sample_at(const uint8_t* row, size_t k, int bps) {
 }
 
 // All samples of the image: [h, w, spp] for planar 1, [spp, h, w] for 2.
-std::vector<uint32_t> read_samples(const Ifd& f, const uint8_t* data, size_t len,
-                                   const uint8_t* const* pre, const size_t* pre_lens, int n_pre) {
+std::vector<uint32_t> read_samples(const Ifd& f, const uint8_t* data, size_t len) {
   const Layout l = layout(f);
   const size_t nc = l.n_chunks();
   if (f.offsets.size() < nc || f.counts.size() < nc) bad();
-  const bool deflate = f.compression == 8 || f.compression == 32946;
-  if (deflate && static_cast<size_t>(n_pre) < nc) bad();
   std::vector<uint32_t> s(static_cast<size_t>(f.w) * f.h * f.spp);
   std::vector<uint8_t> buf;
   const size_t per_plane = static_cast<size_t>(l.chunks_across) * l.chunks_down;
@@ -460,18 +461,9 @@ std::vector<uint32_t> read_samples(const Ifd& f, const uint8_t* data, size_t len
     const uint32_t cx = static_cast<uint32_t>((c % per_plane) % l.chunks_across);
     const uint32_t y0 = cy * l.ch, x0 = cx * l.cw;
     const size_t rows = f.tiled ? l.ch : (f.h - y0 < l.ch ? f.h - y0 : l.ch);
-    const uint8_t* src;
-    size_t n;
     // a chunk whose bytes are not all in the file fails it, in either reader
     if (f.counts[c] == 0 || f.offsets[c] > len || f.counts[c] > len - f.offsets[c]) bad();
-    if (deflate) {
-      src = pre[c];
-      n = pre_lens[c];
-    } else {
-      src = data + f.offsets[c];
-      n = f.counts[c];
-    }
-    decode_chunk(f, l, src, n, rows, f.bps <= 8, &buf);
+    decode_chunk(f, l, data + f.offsets[c], f.counts[c], rows, f.bps <= 8, &buf);
     const uint32_t vis_h = f.h - y0 < l.ch ? f.h - y0 : l.ch;
     const uint32_t vis_w = f.w - x0 < l.cw ? f.w - x0 : l.cw;
     // libtiff's RGBA reader steps a grey tile with extra samples by the
@@ -499,12 +491,11 @@ inline uint32_t gray14(uint32_t r, uint32_t g, uint32_t b) {
   return (b * 1868 + g * 9617 + r * 4899 + (1 << 13)) >> 14;
 }
 
-void decode(const uint8_t* data, size_t len, int gray, void* dst, const uint8_t* const* pre,
-            const size_t* pre_lens, int n_pre) {
+void decode(const uint8_t* data, size_t len, int gray, void* dst) {
   const Reader r(data, len);
   const Ifd f = parse_ifd(r);
   const Route route = classify(f);
-  const std::vector<uint32_t> s = read_samples(f, data, len, pre, pre_lens, n_pre);
+  const std::vector<uint32_t> s = read_samples(f, data, len);
   const size_t px = static_cast<size_t>(f.w) * f.h;
   const int spp = f.spp;
   auto sample = [&](size_t i, int k) {
@@ -611,10 +602,9 @@ void decode(const uint8_t* data, size_t len, int gray, void* dst, const uint8_t*
 namespace dali_tiff {
 
 // Header facts: size, Orientation, output depth (0 uint8, 1 uint16, 2
-// float32), and the chunks to inflate first when the compression is
-// Deflate (``n_pre``, 0 otherwise).
+// float32) and the number of strips or tiles.
 int info(const uint8_t* data, size_t len, int* h, int* w, int* orientation, int* depth,
-         int* n_pre) {
+         int* n_chunks) {
   try {
     const Reader r(data, len);
     const Ifd f = parse_ifd(r);
@@ -623,7 +613,7 @@ int info(const uint8_t* data, size_t len, int* h, int* w, int* orientation, int*
     *w = static_cast<int>(f.w);
     *orientation = f.orientation;
     *depth = static_cast<int>(route);
-    *n_pre = f.compression == 8 || f.compression == 32946 ? static_cast<int>(layout(f).n_chunks()) : 0;
+    *n_chunks = static_cast<int>(layout(f).n_chunks());
     return 0;
   } catch (const Fail& e) {
     return e.rc;
@@ -651,10 +641,9 @@ int chunks(const uint8_t* data, size_t len, int n, uint64_t* offsets, uint64_t* 
   }
 }
 
-int decode(const uint8_t* data, size_t len, int gray, void* dst, const uint8_t* const* pre,
-           const size_t* pre_lens, int n_pre) {
+int decode(const uint8_t* data, size_t len, int gray, void* dst) {
   try {
-    ::decode(data, len, gray, dst, pre, pre_lens, n_pre);
+    ::decode(data, len, gray, dst);
     return 0;
   } catch (const Fail& e) {
     return e.rc;

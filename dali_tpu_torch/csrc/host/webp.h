@@ -32,4 +32,9 @@ bool vp8l_size(const uint8_t* data, size_t len, int* w, int* h);
 // for a stream libwebp rejects.
 int vp8l_decode(const uint8_t* data, size_t len, int* w, int* h, std::vector<uint32_t>* argb);
 
+// Decode the lossless stream of an ``ALPH`` chunk (no VP8L header; the
+// frame's ``w`` x ``h``) to its alpha values, filter not undone. 0, or -1
+// for a stream libwebp rejects.
+int vp8l_decode_alpha(const uint8_t* data, size_t len, int w, int h, std::vector<uint8_t>* alpha);
+
 }  // namespace dali_webp

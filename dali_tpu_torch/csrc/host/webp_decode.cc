@@ -4,8 +4,12 @@
 // WebPDecodeBGR applies by default, which is what cv2.imdecode (OpenCV 5.0)
 // gives dali_tpu:
 //
-// * ``VP8 ``, ``VP8L`` and ``VP8X`` files; ``ALPH`` is parsed past (the
-//   colour output drops alpha, unblended), ``ICCP`` and ``XMP `` are skipped;
+// * ``VP8 ``, ``VP8L`` and ``VP8X`` files; a lossy frame's ``ALPH`` chunk
+//   (the last one before the frame, as libwebp takes it) is decoded as
+//   libwebp decodes it, even into BGR: raw or lossless (a headerless VP8L
+//   stream of the frame's size, alpha in green), then unfiltered; a chunk
+//   libwebp fails fails the file, and the colour output drops alpha,
+//   unblended; ``ICCP`` and ``XMP `` are skipped;
 //   the ``EXIF`` chunk's orientation is returned for the caller to apply, as
 //   cv2 applies it;
 // * the container checks of libwebp's header parse: the RIFF size against
@@ -45,7 +49,9 @@ struct Container {
   int w = 0, h = 0;
   int orientation = 1;
   bool animated = false;
-  bool frame_alpha = false;  // an animation frame with an ALPH chunk
+  bool frame_alpha = false;  // the frame has an ALPH chunk
+  const uint8_t* alpha = nullptr;  // its payload and declared size
+  size_t alpha_size = 0;
 };
 
 int tiff_orientation(const uint8_t* d, size_t n) {
@@ -89,7 +95,11 @@ int find_frame(const uint8_t* p, size_t left, uint32_t riff_size, uint32_t total
     if (riff_size > 0 && total > riff_size) return -1;
     if (std::memcmp(p, "VP8 ", 4) == 0 || std::memcmp(p, "VP8L", 4) == 0) break;
     if (left < disk) return -1;
-    if (std::memcmp(p, "ALPH", 4) == 0) c->frame_alpha = true;
+    if (std::memcmp(p, "ALPH", 4) == 0) {
+      c->frame_alpha = true;
+      c->alpha = p + 8;
+      c->alpha_size = chunk;
+    }
     if (std::memcmp(p, "EXIF", 4) == 0) c->orientation = tiff_orientation(p + 8, chunk);
     p += disk;
     left -= disk;
@@ -273,6 +283,47 @@ void yuv_to_rgb_frame(const Yuv& f, uint8_t* rgb) {
   }
 }
 
+// libwebp's alpha unfilters (WEBP_FILTER_HORIZONTAL, VERTICAL, GRADIENT) of
+// one row in place; ``prev`` is the row above, null for the first row.
+void unfilter_row(int filter, const uint8_t* prev, uint8_t* row, int w) {
+  if (filter == 1 || (filter > 1 && prev == nullptr)) {
+    uint8_t pred = prev ? prev[0] : 0;
+    for (int i = 0; i < w; ++i) pred = row[i] = static_cast<uint8_t>(pred + row[i]);
+  } else if (filter == 2) {
+    for (int i = 0; i < w; ++i) row[i] = static_cast<uint8_t>(prev[i] + row[i]);
+  } else if (filter == 3) {
+    int top_left = prev[0], left = prev[0];
+    for (int i = 0; i < w; ++i) {
+      const int top = prev[i];
+      const int g = left + top - top_left;
+      left = static_cast<uint8_t>(row[i] + ((g & ~0xff) == 0 ? g : g < 0 ? 0 : 255));
+      top_left = top;
+      row[i] = static_cast<uint8_t>(left);
+    }
+  }
+}
+
+// The alpha plane [h, w] of an ALPH chunk as libwebp's ALPHInit and
+// ALPHDecode give it: header byte (compression 0 raw or 1 lossless, filter,
+// pre-processing 0 or 1, reserved bits 0), then the values, unfiltered. 0,
+// or -1 where libwebp fails the frame.
+int decode_alpha(const uint8_t* data, size_t size, int w, int h, std::vector<uint8_t>* plane) {
+  if (size <= 1) return -1;
+  const int method = data[0] & 3, filter = (data[0] >> 2) & 3, pre = (data[0] >> 4) & 3;
+  if (method > 1 || pre > 1 || (data[0] >> 6) != 0) return -1;
+  const size_t px = static_cast<size_t>(w) * h;
+  if (method == 0) {
+    if (size - 1 < px) return -1;
+    plane->assign(data + 1, data + 1 + px);
+  } else if (vp8l_decode_alpha(data + 1, size - 1, w, h, plane) != 0) {
+    return -1;
+  }
+  for (int y = 0; y < h; ++y)
+    unfilter_row(filter, y ? plane->data() + static_cast<size_t>(y - 1) * w : nullptr,
+                 plane->data() + static_cast<size_t>(y) * w, w);
+  return 0;
+}
+
 inline uint8_t cv_gray15(int r, int g, int b) {
   return static_cast<uint8_t>((9798 * r + 19235 * g + 3735 * b + 16384) >> 15);
 }
@@ -304,6 +355,8 @@ int decode(const uint8_t* data, size_t len, int gray, uint8_t* dst) {
   }
   Yuv f;
   if (vp8_decode(c.payload, c.size, &f) != 0) return -1;
+  std::vector<uint8_t> alpha;
+  if (c.alpha && decode_alpha(c.alpha, c.alpha_size, c.w, c.h, &alpha) != 0) return -1;
   if (!gray) {
     yuv_to_rgb_frame(f, dst);
     return 0;
@@ -330,6 +383,22 @@ int webp_info(const uint8_t* data, size_t len, int* h, int* w, int* orientation)
 int webp_decode(const uint8_t* data, size_t len, int gray, uint8_t* dst) {
   try {
     return decode(data, len, gray, dst);
+  } catch (const std::bad_alloc&) {
+    return -1;
+  }
+}
+
+// The alpha plane [h, w] of a still lossy WebP's ALPH chunk into ``dst``: 0,
+// -1 where libwebp fails it, 1 for a file without one.
+int webp_alpha(const uint8_t* data, size_t len, uint8_t* dst) {
+  try {
+    Container c;
+    if (parse(data, len, &c) != 0) return -1;
+    if (c.lossless || c.animated || !c.alpha) return 1;
+    std::vector<uint8_t> plane;
+    if (decode_alpha(c.alpha, c.alpha_size, c.w, c.h, &plane) != 0) return -1;
+    std::memcpy(dst, plane.data(), plane.size());
+    return 0;
   } catch (const std::bad_alloc&) {
     return -1;
   }

@@ -44,8 +44,12 @@ class BitReader {
     val_ >>= bits;
     nbits_ -= bits;
     used_ += bits;
-    if (used_ > limit_) throw Fail();
+    if (used_ > limit_ && !tolerate_end_) throw Fail();
   }
+  // libwebp's 8-bit alpha decode tests the end only after each symbol and
+  // accepts a read past it by the symbol that reaches the last pixel
+  void tolerate_end() { tolerate_end_ = true; }
+  bool past_end() const { return used_ > limit_; }
 
  private:
   void fill() {
@@ -60,6 +64,7 @@ class BitReader {
   uint64_t val_ = 0;
   int nbits_ = 0;
   unsigned long long used_ = 0, limit_;
+  bool tolerate_end_ = false;
 };
 
 inline uint32_t reverse_bits(uint32_t v, int n) {
@@ -272,6 +277,7 @@ class Decoder {
  public:
   Decoder(const uint8_t* d, size_t n) : br_(d, n) {}
   void decode(int* w, int* h, std::vector<uint32_t>* out);
+  void decode_alpha(int w, int h, std::vector<uint8_t>* out);
 
  private:
   std::vector<uint32_t> decode_stream(int xsize, int ysize, bool level0);
@@ -280,6 +286,7 @@ class Decoder {
   BitReader br_;
   std::vector<Transform> transforms_;
   unsigned seen_ = 0;
+  bool alpha_ = false;
 };
 
 std::vector<uint32_t> Decoder::decode_stream(int xsize, int ysize, bool level0) {
@@ -305,6 +312,13 @@ std::vector<uint32_t> Decoder::decode_stream(int xsize, int ysize, bool level0) 
     for (int j = 0; j < 5; ++j)
       read_prefix_code(br_, kAlphabetSize[j] + (j == 0 && cache_bits ? 1 << cache_bits : 0),
                        &g.codes[j]);
+  // libwebp decodes an alpha plane of palette indices with no colour cache
+  // and single-symbol red, blue and alpha codes one byte a pixel
+  bool alpha_8b = level0 && alpha_ && cache_bits == 0 && transforms_.size() == 1 &&
+                  transforms_[0].type == 3;
+  for (const Group& g : groups)
+    alpha_8b = alpha_8b && g.codes[1].single() && g.codes[2].single() && g.codes[3].single();
+  if (alpha_8b) br_.tolerate_end();
   const size_t total = static_cast<size_t>(xsize) * ysize;
   std::vector<uint32_t> px(total);
   std::vector<uint32_t> cache(cache_bits ? 1u << cache_bits : 0u);
@@ -363,6 +377,7 @@ std::vector<uint32_t> Decoder::decode_stream(int xsize, int ysize, bool level0) 
       }
     }
     insert_cached();
+    if (alpha_8b && br_.past_end() && pos < total) throw Fail();
   }
   return px;
 }
@@ -477,6 +492,18 @@ void Decoder::decode(int* w, int* h, std::vector<uint32_t>* out) {
   out->swap(px);
 }
 
+// An ALPH chunk's lossless stream: no header, the frame's size, the alpha
+// value in the green channel.
+void Decoder::decode_alpha(int w, int h, std::vector<uint8_t>* out) {
+  alpha_ = true;
+  int tx = w;
+  while (br_.read(1)) read_transform(&tx, h);
+  std::vector<uint32_t> px = decode_stream(tx, h, true);
+  for (size_t i = transforms_.size(); i-- > 0;) inverse(transforms_[i], h, px);
+  out->resize(px.size());
+  for (size_t i = 0; i < px.size(); ++i) (*out)[i] = static_cast<uint8_t>(px[i] >> 8);
+}
+
 }  // namespace
 
 bool vp8l_size(const uint8_t* data, size_t len, int* w, int* h) {
@@ -491,6 +518,18 @@ int vp8l_decode(const uint8_t* data, size_t len, int* w, int* h, std::vector<uin
   try {
     Decoder dec(data, len);
     dec.decode(w, h, argb);
+    return 0;
+  } catch (const Fail&) {
+    return -1;
+  } catch (const std::bad_alloc&) {
+    return -1;
+  }
+}
+
+int vp8l_decode_alpha(const uint8_t* data, size_t len, int w, int h, std::vector<uint8_t>* alpha) {
+  try {
+    Decoder dec(data, len);
+    dec.decode_alpha(w, h, alpha);
     return 0;
   } catch (const Fail&) {
     return -1;

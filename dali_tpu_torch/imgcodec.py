@@ -13,11 +13,12 @@ gives each route's output without either library:
   BMP (``csrc/host/bmp_decode.cc``), GIF (``csrc/host/gif_decode.cc``: the
   first image on the logical screen), WebP (``csrc/host/webp_*.cc``: lossy,
   lossless and VP8X), TIFF (``csrc/host/tiff_decode.cc``, Deflate strips
-  inflated here) and PNM (``csrc/host/pnm_decode.cc``). On this route GRAY
-  is cv2's ``IMREAD_GRAYSCALE``, 16-bit PNG, TIFF and PNM samples and float
-  TIFF samples keep their depth until the dtype conversion, ``denom``
-  applies to JPEG only, and the orientation that cv2 applies itself (JPEG
-  APP1, PNG eXIf, WebP EXIF, the TIFF Orientation tag) is applied.
+  through ``inflate.cc``) and PNM (``csrc/host/pnm_decode.cc``). On this
+  route GRAY is cv2's ``IMREAD_GRAYSCALE``, 16-bit PNG, TIFF and PNM samples
+  and float TIFF samples keep their depth until the dtype conversion,
+  ``denom`` applies to JPEG only, and the orientation that cv2 applies
+  itself (JPEG APP1, PNG eXIf, WebP EXIF, the TIFF Orientation tag) is
+  applied.
 
 JPEG 2000 raises ``NotImplementedError`` as in the reference; so do the
 other formats cv2 reads (PAM, PFM, Radiance HDR, Sun raster, AVIF: ROADMAP
@@ -165,9 +166,8 @@ def decode(data: bytes, output_type=DALIImageType.RGB, denom: int = 1,
         return cv2_route_output(native.decode_gif(data, gray), 1, output_type, dtype)
     kind = native_kind(data)
     if kind is not None:
-        out, orient, pre = prepare_native(data, kind, gray)
-        raise_native_rc(native.decode_images_batch(None, [data], [kind], [out], gray, [pre])[0],
-                        kind)
+        out, orient = prepare_native(data, kind, gray)
+        raise_native_rc(native.decode_images_batch(None, [data], [kind], [out], gray)[0], kind)
         return cv2_route_output(out, orient, output_type, dtype)
     if not is_jpeg(data):
         raise NotImplementedError(NOT_JPEG)
@@ -222,44 +222,19 @@ def raise_native_rc(rc, kind):
         raise ValueError(f"{_KIND_NAMES[kind]} decode failed: corrupt or truncated stream")
 
 
-def _inflate_tiff(data, n, lenient):
-    """The Deflate chunks of a TIFF, inflated up to their decoded sizes
-    (libtiff stops there). A chunk zlib fails fails the file, or under
-    ``lenient`` (libtiff's RGBA reader, 8 bits and fewer) gives what inflates
-    before the error: the output of the longest prefix of its bytes that
-    inflates. A short chunk is left for the decoder."""
-    offsets, counts, sizes = native.tiff_chunks(data, n)
-    out = []
-    for off, cnt, size in zip(offsets.tolist(), counts.tolist(), sizes.tolist()):
-        chunk = bytes(data[off:off + cnt])
-        try:
-            out.append(zlib.decompressobj().decompress(chunk, size))
-        except zlib.error as e:
-            if not lenient:
-                raise ValueError(f"TIFF decode failed: {e}") from None
-            lo, hi, best = 0, len(chunk), b""
-            while lo < hi:
-                mid = (lo + hi + 1) // 2
-                try:
-                    best, lo = zlib.decompressobj().decompress(chunk[:mid], size), mid
-                except zlib.error:
-                    hi = mid - 1
-            out.append(best)
-    return out
-
-
 def native_header(data, kind):
-    """(h, w, orientation, dtype, Deflate chunk count) of a WebP, TIFF or PNM
-    as cv2 reads its header. Raises ``ValueError`` where cv2 fails and
+    """(h, w, orientation, dtype) of a WebP, TIFF or PNM as cv2 reads its
+    header. Raises ``ValueError`` where cv2 fails and
     ``NotImplementedError`` for a form the decoders do not read."""
     if kind == native.KIND_WEBP:
         info = native.webp_info(data)
-        info = info if isinstance(info, int) else info + (np.dtype(np.uint8), 0)
+        info = info if isinstance(info, int) else info + (np.dtype(np.uint8),)
     elif kind == native.KIND_TIFF:
         info = native.tiff_info(data)
+        info = info if isinstance(info, int) else info[:4]
     else:
         info = native.pnm_info(data)
-        info = info if isinstance(info, int) else (info[0], info[1], 1, info[2], 0)
+        info = info if isinstance(info, int) else (info[0], info[1], 1, info[2])
     if isinstance(info, int):
         raise_native_rc(info, kind)
     _check_size(info[0], info[1])
@@ -267,11 +242,10 @@ def native_header(data, kind):
 
 
 def prepare_native(data, kind, gray):
-    """(output buffer, orientation, inflated chunks or None) for one sample of
+    """(output buffer, orientation) for one sample of
     ``native.decode_images_batch``."""
-    h, w, orient, dt, n_pre = native_header(data, kind)
-    pre = _inflate_tiff(data, n_pre, dt == np.uint8) if n_pre else None
-    return np.empty((h, w, 1 if gray else 3), dt), orient, pre
+    h, w, orient, dt = native_header(data, kind)
+    return np.empty((h, w, 1 if gray else 3), dt), orient
 
 
 def decode_png(data, gray=False):
@@ -422,7 +396,7 @@ def peek_shape(data: bytes):
             return h, w, 3
     if is_tiff(data) or is_pnm(data):
         # the reference decodes in full: cv2 turns a TIFF by its Orientation tag
-        h, w, orient, _, _ = native_header(data, native_kind(data))
+        h, w, orient, _ = native_header(data, native_kind(data))
         return (w, h, 3) if orient >= 5 else (h, w, 3)
     # the reference falls back to a full decode here
     return decode(data).shape

@@ -26,8 +26,10 @@
   (``csrc/host/jpeg_encode.cc``) and the round trip through the decoder.
 * ``webp_info``, ``tiff_info`` / ``tiff_chunks``, ``pnm_info`` and
   ``decode_images_batch`` — the WebP, TIFF and PNM decoders
-  (``csrc/host/webp_*.cc``, ``tiff_decode.cc``, ``pnm_decode.cc``), a batch
-  in one call on the task pool, equal to ``cv2.imdecode``.
+  (``csrc/host/webp_*.cc``, ``tiff_decode.cc`` with ``inflate.cc`` for
+  Deflate, ``pnm_decode.cc``), a batch in one call on the task pool, equal
+  to ``cv2.imdecode``; ``inflate_zlib`` and ``webp_alpha`` expose the
+  inflate and the ``ALPH`` decode alone.
 """
 
 from __future__ import annotations
@@ -120,7 +122,12 @@ def host_lib():
             lib.dali_tpu_torch_image_decode_batch.restype = ci
             lib.dali_tpu_torch_image_decode_batch.argtypes = [
                 vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t), ci, ip, ci,
-                sp, sp, ctypes.POINTER(ctypes.c_size_t), ip, ip, ip]
+                sp, ip]
+            lib.dali_tpu_torch_webp_alpha.restype = ci
+            lib.dali_tpu_torch_webp_alpha.argtypes = [vp, ctypes.c_size_t, vp]
+            lib.dali_tpu_torch_inflate_zlib.restype = ci
+            lib.dali_tpu_torch_inflate_zlib.argtypes = [vp, ctypes.c_size_t, vp, ctypes.c_size_t,
+                                                        ctypes.POINTER(ctypes.c_size_t)]
             lib.dali_tpu_torch_flac_free.restype = None
             lib.dali_tpu_torch_flac_free.argtypes = [ctypes.POINTER(ctypes.c_float)]
             _LIB = lib
@@ -646,8 +653,22 @@ def webp_info(data):
     return rc if rc else (h.value, w.value, o.value)
 
 
+def webp_alpha(data):
+    """The alpha plane [h, w] uint8 of a still lossy WebP's ``ALPH`` chunk as
+    ``webp_decode.cc`` decodes it (the colour decode drops it, but fails
+    where it fails), or the return code: -1 where libwebp fails the chunk
+    or the file, 1 for a file without one."""
+    info = webp_info(data)
+    if isinstance(info, int):
+        return info
+    arr, p = _u8(data)
+    out = np.zeros(info[:2], np.uint8)
+    rc = host_lib().dali_tpu_torch_webp_alpha(p, arr.nbytes, out.ctypes.data)
+    return rc if rc else out
+
+
 def tiff_info(data):
-    """(h, w, Orientation, output dtype, Deflate chunks to inflate) of a TIFF,
+    """(h, w, Orientation, output dtype, number of strips or tiles) of a TIFF,
     or the return code (-1 for a file cv2 rejects, 1 for a form
     ``tiff_decode.cc`` does not read)."""
     arr, p = _u8(data)
@@ -655,8 +676,8 @@ def tiff_info(data):
     rc = host_lib().dali_tpu_torch_tiff_info(p, arr.nbytes, *[ctypes.byref(x) for x in v])
     if rc:
         return rc
-    h, w, o, depth, n_pre = (x.value for x in v)
-    return h, w, o, _DEPTHS[depth], n_pre
+    h, w, o, depth, n_chunks = (x.value for x in v)
+    return h, w, o, _DEPTHS[depth], n_chunks
 
 
 def tiff_chunks(data, n):
@@ -680,34 +701,42 @@ def pnm_info(data):
     return rc if rc else (h.value, w.value, _DEPTHS[depth.value])
 
 
-def decode_images_batch(pool, datas, kinds, dsts, gray=False, pres=None):
+def decode_images_batch(pool, datas, kinds, dsts, gray=False):
     """Decode WebP, TIFF and PNM samples with one native call
     (``image_decode_batch.cc``), each on a worker of ``pool`` (inline without
     one) into ``dsts[i]`` (C-contiguous [h, w, 3], or [h, w, 1] with
-    ``gray``, in the dtype the info call gave). ``pres[i]``: a TIFF's
-    inflated Deflate chunks, or None. Returns each sample's code: 0, -1
-    (corrupt) or 1 (a form not read); the caller decides what a failed
+    ``gray``, in the dtype the info call gave). Returns each sample's code:
+    0, -1 (corrupt) or 1 (a form not read); the caller decides what a failed
     sample raises."""
     n = len(datas)
     arrs, ptrs, lens = _byte_arrays(datas)
     for d in dsts:
         if not d.flags.c_contiguous or d.shape[2] != (1 if gray else 3):
             raise ValueError("decode_images_batch: destinations must be C-contiguous HWC")
-    pres = pres or [None] * n
-    flat = [c for pre in pres for c in (pre or ())]
-    starts = np.cumsum([0] + [len(pre or ()) for pre in pres])
-    pre_arrs = [np.frombuffer(c, np.uint8) if len(c) else np.zeros(1, np.uint8) for c in flat]
-    m = max(len(flat), 1)
-    pre_ptrs = (ctypes.c_void_p * m)(*[a.ctypes.data for a in pre_arrs])
-    pre_lens = (ctypes.c_size_t * m)(*[len(c) for c in flat])
     ci = ctypes.c_int * n
     rcs = ci()
     host_lib().dali_tpu_torch_image_decode_batch(
         _pool_handle(pool), ptrs, lens, n, ci(*[int(k) for k in kinds]), 1 if gray else 0,
-        (ctypes.c_void_p * n)(*[d.ctypes.data for d in dsts]), pre_ptrs, pre_lens,
-        ci(*[int(v) for v in starts[:-1]]), ci(*[len(pre or ()) for pre in pres]), rcs)
-    del arrs, pre_arrs
+        (ctypes.c_void_p * n)(*[d.ctypes.data for d in dsts]), rcs)
+    del arrs
     return list(rcs)
+
+
+# results of ``inflate_zlib`` (``csrc/host/inflate.h``)
+INFLATE_END, INFLATE_FULL, INFLATE_INPUT, INFLATE_ERROR = 0, 1, 2, -1
+
+
+def inflate_zlib(data, cap):
+    """(status, bytes) of the zlib stream ``data`` inflated into a buffer of
+    ``cap`` bytes by ``csrc/host/inflate.cc``, which TIFF's Deflate strips
+    go through: ``bytes`` is what was written, kept when the stream fails;
+    the status is one of ``INFLATE_*``."""
+    arr, p = _u8(data)
+    out = np.zeros(max(int(cap), 1), np.uint8)
+    written = ctypes.c_size_t()
+    rc = host_lib().dali_tpu_torch_inflate_zlib(p, arr.nbytes, out.ctypes.data, int(cap),
+                                                ctypes.byref(written))
+    return rc, out[:written.value].tobytes()
 
 
 # ------------------------------------------------------------------ affine warp

@@ -9,7 +9,8 @@
   warps (``warp_affine.cc``), the JPEG encoder's front half
   (``jpeg_encode.cc``), the FLAC, GIF, WebP, TIFF and PNM decoders (``flac_decode.cc``,
   ``gif_decode.cc``, ``webp_vp8.cc``, ``webp_vp8l.cc``, ``webp_decode.cc``,
-  ``tiff_decode.cc``, ``pnm_decode.cc``, written from their specifications,
+  ``inflate.cc``, ``tiff_decode.cc``, ``pnm_decode.cc``, written from their
+  specifications,
   with their batch entry ``image_decode_batch.cc``) and the image filters (``host_ops.cc``, compiled into
   an object of its own with floating-point contraction on, as ``dali_tpu``
   compiles its copy). g++ with ``-march=native``: compiled on the machine
@@ -46,13 +47,14 @@ HOST_SOURCES = [os.path.join(_HOST_SRC, f) for f in (
     "jpeg_huff.cc", "sparse_pack.cc", "tasking.cc", "coef_pack_batch.cc",
     "coef_dense_batch.cc", "coef_full_batch.cc", "jpeg_decode.cc", "png_decode.cc",
     "bmp_decode.cc", "warp_affine.cc", "jpeg_encode.cc", "flac_decode.cc", "gif_decode.cc",
-    "webp_vp8.cc", "webp_vp8l.cc", "webp_decode.cc", "tiff_decode.cc", "pnm_decode.cc",
-    "image_decode_batch.cc")]
+    "webp_vp8.cc", "webp_vp8l.cc", "webp_decode.cc", "inflate.cc", "tiff_decode.cc",
+    "pnm_decode.cc", "image_decode_batch.cc")]
 # compiled with dali_tpu's own flags (contraction on): its float filters sum
 # into the fused multiply-adds of the reference's library
 HOST_CONTRACT_SOURCES = [os.path.join(_HOST_SRC, "host_ops.cc")]
 # headers the host sources include: hashed into the stamp, not compiled
-HOST_HEADERS = [os.path.join(_HOST_SRC, f) for f in ("jpeg_full.h", "webp.h", "webp_tables.h")]
+HOST_HEADERS = [os.path.join(_HOST_SRC, f) for f in ("jpeg_full.h", "webp.h", "webp_tables.h",
+                                                     "inflate.h")]
 KERNEL_SOURCES = [os.path.join(_PKG, "csrc", "cmn.cu")]
 
 
@@ -89,8 +91,8 @@ def stamp(sources: List[str], cmd_prefix: List[str], cmd_suffix: List[str]) -> s
 
 
 def _build(name: str, sources: List[str], cmd_prefix: List[str], cmd_suffix: List[str],
-           headers: List[str] = ()) -> str:
-    out = os.path.join(BUILD_DIR, name)
+           headers: List[str] = (), build_dir: str = BUILD_DIR) -> str:
+    out = os.path.join(build_dir, name)
     stamp_ = stamp(list(sources) + list(headers), cmd_prefix, cmd_suffix)
 
     def fresh():
@@ -102,8 +104,8 @@ def _build(name: str, sources: List[str], cmd_prefix: List[str], cmd_suffix: Lis
 
     if fresh():
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if fresh():
             return out

@@ -1,1 +1,3 @@
-"""Framework iterators of the port (PyTorch)."""
+"""Framework integration plugins of the port: ``pytorch`` (iterators),
+``proxy`` (the ``DataLoader`` proxy), ``triton`` (model repositories),
+``tf``, ``paddle`` and ``numba``."""

@@ -10,6 +10,15 @@ from typing import List, Optional
 from ..tensors import TensorListCPU, TensorListGPU
 
 
+def to_numpy(tl):
+    """A batch on the host for a framework that takes numpy arrays: the
+    stacked samples of a cpu output, the padded device tensor copied to the
+    host for a device output."""
+    if isinstance(tl, TensorListCPU):
+        return tl.as_array()
+    return tl.as_tensor().cpu().numpy()
+
+
 class LastBatchPolicy(enum.Enum):
     FILL = 0
     DROP = 1

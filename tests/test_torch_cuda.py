@@ -37,7 +37,9 @@ rn50_affine_mixup path's host draws and warped images match the CPU run.
 The gpu ops on FHWC sequences and DHWC volumes, the colour-twist rounding
 ties, the sequence_augment and volume_augment graphs and the GIF fixtures
 through the mixed decoders equal the CPU run; the ASR front end on FLAC
-equals it on WAV of the same PCM, bit for bit."""
+equals it on WAV of the same PCM, bit for bit. The DataLoader proxy's
+batches and the C API's served outputs on the card match the CPU run's
+within one uint8 step / std."""
 
 import os
 
@@ -1681,3 +1683,45 @@ def test_webp_tiff_pnm_fixtures_mixed_decode_on_card_match_cpu(card, tmp_path, d
             pipe.shutdown()
     for g, w in zip(*outs):
         assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_dataloader_proxy_on_card_matches_cpu(card):
+    """rn50_dataloader_proxy at batch 8, two batches from forked workers:
+    device tensors on the card, labels equal to the CPU run's, images within
+    one uint8 step / std on a bounded fraction of values."""
+    from dali_tpu_torch.tools import bench_plugins
+
+    got = bench_plugins.proxy_batches(8, card, 2, workers=2)
+    want = bench_plugins.proxy_batches(8, torch.device("cpu"), 2, workers=2)
+    for (gi, gl), (ci, cl) in zip(got, want):
+        assert gi.is_cuda and torch.equal(gl, cl)
+        d = (gi.cpu() - ci).abs()
+        assert float(d.max()) <= LSB and float((d > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+
+
+def test_capi_serve_on_card_matches_cpu(card, tmp_path):
+    """The serving document through the C API (ctypes, in this process) on
+    the card, as written, and on the CPU (``"device": "cpu"`` in its
+    params): the same output shapes, values within one uint8 step / std on
+    a bounded fraction of values."""
+    import json
+
+    from dali_tpu_torch.capi import build as capi_build
+    from dali_tpu_torch.tools import bench_plugins
+
+    model = bench_plugins.write_model(8, repo=str(tmp_path / "repo"))
+    doc = json.load(open(model))
+    doc["params"]["device"] = "cpu"
+    cpu_model = str(tmp_path / "cpu.dali")
+    json.dump(doc, open(cpu_model, "w"))
+    lib = capi_build.build(str(tmp_path / "lib"))
+    outs = []
+    for m in (model, cpu_model):
+        server = bench_plugins.CapiServer(lib, m)
+        bufs = server.serve(bench_plugins.serve_inputs(8, 0))
+        outs.append([b.copy().view(np.float32) for b in bufs])
+        server.close()
+    (g,), (c,) = outs
+    assert g.shape == c.shape == (8, 3 * 224 * 224)
+    d = np.abs(g - c)
+    assert d.max() <= LSB and (d > 1e-4).mean() <= MAX_FLIP_FRACTION

@@ -150,6 +150,10 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.backend.enhance, dali_tpu_torch.backend.tail\n"
         "import dali_tpu_torch.tools.bench_seq_volumes, dali_tpu_torch.testdata.flac_writer\n"
         "import dali_tpu_torch.testdata.make_audio_corpus, dali_tpu_torch.backend.audio\n"
+        "import dali_tpu_torch.plugin.proxy, dali_tpu_torch.plugin.triton\n"
+        "import dali_tpu_torch.plugin.tf, dali_tpu_torch.plugin.paddle\n"
+        "import dali_tpu_torch.capi, dali_tpu_torch.capi.build\n"
+        "import dali_tpu_torch.tools.bench_plugins\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"

@@ -1,6 +1,6 @@
 """TIFF in dali_tpu_torch (ROADMAP.md Queue 1 item 1d): the native decoder
-(``csrc/host/tiff_decode.cc``, Deflate chunks inflated by ``zlib`` in
-``imgcodec``) against dali_tpu, which decodes TIFF through ``cv2.imdecode``
+(``csrc/host/tiff_decode.cc``, Deflate chunks through ``inflate.cc``)
+against dali_tpu, which decodes TIFF through ``cv2.imdecode``
 (OpenCV 5.0, over its bundled libtiff).
 
 Contract: bit-equal, for every output type and dtype, through
@@ -310,10 +310,10 @@ def test_truncated_files(name):
 @pytest.mark.parametrize("compression", [1, 5, 8, 32773])
 def test_corrupt_files(compression):
     """Byte flips in the strips. libtiff's RGBA reader goes on past a codec
-    error with what the codec wrote before it: LZW, PackBits and short
-    uncompressed strips come out bit-equal. A Deflate strip that zlib fails
-    decodes in both, but to what Python's zlib can give (the longest prefix
-    that inflates), not to libtiff's partial output (ROADMAP Queue 3)."""
+    error with what the codec wrote before it, the predictor not undone:
+    LZW, PackBits, Deflate (``inflate.cc`` stops where zlib does) and short
+    uncompressed strips come out bit-equal; Deflate in every output type and
+    dtype."""
     data = tiff_bytes(_corpus_rgb(12, 24, 40), compression=compression, rows_per_strip=6,
                       predictor=2 if compression in (5, 8) else 1)
     offsets, counts, _ = port_native.tiff_chunks(data, 4)
@@ -324,11 +324,93 @@ def test_corrupt_files(compression):
         for _ in range(int(rng.integers(1, 4))):
             b[int(rng.integers(lo, hi))] ^= int(rng.integers(1, 256))
         if compression == 8:
-            want, werr = _outcome(lambda: ref_codec.decode(bytes(b)))
-            got, gerr = _outcome(lambda: port_codec.decode(bytes(b)))
-            assert werr == gerr and (want is None or got.shape == want.shape)
-            continue
+            _assert_same_outcome(bytes(b))
+        else:
+            _assert_same_outcome(bytes(b), ["RGB"], [None])
+
+
+@pytest.mark.parametrize("bps", [8, 16])
+def test_corrupt_deflate_predictor_2(bps):
+    """250 random corruptions of a Deflate TIFF with predictor 2 (bit flips
+    and byte overwrites anywhere in its strips, the zlib headers and Adler-32
+    trailers included): bit-equal to ``dali_tpu`` or failing alike, in the
+    8-bit RGBA route (codec errors kept) and the 16-bit raw route (codec
+    errors fail the file)."""
+    img = _corpus_rgb(14, 30, 44) if bps == 8 else \
+        (_corpus_rgb(14, 30, 44).astype(np.uint16) * 257)
+    data = tiff_bytes(img, bps=bps, compression=8, rows_per_strip=5, predictor=2)
+    offsets, counts, _ = port_native.tiff_chunks(data, 6)
+    rng = np.random.default_rng(100 + bps)
+    for k in range(250):
+        b = bytearray(data)
+        c = int(rng.integers(0, 6))
+        lo, hi = int(offsets[c]), int(offsets[c] + counts[c])
+        for _ in range(int(rng.integers(1, 3))):
+            pos = int(rng.integers(lo, hi))
+            if k % 2:
+                b[pos] ^= 1 << int(rng.integers(0, 8))
+            else:
+                b[pos] = int(rng.integers(0, 256))
         _assert_same_outcome(bytes(b), ["RGB"], [None])
+
+
+def test_corrupt_tiled_deflate_fixture():
+    """100 byte flips in the tiles of the tiled Deflate fixture (12 tiles of
+    128 px, predictor 2): bit-equal to ``dali_tpu``, tile by tile."""
+    data = open(os.path.join(CODECS, "tiff_tiled_deflate.tif"), "rb").read()
+    n = port_native.tiff_info(data)[4]
+    offsets, counts, _ = port_native.tiff_chunks(data, n)
+    rng = np.random.default_rng(8)
+    for _ in range(100):
+        b = bytearray(data)
+        c = int(rng.integers(0, n))
+        for _ in range(int(rng.integers(1, 4))):
+            b[int(rng.integers(int(offsets[c]), int(offsets[c] + counts[c])))] ^= \
+                int(rng.integers(1, 256))
+        _assert_same_outcome(bytes(b), ["RGB"], [None])
+
+
+def test_truncated_deflate_stream():
+    """A Deflate strip whose stream stops short (its byte count cut, so the
+    file stays well formed): cv2 keeps what inflated in the 8-bit route and
+    fails the 16-bit one; the port does the same, at every cut."""
+    for bps in (8, 16):
+        img = _corpus_rgb(15, 20, 36)
+        img = img if bps == 8 else img.astype(np.uint16) * 257
+        data = bytearray(tiff_bytes(img, bps=bps, compression=8, predictor=2))
+        count = int(port_native.tiff_chunks(bytes(data), 1)[1][0])
+        # the StripByteCounts entry (tag 279, one LONG): its value follows tag, type and count
+        field = bytes(data).index((279).to_bytes(2, "little") + (4).to_bytes(2, "little")
+                                  + (1).to_bytes(4, "little")) + 8
+        for cut in (1, 2, 3, 7, count // 3, count // 2, count - 5, count - 4, count - 1):
+            b = bytearray(data)
+            b[field:field + 4] = cut.to_bytes(4, "little")
+            assert int(port_native.tiff_chunks(bytes(b), 1)[1][0]) == cut
+            _assert_same_outcome(bytes(b), ["RGB"], [None, "FLOAT"])
+
+
+def test_inflate_matches_zlib():
+    """``inflate.cc`` against this box's zlib on valid streams of every
+    level (stored, fixed and dynamic blocks) and on corrupted ones: the same
+    error, or the same bytes, with the output capped at the data's size."""
+    import zlib
+    rng = np.random.default_rng(3)
+    for k in range(400):
+        n = int(rng.integers(1, 3000))
+        raw = [rng.integers(0, 256, n, np.uint8).tobytes(), bytes(rng.integers(0, 3, n, np.uint8)),
+               (b"abcabcab" * 400)[:n]][k % 3]
+        comp = zlib.compress(raw, k % 10)
+        status, out = port_native.inflate_zlib(comp, n)
+        assert out == raw and status in (port_native.INFLATE_END, port_native.INFLATE_FULL)
+        b = bytearray(comp)
+        b[int(rng.integers(0, len(b)))] ^= int(rng.integers(1, 256))
+        status, out = port_native.inflate_zlib(bytes(b), n)
+        try:
+            want = zlib.decompressobj().decompress(bytes(b), n)
+        except zlib.error:
+            assert status == port_native.INFLATE_ERROR, k
+            continue
+        assert status != port_native.INFLATE_ERROR and out == want, k
 
 
 # -- batches and pipelines ------------------------------------------------------------------------

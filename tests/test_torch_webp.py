@@ -228,6 +228,90 @@ def test_libwebp_alpha(lossless, exact):
     _assert_equal(data)
 
 
+def _libwebp_alpha(data):
+    """The alpha channel [h, w] of libwebp's own WebPDecodeRGBA."""
+    lib = _libwebp()
+    lib.WebPDecodeRGBA.restype = ctypes.c_void_p
+    w, h = ctypes.c_int(), ctypes.c_int()
+    p = lib.WebPDecodeRGBA(data, len(data), ctypes.byref(w), ctypes.byref(h))
+    assert p
+    try:
+        rgba = np.frombuffer(ctypes.string_at(p, 4 * w.value * h.value), np.uint8)
+    finally:
+        lib.WebPFree(ctypes.c_void_p(p))
+    return rgba.reshape(h.value, w.value, 4)[:, :, 3]
+
+
+def _alpha_webps():
+    """Lossy RGBA WebPs with every ALPH form libwebp writes: raw or lossless
+    (a palette of few levels, or many), each filter, and the fixture."""
+    rgb = _corpus_rgb(21, 70, 90)
+    yy, xx = np.mgrid[0:70, 0:90]
+    planes = {"ramp": (xx * 255 // 89).astype(np.uint8),
+              "levels": ((yy // 18) * 80 % 256).astype(np.uint8),
+              "noise": np.random.default_rng(21).integers(0, 256, (70, 90), np.uint8)}
+    out = {"fixture": open(os.path.join(CODECS, "webp_alpha.webp"), "rb").read()}
+    for pname, a in planes.items():
+        for comp in (0, 1):
+            for filt in (0, 1, 2):
+                out[f"{pname}_c{comp}_f{filt}"] = _libwebp_encode(
+                    np.dstack([rgb, a]), 75.0, alpha_compression=comp, alpha_filtering=filt,
+                    alpha_quality=100, method=4 + comp)
+    return out
+
+
+def test_alpha_chunk_decodes_as_libwebp():
+    """``webp_decode.cc``'s ALPH decode gives libwebp's alpha plane for raw
+    and lossless payloads under each of the four filters (the header's
+    filter bits rewritten: the payload stays valid, only its unfiltering
+    changes), and the colour output stays dali_tpu's."""
+    for name, data in _alpha_webps().items():
+        i = data.index(b"ALPH") + 8
+        for filt in range(4):
+            b = bytearray(data)
+            b[i] = (b[i] & ~0x0c) | filt << 2
+            b = bytes(b)
+            np.testing.assert_array_equal(port_native.webp_alpha(b), _libwebp_alpha(b),
+                                          err_msg=f"{name} filter {filt}")
+        _assert_equal(data, ["RGB"], [None])
+    assert port_native.webp_alpha(_cv2_webp(_corpus_rgb(3, 20, 30), 80)) == 1
+
+
+def test_corrupt_alpha_chunks():
+    """Bit flips across the ALPH header and payload, a payload cut short
+    inside a well-formed container, every header byte's compression, filter,
+    pre-processing and reserved values: libwebp fails the frame where
+    the chunk fails (cv2, and so dali_tpu, raise), and the port with it."""
+    rng = np.random.default_rng(31)
+    for name, data in _alpha_webps().items():
+        i = data.index(b"ALPH")
+        size = int.from_bytes(data[i + 4:i + 8], "little")
+        flips = 40 if name == "fixture" else 8
+        for _ in range(flips):
+            b = bytearray(data)
+            b[i + 8 + int(rng.integers(0, size))] ^= 1 << int(rng.integers(0, 8))
+            _same_outcome(bytes(b))
+        # the chunk's size and the RIFF size shrunk together: the payload ends early
+        for cut in (1, 2, size // 2, size - 1):
+            short = size - cut
+            body = data[i + 8:i + 8 + short]
+            b = data[:i + 4] + short.to_bytes(4, "little") + body + bytes(short & 1) \
+                + data[i + 8 + size + (size & 1):]
+            b = b[:4] + (len(b) - 8).to_bytes(4, "little") + b[8:]
+            _same_outcome(b)
+    data = _alpha_webps()["ramp_c1_f1"]
+    i = data.index(b"ALPH") + 8
+    outcomes = {}
+    for v in range(256):
+        b = bytearray(data)
+        b[i] = v
+        outcomes[v] = _same_outcome(bytes(b))
+    # compression 2-3, pre-processing 2-3 and the reserved bits fail
+    assert not any(outcomes[v] for v in range(256)
+                   if (v & 3) > 1 or ((v >> 4) & 3) > 1 or v >> 6)
+    assert outcomes[data[i]]
+
+
 # -- PIL: animations, EXIF ------------------------------------------------------------------------
 def _pil_webp(img, **kw):
     buf = io.BytesIO()
@@ -323,9 +407,9 @@ def _assert_batch_equals_one_at_a_time(datas, kind):
     """``datas`` decoded by one native call on a pool of four threads equal
     each decoded alone through ``imgcodec.decode`` (RGB and GRAY)."""
     for gray in (False, True):
-        bufs, orients, pres = zip(*[port_codec.prepare_native(d, kind, gray) for d in datas])
+        bufs, orients = zip(*[port_codec.prepare_native(d, kind, gray) for d in datas])
         rcs = port_native.decode_images_batch(port_native.shared_pool(4), datas,
-                                              [kind] * len(datas), bufs, gray, pres)
+                                              [kind] * len(datas), bufs, gray)
         assert rcs == [0] * len(datas)
         ot = dali_tpu_torch.types.DALIImageType.GRAY if gray else \
             dali_tpu_torch.types.DALIImageType.RGB
