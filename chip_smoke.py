@@ -354,7 +354,24 @@ on failure:
    CMN kernel held against its plain version on one more batch and timed on
    it; then ``capi/test_capi.c`` compiled with gcc serves one batch as a
    subprocess on the card, bit-equal to the document run by
-   ``Pipeline.deserialize`` in Python on the same inputs.
+   ``Pipeline.deserialize`` in Python on the same inputs;
+36. asr_mp3 (``tools/bench_audio_codecs.py``): asr_resample's graph (phase
+   25) over the 32 committed 48 kHz mono MP3 clips of
+   ``testdata/audio_codecs/corpus_mp3`` (Common Voice's form, 64 kbit/s),
+   decoded on the host by ``csrc/host/mp3_decode.cc``, resampled to 16 kHz
+   and turned into the mel on the card: 3 warm-up + 20 timed batches of 32,
+   each checked; clips/s beside asr_frontend's and asr_resample's in this
+   run; host ms/batch; the ms of one batch's MP3 decode on one thread and
+   on the host's cores; the exact CMN launch count (0: no CMN on this
+   path); one batch of all 32 clips on the card against the CPU within
+   asr_resample's contract;
+37. audio codecs (``tools/bench_audio_codecs.py``): every committed MP3 and
+   Vorbis fixture decoded by this machine's build against
+   ``testdata/audio_codecs/reference.npz`` (dali_tpu's FFmpeg decode):
+   equal lengths, channels and rates, within the "full accuracy" bounds of
+   ISO/IEC 11172-4; the streams the port does not decode raise as they
+   should; then one batch of the 8 Vorbis clips of ``corpus_vorbis``
+   through phase 36's graph, card against CPU.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -745,6 +762,7 @@ def asr_resample_phase(card, asr_cps):
           f"{bench_dali_cpu.RESAMPLE_RTOL}), dB {k['db_max_diff']:.2e} (limit "
           f"{bench_dali_cpu.DB_ATOL})")
     print(f"asr_resample phase: {time.perf_counter() - t0:.1f} s")
+    return r["clips_per_s"]
 
 
 def dali_cpu_phase(card, file_list, rn50_ips, augment=False, timed=DALI_CPU_TIMED,
@@ -1685,6 +1703,60 @@ def capi_phase(card, val_ips):
     return r["cmn_launches"], c
 
 
+def asr_mp3_phase(card, asr_cps, resample_cps):
+    """Phase 36: asr_mp3; returns its CMN launches (none expected)."""
+    from dali_tpu_torch.kernels import cmn
+    from dali_tpu_torch.tools import bench_audio_codecs as bac
+    from dali_tpu_torch.tools import bench_dali_cpu
+
+    t0 = time.perf_counter()
+    cmn.COUNTER.launches = 0
+    r = bac.run_asr_mp3(AUDIO_BATCH, WARMUP, TIMED)
+    launches = cmn.COUNTER.launches
+    print(f"e2e asr_mp3 batch {AUDIO_BATCH}: {r['clips_per_s']:.1f} clips/s over {r['timed']} "
+          f"batches, {100 * r['clips_per_s'] / asr_cps:.1f}% of asr_frontend's {asr_cps:.1f} and "
+          f"{100 * r['clips_per_s'] / resample_cps:.1f}% of asr_resample's {resample_cps:.1f} in "
+          f"this run; host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} host "
+          f"cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; cmn "
+          f"launches {launches} (no CMN on this path) ({card})")
+    print(f"asr_mp3 MP3 decode of one batch ({AUDIO_BATCH} clips, "
+          f"{r['audio_seconds_per_batch']:.1f} s of 48 kHz audio): "
+          f"{r['decode_ms_one_thread']:.1f} ms on one thread "
+          f"({r['audio_seconds_per_batch'] / (r['decode_ms_one_thread'] / 1e3):.0f}x real time), "
+          f"{r['decode_ms_pool']:.1f} ms on {r['cores']} threads; device ms of one batch alone: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(r["stage_ms"].items(),
+                                                         key=lambda kv: -kv[1]))
+          + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    k = r["check"]
+    print(f"asr_mp3 card vs CPU (batch {k['batch']}, {k['iterations']} iterations): resampled "
+          f"{k['resampled_rel_to_peak']:.2e} of each clip's peak (limit "
+          f"{bench_dali_cpu.RESAMPLE_RTOL}), dB {k['db_max_diff']:.2e} (limit "
+          f"{bench_dali_cpu.DB_ATOL}); asr_mp3 phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def audio_codecs_phase(card):
+    """Phase 37: the MP3 and Vorbis fixtures against reference.npz, then a
+    Vorbis batch through asr_mp3's graph, card against CPU."""
+    from dali_tpu_torch.tools import bench_audio_codecs as bac
+    from dali_tpu_torch.tools import bench_dali_cpu
+
+    t0 = time.perf_counter()
+    r = bac.run_audio_codecs()
+    f = r["fixtures"]
+    print(f"audio codecs: {f['fixtures']['mp3']} MP3 and {f['fixtures']['vorbis']} Vorbis "
+          f"fixtures decoded on this machine against reference.npz: lengths, channels and rates "
+          f"equal, worst max abs {f['worst']['max_abs']:.2e} (limit {bac.MAX_BOUND:.2e}), worst "
+          f"RMS {f['worst']['rms']:.2e} (limit {bac.RMS_BOUND:.2e}); {f['failing']} streams "
+          f"raise as they should")
+    k = r["vorbis_check"]
+    print(f"Vorbis batch of {r['vorbis_batch']} clips: decode {r['vorbis_decode_ms_pool']:.1f} ms "
+          f"on {os.cpu_count()} threads; card vs CPU resampled {k['resampled_rel_to_peak']:.2e} "
+          f"of each clip's peak (limit {bench_dali_cpu.RESAMPLE_RTOL}), dB "
+          f"{k['db_max_diff']:.2e} (limit {bench_dali_cpu.DB_ATOL}) ({card}); audio codecs "
+          f"phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1729,7 +1801,7 @@ def main():
     launches["rn50_rcm_jpeg"], path_cmn["rn50_rcm_jpeg"] = rcm_jpeg_phase(
         card, file_list, rn50_ips, recipe_ips["rn50_val"])
     gpu_ops_phase(card)
-    asr_resample_phase(card, asr_cps)
+    resample_cps = asr_resample_phase(card, asr_cps)
     launches["rn50_dali_cpu"], path_cmn["rn50_dali_cpu"], dali_cpu_ips = dali_cpu_phase(
         card, file_list, rn50_ips)
     host_geometry_phase(card)
@@ -1745,6 +1817,8 @@ def main():
         card, rn50_ips, parallel_ips)
     launches["rn50_capi_serve"], path_cmn["rn50_capi_serve"] = capi_phase(
         card, recipe_ips["rn50_val"])
+    launches["asr_mp3"] = asr_mp3_phase(card, asr_cps, resample_cps)
+    audio_codecs_phase(card)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

@@ -7,9 +7,12 @@ border and every reduction against each sample's valid extent, so a padded
 sample gives the values its unpadded self gives. ``Spectrogram``,
 ``MelFilterBank`` and ``MFCC`` on the device also infer their output shapes
 on the host, so nothing is read back per batch. ``experimental.AudioResample``
-resamples on either placement. WAV decodes through a built-in parser, FLAC
-through the native decoder (``csrc/host/flac_decode.cc``); OGG and MP3 are
-not ported.
+resamples on either placement. WAV decodes through a built-in parser; FLAC,
+MP3 (MPEG-1/2/2.5 Layer III) and Ogg Vorbis through the native decoders
+(``csrc/host/flac_decode.cc``, ``mp3_decode.cc``, ``vorbis_decode.cc``),
+which follow the reference's FFmpeg route. Other compressed forms (MPEG
+Layers I/II, Opus, Ogg FLAC, Speex, AAC...) raise NotImplementedError
+(ROADMAP.md item 4c).
 """
 
 from __future__ import annotations
@@ -75,8 +78,8 @@ def decode_wav(data: bytes):
     return x, float(sample_rate)
 
 
-_COMPRESSED_NOT_PORTED = ("{} audio is not ported to dali_tpu_torch yet; see ROADMAP.md "
-                          "(Queue 1, item 4b)")
+_COMPRESSED_NOT_PORTED = ("{} is not ported to dali_tpu_torch yet; see ROADMAP.md "
+                          "(Queue 1, item 4c)")
 
 
 def _id3v2_end(data: bytes) -> int:
@@ -89,38 +92,72 @@ def _id3v2_end(data: bytes) -> int:
     return 10 + size + (10 if data[5] & 0x10 else 0)
 
 
+# the first packets of the Ogg codecs FFmpeg reads that the port does not
+_OGG_NOT_PORTED = ((b"OpusHead", "Ogg Opus audio"), (b"\x7fFLAC", "Ogg FLAC audio"),
+                   (b"Speex   ", "Ogg Speex audio"), (b"CELT    ", "Ogg CELT audio"),
+                   (b"\x80theora", "Ogg Theora video"), (b"fishead\0", "Ogg Skeleton"))
+
+
+def _ogg_first_packet(body: bytes) -> bytes:
+    """The start of the first packet on an Ogg stream's first page (b"" if
+    the page header does not read)."""
+    if len(body) < 27:
+        return b""
+    nseg = body[26]
+    return body[27 + nseg:27 + nseg + 16]
+
+
 def audio_container(data: bytes) -> str:
-    """"wav" or "flac" (a leading ID3v2 tag skipped); OGG and MP3 raise
-    NotImplementedError, anything else ValueError."""
+    """"wav", "flac", "mp3" or "vorbis" (a leading ID3v2 tag skipped). An
+    Ogg stream is Vorbis unless its first packet names another codec
+    (Opus, FLAC, Speex...), which raises NotImplementedError, as an MPEG
+    Layer I or II stream does in the native decoder; a stream of none of
+    these forms raises ValueError."""
     if data[:4] == b"RIFF":
         return "wav"
     body = data[_id3v2_end(data):]
     if body[:4] == b"fLaC":
         return "flac"
     if body[:4] == b"OggS":
-        raise NotImplementedError(_COMPRESSED_NOT_PORTED.format("OGG"))
+        first = _ogg_first_packet(body)
+        for magic, what in _OGG_NOT_PORTED:
+            if first.startswith(magic):
+                raise NotImplementedError(_COMPRESSED_NOT_PORTED.format(what))
+        return "vorbis"
     if data[:3] == b"ID3" or (len(body) > 1 and body[0] == 0xFF and body[1] & 0xE0 == 0xE0):
-        raise NotImplementedError(_COMPRESSED_NOT_PORTED.format("MP3"))
-    raise ValueError("Undecodable audio: not a WAV, FLAC, OGG or MP3 stream")
+        return "mp3"
+    raise ValueError("Undecodable audio: not a WAV, FLAC, MP3 or Ogg stream")
+
+
+_MALFORMED = {"flac": "malformed FLAC stream or a failed CRC", "mp3": "malformed MP3 stream",
+              "vorbis": "malformed Ogg Vorbis stream"}
 
 
 def decode_audio_batch(pool, datas):
     """(float32 [n] or [n, channels], rate) of each stream: WAV through the
-    built-in parser, FLAC through the native decoder (``flac_decode.cc``),
-    the batch's FLAC streams in one call on ``pool``'s workers. A malformed
-    or CRC-failing FLAC stream raises ValueError, as the reference's FFmpeg
-    decoder failing does."""
+    built-in parser, FLAC, MP3 and Ogg Vorbis through the native decoders
+    (``flac_decode.cc``, ``mp3_decode.cc``, ``vorbis_decode.cc``), all of
+    them in one call on ``pool``'s workers. A stream the
+    reference's FFmpeg decoder fails on raises ValueError, as there; MPEG
+    Layers I and II, free-format MP3 and Vorbis floor 0 raise
+    NotImplementedError, as do chained Ogg files."""
     kinds = [audio_container(d) for d in datas]
     out = [decode_wav(d) if k == "wav" else None for d, k in zip(datas, kinds)]
-    flac = [i for i, k in enumerate(kinds) if k == "flac"]
-    if flac:
-        from .. import native
+    coded = [i for i, k in enumerate(kinds) if k != "wav"]
+    if not coded:
+        return out
+    from .. import native
 
-        for i, r in zip(flac, native.decode_flac_batch(pool, [datas[i] for i in flac])):
-            if r is None:
-                raise ValueError(f"Undecodable audio (sample {i}): malformed FLAC stream or "
-                                 "a failed CRC")
-            out[i] = r
+    res = native.decode_audio_codec_batch(pool, [datas[i] for i in coded],
+                                          [kinds[i] for i in coded])
+    for i, r in zip(coded, res):
+        if r == native.AUDIO_UNSUPPORTED:
+            raise NotImplementedError(_COMPRESSED_NOT_PORTED.format(
+                "MPEG Layer I/II or free-format audio" if kinds[i] == "mp3"
+                else "Vorbis floor 0, or a chained Ogg file,"))
+        if r == native.AUDIO_MALFORMED:
+            raise ValueError(f"Undecodable audio (sample {i}): " + _MALFORMED[kinds[i]])
+        out[i] = r
     return out
 
 
@@ -130,7 +167,7 @@ def decode_audio(data: bytes):
 
 
 DALI_SCHEMA("decoders.Audio").DocStr(
-    """Decodes audio (WAV, FLAC). Outputs (audio, sample_rate)."""
+    """Decodes audio (WAV, FLAC, MP3, Ogg Vorbis). Outputs (audio, sample_rate)."""
 ).NumInput(1).NumOutput(2).Devices("cpu").AddOptionalArg(
     "sample_rate", ArgType.FLOAT, "Resample to this rate (0 = keep).", 0.0, tensor_ok=True
 ).AddOptionalArg(
@@ -156,7 +193,8 @@ def _resample_audio(x: np.ndarray, in_rate: float, out_rate: float) -> np.ndarra
 class AudioDecoderCPU(Operator):
     def _decode_batch(self, ctx, samples):
         """float32 PCM of each sample after downmix and resampling, and its
-        rate; the FLAC streams decode on the pipeline's worker pool."""
+        rate; the FLAC, MP3 and Vorbis streams decode on the pipeline's
+        worker pool."""
         from .. import native
 
         pool = native.shared_pool(getattr(self.pipeline, "num_threads", 1) or 1)
@@ -203,6 +241,12 @@ DALI_SCHEMA("_AudioStage").DocStr(
 ).AddOptionalArg("quality", ArgType.FLOAT, "Resampling quality (0..100).", 50.0)
 
 
+def _as_int16(x: np.ndarray):
+    """``x * 32768`` as int16 where that is exact, else None."""
+    s = x * np.float32(32768.0)
+    return s.astype(np.int16) if np.array_equal(np.clip(np.rint(s), -32768, 32767), s) else None
+
+
 @register_operator("_AudioStage", "mixed")
 class AudioStageMixed(AudioDecoderCPU):
     def run_batch(self, ctx, inp):
@@ -223,10 +267,8 @@ class AudioStageMixed(AudioDecoderCPU):
         elif not as_float:
             x = x.astype(to_numpy_type(dt))
         as16 = None
-        if as_float:
-            s = x * np.float32(32768.0)
-            if np.array_equal(np.clip(np.rint(s), -32768, 32767), s):
-                as16 = s.astype(np.int16)
+        if as_float and _as_int16(x[:64]) is not None:  # decoded MP3 or Vorbis fails a prefix
+            as16 = _as_int16(x)
         return np.ascontiguousarray(x), rate, as16
 
 

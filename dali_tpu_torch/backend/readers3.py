@@ -403,8 +403,9 @@ DALI_SCHEMA("readers.NemoAsr").DocStr(
 
 @register_operator("readers.NemoAsr", "cpu")
 class NemoAsrReader(BaseReader):
-    """WAV and FLAC clips decode through ``audio.decode_audio``; OGG and MP3
-    raise as ``decoders.audio`` does."""
+    """WAV, FLAC, MP3 and Ogg Vorbis clips decode through
+    ``audio.decode_audio``, as ``decoders.audio`` decodes them; the forms it
+    does not decode raise as there."""
 
     def __init__(self, spec, op_id):
         super().__init__(spec, op_id)

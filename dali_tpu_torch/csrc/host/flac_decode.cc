@@ -14,14 +14,13 @@
 // followed by swresample to AV_SAMPLE_FMT_FLT gives it (exact up to 24 bits).
 // Any malformed or CRC-failing stream returns an error code.
 
+#include <algorithm>
 #include <cstdint>
-#include <cstdlib>
 #include <cstring>
+#include <new>
 #include <vector>
 
-extern "C" int64_t dali_tpu_task_submit(void*, void (*)(void*), void*, const int64_t*, int);
-extern "C" void dali_tpu_pool_wait_all(void*);
-extern "C" int dali_tpu_pool_num_threads(void*);
+#include "audio_codecs.h"
 
 namespace {
 
@@ -348,7 +347,10 @@ int decode_stream(const uint8_t* d, size_t len, std::vector<float>& out, StreamI
   try {
     size_t pos = read_header(d, len, si);
     std::vector<int64_t> chans;
-    out.reserve(si.total ? si.total * si.channels : 1 << 16);
+    // STREAMINFO's count, but no more than a few samples per byte: a header
+    // may claim more than its frames hold, and silence may hold more
+    const uint64_t room = uint64_t(len) * 4 + (1 << 16);
+    out.reserve(si.total ? std::min<uint64_t>(si.total * si.channels, room) : 1 << 16);
     while (pos < len) {
       if (len - pos == 128 && std::memcmp(d + pos, "TAG", 3) == 0) break;  // ID3v1 trailer
       pos = decode_frame(d, len, pos, si, chans, out);
@@ -363,58 +365,18 @@ int decode_stream(const uint8_t* d, size_t len, std::vector<float>& out, StreamI
   return 0;
 }
 
-struct Job {
-  const uint8_t* data;
-  size_t len;
-  float** out;
-  long long* frames;
-  int* channels;
-  double* rate;
-  int* rc;
-};
-
-void run_job(void* p) {
-  Job* j = static_cast<Job*>(p);
-  std::vector<float> pcm;
-  StreamInfo si;
-  *j->out = nullptr;
-  *j->rc = decode_stream(j->data, j->len, pcm, si);
-  if (*j->rc != 0) return;
-  float* buf = static_cast<float*>(std::malloc(pcm.size() * sizeof(float)));
-  if (!buf) {
-    *j->rc = -3;
-    return;
-  }
-  std::memcpy(buf, pcm.data(), pcm.size() * sizeof(float));
-  *j->out = buf;
-  *j->frames = static_cast<long long>(pcm.size() / si.channels);
-  *j->channels = si.channels;
-  *j->rate = static_cast<double>(si.rate);
-}
-
 }  // namespace
 
-extern "C" {
+namespace audio_codecs {
 
-void dali_tpu_torch_flac_free(float* p) { std::free(p); }
-
-// Decode n FLAC streams, each into a malloc'd interleaved float32 buffer
-// (freed with dali_tpu_torch_flac_free). rcs[i]: 0 decoded, -1 malformed
-// or failing a CRC, -3 out of memory. A null pool, or one of one thread,
-// decodes inline.
-int dali_tpu_torch_flac_decode_batch(void* pool, const char** datas, const size_t* lens, int n,
-                                     float** outs, long long* frames, int* channels,
-                                     double* rates, int* rcs) {
-  std::vector<Job> jobs(n);
-  const bool inline_run = pool == nullptr || dali_tpu_pool_num_threads(pool) <= 1;
-  for (int i = 0; i < n; i++) {
-    jobs[i] = {reinterpret_cast<const uint8_t*>(datas[i]), lens[i], &outs[i], &frames[i],
-               &channels[i], &rates[i], &rcs[i]};
-    if (inline_run) run_job(&jobs[i]);
-    else dali_tpu_task_submit(pool, run_job, &jobs[i], nullptr, 0);
+int flac_decode(const uint8_t* data, size_t len, Pcm& out) {
+  StreamInfo si;
+  const int rc = decode_stream(data, len, out.samples, si);
+  if (rc == kOk) {
+    out.channels = si.channels;
+    out.rate = static_cast<int>(si.rate);
   }
-  if (!inline_run) dali_tpu_pool_wait_all(pool);
-  return 0;
+  return rc;
 }
 
-}  // extern "C"
+}  // namespace audio_codecs

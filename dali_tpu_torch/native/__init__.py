@@ -107,9 +107,9 @@ def host_lib():
             lib.dali_tpu_torch_gif_info.argtypes = [u8p, sz, ip, ip]
             lib.dali_tpu_torch_gif_decode.restype = ci
             lib.dali_tpu_torch_gif_decode.argtypes = [u8p, sz, ci, vp]
-            lib.dali_tpu_torch_flac_decode_batch.restype = ci
-            lib.dali_tpu_torch_flac_decode_batch.argtypes = [
-                vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t), ci,
+            lib.dali_tpu_torch_audio_decode_batch.restype = ci
+            lib.dali_tpu_torch_audio_decode_batch.argtypes = [
+                vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t), ip, ci,
                 ctypes.POINTER(ctypes.POINTER(ctypes.c_float)), llp, ip,
                 ctypes.POINTER(ctypes.c_double), ip]
             for name in ("webp", "tiff", "pnm"):
@@ -128,8 +128,6 @@ def host_lib():
             lib.dali_tpu_torch_inflate_zlib.restype = ci
             lib.dali_tpu_torch_inflate_zlib.argtypes = [vp, ctypes.c_size_t, vp, ctypes.c_size_t,
                                                         ctypes.POINTER(ctypes.c_size_t)]
-            lib.dali_tpu_torch_flac_free.restype = None
-            lib.dali_tpu_torch_flac_free.argtypes = [ctypes.POINTER(ctypes.c_float)]
             _LIB = lib
     return _LIB
 
@@ -537,12 +535,35 @@ def decode_jpeg(data, denom: int = 1, fancy_upsampling: bool = True, gray: bool 
     return decode_jpeg_routed(data, denom, fancy_upsampling, gray)[0]
 
 
-# ------------------------------------------------------------------ FLAC
-def decode_flac_batch(pool, datas):
-    """Decode a batch of FLAC streams with one native call
-    (``flac_decode.cc``), each on a worker of ``pool`` (inline without one).
-    Returns, per stream, (float32 [n] or [n, channels], sample rate), or
-    None for a stream that is malformed or fails a CRC."""
+# ------------------------------------------------------------------ FLAC, MP3 and Ogg Vorbis
+AUDIO_CODECS = {"mp3": 1, "vorbis": 2, "flac": 3}
+AUDIO_MALFORMED, AUDIO_UNSUPPORTED, _AUDIO_NO_MEMORY = -1, -2, -3
+
+
+class _Malloced:
+    """A float32 buffer the host library malloc'd, seen by numpy without a
+    copy and freed with the last array over it."""
+
+    def __init__(self, ptr, n, free):
+        self._ptr, self._free = ptr, free
+        self.__array_interface__ = {"shape": (n,), "typestr": "<f4", "version": 3,
+                                    "data": (ctypes.cast(ptr, ctypes.c_void_p).value, False)}
+
+    def __del__(self):
+        self._free(self._ptr)
+
+
+def decode_audio_codec_batch(pool, datas, codecs):
+    """Decode a batch of FLAC (``flac_decode.cc``), MP3 (``mp3_decode.cc``)
+    and Ogg Vorbis (``vorbis_decode.cc``) streams with one native call
+    (``audio_decode_batch.cc``), each on a worker of ``pool`` (inline
+    without one); ``codecs[i]`` is "flac", "mp3" or "vorbis". Returns, per
+    stream, (float32 [n] or [n, channels], sample rate), or the failure
+    code: AUDIO_MALFORMED where the reference's decoder fails or yields
+    nothing (a FLAC frame failing its CRC too), AUDIO_UNSUPPORTED for a form
+    not decoded (MPEG Layers I and II, free-format MP3, Vorbis floor 0,
+    chained Ogg files). Raises MemoryError where a decode runs out of
+    memory."""
     n = len(datas)
     arrs, ptrs, lens = _byte_arrays(datas)
     fp = ctypes.POINTER(ctypes.c_float)
@@ -551,20 +572,21 @@ def decode_flac_batch(pool, datas):
     chans = (ctypes.c_int * n)()
     rates = (ctypes.c_double * n)()
     rcs = (ctypes.c_int * n)()
+    kinds = (ctypes.c_int * n)(*[AUDIO_CODECS[c] for c in codecs])
     lib = host_lib()
-    lib.dali_tpu_torch_flac_decode_batch(_pool_handle(pool), ptrs, lens, n, outs, frames, chans,
-                                         rates, rcs)
+    lib.dali_tpu_torch_audio_decode_batch(_pool_handle(pool), ptrs, lens, kinds, n, outs, frames,
+                                          chans, rates, rcs)
     del arrs
     res = []
     for i in range(n):
         if rcs[i] != 0:
-            res.append(None)
+            res.append(rcs[i])
             continue
-        try:
-            x = np.ctypeslib.as_array(outs[i], shape=(frames[i] * chans[i],)).copy()
-        finally:
-            lib.dali_tpu_torch_flac_free(outs[i])
+        x = np.asarray(_Malloced(outs[i], frames[i] * chans[i], lib.dali_tpu_torch_audio_free))
         res.append((x.reshape(frames[i], chans[i]) if chans[i] > 1 else x, float(rates[i])))
+    if _AUDIO_NO_MEMORY in rcs:
+        raise MemoryError(f"out of memory decoding audio stream "
+                          f"{list(rcs).index(_AUDIO_NO_MEMORY)} of the batch")
     return res
 
 

@@ -72,13 +72,14 @@ def _stage_ms(ex) -> dict:
 # -- asr_resample ------------------------------------------------------------------------------
 
 
-def asr_resample_graph(fn, types, root, in_rate=IN_RATE, out_rate=OUT_RATE, mixed=True):
+def asr_resample_graph(fn, types, root, in_rate=IN_RATE, out_rate=OUT_RATE, mixed=True,
+                       ext="wav"):
     """(resampled audio, dB mel, normalized dB mel) of asr_frontend's graph
-    with the 48 kHz -> 16 kHz resample after the decode. ``mixed=False``
-    decodes on the host and copies with ``.gpu()``: the same values, the
-    form dali_tpu runs it in (its mixed decode gives the device resample no
-    host shapes)."""
-    enc, _ = fn.readers.file(file_root=root, file_filters=["*.wav"], random_shuffle=True,
+    with the 48 kHz -> 16 kHz resample after the decode, over ``root``'s
+    ``*.ext`` clips. ``mixed=False`` decodes on the host and copies with
+    ``.gpu()``: the same values, the form dali_tpu runs it in (its mixed
+    decode gives the device resample no host shapes)."""
+    enc, _ = fn.readers.file(file_root=root, file_filters=[f"*.{ext}"], random_shuffle=True,
                              name="R", seed=SEEDS["reader"])
     if mixed:
         audio, _rate = fn.decoders.audio(enc, dtype=types.FLOAT, downmix=True, device="mixed")
@@ -93,12 +94,12 @@ def asr_resample_graph(fn, types, root, in_rate=IN_RATE, out_rate=OUT_RATE, mixe
     return resampled, db, fn.normalize(db, axes=[1])
 
 
-def make_asr_resample_pipe(root, batch, device):
+def make_asr_resample_pipe(root, batch, device, ext="wav"):
     from dali_tpu_torch import fn, pipeline_def, types
 
     @pipeline_def(batch_size=batch, seed=7, prefetch_queue_depth=2, device=device)
     def asr_resample():
-        return asr_resample_graph(fn, types, root)
+        return asr_resample_graph(fn, types, root, ext=ext)
 
     pipe = asr_resample()
     pipe.build()
@@ -121,12 +122,12 @@ def _check_asr(outs, batch):
         raise AssertionError("asr_resample: non-finite values in the valid region")
 
 
-def run_asr_resample(root, batch=32, warmup=3, timed=10):
+def run_asr_resample(root, batch=32, warmup=3, timed=10, ext="wav"):
     """The path on the card, each batch taken and the next scheduled as an
     iterator does: clips/s, host ms/batch, device wait; then one batch run
     alone with its device ms by stage, and the peak device memory."""
     torch.cuda.reset_peak_memory_stats()
-    pipe = make_asr_resample_pipe(root, batch, "cuda:0")
+    pipe = make_asr_resample_pipe(root, batch, "cuda:0", ext)
     ex = pipe.executor
 
     def step():
@@ -159,13 +160,13 @@ def run_asr_resample(root, batch=32, warmup=3, timed=10):
             "peak_gib": peak}
 
 
-def check_asr_resample(root, batch=4, iterations=2):
+def check_asr_resample(root, batch=4, iterations=2, ext="wav"):
     """The path at ``batch`` on the card and on the CPU: each clip's
     resampled signal within ``RESAMPLE_RTOL`` of its peak, its dB mel within
     ``DB_ATOL`` on the valid frames."""
     runs = {}
     for device in ("cuda:0", "cpu"):
-        pipe = make_asr_resample_pipe(root, batch, device)
+        pipe = make_asr_resample_pipe(root, batch, device, ext)
         runs[device] = [[(o.as_tensor().cpu(), o.shape()) for o in pipe.run()[:2]]
                         for _ in range(iterations)]
         pipe.shutdown()

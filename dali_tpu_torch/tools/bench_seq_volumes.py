@@ -322,9 +322,10 @@ def volume_phase(root, n_files=4, seed=0, warmup=3, timed=10):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def host_decode_ms(root, ext, batch=32, reps=3):
+def host_decode_ms(root, ext, batch=32, reps=3, threads=None):
     """Host ms to decode ``batch`` clips of ``root`` (``*.ext``) in one
-    ``decode_audio_batch`` on the host's cores (median of ``reps``)."""
+    ``decode_audio_batch`` on ``threads`` workers (the host's cores by
+    default, inline for one; median of ``reps``)."""
     from dali_tpu_torch import native
     from dali_tpu_torch.backend.audio import decode_audio_batch
 
@@ -333,7 +334,8 @@ def host_decode_ms(root, ext, batch=32, reps=3):
     for name in [c for c in clips if c.endswith("." + ext)][:batch]:
         with open(os.path.join(root, "clips", name), "rb") as f:
             datas.append(f.read())
-    pool = native.shared_pool(os.cpu_count() or 1)
+    threads = threads or os.cpu_count() or 1
+    pool = native.shared_pool(threads) if threads > 1 else None
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()

@@ -67,15 +67,24 @@ def test_decode_wav_bit_equal(kind):
 
 
 def test_compressed_audio_raises():
-    """FLAC decodes since item 4, so a malformed FLAC stream raises
-    ValueError, as the reference's decoder failing does; OGG and MP3 are not
-    ported and name their ROADMAP item."""
+    """FLAC decodes since item 4, MP3 and Ogg Vorbis since item 4b, so their
+    malformed streams raise ValueError, as the reference's decoder failing
+    does; an Ogg Opus stream and an MPEG-1 Layer II stream, which the port
+    does not decode, raise NotImplementedError naming item 4c."""
+    from dali_tpu_torch.tools.bench_audio_codecs import CODECS
+
     with pytest.raises(ValueError, match="malformed FLAC"):
         port_audio.decode_audio(b"fLaC\x00\x00\x00\x22" + bytes(64))
-    for blob in (b"OggS" + bytes(60), b"ID3\x04\x00\x00\x00\x00\x00\x00" + b"\xff\xfb" + bytes(60),
-                 b"\xff\xfb\x90\x00" + bytes(60)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md \(Queue 1, item 4b\)"):
+    for blob, what in ((b"OggS" + bytes(60), "Ogg Vorbis"),
+                       (b"ID3\x04\x00\x00\x00\x00\x00\x00" + b"\xff\xfb" + bytes(60), "MP3"),
+                       (b"\xff\xfb\x90\x00" + bytes(60), "MP3")):
+        with pytest.raises(ValueError, match=f"malformed {what}"):
             port_audio.decode_audio(blob)
+    for name in ("fail_ogg_opus.ogg", "fail_layer2.mp3"):
+        with open(os.path.join(CODECS, name), "rb") as f:
+            data = f.read()
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md \(Queue 1, item 4c\)"):
+            port_audio.decode_audio(data)
 
 
 @pytest.fixture(scope="module")

@@ -1725,3 +1725,28 @@ def test_capi_serve_on_card_matches_cpu(card, tmp_path):
     assert g.shape == c.shape == (8, 3 * 224 * 224)
     d = np.abs(g - c)
     assert d.max() <= LSB and (d > 1e-4).mean() <= MAX_FLIP_FRACTION
+
+
+def test_audio_codec_fixtures_on_the_card_machine(card):
+    """Every committed MP3 and Vorbis fixture decoded by this machine's build
+    of the host library, against reference.npz (dali_tpu's FFmpeg decode,
+    written on a machine that has FFmpeg): the same lengths, channels and
+    rates, within the full-accuracy bounds of ISO/IEC 11172-4."""
+    from dali_tpu_torch.tools import bench_audio_codecs
+
+    r = bench_audio_codecs.check_fixtures()
+    assert r["fixtures"]["mp3"] >= 20 and r["fixtures"]["vorbis"] >= 7
+    assert r["worst"]["max_abs"] <= bench_audio_codecs.MAX_BOUND
+
+
+@pytest.mark.parametrize("corpus,ext", [("mp3", "mp3"), ("vorbis", "ogg")])
+def test_asr_resample_on_mp3_and_vorbis_matches_cpu(card, corpus, ext):
+    """asr_resample's graph over the committed MP3 and Vorbis clips (the
+    host decode, the card's resample and mel) against the CPU port, within
+    asr_resample's card-vs-CPU contract."""
+    from dali_tpu_torch.tools import bench_audio_codecs
+
+    root = {"mp3": bench_audio_codecs.MP3_CORPUS, "vorbis": bench_audio_codecs.VORBIS_CORPUS}
+    r = bench_dali_cpu.check_asr_resample(root[corpus], batch=4, ext=ext)
+    assert r["resampled_rel_to_peak"] <= bench_dali_cpu.RESAMPLE_RTOL
+    assert r["db_max_diff"] <= bench_dali_cpu.DB_ATOL

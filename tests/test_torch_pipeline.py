@@ -154,12 +154,41 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.plugin.tf, dali_tpu_torch.plugin.paddle\n"
         "import dali_tpu_torch.capi, dali_tpu_torch.capi.build\n"
         "import dali_tpu_torch.tools.bench_plugins\n"
+        "import dali_tpu_torch.tools.bench_audio_codecs, dali_tpu_torch.testdata.make_audio_codecs\n"
+        "import dali_tpu_torch.backend.readers3\n"
+        "from dali_tpu_torch.tools.bench_audio_codecs import check_fixtures\n"
+        "check_fixtures()\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
     )
     root = os.path.join(os.path.dirname(__file__), "..")
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)
+
+
+def test_port_sources_import_no_jax_or_dali_tpu():
+    """Every import statement of the port's package and chip_smoke.py, those
+    inside functions too (which importing a module never runs), names
+    neither JAX nor the JAX package."""
+    import ast
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(root, "dali_tpu_torch"))
+             for f in fs if f.endswith(".py")] + [os.path.join(root, "chip_smoke.py")]
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [(os.path.relpath(path, root), node.lineno, n) for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "dali_tpu")]
+    assert len(files) > 100 and not bad, bad
 
 
 def _imagenet(pkg, train, batch=BATCH, **kw):
