@@ -4,13 +4,16 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, each raising
 on failure:
 
 1. card name and power limit; build both native libraries from the sources
-   in the checkout and print their build seconds;
+   in the checkout, at once, each from its translation units compiled at
+   once, and print their build seconds;
 2. the CMN kernel (``csrc/cmn.cu``) against its plain PyTorch version on the
    card at the main path's shapes ([256, 224, 224, 3] uint8, mixed mirror
-   flags, trimmed valid widths) in five forms (``tools/bench_cmn.py``):
+   flags, trimmed valid widths) in seven forms (``tools/bench_cmn.py``):
    float32 CHW (RN50), float16 CHW, float16 HWC with ``pad_output``
-   (channels-last mixed precision), and uint8 and int8 CHW with values
-   pushed past both ends of the type (saturating stores); then two folded
+   (channels-last mixed precision), uint8 and int8 CHW with values
+   pushed past both ends of the type (saturating stores), and bfloat16
+   CHW and HWC (the AMP input of an H100 trainer; equal to the plain
+   version); then two folded
    forms: two BraTS-sized float32 DHWC volumes' 128^3 windows to float16
    DCHW (read in place through ``src_index``) and a [16, 8, 224, 224, 3]
    uint8 sequence batch to float32 FCHW; float32 within 1e-5, float16
@@ -371,7 +374,29 @@ on failure:
    equal lengths, channels and rates, within the "full accuracy" bounds of
    ISO/IEC 11172-4; the streams the port does not decode raise as they
    should; then one batch of the 8 Vorbis clips of ``corpus_vorbis``
-   through phase 36's graph, card against CPU.
+   through phase 36's graph, card against CPU;
+38. rn50_ddp_2rank (``tools/bench_ddp.py``): rn50_train's recipe as a
+   two-rank DDP job runs it: two spawned ranks on this card in one gloo group
+   (NCCL refuses two ranks on one card), each with its pipeline on the card,
+   half the host's cores as ``num_threads``, ``shard_id=rank``,
+   ``num_shards=2``, ``shuffle_after_epoch=True``, batches taken as
+   ``DTensor`` shards through ``plugin.distributed.DALIGenericIterator``: 3
+   warm-up + 20 timed batches a rank; per-rank images/s and the ranks'
+   images together over the span from the barrier to the last rank's end,
+   beside rn50_train's, host ms and CMN launches per rank (one per batch run);
+   epoch coverage across the ranks through the mesh's collective (each of
+   the 512 entries exactly once an epoch); each rank's first batch
+   bit-equal to this process's standalone run of its shard pipeline;
+39. dryrun_multidevice (``tools/dryrun_multidevice.py``): two ranks on a
+   1 x 2 (data, model) mesh run one sharded MLP step on CMN's bfloat16 HWC
+   output (the kernel launched on each rank), DTensor autograd and SGD over
+   gloo on CUDA tensors (all_reduce only); each rank's CMN call (its float32
+   input, the resampled batch) held against the plain version on the same
+   arguments, bfloat16 bits equal, and timed on it (the
+   ``dryrun_multidevice_path_batch`` form); loss and updated weights (each
+   rank's shards) within 1e-6 of the same step on the CPU without DTensors;
+   the collectives issued; each rank's shard of the hybrid program's global
+   batch equal to its shard pipeline run alone.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -1757,6 +1782,77 @@ def audio_codecs_phase(card):
           f"phase: {time.perf_counter() - t0:.1f} s")
 
 
+def ddp_phase(card, rn50_ips):
+    """Phase 38: rn50_ddp_2rank; returns the CMN launches of its ranks."""
+    from dali_tpu_torch.tools import bench_ddp
+
+    t0 = time.perf_counter()
+    r = bench_ddp.run("cuda", BATCH, WARMUP, TIMED)
+    for rank, b in enumerate(r["by_rank"]):
+        print(f"rn50_ddp_2rank rank {rank}: {b['images_per_s']:.1f} images/s over {TIMED} "
+              f"batches of {BATCH}; host phase {b['host_ms_per_batch']:.2f} ms/batch on "
+              f"{r['threads_per_rank']} threads; cmn launches {b['cmn_launches']} for "
+              f"{b['batches_run']} batches ({card})")
+        require(b["cmn_launches"] == b["batches_run"],
+                f"rn50_ddp_2rank rank {rank}: CMN launched {b['cmn_launches']} times for "
+                f"{b['batches_run']} batches")
+        require(b["finite"], f"rn50_ddp_2rank rank {rank}: non-finite values")
+        require(b["coverage_min"] == b["coverage_max"] == WARMUP,
+                f"rn50_ddp_2rank: epoch coverage broken, counts {b['coverage_min']}-"
+                f"{b['coverage_max']} over {WARMUP} epochs")
+    print(f"e2e rn50_ddp_2rank: {r['images_per_s']:.1f} images/s from 2 ranks on one card "
+          f"(their {r['ranks'] * TIMED * BATCH} images over {r['span_seconds']:.3f} s from the "
+          f"barrier to the last rank's end), {100 * r['images_per_s'] / rn50_ips:.1f}% of "
+          f"rn50_train's {rn50_ips:.1f} in this run ({card})")
+    hashes = bench_ddp.shard_runs(r)
+    require(hashes == [b["first_batch_sha256"] for b in r["by_rank"]],
+            "rn50_ddp_2rank: a rank's first batch differs from its shard pipeline run alone")
+    print(f"rn50_ddp_2rank: each of the {r['ranks'] * bench_ddp.BATCH} file-list entries "
+          f"exactly once in each of the {WARMUP} warm-up epochs across the ranks (all_reduce "
+          f"over gloo on CUDA tensors); each rank's first batch bit-equal to its shard pipeline "
+          f"run alone in this process; ranks ran {r['seconds']:.1f} s with their start; "
+          f"rn50_ddp_2rank phase: {time.perf_counter() - t0:.1f} s")
+    return sum(b["cmn_launches"] for b in r["by_rank"])
+
+
+def dryrun_phase(card):
+    """Phase 39: dryrun_multidevice on two ranks; returns their CMN launches
+    and rank 0's CMN readings on its step's own batch."""
+    import tempfile
+
+    from dali_tpu_torch.tools import dryrun_multidevice as dm
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = dm.run("cuda", 2, tmp)
+        loss, w1, w2 = dm.gather_weights(tmp, 2)
+    ref_loss, ref_w1, ref_w2 = dm.reference_step(dm.step_inputs(r["mesh"][0]), "cpu")
+    err = max(abs(loss - ref_loss) / abs(ref_loss),
+              *(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in ((w1, ref_w1),
+                                                                          (w2, ref_w2))))
+    for rank, b in r["by_rank"].items():
+        print(f"dryrun_multidevice rank {rank} of mesh {r['mesh']} (data, model): loss "
+              f"{b['loss']:.6f}, collectives {b['collectives']}, cmn launches "
+              f"{b['cmn_launches']} (bfloat16 HWC), step {b['step_seconds']:.3f} s with the "
+              f"first launches, hybrid global batch {b['hybrid_global_shape']}, this rank's "
+              f"shard equal to its shard pipeline run alone ({card})")
+        require(b["cmn_launches"] >= 1, f"dryrun_multidevice rank {rank}: no CMN launch")
+        c = b["cmn_form"]
+        require(c["max_abs_err"] == 0, f"dryrun_multidevice rank {rank}: CMN kernel "
+                f"{c['max_abs_err']} from its plain version")
+        print(f"dryrun_multidevice rank {rank} CMN kernel on the step's own batch "
+              f"{c['shape_in']} {c['dtype_in']} -> {c['shape_out']} bfloat16 HWC: the same bits "
+              f"as its plain version (max abs diff {c['max_abs_err']}); kernel alone "
+              f"{c['ms']:.4f} ms (cold L2), wrapper {c['wrapper_ms']:.4f} ms, plain "
+              f"{c['plain_ms']:.4f} ms; {c['bytes']} bytes, bound {c['bound_ms']:.6f} ms, "
+              f"{100 * c['bound_share']:.1f}% of it ({card})")
+    require(err <= 1e-6, f"dryrun_multidevice: {err:.2e} from the CPU step (limit 1e-6)")
+    print(f"dryrun_multidevice against the same step on the CPU without DTensors: loss "
+          f"{loss:.6f} vs {ref_loss:.6f}, largest difference {err:.2e} of the value's scale "
+          f"(limit 1e-6); dryrun_multidevice phase: {time.perf_counter() - t0:.1f} s")
+    return sum(b["cmn_launches"] for b in r["by_rank"].values()), r["by_rank"][0]["cmn_form"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1819,6 +1915,8 @@ def main():
         card, recipe_ips["rn50_val"])
     launches["asr_mp3"] = asr_mp3_phase(card, asr_cps, resample_cps)
     audio_codecs_phase(card)
+    launches["rn50_ddp_2rank"] = ddp_phase(card, rn50_ips)
+    launches["dryrun_multidevice"], path_cmn["dryrun_multidevice"] = dryrun_phase(card)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

@@ -26,7 +26,7 @@ from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
 from ..kernels import signal as sig
 from ..kernels.cmn import saturating_cast
-from ..types import DALIDataType, to_numpy_type, to_torch_type
+from ..types import DALIDataType, cast_host, to_torch_type
 from .base import Operator
 
 # ====================================== decoders.Audio ============================================
@@ -216,7 +216,7 @@ class AudioDecoderCPU(Operator):
         for x, rate in self._decode_batch(ctx, inp.samples):
             if dt == DALIDataType.INT16:
                 x = np.clip(np.round(x * 32767.0), -32768, 32767).astype(np.int16)
-            pcm.append(x.astype(to_numpy_type(dt)))
+            pcm.append(cast_host(x, dt))
             rates.append(rate)
         return [HostBatch(pcm, layout="t"), HostBatch(rates, layout="")]
 
@@ -265,7 +265,7 @@ class AudioStageMixed(AudioDecoderCPU):
         if dt == DALIDataType.INT16:
             x = np.clip(np.round(x * 32767.0), -32768, 32767).astype(np.int16)
         elif not as_float:
-            x = x.astype(to_numpy_type(dt))
+            x = cast_host(x, dt)
         as16 = None
         if as_float and _as_int16(x[:64]) is not None:  # decoded MP3 or Vorbis fails a prefix
             as16 = _as_int16(x)
@@ -636,7 +636,7 @@ class AudioResampleCPU(_AudioResampleBase):
     def run_sample(self, ctx, idx, x):
         out = _resample_audio(x.astype(np.float32), *self._rates(ctx, idx))
         dt = self.spec.GetArgument("dtype", None)
-        return out.astype(to_numpy_type(dt)) if dt is not None else out
+        return cast_host(out, dt) if dt is not None else out
 
 
 @register_operator("experimental.AudioResample", "gpu")

@@ -171,6 +171,9 @@ class Operator:
     # host edge of one is not stacked and copied to the device, so its
     # samples may differ in shape
     host_args: tuple = ()
+    # the host op takes bfloat16 inputs (torch.bfloat16 samples, which numpy
+    # cannot hold); the executor refuses them to any other
+    reads_bfloat16 = False
 
     def __init__(self, spec: OpSpec, op_id: int):
         self.spec = spec
@@ -184,7 +187,9 @@ class Operator:
         if self.elementwise and n and inputs:
             shape = inputs[0].samples[0].shape
             if all(s.shape == shape for b in inputs for s in b.samples):
-                out = self.run_sample(ctx, None, *(np.stack(b.samples) for b in inputs))
+                out = self.run_sample(ctx, None, *(
+                    torch.stack(b.samples) if torch.is_tensor(b.samples[0])  # bfloat16
+                    else np.stack(b.samples) for b in inputs))
                 return [HostBatch([out[i, ...] for i in range(n)],
                                   layout=self.output_layout(0, inputs))]
         results = self.map_samples(

@@ -19,7 +19,7 @@ import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
-from ..types import BatchInfo, DALIDataType, SampleInfo, to_numpy_type
+from ..types import BatchInfo, DALIDataType, SampleInfo, cast_host, to_numpy_type
 from .base import Operator
 
 DALI_SCHEMA("_CopyToDevice").DocStr(
@@ -30,6 +30,8 @@ DALI_SCHEMA("_CopyToDevice").DocStr(
 
 @register_operator("_CopyToDevice", "mixed")
 class CopyToDevice(Operator):
+    reads_bfloat16 = True  # staged as int16 bits (batch.pad_and_stack)
+
     def run_batch(self, ctx, inp: HostBatch):
         return [inp]
 
@@ -79,7 +81,7 @@ class _ConstantBase(Operator):
                 arr = np.full(shape, arr.reshape(-1)[0], arr.dtype)
         dtype = self.spec.GetArgument("dtype", None)
         if dtype is not None:
-            arr = arr.astype(to_numpy_type(dtype))
+            arr = cast_host(arr, dtype)
         return arr
 
 
@@ -94,7 +96,8 @@ class ConstantCPU(_ConstantBase):
 class ConstantGPU(_ConstantBase):
     def lower(self, dctx, *unused):
         # the pipeline's max batch size, as the reference's device program
-        v = torch.from_numpy(self._value()).to(self.pipeline.device)
+        v = self._value()
+        v = (v if torch.is_tensor(v) else torch.from_numpy(v)).to(self.pipeline.device)
         data = v[None].expand(self.pipeline.max_batch_size, *v.shape)
         return [DeviceBatch(data, None, self.spec.GetArgument("layout", ""))]
 

@@ -78,7 +78,7 @@ def _to_dtype(spec, out: np.ndarray, default) -> np.ndarray:
     """``out`` in the ``dtype`` argument (else ``default``): integers round
     half to even and saturate."""
     dt_arg = spec.GetArgument("dtype", None)
-    return saturate(out, np.dtype(to_numpy_type(dt_arg) if dt_arg is not None else default))
+    return saturate(out, to_numpy_type(dt_arg) if dt_arg is not None else np.dtype(default))
 
 
 class _HostConv(SamplePool, Operator):

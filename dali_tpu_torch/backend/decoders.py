@@ -35,7 +35,7 @@ from ..batch import DeviceBatch, Esc16Staged, FlatStaged, HostBatch, SparseStage
 from .. import imgcodec, native
 from ..imgcodec import exif_orientation
 from ..kernels import jpeg as jk
-from ..types import DALIDataType, DALIImageType, to_numpy_type
+from ..types import DALIDataType, DALIImageType, cast_host, contiguous_host
 from .base import Operator
 
 _DECODE_IDX_CAP = 256 << 20  # bytes of ROI decode-index blobs kept per op
@@ -1121,9 +1121,9 @@ class _ImageSliceBase(_ImageDecoderBase):
         dt = spec.GetArgument("dtype")
         out = []
         for i, img in enumerate(imgs):
-            if dt is not None:
-                img = img.astype(to_numpy_type(dt))
-            out.append(self._slice(img, [p.samples[i] for p in pos]))
+            img = self._slice(img, [p.samples[i] for p in pos])
+            # cast after the slice, equal to the reference's slice of the cast
+            out.append(img if dt is None else contiguous_host(cast_host(img, dt)))
         return [HostBatch(out, layout="HWC")]
 
     def _slice(self, img, pos):
@@ -1184,7 +1184,8 @@ class PeekImageShape(Operator):
         if self.spec.GetArgument("image_type") == DALIImageType.GRAY:
             c = 1
         dtype = self.spec.GetArgument("dtype")
-        return np.array([h, w, c], dtype=to_numpy_type(dtype) if dtype is not None else np.int64)
+        shape = np.array([h, w, c], np.int64)
+        return cast_host(shape, dtype) if dtype is not None else shape
 
     def output_layout(self, output_idx, inputs):
         return ""

@@ -10,7 +10,7 @@ import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch
-from ..types import DALIDataType, to_numpy_type, to_torch_type
+from ..types import DALIDataType, cast_host, to_numpy_type, to_torch_type
 from .base import Operator
 
 DALI_SCHEMA("Cast").DocStr("Casts to another dtype.").NumInput(1).NumOutput(1).Devices(
@@ -20,9 +20,10 @@ DALI_SCHEMA("Cast").DocStr("Casts to another dtype.").NumInput(1).NumOutput(1).D
 @register_operator("Cast", "cpu")
 class CastCPU(Operator):
     elementwise = True
+    reads_bfloat16 = True
 
     def run_sample(self, ctx, idx, x):
-        return x.astype(to_numpy_type(self.spec.GetArgument("dtype")))
+        return cast_host(x, self.spec.GetArgument("dtype"))
 
 
 @register_operator("Cast", "gpu")
@@ -54,7 +55,7 @@ DALI_SCHEMA("Shapes").DocStr("Per-sample shapes.").NumInput(1).NumOutput(1).Devi
 @register_operator("Shapes", "cpu")
 class ShapesCPU(Operator):
     def run_sample(self, ctx, idx, x):
-        return np.array(x.shape, dtype=to_numpy_type(self.spec.GetArgument("dtype")))
+        return cast_host(np.array(x.shape), self.spec.GetArgument("dtype"))
 
     def output_layout(self, output_idx, inputs):
         return ""
@@ -443,14 +444,17 @@ class OneHotCPU(Operator):
         nc = self.spec.GetArgument("num_classes")
         on = self.spec.GetArgument("on_value")
         off = self.spec.GetArgument("off_value")
-        dt = to_numpy_type(self.spec.GetArgument("dtype"))
+        want = self.spec.GetArgument("dtype")
+        dt = to_numpy_type(want)
+        if dt is torch.bfloat16:  # built in float32, then rounded
+            dt = np.dtype(np.float32)
         if x.size == 1:
             out = np.full((nc,), off, dtype=dt)
             out[int(np.asarray(x).reshape(-1)[0])] = on
-            return out
+            return cast_host(out, want)
         out = np.full((*x.shape, nc), off, dtype=dt)
         np.put_along_axis(out, x[..., None].astype(np.int64), on, axis=-1)
-        return out
+        return cast_host(out, want)
 
 
 @register_operator("OneHot", "gpu")

@@ -17,7 +17,8 @@ import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
-from ..types import DALIDataType, DALIImageType, to_numpy_type, to_torch_type
+from ..types import (DALIDataType, DALIImageType, cast_host, contiguous_host, to_bfloat16,
+                     to_numpy_type, to_torch_type)
 from .base import Operator
 
 # -- Slice (cpu; the gpu op is in generic_gpu.py) -----------------------------------------
@@ -134,8 +135,8 @@ class SliceCPU(Operator):
             out = np.pad(out, pads, constant_values=spec.GetArgument("fill_values")[0])
         dt = spec.GetArgument("dtype", None)
         if dt is not None:
-            out = out.astype(to_numpy_type(dt))
-        return np.ascontiguousarray(out)
+            out = cast_host(out, dt)
+        return contiguous_host(out)
 
 
 # -- Crop (cpu, gpu) ------------------------------------------------------------------------
@@ -226,7 +227,9 @@ class CropCPU(_CropCommon):
                    + [(0, ch - out.shape[-3]), (0, cw - out.shape[-2]), (0, 0)])
             out = np.pad(out, pad, constant_values=self.spec.GetArgument("fill_values")[0])
         dt = self.spec.GetArgument("dtype", None)
-        return np.ascontiguousarray(out.astype(to_numpy_type(dt)) if dt is not None else out)
+        if dt is not None:
+            out = cast_host(out, dt)
+        return contiguous_host(out)
 
 
 def _take_windows(data, starts, sizes):
@@ -383,7 +386,7 @@ def _norm_axes(spec, ndim, layout=""):
 class NormalizeCPU(Operator):
     def run_batch(self, ctx, inp: HostBatch):
         spec = self.spec
-        dt = to_numpy_type(spec.GetArgument("dtype"))
+        dt = spec.GetArgument("dtype")
         scale, shift = spec.GetArgument("scale"), spec.GetArgument("shift")
         eps, ddof = spec.GetArgument("epsilon"), spec.GetArgument("ddof")
         outs = []
@@ -392,8 +395,8 @@ class NormalizeCPU(Operator):
             mean = flat.mean()
             std = np.sqrt(flat.var(ddof=ddof) + eps)
             for s in inp.samples:
-                outs.append((scale * (s.astype(np.float64) - mean) / max(std, 1e-12)
-                             + shift).astype(dt))
+                outs.append(cast_host(scale * (s.astype(np.float64) - mean) / max(std, 1e-12)
+                                      + shift, dt))
             return [HostBatch(outs, layout=inp.layout)]
         for i, s in enumerate(inp.samples):
             axes = _norm_axes(spec, s.ndim, inp.layout)
@@ -410,7 +413,7 @@ class NormalizeCPU(Operator):
             else:
                 sd = np.asarray(std, np.float64)
             sd = np.where(sd == 0, 1.0, sd)
-            outs.append((scale * (x - m) / sd + shift).astype(dt))
+            outs.append(cast_host(scale * (x - m) / sd + shift, dt))
         return [HostBatch(outs, layout=inp.layout)]
 
 
@@ -679,8 +682,8 @@ class LookupTableCPU(_LUTCommon):
     elementwise = True
 
     def run_sample(self, ctx, idx, x):
-        dt = to_numpy_type(self.spec.GetArgument("dtype", DALIDataType.FLOAT))
-        return self._table()[x.astype(np.int64)].astype(dt)
+        return cast_host(self._table()[x.astype(np.int64)],
+                         self.spec.GetArgument("dtype", DALIDataType.FLOAT))
 
 
 @register_operator("LookupTable", "gpu")
@@ -734,15 +737,20 @@ class _ValueOpCPU(Operator):
             base_dt = np.dtype(np.int32)
         dt_arg = self.spec.GetArgument("dtype", None)
         dt = to_numpy_type(dt_arg) if dt_arg is not None else base_dt
+        bf16 = dt is torch.bfloat16  # built in float32, then rounded
+        if bf16:
+            dt = np.dtype(np.float32)
         fv = self.fill
         if fv is None:  # Full / FullLike
             fv = np.asarray(ctx.arg(self, "fill_value", idx, 0.0))
             if fv.size > 1:
-                return np.broadcast_to(fv.astype(dt), shape if shape else fv.shape).copy()
+                out = np.broadcast_to(fv.astype(dt), shape if shape else fv.shape).copy()
+                return to_bfloat16(out) if bf16 else out
             if dt_arg is None and not self.like:
                 dt = fv.dtype
             fv = fv.reshape(-1)[0]
-        return np.full(shape, fv, dtype=dt)
+        out = np.full(shape, fv, dtype=dt)
+        return to_bfloat16(out) if bf16 else out
 
 
 for _nm, _fill, _like in (("Zeros", 0.0, False), ("Ones", 1.0, False), ("Full", None, False),

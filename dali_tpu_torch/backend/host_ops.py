@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from .. import native
 from .._schema import register_operator
@@ -274,6 +275,8 @@ class PasteCPU(Operator):
 
 
 def _range(dtype) -> float:
+    if dtype is torch.bfloat16:
+        return 1.0
     return float(np.iinfo(dtype).max) if np.issubdtype(dtype, np.integer) else 1.0
 
 

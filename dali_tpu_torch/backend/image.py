@@ -18,7 +18,8 @@ from ..batch import DeviceBatch, HostBatch
 from ..kernels import cmn as cmn_kernel
 from ..kernels import resample as resample_kernel
 from ..kernels.host_resample import host_resample, host_resample_volume
-from ..types import DALIDataType, DALIImageType, DALIInterpType, to_numpy_type, to_torch_type
+from ..types import (DALIDataType, DALIImageType, DALIInterpType, cast_host, contiguous_host,
+                     to_torch_type)
 from .base import Operator, SamplePool, raise_unserved
 from .decoders import sample_rrc_window
 from .generic2 import _crop_round, _crop_round_torch
@@ -828,7 +829,7 @@ class CropMirrorNormalizeCPU(_CMNCommon):
             out = np.pad(out, [(0, 0)] * (out.ndim - 1) + [(0, 4 - c)])
         if spec.GetArgument("output_layout") in ("CHW", "FCHW", "DCHW"):
             out = np.transpose(out, (0, 3, 1, 2) if out.ndim == 4 else (2, 0, 1))
-        return np.ascontiguousarray(out.astype(to_numpy_type(spec.GetArgument("dtype"))))
+        return contiguous_host(cast_host(out, spec.GetArgument("dtype")))
 
     def output_layout(self, output_idx, inputs):
         return self.spec.GetArgument("output_layout")

@@ -24,7 +24,7 @@ from ..batch import DeviceBatch
 from ..kernels import warp as warp_kernel
 from .. import native
 from ..kernels.host_resample import saturate
-from ..types import DALIInterpType, to_numpy_type
+from ..types import DALIInterpType, cast_host, contiguous_host
 from .base import Operator, SamplePool, raise_unserved
 from .generic2 import _crop_round
 
@@ -293,10 +293,10 @@ class TensorResizeCPU(SamplePool, Operator):
                            mode="nearest")
         dt = spec.GetArgument("dtype", None)
         if dt is not None:
-            out = out.astype(to_numpy_type(dt))
+            out = cast_host(out, dt)
         elif np.issubdtype(x.dtype, np.integer):
             out = saturate(out, x.dtype)
-        return np.ascontiguousarray(out)
+        return contiguous_host(out)
 
 
 def register_aliases():

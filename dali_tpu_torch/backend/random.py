@@ -16,7 +16,7 @@ import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
-from ..types import DALIDataType, to_numpy_type
+from ..types import DALIDataType, cast_host
 from .base import Operator
 
 
@@ -35,10 +35,10 @@ class _RandomBase(Operator):
         n = len(inputs[0]) if inputs else ctx.batch_size
         rng = ctx.rng(self)
         # `dtype or default`, as the reference reads it: UINT8 (0) gives the default
-        dt = to_numpy_type(self.spec.GetArgument("dtype", None) or self.default_dtype)
+        dt = self.spec.GetArgument("dtype", None) or self.default_dtype
         if not inputs and not self.spec.arg_inputs and self.spec.GetArgument("shape", None) is None:
             # one scalar per sample: one call draws the same stream as n calls
-            out = self._draw(ctx, rng, None, (n,)).astype(dt)
+            out = cast_host(self._draw(ctx, rng, None, (n,)), dt)
             return [HostBatch([out[i, ...] for i in range(n)])]
         samples = []
         for i in range(n):
@@ -47,7 +47,7 @@ class _RandomBase(Operator):
             else:
                 s = ctx.arg(self, "shape", i, None)
                 shape = () if s is None else tuple(int(v) for v in np.asarray(s).reshape(-1))
-            samples.append(self._draw(ctx, rng, i, shape).astype(dt))
+            samples.append(cast_host(self._draw(ctx, rng, i, shape), dt))
         return [HostBatch(samples)]
 
     def _draw(self, ctx, rng, idx, shape):

@@ -12,7 +12,7 @@ import zlib
 import numpy as np
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
-from ..types import DALIDataType, to_numpy_type
+from ..types import DALIDataType, cast_host, contiguous_host, to_numpy_type
 from .base import Operator
 
 DALI_SCHEMA("decoders.Numpy").DocStr(
@@ -29,8 +29,8 @@ class NumpyDecoder(Operator):
                                        allow_pickle=False)
         dt = self.spec.GetArgument("dtype", None)
         if dt is not None:
-            arr = arr.astype(to_numpy_type(dt))
-        return np.ascontiguousarray(arr)
+            arr = cast_host(arr, dt)
+        return contiguous_host(arr)
 
 
 DALI_SCHEMA("decoders.Inflate").DocStr(

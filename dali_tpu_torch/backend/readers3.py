@@ -20,7 +20,7 @@ import numpy as np
 
 from .._lmdb import LmdbFile
 from .._schema import DALI_SCHEMA, ArgType, register_operator
-from ..types import DALIDataType, to_numpy_type
+from ..types import DALIDataType, cast_host
 from .readers import BaseReader
 from .readers2 import RecordFiles, list_files
 
@@ -454,7 +454,7 @@ class NemoAsrReader(BaseReader):
             outs = (np.clip(np.round(np.asarray(audio, np.float32) * 32767.0),
                             -32768, 32767).astype(np.int16),)
         else:
-            outs = (audio.astype(to_numpy_type(dt)),)
+            outs = (cast_host(audio, dt),)
         if spec.GetArgument("read_sample_rate"):
             outs += (np.float32(rate),)
         if spec.GetArgument("read_text"):
@@ -584,5 +584,5 @@ class FitsReader(BaseReader):
         if dtypes:
             if len(dtypes) != len(arrs):
                 raise ValueError("readers.Fits: len(dtypes) must match len(hdu_indices)")
-            arrs = [a.astype(to_numpy_type(DALIDataType(int(dt)))) for a, dt in zip(arrs, dtypes)]
+            arrs = [cast_host(a, dt) for a, dt in zip(arrs, dtypes)]
         return tuple(arrs) if len(arrs) > 1 else arrs[0]

@@ -12,7 +12,7 @@ import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch
-from ..types import to_numpy_type, to_torch_type
+from ..types import cast_host, to_torch_type
 from .base import Operator
 
 _KINDS = ("Sum", "Mean", "Max", "Min", "MeanSquare", "RootMeanSquare", "StdDev", "Variance")
@@ -107,7 +107,7 @@ class _ReductionCPU(Operator):
         mean = np.asarray(mean_in[0], np.float32) if mean_in else None
         out = np.asarray(_reduce_np(self.kind, x, axes, spec.GetArgument("keep_dims"), ddof, mean))
         dt = spec.GetArgument("dtype", None)
-        return out.astype(to_numpy_type(dt)) if dt is not None else out
+        return cast_host(out, dt) if dt is not None else out
 
     def output_layout(self, output_idx, inputs):
         return ""

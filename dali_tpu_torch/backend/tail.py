@@ -18,7 +18,7 @@ from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
 from ..kernels import resample as resample_kernel
 from ..kernels.host_resample import host_resample
-from ..types import DALIInterpType, to_numpy_type, to_torch_type
+from ..types import DALIInterpType, contiguous_host, to_numpy_type, to_torch_type
 from .base import Operator, SamplePool, raise_unserved
 from .bbox import _iou
 from .generic2 import _crop_round
@@ -176,14 +176,20 @@ def _infer(shape, total):
 class ReinterpretCPU(Operator):
     def run_sample(self, ctx, idx, x, *shape_in):
         dt = self.spec.GetArgument("dtype", None)
-        out = x.view(to_numpy_type(dt)) if dt is not None else x
+        if dt is None:
+            out = x
+        elif to_numpy_type(dt) is torch.bfloat16:
+            out = torch.from_numpy(np.ascontiguousarray(x)).view(torch.bfloat16)
+        else:
+            out = x.view(to_numpy_type(dt))
         if shape_in:
             shape = [int(v) for v in np.asarray(shape_in[0]).reshape(-1)]
         else:
             v = ctx.arg(self, "shape", idx, None)
             shape = None if v is None else [int(round(float(s)))
                                             for s in np.asarray(v).reshape(-1)]
-        return out if shape is None else out.reshape(_infer(shape, out.size))
+        size = out.numel() if torch.is_tensor(out) else out.size
+        return out if shape is None else out.reshape(_infer(shape, size))
 
     def output_layout(self, j, inputs):
         return self.spec.GetArgument("layout", None) or ""
@@ -211,7 +217,7 @@ class ReinterpretGPU(Operator):
             b = input_batches[0] if input_batches else None
             if b is None:
                 return None
-            out[:, -1] = out[:, -1] * b.dtype.itemsize // np.dtype(to_numpy_type(dt)).itemsize
+            out[:, -1] = out[:, -1] * b.dtype.itemsize // to_numpy_type(dt).itemsize
         req = self.spec.GetArgument("shape", None)
         if req is not None:
             out = np.asarray([_infer([int(round(v)) for v in req], int(np.prod(row)))
@@ -357,8 +363,8 @@ class _RCMCPU(SamplePool, Operator):
         if out.ndim == 2:
             out = out[:, :, None]
         if int(np.asarray(ctx.arg(self, "mirror", idx, 0))):
-            out = out[:, ::-1]
-        return np.ascontiguousarray(out)
+            out = out.flip(1) if torch.is_tensor(out) else out[:, ::-1]
+        return contiguous_host(out)
 
     def output_layout(self, j, inputs):
         return "HWC"

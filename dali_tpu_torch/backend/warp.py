@@ -23,7 +23,7 @@ import torch
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch
 from ..kernels import warp as warp_kernel
-from ..types import DALIDataType, DALIInterpType, to_numpy_type, to_torch_type
+from ..types import DALIDataType, DALIInterpType, cast_host, to_torch_type
 from .base import Operator
 
 
@@ -498,7 +498,7 @@ class CoordTransform(Operator):
             T = ctx.arg(self, "T", idx, None)
             t = np.asarray(T, np.float32).reshape(-1) if T is not None else t0
         out = pts @ mat.T + t
-        return out.astype(to_numpy_type(self.spec.GetArgument("dtype", DALIDataType.FLOAT)))
+        return cast_host(out, self.spec.GetArgument("dtype", DALIDataType.FLOAT))
 
 
 @register_operator("CoordTransform", "gpu")

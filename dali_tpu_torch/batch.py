@@ -52,10 +52,13 @@ def pad_and_stack(batch: HostBatch, canvas: Optional[Sequence[int]] = None,
                   align: Union[Sequence[int], int] = 1, fill=0):
     """Pad ragged samples onto a common canvas and stack -> (array [N, ...],
     shapes [N, ndim]). The canvas is the per-dim max rounded up to ``align``,
-    and never smaller than ``canvas`` (the grow-only policy of the boundary)."""
+    and never smaller than ``canvas`` (the grow-only policy of the boundary).
+    A bfloat16 batch (``torch.bfloat16`` samples) stacks its bits as int16."""
     n = len(batch.samples)
     if n == 0:
         raise ValueError("Cannot pad empty batch")
+    if batch.dtype == torch.bfloat16:
+        batch = HostBatch([s.view(torch.int16).numpy() for s in batch.samples], batch.layout)
     ndim = batch.ndim
     shapes = batch.shapes()
     if isinstance(align, int):
@@ -77,12 +80,14 @@ class Staged:
     """A host->device boundary buffer already in its final dense layout:
     ``array`` [N, ...] plus per-sample logical ``shapes`` [N, ndim]."""
 
-    __slots__ = ("array", "shapes", "layout")
+    __slots__ = ("array", "shapes", "layout", "bfloat16")
 
-    def __init__(self, array: np.ndarray, shapes: np.ndarray, layout: str = ""):
+    def __init__(self, array: np.ndarray, shapes: np.ndarray, layout: str = "",
+                 bfloat16: bool = False):
         self.array = array
         self.shapes = shapes
         self.layout = layout
+        self.bfloat16 = bfloat16  # ``array`` holds bfloat16 bits as int16
 
 
 class FlatStaged:

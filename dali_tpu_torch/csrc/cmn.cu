@@ -3,10 +3,10 @@
 //
 // Replaces the Pallas TPU kernel dali_tpu/kernels/cmn_pallas.py (cmn_pallas,
 // body _kernel) and computes the whole 2-D function of dali_tpu/kernels/cmn.py
-// crop_mirror_normalize: uint8, float16 or float32 input with 1-4 channels;
-// float32, float16, uint8, int8, int16 or int32 output, CHW or HWC;
-// pad_output; the pad policy. Volumes and sequences fold their depth or
-// frames into the batch before the launch (kernels/cmn.py).
+// crop_mirror_normalize: uint8, float16, bfloat16 or float32 input with 1-4
+// channels; float32, float16, bfloat16, uint8, int8, int16 or int32 output,
+// CHW or HWC; pad_output; the pad policy. Volumes and sequences fold their
+// depth or frames into the batch before the launch (kernels/cmn.py).
 //
 //   out[n, y, x, c] = in[n, cy + y, cx + col(x), c] * a[c] + b[c]
 //                   = fill[c]  under the pad policy, for a source pixel
@@ -16,7 +16,8 @@
 //   x * a + b is a product and a sum, each rounded (no FMA): the reference's
 //   and the plain version's order, so an integer output truncates the same
 //   value. Integer outputs convert as XLA's convert does: toward zero,
-//   saturated to the type's range, NaN to 0.
+//   saturated to the type's range, NaN to 0; bfloat16 rounds to nearest
+//   even as XLA's convert does, a NaN to 0x7FC0 with its sign.
 //   col(x) = x                          without mirror
 //          = vw - 1 - x        (x < vw) with mirror: the first vw columns
 //          = crop_w - 1 + vw - x (x >= vw) reverse among themselves, the rest too
@@ -50,14 +51,27 @@
 //    staged row once and all its channels from it, and writes 16-byte
 //    streaming stores (st.global.cs): 4 float32, 8 float16 or 4-16
 //    integers per plane in CHW (integers packed into words as they are
-//    computed, which keeps registers and occupancy as float16's), whole
+//    computed, which keeps registers and occupancy as float16's; bfloat16
+//    as float16, 8 a store), whole
 //    4-channel pixels in HWC, with a scalar head and tail where a
 //    run does not start or end on 16 bytes. Forms whose runs do not line up
 //    that way (CHW planes that are not a multiple of 16 bytes, HWC with 1-3
 //    channels) go element by element, still with 16-byte stores;
 //  * quotients by crop_w, the channel count, the band count and the chunks
 //    of a staged row are a multiply and a shift.
+//
+// Build: the 224 instances (4 input types x 7 output types x 2 layouts x 4
+// channel counts) compile as five translation units started together
+// (native/build.py): -DCMN_INPUT=k (k = 0..3, the input codes below) holds
+// the kernels of one input type and exports dali_tpu_torch_cmn_in<k>;
+// -DCMN_ENTRY holds the C entry point dali_tpu_torch_cmn, which dispatches to
+// them. Exactly one of the two is defined.
 
+#if defined(CMN_INPUT) == defined(CMN_ENTRY)
+#error "compile cmn.cu with -DCMN_INPUT=k or with -DCMN_ENTRY (native/build.py)"
+#endif
+
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,7 +80,7 @@
 #include <climits>
 #include <type_traits>
 
-namespace {
+namespace cmn {
 
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 64;           // output rows of one band
@@ -81,7 +95,7 @@ struct FastDiv {
   unsigned d, mul, shr;
 };
 
-FastDiv make_div(unsigned d) {
+inline FastDiv make_div(unsigned d) {
   FastDiv f = {d, 0u, 0u};
   if (d > 1) {
     unsigned l = 0;
@@ -118,8 +132,10 @@ struct Params {
   float consts[12];  // a[4], b[4], fill[4]
 };
 
+#ifdef CMN_INPUT
 __device__ __forceinline__ float to_float(uint8_t v) { return static_cast<float>(v); }
 __device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_float(float v) { return v; }
 
 template <typename T>
@@ -177,6 +193,25 @@ struct Store<float> {
     __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
   }
   static __device__ __forceinline__ void one(float* p, float v) { __stcs(p, v); }
+};
+
+// bfloat16: round to nearest even; a NaN as XLA's convert writes it,
+// 0x7FC0 with the sign kept (__float2bfloat16_rn writes 0x7FFF)
+template <>
+struct Store<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  static __device__ __forceinline__ unsigned bits(float v) {
+    if (v != v) return (__float_as_uint(v) >> 16 & 0x8000u) | 0x7FC0u;
+    return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v)));
+  }
+  static __device__ __forceinline__ void vec(__nv_bfloat16* p, const float (&v)[8]) {
+    __stcs(reinterpret_cast<uint4*>(p),
+           make_uint4(bits(v[0]) | bits(v[1]) << 16, bits(v[2]) | bits(v[3]) << 16,
+                      bits(v[4]) | bits(v[5]) << 16, bits(v[6]) | bits(v[7]) << 16));
+  }
+  static __device__ __forceinline__ void one(__nv_bfloat16* p, float v) {
+    __stcs(reinterpret_cast<unsigned short*>(p), static_cast<unsigned short>(bits(v)));
+  }
 };
 
 template <>
@@ -457,19 +492,50 @@ cudaError_t launch_in(const Params& p, int out_type, int hwc, int tiles, int sme
       return launch_layout<InT, int8_t>(p, hwc, tiles, smem, stream);
     case 4:
       return launch_layout<InT, int16_t>(p, hwc, tiles, smem, stream);
-    default:
+    case 5:
       return launch_layout<InT, int32_t>(p, hwc, tiles, smem, stream);
+    default:
+      return launch_layout<InT, __nv_bfloat16>(p, hwc, tiles, smem, stream);
   }
 }
+#endif  // CMN_INPUT
 
-}  // namespace
+}  // namespace cmn
+
+// One launcher per input type (the input codes of dali_tpu_torch_cmn).
+#define CMN_LAUNCHER(k, T)                                                              \
+  extern "C" int dali_tpu_torch_cmn_in##k(const cmn::Params* p, int out_type, int hwc,  \
+                                          int tiles, int smem, void* stream) {          \
+    return static_cast<int>(cmn::launch_in<T>(*p, out_type, hwc, tiles, smem,           \
+                                               static_cast<cudaStream_t>(stream)));      \
+  }
+#ifdef CMN_INPUT
+#if CMN_INPUT == 0
+CMN_LAUNCHER(0, uint8_t)
+#endif
+#if CMN_INPUT == 1
+CMN_LAUNCHER(1, __half)
+#endif
+#if CMN_INPUT == 2
+CMN_LAUNCHER(2, float)
+#endif
+#if CMN_INPUT == 3
+CMN_LAUNCHER(3, __nv_bfloat16)
+#endif
+#endif  // CMN_INPUT
+
+#ifdef CMN_ENTRY
+extern "C" int dali_tpu_torch_cmn_in0(const cmn::Params*, int, int, int, int, void*);
+extern "C" int dali_tpu_torch_cmn_in1(const cmn::Params*, int, int, int, int, void*);
+extern "C" int dali_tpu_torch_cmn_in2(const cmn::Params*, int, int, int, int, void*);
+extern "C" int dali_tpu_torch_cmn_in3(const cmn::Params*, int, int, int, int, void*);
 
 // Returns the cudaError_t of the launch (0 = launched, or nothing to do).
 // n is the number of output samples; `src_index` (may be null) gives, for
 // each, the input sample it reads: a volume's depth window or a sequence's
 // frames, folded into the batch without a copy.
-// in_dtype: 0 uint8, 1 float16, 2 float32; out_type: 0 float32, 1 float16,
-// 2 uint8, 3 int8, 4 int16, 5 int32. `mirror`, `ext_h` and `ext_w`
+// in_dtype: 0 uint8, 1 float16, 2 float32, 3 bfloat16; out_type: 0 float32,
+// 1 float16, 2 uint8, 3 int8, 4 int16, 5 int32, 6 bfloat16. `mirror`, `ext_h` and `ext_w`
 // may be null. `consts` is a host array of 12 floats: a[4], b[4], fill[4]
 // (the folded constants and the pad policy's output values, zero-padded
 // past C). c_out is C, or 4 with pad_output.
@@ -478,14 +544,15 @@ extern "C" int dali_tpu_torch_cmn(const void* in, const int* src_index, void* ou
                                   const int* ext_h, const int* ext_w, int n, int H, int W, int C,
                                   int crop_h, int crop_w, int c_out, int in_dtype, int out_type,
                                   int hwc, int pad_policy, const float* consts, void* stream) {
+  using namespace cmn;
   if (n <= 0 || crop_h <= 0 || crop_w <= 0) return 0;
-  if (C < 1 || C > 4 || c_out < C || c_out > 4 || in_dtype < 0 || in_dtype > 2 ||
-      out_type < 0 || out_type > 5 ||
+  if (C < 1 || C > 4 || c_out < C || c_out > 4 || in_dtype < 0 || in_dtype > 3 ||
+      out_type < 0 || out_type > 6 ||
       (!pad_policy && (crop_h > H || crop_w > W))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static const int kInSize[3] = {1, 2, 4};
-  static const int kOutSize[6] = {4, 2, 1, 1, 2, 4};
+  static const int kInSize[4] = {1, 2, 4, 2};
+  static const int kOutSize[7] = {4, 2, 1, 1, 2, 4, 2};
   const int out_size = kOutSize[out_type];
   const long long stride =
       16 * ((static_cast<long long>(crop_w) * C * kInSize[in_dtype] + 15) / 16 + 1);
@@ -506,7 +573,7 @@ extern "C" int dali_tpu_torch_cmn(const void* in, const int* src_index, void* ou
   const long long tiles = static_cast<long long>(n) * bands;
   if (smem > kSmemMax || tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
 
-  Params p;
+  cmn::Params p;
   p.in = static_cast<const uint8_t*>(in);
   p.src = src_index;
   p.out = out;
@@ -527,25 +594,22 @@ extern "C" int dali_tpu_torch_cmn(const void* in, const int* src_index, void* ou
   p.col_bytes = static_cast<int>(col_bytes);
   p.pad = pad_policy != 0;
   p.planes_aligned = static_cast<long long>(crop_h) * crop_w * out_size % 16 == 0;
-  p.div_w = make_div(crop_w);
-  p.div_c = make_div(c_out);
-  p.div_bands = make_div(p.bands);
-  p.div_chunks = make_div(p.row_stride / 16);
+  p.div_w = cmn::make_div(crop_w);
+  p.div_c = cmn::make_div(c_out);
+  p.div_bands = cmn::make_div(p.bands);
+  p.div_chunks = cmn::make_div(p.row_stride / 16);
   for (int i = 0; i < 12; ++i) p.consts[i] = consts[i];
 
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int t = static_cast<int>(tiles), sm = static_cast<int>(smem);
-  cudaError_t err;
   switch (in_dtype) {
     case 0:
-      err = launch_in<uint8_t>(p, out_type, hwc, t, sm, s);
-      break;
+      return dali_tpu_torch_cmn_in0(&p, out_type, hwc, t, sm, stream);
     case 1:
-      err = launch_in<__half>(p, out_type, hwc, t, sm, s);
-      break;
+      return dali_tpu_torch_cmn_in1(&p, out_type, hwc, t, sm, stream);
+    case 2:
+      return dali_tpu_torch_cmn_in2(&p, out_type, hwc, t, sm, stream);
     default:
-      err = launch_in<float>(p, out_type, hwc, t, sm, s);
-      break;
+      return dali_tpu_torch_cmn_in3(&p, out_type, hwc, t, sm, stream);
   }
-  return static_cast<int>(err);
 }
+#endif  // CMN_ENTRY

@@ -25,9 +25,11 @@ The device phase of iteration k overlaps the host phase of iteration k+1;
 
 from __future__ import annotations
 
+import atexit
 import queue
 import threading
 import time
+import weakref
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -55,8 +57,33 @@ _TORCH_DTYPES = {np.dtype(k): v for k, v in (
     (np.float32, torch.float32), (np.float64, torch.float64), (np.bool_, torch.bool))}
 
 
+# executors whose stage threads run: stopped at interpreter exit, before
+# Python finalizes. A daemon thread still inside a torch call when the
+# interpreter finalizes is unwound by pthread_exit through C++ frames that
+# cannot be unwound, and the process aborts ("terminate called without an
+# active exception"), as two prefetching pipelines left running did.
+_RUNNING = weakref.WeakSet()
+
+
+@atexit.register
+def _stop_running_at_exit():
+    for ex in list(_RUNNING):
+        ex._stop_threads()
+
+
 def _edge_key(edge) -> Tuple[int, int]:
     return (edge.source.id, edge.source_idx)
+
+
+def refuse_bfloat16_host(impl, what: str, inputs):
+    """Raises for a host op that cannot read one of its bfloat16 host
+    inputs (numpy has no bfloat16; only ops with ``reads_bfloat16`` take
+    ``torch.bfloat16`` samples)."""
+    if not impl.reads_bfloat16 and any(
+            isinstance(b, HostBatch) and b.dtype == torch.bfloat16 for b in inputs):
+        raise TypeError(f"{what} does not read a bfloat16 host input in dali_tpu_torch (numpy "
+                        "has no bfloat16): cast it first, or move it to the device; ROADMAP.md "
+                        "Queue 3, F6-residue")
 
 
 def pad_align_for(hb: HostBatch, pad_align: int = PAD_ALIGN) -> List[int]:
@@ -236,6 +263,7 @@ class Executor:
             ]
             for t in self._threads:
                 t.start()
+            _RUNNING.add(self)
 
     def _stop_threads(self):
         """Stop both stage threads. Queues are drained while joining: a stage
@@ -259,6 +287,7 @@ class Executor:
         if any(t.is_alive() for t in self._threads):
             raise RuntimeError("dali_tpu_torch executor threads did not stop within 10 s")
         self._threads = []
+        _RUNNING.discard(self)
 
     def shutdown(self):
         """Stop both stage threads, then release the operators' native
@@ -357,6 +386,7 @@ class Executor:
             impl = self.impls[node.id]
             ctx.set_arg_batches(node.id, {k: env[_edge_key(v)] for k, v in node.spec.arg_inputs.items()})
             ins = [env[_edge_key(e)] for e in node.spec.inputs]
+            refuse_bfloat16_host(impl, f"{node.spec.schema_name}({node.device})", ins)
             if node.device == "mixed" and hasattr(impl, "stage_batch"):
                 # a mixed op may decode straight into its boundary canvas
                 # (the edge's grow-only canvas), or decline (None)
@@ -388,7 +418,7 @@ class Executor:
                          else pad_align_for(item, self.pipeline.pad_align))
                 arr, shapes = pad_and_stack(item, canvas=self._canvas.get(k), align=align)
                 self._canvas[k] = list(arr.shape[1:])
-                item = Staged(arr, shapes, item.layout)
+                item = Staged(arr, shapes, item.layout, bfloat16=item.dtype == torch.bfloat16)
             boundary.append(item)
             shape_env[k] = item.shapes
             layout_env[k] = item.layout or ""
@@ -516,6 +546,8 @@ class Executor:
                 data = wire.unflatten_boundary(flat, offs, shapes, item.canvas)
             else:
                 data, shapes = grp
+                if item.bfloat16:
+                    data = data.view(torch.bfloat16)
                 if (item.shapes == np.asarray(item.array.shape[1:1 + item.shapes.shape[1]])).all():
                     shapes = None
             env[_edge_key(edge)] = DeviceBatch(data, shapes, item.layout)
@@ -586,7 +618,8 @@ class Executor:
             nd = nds[i] if i < len(nds) else None
             if dt is not None:
                 got = (torch.empty(0, dtype=tl.dtype).numpy().dtype
-                       if isinstance(tl, TensorListGPU) else np.dtype(tl.dtype))
+                       if isinstance(tl, TensorListGPU) and tl.dtype != torch.bfloat16
+                       else tl.dtype)
                 want = to_numpy_type(DALIDataType(int(dt)))
                 if got != want:
                     raise RuntimeError(f"Pipeline output {i}: declared output_dtype "

@@ -34,8 +34,9 @@ import torch
 from ..._schema import GetSchema, OpSpec, RegisteredSchemas, get_operator_impl
 from ...backend.base import HostCtx
 from ...batch import DeviceBatch, HostBatch, pad_and_stack
-from ...executor import PAD_ALIGN, pad_align_for, run_device_op
+from ...executor import PAD_ALIGN, pad_align_for, refuse_bfloat16_host, run_device_op
 from ...fn import _camel_to_snake, not_ported
+from ...types import is_bfloat16
 
 
 def _not_ported(path: str):
@@ -159,13 +160,15 @@ _GIVEN_BY_SHAPES = object()  # device shapes derived from the host shapes on dem
 
 
 class Batch:
-    """An eager batch: host samples (ragged numpy), or a ``torch.Tensor``
+    """An eager batch: host samples (ragged numpy; ``torch.bfloat16`` CPU
+    tensors for bfloat16, which numpy has no type for), or a ``torch.Tensor``
     [N, *canvas] on the context's device with per-sample extents ``shapes``
     (numpy [N, ndim], or None when every sample fills the canvas)."""
 
     def __init__(self, samples=None, device_data=None, shapes=None, layout="",
                  device_shapes=_GIVEN_BY_SHAPES):
-        self._samples = None if samples is None else [np.asarray(s) for s in samples]
+        self._samples = None if samples is None else [
+            s if is_bfloat16(s) else np.asarray(s) for s in samples]
         self._device_data = device_data
         if torch.is_tensor(shapes):
             device_shapes, shapes = shapes, shapes.cpu().numpy()
@@ -212,20 +215,26 @@ class Batch:
             return self
         device = EvalContext.current().device
         hb = HostBatch(self._samples, self.layout)
+
+        def on_device(arr):  # bfloat16 stacks as its int16 bits
+            data = torch.from_numpy(arr).to(device)
+            return data.view(torch.bfloat16) if hb.dtype == torch.bfloat16 else data
+
         if hb.is_uniform():
             arr, _ = pad_and_stack(hb, align=1)
-            return Batch(device_data=torch.from_numpy(arr).to(device), layout=self.layout,
-                         device_shapes=None)
+            return Batch(device_data=on_device(arr), layout=self.layout, device_shapes=None)
         arr, shapes = pad_and_stack(hb, align=pad_align_for(hb))
-        return Batch(device_data=torch.from_numpy(arr).to(device), shapes=shapes,
-                     layout=self.layout, device_shapes=torch.from_numpy(shapes).to(device))
+        return Batch(device_data=on_device(arr), shapes=shapes, layout=self.layout,
+                     device_shapes=torch.from_numpy(shapes).to(device))
 
     def cpu(self) -> "Batch":
         """The batch on the host: one device-to-host copy, then each sample
         cropped to its extent."""
         if not self.is_gpu:
             return self
-        host = self._device_data.cpu().numpy()
+        host = self._device_data.cpu()
+        if not is_bfloat16(host):
+            host = host.numpy()
         if self._shapes is None:
             samples = [host[i] for i in range(host.shape[0])]
         else:
@@ -403,7 +412,9 @@ def _eager_call(schema_name: str, *inputs, device=None, batch_size=None, **kwarg
 
     if device in ("cpu", "mixed"):
         ctx.set_arg_batches(impl.op_id, arg_batches)
-        outs = impl.run_batch(ctx, *(HostBatch(b.cpu()._samples, b.layout) for b in batches))
+        host_ins = [HostBatch(b.cpu()._samples, b.layout) for b in batches]
+        refuse_bfloat16_host(impl, f"{schema_name}({device})", host_ins)
+        outs = impl.run_batch(ctx, *host_ins)
         result = [Batch(samples=o.samples, layout=o.layout) for o in outs]
         if device == "mixed":
             result = [r.gpu() for r in result]

@@ -5,13 +5,14 @@ the Pallas kernel ``dali_tpu/kernels/cmn_pallas.py`` ``cmn_pallas``. On a CUDA
 tensor ``crop_mirror_normalize`` launches the hand-written Hopper kernel
 ``csrc/cmn.cu`` and raises on anything that kernel does not take; on a CPU
 tensor it runs ``crop_mirror_normalize_plain``, the plain PyTorch version of
-the same function. Both take uint8, float16 or float32 input with 1-4
-channels and write float32, float16, uint8, int8, int16 or int32, CHW or HWC
-(``""`` is HWC), with ``pad_output`` appending zero channels up to 4 after
-normalisation. ``x * a + b`` is a product and a sum, each rounded, as the
-reference computes it; an integer output converts as the reference's XLA
-convert does: toward zero, saturated to the type's range, NaN to 0
-(``saturating_cast``). Volumes and sequences reach it with their depth or
+the same function. Both take uint8, float16, bfloat16 or float32 input with
+1-4 channels and write float32, float16, bfloat16, uint8, int8, int16 or
+int32, CHW or HWC (``""`` is HWC), with ``pad_output`` appending zero
+channels up to 4 after normalisation. ``x * a + b`` is a product and a sum,
+each rounded, as the reference computes it; an output converts as the
+reference's XLA convert does (``saturating_cast``): floats round to nearest
+even (a bfloat16 NaN is 0x7FC0 with its sign), integers go toward zero,
+saturated to the type's range, NaN to 0. Volumes and sequences reach it with their depth or
 frames folded into the batch (``backend/image.py``).
 
 The reference has two window semantics (``cmn.py:51-84``), kept exactly:
@@ -37,6 +38,8 @@ import threading
 import numpy as np
 import torch
 
+from ..types import to_bfloat16
+
 
 class LaunchCounter:
     """Plain count of kernel launches, read by the chip smoke test to show
@@ -49,9 +52,9 @@ class LaunchCounter:
 COUNTER = LaunchCounter()
 
 # input and output dtypes the kernel takes, by the codes of its entry point
-_IN_CODES = {torch.uint8: 0, torch.float16: 1, torch.float32: 2}
+_IN_CODES = {torch.uint8: 0, torch.float16: 1, torch.float32: 2, torch.bfloat16: 3}
 _OUT_CODES = {torch.float32: 0, torch.float16: 1, torch.uint8: 2, torch.int8: 3, torch.int16: 4,
-              torch.int32: 5}
+              torch.int32: 5, torch.bfloat16: 6}
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -110,9 +113,11 @@ def constants(mean, std, scale, shift, fill, C):
 
 
 def saturating_cast(x: torch.Tensor, dtype) -> torch.Tensor:
-    """float32 -> ``dtype`` as XLA's convert: floats round to nearest; an
-    integer type takes the value truncated toward zero, saturated to its
-    range, NaN as 0."""
+    """float32 -> ``dtype`` as XLA's convert: floats round to nearest even
+    (bfloat16 through ``types.to_bfloat16``, for XLA's NaN); an integer type
+    takes the value truncated toward zero, saturated to its range, NaN as 0."""
+    if dtype == torch.bfloat16:
+        return to_bfloat16(x)
     if dtype.is_floating_point:
         return x.to(dtype)
     info = torch.iinfo(dtype)
@@ -127,8 +132,8 @@ def _check_form(output_layout: str, out_dtype) -> bool:
     """True for CHW output; raises on what neither version writes."""
     if out_dtype not in _OUT_CODES:
         raise NotImplementedError(
-            "CropMirrorNormalize writes float32, float16 and the integer outputs uint8, int8, "
-            f"int16 and int32 in dali_tpu_torch, got {out_dtype}")
+            "CropMirrorNormalize writes float32, float16, bfloat16 and the integer outputs "
+            f"uint8, int8, int16 and int32 in dali_tpu_torch, got {out_dtype}")
     if output_layout not in ("CHW", "HWC", ""):
         raise ValueError(f"Unsupported output_layout {output_layout!r}")
     return output_layout == "CHW"
@@ -208,7 +213,8 @@ def launch_args(data, crop_y, crop_x, mirror, crop_h: int, crop_w: int, mean, st
     n_in, H, W, C = data.shape
     n = n_in if src_index is None else int(torch.as_tensor(src_index).numel())
     if data.dtype not in _IN_CODES:
-        raise NotImplementedError(f"CMN kernel reads uint8/float16/float32, got {data.dtype}")
+        raise NotImplementedError(
+            f"CMN kernel reads uint8/float16/bfloat16/float32, got {data.dtype}")
     if not data.is_contiguous() or not 1 <= C <= 4:
         raise NotImplementedError(
             f"CMN kernel takes a contiguous [N, H, W, C <= 4] batch, got {tuple(data.shape)} "
@@ -253,7 +259,10 @@ def crop_mirror_normalize(data, crop_y, crop_x, mirror, crop_h: int, crop_w: int
                                src_index)
     if out.numel() == 0:
         return out
-    err = _kernel_lib().dali_tpu_torch_cmn(*args)
+    # the launch goes to the calling thread's current device: make it the
+    # batch's (a caller may drive pipelines on several cards from one thread)
+    with torch.cuda.device(data.device):
+        err = _kernel_lib().dali_tpu_torch_cmn(*args)
     if err != 0:
         raise RuntimeError(f"CMN kernel launch failed: cudaError {err}")
     COUNTER.launches += 1

@@ -13,8 +13,9 @@ bit-equal to the reference.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..types import DALIInterpType
+from ..types import DALIInterpType, to_bfloat16, to_numpy_type
 from .resample import _BASE_RADIUS, max_taps
 
 
@@ -67,8 +68,11 @@ def tap_plan(out_size: int, roi_start, roi_size, extent: int, interp, antialias:
     return np.clip(idx, 0, extent - 1), w
 
 
-def saturate(out: np.ndarray, dt) -> np.ndarray:
-    """Round half to even and clip to an integer type's range; floats pass."""
+def saturate(out: np.ndarray, dt):
+    """Round half to even and clip to an integer type's range; floats pass
+    (``torch.bfloat16``, the port's host bfloat16, through ``to_bfloat16``)."""
+    if dt is torch.bfloat16:
+        return to_bfloat16(out.astype(np.float32))
     if np.issubdtype(dt, np.integer):
         info = np.iinfo(dt)
         out = np.clip(np.round(out), info.min, info.max)
@@ -89,7 +93,7 @@ def host_resample(img: np.ndarray, out_h: int, out_w: int,
     tmp = np.einsum("to,towc->owc", w_y, f[idx_y])
     idx_x, w_x = tap_plan(out_w, roi_start[1], roi_size[1], w, interp, antialias)
     out = np.einsum("to,htoc->hoc", w_x, tmp[:, idx_x])
-    return saturate(out, img.dtype if out_dtype is None else np.dtype(out_dtype))
+    return saturate(out, img.dtype if out_dtype is None else to_numpy_type(out_dtype))
 
 
 def host_resample_volume(img: np.ndarray, out_d: int, out_h: int, out_w: int, interp,

@@ -16,7 +16,9 @@
   compiles its copy). g++ with ``-march=native``: compiled on the machine
   that runs it, never shipped.
 * ``build/libdali_tpu_torch_kernels.so`` — the CUDA kernels (``csrc/*.cu``),
-  nvcc for ``sm_90a``, a plain C interface loaded with ctypes.
+  nvcc for ``sm_90a``, a plain C interface loaded with ctypes. ``cmn.cu``
+  compiles as five translation units started together (``KERNEL_UNITS``:
+  one per input type, one for the entry point), then links.
 
 Each library is built at first use. Concurrent builds (pytest-xdist
 workers, several pipelines) serialize on a file lock, compile to a private
@@ -58,6 +60,10 @@ HOST_HEADERS = [os.path.join(_HOST_SRC, f) for f in ("jpeg_full.h", "webp.h", "w
                                                      "inflate.h", "audio_codecs.h",
                                                      "audio_tables.h")]
 KERNEL_SOURCES = [os.path.join(_PKG, "csrc", "cmn.cu")]
+# (object name, defines, sources) of the kernel library's translation units, compiled
+# at once; each holds one input type's template instances of cmn.cu
+KERNEL_UNITS = [(f"cmn_in{k}.o", [f"-DCMN_INPUT={k}"], KERNEL_SOURCES) for k in range(4)] + [
+    ("cmn_entry.o", ["-DCMN_ENTRY"], KERNEL_SOURCES)]
 
 
 def _nvcc() -> str:
@@ -92,10 +98,24 @@ def stamp(sources: List[str], cmd_prefix: List[str], cmd_suffix: List[str]) -> s
     return h.hexdigest()
 
 
+def _run_all(cmds: List[List[str]], what: str):
+    """Runs the commands at once; raises with the first failure's errors."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for p, err in zip(procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(f"building {what} failed:\n{err}")
+
+
 def _build(name: str, sources: List[str], cmd_prefix: List[str], cmd_suffix: List[str],
-           headers: List[str] = (), build_dir: str = BUILD_DIR) -> str:
+           headers: List[str] = (), build_dir: str = BUILD_DIR, units=None) -> str:
+    """``units`` (object name, extra flags, sources): compile each unit with
+    ``-c``, all at once, then link the objects; without units, one command
+    compiles and links."""
     out = os.path.join(build_dir, name)
-    stamp_ = stamp(list(sources) + list(headers), cmd_prefix, cmd_suffix)
+    unit_flags = [f for unit, flags, _ in units or () for f in [unit] + flags]
+    stamp_ = stamp(list(sources) + list(headers), cmd_prefix + unit_flags, cmd_suffix)
 
     def fresh():
         try:
@@ -112,11 +132,19 @@ def _build(name: str, sources: List[str], cmd_prefix: List[str], cmd_suffix: Lis
         if fresh():
             return out
         tmp = f"{out}.{os.getpid()}.tmp"
-        try:
-            subprocess.run(cmd_prefix + ["-o", tmp] + sources + cmd_suffix,
-                           check=True, capture_output=True, text=True)
-        except subprocess.CalledProcessError as e:
-            raise RuntimeError(f"building {name} failed:\n{e.stderr}") from None
+        if units:
+            compile_ = [c for c in cmd_prefix if c != "-shared"]
+            objs = [f"{tmp}.{unit}" for unit, _, _ in units]
+            try:
+                _run_all([compile_ + flags + ["-c", "-o", o] + srcs
+                          for (_, flags, srcs), o in zip(units, objs)], name)
+                _run_all([cmd_prefix + ["-o", tmp] + objs + cmd_suffix], name)
+            finally:
+                for o in objs:
+                    if os.path.exists(o):
+                        os.remove(o)
+        else:
+            _run_all([cmd_prefix + ["-o", tmp] + sources + cmd_suffix], name)
         os.replace(tmp, out)
         with open(out + ".stamp.tmp", "w") as f:
             f.write(stamp_)
@@ -139,7 +167,7 @@ def kernel_library() -> str:
         "libdali_tpu_torch_kernels.so", KERNEL_SOURCES,
         [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"],
-        [])
+        [], units=KERNEL_UNITS)
 
 
 if __name__ == "__main__":

@@ -4,6 +4,8 @@
 copy and no DLPack hop. Per-sample shapes are the host-propagated numpy array,
 so nothing is read back from the device to answer ``shape()``; ``at(i)`` and
 ``as_cpu()`` copy to the host and crop each sample to its valid extent.
+A bfloat16 sample on the host is a ``torch.bfloat16`` tensor (numpy has no
+bfloat16; ``types.py``): ``as_tensor()`` stacks it, ``as_array()`` raises.
 """
 
 from __future__ import annotations
@@ -36,9 +38,13 @@ class TensorListCPU:
         return [tuple(s.shape) for s in self._samples]
 
     def as_array(self) -> np.ndarray:
+        if self._samples and torch.is_tensor(self._samples[0]):
+            raise TypeError(f"numpy has no {self.dtype}: take this batch with as_tensor()")
         return np.stack(self._samples, 0)
 
     def as_tensor(self) -> torch.Tensor:
+        if self._samples and torch.is_tensor(self._samples[0]):
+            return torch.stack(self._samples, 0)
         return torch.from_numpy(self.as_array())
 
     def __repr__(self):
@@ -95,8 +101,8 @@ class TensorListGPU:
         """The padded device tensor itself (no copy)."""
         return self._data
 
-    def _crop(self, host: torch.Tensor, i: int) -> np.ndarray:
-        arr = host.numpy()
+    def _crop(self, host: torch.Tensor, i: int):
+        arr = host if host.dtype == torch.bfloat16 else host.numpy()
         sh = self._host_shapes()
         if sh is None:
             return arr

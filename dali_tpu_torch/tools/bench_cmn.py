@@ -14,7 +14,8 @@ the wrapper ``kernels.cmn.crop_mirror_normalize`` (Python and all), the plain
 PyTorch version, the bytes the function must move (each input byte read once,
 each output byte written once), the HBM bound at 3.35 TB/s, the kernel's
 share of it and its agreement with the plain version (float32 within 1e-5,
-float16 within one half-precision step, integers equal). Two folded forms
+float16 within one half-precision step, integers and bfloat16 equal: both
+versions round float32 to nearest even). Two folded forms
 follow (``measure_folds``): a DHWC volume batch, two of numpy_volumes'
 BraTS-sized volumes ([155, 240, 240, 4] float32 each), each one's 128^3
 window (crop_d 128 at a per-sample depth) to float16 DCHW, and an FHWC
@@ -55,6 +56,8 @@ FORMS = (
     ("u8_f16_hwc_pad", torch.float16, "HWC", True, None),
     ("u8_u8_chw_saturating", torch.uint8, "CHW", False, SATURATING),
     ("u8_i8_chw_saturating", torch.int8, "CHW", False, SATURATING),
+    ("u8_bf16_chw", torch.bfloat16, "CHW", False, None),
+    ("u8_bf16_hwc", torch.bfloat16, "HWC", False, None),
 )
 VOLUME_BATCH, VOLUME_SHAPE, VOLUME_CROP = 2, (155, 240, 240, 4), 128
 SEQUENCE_SHAPE = (16, 8, 224, 224, 3)
@@ -124,7 +127,7 @@ def agrees(out, want, out_dtype):
         return err, err <= 1e-5
     if out_dtype == torch.float16:
         return err, within_f16_step(out, want)
-    return err, bool(torch.equal(out, want))
+    return err, bool(torch.equal(out, want))  # integers, bfloat16: the same rounding
 
 
 def raw_launch(cmn, data, origin, mirror, ext_w, out_dtype, layout, pad_output, norm=None):

@@ -3,6 +3,12 @@
 Counterpart of ``dali_tpu/types.py``: the enum values are the same, so a
 pipeline argument or a serialized checkpoint means the same thing in both
 packages. ``to_torch_type`` replaces ``to_jnp_type``.
+
+Host bfloat16: numpy has no bfloat16 (the reference borrows ``ml_dtypes``'
+from jax), so a host sample of type ``BFLOAT16`` is a ``torch.bfloat16`` CPU
+tensor, and ``to_numpy_type(BFLOAT16)`` is ``torch.bfloat16``. A numpy cast
+to it raises ``TypeError``, so an operator that does not convert through
+:func:`cast_host` fails loudly instead of computing on bit patterns.
 """
 
 from __future__ import annotations
@@ -78,18 +84,68 @@ FLOAT = DALIDataType.FLOAT
 FLOAT64 = DALIDataType.FLOAT64
 BOOL = DALIDataType.BOOL
 STRING = DALIDataType.STRING
-# the reference's TPU type; in the port it is torch.bfloat16 (to_torch_type)
+# torch.bfloat16 on the card and on the host (to_torch_type, to_numpy_type)
 BFLOAT16 = DALIDataType.BFLOAT16
 
+# bfloat16's quiet NaN, as XLA's convert and ml_dtypes write it (torch's own
+# float -> bfloat16 writes 0x7FFF); the sign bit is kept: 0xFFC0 as int16
+BF16_NAN_BITS, BF16_NEG_NAN_BITS = 0x7FC0, 0xFFC0 - 0x10000
 
-def to_numpy_type(t) -> np.dtype:
+
+def to_numpy_type(t):
+    """The host type of ``t``: a numpy dtype, or ``torch.bfloat16`` for
+    ``BFLOAT16`` (the module docstring says why)."""
     if isinstance(t, DALIDataType):
+        if t == DALIDataType.BFLOAT16:
+            return torch.bfloat16
         return _TO_NUMPY[t]
+    if t is torch.bfloat16:
+        return t
     return np.dtype(t)
 
 
 def from_numpy_type(t) -> DALIDataType:
+    if t is torch.bfloat16:
+        return DALIDataType.BFLOAT16
     return _FROM_NUMPY[np.dtype(t)]
+
+
+def is_bfloat16(x) -> bool:
+    """True for a host or device sample of bfloat16."""
+    return torch.is_tensor(x) and x.dtype == torch.bfloat16
+
+
+def to_bfloat16(x) -> torch.Tensor:
+    """Numbers (numpy or torch, on any device) -> ``torch.bfloat16``: through
+    float32, rounded to nearest even, a NaN to ``BF16_NAN_BITS`` with its
+    sign, so the bits equal XLA's ``astype`` and ml_dtypes'."""
+    if not torch.is_tensor(x):
+        x = np.asarray(x)  # (np.ascontiguousarray would make a 0-d array 1-d)
+    t = x if torch.is_tensor(x) else torch.from_numpy(x if x.flags.c_contiguous else x.copy())
+    if t.dtype == torch.bfloat16:
+        return t
+    f = t.to(torch.float32)
+    out = f.to(torch.bfloat16)
+    nan = torch.isnan(f)
+    bits = torch.where(torch.signbit(f), BF16_NEG_NAN_BITS, BF16_NAN_BITS)
+    return torch.where(nan, bits.to(torch.int16), out.view(torch.int16)).view(torch.bfloat16)
+
+
+def contiguous_host(x):
+    """``np.ascontiguousarray`` of a host sample of either kind."""
+    return x.contiguous() if torch.is_tensor(x) else np.ascontiguousarray(x)
+
+
+def cast_host(x, t):
+    """A host sample cast to DALI type ``t`` as the reference's numpy
+    ``astype`` casts it: a numpy array, or a ``torch.bfloat16`` tensor for
+    ``BFLOAT16``. A bfloat16 input converts through float32."""
+    want = to_numpy_type(DALIDataType(int(t)))
+    if want is torch.bfloat16:
+        return to_bfloat16(x)
+    if is_bfloat16(x):
+        x = x.to(torch.float32).numpy()
+    return np.asarray(x).astype(want)
 
 
 def to_torch_type(t: DALIDataType) -> torch.dtype:

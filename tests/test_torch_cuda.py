@@ -5,12 +5,14 @@ has only PyTorch with CUDA:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 The CMN kernel (csrc/cmn.cu) is held against its plain PyTorch version on the
-card in every form it computes (uint8/float16/float32 input, CHW/HWC,
+card in every form it computes (uint8/float16/bfloat16/float32 input, CHW/HWC,
 pad_output, the clamped window and the pad policy, mirror on and off, batches
 of 1 and of more than 65535 samples): float32 within 1e-5 (one fused
 multiply-add versus a multiply then an add), float16 within one
 half-precision step at the value's magnitude, since the two float32 values
-may round to neighbouring halves. The RN50 path on the card, in its FLOAT CHW
+may round to neighbouring halves; bfloat16 bit-equal (the kernel now rounds
+the product and the sum as the plain version does). Two ranks of
+tools/multiprocess_test.py run on the card over gloo. The RN50 path on the card, in its FLOAT CHW
 form and its channels-last mixed-precision form (FLOAT16 HWC, pad_output), is
 held against the same pipeline on the CPU: labels equal, images within one
 uint8 step divided by the smallest std (plus one float16 step in the fp16
@@ -143,6 +145,58 @@ def test_cuda_kernel_matches_plain_every_form(card, window, in_dtype, channels, 
             assert within_f16_step(got, want), float((got.float() - want.float()).abs().max())
 
 
+def _bf16_bits(t):
+    return t.contiguous().view(torch.int16).cpu()
+
+
+@pytest.mark.parametrize("window", sorted(KERNEL_WINDOWS))
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float16, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("channels,pad_output", [(3, False), (3, True), (1, True), (4, False)])
+@pytest.mark.parametrize("layout", ["CHW", "HWC"])
+@pytest.mark.parametrize("with_mirror", [True, False])
+def test_cuda_kernel_bfloat16_equals_plain_every_form(card, window, in_dtype, channels,
+                                                       pad_output, layout, with_mirror):
+    """bfloat16 output (and input): both versions round the same float32 to
+    nearest even, so the bits are equal (max abs diff 0)."""
+    crop_h, crop_w, fill = KERNEL_WINDOWS[window]
+    rng = np.random.default_rng(12)
+    n, H, W = 9, 40, 48
+    data = torch.from_numpy(rng.random((n, H, W, channels)) * 255).to(in_dtype).to(card)
+    if fill is None:
+        cy, cx = rng.integers(0, H - crop_h + 1, n), rng.integers(0, W - crop_w + 1, n)
+    else:
+        cy, cx = rng.integers(-12, H - 8, n), rng.integers(-30, W - 5, n)
+    ext_h, ext_w = rng.integers(H // 2, H + 1, n), rng.integers(W // 2, W + 1, n)
+    mirror = (np.arange(n) % 3 != 1).astype(np.int32) if with_mirror else None
+    dev = [torch.from_numpy(np.asarray(v, np.int32)).to(card) if v is not None else None
+           for v in (cy, cx, mirror, ext_h, ext_w)]
+    args = (data, dev[0], dev[1], dev[2], crop_h, crop_w, MEAN4[:channels], STD4[:channels],
+            1.5, 0.25, layout, torch.bfloat16, pad_output)
+    kw = dict(ext_h=dev[3], ext_w=dev[4], fill=None if fill is None else fill[:channels])
+    before = cmn.COUNTER.launches
+    got = cmn.crop_mirror_normalize(*args, **kw)
+    torch.cuda.synchronize()
+    assert cmn.COUNTER.launches == before + 1
+    want = cmn.crop_mirror_normalize_plain(*args, **kw)
+    assert got.is_cuda and got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(_bf16_bits(got), _bf16_bits(want))
+
+
+def test_cuda_kernel_bfloat16_nan_as_the_plain_version(card):
+    """A NaN input writes bfloat16's quiet NaN with the sign the float32
+    result carries, in the kernel as in the plain version."""
+    x = torch.full((2, 8, 16, 3), 7.0, device=card)
+    x[0, 1, 2, 0], x[1, 3, 4, 2] = float("nan"), -float("nan")
+    zeros = torch.zeros(2, dtype=torch.int32, device=card)
+    args = (x, zeros, zeros, None, 8, 16, MEAN, STD)
+    for layout in ("CHW", "HWC"):
+        got = cmn.crop_mirror_normalize(*args, output_layout=layout, out_dtype=torch.bfloat16)
+        want = cmn.crop_mirror_normalize_plain(*args, output_layout=layout,
+                                               out_dtype=torch.bfloat16)
+        assert torch.equal(_bf16_bits(got), _bf16_bits(want))
+        assert int(torch.isnan(got.float()).sum()) == 2
+
+
 @pytest.mark.parametrize("n,H,W,crop", [(1, 224, 224, (224, 224)), (70000, 6, 7, (4, 5))])
 def test_cuda_kernel_batch_edges(card, n, H, W, crop):
     """One sample, and more samples than a grid's y or z dimension holds."""
@@ -164,7 +218,7 @@ def test_cuda_kernel_raises_instead_of_falling_back(card):
         cmn.crop_mirror_normalize(*args, out_dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="contiguous"):
         cmn.crop_mirror_normalize(args[0].transpose(1, 2), *args[1:])
-    with pytest.raises(NotImplementedError, match="uint8/float16/float32"):
+    with pytest.raises(NotImplementedError, match="uint8/float16/bfloat16/float32"):
         cmn.crop_mirror_normalize(args[0].to(torch.int16), *args[1:])
     with pytest.raises(NotImplementedError, match="C <= 4"):
         cmn.crop_mirror_normalize(args[0].repeat(1, 1, 1, 2), *args[1:])
@@ -1750,3 +1804,14 @@ def test_asr_resample_on_mp3_and_vorbis_matches_cpu(card, corpus, ext):
     r = bench_dali_cpu.check_asr_resample(root[corpus], batch=4, ext=ext)
     assert r["resampled_rel_to_peak"] <= bench_dali_cpu.RESAMPLE_RTOL
     assert r["db_max_diff"] <= bench_dali_cpu.DB_ATOL
+
+
+def test_two_rank_tool_on_card(card):
+    """``tools/multiprocess_test.py --device cuda``: two ranks on the card in
+    one gloo group, each phase checked in the ranks (global sum, epoch
+    coverage and resume, hybrid shards equal to standalone runs)."""
+    from dali_tpu_torch.tools import multiprocess_test
+
+    r = multiprocess_test.run("cuda")
+    assert [r["by_rank"][k]["global_sum"] for k in (0, 1)] == [6, 6]
+    assert all(np.isfinite(r["by_rank"][k]["global_mean"]) for k in (0, 1))

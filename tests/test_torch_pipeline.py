@@ -156,10 +156,14 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.tools.bench_plugins\n"
         "import dali_tpu_torch.tools.bench_audio_codecs, dali_tpu_torch.testdata.make_audio_codecs\n"
         "import dali_tpu_torch.backend.readers3\n"
+        "import dali_tpu_torch.plugin.distributed, dali_tpu_torch.tools.multiprocess_test\n"
+        "import dali_tpu_torch.tools.dryrun_multidevice, dali_tpu_torch.tools.bench_ddp\n"
+        "import torch.distributed.tensor, torch.distributed.device_mesh\n"
         "from dali_tpu_torch.tools.bench_audio_codecs import check_fixtures\n"
         "check_fixtures()\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2', 'PIL')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2', 'PIL',\n"
+        "                              'hybrid_fixture', '__graft_entry__')]\n"
         "assert not bad, bad\n"
     )
     root = os.path.join(os.path.dirname(__file__), "..")
