@@ -396,7 +396,25 @@ on failure:
    ``dryrun_multidevice_path_batch`` form); loss and updated weights (each
    rank's shards) within 1e-6 of the same step on the CPU without DTensors;
    the collectives issued; each rank's shard of the hybrid program's global
-   batch equal to its shard pipeline run alone.
+   batch equal to its shard pipeline run alone;
+40. video_clip_train (``tools/bench_video.py``): every committed MP4 /
+   MPEG-4 Part 2 fixture of ``testdata/video`` decoded on this machine by
+   the port's host decoder against ``reference.npz`` (dali_tpu's FFmpeg 5.1
+   decode), in RGB and planar YUV; then ``docs/examples/video_training.py``'s
+   recipe over the 32 clips of ``testdata/video/corpus`` (320x240, 25 fps):
+   ``readers.video(device="mixed", sequence_length=8, stride=2,
+   random_shuffle=True, pad_mode="edge")`` (the planar YUV wire, RGB on the
+   card), resize 112x112, rotate and gaussian_blur drawn once a sequence,
+   CMN to FLOAT FCHW with a coin-flip mirror, batch 32: 3 warm-up + 10 timed
+   batches, each checked for shape [32, 8, 3, 112, 112], dtype, device,
+   finiteness and label range; clips/s and frames/s, host ms by schema, the
+   device wait, device ms by stage of one batch alone, peak memory, the
+   exact CMN launch count; the CMN kernel (FCHW fold) held against its plain
+   version on the path's own batch (max abs diff 0) and timed on it; the
+   YUV -> RGB stage alone at the path's size, equal to the CPU; the host
+   decode rate of the corpus on one thread and on the pool; and the recipe
+   as written (cpu reader, then ``.gpu()``) against the mixed reader for 2
+   batches: the uint8 frames equal on the card.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -443,6 +461,7 @@ ASR_RESAMPLE_TIMED, DALI_CPU_TIMED = 10, 10
 HOST_AUGMENT_TIMED = 10
 SEQ_TIMED, VOLUME_AUGMENT_TIMED = 10, 10
 PLUGIN_TIMED = 10
+VIDEO_TIMED = 10
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -1853,6 +1872,50 @@ def dryrun_phase(card):
     return sum(b["cmn_launches"] for b in r["by_rank"].values()), r["by_rank"][0]["cmn_form"]
 
 
+def video_phase(card, rn50_ips):
+    """Phase 40: the video fixtures, then video_clip_train; returns its CMN
+    launches and the kernel's readings on the path's batch."""
+    from dali_tpu_torch.tools import bench_video as bv
+
+    t0 = time.perf_counter()
+    f = bv.check_fixtures()
+    print(f"video fixtures: {f['clips']} MP4 / MPEG-4 Part 2 clips, {f['frames']} frames decoded "
+          f"on this machine, each frame's RGB and YUV bytes equal to reference.npz "
+          f"(dali_tpu's FFmpeg 5.1 decode), the small clips' frames whole ({card})")
+    r = bv.run(warmup=WARMUP, timed=VIDEO_TIMED)
+    c = r["cmn"]
+    print(f"video_clip_train batch {r['batch']}x{bv.FRAMES} frames: {r['clips_per_s']:.1f} "
+          f"clips/s, {r['frames_per_s']:.1f} frames/s over {r['timed']} batches "
+          f"({100 * r['frames_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} images/s "
+          f"in this run); host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} "
+          f"host cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; cmn "
+          f"launches {r['cmn_launches']} ({card})")
+    print("video_clip_train host ms/batch by schema: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in r["host_ms_by_schema"].items() if v >= 0.05) + f" ({card})")
+    print("video_clip_train device ms of one batch alone: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r["stage_ms"].items())
+        + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    require(c["max_abs_err"] == 0, f"video_clip_train: CMN kernel {c['max_abs_err']} from its "
+            "plain version")
+    print(f"video_clip_train CMN kernel (FCHW fold) on the path's own batch {c['shape_in']} "
+          f"{c['dtype_in']} -> {c['shape_out']} float32: max abs diff vs plain "
+          f"{c['max_abs_err']:.3e}; kernel alone {c['ms']:.4f} ms (cold L2), wrapper "
+          f"{c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} bytes, bound "
+          f"{c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+    y = bv.yuv_stage()
+    d = bv.decode_rate()
+    print(f"video_clip_train YUV -> RGB stage alone on {y['shape_out']}: {y['ms']:.4f} ms "
+          f"({y['bytes']} bytes moved), equal to the CPU; host decode of the corpus "
+          f"({d['clips']} clips, {d['frames']} frames of 320x240): "
+          f"{d['frames_per_s_one_thread']:.0f} frames/s on one thread, "
+          f"{d['frames_per_s_pool']:.0f} on {d['threads']} ({card})")
+    k = bv.check_mixed_vs_cpu()
+    print(f"video_clip_train recipe as written (cpu reader, .gpu()) against the mixed reader: "
+          f"{k['frames']} uint8 frames of {k['batches']} batches equal on the card; "
+          f"video_clip_train phase: {time.perf_counter() - t0:.1f} s ({card})")
+    return r["cmn_launches"], c
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1917,6 +1980,7 @@ def main():
     audio_codecs_phase(card)
     launches["rn50_ddp_2rank"] = ddp_phase(card, rn50_ips)
     launches["dryrun_multidevice"], path_cmn["dryrun_multidevice"] = dryrun_phase(card)
+    launches["video_clip_train"], path_cmn["video_clip_train"] = video_phase(card, rn50_ips)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

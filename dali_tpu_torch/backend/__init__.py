@@ -32,4 +32,5 @@ from . import interop  # noqa: F401
 from . import distortion  # noqa: F401
 from . import segmentation  # noqa: F401
 from . import host_ops  # noqa: F401
+from . import video  # noqa: F401
 from . import parity  # noqa: F401  (last: aliases the ported operators)

@@ -1,6 +1,7 @@
 """Legacy and experimental operator names, where the names not ported yet
-stand in ROADMAP.md, experimental.WarpPerspective (cpu and gpu) and
-TensorResize's schema and cpu placement (counterpart of
+stand in ROADMAP.md, experimental.WarpPerspective (cpu and gpu),
+TensorResize's schema and cpu placement, and decoders.Video with its alias
+experimental.decoders.Video (counterpart of
 ``dali_tpu/backend/parity.py`` ``_LEGACY``, ``register_aliases`` and those
 operators). The cpu WarpPerspective, where the reference calls
 cv2.warpPerspective, runs the port's C++ (``native.warp_perspective``, equal
@@ -64,9 +65,7 @@ _LEGACY = {
 }
 
 # The ROADMAP.md Queue 1 item of each dali_tpu operator the port lacks.
-_VIDEO = ("decoders.Video", "experimental.decoders.Video", "experimental.inputs.Video",
-          "readers.Video", "readers.VideoResize", "VideoReaderResize", "OpticalFlow")
-QUEUE_ITEMS = {n: "item 8" for n in _VIDEO}
+QUEUE_ITEMS = {n: "item 8b" for n in ("readers.VideoResize", "VideoReaderResize", "OpticalFlow")}
 QUEUE_ITEMS.update({a: QUEUE_ITEMS[t] for a, t in _LEGACY.items() if t in QUEUE_ITEMS})
 
 
@@ -78,7 +77,8 @@ RENAMED = {"_JaxFunction": "_TorchFunction"}
 # a deprecated name and the experimental names the reference registers
 # beside its legacy table (``alias_schema``)
 _DEPRECATED = {"TransformTranslation": "transforms.Translation",
-               "experimental.TensorResize": "TensorResize", "experimental.Resize": "Resize"}
+               "experimental.TensorResize": "TensorResize", "experimental.Resize": "Resize",
+               "experimental.decoders.Video": "decoders.Video"}
 
 
 # ====================================== WarpPerspective ===========================================
@@ -297,6 +297,161 @@ class TensorResizeCPU(SamplePool, Operator):
         elif np.issubdtype(x.dtype, np.integer):
             out = saturate(out, x.dtype)
         return contiguous_host(out)
+
+
+# ====================================== decoders.Video ============================================
+
+DALI_SCHEMA("decoders.Video").DocStr(
+    """Decodes a whole encoded video buffer to [F, H, W, C] uint8 (reference
+    decoders__Video / experimental__decoders__Video; the port's host MP4 /
+    MPEG-4 Part 2 decode)."""
+).NumInput(1).NumOutput(1).Devices("cpu", "mixed").AddOptionalArg(
+    "start_frame", ArgType.INT, "First frame.", 0, tensor_ok=True, per_sample=True
+).AddOptionalArg(
+    "sequence_length", ArgType.INT, "Frames to decode (0 = all).", 0, tensor_ok=True,
+    per_sample=True
+).AddOptionalArg(
+    "stride", ArgType.INT, "Frame stride.", 1
+).AddOptionalArg(
+    "end_frame", ArgType.INT,
+    "Decode frames [start_frame, end_frame) — alternative to sequence_length (reference "
+    "video_decoder_cpu.cc).", 0, tensor_ok=True, per_sample=True
+).AddOptionalArg(
+    "pad_mode", ArgType.STRING,
+    'Sequence padding when the video runs short: "none", "constant" (pad_value), '
+    '"edge"/"repeat", "reflect_1001"/"symmetric", "reflect_101"/"reflect" (reference '
+    'video_decoder_cpu.cc).', "constant"
+).AddOptionalArg(
+    "pad_value", ArgType.FLOAT, "Constant pad value.", 0.0
+).AddOptionalArg(
+    "fill_value", ArgType.FLOAT, "Alias of pad_value.", None
+).AddOptionalArg(
+    "build_index", ArgType.BOOL,
+    "Build a frame index for faster seeking (hint; the host decoder seeks by its sample "
+    "table).", True)
+
+
+class _YUVPlanShort(Exception):
+    """The planar-YUV wire plan (sized from the container's frame count)
+    filled completely and more real frames exist past it: the batch re-runs
+    on the dense path, which reads to the end."""
+
+
+@register_operator("decoders.Video", "cpu")
+@register_operator("decoders.Video", "mixed")
+class VideoDecoder(Operator):
+    """The whole buffer through ``native.VideoFile``; the mixed placement
+    ships 4:2:0 frames as the planar YUV wire (as ``readers.Video``), with
+    zero constant padding as YUV black and the other modes by repeating
+    frames; a nonzero fill, or a plan the frame count undercounts, takes the
+    dense RGB path."""
+
+    def _plan(self, ctx, idx, vf):
+        stride = self.spec.GetArgument("stride", 1)
+        start = int(np.asarray(ctx.arg(self, "start_frame", idx, 0)))
+        length = int(np.asarray(ctx.arg(self, "sequence_length", idx, 0)))
+        end = int(np.asarray(ctx.arg(self, "end_frame", idx, 0)))
+        if length <= 0 and end > 0:
+            length = max((end - start + stride - 1) // stride, 1)
+        requested = length
+        if length <= 0:
+            length = max((vf.num_frames - start + stride - 1) // stride, 1)
+            requested = 0  # "all available": never pad
+        return start, length, requested
+
+    def _fill(self):
+        fv = self.spec.GetArgument("fill_value", None)
+        return self.spec.GetArgument("pad_value", 0.0) if fv is None else fv
+
+    def run_sample(self, ctx, idx, buf):
+        from .video import pad_frames
+
+        vf = native.VideoFile(np.ascontiguousarray(buf).tobytes())
+        try:
+            start, length, requested = self._plan(ctx, idx, vf)
+            frames = vf.read(start, length, self.spec.GetArgument("stride", 1), pad=False)
+        finally:
+            vf.close()
+        if requested and frames.shape[0] < requested:
+            frames = pad_frames(frames, requested, self.spec.GetArgument("pad_mode", "constant"),
+                                self._fill())
+        return frames
+
+    def stage_batch_multi(self, ctx, ins):
+        from .video import pad_indices, stage_yuv_batch
+
+        spec = self.spec
+        pad_mode = spec.GetArgument("pad_mode", "constant")
+        if pad_mode == "constant" and float(np.asarray(self._fill()).reshape(-1)[0]) != 0.0:
+            return None
+        inp = ins[0]
+        n = len(inp.samples)
+        stride = spec.GetArgument("stride", 1)
+        vfs, plans = [], []
+        try:
+            classes = set()
+            for idx in range(n):
+                vf = native.VideoFile(np.ascontiguousarray(inp.samples[idx]).tobytes())
+                vfs.append(vf)
+                classes.add(vf.pixfmt_class)
+                if len(classes) != 1:
+                    return None  # both ranges in one batch: the dense RGB path
+                start, length, requested = self._plan(ctx, idx, vf)
+                # a shrinking sample ('all' / pad_mode none) caps its planned
+                # wire at the header's count + 2; the frames it emits come
+                # back from the read
+                shrink = not requested or pad_mode == "none"
+                if shrink:
+                    avail = max((vf.num_frames - start + stride - 1) // stride, 1)
+                    length = min(length, avail + 2)
+                probe = shrink and (requested == 0 or length < requested)
+                plans.append((start, length, shrink, probe))
+            full_range = classes.pop() == 2
+
+            def decode_into(i, ys, us, vs, emit):
+                start, length, shrink, probe = plans[i]
+                fy = ys.shape[0] // emit
+                fc = us.shape[0] // emit
+                _, _, _, got = vfs[i].read_yuv(start, length, stride, pad=False,
+                                               out=(ys[: length * fy], us[: length * fc],
+                                                    vs[: length * fc]))
+                if shrink:
+                    if probe and got == length:
+                        # a plan filled completely: if a frame exists past
+                        # it, the dense path reads to the end instead
+                        try:
+                            _, _, _, extra = vfs[i].read_yuv(start + length * stride, 1,
+                                                             stride, pad=False)
+                        except ValueError:
+                            extra = 0
+                        if extra > 0:
+                            raise _YUVPlanShort()
+                    return got
+                if emit > got:
+                    if pad_mode == "constant":
+                        ys[got * fy: emit * fy] = 0 if full_range else 16
+                        us[got * fc: emit * fc] = 128
+                        vs[got * fc: emit * fc] = 128
+                    else:  # frame replication commutes with the conversion
+                        src = pad_indices(got, emit, pad_mode)
+                        for plane, f in ((ys, fy), (us, fc), (vs, fc)):
+                            p = plane.reshape(emit, f)
+                            p[got:] = p[src]
+                return emit
+
+            dims = [(plans[i][1], vfs[i].height, vfs[i].width) for i in range(n)]
+            try:
+                return [stage_yuv_batch(dims, full_range, decode_into)]
+            except (_YUVPlanShort, native.VideoPixfmtChanged):
+                # an undercounting plan, or a change of frame size mid-stream:
+                # the dense RGB path reads to the end, or stops at the change
+                return None
+        finally:
+            for vf in vfs:
+                vf.close()
+
+    def output_layout(self, j, inputs):
+        return "FHWC"
 
 
 def register_aliases():

@@ -191,7 +191,14 @@ class BaseReader(ReaderOperator):
 
     def run_batch(self, ctx: HostCtx):
         self._ensure_loader()
-        payloads = [self._read_payload(self._loader.read_index()) for _ in range(ctx.batch_size)]
+        return self._dense_batch_from([self._loader.read_index()
+                                       for _ in range(ctx.batch_size)])
+
+    def _dense_batch_from(self, indices):
+        """The dense outputs of the samples at loader ``indices`` already
+        read: a staged path that cannot go on after reading them (the video
+        wire meeting a change of frame size) decodes the same samples here."""
+        payloads = [self._read_payload(i) for i in indices]
         layouts = self._payload_layouts()
         if not isinstance(payloads[0], tuple):
             return [HostBatch(payloads, layout=layouts[0])]

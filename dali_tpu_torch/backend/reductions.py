@@ -3,7 +3,13 @@ and Variance (counterpart of ``dali_tpu/backend/reductions.py``): the cpu
 ops in numpy, the gpu ops in torch on uniform batches only, as in the
 reference. StdDev and Variance take an optional second input, the mean
 (with or without the reduced dims), and ``ddof``; the sum of squares is
-divided by ``max(n - ddof, 1)``."""
+divided by ``max(n - ddof, 1)``.
+
+A bfloat16 host input (a ``torch.bfloat16`` tensor: numpy has none) is
+computed as the reference computes its ml_dtypes array: every kind but Max
+and Min upcasts it to float32 first (exact) and returns float32; Max and
+Min compare the elements and return the chosen one, still bfloat16, its
+bits unchanged (the float32 upcast's upper half)."""
 
 from __future__ import annotations
 
@@ -12,7 +18,7 @@ import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch
-from ..types import cast_host, to_torch_type
+from ..types import cast_host, is_bfloat16, to_torch_type
 from .base import Operator
 
 _KINDS = ("Sum", "Mean", "Max", "Min", "MeanSquare", "RootMeanSquare", "StdDev", "Variance")
@@ -93,8 +99,14 @@ def _keep_reduced(m, x, axes):
     return m.reshape([1 if a in axes else x.shape[a] for a in range(x.ndim)])
 
 
+def _float32(x) -> np.ndarray:
+    """A host sample as numpy float32; a bfloat16 tensor upcasts exactly."""
+    return x.to(torch.float32).numpy() if is_bfloat16(x) else np.asarray(x, np.float32)
+
+
 class _ReductionCPU(Operator):
     kind = None
+    reads_bfloat16 = True
 
     def run_batch(self, ctx, *inputs):
         self._in_layout = inputs[0].layout if inputs else ""
@@ -104,8 +116,15 @@ class _ReductionCPU(Operator):
         spec = self.spec
         axes = _axes_of(spec, x.ndim, self._in_layout)
         ddof = spec.GetArgument("ddof") if self.kind in _WITH_MEAN else 0
-        mean = np.asarray(mean_in[0], np.float32) if mean_in else None
-        out = np.asarray(_reduce_np(self.kind, x, axes, spec.GetArgument("keep_dims"), ddof, mean))
+        mean = _float32(mean_in[0]) if mean_in else None
+        bf16 = is_bfloat16(x)
+        out = np.asarray(_reduce_np(self.kind, _float32(x) if bf16 else x, axes,
+                                    spec.GetArgument("keep_dims"), ddof, mean))
+        if bf16 and self.kind in ("Max", "Min"):
+            # an element of the input: its bfloat16 bits are the float32's upper half
+            bits = (np.array(out, np.float32).view(np.uint32) >> 16).astype(np.uint16)
+            out = torch.from_numpy(np.array(bits.view(np.int16), ndmin=1)).view(torch.bfloat16)
+            out = out.reshape(bits.shape)
         dt = spec.GetArgument("dtype", None)
         return cast_host(out, dt) if dt is not None else out
 

@@ -143,6 +143,28 @@ class SparseStaged:
         self.layout = layout
 
 
+class YUVStaged:
+    """A planar YUV 4:2:0 boundary batch of the video readers' mixed
+    placement (counterpart of ``dali_tpu.executor._YUVStaged``): flat ``y``,
+    ``u`` and ``v`` plane buffers with each sample dense (1.5 bytes a pixel
+    against RGB24's 3), element ``offsets`` [2, N] (luma, chroma), logical
+    ``shapes`` [N, 4] (F, h, w, 3), the output ``canvas`` (F, H, W, 3) and
+    the range. The device rebuilds RGB with ``wire.yuv420_boundary``."""
+
+    __slots__ = ("y", "u", "v", "offsets", "shapes", "canvas", "full_range", "layout")
+
+    def __init__(self, y, u, v, offsets, shapes, canvas, full_range, layout="FHWC"):
+        self.y, self.u, self.v = y, u, v
+        self.offsets = np.asarray(offsets, np.int32)
+        self.shapes = shapes
+        self.canvas = tuple(int(c) for c in canvas)
+        self.full_range = bool(full_range)
+        self.layout = layout
+
+    def __len__(self):
+        return len(self.shapes)
+
+
 class DeviceBatch:
     __slots__ = ("data", "shapes", "layout")
 

@@ -38,7 +38,7 @@ import torch
 from ._schema import get_operator_impl
 from .backend.base import SHAPE_PRESERVING_SCHEMAS, DeviceCtx, HostCtx, Operator, ReaderOperator
 from .batch import (DeviceBatch, Esc16Staged, FlatStaged, HostBatch, SparseStaged, Staged,
-                    pad_and_stack)
+                    YUVStaged, pad_and_stack)
 from .kernels import wire
 from .tensors import TensorListCPU, TensorListGPU
 from .types import DALIDataType, to_numpy_type
@@ -398,11 +398,19 @@ class Executor:
                     env[k] = Staged(arr, shapes, layout)
                     self._timed(node, t0)
                     continue
+            outs = None
             if node.device == "mixed" and hasattr(impl, "stage_batch_multi"):
+                # a mixed op may stage its own boundary wire, or decline (None)
                 outs = impl.stage_batch_multi(ctx, ins)
-            else:
+            if outs is None:
                 outs = impl.run_batch(ctx, *ins)
             for j, out in enumerate(outs):
+                if isinstance(out, YUVStaged):
+                    # the planar wire shares the edge's grow-only canvas with
+                    # the dense RGB staging it alternates with
+                    prev = self._canvas.get((node.id, j)) or [0, 0, 0, 3]
+                    out.canvas = tuple(max(int(a), int(b)) for a, b in zip(prev, out.canvas))
+                    self._canvas[(node.id, j)] = list(out.canvas)
                 env[(node.id, j)] = out
             if node.id in self._providers:
                 ctx.batch_size = len(outs[0])
@@ -479,6 +487,8 @@ class Executor:
                                item.shapes))
             elif isinstance(item, FlatStaged):
                 groups.append((item.flat, item.offsets, item.shapes))
+            elif isinstance(item, YUVStaged):
+                groups.append((item.y, item.u, item.v, item.offsets, item.shapes))
             else:
                 groups.append((item.array, item.shapes))
         groups.append(tuple(staged["args"]))
@@ -544,6 +554,9 @@ class Executor:
             elif isinstance(item, FlatStaged):
                 flat, offs, shapes = grp
                 data = wire.unflatten_boundary(flat, offs, shapes, item.canvas)
+            elif isinstance(item, YUVStaged):
+                y, u, v, offs, shapes = grp
+                data = wire.yuv420_boundary(y, u, v, offs, shapes, item.canvas, item.full_range)
             else:
                 data, shapes = grp
                 if item.bfloat16:

@@ -9,6 +9,11 @@ self-describing (prefix sums of escape markers and of bitmap popcounts), so
 the host ships no offsets beyond one per sample. PyTorch has no popcount, so
 it is a 65536-entry lookup table. No Pallas kernel exists for this stage; its
 hand kernel is queued in ROADMAP.md (B1).
+
+``yuv420_boundary`` is the counterpart of ``_yuv420_boundary``: the video
+readers' planar 4:2:0 wire rebuilt into padded RGB frames on the device,
+with the host decoder's integer BT.601 arithmetic. The reference computes
+this stage in ``jnp`` too, with no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -142,3 +147,43 @@ def unsparse_boundary(mask, vals, offsets, shapes, canvas: Sequence[int]) -> tor
     out_zz = torch.where(keep, v, torch.zeros((), dtype=vals.dtype, device=vals.device))
     b_of_slot = torch.from_numpy(np.argsort(np.asarray(zz_sel_perm(nac)))).to(mask.device)
     return out_zz.index_select(-1, b_of_slot)
+
+
+def yuv420_boundary(y, u, v, offsets, shapes, canvas: Sequence[int],
+                    full_range: bool) -> torch.Tensor:
+    """Padded RGB frames [N, F, H, W, 3] uint8 from the planar 4:2:0 wire.
+
+    y/u/v: flat uint8 planes, each sample dense at its offset; offsets
+    [2, N] (luma, chroma element offsets); shapes [N, 4] logical (F, h, w,
+    3), chroma (F, ceil(h/2), ceil(w/2)); canvas (F, H, W, 3). Chroma is
+    repeated to the nearest sample (pixel x reads chroma x // 2) and the
+    BT.601 matrix is the host's integer arithmetic (``video_decode.cc``
+    ``picture_to_rgb``): limited range R = (298 (Y - 16) + 409 (V - 128) +
+    128) >> 8 and its G and B, full range R = (256 Y + 359 (V - 128) + 128)
+    >> 8 and its G and B, clipped to [0, 255]. The padding is zero."""
+    f_, h_, w_ = (int(c) for c in canvas[:3])
+    ch, cw = (h_ + 1) // 2, (w_ + 1) // 2
+    yshapes = shapes[:, :3].to(torch.int64)
+    yp = unflatten_boundary(y, offsets[0], yshapes, (f_, h_, w_))
+    cshapes = torch.stack([yshapes[:, 0], (yshapes[:, 1] + 1) // 2, (yshapes[:, 2] + 1) // 2],
+                          dim=1)
+    up = unflatten_boundary(u, offsets[1], cshapes, (f_, ch, cw))
+    vp = unflatten_boundary(v, offsets[1], cshapes, (f_, ch, cw))
+    rows = torch.arange(h_, device=y.device) // 2
+    cols = torch.arange(w_, device=y.device) // 2
+    d = up.index_select(2, rows).index_select(3, cols).to(torch.int32) - 128
+    e = vp.index_select(2, rows).index_select(3, cols).to(torch.int32) - 128
+    if full_range:
+        c = 256 * yp.to(torch.int32)
+        r = (c + 359 * e + 128) >> 8
+        g = (c - 88 * d - 183 * e + 128) >> 8
+        b = (c + 454 * d + 128) >> 8
+    else:
+        c = 298 * (yp.to(torch.int32) - 16)
+        r = (c + 409 * e + 128) >> 8
+        g = (c - 100 * d - 208 * e + 128) >> 8
+        b = (c + 516 * d + 128) >> 8
+    rgb = torch.stack([r, g, b], dim=-1).clamp_(0, 255).to(torch.uint8)
+    _, valid = _flat_index(offsets[0], yshapes, (f_, h_, w_))
+    return torch.where(valid.unsqueeze(-1), rgb, torch.zeros((), dtype=torch.uint8,
+                                                               device=rgb.device))

@@ -30,6 +30,11 @@
   Deflate, ``pnm_decode.cc``), a batch in one call on the task pool, equal
   to ``cv2.imdecode``; ``inflate_zlib`` and ``webp_alpha`` expose the
   inflate and the ``ALPH`` decode alone.
+* ``VideoFile``, ``VideoPixfmtChanged``, ``has_video`` and
+  ``video_read_batch`` — frame-accurate reads of MP4 / MPEG-4 Part 2 video
+  (``csrc/host/mp4_demux.cc``, ``mpeg4_decode.cc``, ``video_decode.cc``),
+  with the signatures and errors of ``dali_tpu.native``'s FFmpeg-backed
+  ones and its frames bit for bit.
 """
 
 from __future__ import annotations
@@ -128,6 +133,26 @@ def host_lib():
             lib.dali_tpu_torch_inflate_zlib.restype = ci
             lib.dali_tpu_torch_inflate_zlib.argtypes = [vp, ctypes.c_size_t, vp, ctypes.c_size_t,
                                                         ctypes.POINTER(ctypes.c_size_t)]
+            lib.dali_tpu_torch_video_open.restype = vp
+            lib.dali_tpu_torch_video_open.argtypes = [ctypes.c_char_p, vp, sz, ctypes.c_char_p,
+                                                      ci, ip]
+            lib.dali_tpu_torch_video_info.restype = ci
+            lib.dali_tpu_torch_video_info.argtypes = [vp, ip, ip, lp,
+                                                      ctypes.POINTER(ctypes.c_double)]
+            lib.dali_tpu_torch_video_pixfmt_class.restype = ci
+            lib.dali_tpu_torch_video_pixfmt_class.argtypes = [vp]
+            lib.dali_tpu_torch_video_error.restype = ctypes.c_char_p
+            lib.dali_tpu_torch_video_error.argtypes = [vp]
+            lib.dali_tpu_torch_video_read_frames.restype = ci
+            lib.dali_tpu_torch_video_read_frames.argtypes = [vp, ctypes.c_long, ci, ci, vp]
+            lib.dali_tpu_torch_video_read_frames_yuv.restype = ci
+            lib.dali_tpu_torch_video_read_frames_yuv.argtypes = [vp, ctypes.c_long, ci, ci, vp,
+                                                                 vp, vp]
+            lib.dali_tpu_torch_video_read_batch.restype = None
+            lib.dali_tpu_torch_video_read_batch.argtypes = [vp, sp, lp, ip, ip, sp, sp, sp, ci,
+                                                            ci, ip]
+            lib.dali_tpu_torch_video_close.restype = None
+            lib.dali_tpu_torch_video_close.argtypes = [vp]
             _LIB = lib
     return _LIB
 
@@ -984,3 +1009,174 @@ def debayer_edge_aware(raw: np.ndarray, start_with_green: int, blue: int) -> np.
             raw.ctypes.data, h, w, int(start_with_green), int(blue), out.ctypes.data) != 0:
         raise ValueError("debayer_edge_aware: bad size")
     return out
+
+
+# --------------------------------------------------------------------------- video
+# read results of csrc/host/video_decode.cc below 0 (INT_MIN and INT_MIN + 1);
+# a planar read stopped by a change of frame size returns -2 - got
+_VIDEO_EOF, _VIDEO_DAMAGED, _VIDEO_UNSUPPORTED = -1, -(2**31), -(2**31) + 1
+
+
+def _text(msg: bytes) -> str:
+    """A native message (it may quote bytes of a damaged file)."""
+    return msg.decode(errors="replace")
+
+
+class VideoPixfmtChanged(RuntimeError):
+    """The stream's pixel format or frame size changed mid-read: the planar
+    YUV wire cannot carry such a file (``dali_tpu.native.VideoPixfmtChanged``).
+    MPEG-4 Part 2 streams are 4:2:0 throughout; an in-band VOL header that
+    changes the frame size raises it. The video operators catch it and take
+    the dense RGB path, which stops at the change, as the reference's do."""
+
+    def __init__(self, path, got):
+        super().__init__(
+            f"pixel format changed mid-stream in {path!r} after {got} "
+            "frames; planar YUV read aborted")
+        self.got = got
+
+
+def has_video() -> bool:
+    """The port decodes MP4 / MPEG-4 Part 2 itself: always available."""
+    return True
+
+
+class VideoFile:
+    """Frame-accurate sequence reads of an MP4 / MPEG-4 Part 2 file, to RGB24
+    or planar YUV 4:2:0 (counterpart of ``dali_tpu.native.VideoFile``: its
+    signatures, its errors and its frames). ``path`` may instead be the
+    encoded bytes of the file. Raises ``ValueError`` where the reference
+    fails to open a file, ``NotImplementedError`` for a container or codec
+    that FFmpeg reads and the port does not yet (ROADMAP.md Queue 1 item
+    8b), and ``ValueError`` naming the damage when a stream that the
+    reference would conceal is damaged."""
+
+    def __init__(self, path):
+        lib = host_lib()
+        self._lib = lib
+        self._h = None
+        err = ctypes.create_string_buffer(512)
+        kind = ctypes.c_int(0)
+        if isinstance(path, (bytes, bytearray, memoryview, np.ndarray)):
+            data = np.frombuffer(bytes(path), np.uint8)
+            self._h = lib.dali_tpu_torch_video_open(None, data.ctypes.data, data.size, err,
+                                                    len(err), ctypes.byref(kind))
+            self.path = "<memory>"
+        else:
+            self._h = lib.dali_tpu_torch_video_open(str(path).encode(), None, 0, err, len(err),
+                                                    ctypes.byref(kind))
+            self.path = str(path)
+        if not self._h:
+            if kind.value == 2:
+                raise NotImplementedError(f"video {self.path!r}: {_text(err.value)}")
+            raise ValueError(f"Failed to open video {self.path!r}")
+        w, hh = ctypes.c_int(), ctypes.c_int()
+        nf, fps = ctypes.c_long(), ctypes.c_double()
+        lib.dali_tpu_torch_video_info(self._h, ctypes.byref(w), ctypes.byref(hh),
+                                      ctypes.byref(nf), ctypes.byref(fps))
+        self.width = w.value
+        self.height = hh.value
+        self.num_frames = nf.value
+        self.fps = fps.value
+        # 1 = 4:2:0 limited range; 2 = 4:2:0 full range
+        self.pixfmt_class = int(lib.dali_tpu_torch_video_pixfmt_class(self._h))
+
+    def _error(self) -> str:
+        return _text(self._lib.dali_tpu_torch_video_error(self._h))
+
+    def _check(self, got, start, count):
+        if _VIDEO_UNSUPPORTED < got <= -2:
+            raise VideoPixfmtChanged(self.path, -2 - got)
+        if got == _VIDEO_DAMAGED:
+            raise ValueError(f"damaged MPEG-4 Part 2 stream in {self.path!r} "
+                             f"({self._error()})")
+        if got == _VIDEO_UNSUPPORTED:
+            raise NotImplementedError(
+                f"video {self.path!r}: {self._error()}")
+        if got <= 0:
+            raise ValueError(f"Failed to read frames [{start}, +{count})")
+
+    def read(self, start: int, count: int, stride: int = 1, pad: bool = True) -> np.ndarray:
+        """Read ``count`` frames; ``pad=False`` returns only the frames that
+        exist (short at EOF) so callers can apply their own pad_mode."""
+        out = np.empty((count, self.height, self.width, 3), np.uint8)
+        got = self._lib.dali_tpu_torch_video_read_frames(self._h, start, count, stride,
+                                                         out.ctypes.data)
+        if got < count:
+            self._check(got, start, count)
+            if not pad:
+                return np.ascontiguousarray(out[:got])
+            out[got:] = out[got - 1]  # pad with the last frame at EOF
+        return out
+
+    def read_yuv(self, start: int, count: int, stride: int = 1, pad: bool = True, out=None):
+        """Read ``count`` frames as planar YUV 4:2:0, the host half of the
+        planar video wire. ``out`` may carry C-contiguous uint8 ``(y, u, v)``
+        buffers of at least ``count*h*w`` / ``count*ceil(h/2)*ceil(w/2)``
+        elements (slices of a flat wire buffer). Returns ``(y, u, v, got)``
+        with the planes shaped [count, ...] (flat when ``out`` was given)
+        and ``got`` the number of real (non-padded) frames."""
+        h_, w_ = self.height, self.width
+        ch, cw = (h_ + 1) // 2, (w_ + 1) // 2
+        if out is None:
+            y = np.empty((count, h_, w_), np.uint8)
+            u = np.empty((count, ch, cw), np.uint8)
+            v = np.empty((count, ch, cw), np.uint8)
+        else:
+            y, u, v = out
+            for nm, a, need in (("y", y, count * h_ * w_), ("u", u, count * ch * cw),
+                                ("v", v, count * ch * cw)):
+                if not (isinstance(a, np.ndarray) and a.dtype == np.uint8
+                        and a.flags["C_CONTIGUOUS"]):
+                    raise ValueError(f"read_yuv out[{nm}] must be C-contiguous uint8")
+                if a.size < need:
+                    raise ValueError(f"read_yuv out[{nm}] too small: {a.size} < {need}")
+        got = self._lib.dali_tpu_torch_video_read_frames_yuv(
+            self._h, start, count, stride, y.ctypes.data, u.ctypes.data, v.ctypes.data)
+        if got < count:
+            self._check(got, start, count)
+            if pad:  # repeat the last decoded frame at EOF
+                fy, fc = h_ * w_, ch * cw
+                for plane, f in ((y, fy), (u, fc), (v, fc)):
+                    pf = plane.reshape(-1)[: count * f].reshape(count, f)
+                    pf[got:] = pf[got - 1]
+        return y, u, v, got
+
+    def close(self):
+        if self._h:
+            self._lib.dali_tpu_torch_video_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def video_read_batch(pool, files, starts, counts, strides, outs, yuv: bool):
+    """Reads of several ``VideoFile``s at once on the task pool, one task per
+    distinct file (its reads in order): ``outs[i]`` is the RGB array, or the
+    ``(y, u, v)`` planes when ``yuv``, of read i. Returns each read's count
+    of frames; raises as ``VideoFile.read`` for a read that failed."""
+    lib = host_lib()
+    n = len(files)
+    vp_arr = ctypes.c_void_p * n
+    handles = vp_arr(*[f._h for f in files])
+    st = np.ascontiguousarray(starts, np.int64).astype(np.dtype("l"))
+    co = np.ascontiguousarray(counts, np.int32)
+    sr = np.ascontiguousarray(strides, np.int32)
+    planes = [o if yuv else (o, o, o) for o in outs]
+    ys = vp_arr(*[p[0].ctypes.data for p in planes])
+    us = vp_arr(*[p[1].ctypes.data for p in planes])
+    vs = vp_arr(*[p[2].ctypes.data for p in planes])
+    res = np.zeros(n, np.int32)
+    lib.dali_tpu_torch_video_read_batch(
+        _pool_handle(pool), handles, st.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+        co.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+        sr.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), ys, us, vs, n, int(bool(yuv)),
+        res.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    for i, got in enumerate(res):
+        if got < counts[i]:
+            files[i]._check(int(got), starts[i], counts[i])
+    return res

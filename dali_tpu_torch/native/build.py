@@ -11,7 +11,10 @@
   ``gif_decode.cc``, ``webp_vp8.cc``, ``webp_vp8l.cc``, ``webp_decode.cc``,
   ``inflate.cc``, ``tiff_decode.cc``, ``pnm_decode.cc``, written from their
   specifications,
-  with their batch entry ``image_decode_batch.cc``) and the image filters (``host_ops.cc``, compiled into
+  with their batch entry ``image_decode_batch.cc``), the MP3, Vorbis and
+  FLAC batch entry (``audio_decode_batch.cc``), the MP4 demuxer and the
+  MPEG-4 Part 2 decoder with their frame-accurate reader (``mp4_demux.cc``,
+  ``mpeg4_decode.cc``, ``video_decode.cc``) and the image filters (``host_ops.cc``, compiled into
   an object of its own with floating-point contraction on, as ``dali_tpu``
   compiles its copy). g++ with ``-march=native``: compiled on the machine
   that runs it, never shipped.
@@ -51,14 +54,15 @@ HOST_SOURCES = [os.path.join(_HOST_SRC, f) for f in (
     "bmp_decode.cc", "warp_affine.cc", "jpeg_encode.cc", "flac_decode.cc", "gif_decode.cc",
     "webp_vp8.cc", "webp_vp8l.cc", "webp_decode.cc", "inflate.cc", "tiff_decode.cc",
     "pnm_decode.cc", "image_decode_batch.cc", "mp3_decode.cc", "ogg.cc", "vorbis_decode.cc",
-    "audio_decode_batch.cc")]
+    "audio_decode_batch.cc", "mp4_demux.cc", "mpeg4_decode.cc", "video_decode.cc")]
 # compiled with dali_tpu's own flags (contraction on): its float filters sum
 # into the fused multiply-adds of the reference's library
 HOST_CONTRACT_SOURCES = [os.path.join(_HOST_SRC, "host_ops.cc")]
 # headers the host sources include: hashed into the stamp, not compiled
 HOST_HEADERS = [os.path.join(_HOST_SRC, f) for f in ("jpeg_full.h", "webp.h", "webp_tables.h",
                                                      "inflate.h", "audio_codecs.h",
-                                                     "audio_tables.h")]
+                                                     "audio_tables.h", "video.h",
+                                                     "mpeg4_tables.h")]
 KERNEL_SOURCES = [os.path.join(_PKG, "csrc", "cmn.cu")]
 # (object name, defines, sources) of the kernel library's translation units, compiled
 # at once; each holds one input type's template instances of cmn.cu

@@ -11,7 +11,9 @@ feeding its own device, and a global batch is a
 ``DeviceMesh``: the rank's batch is its local shard, and the global batch
 is the per-rank batch times the mesh size, as ``jax.py:84-87`` computes it.
 ``DTensor.from_local(..., run_check=False)`` with the global shape and
-stride given assembles it without communication. The reference's split of
+stride given assembles it without moving data; one all_gather of the
+ranks' shapes of every output, once a batch, first refuses shards of
+different shapes, as the reference refuses them. The reference's split of
 one pipeline's batch over several local devices (``jax.py:65-75``) has no
 counterpart: a rank has one device.
 
@@ -53,14 +55,63 @@ def from_shard(local: torch.Tensor, mesh, placements, shape):
                               shape=torch.Size(shape), stride=tuple(stride))
 
 
-def global_batch(local: torch.Tensor, mesh):
-    """The rank's batch as its shard of the global batch: a ``DTensor``
-    placed ``Shard(0)`` on the 1-D ``mesh``, of ``local.shape[0] *
-    mesh.size()`` samples. Every rank's batch must have the same shape."""
+# the dimensions of a shape that ``check_shard_shapes`` gathers
+_MAX_NDIM = 15
+
+
+def check_shard_shapes(locals_: dict, mesh):
+    """Raises ``ValueError`` on every rank when the ranks' local batches
+    differ in shape, naming the first output that differs and each rank's
+    shape, as the reference's ``jax.make_array_from_single_device_arrays``
+    refuses shards of different shapes. ``locals_`` maps each output's name
+    to the rank's batch; one all_gather of a small int64 tensor on the
+    mesh's device carries the shapes of all of them (gloo serves CUDA
+    tensors too)."""
+    import torch.distributed as dist
+
+    names = list(locals_)
+    mine = torch.full((len(names), _MAX_NDIM + 1), -1, dtype=torch.int64)
+    for i, name in enumerate(names):
+        local = locals_[name]
+        mine[i, 0] = local.ndim
+        kept = tuple(local.shape)[:_MAX_NDIM]
+        mine[i, 1:1 + len(kept)] = torch.tensor(kept, dtype=torch.int64)
+    mine = mine.to(mesh_device(mesh))
+    gathered = [torch.empty_like(mine) for _ in range(mesh.size())]
+    dist.all_gather(gathered, mine, group=mesh.get_group())
+    table = torch.stack(gathered).cpu().tolist()  # [rank][output][ndim, dims...]
+    for i, name in enumerate(names):
+        rows = [t[i] for t in table]
+        if any(r[0] > _MAX_NDIM for r in rows):  # every rank raises alike
+            raise ValueError(f"output {name!r}: a rank's batch has more than {_MAX_NDIM} "
+                             "dimensions")
+        shapes = [tuple(r[1:1 + r[0]]) for r in rows]
+        if any(s != shapes[0] for s in shapes):
+            per_rank = ", ".join(f"rank {r}: {list(s)}" for r, s in enumerate(shapes))
+            raise ValueError(
+                f"output {name!r}: the ranks' local batches differ in shape ({per_rank}); a "
+                "global batch needs every rank's shard to have the same shape (pad or resize "
+                "the samples to one shape in the pipeline)")
+
+
+def global_batches(locals_: dict, mesh) -> dict:
+    """Each output's batch on this rank as its shard of the global batch: a
+    ``DTensor`` placed ``Shard(0)`` on the 1-D ``mesh``, of ``shape[0] *
+    mesh.size()`` samples. Every rank's batch of an output must have the
+    same shape: ``check_shard_shapes`` raises ``ValueError`` on every rank
+    otherwise, after one collective for all the outputs."""
     from torch.distributed.tensor import Shard
 
-    shape = (local.shape[0] * mesh.size(),) + tuple(local.shape[1:])
-    return from_shard(local.to(mesh_device(mesh)), mesh, [Shard(0)], shape)
+    check_shard_shapes(locals_, mesh)
+    dev = mesh_device(mesh)
+    return {name: from_shard(local.to(dev), mesh, [Shard(0)],
+                             (local.shape[0] * mesh.size(),) + tuple(local.shape[1:]))
+            for name, local in locals_.items()}
+
+
+def global_batch(local: torch.Tensor, mesh, name: str = "output"):
+    """``global_batches`` of one output."""
+    return global_batches({name: local}, mesh)[name]
 
 
 class DALIGenericIterator(_Base):
@@ -92,7 +143,8 @@ class DALIGenericIterator(_Base):
         if self._mesh is None:
             outs = [{k: v.as_tensor() for k, v in b.items()} for b in batches]
             return outs[0] if len(outs) == 1 else outs
-        return {k: global_batch(batches[0][k].as_tensor(), self._mesh) for k in self.output_map}
+        return global_batches({k: batches[0][k].as_tensor() for k in self.output_map},
+                              self._mesh)
 
 
 class DALIPeekableIterator(DALIGenericIterator):

@@ -25,6 +25,7 @@ a host bfloat16 sample as a ``torch.bfloat16`` CPU tensor (``types.py``).
 """
 
 import io
+import os
 import wave
 import zlib
 
@@ -49,6 +50,8 @@ AUDIO = [RNG.standard_normal(96).astype(np.float32) for _ in range(N)]
 POINTS = [RNG.random((5, 2)).astype(np.float32) for _ in range(N)]
 LABELS = [np.array(i + 1, np.int32) for i in range(N)]
 MEAN = [123.675, 116.28, 103.53]
+VIDEO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "dali_tpu_torch", "testdata", "video", "pan_64x48.mp4")
 STD = [58.395, 57.12, 57.375]
 
 
@@ -321,6 +324,7 @@ SWEEP = {
         x, in_ids=np.array([0, 1], np.int32), output_size=np.array([16, 16], np.int32),
         dtype=t)),
     "readers.NemoAsr": None,  # built by the test (a manifest in tmp_path)
+    "readers.Video": None,  # built by the test (a committed MP4 fixture)
     "random.Normal": (_none, lambda fn, x, d, t: fn.random.normal(
         shape=[4], dtype=t, device=d, seed=6)),
     "Normalize": (_inp("flt"), lambda fn, x, d, t: fn.normalize(x, dtype=t)),
@@ -416,8 +420,8 @@ def test_sweep_covers_every_dtype_schema_of_both_packages():
         sc = ref_schema.GetSchema(name)
         if "dtype" in sc.args and not sc.name.startswith("_"):
             ref |= {(sc.name, d) for d in ("cpu", "gpu") if ref_schema.has_operator_impl(sc.name, d)}
-    # the video readers are ROADMAP Queue 1 item 8, not in the port yet
-    assert ref - {("readers.Video", "cpu"), ("readers.VideoResize", "cpu")} == set(SWEEP_CASES)
+    # readers.VideoResize is ROADMAP Queue 1 item 8b, not in the port yet
+    assert ref - {("readers.VideoResize", "cpu")} == set(SWEEP_CASES)
 
 
 def _outcome(res, schema):
@@ -440,6 +444,9 @@ def test_sweep_dtype_bfloat16(schema, device, tmp_path):
         def graph(fn, types):
             return fn.readers.nemo_asr(manifest_filepaths=[str(manifest)], dtype=types.BFLOAT16,
                                        read_text=False)
+    elif schema == "readers.Video":
+        def graph(fn, types):
+            return fn.readers.video(filenames=[VIDEO], sequence_length=3, dtype=types.BFLOAT16)
     else:
         make, call = SWEEP[schema]
 
@@ -469,15 +476,101 @@ def test_sweep_dtype_bfloat16(schema, device, tmp_path):
 
 
 def test_host_ops_reading_bfloat16_depart():
-    """F6-residue (ROADMAP Queue 3): a host op other than Cast reading a
-    bfloat16 input computes in dali_tpu (ml_dtypes arrays behave as numpy
-    floats) and raises TypeError in the port, where numpy cannot hold one."""
-    def graph(fn, types):
-        return fn.reductions.sum(fn.cast(_src(fn, FLT), dtype=types.BFLOAT16))
+    """F6-residue (ROADMAP Queue 3), repaired for the reductions: a host
+    reduction reading a bfloat16 input gives dali_tpu's values (float32
+    from an exact upcast; Max and Min the chosen element, still bfloat16)."""
+    for kind in ("sum", "max", "std_dev"):
+        def graph(fn, types, kind=kind):
+            return getattr(fn.reductions, kind)(fn.cast(_src(fn, FLT), dtype=types.BFLOAT16),
+                                                axes=[0, 1])
 
-    res = _run_both(graph)
-    assert res["dali_tpu_torch"] is TypeError
-    assert np.isfinite(np.asarray(res["dali_tpu"][0][0], np.float32)).all()
+        res = _run_both(graph)
+        for a, b in zip(res["dali_tpu_torch"][0], res["dali_tpu"][0]):
+            if kind == "max":
+                np.testing.assert_array_equal(_bits(a), _bits(b))
+            else:
+                assert np.asarray(a).dtype == np.asarray(b).dtype == np.float32
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+# Every cpu placement of the port with an input (readers and inputs have
+# none), fed a bfloat16 image: the placements dali_tpu computes on it (its
+# ml_dtypes arrays behave as numpy floats). Of those, the reductions give
+# dali_tpu's results in the port too; the rest raise TypeError naming
+# F6-residue (ROADMAP Queue 3). Every other placement raises in both.
+BF16_INPUT_COMPUTES = {
+    "BbFlip", "Brightness", "BrightnessContrast", "CastLike", "Cat", "ColorTwist", "Contrast",
+    "CoordFlip", "CoordTransform", "Copy", "CropMirrorNormalize", "Erase", "Flip",
+    "GaussianBlur", "GridMask", "Hsv", "Hue", "Jitter", "Laplacian", "LookupTable", "MFCC",
+    "NonsilentRegion", "Normalize", "Ones", "OnesLike", "Pad", "PerFrame", "PowerSpectrum",
+    "PreemphasisFilter", "RandomBBoxCrop", "RandomCropGenerator", "Reinterpret", "Reshape",
+    "SSDRandomCrop", "Saturation", "Shapes", "Slice", "Spectrogram", "Sphere", "Squeeze",
+    "Stack", "ToDecibels", "Water", "Zeros", "ZerosLike", "experimental.AudioResample",
+    "experimental.Clahe", "noise.Gaussian", "noise.SaltAndPepper", "random.Beta",
+    "random.Choice", "random.CoinFlip", "random.Normal", "random.Uniform", "reductions.Max",
+    "reductions.Mean", "reductions.MeanSquare", "reductions.Min", "reductions.RootMeanSquare",
+    "reductions.StdDev", "reductions.Sum", "reductions.Variance",
+    "segmentation.RandomMaskPixel", "segmentation.RandomObjectBBox", "transforms.Combine"}
+BF16_INPUT_PORTED = {n for n in BF16_INPUT_COMPUTES if n.startswith("reductions.")}
+
+
+def _with_input(name):
+    sc = port_schema.GetSchema(name)
+    return sc.max_inputs > 0 and not (name.startswith("readers.")
+                                      or name.startswith("experimental.readers.")
+                                      or name.startswith("experimental.inputs."))
+
+
+BF16_INPUT_SWEEP = sorted(n for (n, d) in port_schema._impl_registry
+                          if d == "cpu" and not n.startswith("_")
+                          and n not in port_schema._alias_targets and _with_input(n))
+
+
+def _bf16_input_run(pkg, name):
+    """The op's outputs on a bfloat16 image, or the exception it raised."""
+    sc = pkg._schema.GetSchema(name)
+    extra = {"device": "cpu"} if pkg is dali_tpu_torch else {"debug": True}
+    try:
+        @pkg.pipeline_def(batch_size=N, num_threads=1, seed=17, **extra)
+        def p():
+            x = pkg.fn.cast(_src(pkg.fn, FLT), dtype=pkg.types.BFLOAT16)
+            op = pkg.ops
+            for part in name.split("."):
+                op = getattr(op, part)
+            out = op(device="cpu")(*([x] * max(sc.min_inputs, 1)))
+            return tuple(out) if isinstance(out, (list, tuple)) else out
+
+        pipe = p()
+        pipe.build()
+        return [_samples(o) for o in pipe.run()]
+    except Exception as e:  # noqa: BLE001  (the sweep records what each raises)
+        return e
+
+
+def test_bf16_input_sweep_covers_the_registry():
+    assert len(BF16_INPUT_SWEEP) >= 120
+    assert BF16_INPUT_COMPUTES <= set(BF16_INPUT_SWEEP)
+    assert len(BF16_INPUT_COMPUTES - BF16_INPUT_PORTED) == 57  # ROADMAP Queue 3, F6-residue
+
+
+@pytest.mark.parametrize("name", BF16_INPUT_SWEEP)
+def test_bf16_input_sweep(name):
+    ref = _bf16_input_run(dali_tpu, name)
+    port = _bf16_input_run(dali_tpu_torch, name)
+    assert (not isinstance(ref, Exception)) == (name in BF16_INPUT_COMPUTES), ref
+    if name in BF16_INPUT_PORTED:
+        assert not isinstance(port, Exception), port
+        for po, ro in zip(port, ref):
+            for a, b in zip(po, ro):
+                assert _dtype_name(a) == _dtype_name(b)
+                if _dtype_name(b) == "bfloat16":
+                    np.testing.assert_array_equal(_bits(a), _bits(b))
+                else:
+                    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    elif name in BF16_INPUT_COMPUTES:
+        assert isinstance(port, TypeError) and "F6-residue" in str(port), port
+    else:
+        assert isinstance(port, Exception), port
 
 
 # ------------------------------------------------------------------- eager mode
@@ -509,17 +602,22 @@ def test_ndd_bfloat16_host_batch_to_the_device(data):
 
 
 def test_ndd_host_op_reading_bfloat16_departs():
-    """F6-residue in eager mode, as in a pipeline: a host op other than Cast
-    reading a bfloat16 batch computes in dali_tpu's ndd and raises TypeError
-    in the port's."""
+    """F6-residue in eager mode, as in a pipeline: a host reduction reading
+    a bfloat16 batch gives dali_tpu's ndd's values; an op still outside the
+    repair (Flip) raises TypeError naming F6-residue in the port."""
     import dali_tpu.experimental.dynamic as ref_ndd
     import dali_tpu_torch.experimental.dynamic as ndd
 
     with ref_ndd.EvalContext(seed=5):
-        ref = ref_ndd.reductions.sum(ref_ndd.cast(ref_ndd.as_batch(FLT, layout="HWC"),
-                                                  dtype=dali_tpu.types.BFLOAT16))
-        assert np.isfinite(np.asarray(ref.at(0), np.float32)).all()
+        b = ref_ndd.cast(ref_ndd.as_batch(FLT, layout="HWC"), dtype=dali_tpu.types.BFLOAT16)
+        want = [ref_ndd.reductions.sum(b).at(i) for i in range(N)]
+        want_max = [ref_ndd.reductions.max(b).at(i) for i in range(N)]
     with ndd.EvalContext(seed=5, device="cpu"):
         b = ndd.cast(ndd.as_batch(FLT, layout="HWC"), dtype=dali_tpu_torch.types.BFLOAT16)
+        got = ndd.reductions.sum(b)
+        got_max = ndd.reductions.max(b)
+        for i in range(N):
+            np.testing.assert_array_equal(np.asarray(got.at(i)), np.asarray(want[i]))
+            np.testing.assert_array_equal(_bits(got_max.at(i)), _bits(want_max[i]))
         with pytest.raises(TypeError, match="F6-residue"):
-            ndd.reductions.sum(b)
+            ndd.flip(b)

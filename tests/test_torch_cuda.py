@@ -1815,3 +1815,42 @@ def test_two_rank_tool_on_card(card):
     r = multiprocess_test.run("cuda")
     assert [r["by_rank"][k]["global_sum"] for k in (0, 1)] == [6, 6]
     assert all(np.isfinite(r["by_rank"][k]["global_mean"]) for k in (0, 1))
+
+
+# ------------------------------------------------------------------ video (item 8a)
+
+def test_yuv420_boundary_on_the_card_equals_the_cpu(card):
+    """``wire.yuv420_boundary`` on a ragged batch (odd sizes, both ranges)
+    on the card against the same call on the CPU."""
+    from dali_tpu_torch.kernels import wire
+
+    rng = np.random.default_rng(3)
+    dims = [(3, 37, 50), (2, 48, 64), (4, 9, 7)]
+    ys, us, vs, offs, shapes = [], [], [], [[], []], []
+    yo = co = 0
+    for f, h, w in dims:
+        ny, nc = f * h * w, f * ((h + 1) // 2) * ((w + 1) // 2)
+        ys.append(rng.integers(0, 256, ny, dtype=np.uint8))
+        us.append(rng.integers(0, 256, nc, dtype=np.uint8))
+        vs.append(rng.integers(0, 256, nc, dtype=np.uint8))
+        offs[0].append(yo)
+        offs[1].append(co)
+        shapes.append([f, h, w, 3])
+        yo, co = yo + ny, co + nc
+    args = [torch.from_numpy(np.concatenate(a)) for a in (ys, us, vs)] + [
+        torch.tensor(offs, dtype=torch.int32), torch.tensor(shapes, dtype=torch.int64)]
+    for full in (False, True):
+        want = wire.yuv420_boundary(*args, (4, 48, 64, 3), full)
+        got = wire.yuv420_boundary(*[a.to(card) for a in args], (4, 48, 64, 3), full)
+        assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def test_video_mixed_reader_equals_cpu_reader(card):
+    """video_clip_train's recipe at batch 4: the mixed reader's frames (the
+    planar YUV wire, RGB on the card) equal the cpu reader's moved with
+    ``.gpu()``, and the committed fixtures decode to reference.npz."""
+    from dali_tpu_torch.tools import bench_video
+
+    r = bench_video.check_mixed_vs_cpu(batch=4, batches=2)
+    assert r["frames"] == 2 * 4 * bench_video.FRAMES
+    assert bench_video.check_fixtures()["clips"] == 36

@@ -409,3 +409,91 @@ print("ran")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0 and "ran" in res.stdout, res.stderr[-2000:]
+
+
+# ------------------------------------------------------------ F8: shards of different shapes
+
+_F8_RANKS = r'''
+import json, os, sys
+import multiprocessing as mp
+import numpy as np
+import torch
+
+def rank_main(rank, store, out):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    import dali_tpu_torch
+    from dali_tpu_torch.plugin import distributed as port_dist
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=2)
+    mesh = init_device_mesh("cpu", (2,))
+    res = {}
+    local = torch.zeros((2, 3 + rank, 4))
+    try:
+        port_dist.global_batch(local, mesh, "images")
+        res["direct"] = "no error"
+    except ValueError as e:
+        res["direct"] = str(e)
+    side = 3 + rank
+
+    @dali_tpu_torch.pipeline_def(batch_size=2, num_threads=1, seed=1, device="cpu")
+    def p():
+        labels = dali_tpu_torch.fn.external_source(
+            source=lambda: [np.zeros((1,), np.int32)] * 2, batch=True)
+        boxes = dali_tpu_torch.fn.external_source(
+            source=lambda: [np.zeros((side, 4), np.float32)] * 2, batch=True)
+        return labels, boxes
+    pipe = p()
+    pipe.build()
+    it = port_dist.DALIGenericIterator([pipe], ["labels", "boxes"], size=4, device_mesh=mesh)
+    calls = []
+    gather = dist.all_gather
+    dist.all_gather = lambda *a, **k: (calls.append(1), gather(*a, **k))[1]
+    try:
+        next(it)
+        res["iterator"] = "no error"
+    except ValueError as e:
+        res["iterator"] = str(e)
+    dist.all_gather = gather
+    res["iterator_collectives"] = len(calls)
+    same = port_dist.global_batch(torch.full((2, 3), float(rank)), mesh, "ok")
+    res["same_shape_sum"] = float(same.sum(0).full_tensor().sum().item())
+    pipe.shutdown()
+    dist.destroy_process_group()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+if __name__ == "__main__":
+    out = sys.argv[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=rank_main, args=(r, os.path.join(out, "store"), out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(100)
+    sys.exit(max(p.exitcode if p.exitcode is not None else 99 for p in procs))
+'''
+
+
+def test_f8_ranks_with_different_batch_shapes_raise_on_both(tmp_path):
+    """Two gloo ranks whose local batches differ ([2, 3, 4] against
+    [2, 4, 4], directly and as the second of an iterator's two outputs) both
+    raise ValueError naming the output and each rank's shape, and neither
+    aborts; the iterator checks all its outputs in one all_gather; shards
+    of one shape still assemble."""
+    import json
+    import subprocess
+
+    script = tmp_path / "ranks.py"
+    script.write_text(_F8_RANKS)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    subprocess.run([sys.executable, str(script), str(tmp_path)], check=True, timeout=150,
+                   env=env, cwd=REPO)
+    for r in range(2):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert "output 'images'" in res["direct"], res
+        assert "rank 0: [2, 3, 4], rank 1: [2, 4, 4]" in res["direct"], res
+        assert "output 'boxes'" in res["iterator"], res
+        assert "rank 0: [2, 3, 4], rank 1: [2, 4, 4]" in res["iterator"], res
+        assert res["iterator_collectives"] == 1, res
+        assert res["same_shape_sum"] == 6.0

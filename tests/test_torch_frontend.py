@@ -391,13 +391,12 @@ def test_ops_api_builds_the_fn_graph():
 @pytest.mark.parametrize("api", ["fn", "ops"])
 def test_unported_names_name_their_roadmap_item(api):
     mod = getattr(dali_tpu_torch, api)
-    names = (("decoders.video", "item 8"), ("readers.video", "item 8"),
-             ("optical_flow", "item 8"), ("experimental.inputs.video", "item 8"),
-             ("readers.video_resize", "item 8"))
+    # item 8a ported readers.Video, decoders.Video and experimental.inputs.Video
+    names = (("optical_flow", "item 8b"), ("readers.video_resize", "item 8b"),
+             ("video_reader_resize", "item 8b"))
     if api == "ops":
-        names = (("decoders.Video", "item 8"), ("readers.Video", "item 8"),
-                 ("OpticalFlow", "item 8"), ("experimental.inputs.Video", "item 8"),
-                 ("readers.VideoResize", "item 8"))
+        names = (("OpticalFlow", "item 8b"), ("readers.VideoResize", "item 8b"),
+                 ("VideoReaderResize", "item 8b"))
     for path, item in names:
         obj = mod
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md \\(Queue 1, {item}\\)"):
@@ -473,7 +472,8 @@ RESOLVING = ["FileReader", "COCOReader", "CaffeReader", "Caffe2Reader", "MXNetRe
              "experimental.decoders.ImageCrop", "experimental.decoders.ImageRandomCrop",
              "experimental.decoders.ImageSlice", "experimental.Inflate",
              "experimental.readers.Fits", "experimental.PeekImageShape", "reductions.RMS",
-             "Clahe", "Filter", "Debayer", "AudioResample"]
+             "Clahe", "Filter", "Debayer", "AudioResample", "VideoReader",
+             "experimental.readers.Video"]
 
 
 def test_legacy_names_register_where_the_target_runs():
@@ -489,7 +489,7 @@ def test_legacy_names_register_where_the_target_runs():
         assert {d for (n, d) in _schema._impl_registry if n == alias} == devices, alias
         assert all(_schema.has_operator_impl(alias, d) for d in devices)
     assert _schema.has_operator_impl("Equalize", "cpu")  # registered later, in item 5h
-    assert _schema.TryGetSchema("VideoReader") is None
+    assert _schema.GetSchema("VideoReader") is _schema.GetSchema("readers.Video")  # item 8a
     assert sorted(parity._ALIAS_MISS) == sorted(set(parity._LEGACY) - set(RESOLVING))
 
 
@@ -524,8 +524,8 @@ def test_legacy_names_run_as_their_targets():
 def test_legacy_name_on_a_device_the_port_lacks_raises():
     """Equalize has both placements since item 5h, and its gpu path takes
     uniform sequences since item 5h.7; on a ragged batch of sequences, where
-    dali_tpu's gpu op fails, it raises naming that fault. The video names
-    (item 8) still raise."""
+    dali_tpu's gpu op fails, it raises naming that fault. The video names of
+    item 8b still raise."""
     seqs = [np.zeros((2, 4 + i, 4, 3), np.uint8) for i in range(2)]
 
     @dali_tpu_torch.pipeline_def(batch_size=2, num_threads=1, device="cpu")
@@ -540,10 +540,10 @@ def test_legacy_name_on_a_device_the_port_lacks_raises():
             pipe.run()
     finally:
         pipe.shutdown()
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 8"):
-        dali_tpu_torch.fn.video_reader
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 8"):
-        dali_tpu_torch.ops.VideoReader
+    with pytest.raises(NotImplementedError, match=r"Queue 1, item 8b"):
+        dali_tpu_torch.fn.video_reader_resize
+    with pytest.raises(NotImplementedError, match=r"Queue 1, item 8b"):
+        dali_tpu_torch.ops.VideoReaderResize
 
 
 def test_schema_lookups_and_top_level_names():

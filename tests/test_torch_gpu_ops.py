@@ -148,13 +148,10 @@ def test_registry_lacks_only_audio_resample_and_the_renamed_jax_function_on_gpu(
                and impl.__module__.startswith("dali_tpu.")}
     # AudioResample came with item 4: on the gpu only the renamed _JaxFunction is left
     assert {n for n, d in missing if d == "gpu"} == {"_JaxFunction"}
-    assert {n for n, d in missing if d == "mixed"} == {
-        "decoders.Video", "experimental.decoders.Video", "experimental.inputs.Video",
-        "readers.Video", "readers.VideoResize", "VideoReaderResize"}
+    # item 8a ported the MP4 / MPEG-4 Part 2 readers and decoders; item 8b is left
+    assert {n for n, d in missing if d == "mixed"} == {"readers.VideoResize", "VideoReaderResize"}
     cpu = {n for n, d in missing if d == "cpu"}
-    # items 4 and 5h: every cpu placement but video's (item 8)
-    assert cpu == {"decoders.Video", "experimental.decoders.Video", "experimental.inputs.Video",
-                   "readers.Video", "readers.VideoResize", "VideoReaderResize", "OpticalFlow"}
+    assert cpu == {"readers.VideoResize", "VideoReaderResize", "OpticalFlow"}
     for name in ITEM_5G:
         assert _schema.has_operator_impl(name, "gpu"), name
 

@@ -339,7 +339,7 @@ def test_eager_decoders_do_what_dali_tpu_does():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ndd.optical_flow
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ndd.readers.video
+            ndd.readers.video_resize
     with ref_ndd.EvalContext():
         jpegs, _ = _read(ref_ndd)
         with pytest.raises(TypeError, match="hybrid_device_decode"):

@@ -158,6 +158,8 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.backend.readers3\n"
         "import dali_tpu_torch.plugin.distributed, dali_tpu_torch.tools.multiprocess_test\n"
         "import dali_tpu_torch.tools.dryrun_multidevice, dali_tpu_torch.tools.bench_ddp\n"
+        "import dali_tpu_torch.backend.video, dali_tpu_torch.tools.bench_video\n"
+        "import dali_tpu_torch.testdata.make_video_corpus\n"
         "import torch.distributed.tensor, torch.distributed.device_mesh\n"
         "from dali_tpu_torch.tools.bench_audio_codecs import check_fixtures\n"
         "check_fixtures()\n"
@@ -283,7 +285,7 @@ def test_imagenet_checkpoint_from_dali_tpu_resumes_in_port():
 
 def test_unported_names_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dali_tpu_torch.fn.decoders.video
+        dali_tpu_torch.fn.readers.video_resize
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dali_tpu_torch.fn.optical_flow
     # a Radiance HDR header: TIFF, WebP and PNM decode since items 1d-1f

@@ -1,0 +1,437 @@
+"""Writes ``reference.npz`` beside the MP4 / MPEG-4 Part 2 fixtures of
+dali_tpu_torch's video decode (``dali_tpu_torch/testdata/video``):
+dali_tpu's FFmpeg 5.1 decode (``dali_tpu.native.VideoFile``) of every
+fixture. For the small clips every frame whole, under ``<name>:rgb``,
+``<name>:y``, ``<name>:u`` and ``<name>:v``; for every clip (the 320x240
+corpus under ``corpus/<class>/<clip>``) a SHA-256 of each frame's RGB bytes
+and of its Y, U and V bytes (``<name>:rgb_sha``, ``<name>:yuv_sha``, one
+row of 32 bytes a frame) and ``<name>:info`` (width, height, frames, fps).
+The card's machine has no FFmpeg, so ``chip_smoke.py`` holds the port
+against these there; ``tests/test_torch_mpeg4.py`` holds them against the
+live reference.
+
+It also holds ``FFmpegTools``, a small C helper compiled at run time
+against this machine's libavformat and libavcodec (as
+``make_audio_codecs.py`` compiles its encoder): it decodes a file with
+chosen decoder options and CPU flags (``decode``), and encodes planar
+4:2:0 frames with FFmpeg's ``mpeg4`` encoder under chosen options
+(``encode``: 4MV, the MPEG quantiser, resync markers, B-VOPs, quarter-pel,
+data partitioning...). ``--probe-idct`` decodes the fixtures with the
+default options, with ``idct=simple``, ``int`` and ``xvid``, and with every
+SIMD path switched off, and prints which of them equal the default.
+
+It lives outside the port's package because it imports dali_tpu. Run it on
+a machine where dali_tpu's native library has FFmpeg, from the repo root,
+after ``dali_tpu_torch/testdata/make_video_corpus.py`` wrote the clips:
+
+    python tests/write_video_reference.py [fixture_dir]
+    python tests/write_video_reference.py --probe-idct [fixture_dir]
+"""
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+FIXTURES = os.path.join(ROOT, "dali_tpu_torch", "testdata", "video")
+# the clips stored whole (the others by hash)
+WHOLE = ("flat_48x32", "pan_64x48")
+
+_HELPER_C = r"""
+#include <libavcodec/avcodec.h>
+#include <libavformat/avformat.h>
+#include <libavutil/cpu.h>
+#include <libavutil/opt.h>
+#include <string.h>
+
+/* Decodes every frame of path's video stream as planar 4:2:0 into out.
+   opts: "key=val:key=val" decoder options; cpu >= 0 forces the CPU flags.
+   info: width, height, idct_algo, then one picture type a frame.
+   Returns the frame count, or < 0. */
+int decode_all(const char* path, const char* opts, int cpu, unsigned char* out, long cap,
+               int* info, int max_frames) {
+  av_force_cpu_flags(cpu >= 0 ? cpu : -1);
+  AVFormatContext* fmt = NULL;
+  if (avformat_open_input(&fmt, path, NULL, NULL) < 0) return -1;
+  if (avformat_find_stream_info(fmt, NULL) < 0) return -2;
+  const AVCodec* dec = NULL;
+  int si = av_find_best_stream(fmt, AVMEDIA_TYPE_VIDEO, -1, -1, &dec, 0);
+  if (si < 0) return -3;
+  AVCodecContext* c = avcodec_alloc_context3(dec);
+  avcodec_parameters_to_context(c, fmt->streams[si]->codecpar);
+  AVDictionary* d = NULL;
+  if (opts && *opts) av_dict_parse_string(&d, opts, "=", ":", 0);
+  if (avcodec_open2(c, dec, &d) < 0) return -4;
+  av_dict_free(&d);
+  AVPacket* pkt = av_packet_alloc();
+  AVFrame* f = av_frame_alloc();
+  long pos = 0;
+  int n = 0, eof = 0;
+  while (1) {
+    int rc = avcodec_receive_frame(c, f);
+    if (rc == 0) {
+      int w = f->width, h = f->height, cw = (w + 1) / 2, ch = (h + 1) / 2;
+      if (pos + (long)w * h + 2L * cw * ch > cap || n >= max_frames) return -5;
+      for (int y = 0; y < h; y++, pos += w) memcpy(out + pos, f->data[0] + (long)y * f->linesize[0], w);
+      for (int p = 1; p < 3; p++)
+        for (int y = 0; y < ch; y++, pos += cw) memcpy(out + pos, f->data[p] + (long)y * f->linesize[p], cw);
+      info[0] = w;
+      info[1] = h;
+      info[3 + n] = f->pict_type;
+      n++;
+      continue;
+    }
+    if (rc == AVERROR_EOF || eof) break;
+    while (1) {
+      if (av_read_frame(fmt, pkt) < 0) {
+        avcodec_send_packet(c, NULL);
+        eof = 1;
+        break;
+      }
+      if (pkt->stream_index == si) {
+        avcodec_send_packet(c, pkt);
+        av_packet_unref(pkt);
+        break;
+      }
+      av_packet_unref(pkt);
+    }
+  }
+  info[2] = c->idct_algo;
+  av_frame_free(&f);
+  av_packet_free(&pkt);
+  avcodec_free_context(&c);
+  avformat_close_input(&fmt);
+  av_force_cpu_flags(-1);
+  return n;
+}
+
+/* Encodes n planar 4:2:0 frames with FFmpeg's mpeg4 encoder into a file of
+   the muxer fmtname (GOP 12), with "key=val:..." encoder options. Without
+   set_duration the packets carry none: the MP4 muxer then gives the last
+   sample duration 0 and ends the edit list before it. */
+int encode_yuv(const unsigned char* yuv, int n, int w, int h, int fps, const char* path,
+               const char* fmtname, const char* codec_opts, int set_duration) {
+  AVFormatContext* fmt = NULL;
+  if (avformat_alloc_output_context2(&fmt, NULL, fmtname, path) < 0) return -1;
+  const AVCodec* codec = avcodec_find_encoder(AV_CODEC_ID_MPEG4);
+  AVStream* st = avformat_new_stream(fmt, NULL);
+  AVCodecContext* c = avcodec_alloc_context3(codec);
+  c->width = w;
+  c->height = h;
+  c->pix_fmt = AV_PIX_FMT_YUV420P;
+  c->time_base = (AVRational){1, fps};
+  c->framerate = (AVRational){fps, 1};
+  c->gop_size = 12;
+  if (fmt->oformat->flags & AVFMT_GLOBALHEADER) c->flags |= AV_CODEC_FLAG_GLOBAL_HEADER;
+  AVDictionary* d = NULL;
+  if (codec_opts && *codec_opts) av_dict_parse_string(&d, codec_opts, "=", ":", 0);
+  int rc = avcodec_open2(c, codec, &d);
+  av_dict_free(&d);
+  if (rc < 0) return -2;
+  avcodec_parameters_from_context(st->codecpar, c);
+  st->time_base = c->time_base;
+  if (!(fmt->oformat->flags & AVFMT_NOFILE) && avio_open(&fmt->pb, path, AVIO_FLAG_WRITE) < 0)
+    return -3;
+  if (avformat_write_header(fmt, NULL) < 0) return -4;
+  AVFrame* f = av_frame_alloc();
+  f->width = w;
+  f->height = h;
+  f->format = AV_PIX_FMT_YUV420P;
+  av_frame_get_buffer(f, 0);
+  AVPacket* pkt = av_packet_alloc();
+  int cw = (w + 1) / 2, ch = (h + 1) / 2;
+  long fs = (long)w * h + 2L * cw * ch;
+  for (int i = 0; i <= n; i++) {
+    if (i < n) {
+      av_frame_make_writable(f);
+      const unsigned char* s = yuv + i * fs;
+      for (int y = 0; y < h; y++) memcpy(f->data[0] + y * f->linesize[0], s + y * w, w);
+      for (int y = 0; y < ch; y++) memcpy(f->data[1] + y * f->linesize[1], s + (long)w * h + y * cw, cw);
+      for (int y = 0; y < ch; y++)
+        memcpy(f->data[2] + y * f->linesize[2], s + (long)w * h + (long)cw * ch + y * cw, cw);
+      f->pts = i;
+      rc = avcodec_send_frame(c, f);
+    } else {
+      rc = avcodec_send_frame(c, NULL);
+    }
+    if (rc < 0) return -5;
+    while (avcodec_receive_packet(c, pkt) == 0) {
+      if (set_duration) pkt->duration = 1;
+      av_packet_rescale_ts(pkt, c->time_base, st->time_base);
+      pkt->stream_index = 0;
+      av_interleaved_write_frame(fmt, pkt);
+    }
+  }
+  av_write_trailer(fmt);
+  if (!(fmt->oformat->flags & AVFMT_NOFILE)) avio_closep(&fmt->pb);
+  av_frame_free(&f);
+  av_packet_free(&pkt);
+  avcodec_free_context(&c);
+  avformat_free_context(fmt);
+  return 0;
+}
+"""
+
+
+class FFmpegTools:
+    """FFmpeg's mpeg4 decoder and encoder through the compiled helper."""
+
+    def __init__(self):
+        self._dir = tempfile.mkdtemp(prefix="video_ffmpeg_")
+        src = os.path.join(self._dir, "helper.c")
+        so = os.path.join(self._dir, "helper.so")
+        with open(src, "w") as f:
+            f.write(_HELPER_C)
+        subprocess.run(["gcc", "-O2", "-shared", "-fPIC", "-o", so, src,
+                        "-I/usr/include/x86_64-linux-gnu", "-lavformat", "-lavcodec", "-lavutil"],
+                       check=True, capture_output=True)
+        self._lib = ctypes.CDLL(so)
+        self._lib.decode_all.restype = ctypes.c_int
+        self._lib.decode_all.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,
+                                         ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
+                                         ctypes.c_int]
+        self._lib.encode_yuv.restype = ctypes.c_int
+        self._lib.encode_yuv.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_char_p, ctypes.c_char_p,
+                                         ctypes.c_char_p, ctypes.c_int]
+
+    def decode(self, path, opts="", cpu=-1, max_frames=2000):
+        """(frames [N, w*h + 2*ceil(w/2)*ceil(h/2)] uint8, idct_algo,
+        picture types "IPP...")."""
+        cap = 1 << 27
+        out = np.empty(cap, np.uint8)
+        info = np.zeros(3 + max_frames, np.int32)
+        n = self._lib.decode_all(str(path).encode(), opts.encode(), cpu, out.ctypes.data, cap,
+                                 info.ctypes.data, max_frames)
+        if n < 0:
+            raise RuntimeError(f"FFmpeg decode of {path} failed: {n}")
+        w, h = int(info[0]), int(info[1])
+        fs = w * h + 2 * ((w + 1) // 2) * ((h + 1) // 2)
+        return (out[: n * fs].reshape(n, fs).copy(), int(info[2]),
+                "".join(" IPBS"[t] for t in info[3: 3 + n]))
+
+    def encode(self, path, yuv_frames, w, h, fps=25, opts="", fmt="mp4", durations=True):
+        """Writes planar 4:2:0 frames (rows of w*h + 2*ceil(w/2)*ceil(h/2)
+        bytes) with the mpeg4 encoder under ``opts``; ``durations=False``
+        leaves the packets' durations unset."""
+        yuv = np.ascontiguousarray(yuv_frames, np.uint8)
+        rc = self._lib.encode_yuv(yuv.ctypes.data, len(yuv), w, h, fps, str(path).encode(),
+                                  fmt.encode(), opts.encode(), int(durations))
+        if rc != 0:
+            raise RuntimeError(f"FFmpeg encode ({opts!r}) failed: {rc}")
+        return str(path)
+
+
+def with_full_range(data: bytes) -> bytes:
+    """An mp4v file of cv2's with its VO header rewritten to say
+    video_signal_type 1, video_range 1 (full range; FFmpeg's encoder never
+    writes it), the boxes on the way to the ``esds`` and its three
+    descriptors grown by the byte the header gains. FFmpeg then opens the
+    stream as yuvj420p."""
+    import struct
+
+    data = bytearray(data)
+    vo = data.find(b"\x00\x00\x01\xb5")
+    if data[vo + 4: vo + 6] != b"\x89\x13":
+        raise ValueError("not the VO header cv2's mp4v writes")
+    # is_visual_object_identifier 1, verid 1, priority 1, type 1 (video);
+    # video_signal_type 1, video_format 5, video_range 1, no colour
+    # description; stuffing 0 11111
+    data[vo + 4: vo + 6] = bytes([0b10001001, 0b00011101, 0b10011111])
+
+    def grow(pos, end):
+        while pos + 8 <= end:
+            size = struct.unpack(">I", data[pos: pos + 4])[0]
+            typ = bytes(data[pos + 4: pos + 8])
+            if pos < vo < pos + size:
+                data[pos: pos + 4] = struct.pack(">I", size + 1)
+                if typ == b"esds":
+                    return pos + 8
+                body = pos + 8 + {b"stsd": 8, b"mp4v": 78}.get(typ, 0)
+                return grow(body, pos + size)
+            pos += size
+        raise ValueError("VO header outside the boxes")
+
+    p = grow(0, len(data)) + 4
+    for tag, skip in ((3, 3), (4, 13), (5, 0)):
+        if data[p] != tag or data[p + 1: p + 4] != b"\x80\x80\x80":
+            raise ValueError("unexpected esds layout")
+        data[p + 4] += 1
+        p += 5 + skip
+    return bytes(data)
+
+
+def _top_boxes(data):
+    """(type, offset, size) of each top-level box."""
+    import struct
+
+    out, pos = [], 0
+    while pos + 8 <= len(data):
+        size, typ = struct.unpack(">I4s", data[pos: pos + 8])
+        out.append((typ, pos, size))
+        pos += size
+    return out
+
+
+def _find_in_moov(data, typ):
+    moov = [o for t, o, _ in _top_boxes(data) if t == b"moov"][0]
+    return data.find(typ, moov)
+
+
+def samples(data: bytes):
+    """The sample payloads of a one-track MP4 of cv2's."""
+    import struct
+
+    i = _find_in_moov(data, b"stsz")
+    n = struct.unpack(">I", data[i + 12: i + 16])[0]
+    sizes = struct.unpack(f">{n}I", data[i + 16: i + 16 + 4 * n])
+    j = _find_in_moov(data, b"stco")
+    nc = struct.unpack(">I", data[j + 8: j + 12])[0]
+    chunks = struct.unpack(f">{nc}I", data[j + 12: j + 12 + 4 * nc])
+    out = []
+    for c, per in enumerate(_per_chunk(data, nc)):
+        off = chunks[c]
+        for _ in range(per):
+            if len(out) == n:
+                break
+            out.append(bytes(data[off: off + sizes[len(out)]]))
+            off += sizes[len(out) - 1]
+    return out
+
+
+def _per_chunk(data, nc):
+    import struct
+
+    k = _find_in_moov(data, b"stsc")
+    ne = struct.unpack(">I", data[k + 8: k + 12])[0]
+    ents = [struct.unpack(">3I", data[k + 12 + 12 * e: k + 24 + 12 * e]) for e in range(ne)]
+    return [[per for first, per, _ in ents if first <= c + 1][-1] for c in range(nc)]
+
+
+def with_samples(data: bytes, payloads) -> bytes:
+    """A one-track MP4 of cv2's (``mdat`` before ``moov``) with its samples
+    replaced by ``payloads``, as many as it had: ``mdat``, the sample sizes
+    and the chunk offsets rewritten, the rest of the file kept."""
+    import struct
+
+    data = bytearray(data)
+    (m0, msz), = [(o, sz) for t, o, sz in _top_boxes(data) if t == b"mdat"]
+    i = _find_in_moov(data, b"stsz")
+    n = struct.unpack(">I", data[i + 12: i + 16])[0]
+    if len(payloads) != n or [t for t, _, _ in _top_boxes(data)].index(b"mdat") > \
+            [t for t, _, _ in _top_boxes(data)].index(b"moov"):
+        raise ValueError("with_samples rewrites a file of cv2's layout, sample for sample")
+    data[i + 16: i + 16 + 4 * n] = struct.pack(f">{n}I", *map(len, payloads))
+    j = _find_in_moov(data, b"stco")
+    nc = struct.unpack(">I", data[j + 8: j + 12])[0]
+    offs, s, pos = [], 0, m0 + 8
+    for per in _per_chunk(data, nc):
+        offs.append(pos)
+        pos += sum(len(p) for p in payloads[s: s + per])
+        s += per
+    data[j + 12: j + 12 + 4 * nc] = struct.pack(f">{nc}I", *offs)
+    body = b"".join(payloads)
+    return (bytes(data[:m0]) + struct.pack(">I", 8 + len(body)) + b"mdat" + body
+            + bytes(data[m0 + msz:]))
+
+
+def stream_headers(data: bytes) -> bytes:
+    """The VOS, VO and VOL headers of an mp4v file (its ``esds``
+    DecoderSpecificInfo)."""
+    p = _find_in_moov(data, b"esds") + 8
+    while True:
+        tag, p = data[p], p + 1
+        length = 0
+        while True:
+            c, p = data[p], p + 1
+            length = (length << 7) | (c & 0x7F)
+            if not c & 0x80:
+                break
+        if tag == 5:
+            return bytes(data[p: p + length])
+        p += {3: 3, 4: 13}.get(tag, length)
+
+
+def clip_names(fixture_dir=FIXTURES):
+    names = sorted(f[:-4] for f in os.listdir(fixture_dir) if f.endswith(".mp4"))
+    corpus = os.path.join(fixture_dir, "corpus")
+    if os.path.isdir(corpus):
+        names += [f"corpus/{c}/{f[:-4]}" for c in sorted(os.listdir(corpus))
+                  for f in sorted(os.listdir(os.path.join(corpus, c))) if f.endswith(".mp4")]
+    return names
+
+
+def frame_hashes(frames):
+    """[N, 32] uint8: the SHA-256 of each frame's bytes."""
+    return np.stack([np.frombuffer(hashlib.sha256(np.ascontiguousarray(f).tobytes()).digest(),
+                                   np.uint8) for f in frames])
+
+
+def yuv_hashes(y, u, v):
+    return np.stack([np.frombuffer(hashlib.sha256(
+        np.ascontiguousarray(y[i]).tobytes() + np.ascontiguousarray(u[i]).tobytes()
+        + np.ascontiguousarray(v[i]).tobytes()).digest(), np.uint8) for i in range(len(y))])
+
+
+def reference_decodes(fixture_dir=FIXTURES):
+    """The arrays of ``reference.npz`` (see the module docstring)."""
+    import dali_tpu.native as reference
+
+    out = {}
+    for name in clip_names(fixture_dir):
+        vf = reference.VideoFile(os.path.join(fixture_dir, name + ".mp4"))
+        n = vf.num_frames
+        rgb = vf.read(0, n, pad=False)
+        vf.close()
+        vf = reference.VideoFile(os.path.join(fixture_dir, name + ".mp4"))
+        y, u, v, got = vf.read_yuv(0, n, pad=False)
+        vf.close()
+        y, u, v = y[:got], u[:got], v[:got]
+        if got != len(rgb):
+            raise RuntimeError(f"{name}: {len(rgb)} RGB frames, {got} YUV frames")
+        out[name + ":info"] = np.array([vf.width, vf.height, vf.num_frames, vf.fps], np.float64)
+        out[name + ":rgb_sha"] = frame_hashes(rgb)
+        out[name + ":yuv_sha"] = yuv_hashes(y, u, v)
+        if name in WHOLE:
+            out[name + ":rgb"] = rgb
+            out[name + ":y"], out[name + ":u"], out[name + ":v"] = y, u, v
+    return out
+
+
+def probe_idct(fixture_dir=FIXTURES):
+    """Which IDCT FFmpeg's mpeg4 decoder takes by default: each fixture
+    decoded with the default options and with the candidates, compared."""
+    tools = FFmpegTools()
+    for name in clip_names(fixture_dir)[:6]:
+        path = os.path.join(fixture_dir, name + ".mp4")
+        ref, algo, types = tools.decode(path)
+        print(f"{name}: default idct_algo {algo}, {len(ref)} frames {types}")
+        for opts, cpu in (("idct=simple", -1), ("idct=int", -1), ("idct=xvid", -1), ("", 0)):
+            got, algo, _ = tools.decode(path, opts, cpu)
+            d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+            label = opts or "SIMD off"
+            print(f"  {label:12s} idct_algo {algo}: " + (
+                "equal" if not d.any() else
+                f"max {d.max()}, {np.mean(d > 0):.4f} of samples differ, "
+                f"per frame max {d.reshape(len(d), -1).max(1)[:12].tolist()}"))
+
+
+def main(argv):
+    args = [a for a in argv[1:] if not a.startswith("--")]
+    fixture_dir = args[0] if args else FIXTURES
+    if "--probe-idct" in argv:
+        probe_idct(fixture_dir)
+        return
+    np.savez_compressed(os.path.join(fixture_dir, "reference.npz"),
+                        **reference_decodes(fixture_dir))
+
+
+if __name__ == "__main__":
+    main(sys.argv)
