@@ -415,6 +415,18 @@ on failure:
    decode rate of the corpus on one thread and on the pool; and the recipe
    as written (cpu reader, then ``.gpu()``) against the mixed reader for 2
    batches: the uint8 frames equal on the card.
+41. rn50_arith_train (``tools/bench_arith.py``): rn50_train's recipe
+   unchanged over ``testdata/arith``, the 32-file corpus re-coded
+   losslessly with arithmetic coding (SOF9 and SOF10 in turn; the host's
+   full read ``csrc/host/jpeg_arith.cc`` decodes them): batch 256, 3 warm-up
+   + 10 timed batches, each checked; images/s beside rn50_train's, host ms
+   by schema, the device wait, device ms by stage of one batch alone, peak
+   memory, the exact CMN launch count; the CMN kernel held against its
+   plain version on the path's own batch (max abs diff 0) and timed on it;
+   the twins against the Huffman originals with the same seeds and file
+   order, 2 batches of 256: uint8 crops, FLOAT CHW images and labels equal
+   bit for bit on the card; the host coefficient read of each corpus on one
+   thread; then batch 16 on the card against the CPU.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -462,6 +474,7 @@ HOST_AUGMENT_TIMED = 10
 SEQ_TIMED, VOLUME_AUGMENT_TIMED = 10, 10
 PLUGIN_TIMED = 10
 VIDEO_TIMED = 10
+ARITH_TIMED = 10
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -1916,6 +1929,46 @@ def video_phase(card, rn50_ips):
     return r["cmn_launches"], c
 
 
+def arith_phase(card, rn50_ips):
+    """Phase 41: rn50_arith_train, the twins against the Huffman corpus,
+    then batch 16 against the CPU; returns its CMN launches and the
+    kernel's readings on the path's batch."""
+    from dali_tpu_torch.tools import bench_arith as ba
+
+    t0 = time.perf_counter()
+    form = "rn50_arith_train"
+    r = ba.measure(form, BATCH, WARMUP, ARITH_TIMED)
+    c = r["cmn"]
+    print(f"{form} batch {BATCH}: {r['images_per_s']:.1f} images/s over {ARITH_TIMED} batches, "
+          f"{100 * r['images_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} in this "
+          f"run; host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} host cores);"
+          f" device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; cmn launches "
+          f"{r['cmn_launches']} ({card})")
+    print(f"{form} host ms/batch by schema: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in r["host_ms_by_schema"].items() if v >= 0.05) + f" ({card})")
+    print(f"{form} stage ms of one batch alone: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in r["stage_ms"].items())
+          + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    require(c["max_abs_err"] == 0, f"{form}: CMN kernel {c['max_abs_err']} from its plain version")
+    print(f"{form} CMN kernel on the path's own batch {c['shape_in']} {c['dtype_in']} -> "
+          f"{c['shape_out']} float32: max abs diff vs plain {c['max_abs_err']:.3e}; kernel "
+          f"alone {c['ms']:.4f} ms (cold L2), wrapper {c['wrapper_ms']:.4f} ms, plain "
+          f"{c['plain_ms']:.4f} ms; {c['bytes']} bytes, bound {c['bound_ms']:.4f} ms, "
+          f"{100 * c['bound_share']:.1f}% of it ({card})")
+    t = ba.check_twins(BATCH)
+    print(f"{form} twins: {t['batches']} batches of {t['batch']}: {t['crops']} uint8 crops and "
+          f"{t['float_values']} FLOAT CHW values equal to the Huffman corpus's bit for bit on "
+          f"the card ({card})")
+    rd = ba.read_ms()
+    print("host coefficient read on one thread: " + ", ".join(
+        f"{k} {v['ms_per_image']:.2f} ms/image ({v['bytes']} bytes over {v['images']} files)"
+        for k, v in rd.items()) + f" ({card})")
+    reference_phase(None, make=lambda b, d: ba.make_pipe(ba.write_file_list(form, b), b, d),
+                    what=f" ({form})", batch=16)
+    print(f"{form} phase: {time.perf_counter() - t0:.1f} s")
+    return r["cmn_launches"], c
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1981,6 +2034,7 @@ def main():
     launches["rn50_ddp_2rank"] = ddp_phase(card, rn50_ips)
     launches["dryrun_multidevice"], path_cmn["dryrun_multidevice"] = dryrun_phase(card)
     launches["video_clip_train"], path_cmn["video_clip_train"] = video_phase(card, rn50_ips)
+    launches["rn50_arith_train"], path_cmn["rn50_arith_train"] = arith_phase(card, rn50_ips)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

@@ -27,7 +27,7 @@ from ..batch import DeviceBatch, HostBatch
 from ..kernels import signal as sig
 from ..kernels.cmn import saturating_cast
 from ..types import DALIDataType, cast_host, to_torch_type
-from .base import Operator
+from .base import BF16_WIDEN, Operator
 
 # ====================================== decoders.Audio ============================================
 
@@ -311,6 +311,8 @@ DALI_SCHEMA("PreemphasisFilter").DocStr(
 
 @register_operator("PreemphasisFilter", "cpu")
 class PreemphasisCPU(Operator):
+    reads_bfloat16 = BF16_WIDEN
+
     def run_sample(self, ctx, idx, x):
         coeff = float(np.asarray(ctx.arg(self, "preemph_coeff", idx, 0.97)))
         return sig.preemphasis(_as_batch(x), coeff, self.spec.GetArgument("border"))[0].numpy()
@@ -363,8 +365,10 @@ class _SpecCommon(Operator):
 
 @register_operator("Spectrogram", "cpu")
 class SpectrogramCPU(_SpecCommon):
+    reads_bfloat16 = BF16_WIDEN
+
     def run_sample(self, ctx, idx, x):
-        return sig.spectrogram(_as_batch(x.reshape(-1)), **self._params())[0].numpy()
+        return sig.spectrogram_host(x.reshape(-1), **self._params())
 
 
 @register_operator("Spectrogram", "gpu")
@@ -498,6 +502,8 @@ class _MFCCCommon(Operator):
 
 @register_operator("MFCC", "cpu")
 class MFCCCPU(_MFCCCommon):
+    reads_bfloat16 = BF16_WIDEN
+
     def run_sample(self, ctx, idx, mel):
         axis = self.spec.GetArgument("axis")
         x = np.moveaxis(mel.astype(np.float32), axis, 0)
@@ -546,11 +552,13 @@ DALI_SCHEMA("ToDecibels").DocStr(
 
 @register_operator("ToDecibels", "cpu")
 class ToDecibelsCPU(Operator):
+    reads_bfloat16 = BF16_WIDEN
+
     def run_sample(self, ctx, idx, x):
         ref = self.spec.GetArgument("reference")
-        return sig.to_decibels(torch.from_numpy(x.astype(np.float32)),
-                               self.spec.GetArgument("multiplier"), None if ref == 0.0 else ref,
-                               self.spec.GetArgument("cutoff_db")).numpy()
+        return sig.to_decibels_host(x.astype(np.float32), self.spec.GetArgument("multiplier"),
+                                    None if ref == 0.0 else ref,
+                                    self.spec.GetArgument("cutoff_db"))
 
 
 @register_operator("ToDecibels", "gpu")
@@ -583,6 +591,8 @@ DALI_SCHEMA("NonsilentRegion").DocStr(
 
 @register_operator("NonsilentRegion", "cpu")
 class NonsilentRegionCPU(Operator):
+    reads_bfloat16 = BF16_WIDEN
+
     def run_sample(self, ctx, idx, x):
         x = x.reshape(-1).astype(np.float32)
         win = min(self.spec.GetArgument("window_length"), max(len(x), 1))
@@ -633,6 +643,8 @@ class _AudioResampleBase(Operator):
 
 @register_operator("experimental.AudioResample", "cpu")
 class AudioResampleCPU(_AudioResampleBase):
+    reads_bfloat16 = BF16_WIDEN
+
     def run_sample(self, ctx, idx, x):
         out = _resample_audio(x.astype(np.float32), *self._rates(ctx, idx))
         dt = self.spec.GetArgument("dtype", None)

@@ -161,6 +161,13 @@ def raise_unserved(spec: OpSpec, names):
                 "device by dali_tpu_torch; see ROADMAP.md (Queue 3)")
 
 
+# Routes of a bfloat16 host input (``Operator.reads_bfloat16``): the op moves
+# bits (it runs on the int16 bits); the reference widens to float32 before any
+# arithmetic (outputs as computed); or it widens and its float32 outputs
+# follow the input's type (rounded back to bfloat16).
+BF16_BITS, BF16_WIDEN, BF16_ROUND = "bits", "widen", "round"
+
+
 class Operator:
     schema_name: str = None
     device: str = None
@@ -171,9 +178,13 @@ class Operator:
     # host edge of one is not stacked and copied to the device, so its
     # samples may differ in shape
     host_args: tuple = ()
-    # the host op takes bfloat16 inputs (torch.bfloat16 samples, which numpy
-    # cannot hold); the executor refuses them to any other
+    # how the host op reads a bfloat16 input (torch.bfloat16 samples, which
+    # numpy cannot hold): True (the op reads them), BF16_BITS, BF16_WIDEN or
+    # BF16_ROUND (``executor.bfloat16_route``); the executor refuses them to
+    # an op without a route, as dali_tpu does
     reads_bfloat16 = False
+    # BF16_ROUND: the outputs that follow the input's type (None: all)
+    bfloat16_outputs = None
 
     def __init__(self, spec: OpSpec, op_id: int):
         self.spec = spec

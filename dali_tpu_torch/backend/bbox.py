@@ -19,7 +19,7 @@ import numpy as np
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import HostBatch
-from .base import Operator
+from .base import BF16_WIDEN, Operator
 
 # ======================================== BbFlip ==================================================
 
@@ -52,6 +52,8 @@ def flip_boxes(boxes: np.ndarray, ltrb: bool, h: bool, v: bool) -> np.ndarray:
 
 @register_operator("BbFlip", "cpu")
 class BbFlipCPU(Operator):
+    reads_bfloat16 = BF16_WIDEN
+
     def run_sample(self, ctx, idx, boxes):
         h = bool(np.asarray(ctx.arg(self, "horizontal", idx, 1)))
         v = bool(np.asarray(ctx.arg(self, "vertical", idx, 0)))
@@ -165,6 +167,8 @@ def _labels_i32(labels):
 
 @register_operator("RandomBBoxCrop", "cpu")
 class RandomBBoxCrop(Operator):
+    reads_bfloat16 = BF16_WIDEN
+
     def __init__(self, spec, op_id):
         super().__init__(spec, op_id)
         if not spec.GetArgument("ltrb"):

@@ -10,7 +10,7 @@ import numpy as np
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import HostBatch
-from .base import Operator
+from .base import BF16_WIDEN, Operator
 from .decoders import sample_rrc_window
 
 # ====================================== RandomCropGenerator =======================================
@@ -27,6 +27,8 @@ DALI_SCHEMA("RandomCropGenerator").DocStr(
 
 @register_operator("RandomCropGenerator", "cpu")
 class RandomCropGenerator(Operator):
+    reads_bfloat16 = BF16_WIDEN
+
     def run_batch(self, ctx, inp: HostBatch):
         spec = self.spec
         anchors, shapes = [], []

@@ -20,7 +20,7 @@ import torch
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
 from ..types import BatchInfo, DALIDataType, SampleInfo, cast_host, to_numpy_type
-from .base import Operator
+from .base import BF16_BITS, Operator
 
 DALI_SCHEMA("_CopyToDevice").DocStr(
     "Host->device copy inserted by DataNode.gpu(): the executor stages its "
@@ -41,6 +41,8 @@ DALI_SCHEMA("Copy").DocStr("Copies the input.").NumInput(1).NumOutput(1).Devices
 
 @register_operator("Copy", "cpu")
 class CopyCPU(Operator):
+    reads_bfloat16 = BF16_BITS
+
     def run_sample(self, ctx, idx, x):
         return np.copy(x)
 

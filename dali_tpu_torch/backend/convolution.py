@@ -25,7 +25,7 @@ from ..batch import DeviceBatch
 from ..kernels.host_resample import saturate
 from ..kernels.pointwise import saturate_cast
 from ..types import to_numpy_type, to_torch_type
-from .base import Operator, SamplePool
+from .base import BF16_ROUND, BF16_WIDEN, Operator, SamplePool
 
 
 def gaussian_window(size: int, sigma: float):
@@ -169,6 +169,8 @@ class GaussianBlurGPU(Operator):
 
 @register_operator("GaussianBlur", "cpu")
 class GaussianBlurCPU(_HostConv):
+    reads_bfloat16 = BF16_ROUND
+
     def run_volume(self, ctx, idx, img):
         out = img
         for axis, (s, w) in enumerate(_blur_params(ctx, self, idx, 3)):
@@ -252,6 +254,7 @@ class LaplacianGPU(Operator):
 class LaplacianCPU(_HostConv):
     """The sum over the axes of the second derivative along it, smoothed
     along the others, times the scale; float32 unless ``dtype``."""
+    reads_bfloat16 = BF16_WIDEN
 
     def run_volume(self, ctx, idx, img):
         size = int(self.spec.GetArgument("window_size")[0])

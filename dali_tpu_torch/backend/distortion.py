@@ -31,7 +31,7 @@ from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch
 from ..kernels.host_resample import saturate as saturate_np
 from ..types import DALIInterpType
-from .base import Operator, SamplePool
+from .base import BF16_ROUND, Operator, SamplePool
 from .random import per_sample, saturate
 
 
@@ -111,6 +111,8 @@ class _DisplacementGPU(Operator):
 
 
 class _DisplacementCPU(SamplePool, Operator):
+    reads_bfloat16 = BF16_ROUND
+
     def _coords(self, ctx, idx, img):
         """Source coordinates (sx, sy), float32 [H, W] each."""
         raise NotImplementedError
@@ -260,6 +262,7 @@ class GridMaskGPU(Operator):
 class GridMaskCPU(SamplePool, Operator):
     """In float32 throughout, as the gpu op: a python float would promote the
     boundary compare to float64 and flip pixels on the tile edges."""
+    reads_bfloat16 = BF16_ROUND
 
     def run_sample(self, ctx, idx, img):
         tile, ratio, angle, sx, sy = (

@@ -19,7 +19,7 @@ import numpy as np
 from .. import native
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..kernels.host_resample import saturate
-from .base import Operator, SamplePool
+from .base import BF16_ROUND, Operator, SamplePool
 
 DALI_SCHEMA("experimental.Clahe").DocStr(
     "Contrast-limited adaptive histogram equalization on the luma channel."
@@ -45,6 +45,8 @@ DALI_SCHEMA("experimental.Debayer").DocStr(
 
 @register_operator("experimental.Clahe", "cpu")
 class ClaheCPU(SamplePool, Operator):
+    reads_bfloat16 = BF16_ROUND
+
     def run_sample(self, ctx, idx, img):
         g = self.spec.GetArgument
         f = img.astype(np.float32)

@@ -10,8 +10,9 @@ import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch
-from ..types import DALIDataType, cast_host, to_numpy_type, to_torch_type
-from .base import Operator
+from ..types import (DALIDataType, cast_host, from_numpy_type, is_bfloat16, to_numpy_type,
+                     to_torch_type)
+from .base import BF16_BITS, Operator
 
 DALI_SCHEMA("Cast").DocStr("Casts to another dtype.").NumInput(1).NumOutput(1).Devices(
     "cpu", "gpu").AddArg("dtype", ArgType.DATA_TYPE, "Target dtype.")
@@ -38,7 +39,11 @@ DALI_SCHEMA("CastLike").DocStr("Casts input 0 to the dtype of input 1.").NumInpu
 
 @register_operator("CastLike", "cpu")
 class CastLikeCPU(Operator):
+    reads_bfloat16 = True
+
     def run_sample(self, ctx, idx, x, like):
+        if is_bfloat16(x) or is_bfloat16(like):
+            return cast_host(x, from_numpy_type(like.dtype))
         return x.astype(like.dtype)
 
 
@@ -54,6 +59,8 @@ DALI_SCHEMA("Shapes").DocStr("Per-sample shapes.").NumInput(1).NumOutput(1).Devi
 
 @register_operator("Shapes", "cpu")
 class ShapesCPU(Operator):
+    reads_bfloat16 = BF16_BITS
+
     def run_sample(self, ctx, idx, x):
         return cast_host(np.array(x.shape), self.spec.GetArgument("dtype"))
 
@@ -113,6 +120,8 @@ def _resolve_shape(cur_shape, req):
 
 @register_operator("Reshape", "cpu")
 class ReshapeCPU(Operator):
+    reads_bfloat16 = BF16_BITS
+
     def run_sample(self, ctx, idx, x, *shape_in):
         if shape_in:
             shape = [int(v) for v in np.asarray(shape_in[0]).reshape(-1)]
@@ -332,6 +341,8 @@ def _squeeze_layout(spec, layout):
 
 @register_operator("Squeeze", "cpu")
 class SqueezeCPU(Operator):
+    reads_bfloat16 = BF16_BITS
+
     def run_batch(self, ctx, inp):
         self._in_layout = inp.layout or ""
         return super().run_batch(ctx, inp)

@@ -19,7 +19,7 @@ from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
 from ..types import (DALIDataType, DALIImageType, cast_host, contiguous_host, to_bfloat16,
                      to_numpy_type, to_torch_type)
-from .base import Operator
+from .base import BF16_BITS, BF16_ROUND, BF16_WIDEN, Operator
 
 # -- Slice (cpu; the gpu op is in generic_gpu.py) -----------------------------------------
 
@@ -75,6 +75,8 @@ def _slice_axes(spec, layout, ndim):
 
 @register_operator("Slice", "cpu")
 class SliceCPU(Operator):
+    reads_bfloat16 = BF16_ROUND
+
     def run_batch(self, ctx, *inputs):
         self._in_layout = inputs[0].layout if inputs else ""
         return super().run_batch(ctx, *inputs)
@@ -384,6 +386,8 @@ def _norm_axes(spec, ndim, layout=""):
 
 @register_operator("Normalize", "cpu")
 class NormalizeCPU(Operator):
+    reads_bfloat16 = BF16_WIDEN
+
     def run_batch(self, ctx, inp: HostBatch):
         spec = self.spec
         dt = spec.GetArgument("dtype")
@@ -467,6 +471,8 @@ DALI_SCHEMA("Cat").DocStr("Concatenates samples along an axis.").NumInput(1, 16)
 
 @register_operator("Cat", "cpu")
 class CatCPU(Operator):
+    reads_bfloat16 = BF16_BITS
+
     def run_batch(self, ctx, *inputs):
         # axis_name resolves against the first input's layout
         self._in_layout = inputs[0].layout if inputs else ""
@@ -581,6 +587,8 @@ def _stack_layout(spec, in_layout):
 
 @register_operator("Stack", "cpu")
 class StackCPU(Operator):
+    reads_bfloat16 = BF16_BITS
+
     def run_sample(self, ctx, idx, *inputs):
         return np.stack(inputs, axis=self.spec.GetArgument("axis"))
 
@@ -679,6 +687,7 @@ class _LUTCommon(Operator):
 
 @register_operator("LookupTable", "cpu")
 class LookupTableCPU(_LUTCommon):
+    reads_bfloat16 = BF16_WIDEN
     elementwise = True
 
     def run_sample(self, ctx, idx, x):
@@ -756,7 +765,10 @@ class _ValueOpCPU(Operator):
 for _nm, _fill, _like in (("Zeros", 0.0, False), ("Ones", 1.0, False), ("Full", None, False),
                           ("ZerosLike", 0.0, True), ("OnesLike", 1.0, True),
                           ("FullLike", None, True)):
-    register_operator(_nm, "cpu")(type(_nm + "CPU", (_ValueOpCPU,), {"fill": _fill, "like": _like}))
+    # a bfloat16 input: Zeros/Ones read nothing of it, the Like forms its shape
+    # and type (dali_tpu refuses it to Full and FullLike)
+    register_operator(_nm, "cpu")(type(_nm + "CPU", (_ValueOpCPU,), {
+        "fill": _fill, "like": _like, "reads_bfloat16": BF16_ROUND if _fill is not None else False}))
 
 
 # -- GetProperty (cpu) -------------------------------------------------------------------------

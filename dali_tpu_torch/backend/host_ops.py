@@ -29,7 +29,7 @@ from ..kernels import warp as warp_kernel
 from ..kernels.host_resample import saturate
 from ..kernels.pointwise import _rgb_to_yiq, _Y_WEIGHTS, color_space_matrix
 from ..types import DALIInterpType, to_numpy_type
-from .base import Operator, SamplePool, raise_unserved
+from .base import BF16_BITS, BF16_ROUND, Operator, SamplePool, raise_unserved
 from .color import _CS_NAMES
 from .generic import _transpose_layout
 from .warp import invert_affine
@@ -41,6 +41,7 @@ from .warp import invert_affine
 class FlipCPU(Operator):
     """HWC images; 4-D samples (DHWC volumes, FHWC sequences) flip W and H
     of each slice, ``depthwise`` the first axis."""
+    reads_bfloat16 = BF16_BITS
 
     def run_sample(self, ctx, idx, img):
         h = int(np.asarray(ctx.arg(self, "horizontal", idx, 1)))
@@ -163,6 +164,7 @@ class TransposeCPU(Operator):
 class PadCPU(Operator):
     """Every sample padded at the end of each padded axis to the batch's
     largest extent, raised to ``shape`` and rounded up to ``align``."""
+    reads_bfloat16 = BF16_ROUND
 
     def run_batch(self, ctx, inp: HostBatch):
         spec = self.spec
@@ -198,6 +200,7 @@ class PadCPU(Operator):
 class EraseCPU(Operator):
     """Regions (anchor, shape) over ``axes`` (default the first two) take
     ``fill_value``; bounds round half to even and clip to the sample."""
+    reads_bfloat16 = BF16_ROUND
 
     def run_batch(self, ctx, *inputs):
         self._in_layout = inputs[0].layout if inputs else ""
@@ -304,6 +307,7 @@ def _out_dtype(spec, in_dtype):
 class BrightnessContrastCPU(Operator):
     """out = brightness_shift * R + brightness * (center + contrast * (in -
     center)), R the output type's range, center half the input's."""
+    reads_bfloat16 = BF16_ROUND
 
     def run_sample(self, ctx, idx, img):
         def get(nm, d):
@@ -325,6 +329,7 @@ for _name in ("BrightnessContrast", "Brightness", "Contrast"):
 
 class HsvCPU(Operator):
     """Hue rotation, saturation and value through one YIQ matrix."""
+    reads_bfloat16 = BF16_ROUND
 
     def run_sample(self, ctx, idx, img):
         args = self.spec.schema.args
@@ -342,6 +347,7 @@ for _name in ("Hsv", "Hue", "Saturation"):
 class ColorTwistCPU(Operator):
     """The hue/saturation matrix, then brightness * (center + contrast *
     (x - center)) about half the output type's range."""
+    reads_bfloat16 = BF16_ROUND
 
     def run_sample(self, ctx, idx, img):
         def g(nm, d):

@@ -20,7 +20,7 @@ from ..kernels import resample as resample_kernel
 from ..kernels.host_resample import host_resample, host_resample_volume
 from ..types import (DALIDataType, DALIImageType, DALIInterpType, cast_host, contiguous_host,
                      to_torch_type)
-from .base import Operator, SamplePool, raise_unserved
+from .base import BF16_WIDEN, Operator, SamplePool, raise_unserved
 from .decoders import sample_rrc_window
 from .generic2 import _crop_round, _crop_round_torch
 
@@ -774,6 +774,7 @@ class CropMirrorNormalizeCPU(_CMNCommon):
     and DHWC volumes (``crop_d``, ``crop_pos_z``); every
     ``out_of_bounds_policy``; ``fill_values`` as output values; the cast is
     numpy's ``astype``."""
+    reads_bfloat16 = BF16_WIDEN
 
     unread_tensor_args = ("crop_h", "crop_w")
 

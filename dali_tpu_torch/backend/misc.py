@@ -19,7 +19,7 @@ import torch
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
 from ..kernels.host_resample import saturate
-from .base import Operator, raise_unserved
+from .base import BF16_WIDEN, Operator, raise_unserved
 
 # ====================================== PowerSpectrum ==============================================
 
@@ -32,6 +32,8 @@ DALI_SCHEMA("PowerSpectrum").DocStr("Power spectrum of a 1-D signal.").NumInput(
 
 @register_operator("PowerSpectrum", "cpu")
 class PowerSpectrumCPU(Operator):
+    reads_bfloat16 = BF16_WIDEN
+
     def run_sample(self, ctx, idx, x):
         axis = self.spec.GetArgument("axis")
         nfft = self.spec.GetArgument("nfft") or x.shape[axis]

@@ -17,7 +17,7 @@ import torch
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
 from ..types import DALIDataType, cast_host
-from .base import Operator
+from .base import BF16_ROUND, BF16_WIDEN, Operator
 
 
 def _random_schema(name, doc):
@@ -29,6 +29,8 @@ def _random_schema(name, doc):
 
 
 class _RandomBase(Operator):
+    reads_bfloat16 = BF16_WIDEN
+
     default_dtype = DALIDataType.FLOAT
 
     def run_batch(self, ctx, *inputs):
@@ -120,6 +122,8 @@ _random_schema(
 
 @register_operator("random.Choice", "cpu")
 class ChoiceCPU(Operator):
+    reads_bfloat16 = BF16_ROUND
+
     def run_batch(self, ctx, *inputs):
         n = len(inputs[0]) if inputs else ctx.batch_size
         rng = ctx.rng(self)
@@ -175,6 +179,8 @@ DALI_SCHEMA("noise.Gaussian").DocStr(
 
 @register_operator("noise.Gaussian", "cpu")
 class GaussianNoiseCPU(Operator):
+    reads_bfloat16 = BF16_ROUND
+
     def run_sample(self, ctx, idx, x):
         rng = ctx.rng(self, idx)
         noise = rng.normal(_scalar(ctx, self, "mean", idx, 0.0),

@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
-from .base import Operator
+from .base import BF16_WIDEN, Operator
 
 DALI_SCHEMA("segmentation.RandomMaskPixel").DocStr(
     "Picks a random pixel coordinate, optionally from the foreground."
@@ -21,6 +21,8 @@ DALI_SCHEMA("segmentation.RandomMaskPixel").DocStr(
 
 @register_operator("segmentation.RandomMaskPixel", "cpu")
 class RandomMaskPixel(Operator):
+    reads_bfloat16 = BF16_WIDEN
+
     def run_sample(self, ctx, idx, mask):
         rng = ctx.rng(self, idx)
         fg = int(np.asarray(ctx.arg(self, "foreground", idx, 0)))
@@ -72,6 +74,7 @@ DALI_SCHEMA("segmentation.RandomObjectBBox").DocStr(
 
 @register_operator("segmentation.RandomObjectBBox", "cpu")
 class RandomObjectBBox(Operator):
+    reads_bfloat16 = BF16_WIDEN
     _box_cache = None  # content-hash -> blob boxes (cache_objects)
 
     def _blob_boxes(self, mask, bg, ignore_class):

@@ -9,7 +9,7 @@ import torch
 
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch, HostBatch
-from .base import Operator
+from .base import BF16_BITS, Operator
 
 DALI_SCHEMA("ElementExtract").DocStr(
     "Extracts elements (frames) from sequences; one output per entry in element_map."
@@ -81,6 +81,8 @@ def _per_frame_layout(spec, layout: str) -> str:
 
 @register_operator("PerFrame", "cpu")
 class PerFrameCPU(Operator):
+    reads_bfloat16 = BF16_BITS
+
     def run_batch(self, ctx, inp: HostBatch):
         return [HostBatch(inp.samples, layout=_per_frame_layout(self.spec, inp.layout))]
 

@@ -19,7 +19,7 @@ from ..batch import DeviceBatch, HostBatch
 from ..kernels import resample as resample_kernel
 from ..kernels.host_resample import host_resample
 from ..types import DALIInterpType, contiguous_host, to_numpy_type, to_torch_type
-from .base import Operator, SamplePool, raise_unserved
+from .base import BF16_BITS, BF16_ROUND, Operator, SamplePool, raise_unserved
 from .bbox import _iou
 from .generic2 import _crop_round
 from .image import _pick_filter, compute_resize_size
@@ -52,6 +52,8 @@ def _sp_vals(spec, dtype):
 
 @register_operator("noise.SaltAndPepper", "cpu")
 class SaltAndPepperCPU(Operator):
+    reads_bfloat16 = BF16_ROUND
+
     def run_sample(self, ctx, idx, x):
         rng = ctx.rng(self, idx)
         prob = float(np.asarray(ctx.arg(self, "prob", idx, 0.05)))
@@ -112,6 +114,9 @@ SSD_THRESHOLDS = [None, 0.1, 0.3, 0.5, 0.7, 0.9]
 
 @register_operator("SSDRandomCrop", "cpu")
 class SSDRandomCrop(Operator):
+    reads_bfloat16 = BF16_ROUND
+    bfloat16_outputs = (0,)  # the image; boxes are float32
+
     def run_batch(self, ctx, imgs: HostBatch, boxes: HostBatch, labels: HostBatch):
         rng = ctx.rng(self)
         attempts = max(self.spec.GetArgument("num_attempts"), 1)
@@ -174,6 +179,8 @@ def _infer(shape, total):
 
 @register_operator("Reinterpret", "cpu")
 class ReinterpretCPU(Operator):
+    reads_bfloat16 = BF16_BITS
+
     def run_sample(self, ctx, idx, x, *shape_in):
         dt = self.spec.GetArgument("dtype", None)
         if dt is None:

@@ -24,7 +24,7 @@ from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import DeviceBatch
 from ..kernels import warp as warp_kernel
 from ..types import DALIDataType, DALIInterpType, cast_host, to_torch_type
-from .base import Operator
+from .base import BF16_WIDEN, Operator
 
 
 DALI_SCHEMA("WarpAffine").DocStr(
@@ -303,6 +303,7 @@ DALI_SCHEMA("CoordFlip").DocStr(
 class CoordFlip(Operator):
     """The host CoordFlip (``dali_tpu/backend/warp.py`` ``CoordFlip``); the
     device one is in ``generic_gpu.py``."""
+    reads_bfloat16 = BF16_WIDEN
 
     def run_sample(self, ctx, idx, coords):
         out = coords.astype(np.float32).copy()
@@ -452,6 +453,8 @@ class TCrop(_TransformBase):
 
 @register_operator("transforms.Combine", "cpu")
 class TCombine(_TransformBase):
+    reads_bfloat16 = BF16_WIDEN
+
     def run_sample(self, ctx, idx, *inputs):
         mats = [np.asarray(m, np.float32) for m in inputs]
         if self.spec.GetArgument("reverse_order", False):
@@ -477,6 +480,7 @@ DALI_SCHEMA("CoordTransform").DocStr(
 class CoordTransform(Operator):
     """A positional matrix input of D + 1 columns carries T as its last
     column; ``M`` has D columns (its rows are the output's dims)."""
+    reads_bfloat16 = BF16_WIDEN
 
     def run_sample(self, ctx, idx, coords, *mt):
         pts = coords.astype(np.float32)

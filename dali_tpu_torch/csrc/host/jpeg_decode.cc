@@ -13,8 +13,9 @@
 //    each component's IDCT size starts at 8/denom and doubles while that
 //    replaces upsampling (jdmaster.c jpeg_calc_output_dimensions);
 //  * IDCTs: the 8x8 integer islow (jidctint.c) and the reduced 4x4, 2x2, 1x1
-//    (jidctred.c), 13 constant bits, 2 pass-1 bits, and the post-IDCT range
-//    limit of the x86-64 build (idct_limit below);
+//    (jidctred.c), 13 constant bits, 2 pass-1 bits, in the 16-bit lanes of
+//    the x86-64 build's SIMD versions (the 1x1 is C), whose wraps and
+//    saturations damaged streams reach (idct_8x8 and below);
 //  * upsampling (jdsample.c), for any integral ratio of sampling factors:
 //    fancy h2v1, h1v2 and h2v2 (triangular, with alternating rounding biases
 //    and edge rows repeated), else box replication (int_upsample); fancy only
@@ -44,206 +45,154 @@ constexpr int kPass1Bits = 2;
 
 inline int64_t descale(int64_t x, int n) { return (x + ((int64_t)1 << (n - 1))) >> n; }
 
-// The post-IDCT range limit. libjpeg-turbo's SIMD IDCTs (8x8 islow, 4x4 and
-// 2x2 on x86-64) saturate: +128, then clamp. Its C 1x1 IDCT wraps the value
-// to 10 bits first (x & RANGE_MASK). The two agree within [-512, 511].
-inline uint8_t idct_limit(int64_t x) {
-  x += 128;
-  return (uint8_t)(x < 0 ? 0 : x > 255 ? 255 : x);
-}
+// The 1x1 IDCT's range limit: libjpeg-turbo's C jpeg_idct_1x1 wraps the
+// value to 10 bits (x & RANGE_MASK), then clamps.
 inline uint8_t idct_limit_wrap(int64_t x) {
   int v = (int)(x & 1023);
   v = v < 512 ? v + 128 : v - 1024 + 128;
   return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
 }
 
-// jidctint.c jpeg_idct_islow
+// The 8x8, 4x4 and 2x2 IDCTs of the x86-64 build are SIMD (jidctint-avx2,
+// jidctred-sse2): the arithmetic of jidctint.c / jidctred.c in 16-bit lanes
+// with 32-bit products. Within range they equal the C; outside it (damaged
+// streams, 16-bit quantisers) the lanes wrap or saturate, and the port
+// follows them: the dequantisation keeps the product's low 16 bits
+// (pmullw); a block whose AC rows are all zero takes the DC shortcut,
+// shifted in 16 bits (psllw); the 16-bit sums of the 8x8's even and odd
+// parts wrap (paddw); sums of products wrap in 32 bits (pmaddwd, paddd);
+// each pass ends in a saturation to 16 bits (packssdw), the second then to
+// 8 bits (packsswb) before +128.
+inline int16_t w16(int64_t v) { return (int16_t)(uint16_t)(uint64_t)v; }
+inline int32_t w32(int64_t v) { return (int32_t)(uint32_t)(uint64_t)v; }
+inline int16_t sat16(int32_t v) { return (int16_t)(v < -32768 ? -32768 : v > 32767 ? 32767 : v); }
+inline int32_t descale32(int32_t x, int n) { return w32((int64_t)x + (1 << (n - 1))) >> n; }
+inline uint8_t idct_out(int32_t x, int n) {
+  const int v = sat16(descale32(x, n));
+  return (uint8_t)((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
+}
+inline int32_t madd(int16_t a, int ca, int16_t b, int cb) {
+  return w32((int64_t)a * ca + (int64_t)b * cb);
+}
+
+// Dequantised block, and whether the AC rows the IDCT reads are all zero.
+inline bool dequant(const short* in, const uint16_t* q, int16_t* dq, uint64_t rows) {
+  bool zero = true;
+  for (int k = 0; k < 64; k++) {
+    dq[k] = w16((int64_t)in[k] * (int16_t)q[k]);
+    if (k >= 8 && (rows >> (k / 8) & 1) && in[k]) zero = false;
+  }
+  return zero;
+}
+
+// jidctint.c's 1-D islow as jidctint-avx2's dodct: eight 16-bit inputs,
+// eight 32-bit sums before the descale.
+void islow_1d(const int16_t* in, int step, int32_t* o) {
+  const int16_t i0 = in[0], i1 = in[step], i2 = in[2 * step], i3 = in[3 * step],
+                i4 = in[4 * step], i5 = in[5 * step], i6 = in[6 * step], i7 = in[7 * step];
+  const int32_t tmp3e = madd(i2, 4433 + 6270, i6, 4433), tmp2e = madd(i2, 4433, i6, 4433 - 15137);
+  const int32_t tmp0e = (int32_t)w16(i0 + i4) * (1 << 13), tmp1e = (int32_t)w16(i0 - i4) * (1 << 13);
+  const int32_t t10 = w32((int64_t)tmp0e + tmp3e), t13 = w32((int64_t)tmp0e - tmp3e);
+  const int32_t t11 = w32((int64_t)tmp1e + tmp2e), t12 = w32((int64_t)tmp1e - tmp2e);
+  const int16_t z3 = w16(i7 + i3), z4 = w16(i5 + i1);
+  const int32_t z3o = madd(z3, 9633 - 16069, z4, 9633), z4o = madd(z3, 9633, z4, 9633 - 3196);
+  const int32_t tmp0 = w32((int64_t)madd(i7, 2446 - 7373, i1, -7373) + z3o);
+  const int32_t tmp1 = w32((int64_t)madd(i5, 16819 - 20995, i3, -20995) + z4o);
+  const int32_t tmp2 = w32((int64_t)madd(i5, -20995, i3, 25172 - 20995) + z3o);
+  const int32_t tmp3 = w32((int64_t)madd(i7, -7373, i1, 12299 - 7373) + z4o);
+  o[0] = w32((int64_t)t10 + tmp3);
+  o[7] = w32((int64_t)t10 - tmp3);
+  o[1] = w32((int64_t)t11 + tmp2);
+  o[6] = w32((int64_t)t11 - tmp2);
+  o[2] = w32((int64_t)t12 + tmp1);
+  o[5] = w32((int64_t)t12 - tmp1);
+  o[3] = w32((int64_t)t13 + tmp0);
+  o[4] = w32((int64_t)t13 - tmp0);
+}
+
+// jidctint.c jpeg_idct_islow (jsimd_idct_islow_avx2)
 void idct_8x8(const short* in, const uint16_t* q, uint8_t* out, long stride) {
-  int ws[64];
-  for (int c = 0; c < 8; c++) {
-    const short* ip = in + c;
-    const uint16_t* qp = q + c;
-    int* wp = ws + c;
-    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 && ip[40] == 0 && ip[48] == 0 &&
-        ip[56] == 0) {
-      int dc = (int)((int64_t)ip[0] * qp[0] * (1 << kPass1Bits));
-      for (int r = 0; r < 8; r++) wp[r * 8] = dc;
-      continue;
+  int16_t dq[64], ws[64];
+  int32_t o[8];
+  if (dequant(in, q, dq, 0xFE)) {
+    for (int c = 0; c < 8; c++)
+      for (int r = 0; r < 8; r++) ws[r * 8 + c] = w16((int32_t)dq[c] * 4);
+  } else {
+    for (int c = 0; c < 8; c++) {
+      islow_1d(dq + c, 8, o);
+      for (int r = 0; r < 8; r++) ws[r * 8 + c] = sat16(descale32(o[r], 11));
     }
-    int64_t z2 = (int64_t)ip[16] * qp[16], z3 = (int64_t)ip[48] * qp[48];
-    int64_t z1 = (z2 + z3) * 4433;
-    int64_t tmp2 = z1 + z3 * -15137, tmp3 = z1 + z2 * 6270;
-    z2 = (int64_t)ip[0] * qp[0];
-    z3 = (int64_t)ip[32] * qp[32];
-    int64_t tmp0 = (z2 + z3) * (1 << kConstBits), tmp1 = (z2 - z3) * (1 << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = (int64_t)ip[56] * qp[56];
-    tmp1 = (int64_t)ip[40] * qp[40];
-    tmp2 = (int64_t)ip[24] * qp[24];
-    tmp3 = (int64_t)ip[8] * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * 9633;
-    tmp0 *= 2446;
-    tmp1 *= 16819;
-    tmp2 *= 25172;
-    tmp3 *= 12299;
-    z1 *= -7373;
-    z2 *= -20995;
-    z3 *= -16069;
-    z4 *= -3196;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConstBits - kPass1Bits;
-    wp[0] = (int)descale(tmp10 + tmp3, sh);
-    wp[56] = (int)descale(tmp10 - tmp3, sh);
-    wp[8] = (int)descale(tmp11 + tmp2, sh);
-    wp[48] = (int)descale(tmp11 - tmp2, sh);
-    wp[16] = (int)descale(tmp12 + tmp1, sh);
-    wp[40] = (int)descale(tmp12 - tmp1, sh);
-    wp[24] = (int)descale(tmp13 + tmp0, sh);
-    wp[32] = (int)descale(tmp13 - tmp0, sh);
   }
   for (int r = 0; r < 8; r++) {
-    const int* wp = ws + r * 8;
-    uint8_t* o = out + r * stride;
-    if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 && wp[5] == 0 && wp[6] == 0 &&
-        wp[7] == 0) {
-      uint8_t v = idct_limit(descale(wp[0], kPass1Bits + 3));
-      std::memset(o, v, 8);
-      continue;
-    }
-    int64_t z2 = wp[2], z3 = wp[6];
-    int64_t z1 = (z2 + z3) * 4433;
-    int64_t tmp2 = z1 + z3 * -15137, tmp3 = z1 + z2 * 6270;
-    int64_t tmp0 = ((int64_t)wp[0] + wp[4]) * (1 << kConstBits);
-    int64_t tmp1 = ((int64_t)wp[0] - wp[4]) * (1 << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * 9633;
-    tmp0 *= 2446;
-    tmp1 *= 16819;
-    tmp2 *= 25172;
-    tmp3 *= 12299;
-    z1 *= -7373;
-    z2 *= -20995;
-    z3 *= -16069;
-    z4 *= -3196;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConstBits + kPass1Bits + 3;
-    o[0] = idct_limit(descale(tmp10 + tmp3, sh));
-    o[7] = idct_limit(descale(tmp10 - tmp3, sh));
-    o[1] = idct_limit(descale(tmp11 + tmp2, sh));
-    o[6] = idct_limit(descale(tmp11 - tmp2, sh));
-    o[2] = idct_limit(descale(tmp12 + tmp1, sh));
-    o[5] = idct_limit(descale(tmp12 - tmp1, sh));
-    o[3] = idct_limit(descale(tmp13 + tmp0, sh));
-    o[4] = idct_limit(descale(tmp13 - tmp0, sh));
+    islow_1d(ws + r * 8, 1, o);
+    for (int c = 0; c < 8; c++) out[r * stride + c] = idct_out(o[c], 18);
   }
 }
 
-// jidctred.c jpeg_idct_4x4
+// jidctred.c's 1-D 4-point IDCT (columns 0-3, 5-7 of an 8-point input) as
+// jidctred-sse2 computes it: four 32-bit sums before the descale.
+void red4_1d(const int16_t* in, int step, int32_t* o) {
+  const int16_t i0 = in[0], i1 = in[step], i2 = in[2 * step], i3 = in[3 * step],
+                i5 = in[5 * step], i6 = in[6 * step], i7 = in[7 * step];
+  const int32_t t0 = (int32_t)i0 * (1 << 14);
+  const int32_t t2 = madd(i2, 15137, i6, -6270);
+  const int32_t t10 = w32((int64_t)t0 + t2), t12 = w32((int64_t)t0 - t2);
+  const int32_t a = w32((int64_t)madd(i7, -1730, i5, 11893) + madd(i3, -17799, i1, 8697));
+  const int32_t b = w32((int64_t)madd(i7, -4176, i5, -4926) + madd(i3, 7373, i1, 20995));
+  o[0] = w32((int64_t)t10 + b);
+  o[3] = w32((int64_t)t10 - b);
+  o[1] = w32((int64_t)t12 + a);
+  o[2] = w32((int64_t)t12 - a);
+}
+
+// jidctred.c jpeg_idct_4x4 (jsimd_idct_4x4_sse2)
 void idct_4x4(const short* in, const uint16_t* q, uint8_t* out, long stride) {
-  int ws[32];
-  for (int c = 0; c < 8; c++) {
-    if (c == 4) continue;  // the row pass never reads column 4
-    const short* ip = in + c;
-    const uint16_t* qp = q + c;
-    int* wp = ws + c;
-    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
-      int dc = (int)((int64_t)ip[0] * qp[0] * (1 << kPass1Bits));
-      for (int r = 0; r < 4; r++) wp[r * 8] = dc;
-      continue;
+  int16_t dq[64], ws[32];
+  int32_t o[4];
+  if (dequant(in, q, dq, 0xEE)) {
+    for (int c = 0; c < 8; c++)
+      for (int r = 0; r < 4; r++) ws[r * 8 + c] = w16((int32_t)dq[c] * 4);
+  } else {
+    for (int c = 0; c < 8; c++) {
+      red4_1d(dq + c, 8, o);
+      for (int r = 0; r < 4; r++) ws[r * 8 + c] = sat16(descale32(o[r], 12));
     }
-    int64_t tmp0 = (int64_t)ip[0] * qp[0] * ((int64_t)1 << (kConstBits + 1));
-    int64_t z2 = (int64_t)ip[16] * qp[16], z3 = (int64_t)ip[48] * qp[48];
-    int64_t tmp2 = z2 * 15137 + z3 * -6270;
-    int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
-    int64_t z1 = (int64_t)ip[56] * qp[56];
-    z2 = (int64_t)ip[40] * qp[40];
-    z3 = (int64_t)ip[24] * qp[24];
-    int64_t z4 = (int64_t)ip[8] * qp[8];
-    tmp0 = z1 * -1730 + z2 * 11893 + z3 * -17799 + z4 * 8697;
-    tmp2 = z1 * -4176 + z2 * -4926 + z3 * 7373 + z4 * 20995;
-    const int sh = kConstBits - kPass1Bits + 1;
-    wp[0] = (int)descale(tmp10 + tmp2, sh);
-    wp[24] = (int)descale(tmp10 - tmp2, sh);
-    wp[8] = (int)descale(tmp12 + tmp0, sh);
-    wp[16] = (int)descale(tmp12 - tmp0, sh);
   }
   for (int r = 0; r < 4; r++) {
-    const int* wp = ws + r * 8;
-    uint8_t* o = out + r * stride;
-    if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[5] == 0 && wp[6] == 0 && wp[7] == 0) {
-      uint8_t v = idct_limit(descale(wp[0], kPass1Bits + 3));
-      std::memset(o, v, 4);
-      continue;
-    }
-    int64_t tmp0 = (int64_t)wp[0] * ((int64_t)1 << (kConstBits + 1));
-    int64_t tmp2 = (int64_t)wp[2] * 15137 + (int64_t)wp[6] * -6270;
-    int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
-    int64_t z1 = wp[7], z2 = wp[5], z3 = wp[3], z4 = wp[1];
-    tmp0 = z1 * -1730 + z2 * 11893 + z3 * -17799 + z4 * 8697;
-    tmp2 = z1 * -4176 + z2 * -4926 + z3 * 7373 + z4 * 20995;
-    const int sh = kConstBits + kPass1Bits + 3 + 1;
-    o[0] = idct_limit(descale(tmp10 + tmp2, sh));
-    o[3] = idct_limit(descale(tmp10 - tmp2, sh));
-    o[1] = idct_limit(descale(tmp12 + tmp0, sh));
-    o[2] = idct_limit(descale(tmp12 - tmp0, sh));
+    red4_1d(ws + r * 8, 1, o);
+    for (int c = 0; c < 4; c++) out[r * stride + c] = idct_out(o[c], 19);
   }
 }
 
-// jidctred.c jpeg_idct_2x2
+// jidctred.c's odd part of the 2-point IDCT (inputs 1, 3, 5, 7)
+inline int32_t red2_odd(int16_t i1, int16_t i3, int16_t i5, int16_t i7) {
+  return w32((int64_t)madd(i1, 29692, i3, -10426) + madd(i5, 6967, i7, -5906));
+}
+
+// jidctred.c jpeg_idct_2x2 (jsimd_idct_2x2_sse2): no DC shortcut; pass 1's
+// column 0 stays in 32 bits (pass 2 shifts it there), columns 1, 3, 5, 7
+// saturate to 16 bits for pass 2's products.
 void idct_2x2(const short* in, const uint16_t* q, uint8_t* out, long stride) {
-  int ws[16];
-  for (int c = 0; c < 8; c++) {
-    if (c == 2 || c == 4 || c == 6) continue;  // unread by the row pass
-    const short* ip = in + c;
-    const uint16_t* qp = q + c;
-    int* wp = ws + c;
-    if (ip[8] == 0 && ip[24] == 0 && ip[40] == 0 && ip[56] == 0) {
-      int dc = (int)((int64_t)ip[0] * qp[0] * (1 << kPass1Bits));
-      wp[0] = wp[8] = dc;
-      continue;
+  int16_t dq[64];
+  dequant(in, q, dq, 0);
+  int32_t col0[2];
+  int16_t odd[2][4];
+  const int cols[5] = {0, 1, 3, 5, 7};
+  for (int k = 0; k < 5; k++) {
+    const int c = cols[k];
+    const int32_t t10 = (int32_t)dq[c] * (1 << 15);
+    const int32_t t0 = red2_odd(dq[8 + c], dq[24 + c], dq[40 + c], dq[56 + c]);
+    for (int r = 0; r < 2; r++) {
+      const int32_t v = descale32(w32(r ? (int64_t)t10 - t0 : (int64_t)t10 + t0), 13);
+      if (k == 0) col0[r] = v;
+      else odd[r][k - 1] = sat16(v);
     }
-    int64_t tmp10 = (int64_t)ip[0] * qp[0] * ((int64_t)1 << (kConstBits + 2));
-    int64_t tmp0 = (int64_t)ip[56] * qp[56] * -5906 + (int64_t)ip[40] * qp[40] * 6967 +
-                   (int64_t)ip[24] * qp[24] * -10426 + (int64_t)ip[8] * qp[8] * 29692;
-    const int sh = kConstBits - kPass1Bits + 2;
-    wp[0] = (int)descale(tmp10 + tmp0, sh);
-    wp[8] = (int)descale(tmp10 - tmp0, sh);
   }
   for (int r = 0; r < 2; r++) {
-    const int* wp = ws + r * 8;
-    uint8_t* o = out + r * stride;
-    if (wp[1] == 0 && wp[3] == 0 && wp[5] == 0 && wp[7] == 0) {
-      o[0] = o[1] = idct_limit(descale(wp[0], kPass1Bits + 3));
-      continue;
-    }
-    int64_t tmp10 = (int64_t)wp[0] * ((int64_t)1 << (kConstBits + 2));
-    int64_t tmp0 = (int64_t)wp[7] * -5906 + (int64_t)wp[5] * 6967 + (int64_t)wp[3] * -10426 +
-                   (int64_t)wp[1] * 29692;
-    const int sh = kConstBits + kPass1Bits + 3 + 2;
-    o[0] = idct_limit(descale(tmp10 + tmp0, sh));
-    o[1] = idct_limit(descale(tmp10 - tmp0, sh));
+    const int32_t t10 = w32((int64_t)col0[r] << 15);
+    const int32_t t0 = red2_odd(odd[r][0], odd[r][1], odd[r][2], odd[r][3]);
+    out[r * stride] = idct_out(w32((int64_t)t10 + t0), 20);
+    out[r * stride + 1] = idct_out(w32((int64_t)t10 - t0), 20);
   }
 }
 

@@ -50,11 +50,12 @@ struct JpegFull {
 
 // Entropy-decode every coefficient of every component: baseline and
 // extended-sequential (interleaved, partly interleaved or one scan per
-// component) and progressive 8-bit Huffman streams of 1 to 4 components,
-// any sampling factors from 1 to 4, restart markers included. A stream that
-// ends early keeps libjpeg's zero fill. Returns 0; 1 for a stream this reader
-// does not take (12-bit, arithmetic or lossless coding, DNL); -1 for a
-// corrupt header.
+// component) and progressive 8-bit streams of 1 to 4 components, Huffman
+// or arithmetic coded, any sampling factors from 1 to 4, restart markers
+// included. A Huffman stream that ends early keeps libjpeg's zero fill; an
+// arithmetic one decodes on from zero bytes, as libjpeg does. Returns 0; 1
+// for a stream this reader does not take (12-bit, lossless or hierarchical
+// coding, DNL); -1 for a corrupt header.
 int jpeg_read_full(const uint8_t* data, size_t len, JpegFull* out);
 
 // The frame header only (through the first SOS): image size, component
@@ -68,5 +69,36 @@ int jpeg_read_header(const uint8_t* data, size_t len, JpegFull* out);
 // route (CMYK and YCCK), -1 where libjpeg or cv2 fails.
 int jpeg_decode_pixels(const JpegFull& f, int denom, unsigned char* dst, long dst_stride,
                        int fancy, int gray);
+
+// One arithmetic-coded scan (jpeg_arith.cc): its header and the
+// conditioning of its statistics (DAC; libjpeg's defaults L=0, U=1, Kx=5).
+struct ArithScan {
+  int ns = 0;                 // components in the scan
+  int td[4], ta[4];           // DC and AC conditioning table of each slot
+  int ss = 0, se = 63, ah = 0, al = 0;
+  int ri = 0;                 // restart interval in MCUs
+  bool progressive = false;
+  const uint8_t* dc_l;        // [16] DC lower bound L
+  const uint8_t* dc_u;        // [16] DC upper bound U
+  const uint8_t* ac_k;        // [16] AC split Kx
+};
+
+// Where a scan slot's blocks go: block (r, c) of the component at coef +
+// (r * stride + c) * 64 when r < rows and c < stride (else decoded and
+// dropped); natural coefficient order for sequential scans, zigzag for
+// progressive ones. h, v are the sampling factors, bw x bh the component's
+// own block grid (a single-component scan's MCUs).
+struct ArithPlane {
+  short* coef;
+  int stride, rows;
+  int h, v, bw, bh;
+};
+
+// Decode one scan whose entropy data starts at scan_start. Returns the
+// position the marker search goes on from: the unread marker that stopped
+// the data, or the first byte not read.
+const uint8_t* arith_decode_scan(const uint8_t* data, size_t len, const uint8_t* scan_start,
+                                 const ArithScan& s, const ArithPlane* planes, int mcus_x,
+                                 int mcus_y);
 
 }  // namespace dali_tpu_torch

@@ -498,6 +498,10 @@ struct Parser {
   bool allow_progressive = false;  // keep parsing instead of rc=1 on SOF2
   bool saw_eoi = false;
   bool full = false;  // full read: return at the first SOS, no fast-path check
+  bool arith = false;  // SOF9/SOF10 (full read only; the fast paths decline it)
+  // DAC conditioning of the 16 arithmetic tables (libjpeg's defaults)
+  uint8_t dc_l[16] = {0}, dc_u[16] = {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1};
+  uint8_t ac_k[16] = {5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5};
   bool jfif = false;  // APP0 "JFIF" seen
   int adobe = -1;     // APP14 "Adobe" transform flag, -1 = no such segment
 
@@ -563,14 +567,21 @@ struct Parser {
             break;
           }
           return 1;
-        case 0xC3:  // lossless
+        case 0xC9:  // arithmetic: extended sequential, progressive
+        case 0xCA:
+          if (!full) return 1;
+          rc = parse_sof(seg_end);
+          arith = true;
+          progressive = m == 0xCA;
+          break;
+        case 0xCC:  // DAC
+          rc = parse_dac(seg_end);
+          break;
+        case 0xC3:  // lossless, hierarchical, lossless arithmetic
         case 0xC5:
         case 0xC6:
         case 0xC7:
-        case 0xC9:  // arithmetic family
-        case 0xCA:
         case 0xCB:
-        case 0xCC:  // DAC
         case 0xCD:
         case 0xCE:
         case 0xCF:
@@ -611,7 +622,12 @@ struct Parser {
         saw_eoi = true;
         return 0;
       }
-      const bool table = m == 0xC4 || m == 0xDB || m == 0xDD || m == 0xDA;
+      // jdmarker.c read_markers: a second SOI or frame header, and the
+      // reserved markers (JPG, DHP, EXP, JPGn, RES) are fatal
+      if (m == 0xD8 || (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC) || m < 0xC0 ||
+          m == 0xDE || m == 0xDF || (m >= 0xF0 && m <= 0xFD))
+        return -1;
+      const bool table = m == 0xC4 || m == 0xDB || m == 0xDD || m == 0xDA || m == 0xCC;
       if (pos + 2 > n || pos + ((d[pos] << 8) | d[pos + 1]) > n) return table ? cut_segment() : -2;
       int rc = segment(m);
       if (rc != 1) return rc;
@@ -632,6 +648,9 @@ struct Parser {
         break;
       case 0xDB:
         rc = parse_dqt(seg_end);
+        break;
+      case 0xCC:
+        rc = parse_dac(seg_end);
         break;
       case 0xDD: {
         int v;
@@ -741,6 +760,26 @@ struct Parser {
     return 0;
   }
 
+  // jdmarker.c get_dac: pairs of (table, value); tables 0-15 DC (L low
+  // nibble, U high, L <= U), 16-31 AC (Kx)
+  int parse_dac(size_t seg_end) {
+    long left = (long)(seg_end - pos);
+    while (left > 0) {
+      int index, val;
+      if (!u8(&index) || !u8(&val)) return -1;
+      left -= 2;
+      if (index >= 32) return -1;
+      if (index >= 16) {
+        ac_k[index - 16] = (uint8_t)val;
+      } else {
+        dc_l[index] = (uint8_t)(val & 15);
+        dc_u[index] = (uint8_t)(val >> 4);
+        if (dc_l[index] > dc_u[index]) return -1;
+      }
+    }
+    return left == 0 ? 0 : -1;
+  }
+
   int parse_sos(size_t seg_end) {
     if (!sof_seen) return -1;
     const size_t seg_start = pos;
@@ -755,7 +794,7 @@ struct Parser {
       scan_comp[i] = idx;
       scan_td[i] = tdta >> 4;
       scan_ta[i] = tdta & 15;
-      if (scan_td[i] > 3 || scan_ta[i] > 3) return -1;
+      if (!arith && (scan_td[i] > 3 || scan_ta[i] > 3)) return -1;
     }
     int ahal;
     if (!u8(&ss) || !u8(&se) || !u8(&ahal)) return -1;
@@ -2059,6 +2098,41 @@ bool prog_scan_start(const Parser& ps, JpegFull* f) {
   return true;
 }
 
+int blocks_in_mcu(const Parser& ps, const JpegFull& f) {
+  int blocks = 0;
+  for (int s = 0; s < ps.ns; s++) blocks += f.h[ps.scan_comp[s]] * f.v[ps.scan_comp[s]];
+  return blocks;
+}
+
+// One arithmetic-coded scan (jpeg_arith.cc) of the full read: into f's
+// natural-order blocks (sequential), or the progressive zigzag stores pc.
+// Returns where the marker search goes on.
+const uint8_t* arith_scan(const Parser& ps, const uint8_t* data, size_t len, JpegFull* f,
+                          const ProgComp* pc, int mcus_x, int mcus_y) {
+  ArithScan as;
+  as.ns = ps.ns;
+  as.ss = ps.ss;
+  as.se = ps.se;
+  as.ah = ps.ah;
+  as.al = ps.al;
+  as.ri = ps.ri;
+  as.progressive = ps.progressive;
+  as.dc_l = ps.dc_l;
+  as.dc_u = ps.dc_u;
+  as.ac_k = ps.ac_k;
+  ArithPlane planes[4];
+  for (int s = 0; s < ps.ns; s++) {
+    const int i = ps.scan_comp[s];
+    as.td[s] = ps.scan_td[s];
+    as.ta[s] = ps.scan_ta[s];
+    planes[s] = pc ? ArithPlane{pc[i].coef->data(), pc[i].full_bw, pc[i].rows_dec, f->h[i],
+                                f->v[i], f->bw[i], f->bh[i]}
+                   : ArithPlane{f->coef[i].data(), f->bw[i], f->bh[i], f->h[i], f->v[i],
+                                f->bw[i], f->bh[i]};
+  }
+  return arith_decode_scan(data, len, ps.scan_start, as, planes, mcus_x, mcus_y);
+}
+
 }  // namespace
 
 int jpeg_read_header(const uint8_t* data, size_t len, JpegFull* f) {
@@ -2083,29 +2157,30 @@ int jpeg_read_full(const uint8_t* data, size_t len, JpegFull* f) {
   // the block: natural index - 1
   signed char zmap[64];
   for (int z = 0; z < 64; z++) zmap[z] = (signed char)(kZZ.nat[z] - 1);
-
   if (!ps.progressive) {
     for (;;) {
       const bool single = ps.ns == 1;
-      int blocks = 0;
-      for (int s = 0; s < ps.ns; s++) blocks += f->h[ps.scan_comp[s]] * f->v[ps.scan_comp[s]];
-      if (!single && blocks > 10) return -1;  // libjpeg's D_MAX_BLOCKS_IN_MCU
-      CompStateT<short> cs[4];
-      for (int s = 0; s < ps.ns; s++) {
-        const int i = ps.scan_comp[s], td = ps.scan_td[s], ta = ps.scan_ta[s];
-        if (!ps.htdc[td].valid || !ps.htac[ta].valid || !ps.fdc[td] || !ps.fac[ta]) return -1;
-        short* base = f->coef[i].data();
-        cs[s] = {base, base + 1, zmap, &ps.htdc[td], &ps.htac[ta], ps.fac[ta], ps.fdc[td],
-                 single ? 1 : f->h[i], single ? 1 : f->v[i], f->bh[i], f->bw[i], 0, 0, 64,
-                 f->bh[i], f->bw[i]};
-        cs[s].fsk = ps.fsk[ta];
-        cs[s].dcs = 64;
-      }
-      const int i0 = ps.scan_comp[0];
+      if (!single && blocks_in_mcu(ps, *f) > 10) return -1;  // libjpeg's D_MAX_BLOCKS_IN_MCU
       const uint8_t* end = nullptr;
-      decode_scan<false, short>(ps, cs, data + len, single ? f->bw[i0] : mcus_x,
-                                single ? f->bh[i0] : mcus_y, nullptr, ps.ns, nullptr, 0, 0,
-                                &end);
+      if (ps.arith) {
+        end = arith_scan(ps, data, len, f, nullptr, mcus_x, mcus_y);
+      } else {
+        CompStateT<short> cs[4];
+        for (int s = 0; s < ps.ns; s++) {
+          const int i = ps.scan_comp[s], td = ps.scan_td[s], ta = ps.scan_ta[s];
+          if (!ps.htdc[td].valid || !ps.htac[ta].valid || !ps.fdc[td] || !ps.fac[ta]) return -1;
+          short* base = f->coef[i].data();
+          cs[s] = {base, base + 1, zmap, &ps.htdc[td], &ps.htac[ta], ps.fac[ta], ps.fdc[td],
+                   single ? 1 : f->h[i], single ? 1 : f->v[i], f->bh[i], f->bw[i], 0, 0, 64,
+                   f->bh[i], f->bw[i]};
+          cs[s].fsk = ps.fsk[ta];
+          cs[s].dcs = 64;
+        }
+        const int i0 = ps.scan_comp[0];
+        decode_scan<false, short>(ps, cs, data + len, single ? f->bw[i0] : mcus_x,
+                                  single ? f->bh[i0] : mcus_y, nullptr, ps.ns, nullptr, 0, 0,
+                                  &end);
+      }
       // a stream that ends before EOI ends here, as libjpeg's inserted EOI does
       if (end == nullptr || end >= data + len) break;
       const uint8_t* prev = ps.scan_start;
@@ -2131,27 +2206,37 @@ int jpeg_read_full(const uint8_t* data, size_t len, JpegFull* f) {
     thread_local Unstuffed tl_fus;
     for (;;) {
       if (!prog_scan_start(ps, f)) return -1;
-      for (int s = 0; s < ps.ns; s++)
-        if (ps.ss == 0 ? ps.ah == 0 && !ps.htdc[ps.scan_td[s]].valid
-                       : !ps.htac[ps.scan_ta[s]].valid)
-          return -1;
       const uint8_t* cursor = ps.scan_start;
-      unstuff_scan(cursor, data + len, &tl_fus);
-      int idx[4];
-      for (int s = 0; s < ps.ns; s++) idx[s] = ps.scan_comp[s];
-      int r2, good = 0;
-      if (ps.ss == 0) {
-        r2 = prog_dc_scan(ps, pc, idx, ps.ns, tl_fus, mcus_x,
-                          ps.ns == 1 ? pc[idx[0]].rows_dec : mcus_y, &good);
+      const uint8_t* end;
+      if (ps.arith) {
+        if (ps.ns > 1 && blocks_in_mcu(ps, *f) > 10) return -1;
+        // jdarith.c has no out-of-data state: every iMCU row stays good for
+        // block smoothing (last_good_row keeps its start value)
+        end = arith_scan(ps, data, len, f, pc, mcus_x, mcus_y);
       } else {
-        ProgComp& C = pc[idx[0]];
-        r2 = ps.ah == 0 ? prog_ac_first(ps, C, 0, tl_fus, C.rows_dec, &good)
-                        : prog_ac_refine(ps, C, 0, tl_fus, C.rows_dec, &good);
+        for (int s = 0; s < ps.ns; s++)
+          if (ps.ss == 0 ? ps.ah == 0 && !ps.htdc[ps.scan_td[s]].valid
+                         : !ps.htac[ps.scan_ta[s]].valid)
+            return -1;
+        unstuff_scan(cursor, data + len, &tl_fus);
+        int idx[4];
+        for (int s = 0; s < ps.ns; s++) idx[s] = ps.scan_comp[s];
+        int r2, good = 0;
+        if (ps.ss == 0) {
+          r2 = prog_dc_scan(ps, pc, idx, ps.ns, tl_fus, mcus_x,
+                            ps.ns == 1 ? pc[idx[0]].rows_dec : mcus_y, &good);
+        } else {
+          ProgComp& C = pc[idx[0]];
+          r2 = ps.ah == 0 ? prog_ac_first(ps, C, 0, tl_fus, C.rows_dec, &good)
+                          : prog_ac_refine(ps, C, 0, tl_fus, C.rows_dec, &good);
+        }
+        f->last_good_row = good;
+        // a scan that breaks off keeps what it decoded, and the stream ends
+        if (r2 != 0) break;
+        end = tl_fus.in_end;
       }
-      f->last_good_row = good;
-      // a scan that breaks off keeps what it decoded, and the stream ends
-      if (r2 != 0 || tl_fus.in_end >= data + len) break;
-      const int pr = ps.parse_next_scan(tl_fus.in_end);
+      if (end >= data + len) break;
+      const int pr = ps.parse_next_scan(end);
       if (pr == -1) return -1;
       if (pr != 0 || ps.saw_eoi || ps.scan_start <= cursor) break;
     }

@@ -36,12 +36,13 @@ import numpy as np
 import torch
 
 from ._schema import get_operator_impl
-from .backend.base import SHAPE_PRESERVING_SCHEMAS, DeviceCtx, HostCtx, Operator, ReaderOperator
+from .backend.base import (BF16_BITS, BF16_WIDEN, SHAPE_PRESERVING_SCHEMAS, DeviceCtx, HostCtx,
+                           Operator, ReaderOperator)
 from .batch import (DeviceBatch, Esc16Staged, FlatStaged, HostBatch, SparseStaged, Staged,
                     YUVStaged, pad_and_stack)
 from .kernels import wire
 from .tensors import TensorListCPU, TensorListGPU
-from .types import DALIDataType, to_numpy_type
+from .types import DALIDataType, to_bfloat16, to_numpy_type
 
 
 # Canvas alignment of spatial dims where no pipeline sets one (eager mode):
@@ -75,15 +76,59 @@ def _edge_key(edge) -> Tuple[int, int]:
     return (edge.source.id, edge.source_idx)
 
 
-def refuse_bfloat16_host(impl, what: str, inputs):
-    """Raises for a host op that cannot read one of its bfloat16 host
-    inputs (numpy has no bfloat16; only ops with ``reads_bfloat16`` take
-    ``torch.bfloat16`` samples)."""
-    if not impl.reads_bfloat16 and any(
-            isinstance(b, HostBatch) and b.dtype == torch.bfloat16 for b in inputs):
-        raise TypeError(f"{what} does not read a bfloat16 host input in dali_tpu_torch (numpy "
-                        "has no bfloat16): cast it first, or move it to the device; ROADMAP.md "
-                        "Queue 3, F6-residue")
+def _is_bf16_batch(b) -> bool:
+    return isinstance(b, HostBatch) and b.dtype == torch.bfloat16
+
+
+def _identity(outs):
+    return outs
+
+
+def bfloat16_route(impl, what: str, inputs):
+    """The host inputs of ``impl`` as it reads them, and the function that
+    turns its outputs back. A bfloat16 host input (``torch.bfloat16``
+    samples; numpy has no bfloat16) follows the op's ``reads_bfloat16``
+    route, as dali_tpu computes on its ml_dtypes arrays:
+
+    * ``True``: the op reads ``torch.bfloat16`` samples itself;
+    * ``BF16_BITS``: it moves bits, so it runs on the int16 bits and its
+      int16 outputs are bfloat16 again (unless its ``dtype`` says int16);
+    * ``BF16_WIDEN``: the reference widens to float32 before any
+      arithmetic: the op runs on the exact float32 upcast, outputs as
+      computed;
+    * ``BF16_ROUND``: as ``BF16_WIDEN``, and the float32 outputs that follow
+      the input's type (``bfloat16_outputs``, all by default) are rounded to
+      bfloat16 (``types.to_bfloat16``) unless the op's ``dtype`` is set.
+
+    An op without a route raises ``TypeError``: dali_tpu refuses a bfloat16
+    input there too."""
+    route = impl.reads_bfloat16
+    if route is True or not any(_is_bf16_batch(b) for b in inputs):
+        return inputs, _identity
+    if not route:
+        raise TypeError(f"{what} does not read a bfloat16 host input, as dali_tpu's does not "
+                        "either: cast it first")
+    bits = route == BF16_BITS
+    conv = [HostBatch([s.contiguous().view(torch.int16).numpy() if bits
+                       else s.to(torch.float32).numpy() for s in b.samples], b.layout,
+                      b.source_info) if _is_bf16_batch(b) else b for b in inputs]
+    if route == BF16_WIDEN or impl.spec.args.get("dtype") is not None:
+        return conv, _identity
+    want = np.int16 if bits else np.float32
+    which = impl.bfloat16_outputs
+
+    def finish(outs):
+        back = []
+        for j, o in enumerate(outs):
+            if isinstance(o, HostBatch) and (which is None or j in which) and o.samples and all(
+                    isinstance(x, np.ndarray) and x.dtype == want for x in o.samples):
+                o = HostBatch([torch.from_numpy(np.ascontiguousarray(x)).view(torch.bfloat16)
+                               if bits else to_bfloat16(x) for x in o.samples], o.layout,
+                              o.source_info)
+            back.append(o)
+        return back
+
+    return conv, finish
 
 
 def pad_align_for(hb: HostBatch, pad_align: int = PAD_ALIGN) -> List[int]:
@@ -386,7 +431,7 @@ class Executor:
             impl = self.impls[node.id]
             ctx.set_arg_batches(node.id, {k: env[_edge_key(v)] for k, v in node.spec.arg_inputs.items()})
             ins = [env[_edge_key(e)] for e in node.spec.inputs]
-            refuse_bfloat16_host(impl, f"{node.spec.schema_name}({node.device})", ins)
+            ins, finish = bfloat16_route(impl, f"{node.spec.schema_name}({node.device})", ins)
             if node.device == "mixed" and hasattr(impl, "stage_batch"):
                 # a mixed op may decode straight into its boundary canvas
                 # (the edge's grow-only canvas), or decline (None)
@@ -403,7 +448,7 @@ class Executor:
                 # a mixed op may stage its own boundary wire, or decline (None)
                 outs = impl.stage_batch_multi(ctx, ins)
             if outs is None:
-                outs = impl.run_batch(ctx, *ins)
+                outs = finish(impl.run_batch(ctx, *ins))
             for j, out in enumerate(outs):
                 if isinstance(out, YUVStaged):
                     # the planar wire shares the edge's grow-only canvas with

@@ -34,7 +34,7 @@ import torch
 from ..._schema import GetSchema, OpSpec, RegisteredSchemas, get_operator_impl
 from ...backend.base import HostCtx
 from ...batch import DeviceBatch, HostBatch, pad_and_stack
-from ...executor import PAD_ALIGN, pad_align_for, refuse_bfloat16_host, run_device_op
+from ...executor import PAD_ALIGN, bfloat16_route, pad_align_for, run_device_op
 from ...fn import _camel_to_snake, not_ported
 from ...types import is_bfloat16
 
@@ -413,8 +413,8 @@ def _eager_call(schema_name: str, *inputs, device=None, batch_size=None, **kwarg
     if device in ("cpu", "mixed"):
         ctx.set_arg_batches(impl.op_id, arg_batches)
         host_ins = [HostBatch(b.cpu()._samples, b.layout) for b in batches]
-        refuse_bfloat16_host(impl, f"{schema_name}({device})", host_ins)
-        outs = impl.run_batch(ctx, *host_ins)
+        host_ins, finish = bfloat16_route(impl, f"{schema_name}({device})", host_ins)
+        outs = finish(impl.run_batch(ctx, *host_ins))
         result = [Batch(samples=o.samples, layout=o.layout) for o in outs]
         if device == "mixed":
             result = [r.gpu() for r in result]

@@ -24,6 +24,49 @@ def hann_window(n: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n) / n)).astype(np.float32)
 
 
+def spectrogram_host(x: np.ndarray, nfft: int, window_length: int, window_step: int,
+                     window: np.ndarray, power: int = 2, center: bool = True,
+                     reflect_pad: bool = True, layout: str = "ft") -> np.ndarray:
+    """One 1-D signal's spectrogram in numpy, in the reference host
+    placement's order of operations (float32 frames times the window,
+    numpy's ``rfft``, magnitude, squared for ``power`` 2): the cpu
+    Spectrogram, bit-equal to dali_tpu's."""
+    x = x.astype(np.float32)
+    n = x.shape[-1]
+    if center:
+        n_frames = n // window_step + 1
+        pos = (np.arange(window_length)[None, :] + np.arange(n_frames)[:, None] * window_step
+               - window_length // 2)
+        if reflect_pad:
+            r = np.maximum(np.asarray(n) - 1, 1)
+            frames = x[np.clip(r - np.abs(r - np.abs(pos) % (2 * r)), 0, n - 1)]
+        else:
+            frames = np.where((pos >= 0) & (pos < n), x[np.clip(pos, 0, n - 1)], 0.0)
+    else:
+        n_frames = max((n - window_length) // window_step + 1, 0)
+        frames = x[np.arange(window_length)[None, :] + np.arange(n_frames)[:, None] * window_step]
+    frames = frames * np.asarray(window, dtype=np.float32)
+    if window_length < nfft:
+        lpad = (nfft - window_length) // 2
+        frames = np.pad(frames, ((0, 0), (lpad, nfft - window_length - lpad)))
+    mag = np.abs(np.fft.rfft(frames, n=nfft, axis=-1))
+    if power == 2:
+        mag = mag * mag
+    out = mag.astype(np.float32)
+    return out.T if layout == "ft" else out
+
+
+def to_decibels_host(x: np.ndarray, multiplier: float = 10.0, s_ref=None,
+                     cutoff_db: float = -80.0) -> np.ndarray:
+    """``to_decibels`` in numpy with the reference host placement's types: a
+    given ``s_ref`` is a float64 scalar, so the ratio and its log are taken in
+    float64; the per-sample max keeps them in float32."""
+    ref = np.max(x) if s_ref is None else s_ref
+    ref = np.maximum(ref, 1e-20)
+    min_ratio = 10.0 ** (cutoff_db / multiplier)
+    return (multiplier * np.log10(np.maximum(x / ref, min_ratio))).astype(np.float32)
+
+
 def _valid_len(x: torch.Tensor, valid_len) -> torch.Tensor:
     n, n_buf = x.shape
     if valid_len is None:

@@ -186,7 +186,7 @@ def shared_pool(num_threads: int) -> TaskPool:
 
 
 # ------------------------------------------------------------------ header scan
-_SOF_SUPPORTED = (0xC0, 0xC1, 0xC2)
+_SOF_SUPPORTED = (0xC0, 0xC1, 0xC2, 0xC9, 0xCA)
 _SOF_ANY = tuple(m for m in range(0xC0, 0xD0) if m not in (0xC4, 0xC8, 0xCC))
 
 
@@ -413,8 +413,8 @@ def pack_wire2(pool: TaskPool, y_vals, y_nnz, c_vals, c_nnz, y_dc, c_dc, ny_bloc
 
 # ------------------------------------------------------------------ int16 read and pixel decode
 UNSUPPORTED_JPEG = (
-    "this JPEG is not read by dali_tpu_torch's libjpeg-free decoder: arithmetic coding "
-    "(ROADMAP.md, Queue 1 item 1a), or 12-bit precision or lossless coding (item 1b)")
+    "this JPEG is not read by dali_tpu_torch's libjpeg-free decoder: 12-bit precision or "
+    "lossless coding (ROADMAP.md, Queue 1 item 1b)")
 
 # Codes of a decoded sample from ``decode_jpeg_batch``: the route the
 # reference takes for it. libjpeg decodes the stream, or (CMYK and YCCK, which

@@ -1,8 +1,8 @@
 """Build the port's two native libraries from the sources in the checkout.
 
 * ``build/libdali_tpu_torch_host.so`` — the host half of JPEG decode, all
-  libjpeg-free C++ in ``csrc/host/``: the entropy decoder (``jpeg_huff.cc``,
-  int8 and int16 coefficient stores), the wire packer (``sparse_pack.cc``),
+  libjpeg-free C++ in ``csrc/host/``: the entropy decoders (``jpeg_huff.cc``,
+  int8 and int16 coefficient stores; ``jpeg_arith.cc``, arithmetic coding), the wire packer (``sparse_pack.cc``),
   the task pool (``tasking.cc``), the pixel decoders (``jpeg_decode.cc``,
   ``png_decode.cc``, ``bmp_decode.cc``) and the batch entries
   ``coef_{pack,dense,full}_batch.cc``, the affine, perspective and remap
@@ -49,7 +49,7 @@ BUILD_DIR = os.path.join(_ROOT, "build")
 _HOST_SRC = os.path.join(_PKG, "csrc", "host")
 
 HOST_SOURCES = [os.path.join(_HOST_SRC, f) for f in (
-    "jpeg_huff.cc", "sparse_pack.cc", "tasking.cc", "coef_pack_batch.cc",
+    "jpeg_huff.cc", "jpeg_arith.cc", "sparse_pack.cc", "tasking.cc", "coef_pack_batch.cc",
     "coef_dense_batch.cc", "coef_full_batch.cc", "jpeg_decode.cc", "png_decode.cc",
     "bmp_decode.cc", "warp_affine.cc", "jpeg_encode.cc", "flac_decode.cc", "gif_decode.cc",
     "webp_vp8.cc", "webp_vp8l.cc", "webp_decode.cc", "inflate.cc", "tiff_decode.cc",

@@ -23,7 +23,11 @@ corpus:
 * a binary PPM (``pnm_bytes`` here).
 
 ``webp_corpus`` writes the ``rn50`` corpus again as WebP at quality 85
-(``testdata/webp``, the input of the card's webdataset WebP path).
+(``testdata/webp``, the input of the card's webdataset WebP path), and
+``arith_corpus`` losslessly re-codes it with arithmetic coding
+(``testdata/arith``, SOF9 and SOF10 in turn, the card's rn50_arith_train
+path) through ``Transcoder``, a one-off libjpeg transcoder that the
+arithmetic-coding tests build too.
 
 Forms neither cv2 nor PIL writes (YCCK, RGB colour, h=4 luma, partly
 interleaved scans) come from a one-off writer built here against the system
@@ -32,7 +36,8 @@ OpenCV (cv2), PIL, a C compiler and the libjpeg headers; reading the fixtures
 needs none of them.
 
 Usage: python dali_tpu_torch/testdata/make_codec_corpus.py [out_dir]
-(``out_dir`` for the fixtures; the WebP corpus goes to ``testdata/webp``)
+(``out_dir`` for the fixtures; the WebP and arithmetic corpora go to
+``testdata/webp`` and ``testdata/arith``)
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "codecs")
 WEBP_CORPUS = os.path.join(HERE, "webp")
+ARITH_CORPUS = os.path.join(HERE, "arith")
 
 # A libjpeg writer for forms cv2 and PIL do not write. Arguments: raw input
 # (rows of W*C bytes), output, W, H, C (3 RGB or 4 CMYK), colour space
@@ -120,6 +126,59 @@ int main(int argc, char** argv) {
 """
 
 
+# A lossless libjpeg transcoder (jpeg_read_coefficients, then
+# jpeg_write_coefficients): the same quantised coefficients re-coded.
+# Arguments: input JPEG, output, arithmetic (0/1), progressive (0/1: libjpeg's
+# simple progression, successive approximation included), restart interval
+# in MCUs, and the DAC conditioning of every table as "L,U,K" ("-" keeps
+# libjpeg's defaults 0,1,5).
+TRANSCODE_C = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <jpeglib.h>
+
+int main(int argc, char** argv) {
+  if (argc != 7) return 2;
+  struct jpeg_decompress_struct d;
+  struct jpeg_compress_struct c;
+  struct jpeg_error_mgr de, ce;
+  d.err = jpeg_std_error(&de);
+  jpeg_create_decompress(&d);
+  FILE* in = fopen(argv[1], "rb");
+  if (!in) return 3;
+  jpeg_stdio_src(&d, in);
+  jpeg_read_header(&d, TRUE);
+  jvirt_barray_ptr* coefs = jpeg_read_coefficients(&d);
+  c.err = jpeg_std_error(&ce);
+  jpeg_create_compress(&c);
+  FILE* out = fopen(argv[2], "wb");
+  jpeg_stdio_dest(&c, out);
+  jpeg_copy_critical_parameters(&d, &c);
+  c.arith_code = atoi(argv[3]);
+  c.optimize_coding = !c.arith_code;
+  if (atoi(argv[4])) jpeg_simple_progression(&c);
+  c.restart_interval = atoi(argv[5]);
+  if (argv[6][0] != '-') {
+    int L, U, K;
+    if (sscanf(argv[6], "%d,%d,%d", &L, &U, &K) != 3) return 4;
+    for (int t = 0; t < NUM_ARITH_TBLS; t++) {
+      c.arith_dc_L[t] = L;
+      c.arith_dc_U[t] = U;
+      c.arith_ac_K[t] = K;
+    }
+  }
+  jpeg_write_coefficients(&c, coefs);
+  jpeg_finish_compress(&c);
+  jpeg_destroy_compress(&c);
+  fclose(out);
+  jpeg_finish_decompress(&d);
+  jpeg_destroy_decompress(&d);
+  fclose(in);
+  return 0;
+}
+"""
+
+
 def _source(i, h, w):
     """An RGB uint8 image of h x w from the i-th rn50 corpus file."""
     import cv2
@@ -150,6 +209,48 @@ class Writer:
                         str(int(progressive)), sampling, scans], check=True)
         with open(out, "rb") as f:
             return f.read()
+
+
+class Transcoder:
+    """The lossless libjpeg transcoder, compiled into a temporary directory:
+    ``t(jpeg, arith=True, progressive=False, restart=0, dac=None)`` returns
+    the stream re-coded (``dac`` = (L, U, K) for every table)."""
+
+    def __init__(self, tmp):
+        self.tmp = tmp
+        src = os.path.join(tmp, "transcode.c")
+        self.exe = os.path.join(tmp, "transcode")
+        with open(src, "w") as f:
+            f.write(TRANSCODE_C)
+        subprocess.run(["cc", "-O1", "-o", self.exe, src, "-ljpeg"], check=True)
+
+    def __call__(self, jpeg, arith=True, progressive=False, restart=0, dac=None):
+        src = os.path.join(self.tmp, "t_in.jpg")
+        out = os.path.join(self.tmp, "t_out.jpg")
+        with open(src, "wb") as f:
+            f.write(jpeg)
+        subprocess.run([self.exe, src, out, str(int(arith)), str(int(progressive)),
+                        str(restart), "-" if dac is None else "%d,%d,%d" % tuple(dac)],
+                       check=True)
+        with open(out, "rb") as f:
+            return f.read()
+
+
+def arith_corpus(out=ARITH_CORPUS):
+    """The rn50 corpus losslessly re-coded with arithmetic coding, in the same
+    class folders: sorted file i is extended sequential (SOF9) for even i,
+    progressive (SOF10) for odd i."""
+    root = os.path.join(HERE, "rn50")
+    files = sorted(os.path.relpath(os.path.join(r, f), root) for r, _, fs in os.walk(root)
+                   for f in fs if f.endswith(".jpg"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t = Transcoder(tmp)
+        for i, rel in enumerate(files):
+            with open(os.path.join(root, rel), "rb") as f:
+                data = t(f.read(), arith=True, progressive=i % 2 == 1)
+            os.makedirs(os.path.dirname(os.path.join(out, rel)), exist_ok=True)
+            with open(os.path.join(out, rel), "wb") as f:
+                f.write(data)
 
 
 def rle8_bmp(index, palette):
@@ -589,3 +690,4 @@ def webp_corpus(out=WEBP_CORPUS):
 if __name__ == "__main__":
     build(sys.argv[1] if len(sys.argv) > 1 else OUT)
     webp_corpus()
+    arith_corpus()

@@ -19,9 +19,11 @@ a host bfloat16 sample as a ``torch.bfloat16`` CPU tensor (``types.py``).
   packages give equal bits, or both raise. Device random draws differ by
   design (ROADMAP Queue 3, the device-random contract), so there the dtype
   and shapes are compared. The pairs where the packages part for older
-  reasons are pinned in ``DEPARTS`` (each in ROADMAP Queue 3), and the
-  F6-residue, a host op reading a bfloat16 input, in
-  ``test_host_ops_reading_bfloat16_depart``.
+  reasons are pinned in ``DEPARTS`` (each in ROADMAP Queue 3);
+* every cpu placement fed a bfloat16 input: the placements dali_tpu
+  computes on give its dtype and bits in the port, with default arguments
+  and with arguments that move the values (NaN and infinities in the
+  input), in pipelines and in eager mode; the rest raise in both.
 """
 
 import io
@@ -476,28 +478,38 @@ def test_sweep_dtype_bfloat16(schema, device, tmp_path):
 
 
 def test_host_ops_reading_bfloat16_depart():
-    """F6-residue (ROADMAP Queue 3), repaired for the reductions: a host
-    reduction reading a bfloat16 input gives dali_tpu's values (float32
-    from an exact upcast; Max and Min the chosen element, still bfloat16)."""
-    for kind in ("sum", "max", "std_dev"):
-        def graph(fn, types, kind=kind):
-            return getattr(fn.reductions, kind)(fn.cast(_src(fn, FLT), dtype=types.BFLOAT16),
-                                                axes=[0, 1])
+    """F6-residue, closed: host ops reading a bfloat16 input give dali_tpu's
+    dtype and values: a reduction (float32 from an exact upcast; Max the
+    chosen element, still bfloat16), a bit mover (Flip), a bfloat16 result
+    (Brightness, rounded once from float32), a float32 one (Normalize) and
+    CastLike to and from another type."""
+    graphs = {
+        "sum": lambda fn, t, x: fn.reductions.sum(x, axes=[0, 1]),
+        "max": lambda fn, t, x: fn.reductions.max(x, axes=[0, 1]),
+        "std_dev": lambda fn, t, x: fn.reductions.std_dev(x, axes=[0, 1]),
+        "flip": lambda fn, t, x: fn.flip(x, horizontal=1, vertical=1),
+        "brightness": lambda fn, t, x: fn.brightness(x, brightness=1.3, brightness_shift=0.1),
+        "normalize": lambda fn, t, x: fn.normalize(x, mean=100.0, stddev=40.0, scale=1.5),
+        "cast_like_int": lambda fn, t, x: fn.cast_like(x, fn.cast(x, dtype=t.INT32)),
+        "cast_like_float": lambda fn, t, x: fn.cast_like(fn.cast(x, dtype=t.FLOAT), x)}
+    for kind, op in graphs.items():
+        def graph(fn, types, op=op):
+            return op(fn, types, fn.cast(_src(fn, FLT), dtype=types.BFLOAT16))
 
         res = _run_both(graph)
         for a, b in zip(res["dali_tpu_torch"][0], res["dali_tpu"][0]):
-            if kind == "max":
+            assert _dtype_name(a) == _dtype_name(b), kind
+            if _dtype_name(b) == "bfloat16":
                 np.testing.assert_array_equal(_bits(a), _bits(b))
             else:
-                assert np.asarray(a).dtype == np.asarray(b).dtype == np.float32
                 np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 # Every cpu placement of the port with an input (readers and inputs have
 # none), fed a bfloat16 image: the placements dali_tpu computes on it (its
-# ml_dtypes arrays behave as numpy floats). Of those, the reductions give
-# dali_tpu's results in the port too; the rest raise TypeError naming
-# F6-residue (ROADMAP Queue 3). Every other placement raises in both.
+# ml_dtypes arrays behave as numpy floats). The port gives dali_tpu's dtype
+# and bits on each (F6-residue, closed); every other placement raises in
+# both.
 BF16_INPUT_COMPUTES = {
     "BbFlip", "Brightness", "BrightnessContrast", "CastLike", "Cat", "ColorTwist", "Contrast",
     "CoordFlip", "CoordTransform", "Copy", "CropMirrorNormalize", "Erase", "Flip",
@@ -511,7 +523,7 @@ BF16_INPUT_COMPUTES = {
     "reductions.Mean", "reductions.MeanSquare", "reductions.Min", "reductions.RootMeanSquare",
     "reductions.StdDev", "reductions.Sum", "reductions.Variance",
     "segmentation.RandomMaskPixel", "segmentation.RandomObjectBBox", "transforms.Combine"}
-BF16_INPUT_PORTED = {n for n in BF16_INPUT_COMPUTES if n.startswith("reductions.")}
+BF16_INPUT_PORTED = set(BF16_INPUT_COMPUTES)
 
 
 def _with_input(name):
@@ -550,7 +562,7 @@ def _bf16_input_run(pkg, name):
 def test_bf16_input_sweep_covers_the_registry():
     assert len(BF16_INPUT_SWEEP) >= 120
     assert BF16_INPUT_COMPUTES <= set(BF16_INPUT_SWEEP)
-    assert len(BF16_INPUT_COMPUTES - BF16_INPUT_PORTED) == 57  # ROADMAP Queue 3, F6-residue
+    assert len(BF16_INPUT_COMPUTES - BF16_INPUT_PORTED) == 0  # F6-residue closed
 
 
 @pytest.mark.parametrize("name", BF16_INPUT_SWEEP)
@@ -567,10 +579,162 @@ def test_bf16_input_sweep(name):
                     np.testing.assert_array_equal(_bits(a), _bits(b))
                 else:
                     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    elif name in BF16_INPUT_COMPUTES:
-        assert isinstance(port, TypeError) and "F6-residue" in str(port), port
     else:
         assert isinstance(port, Exception), port
+
+
+# Each placement dali_tpu computes on, with arguments that move the values
+# (defaults leave many ops near the identity, which would hide a rounding),
+# on random float32 values cast to bfloat16 with NaN and infinities among
+# them: (input kind, inputs, arguments). Inputs are drawn per kind.
+def _bf16_case_input(kind, rng):
+    """N samples of one input kind, float32 (cast to bfloat16 in the graph)."""
+    out = []
+    for i in range(N):
+        if kind == "img":
+            x = (rng.standard_normal((12, 14, 3)) * 60 + 100).astype(np.float32)
+            x.reshape(-1)[[0, 40 + i, 77, 150]] = [np.nan, np.inf, -np.inf, -np.nan]
+        elif kind == "ints":
+            x = rng.integers(0, 6, (12, 14, 3)).astype(np.float32)
+        elif kind == "boxes":
+            lt = rng.random((5, 2)) * 0.5
+            x = np.concatenate([lt, lt + 0.1 + rng.random((5, 2)) * 0.4], 1).astype(np.float32)
+        elif kind == "points":
+            x = (rng.random((5, 2)) * 3 - 1).astype(np.float32)
+            x[1, 1] = np.nan
+        elif kind == "audio":
+            x = (rng.standard_normal(200) * 0.3).astype(np.float32)
+        elif kind == "spec":
+            x = (rng.random((20, 12)) * 50 + 1e-3).astype(np.float32)
+        elif kind == "shape":
+            x = np.array([200 + 20 * i, 300, 3], np.float32)
+        elif kind == "mask":
+            x = np.zeros((12, 14), np.float32)
+            x[2:6, 3:8] = 1
+            x[7:11, 1 + i:6] = 2
+        elif kind == "matrix":
+            x = (rng.standard_normal((2, 3)) * 2).astype(np.float32)
+        elif kind == "squeeze":
+            x = (rng.standard_normal((12, 1, 3)) * 60 + 100).astype(np.float32)
+        out.append(x)
+    return out
+
+
+BF16_CASE_LAYOUT = {"img": "HWC", "ints": "HWC", "squeeze": "HWC", "audio": "", "spec": "ft",
+                    "mask": "HW", "boxes": "", "points": "", "shape": "", "matrix": ""}
+
+# name: (input kind, inputs, kwargs)
+BF16_CASES = {
+    "BbFlip": ("boxes", 1, dict(horizontal=1, vertical=1, ltrb=True)),
+    "Brightness": ("img", 1, dict(brightness=1.3, brightness_shift=0.1)),
+    "BrightnessContrast": ("img", 1, dict(brightness=1.3, brightness_shift=0.1, contrast=0.7,
+                                          contrast_center=90.0)),
+    "CastLike": ("img", 2, {}),
+    "Cat": ("img", 2, dict(axis=1)),
+    "ColorTwist": ("img", 1, dict(brightness=1.3, contrast=0.8, hue=40.0, saturation=1.2)),
+    "Contrast": ("img", 1, dict(contrast=1.4, contrast_center=90.0)),
+    "CoordFlip": ("points", 1, dict(flip_x=1, flip_y=1, center_x=0.3, center_y=0.7)),
+    "CoordTransform": ("points", 1, dict(M=[1.5, 0.2, -0.3, 0.8], T=[0.1, -2.0])),
+    "Copy": ("img", 1, {}),
+    "CropMirrorNormalize": ("img", 1, dict(crop=(8, 9), crop_pos_x=0.3, mirror=1,
+                                           mean=[100.5, 90.25, 80.0], std=[50.0, 60.0, 70.0],
+                                           scale=1.3, shift=0.2)),
+    "Erase": ("img", 1, dict(anchor=[2, 3], shape=[4, 5], axis_names="HW",
+                             fill_value=[1.7, 2.3, 3.1])),
+    "Flip": ("img", 1, dict(horizontal=1, vertical=1)),
+    "GaussianBlur": ("img", 1, dict(sigma=1.5)),
+    "GridMask": ("img", 1, dict(ratio=0.4, tile=5, angle=0.3, shift_x=1.5)),
+    "Hsv": ("img", 1, dict(hue=40.0, saturation=1.3, value=0.9)),
+    "Hue": ("img", 1, dict(hue=40.0)),
+    "Jitter": ("img", 1, dict(nDegree=3, fill_value=2.7)),
+    "Laplacian": ("img", 1, dict(window_size=5, scale=0.7)),
+    "LookupTable": ("ints", 1, dict(keys=[1, 2, 3], values=[10.5, 20.25, -3.3], default_value=0.7)),
+    "MFCC": ("spec", 1, dict(n_mfcc=8, lifter=2.0, normalize=True)),
+    "NonsilentRegion": ("audio", 1, dict(cutoff_db=-30.0, window_length=16)),
+    "Normalize": ("img", 1, dict(mean=100.0, stddev=40.0, scale=1.5, shift=0.2)),
+    "Ones": ("img", 1, {}),
+    "OnesLike": ("img", 1, {}),
+    "Pad": ("img", 1, dict(axes=[0, 1], shape=[16, 18], fill_value=2.7)),
+    "PerFrame": ("img", 1, {}),
+    "PowerSpectrum": ("audio", 1, dict(nfft=32, power=1)),
+    "PreemphasisFilter": ("audio", 1, dict(preemph_coeff=0.9, border="zero")),
+    "RandomBBoxCrop": ("boxes", 1, dict(aspect_ratio=[0.5, 2.0], thresholds=[0.1, 0.3],
+                                        scaling=[0.3, 1.0])),
+    "RandomCropGenerator": ("shape", 1, dict(random_area=[0.2, 0.9])),
+    "Reinterpret": ("img", 1, dict(rel_shape=[1, 1, 1], layout="ABC")),
+    "Reshape": ("img", 1, dict(shape=[14, 12, 3])),
+    "SSDRandomCrop": ("img", 3, dict(num_attempts=3)),
+    "Saturation": ("img", 1, dict(saturation=1.4)),
+    "Shapes": ("img", 1, {}),
+    "Slice": ("img", 1, dict(start=[2, 3], shape=[12, 14], axis_names="HW",
+                             out_of_bounds_policy="pad", fill_values=2.7)),
+    "Spectrogram": ("audio", 1, dict(nfft=32, window_length=32, window_step=8)),
+    "Sphere": ("img", 1, dict(fill_value=2.7)),
+    "Squeeze": ("squeeze", 1, dict(axes=[1])),
+    "Stack": ("img", 2, dict(axis=1)),
+    "ToDecibels": ("spec", 1, dict(multiplier=20.0, reference=3.0, cutoff_db=-50.0)),
+    "Water": ("img", 1, dict(ampl_x=3.0, ampl_y=2.0, freq_x=0.3, phase_y=0.5, fill_value=2.7)),
+    "Zeros": ("img", 1, {}),
+    "ZerosLike": ("img", 1, {}),
+    "experimental.AudioResample": ("audio", 1, dict(scale=0.7)),
+    "experimental.Clahe": ("img", 1, dict(tiles_x=2, tiles_y=2, clip_limit=3.0)),
+    "noise.Gaussian": ("img", 1, dict(stddev=5.0, mean=1.5)),
+    "noise.SaltAndPepper": ("img", 1, dict(prob=0.2, salt_val=200.7, pepper_val=-3.3)),
+    "random.Beta": ("img", 1, dict(alpha=2.0, beta=3.0)),
+    "random.Choice": ("audio", 1, dict(shape=[4])),
+    "random.CoinFlip": ("img", 1, dict(probability=0.3)),
+    "random.Normal": ("img", 1, dict(mean=2.0, stddev=3.0)),
+    "random.Uniform": ("img", 1, dict(range=[-2.0, 5.0])),
+    "segmentation.RandomMaskPixel": ("mask", 1, dict(value=1)),
+    "segmentation.RandomObjectBBox": ("mask", 1, dict(classes=[1, 2], k_largest=2)),
+    "transforms.Combine": ("matrix", 2, {}),
+    "reductions.Max": ("img", 1, dict(axes=[0, 1])),
+    "reductions.Min": ("img", 1, dict(axes=[1], keep_dims=True)),
+    "reductions.Sum": ("img", 1, dict(axes=[0, 1])),
+    "reductions.Mean": ("img", 1, dict(axes=[1])),
+    "reductions.MeanSquare": ("img", 1, dict(axes=[0])),
+    "reductions.RootMeanSquare": ("img", 1, dict(axes=[0, 2])),
+    "reductions.StdDev": ("img", 1, dict(axes=[0, 1], ddof=1)),
+    "reductions.Variance": ("img", 1, dict(axes=[1], ddof=1)),
+}
+_CASE_RNG = np.random.default_rng(31)
+BF16_CASE_INPUTS = {k: _bf16_case_input(k, _CASE_RNG) for k in BF16_CASE_LAYOUT}
+
+
+def test_bf16_case_sweep_covers_every_computing_placement():
+    assert set(BF16_CASES) == BF16_INPUT_COMPUTES
+    img = np.concatenate([x.reshape(-1) for x in BF16_CASE_INPUTS["img"]])
+    assert np.isnan(img).any() and np.isposinf(img).any() and np.isneginf(img).any()
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bf16_input_with_arguments(name):
+    """dali_tpu computes on each case, and the port gives the same dtype and
+    bits (bfloat16 compared as uint16, NaN at the same places)."""
+    kind, n_in, kw = BF16_CASES[name]
+    data = BF16_CASE_INPUTS[kind]
+
+    def graph(fn, types):
+        x = fn.cast(_src(fn, data, BF16_CASE_LAYOUT[kind]), dtype=types.BFLOAT16)
+        op = (dali_tpu if types is dali_tpu.types else dali_tpu_torch).ops
+        for part in name.split("."):
+            op = getattr(op, part)
+        out = op(device="cpu", **kw)(*([x] * n_in))
+        return tuple(out) if isinstance(out, (list, tuple)) else (out,)
+
+    res = _run_both(graph)
+    port, ref = res["dali_tpu_torch"], res["dali_tpu"]
+    assert not isinstance(ref, type), ref
+    assert not isinstance(port, type), port
+    assert len(port) == len(ref)
+    for po, ro in zip(port, ref):
+        for a, b in zip(po, ro):
+            assert _dtype_name(a) == _dtype_name(b)
+            assert tuple(a.shape) == tuple(b.shape)
+            if _dtype_name(b) == "bfloat16":
+                np.testing.assert_array_equal(_bits(a), _bits(b))
+            else:
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 # ------------------------------------------------------------------- eager mode
@@ -602,22 +766,29 @@ def test_ndd_bfloat16_host_batch_to_the_device(data):
 
 
 def test_ndd_host_op_reading_bfloat16_departs():
-    """F6-residue in eager mode, as in a pipeline: a host reduction reading
-    a bfloat16 batch gives dali_tpu's ndd's values; an op still outside the
-    repair (Flip) raises TypeError naming F6-residue in the port."""
+    """F6-residue, closed in eager mode too: host ops reading a bfloat16
+    batch give dali_tpu's ndd's dtype and bits (a reduction, Flip, Pad with a
+    fill that rounds, Hue, GaussianBlur, Normalize), NaN and infinities
+    included."""
     import dali_tpu.experimental.dynamic as ref_ndd
     import dali_tpu_torch.experimental.dynamic as ndd
 
-    with ref_ndd.EvalContext(seed=5):
-        b = ref_ndd.cast(ref_ndd.as_batch(FLT, layout="HWC"), dtype=dali_tpu.types.BFLOAT16)
-        want = [ref_ndd.reductions.sum(b).at(i) for i in range(N)]
-        want_max = [ref_ndd.reductions.max(b).at(i) for i in range(N)]
-    with ndd.EvalContext(seed=5, device="cpu"):
-        b = ndd.cast(ndd.as_batch(FLT, layout="HWC"), dtype=dali_tpu_torch.types.BFLOAT16)
-        got = ndd.reductions.sum(b)
-        got_max = ndd.reductions.max(b)
-        for i in range(N):
-            np.testing.assert_array_equal(np.asarray(got.at(i)), np.asarray(want[i]))
-            np.testing.assert_array_equal(_bits(got_max.at(i)), _bits(want_max[i]))
-        with pytest.raises(TypeError, match="F6-residue"):
-            ndd.flip(b)
+    data = BF16_CASE_INPUTS["img"]
+    calls = [lambda m, b: m.reductions.sum(b), lambda m, b: m.reductions.max(b),
+             lambda m, b: m.flip(b, horizontal=1),
+             lambda m, b: m.pad(b, axes=[0, 1], shape=[16, 18], fill_value=2.7),
+             lambda m, b: m.hue(b, hue=40.0), lambda m, b: m.gaussian_blur(b, sigma=1.5),
+             lambda m, b: m.normalize(b, mean=100.0, stddev=40.0, scale=1.5, shift=0.2)]
+    out = []
+    for m, types, ctx in ((ref_ndd, dali_tpu.types, ref_ndd.EvalContext(seed=5)),
+                          (ndd, dali_tpu_torch.types, ndd.EvalContext(seed=5, device="cpu"))):
+        with ctx:
+            b = m.cast(m.as_batch(data, layout="HWC"), dtype=types.BFLOAT16)
+            out.append([[r.at(i) for i in range(N)] for r in (c(m, b) for c in calls)])
+    for want, got in zip(*out):
+        for a, b in zip(got, want):
+            assert _dtype_name(a) == _dtype_name(b)
+            if _dtype_name(b) == "bfloat16":
+                np.testing.assert_array_equal(_bits(a), _bits(b))
+            else:
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

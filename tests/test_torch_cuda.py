@@ -41,7 +41,8 @@ ties, the sequence_augment and volume_augment graphs and the GIF fixtures
 through the mixed decoders equal the CPU run; the ASR front end on FLAC
 equals it on WAV of the same PCM, bit for bit. The DataLoader proxy's
 batches and the C API's served outputs on the card match the CPU run's
-within one uint8 step / std."""
+within one uint8 step / std. rn50_train's recipe over the arithmetic-coded
+twin corpus gives the Huffman corpus's batches bit for bit."""
 
 import os
 
@@ -592,7 +593,7 @@ def test_unported_image_paths_raise_on_card(card):
                  "rb").read()
     sof = first.index(b"\xff\xc0")
     twelve_bit = first[:sof + 4] + b"\x0c" + first[sof + 5:]
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1a\), or 12-bit"):
+    with pytest.raises(NotImplementedError, match=r"12-bit precision or lossless coding"):
         run(twelve_bit, device="mixed")
     # volumes blur on the card since item 5h.7, as on the CPU
     vols = [np.random.default_rng(2).integers(0, 256, (3, 6, 8, 1), np.uint8)] * 2
@@ -1854,3 +1855,34 @@ def test_video_mixed_reader_equals_cpu_reader(card):
     r = bench_video.check_mixed_vs_cpu(batch=4, batches=2)
     assert r["frames"] == 2 * 4 * bench_video.FRAMES
     assert bench_video.check_fixtures()["clips"] == 36
+
+
+@pytest.mark.parametrize("device", ["cuda:0", "cpu"])
+def test_arith_twins_equal_huffman_batches_on_card(card, device):
+    """rn50_train's recipe over the arithmetic-coded twin corpus and over the
+    Huffman originals, same seeds and file order: the uint8 crops, FLOAT CHW
+    images and labels of two batches of 16 equal bit for bit."""
+    from dali_tpu_torch.tools import bench_arith
+
+    r = bench_arith.check_twins(batch=16, batches=2, device=device)
+    assert r["crops"] == 32 and r["float_values"] == 2 * 16 * 3 * 224 * 224
+
+
+def test_rn50_arith_train_on_card_matches_cpu(card):
+    """rn50_arith_train at batch 16 on the card against the CPU run: labels
+    equal, images within one uint8 step / std on at most 1e-3 of values."""
+    from dali_tpu_torch.tools import bench_arith
+
+    outs = []
+    for device in (card, "cpu"):
+        pipe = bench_arith.make_pipe(bench_arith.write_file_list("rn50_arith_train", 16), 16,
+                                     device)
+        try:
+            res = pipe.run()
+            outs.append((res[0].as_tensor().cpu(), res[1].as_array()))
+        finally:
+            pipe.shutdown()
+    (g_img, g_lab), (c_img, c_lab) = outs
+    np.testing.assert_array_equal(g_lab, c_lab)
+    d = (g_img - c_img).abs()
+    assert float(d.max()) <= LSB and float((d > 1e-4).float().mean()) <= MAX_FLIP_FRACTION

@@ -347,9 +347,9 @@ def test_not_ported_decoder_forms_raise():
         run(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 2 +X 2\n" + bytes(16), device="mixed")
     data = cv2.imencode(".jpg", img)[1].tobytes()
     sof = data.index(b"\xff\xc0")
-    arithmetic = data[:sof + 1] + b"\xc9" + data[sof + 2:]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 1a"):
-        run(arithmetic, device="cpu")
+    twelve_bit = data[:sof + 4] + b"\x0c" + data[sof + 5:]
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 1b"):
+        run(twelve_bit, device="cpu")
     with pytest.raises(ValueError, match="hybrid_wire"):
         build(device="mixed", hybrid_device_decode=True, hybrid_wire="int4")
     with pytest.raises(ValueError, match="device='mixed'"):

@@ -336,18 +336,57 @@ def test_pixel_decode_non_interleaved_baseline(sampling):
 
 # -- streams the decoder does not take, the batch entry, the build ------------------------------
 def test_unsupported_streams_raise_not_implemented():
-    """The forms still declined: arithmetic coding (SOF9), 12-bit precision
-    and lossless coding (SOF3), each patched into a corpus stream's frame."""
+    """The forms still declined, 12-bit precision and lossless coding (SOF3),
+    each patched into a corpus stream's frame, raise item 1b. A Huffman scan
+    patched to SOF9 is read as arithmetic-coded data, as libjpeg reads it (a
+    magnitude or spectral overflow stops the scan, extreme coefficients
+    before it): the coefficients and pixels equal libjpeg's."""
     data = _encode(_base())
     sof = data.index(b"\xff\xc0")
     sof9 = data[:sof + 1] + b"\xc9" + data[sof + 2:]
     twelve = data[:sof + 4] + b"\x0c" + data[sof + 5:]
     sof3 = data[:sof + 1] + b"\xc3" + data[sof + 2:]
-    for bad, item in ((sof9, "1a"), (twelve, "1b"), (sof3, "1b")):
-        with pytest.raises(NotImplementedError, match=rf"Queue 1 item {item}|item {item}\)"):
+    for bad in (twelve, sof3):
+        with pytest.raises(NotImplementedError, match=r"Queue 1 item 1b"):
             port_native.decode_jpeg(bad)
+    _assert_read_equal(sof9, ks=[(8, 8)])
+    _assert_decode_equal(sof9)
     with pytest.raises(ValueError, match="corrupt"):
         port_native.decode_jpeg(_encode(_base())[:60])
+
+
+def _with_16bit_tables(data: bytes, rng, top: int) -> bytes:
+    """``data`` with each DQT segment rewritten as 16-bit tables of random
+    values in [1, top]: dequantised coefficients far outside the 8-bit range."""
+    out, i = bytearray(data[:2]), 2
+    while i < len(data) and data[i] == 0xFF:
+        m, length = data[i + 1], (data[i + 2] << 8) | data[i + 3]
+        if m == 0xDB:
+            seg, j, body = data[i + 4:i + 2 + length], 0, bytearray()
+            while j < len(seg):
+                body += bytes([0x10 | (seg[j] & 15)]) + b"".join(
+                    int(v).to_bytes(2, "big") for v in rng.integers(1, top + 1, 64))
+                j += 1 + (128 if seg[j] >> 4 else 64)
+            out += b"\xff\xdb" + (len(body) + 2).to_bytes(2, "big") + body
+        else:
+            out += data[i:i + 2 + length]
+        if m == 0xDA:
+            return bytes(out + data[i + 2 + length:])
+        i += 2 + length
+    raise AssertionError("no scan")
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_pixel_decode_with_16bit_quantisers(seed):
+    """Dequantised values past 16 bits: the 8x8, 4x4 and 2x2 IDCTs follow
+    libjpeg-turbo's SIMD lanes (products' low 16 bits, 16-bit sums and DC
+    shortcuts that wrap, saturating packs), the 1x1 its C wrap."""
+    rng = np.random.default_rng(seed)
+    img = _sized(_base(seed), (int(rng.integers(8, 40)), int(rng.integers(8, 40))))
+    data = _with_16bit_tables(_encode(img, ["420", "444", "422"][seed % 3],
+                                      quality=int(rng.integers(5, 100))),
+                              rng, [300, 3000, 65535][seed % 3])
+    _assert_decode_equal(data)
 
 
 def test_decode_batch_into_strided_canvas():
