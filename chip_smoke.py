@@ -427,6 +427,22 @@ on failure:
    order, 2 batches of 256: uint8 crops, FLOAT CHW images and labels equal
    bit for bit on the card; the host coefficient read of each corpus on one
    thread; then batch 16 on the card against the CPU.
+42. video_flow_train (``tools/bench_video_flow.py``): C3D's two-stream
+   input over the 32 clips of ``testdata/video/corpus``:
+   ``readers.video_resize(sequence_length=8, stride=2, random_shuffle=True,
+   resize_x=171, resize_y=128)`` on the host, ``optical_flow(output_grid=4)``
+   on the host (``[7, 32, 43, 2]`` float32 a sequence, then ``.gpu()``), the
+   frames ``.gpu()`` and CMN to FLOAT FCHW with a random 112x112 crop and a
+   coin-flip mirror, batch 32: 3 warm-up + 5 timed batches, each checked
+   for shapes, dtypes, device, finiteness and label range; clips/s and
+   frames/s beside rn50_train's rate, host ms by schema, the device wait,
+   device ms by stage of one batch alone, peak memory, the exact CMN launch
+   count; the CMN kernel (FCHW fold) held against its plain version on the
+   path's own batch (max abs diff 0) and timed on it; the host costs apart
+   (the resample of a batch's frames on one thread, the flow of one pair on
+   one thread and of a batch's pairs on the pool); the reader on
+   ``device="mixed"`` against the cpu placement, 2 batches: uint8 frames
+   equal on the card; then batch 16 on the card against the CPU.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -475,6 +491,7 @@ SEQ_TIMED, VOLUME_AUGMENT_TIMED = 10, 10
 PLUGIN_TIMED = 10
 VIDEO_TIMED = 10
 ARITH_TIMED = 10
+VIDEO_FLOW_TIMED = 5
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -1969,6 +1986,47 @@ def arith_phase(card, rn50_ips):
     return r["cmn_launches"], c
 
 
+def video_flow_phase(card, rn50_ips):
+    """Phase 42: video_flow_train, its host costs, the mixed reader against
+    the cpu one, then batch 16 against the CPU; returns its CMN launches and
+    the kernel's readings on the path's batch."""
+    from dali_tpu_torch.tools import bench_video_flow as bf
+
+    t0 = time.perf_counter()
+    form = "video_flow_train"
+    r = bf.run(warmup=WARMUP, timed=VIDEO_FLOW_TIMED)
+    c = r["cmn"]
+    print(f"{form} batch {r['batch']}x{bf.FRAMES} frames: {r['clips_per_s']:.2f} clips/s, "
+          f"{r['frames_per_s']:.1f} frames/s over {r['timed']} batches "
+          f"({100 * r['frames_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} images/s "
+          f"in this run); host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} "
+          f"host cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; cmn "
+          f"launches {r['cmn_launches']} ({card})")
+    print(f"{form} host ms/batch by schema: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in r["host_ms_by_schema"].items() if v >= 0.05) + f" ({card})")
+    print(f"{form} device ms of one batch alone: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r["stage_ms"].items())
+        + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    require(c["max_abs_err"] == 0, f"{form}: CMN kernel {c['max_abs_err']} from its plain version")
+    print(f"{form} CMN kernel (FCHW fold) on the path's own batch {c['shape_in']} "
+          f"{c['dtype_in']} -> {c['shape_out']} float32: max abs diff vs plain "
+          f"{c['max_abs_err']:.3e}; kernel alone {c['ms']:.4f} ms (cold L2), wrapper "
+          f"{c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} bytes, bound "
+          f"{c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+    h = bf.host_costs()
+    print(f"{form} host costs apart: resample of a batch's frames (320x240 -> 171x128) "
+          f"{h['resample_ms_per_batch_one_thread']:.1f} ms on one thread; Farneback flow "
+          f"{h['flow_ms_per_pair_one_thread']:.2f} ms a pair on one thread, "
+          f"{h['flow_ms_per_batch_pool']:.1f} ms for a batch's {h['pairs']} pairs on "
+          f"{h['threads']} threads ({h['flow_ms_per_pair_pool']:.2f} ms a pair) ({card})")
+    k = bf.check_mixed_vs_cpu()
+    print(f"{form} reader device=\"mixed\" against the cpu placement: {k['frames']} uint8 "
+          f"frames of {k['batches']} batches equal on the card ({card})")
+    reference_phase(None, make=lambda b, d: bf.make_pipe(b, d), what=f" ({form})", batch=16)
+    print(f"{form} phase: {time.perf_counter() - t0:.1f} s")
+    return r["cmn_launches"], c
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2035,6 +2093,7 @@ def main():
     launches["dryrun_multidevice"], path_cmn["dryrun_multidevice"] = dryrun_phase(card)
     launches["video_clip_train"], path_cmn["video_clip_train"] = video_phase(card, rn50_ips)
     launches["rn50_arith_train"], path_cmn["rn50_arith_train"] = arith_phase(card, rn50_ips)
+    launches["video_flow_train"], path_cmn["video_flow_train"] = video_flow_phase(card, rn50_ips)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

@@ -1,7 +1,7 @@
-"""Legacy and experimental operator names, where the names not ported yet
-stand in ROADMAP.md, experimental.WarpPerspective (cpu and gpu),
-TensorResize's schema and cpu placement, and decoders.Video with its alias
-experimental.decoders.Video (counterpart of
+"""Legacy and experimental operator names, experimental.WarpPerspective
+(cpu and gpu), TensorResize's schema and cpu placement, decoders.Video with
+its alias experimental.decoders.Video, and readers.VideoResize (cpu and
+mixed) with its alias VideoReaderResize (counterpart of
 ``dali_tpu/backend/parity.py`` ``_LEGACY``, ``register_aliases`` and those
 operators). The cpu WarpPerspective, where the reference calls
 cv2.warpPerspective, runs the port's C++ (``native.warp_perspective``, equal
@@ -64,9 +64,9 @@ _LEGACY = {
     "reductions.RMS": "reductions.RootMeanSquare",
 }
 
-# The ROADMAP.md Queue 1 item of each dali_tpu operator the port lacks.
-QUEUE_ITEMS = {n: "item 8b" for n in ("readers.VideoResize", "VideoReaderResize", "OpticalFlow")}
-QUEUE_ITEMS.update({a: QUEUE_ITEMS[t] for a, t in _LEGACY.items() if t in QUEUE_ITEMS})
+# The ROADMAP.md Queue 1 item of each dali_tpu operator the port lacks: none
+# since item 8b's registry part.
+QUEUE_ITEMS = {}
 
 
 # The one deliberate renaming: the reference's gpu _JaxFunction traces a JAX
@@ -78,7 +78,8 @@ RENAMED = {"_JaxFunction": "_TorchFunction"}
 # beside its legacy table (``alias_schema``)
 _DEPRECATED = {"TransformTranslation": "transforms.Translation",
                "experimental.TensorResize": "TensorResize", "experimental.Resize": "Resize",
-               "experimental.decoders.Video": "decoders.Video"}
+               "experimental.decoders.Video": "decoders.Video",
+               "VideoReaderResize": "readers.VideoResize"}
 
 
 # ====================================== WarpPerspective ===========================================
@@ -452,6 +453,106 @@ class VideoDecoder(Operator):
 
     def output_layout(self, j, inputs):
         return "FHWC"
+
+
+# ====================================== readers.VideoResize =======================================
+
+from .video import _VideoReaderImpl  # noqa: E402
+
+
+def _video_resize_schema():
+    """readers.Video's arguments and outputs, and the resize arguments."""
+    s = DALI_SCHEMA("readers.VideoResize")
+    base = _registry["readers.Video"]
+    s.DocStr("readers.Video fused with per-frame resize (reference readers__VideoResize).")
+    s.args = dict(base.args)
+    s.min_inputs, s.max_inputs = base.min_inputs, base.max_inputs
+    s.output_fn = base.output_fn
+    s.num_outputs = base.num_outputs
+    s.devices = ("cpu", "mixed")
+    s.is_reader = True
+    s.is_stateless = False
+    s.AddOptionalArg("resize_x", ArgType.FLOAT, "Output width.", 0.0)
+    s.AddOptionalArg("resize_y", ArgType.FLOAT, "Output height.", 0.0)
+    s.AddOptionalArg("resize_shorter", ArgType.FLOAT, "Resize shorter edge.", 0.0)
+    s.AddOptionalArg("resize_longer", ArgType.FLOAT, "Resize longer edge.", 0.0)
+    s.AddOptionalArg("size", ArgType.FLOAT_VEC, "Output size (H, W).", None)
+    s.AddOptionalArg("mode", ArgType.STRING,
+                     '"default", "stretch", "not_larger", "not_smaller".', "default")
+    s.AddOptionalArg("interp_type", ArgType.INTERP_TYPE, "Interpolation.",
+                     DALIInterpType.INTERP_LINEAR)
+    s.AddOptionalArg("antialias", ArgType.BOOL, "Antialias on downscale.", True)
+    s.AddOptionalArg("mag_filter", ArgType.INTERP_TYPE, "Filter for upscaling.", None)
+    s.AddOptionalArg("min_filter", ArgType.INTERP_TYPE, "Filter for downscaling.", None)
+    s.AddOptionalArg("roi_relative", ArgType.BOOL, "ROI in relative coords.", False)
+    s.AddOptionalArg("roi_start", ArgType.FLOAT_VEC, "Input ROI origin.", None)
+    s.AddOptionalArg("roi_end", ArgType.FLOAT_VEC, "Input ROI end.", None)
+    s.AddOptionalArg("subpixel_scale", ArgType.BOOL,
+                     "Adjust scale for fractional sizes.", True)
+    s.AddOptionalArg("resize_z", ArgType.FLOAT,
+                     "Volumetric depth (n/a for video frames).", 0.0)
+    s.AddOptionalArg("minibatch_size", ArgType.INT,
+                     "Reference GPU kernel batching hint (compat).", 32)
+    s.AddOptionalArg("temp_buffer_hint", ArgType.INT,
+                     "Reference GPU scratch hint (compat).", 0)
+    return s
+
+
+_video_resize_schema()
+
+
+@register_operator("readers.VideoResize", "cpu")
+@register_operator("readers.VideoResize", "mixed")
+class VideoResizeReader(SamplePool, _VideoReaderImpl):
+    """readers.Video's sequences, each frame cropped to the ROI and resized
+    with the Resize arguments (``host_resample``, the cpu Resize's
+    resampler); a batch's sequences are read and resized on the pipeline's
+    threads. Like the reference's, the mixed placement is the plain
+    reader's: its frames cross to the device as dense RGB, never as the
+    planar YUV wire of readers.Video's mixed placement."""
+
+    def close(self):
+        SamplePool.close(self)
+        _VideoReaderImpl.close(self)
+
+    def _read_payload(self, index: int):
+        from ..kernels.host_resample import host_resample
+        from .image import _pick_filter, compute_resize_size
+
+        out = super()._read_payload(index)
+        frames = out[0] if isinstance(out, tuple) else out
+        spec = self.spec
+        h, w = frames.shape[1:3]
+        rs0 = spec.GetArgument("roi_start", None)
+        re0 = spec.GetArgument("roi_end", None)
+        if rs0 is not None or re0 is not None:
+            # the reference crops by the ROI's rounded integer bounds
+            rel = spec.GetArgument("roi_relative", False)
+            s0 = np.asarray(rs0 if rs0 is not None else [0.0, 0.0], np.float64)
+            e0 = np.asarray(re0 if re0 is not None else ([1.0, 1.0] if rel else [h, w]),
+                            np.float64)
+            if rel:
+                s0, e0 = s0 * [h, w], e0 * [h, w]
+            y0, x0 = int(round(s0[0])), int(round(s0[1]))
+            y1, x1 = int(round(e0[0])), int(round(e0[1]))
+            frames = frames[:, max(y0, 0):max(y1, y0 + 1), max(x0, 0):max(x1, x0 + 1)]
+            h, w = frames.shape[1:3]
+        try:
+            oh, ow = compute_resize_size(h, w, spec, lambda n, d=None: spec.GetArgument(n, d))
+        except ValueError:  # no resize extents: frames pass through
+            oh, ow = h, w
+        if (oh, ow) != (h, w):
+            interp = _pick_filter(spec, oh < h or ow < w)
+            antialias = spec.GetArgument("antialias", True)
+            if isinstance(frames, torch.Tensor):  # bfloat16: resampled in float32, rounded once
+                from ..types import DALIDataType
+
+                f32 = frames.float().numpy()
+                frames = cast_host(np.stack([host_resample(f, oh, ow, interp, antialias)
+                                             for f in f32]), DALIDataType.BFLOAT16)
+            else:
+                frames = np.stack([host_resample(f, oh, ow, interp, antialias) for f in frames])
+        return (frames,) + tuple(out[1:]) if isinstance(out, tuple) else frames
 
 
 def register_aliases():

@@ -197,8 +197,9 @@ class BaseReader(ReaderOperator):
     def _dense_batch_from(self, indices):
         """The dense outputs of the samples at loader ``indices`` already
         read: a staged path that cannot go on after reading them (the video
-        wire meeting a change of frame size) decodes the same samples here."""
-        payloads = [self._read_payload(i) for i in indices]
+        wire meeting a change of frame size) decodes the same samples here,
+        in order (on the pool of a ``SamplePool`` reader)."""
+        payloads = self.map_samples(lambda k: self._read_payload(indices[k]), len(indices))
         layouts = self._payload_layouts()
         if not isinstance(payloads[0], tuple):
             return [HostBatch(payloads, layout=layouts[0])]

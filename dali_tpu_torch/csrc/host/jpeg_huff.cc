@@ -416,7 +416,11 @@ struct Unstuffed {
   const uint8_t* in_end = nullptr;  // input position of the terminating marker
 };
 
-void unstuff_scan(const uint8_t* p, const uint8_t* pend, Unstuffed* u) {
+// With rst_ends (the full read of a scan with no restart interval), an RSTn
+// ends the scan's data as any other marker does: libjpeg restarts only where
+// DRI asks, and skips what follows a stray RSTn up to the next marker.
+void unstuff_scan(const uint8_t* p, const uint8_t* pend, Unstuffed* u,
+                  bool rst_ends = false) {
   u->rst_off.clear();
   u->in_end = pend;
   size_t cap = (size_t)(pend - p) + kTailBytes;
@@ -440,7 +444,7 @@ void unstuff_scan(const uint8_t* p, const uint8_t* pend, Unstuffed* u) {
       p += 2;
     } else if (m == 0xFF) {  // fill byte
       p++;
-    } else if (m >= 0xD0 && m <= 0xD7) {  // restart marker
+    } else if (m >= 0xD0 && m <= 0xD7 && !rst_ends) {  // restart marker
       u->rst_off.push_back((size_t)(o - u->buf.data()));
       p += 2;
     } else {
@@ -794,12 +798,18 @@ struct Parser {
       scan_comp[i] = idx;
       scan_td[i] = tdta >> 4;
       scan_ta[i] = tdta & 15;
-      if (!arith && (scan_td[i] > 3 || scan_ta[i] > 3)) return -1;
     }
     int ahal;
     if (!u8(&ss) || !u8(&se) || !u8(&ahal)) return -1;
     ah = ahal >> 4;
     al = ahal & 15;
+    // the full read follows jdphuff.c, which reads no table in a progressive
+    // DC refinement scan and so never looks at its selectors
+    const bool no_tables = !arith && full && progressive && ss == 0 && ah != 0;
+    for (int i = 0; i < ns; i++) {
+      if (no_tables) scan_td[i] = scan_ta[i] = 0;
+      if (!arith && (scan_td[i] > 3 || scan_ta[i] > 3)) return -1;
+    }
     if (pos > seg_end) return -1;
     pos = seg_end;
     return 0;
@@ -961,7 +971,11 @@ inline void idx_init(unsigned char* buf, long long cap, int mcus_x,
 // buffer), and every MCU after it stays zero, across restart markers too
 // (libjpeg keeps its out-of-data flag when the next marker is the end). The
 // int8 read stops at the first block past the end, as the JAX package's
-// decoder does.
+// decoder does. A corrupt symbol ends the int8 read too; the full read goes
+// on as libjpeg-turbo's jdhuff.c does: a code longer than 16 bits takes 17
+// bits and decodes as symbol 0 (a zero DC difference, or an end of block),
+// and a run past coefficient 63 stores its value at 63 (the extra entries
+// of jpeg_natural_order) and ends the block.
 template <bool PACK, typename AC = signed char>
 int decode_scan(const Parser& ps, const CompStateT<AC>* cs, const uint8_t* pend,
                 int mcus_x, int stop_my, PackComp* pk, int nc = 3,
@@ -971,7 +985,7 @@ int decode_scan(const Parser& ps, const CompStateT<AC>* cs, const uint8_t* pend,
   thread_local Unstuffed tl_us;
   Unstuffed& us = tl_us;
   long long t_us0 = now_ns();
-  unstuff_scan(ps.scan_start, pend, &us);
+  unstuff_scan(ps.scan_start, pend, &us, EXACT && ps.ri == 0);
   if (in_end_out) *in_end_out = us.in_end;
   g_hstats.ns_unstuff.fetch_add(now_ns() - t_us0, std::memory_order_relaxed);
   const uint8_t* buf0 = us.buf.data();
@@ -1315,6 +1329,7 @@ int decode_scan(const Parser& ps, const CompStateT<AC>* cs, const uint8_t* pend,
                 s = e & 0xFF;
               } else {
                 s = huff_decode_slow(acc, C.dct, &l);
+                if (EXACT && s < 0) s = 0, l = 17;  // libjpeg: bad code -> 0
               }
               if (s < 0 || s > 15) return 0;  // corrupt: stop, zeros remain
               if (s) {
@@ -1347,14 +1362,14 @@ int decode_scan(const Parser& ps, const CompStateT<AC>* cs, const uint8_t* pend,
                     k += 16; /* ZRL */                                  \
                   } else {                                              \
                     k += (fe >> 8) & 15;                                \
-                    if (k > 63) return 0;                               \
+                    if (!EXACT && k > 63) return 0;                     \
                     if (PACK) {                                         \
                       unsigned mb = zb[k];                              \
                       mreg |= mb;                                       \
                       *cur = (signed char)(fe >> 16);                   \
                       cur += (mb != 0);                                 \
                     } else {                                            \
-                      int slot = zmap[k];                               \
+                      int slot = zmap[k > 63 ? 63 : k];                 \
                       /* cmov to sink when out of selection */          \
                       AC* dst = slot >= 0 ? acp + slot : ac_sink;       \
                       *dst = (AC)(signed char)(fe >> 16);               \
@@ -1369,6 +1384,7 @@ int decode_scan(const Parser& ps, const CompStateT<AC>* cs, const uint8_t* pend,
                     rs = e & 0xFF;                                      \
                   } else {                                              \
                     rs = huff_decode_slow(acc, C.act, &l);              \
+                    if (EXACT && rs < 0) rs = 0, l = 17; /* EOB */      \
                     if (rs < 0) return 0;                               \
                   }                                                     \
                   int r = rs >> 4, sz = rs & 15;                        \
@@ -1379,7 +1395,7 @@ int decode_scan(const Parser& ps, const CompStateT<AC>* cs, const uint8_t* pend,
                     k += 16; /* ZRL */                                  \
                   } else {                                              \
                     k += r;                                             \
-                    if (k > 63) return 0;                               \
+                    if (!EXACT && k > 63) return 0;                     \
                     int mv = (int)((acc << l) >> (64 - sz));            \
                     acc <<= l + sz;                                     \
                     cnt -= l + sz;                                      \
@@ -1391,7 +1407,7 @@ int decode_scan(const Parser& ps, const CompStateT<AC>* cs, const uint8_t* pend,
                       *cur = sat8(val);                                 \
                       cur += (mb != 0);                                 \
                     } else {                                            \
-                      int slot = zmap[k];                               \
+                      int slot = zmap[k > 63 ? 63 : k];                 \
                       AC* dst = slot >= 0 ? acp + slot : ac_sink;       \
                       *dst = ac_cast<AC>(val);                          \
                     }                                                   \
@@ -1797,7 +1813,9 @@ struct BitRd {
     return v;
   }
   inline int bit() { return bits(1); }
-  // returns symbol or -1
+  // returns symbol or -1; with EXACT, a code longer than 16 bits takes 17
+  // bits and decodes as symbol 0 (libjpeg's jpeg_huff_decode)
+  template <bool EXACT = false>
   inline int huff(const HuffTbl* t) {
     refill();
     int e = t->lut[(unsigned)(acc >> (64 - kLookahead))];
@@ -1807,6 +1825,7 @@ struct BitRd {
       s = e & 0xFF;
     } else {
       s = huff_decode_slow(acc, t, &l);
+      if (EXACT && s < 0) s = 0, l = 17;
       if (s < 0) return -1;
     }
     acc <<= l;
@@ -1843,9 +1862,17 @@ struct ProgComp {
   int last_dc;               // DC predictor (reset per scan / restart)
 };
 
+// The progressive scans. Returns 0 ok, -1 corrupt, -2 out of data. A corrupt
+// symbol ends the crop read's scan; the full read (EXACT) goes on as
+// libjpeg-turbo's jdphuff.c does: a bad code decodes as symbol 0 (a zero DC
+// difference, or an end of band), a run past the band stores its value at
+// the zigzag position it reached (63 past the block), and a refinement's
+// new coefficient of a size other than 1 still takes one sign bit.
+
 // DC first/refine scan (interleaved over the scan's components, or single).
-// Returns 0 ok, -1 corrupt. *good gets the iMCU row of the last MCU begun
-// before the data ran out (libjpeg's last_good_iMCU_row).
+// *good gets the iMCU row of the last MCU begun before the data ran out
+// (libjpeg's last_good_iMCU_row).
+template <bool EXACT>
 int prog_dc_scan(const Parser& ps, ProgComp* pc, const int* scan_idx, int nsc,
                  const Unstuffed& us, int mcus_x, int stop_my, int* good) {
   BitRd br;
@@ -1863,11 +1890,11 @@ int prog_dc_scan(const Parser& ps, ProgComp* pc, const int* scan_idx, int nsc,
     for (int mx = 0; mx < nx; mx++) {
       if (!br.exhausted()) *good = single ? my / pc[scan_idx[0]].v : my;
       if (ri && togo == 0) {
-        if (!restart(br, us, &next_rst)) return -1;
+        if (!restart(br, us, &next_rst)) return -2;
         for (int i = 0; i < nsc; i++) pc[scan_idx[i]].last_dc = 0;
         togo = ri;
       }
-      if (br.exhausted()) return -1;
+      if (br.exhausted()) return -2;
       for (int i = 0; i < nsc; i++) {
         ProgComp& C = pc[scan_idx[i]];
         const HuffTbl* dct = &ps.htdc[ps.scan_td[i]];
@@ -1882,7 +1909,7 @@ int prog_dc_scan(const Parser& ps, ProgComp* pc, const int* scan_idx, int nsc,
             if (brow < C.rows_dec && bcol < C.full_bw)
               blk = C.coef->data() + ((size_t)brow * C.full_bw + bcol) * 64;
             if (ah == 0) {  // first scan: diff-coded DC, scaled by 2^al
-              int s = br.huff(dct);
+              int s = br.huff<EXACT>(dct);
               if (s < 0 || s > 15) return -1;
               C.last_dc = (int)((unsigned)C.last_dc + (unsigned)extend_recv(br, s));
               blk[0] = (short)(C.last_dc * (1 << al));  // mul: dc may be negative
@@ -1899,6 +1926,7 @@ int prog_dc_scan(const Parser& ps, ProgComp* pc, const int* scan_idx, int nsc,
 }
 
 // AC first scan (ah == 0), single component, band [ss, se].
+template <bool EXACT>
 int prog_ac_first(const Parser& ps, ProgComp& C, int scan_slot,
                   const Unstuffed& us, int row_end, int* good) {
   BitRd br;
@@ -1913,7 +1941,7 @@ int prog_ac_first(const Parser& ps, ProgComp& C, int scan_slot,
     for (int bcol = 0; bcol < C.real_bw; bcol++) {
       if (!br.exhausted()) *good = brow / C.v;
       if (ri && togo == 0) {
-        if (!restart(br, us, &next_rst)) return -1;
+        if (!restart(br, us, &next_rst)) return -2;
         eobrun = 0;
         togo = ri;
       }
@@ -1921,10 +1949,10 @@ int prog_ac_first(const Parser& ps, ProgComp& C, int scan_slot,
       if (eobrun > 0) {
         eobrun--;
       } else {
-        if (br.exhausted()) return -1;
+        if (br.exhausted()) return -2;
         int k = ss;
         while (k <= se) {
-          int rs = br.huff(act);
+          int rs = br.huff<EXACT>(act);
           if (rs < 0) return -1;
           int r = rs >> 4, s = rs & 15;
           if (s == 0) {
@@ -1938,8 +1966,8 @@ int prog_ac_first(const Parser& ps, ProgComp& C, int scan_slot,
             continue;
           }
           k += r;
-          if (k > se) return -1;
-          blk[k] = (short)(extend_recv(br, s) * (1 << al));
+          if (!EXACT && k > se) return -1;
+          blk[k > 63 ? 63 : k] = (short)(extend_recv(br, s) * (1 << al));
           k++;
         }
       }
@@ -1951,6 +1979,7 @@ int prog_ac_first(const Parser& ps, ProgComp& C, int scan_slot,
 
 // AC refinement scan (ah > 0), single component, band [ss, se].
 // Mirrors T.81 G.2 / the classic decode_mcu_AC_refine control flow.
+template <bool EXACT>
 int prog_ac_refine(const Parser& ps, ProgComp& C, int scan_slot,
                    const Unstuffed& us, int row_end, int* good) {
   BitRd br;
@@ -1966,16 +1995,16 @@ int prog_ac_refine(const Parser& ps, ProgComp& C, int scan_slot,
     for (int bcol = 0; bcol < C.real_bw; bcol++) {
       if (!br.exhausted()) *good = brow / C.v;
       if (ri && togo == 0) {
-        if (!restart(br, us, &next_rst)) return -1;
+        if (!restart(br, us, &next_rst)) return -2;
         eobrun = 0;
         togo = ri;
       }
       short* blk = C.coef->data() + ((size_t)brow * C.full_bw + bcol) * 64;
       int k = ss;
       if (eobrun == 0) {
-        if (br.exhausted()) return -1;
+        if (br.exhausted()) return -2;
         while (k <= se) {
-          int rs = br.huff(act);
+          int rs = br.huff<EXACT>(act);
           if (rs < 0) return -1;
           int r = rs >> 4, s = rs & 15;
           short newval = 0;
@@ -1987,10 +2016,11 @@ int prog_ac_refine(const Parser& ps, ProgComp& C, int scan_slot,
             }
             // ZRL: skip 16 zero-history positions (with corrections)
           } else {
-            if (s != 1) return -1;  // refinement only creates +-1<<al
+            if (!EXACT && s != 1) return -1;  // refinement only creates +-1<<al
             newval = br.bit() ? p1 : m1;
           }
           // advance past `r` zero-history coefficients, refining nonzeros
+          bool placed = false;
           while (k <= se) {
             short* cp = blk + k;
             if (*cp != 0) {
@@ -1999,6 +2029,7 @@ int prog_ac_refine(const Parser& ps, ProgComp& C, int scan_slot,
             } else {
               if (r == 0) {
                 if (newval) *cp = newval;
+                placed = true;
                 k++;
                 break;
               }
@@ -2006,6 +2037,8 @@ int prog_ac_refine(const Parser& ps, ProgComp& C, int scan_slot,
             }
             k++;
           }
+          // a run past the band: libjpeg stores the value where k stopped
+          if (EXACT && !placed && newval) blk[k > 63 ? 63 : k] = newval, k++;
         }
       }
       if (eobrun > 0) {
@@ -2218,21 +2251,22 @@ int jpeg_read_full(const uint8_t* data, size_t len, JpegFull* f) {
           if (ps.ss == 0 ? ps.ah == 0 && !ps.htdc[ps.scan_td[s]].valid
                          : !ps.htac[ps.scan_ta[s]].valid)
             return -1;
-        unstuff_scan(cursor, data + len, &tl_fus);
+        unstuff_scan(cursor, data + len, &tl_fus, ps.ri == 0);
         int idx[4];
         for (int s = 0; s < ps.ns; s++) idx[s] = ps.scan_comp[s];
         int r2, good = 0;
         if (ps.ss == 0) {
-          r2 = prog_dc_scan(ps, pc, idx, ps.ns, tl_fus, mcus_x,
+          r2 = prog_dc_scan<true>(ps, pc, idx, ps.ns, tl_fus, mcus_x,
                             ps.ns == 1 ? pc[idx[0]].rows_dec : mcus_y, &good);
         } else {
           ProgComp& C = pc[idx[0]];
-          r2 = ps.ah == 0 ? prog_ac_first(ps, C, 0, tl_fus, C.rows_dec, &good)
-                          : prog_ac_refine(ps, C, 0, tl_fus, C.rows_dec, &good);
+          r2 = ps.ah == 0 ? prog_ac_first<true>(ps, C, 0, tl_fus, C.rows_dec, &good)
+                          : prog_ac_refine<true>(ps, C, 0, tl_fus, C.rows_dec, &good);
         }
         f->last_good_row = good;
-        // a scan that breaks off keeps what it decoded, and the stream ends
-        if (r2 != 0) break;
+        // a scan that runs out of data keeps what it decoded, and the next
+        // scan starts afresh (libjpeg resets its out-of-data flag per scan)
+        if (r2 == -1) break;
         end = tl_fus.in_end;
       }
       if (end >= data + len) break;
@@ -2538,13 +2572,13 @@ int dali_tpu_jpeg_huff_progressive_read_coeffs_split_crop(
     if (decode_this) {
       if (ps.ss == 0) {
         int my_end = ps.ns == 1 ? pc[idx[0]].rows_dec : stop_my;
-        if (prog_dc_scan(ps, pc, idx, ps.ns, tl_pus, mcus_x, my_end, &good) != 0)
+        if (prog_dc_scan<false>(ps, pc, idx, ps.ns, tl_pus, mcus_x, my_end, &good) != 0)
           return 1;
       } else {
         ProgComp& C = pc[idx[0]];
         int r2 = (ps.ah == 0)
-                     ? prog_ac_first(ps, C, 0, tl_pus, C.rows_dec, &good)
-                     : prog_ac_refine(ps, C, 0, tl_pus, C.rows_dec, &good);
+                     ? prog_ac_first<false>(ps, C, 0, tl_pus, C.rows_dec, &good)
+                     : prog_ac_refine<false>(ps, C, 0, tl_pus, C.rows_dec, &good);
         if (r2 != 0) return 1;
       }
     }

@@ -907,6 +907,54 @@ def clahe_f32(plane: np.ndarray, clip: float, tiles_x: int, tiles_y: int,
     return out
 
 
+def farneback(prev: np.ndarray, nxt: np.ndarray) -> np.ndarray:
+    """Dense optical flow [H, W, 2] float32 (x, y) from grey frame ``prev``
+    to grey frame ``nxt`` (float32 [H, W]): ``cv2.calcOpticalFlowFarneback(
+    prev, nxt, None, 0.5, 3, 15, 3, 5, 1.2, 0)`` (``optical_flow.cc``)."""
+    a = np.ascontiguousarray(prev, np.float32)
+    b = np.ascontiguousarray(nxt, np.float32)
+    if a.ndim != 2 or a.shape != b.shape:
+        raise ValueError(f"farneback: frames must be two [H, W] planes of one shape, got "
+                         f"{a.shape} and {b.shape}")
+    out = np.empty(a.shape + (2,), np.float32)
+    _fn("dali_tpu_torch_farneback", [_vp, _vp, _ci, _ci, _vp])(
+        a.ctypes.data, b.ctypes.data, a.shape[0], a.shape[1], out.ctypes.data)
+    return out
+
+
+def rgb_to_gray_f32(rgb: np.ndarray) -> np.ndarray:
+    """float32 [..., 3] RGB to grey [...]: ``cv2.cvtColor(rgb,
+    COLOR_RGB2GRAY)`` (``optical_flow.cc``)."""
+    rgb = np.ascontiguousarray(rgb, np.float32)
+    out = np.empty(rgb.shape[:-1], np.float32)
+    _fn("dali_tpu_torch_rgb_to_gray_f32", [_vp, ctypes.c_longlong, _vp])(
+        rgb.ctypes.data, out.size, out.ctypes.data)
+    return out
+
+
+def flow_gaussian_blur(plane: np.ndarray, ksize: int, sigma: float) -> np.ndarray:
+    """The flow pyramid's blur of a float32 plane: ``cv2.GaussianBlur(plane,
+    (ksize, ksize), sigma, sigma)`` (``optical_flow.cc``)."""
+    plane = np.ascontiguousarray(plane, np.float32)
+    out = np.empty_like(plane)
+    _fn("dali_tpu_torch_of_gaussian_blur", [_vp, _ci, _ci, _ci, ctypes.c_double, _vp])(
+        plane.ctypes.data, plane.shape[0], plane.shape[1], int(ksize), float(sigma),
+        out.ctypes.data)
+    return out
+
+
+def flow_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """The flow pyramid's resize of a float32 [H, W] or [H, W, C] image:
+    ``cv2.resize(img, (out_w, out_h), interpolation=INTER_LINEAR)``
+    (``optical_flow.cc``)."""
+    img = np.ascontiguousarray(img, np.float32)
+    cn = 1 if img.ndim == 2 else img.shape[2]
+    out = np.empty((out_h, out_w) + img.shape[2:], np.float32)
+    _fn("dali_tpu_torch_of_resize", [_vp, _ci, _ci, _ci, _vp, _ci, _ci])(
+        img.ctypes.data, img.shape[0], img.shape[1], cn, out.ctypes.data, out_h, out_w)
+    return out
+
+
 BORDER_CODES = {"reflect_101": 0, "reflect": 1, "replicate": 2, "wrap": 3, "constant": 4}
 
 

@@ -14,7 +14,8 @@
   with their batch entry ``image_decode_batch.cc``), the MP3, Vorbis and
   FLAC batch entry (``audio_decode_batch.cc``), the MP4 demuxer and the
   MPEG-4 Part 2 decoder with their frame-accurate reader (``mp4_demux.cc``,
-  ``mpeg4_decode.cc``, ``video_decode.cc``) and the image filters (``host_ops.cc``, compiled into
+  ``mpeg4_decode.cc``, ``video_decode.cc``), the Farneback optical flow
+  (``optical_flow.cc``) and the image filters (``host_ops.cc``, compiled into
   an object of its own with floating-point contraction on, as ``dali_tpu``
   compiles its copy). g++ with ``-march=native``: compiled on the machine
   that runs it, never shipped.
@@ -54,7 +55,8 @@ HOST_SOURCES = [os.path.join(_HOST_SRC, f) for f in (
     "bmp_decode.cc", "warp_affine.cc", "jpeg_encode.cc", "flac_decode.cc", "gif_decode.cc",
     "webp_vp8.cc", "webp_vp8l.cc", "webp_decode.cc", "inflate.cc", "tiff_decode.cc",
     "pnm_decode.cc", "image_decode_batch.cc", "mp3_decode.cc", "ogg.cc", "vorbis_decode.cc",
-    "audio_decode_batch.cc", "mp4_demux.cc", "mpeg4_decode.cc", "video_decode.cc")]
+    "audio_decode_batch.cc", "mp4_demux.cc", "mpeg4_decode.cc", "video_decode.cc",
+    "optical_flow.cc")]
 # compiled with dali_tpu's own flags (contraction on): its float filters sum
 # into the fused multiply-adds of the reference's library
 HOST_CONTRACT_SOURCES = [os.path.join(_HOST_SRC, "host_ops.cc")]

@@ -146,22 +146,24 @@ def _drive(pipe, names, warmup, timed, check):
     from dali_tpu_torch.plugin.pytorch import DALIGenericIterator
 
     ex = pipe.executor
+    # a pipeline on the CPU (a rehearsal at a small size) has no device to wait for
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
     it = DALIGenericIterator(pipe, names)
     for _ in range(warmup):
         check(next(it))
-    torch.cuda.synchronize()
+    sync()
     st0, by0 = dict(ex.stats), dict(ex.host_seconds_by_schema)
     t0 = time.perf_counter()
     for _ in range(timed):
         check(next(it))
-    torch.cuda.synchronize()
+    sync()
     dt = time.perf_counter() - t0
     st = {k: v - st0[k] for k, v in ex.stats.items()}
-    by = {k: 1e3 * (v - by0.get(k, 0.0)) / st["host_batches"]
+    by = {k: 1e3 * (v - by0.get(k, 0.0)) / max(st["host_batches"], 1)
           for k, v in ex.host_seconds_by_schema.items()}
     for _ in range(pipe.prefetch_queue_depth):
         pipe.outputs()
-    torch.cuda.synchronize()
+    sync()
     return dt, st, by, warmup + timed + pipe.prefetch_queue_depth
 
 

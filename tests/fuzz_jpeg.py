@@ -3,9 +3,11 @@ against dali_tpu's libjpeg-turbo route (``dali_tpu.native.decode_jpeg``).
 
 Two probes, each printing one JSON line of counts:
 
-* ``--damage arith|huffman``: each file of ``testdata/arith`` (arithmetic
-  coded) or ``testdata/rn50`` (Huffman) in turn, 1-5 random bytes of its
-  scans replaced and 30% of the streams then cut at 30-100% of their
+* ``--damage arith|huffman|progressive``: each file of ``testdata/arith``
+  (arithmetic coded), ``testdata/rn50`` (baseline Huffman) or ``testdata/rn50``
+  re-coded as progressive Huffman by ``make_codec_corpus.Transcoder`` (needs
+  ``cc`` and libjpeg's headers) in turn, 1-5 random bytes from its first
+  scan on replaced and 30% of the streams then cut at 30-100% of their
   length, decoded at 1/2 scale: equal pixels, both failing, or one of the
   five ways they part;
 * ``--idct``: small corpus images re-encoded by cv2 with every
@@ -19,6 +21,8 @@ Not collected by pytest (no ``test_`` prefix); it needs the reference's
 checkout (a ``git archive`` of a parent commit) to compare commits:
 
     python tests/fuzz_jpeg.py --damage arith --seeds 1 2 3 --n 200
+    python tests/fuzz_jpeg.py --damage huffman --seeds 1 2 --n 200
+    python tests/fuzz_jpeg.py --damage progressive --seeds 1 2 --n 200
     python tests/fuzz_jpeg.py --idct --seeds 0 7 11 --n 100
 """
 
@@ -41,17 +45,35 @@ def _damaged(data: bytes, rng) -> bytes:
     return bytes(d)
 
 
+def _corpus(corpus):
+    """The undamaged streams of one corpus, in file order."""
+    testdata = os.path.join(HERE, "..", "dali_tpu_torch", "testdata")
+    files = sorted(glob.glob(os.path.join(testdata, "arith" if corpus == "arith" else "rn50",
+                                          "*", "*.jpg")))
+    streams = []
+    for path in files:
+        with open(path, "rb") as f:
+            streams.append(f.read())
+    if corpus == "progressive":
+        import tempfile
+
+        sys.path.insert(0, testdata)
+        from make_codec_corpus import Transcoder
+
+        with tempfile.TemporaryDirectory() as tmp:
+            t = Transcoder(tmp)
+            streams = [t(s, arith=False, progressive=True) for s in streams]
+    return streams
+
+
 def damage(ref, port, corpus, seed, n):
     import numpy as np
 
-    root = os.path.join(HERE, "..", "dali_tpu_torch", "testdata",
-                        "arith" if corpus == "arith" else "rn50")
-    files = sorted(glob.glob(os.path.join(root, "*", "*.jpg")))
+    streams = _corpus(corpus)
     rng = np.random.default_rng(seed)
     out = dict(equal=0, both_fail=0, differ=0, port_only_fails=0, ref_only_fails=0)
     for i in range(n):
-        with open(files[i % len(files)], "rb") as f:
-            data = _damaged(f.read(), rng)
+        data = _damaged(streams[i % len(streams)], rng)
         want = ref.decode_jpeg(data, denom=2)
         try:
             got = port.decode_jpeg(data, 2)
@@ -114,7 +136,7 @@ def idct(ref, port, seed, n):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group(required=True)
-    mode.add_argument("--damage", choices=["arith", "huffman"])
+    mode.add_argument("--damage", choices=["arith", "huffman", "progressive"])
     mode.add_argument("--idct", action="store_true")
     ap.add_argument("--seeds", type=int, nargs="+", default=[1])
     ap.add_argument("--n", type=int, default=200)

@@ -327,6 +327,7 @@ SWEEP = {
         dtype=t)),
     "readers.NemoAsr": None,  # built by the test (a manifest in tmp_path)
     "readers.Video": None,  # built by the test (a committed MP4 fixture)
+    "readers.VideoResize": None,  # built by the test (the same fixture)
     "random.Normal": (_none, lambda fn, x, d, t: fn.random.normal(
         shape=[4], dtype=t, device=d, seed=6)),
     "Normalize": (_inp("flt"), lambda fn, x, d, t: fn.normalize(x, dtype=t)),
@@ -422,8 +423,8 @@ def test_sweep_covers_every_dtype_schema_of_both_packages():
         sc = ref_schema.GetSchema(name)
         if "dtype" in sc.args and not sc.name.startswith("_"):
             ref |= {(sc.name, d) for d in ("cpu", "gpu") if ref_schema.has_operator_impl(sc.name, d)}
-    # readers.VideoResize is ROADMAP Queue 1 item 8b, not in the port yet
-    assert ref - {("readers.VideoResize", "cpu")} == set(SWEEP_CASES)
+    # readers.VideoResize joined with item 8b's registry part
+    assert ref == set(SWEEP_CASES)
 
 
 def _outcome(res, schema):
@@ -449,6 +450,10 @@ def test_sweep_dtype_bfloat16(schema, device, tmp_path):
     elif schema == "readers.Video":
         def graph(fn, types):
             return fn.readers.video(filenames=[VIDEO], sequence_length=3, dtype=types.BFLOAT16)
+    elif schema == "readers.VideoResize":
+        def graph(fn, types):
+            return fn.readers.video_resize(filenames=[VIDEO], sequence_length=3, resize_x=40,
+                                           resize_y=30, dtype=types.BFLOAT16)
     else:
         make, call = SWEEP[schema]
 

@@ -42,7 +42,11 @@ through the mixed decoders equal the CPU run; the ASR front end on FLAC
 equals it on WAV of the same PCM, bit for bit. The DataLoader proxy's
 batches and the C API's served outputs on the card match the CPU run's
 within one uint8 step / std. rn50_train's recipe over the arithmetic-coded
-twin corpus gives the Huffman corpus's batches bit for bit."""
+twin corpus gives the Huffman corpus's batches bit for bit. The resizing
+video reader on device="mixed" gives the cpu placement's frames bit for bit,
+and video_flow_train (the resizing reader, optical flow, CMN's FCHW fold)
+matches its CPU run: flows and labels equal, images within one uint8 step
+/ std."""
 
 import os
 
@@ -1884,5 +1888,41 @@ def test_rn50_arith_train_on_card_matches_cpu(card):
             pipe.shutdown()
     (g_img, g_lab), (c_img, c_lab) = outs
     np.testing.assert_array_equal(g_lab, c_lab)
+    d = (g_img - c_img).abs()
+    assert float(d.max()) <= LSB and float((d > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+
+
+# ------------------------------------------------------------------ video_flow_train (item 8b)
+
+def test_video_resize_mixed_reader_equals_cpu_reader(card):
+    """readers.video_resize on device="mixed" at batch 4: its frames (dense
+    RGB on the card) equal the cpu placement's moved with ``.gpu()``."""
+    from dali_tpu_torch.tools import bench_video_flow
+
+    r = bench_video_flow.check_mixed_vs_cpu(batch=4, batches=2)
+    assert r["frames"] == 2 * 4 * bench_video_flow.FRAMES
+
+
+def test_video_flow_train_on_card_matches_cpu(card):
+    """video_flow_train at batch 4 on the card against the CPU run: labels
+    and flows equal (both computed on the host), images within one uint8
+    step / std on at most 1e-3 of values; the CMN kernel launched on the
+    card."""
+    from dali_tpu_torch.tools import bench_video_flow
+
+    outs = []
+    for device in (card, "cpu"):
+        pipe = bench_video_flow.make_pipe(4, device)
+        try:
+            cmn.COUNTER.launches = 0
+            res = pipe.run()
+            if device == card:
+                assert cmn.COUNTER.launches >= 1
+            outs.append((res[0].as_tensor().cpu(), res[1].as_array(), res[2].as_tensor().cpu()))
+        finally:
+            pipe.shutdown()
+    (g_img, g_lab, g_fl), (c_img, c_lab, c_fl) = outs
+    np.testing.assert_array_equal(g_lab, c_lab)
+    assert g_fl.shape == (4,) + bench_video_flow.FLOW_SHAPE and torch.equal(g_fl, c_fl)
     d = (g_img - c_img).abs()
     assert float(d.max()) <= LSB and float((d > 1e-4).float().mean()) <= MAX_FLIP_FRACTION

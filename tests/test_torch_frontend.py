@@ -391,17 +391,22 @@ def test_ops_api_builds_the_fn_graph():
 @pytest.mark.parametrize("api", ["fn", "ops"])
 def test_unported_names_name_their_roadmap_item(api):
     mod = getattr(dali_tpu_torch, api)
-    # item 8a ported readers.Video, decoders.Video and experimental.inputs.Video
-    names = (("optical_flow", "item 8b"), ("readers.video_resize", "item 8b"),
-             ("video_reader_resize", "item 8b"))
+    # item 8b's registry part ported the last names dali_tpu registers: they
+    # resolve, and a name neither package has names Queue 1 with no item
+    names = ("optical_flow", "readers.video_resize", "video_reader_resize")
     if api == "ops":
-        names = (("OpticalFlow", "item 8b"), ("readers.VideoResize", "item 8b"),
-                 ("VideoReaderResize", "item 8b"))
-    for path, item in names:
+        names = ("OpticalFlow", "readers.VideoResize", "VideoReaderResize")
+    for path in names:
         obj = mod
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md \\(Queue 1, {item}\\)"):
-            for part in path.split("."):
-                obj = getattr(obj, part)
+        for part in path.split("."):
+            obj = getattr(obj, part)
+        assert callable(obj), path
+    from dali_tpu_torch.backend import parity
+
+    assert parity.QUEUE_ITEMS == {}
+    unknown = "readers.video_warp" if api == "fn" else "readers.VideoWarp"
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md \(Queue 1\)"):
+        getattr(mod.readers, unknown.split(".")[1])
 
 
 PLUGIN = '''
@@ -524,8 +529,9 @@ def test_legacy_names_run_as_their_targets():
 def test_legacy_name_on_a_device_the_port_lacks_raises():
     """Equalize has both placements since item 5h, and its gpu path takes
     uniform sequences since item 5h.7; on a ragged batch of sequences, where
-    dali_tpu's gpu op fails, it raises naming that fault. The video names of
-    item 8b still raise."""
+    dali_tpu's gpu op fails, it raises naming that fault. VideoReaderResize,
+    ported with item 8b's registry part, has no gpu placement in either
+    package."""
     seqs = [np.zeros((2, 4 + i, 4, 3), np.uint8) for i in range(2)]
 
     @dali_tpu_torch.pipeline_def(batch_size=2, num_threads=1, device="cpu")
@@ -540,10 +546,14 @@ def test_legacy_name_on_a_device_the_port_lacks_raises():
             pipe.run()
     finally:
         pipe.shutdown()
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 8b"):
-        dali_tpu_torch.fn.video_reader_resize
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 8b"):
-        dali_tpu_torch.ops.VideoReaderResize
+    from dali_tpu import _schema as ref_schema
+    from dali_tpu_torch import _schema
+
+    for name in ("VideoReaderResize", "readers.VideoResize"):
+        assert not ref_schema.has_operator_impl(name, "gpu")
+        assert not _schema.has_operator_impl(name, "gpu")
+        with pytest.raises(NotImplementedError, match="not ported"):
+            _schema.get_operator_impl(name, "gpu")
 
 
 def test_schema_lookups_and_top_level_names():

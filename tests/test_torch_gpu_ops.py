@@ -148,10 +148,9 @@ def test_registry_lacks_only_audio_resample_and_the_renamed_jax_function_on_gpu(
                and impl.__module__.startswith("dali_tpu.")}
     # AudioResample came with item 4: on the gpu only the renamed _JaxFunction is left
     assert {n for n, d in missing if d == "gpu"} == {"_JaxFunction"}
-    # item 8a ported the MP4 / MPEG-4 Part 2 readers and decoders; item 8b is left
-    assert {n for n, d in missing if d == "mixed"} == {"readers.VideoResize", "VideoReaderResize"}
-    cpu = {n for n, d in missing if d == "cpu"}
-    assert cpu == {"readers.VideoResize", "VideoReaderResize", "OpticalFlow"}
+    # item 8b's registry part ported readers.VideoResize, its alias and OpticalFlow:
+    # nothing is left on the cpu or mixed
+    assert {(n, d) for n, d in missing if d != "gpu"} == set()
     for name in ITEM_5G:
         assert _schema.has_operator_impl(name, "gpu"), name
 

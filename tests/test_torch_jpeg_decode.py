@@ -430,3 +430,36 @@ def test_progressive_scan_without_its_table_fails():
     assert ref_native.decode_jpeg(bad) is None
     with pytest.raises(ValueError, match="corrupt"):
         port_native.decode_jpeg(bad)
+
+
+# Damaged Huffman streams, one for each rule of libjpeg-turbo 2.1.5 that the
+# full read copies (jdhuff.c for baseline scans, jdphuff.c for progressive
+# ones): small corpus re-encodes with bytes of their scans or scan headers
+# replaced, each the first stream of a random search on which the port's
+# output changes when that one rule is left out.
+DAMAGED = os.path.join(os.path.dirname(CORPUS), "jpeg_damaged")
+DAMAGED_RULES = {
+    "baseline_bad_dc_code": "a code longer than 16 bits takes 17 bits: DC difference 0",
+    "baseline_bad_ac_code": "a code longer than 16 bits takes 17 bits: end of block",
+    "baseline_run_past_63": "a run past coefficient 63 stores at 63, then the block ends",
+    "baseline_stray_rst": "an RSTn with no restart interval ends the scan's data",
+    "progressive_bad_code": "a bad code decodes as symbol 0 in every scan kind",
+    "progressive_run_past_band": "a first AC scan's run past the band stores where it stops",
+    "progressive_refine_size": "a refinement's new coefficient of size > 1 takes one sign bit",
+    "progressive_refine_run_past_band": "a refinement's run past the band stores where it stops",
+    "progressive_scan_out_of_data": "a scan that runs out of data is followed by the next scan",
+    "progressive_stray_rst": "an RSTn with no restart interval ends the scan's data",
+    "progressive_dc_refine_selectors": "a DC refinement scan's table selectors are not read",
+}
+
+
+@pytest.mark.parametrize("name", sorted(DAMAGED_RULES))
+def test_damaged_huffman_stream_decodes_as_libjpeg(name):
+    with open(os.path.join(DAMAGED, name + ".jpg"), "rb") as f:
+        data = f.read()
+    _assert_read_equal(data, ks=[(8, 8)])
+    _assert_decode_equal(data)
+
+
+def test_damaged_streams_cover_every_rule():
+    assert sorted(f[:-4] for f in os.listdir(DAMAGED)) == sorted(DAMAGED_RULES)

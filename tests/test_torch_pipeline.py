@@ -160,6 +160,11 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.tools.dryrun_multidevice, dali_tpu_torch.tools.bench_ddp\n"
         "import dali_tpu_torch.backend.video, dali_tpu_torch.tools.bench_video\n"
         "import dali_tpu_torch.testdata.make_video_corpus\n"
+        "import dali_tpu_torch.tools.bench_video_flow\n"
+        "import numpy as np\n"
+        "from dali_tpu_torch.backend import enhance2\n"
+        "enhance2.native.farneback(np.zeros((32, 40), np.float32), np.ones((32, 40), np.float32))\n"
+        "enhance2._gray(np.zeros((4, 4, 3), np.float32))\n"
         "import torch.distributed.tensor, torch.distributed.device_mesh\n"
         "from dali_tpu_torch.tools.bench_audio_codecs import check_fixtures\n"
         "check_fixtures()\n"
@@ -284,10 +289,11 @@ def test_imagenet_checkpoint_from_dali_tpu_resumes_in_port():
 
 
 def test_unported_names_raise_not_implemented():
+    # item 8b's registry part ported the last of dali_tpu's names
+    assert callable(dali_tpu_torch.fn.readers.video_resize)
+    assert callable(dali_tpu_torch.fn.optical_flow)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dali_tpu_torch.fn.readers.video_resize
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dali_tpu_torch.fn.optical_flow
+        dali_tpu_torch.fn.readers.video_warp
     # a Radiance HDR header: TIFF, WebP and PNM decode since items 1d-1f
     hdr = np.frombuffer(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 2 +X 2\n" + bytes(16),
                         np.uint8)
