@@ -443,6 +443,24 @@ on failure:
    one thread and of a batch's pairs on the pool); the reader on
    ``device="mixed"`` against the cpu placement, 2 batches: uint8 frames
    equal on the card; then batch 16 on the card against the CPU.
+43. ucf_avi_train (``tools/bench_avi.py``): every committed AVI file of
+   ``testdata/video/avi`` and ``avi_corpus`` (Xvid with packed B-VOPs,
+   FFmpeg's unpacked B-VOPs, Motion JPEG with and without DHT, raw I420, a
+   file without an index) decoded on this machine by the port's host
+   decoder against ``avi_reference.npz`` (FFmpeg 5.1's display-order decode
+   and dali_tpu's info), in RGB and planar YUV; then video_clip_train's
+   recipe over the 32 Xvid AVIs of ``avi_corpus`` (UCF101's form: 320x240,
+   25 fps, B-frames): ``readers.video(device="mixed", file_root=...,
+   sequence_length=8, stride=2, random_shuffle=True, pad_mode="edge")``,
+   resize 112x112, rotate and gaussian_blur, CMN to FLOAT FCHW, batch 32:
+   3 warm-up + 10 timed batches, each checked; clips/s and frames/s beside
+   rn50_train's rate, host ms by schema, the device wait, device ms by
+   stage of one batch alone, peak memory, the exact CMN launch count; the
+   CMN kernel (FCHW fold) held against its plain version on the path's own
+   batch (max abs diff 0) and timed on it; the host decode rate of the AVI
+   corpus on one thread and on the pool; and the cpu reader then
+   ``.gpu()`` against the mixed reader for 2 batches: the uint8 frames
+   equal on the card.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -492,6 +510,7 @@ PLUGIN_TIMED = 10
 VIDEO_TIMED = 10
 ARITH_TIMED = 10
 VIDEO_FLOW_TIMED = 5
+AVI_TIMED = 10
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -2027,6 +2046,49 @@ def video_flow_phase(card, rn50_ips):
     return r["cmn_launches"], c
 
 
+def avi_phase(card, rn50_ips):
+    """Phase 43: the AVI fixtures, then ucf_avi_train, its decode rate and
+    the mixed reader against the cpu one; returns its CMN launches and the
+    kernel's readings on the path's batch."""
+    from dali_tpu_torch.tools import bench_avi as ba
+    from dali_tpu_torch.tools import bench_video as bv
+
+    t0 = time.perf_counter()
+    form = ba.FORM
+    f = ba.check_fixtures()
+    print(f"AVI fixtures: {f['files']} files, {f['frames']} frames decoded on this machine, each "
+          f"frame's RGB and YUV bytes and each file's info equal to avi_reference.npz (FFmpeg "
+          f"5.1's display-order decode, dali_tpu's info) ({card})")
+    r = ba.run(warmup=WARMUP, timed=AVI_TIMED)
+    c = r["cmn"]
+    print(f"{form} batch {r['batch']}x{bv.FRAMES} frames: {r['clips_per_s']:.1f} clips/s, "
+          f"{r['frames_per_s']:.1f} frames/s over {r['timed']} batches "
+          f"({100 * r['frames_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} images/s "
+          f"in this run); host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} "
+          f"host cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; cmn "
+          f"launches {r['cmn_launches']} ({card})")
+    print(f"{form} host ms/batch by schema: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in r["host_ms_by_schema"].items() if v >= 0.05) + f" ({card})")
+    print(f"{form} device ms of one batch alone: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r["stage_ms"].items())
+        + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    require(c["max_abs_err"] == 0, f"{form}: CMN kernel {c['max_abs_err']} from its plain version")
+    print(f"{form} CMN kernel (FCHW fold) on the path's own batch {c['shape_in']} "
+          f"{c['dtype_in']} -> {c['shape_out']} float32: max abs diff vs plain "
+          f"{c['max_abs_err']:.3e}; kernel alone {c['ms']:.4f} ms (cold L2), wrapper "
+          f"{c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} bytes, bound "
+          f"{c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+    d = ba.decode_rate()
+    print(f"{form} host decode of the AVI corpus ({d['clips']} clips, {d['frames']} frames of "
+          f"320x240, Xvid with B-VOPs): {d['frames_per_s_one_thread']:.0f} frames/s on one "
+          f"thread, {d['frames_per_s_pool']:.0f} on {d['threads']} ({card})")
+    k = ba.check_mixed_vs_cpu()
+    print(f"{form} recipe as written (cpu reader, .gpu()) against the mixed reader: "
+          f"{k['frames']} uint8 frames of {k['batches']} batches equal on the card; "
+          f"{form} phase: {time.perf_counter() - t0:.1f} s ({card})")
+    return r["cmn_launches"], c
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2094,6 +2156,7 @@ def main():
     launches["video_clip_train"], path_cmn["video_clip_train"] = video_phase(card, rn50_ips)
     launches["rn50_arith_train"], path_cmn["rn50_arith_train"] = arith_phase(card, rn50_ips)
     launches["video_flow_train"], path_cmn["video_flow_train"] = video_flow_phase(card, rn50_ips)
+    launches["ucf_avi_train"], path_cmn["ucf_avi_train"] = avi_phase(card, rn50_ips)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

@@ -1,6 +1,6 @@
 """Video readers (counterpart of ``dali_tpu/backend/video.py``):
 ``readers.Video`` and ``experimental.inputs.Video``, cpu and mixed, over
-the port's own MP4 / MPEG-4 Part 2 host decode (``native.VideoFile``,
+the port's own MP4 and AVI host decode (``native.VideoFile``,
 ``csrc/host/video_decode.cc``), whose frames equal the reference's FFmpeg
 decode bit for bit.
 
@@ -117,7 +117,7 @@ def pad_frames(frames: np.ndarray, want: int, mode: str, fill=0.0) -> np.ndarray
 DALI_SCHEMA("readers.Video").DocStr(
     """Reads fixed-length frame sequences from video files (reference
     ``readers__Video``). Outputs [F, H, W, C] uint8 (+ label when
-    ``file_list``/``labels`` given). Host MP4 / MPEG-4 Part 2 decode."""
+    ``file_list``/``labels`` given). Host MP4 and AVI decode."""
 ).NumInput(0).OutputFn(
     lambda spec: (1 + (1 if (spec.GetArgument("labels", None)
                              or spec.GetArgument("file_list", None)

@@ -6,8 +6,8 @@
 // timescale * samples / sum of stts durations; frames = the stts count).
 //
 // Only MPEG-4 Part 2 video (``mp4v``, object type 0x20) is decoded; other
-// codecs in MP4 and other containers are reported as unsupported, naming
-// them (ROADMAP item 8b).
+// codecs in MP4 and containers other than MP4 and AVI (avi_demux.cc) are
+// reported as unsupported, naming them (ROADMAP item 8b).
 
 #include <unistd.h>
 
@@ -295,7 +295,6 @@ const char* codec_name(uint32_t c) {
 
 // Recognises a container other than ISO BMFF that libavformat opens.
 const char* other_container(const uint8_t* d, size_t n) {
-  if (n >= 12 && !memcmp(d, "RIFF", 4) && !memcmp(d + 8, "AVI ", 4)) return "AVI";
   if (n >= 4 && d[0] == 0x1a && d[1] == 0x45 && d[2] == 0xdf && d[3] == 0xa3)
     return "Matroska/WebM";
   if (n >= 377 && d[0] == 0x47 && d[188] == 0x47 && d[376] == 0x47) return "MPEG-2 TS";
@@ -356,7 +355,7 @@ int finish(const TopLevel& top, const uint8_t* head, size_t head_n, uint64_t fil
     const char* other = other_container(head, head_n);
     if (other) {
       *msg = std::string(other) +
-             " input: the port reads MP4 (ISO BMFF) only, ROADMAP.md Queue 1 item 8b";
+             " input: the port reads MP4 (ISO BMFF) and AVI, ROADMAP.md Queue 1 item 8b";
       return kUnsupported;
     }
     *msg = "not a video file";

@@ -1,17 +1,24 @@
-// MPEG-4 Part 2 (ISO/IEC 14496-2) Simple Profile video decoder, written
-// from the specification: VOS/VO/VOL headers, I- and P-VOPs (including
-// vop_coded 0), intra DC/AC prediction, the TCOEF VLCs with the three
-// escape modes, H.263 and MPEG inverse quantisation, 1MV and 4MV motion
-// with median prediction, half-sample compensation under the VOP's
-// rounding control, unrestricted vectors over replicated edges, video
-// packets (resync markers) and frame sizes that are not multiples of 16.
+// MPEG-4 Part 2 (ISO/IEC 14496-2) Simple and Advanced Simple Profile video
+// decoder, written from the specification: VOS/VO/VOL headers, I-, P- and
+// B-VOPs (including vop_coded 0; B-VOPs forward, backward, interpolated
+// and direct, scaled by the VOP times), intra DC/AC prediction, the TCOEF
+// VLCs with the three escape modes, H.263 and MPEG inverse quantisation,
+// 1MV and 4MV motion with median prediction, half-sample compensation
+// under the VOP's rounding control, unrestricted vectors over replicated
+// edges, video packets (resync markers) and frame sizes that are not
+// multiples of 16.
 //
 // Where the specification leaves the decoder a choice, the choices are
 // those of the stream's reference decode, FFmpeg 5.1's ``mpeg4`` decoder on
 // x86-64, so that the output is bit-equal to it:
 //   * the inverse DCT is the "simple" integer IDCT (13-bit row pass,
 //     20-bit column pass, a row holding only DC scaled by 8), which FFmpeg
-//     selects by default for a stream that is not Xvid's;
+//     selects by default, or Xvid's for a stream whose user data names
+//     Xvid (or an XVID-tagged stream that names no encoder), as its
+//     ff_mpeg4_workaround_bugs selects;
+//   * in AVI (``decode_packet``) the packet layer of its h263dec.c: DivX
+//     5's packed bitstreams, pictures shown in display order with a delay
+//     of one unless low_delay, a B-VOP without its past reference skipped;
 //   * intra coefficients are dequantised without the [-2048, 2047] clip,
 //     and the MPEG quantiser's mismatch control is applied to inter blocks
 //     only;
@@ -226,7 +233,9 @@ inline void idct_col(const int16_t* col, int out[8]) {
   out[7] = int32_t(a0 - b0) >> COL_SHIFT;
 }
 
-void idct_put(int16_t* blk, uint8_t* dst, int stride) {
+}  // namespace
+
+void simple_idct_put(int16_t* blk, uint8_t* dst, int stride) {
   for (int i = 0; i < 8; i++) idct_row(blk + 8 * i);
   int out[8];
   for (int i = 0; i < 8; i++) {
@@ -235,13 +244,142 @@ void idct_put(int16_t* blk, uint8_t* dst, int stride) {
   }
 }
 
-void idct_add(int16_t* blk, uint8_t* dst, int stride) {
+void simple_idct_add(int16_t* blk, uint8_t* dst, int stride) {
   for (int i = 0; i < 8; i++) idct_row(blk + 8 * i);
   int out[8];
   for (int i = 0; i < 8; i++) {
     idct_col(blk + i, out);
     for (int k = 0; k < 8; k++) dst[k * stride + i] = clip8(dst[k * stride + i] + out[k]);
   }
+}
+
+namespace {
+
+// ---------------------------------------------------------------- XviD IDCT
+// FFmpeg's xvididct.c (the C form its SSE2 code reproduces): a row pass
+// with per-row tables and rounding constants that carry the column pass's
+// rounding, a zero row left untouched, and a column pass of 16-bit
+// fixed-point tangent rotations.
+
+constexpr int kXvidRowShift = 11, kXvidColShift = 6;
+constexpr int kXvidRnd[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+constexpr int kXvidTab[4][7] = {{22725, 21407, 19266, 16384, 12873, 8867, 4520},
+                                {31521, 29692, 26722, 22725, 17855, 12299, 6270},
+                                {29692, 27969, 25172, 21407, 16819, 11585, 5906},
+                                {26722, 25172, 22654, 19266, 15137, 10426, 5315}};
+constexpr int kXvidRowTab[8] = {0, 1, 2, 3, 0, 3, 2, 1};
+
+void xvid_row(int16_t* in, const int* tab, int rnd) {
+  const unsigned c1 = tab[0], c2 = tab[1], c3 = tab[2], c4 = tab[3], c5 = tab[4], c6 = tab[5],
+                 c7 = tab[6];
+  const int right = in[5] | in[6] | in[7];
+  const int left = in[1] | in[2] | in[3];
+  if (!(right | in[4])) {
+    const int k = int(c4 * unsigned(in[0]) + unsigned(rnd));
+    if (left) {
+      const unsigned a0 = unsigned(k) + c2 * unsigned(in[2]);
+      const unsigned a1 = unsigned(k) + c6 * unsigned(in[2]);
+      const unsigned a2 = unsigned(k) - c6 * unsigned(in[2]);
+      const unsigned a3 = unsigned(k) - c2 * unsigned(in[2]);
+      const unsigned b0 = c1 * unsigned(in[1]) + c3 * unsigned(in[3]);
+      const unsigned b1 = c3 * unsigned(in[1]) - c7 * unsigned(in[3]);
+      const unsigned b2 = c5 * unsigned(in[1]) - c1 * unsigned(in[3]);
+      const unsigned b3 = c7 * unsigned(in[1]) - c5 * unsigned(in[3]);
+      in[0] = int16_t(int(a0 + b0) >> kXvidRowShift);
+      in[1] = int16_t(int(a1 + b1) >> kXvidRowShift);
+      in[2] = int16_t(int(a2 + b2) >> kXvidRowShift);
+      in[3] = int16_t(int(a3 + b3) >> kXvidRowShift);
+      in[4] = int16_t(int(a3 - b3) >> kXvidRowShift);
+      in[5] = int16_t(int(a2 - b2) >> kXvidRowShift);
+      in[6] = int16_t(int(a1 - b1) >> kXvidRowShift);
+      in[7] = int16_t(int(a0 - b0) >> kXvidRowShift);
+    } else {
+      const int a0 = k >> kXvidRowShift;
+      if (a0)
+        for (int i = 0; i < 8; i++) in[i] = int16_t(a0);
+    }
+    return;
+  }
+  const unsigned k = c4 * unsigned(in[0]) + unsigned(rnd);
+  const unsigned a0 = k + c2 * unsigned(in[2]) + c4 * unsigned(in[4]) + c6 * unsigned(in[6]);
+  const unsigned a1 = k + c6 * unsigned(in[2]) - c4 * unsigned(in[4]) - c2 * unsigned(in[6]);
+  const unsigned a2 = k - c6 * unsigned(in[2]) - c4 * unsigned(in[4]) + c2 * unsigned(in[6]);
+  const unsigned a3 = k - c2 * unsigned(in[2]) + c4 * unsigned(in[4]) - c6 * unsigned(in[6]);
+  const unsigned b0 = c1 * unsigned(in[1]) + c3 * unsigned(in[3]) + c5 * unsigned(in[5]) + c7 * unsigned(in[7]);
+  const unsigned b1 = c3 * unsigned(in[1]) - c7 * unsigned(in[3]) - c1 * unsigned(in[5]) - c5 * unsigned(in[7]);
+  const unsigned b2 = c5 * unsigned(in[1]) - c1 * unsigned(in[3]) + c7 * unsigned(in[5]) + c3 * unsigned(in[7]);
+  const unsigned b3 = c7 * unsigned(in[1]) - c5 * unsigned(in[3]) + c3 * unsigned(in[5]) - c1 * unsigned(in[7]);
+  in[0] = int16_t(int(a0 + b0) >> kXvidRowShift);
+  in[1] = int16_t(int(a1 + b1) >> kXvidRowShift);
+  in[2] = int16_t(int(a2 + b2) >> kXvidRowShift);
+  in[3] = int16_t(int(a3 + b3) >> kXvidRowShift);
+  in[4] = int16_t(int(a3 - b3) >> kXvidRowShift);
+  in[5] = int16_t(int(a2 - b2) >> kXvidRowShift);
+  in[6] = int16_t(int(a1 - b1) >> kXvidRowShift);
+  in[7] = int16_t(int(a0 - b0) >> kXvidRowShift);
+}
+
+inline int xvid_mult(int c, int x) { return int(unsigned(int(unsigned(c) * unsigned(x)) >> 16)); }
+
+// the column pass; FFmpeg's 3- and 4-row forms are this one with zeros
+void xvid_col(int16_t* in) {
+  constexpr int kTan1 = 0x32EC, kTan2 = 0x6A0A, kTan3 = 0xAB0E, kSqrt2 = 0x5A82;
+  int mm0, mm1, mm2, mm3, mm4, mm5, mm6, mm7, t;
+  mm4 = in[7 * 8];
+  mm5 = in[5 * 8];
+  mm6 = in[3 * 8];
+  mm7 = in[1 * 8];
+  mm0 = xvid_mult(kTan1, mm4) + mm7;
+  mm1 = xvid_mult(kTan1, mm7) - mm4;
+  mm2 = xvid_mult(kTan3, mm5) + mm6;
+  mm3 = xvid_mult(kTan3, mm6) - mm5;
+  mm7 = mm0 + mm2;
+  mm4 = mm1 - mm3;
+  mm0 = mm0 - mm2;
+  mm1 = mm1 + mm3;
+  mm6 = mm0 + mm1;
+  mm5 = mm0 - mm1;
+  mm5 = 2 * xvid_mult(kSqrt2, mm5);
+  mm6 = 2 * xvid_mult(kSqrt2, mm6);
+  mm1 = in[2 * 8];
+  mm2 = in[6 * 8];
+  mm3 = xvid_mult(kTan2, mm2) + mm1;
+  mm2 = xvid_mult(kTan2, mm1) - mm2;
+  mm0 = in[0] + in[4 * 8];
+  mm1 = in[0] - in[4 * 8];
+  t = mm0 + mm3; mm3 = mm0 - mm3; mm0 = t;
+  t = mm0 + mm7; mm7 = mm0 - mm7; mm0 = t;
+  in[8 * 0] = int16_t(mm0 >> kXvidColShift);
+  in[8 * 7] = int16_t(mm7 >> kXvidColShift);
+  t = mm3 + mm4; mm4 = mm3 - mm4; mm3 = t;
+  in[8 * 3] = int16_t(mm3 >> kXvidColShift);
+  in[8 * 4] = int16_t(mm4 >> kXvidColShift);
+  t = mm1 + mm2; mm2 = mm1 - mm2; mm1 = t;
+  t = mm1 + mm6; mm6 = mm1 - mm6; mm1 = t;
+  in[8 * 1] = int16_t(mm1 >> kXvidColShift);
+  in[8 * 6] = int16_t(mm6 >> kXvidColShift);
+  t = mm2 + mm5; mm5 = mm2 - mm5; mm2 = t;
+  in[8 * 2] = int16_t(mm2 >> kXvidColShift);
+  in[8 * 5] = int16_t(mm5 >> kXvidColShift);
+}
+
+void xvid_idct(int16_t* blk) {
+  for (int r = 0; r < 8; r++) xvid_row(blk + 8 * r, kXvidTab[kXvidRowTab[r]], kXvidRnd[r]);
+  for (int c = 0; c < 8; c++) xvid_col(blk + c);
+}
+
+void idct_put(int16_t* blk, uint8_t* dst, int stride, bool xvid) {
+  if (!xvid) return simple_idct_put(blk, dst, stride);
+  xvid_idct(blk);
+  for (int y = 0; y < 8; y++)
+    for (int x = 0; x < 8; x++) dst[y * stride + x] = clip8(blk[8 * y + x]);
+}
+
+void idct_add(int16_t* blk, uint8_t* dst, int stride, bool xvid) {
+  if (!xvid) return simple_idct_add(blk, dst, stride);
+  xvid_idct(blk);
+  for (int y = 0; y < 8; y++)
+    for (int x = 0; x < 8; x++) dst[y * stride + x] = clip8(dst[y * stride + x] + blk[8 * y + x]);
 }
 
 // ---------------------------------------------------------------- motion compensation
@@ -267,20 +405,21 @@ const uint8_t* fetch(const uint8_t* plane, int stride, int w, int h, int x, int 
 }
 
 void mc_block(uint8_t* dst, int dstride, const uint8_t* src, int sstride, int bw, int bh,
-              int dxy, bool no_rnd) {
+              int dxy, bool no_rnd, bool avg) {
   for (int j = 0; j < bh; j++) {
     const uint8_t* s0 = src + j * sstride;
     const uint8_t* s1 = s0 + sstride;
     uint8_t* d = dst + j * dstride;
+    auto store = [&](int i, int v) { d[i] = uint8_t(avg ? (d[i] + v + 1) >> 1 : v); };
     switch (dxy) {
       case 0:
-        memcpy(d, s0, bw);
+        for (int i = 0; i < bw; i++) store(i, s0[i]);
         break;
       case 1:
         if (no_rnd)
-          for (int i = 0; i < bw; i++) d[i] = uint8_t((std::max(s0[i] - 1, 0) + s0[i + 1] + 1) >> 1);
+          for (int i = 0; i < bw; i++) store(i, (std::max(s0[i] - 1, 0) + s0[i + 1] + 1) >> 1);
         else
-          for (int i = 0; i < bw; i++) d[i] = uint8_t((s0[i] + s0[i + 1] + 1) >> 1);
+          for (int i = 0; i < bw; i++) store(i, (s0[i] + s0[i + 1] + 1) >> 1);
         break;
       case 2:
         if (no_rnd) {
@@ -289,16 +428,15 @@ void mc_block(uint8_t* dst, int dstride, const uint8_t* src, int sstride, int bw
             int a = s0[i], b = s1[i];
             if (j & 1) a = std::max(a - 1, 0);
             else b = std::max(b - 1, 0);
-            d[i] = uint8_t((a + b + 1) >> 1);
+            store(i, (a + b + 1) >> 1);
           }
         } else {
-          for (int i = 0; i < bw; i++) d[i] = uint8_t((s0[i] + s1[i] + 1) >> 1);
+          for (int i = 0; i < bw; i++) store(i, (s0[i] + s1[i] + 1) >> 1);
         }
         break;
       default: {
         int r = no_rnd ? 1 : 2;
-        for (int i = 0; i < bw; i++)
-          d[i] = uint8_t((s0[i] + s0[i + 1] + s1[i] + s1[i + 1] + r) >> 2);
+        for (int i = 0; i < bw; i++) store(i, (s0[i] + s0[i + 1] + s1[i] + s1[i + 1] + r) >> 2);
         break;
       }
     }
@@ -329,15 +467,41 @@ struct Mpeg4Decoder::Impl {
   bool mpeg_quant = false;
   uint16_t intra_matrix[64], inter_matrix[64];
   bool full_range = false;
-  // pictures
-  Picture cur, ref;
-  bool have_ref = false;
+  int vo_type = 0;
+  bool vol_control = false;
+  int time_res = 1;  // vop_time_increment_resolution
+  // what FFmpeg keeps across VOPs: the delay, the picture count, the
+  // encoder found in the user data and what it selects
+  Mpeg4State st;
+  uint32_t codec_tag = 0;  // the container's FourCC in upper case (AVI), 0 in MP4
+  bool packet_mode = false;  // AVI: B-VOPs, packed bitstreams, output in display order
+  bool headers_only = false;  // parse the VOP headers, decode no macroblock
+  std::vector<uint8_t> config;
+  // VOP times (FFmpeg's time_base, last_non_b_time, pp_time, pb_time)
+  int64_t time_base = 0, last_time_base = 0, last_non_b_time = 0;
+  uint16_t pp_time = 0, pb_time = 0;
+  // pictures: the past and future references (FFmpeg's last and next
+  // picture) and the picture being decoded
+  Picture pics[3];
+  int ref_last = -1, ref_next = -1;
+  Picture* cur = &pics[0];
+  const Picture* out = nullptr;
+  // the future reference's macroblocks: not coded, four vectors
+  std::vector<uint8_t> ref_skip, ref_4mv;
+  // a packed VOP held for the next packet (FFmpeg's bitstream_buffer), with
+  // the tag of its first byte
+  std::vector<uint8_t> stored;
+  int64_t stored_tag = 0;
+  int64_t vop_offset = 0;  // start code of the VOP of the last walk, in its buffer
   // per-VOP state
   int mb_w = 0, mb_h = 0, mb_num = 0;
-  int pict_p = 0;  // 0 I, 1 P
+  int pict_type = 0;  // 0 I, 1 P, 2 B
+  int pict_p = 0;     // 1 for a P-VOP
   int qscale = 1;
   bool no_rounding = false;
-  int fcode = 1;
+  int fcode = 1, bcode = 1;
+  int last_mv[2][2];  // B-VOP vector predictors, forward and backward
+  int bmv[2][4][2];   // B-VOP vectors by direction and block
   int dc_threshold = 99;
   int mb_x = 0, mb_y = 0;
   int resync_x = 0, resync_y = 0;
@@ -354,6 +518,7 @@ struct Mpeg4Decoder::Impl {
   int last_index[6];
   bool intra = false, ac_pred = false, four_mv = false, skipped = false;
   int mv[4][2];
+  bool fwd = false, bwd = false;  // B-VOP prediction directions
   std::string err;
   bool unsupported = false;
 
@@ -403,24 +568,28 @@ struct Mpeg4Decoder::Impl {
 
   bool parse_vol(Bits& b) {
     b.skip(1);  // random_accessible_vol
-    b.skip(8);  // video_object_type_indication
+    vo_type = int(b.get(8));
     int verid = 1;
     if (b.bit()) {
       verid = int(b.get(4));
       b.skip(3);
     }
     if (b.get(4) == 15) b.skip(16);  // extended PAR
-    if (b.bit()) {                   // vol_control_parameters
+    vol_control = b.bit();
+    if (vol_control) {
       int chroma = int(b.get(2));
       if (chroma != 1) return unsupported_form("MPEG-4 chroma format other than 4:2:0");
-      b.skip(1);  // low_delay
+      st.low_delay = b.bit();
       if (b.bit()) b.skip(15 + 1 + 15 + 1 + 15 + 1 + 3 + 11 + 1 + 15 + 1);
+    } else if (st.picture_number == 0) {
+      st.low_delay = vo_type == 1 || vo_type == 17;  // Simple and Advanced Simple
     }
     int shape = int(b.get(2));
     if (shape != 0) return unsupported_form("MPEG-4 arbitrary-shape VOLs");
     b.skip(1);
     int res = int(b.get(16));
     if (res == 0) return fail("vop_time_increment_resolution 0");
+    time_res = res;
     time_bits = 1;
     while ((1 << time_bits) < res) time_bits++;
     b.skip(1);
@@ -484,8 +653,19 @@ struct Mpeg4Decoder::Impl {
         if (!parse_vol(b)) return unsupported ? kUnsupported : kInvalid;
       } else if (code == 0xb5) {
         parse_vo(b);
+      } else if (code == 0xb2) {
+        parse_user_data(p + body, end - body);
+      } else if (code == 0xb3) {
+        // GOV: the time code sets the seconds the VOP times count from
+        if (b.peek(23)) {
+          int hours = int(b.get(5)), minutes = int(b.get(6));
+          b.skip(1);
+          int seconds = int(b.get(6));
+          time_base = seconds + 60 * (minutes + 60 * hours);
+        }
       } else if (code == 0xb6) {
         if (config_only) return 0;
+        vop_offset = int64_t(i);
         return decode_vop(b);
       }
       i = end;
@@ -493,19 +673,83 @@ struct Mpeg4Decoder::Impl {
     return 0;
   }
 
+  // FFmpeg's decode_user_data: the encoder and its build, and DivX's
+  // packed-bitstream flag
+  void parse_user_data(const uint8_t* p, size_t n) {
+    char buf[256];
+    size_t k = 0;
+    for (; k < 255 && k < n; k++) buf[k] = char(p[k]);
+    buf[k] = 0;
+    int ver = 0, ver2 = 0, ver3 = 0, build = 0;
+    char last = 0;
+    int e = sscanf(buf, "DivX%dBuild%d%c", &ver, &build, &last);
+    if (e < 2) e = sscanf(buf, "DivX%db%d%c", &ver, &build, &last);
+    if (e >= 2) {
+      st.divx_version = ver;
+      st.divx_build = build;
+      st.packed = e == 3 && last == 'p';
+    }
+    e = sscanf(buf, "FFmpe%*[^b]b%d", &build) + 3;
+    if (e != 4)
+      e = sscanf(buf, "FFmpeg v%d.%d.%d / libavcodec build: %d", &ver, &ver2, &ver3, &build);
+    if (e != 4) {
+      e = sscanf(buf, "Lavc%d.%d.%d", &ver, &ver2, &ver3) + 1;
+      if (e > 1) {
+        if (unsigned(ver) > 0xff || unsigned(ver2) > 0xff || unsigned(ver3) > 0xff) e = 0;
+        else build = (ver << 16) + (ver2 << 8) + ver3;
+      }
+    }
+    if (e != 4) {
+      if (strcmp(buf, "ffmpeg") == 0) st.lavc_build = 4600;
+    }
+    if (e == 4) st.lavc_build = build;
+    if (sscanf(buf, "XviD%d", &build) == 1) st.xvid_build = build;
+  }
+
+  // FFmpeg's ff_mpeg4_workaround_bugs: the encoder from the codec tag when
+  // the user data names none, and the IDCT it selects (Xvid's for a stream
+  // of Xvid's). The workarounds that change the decode of the forms the
+  // port reads are left to item 8b.
+  bool workarounds() {
+    auto tag_is = [&](const char* t) { return codec_tag == riff_fourcc(t); };
+    if (st.xvid_build == -1 && st.divx_version == -1 && st.lavc_build == -1 &&
+        (tag_is("XVID") || tag_is("XVIX") || tag_is("RMP4") || tag_is("ZMP4") || tag_is("SIPP")))
+      st.xvid_build = 0;
+    if (st.xvid_build == -1 && st.divx_version == -1 && st.lavc_build == -1 && tag_is("DIVX") &&
+        vo_type == 0 && !vol_control)
+      st.divx_version = 400;
+    if (st.xvid_build >= 0 && st.divx_version >= 0) st.divx_version = st.divx_build = -1;
+    const char* bug = nullptr;
+    if (tag_is("XVIX")) bug = "Xvid's interlacing bug (XVIX)";
+    else if (tag_is("UMP4")) bug = "UMP4 streams";
+    else if (tag_is("GEOV") || tag_is("GEOX")) bug = "GeoVision streams";
+    else if (unsigned(st.xvid_build) <= 32u)
+      bug = "Xvid builds before 33 (edge and DC workarounds)";
+    else if (unsigned(st.divx_version) < 500u) bug = "DivX 4 streams (edge workaround)";
+    else if (unsigned(st.lavc_build) <= 4712u)
+      bug = "old libavcodec streams (edge and DC workarounds)";
+    else if ((st.lavc_build & 0xff) >= 100 && st.lavc_build > 3621476 && st.lavc_build < 3752552 &&
+             (st.lavc_build < 3752037 || st.lavc_build > 3752191))
+      bug = "libavcodec 55 streams (intra edge workaround)";
+    if (bug) return unsupported_form(std::string("MPEG-4 ") + bug);
+    if (st.xvid_build >= 0) st.xvid_idct = true;
+    return true;
+  }
+
   // ------------------------------------------------------------ VOP
 
   void alloc_vop() {
     int mw = (width + 15) / 16, mh = (height + 15) / 16;
-    for (Picture* pic : {&cur, &ref}) {  // a VOL may change the size within one macroblock grid
-      pic->width = width;
-      pic->height = height;
+    for (Picture& pic : pics) {  // a VOL may change the size within one macroblock grid
+      pic.width = width;
+      pic.height = height;
     }
-    if (mw == mb_w && mh == mb_h && !cur.y.empty()) return;
+    if (mw == mb_w && mh == mb_h && !pics[0].y.empty()) return;
     mb_w = mw;
     mb_h = mh;
     mb_num = mw * mh;
-    for (Picture* pic : {&cur, &ref}) {
+    for (Picture& p : pics) {
+      Picture* pic = &p;
       pic->stride_y = mw * 16;
       pic->stride_c = mw * 8;
       pic->rows_y = mh * 16;
@@ -514,7 +758,9 @@ struct Mpeg4Decoder::Impl {
       pic->u.assign(size_t(pic->stride_c) * pic->rows_c, 0);
       pic->v.assign(size_t(pic->stride_c) * pic->rows_c, 0);
     }
-    have_ref = false;
+    ref_last = ref_next = -1;
+    ref_skip.assign(size_t(mb_num), 0);
+    ref_4mv.assign(size_t(mb_num), 0);
     ls = 2 * mw + 1;
     cs = mw + 1;
     size_t lsize = size_t(ls) * (2 * mh + 2), csize = size_t(cs) * (mh + 2);
@@ -538,8 +784,10 @@ struct Mpeg4Decoder::Impl {
 
   void set_qscale(int q) { qscale = q < 1 ? 1 : (q > 31 ? 31 : q); }
 
-  // FFmpeg's clean of the AC predictors at the start of a video packet
+  // FFmpeg's clean of the AC predictors (and the B-VOP vector predictors)
+  // at the start of a video packet
   void clean_ac_for_packet() {
+    memset(last_mv, 0, sizeof(last_mv));
     int l0 = lidx(2 * mb_x - 1, 2 * mb_y - 1);
     for (int k = 0; k < 2 * ls + 1; k++)
       if (l0 + k >= 0 && size_t(l0 + k) < dc[0].size())
@@ -746,7 +994,7 @@ struct Mpeg4Decoder::Impl {
     return true;
   }
 
-  bool decode_motion(Bits& b, int pred, int* out) {
+  bool decode_motion(Bits& b, int pred, int* out, int f_code) {
     const Tables& t = tables();
     int code = t.mv.read(b);
     if (code < 0) return fail("illegal motion vector code");
@@ -755,7 +1003,7 @@ struct Mpeg4Decoder::Impl {
       return true;
     }
     bool sign = b.bit();
-    int shift = fcode - 1;
+    int shift = f_code - 1;
     int val = code;
     if (shift) {
       val = (val - 1) << shift;
@@ -764,7 +1012,7 @@ struct Mpeg4Decoder::Impl {
     }
     if (sign) val = -val;
     val += pred;
-    *out = sign_extend(val, 5 + fcode);
+    *out = sign_extend(val, 5 + f_code);
     return true;
   }
 
@@ -866,12 +1114,14 @@ struct Mpeg4Decoder::Impl {
     int px, py;
     if (!(cbpc & 16)) {
       pred_motion(0, &px, &py);
-      if (!decode_motion(b, px, &mv[0][0]) || !decode_motion(b, py, &mv[0][1])) return false;
+      if (!decode_motion(b, px, &mv[0][0], fcode) || !decode_motion(b, py, &mv[0][1], fcode))
+        return false;
     } else {
       four_mv = true;
       for (int k = 0; k < 4; k++) {
         pred_motion(k, &px, &py);
-        if (!decode_motion(b, px, &mv[k][0]) || !decode_motion(b, py, &mv[k][1])) return false;
+        if (!decode_motion(b, px, &mv[k][0], fcode) || !decode_motion(b, py, &mv[k][1], fcode))
+          return false;
         int16_t* m = mvp(2 * mb_x + (k & 1), 2 * mb_y + (k >> 1));
         m[0] = int16_t(mv[k][0]);
         m[1] = int16_t(mv[k][1]);
@@ -886,7 +1136,8 @@ struct Mpeg4Decoder::Impl {
 
   // ------------------------------------------------------------ reconstruction
 
-  void mc_luma(int x, int y, int mx, int my, int bs, uint8_t* dst) {
+  void mc_luma(int x, int y, int mx, int my, int bs, uint8_t* dst, const Picture& ref, bool avg,
+               bool no_rnd) {
     int dxy = ((my & 1) << 1) | (mx & 1);
     int sx = x + (mx >> 1), sy = y + (my >> 1);
     if (bs == 8) {  // an 8x8 vector is clipped first
@@ -899,24 +1150,61 @@ struct Mpeg4Decoder::Impl {
     int ss;
     const uint8_t* src = fetch(ref.y.data(), ref.stride_y, ref.stride_y, ref.rows_y, sx, sy, bs,
                                bs, tmp, &ss);
-    mc_block(dst, cur.stride_y, src, ss, bs, bs, dxy, no_rounding);
+    mc_block(dst, cur->stride_y, src, ss, bs, bs, dxy, no_rnd, avg);
   }
 
-  void mc_chroma(int sx, int sy, int dxy, uint8_t* du, uint8_t* dv) {
+  void mc_chroma(int sx, int sy, int dxy, uint8_t* du, uint8_t* dv, const Picture& ref, bool avg,
+                 bool no_rnd) {
     uint8_t tmp[9 * 9];
     int ss;
     const uint8_t* src = fetch(ref.u.data(), ref.stride_c, ref.stride_c, ref.rows_c, sx, sy, 8,
                                8, tmp, &ss);
-    mc_block(du, cur.stride_c, src, ss, 8, 8, dxy, no_rounding);
+    mc_block(du, cur->stride_c, src, ss, 8, 8, dxy, no_rnd, avg);
     src = fetch(ref.v.data(), ref.stride_c, ref.stride_c, ref.rows_c, sx, sy, 8, 8, tmp, &ss);
-    mc_block(dv, cur.stride_c, src, ss, 8, 8, dxy, no_rounding);
+    mc_block(dv, cur->stride_c, src, ss, 8, 8, dxy, no_rnd, avg);
+  }
+
+  // one direction's prediction of the macroblock from ``ref``: a 16x16
+  // vector, or four 8x8 ones with the chroma vector from their sum; ``avg``
+  // averages it into what the other direction put there
+  void predict(const Picture& ref, const int (*v)[2], bool four, bool avg, bool no_rnd,
+               uint8_t* dy, uint8_t* du, uint8_t* dv) {
+    const int sy_ = cur->stride_y;
+    if (!four) {
+      int mx = v[0][0], my = v[0][1];
+      mc_luma(mb_x * 16, mb_y * 16, mx, my, 16, dy, ref, avg, no_rnd);
+      int dxy = ((my & 1) << 1) | (mx & 1);
+      int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
+      int sx = (mb_x * 16 + (mx >> 1)) >> 1, sy = (mb_y * 16 + (my >> 1)) >> 1;
+      mc_chroma(sx, sy, uvdxy, du, dv, ref, avg, no_rnd);
+      return;
+    }
+    int sumx = 0, sumy = 0;
+    for (int k = 0; k < 4; k++) {
+      mc_luma(mb_x * 16 + (k & 1) * 8, mb_y * 16 + (k >> 1) * 8, v[k][0], v[k][1], 8,
+              dy + (k & 1) * 8 + (k >> 1) * 8 * sy_, ref, avg, no_rnd);
+      sumx += v[k][0];
+      sumy += v[k][1];
+    }
+    static const uint8_t round_tab[16] = {0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
+    int mx = round_tab[sumx & 15] + ((sumx >> 3) & ~1);
+    int my = round_tab[sumy & 15] + ((sumy >> 3) & ~1);
+    int dxy = ((my & 1) << 1) | (mx & 1);
+    mx >>= 1;
+    my >>= 1;
+    int sx = mb_x * 8 + mx, sy = mb_y * 8 + my;
+    sx = std::min(std::max(sx, -8), width >> 1);
+    if (sx == (width >> 1)) dxy &= ~1;
+    sy = std::min(std::max(sy, -8), height >> 1);
+    if (sy == (height >> 1)) dxy &= ~2;
+    mc_chroma(sx, sy, dxy, du, dv, ref, avg, no_rnd);
   }
 
   void reconstruct() {
-    const int sy_ = cur.stride_y, sc = cur.stride_c;
-    uint8_t* dy = cur.y.data() + size_t(mb_y) * 16 * sy_ + mb_x * 16;
-    uint8_t* du = cur.u.data() + size_t(mb_y) * 8 * sc + mb_x * 8;
-    uint8_t* dv = cur.v.data() + size_t(mb_y) * 8 * sc + mb_x * 8;
+    const int sy_ = cur->stride_y, sc = cur->stride_c;
+    uint8_t* dy = cur->y.data() + size_t(mb_y) * 16 * sy_ + mb_x * 16;
+    uint8_t* du = cur->u.data() + size_t(mb_y) * 8 * sc + mb_x * 8;
+    uint8_t* dv = cur->v.data() + size_t(mb_y) * 8 * sc + mb_x * 8;
     uint8_t* dest[6] = {dy, dy + 8, dy + 8 * sy_, dy + 8 * sy_ + 8, du, dv};
     int strides[6] = {sy_, sy_, sy_, sy_, sc, sc};
     if (intra) {
@@ -938,38 +1226,23 @@ struct Mpeg4Decoder::Impl {
             blk[i] = int16_t(level < 0 ? level * qmul - qadd : level * qmul + qadd);
           }
         }
-        idct_put(blk, dest[n], strides[n]);
+        idct_put(blk, dest[n], strides[n], st.xvid_idct);
       }
       return;
     }
     // prediction
-    if (!four_mv) {
-      int mx = mv[0][0], my = mv[0][1];
-      mc_luma(mb_x * 16, mb_y * 16, mx, my, 16, dy);
-      int dxy = ((my & 1) << 1) | (mx & 1);
-      int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
-      int sx = (mb_x * 16 + (mx >> 1)) >> 1, sy = (mb_y * 16 + (my >> 1)) >> 1;
-      mc_chroma(sx, sy, uvdxy, du, dv);
-    } else {
-      int sumx = 0, sumy = 0;
-      for (int k = 0; k < 4; k++) {
-        mc_luma(mb_x * 16 + (k & 1) * 8, mb_y * 16 + (k >> 1) * 8, mv[k][0], mv[k][1], 8,
-                dy + (k & 1) * 8 + (k >> 1) * 8 * sy_);
-        sumx += mv[k][0];
-        sumy += mv[k][1];
+    if (pict_type == 2) {
+      // B-VOP: forward, backward or both averaged, always rounding; a
+      // macroblock not coded in the future reference copies the past one
+      static const int zero[4][2] = {};
+      if (skipped) {
+        predict(pics[ref_last], zero, false, false, false, dy, du, dv);
+        return;
       }
-      static const uint8_t round_tab[16] = {0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
-      int mx = round_tab[sumx & 15] + ((sumx >> 3) & ~1);
-      int my = round_tab[sumy & 15] + ((sumy >> 3) & ~1);
-      int dxy = ((my & 1) << 1) | (mx & 1);
-      mx >>= 1;
-      my >>= 1;
-      int sx = mb_x * 8 + mx, sy = mb_y * 8 + my;
-      sx = std::min(std::max(sx, -8), width >> 1);
-      if (sx == (width >> 1)) dxy &= ~1;
-      sy = std::min(std::max(sy, -8), height >> 1);
-      if (sy == (height >> 1)) dxy &= ~2;
-      mc_chroma(sx, sy, dxy, du, dv);
+      if (fwd) predict(pics[ref_last], bmv[0], four_mv, false, false, dy, du, dv);
+      if (bwd) predict(pics[ref_next], bmv[1], four_mv, fwd, false, dy, du, dv);
+    } else {
+      predict(pics[ref_last], mv, four_mv, false, no_rounding, dy, du, dv);
     }
     if (skipped) return;
     for (int n = 0; n < 6; n++) {
@@ -988,13 +1261,15 @@ struct Mpeg4Decoder::Impl {
         }
         blk[63] = int16_t(blk[63] ^ (sum & 1));
       }
-      idct_add(blk, dest[n], strides[n]);
+      idct_add(blk, dest[n], strides[n], st.xvid_idct);
     }
   }
 
   // after each MB: predictors of a non-intra MB are reset; motion stored
   void update_after_mb() {
     qtab[mb_y * mb_w + mb_x] = int8_t(qscale);
+    ref_skip[size_t(mb_y * mb_w + mb_x)] = skipped;
+    ref_4mv[size_t(mb_y * mb_w + mb_x)] = four_mv && !intra;
     if (!intra) {
       for (int k = 0; k < 4; k++) {
         int pos = lidx(2 * mb_x + (k & 1), 2 * mb_y + (k >> 1));
@@ -1023,7 +1298,7 @@ struct Mpeg4Decoder::Impl {
     int64_t bits_count = b.pos;
     uint32_t v = b.peek(16);
     while (v <= 0xff) {  // MCBPC stuffing
-      if ((v >> (8 - (pict_p ? 2 : 1))) != 1) break;
+      if (pict_type == 2 || (v >> (8 - (pict_p ? 2 : 1))) != 1) break;
       b.skip(8 + (pict_p ? 2 : 1));
       bits_count += 8 + (pict_p ? 2 : 1);
       v = b.peek(16);
@@ -1046,7 +1321,7 @@ struct Mpeg4Decoder::Impl {
         while ((1 << mb_bits) < mb_num) mb_bits++;
         int num = int(g.get(mb_bits));
         if (!num || num > mb_num || g.pos + 6 > g.nbits) num = -1;
-        if (len >= (pict_p ? fcode + 15 : 16)) return num;
+        if (len >= prefix_len()) return num;
       }
     }
     return 0;
@@ -1060,11 +1335,15 @@ struct Mpeg4Decoder::Impl {
     int len = 0;
     for (; len < 32; len++)
       if (b.bit()) break;
-    if (len != (pict_p ? fcode + 15 : 16)) return fail("resync marker does not match f_code");
+    if (len != prefix_len()) return fail("resync marker does not match f_code");
     int mb_bits = 1;
     while ((1 << mb_bits) < mb_num) mb_bits++;
     int num = int(b.get(mb_bits));
     if (num >= mb_num || !num) return fail("illegal macroblock number in a video packet");
+    if (pict_type == 2) {  // macroblocks the future reference skipped are skipped here too
+      while (num < mb_num && ref_skip[size_t(num)]) num++;
+      if (num >= mb_num) return fail("a video packet of skipped macroblocks only");
+    }
     mb_x = num % mb_w;
     mb_y = num / mb_w;
     int q = int(b.get(quant_precision));
@@ -1077,29 +1356,121 @@ struct Mpeg4Decoder::Impl {
       b.skip(1);
       b.skip(2);
       b.skip(3);
-      if (pict_p) b.skip(3);
+      if (pict_type) b.skip(3);
+      if (pict_type == 2) b.skip(3);
     }
     return true;
+  }
+
+  int prefix_len() const {
+    if (pict_type == 0) return 16;
+    return (pict_type == 1 ? fcode : std::max(std::max(fcode, bcode), 2)) + 15;
+  }
+
+  bool decode_mb_b(Bits& b) {
+    if (mb_x == 0) memset(last_mv, 0, sizeof(last_mv));
+    memset(block, 0, sizeof(block));
+    intra = false;
+    ac_pred = false;
+    four_mv = false;
+    skipped = false;
+    fwd = bwd = false;
+    if (ref_skip[size_t(mb_y * mb_w + mb_x)]) {
+      // not coded in the future reference: not coded here, copied forward
+      skipped = fwd = true;
+      for (int k = 0; k < 6; k++) last_index[k] = -1;
+      return true;
+    }
+    int cbp = 0, mx = 0, my = 0;
+    bool direct = true;
+    if (!b.bit()) {  // modb 1: direct with no delta and no coefficients
+      bool no_cbp = b.bit();
+      int type = 0;  // MBTYPE: 1 direct, 01 interpolated, 001 backward, 0001 forward
+      while (type < 4 && !b.bit()) type++;
+      if (type == 4) return fail("illegal B macroblock type");
+      direct = type == 0;
+      if (!no_cbp) cbp = int(b.get(6));
+      if (!direct && cbp && b.bit()) set_qscale(qscale + int(b.get(1)) * 4 - 2);
+      if (direct) {
+        if (!decode_motion(b, 0, &mx, 1) || !decode_motion(b, 0, &my, 1)) return false;
+      } else {
+        if (type == 1 || type == 3) {
+          fwd = true;
+          if (!decode_motion(b, last_mv[0][0], &bmv[0][0][0], fcode) ||
+              !decode_motion(b, last_mv[0][1], &bmv[0][0][1], fcode))
+            return false;
+          last_mv[0][0] = bmv[0][0][0];
+          last_mv[0][1] = bmv[0][0][1];
+        }
+        if (type == 1 || type == 2) {
+          bwd = true;
+          if (!decode_motion(b, last_mv[1][0], &bmv[1][0][0], bcode) ||
+              !decode_motion(b, last_mv[1][1], &bmv[1][0][1], bcode))
+            return false;
+          last_mv[1][0] = bmv[1][0][0];
+          last_mv[1][1] = bmv[1][0][1];
+        }
+      }
+    }
+    if (direct) set_direct(mx, my);
+    for (int k = 0; k < 6; k++) {
+      if (!decode_block(b, block[k], k, (cbp & 32) != 0, false)) return false;
+      cbp += cbp;
+    }
+    return true;
+  }
+
+  // direct mode: the future reference's co-located vectors scaled by the
+  // VOP distances, plus the delta (FFmpeg's ff_mpeg4_set_direct_mv)
+  void set_direct(int mx, int my) {
+    fwd = bwd = true;
+    const int pb = pb_time, pp = pp_time;
+    auto one = [&](int i, const int16_t* p) {
+      const int d[2] = {mx, my};
+      for (int c = 0; c < 2; c++) {
+        bmv[0][i][c] = p[c] * pb / pp + d[c];
+        bmv[1][i][c] = d[c] ? bmv[0][i][c] - p[c] : p[c] * (pb - pp) / pp;
+      }
+    };
+    four_mv = ref_4mv[size_t(mb_y * mb_w + mb_x)] != 0;
+    for (int i = 0; i < (four_mv ? 4 : 1); i++)
+      one(i, mvp(2 * mb_x + (i & 1), 2 * mb_y + (i >> 1)));
   }
 
   int decode_vop(Bits& b) {
     if (!have_vol) return 0;  // a VOP before any VOL is dropped, as FFmpeg drops it
     int type = int(b.get(2));
-    if (type == 2) {
-      unsupported_form("MPEG-4 B-VOPs");
-      return kUnsupported;
-    }
     if (type == 3) {
       unsupported_form("MPEG-4 S-VOPs");
       return kUnsupported;
     }
-    pict_p = type;
-    while (b.bit()) {
-    }  // modulo_time_base
+    if (type == 2 && !packet_mode) {
+      unsupported_form("MPEG-4 B-VOPs in MP4");
+      return kUnsupported;
+    }
+    if (type == 2 && st.low_delay && !vol_control) st.low_delay = false;
+    // the VOP's time, counted as FFmpeg counts it: before vop_coded, so a
+    // VOP not coded moves the reference times too
+    int incr = 0;
+    while (b.bit() && b.left() > 0) incr++;  // modulo_time_base
     b.skip(1);
-    b.skip(time_bits);
+    int inc = int(b.get(time_bits));
+    if (type != 2) {
+      last_time_base = time_base;
+      time_base += incr;
+      int64_t t = time_base * time_res + inc;
+      pp_time = uint16_t(t - last_non_b_time);
+      last_non_b_time = t;
+    } else {
+      int64_t t = (last_time_base + incr) * time_res + inc;
+      pb_time = uint16_t(pp_time - (last_non_b_time - t));
+      if (pp_time <= pb_time || int(pp_time) <= int(pp_time) - int(pb_time) || pp_time == 0)
+        return 0;  // out of order (after a seek): FFmpeg skips it
+    }
     b.skip(1);
     if (!b.bit()) return 0;  // vop_coded 0: no picture
+    pict_type = type;
+    pict_p = type == 1;
     no_rounding = pict_p ? b.bit() : false;
     if (b.left() < 3) {
       fail("truncated VOP header");
@@ -1112,17 +1483,38 @@ struct Mpeg4Decoder::Impl {
       return kInvalid;
     }
     set_qscale(q);
-    fcode = 1;
-    if (pict_p) {
+    fcode = bcode = 1;
+    if (type) {
       fcode = int(b.get(3));
       if (fcode == 0) {
         fail("VOP fcode 0");
         return kInvalid;
       }
     }
+    if (type == 2) {
+      bcode = int(b.get(3));
+      if (bcode == 0) {
+        fail("VOP bcode 0");
+        return kInvalid;
+      }
+    }
+    if (vo_type == 0 && !vol_control && st.divx_version == -1 && st.picture_number == 0)
+      st.low_delay = true;
+    st.picture_number++;
+    if (!workarounds()) return kUnsupported;
     alloc_vop();
-    if (pict_p && !have_ref) return 0;  // a P-VOP with nothing to predict from
-    std::swap(cur, ref);  // ``ref`` now holds the last picture, ``cur`` is written
+    if (type == 2 && ref_last < 0) return 0;  // FFmpeg skips a B-VOP without its references
+    if (type == 1 && ref_next < 0) return 0;  // a P-VOP with nothing to predict from
+    // the picture to write: a free one; an I- or P-VOP becomes the future
+    // reference and the future one the past
+    int target = 0;
+    while (target == ref_last || target == ref_next) target++;
+    if (type != 2) {
+      ref_last = ref_next;
+      ref_next = target;
+    }
+    cur = &pics[target];
+    if (headers_only) return 1;
     // decode every packet
     mb_x = mb_y = 0;
     bool ok = true;
@@ -1134,7 +1526,7 @@ struct Mpeg4Decoder::Impl {
       for (; mb_y < mb_h && !packet_end; mb_y++) {
         for (; mb_x < mb_w; mb_x++) {
           if (resync_x == mb_x && resync_y + 1 == mb_y) first_slice_line = false;
-          if (!decode_mb(b)) {
+          if (!(type == 2 ? decode_mb_b(b) : decode_mb(b))) {
             ok = false;
             break;
           }
@@ -1143,24 +1535,27 @@ struct Mpeg4Decoder::Impl {
             break;
           }
           reconstruct();
-          update_after_mb();
+          if (type != 2) update_after_mb();
           int next = is_resync(b);
           if (next) {
-            if (next < 0) {
-              ok = fail("damaged resync marker");
-              break;
-            }
-            if (mb_x + mb_y * mb_w + 1 >= next) {
-              if (mb_x + mb_y * mb_w + 1 > next) {
-                ok = fail("overlapping video packets");
-                break;
-              }
+            const int here = mb_x + mb_y * mb_w + 1;
+            // at the last macroblock anything that looks like a marker ends
+            // the VOP (the next VOP's start code of a packed bitstream does)
+            if (here == mb_num || here == next) {
               packet_end = true;
               mb_x++;
               if (mb_x >= mb_w) {
                 mb_x = 0;
                 mb_y++;
               }
+              break;
+            }
+            if (next < 0) {
+              ok = fail("damaged resync marker");
+              break;
+            }
+            if (here > next) {
+              ok = fail("overlapping video packets");
               break;
             }
           }
@@ -1183,17 +1578,76 @@ struct Mpeg4Decoder::Impl {
         break;
       }
       if (mb_x + mb_y * mb_w != expect) {
-        ok = fail("macroblocks missing between video packets");
-        break;
+        // a B-VOP's packet may start past macroblocks the future reference skipped
+        bool skipped_run = type == 2 && mb_x + mb_y * mb_w > expect;
+        for (int k = expect; skipped_run && k < mb_x + mb_y * mb_w; k++)
+          skipped_run = ref_skip[size_t(k)] != 0;
+        if (!skipped_run) {
+          ok = fail("macroblocks missing between video packets");
+          break;
+        }
+        int resume = mb_x + mb_y * mb_w;
+        for (int k = expect; k < resume; k++) {
+          mb_x = k % mb_w;
+          mb_y = k / mb_w;
+          decode_mb_b(b);
+          reconstruct();
+        }
+        mb_x = resume % mb_w;
+        mb_y = resume / mb_w;
       }
       clean_ac_for_packet();
     }
     if (!ok) {
-      have_ref = false;
+      ref_last = ref_next = -1;
       return kInvalid;
     }
-    have_ref = true;
     return 1;
+  }
+
+  // FFmpeg's ff_h263_decode_frame around one packet: a packed VOP held
+  // from the packet before is decoded in its place, a B-VOP without both
+  // references is skipped, and the picture shown is the decoded B-VOP (or
+  // any picture without delay) or else the past reference.
+  int decode_packet(const uint8_t* buf, size_t n, int64_t index) {
+    out = nullptr;
+    if (st.packed && !stored.empty()) {
+      for (size_t i = 0; i + 3 < n; i++)
+        if (buf[i] == 0 && buf[i + 1] == 0 && buf[i + 2] == 1) {
+          if (buf[i + 3] == 0xb0) stored.clear();  // a new sequence drops it
+          break;
+        }
+    }
+    const bool use_stored = !stored.empty() && (st.packed || n <= 19);
+    std::vector<uint8_t> held;
+    int64_t base = index << 32;
+    if (use_stored) {
+      held.swap(stored);
+      base = stored_tag;
+    }
+    stored.clear();
+    if (st.picture_number == 0 && !config.empty()) walk(config.data(), config.size(), true);
+    err.clear();
+    int r = use_stored ? walk(held.data(), held.size(), false) : walk(buf, n, false);
+    if (r <= 0) return r;
+    cur->tag = base + vop_offset;
+    if (st.packed) {
+      // the rest of the packet, from the next VOP on, when that is an I- or
+      // a B-VOP (FFmpeg's ff_mpeg4_frame_end)
+      size_t from = use_stored ? 0 : size_t(vop_offset) + 4;
+      if (n > from + 7)
+        for (size_t i = from; i + 4 < n; i++)
+          if (buf[i] == 0 && buf[i + 1] == 0 && buf[i + 2] == 1 && buf[i + 3] == 0xb6) {
+            if (!(buf[i + 4] & 0x40)) {
+              stored.assign(buf + i, buf + n);
+              stored_tag = (index << 32) + int64_t(i);
+            }
+            break;
+          }
+    }
+    if (pict_type == 2 || st.low_delay) out = cur;
+    else if (ref_last >= 0) out = &pics[ref_last];
+    return out ? 1 : 0;
   }
 };
 
@@ -1202,6 +1656,7 @@ Mpeg4Decoder::~Mpeg4Decoder() { delete impl_; }
 
 int Mpeg4Decoder::configure(const uint8_t* p, size_t n, std::string* msg) {
   impl_->err.clear();
+  impl_->config.assign(p, p + n);
   int r = impl_->walk(p, n, true);
   if (r < 0) *msg = impl_->err;
   return r < 0 ? r : kOk;
@@ -1215,8 +1670,39 @@ int Mpeg4Decoder::decode(const uint8_t* p, size_t n, std::string* msg) {
   return r;
 }
 
-void Mpeg4Decoder::flush() { impl_->have_ref = false; }
-const Picture& Mpeg4Decoder::picture() const { return impl_->cur; }
+void Mpeg4Decoder::set_packet_mode(uint32_t codec_tag) {
+  impl_->packet_mode = true;
+  impl_->codec_tag = codec_tag;
+}
+
+int Mpeg4Decoder::decode_packet(const uint8_t* p, size_t n, int64_t index, bool headers_only,
+                                std::string* msg) {
+  impl_->unsupported = false;
+  impl_->headers_only = headers_only;
+  int r = impl_->decode_packet(p, n, index);
+  impl_->headers_only = false;
+  if (r < 0) *msg = impl_->err;
+  return r;
+}
+
+int Mpeg4Decoder::drain() {
+  Impl* d = impl_;
+  d->out = nullptr;
+  if (d->st.low_delay || d->ref_next < 0) return 0;
+  d->out = &d->pics[d->ref_next];
+  d->ref_next = -1;
+  return 1;
+}
+
+void Mpeg4Decoder::flush() {
+  impl_->ref_last = impl_->ref_next = -1;
+  impl_->stored.clear();
+  impl_->pp_time = 0;
+}
+const Picture& Mpeg4Decoder::picture() const { return *impl_->cur; }
+const Picture& Mpeg4Decoder::output() const { return *impl_->out; }
+Mpeg4State Mpeg4Decoder::state() const { return impl_->st; }
+void Mpeg4Decoder::restore(const Mpeg4State& s) { impl_->st = s; }
 int Mpeg4Decoder::width() const { return impl_->width; }
 int Mpeg4Decoder::height() const { return impl_->height; }
 bool Mpeg4Decoder::full_range() const { return impl_->full_range; }

@@ -1,6 +1,6 @@
-// Frame-accurate video reads over the MP4 demuxer and the MPEG-4 Part 2
-// decoder: the counterpart of dali_tpu's FFmpeg-backed video_decode.cc,
-// with its contract:
+// Frame-accurate video reads over the MP4 and AVI demuxers and the MPEG-4
+// Part 2, Motion JPEG and raw 4:2:0 decoders: the counterpart of dali_tpu's
+// FFmpeg-backed video_decode.cc, with its contract:
 //   * fps is the track's average frame rate (25 when it is not positive),
 //     the frame count the stts count;
 //   * a decoded picture's frame index is its pts in seconds times fps plus
@@ -18,6 +18,19 @@
 // A frame reached by seeking and the same frame reached by decoding forward
 // are the same bytes: every decode starts from a sync sample.
 //
+// AVI stores no presentation times, and there the reference's frame index
+// (the dts of the packet a picture leaves the decoder with) misplaces the
+// pictures of streams with B-VOPs. The port numbers AVI frames in display
+// order instead: frame k is the k-th picture FFmpeg's decoder shows over
+// the whole stream. At open, a pass over the packets that parses the VOP
+// headers only (``Mpeg4Decoder::decode_packet`` with ``headers_only``)
+// gives each shown VOP its index and, for each packet that starts with an
+// I-VOP, the index of that I-VOP and the decoder's state there; a seek goes
+// to the last such packet whose I-VOP is at or before the target, in the
+// state the whole-stream decode had there. Motion JPEG and raw frames are
+// numbered by packet. fps is the stream header's dwRate / dwScale, the
+// frame count its dwLength.
+//
 // A handle opened from a path holds the sample table and the decoder's
 // pictures, not the file: each sample is read from the file when it is
 // decoded.
@@ -30,10 +43,12 @@
 #include <unistd.h>
 
 #include <climits>
+#include <initializer_list>
 #include <cmath>
 #include <cstdio>
 #include <cstring>
 #include <string>
+#include <unordered_map>
 #include <vector>
 
 #include "video.h"
@@ -50,13 +65,30 @@ constexpr int kEof = -1;
 constexpr int kDamaged = INT_MIN;
 constexpr int kUnsupportedRead = INT_MIN + 1;
 
+// what decodes the samples
+enum Codec { kMpeg4Mp4, kMpeg4Avi, kMjpegAvi, kRawAvi };
+
 struct VideoHandle {
   std::vector<uint8_t> data;  // the file's bytes, when opened from memory
   int fd = -1;                // the file, when opened from a path
   uint64_t size = 0;          // the file's size
   std::vector<uint8_t> sample;  // the bytes of the sample being decoded (fd)
   video::Track track;
+  int codec = kMpeg4Mp4;
   video::Mpeg4Decoder dec;
+  video::MjpegDecoder mjpeg;
+  video::Picture raw;      // a raw frame's planes
+  bool yv12 = false;       // raw planes stored V before U
+  bool full_range = false;
+  // AVI: the frame index of each shown VOP's tag; per packet, the frame
+  // index of the I-VOP it starts with (-1 for none) and the decoder state
+  // before it
+  std::unordered_map<int64_t, int64_t> frame_of_tag;
+  std::vector<int64_t> key_frame;
+  std::vector<video::Mpeg4State> key_state;
+  const video::Picture* shown = nullptr;  // the picture of the last decode
+  int64_t shown_total = 0;  // AVI: the pictures the whole stream shows
+  bool drained = false;
   int width = 0, height = 0;
   double fps = 25.0;
   int64_t num_frames = 0;
@@ -90,10 +122,58 @@ int64_t pts_to_frame(const VideoHandle* v, int64_t pts) {
   return sat_i64(sec * v->fps + 0.5);
 }
 
+int64_t read_fail(VideoHandle* v, int r, const std::string& msg) {
+  v->error = msg;
+  return r == video::kUnsupported ? kUnsupportedRead : kDamaged;
+}
+
+// One AVI packet: the frame it shows, or -2 for none.
+int64_t decode_avi(VideoHandle* v, size_t index, const uint8_t* bytes, size_t size) {
+  std::string msg;
+  if (v->codec == kMpeg4Avi) {
+    int r = v->dec.decode_packet(bytes, size, int64_t(index), false, &msg);
+    if (r < 0) return read_fail(v, r, msg);
+    if (r == 0) return -2;
+    v->shown = &v->dec.output();
+    auto it = v->frame_of_tag.find(v->shown->tag);
+    if (it == v->frame_of_tag.end())
+      return read_fail(v, video::kInvalid, "damaged MPEG-4 Part 2 stream (a VOP out of order)");
+    return it->second;
+  }
+  if (v->codec == kMjpegAvi) {
+    int r = v->mjpeg.decode(bytes, size, v->track.height, &msg);
+    if (r < 0) return read_fail(v, r, msg);
+    v->shown = &v->mjpeg.picture();
+    return int64_t(index);
+  }
+  video::Picture& p = v->raw;
+  const size_t ys = size_t(p.stride_y) * p.rows_y, cs = size_t(p.stride_c) * p.rows_c;
+  if (size < ys + 2 * cs)
+    return read_fail(v, video::kInvalid, "raw video frame shorter than its size");
+  memcpy(p.y.data(), bytes, ys);
+  memcpy((v->yv12 ? p.v : p.u).data(), bytes + ys, cs);
+  memcpy((v->yv12 ? p.u : p.v).data(), bytes + ys + cs, cs);
+  v->shown = &p;
+  return int64_t(index);
+}
+
 // Decodes up to the next picture; returns its frame index, kEof, kDamaged
 // or kUnsupportedRead.
 int64_t decode_next(VideoHandle* v) {
   while (true) {
+    if (!v->at_end && v->next_sample >= v->track.samples.size() && v->codec == kMpeg4Avi &&
+        !v->drained) {
+      // the end of the stream shows the future reference still held
+      v->drained = true;
+      if (v->dec.drain()) {
+        v->shown = &v->dec.output();
+        auto it = v->frame_of_tag.find(v->shown->tag);
+        if (it != v->frame_of_tag.end()) {
+          v->next_frame = it->second + 1;
+          return it->second;
+        }
+      }
+    }
     if (v->at_end || v->next_sample >= v->track.samples.size()) {
       v->at_end = true;
       return kEof;
@@ -108,22 +188,55 @@ int64_t decode_next(VideoHandle* v) {
       v->at_end = true;
       return kEof;
     }
+    if (v->codec != kMpeg4Mp4) {
+      int64_t idx = decode_avi(v, v->next_sample - 1, bytes, size);
+      if (idx == -2) continue;
+      if (idx >= 0) v->next_frame = idx + 1;
+      return idx;
+    }
     std::string msg;
     int r = v->dec.decode(bytes, size, &msg);
     if (r == 1 && !s.discard) {
       int64_t idx = pts_to_frame(v, s.pts);
       v->next_frame = idx + 1;
+      v->shown = &v->dec.picture();
       return idx;
     }
-    if (r < 0) {
-      v->error = msg;
-      return r == video::kUnsupported ? kUnsupportedRead : kDamaged;
-    }
+    if (r < 0) return read_fail(v, r, msg);
+  }
+}
+
+// decode_next, except that an AVI read whose first frame lies past the last
+// picture the stream shows (Xvid's packed B-VOPs in its last chunk are
+// never shown) but within its frame count gets that last picture, as a
+// padded read from before it does
+int64_t next_for(VideoHandle* v, long target, int got) {
+  int64_t idx = decode_next(v);
+  if (idx == kEof && got == 0 && v->codec != kMpeg4Mp4 && v->shown &&
+      v->next_frame == v->shown_total && target >= v->shown_total && target < v->num_frames)
+    return target;
+  return idx;
+}
+
+// AVI: the last packet that starts with an I-VOP (any packet of Motion
+// JPEG or raw video) whose frame is at or before the target
+void seek_avi(VideoHandle* v, long target) {
+  long pick = 0;
+  for (size_t i = 0; i < v->key_frame.size(); i++)
+    if (v->key_frame[i] >= 0 && v->key_frame[i] <= target) pick = long(i);
+  v->next_sample = size_t(pick);
+  v->at_end = false;
+  v->drained = false;
+  v->next_frame = -1;
+  if (v->codec == kMpeg4Avi) {
+    v->dec.flush();
+    if (size_t(pick) < v->key_state.size()) v->dec.restore(v->key_state[size_t(pick)]);
   }
 }
 
 void seek_if_needed(VideoHandle* v, long target) {
   if (!(target < v->next_frame || target > v->next_frame + 64)) return;
+  if (v->codec != kMpeg4Mp4) return seek_avi(v, target);
   const auto& smp = v->track.samples;
   if (smp.empty()) return;
   int64_t ts = sat_i64((double)target / v->fps / (1.0 / (double)v->track.timescale) +
@@ -182,6 +295,10 @@ int finish(int got, int64_t code) {
   return int(code);
 }
 
+bool full_range(const VideoHandle* v) {
+  return v->codec == kMpeg4Mp4 ? v->dec.full_range() : v->full_range;
+}
+
 bool size_changed(const VideoHandle* v, const video::Picture& p) {
   return p.width != v->width || p.height != v->height;
 }
@@ -192,11 +309,11 @@ int read_rgb(VideoHandle* v, long start, int count, int stride, unsigned char* o
   seek_if_needed(v, target);
   const size_t frame_bytes = (size_t)v->width * v->height * 3;
   while (got < count) {
-    int64_t idx = decode_next(v);
+    int64_t idx = next_for(v, target, got);
     if (idx < 0) return finish(got, idx);
     if (idx >= target) {
-      if (size_changed(v, v->dec.picture())) return finish(got, kEof);
-      picture_to_rgb(v->dec.picture(), v->width, v->height, v->dec.full_range(),
+      if (size_changed(v, *v->shown)) return finish(got, kEof);
+      picture_to_rgb(*v->shown, v->width, v->height, full_range(v),
                      out + (size_t)got * frame_bytes);
       got++;
       target += stride;
@@ -212,10 +329,10 @@ int read_yuv(VideoHandle* v, long start, int count, int stride, unsigned char* o
   seek_if_needed(v, target);
   const int w = v->width, h = v->height, cw = (w + 1) / 2, ch = (h + 1) / 2;
   while (got < count) {
-    int64_t idx = decode_next(v);
+    int64_t idx = next_for(v, target, got);
     if (idx < 0) return finish(got, idx);
     if (idx >= target) {
-      const video::Picture& p = v->dec.picture();
+      const video::Picture& p = *v->shown;
       if (size_changed(v, p)) return -2 - got;
       unsigned char* dy = oy + (size_t)got * h * w;
       unsigned char* du = ou + (size_t)got * ch * cw;
@@ -255,6 +372,143 @@ void run_job(void* arg) {
   }
 }
 
+bool tag_in(uint32_t tag, std::initializer_list<const char*> names) {
+  for (const char* n : names)
+    if (tag == video::riff_fourcc(n)) return true;
+  return false;
+}
+
+// The bytes of sample i, or null when they are not all in the file.
+const uint8_t* whole_sample(VideoHandle* v, size_t i) {
+  const video::Sample& s = v->track.samples[i];
+  if (s.offset < 0 || s.size <= 0 || uint64_t(s.offset) >= v->size ||
+      uint64_t(s.size) > v->size - uint64_t(s.offset))
+    return nullptr;
+  return sample_bytes(v, s);
+}
+
+// The decoder of an AVI stream by its codec tag, the frame size, and the
+// frame index of every packet a seek may start from.
+int open_avi(VideoHandle* v, std::string* msg) {
+  video::Track& t = v->track;
+  uint32_t tag = 0;  // upper case, as libavformat's tag lookup falls back to
+  for (int i = 0; i < 32; i += 8) {
+    uint32_t c = (t.codec_tag >> i) & 0xff;
+    tag |= (c >= 'a' && c <= 'z' ? c - 32 : c) << i;
+  }
+  const size_t n = t.samples.size();
+  v->num_frames = t.nb_frames > 0 ? t.nb_frames : t.duration;
+  v->fps = (t.fps > 0.0 && std::isfinite(t.fps)) ? t.fps : 25.0;
+  v->key_frame.assign(n, -1);
+  if (tag_in(tag, {"XVID", "DIVX", "DX50", "FMP4", "MP4V", "MP4S", "M4S2", "DIV1", "BLZ0", "XVIX",
+                   "RMP4", "ZMP4", "3IV2", "WV1F", "SEDG", "WAWV", "FFDS", "FVFW", "DCOD", "MVXM",
+                   "PM4V", "SMP4", "DXGM", "VIDM", "M4T3", "HDX4", "DM4V", "DMK2", "DYM4", "DIGI",
+                   "EPHV", "EM4A", "M4CC", "SN40", "VSPX", "ULDX", "SIPP", "SM4V", "DREX", "QMP4",
+                   "PLV1", "GLV4", "GMP4", "MNM4", "GTM4", "UMP4", "GEOV", "GEOX"}) ||
+      t.codec_tag == 0x04000000u) {
+    v->codec = kMpeg4Avi;
+    // without extradata the headers before the first VOP stand in for it,
+    // as libavformat extracts them
+    std::vector<uint8_t> config = t.config;
+    if (config.empty() && n) {
+      const uint8_t* b = whole_sample(v, 0);
+      size_t k = 0, len = b ? size_t(t.samples[0].size) : 0;
+      while (k + 4 <= len && !(b[k] == 0 && b[k + 1] == 0 && b[k + 2] == 1 && b[k + 3] == 0xb6))
+        k++;
+      if (b && k + 4 <= len) config.assign(b, b + k);
+    }
+    video::Mpeg4Decoder sim;
+    for (video::Mpeg4Decoder* d : {&v->dec, &sim}) {
+      d->set_packet_mode(tag);
+      if (!config.empty() && d->configure(config.data(), config.size(), msg) == video::kUnsupported)
+        return video::kUnsupported;
+    }
+    v->width = v->dec.width();
+    v->height = v->dec.height();
+    v->full_range = v->dec.full_range();
+    // the whole stream's shown pictures, from its VOP headers
+    v->key_state.resize(n);
+    std::vector<int64_t> first_tag(n, -1);
+    int64_t shown = 0;
+    for (size_t i = 0; i < n; i++) {
+      const uint8_t* b = whole_sample(v, i);
+      if (!b) break;
+      const size_t len = size_t(t.samples[i].size);
+      v->key_state[i] = sim.state();
+      for (size_t k = 0; k + 4 < len; k++)
+        if (b[k] == 0 && b[k + 1] == 0 && b[k + 2] == 1 && b[k + 3] == 0xb6) {
+          if (!(b[k + 4] >> 6) && t.samples[i].key) first_tag[i] = (int64_t(i) << 32) + int64_t(k);
+          break;
+        }
+      int r = sim.decode_packet(b, len, int64_t(i), true, msg);
+      if (r == video::kUnsupported) return r;
+      if (r < 0) break;  // damage: the read reports it
+      if (r == 1) v->frame_of_tag[sim.output().tag] = shown++;
+    }
+    if (sim.drain()) v->frame_of_tag[sim.output().tag] = shown++;
+    v->shown_total = shown;
+    for (size_t i = 0; i < n; i++) {
+      auto it = first_tag[i] >= 0 ? v->frame_of_tag.find(first_tag[i]) : v->frame_of_tag.end();
+      if (it != v->frame_of_tag.end()) v->key_frame[i] = it->second;
+    }
+  } else if (tag_in(tag, {"MJPG", "DMB1", "MJPA", "AVRN", "ACDV", "QIVG", "SLMJ", "CJPG", "IJLV",
+                          "MVJ1", "AVI1", "AVI2", "MTSJ", "ZJPG", "MMJP", "JPGL"})) {
+    v->codec = kMjpegAvi;
+    v->full_range = true;
+    v->shown_total = int64_t(n);
+    for (size_t i = 0; i < n; i++) v->key_frame[i] = int64_t(i);
+    const uint8_t* b = n ? whole_sample(v, 0) : nullptr;
+    if (b) {
+      video::MjpegDecoder probe;
+      int r = probe.decode(b, size_t(t.samples[0].size), t.height, msg);
+      if (r == video::kUnsupported) return r;
+      if (r == 1) {
+        v->width = probe.picture().width;
+        v->height = probe.picture().height;
+      }
+    }
+  } else if (tag_in(tag, {"I420", "IYUV", "YV12"})) {
+    v->codec = kRawAvi;
+    v->shown_total = int64_t(n);
+    v->yv12 = tag_in(tag, {"YV12"});
+    v->width = t.width;
+    v->height = t.height;
+    for (size_t i = 0; i < n; i++) v->key_frame[i] = int64_t(i);
+    video::Picture& p = v->raw;
+    p.width = p.stride_y = t.width;
+    p.height = p.rows_y = t.height;
+    p.stride_c = (t.width + 1) / 2;
+    p.rows_c = (t.height + 1) / 2;
+    p.y.assign(size_t(p.stride_y) * p.rows_y, 0);
+    p.u.assign(size_t(p.stride_c) * p.rows_c, 0);
+    p.v.assign(size_t(p.stride_c) * p.rows_c, 0);
+  } else {
+    std::string what;
+    if (tag_in(tag, {"HFYU", "FFVH"})) what = "HuffYUV";
+    else if (tag_in(tag, {"FFV1"})) what = "FFV1";
+    else if (tag_in(tag, {"MPG1", "MPG2", "PIM1", "MPEG", "MPGI", "MMES", "MPG4"}) ||
+             t.codec_tag == 0x10000001u || t.codec_tag == 0x10000002u)
+      what = "MPEG-1/2";
+    else if (tag_in(tag, {"H264", "X264", "AVC1", "DAVC", "VSSH", "Q264", "V264", "GAVC"}))
+      what = "H.264";
+    else if (tag_in(tag, {"HEVC", "H265", "HVC1"})) what = "HEVC";
+    else if (t.codec_tag == 0) what = "uncompressed RGB";
+    else {
+      char cc[5] = {char(t.codec_tag), char(t.codec_tag >> 8), char(t.codec_tag >> 16),
+                    char(t.codec_tag >> 24), 0};
+      what = std::string("'") + cc + "'";
+    }
+    *msg = what + " video in AVI: the port decodes MPEG-4 Part 2, Motion JPEG and raw 4:2:0 "
+                  "in AVI, ROADMAP.md Queue 1 item 8b";
+    return video::kUnsupported;
+  }
+  if (v->width <= 0 || v->height <= 0) {
+    *msg = "no frame size in the stream headers";
+    return video::kInvalid;
+  }
+  return video::kOk;
+}
+
 }  // namespace
 
 extern "C" {
@@ -280,13 +534,23 @@ void* dali_tpu_torch_video_open(const char* path, const unsigned char* data, siz
     struct stat st;
     if (fstat(v->fd, &st) != 0) return fail(1, "cannot read the file");
     v->size = uint64_t(st.st_size);
-    r = video::demux_mp4_fd(v->fd, v->size, &v->track, &msg);
+    uint8_t head[12];
+    bool avi = v->size >= 12 && video::read_at(v->fd, 0, head, 12) && video::is_avi(head, 12);
+    r = avi ? video::demux_avi_fd(v->fd, v->size, &v->track, &msg)
+            : video::demux_mp4_fd(v->fd, v->size, &v->track, &msg);
   } else {
     v->data.assign(data, data + n);
     v->size = n;
-    r = video::demux_mp4(v->data.data(), v->data.size(), &v->track, &msg);
+    r = video::is_avi(v->data.data(), v->data.size())
+            ? video::demux_avi(v->data.data(), v->data.size(), &v->track, &msg)
+            : video::demux_mp4(v->data.data(), v->data.size(), &v->track, &msg);
   }
   if (r != video::kOk) return fail(r == video::kUnsupported ? 2 : 1, msg);
+  if (v->track.avi) {
+    r = open_avi(v, &msg);
+    if (r != video::kOk) return fail(r == video::kUnsupported ? 2 : 1, msg);
+    return v;
+  }
   if (!v->track.config.empty()) {
     r = v->dec.configure(v->track.config.data(), v->track.config.size(), &msg);
     if (r == video::kUnsupported) return fail(2, msg);
@@ -332,7 +596,19 @@ int dali_tpu_torch_video_info(void* handle, int* w, int* h, long* frames, double
 int dali_tpu_torch_video_pixfmt_class(void* handle) {
   auto* v = static_cast<VideoHandle*>(handle);
   if (!v) return 0;
-  return v->dec.full_range() ? 2 : 1;
+  return full_range(v) ? 2 : 1;
+}
+
+// the codec and container, as the damage reports name them
+const char* dali_tpu_torch_video_codec(void* handle) {
+  auto* v = static_cast<VideoHandle*>(handle);
+  if (!v) return "";
+  switch (v->codec) {
+    case kMpeg4Avi: return "MPEG-4 Part 2 (AVI)";
+    case kMjpegAvi: return "Motion JPEG (AVI)";
+    case kRawAvi: return "raw 4:2:0 (AVI)";
+    default: return "MPEG-4 Part 2";
+  }
 }
 
 const char* dali_tpu_torch_video_error(void* handle) {

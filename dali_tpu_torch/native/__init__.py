@@ -31,10 +31,13 @@
   to ``cv2.imdecode``; ``inflate_zlib`` and ``webp_alpha`` expose the
   inflate and the ``ALPH`` decode alone.
 * ``VideoFile``, ``VideoPixfmtChanged``, ``has_video`` and
-  ``video_read_batch`` — frame-accurate reads of MP4 / MPEG-4 Part 2 video
-  (``csrc/host/mp4_demux.cc``, ``mpeg4_decode.cc``, ``video_decode.cc``),
-  with the signatures and errors of ``dali_tpu.native``'s FFmpeg-backed
-  ones and its frames bit for bit.
+  ``video_read_batch`` — frame-accurate reads of MP4 and AVI video: MPEG-4
+  Part 2 (XviD/DivX B-VOPs and packed bitstreams included), Motion JPEG
+  and raw 4:2:0 (``csrc/host/mp4_demux.cc``, ``avi_demux.cc``,
+  ``mpeg4_decode.cc``, ``mjpeg_decode.cc``, ``video_decode.cc``), with the
+  signatures and errors of ``dali_tpu.native``'s FFmpeg-backed ones and its
+  frames bit for bit (AVI frames in display order, where the reference
+  misplaces those of streams with B-VOPs).
 """
 
 from __future__ import annotations
@@ -143,6 +146,8 @@ def host_lib():
             lib.dali_tpu_torch_video_pixfmt_class.argtypes = [vp]
             lib.dali_tpu_torch_video_error.restype = ctypes.c_char_p
             lib.dali_tpu_torch_video_error.argtypes = [vp]
+            lib.dali_tpu_torch_video_codec.restype = ctypes.c_char_p
+            lib.dali_tpu_torch_video_codec.argtypes = [vp]
             lib.dali_tpu_torch_video_read_frames.restype = ci
             lib.dali_tpu_torch_video_read_frames.argtypes = [vp, ctypes.c_long, ci, ci, vp]
             lib.dali_tpu_torch_video_read_frames_yuv.restype = ci
@@ -1085,12 +1090,12 @@ class VideoPixfmtChanged(RuntimeError):
 
 
 def has_video() -> bool:
-    """The port decodes MP4 / MPEG-4 Part 2 itself: always available."""
+    """The port decodes MP4 and AVI video itself: always available."""
     return True
 
 
 class VideoFile:
-    """Frame-accurate sequence reads of an MP4 / MPEG-4 Part 2 file, to RGB24
+    """Frame-accurate sequence reads of an MP4 or AVI file, to RGB24
     or planar YUV 4:2:0 (counterpart of ``dali_tpu.native.VideoFile``: its
     signatures, its errors and its frames). ``path`` may instead be the
     encoded bytes of the file. Raises ``ValueError`` where the reference
@@ -1136,8 +1141,8 @@ class VideoFile:
         if _VIDEO_UNSUPPORTED < got <= -2:
             raise VideoPixfmtChanged(self.path, -2 - got)
         if got == _VIDEO_DAMAGED:
-            raise ValueError(f"damaged MPEG-4 Part 2 stream in {self.path!r} "
-                             f"({self._error()})")
+            codec = _text(self._lib.dali_tpu_torch_video_codec(self._h))
+            raise ValueError(f"damaged {codec} stream in {self.path!r} ({self._error()})")
         if got == _VIDEO_UNSUPPORTED:
             raise NotImplementedError(
                 f"video {self.path!r}: {self._error()}")

@@ -55,8 +55,8 @@ HOST_SOURCES = [os.path.join(_HOST_SRC, f) for f in (
     "bmp_decode.cc", "warp_affine.cc", "jpeg_encode.cc", "flac_decode.cc", "gif_decode.cc",
     "webp_vp8.cc", "webp_vp8l.cc", "webp_decode.cc", "inflate.cc", "tiff_decode.cc",
     "pnm_decode.cc", "image_decode_batch.cc", "mp3_decode.cc", "ogg.cc", "vorbis_decode.cc",
-    "audio_decode_batch.cc", "mp4_demux.cc", "mpeg4_decode.cc", "video_decode.cc",
-    "optical_flow.cc")]
+    "audio_decode_batch.cc", "mp4_demux.cc", "avi_demux.cc", "mpeg4_decode.cc",
+    "mjpeg_decode.cc", "video_decode.cc", "optical_flow.cc")]
 # compiled with dali_tpu's own flags (contraction on): its float filters sum
 # into the fused multiply-adds of the reference's library
 HOST_CONTRACT_SOURCES = [os.path.join(_HOST_SRC, "host_ops.cc")]

@@ -20,14 +20,41 @@ fourcc, the form the reference's tests and recipes write (FFmpeg's
   both rounding modes, intra macroblocks in P-VOPs and AC prediction all
   occur. This is the corpus of the ``video_clip_train`` path on the card.
 
-The reference decode of each fixture (``video/reference.npz``, what the
-card's machine, which has no FFmpeg, holds the port against) is written
-afterwards by ``tests/write_video_reference.py``, outside this package,
-since it runs dali_tpu.
+The AVI set (``--avi``) comes from cv2 (its ``XVID`` and ``MJPG``
+fourccs, which the reference's own tests write) and from FFmpeg's encoders
+through a small C helper compiled at run time against this machine's
+libavformat and libavcodec (as ``make_audio_codecs.py`` compiles its own):
 
-Run on a machine with OpenCV, from the repo root:
+* ``avi/xvid_bf_160x120.avi`` — ``libxvid`` with two B-frames: Xvid's
+  user data (``XviD0069``, ``DivX503b1393p``), a packed bitstream with
+  N-VOP placeholders, zero-size chunks at its start;
+* ``avi/xvid_160x120.avi`` — ``libxvid`` without B-frames;
+* ``avi/mpeg4_bf_170x98.avi`` — FFmpeg's ``mpeg4`` with two B-frames,
+  unpacked, tagged ``XVID``, at a size no multiple of 16;
+* ``avi/mpeg4_bf_4mv_160x120.avi`` — the same with 4MV and resync markers
+  (direct mode from 8x8 vectors, B-VOP video packets);
+* ``avi/mjpeg_160x120.avi`` — ``mjpeg`` (yuvj420p, optimal Huffman tables);
+  ``avi/mjpeg_nodht_160x120.avi`` — default tables, every DHT segment
+  stripped, as AVI1 Motion JPEG writes it;
+* ``avi/raw_i420_64x48.avi`` — ``rawvideo`` tagged ``I420``;
+* ``avi/noindex_xvid_160x120.avi`` — the Xvid file without its ``idx1``
+  and OpenDML indexes;
+* ``avi/cv2_xvid_64x48.avi``, ``avi/cv2_mjpg_64x48.avi`` — cv2's writers;
+* ``avi_corpus/<class>/<clip>.avi`` — the 32 clips of ``corpus``
+  re-encoded by ``libxvid`` with B-frames (UCF101's form: XviD in AVI,
+  320x240 at 25 fps), the corpus of the ``ucf_avi_train`` path on the card.
+
+The reference decode of each fixture (``video/reference.npz``,
+``video/avi_reference.npz``: what the card's machine, which has no FFmpeg,
+holds the port against) is written afterwards by
+``tests/write_video_reference.py``, outside this package, since it runs
+dali_tpu.
+
+Run on a machine with OpenCV and FFmpeg's libraries and headers, from the
+repo root:
 
     python dali_tpu_torch/testdata/make_video_corpus.py [out_dir]
+    python dali_tpu_torch/testdata/make_video_corpus.py --avi [out_dir]
     python tests/write_video_reference.py [out_dir]
 """
 
@@ -130,8 +157,220 @@ def write_corpus(root):
             write_clip(os.path.join(root, cls, f"{cls}_{k:02d}.mp4"), frames)
 
 
+_AVI_HELPER_C = r"""
+#include <libavcodec/avcodec.h>
+#include <libavformat/avformat.h>
+#include <string.h>
+
+/* Encodes n planar 4:2:0 frames with encoder ``codec`` (FourCC ``tag``
+   when not empty, "k=v:k=v" options, pixel format ``pixfmt``) into the
+   AVI muxer at ``path``; ``strip_dht`` drops every DHT segment of a JPEG
+   packet. Returns 0, or a negative code. */
+int encode_avi(const unsigned char* yuv, int n, int w, int h, int fps, const char* path,
+               const char* codec, const char* tag, const char* opts, int pixfmt,
+               long bit_rate, int strip_dht) {
+  AVFormatContext* fmt = NULL;
+  if (avformat_alloc_output_context2(&fmt, NULL, "avi", path) < 0) return -1;
+  const AVCodec* cd = avcodec_find_encoder_by_name(codec);
+  if (!cd) return -2;
+  AVStream* st = avformat_new_stream(fmt, NULL);
+  AVCodecContext* c = avcodec_alloc_context3(cd);
+  c->width = w;
+  c->height = h;
+  c->pix_fmt = pixfmt;
+  c->time_base = (AVRational){1, fps};
+  c->framerate = (AVRational){fps, 1};
+  c->gop_size = 12;
+  if (bit_rate > 0) c->bit_rate = bit_rate;
+  if (*tag) c->codec_tag = MKTAG(tag[0], tag[1], tag[2], tag[3]);
+  AVDictionary* d = NULL;
+  if (*opts) av_dict_parse_string(&d, opts, "=", ":", 0);
+  int rc = avcodec_open2(c, cd, &d);
+  av_dict_free(&d);
+  if (rc < 0) return -3;
+  avcodec_parameters_from_context(st->codecpar, c);
+  st->time_base = c->time_base;
+  if (avio_open(&fmt->pb, path, AVIO_FLAG_WRITE) < 0) return -4;
+  if (avformat_write_header(fmt, NULL) < 0) return -5;
+  AVFrame* f = av_frame_alloc();
+  f->width = w;
+  f->height = h;
+  f->format = pixfmt;
+  av_frame_get_buffer(f, 0);
+  AVPacket* pkt = av_packet_alloc();
+  int cw = (w + 1) / 2, ch = (h + 1) / 2;
+  long fs = (long)w * h + 2L * cw * ch;
+  for (int i = 0; i <= n; i++) {
+    if (i < n) {
+      av_frame_make_writable(f);
+      const unsigned char* s = yuv + i * fs;
+      for (int y = 0; y < h; y++) memcpy(f->data[0] + y * f->linesize[0], s + y * w, w);
+      for (int y = 0; y < ch; y++)
+        memcpy(f->data[1] + y * f->linesize[1], s + (long)w * h + y * cw, cw);
+      for (int y = 0; y < ch; y++)
+        memcpy(f->data[2] + y * f->linesize[2], s + (long)w * h + (long)cw * ch + y * cw, cw);
+      f->pts = i;
+      rc = avcodec_send_frame(c, f);
+    } else {
+      rc = avcodec_send_frame(c, NULL);
+    }
+    if (rc < 0) return -6;
+    while (avcodec_receive_packet(c, pkt) == 0) {
+      if (strip_dht) {
+        int o = 2, k = 2;
+        while (o + 4 <= pkt->size && pkt->data[o] == 0xff && pkt->data[o + 1] != 0xda) {
+          int len = 2 + ((pkt->data[o + 2] << 8) | pkt->data[o + 3]);
+          if (pkt->data[o + 1] != 0xc4) {
+            memmove(pkt->data + k, pkt->data + o, len);
+            k += len;
+          }
+          o += len;
+        }
+        memmove(pkt->data + k, pkt->data + o, pkt->size - o);
+        pkt->size = k + pkt->size - o;
+      }
+      av_packet_rescale_ts(pkt, c->time_base, st->time_base);
+      pkt->stream_index = 0;
+      av_interleaved_write_frame(fmt, pkt);
+    }
+  }
+  av_write_trailer(fmt);
+  avio_closep(&fmt->pb);
+  av_frame_free(&f);
+  av_packet_free(&pkt);
+  avcodec_free_context(&c);
+  avformat_free_context(fmt);
+  return 0;
+}
+"""
+
+YUV420P, YUVJ420P = 0, 12
+
+
+class AviWriter:
+    """FFmpeg's encoders into the AVI muxer through the compiled helper."""
+
+    def __init__(self):
+        import ctypes
+        import subprocess
+        import tempfile
+
+        self._dir = tempfile.mkdtemp(prefix="avi_writer_")
+        src, so = os.path.join(self._dir, "h.c"), os.path.join(self._dir, "h.so")
+        with open(src, "w") as f:
+            f.write(_AVI_HELPER_C)
+        subprocess.run(["gcc", "-O2", "-shared", "-fPIC", "-o", so, src,
+                        "-I/usr/include/x86_64-linux-gnu", "-lavformat", "-lavcodec", "-lavutil"],
+                       check=True, capture_output=True)
+        self._lib = ctypes.CDLL(so)
+        c = ctypes
+        self._lib.encode_avi.argtypes = [c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int,
+                                         c.c_char_p, c.c_char_p, c.c_char_p, c.c_char_p, c.c_int,
+                                         c.c_long, c.c_int]
+
+    def write(self, path, frames, codec, tag="", opts="", pixfmt=YUV420P, bit_rate=0,
+              strip_dht=False, fps=FPS):
+        """``frames``: BGR images of one size."""
+        yuv = np.ascontiguousarray(np.stack([i420(f) for f in frames]))
+        h, w = frames[0].shape[:2]
+        rc = self._lib.encode_avi(yuv.ctypes.data, len(yuv), w, h, fps, path.encode(),
+                                  codec.encode(), tag.encode(), opts.encode(), pixfmt,
+                                  bit_rate, int(strip_dht))
+        if rc != 0:
+            raise RuntimeError(f"{codec} into {path} failed: {rc}")
+        return path
+
+
+def i420(bgr):
+    """The planar 4:2:0 bytes (Y, then U, then V) of a BGR image of even size."""
+    import cv2
+
+    return cv2.cvtColor(bgr, cv2.COLOR_BGR2YUV_I420).reshape(-1)
+
+
+def without_index(data: bytes) -> bytes:
+    """An AVI of FFmpeg's muxer with its ``idx1`` chunk cut and its OpenDML
+    ``indx`` chunk renamed ``JUNK``: a file that is read by scanning
+    ``movi``."""
+    import struct
+
+    data = bytearray(data)
+    i = data.find(b"indx")
+    while i >= 0:
+        data[i: i + 4] = b"JUNK"
+        i = data.find(b"indx", i + 4)
+    j = data.rfind(b"idx1")
+    size = struct.unpack("<I", data[j + 4: j + 8])[0]
+    del data[j: j + 8 + size + (size & 1)]
+    struct.pack_into("<I", data, 4, len(data) - 8)
+    return bytes(data)
+
+
+def write_avi_fixtures(out_dir=OUT):
+    import cv2
+
+    d = os.path.join(out_dir, "avi")
+    os.makedirs(d, exist_ok=True)
+    wr = AviWriter()
+    pan = moving_frames(np.random.default_rng(240), 40, 160, 120, "pan")
+    drift = moving_frames(np.random.default_rng(241), 30, 170, 98, "drift", cut_at=17)
+    wr.write(os.path.join(d, "xvid_bf_160x120.avi"), pan, "libxvid", opts="bf=2")
+    wr.write(os.path.join(d, "xvid_160x120.avi"), pan, "libxvid", opts="bf=0")
+    wr.write(os.path.join(d, "mpeg4_bf_170x98.avi"), drift, "mpeg4", tag="XVID", opts="bf=2")
+    wr.write(os.path.join(d, "mpeg4_bf_4mv_160x120.avi"), pan, "mpeg4", tag="XVID",
+             opts="bf=2:flags=+mv4:ps=200")
+    wr.write(os.path.join(d, "mjpeg_160x120.avi"), pan[:16], "mjpeg", pixfmt=YUVJ420P)
+    wr.write(os.path.join(d, "mjpeg_nodht_160x120.avi"), pan[:16], "mjpeg", pixfmt=YUVJ420P,
+             opts="huffman=default", strip_dht=True)
+    wr.write(os.path.join(d, "raw_i420_64x48.avi"),
+             moving_frames(np.random.default_rng(242), 10, 64, 48, "zoom"), "rawvideo",
+             tag="I420")
+    with open(os.path.join(d, "xvid_160x120.avi"), "rb") as f:
+        data = without_index(f.read())
+    with open(os.path.join(d, "noindex_xvid_160x120.avi"), "wb") as f:
+        f.write(data)
+    small = moving_frames(np.random.default_rng(243), 12, 64, 48, "drift")
+    for fourcc in ("XVID", "MJPG"):
+        cw = cv2.VideoWriter(os.path.join(d, f"cv2_{fourcc.lower()}_64x48.avi"),
+                             cv2.VideoWriter_fourcc(*fourcc), FPS, (64, 48))
+        if not cw.isOpened():
+            raise RuntimeError(f"cv2 cannot write {fourcc}")
+        for f in small:
+            cw.write(np.ascontiguousarray(f))
+        cw.release()
+
+
+def avi_corpus_files(root):
+    return [os.path.join(root, c, f"{c}_{k:02d}.avi") for c in CLASSES
+            for k in range(CLIPS_PER_CLASS)]
+
+
+def write_avi_corpus(root, bit_rate=600_000):
+    """The MP4 corpus's clips, frame for frame, as Xvid with B-frames."""
+    w, h = CORPUS_SIZE
+    wr = AviWriter()
+    for ci, cls in enumerate(CLASSES):
+        os.makedirs(os.path.join(root, cls), exist_ok=True)
+        for k in range(CLIPS_PER_CLASS):
+            rng = np.random.default_rng(1000 * ci + k)
+            n = 48 + 6 * k
+            motion = cls if cls != "cut" else ("pan", "drift", "zoom")[k % 3]
+            frames = moving_frames(rng, n, w, h, motion, noise=1.0,
+                                   cut_at=n // 2 if cls == "cut" else None)
+            wr.write(os.path.join(root, cls, f"{cls}_{k:02d}.avi"), frames, "libxvid",
+                     opts="bf=2", bit_rate=bit_rate)
+
+
 def main(argv):
-    out_dir = argv[1] if len(argv) > 1 else OUT
+    args = [a for a in argv[1:] if a != "--avi"]
+    out_dir = args[0] if args else OUT
+    if "--avi" in argv:
+        write_avi_fixtures(out_dir)
+        write_avi_corpus(os.path.join(out_dir, "avi_corpus"))
+        total = sum(os.path.getsize(os.path.join(dd, f)) for sub in ("avi", "avi_corpus")
+                    for dd, _, fs in os.walk(os.path.join(out_dir, sub)) for f in fs)
+        print(f"{out_dir}: AVI set {total} bytes")
+        return
     write_fixtures(out_dir)
     write_corpus(os.path.join(out_dir, "corpus"))
     total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out_dir)

@@ -81,42 +81,42 @@ def make_pipe(batch, device, reader_device="mixed", root=CORPUS, raw=False, seed
     return pipe
 
 
-def check_batch(b, batch=BATCH):
+def check_batch(b, batch=BATCH, form="video_clip_train"):
     x, lab = b[0]["frames"], b[0]["labels"]
     shape = (batch, FRAMES, 3, SIZE, SIZE)
     if not (x.is_cuda and x.dtype == torch.float32 and tuple(x.shape) == shape):
-        raise AssertionError(f"video_clip_train: {tuple(x.shape)} {x.dtype} on {x.device}")
+        raise AssertionError(f"{form}: {tuple(x.shape)} {x.dtype} on {x.device}")
     if not bool(torch.isfinite(x).all()):
-        raise AssertionError("video_clip_train: non-finite values in a batch")
+        raise AssertionError(f"{form}: non-finite values in a batch")
     lab = lab.reshape(-1)
     if not (lab.numel() == batch and int(lab.min()) >= 0 and int(lab.max()) < CLASSES):
-        raise AssertionError(f"video_clip_train: labels out of range: {lab.tolist()}")
+        raise AssertionError(f"{form}: labels out of range: {lab.tolist()}")
 
 
-def run(batch=BATCH, warmup=3, timed=10):
-    """video_clip_train on the card (``bench_readers._drive``): rates, host
-    ms by schema, the CMN launches of the run (set to 0 just before it, one
-    per batch), device ms by stage of one batch alone, peak memory, and the
-    CMN kernel held against its plain version on one more batch of the path
-    and timed on it (``bench_ssd.hold_cmn``, ``time_cmn``)."""
+def run(batch=BATCH, warmup=3, timed=10, root=CORPUS, form="video_clip_train"):
+    """The path over ``root`` on the card (``bench_readers._drive``): rates,
+    host ms by schema, the CMN launches of the run (set to 0 just before it,
+    one per batch), device ms by stage of one batch alone, peak memory, and
+    the CMN kernel held against its plain version on one more batch of the
+    path and timed on it (``bench_ssd.hold_cmn``, ``time_cmn``)."""
     from dali_tpu_torch.kernels import cmn
     from dali_tpu_torch.tools import bench_readers, bench_ssd
 
     torch.cuda.reset_peak_memory_stats()
-    pipe = make_pipe(batch, "cuda:0")
+    pipe = make_pipe(batch, "cuda:0", root=root)
     cmn.COUNTER.launches = 0
     dt, st, by, ran = bench_readers._drive(pipe, ["frames", "labels"], warmup, timed,
-                                           lambda b: check_batch(b, batch))
+                                           lambda b: check_batch(b, batch, form))
     launches = cmn.COUNTER.launches
     if launches != ran:
-        raise AssertionError(f"video_clip_train: CMN launched {launches} times for {ran} batches")
+        raise AssertionError(f"{form}: CMN launched {launches} times for {ran} batches")
     stages = bench_readers._stages_alone(pipe)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with bench_ssd.recording_cmn([]) as calls:
         pipe.run()
     pipe.shutdown()
     held = dict(bench_ssd.time_cmn(calls[0]), max_abs_err=bench_ssd.hold_cmn(calls[0]))
-    return {"form": "video_clip_train", "batch": batch, "timed": timed,
+    return {"form": form, "batch": batch, "timed": timed,
             "clips_per_s": timed * batch / dt, "frames_per_s": timed * batch * FRAMES / dt,
             "host_ms_per_batch": 1e3 * st["host_phase_seconds"] / st["host_batches"],
             "device_wait_ms_per_batch": 1e3 * st["device_wait_seconds"] / timed,
@@ -229,13 +229,14 @@ def _tensor(x):
     return x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
 
 
-def check_mixed_vs_cpu(batch=BATCH, batches=2, device="cuda:0"):
+def check_mixed_vs_cpu(batch=BATCH, batches=2, device="cuda:0", root=CORPUS,
+                       form="video_clip_train"):
     """The recipe as written (cpu reader, then ``.gpu()``) against the timed
     form (mixed reader) on the card: the reader's uint8 frames and the
     labels equal, batch for batch."""
     runs = []
     for reader in ("cpu", "mixed"):
-        pipe = make_pipe(batch, device, reader_device=reader, raw=True)
+        pipe = make_pipe(batch, device, reader_device=reader, root=root, raw=True)
         runs.append([[_tensor(o.as_tensor()) for o in pipe.run()[1:]] for _ in range(batches)])
         pipe.shutdown()
     frames = 0
@@ -243,7 +244,7 @@ def check_mixed_vs_cpu(batch=BATCH, batches=2, device="cuda:0"):
         on_card = device == "cpu" or (raw_c.is_cuda and raw_m.is_cuda)
         if not (on_card and raw_c.dtype == torch.uint8 and torch.equal(raw_c, raw_m)
                 and torch.equal(lab_c.cpu(), lab_m.cpu())):
-            raise AssertionError("video_clip_train: the mixed reader's frames differ from the "
+            raise AssertionError(f"{form}: the mixed reader's frames differ from the "
                                  "cpu reader's")
         frames += raw_m.shape[0] * raw_m.shape[1]
     return {"batches": batches, "frames": frames}

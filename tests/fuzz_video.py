@@ -1,15 +1,19 @@
 """Mutation probe of dali_tpu_torch's host video stack (``csrc/host/
-mp4_demux.cc``, ``mpeg4_decode.cc``, ``video_decode.cc``) under
+mp4_demux.cc``, ``avi_demux.cc``, ``mpeg4_decode.cc``, ``mjpeg_decode.cc``
+with the JPEG reader it takes, ``video_decode.cc``) under
 AddressSanitizer and UndefinedBehaviorSanitizer, with libstdc++'s vector
 annotations on (so a read past a vector's size within its capacity is
 caught too).
 
-It compiles the three sources and ``tasking.cc`` with a small C++ harness,
+It compiles those sources and ``tasking.cc`` with a small C++ harness,
 then, for every input file, opens it unchanged and then ``--iters``
 damaged copies (bit flips, random bytes, fake VOL start codes, cuts, flips
 in the last 2 KiB where cv2's files keep ``moov``), alternately from a path
 and from memory, and reads each through RGB, planar and batched reads at
-several starts and strides. Inputs: the committed fixtures, and three
+several starts and strides. Inputs: the committed MP4 and AVI fixtures
+(Xvid with packed B-VOPs, FFmpeg's unpacked ones, Motion JPEG with and
+without DHT, raw I420, a file without an index), one clip of each corpus,
+and three
 files whose frame size changes mid-stream (a smaller clip spliced in after
 frame 5, one of the same macroblock grid, a smaller VOL before one P-VOP),
 written with cv2 here. Any sanitizer report ends the run non-zero.
@@ -152,7 +156,8 @@ def main(argv):
     exe = os.path.join(work, "fuzz")
     with open(drv, "w") as f:
         f.write(_HARNESS)
-    srcs = [os.path.join(HOST, s) for s in ("mp4_demux.cc", "mpeg4_decode.cc",
+    srcs = [os.path.join(HOST, s) for s in ("mp4_demux.cc", "avi_demux.cc", "mpeg4_decode.cc",
+                                            "mjpeg_decode.cc", "jpeg_huff.cc", "jpeg_arith.cc",
                                             "video_decode.cc", "tasking.cc")]
     subprocess.run(["g++", "-O1", "-g", "-fsanitize=address,undefined",
                     "-D_GLIBCXX_SANITIZE_VECTOR", "-fno-sanitize-recover=all",
@@ -162,6 +167,8 @@ def main(argv):
     fixtures = os.path.join(ROOT, "dali_tpu_torch", "testdata", "video")
     files = sorted(glob.glob(os.path.join(fixtures, "*.mp4")))
     files += [os.path.join(fixtures, "corpus", c, f"{c}_00.mp4") for c in ("cut", "pan", "drift")]
+    files += sorted(glob.glob(os.path.join(fixtures, "avi", "*.avi")))
+    files += [os.path.join(fixtures, "avi_corpus", "cut", "cut_00.avi")]
     files += size_change_files(work)
     env = dict(os.environ, FUZZ_CASE=os.path.join(work, "case.mp4"))
     return subprocess.run([exe, str(args.iters)] + files, env=env).returncode

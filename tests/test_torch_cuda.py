@@ -44,7 +44,8 @@ batches and the C API's served outputs on the card match the CPU run's
 within one uint8 step / std. rn50_train's recipe over the arithmetic-coded
 twin corpus gives the Huffman corpus's batches bit for bit. The resizing
 video reader on device="mixed" gives the cpu placement's frames bit for bit,
-and video_flow_train (the resizing reader, optical flow, CMN's FCHW fold)
+and ucf_avi_train's Xvid AVI corpus and one AVI file of each codec the
+same way, and video_flow_train (the resizing reader, optical flow, CMN's FCHW fold)
 matches its CPU run: flows and labels equal, images within one uint8 step
 / std."""
 
@@ -1890,6 +1891,47 @@ def test_rn50_arith_train_on_card_matches_cpu(card):
     np.testing.assert_array_equal(g_lab, c_lab)
     d = (g_img - c_img).abs()
     assert float(d.max()) <= LSB and float((d > 1e-4).float().mean()) <= MAX_FLIP_FRACTION
+
+
+# ------------------------------------------------------------------ ucf_avi_train (item 8b, AVI)
+
+def test_avi_mixed_reader_equals_cpu_reader(card):
+    """ucf_avi_train's recipe at batch 4 over the Xvid AVI corpus (packed
+    B-VOPs): the mixed reader's frames (the planar YUV wire, RGB on the
+    card) equal the cpu reader's moved with ``.gpu()``, and every committed
+    AVI file decodes on this machine to avi_reference.npz."""
+    from dali_tpu_torch.tools import bench_avi, bench_video
+
+    r = bench_video.check_mixed_vs_cpu(batch=4, batches=2, root=bench_avi.AVI_CORPUS,
+                                       form=bench_avi.FORM)
+    assert r["frames"] == 2 * 4 * bench_video.FRAMES
+    assert bench_avi.check_fixtures()["files"] == 42
+
+
+@pytest.mark.parametrize("name", ["mjpeg_nodht_160x120", "raw_i420_64x48", "mpeg4_bf_170x98"])
+def test_avi_yuv_wire_on_card_equals_cpu(card, name):
+    """readers.video over one AVI file of each codec (Motion JPEG's full
+    range, raw I420, FFmpeg's B-VOPs at an odd size), batch 2: the mixed
+    reader's uint8 frames on the card equal the cpu reader's."""
+    from dali_tpu_torch import fn, pipeline_def
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "dali_tpu_torch", "testdata", "video", "avi", name + ".avi")
+    outs = []
+    for reader in ("cpu", "mixed"):
+        @pipeline_def(batch_size=2, num_threads=2, seed=3, device=card)
+        def p():
+            return fn.readers.video(filenames=[path], sequence_length=4, step=3,
+                                    random_shuffle=True, device=reader)
+        pipe = p()
+        pipe.build()
+        try:
+            outs.append([pipe.run()[0].as_tensor() for _ in range(2)])
+        finally:
+            pipe.shutdown()
+    for c, m in zip(*outs):
+        assert m.is_cuda and m.dtype == torch.uint8
+        assert torch.equal(c.cpu(), m.cpu())
 
 
 # ------------------------------------------------------------------ video_flow_train (item 8b)

@@ -486,9 +486,11 @@ def test_full_range_source_cpu_and_mixed(tmp_path):
 
 @pytest.mark.parametrize("fmt,fourcc", [("avi", "MJPG"), ("avi", "XVID"), ("mkv", "mp4v")])
 def test_other_containers_raise_item_8b(tmp_path, fmt, fourcc):
-    """AVI and Matroska files, which dali_tpu's FFmpeg reads, raise
+    """Matroska files, which dali_tpu's FFmpeg reads, raise
     NotImplementedError naming item 8b in the port, at open and through
-    the reader."""
+    the reader. cv2's AVIs (MJPG and XVID), once among them, read since the
+    AVI part of item 8b: the same frames as dali_tpu's, from the file and
+    through the reader, cpu and mixed."""
     from dali_tpu import native as ref_native
 
     from dali_tpu_torch import native
@@ -501,6 +503,16 @@ def test_other_containers_raise_item_8b(tmp_path, fmt, fourcc):
         wr.write(np.full((48, 64, 3), 20 * i, np.uint8))
     wr.release()
     ref_native.VideoFile(path).close()  # the reference reads it
+    if fmt == "avi":
+        mine, ref = native.VideoFile(path), ref_native.VideoFile(path)
+        assert (mine.num_frames, mine.fps, mine.pixfmt_class) == (ref.num_frames, ref.fps,
+                                                                  ref.pixfmt_class)
+        np.testing.assert_array_equal(mine.read(0, 6), ref.read(0, 6))
+        runs = _run_all(_reader({"v": path}, files=["v"], sequence_length=2, step=2), 1, 2)
+        for key, got in runs.items():
+            for it in range(2):
+                _assert_same(got[it], runs[("dali_tpu", "cpu")][it], (fourcc, key, it))
+        return
     with pytest.raises(NotImplementedError, match="item 8b"):
         native.VideoFile(path)
 
@@ -515,14 +527,15 @@ def test_other_containers_raise_item_8b(tmp_path, fmt, fourcc):
 
 def test_unported_video_names_name_item_8b(tmp_path):
     """readers.VideoResize and OpticalFlow came with item 8b's registry part;
-    the rest of item 8b, the containers other than MP4, still raise naming
-    it, through the resizing reader too."""
+    the rest of item 8b, here HuffYUV in AVI (Motion JPEG, this test's file
+    before, reads since the AVI part), still raises naming it, through the
+    resizing reader too."""
     assert callable(dali_tpu_torch.fn.readers.video_resize)
     assert callable(dali_tpu_torch.fn.optical_flow)
     path = str(tmp_path / "v.avi")
-    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 25, (64, 48))
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"HFYU"), 25, (64, 48))
     if not wr.isOpened():
-        pytest.skip("cv2 cannot write MJPG in avi")
+        pytest.skip("cv2 cannot write HFYU in avi")
     for i in range(4):
         wr.write(np.full((48, 64, 3), 30 * i, np.uint8))
     wr.release()

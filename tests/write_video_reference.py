@@ -20,6 +20,16 @@ data partitioning...). ``--probe-idct`` decodes the fixtures with the
 default options, with ``idct=simple``, ``int`` and ``xvid``, and with every
 SIMD path switched off, and prints which of them equal the default.
 
+For the AVI set (``avi/`` and ``avi_corpus/``, written by
+``make_video_corpus.py --avi``) it writes ``avi_reference.npz``: for each
+file ``<name>:info`` (width, height, frames, fps and pixel-format class, as
+``dali_tpu.native.VideoFile`` opens it), the SHA-256 of each frame of
+FFmpeg 5.1's whole-stream decode in display order (``<name>:yuv_sha``, and
+``<name>:rgb_sha`` of those planes through the reference's integer
+BT.601), which is what the port returns, and ``<name>:ref_rgb_sha``, the
+reference's own sequential RGB read, which places the tail of a packed
+Xvid stream elsewhere.
+
 It lives outside the port's package because it imports dali_tpu. Run it on
 a machine where dali_tpu's native library has FFmpeg, from the repo root,
 after ``dali_tpu_torch/testdata/make_video_corpus.py`` wrote the clips:
@@ -423,6 +433,82 @@ def probe_idct(fixture_dir=FIXTURES):
                 f"per frame max {d.reshape(len(d), -1).max(1)[:12].tolist()}"))
 
 
+def avi_names(fixture_dir=FIXTURES):
+    """The AVI fixtures and the AVI corpus, as paths under fixture_dir
+    without the extension."""
+    names = []
+    d = os.path.join(fixture_dir, "avi")
+    if os.path.isdir(d):
+        names += sorted("avi/" + f[:-4] for f in os.listdir(d) if f.endswith(".avi"))
+    corpus = os.path.join(fixture_dir, "avi_corpus")
+    if os.path.isdir(corpus):
+        names += [f"avi_corpus/{c}/{f[:-4]}" for c in sorted(os.listdir(corpus))
+                  for f in sorted(os.listdir(os.path.join(corpus, c))) if f.endswith(".avi")]
+    return names
+
+
+def yuv420_to_rgb(y, u, v, full):
+    """dali_tpu's integer BT.601 with nearest chroma (its video_decode.cc
+    ``yuv420_frame_to_rgb``) over [N, h, w] / [N, ceil(h/2), ceil(w/2)]
+    planes."""
+    y = y.astype(np.int32)
+    d = np.repeat(np.repeat(u.astype(np.int32) - 128, 2, 1), 2, 2)[:, : y.shape[1], : y.shape[2]]
+    e = np.repeat(np.repeat(v.astype(np.int32) - 128, 2, 1), 2, 2)[:, : y.shape[1], : y.shape[2]]
+    if full:
+        c = 256 * y
+        r, g, b = c + 359 * e, c - 88 * d - 183 * e, c + 454 * d
+    else:
+        c = 298 * (y - 16)
+        r, g, b = c + 409 * e, c - 100 * d - 208 * e, c + 516 * d
+    return np.clip((np.stack([r, g, b], -1) + 128) >> 8, 0, 255).astype(np.uint8)
+
+
+def display_order_decode(tools, path):
+    """FFmpeg's whole-stream decode of ``path``, frame by frame in the order
+    it shows them: (y, u, v) planes [N, ...]."""
+    frames, _, _ = tools.decode(path)
+    vf = FFmpegInfo(path)
+    w, h = vf.width, vf.height
+    cw, ch = (w + 1) // 2, (h + 1) // 2
+    n = len(frames)
+    y = frames[:, : w * h].reshape(n, h, w)
+    u = frames[:, w * h: w * h + cw * ch].reshape(n, ch, cw)
+    v = frames[:, w * h + cw * ch:].reshape(n, ch, cw)
+    return y, u, v
+
+
+class FFmpegInfo:
+    """The frame size dali_tpu's reader opens a file with."""
+
+    def __init__(self, path):
+        import dali_tpu.native as reference
+
+        vf = reference.VideoFile(path)
+        self.width, self.height = vf.width, vf.height
+        self.num_frames, self.fps, self.pixfmt_class = vf.num_frames, vf.fps, vf.pixfmt_class
+        vf.close()
+
+
+def avi_reference_decodes(fixture_dir=FIXTURES, tools=None):
+    """The arrays of ``avi_reference.npz`` (see the module docstring)."""
+    import dali_tpu.native as reference
+
+    tools = tools or FFmpegTools()
+    out = {}
+    for name in avi_names(fixture_dir):
+        path = os.path.join(fixture_dir, name + ".avi")
+        info = FFmpegInfo(path)
+        y, u, v = display_order_decode(tools, path)
+        out[name + ":info"] = np.array([info.width, info.height, info.num_frames, info.fps,
+                                        info.pixfmt_class], np.float64)
+        out[name + ":yuv_sha"] = yuv_hashes(y, u, v)
+        out[name + ":rgb_sha"] = frame_hashes(yuv420_to_rgb(y, u, v, info.pixfmt_class == 2))
+        vf = reference.VideoFile(path)
+        out[name + ":ref_rgb_sha"] = frame_hashes(vf.read(0, info.num_frames, pad=False))
+        vf.close()
+    return out
+
+
 def main(argv):
     args = [a for a in argv[1:] if not a.startswith("--")]
     fixture_dir = args[0] if args else FIXTURES
@@ -431,6 +517,9 @@ def main(argv):
         return
     np.savez_compressed(os.path.join(fixture_dir, "reference.npz"),
                         **reference_decodes(fixture_dir))
+    if avi_names(fixture_dir):
+        np.savez_compressed(os.path.join(fixture_dir, "avi_reference.npz"),
+                            **avi_reference_decodes(fixture_dir))
 
 
 if __name__ == "__main__":
