@@ -461,6 +461,27 @@ on failure:
    corpus on one thread and on the pool; and the cpu reader then
    ``.gpu()`` against the mixed reader for 2 batches: the uint8 frames
    equal on the card.
+44. capture_avi_train (``tools/bench_capture.py``): every committed file of
+   ``testdata/video/capture`` and ``capture_corpus`` (HuffYUV v1 and FFVH in
+   every predictor, RGB and YUV form, the classic tables; FFV1 versions 0,
+   1 and 3, both coders, slices; Motion JPEG 4:2:2, 4:4:4 and grey; the
+   forms left to item 8b raising NotImplementedError) decoded on this
+   machine against ``capture_reference.npz`` (dali_tpu's FFmpeg 5.1 decode
+   and libswscale 6.7's RGB24, which the port's ``csrc/host/sws_rgb.cc``
+   rebuilds); then the recipe over the capture corpus (320x240 at 25 fps:
+   HuffYUV 4:2:2, cv2's FFV1, Motion JPEG 4:2:2; class 0, so the mixed
+   reader's dense RGB path): ``readers.video(device="mixed", file_root=...,
+   sequence_length=8, stride=1, random_shuffle=True, pad_mode="edge")``,
+   resize 112x112, rotate and gaussian_blur, CMN to FLOAT FCHW, batch 32:
+   3 warm-up + 10 timed batches, each checked; clips/s and frames/s beside
+   rn50_train's rate, host ms by schema with the swscale rebuild's time,
+   the device wait, device ms by stage of one batch alone, peak memory, the
+   exact CMN launch count; the CMN kernel (FCHW fold) held against its
+   plain version on the path's own batch (max abs diff 0) and timed on it;
+   the host decode rate of the corpus to RGB on one thread (with the
+   rebuild's share of it) and on 8; and the cpu reader then ``.gpu()``
+   against the mixed reader for 2 batches: the uint8 frames equal on the
+   card.
 
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
@@ -511,6 +532,7 @@ VIDEO_TIMED = 10
 ARITH_TIMED = 10
 VIDEO_FLOW_TIMED = 5
 AVI_TIMED = 10
+CAPTURE_TIMED = 10
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -2089,6 +2111,59 @@ def avi_phase(card, rn50_ips):
     return r["cmn_launches"], c
 
 
+def capture_phase(card, rn50_ips):
+    """Phase 44: the swscale-route fixtures, then capture_avi_train, its
+    host costs and the mixed reader against the cpu one; returns its CMN
+    launches and the kernel's readings on the path's batch."""
+    from dali_tpu_torch.tools import bench_capture as bc
+    from dali_tpu_torch.tools import bench_video as bv
+
+    t0 = time.perf_counter()
+    form = bc.FORM
+    f = bc.check_fixtures()
+    print(f"capture fixtures: {f['files']} files, {f['frames']} frames decoded on this machine, "
+          f"each frame's RGB bytes (the YUV planes of the 4:2:0 files) and each file's info "
+          f"equal to capture_reference.npz (dali_tpu's FFmpeg 5.1 and libswscale 6.7); "
+          f"{f['left_raised']} forms left to item 8b raise ({card})")
+    r = bc.run(warmup=WARMUP, timed=CAPTURE_TIMED)
+    c, sws = r["cmn"], r["sws"]
+    print(f"{form} batch {r['batch']}x{bv.FRAMES} frames: {r['clips_per_s']:.1f} clips/s, "
+          f"{r['frames_per_s']:.1f} frames/s over {r['timed']} batches "
+          f"({100 * r['frames_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} images/s "
+          f"in this run); host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} "
+          f"host cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; cmn "
+          f"launches {r['cmn_launches']} ({card})")
+    by = r["host_ms_by_schema"]
+    reader_ms = by.get("readers.Video", 0.0)
+    print(f"{form} host ms/batch by schema: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in by.items() if v >= 0.05) + f"; the swscale rebuild "
+        f"{sws['ms_per_frame']:.4f} ms a frame over {sws['frames']} frames, "
+        f"{sws['ms_per_batch_summed']:.2f} ms a batch summed over the reading threads against "
+        f"readers.Video's {reader_ms:.2f} ms/batch wall ({card})")
+    print(f"{form} device ms of one batch alone: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r["stage_ms"].items())
+        + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    require(r["cmn_launches"] > 0, f"{form}: the CMN kernel was not launched")
+    require(c["max_abs_err"] == 0, f"{form}: CMN kernel {c['max_abs_err']} from its plain version")
+    print(f"{form} CMN kernel (FCHW fold) on the path's own batch {c['shape_in']} "
+          f"{c['dtype_in']} -> {c['shape_out']} float32: max abs diff vs plain "
+          f"{c['max_abs_err']:.3e}; kernel alone {c['ms']:.4f} ms (cold L2), wrapper "
+          f"{c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} bytes, bound "
+          f"{c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+    d = bc.decode_rate(threads=8)
+    print(f"{form} host decode of the capture corpus to RGB ({d['clips']} clips, {d['frames']} "
+          f"frames of 320x240: {d['frames_by_class']}): {d['frames_per_s_one_thread']:.0f} "
+          f"frames/s on one thread (ms a frame: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in d["ms_per_frame_by_class"].items())
+          + f"), the swscale rebuild {100 * d['sws_share_one_thread']:.1f}% of it; "
+          f"{d['frames_per_s_pool']:.0f} frames/s on {d['threads']} ({card})")
+    k = bc.check_mixed_vs_cpu()
+    print(f"{form} recipe as written (cpu reader, .gpu()) against the mixed reader: "
+          f"{k['frames']} uint8 frames of {k['batches']} batches equal on the card; "
+          f"{form} phase: {time.perf_counter() - t0:.1f} s ({card})")
+    return r["cmn_launches"], c
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2157,6 +2232,7 @@ def main():
     launches["rn50_arith_train"], path_cmn["rn50_arith_train"] = arith_phase(card, rn50_ips)
     launches["video_flow_train"], path_cmn["video_flow_train"] = video_flow_phase(card, rn50_ips)
     launches["ucf_avi_train"], path_cmn["ucf_avi_train"] = avi_phase(card, rn50_ips)
+    launches["capture_avi_train"], path_cmn["capture_avi_train"] = capture_phase(card, rn50_ips)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

@@ -395,8 +395,10 @@ class VideoDecoder(Operator):
                 vf = native.VideoFile(np.ascontiguousarray(inp.samples[idx]).tobytes())
                 vfs.append(vf)
                 classes.add(vf.pixfmt_class)
-                if len(classes) != 1:
-                    return None  # both ranges in one batch: the dense RGB path
+                if len(classes) != 1 or 0 in classes:
+                    # both ranges, or a stream that is not 4:2:0, in one
+                    # batch: the dense RGB path
+                    return None
                 start, length, requested = self._plan(ctx, idx, vf)
                 # a shrinking sample ('all' / pad_mode none) caps its planned
                 # wire at the header's count + 2; the frames it emits come
@@ -503,17 +505,13 @@ _video_resize_schema()
 
 @register_operator("readers.VideoResize", "cpu")
 @register_operator("readers.VideoResize", "mixed")
-class VideoResizeReader(SamplePool, _VideoReaderImpl):
+class VideoResizeReader(_VideoReaderImpl):
     """readers.Video's sequences, each frame cropped to the ROI and resized
     with the Resize arguments (``host_resample``, the cpu Resize's
     resampler); a batch's sequences are read and resized on the pipeline's
     threads. Like the reference's, the mixed placement is the plain
     reader's: its frames cross to the device as dense RGB, never as the
     planar YUV wire of readers.Video's mixed placement."""
-
-    def close(self):
-        SamplePool.close(self)
-        _VideoReaderImpl.close(self)
 
     def _read_payload(self, index: int):
         from ..kernels.host_resample import host_resample

@@ -11,7 +11,9 @@ RGB24's 3); the device rebuilds RGB with the host's integer BT.601
 The mixed reader decodes a batch's sequences at once on the task pool
 (``native.video_read_batch``, one task per file). Float, luma and
 ``pad_mode`` none/constant outputs take the dense RGB path, as in the
-reference.
+reference, and so do streams that are not 4:2:0 (pixel-format class 0:
+HuffYUV, FFV1 and Motion JPEG 4:2:2/4:4:4/grey), which the host converts
+to RGB as libswscale does (``csrc/host/sws_rgb.cc``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 from .. import native
 from .._schema import DALI_SCHEMA, ArgType, register_operator
 from ..batch import HostBatch, YUVStaged
-from .base import Operator
+from .base import Operator, SamplePool
 from .readers import BaseReader
 
 _INT32_MAX = 2**31 - 1
@@ -194,7 +196,7 @@ DALI_SCHEMA("readers.Video").DocStr(
     "Pad value(s) 0..255 for pad_mode='constant' (per channel when several).", [0])
 
 
-class _VideoReaderImpl(BaseReader):
+class _VideoReaderImpl(SamplePool, BaseReader):
     def __init__(self, spec, op_id):
         super().__init__(spec, op_id)
         self._sequences = None  # [(file_idx, start_frame, label)]
@@ -413,6 +415,7 @@ class _VideoReaderImpl(BaseReader):
         return ["FHWC", "", "", ""]
 
     def close(self):
+        SamplePool.close(self)
         with self._handles_lock:
             for h in self._handles.values():
                 h.close()
@@ -446,7 +449,9 @@ class VideoReaderMixed(_VideoReaderImpl):
             pix = set(self._pix.values())
             self._corpus_pix = pix.pop() if len(pix) == 1 else 0
         if self._corpus_pix == 0:
-            return None  # a corpus of both ranges: dense RGB path
+            # a corpus of both ranges, or with a file that is not 4:2:0
+            # (class 0, converted on the host as libswscale does): dense RGB
+            return None
         full_range = self._corpus_pix == 2
         self._ensure_loader()
         L = spec.GetArgument("sequence_length")
@@ -613,6 +618,8 @@ class VideoInputMixed(_VideoInputImpl):
     def stage_batch_multi(self, ctx, ins):
         if self._vf is None:
             self._open_next()
+        if self._vf.pixfmt_class == 0:
+            return None  # not 4:2:0: the dense RGB path
         full_range = self._vf.pixfmt_class == 2
         L = self.spec.GetArgument("sequence_length")
         h_, w_ = self._vf.height, self._vf.width

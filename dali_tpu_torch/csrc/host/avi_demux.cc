@@ -65,6 +65,7 @@ struct Header {
   uint32_t scale = 0, rate = 0, start = 0, length = 0;
   uint32_t codec_tag = 0;
   int32_t width = 0, height = 0;
+  int bits = 0;
   std::vector<uint8_t> extradata;
   uint64_t indx_pos = 0;  // the video stream's OpenDML super index
   uint64_t movi_list = 0, movi_end = 0;  // offset of the 'movi' fourcc, end of its LIST
@@ -96,6 +97,7 @@ bool parse_strl(const Src& src, uint64_t pos, uint64_t end, Header* h) {
         h->width = int32_t(rl32(b + 4));
         h->height = int32_t(rl32(b + 8));
         h->codec_tag = rl32(b + 16);
+        h->bits = b[14] | (b[15] << 8);
       }
       if (size > 40 && body + size <= src.size) {
         h->extradata.resize(size - 40);
@@ -294,6 +296,7 @@ int demux_avi_src(const uint8_t* mem, int fd, uint64_t size, Track* track, std::
   track->codec_tag = h.codec_tag;
   track->width = h.width;
   track->height = h.height < 0 ? -h.height : h.height;
+  track->bits = h.bits;
   track->timescale = h.rate;
   track->start_time = h.start;
   track->nb_frames = h.length;

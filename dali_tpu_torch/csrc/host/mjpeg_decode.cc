@@ -1,5 +1,6 @@
 // Motion JPEG frames as FFmpeg 5.1's ``mjpeg`` decoder gives them: the
-// planes of a 4:2:0 frame, not upsampled (yuvj420p, full range).
+// planes of a 4:2:0, 4:2:2 or 4:4:4 frame, not upsampled (yuvj420p,
+// yuvj422p, yuvj444p: full range), or one grey plane (gray).
 //
 // The entropy decode is the port's own JPEG reader (jpeg_huff.cc,
 // ``jpeg_read_full``); dequantisation and the inverse DCT follow
@@ -14,7 +15,7 @@
 // omits DHT) takes those of the last frame that had them, else the
 // default tables of ITU-T T.81 Annex K.3, as FFmpeg's decoder keeps them.
 // Interlaced two-field frames (a frame under 3/4 of the container's
-// height) and sampling other than 4:2:0 are left to item 8b.
+// height) and other samplings (4:1:1, 4:4:0, ...) are left to item 8b.
 
 #include <cstring>
 #include <string>
@@ -129,30 +130,46 @@ int MjpegDecoder::decode(const uint8_t* p, size_t n, int container_height, std::
     *msg = "damaged Motion JPEG frame";
     return kInvalid;
   }
-  if (f.ncomp != 3 || f.color != dali_tpu_torch::kYCbCr || f.h[0] != 2 || f.v[0] != 2 ||
-      f.h[1] != 1 || f.v[1] != 1 || f.h[2] != 1 || f.v[2] != 1) {
-    *msg = "Motion JPEG other than 4:2:0 YCbCr: ROADMAP.md Queue 1 item 8b";
+  // FFmpeg's pixel format by the sampling factors: luma at the largest,
+  // both chroma alike at half or full width and height (its encoder writes
+  // 4:2:2 as luma 2x2, chroma 1x2)
+  int format = -1;
+  if (f.ncomp == 1) {
+    format = kGray8;
+  } else if (f.ncomp == 3 && f.color == dali_tpu_torch::kYCbCr && f.h[0] == f.hmax &&
+             f.v[0] == f.vmax && f.h[1] == f.h[2] && f.v[1] == f.v[2]) {
+    const int rh = f.hmax / f.h[1], rv = f.vmax / f.v[1];
+    const bool exact = f.h[1] * rh == f.hmax && f.v[1] * rv == f.vmax;
+    if (exact && rh == 2 && rv == 2) format = kYuv420p;
+    else if (exact && rh == 2 && rv == 1) format = kYuv422p;
+    else if (exact && rh == 1 && rv == 1) format = kYuv444p;
+  }
+  if (format < 0) {
+    *msg = "Motion JPEG other than 4:2:0, 4:2:2 or 4:4:4 YCbCr or grey: ROADMAP.md Queue 1 "
+           "item 8b";
     return kUnsupported;
   }
   if (container_height > 0 && f.H < container_height * 3 / 4) {
     *msg = "interlaced (two-field) Motion JPEG: ROADMAP.md Queue 1 item 8b";
     return kUnsupported;
   }
+  // the planes on the MCU-aligned canvas
   Picture& pic = d.pic;
-  const int mx = (f.W + 15) / 16, my = (f.H + 15) / 16;
+  const int mx = (f.W + 8 * f.hmax - 1) / (8 * f.hmax), my = (f.H + 8 * f.vmax - 1) / (8 * f.vmax);
+  pic.format = format;
   pic.width = f.W;
   pic.height = f.H;
-  pic.stride_y = mx * 16;
-  pic.stride_c = mx * 8;
-  pic.rows_y = my * 16;
-  pic.rows_c = my * 8;
+  pic.stride_y = mx * 8 * f.h[0];
+  pic.rows_y = my * 8 * f.v[0];
+  pic.stride_c = format == kGray8 ? 0 : mx * 8 * f.h[1];
+  pic.rows_c = format == kGray8 ? 0 : my * 8 * f.v[1];
   pic.y.assign(size_t(pic.stride_y) * pic.rows_y, 0);
   pic.u.assign(size_t(pic.stride_c) * pic.rows_c, 0);
   pic.v.assign(size_t(pic.stride_c) * pic.rows_c, 0);
   uint8_t* planes[3] = {pic.y.data(), pic.u.data(), pic.v.data()};
   const int strides[3] = {pic.stride_y, pic.stride_c, pic.stride_c};
   int16_t blk[64];
-  for (int c = 0; c < 3; c++) {
+  for (int c = 0; c < f.ncomp; c++) {
     const uint16_t* q = f.q[c];
     for (int by = 0; by < f.bh[c]; by++)
       for (int bx = 0; bx < f.bw[c]; bx++) {

@@ -1,7 +1,9 @@
 // Shared declarations of the host video stack: the ISO BMFF and AVI
 // demuxers (mp4_demux.cc, avi_demux.cc), the MPEG-4 Part 2 decoder
-// (mpeg4_decode.cc), the Motion JPEG frame decoder (mjpeg_decode.cc) and
-// the frame-accurate reader over them (video_decode.cc).
+// (mpeg4_decode.cc), the Motion JPEG, HuffYUV and FFV1 frame decoders
+// (mjpeg_decode.cc, huffyuv_decode.cc, ffv1_decode.cc), the rebuild of
+// libswscale's RGB24 conversion (sws_rgb.cc) and the frame-accurate reader
+// over them (video_decode.cc).
 #pragma once
 
 #include <cstddef>
@@ -35,6 +37,7 @@ struct Track {
   bool avi = false;
   uint32_t codec_tag = 0;    // AVI: the BITMAPINFOHEADER's compression FourCC
   int width = 0, height = 0; // AVI: the BITMAPINFOHEADER's frame size
+  int bits = 0;              // AVI: biBitCount (bits_per_coded_sample)
   int64_t timescale = 0;
   int64_t start_time = 0;  // pts of the first sample, in timescale units
   int64_t nb_frames = 0;   // samples counted by stts
@@ -62,14 +65,59 @@ int demux_avi(const uint8_t* data, size_t n, Track* track, std::string* msg);
 int demux_avi_fd(int fd, uint64_t size, Track* track, std::string* msg);
 bool is_avi(const uint8_t* head, size_t n);
 
-// Planar 4:2:0 picture on a macroblock-aligned canvas.
+// Bits over a buffer, most significant first, 32 at a time; reads past the
+// end give zeros and leave ``over()`` true (HuffYUV's and FFV1's Golomb-Rice
+// bitstreams).
+struct MsbBits {
+  const uint8_t* p = nullptr;
+  size_t n = 0;    // bytes
+  size_t pos = 0;  // bits read
+  void init(const uint8_t* d, size_t k) {
+    p = d;
+    n = k;
+    pos = 0;
+  }
+  uint32_t peek32() const {
+    const size_t byte = pos >> 3;
+    uint64_t w = 0;
+    for (size_t i = 0; i < 5; i++) w = (w << 8) | (byte + i < n ? p[byte + i] : 0u);
+    return uint32_t(w >> (8 - (pos & 7)));
+  }
+  uint32_t get(int k) {
+    const uint32_t v = k ? peek32() >> (32 - k) : 0;
+    pos += size_t(k);
+    return v;
+  }
+  void skip(int k) { pos += size_t(k); }
+  long left() const { return long(n * 8) - long(pos); }
+  bool over() const { return pos > n * 8; }
+};
+
+// The pixel formats the decoders emit, by FFmpeg's names: planar YUV
+// (chroma planes at half width for 4:2:2, at half width and height for
+// 4:2:0), one grey plane, or packed 8-bit RGB in ``y`` (bgr0 and bgra:
+// B, G, R, then a byte that is ignored or alpha; 0rgb: that byte first).
+enum PixFmt { kYuv420p, kYuv422p, kYuv444p, kGray8, kBgr0, kBgra, kBgr24, k0rgb };
+
+// A decoded picture: planar 4:2:0 on a macroblock-aligned canvas from the
+// MPEG-4 decoder, any PixFmt from the others.
 struct Picture {
+  int format = kYuv420p;
   int width = 0, height = 0;     // display size
   int stride_y = 0, stride_c = 0;
   int rows_y = 0, rows_c = 0;    // macroblock-aligned heights
   std::vector<uint8_t> y, u, v;
   int64_t tag = -1;  // the VOP it holds: packet << 32 | start code offset
+  // The planes for ``format`` at ``w`` x ``h`` (chroma rows rounded up).
+  void allocate(int fmt, int w, int h);
 };
+
+// libswscale 6.7's sws_scale to RGB24 at 1:1 size (sws_rgb.cc) of a
+// picture whose format and size sws_takes (4:2:2 but at an odd width and
+// height, 4:4:4, grey, packed RGB); ``full_range`` selects the yuvj*
+// forms. ``dst`` is width*height*3 bytes.
+bool sws_takes(int format, int width, int height);
+void sws_rgb(const Picture& p, bool full_range, uint8_t* dst);
 
 // FFmpeg's simple IDCT (13-bit row, 20-bit column pass) of one 8x8 block,
 // put into or added to a plane; shared by the MPEG-4 and MJPEG decoders.
@@ -127,7 +175,8 @@ class Mpeg4Decoder {
   Impl* impl_;
 };
 
-// One Motion JPEG frame as FFmpeg's mjpeg decoder gives it (yuvj420p).
+// One Motion JPEG frame as FFmpeg's mjpeg decoder gives it: yuvj420p,
+// yuvj422p, yuvj444p or gray.
 class MjpegDecoder {
  public:
   MjpegDecoder();
@@ -138,6 +187,56 @@ class MjpegDecoder {
   // ``container_height`` is the stream header's (a frame far shorter is a
   // field of an interlaced frame).
   int decode(const uint8_t* p, size_t n, int container_height, std::string* msg);
+  const Picture& picture() const;
+
+ private:
+  struct Impl;
+  Impl* impl_;
+};
+
+// HuffYUV (``HFYU``) and FFmpeg's HuffYUV v2 (``FFVH``) frames at 8 bits
+// as FFmpeg 5.1's huffyuvdec.c gives them.
+class HuffyuvDecoder {
+ public:
+  HuffyuvDecoder();
+  ~HuffyuvDecoder();
+  HuffyuvDecoder(const HuffyuvDecoder&) = delete;
+  HuffyuvDecoder& operator=(const HuffyuvDecoder&) = delete;
+  // The stream: the BITMAPINFOHEADER's biBitCount and the extradata after
+  // it. kOk, kInvalid or kUnsupported.
+  int configure(int bits, const uint8_t* extra, size_t n, int width, int height,
+                std::string* msg);
+  int format() const;
+  // 1 with the frame in ``picture()``, or kInvalid.
+  int decode(const uint8_t* p, size_t n, std::string* msg);
+  const Picture& picture() const;
+
+ private:
+  struct Impl;
+  Impl* impl_;
+};
+
+// FFV1 (RFC 9043) versions 0, 1 and 3 at 8 bits as FFmpeg 5.1's ffv1dec.c
+// gives them. A frame that is not a key frame keeps the context states of
+// the frames before it.
+class Ffv1Decoder {
+ public:
+  Ffv1Decoder();
+  ~Ffv1Decoder();
+  Ffv1Decoder(const Ffv1Decoder&) = delete;
+  Ffv1Decoder& operator=(const Ffv1Decoder&) = delete;
+  // The extradata (versions 2 and up) and the frame size.
+  int configure(const uint8_t* extra, size_t n, int width, int height, std::string* msg);
+  // Whether a packet starts a key frame (its first range-coded bit).
+  static bool is_key(const uint8_t* p, size_t n);
+  // The format of the stream, known after the first key frame (or the
+  // extradata): -1 before.
+  int format() const;
+  // 1 with the frame in ``picture()``, kInvalid (damage: a bad CRC, a
+  // slice that ends early, a non-key frame without its key frame) or
+  // kUnsupported.
+  int decode(const uint8_t* p, size_t n, std::string* msg);
+  void flush();
   const Picture& picture() const;
 
  private:

@@ -1,6 +1,6 @@
 // Frame-accurate video reads over the MP4 and AVI demuxers and the MPEG-4
-// Part 2, Motion JPEG and raw 4:2:0 decoders: the counterpart of dali_tpu's
-// FFmpeg-backed video_decode.cc, with its contract:
+// Part 2, Motion JPEG, HuffYUV, FFV1 and raw 4:2:0 decoders: the counterpart
+// of dali_tpu's FFmpeg-backed video_decode.cc, with its contract:
 //   * fps is the track's average frame rate (25 when it is not positive),
 //     the frame count the stts count;
 //   * a decoded picture's frame index is its pts in seconds times fps plus
@@ -9,8 +9,14 @@
 //     than 64 frames ahead of it: to the last sync sample at or before the
 //     target's timestamp, then decodes forward, dropping frames before it;
 //   * after the last sample the reader stays at its end until it seeks;
-//   * RGB is the framework's integer BT.601 with nearest chroma; the planar
-//     read copies the 4:2:0 planes;
+//   * a 4:2:0 stream (pixel-format class 1 limited range, 2 full range)
+//     converts to RGB by the framework's integer BT.601 with nearest
+//     chroma, and its planar read copies the 4:2:0 planes; every other
+//     stream (class 0: 4:2:2, 4:4:4, grey, packed RGB) converts through the
+//     rebuild of libswscale's RGB24 route (sws_rgb.cc), and its planar read
+//     fails, as the reference's does; a frame whose format differs from the
+//     stream's at open converts through that route too, and fails a planar
+//     read with -2 - got;
 //   * a picture whose size differs from the size at open (an in-band VOL
 //     header that changes it) ends an RGB read as the end of the stream
 //     does, and fails a planar read with -2 - got, as the reference's
@@ -27,9 +33,13 @@
 // gives each shown VOP its index and, for each packet that starts with an
 // I-VOP, the index of that I-VOP and the decoder's state there; a seek goes
 // to the last such packet whose I-VOP is at or before the target, in the
-// state the whole-stream decode had there. Motion JPEG and raw frames are
-// numbered by packet. fps is the stream header's dwRate / dwScale, the
-// frame count its dwLength.
+// state the whole-stream decode had there. Motion JPEG, HuffYUV, FFV1 and
+// raw frames are numbered by packet; a seek into FFV1 starts at the last
+// packet at or before the target that the index flags as a key frame and
+// whose first range-coded bit says so (the frames after it keep its context
+// states). HuffYUV with per-frame tables carries them in each frame, so
+// every HuffYUV packet starts a decode. fps is the stream header's dwRate /
+// dwScale, the frame count its dwLength.
 //
 // A handle opened from a path holds the sample table and the decoder's
 // pictures, not the file: each sample is read from the file when it is
@@ -42,6 +52,8 @@
 #include <sys/stat.h>
 #include <unistd.h>
 
+#include <atomic>
+#include <chrono>
 #include <climits>
 #include <initializer_list>
 #include <cmath>
@@ -66,7 +78,7 @@ constexpr int kDamaged = INT_MIN;
 constexpr int kUnsupportedRead = INT_MIN + 1;
 
 // what decodes the samples
-enum Codec { kMpeg4Mp4, kMpeg4Avi, kMjpegAvi, kRawAvi };
+enum Codec { kMpeg4Mp4, kMpeg4Avi, kMjpegAvi, kRawAvi, kHuffyuvAvi, kFfv1Avi };
 
 struct VideoHandle {
   std::vector<uint8_t> data;  // the file's bytes, when opened from memory
@@ -77,9 +89,12 @@ struct VideoHandle {
   int codec = kMpeg4Mp4;
   video::Mpeg4Decoder dec;
   video::MjpegDecoder mjpeg;
+  video::HuffyuvDecoder huffyuv;
+  video::Ffv1Decoder ffv1;
   video::Picture raw;      // a raw frame's planes
   bool yv12 = false;       // raw planes stored V before U
   bool full_range = false;
+  int format = video::kYuv420p;  // the stream's pixel format at open
   // AVI: the frame index of each shown VOP's tag; per packet, the frame
   // index of the I-VOP it starts with (-1 for none) and the decoder state
   // before it
@@ -144,6 +159,13 @@ int64_t decode_avi(VideoHandle* v, size_t index, const uint8_t* bytes, size_t si
     int r = v->mjpeg.decode(bytes, size, v->track.height, &msg);
     if (r < 0) return read_fail(v, r, msg);
     v->shown = &v->mjpeg.picture();
+    return int64_t(index);
+  }
+  if (v->codec == kHuffyuvAvi || v->codec == kFfv1Avi) {
+    int r = v->codec == kHuffyuvAvi ? v->huffyuv.decode(bytes, size, &msg)
+                                    : v->ffv1.decode(bytes, size, &msg);
+    if (r < 0) return read_fail(v, r, msg);
+    v->shown = v->codec == kHuffyuvAvi ? &v->huffyuv.picture() : &v->ffv1.picture();
     return int64_t(index);
   }
   video::Picture& p = v->raw;
@@ -219,7 +241,8 @@ int64_t next_for(VideoHandle* v, long target, int got) {
 }
 
 // AVI: the last packet that starts with an I-VOP (any packet of Motion
-// JPEG or raw video) whose frame is at or before the target
+// JPEG, HuffYUV or raw video, an FFV1 key frame) whose frame is at or
+// before the target
 void seek_avi(VideoHandle* v, long target) {
   long pick = 0;
   for (size_t i = 0; i < v->key_frame.size(); i++)
@@ -232,6 +255,7 @@ void seek_avi(VideoHandle* v, long target) {
     v->dec.flush();
     if (size_t(pick) < v->key_state.size()) v->dec.restore(v->key_state[size_t(pick)]);
   }
+  if (v->codec == kFfv1Avi) v->ffv1.flush();
 }
 
 void seek_if_needed(VideoHandle* v, long target) {
@@ -303,6 +327,35 @@ bool size_changed(const VideoHandle* v, const video::Picture& p) {
   return p.width != v->width || p.height != v->height;
 }
 
+// the time the reads spent in the swscale rebuild, summed over threads, and
+// its frames (dali_tpu_torch_sws_clock)
+std::atomic<int64_t> sws_ns{0}, sws_frames{0};
+
+// 0: not 4:2:0 (the swscale route), 1: 4:2:0 limited range, 2: full range
+int pixfmt_class(const VideoHandle* v) {
+  if (v->format != video::kYuv420p) return 0;
+  return full_range(v) ? 2 : 1;
+}
+
+// One picture to RGB24 as the reference converts it: its own BT.601 for a
+// 4:2:0 frame of a 4:2:0 stream, libswscale's route for every other frame.
+// False for a form the port does not convert: a 4:2:0 frame in a stream
+// that is not 4:2:0, 4:2:2 at an odd width and height.
+bool to_rgb(const VideoHandle* v, const video::Picture& p, unsigned char* dst) {
+  if (p.format == video::kYuv420p) {
+    if (pixfmt_class(v) == 0) return false;
+    picture_to_rgb(p, v->width, v->height, full_range(v), dst);
+    return true;
+  }
+  if (!video::sws_takes(p.format, p.width, p.height)) return false;
+  const auto t0 = std::chrono::steady_clock::now();
+  video::sws_rgb(p, full_range(v), dst);
+  sws_ns += std::chrono::duration_cast<std::chrono::nanoseconds>(
+                std::chrono::steady_clock::now() - t0).count();
+  sws_frames++;
+  return true;
+}
+
 int read_rgb(VideoHandle* v, long start, int count, int stride, unsigned char* out) {
   long target = start;
   int got = 0;
@@ -313,8 +366,11 @@ int read_rgb(VideoHandle* v, long start, int count, int stride, unsigned char* o
     if (idx < 0) return finish(got, idx);
     if (idx >= target) {
       if (size_changed(v, *v->shown)) return finish(got, kEof);
-      picture_to_rgb(*v->shown, v->width, v->height, full_range(v),
-                     out + (size_t)got * frame_bytes);
+      if (!to_rgb(v, *v->shown, out + (size_t)got * frame_bytes)) {
+        v->error = "a 4:2:0 frame in a stream that is not 4:2:0, or 4:2:2 at an odd width and "
+                   "height: libswscale's routes for them are ROADMAP.md Queue 1 item 8b";
+        return kUnsupportedRead;
+      }
       got++;
       target += stride;
     }
@@ -324,6 +380,7 @@ int read_rgb(VideoHandle* v, long start, int count, int stride, unsigned char* o
 
 int read_yuv(VideoHandle* v, long start, int count, int stride, unsigned char* oy,
              unsigned char* ou, unsigned char* ov) {
+  if (pixfmt_class(v) == 0) return -1;  // the planar wire is 4:2:0 only
   long target = start;
   int got = 0;
   seek_if_needed(v, target);
@@ -333,7 +390,7 @@ int read_yuv(VideoHandle* v, long start, int count, int stride, unsigned char* o
     if (idx < 0) return finish(got, idx);
     if (idx >= target) {
       const video::Picture& p = *v->shown;
-      if (size_changed(v, p)) return -2 - got;
+      if (size_changed(v, p) || p.format != video::kYuv420p) return -2 - got;
       unsigned char* dy = oy + (size_t)got * h * w;
       unsigned char* du = ou + (size_t)got * ch * cw;
       unsigned char* dv = ov + (size_t)got * ch * cw;
@@ -378,6 +435,15 @@ bool tag_in(uint32_t tag, std::initializer_list<const char*> names) {
   return false;
 }
 
+// The first ``k`` bytes of sample ``s`` into ``dst``; false when they are
+// not in the file.
+bool read_head(VideoHandle* v, const video::Sample& s, uint8_t* dst, size_t k) {
+  if (s.offset < 0 || uint64_t(s.offset) + k > v->size) return false;
+  if (v->fd >= 0) return video::read_at(v->fd, uint64_t(s.offset), dst, k);
+  memcpy(dst, v->data.data() + s.offset, k);
+  return true;
+}
+
 // The bytes of sample i, or null when they are not all in the file.
 const uint8_t* whole_sample(VideoHandle* v, size_t i) {
   const video::Sample& s = v->track.samples[i];
@@ -385,6 +451,12 @@ const uint8_t* whole_sample(VideoHandle* v, size_t i) {
       uint64_t(s.size) > v->size - uint64_t(s.offset))
     return nullptr;
   return sample_bytes(v, s);
+}
+
+// av_image_check_size2 without a pixel format: (8 w + 1024) (h + 128) below
+// 2^31 - 1
+bool frame_size_ok(int w, int h) {
+  return w > 0 && h > 0 && (8 * int64_t(w) + 1024) * (int64_t(h) + 128) < INT_MAX;
 }
 
 // The decoder of an AVI stream by its codec tag, the frame size, and the
@@ -465,7 +537,51 @@ int open_avi(VideoHandle* v, std::string* msg) {
       if (r == 1) {
         v->width = probe.picture().width;
         v->height = probe.picture().height;
+        v->format = probe.picture().format;
       }
+    }
+  } else if (tag_in(tag, {"HFYU", "FFVH", "FFV1"}) && !frame_size_ok(t.width, t.height)) {
+    // FFmpeg's av_image_check_size2 refuses the size: its open fails
+    *msg = "frame size out of range";
+    return video::kInvalid;
+  } else if (tag_in(tag, {"HFYU", "FFVH"})) {
+    v->codec = kHuffyuvAvi;
+    v->shown_total = int64_t(n);
+    v->width = t.width;
+    v->height = t.height;
+    for (size_t i = 0; i < n; i++) v->key_frame[i] = int64_t(i);
+    int r = v->huffyuv.configure(t.bits, t.config.data(), t.config.size(), t.width, t.height, msg);
+    if (r != video::kOk) return r;
+    v->format = v->huffyuv.format();
+  } else if (tag_in(tag, {"FFV1"})) {
+    v->codec = kFfv1Avi;
+    v->shown_total = int64_t(n);
+    v->width = t.width;
+    v->height = t.height;
+    int r = v->ffv1.configure(t.config.data(), t.config.size(), t.width, t.height, msg);
+    if (r != video::kOk) return r;
+    // the seek points: packets the index and the frame's own bit call key
+    for (size_t i = 0; i < n; i++) {
+      const video::Sample& s = t.samples[i];
+      uint8_t head[2];
+      if (s.key && s.size >= 2 && read_head(v, s, head, 2) && video::Ffv1Decoder::is_key(head, 2))
+        v->key_frame[i] = int64_t(i);
+    }
+    v->format = v->ffv1.format();
+    if (v->format < 0) {
+      // versions 0 and 1 state the format in their first key frame
+      video::Ffv1Decoder probe;
+      probe.configure(t.config.data(), t.config.size(), t.width, t.height, msg);
+      for (size_t i = 0; i < n && v->format < 0; i++) {
+        if (v->key_frame[i] < 0) continue;
+        const uint8_t* b = whole_sample(v, i);
+        if (!b) break;
+        r = probe.decode(b, size_t(t.samples[i].size), msg);
+        if (r == video::kUnsupported) return r;
+        v->format = probe.format();
+        break;
+      }
+      if (v->format < 0) v->format = video::kYuv420p;
     }
   } else if (tag_in(tag, {"I420", "IYUV", "YV12"})) {
     v->codec = kRawAvi;
@@ -475,19 +591,11 @@ int open_avi(VideoHandle* v, std::string* msg) {
     v->height = t.height;
     for (size_t i = 0; i < n; i++) v->key_frame[i] = int64_t(i);
     video::Picture& p = v->raw;
-    p.width = p.stride_y = t.width;
-    p.height = p.rows_y = t.height;
-    p.stride_c = (t.width + 1) / 2;
-    p.rows_c = (t.height + 1) / 2;
-    p.y.assign(size_t(p.stride_y) * p.rows_y, 0);
-    p.u.assign(size_t(p.stride_c) * p.rows_c, 0);
-    p.v.assign(size_t(p.stride_c) * p.rows_c, 0);
+    p.allocate(video::kYuv420p, t.width, t.height);
   } else {
     std::string what;
-    if (tag_in(tag, {"HFYU", "FFVH"})) what = "HuffYUV";
-    else if (tag_in(tag, {"FFV1"})) what = "FFV1";
-    else if (tag_in(tag, {"MPG1", "MPG2", "PIM1", "MPEG", "MPGI", "MMES", "MPG4"}) ||
-             t.codec_tag == 0x10000001u || t.codec_tag == 0x10000002u)
+    if (tag_in(tag, {"MPG1", "MPG2", "PIM1", "MPEG", "MPGI", "MMES", "MPG4"}) ||
+        t.codec_tag == 0x10000001u || t.codec_tag == 0x10000002u)
       what = "MPEG-1/2";
     else if (tag_in(tag, {"H264", "X264", "AVC1", "DAVC", "VSSH", "Q264", "V264", "GAVC"}))
       what = "H.264";
@@ -498,18 +606,41 @@ int open_avi(VideoHandle* v, std::string* msg) {
                     char(t.codec_tag >> 24), 0};
       what = std::string("'") + cc + "'";
     }
-    *msg = what + " video in AVI: the port decodes MPEG-4 Part 2, Motion JPEG and raw 4:2:0 "
-                  "in AVI, ROADMAP.md Queue 1 item 8b";
+    *msg = what + " video in AVI: the port decodes MPEG-4 Part 2, Motion JPEG, HuffYUV, FFV1 "
+                  "and raw 4:2:0 in AVI; MPEG-1/2, H.264, HEVC, uncompressed RGB and the rest are "
+                  "ROADMAP.md Queue 1 item 8b";
     return video::kUnsupported;
   }
   if (v->width <= 0 || v->height <= 0) {
     *msg = "no frame size in the stream headers";
     return video::kInvalid;
   }
+  if (v->format != video::kYuv420p && !video::sws_takes(v->format, v->width, v->height)) {
+    *msg = "4:2:2 video at an odd width and height: libswscale converts it through its "
+           "full-chroma bilinear route, ROADMAP.md Queue 1 item 8b";
+    return video::kUnsupported;
+  }
   return video::kOk;
 }
 
 }  // namespace
+
+namespace video {
+
+void Picture::allocate(int fmt, int w, int h) {
+  format = fmt;
+  width = w;
+  height = h;
+  rows_y = h;
+  stride_y = fmt == kBgr0 || fmt == kBgra || fmt == k0rgb ? 4 * w : (fmt == kBgr24 ? 3 * w : w);
+  stride_c = fmt == kYuv444p ? w : (fmt == kYuv420p || fmt == kYuv422p ? (w + 1) / 2 : 0);
+  rows_c = fmt == kYuv420p ? (h + 1) / 2 : (stride_c ? h : 0);
+  y.assign(size_t(stride_y) * rows_y, 0);
+  u.assign(size_t(stride_c) * rows_c, 0);
+  v.assign(size_t(stride_c) * rows_c, 0);
+}
+
+}  // namespace video
 
 extern "C" {
 
@@ -592,11 +723,12 @@ int dali_tpu_torch_video_info(void* handle, int* w, int* h, long* frames, double
   return 0;
 }
 
-// 1 = 4:2:0 limited range, 2 = 4:2:0 full range (the VO header's video_range)
+// 0 = not 4:2:0 (the RGB read only), 1 = 4:2:0 limited range, 2 = 4:2:0
+// full range (the VO header's video_range, or a yuvj format)
 int dali_tpu_torch_video_pixfmt_class(void* handle) {
   auto* v = static_cast<VideoHandle*>(handle);
   if (!v) return 0;
-  return full_range(v) ? 2 : 1;
+  return pixfmt_class(v);
 }
 
 // the codec and container, as the damage reports name them
@@ -607,6 +739,8 @@ const char* dali_tpu_torch_video_codec(void* handle) {
     case kMpeg4Avi: return "MPEG-4 Part 2 (AVI)";
     case kMjpegAvi: return "Motion JPEG (AVI)";
     case kRawAvi: return "raw 4:2:0 (AVI)";
+    case kHuffyuvAvi: return "HuffYUV (AVI)";
+    case kFfv1Avi: return "FFV1 (AVI)";
     default: return "MPEG-4 Part 2";
   }
 }
@@ -659,5 +793,13 @@ void dali_tpu_torch_video_read_batch(void* pool, void* const* handles, const lon
 }
 
 void dali_tpu_torch_video_close(void* handle) { delete static_cast<VideoHandle*>(handle); }
+
+// The seconds the RGB reads spent converting through the swscale rebuild
+// (summed over the threads that read) and the frames they converted since
+// the last reset; ``reset`` sets both to 0 after reading them.
+void dali_tpu_torch_sws_clock(int reset, double* seconds, long* frames) {
+  *seconds = double(reset ? sws_ns.exchange(0) : sws_ns.load()) * 1e-9;
+  *frames = long(reset ? sws_frames.exchange(0) : sws_frames.load());
+}
 
 }  // extern "C"

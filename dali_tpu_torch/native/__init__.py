@@ -158,6 +158,10 @@ def host_lib():
                                                             ci, ip]
             lib.dali_tpu_torch_video_close.restype = None
             lib.dali_tpu_torch_video_close.argtypes = [vp]
+            lib.dali_tpu_torch_sws_rgb.restype = ci
+            lib.dali_tpu_torch_sws_rgb.argtypes = [ci, ci, ci, ci, sp, ip, vp]
+            lib.dali_tpu_torch_sws_clock.restype = None
+            lib.dali_tpu_torch_sws_clock.argtypes = [ci, ctypes.POINTER(ctypes.c_double), lp]
             _LIB = lib
     return _LIB
 
@@ -1131,7 +1135,9 @@ class VideoFile:
         self.height = hh.value
         self.num_frames = nf.value
         self.fps = fps.value
-        # 1 = 4:2:0 limited range; 2 = 4:2:0 full range
+        # 0 = not 4:2:0 (4:2:2, 4:4:4, grey or packed RGB: the RGB read only,
+        # converted as libswscale's RGB24 route does); 1 = 4:2:0 limited
+        # range; 2 = 4:2:0 full range
         self.pixfmt_class = int(lib.dali_tpu_torch_video_pixfmt_class(self._h))
 
     def _error(self) -> str:
@@ -1168,7 +1174,10 @@ class VideoFile:
         buffers of at least ``count*h*w`` / ``count*ceil(h/2)*ceil(w/2)``
         elements (slices of a flat wire buffer). Returns ``(y, u, v, got)``
         with the planes shaped [count, ...] (flat when ``out`` was given)
-        and ``got`` the number of real (non-padded) frames."""
+        and ``got`` the number of real (non-padded) frames. Requires
+        ``pixfmt_class != 0``."""
+        if self.pixfmt_class == 0:
+            raise RuntimeError("read_yuv requires a 4:2:0 source")
         h_, w_ = self.height, self.width
         ch, cw = (h_ + 1) // 2, (w_ + 1) // 2
         if out is None:
@@ -1205,6 +1214,38 @@ class VideoFile:
             self.close()
         except Exception:
             pass
+
+
+# libswscale's pixel formats that the rebuild of its RGB24 route takes, by
+# FFmpeg's names (sws_rgb.cc); "yuvj" selects full range
+SWS_FORMATS = {"yuv422p": (1, 0), "yuvj422p": (1, 1), "yuv444p": (2, 0), "yuvj444p": (2, 1),
+               "gray": (3, 0), "bgr0": (4, 0), "bgra": (5, 0), "bgr24": (6, 0), "0rgb": (7, 0)}
+
+
+def sws_rgb(fmt: str, planes, width: int, height: int) -> np.ndarray:
+    """One picture through the port's rebuild of libswscale 6.7's
+    ``sws_scale`` to RGB24 at 1:1 size with ``SWS_BILINEAR``: ``planes`` are
+    2-D uint8 arrays (Y, U, V; or one packed or grey plane), rows of any
+    stride. Returns ``[height, width, 3]`` uint8."""
+    code, full = SWS_FORMATS[fmt]
+    arrs = [np.asarray(p, np.uint8) for p in planes]
+    arrs = [a if a.strides[1] == 1 else np.ascontiguousarray(a) for a in arrs]
+    ptrs = (ctypes.c_void_p * 3)(*[a.ctypes.data for a in arrs] + [None] * (3 - len(arrs)))
+    strides = (ctypes.c_int * 3)(*[a.strides[0] for a in arrs] + [0] * (3 - len(arrs)))
+    out = np.empty((height, width, 3), np.uint8)
+    if host_lib().dali_tpu_torch_sws_rgb(code, full, width, height, ptrs, strides,
+                                         out.ctypes.data) != 0:
+        raise ValueError(f"sws_rgb: {fmt} at {width}x{height}")
+    return out
+
+
+def sws_clock(reset: bool = False):
+    """``(seconds, frames)``: the time the video reads spent in the swscale
+    rebuild, summed over the threads that read, and the frames it
+    converted, since the last reset; ``reset`` zeroes both after reading."""
+    sec, frames = ctypes.c_double(), ctypes.c_long()
+    host_lib().dali_tpu_torch_sws_clock(int(reset), ctypes.byref(sec), ctypes.byref(frames))
+    return sec.value, frames.value
 
 
 def video_read_batch(pool, files, starts, counts, strides, outs, yuv: bool):

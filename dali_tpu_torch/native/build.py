@@ -14,11 +14,15 @@
   with their batch entry ``image_decode_batch.cc``), the MP3, Vorbis and
   FLAC batch entry (``audio_decode_batch.cc``), the MP4 demuxer and the
   MPEG-4 Part 2 decoder with their frame-accurate reader (``mp4_demux.cc``,
-  ``mpeg4_decode.cc``, ``video_decode.cc``), the Farneback optical flow
+  ``mpeg4_decode.cc``, ``video_decode.cc``), the AVI demuxer and the Motion
+  JPEG, HuffYUV and FFV1 decoders (``avi_demux.cc``, ``mjpeg_decode.cc``,
+  ``huffyuv_decode.cc``, ``ffv1_decode.cc``), the rebuild of libswscale's
+  RGB24 route (``sws_rgb.cc``), the Farneback optical flow
   (``optical_flow.cc``) and the image filters (``host_ops.cc``, compiled into
   an object of its own with floating-point contraction on, as ``dali_tpu``
   compiles its copy). g++ with ``-march=native``: compiled on the machine
-  that runs it, never shipped.
+  that runs it, never shipped; each source a translation unit, as many at
+  once as the machine has cores, then one link.
 * ``build/libdali_tpu_torch_kernels.so`` — the CUDA kernels (``csrc/*.cu``),
   nvcc for ``sm_90a``, a plain C interface loaded with ctypes. ``cmn.cu``
   compiles as five translation units started together (``KERNEL_UNITS``:
@@ -56,7 +60,8 @@ HOST_SOURCES = [os.path.join(_HOST_SRC, f) for f in (
     "webp_vp8.cc", "webp_vp8l.cc", "webp_decode.cc", "inflate.cc", "tiff_decode.cc",
     "pnm_decode.cc", "image_decode_batch.cc", "mp3_decode.cc", "ogg.cc", "vorbis_decode.cc",
     "audio_decode_batch.cc", "mp4_demux.cc", "avi_demux.cc", "mpeg4_decode.cc",
-    "mjpeg_decode.cc", "video_decode.cc", "optical_flow.cc")]
+    "mjpeg_decode.cc", "huffyuv_decode.cc", "ffv1_decode.cc", "sws_rgb.cc", "video_decode.cc",
+    "optical_flow.cc")]
 # compiled with dali_tpu's own flags (contraction on): its float filters sum
 # into the fused multiply-adds of the reference's library
 HOST_CONTRACT_SOURCES = [os.path.join(_HOST_SRC, "host_ops.cc")]
@@ -64,7 +69,7 @@ HOST_CONTRACT_SOURCES = [os.path.join(_HOST_SRC, "host_ops.cc")]
 HOST_HEADERS = [os.path.join(_HOST_SRC, f) for f in ("jpeg_full.h", "webp.h", "webp_tables.h",
                                                      "inflate.h", "audio_codecs.h",
                                                      "audio_tables.h", "video.h",
-                                                     "mpeg4_tables.h")]
+                                                     "mpeg4_tables.h", "huffyuv_tables.h")]
 KERNEL_SOURCES = [os.path.join(_PKG, "csrc", "cmn.cu")]
 # (object name, defines, sources) of the kernel library's translation units, compiled
 # at once; each holds one input type's template instances of cmn.cu
@@ -105,20 +110,24 @@ def stamp(sources: List[str], cmd_prefix: List[str], cmd_suffix: List[str]) -> s
 
 
 def _run_all(cmds: List[List[str]], what: str):
-    """Runs the commands at once; raises with the first failure's errors."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for c in cmds]
-    errs = [p.communicate()[1] for p in procs]
-    for p, err in zip(procs, errs):
-        if p.returncode != 0:
-            raise RuntimeError(f"building {what} failed:\n{err}")
+    """Runs the commands, as many at once as the machine has cores; raises
+    with the first failure's errors."""
+    jobs = os.cpu_count() or 1
+    for k in range(0, len(cmds), jobs):
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in cmds[k: k + jobs]]
+        errs = [p.communicate()[1] for p in procs]
+        for p, err in zip(procs, errs):
+            if p.returncode != 0:
+                raise RuntimeError(f"building {what} failed:\n{err}")
 
 
 def _build(name: str, sources: List[str], cmd_prefix: List[str], cmd_suffix: List[str],
            headers: List[str] = (), build_dir: str = BUILD_DIR, units=None) -> str:
     """``units`` (object name, extra flags, sources): compile each unit with
-    ``-c``, all at once, then link the objects; without units, one command
-    compiles and links."""
+    ``-c``, as many at once as there are cores, then link the objects (and
+    any object in ``cmd_suffix``); without units, one command compiles and
+    links."""
     out = os.path.join(build_dir, name)
     unit_flags = [f for unit, flags, _ in units or () for f in [unit] + flags]
     stamp_ = stamp(list(sources) + list(headers), cmd_prefix + unit_flags, cmd_suffix)
@@ -165,7 +174,8 @@ def host_library() -> str:
         "libdali_tpu_torch_host.so", HOST_SOURCES + [filters],
         ["g++", "-O3", "-march=native", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
          "-Wl,--no-undefined"],
-        ["-lpthread"], HOST_HEADERS)
+        [filters, "-lpthread"], HOST_HEADERS,
+        units=[(os.path.basename(src)[:-3] + ".o", [], [src]) for src in HOST_SOURCES])
 
 
 def kernel_library() -> str:

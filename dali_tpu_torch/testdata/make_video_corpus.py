@@ -44,9 +44,29 @@ libavformat and libavcodec (as ``make_audio_codecs.py`` compiles its own):
   re-encoded by ``libxvid`` with B-frames (UCF101's form: XviD in AVI,
   320x240 at 25 fps), the corpus of the ``ucf_avi_train`` path on the card.
 
+The swscale-route set (``--capture``: video that is not 4:2:0, which the
+reference converts to RGB through libswscale) comes from FFmpeg's
+``huffyuv``, ``ffvhuff``, ``ffv1`` and ``mjpeg`` encoders through the same
+helper (``CAPTURE``: each predictor, pixel format, coder, version and slice
+form, a 480-row interlaced HuffYUV, a 10-bit FFVH and a 10-bit FFV1 left
+to item 8b), cv2's
+``HFYU`` and ``FFV1`` writers, cv2's grey JPEGs and two-field JPEG pairs
+muxed as they are, and a HuffYUV 1.x stream coded here with the classic
+tables (``classic_huffyuv_frame``):
+
+* ``capture/*.avi`` — the fixtures, 64x48 (66x47, 64x480 for some forms);
+* ``capture_corpus/<codec>/<clip>.avi`` — 320x240 at 25 fps: 4 HuffYUV
+  4:2:2 and 24 Motion JPEG 4:2:2 clips of 10 frames, 2 of cv2's FFV1 of 16
+  frames (past the second key frame), the corpus of the
+  ``capture_avi_train`` path on the card.
+
+``--tables`` writes ``csrc/host/huffyuv_tables.h`` from this machine's
+libavcodec.
+
 The reference decode of each fixture (``video/reference.npz``,
-``video/avi_reference.npz``: what the card's machine, which has no FFmpeg,
-holds the port against) is written afterwards by
+``video/avi_reference.npz``, ``video/capture_reference.npz``: what the
+card's machine, which has no FFmpeg, holds the port against) is written
+afterwards by
 ``tests/write_video_reference.py``, outside this package, since it runs
 dali_tpu.
 
@@ -55,6 +75,7 @@ repo root:
 
     python dali_tpu_torch/testdata/make_video_corpus.py [out_dir]
     python dali_tpu_torch/testdata/make_video_corpus.py --avi [out_dir]
+    python dali_tpu_torch/testdata/make_video_corpus.py --capture [out_dir]
     python tests/write_video_reference.py [out_dir]
 """
 
@@ -160,12 +181,14 @@ def write_corpus(root):
 _AVI_HELPER_C = r"""
 #include <libavcodec/avcodec.h>
 #include <libavformat/avformat.h>
+#include <libavutil/imgutils.h>
 #include <string.h>
 
-/* Encodes n planar 4:2:0 frames with encoder ``codec`` (FourCC ``tag``
-   when not empty, "k=v:k=v" options, pixel format ``pixfmt``) into the
-   AVI muxer at ``path``; ``strip_dht`` drops every DHT segment of a JPEG
-   packet. Returns 0, or a negative code. */
+/* Encodes n frames of pixel format ``pixfmt`` (each packed as
+   av_image_fill_arrays lays it out with alignment 1: planar 4:2:0 is Y,
+   then U, then V) with encoder ``codec`` (FourCC ``tag`` when not empty,
+   "k=v:k=v" options) into the AVI muxer at ``path``; ``strip_dht`` drops
+   every DHT segment of a JPEG packet. Returns 0, or a negative code. */
 int encode_avi(const unsigned char* yuv, int n, int w, int h, int fps, const char* path,
                const char* codec, const char* tag, const char* opts, int pixfmt,
                long bit_rate, int strip_dht) {
@@ -198,17 +221,14 @@ int encode_avi(const unsigned char* yuv, int n, int w, int h, int fps, const cha
   f->format = pixfmt;
   av_frame_get_buffer(f, 0);
   AVPacket* pkt = av_packet_alloc();
-  int cw = (w + 1) / 2, ch = (h + 1) / 2;
-  long fs = (long)w * h + 2L * cw * ch;
+  long fs = av_image_get_buffer_size(pixfmt, w, h, 1);
   for (int i = 0; i <= n; i++) {
     if (i < n) {
       av_frame_make_writable(f);
-      const unsigned char* s = yuv + i * fs;
-      for (int y = 0; y < h; y++) memcpy(f->data[0] + y * f->linesize[0], s + y * w, w);
-      for (int y = 0; y < ch; y++)
-        memcpy(f->data[1] + y * f->linesize[1], s + (long)w * h + y * cw, cw);
-      for (int y = 0; y < ch; y++)
-        memcpy(f->data[2] + y * f->linesize[2], s + (long)w * h + (long)cw * ch + y * cw, cw);
+      uint8_t* sd[4];
+      int sl[4];
+      av_image_fill_arrays(sd, sl, yuv + i * fs, pixfmt, w, h, 1);
+      av_image_copy(f->data, f->linesize, (const uint8_t**)sd, sl, pixfmt, w, h);
       f->pts = i;
       rc = avcodec_send_frame(c, f);
     } else {
@@ -242,6 +262,51 @@ int encode_avi(const unsigned char* yuv, int n, int w, int h, int fps, const cha
   avformat_free_context(fmt);
   return 0;
 }
+
+/* Writes n packets already coded (``data``, ``sizes``, key flags ``keys``)
+   as the video stream of an AVI at ``path``: codec ``codec`` with FourCC
+   ``tag``, frame size w x h, biBitCount ``bits`` and ``extra`` as the
+   extradata after the BITMAPINFOHEADER (none when extra_size is 0). */
+int mux_avi(const char* path, const char* codec, const char* tag, int w, int h, int bits,
+            int fps, const unsigned char* extra, int extra_size, const unsigned char* data,
+            const int* sizes, const int* keys, int n) {
+  AVFormatContext* fmt = NULL;
+  if (avformat_alloc_output_context2(&fmt, NULL, "avi", path) < 0) return -1;
+  const AVCodecDescriptor* cd = avcodec_descriptor_get_by_name(codec);
+  if (!cd) return -2;
+  AVStream* st = avformat_new_stream(fmt, NULL);
+  st->codecpar->codec_type = AVMEDIA_TYPE_VIDEO;
+  st->codecpar->codec_id = cd->id;
+  st->codecpar->codec_tag = MKTAG(tag[0], tag[1], tag[2], tag[3]);
+  st->codecpar->width = w;
+  st->codecpar->height = h;
+  st->codecpar->bits_per_coded_sample = bits;
+  if (extra_size > 0) {
+    st->codecpar->extradata = av_mallocz(extra_size + AV_INPUT_BUFFER_PADDING_SIZE);
+    memcpy(st->codecpar->extradata, extra, extra_size);
+    st->codecpar->extradata_size = extra_size;
+  }
+  st->time_base = (AVRational){1, fps};
+  if (avio_open(&fmt->pb, path, AVIO_FLAG_WRITE) < 0) return -3;
+  if (avformat_write_header(fmt, NULL) < 0) return -4;
+  AVPacket* pkt = av_packet_alloc();
+  long pos = 0;
+  for (int i = 0; i < n; i++) {
+    if (av_new_packet(pkt, sizes[i]) < 0) return -5;
+    memcpy(pkt->data, data + pos, sizes[i]);
+    pos += sizes[i];
+    pkt->pts = pkt->dts = av_rescale_q(i, (AVRational){1, fps}, st->time_base);
+    pkt->duration = 1;
+    pkt->flags = keys[i] ? AV_PKT_FLAG_KEY : 0;
+    pkt->stream_index = 0;
+    if (av_interleaved_write_frame(fmt, pkt) < 0) return -6;
+  }
+  av_write_trailer(fmt);
+  avio_closep(&fmt->pb);
+  av_packet_free(&pkt);
+  avformat_free_context(fmt);
+  return 0;
+}
 """
 
 YUV420P, YUVJ420P = 0, 12
@@ -267,17 +332,42 @@ class AviWriter:
         self._lib.encode_avi.argtypes = [c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int,
                                          c.c_char_p, c.c_char_p, c.c_char_p, c.c_char_p, c.c_int,
                                          c.c_long, c.c_int]
+        self._lib.mux_avi.argtypes = [c.c_char_p, c.c_char_p, c.c_char_p, c.c_int, c.c_int,
+                                      c.c_int, c.c_int, c.c_void_p, c.c_int, c.c_void_p,
+                                      c.c_void_p, c.c_void_p, c.c_int]
+        self._avutil = ctypes.CDLL("libavutil.so.57")
+        self._avutil.av_get_pix_fmt.restype = c.c_int
+        self._avutil.av_get_pix_fmt.argtypes = [c.c_char_p]
 
     def write(self, path, frames, codec, tag="", opts="", pixfmt=YUV420P, bit_rate=0,
-              strip_dht=False, fps=FPS):
-        """``frames``: BGR images of one size."""
-        yuv = np.ascontiguousarray(np.stack([i420(f) for f in frames]))
-        h, w = frames[0].shape[:2]
-        rc = self._lib.encode_avi(yuv.ctypes.data, len(yuv), w, h, fps, path.encode(),
+              strip_dht=False, fps=FPS, size=None):
+        """``frames``: BGR images of one size, coded from planar 4:2:0; or,
+        with ``pixfmt`` an FFmpeg pixel format name, frames of ``size``
+        (w, h) already in that format's bytes (``planes``)."""
+        w, h = size or frames[0].shape[1::-1]
+        if isinstance(pixfmt, str):
+            data = np.ascontiguousarray(np.stack([np.asarray(f).reshape(-1) for f in frames]))
+            pixfmt = self._avutil.av_get_pix_fmt(pixfmt.encode())
+        else:
+            data = np.ascontiguousarray(np.stack([i420(f) for f in frames]))
+        rc = self._lib.encode_avi(data.ctypes.data, len(data), w, h, fps, path.encode(),
                                   codec.encode(), tag.encode(), opts.encode(), pixfmt,
                                   bit_rate, int(strip_dht))
         if rc != 0:
             raise RuntimeError(f"{codec} into {path} failed: {rc}")
+        return path
+
+    def mux(self, path, packets, codec, tag, w, h, bits=24, extradata=b"", keys=None, fps=FPS):
+        """Packets already coded into an AVI, without re-encoding."""
+        data = np.frombuffer(b"".join(packets), np.uint8)
+        sizes = np.array([len(p) for p in packets], np.int32)
+        keys = np.array([1] * len(packets) if keys is None else keys, np.int32)
+        extra = np.frombuffer(extradata or b"\0", np.uint8)
+        rc = self._lib.mux_avi(path.encode(), codec.encode(), tag.encode(), w, h, bits, fps,
+                               extra.ctypes.data, len(extradata), data.ctypes.data,
+                               sizes.ctypes.data, keys.ctypes.data, len(packets))
+        if rc != 0:
+            raise RuntimeError(f"muxing {codec} into {path} failed: {rc}")
         return path
 
 
@@ -361,9 +451,233 @@ def write_avi_corpus(root, bit_rate=600_000):
                      opts="bf=2", bit_rate=bit_rate)
 
 
+def planes(bgr, pixfmt):
+    """The bytes of a BGR image in FFmpeg's ``pixfmt``, planes one after
+    the other (av_image_fill_arrays at alignment 1)."""
+    import cv2
+
+    h, w = bgr.shape[:2]
+    if pixfmt in ("yuv420p", "yuvj420p"):
+        return i420(bgr)
+    if pixfmt == "gray":
+        return cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY).reshape(-1)
+    if pixfmt == "rgb24":
+        return np.ascontiguousarray(bgr[..., ::-1]).reshape(-1)
+    if pixfmt in ("bgra", "bgr0"):
+        return np.concatenate([bgr, np.full((h, w, 1), 255 if pixfmt == "bgra" else 0,
+                                            np.uint8)], 2).reshape(-1)
+    yuv = cv2.cvtColor(bgr, cv2.COLOR_BGR2YUV)
+    y, u, v = (np.ascontiguousarray(yuv[..., k]) for k in range(3))
+    if pixfmt.startswith(("yuv422p", "yuvj422p")):
+        u, v = u[:, ::2], v[:, ::2]
+    out = np.concatenate([y.reshape(-1), u.reshape(-1), v.reshape(-1)])
+    if pixfmt.endswith("10le"):
+        return (out.astype("<u2") << 2).view(np.uint8)
+    return out
+
+
+def write_frames(wr, path, frames, codec, pixfmt, opts=""):
+    """BGR ``frames`` coded by ``codec`` from FFmpeg's ``pixfmt``."""
+    return wr.write(path, [planes(f, pixfmt) for f in frames], codec, opts=opts, pixfmt=pixfmt,
+                    size=frames[0].shape[1::-1])
+
+
+def cv2_avi(path, frames, fourcc):
+    import cv2
+
+    h, w = frames[0].shape[:2]
+    cw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), FPS, (w, h))
+    if not cw.isOpened():
+        raise RuntimeError(f"cv2 cannot write {fourcc}")
+    for f in frames:
+        cw.write(np.ascontiguousarray(f))
+    cw.release()
+    return path
+
+
+# The lossless and Motion JPEG fixtures of the swscale route
+# (``video/capture``): name -> (codec, pixel format, options, size, frames)
+CAPTURE = {
+    "hfyu_422_64x48": ("huffyuv", "yuv422p", "", (64, 48), 12),
+    "hfyu_422_median_64x48": ("huffyuv", "yuv422p", "pred=median", (64, 48), 12),
+    "hfyu_422_plane_ilme_64x480": ("huffyuv", "yuv422p", "pred=plane:flags=+ilme", (64, 480), 3),
+    "hfyu_rgb24_plane_64x48": ("huffyuv", "rgb24", "pred=plane", (64, 48), 12),
+    "hfyu_rgba_left_64x48": ("huffyuv", "bgra", "", (64, 48), 12),
+    "ffvh_420_median_64x48": ("ffvhuff", "yuv420p", "pred=median", (64, 48), 12),
+    "ffvh_420_plane_ilme_64x480": ("ffvhuff", "yuv420p", "pred=plane:flags=+ilme", (64, 480), 3),
+    "ffvh_444_plane_64x48": ("ffvhuff", "yuv444p", "pred=plane", (64, 48), 12),
+    "ffvh_444_median_ilme_64x480": ("ffvhuff", "yuv444p", "pred=median:flags=+ilme", (64, 480), 3),
+    "ffvh_gray_median_64x48": ("ffvhuff", "gray", "pred=median", (64, 48), 12),
+    "ffvh_422_context_64x48": ("ffvhuff", "yuv422p", "pred=median:context=1", (64, 48), 12),
+    "ffv1_v0_420_rice_64x48": ("ffv1", "yuv420p", "level=0:coder=rice", (64, 48), 30),
+    "ffv1_v1_422_range_66x47": ("ffv1", "yuv422p", "level=1:coder=range_def", (66, 47), 30),
+    "ffv1_v1_rgb_tab_64x48": ("ffv1", "bgr0", "level=1:coder=range_tab:context=1", (64, 48), 30),
+    "ffv1_v3_444_tab_slices_64x48": ("ffv1", "yuv444p",
+                                     "level=3:coder=range_tab:context=1:slices=4", (64, 48), 30),
+    "ffv1_v3_gray_rice_slices_64x48": ("ffv1", "gray", "level=3:coder=rice:slices=6", (64, 48),
+                                       30),
+    "ffv1_v3_rgba_range_64x48": ("ffv1", "bgra", "level=3:coder=range_def:slices=4", (64, 48), 30),
+    "mjpeg_422_64x48": ("mjpeg", "yuvj422p", "", (64, 48), 12),
+    "mjpeg_422_66x47": ("mjpeg", "yuvj422p", "", (66, 47), 12),
+    "mjpeg_444_64x48": ("mjpeg", "yuvj444p", "", (64, 48), 12),
+    # forms left to item 8b
+    "ffvh_422p10_64x48": ("ffvhuff", "yuv422p10le", "", (64, 48), 2),
+}
+
+
+def write_capture_fixtures(out_dir=OUT):
+    import cv2
+
+    d = os.path.join(out_dir, "capture")
+    os.makedirs(d, exist_ok=True)
+    wr = AviWriter()
+    for k, (name, (codec, pixfmt, opts, (w, h), n)) in enumerate(sorted(CAPTURE.items())):
+        frames = moving_frames(np.random.default_rng(300 + k), n, w, h,
+                               ("pan", "drift", "zoom")[k % 3])
+        write_frames(wr, os.path.join(d, name + ".avi"), frames, codec, pixfmt, opts)
+    small = moving_frames(np.random.default_rng(299), 30, 64, 48, "drift")
+    cv2_avi(os.path.join(d, "cv2_hfyu_64x48.avi"), small[:12], "HFYU")
+    cv2_avi(os.path.join(d, "cv2_ffv1_64x48.avi"), small, "FFV1")
+    # grey Motion JPEG (FFmpeg's mjpeg encoder writes no grey): cv2's JPEGs
+    grey = [cv2.imencode(".jpg", cv2.cvtColor(f, cv2.COLOR_BGR2GRAY))[1].tobytes()
+            for f in small[:12]]
+    wr.mux(os.path.join(d, "mjpeg_gray_64x48.avi"), grey, "mjpeg", "MJPG", 64, 48)
+    # HuffYUV 1.x: no extradata, biBitCount 16 (4:2:2, left), classic tables
+    codes = _classic_codes()
+    yuv = [np.frombuffer(planes(f, "yuv422p"), np.uint8) for f in small[:6]]
+    wr.mux(os.path.join(d, "hfyu_classic_422_64x48.avi"),
+           [classic_huffyuv_frame(p[:3072], p[3072:4608], p[4608:], codes) for p in yuv],
+           "huffyuv", "HFYU", 64, 48, bits=16)
+    # two-field Motion JPEG: each packet the two 64x24 fields of a 64x48 frame
+    fields = [cv2.imencode(".jpg", f[::2])[1].tobytes() + cv2.imencode(".jpg", f[1::2])[1].tobytes()
+              for f in small[:4]]
+    wr.mux(os.path.join(d, "mjpeg_fields_64x48.avi"), fields, "mjpeg", "MJPG", 64, 48)
+    # FFV1 at 10 bits, a form left to item 8b
+    write_frames(wr, os.path.join(d, "ffv1_422p10_64x48.avi"), small[:3], "ffv1", "yuv422p10le",
+                 "level=1")
+
+
+def _classic_codes():
+    """HuffYUV's classic codes (code, length) for luma and chroma, from
+    ``csrc/host/huffyuv_tables.h``."""
+    import re
+
+    src = open(os.path.join(os.path.dirname(HERE), "csrc", "host", "huffyuv_tables.h")).read()
+    tab = {m.group(1): [int(x) for x in re.findall(r"\d+", m.group(2))]
+           for m in re.finditer(r"(kClassic\w+)\[\d+\] = \{([^}]*)\}", src)}
+
+    def lengths(rle):
+        bits = "".join(f"{b:08b}" for b in rle)
+        out, i = [], 0
+        while len(out) < 256:
+            rep, val = int(bits[i: i + 3], 2), int(bits[i + 3: i + 8], 2)
+            i += 8
+            if rep == 0:
+                rep, i = int(bits[i: i + 8], 2), i + 8
+            out += [val] * rep
+        return out
+
+    return (list(zip(tab["kClassicAddLuma"], lengths(tab["kClassicShiftLuma"]))),
+            list(zip(tab["kClassicAddChroma"], lengths(tab["kClassicShiftChroma"]))))
+
+
+def classic_huffyuv_frame(y, u, v, codes):
+    """A HuffYUV 1.x frame of planar 4:2:2 with the left predictor and the
+    classic tables, as FFmpeg's encoder lays out its version-2 form: V0, Y1,
+    U0, Y0 raw, then Y U Y V residuals, each plane predicted from the sample
+    before it in raster order; the bits in 32-bit little-endian words."""
+    luma, chroma = codes
+    ys, us, vs = (np.asarray(p, np.int64).reshape(-1) for p in (y, u, v))
+    ry = (ys[2:] - ys[1:-1]) & 255
+    ru = (us[1:] - us[:-1]) & 255
+    rv = (vs[1:] - vs[:-1]) & 255
+    parts = [f"{vs[0]:08b}{ys[1]:08b}{us[0]:08b}{ys[0]:08b}"]
+    for i in range(len(ru)):
+        for val, table in ((ry[2 * i], luma), (ru[i], chroma), (ry[2 * i + 1], luma),
+                           (rv[i], chroma)):
+            code, n = table[val]
+            parts.append(format(code, f"0{n}b"))
+    bits = "".join(parts)
+    bits += "0" * (-len(bits) % 32)
+    words = np.frombuffer(int(bits, 2).to_bytes(len(bits) // 8, "big"), ">u4")
+    return words.astype("<u4").tobytes()
+
+
+# The capture_avi_train corpus: class folder, writer, pixel format (FFmpeg
+# encoder) or FourCC (cv2), clips, frames a clip; 320x240 at 25 fps. Many
+# short clips, so that a batch of 32 sequences of 8 rarely takes two from one
+# file; the FFV1 clips (cv2's GOP is 12) run past their second key frame, so
+# a sequence may start up to 8 frames into a GOP
+CAPTURE_CORPUS = (("hfyu", "huffyuv", "yuv422p", 4, 10), ("ffv1", "cv2", "FFV1", 2, 16),
+                  ("mjpeg", "mjpeg", "yuvj422p", 24, 10))
+
+
+def write_capture_corpus(root):
+    w, h = CORPUS_SIZE
+    wr = AviWriter()
+    for ci, (cls, codec, form, clips, n) in enumerate(CAPTURE_CORPUS):
+        os.makedirs(os.path.join(root, cls), exist_ok=True)
+        for k in range(clips):
+            frames = moving_frames(np.random.default_rng(5000 + 100 * ci + k), n,
+                                   w, h, ("pan", "drift", "zoom")[(ci + k) % 3], noise=1.0)
+            path = os.path.join(root, cls, f"{cls}_{k:02d}.avi")
+            if codec == "cv2":
+                cv2_avi(path, frames, form)
+            else:
+                write_frames(wr, path, frames, codec, form,
+                             "pred=median" if codec == "huffyuv" else "")
+
+
+def write_huffyuv_tables(path=os.path.join(os.path.dirname(HERE), "csrc", "host",
+                                           "huffyuv_tables.h")):
+    """``csrc/host/huffyuv_tables.h`` from this machine's libavcodec: its
+    four classic HuffYUV tables, found by their first bytes."""
+    import ctypes.util
+
+    lib = ctypes.util.find_library("avcodec") or "libavcodec.so.59"
+    if not os.path.isabs(lib):
+        lib = os.path.join("/usr/lib/x86_64-linux-gnu", lib)
+    data = open(lib, "rb").read()
+
+    def table(name, head, size):
+        i = data.find(bytes(head))
+        if i < 0 or data.count(bytes(head)) != 1:
+            raise RuntimeError(f"{name} not found once in {lib}")
+        rows = [", ".join(str(x) for x in data[i + k: i + min(k + 16, size)])
+                for k in range(0, size, 16)]
+        return (f"const uint8_t {name}[{size}] = {{\n" + "".join(f"    {r},\n" for r in rows)
+                + "};\n")
+
+    body = "\n".join([
+        table("kClassicShiftLuma", [34, 36, 35, 69, 135, 232, 9, 16, 10, 24], 42),
+        table("kClassicShiftChroma", [66, 36, 37, 38, 39, 40, 41, 75, 76, 77], 59),
+        table("kClassicAddLuma", [3, 9, 5, 12, 10, 35, 32, 29, 27, 50], 256),
+        table("kClassicAddChroma", [3, 1, 2, 2, 2, 2, 3, 3, 7, 5], 256)])
+    head = ("// HuffYUV's classic Huffman tables, which a stream without tables in its\n"
+            "// extradata (HuffYUV 1.x) codes with: the code lengths run-length coded as\n"
+            "// read_len_table reads them, and the codes. Written by\n"
+            "// ``python dali_tpu_torch/testdata/make_video_corpus.py --tables`` from the\n"
+            "// tables of this machine's libavcodec (huffyuvdec.c's classic_shift_luma,\n"
+            "// classic_shift_chroma, classic_add_luma and classic_add_chroma).\n"
+            "#pragma once\n\n#include <cstdint>\n\nnamespace video {\n\n")
+    with open(path, "w") as f:
+        f.write(head + body + "\n}  // namespace video\n")
+    return path
+
+
 def main(argv):
-    args = [a for a in argv[1:] if a != "--avi"]
+    args = [a for a in argv[1:] if not a.startswith("--")]
     out_dir = args[0] if args else OUT
+    if "--tables" in argv:
+        print(write_huffyuv_tables())
+        return
+    if "--capture" in argv:
+        write_capture_fixtures(out_dir)
+        write_capture_corpus(os.path.join(out_dir, "capture_corpus"))
+        total = sum(os.path.getsize(os.path.join(dd, f)) for sub in ("capture", "capture_corpus")
+                    for dd, _, fs in os.walk(os.path.join(out_dir, sub)) for f in fs)
+        print(f"{out_dir}: capture set {total} bytes")
+        return
     if "--avi" in argv:
         write_avi_fixtures(out_dir)
         write_avi_corpus(os.path.join(out_dir, "avi_corpus"))

@@ -52,9 +52,9 @@ CLASSES = 4
 WHOLE = ("flat_48x32", "pan_64x48")
 
 
-def video_graph(fn, types, root, reader_device, raw=False):
+def video_graph(fn, types, root, reader_device, raw=False, stride=STRIDE):
     frames, labels = fn.readers.video(
-        file_root=root, sequence_length=FRAMES, stride=STRIDE, random_shuffle=True,
+        file_root=root, sequence_length=FRAMES, stride=stride, random_shuffle=True,
         pad_mode="edge", name="Reader", device=reader_device)
     frames = frames if reader_device == "mixed" else frames.gpu()
     out = fn.resize(frames, resize_x=SIZE, resize_y=SIZE)
@@ -68,13 +68,14 @@ def video_graph(fn, types, root, reader_device, raw=False):
     return (out, labels, frames) if raw else (out, labels)
 
 
-def make_pipe(batch, device, reader_device="mixed", root=CORPUS, raw=False, seed=7):
+def make_pipe(batch, device, reader_device="mixed", root=CORPUS, raw=False, seed=7,
+              stride=STRIDE):
     from dali_tpu_torch import fn, pipeline_def, types
 
     @pipeline_def(batch_size=batch, num_threads=os.cpu_count() or 1, seed=seed,
                   prefetch_queue_depth=2, device=device)
     def video_clip_train():
-        return video_graph(fn, types, root, reader_device, raw)
+        return video_graph(fn, types, root, reader_device, raw, stride)
 
     pipe = video_clip_train()
     pipe.build()
@@ -93,7 +94,7 @@ def check_batch(b, batch=BATCH, form="video_clip_train"):
         raise AssertionError(f"{form}: labels out of range: {lab.tolist()}")
 
 
-def run(batch=BATCH, warmup=3, timed=10, root=CORPUS, form="video_clip_train"):
+def run(batch=BATCH, warmup=3, timed=10, root=CORPUS, form="video_clip_train", stride=STRIDE):
     """The path over ``root`` on the card (``bench_readers._drive``): rates,
     host ms by schema, the CMN launches of the run (set to 0 just before it,
     one per batch), device ms by stage of one batch alone, peak memory, and
@@ -103,7 +104,7 @@ def run(batch=BATCH, warmup=3, timed=10, root=CORPUS, form="video_clip_train"):
     from dali_tpu_torch.tools import bench_readers, bench_ssd
 
     torch.cuda.reset_peak_memory_stats()
-    pipe = make_pipe(batch, "cuda:0", root=root)
+    pipe = make_pipe(batch, "cuda:0", root=root, stride=stride)
     cmn.COUNTER.launches = 0
     dt, st, by, ran = bench_readers._drive(pipe, ["frames", "labels"], warmup, timed,
                                            lambda b: check_batch(b, batch, form))
@@ -230,13 +231,14 @@ def _tensor(x):
 
 
 def check_mixed_vs_cpu(batch=BATCH, batches=2, device="cuda:0", root=CORPUS,
-                       form="video_clip_train"):
+                       form="video_clip_train", stride=STRIDE):
     """The recipe as written (cpu reader, then ``.gpu()``) against the timed
     form (mixed reader) on the card: the reader's uint8 frames and the
     labels equal, batch for batch."""
     runs = []
     for reader in ("cpu", "mixed"):
-        pipe = make_pipe(batch, device, reader_device=reader, root=root, raw=True)
+        pipe = make_pipe(batch, device, reader_device=reader, root=root, raw=True,
+                         stride=stride)
         runs.append([[_tensor(o.as_tensor()) for o in pipe.run()[1:]] for _ in range(batches)])
         pipe.shutdown()
     frames = 0

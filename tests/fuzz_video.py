@@ -1,6 +1,7 @@
 """Mutation probe of dali_tpu_torch's host video stack (``csrc/host/
 mp4_demux.cc``, ``avi_demux.cc``, ``mpeg4_decode.cc``, ``mjpeg_decode.cc``
-with the JPEG reader it takes, ``video_decode.cc``) under
+with the JPEG reader it takes, ``huffyuv_decode.cc``, ``ffv1_decode.cc``,
+``sws_rgb.cc``, ``video_decode.cc``) under
 AddressSanitizer and UndefinedBehaviorSanitizer, with libstdc++'s vector
 annotations on (so a read past a vector's size within its capacity is
 caught too).
@@ -12,11 +13,14 @@ in the last 2 KiB where cv2's files keep ``moov``), alternately from a path
 and from memory, and reads each through RGB, planar and batched reads at
 several starts and strides. Inputs: the committed MP4 and AVI fixtures
 (Xvid with packed B-VOPs, FFmpeg's unpacked ones, Motion JPEG with and
-without DHT, raw I420, a file without an index), one clip of each corpus,
-and three
+without DHT, raw I420, a file without an index, the HuffYUV, FFV1 and
+Motion JPEG 4:2:2/4:4:4/grey files of ``capture``), one clip of each
+corpus, and three
 files whose frame size changes mid-stream (a smaller clip spliced in after
 frame 5, one of the same macroblock grid, a smaller VOL before one P-VOP),
-written with cv2 here. Any sanitizer report ends the run non-zero.
+written with cv2 here. The swscale rebuild is also called on its own at
+random sizes and strides of every format it takes. Any sanitizer report
+ends the run non-zero.
 
     python tests/fuzz_video.py [--iters 150] [--work DIR]
 """
@@ -46,6 +50,8 @@ int dali_tpu_torch_video_read_frames_yuv(void*, long, int, int, unsigned char*, 
 void dali_tpu_torch_video_read_batch(void*, void* const*, const long*, const int*, const int*,
                                      unsigned char* const*, unsigned char* const*, unsigned char* const*, int, int, int*);
 void dali_tpu_torch_video_close(void*);
+int dali_tpu_torch_sws_rgb(int, int, int, int, const unsigned char* const*, const int*,
+                           unsigned char*);
 void* dali_tpu_pool_create(int);
 void dali_tpu_pool_destroy(void*);
 }
@@ -114,8 +120,24 @@ int main(int argc, char** argv) {
       dali_tpu_torch_video_close(h);
     }
   }
+  // the swscale rebuild alone: every format, sizes 1..80, padded strides
+  long converted = 0;
+  for (int it = 0; it < 40 * iters; it++) {
+    int fmt = 1 + int(rng() % 7), w = 1 + int(rng() % 80), hh = 1 + int(rng() % 80);
+    int pad = int(rng() % 9), bpp = fmt == 6 ? 3 : (fmt >= 4 ? 4 : 1);
+    int strides[3] = {w * bpp + pad, (fmt == 1 ? (w + 1) / 2 : w) + pad, 0};
+    strides[2] = strides[1];
+    std::vector<unsigned char> pl[3];
+    for (int k = 0; k < 3; k++) {
+      pl[k].resize((size_t)strides[k] * hh + 1);
+      for (auto& b : pl[k]) b = rng();
+    }
+    const unsigned char* ptr[3] = {pl[0].data(), pl[1].data(), pl[2].data()};
+    std::vector<unsigned char> out((size_t)w * hh * 3);
+    if (dali_tpu_torch_sws_rgb(fmt, it & 1, w, hh, ptr, strides, out.data()) == 0) converted++;
+  }
   dali_tpu_pool_destroy(pool);
-  printf("cases %ld opened %ld frames %ld\n", cases, opened, frames);
+  printf("cases %ld opened %ld frames %ld sws %ld\n", cases, opened, frames, converted);
   return 0;
 }
 '''
@@ -158,6 +180,7 @@ def main(argv):
         f.write(_HARNESS)
     srcs = [os.path.join(HOST, s) for s in ("mp4_demux.cc", "avi_demux.cc", "mpeg4_decode.cc",
                                             "mjpeg_decode.cc", "jpeg_huff.cc", "jpeg_arith.cc",
+                                            "huffyuv_decode.cc", "ffv1_decode.cc", "sws_rgb.cc",
                                             "video_decode.cc", "tasking.cc")]
     subprocess.run(["g++", "-O1", "-g", "-fsanitize=address,undefined",
                     "-D_GLIBCXX_SANITIZE_VECTOR", "-fno-sanitize-recover=all",
@@ -169,6 +192,9 @@ def main(argv):
     files += [os.path.join(fixtures, "corpus", c, f"{c}_00.mp4") for c in ("cut", "pan", "drift")]
     files += sorted(glob.glob(os.path.join(fixtures, "avi", "*.avi")))
     files += [os.path.join(fixtures, "avi_corpus", "cut", "cut_00.avi")]
+    files += sorted(glob.glob(os.path.join(fixtures, "capture", "*.avi")))
+    files += [os.path.join(fixtures, "capture_corpus", c, f"{c}_00.avi")
+              for c in ("hfyu", "ffv1", "mjpeg")]
     files += size_change_files(work)
     env = dict(os.environ, FUZZ_CASE=os.path.join(work, "case.mp4"))
     return subprocess.run([exe, str(args.iters)] + files, env=env).returncode

@@ -1,7 +1,9 @@
 """AVI in dali_tpu_torch (ROADMAP Queue 1 item 8b, AVI part): the RIFF
 demuxer (``csrc/host/avi_demux.cc``), MPEG-4 Part 2 with B-VOPs and packed
 bitstreams and Xvid's IDCT (``mpeg4_decode.cc``), Motion JPEG
-(``mjpeg_decode.cc``) and raw I420, against dali_tpu's FFmpeg 5.1 route.
+(``mjpeg_decode.cc``; 4:2:2, 4:4:4 and grey through the swscale route) and
+raw I420, against dali_tpu's FFmpeg 5.1 route. HuffYUV and FFV1 have
+files of their own (test_torch_huffyuv.py, test_torch_ffv1.py).
 
 The committed fixtures (``dali_tpu_torch/testdata/video/avi``, written by
 ``make_video_corpus.py --avi``) and the AVI corpus decode to the frames of
@@ -337,6 +339,76 @@ def test_inputs_video_fed_avi(policy):
             _assert_same(g, w, (policy, key, k))
 
 
+# --------------------------------------------------------------------------- the swscale route
+
+from .test_torch_huffyuv import CAP, check_fixture, check_seeks, names_of  # noqa: E402
+
+MJPEG_CAPTURE = names_of("mjpeg_")
+CAPTURE_CORPUS = [n for n in names_of("") if n.startswith("capture_corpus/")]
+
+
+@pytest.mark.parametrize("name", MJPEG_CAPTURE)
+def test_mjpeg_sampling_bit_equal_to_the_reference(name):
+    """Motion JPEG 4:2:2 (FFmpeg's encoder writes luma 2x2, chroma 1x2), at
+    an even and an odd height, 4:4:4 and grey: pixel-format class 0, every
+    frame libswscale's RGB24 of FFmpeg's planes, from frame 0 and after
+    seeks."""
+    check_fixture(name)
+    check_seeks(name)
+
+
+def test_capture_corpus_bit_equal_to_the_reference():
+    """The card's capture_avi_train corpus: 320x240 HuffYUV 4:2:2, cv2's
+    FFV1 and Motion JPEG 4:2:2 clips, every frame's RGB hash and info."""
+    assert len(CAPTURE_CORPUS) == 30
+    for name in CAPTURE_CORPUS:
+        vf = native.VideoFile(_path(name))
+        assert _info(vf) == tuple(CAP[name + ":info"].tolist()), name
+        assert vf.pixfmt_class == 0
+        np.testing.assert_array_equal(frame_hashes(vf.read(0, vf.num_frames, pad=False)),
+                                      CAP[name + ":rgb_sha"], err_msg=name)
+
+
+def test_reader_over_capture_corpus():
+    """readers.Video, cpu and mixed, over the capture corpus's class
+    folders (file_root), shuffled, edge padding: class 0 takes the dense
+    RGB path in both packages, bit-equal to dali_tpu's."""
+    root = os.path.join(FIXTURES, "capture_corpus")
+
+    def build(fn, types, device):
+        return tuple(fn.readers.video(device=device, name="v", file_root=root,
+                                      sequence_length=3, stride=2, step=5, random_shuffle=True,
+                                      pad_mode="edge"))
+    runs = _run_all(build, 2, 2)
+    want = runs[("dali_tpu", "cpu")]
+    for key, got in runs.items():
+        for it in range(2):
+            _assert_same(got[it], want[it], (key, it))
+
+
+@pytest.mark.parametrize("device", ["cpu", "mixed"])
+def test_decoder_fed_capture_bytes(device):
+    """decoders.Video and experimental.decoders.Video fed the bytes of a
+    Motion JPEG 4:2:2, a grey Motion JPEG and a HuffYUV RGBA file:
+    dali_tpu's frames."""
+    blobs = [np.frombuffer(open(_path(n), "rb").read(), np.uint8)
+             for n in ("capture/mjpeg_422_66x47", "capture/mjpeg_gray_64x48",
+                       "capture/hfyu_rgba_left_64x48")]
+    outs = {}
+    for pkg in (dali_tpu, dali_tpu_torch):
+        def build(fn, types, device=device):
+            buf = fn.external_source(source=lambda: blobs, batch=True, cycle=True)
+            return (fn.decoders.video(buf, device=device, sequence_length=4, pad_mode="edge"),
+                    fn.experimental.decoders.video(buf, device=device, start_frame=3,
+                                                   sequence_length=3, stride=2))
+        pipe = _pipe(pkg, build, 3, device)
+        outs[pkg.__name__] = [pipe.run() for _ in range(2)]
+        if hasattr(pipe, "shutdown"):
+            pipe.shutdown()
+    for it in range(2):
+        _assert_same(outs["dali_tpu_torch"][it], outs["dali_tpu"][it], (device, it))
+
+
 # --------------------------------------------------------------------------- item 8b
 
 def _cv2_avi(path, fourcc, n=5, w=64, h=48):
@@ -350,15 +422,27 @@ def _cv2_avi(path, fourcc, n=5, w=64, h=48):
     return str(path)
 
 
-@pytest.mark.parametrize("what,fourcc", [("HuffYUV", "HFYU"), ("FFV1", "FFV1"),
-                                         ("MPEG-1/2", "PIM1")])
-def test_avi_codecs_left_to_item_8b_raise(tmp_path, what, fourcc):
-    """HuffYUV and FFV1 (the reference's swscale route) and MPEG-1 in AVI:
-    the reference reads them, the port raises NotImplementedError naming
-    the codec and item 8b, at open and through the reader."""
-    path = _cv2_avi(tmp_path / "v.avi", fourcc)
+# the forms of AVI left to item 8b: what writes them, what the message names
+LEFT_FORMS = {
+    "HuffYUV-HFYU": (lambda tmp: _path("capture/ffvh_422p10_64x48"), "HuffYUV at 10 bits"),
+    "FFV1-FFV1": (lambda tmp: _path("capture/ffv1_422p10_64x48"), "FFV1 at 10 bits"),
+    "MPEG-1/2-PIM1": (lambda tmp: _cv2_avi(tmp / "v.avi", "PIM1"), "MPEG-1/2 video in AVI"),
+    "MJPEG-fields": (lambda tmp: _path("capture/mjpeg_fields_64x48"),
+                     "interlaced .two-field. Motion JPEG"),
+}
+
+
+@pytest.mark.parametrize("form", list(LEFT_FORMS))
+def test_avi_codecs_left_to_item_8b_raise(tmp_path, form):
+    """The AVI forms still left to item 8b: HuffYUV and FFV1 beyond 8 bits
+    (the committed 10-bit FFVH and FFV1; 8-bit HuffYUV and FFV1 decode since
+    the swscale route came), MPEG-1 and interlaced two-field Motion JPEG.
+    The reference reads them, the port raises NotImplementedError naming
+    the form and item 8b, at open and through the reader."""
+    write, what = LEFT_FORMS[form]
+    path = write(tmp_path)
     assert ref_native.VideoFile(path).read(0, 3).shape == (3, 48, 64, 3)
-    with pytest.raises(NotImplementedError, match=f"{what} video in AVI.*item 8b"):
+    with pytest.raises(NotImplementedError, match=f"{what}.*item 8b"):
         native.VideoFile(path)
 
     def build(fn, types, device):

@@ -45,7 +45,8 @@ within one uint8 step / std. rn50_train's recipe over the arithmetic-coded
 twin corpus gives the Huffman corpus's batches bit for bit. The resizing
 video reader on device="mixed" gives the cpu placement's frames bit for bit,
 and ucf_avi_train's Xvid AVI corpus and one AVI file of each codec the
-same way, and video_flow_train (the resizing reader, optical flow, CMN's FCHW fold)
+same way, and so do capture_avi_train's HuffYUV, FFV1 and Motion JPEG 4:2:2
+corpus and one file of each swscale-route form, and video_flow_train (the resizing reader, optical flow, CMN's FCHW fold)
 matches its CPU run: flows and labels equal, images within one uint8 step
 / std."""
 
@@ -1917,6 +1918,48 @@ def test_avi_yuv_wire_on_card_equals_cpu(card, name):
 
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "dali_tpu_torch", "testdata", "video", "avi", name + ".avi")
+    outs = []
+    for reader in ("cpu", "mixed"):
+        @pipeline_def(batch_size=2, num_threads=2, seed=3, device=card)
+        def p():
+            return fn.readers.video(filenames=[path], sequence_length=4, step=3,
+                                    random_shuffle=True, device=reader)
+        pipe = p()
+        pipe.build()
+        try:
+            outs.append([pipe.run()[0].as_tensor() for _ in range(2)])
+        finally:
+            pipe.shutdown()
+    for c, m in zip(*outs):
+        assert m.is_cuda and m.dtype == torch.uint8
+        assert torch.equal(c.cpu(), m.cpu())
+
+
+# ------------------------------------------------------------------ capture_avi_train (item 8b)
+
+def test_capture_mixed_reader_equals_cpu_reader(card):
+    """capture_avi_train's recipe at batch 4 over the capture corpus
+    (HuffYUV, FFV1, Motion JPEG 4:2:2: class 0, dense RGB converted on the
+    host as libswscale does): the mixed reader's frames equal the cpu
+    reader's moved with ``.gpu()``, and every committed file of the
+    swscale route decodes on this machine to capture_reference.npz."""
+    from dali_tpu_torch.tools import bench_capture, bench_video
+
+    r = bench_video.check_mixed_vs_cpu(batch=4, batches=2, root=bench_capture.CAPTURE_CORPUS,
+                                       form=bench_capture.FORM, stride=bench_capture.STRIDE)
+    assert r["frames"] == 2 * 4 * bench_video.FRAMES
+    assert bench_capture.check_fixtures()["files"] == 54
+
+
+@pytest.mark.parametrize("name", ["cv2_hfyu_64x48", "ffv1_v0_420_rice_64x48", "mjpeg_422_66x47"])
+def test_capture_files_on_card_equal_cpu(card, name):
+    """readers.video over cv2's HuffYUV (class 0), a 4:2:0 FFV1 (class 1:
+    the planar YUV wire) and a Motion JPEG 4:2:2 at an odd height, batch 2:
+    the mixed reader's uint8 frames on the card equal the cpu reader's."""
+    from dali_tpu_torch import fn, pipeline_def
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "dali_tpu_torch", "testdata", "video", "capture", name + ".avi")
     outs = []
     for reader in ("cpu", "mixed"):
         @pipeline_def(batch_size=2, num_threads=2, seed=3, device=card)

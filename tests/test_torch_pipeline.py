@@ -160,7 +160,7 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.tools.dryrun_multidevice, dali_tpu_torch.tools.bench_ddp\n"
         "import dali_tpu_torch.backend.video, dali_tpu_torch.tools.bench_video\n"
         "import dali_tpu_torch.testdata.make_video_corpus\n"
-        "import dali_tpu_torch.tools.bench_video_flow\n"
+        "import dali_tpu_torch.tools.bench_video_flow, dali_tpu_torch.tools.bench_capture\n"
         "import numpy as np\n"
         "from dali_tpu_torch.backend import enhance2\n"
         "enhance2.native.farneback(np.zeros((32, 40), np.float32), np.ones((32, 40), np.float32))\n"
@@ -168,6 +168,9 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import torch.distributed.tensor, torch.distributed.device_mesh\n"
         "from dali_tpu_torch.tools.bench_audio_codecs import check_fixtures\n"
         "check_fixtures()\n"
+        "from dali_tpu_torch.tools import bench_capture\n"
+        "bench_capture.check_fixtures()\n"
+        "dali_tpu_torch.native.sws_rgb('gray', [np.zeros((2, 3), np.uint8)], 3, 2)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'dali_tpu', 'cv2', 'PIL',\n"
         "                              'hybrid_fixture', '__graft_entry__')]\n"

@@ -30,12 +30,22 @@ BT.601), which is what the port returns, and ``<name>:ref_rgb_sha``, the
 reference's own sequential RGB read, which places the tail of a packed
 Xvid stream elsewhere.
 
+For the swscale-route set (``capture/`` and ``capture_corpus/``, written by
+``make_video_corpus.py --capture``: HuffYUV, FFV1 and Motion JPEG
+4:2:2/4:4:4/grey AVIs) it writes ``capture_reference.npz``: for each file
+``<name>:info`` (as above), ``<name>:rgb_sha``, the SHA-256 of each frame of
+dali_tpu's RGB read from frame 0 (libswscale's RGB24 for the files that are
+not 4:2:0), and for the 4:2:0 ones ``<name>:yuv_sha`` of its planar read.
+
 It lives outside the port's package because it imports dali_tpu. Run it on
 a machine where dali_tpu's native library has FFmpeg, from the repo root,
 after ``dali_tpu_torch/testdata/make_video_corpus.py`` wrote the clips:
 
     python tests/write_video_reference.py [fixture_dir]
+    python tests/write_video_reference.py --capture [fixture_dir]
     python tests/write_video_reference.py --probe-idct [fixture_dir]
+
+``--capture`` writes ``capture_reference.npz`` alone.
 """
 
 import ctypes
@@ -509,17 +519,57 @@ def avi_reference_decodes(fixture_dir=FIXTURES, tools=None):
     return out
 
 
+def capture_names(fixture_dir=FIXTURES):
+    """The swscale-route fixtures and corpus, as paths under fixture_dir
+    without the extension."""
+    names = []
+    d = os.path.join(fixture_dir, "capture")
+    if os.path.isdir(d):
+        names += sorted("capture/" + f[:-4] for f in os.listdir(d) if f.endswith(".avi"))
+    corpus = os.path.join(fixture_dir, "capture_corpus")
+    if os.path.isdir(corpus):
+        names += [f"capture_corpus/{c}/{f[:-4]}" for c in sorted(os.listdir(corpus))
+                  for f in sorted(os.listdir(os.path.join(corpus, c))) if f.endswith(".avi")]
+    return names
+
+
+def capture_reference_decodes(fixture_dir=FIXTURES):
+    """The arrays of ``capture_reference.npz`` (see the module docstring)."""
+    import dali_tpu.native as reference
+
+    out = {}
+    for name in capture_names(fixture_dir):
+        path = os.path.join(fixture_dir, name + ".avi")
+        vf = reference.VideoFile(path)
+        out[name + ":info"] = np.array([vf.width, vf.height, vf.num_frames, vf.fps,
+                                        vf.pixfmt_class], np.float64)
+        out[name + ":rgb_sha"] = frame_hashes(vf.read(0, vf.num_frames, pad=False))
+        if vf.pixfmt_class:
+            vf = reference.VideoFile(path)
+            y, u, v, got = vf.read_yuv(0, vf.num_frames, pad=False)
+            out[name + ":yuv_sha"] = yuv_hashes(y[:got], u[:got], v[:got])
+        vf.close()
+    return out
+
+
 def main(argv):
     args = [a for a in argv[1:] if not a.startswith("--")]
     fixture_dir = args[0] if args else FIXTURES
     if "--probe-idct" in argv:
         probe_idct(fixture_dir)
         return
+    if "--capture" in argv:
+        np.savez_compressed(os.path.join(fixture_dir, "capture_reference.npz"),
+                            **capture_reference_decodes(fixture_dir))
+        return
     np.savez_compressed(os.path.join(fixture_dir, "reference.npz"),
                         **reference_decodes(fixture_dir))
     if avi_names(fixture_dir):
         np.savez_compressed(os.path.join(fixture_dir, "avi_reference.npz"),
                             **avi_reference_decodes(fixture_dir))
+    if capture_names(fixture_dir):
+        np.savez_compressed(os.path.join(fixture_dir, "capture_reference.npz"),
+                            **capture_reference_decodes(fixture_dir))
 
 
 if __name__ == "__main__":
