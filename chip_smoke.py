@@ -483,6 +483,35 @@ on failure:
    against the mixed reader for 2 batches: the uint8 frames equal on the
    card.
 
+45. mpeg_ts_train (``tools/bench_mpeg.py``): every committed MPEG-1/2 file
+   of ``testdata/video/mpeg`` and ``mpeg_corpus`` (cv2's four MPEG writes;
+   FFmpeg's encoders with B-pictures in MPEG-1, the intra VLC table, the
+   non-linear quantiser, the alternate scan, 10-bit intra DC, custom
+   matrices, an odd size, interlaced, 4:2:2, the DVD and AVI forms, raw
+   elementary streams; two TS segments spliced) decoded on this machine by
+   the port's host decoder against ``mpeg_reference.npz`` (dali_tpu's
+   FFmpeg 5.1 read and info from frame 0, and FFmpeg's display-order
+   decode, which reads after seeks through one handle give), in RGB and
+   planar YUV; the spliced TS raising ``VideoPixfmtChanged`` from the
+   planar read and its mixed decode equal to the cpu one on the card; then
+   the recipe over the corpus (16 MPEG-2 TS clips of cv2's with open GOPs
+   and B-pictures, 16 MPEG-1 PS clips; 320x240 at 25 fps; class 1, the
+   planar YUV wire): ``readers.video(device="mixed", file_root=...,
+   sequence_length=8, stride=2, random_shuffle=True, pad_mode="edge")``,
+   resize 112x112, rotate and gaussian_blur, CMN to FLOAT FCHW, batch 32:
+   3 warm-up + 10 timed batches, each checked; clips/s and frames/s beside
+   rn50_train's rate, host ms by schema with readers.Video's share, the
+   device wait, device ms by stage of one batch alone, peak memory, the
+   exact CMN launch count; the CMN kernel (FCHW fold) held against its
+   plain version on the path's own batch (max abs diff 0) and timed on it;
+   the recipe again with the reader's handle cache at 8 files, so that
+   reads reopen files (the open's one pass over the file, then a seek), its
+   clips/s beside the cached run's; the open's time and the handle's index
+   bytes against the file's length (1, 16 and 64 corpus clips
+   concatenated, TS and PS); the host decode rate of the corpus on one
+   thread and on 8; and the cpu reader then ``.gpu()`` against the mixed
+   reader for 2 batches: the uint8 frames equal on the card.
+
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
 among them) is the JSON object on the line before
@@ -533,6 +562,7 @@ ARITH_TIMED = 10
 VIDEO_FLOW_TIMED = 5
 AVI_TIMED = 10
 CAPTURE_TIMED = 10
+MPEG_TIMED = 10
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -2164,6 +2194,74 @@ def capture_phase(card, rn50_ips):
     return r["cmn_launches"], c
 
 
+def mpeg_phase(card, rn50_ips):
+    """Phase 45: the MPEG-1/2 fixtures and the spliced TS, then
+    mpeg_ts_train, its decode rate and the mixed reader against the cpu
+    one; returns its CMN launches and the kernel's readings on the path's
+    batch."""
+    from dali_tpu_torch.tools import bench_mpeg as bm
+    from dali_tpu_torch.tools import bench_video as bv
+
+    t0 = time.perf_counter()
+    form = bm.FORM
+    f = bm.check_fixtures()
+    print(f"MPEG-1/2 fixtures: {f['files']} files, {f['frames']} frames decoded on this machine, "
+          f"each frame's RGB and YUV bytes and each file's info equal to mpeg_reference.npz "
+          f"(dali_tpu's FFmpeg 5.1 read and info), {f['seeks']} reads after seeks equal to "
+          f"FFmpeg's display order ({card})")
+    sp = bm.check_spliced()
+    print(f"spliced TS (64x48 then 32x24): read_yuv raised VideoPixfmtChanged after "
+          f"{sp['changed_after']} frames; decoders.video mixed equal to cpu on the card, "
+          f"{sp['frames']} frames ({card})")
+    r = bm.run(warmup=WARMUP, timed=MPEG_TIMED)
+    c = r["cmn"]
+    print(f"{form} batch {r['batch']}x{bv.FRAMES} frames: {r['clips_per_s']:.1f} clips/s, "
+          f"{r['frames_per_s']:.1f} frames/s over {r['timed']} batches "
+          f"({100 * r['frames_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} images/s "
+          f"in this run); host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} "
+          f"host cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; cmn "
+          f"launches {r['cmn_launches']} ({card})")
+    by = r["host_ms_by_schema"]
+    reader_ms = by.get("readers.Video", 0.0)
+    print(f"{form} host ms/batch by schema: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in by.items() if v >= 0.05)
+        + f"; readers.Video {100 * reader_ms / max(r['host_ms_per_batch'], 1e-9):.1f}% of the "
+          f"host phase ({card})")
+    print(f"{form} device ms of one batch alone: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r["stage_ms"].items())
+        + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    require(r["cmn_launches"] > 0, f"{form}: the CMN kernel was not launched")
+    require(c["max_abs_err"] == 0, f"{form}: CMN kernel {c['max_abs_err']} from its plain version")
+    print(f"{form} CMN kernel (FCHW fold) on the path's own batch {c['shape_in']} "
+          f"{c['dtype_in']} -> {c['shape_out']} float32: max abs diff vs plain "
+          f"{c['max_abs_err']:.3e}; kernel alone {c['ms']:.4f} ms (cold L2), wrapper "
+          f"{c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} bytes, bound "
+          f"{c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+    ro = bm.run(warmup=WARMUP, timed=MPEG_TIMED, max_open_files=8)
+    require(ro["cmn"]["max_abs_err"] == 0, f"{form} (reopening): CMN kernel differs from plain")
+    ro_reader = ro["host_ms_by_schema"].get("readers.Video", 0.0)
+    print(f"{form} with the reader's handle cache at 8 of the corpus's 32 files (reads reopen "
+          f"files): {ro['clips_per_s']:.1f} clips/s ({100 * ro['clips_per_s'] / r['clips_per_s']:.1f}% "
+          f"of the cached run's), host phase {ro['host_ms_per_batch']:.2f} ms/batch, readers.Video "
+          f"{ro_reader:.2f} (cached: {reader_ms:.2f}) ({card})")
+    for o in bm.open_cost():
+        print(f"{form} open of {o['clips']} {o['container'].upper()} clip(s) concatenated: "
+              f"{o['bytes']} bytes, {o['pictures']} pictures, {o['open_ms']:.3f} ms "
+              f"({o['ms_per_mib']:.2f} ms/MiB, {1e3 * o['open_ms'] / o['pictures']:.2f} us a "
+              f"picture); index {o['index_bytes']} bytes ({o['index_bytes_per_picture']:.1f} a "
+              f"picture) ({card})")
+    d = bm.decode_rate(threads=8)
+    print(f"{form} host decode of the MPEG corpus ({d['clips']} clips, {d['frames']} frames of "
+          f"320x240, MPEG-2 TS with B-pictures and MPEG-1 PS): "
+          f"{d['frames_per_s_one_thread']:.0f} frames/s on one thread, "
+          f"{d['frames_per_s_pool']:.0f} on {d['threads']} ({card})")
+    k = bm.check_mixed_vs_cpu()
+    print(f"{form} recipe as written (cpu reader, .gpu()) against the mixed reader: "
+          f"{k['frames']} uint8 frames of {k['batches']} batches equal on the card; "
+          f"{form} phase: {time.perf_counter() - t0:.1f} s ({card})")
+    return r["cmn_launches"], c
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2233,6 +2331,7 @@ def main():
     launches["video_flow_train"], path_cmn["video_flow_train"] = video_flow_phase(card, rn50_ips)
     launches["ucf_avi_train"], path_cmn["ucf_avi_train"] = avi_phase(card, rn50_ips)
     launches["capture_avi_train"], path_cmn["capture_avi_train"] = capture_phase(card, rn50_ips)
+    launches["mpeg_ts_train"], path_cmn["mpeg_ts_train"] = mpeg_phase(card, rn50_ips)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

@@ -292,7 +292,7 @@ int demux_avi_src(const uint8_t* mem, int fd, uint64_t size, Track* track, std::
       if (!any) out[0].key = true;
     }
   }
-  track->avi = true;
+  track->container = kAvi;
   track->codec_tag = h.codec_tag;
   track->width = h.width;
   track->height = h.height < 0 ? -h.height : h.height;

@@ -297,8 +297,6 @@ const char* codec_name(uint32_t c) {
 const char* other_container(const uint8_t* d, size_t n) {
   if (n >= 4 && d[0] == 0x1a && d[1] == 0x45 && d[2] == 0xdf && d[3] == 0xa3)
     return "Matroska/WebM";
-  if (n >= 377 && d[0] == 0x47 && d[188] == 0x47 && d[376] == 0x47) return "MPEG-2 TS";
-  if (n >= 4 && d[0] == 0 && d[1] == 0 && d[2] == 1 && d[3] == 0xba) return "MPEG-PS";
   if (n >= 4 && d[0] == 0 && d[1] == 0 && d[2] == 1 && (d[3] == 0xb0 || d[3] <= 0x2f))
     return "raw MPEG-4 Part 2 elementary stream";
   if (n >= 3 && !memcmp(d, "FLV", 3)) return "FLV";
@@ -355,7 +353,8 @@ int finish(const TopLevel& top, const uint8_t* head, size_t head_n, uint64_t fil
     const char* other = other_container(head, head_n);
     if (other) {
       *msg = std::string(other) +
-             " input: the port reads MP4 (ISO BMFF) and AVI, ROADMAP.md Queue 1 item 8b";
+             " input: the port reads MP4 (ISO BMFF), AVI, MPEG-PS, MPEG-TS and MPEG-1/2 "
+                           "elementary streams, ROADMAP.md Queue 1 item 8b";
       return kUnsupported;
     }
     *msg = "not a video file";

@@ -1,6 +1,7 @@
-// Shared declarations of the host video stack: the ISO BMFF and AVI
-// demuxers (mp4_demux.cc, avi_demux.cc), the MPEG-4 Part 2 decoder
-// (mpeg4_decode.cc), the Motion JPEG, HuffYUV and FFV1 frame decoders
+// Shared declarations of the host video stack: the ISO BMFF, AVI, MPEG-PS
+// and MPEG-TS demuxers (mp4_demux.cc, avi_demux.cc, mpeg_ps_demux.cc,
+// mpeg_ts_demux.cc), the MPEG-4 Part 2 and MPEG-1/2 decoders
+// (mpeg4_decode.cc, mpeg12_decode.cc), the Motion JPEG, HuffYUV and FFV1 frame decoders
 // (mjpeg_decode.cc, huffyuv_decode.cc, ffv1_decode.cc), the rebuild of
 // libswscale's RGB24 conversion (sws_rgb.cc) and the frame-accurate reader
 // over them (video_decode.cc).
@@ -24,8 +25,10 @@ constexpr uint32_t riff_fourcc(const char* s) {
 // names the form.
 enum Status { kOk = 0, kInvalid = -1, kUnsupported = -2 };
 
+constexpr int64_t kNoPts = INT64_MIN;
+
 struct Sample {
-  int64_t offset;
+  int64_t offset;  // MPEG-PS / TS / elementary stream: the offset in the stream's bytes
   int64_t size;
   int64_t dts;
   int64_t pts;
@@ -33,8 +36,28 @@ struct Sample {
   bool discard;  // past the edit list's end: decoded, its picture dropped
 };
 
+// Where an elementary stream carried in MPEG-PS or MPEG-TS packets lies in
+// the file: the demuxer's walk over the container's packets from
+// ``file_offset`` (a PES packet's start code in PS, the first TS packet of
+// a PES in TS) gives the stream's bytes from ``es_offset`` on, after
+// ``skip`` bytes (TS: the PES header). A PS track keeps one piece for each
+// PES packet a picture starts in (the walk goes on through the packets
+// after it), a TS track one for each PES packet (the walk ends at the
+// next), an elementary stream one for the whole file.
+struct EsPiece {
+  int64_t es_offset, file_offset, skip;
+};
+
+// The containers and the stream codecs of a Track
+enum Container { kMp4 = 0, kAvi = 1, kMpegPs = 2, kMpegTs = 3, kMpegEs = 4 };
+enum EsCodec { kEsMpeg12 = 1, kEsMpeg4 = 4 };
+
 struct Track {
-  bool avi = false;
+  int container = kMp4;
+  int es_codec = 0;             // MPEG-PS / TS / elementary stream: an EsCodec
+  std::vector<EsPiece> pieces;  // MPEG-PS / TS / elementary stream: where the stream's bytes lie
+  int es_id = -1;               // MPEG-PS: the video stream id; MPEG-TS: the video PID
+  int psi_pid = -1;             // MPEG-TS: the program map table's PID
   uint32_t codec_tag = 0;    // AVI: the BITMAPINFOHEADER's compression FourCC
   int width = 0, height = 0; // AVI: the BITMAPINFOHEADER's frame size
   int bits = 0;              // AVI: biBitCount (bits_per_coded_sample)
@@ -64,6 +87,89 @@ bool read_at(int fd, uint64_t pos, uint8_t* dst, size_t k);
 int demux_avi(const uint8_t* data, size_t n, Track* track, std::string* msg);
 int demux_avi_fd(int fd, uint64_t size, Track* track, std::string* msg);
 bool is_avi(const uint8_t* head, size_t n);
+
+// MPEG-PS (mpeg_ps_demux.cc) and MPEG-TS (mpeg_ts_demux.cc): the pictures
+// of the first video stream (MPEG-1/2; in TS also MPEG-4 Part 2) as
+// libavformat 5.1 hands them to the decoder: the elementary stream split
+// into pictures by its mpegvideo (mpeg4video) parser, a PES packet's PTS
+// and DTS given to the first picture that starts in it and the missing ones
+// filled in as compute_pkt_fields fills them (timescale 90 kHz; a sample's
+// ``key`` is an I-picture); ``start_time`` the first picture's pts and
+// ``duration`` the stream duration its estimate_timings_from_pts gives
+// (the last PES timestamps of the file's tail). A raw elementary stream
+// (``00 00 01 B3``) is split the same way, without timestamps.
+// A file of ``size`` bytes (``fd``, or ``mem`` when the file is in memory)
+// read forward in blocks of a MiB: the MPEG demuxers' pass over it.
+struct BlockReader {
+  int fd = -1;
+  const uint8_t* mem = nullptr;
+  uint64_t size = 0;
+  size_t block = size_t(1) << 20;  // the least a read from the file takes
+  std::vector<uint8_t> buf;
+  uint64_t buf_pos = 0;
+  // the bytes at [pos, pos + k), or null past the end of the file
+  const uint8_t* at(uint64_t pos, size_t k);
+};
+
+// What sees each picture the MPEG demuxers' split hands on, in order, with
+// its bytes and whether the split calls it an I-picture (I-VOP): the
+// open's header pass (video_decode.cc), so that the open reads the file
+// once.
+struct PictureSink {
+  virtual ~PictureSink() = default;
+  virtual void picture(const uint8_t* p, size_t n, bool key) = 0;
+};
+
+// A PES header's 33-bit PTS or DTS (its five bytes)
+int64_t pes_timestamp(const uint8_t* p);
+
+bool is_mpeg_ps(const uint8_t* head, size_t n);
+bool is_mpeg_ts(const uint8_t* head, size_t n);
+bool is_mpeg_es(const uint8_t* head, size_t n);
+// ``sink`` sees each picture as the split hands it on.
+int demux_mpeg_ps_fd(int fd, const uint8_t* mem, uint64_t size, Track* track, std::string* msg,
+                     PictureSink* sink);
+int demux_mpeg_ts_fd(int fd, const uint8_t* mem, uint64_t size, Track* track, std::string* msg,
+                     PictureSink* sink);
+int demux_mpeg_es_fd(int fd, const uint8_t* mem, uint64_t size, Track* track, std::string* msg,
+                     PictureSink* sink);
+// The stream's bytes [from, from + n) of an MPEG-PS, MPEG-TS or elementary
+// stream ``track`` into ``dst``, walked from its pieces as its demuxer
+// walked the file; false when they are not all there.
+bool read_es(BlockReader* in, const Track& track, int64_t from, int64_t n, uint8_t* dst);
+
+// What the MPEG demuxers share (mpeg_ps_demux.cc): the elementary stream's
+// split into the decoder's packets with their timestamps, fed one PES
+// packet at a time, and the duration estimate.
+class MpegEsSplitter {
+ public:
+  // ``codec``: an EsCodec; ``timescale``: the stream's time base (90 kHz in
+  // PS and TS, 1.2 MHz for an elementary stream); ``sink``: what sees each
+  // picture
+  MpegEsSplitter(int codec, int64_t timescale, PictureSink* sink);
+  ~MpegEsSplitter();
+  MpegEsSplitter(const MpegEsSplitter&) = delete;
+  MpegEsSplitter& operator=(const MpegEsSplitter&) = delete;
+  // One PES packet: its payload ``p`` (n bytes), its PTS and DTS (kNoPts
+  // when absent) and the file position of its header.
+  void feed(const uint8_t* p, size_t n, int64_t pts, int64_t dts, int64_t pos);
+  // The stream offset of the first byte no picture handed on holds yet:
+  // the next picture starts there.
+  int64_t pending() const;
+  // The pictures handed on so far, and where the i-th starts in the stream.
+  size_t pictures() const;
+  int64_t picture_offset(size_t i) const;
+  // The end of the stream: fills ``track``'s samples, start_time, duration
+  // (estimate_timings_from_pts over the PES packets from ``file_size``'s
+  // tail; for an elementary stream, ``file_size`` over an MPEG-1 header's
+  // bit rate) and fps (the sequence header's frame rate, or the pictures'
+  // timestamps for MPEG-4 Part 2).
+  void finish(uint64_t file_size, Track* track);
+
+ private:
+  struct Impl;
+  Impl* impl_;
+};
 
 // Bits over a buffer, most significant first, 32 at a time; reads past the
 // end give zeros and leave ``over()`` true (HuffYUV's and FFV1's Golomb-Rice
@@ -169,6 +275,56 @@ class Mpeg4Decoder {
   int width() const;
   int height() const;
   bool full_range() const;
+
+ private:
+  struct Impl;
+  Impl* impl_;
+};
+
+// The parameters an MPEG-1/2 stream carries from one picture to the next:
+// the sequence header and its extensions with the quantiser matrices
+// (raster order), and the last picture coding extension's coding tools. A
+// seek restores them as the whole-stream decode had them.
+struct Mpeg12State {
+  bool seen = false;  // a sequence header has been read
+  bool mpeg2 = false;
+  int width = 0, height = 0, aspect = 0;
+  int frame_rate_index = 0, frame_rate_ext_n = 1, frame_rate_ext_d = 1;
+  int64_t bit_rate = 0;
+  int progressive_sequence = 1, chroma_format = 1, low_delay = 0;
+  uint16_t intra[64] = {}, inter[64] = {}, chroma_intra[64] = {}, chroma_inter[64] = {};
+  int full_pel[2] = {0, 0};
+  int f_code[2][2] = {{1, 1}, {1, 1}};
+  int intra_dc_precision = 0, picture_structure = 3, frame_pred_frame_dct = 1;
+  int concealment_mv = 0, q_scale_type = 0, intra_vlc_format = 0, alternate_scan = 0;
+  int progressive_frame = 1;
+};
+
+// MPEG-1/2 video as FFmpeg 5.1's mpeg1video / mpeg2video decoder gives it
+// (mpeg12_decode.cc): one packet is one picture with the headers before it.
+class Mpeg12Decoder {
+ public:
+  Mpeg12Decoder();
+  ~Mpeg12Decoder();
+  Mpeg12Decoder(const Mpeg12Decoder&) = delete;
+  Mpeg12Decoder& operator=(const Mpeg12Decoder&) = delete;
+  // One packet, ``tag`` naming it: 1 when a picture is shown (``output()``,
+  // its ``tag`` that of the packet it was coded in), 0 when none, kInvalid
+  // or kUnsupported. ``headers_only`` reads the headers and decodes no
+  // macroblock: the shown pictures' tags come out the same.
+  int decode_packet(const uint8_t* p, size_t n, int64_t tag, bool headers_only,
+                    std::string* msg);
+  // The end of the stream: 1 when the held anchor is still to show.
+  int drain();
+  // Drops the pictures and the GOP state, as avcodec_flush_buffers does.
+  void flush();
+  const Picture& output() const;
+  Mpeg12State state() const;
+  void restore(const Mpeg12State& s);
+  // The picture type (1 I, 2 P, 3 B, 4 D, 0 none) of the last packet's
+  // picture header, and whether that picture was decoded (not skipped).
+  int last_type() const;
+  bool last_decoded() const;
 
  private:
   struct Impl;

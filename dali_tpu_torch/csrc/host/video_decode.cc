@@ -1,6 +1,7 @@
-// Frame-accurate video reads over the MP4 and AVI demuxers and the MPEG-4
-// Part 2, Motion JPEG, HuffYUV, FFV1 and raw 4:2:0 decoders: the counterpart
-// of dali_tpu's FFmpeg-backed video_decode.cc, with its contract:
+// Frame-accurate video reads over the MP4, AVI, MPEG-PS and MPEG-TS
+// demuxers and the MPEG-4 Part 2, MPEG-1/2, Motion JPEG, HuffYUV, FFV1 and
+// raw 4:2:0 decoders: the counterpart of dali_tpu's FFmpeg-backed
+// video_decode.cc, with its contract:
 //   * fps is the track's average frame rate (25 when it is not positive),
 //     the frame count the stts count;
 //   * a decoded picture's frame index is its pts in seconds times fps plus
@@ -28,18 +29,39 @@
 // (the dts of the packet a picture leaves the decoder with) misplaces the
 // pictures of streams with B-VOPs. The port numbers AVI frames in display
 // order instead: frame k is the k-th picture FFmpeg's decoder shows over
-// the whole stream. At open, a pass over the packets that parses the VOP
-// headers only (``Mpeg4Decoder::decode_packet`` with ``headers_only``)
-// gives each shown VOP its index and, for each packet that starts with an
-// I-VOP, the index of that I-VOP and the decoder's state there; a seek goes
-// to the last such packet whose I-VOP is at or before the target, in the
-// state the whole-stream decode had there. Motion JPEG, HuffYUV, FFV1 and
-// raw frames are numbered by packet; a seek into FFV1 starts at the last
-// packet at or before the target that the index flags as a key frame and
-// whose first range-coded bit says so (the frames after it keep its context
-// states). HuffYUV with per-frame tables carries them in each frame, so
-// every HuffYUV packet starts a decode. fps is the stream header's dwRate /
-// dwScale, the frame count its dwLength.
+// the whole stream. Motion JPEG, HuffYUV, FFV1 and raw frames are numbered
+// by packet; FFV1's seek points are the packets the index flags as key
+// frames and whose first range-coded bit says so (the frames after one keep
+// its context states). HuffYUV with per-frame tables carries them in each
+// frame, so every HuffYUV packet starts a decode. fps is the stream
+// header's dwRate / dwScale, the frame count its dwLength.
+//
+// MPEG-4 Part 2 (in AVI or MPEG-TS) and MPEG-1/2 (in AVI, MPEG-PS, MPEG-TS
+// or an elementary stream) take one route: at open, a pass over the
+// picture headers (``HeaderPass``: the decoders with ``headers_only``)
+// replays FFmpeg's output order and numbers every picture the whole stream
+// shows, in PS, TS and elementary streams by the reference's frame index
+// (its best_effort_timestamp: the packet's pts from the demuxer's replay of
+// libavformat, else the dts of the packet the picture leaves the decoder
+// with, through decode.c's guess_correct_pts), in AVI by display order. The
+// MPEG demuxers hand the pass each picture as they split it, so that the
+// open reads the file once; an AVI open reads each sample after the index.
+// The pass keeps the decoder's state before each packet that holds an
+// I-picture (or starts with an I-VOP the container calls a key): the seek
+// points. Every seek outside MP4 goes to the first picture in display
+// order whose frame index is at or past the target, from the last seek
+// point shown at or before it (so an open GOP's leading B-pictures decode
+// from the GOP before, and a stream whose timestamps go back, as at a
+// splice, reads after a seek as a new handle's forward decode does). The
+// frame count of PS and TS is the stream duration libavformat estimates
+// from the PES timestamps; an elementary stream's comes from an MPEG-1
+// header's bit rate.
+//
+// A handle's index grows with the file by about 100-150 bytes a picture
+// (``dali_tpu_torch_video_index_bytes``): the sample table, the numbering,
+// the seek points (an MPEG-1/2 state, 624 bytes, kept once however many
+// GOPs repeat it) and, for PS and TS, one piece a picture or PES packet,
+// from which a read walks the container's packets again.
 //
 // A handle opened from a path holds the sample table and the decoder's
 // pictures, not the file: each sample is read from the file when it is
@@ -52,6 +74,7 @@
 #include <sys/stat.h>
 #include <unistd.h>
 
+#include <algorithm>
 #include <atomic>
 #include <chrono>
 #include <climits>
@@ -78,7 +101,7 @@ constexpr int kDamaged = INT_MIN;
 constexpr int kUnsupportedRead = INT_MIN + 1;
 
 // what decodes the samples
-enum Codec { kMpeg4Mp4, kMpeg4Avi, kMjpegAvi, kRawAvi, kHuffyuvAvi, kFfv1Avi };
+enum Codec { kMpeg4Mp4, kMpeg4Avi, kMjpegAvi, kRawAvi, kHuffyuvAvi, kFfv1Avi, kMpeg12, kMpeg4Ts };
 
 struct VideoHandle {
   std::vector<uint8_t> data;  // the file's bytes, when opened from memory
@@ -88,6 +111,7 @@ struct VideoHandle {
   video::Track track;
   int codec = kMpeg4Mp4;
   video::Mpeg4Decoder dec;
+  video::Mpeg12Decoder m12;
   video::MjpegDecoder mjpeg;
   video::HuffyuvDecoder huffyuv;
   video::Ffv1Decoder ffv1;
@@ -95,12 +119,26 @@ struct VideoHandle {
   bool yv12 = false;       // raw planes stored V before U
   bool full_range = false;
   int format = video::kYuv420p;  // the stream's pixel format at open
-  // AVI: the frame index of each shown VOP's tag; per packet, the frame
-  // index of the I-VOP it starts with (-1 for none) and the decoder state
-  // before it
+  video::BlockReader in;  // MPEG-PS / TS / elementary stream: the walk over the file
+  // MPEG-1/2 and MPEG-4 Part 2 packets: the frame index of each shown
+  // picture's tag, and of each picture in display order (empty for the
+  // intra-only codecs, whose frame k is packet k)
   std::unordered_map<int64_t, int64_t> frame_of_tag;
-  std::vector<int64_t> key_frame;
-  std::vector<video::Mpeg4State> key_state;
+  std::vector<int64_t> frame_at;
+  // The packets a seek may start from, by display position, each with the
+  // index of the decoder's state before it (MPEG-1/2 or MPEG-4 Part 2; -1
+  // for FFV1); the first is packet 0, in order before any picture. An
+  // MPEG-1/2 stream's states repeat from GOP to GOP: each is kept once.
+  // Motion JPEG, HuffYUV and raw video keep none: any packet starts a
+  // decode.
+  struct SeekPoint {
+    size_t packet;
+    int64_t pos;
+    int32_t state;
+  };
+  std::vector<SeekPoint> seek_points;
+  std::vector<video::Mpeg12State> seek_state12;
+  std::vector<video::Mpeg4State> seek_state4;
   const video::Picture* shown = nullptr;  // the picture of the last decode
   int64_t shown_total = 0;  // AVI: the pictures the whole stream shows
   bool drained = false;
@@ -119,6 +157,12 @@ struct VideoHandle {
 // The bytes of sample ``s``, which lies within the file; null when the file
 // cannot be read there.
 const uint8_t* sample_bytes(VideoHandle* v, const video::Sample& s) {
+  if (!v->track.pieces.empty()) {
+    // MPEG-PS / TS / elementary stream: the walk over the packets that hold them
+    v->sample.resize(size_t(s.size));
+    return video::read_es(&v->in, v->track, s.offset, s.size, v->sample.data())
+               ? v->sample.data() : nullptr;
+  }
   if (v->fd < 0) return v->data.data() + s.offset;
   v->sample.resize(size_t(s.size));
   return video::read_at(v->fd, uint64_t(s.offset), v->sample.data(), v->sample.size())
@@ -133,7 +177,8 @@ int64_t sat_i64(double x) {
 }
 
 int64_t pts_to_frame(const VideoHandle* v, int64_t pts) {
-  double sec = ((double)pts - (double)v->track.start_time) * (1.0 / (double)v->track.timescale);
+  const double start = v->track.start_time == video::kNoPts ? 0.0 : (double)v->track.start_time;
+  double sec = ((double)pts - start) * (1.0 / (double)v->track.timescale);
   return sat_i64(sec * v->fps + 0.5);
 }
 
@@ -142,10 +187,21 @@ int64_t read_fail(VideoHandle* v, int r, const std::string& msg) {
   return r == video::kUnsupported ? kUnsupportedRead : kDamaged;
 }
 
-// One AVI packet: the frame it shows, or -2 for none.
+// One packet of an AVI, MPEG-PS, MPEG-TS or elementary stream: the frame it
+// shows, or -2 for none.
 int64_t decode_avi(VideoHandle* v, size_t index, const uint8_t* bytes, size_t size) {
   std::string msg;
-  if (v->codec == kMpeg4Avi) {
+  if (v->codec == kMpeg12) {
+    int r = v->m12.decode_packet(bytes, size, int64_t(index), false, &msg);
+    if (r < 0) return read_fail(v, r, msg);
+    if (r == 0) return -2;
+    v->shown = &v->m12.output();
+    auto it = v->frame_of_tag.find(v->shown->tag);
+    if (it == v->frame_of_tag.end())
+      return read_fail(v, video::kInvalid, "damaged MPEG-1/2 stream (a picture out of order)");
+    return it->second;
+  }
+  if (v->codec == kMpeg4Avi || v->codec == kMpeg4Ts) {
     int r = v->dec.decode_packet(bytes, size, int64_t(index), false, &msg);
     if (r < 0) return read_fail(v, r, msg);
     if (r == 0) return -2;
@@ -183,12 +239,13 @@ int64_t decode_avi(VideoHandle* v, size_t index, const uint8_t* bytes, size_t si
 // or kUnsupportedRead.
 int64_t decode_next(VideoHandle* v) {
   while (true) {
-    if (!v->at_end && v->next_sample >= v->track.samples.size() && v->codec == kMpeg4Avi &&
-        !v->drained) {
+    if (!v->at_end && v->next_sample >= v->track.samples.size() &&
+        (v->codec == kMpeg4Avi || v->codec == kMpeg4Ts || v->codec == kMpeg12) && !v->drained) {
       // the end of the stream shows the future reference still held
       v->drained = true;
-      if (v->dec.drain()) {
-        v->shown = &v->dec.output();
+      const bool held = v->codec == kMpeg12 ? v->m12.drain() : v->dec.drain();
+      if (held) {
+        v->shown = v->codec == kMpeg12 ? &v->m12.output() : &v->dec.output();
         auto it = v->frame_of_tag.find(v->shown->tag);
         if (it != v->frame_of_tag.end()) {
           v->next_frame = it->second + 1;
@@ -234,33 +291,48 @@ int64_t decode_next(VideoHandle* v) {
 // padded read from before it does
 int64_t next_for(VideoHandle* v, long target, int got) {
   int64_t idx = decode_next(v);
-  if (idx == kEof && got == 0 && v->codec != kMpeg4Mp4 && v->shown &&
+  if (idx == kEof && got == 0 && v->track.container == video::kAvi && v->shown &&
       v->next_frame == v->shown_total && target >= v->shown_total && target < v->num_frames)
     return target;
   return idx;
 }
 
-// AVI: the last packet that starts with an I-VOP (any packet of Motion
-// JPEG, HuffYUV or raw video, an FFV1 key frame) whose frame is at or
-// before the target
-void seek_avi(VideoHandle* v, long target) {
-  long pick = 0;
-  for (size_t i = 0; i < v->key_frame.size(); i++)
-    if (v->key_frame[i] >= 0 && v->key_frame[i] <= target) pick = long(i);
-  v->next_sample = size_t(pick);
+// Every container but MP4: the first picture in display order whose frame
+// index is at or past the target (the intra-only codecs: frame ``target``),
+// reached from the last seek point at or before it (an open GOP's leading
+// B-pictures need the GOP before theirs), in the state the whole-stream
+// decode had there
+void seek_display(VideoHandle* v, long target) {
+  int64_t pos = target;
+  if (!v->frame_at.empty()) {
+    pos = 0;
+    while (size_t(pos) < v->frame_at.size() && v->frame_at[size_t(pos)] < target) pos++;
+  }
+  const VideoHandle::SeekPoint* pick = nullptr;
+  for (const auto& p : v->seek_points)
+    if (p.pos <= pos) pick = &p;
+  v->next_sample = pick ? pick->packet : 0;
+  const int64_t n = int64_t(v->track.samples.size());
+  if ((v->codec == kMjpegAvi || v->codec == kHuffyuvAvi || v->codec == kRawAvi) && n > 0)
+    v->next_sample = size_t(std::min(std::max<int64_t>(pos, 0), n - 1));  // every packet
   v->at_end = false;
   v->drained = false;
   v->next_frame = -1;
-  if (v->codec == kMpeg4Avi) {
+  const size_t state = pick ? size_t(pick->state) : SIZE_MAX;
+  if (v->codec == kMpeg12) {
+    v->m12.flush();
+    if (state < v->seek_state12.size()) v->m12.restore(v->seek_state12[state]);
+  }
+  if (v->codec == kMpeg4Avi || v->codec == kMpeg4Ts) {
     v->dec.flush();
-    if (size_t(pick) < v->key_state.size()) v->dec.restore(v->key_state[size_t(pick)]);
+    if (state < v->seek_state4.size()) v->dec.restore(v->seek_state4[state]);
   }
   if (v->codec == kFfv1Avi) v->ffv1.flush();
 }
 
 void seek_if_needed(VideoHandle* v, long target) {
   if (!(target < v->next_frame || target > v->next_frame + 64)) return;
-  if (v->codec != kMpeg4Mp4) return seek_avi(v, target);
+  if (v->codec != kMpeg4Mp4) return seek_display(v, target);
   const auto& smp = v->track.samples;
   if (smp.empty()) return;
   int64_t ts = sat_i64((double)target / v->fps / (1.0 / (double)v->track.timescale) +
@@ -459,6 +531,270 @@ bool frame_size_ok(int w, int h) {
   return w > 0 && h > 0 && (8 * int64_t(w) + 1024) * (int64_t(h) + 128) < INT_MAX;
 }
 
+// decode.c's guess_correct_pts: the best_effort_timestamp of a frame from
+// its packet's pts and the dts of the packet it left the decoder with
+struct PtsGuess {
+  int64_t faulty_pts = 0, faulty_dts = 0, last_pts = INT64_MIN, last_dts = INT64_MIN;
+  int64_t guess(int64_t reordered_pts, int64_t dts) {
+    if (dts != video::kNoPts) {
+      faulty_dts += dts <= last_dts;
+      last_dts = dts;
+    } else if (reordered_pts != video::kNoPts) {
+      last_dts = reordered_pts;
+    }
+    if (reordered_pts != video::kNoPts) {
+      faulty_pts += reordered_pts <= last_pts;
+      last_pts = reordered_pts;
+    } else if (dts != video::kNoPts) {
+      last_pts = dts;
+    }
+    if ((faulty_pts <= faulty_dts || dts == video::kNoPts) && reordered_pts != video::kNoPts)
+      return reordered_pts;
+    return dts;
+  }
+};
+
+// MPEG-PS, MPEG-TS and elementary streams count no frames: the frame count
+// comes from the stream duration libavformat estimates
+int64_t es_num_frames(const VideoHandle* v) {
+  const video::Track& t = v->track;
+  return t.duration > 0
+             ? sat_i64(double(t.duration) * (1.0 / double(t.timescale)) * v->fps + 0.5) : 0;
+}
+
+// Whether two MPEG-1/2 states are equal field by field (the size check
+// fails when a field is added that this does not compare yet)
+static_assert(sizeof(video::Mpeg12State) == 624, "same_state compares every field");
+bool same_state(const video::Mpeg12State& a, const video::Mpeg12State& b) {
+  auto mat = [](const uint16_t* x, const uint16_t* y) { return !memcmp(x, y, 64 * sizeof(*x)); };
+  return a.seen == b.seen && a.mpeg2 == b.mpeg2 && a.width == b.width && a.height == b.height &&
+         a.aspect == b.aspect && a.frame_rate_index == b.frame_rate_index &&
+         a.frame_rate_ext_n == b.frame_rate_ext_n && a.frame_rate_ext_d == b.frame_rate_ext_d &&
+         a.bit_rate == b.bit_rate && a.progressive_sequence == b.progressive_sequence &&
+         a.chroma_format == b.chroma_format && a.low_delay == b.low_delay &&
+         mat(a.intra, b.intra) && mat(a.inter, b.inter) && mat(a.chroma_intra, b.chroma_intra) &&
+         mat(a.chroma_inter, b.chroma_inter) && a.full_pel[0] == b.full_pel[0] &&
+         a.full_pel[1] == b.full_pel[1] && a.f_code[0][0] == b.f_code[0][0] &&
+         a.f_code[0][1] == b.f_code[0][1] && a.f_code[1][0] == b.f_code[1][0] &&
+         a.f_code[1][1] == b.f_code[1][1] && a.intra_dc_precision == b.intra_dc_precision &&
+         a.picture_structure == b.picture_structure &&
+         a.frame_pred_frame_dct == b.frame_pred_frame_dct &&
+         a.concealment_mv == b.concealment_mv && a.q_scale_type == b.q_scale_type &&
+         a.intra_vlc_format == b.intra_vlc_format && a.alternate_scan == b.alternate_scan &&
+         a.progressive_frame == b.progressive_frame;
+}
+
+// The pass at open over the picture headers of an MPEG-1/2 or MPEG-4 Part 2
+// stream, packet by packet in order: the MPEG demuxers hand it each picture
+// as their split finds it (so the open reads the file once), an AVI open
+// each sample. It replays FFmpeg's output order with a decoder that parses
+// headers and decodes no macroblock, notes each shown picture's tag and
+// the packet it left with, and keeps the decoder's state before each packet
+// a seek may start from: one holding an I-picture (MPEG-1/2: one decoded,
+// not skipped), or starting with an I-VOP that the container calls a key
+// (MPEG-4 Part 2).
+struct HeaderPass : video::PictureSink {
+  VideoHandle* v;
+  int mpeg4;              // 1: MPEG-4 Part 2, 0: MPEG-1/2, -1: the track's, at its first picture
+  uint32_t tag4;          // MPEG-4 Part 2: the AVI codec tag of its packet mode
+  bool configured = false;
+  video::Mpeg12Decoder m12;
+  video::Mpeg4Decoder m4;
+  video::Mpeg12State first;  // MPEG-1/2: the first sequence header's
+  int status = video::kOk;   // kUnsupported ends the open
+  bool stopped = false;      // damage: the pass stops, the read reports it
+  std::string msg;
+  size_t packets = 0;
+  struct Shown {
+    int64_t tag;
+    size_t left_with;  // the packet it left the decoder with (SIZE_MAX at the end)
+  };
+  std::vector<Shown> shown;
+  struct Key {
+    size_t packet;
+    int64_t tag;    // of the I-picture the packet holds; -1: packet 0, before any picture
+    int32_t state;  // in the handle's seek_state12 or seek_state4
+  };
+  std::vector<Key> keys;
+
+  // the index of an MPEG-1/2 state among the last few kept, else a new one
+  int32_t keep(const video::Mpeg12State& st) {
+    auto& pool = v->seek_state12;
+    for (size_t k = pool.size(); k > 0 && k + 8 > pool.size(); k--)
+      if (same_state(pool[k - 1], st)) return int32_t(k - 1);
+    pool.push_back(st);
+    return int32_t(pool.size() - 1);
+  }
+
+  HeaderPass(VideoHandle* h, int is_mpeg4, uint32_t tag) : v(h), mpeg4(is_mpeg4), tag4(tag) {}
+
+  // MPEG-4 Part 2: the VOL headers (the extradata, else those before the
+  // first VOP of the first packet, as libavformat extracts them)
+  void configure(const uint8_t* b, size_t len) {
+    configured = true;
+    std::vector<uint8_t> config = v->track.config;
+    if (config.empty() && b) {
+      size_t k = 0;
+      while (k + 4 <= len && !(b[k] == 0 && b[k + 1] == 0 && b[k + 2] == 1 && b[k + 3] == 0xb6))
+        k++;
+      if (k + 4 <= len) config.assign(b, b + k);
+    }
+    for (video::Mpeg4Decoder* d : {&v->dec, &m4}) {
+      d->set_packet_mode(tag4);
+      if (!config.empty() &&
+          d->configure(config.data(), config.size(), &msg) == video::kUnsupported) {
+        status = video::kUnsupported;
+        stopped = true;
+        return;
+      }
+    }
+  }
+
+  void picture(const uint8_t* b, size_t len, bool key) override {
+    const size_t i = packets++;
+    if (mpeg4 < 0) mpeg4 = v->track.es_codec == video::kEsMpeg4;
+    if (mpeg4 && !configured) configure(b, len);
+    if (stopped) return;
+    if (mpeg4) {
+      const video::Mpeg4State before = m4.state();
+      if (i == 0) {
+        keys.push_back({0, -1, int32_t(v->seek_state4.size())});
+        v->seek_state4.push_back(before);
+      }
+      int64_t first_tag = -1;
+      for (size_t k = 0; k + 4 < len; k++)
+        if (b[k] == 0 && b[k + 1] == 0 && b[k + 2] == 1 && b[k + 3] == 0xb6) {
+          if (!(b[k + 4] >> 6) && key) first_tag = (int64_t(i) << 32) + int64_t(k);
+          break;
+        }
+      const int r = m4.decode_packet(b, len, int64_t(i), true, &msg);
+      if (r < 0) return stop(r);
+      if (first_tag >= 0) {
+        keys.push_back({i, first_tag, int32_t(v->seek_state4.size())});
+        v->seek_state4.push_back(before);
+      }
+      if (r == 1) shown.push_back({m4.output().tag, i});
+      return;
+    }
+    const video::Mpeg12State before = m12.state();
+    if (i == 0) keys.push_back({0, -1, keep(before)});
+    const int r = m12.decode_packet(b, len, int64_t(i), true, &msg);
+    if (!first.seen && m12.state().seen) first = m12.state();
+    if (r < 0) return stop(r);
+    const bool intra = m12.last_decoded() && m12.last_type() == 1;
+    if (intra) keys.push_back({i, int64_t(i), keep(before)});
+    if (r == 1) shown.push_back({m12.output().tag, i});
+  }
+
+  void stop(int r) {
+    stopped = true;
+    if (r == video::kUnsupported) status = r;
+  }
+
+  // The end of the stream, then the numbering: in MPEG-PS, MPEG-TS and
+  // elementary streams each shown picture's frame index is the
+  // reference's (its best-effort timestamp from the packet's pts and the
+  // dts of the packet it left with, else one past the last), in AVI its
+  // place in display order; and the seek points by display position.
+  int finish(bool by_pts, std::string* out_msg) {
+    if (status != video::kOk) {
+      *out_msg = msg;
+      return status;
+    }
+    if (mpeg4 < 0) mpeg4 = v->track.es_codec == video::kEsMpeg4;
+    if (mpeg4 && !configured) configure(nullptr, 0);
+    if (mpeg4 ? m4.drain() : m12.drain())
+      shown.push_back({mpeg4 ? m4.output().tag : m12.output().tag, SIZE_MAX});
+    const auto& smp = v->track.samples;
+    PtsGuess guess;
+    int64_t next_idx = 0;
+    std::unordered_map<int64_t, int64_t> key_pos;
+    for (const Key& k : keys)
+      if (k.tag >= 0) key_pos[k.tag] = -1;
+    v->frame_at.reserve(shown.size());
+    for (const Shown& e : shown) {
+      int64_t idx = int64_t(v->frame_at.size());
+      if (by_pts) {
+        const size_t pkt = size_t(mpeg4 ? e.tag >> 32 : e.tag);
+        const int64_t pts = pkt < smp.size() ? smp[pkt].pts : video::kNoPts;
+        const int64_t dts = e.left_with < smp.size() ? smp[e.left_with].dts : video::kNoPts;
+        const int64_t best = guess.guess(pts, dts);
+        idx = best != video::kNoPts ? pts_to_frame(v, best) : next_idx;
+      }
+      next_idx = idx + 1;
+      auto it = key_pos.find(e.tag);
+      if (it != key_pos.end()) it->second = int64_t(v->frame_at.size());
+      v->frame_of_tag[e.tag] = idx;
+      v->frame_at.push_back(idx);
+    }
+    v->shown_total = int64_t(v->frame_at.size());
+    // packet 0, in order before every picture; each packet whose I-picture
+    // was shown, at that picture's display position
+    for (const Key& k : keys) {
+      const int64_t at = k.tag < 0 ? INT64_MIN : key_pos[k.tag];
+      if (at != -1) v->seek_points.push_back({k.packet, at, k.state});
+    }
+    shown = {};
+    keys = {};
+    return video::kOk;
+  }
+};
+
+// Feeds an AVI's samples to the header pass, in order, to the first that
+// is not in the file.
+void pass_avi_samples(VideoHandle* v, HeaderPass* pass) {
+  for (size_t i = 0; i < v->track.samples.size(); i++) {
+    const uint8_t* b = whole_sample(v, i);
+    if (!b) break;
+    pass->picture(b, size_t(v->track.samples[i].size), v->track.samples[i].key);
+  }
+}
+
+// MPEG-1/2 after its header pass: the size and format of the first
+// sequence header, the fps and the frame count.
+int open_mpeg12(VideoHandle* v, HeaderPass* pass, std::string* msg) {
+  video::Track& t = v->track;
+  v->codec = kMpeg12;
+  if (t.container != video::kAvi) v->fps = (t.fps > 0.0 && std::isfinite(t.fps)) ? t.fps : 25.0;
+  const int r = pass->finish(t.container != video::kAvi, msg);
+  if (r != video::kOk) return r;
+  if (!pass->first.seen) {
+    *msg = "no MPEG-1/2 sequence header";
+    return video::kInvalid;
+  }
+  v->width = pass->first.width;
+  v->height = pass->first.height;
+  v->format = pass->first.chroma_format == 2 ? video::kYuv422p : video::kYuv420p;
+  if (t.container != video::kAvi) v->num_frames = es_num_frames(v);
+  return video::kOk;
+}
+
+// MPEG-4 Part 2 in AVI or in MPEG-TS (numbered by pts) after its header
+// pass: the frame size and range of its VOL.
+int open_mpeg4_packets(VideoHandle* v, HeaderPass* pass, bool by_pts, std::string* msg) {
+  const int r = pass->finish(by_pts, msg);
+  if (r != video::kOk) return r;
+  v->width = v->dec.width();
+  v->height = v->dec.height();
+  v->full_range = v->dec.full_range();
+  return video::kOk;
+}
+
+
+// The frame size and format an open ends with
+int check_size(const VideoHandle* v, std::string* msg) {
+  if (v->width <= 0 || v->height <= 0) {
+    *msg = "no frame size in the stream headers";
+    return video::kInvalid;
+  }
+  if (v->format != video::kYuv420p && !video::sws_takes(v->format, v->width, v->height)) {
+    *msg = "4:2:2 video at an odd width and height: libswscale converts it through its "
+           "full-chroma bilinear route, ROADMAP.md Queue 1 item 8b";
+    return video::kUnsupported;
+  }
+  return video::kOk;
+}
+
 // The decoder of an AVI stream by its codec tag, the frame size, and the
 // frame index of every packet a seek may start from.
 int open_avi(VideoHandle* v, std::string* msg) {
@@ -471,7 +807,6 @@ int open_avi(VideoHandle* v, std::string* msg) {
   const size_t n = t.samples.size();
   v->num_frames = t.nb_frames > 0 ? t.nb_frames : t.duration;
   v->fps = (t.fps > 0.0 && std::isfinite(t.fps)) ? t.fps : 25.0;
-  v->key_frame.assign(n, -1);
   if (tag_in(tag, {"XVID", "DIVX", "DX50", "FMP4", "MP4V", "MP4S", "M4S2", "DIV1", "BLZ0", "XVIX",
                    "RMP4", "ZMP4", "3IV2", "WV1F", "SEDG", "WAWV", "FFDS", "FVFW", "DCOD", "MVXM",
                    "PM4V", "SMP4", "DXGM", "VIDM", "M4T3", "HDX4", "DM4V", "DMK2", "DYM4", "DIGI",
@@ -479,56 +814,15 @@ int open_avi(VideoHandle* v, std::string* msg) {
                    "PLV1", "GLV4", "GMP4", "MNM4", "GTM4", "UMP4", "GEOV", "GEOX"}) ||
       t.codec_tag == 0x04000000u) {
     v->codec = kMpeg4Avi;
-    // without extradata the headers before the first VOP stand in for it,
-    // as libavformat extracts them
-    std::vector<uint8_t> config = t.config;
-    if (config.empty() && n) {
-      const uint8_t* b = whole_sample(v, 0);
-      size_t k = 0, len = b ? size_t(t.samples[0].size) : 0;
-      while (k + 4 <= len && !(b[k] == 0 && b[k + 1] == 0 && b[k + 2] == 1 && b[k + 3] == 0xb6))
-        k++;
-      if (b && k + 4 <= len) config.assign(b, b + k);
-    }
-    video::Mpeg4Decoder sim;
-    for (video::Mpeg4Decoder* d : {&v->dec, &sim}) {
-      d->set_packet_mode(tag);
-      if (!config.empty() && d->configure(config.data(), config.size(), msg) == video::kUnsupported)
-        return video::kUnsupported;
-    }
-    v->width = v->dec.width();
-    v->height = v->dec.height();
-    v->full_range = v->dec.full_range();
-    // the whole stream's shown pictures, from its VOP headers
-    v->key_state.resize(n);
-    std::vector<int64_t> first_tag(n, -1);
-    int64_t shown = 0;
-    for (size_t i = 0; i < n; i++) {
-      const uint8_t* b = whole_sample(v, i);
-      if (!b) break;
-      const size_t len = size_t(t.samples[i].size);
-      v->key_state[i] = sim.state();
-      for (size_t k = 0; k + 4 < len; k++)
-        if (b[k] == 0 && b[k + 1] == 0 && b[k + 2] == 1 && b[k + 3] == 0xb6) {
-          if (!(b[k + 4] >> 6) && t.samples[i].key) first_tag[i] = (int64_t(i) << 32) + int64_t(k);
-          break;
-        }
-      int r = sim.decode_packet(b, len, int64_t(i), true, msg);
-      if (r == video::kUnsupported) return r;
-      if (r < 0) break;  // damage: the read reports it
-      if (r == 1) v->frame_of_tag[sim.output().tag] = shown++;
-    }
-    if (sim.drain()) v->frame_of_tag[sim.output().tag] = shown++;
-    v->shown_total = shown;
-    for (size_t i = 0; i < n; i++) {
-      auto it = first_tag[i] >= 0 ? v->frame_of_tag.find(first_tag[i]) : v->frame_of_tag.end();
-      if (it != v->frame_of_tag.end()) v->key_frame[i] = it->second;
-    }
+    HeaderPass pass(v, 1, tag);
+    pass_avi_samples(v, &pass);
+    const int r = open_mpeg4_packets(v, &pass, false, msg);
+    if (r != video::kOk) return r;
   } else if (tag_in(tag, {"MJPG", "DMB1", "MJPA", "AVRN", "ACDV", "QIVG", "SLMJ", "CJPG", "IJLV",
                           "MVJ1", "AVI1", "AVI2", "MTSJ", "ZJPG", "MMJP", "JPGL"})) {
     v->codec = kMjpegAvi;
     v->full_range = true;
     v->shown_total = int64_t(n);
-    for (size_t i = 0; i < n; i++) v->key_frame[i] = int64_t(i);
     const uint8_t* b = n ? whole_sample(v, 0) : nullptr;
     if (b) {
       video::MjpegDecoder probe;
@@ -549,7 +843,6 @@ int open_avi(VideoHandle* v, std::string* msg) {
     v->shown_total = int64_t(n);
     v->width = t.width;
     v->height = t.height;
-    for (size_t i = 0; i < n; i++) v->key_frame[i] = int64_t(i);
     int r = v->huffyuv.configure(t.bits, t.config.data(), t.config.size(), t.width, t.height, msg);
     if (r != video::kOk) return r;
     v->format = v->huffyuv.format();
@@ -561,19 +854,24 @@ int open_avi(VideoHandle* v, std::string* msg) {
     int r = v->ffv1.configure(t.config.data(), t.config.size(), t.width, t.height, msg);
     if (r != video::kOk) return r;
     // the seek points: packets the index and the frame's own bit call key
+    std::vector<bool> keys(n, false);
     for (size_t i = 0; i < n; i++) {
       const video::Sample& s = t.samples[i];
       uint8_t head[2];
-      if (s.key && s.size >= 2 && read_head(v, s, head, 2) && video::Ffv1Decoder::is_key(head, 2))
-        v->key_frame[i] = int64_t(i);
+      keys[i] = s.key && s.size >= 2 && read_head(v, s, head, 2) &&
+                video::Ffv1Decoder::is_key(head, 2);
     }
+    // FFV1: frame k is packet k, a seek starts at a key packet
+    v->seek_points.push_back({0, INT64_MIN, -1});
+    for (size_t i = 0; i < n; i++)
+      if (keys[i]) v->seek_points.push_back({i, int64_t(i), -1});
     v->format = v->ffv1.format();
     if (v->format < 0) {
       // versions 0 and 1 state the format in their first key frame
       video::Ffv1Decoder probe;
       probe.configure(t.config.data(), t.config.size(), t.width, t.height, msg);
       for (size_t i = 0; i < n && v->format < 0; i++) {
-        if (v->key_frame[i] < 0) continue;
+        if (!keys[i]) continue;
         const uint8_t* b = whole_sample(v, i);
         if (!b) break;
         r = probe.decode(b, size_t(t.samples[i].size), msg);
@@ -583,21 +881,23 @@ int open_avi(VideoHandle* v, std::string* msg) {
       }
       if (v->format < 0) v->format = video::kYuv420p;
     }
+  } else if (tag_in(tag, {"MPG1", "MPG2", "PIM1", "MPEG", "MPGI", "MMES"}) ||
+             t.codec_tag == 0x10000001u || t.codec_tag == 0x10000002u) {
+    HeaderPass pass(v, 0, 0);
+    pass_avi_samples(v, &pass);
+    const int r = open_mpeg12(v, &pass, msg);
+    if (r != video::kOk) return r;
   } else if (tag_in(tag, {"I420", "IYUV", "YV12"})) {
     v->codec = kRawAvi;
     v->shown_total = int64_t(n);
     v->yv12 = tag_in(tag, {"YV12"});
     v->width = t.width;
     v->height = t.height;
-    for (size_t i = 0; i < n; i++) v->key_frame[i] = int64_t(i);
     video::Picture& p = v->raw;
     p.allocate(video::kYuv420p, t.width, t.height);
   } else {
     std::string what;
-    if (tag_in(tag, {"MPG1", "MPG2", "PIM1", "MPEG", "MPGI", "MMES", "MPG4"}) ||
-        t.codec_tag == 0x10000001u || t.codec_tag == 0x10000002u)
-      what = "MPEG-1/2";
-    else if (tag_in(tag, {"H264", "X264", "AVC1", "DAVC", "VSSH", "Q264", "V264", "GAVC"}))
+    if (tag_in(tag, {"H264", "X264", "AVC1", "DAVC", "VSSH", "Q264", "V264", "GAVC"}))
       what = "H.264";
     else if (tag_in(tag, {"HEVC", "H265", "HVC1"})) what = "HEVC";
     else if (t.codec_tag == 0) what = "uncompressed RGB";
@@ -606,21 +906,12 @@ int open_avi(VideoHandle* v, std::string* msg) {
                     char(t.codec_tag >> 24), 0};
       what = std::string("'") + cc + "'";
     }
-    *msg = what + " video in AVI: the port decodes MPEG-4 Part 2, Motion JPEG, HuffYUV, FFV1 "
-                  "and raw 4:2:0 in AVI; MPEG-1/2, H.264, HEVC, uncompressed RGB and the rest are "
-                  "ROADMAP.md Queue 1 item 8b";
+    *msg = what + " video in AVI: the port decodes MPEG-1/2, MPEG-4 Part 2, Motion JPEG, "
+                  "HuffYUV, FFV1 and raw 4:2:0 in AVI; H.264, HEVC, uncompressed RGB and the "
+                  "rest are ROADMAP.md Queue 1 item 8b";
     return video::kUnsupported;
   }
-  if (v->width <= 0 || v->height <= 0) {
-    *msg = "no frame size in the stream headers";
-    return video::kInvalid;
-  }
-  if (v->format != video::kYuv420p && !video::sws_takes(v->format, v->width, v->height)) {
-    *msg = "4:2:2 video at an odd width and height: libswscale converts it through its "
-           "full-chroma bilinear route, ROADMAP.md Queue 1 item 8b";
-    return video::kUnsupported;
-  }
-  return video::kOk;
+  return check_size(v, msg);
 }
 
 }  // namespace
@@ -659,27 +950,63 @@ void* dali_tpu_torch_video_open(const char* path, const unsigned char* data, siz
   };
   std::string msg;
   int r;
+  uint8_t head[3 * 188];
+  size_t head_n = 0;
   if (path) {
     v->fd = ::open(path, O_RDONLY | O_CLOEXEC);
     if (v->fd < 0) return fail(1, "cannot open the file");
     struct stat st;
     if (fstat(v->fd, &st) != 0) return fail(1, "cannot read the file");
     v->size = uint64_t(st.st_size);
-    uint8_t head[12];
-    bool avi = v->size >= 12 && video::read_at(v->fd, 0, head, 12) && video::is_avi(head, 12);
-    r = avi ? video::demux_avi_fd(v->fd, v->size, &v->track, &msg)
-            : video::demux_mp4_fd(v->fd, v->size, &v->track, &msg);
+    head_n = size_t(std::min<uint64_t>(v->size, sizeof(head)));
+    if (!video::read_at(v->fd, 0, head, head_n)) head_n = 0;
   } else {
     v->data.assign(data, data + n);
     v->size = n;
-    r = video::is_avi(v->data.data(), v->data.size())
-            ? video::demux_avi(v->data.data(), v->data.size(), &v->track, &msg)
-            : video::demux_mp4(v->data.data(), v->data.size(), &v->track, &msg);
+    head_n = std::min(n, sizeof(head));
+    if (head_n) memcpy(head, data, head_n);
+  }
+  const uint8_t* mem = path ? nullptr : v->data.data();
+  // MPEG-PS, MPEG-TS and elementary streams: the header pass runs as the
+  // demuxer reads the file, and reads walk it from the demuxer's pieces
+  HeaderPass pass(v, -1, 0);
+  v->in.fd = v->fd;
+  v->in.mem = mem;
+  v->in.size = v->size;
+  v->in.block = size_t(1) << 16;
+  if (video::is_avi(head, head_n)) {
+    r = mem ? video::demux_avi(mem, v->size, &v->track, &msg)
+            : video::demux_avi_fd(v->fd, v->size, &v->track, &msg);
+  } else if (video::is_mpeg_ps(head, head_n)) {
+    r = video::demux_mpeg_ps_fd(v->fd, mem, v->size, &v->track, &msg, &pass);
+  } else if (video::is_mpeg_ts(head, head_n)) {
+    r = video::demux_mpeg_ts_fd(v->fd, mem, v->size, &v->track, &msg, &pass);
+  } else if (video::is_mpeg_es(head, head_n)) {
+    r = video::demux_mpeg_es_fd(v->fd, mem, v->size, &v->track, &msg, &pass);
+  } else {
+    r = mem ? video::demux_mp4(mem, v->size, &v->track, &msg)
+            : video::demux_mp4_fd(v->fd, v->size, &v->track, &msg);
   }
   if (r != video::kOk) return fail(r == video::kUnsupported ? 2 : 1, msg);
-  if (v->track.avi) {
-    r = open_avi(v, &msg);
+  if (v->track.container != video::kMp4) {
+    if (v->track.container == video::kAvi) r = open_avi(v, &msg);
+    else if (v->track.es_codec == video::kEsMpeg4) {
+      v->codec = kMpeg4Ts;
+      v->fps = (v->track.fps > 0.0 && std::isfinite(v->track.fps)) ? v->track.fps : 25.0;
+      r = open_mpeg4_packets(v, &pass, true, &msg);
+      v->num_frames = es_num_frames(v);
+    } else {
+      r = open_mpeg12(v, &pass, &msg);
+    }
+    if (r == video::kOk) r = check_size(v, &msg);
     if (r != video::kOk) return fail(r == video::kUnsupported ? 2 : 1, msg);
+    // the index is built: its vectors' slack goes
+    v->track.samples.shrink_to_fit();
+    v->track.pieces.shrink_to_fit();
+    v->frame_at.shrink_to_fit();
+    v->seek_points.shrink_to_fit();
+    v->seek_state12.shrink_to_fit();
+    v->seek_state4.shrink_to_fit();
     return v;
   }
   if (!v->track.config.empty()) {
@@ -741,6 +1068,8 @@ const char* dali_tpu_torch_video_codec(void* handle) {
     case kRawAvi: return "raw 4:2:0 (AVI)";
     case kHuffyuvAvi: return "HuffYUV (AVI)";
     case kFfv1Avi: return "FFV1 (AVI)";
+    case kMpeg12: return "MPEG-1/2 video";
+    case kMpeg4Ts: return "MPEG-4 Part 2 (MPEG-TS)";
     default: return "MPEG-4 Part 2";
   }
 }
@@ -793,6 +1122,27 @@ void dali_tpu_torch_video_read_batch(void* pool, void* const* handles, const lon
 }
 
 void dali_tpu_torch_video_close(void* handle) { delete static_cast<VideoHandle*>(handle); }
+
+// The bytes a handle's index of the file holds on the heap, which grow with
+// the file's length: the sample table, the pieces of an MPEG-PS or TS, the
+// frame numbering and the seek points with their decoder states (the
+// pictures and read buffers, whose size does not, are left out).
+long dali_tpu_torch_video_index_bytes(void* handle) {
+  auto* v = static_cast<VideoHandle*>(handle);
+  if (!v) return 0;
+  const video::Track& t = v->track;
+  size_t b = t.samples.capacity() * sizeof(video::Sample) +
+             t.pieces.capacity() * sizeof(video::EsPiece) + t.config.capacity() +
+             v->frame_at.capacity() * sizeof(int64_t) +
+             v->seek_points.capacity() * sizeof(VideoHandle::SeekPoint) +
+             v->seek_state12.capacity() * sizeof(video::Mpeg12State) +
+             v->seek_state4.capacity() * sizeof(video::Mpeg4State);
+  // an unordered_map node: the key and value and the next pointer, and
+  // one bucket pointer
+  b += v->frame_of_tag.size() * (2 * sizeof(int64_t) + sizeof(void*)) +
+       v->frame_of_tag.bucket_count() * sizeof(void*);
+  return long(b);
+}
 
 // The seconds the RGB reads spent converting through the swscale rebuild
 // (summed over the threads that read) and the frames they converted since

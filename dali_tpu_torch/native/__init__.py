@@ -31,13 +31,16 @@
   to ``cv2.imdecode``; ``inflate_zlib`` and ``webp_alpha`` expose the
   inflate and the ``ALPH`` decode alone.
 * ``VideoFile``, ``VideoPixfmtChanged``, ``has_video`` and
-  ``video_read_batch`` — frame-accurate reads of MP4 and AVI video: MPEG-4
-  Part 2 (XviD/DivX B-VOPs and packed bitstreams included), Motion JPEG
-  and raw 4:2:0 (``csrc/host/mp4_demux.cc``, ``avi_demux.cc``,
-  ``mpeg4_decode.cc``, ``mjpeg_decode.cc``, ``video_decode.cc``), with the
+  ``video_read_batch`` — frame-accurate reads of MP4, AVI, MPEG-PS,
+  MPEG-TS and MPEG-1/2 elementary stream video: MPEG-4 Part 2 (XviD/DivX
+  B-VOPs and packed bitstreams included), MPEG-1/2, Motion JPEG and raw
+  4:2:0 (``csrc/host/mp4_demux.cc``, ``avi_demux.cc``,
+  ``mpeg_ps_demux.cc``, ``mpeg_ts_demux.cc``, ``mpeg4_decode.cc``,
+  ``mpeg12_decode.cc``, ``mjpeg_decode.cc``, ``video_decode.cc``), with the
   signatures and errors of ``dali_tpu.native``'s FFmpeg-backed ones and its
-  frames bit for bit (AVI frames in display order, where the reference
-  misplaces those of streams with B-VOPs).
+  frames bit for bit (frames in display order after a seek, where the
+  reference misplaces those of AVI streams with B-VOPs or MPEG-1/2, and of
+  MPEG-PS and TS streams after a backward seek).
 """
 
 from __future__ import annotations
@@ -158,6 +161,8 @@ def host_lib():
                                                             ci, ip]
             lib.dali_tpu_torch_video_close.restype = None
             lib.dali_tpu_torch_video_close.argtypes = [vp]
+            lib.dali_tpu_torch_video_index_bytes.restype = ctypes.c_long
+            lib.dali_tpu_torch_video_index_bytes.argtypes = [vp]
             lib.dali_tpu_torch_sws_rgb.restype = ci
             lib.dali_tpu_torch_sws_rgb.argtypes = [ci, ci, ci, ci, sp, ip, vp]
             lib.dali_tpu_torch_sws_clock.restype = None
@@ -1094,12 +1099,15 @@ class VideoPixfmtChanged(RuntimeError):
 
 
 def has_video() -> bool:
-    """The port decodes MP4 and AVI video itself: always available."""
+    """The port decodes MP4, AVI, MPEG-PS, MPEG-TS and MPEG-1/2 elementary
+    stream video itself: always available."""
     return True
 
 
 class VideoFile:
-    """Frame-accurate sequence reads of an MP4 or AVI file, to RGB24
+    """Frame-accurate sequence reads of an MP4, AVI, MPEG-PS (``.mpg``,
+    ``.vob``), MPEG-TS or MPEG-1/2 elementary stream (``.m1v``, ``.m2v``)
+    file, to RGB24
     or planar YUV 4:2:0 (counterpart of ``dali_tpu.native.VideoFile``: its
     signatures, its errors and its frames). ``path`` may instead be the
     encoded bytes of the file. Raises ``ValueError`` where the reference
@@ -1139,6 +1147,12 @@ class VideoFile:
         # converted as libswscale's RGB24 route does); 1 = 4:2:0 limited
         # range; 2 = 4:2:0 full range
         self.pixfmt_class = int(lib.dali_tpu_torch_video_pixfmt_class(self._h))
+
+    def index_bytes(self) -> int:
+        """The heap bytes of this handle's index of the file (sample table,
+        MPEG-PS/TS pieces, frame numbering, seek points and their decoder
+        states): the part of its memory that grows with the file's length."""
+        return int(self._lib.dali_tpu_torch_video_index_bytes(self._h))
 
     def _error(self) -> str:
         return _text(self._lib.dali_tpu_torch_video_error(self._h))

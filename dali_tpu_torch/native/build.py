@@ -16,7 +16,9 @@
   MPEG-4 Part 2 decoder with their frame-accurate reader (``mp4_demux.cc``,
   ``mpeg4_decode.cc``, ``video_decode.cc``), the AVI demuxer and the Motion
   JPEG, HuffYUV and FFV1 decoders (``avi_demux.cc``, ``mjpeg_decode.cc``,
-  ``huffyuv_decode.cc``, ``ffv1_decode.cc``), the rebuild of libswscale's
+  ``huffyuv_decode.cc``, ``ffv1_decode.cc``), the MPEG-1/2 decoder with
+  the MPEG-PS and MPEG-TS demuxers (``mpeg12_decode.cc``,
+  ``mpeg_ps_demux.cc``, ``mpeg_ts_demux.cc``), the rebuild of libswscale's
   RGB24 route (``sws_rgb.cc``), the Farneback optical flow
   (``optical_flow.cc``) and the image filters (``host_ops.cc``, compiled into
   an object of its own with floating-point contraction on, as ``dali_tpu``
@@ -61,7 +63,7 @@ HOST_SOURCES = [os.path.join(_HOST_SRC, f) for f in (
     "pnm_decode.cc", "image_decode_batch.cc", "mp3_decode.cc", "ogg.cc", "vorbis_decode.cc",
     "audio_decode_batch.cc", "mp4_demux.cc", "avi_demux.cc", "mpeg4_decode.cc",
     "mjpeg_decode.cc", "huffyuv_decode.cc", "ffv1_decode.cc", "sws_rgb.cc", "video_decode.cc",
-    "optical_flow.cc")]
+    "optical_flow.cc", "mpeg12_decode.cc", "mpeg_ps_demux.cc", "mpeg_ts_demux.cc")]
 # compiled with dali_tpu's own flags (contraction on): its float filters sum
 # into the fused multiply-adds of the reference's library
 HOST_CONTRACT_SOURCES = [os.path.join(_HOST_SRC, "host_ops.cc")]
@@ -69,7 +71,8 @@ HOST_CONTRACT_SOURCES = [os.path.join(_HOST_SRC, "host_ops.cc")]
 HOST_HEADERS = [os.path.join(_HOST_SRC, f) for f in ("jpeg_full.h", "webp.h", "webp_tables.h",
                                                      "inflate.h", "audio_codecs.h",
                                                      "audio_tables.h", "video.h",
-                                                     "mpeg4_tables.h", "huffyuv_tables.h")]
+                                                     "mpeg4_tables.h", "huffyuv_tables.h",
+                                                     "mpeg12_tables.h")]
 KERNEL_SOURCES = [os.path.join(_PKG, "csrc", "cmn.cu")]
 # (object name, defines, sources) of the kernel library's translation units, compiled
 # at once; each holds one input type's template instances of cmn.cu

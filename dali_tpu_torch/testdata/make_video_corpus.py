@@ -60,8 +60,22 @@ tables (``classic_huffyuv_frame``):
   frames (past the second key frame), the corpus of the
   ``capture_avi_train`` path on the card.
 
-``--tables`` writes ``csrc/host/huffyuv_tables.h`` from this machine's
-libavcodec.
+The MPEG-1/2 set (``--mpeg``) comes from cv2's four MPEG writes (``mpg2``
+into MPEG-TS, ``MPEG`` and ``mpg1`` into MPEG-PS, ``PIM1`` into AVI) and
+from FFmpeg's ``mpeg1video`` and ``mpeg2video`` encoders through the same
+helper (``MPEG``: B-pictures, the intra VLC table, the non-linear
+quantiser, the alternate scan, 10-bit intra DC, custom matrices, an odd
+size, interlaced (field DCT and field motion), 4:2:2, the DVD and AVI
+forms, raw elementary streams, a 90-frame clip), and two cv2 TS segments
+of different sizes spliced:
+
+* ``mpeg/*`` — the fixtures, 64x48 (170x98, 96x64, 160x120 for some);
+* ``mpeg_corpus/ts/*.ts``, ``mpeg_corpus/ps/*.mpg`` — 16 MPEG-2 TS and 16
+  MPEG-1 PS clips of cv2's at 320x240 and 25 fps, 48 frames each, the
+  corpus of the ``mpeg_ts_train`` path on the card.
+
+``--tables`` writes ``csrc/host/huffyuv_tables.h`` and
+``csrc/host/mpeg12_tables.h`` from this machine's libavcodec.
 
 The reference decode of each fixture (``video/reference.npz``,
 ``video/avi_reference.npz``, ``video/capture_reference.npz``: what the
@@ -76,6 +90,7 @@ repo root:
     python dali_tpu_torch/testdata/make_video_corpus.py [out_dir]
     python dali_tpu_torch/testdata/make_video_corpus.py --avi [out_dir]
     python dali_tpu_torch/testdata/make_video_corpus.py --capture [out_dir]
+    python dali_tpu_torch/testdata/make_video_corpus.py --mpeg [out_dir]
     python tests/write_video_reference.py [out_dir]
 """
 
@@ -187,13 +202,16 @@ _AVI_HELPER_C = r"""
 /* Encodes n frames of pixel format ``pixfmt`` (each packed as
    av_image_fill_arrays lays it out with alignment 1: planar 4:2:0 is Y,
    then U, then V) with encoder ``codec`` (FourCC ``tag`` when not empty,
-   "k=v:k=v" options) into the AVI muxer at ``path``; ``strip_dht`` drops
-   every DHT segment of a JPEG packet. Returns 0, or a negative code. */
+   "k=v:k=v" options, custom intra and non-intra quantiser matrices when
+   not null) into the muxer ``muxer`` (AVI when empty) at ``path``;
+   ``strip_dht`` drops every DHT segment of a JPEG packet. Returns 0, or a
+   negative code. */
 int encode_avi(const unsigned char* yuv, int n, int w, int h, int fps, const char* path,
                const char* codec, const char* tag, const char* opts, int pixfmt,
-               long bit_rate, int strip_dht) {
+               long bit_rate, int strip_dht, const char* muxer, const unsigned short* intra,
+               const unsigned short* inter) {
   AVFormatContext* fmt = NULL;
-  if (avformat_alloc_output_context2(&fmt, NULL, "avi", path) < 0) return -1;
+  if (avformat_alloc_output_context2(&fmt, NULL, *muxer ? muxer : "avi", path) < 0) return -1;
   const AVCodec* cd = avcodec_find_encoder_by_name(codec);
   if (!cd) return -2;
   AVStream* st = avformat_new_stream(fmt, NULL);
@@ -206,6 +224,14 @@ int encode_avi(const unsigned char* yuv, int n, int w, int h, int fps, const cha
   c->gop_size = 12;
   if (bit_rate > 0) c->bit_rate = bit_rate;
   if (*tag) c->codec_tag = MKTAG(tag[0], tag[1], tag[2], tag[3]);
+  if (intra) {
+    c->intra_matrix = av_malloc(64 * sizeof(uint16_t));
+    memcpy(c->intra_matrix, intra, 64 * sizeof(uint16_t));
+  }
+  if (inter) {
+    c->inter_matrix = av_malloc(64 * sizeof(uint16_t));
+    memcpy(c->inter_matrix, inter, 64 * sizeof(uint16_t));
+  }
   AVDictionary* d = NULL;
   if (*opts) av_dict_parse_string(&d, opts, "=", ":", 0);
   int rc = avcodec_open2(c, cd, &d);
@@ -331,7 +357,7 @@ class AviWriter:
         c = ctypes
         self._lib.encode_avi.argtypes = [c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int,
                                          c.c_char_p, c.c_char_p, c.c_char_p, c.c_char_p, c.c_int,
-                                         c.c_long, c.c_int]
+                                         c.c_long, c.c_int, c.c_char_p, c.c_void_p, c.c_void_p]
         self._lib.mux_avi.argtypes = [c.c_char_p, c.c_char_p, c.c_char_p, c.c_int, c.c_int,
                                       c.c_int, c.c_int, c.c_void_p, c.c_int, c.c_void_p,
                                       c.c_void_p, c.c_void_p, c.c_int]
@@ -340,19 +366,24 @@ class AviWriter:
         self._avutil.av_get_pix_fmt.argtypes = [c.c_char_p]
 
     def write(self, path, frames, codec, tag="", opts="", pixfmt=YUV420P, bit_rate=0,
-              strip_dht=False, fps=FPS, size=None):
+              strip_dht=False, fps=FPS, size=None, muxer="", matrices=None):
         """``frames``: BGR images of one size, coded from planar 4:2:0; or,
         with ``pixfmt`` an FFmpeg pixel format name, frames of ``size``
-        (w, h) already in that format's bytes (``planes``)."""
+        (w, h) already in that format's bytes (``planes``). ``muxer``: an
+        FFmpeg muxer name (AVI when empty); ``matrices``: custom intra and
+        non-intra quantiser matrices (64 values each, raster order)."""
         w, h = size or frames[0].shape[1::-1]
         if isinstance(pixfmt, str):
             data = np.ascontiguousarray(np.stack([np.asarray(f).reshape(-1) for f in frames]))
             pixfmt = self._avutil.av_get_pix_fmt(pixfmt.encode())
         else:
             data = np.ascontiguousarray(np.stack([i420(f) for f in frames]))
+        mats = [None if matrices is None else np.ascontiguousarray(m, np.uint16)
+                for m in (matrices or (None, None))]
         rc = self._lib.encode_avi(data.ctypes.data, len(data), w, h, fps, path.encode(),
                                   codec.encode(), tag.encode(), opts.encode(), pixfmt,
-                                  bit_rate, int(strip_dht))
+                                  bit_rate, int(strip_dht), muxer.encode(),
+                                  *[None if m is None else m.ctypes.data for m in mats])
         if rc != 0:
             raise RuntimeError(f"{codec} into {path} failed: {rc}")
         return path
@@ -628,6 +659,105 @@ def write_capture_corpus(root):
                              "pred=median" if codec == "huffyuv" else "")
 
 
+# The MPEG-1/2 fixtures (``video/mpeg``) FFmpeg's encoders write: name ->
+# (encoder, muxer, options, size, frames, pixel format, custom matrices)
+MPEG = {
+    "mpeg1_bf2_64x48.mpg": ("mpeg1video", "mpeg", "bf=2", (64, 48), 30, "yuv420p", False),
+    "mpeg1_matrices_64x48.m1v": ("mpeg1video", "mpeg1video", "bf=1", (64, 48), 30, "yuv420p",
+                                 True),
+    "mpeg1_odd_170x98.mpg": ("mpeg1video", "mpeg", "bf=2", (170, 98), 30, "yuv420p", False),
+    "mpeg2_intra_vlc_64x48.ts": ("mpeg2video", "mpegts", "bf=2:intra_vlc=1", (64, 48), 30,
+                                 "yuv420p", False),
+    "mpeg2_nonlinear_64x48.ts": ("mpeg2video", "mpegts", "bf=2:non_linear_quant=1:qmax=28",
+                                 (64, 48), 30, "yuv420p", False),
+    "mpeg2_altscan_64x48.ts": ("mpeg2video", "mpegts", "bf=2:alternate_scan=1", (64, 48), 30,
+                               "yuv420p", False),
+    "mpeg2_dc10_64x48.m2v": ("mpeg2video", "mpeg2video", "bf=2:dc=10", (64, 48), 30, "yuv420p",
+                             False),
+    "mpeg2_matrices_64x48.ts": ("mpeg2video", "mpegts", "bf=2", (64, 48), 30, "yuv420p", True),
+    "mpeg2_odd_170x98.ts": ("mpeg2video", "mpegts", "bf=2", (170, 98), 30, "yuv420p", False),
+    "mpeg2_interlaced_64x48.ts": ("mpeg2video", "mpegts", "bf=2:flags=+ildct+ilme", (64, 48),
+                                  30, "yuv420p", False),
+    "mpeg2_422_64x48.ts": ("mpeg2video", "mpegts", "bf=2", (64, 48), 30, "yuv422p", False),
+    "mpeg2_dvd_64x48.vob": ("mpeg2video", "vob", "bf=2", (64, 48), 30, "yuv420p", False),
+    "mpeg2_bf2_64x48.avi": ("mpeg2video", "avi", "bf=2", (64, 48), 30, "yuv420p", False),
+    "mpeg2_long_96x64.ts": ("mpeg2video", "mpegts", "bf=2", (96, 64), 90, "yuv420p", False),
+}
+# cv2's four MPEG-1/2 writes: name -> FourCC
+MPEG_CV2 = {"cv2_mpg2_160x120.ts": "mpg2", "cv2_mpeg_160x120.mpg": "MPEG",
+            "cv2_mpg1_160x120.mpg": "mpg1", "cv2_pim1_160x120.avi": "PIM1"}
+
+
+def mpeg_matrices():
+    """The custom intra and non-intra matrices of the ``*_matrices``
+    fixtures (raster order; the intra DC entry 8)."""
+    rng = np.random.default_rng(64)
+    intra = rng.integers(8, 60, 64).astype(np.uint16)
+    intra[0] = 8
+    return intra, rng.integers(10, 40, 64).astype(np.uint16)
+
+
+def cv2_video(path, frames, fourcc, fps=FPS):
+    import cv2
+
+    h, w = frames[0].shape[:2]
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
+    if not wr.isOpened():
+        raise RuntimeError(f"cv2 cannot write {fourcc} into {path}")
+    for f in frames:
+        wr.write(np.ascontiguousarray(f))
+    wr.release()
+    return path
+
+
+def write_mpeg_fixtures(out_dir=OUT):
+    d = os.path.join(out_dir, "mpeg")
+    os.makedirs(d, exist_ok=True)
+    wr = AviWriter()
+    for k, (name, (codec, muxer, opts, (w, h), n, pixfmt, mats)) in enumerate(sorted(MPEG.items())):
+        frames = moving_frames(np.random.default_rng(400 + k), n, w, h,
+                               ("pan", "drift", "zoom")[k % 3], cut_at=n // 2 if k % 4 == 0 else None)
+        if pixfmt == "yuv420p":
+            wr.write(os.path.join(d, name), frames, codec, opts=opts, muxer=muxer,
+                     matrices=mpeg_matrices() if mats else None)
+        else:
+            wr.write(os.path.join(d, name), [planes(f, pixfmt) for f in frames], codec, opts=opts,
+                     pixfmt=pixfmt, size=(w, h), muxer=muxer)
+    pan = moving_frames(np.random.default_rng(420), 40, 160, 120, "pan")
+    for name, fourcc in MPEG_CV2.items():
+        cv2_video(os.path.join(d, name), pan, fourcc)
+    # two cv2 TS segments of different sizes, byte-concatenated: a real
+    # mid-stream change of the sequence header
+    a = cv2_video(os.path.join(d, "a.ts"), moving_frames(np.random.default_rng(421), 10, 64, 48,
+                                                          "drift"), "mpg2")
+    b = cv2_video(os.path.join(d, "b.ts"), moving_frames(np.random.default_rng(422), 10, 32, 24,
+                                                          "zoom"), "mpg2")
+    with open(os.path.join(d, "spliced_64x48_32x24.ts"), "wb") as f:
+        f.write(open(a, "rb").read() + open(b, "rb").read())
+    os.remove(a)
+    os.remove(b)
+
+
+def mpeg_corpus_files(root):
+    return [os.path.join(root, c, f"{c}_{k:02d}.{ext}") for c, ext in (("ts", "ts"), ("ps", "mpg"))
+            for k in range(16)]
+
+
+def write_mpeg_corpus(root):
+    """The mpeg_ts_train corpus: 16 MPEG-2 clips in TS (cv2's ``mpg2``: a GOP
+    of 12, two B-pictures, open GOPs) and 16 MPEG-1 clips in PS (cv2's
+    ``mpg1``: I- and P-pictures), 320x240 at 25 fps, 48 frames each."""
+    w, h = CORPUS_SIZE
+    for ci, (cls, fourcc) in enumerate((("ts", "mpg2"), ("ps", "mpg1"))):
+        os.makedirs(os.path.join(root, cls), exist_ok=True)
+        for k in range(16):
+            frames = moving_frames(np.random.default_rng(7000 + 100 * ci + k), 48, w, h,
+                                   ("pan", "drift", "zoom")[(ci + k) % 3], noise=1.0,
+                                   cut_at=24 if k % 5 == 4 else None)
+            cv2_video(os.path.join(root, cls, f"{cls}_{k:02d}." + ("ts" if cls == "ts" else "mpg")),
+                      frames, fourcc)
+
+
 def write_huffyuv_tables(path=os.path.join(os.path.dirname(HERE), "csrc", "host",
                                            "huffyuv_tables.h")):
     """``csrc/host/huffyuv_tables.h`` from this machine's libavcodec: its
@@ -665,11 +795,105 @@ def write_huffyuv_tables(path=os.path.join(os.path.dirname(HERE), "csrc", "host"
     return path
 
 
+def write_mpeg12_tables(path=os.path.join(os.path.dirname(HERE), "csrc", "host",
+                                          "mpeg12_tables.h")):
+    """``csrc/host/mpeg12_tables.h`` from this machine's libavcodec: the
+    MPEG-1/2 video VLC tables of ISO/IEC 13818-2 Annex B as FFmpeg holds
+    them (mpeg12data.c, mpeg12.c), each found once by its first bytes."""
+    import ctypes.util
+    import struct
+
+    lib = ctypes.util.find_library("avcodec") or "libavcodec.so.59"
+    if not os.path.isabs(lib):
+        lib = os.path.join("/usr/lib/x86_64-linux-gnu", lib)
+    data = open(lib, "rb").read()
+
+    def find(name, head, size, check=None):
+        # copies of one table (the encoder's and the decoder's) count once
+        i, hits = data.find(bytes(head)), {}
+        while i >= 0:
+            if check is None or check(i):
+                hits.setdefault(data[i: i + size], i)
+            i = data.find(bytes(head), i + 1)
+        if len(hits) != 1:
+            raise RuntimeError(f"{name} not found once in {lib}")
+        return next(iter(hits.values()))
+
+    def u8(name, head, n, check=None):
+        i = find(name, head, n, check)
+        return list(data[i: i + n])
+
+    def u16(name, head, n, check=None):
+        i = find(name, head, 2 * n, check)
+        return list(struct.unpack(f"<{n}H", data[i: i + 2 * n]))
+
+    def eob_is(code, length):
+        return lambda i: struct.unpack("<2H", data[i + 4 * 112: i + 4 * 113]) == (code, length)
+
+    tables = [
+        ("uint16_t", "kMpeg1Vlc", "[113][2]",
+         u16("ff_mpeg1_vlc_table", struct.pack("<8H", 3, 2, 4, 4, 5, 5, 6, 7), 226, eob_is(2, 2))),
+        ("uint16_t", "kMpeg2Vlc", "[113][2]",
+         u16("ff_mpeg2_vlc_table", struct.pack("<8H", 2, 2, 6, 3, 7, 4, 28, 5), 226, eob_is(6, 4))),
+        ("uint8_t", "kRun", "[111]", u8("ff_mpeg12_run", [0] * 40 + [1] * 18 + [2] * 5, 111)),
+        ("uint8_t", "kLevel", "[111]",
+         u8("ff_mpeg12_level", list(range(1, 41)) + list(range(1, 19)) + list(range(1, 6)), 111)),
+        ("uint8_t", "kMbAddrIncr", "[36][2]",
+         u8("ff_mpeg12_mbAddrIncrTable", [1, 1, 3, 3, 2, 3, 3, 4, 2, 4, 3, 5, 2, 5, 7, 7], 72)),
+        ("uint8_t", "kMbPattern", "[64][2]",
+         u8("ff_mpeg12_mbPatTable", [1, 9, 11, 5, 9, 5, 13, 6, 13, 4, 23, 7, 19, 7, 31, 8], 128)),
+        ("uint8_t", "kMotion", "[17][2]",
+         u8("ff_mpeg12_mbMotionVectorTable", [1, 1, 1, 2, 1, 3, 1, 4, 3, 6, 5, 7, 4, 7, 3, 7, 11, 9,
+                                              10, 9, 9, 9, 17, 10, 16, 10, 15, 10, 14, 10, 13, 10, 12, 10, 0, 0],
+            34)),
+        ("uint16_t", "kDcLumCode", "[12]",
+         u16("ff_mpeg12_vlc_dc_lum_code", struct.pack("<6H", 4, 0, 1, 5, 6, 14), 12)),
+        ("uint8_t", "kDcLumBits", "[12]",
+         u8("ff_mpeg12_vlc_dc_lum_bits", [3, 2, 2, 3, 3, 4, 5, 6, 7, 8, 9, 9], 12)),
+        ("uint16_t", "kDcChromaCode", "[12]",
+         u16("ff_mpeg12_vlc_dc_chroma_code", struct.pack("<6H", 0, 1, 2, 6, 14, 30), 12)),
+        ("uint8_t", "kDcChromaBits", "[12]",
+         u8("ff_mpeg12_vlc_dc_chroma_bits", [2, 2, 2, 3, 4, 5, 6, 7, 8, 9, 10, 10], 12)),
+        ("uint16_t", "kDefaultIntraMatrix", "[64]",
+         u16("ff_mpeg1_default_intra_matrix", struct.pack("<8H", 8, 16, 19, 22, 26, 27, 29, 34),
+             64)),
+        ("uint8_t", "kNonLinearQscale", "[32]",
+         u8("ff_mpeg2_non_linear_qscale", [0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 16, 18, 20], 32)),
+        ("uint8_t", "kAlternateScan", "[64]",
+         u8("ff_alternate_vertical_scan", [0, 8, 16, 24, 1, 9, 2, 10, 17, 25, 32, 40], 64)),
+        ("uint8_t", "kZigzag", "[64]",
+         u8("ff_zigzag_direct", [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25], 64)),
+    ]
+    body = []
+    for typ, name, dims, vals in tables:
+        rows = [", ".join(str(x) for x in vals[k: k + 16]) for k in range(0, len(vals), 16)]
+        flat = "".join(f"    {r},\n" for r in rows)
+        if dims.count("[") == 2:
+            # pairs
+            pairs = [f"{{{vals[k]}, {vals[k + 1]}}}" for k in range(0, len(vals), 2)]
+            flat = "".join("    " + ", ".join(pairs[k: k + 8]) + ",\n" for k in range(0, len(pairs), 8))
+        body.append(f"const {typ} {name}{dims} = {{\n{flat}}};\n")
+    head = ("// The MPEG-1/2 video tables of ISO/IEC 11172-2 / 13818-2 Annex B as FFmpeg's\n"
+            "// decoder holds them: the DCT coefficient codes of Tables B.14 and B.15\n"
+            "// (code, length; escape and end of block last) with their runs and levels,\n"
+            "// the macroblock address increment (increments 1-33, escape, stuffing, an\n"
+            "// end of slice), coded block pattern, motion code and DC size codes, the\n"
+            "// default intra matrix (raster order), the non-linear quantiser scales and\n"
+            "// the two scans. Written by ``python\n"
+            "// dali_tpu_torch/testdata/make_video_corpus.py --tables`` from this machine's\n"
+            "// libavcodec (mpeg12data.c, mpeg12.c, mpegvideodata.c).\n"
+            "#pragma once\n\n#include <cstdint>\n\nnamespace video {\nnamespace mpeg12_tables {\n\n")
+    with open(path, "w") as f:
+        f.write(head + "\n".join(body) + "\n}  // namespace mpeg12_tables\n}  // namespace video\n")
+    return path
+
+
 def main(argv):
     args = [a for a in argv[1:] if not a.startswith("--")]
     out_dir = args[0] if args else OUT
     if "--tables" in argv:
         print(write_huffyuv_tables())
+        print(write_mpeg12_tables())
         return
     if "--capture" in argv:
         write_capture_fixtures(out_dir)
@@ -677,6 +901,13 @@ def main(argv):
         total = sum(os.path.getsize(os.path.join(dd, f)) for sub in ("capture", "capture_corpus")
                     for dd, _, fs in os.walk(os.path.join(out_dir, sub)) for f in fs)
         print(f"{out_dir}: capture set {total} bytes")
+        return
+    if "--mpeg" in argv:
+        write_mpeg_fixtures(out_dir)
+        write_mpeg_corpus(os.path.join(out_dir, "mpeg_corpus"))
+        total = sum(os.path.getsize(os.path.join(dd, f)) for sub in ("mpeg", "mpeg_corpus")
+                    for dd, _, fs in os.walk(os.path.join(out_dir, sub)) for f in fs)
+        print(f"{out_dir}: MPEG-1/2 set {total} bytes")
         return
     if "--avi" in argv:
         write_avi_fixtures(out_dir)

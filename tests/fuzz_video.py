@@ -1,24 +1,29 @@
 """Mutation probe of dali_tpu_torch's host video stack (``csrc/host/
-mp4_demux.cc``, ``avi_demux.cc``, ``mpeg4_decode.cc``, ``mjpeg_decode.cc``
-with the JPEG reader it takes, ``huffyuv_decode.cc``, ``ffv1_decode.cc``,
-``sws_rgb.cc``, ``video_decode.cc``) under
+mp4_demux.cc``, ``avi_demux.cc``, ``mpeg_ps_demux.cc``, ``mpeg_ts_demux.cc``,
+``mpeg4_decode.cc``, ``mpeg12_decode.cc``, ``mjpeg_decode.cc`` with the JPEG
+reader it takes, ``huffyuv_decode.cc``, ``ffv1_decode.cc``, ``sws_rgb.cc``,
+``video_decode.cc``) under
 AddressSanitizer and UndefinedBehaviorSanitizer, with libstdc++'s vector
 annotations on (so a read past a vector's size within its capacity is
 caught too).
 
 It compiles those sources and ``tasking.cc`` with a small C++ harness,
 then, for every input file, opens it unchanged and then ``--iters``
-damaged copies (bit flips, random bytes, fake VOL start codes, cuts, flips
-in the last 2 KiB where cv2's files keep ``moov``), alternately from a path
+damaged copies (bit flips, random bytes, fake start codes: MPEG-4 VOLs,
+MPEG-1/2 pictures, slices, sequence, GOP, extension, end and pack headers;
+cuts, flips in the last 2 KiB where cv2's files keep ``moov``), alternately
+from a path
 and from memory, and reads each through RGB, planar and batched reads at
 several starts and strides. Inputs: the committed MP4 and AVI fixtures
 (Xvid with packed B-VOPs, FFmpeg's unpacked ones, Motion JPEG with and
 without DHT, raw I420, a file without an index, the HuffYUV, FFV1 and
-Motion JPEG 4:2:2/4:4:4/grey files of ``capture``), one clip of each
-corpus, and three
+Motion JPEG 4:2:2/4:4:4/grey files of ``capture``, the MPEG-1/2 files of
+``mpeg``: TS, PS, VOB, elementary streams and AVI, a splice), one clip of
+each corpus, and three
 files whose frame size changes mid-stream (a smaller clip spliced in after
 frame 5, one of the same macroblock grid, a smaller VOL before one P-VOP),
-written with cv2 here. The swscale rebuild is also called on its own at
+written with cv2 here, and cv2's MPEG-2 TS with its program map sections
+damaged (section_length 0, program_info_length past the section). The swscale rebuild is also called on its own at
 random sizes and strides of every format it takes. Any sanitizer report
 ends the run non-zero.
 
@@ -100,7 +105,11 @@ int main(int argc, char** argv) {
         size_t pos = rng() % d.size();
         if (mode == 0) d[pos] ^= 1u << (rng() % 8);
         else if (mode == 1) d[pos] = rng();
-        else if (mode == 2 && pos + 4 < d.size()) { d[pos] = 0; d[pos+1] = 0; d[pos+2] = 1; d[pos+3] = 0x20 + rng() % 16; }
+        else if (mode == 2 && pos + 4 < d.size()) {
+          static const unsigned char codes[] = {0x20, 0x2f, 0x00, 0x01, 0x07, 0xaf, 0xb3, 0xb5,
+                                                0xb7, 0xb8, 0xba, 0xe0};
+          d[pos] = 0; d[pos+1] = 0; d[pos+2] = 1; d[pos+3] = codes[rng() % 12];
+        }
         else if (mode == 3) d.resize(pos + 1);
         else d[(d.size() - 1 - pos % 2048)] ^= 1u << (rng() % 8);  // the tail: moov in cv2's files
         if (d.empty()) break;
@@ -167,6 +176,32 @@ def size_change_files(work):
     return out
 
 
+def pmt_damage_files(work):
+    """cv2's MPEG-2 TS with its program map sections damaged: section_length
+    0 and program_info_length past the section, in every PMT and in the
+    first only (the later ones name the stream)."""
+    data = open(os.path.join(ROOT, "dali_tpu_torch", "testdata", "video", "mpeg",
+                             "cv2_mpg2_160x120.ts"), "rb").read()
+    pids = [((data[k + 1] & 0x1f) << 8 | data[k + 2], k) for k in range(0, len(data), 188)]
+    pat = next(k for pid, k in pids if pid == 0 and data[k + 1] & 0x40)
+    s = pat + 5 + data[pat + 4]
+    pmt_pid = (data[s + 10] & 0x1f) << 8 | data[s + 11]
+    sections = [k + 5 + data[k + 4] for pid, k in pids if pid == pmt_pid and data[k + 1] & 0x40]
+    out = []
+    for name, fields in (("pmt_len0", ((1, 0xf0, 0), (2, 0, 0))),
+                         ("pmt_info_past", ((10, 0xff, 0x0f), (11, 0, 0xff)))):
+        for which in ("all", "first"):
+            d = bytearray(data)
+            for sec in sections[:1] if which == "first" else sections:
+                for off, keep, put in fields:
+                    d[sec + off] = (d[sec + off] & keep) | put
+            path = os.path.join(work, f"{name}_{which}.ts")
+            with open(path, "wb") as f:
+                f.write(bytes(d))
+            out.append(path)
+    return out
+
+
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=150)
@@ -178,10 +213,12 @@ def main(argv):
     exe = os.path.join(work, "fuzz")
     with open(drv, "w") as f:
         f.write(_HARNESS)
-    srcs = [os.path.join(HOST, s) for s in ("mp4_demux.cc", "avi_demux.cc", "mpeg4_decode.cc",
-                                            "mjpeg_decode.cc", "jpeg_huff.cc", "jpeg_arith.cc",
-                                            "huffyuv_decode.cc", "ffv1_decode.cc", "sws_rgb.cc",
-                                            "video_decode.cc", "tasking.cc")]
+    srcs = [os.path.join(HOST, s) for s in ("mp4_demux.cc", "avi_demux.cc", "mpeg_ps_demux.cc",
+                                            "mpeg_ts_demux.cc", "mpeg4_decode.cc",
+                                            "mpeg12_decode.cc", "mjpeg_decode.cc", "jpeg_huff.cc",
+                                            "jpeg_arith.cc", "huffyuv_decode.cc",
+                                            "ffv1_decode.cc", "sws_rgb.cc", "video_decode.cc",
+                                            "tasking.cc")]
     subprocess.run(["g++", "-O1", "-g", "-fsanitize=address,undefined",
                     "-D_GLIBCXX_SANITIZE_VECTOR", "-fno-sanitize-recover=all",
                     "-ffp-contract=off", "-std=c++17", "-I", HOST] + srcs + [drv, "-o", exe,
@@ -195,7 +232,11 @@ def main(argv):
     files += sorted(glob.glob(os.path.join(fixtures, "capture", "*.avi")))
     files += [os.path.join(fixtures, "capture_corpus", c, f"{c}_00.avi")
               for c in ("hfyu", "ffv1", "mjpeg")]
+    files += sorted(glob.glob(os.path.join(fixtures, "mpeg", "*")))
+    files += [os.path.join(fixtures, "mpeg_corpus", "ts", "ts_00.ts"),
+              os.path.join(fixtures, "mpeg_corpus", "ps", "ps_00.mpg")]
     files += size_change_files(work)
+    files += pmt_damage_files(work)
     env = dict(os.environ, FUZZ_CASE=os.path.join(work, "case.mp4"))
     return subprocess.run([exe, str(args.iters)] + files, env=env).returncode
 

@@ -411,22 +411,24 @@ def test_decoder_fed_capture_bytes(device):
 
 # --------------------------------------------------------------------------- item 8b
 
-def _cv2_avi(path, fourcc, n=5, w=64, h=48):
-    wr = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), 25, (w, h))
-    if not wr.isOpened():
-        pytest.skip(f"cv2 cannot write {fourcc}")
-    rng = np.random.default_rng(3)
-    for _ in range(n):
-        wr.write(rng.integers(0, 256, (h, w, 3), np.uint8))
-    wr.release()
-    return str(path)
+def _h264_avi(path):
+    """H.264 in AVI, by libx264 through the AVI helper (MPEG-1/2, once this
+    form, reads since part (a) of item 8b)."""
+    from dali_tpu_torch.testdata.make_video_corpus import AviWriter, moving_frames
+
+    try:
+        wr = AviWriter()
+    except Exception as e:  # no compiler or FFmpeg headers
+        pytest.skip(f"FFmpeg helper unavailable: {e}")
+    return wr.write(str(path), moving_frames(np.random.default_rng(3), 6, 64, 48, "pan"),
+                    "libx264", opts="bf=0")
 
 
 # the forms of AVI left to item 8b: what writes them, what the message names
 LEFT_FORMS = {
     "HuffYUV-HFYU": (lambda tmp: _path("capture/ffvh_422p10_64x48"), "HuffYUV at 10 bits"),
     "FFV1-FFV1": (lambda tmp: _path("capture/ffv1_422p10_64x48"), "FFV1 at 10 bits"),
-    "MPEG-1/2-PIM1": (lambda tmp: _cv2_avi(tmp / "v.avi", "PIM1"), "MPEG-1/2 video in AVI"),
+    "H.264-libx264": (lambda tmp: _h264_avi(tmp / "v.avi"), "H.264 video in AVI"),
     "MJPEG-fields": (lambda tmp: _path("capture/mjpeg_fields_64x48"),
                      "interlaced .two-field. Motion JPEG"),
 }
@@ -436,7 +438,8 @@ LEFT_FORMS = {
 def test_avi_codecs_left_to_item_8b_raise(tmp_path, form):
     """The AVI forms still left to item 8b: HuffYUV and FFV1 beyond 8 bits
     (the committed 10-bit FFVH and FFV1; 8-bit HuffYUV and FFV1 decode since
-    the swscale route came), MPEG-1 and interlaced two-field Motion JPEG.
+    the swscale route came), H.264 (MPEG-1, this case before, decodes since
+    part (a) of item 8b) and interlaced two-field Motion JPEG.
     The reference reads them, the port raises NotImplementedError naming
     the form and item 8b, at open and through the reader."""
     write, what = LEFT_FORMS[form]

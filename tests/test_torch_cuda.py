@@ -46,7 +46,8 @@ twin corpus gives the Huffman corpus's batches bit for bit. The resizing
 video reader on device="mixed" gives the cpu placement's frames bit for bit,
 and ucf_avi_train's Xvid AVI corpus and one AVI file of each codec the
 same way, and so do capture_avi_train's HuffYUV, FFV1 and Motion JPEG 4:2:2
-corpus and one file of each swscale-route form, and video_flow_train (the resizing reader, optical flow, CMN's FCHW fold)
+corpus and one file of each swscale-route form, and mpeg_ts_train's MPEG-2
+TS and MPEG-1 PS corpus and one MPEG-1/2 file of each form, and video_flow_train (the resizing reader, optical flow, CMN's FCHW fold)
 matches its CPU run: flows and labels equal, images within one uint8 step
 / std."""
 
@@ -1960,6 +1961,51 @@ def test_capture_files_on_card_equal_cpu(card, name):
 
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "dali_tpu_torch", "testdata", "video", "capture", name + ".avi")
+    outs = []
+    for reader in ("cpu", "mixed"):
+        @pipeline_def(batch_size=2, num_threads=2, seed=3, device=card)
+        def p():
+            return fn.readers.video(filenames=[path], sequence_length=4, step=3,
+                                    random_shuffle=True, device=reader)
+        pipe = p()
+        pipe.build()
+        try:
+            outs.append([pipe.run()[0].as_tensor() for _ in range(2)])
+        finally:
+            pipe.shutdown()
+    for c, m in zip(*outs):
+        assert m.is_cuda and m.dtype == torch.uint8
+        assert torch.equal(c.cpu(), m.cpu())
+
+
+# ------------------------------------------------------------------ mpeg_ts_train (item 8b(a))
+
+def test_mpeg_mixed_reader_equals_cpu_reader(card):
+    """mpeg_ts_train's recipe at batch 4 over the MPEG corpus (MPEG-2 in TS
+    with open GOPs, MPEG-1 in PS): the mixed reader's frames (the planar
+    YUV wire, RGB on the card) equal the cpu reader's moved with
+    ``.gpu()``; every committed MPEG-1/2 file decodes on this machine to
+    mpeg_reference.npz; the spliced TS's mixed decode equals the cpu one."""
+    from dali_tpu_torch.tools import bench_mpeg, bench_video
+
+    r = bench_video.check_mixed_vs_cpu(batch=4, batches=2, root=bench_mpeg.MPEG_CORPUS,
+                                       form=bench_mpeg.FORM)
+    assert r["frames"] == 2 * 4 * bench_video.FRAMES
+    assert bench_mpeg.check_fixtures()["files"] == 51
+    assert bench_mpeg.check_spliced(card)["changed_after"] == 9
+
+
+@pytest.mark.parametrize("name", ["cv2_mpg2_160x120.ts", "mpeg1_odd_170x98.mpg",
+                                  "mpeg2_interlaced_64x48.ts", "mpeg2_422_64x48.ts"])
+def test_mpeg_files_on_card_equal_cpu(card, name):
+    """readers.video over MPEG-2 in TS (open GOPs), MPEG-1 in PS at an odd
+    size, interlaced MPEG-2 (class 1: the planar YUV wire) and MPEG-2 4:2:2
+    (class 0: dense RGB), batch 2, shuffled: the mixed reader's uint8
+    frames on the card equal the cpu reader's."""
+    from dali_tpu_torch import fn, pipeline_def
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "dali_tpu_torch", "testdata", "video", "mpeg", name)
     outs = []
     for reader in ("cpu", "mixed"):
         @pipeline_def(batch_size=2, num_threads=2, seed=3, device=card)

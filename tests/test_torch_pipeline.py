@@ -161,6 +161,7 @@ def test_port_never_imports_jax_or_dali_tpu():
         "import dali_tpu_torch.backend.video, dali_tpu_torch.tools.bench_video\n"
         "import dali_tpu_torch.testdata.make_video_corpus\n"
         "import dali_tpu_torch.tools.bench_video_flow, dali_tpu_torch.tools.bench_capture\n"
+        "import dali_tpu_torch.tools.bench_avi, dali_tpu_torch.tools.bench_mpeg\n"
         "import numpy as np\n"
         "from dali_tpu_torch.backend import enhance2\n"
         "enhance2.native.farneback(np.zeros((32, 40), np.float32), np.ones((32, 40), np.float32))\n"

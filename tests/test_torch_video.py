@@ -527,15 +527,16 @@ def test_other_containers_raise_item_8b(tmp_path, fmt, fourcc):
 
 def test_unported_video_names_name_item_8b(tmp_path):
     """readers.VideoResize and OpticalFlow came with item 8b's registry part;
-    the rest of item 8b, here MPEG-1 in AVI (Motion JPEG and then HuffYUV,
-    this test's files before, read since the AVI part and the swscale
-    route), still raises naming it, through the resizing reader too."""
+    the rest of item 8b, here Xvid in Matroska (item 8b(b); Motion JPEG,
+    HuffYUV and MPEG-1 in AVI, this test's files before, read since the AVI
+    part, the swscale route and part (a)), still raises naming it, through
+    the resizing reader too."""
     assert callable(dali_tpu_torch.fn.readers.video_resize)
     assert callable(dali_tpu_torch.fn.optical_flow)
-    path = str(tmp_path / "v.avi")
-    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"PIM1"), 25, (64, 48))
+    path = str(tmp_path / "v.mkv")
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"XVID"), 25, (64, 48))
     if not wr.isOpened():
-        pytest.skip("cv2 cannot write PIM1 in avi")
+        pytest.skip("cv2 cannot write XVID in mkv")
     for i in range(4):
         wr.write(np.full((48, 64, 3), 30 * i, np.uint8))
     wr.release()

@@ -43,9 +43,12 @@ after ``dali_tpu_torch/testdata/make_video_corpus.py`` wrote the clips:
 
     python tests/write_video_reference.py [fixture_dir]
     python tests/write_video_reference.py --capture [fixture_dir]
+    python tests/write_video_reference.py --mpeg [fixture_dir]
     python tests/write_video_reference.py --probe-idct [fixture_dir]
 
-``--capture`` writes ``capture_reference.npz`` alone.
+``--capture`` writes ``capture_reference.npz`` alone, ``--mpeg``
+``mpeg_reference.npz`` (the MPEG-1/2 set of ``make_video_corpus.py
+--mpeg``: see ``mpeg_reference_decodes``).
 """
 
 import ctypes
@@ -68,6 +71,7 @@ _HELPER_C = r"""
 #include <libavcodec/avcodec.h>
 #include <libavformat/avformat.h>
 #include <libavutil/cpu.h>
+#include <libavutil/imgutils.h>
 #include <libavutil/opt.h>
 #include <string.h>
 
@@ -132,23 +136,39 @@ int decode_all(const char* path, const char* opts, int cpu, unsigned char* out, 
   return n;
 }
 
-/* Encodes n planar 4:2:0 frames with FFmpeg's mpeg4 encoder into a file of
-   the muxer fmtname (GOP 12), with "key=val:..." encoder options. Without
-   set_duration the packets carry none: the MP4 muxer then gives the last
-   sample duration 0 and ends the edit list before it. */
+/* Encodes n planar frames (4:2:0, or the pixel format pixfmt, planes packed
+   as av_image_fill_arrays lays them out at alignment 1) with FFmpeg's
+   encoder codec_name (mpeg4 when empty) into a file of the muxer fmtname
+   (GOP 12), with "key=val:..." encoder options and, when not null, custom
+   intra and non-intra quantiser matrices (64 entries each, raster order as
+   AVCodecContext holds them). Without set_duration the packets carry none:
+   the MP4 muxer then gives the last sample duration 0 and ends the edit
+   list before it. */
 int encode_yuv(const unsigned char* yuv, int n, int w, int h, int fps, const char* path,
-               const char* fmtname, const char* codec_opts, int set_duration) {
+               const char* fmtname, const char* codec_opts, int set_duration,
+               const char* codec_name, int pixfmt, const unsigned short* intra,
+               const unsigned short* inter) {
   AVFormatContext* fmt = NULL;
   if (avformat_alloc_output_context2(&fmt, NULL, fmtname, path) < 0) return -1;
-  const AVCodec* codec = avcodec_find_encoder(AV_CODEC_ID_MPEG4);
+  const AVCodec* codec = codec_name && *codec_name ? avcodec_find_encoder_by_name(codec_name)
+                                                   : avcodec_find_encoder(AV_CODEC_ID_MPEG4);
+  if (!codec) return -7;
   AVStream* st = avformat_new_stream(fmt, NULL);
   AVCodecContext* c = avcodec_alloc_context3(codec);
   c->width = w;
   c->height = h;
-  c->pix_fmt = AV_PIX_FMT_YUV420P;
+  c->pix_fmt = pixfmt;
   c->time_base = (AVRational){1, fps};
   c->framerate = (AVRational){fps, 1};
   c->gop_size = 12;
+  if (intra) {
+    c->intra_matrix = av_malloc(64 * sizeof(uint16_t));
+    memcpy(c->intra_matrix, intra, 64 * sizeof(uint16_t));
+  }
+  if (inter) {
+    c->inter_matrix = av_malloc(64 * sizeof(uint16_t));
+    memcpy(c->inter_matrix, inter, 64 * sizeof(uint16_t));
+  }
   if (fmt->oformat->flags & AVFMT_GLOBALHEADER) c->flags |= AV_CODEC_FLAG_GLOBAL_HEADER;
   AVDictionary* d = NULL;
   if (codec_opts && *codec_opts) av_dict_parse_string(&d, codec_opts, "=", ":", 0);
@@ -163,19 +183,17 @@ int encode_yuv(const unsigned char* yuv, int n, int w, int h, int fps, const cha
   AVFrame* f = av_frame_alloc();
   f->width = w;
   f->height = h;
-  f->format = AV_PIX_FMT_YUV420P;
+  f->format = pixfmt;
   av_frame_get_buffer(f, 0);
   AVPacket* pkt = av_packet_alloc();
-  int cw = (w + 1) / 2, ch = (h + 1) / 2;
-  long fs = (long)w * h + 2L * cw * ch;
+  long fs = av_image_get_buffer_size(pixfmt, w, h, 1);
   for (int i = 0; i <= n; i++) {
     if (i < n) {
       av_frame_make_writable(f);
-      const unsigned char* s = yuv + i * fs;
-      for (int y = 0; y < h; y++) memcpy(f->data[0] + y * f->linesize[0], s + y * w, w);
-      for (int y = 0; y < ch; y++) memcpy(f->data[1] + y * f->linesize[1], s + (long)w * h + y * cw, cw);
-      for (int y = 0; y < ch; y++)
-        memcpy(f->data[2] + y * f->linesize[2], s + (long)w * h + (long)cw * ch + y * cw, cw);
+      uint8_t* sd[4];
+      int sl[4];
+      av_image_fill_arrays(sd, sl, yuv + i * fs, pixfmt, w, h, 1);
+      av_image_copy(f->data, f->linesize, (const uint8_t**)sd, sl, pixfmt, w, h);
       f->pts = i;
       rc = avcodec_send_frame(c, f);
     } else {
@@ -220,7 +238,11 @@ class FFmpegTools:
         self._lib.encode_yuv.restype = ctypes.c_int
         self._lib.encode_yuv.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_char_p, ctypes.c_char_p,
-                                         ctypes.c_char_p, ctypes.c_int]
+                                         ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
+                                         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        self._avutil = ctypes.CDLL("libavutil.so.57")
+        self._avutil.av_get_pix_fmt.restype = ctypes.c_int
+        self._avutil.av_get_pix_fmt.argtypes = [ctypes.c_char_p]
 
     def decode(self, path, opts="", cpu=-1, max_frames=2000):
         """(frames [N, w*h + 2*ceil(w/2)*ceil(h/2)] uint8, idct_algo,
@@ -237,13 +259,20 @@ class FFmpegTools:
         return (out[: n * fs].reshape(n, fs).copy(), int(info[2]),
                 "".join(" IPBS"[t] for t in info[3: 3 + n]))
 
-    def encode(self, path, yuv_frames, w, h, fps=25, opts="", fmt="mp4", durations=True):
-        """Writes planar 4:2:0 frames (rows of w*h + 2*ceil(w/2)*ceil(h/2)
-        bytes) with the mpeg4 encoder under ``opts``; ``durations=False``
-        leaves the packets' durations unset."""
+    def encode(self, path, yuv_frames, w, h, fps=25, opts="", fmt="mp4", durations=True,
+               codec="mpeg4", pixfmt="yuv420p", intra_matrix=None, inter_matrix=None):
+        """Writes planar frames (4:2:0: rows of w*h + 2*ceil(w/2)*ceil(h/2)
+        bytes; else ``pixfmt``'s planes one after the other) with the
+        encoder ``codec`` under ``opts`` and, when given, custom quantiser
+        matrices (64 values in raster order); ``durations=False`` leaves the
+        packets' durations unset."""
         yuv = np.ascontiguousarray(yuv_frames, np.uint8)
+        mats = [None if m is None else np.ascontiguousarray(m, np.uint16)
+                for m in (intra_matrix, inter_matrix)]
         rc = self._lib.encode_yuv(yuv.ctypes.data, len(yuv), w, h, fps, str(path).encode(),
-                                  fmt.encode(), opts.encode(), int(durations))
+                                  fmt.encode(), opts.encode(), int(durations), codec.encode(),
+                                  self._avutil.av_get_pix_fmt(pixfmt.encode()),
+                                  *[None if m is None else m.ctypes.data for m in mats])
         if rc != 0:
             raise RuntimeError(f"FFmpeg encode ({opts!r}) failed: {rc}")
         return str(path)
@@ -552,6 +581,59 @@ def capture_reference_decodes(fixture_dir=FIXTURES):
     return out
 
 
+def mpeg_names(fixture_dir=FIXTURES):
+    """The MPEG-1/2 fixtures and corpus (written by ``make_video_corpus.py
+    --mpeg``), as paths under fixture_dir with their extension."""
+    names = []
+    d = os.path.join(fixture_dir, "mpeg")
+    if os.path.isdir(d):
+        names += sorted("mpeg/" + f for f in os.listdir(d))
+    corpus = os.path.join(fixture_dir, "mpeg_corpus")
+    if os.path.isdir(corpus):
+        names += [f"mpeg_corpus/{c}/{f}" for c in sorted(os.listdir(corpus))
+                  for f in sorted(os.listdir(os.path.join(corpus, c)))]
+    return names
+
+
+def mpeg_reference_decodes(fixture_dir=FIXTURES, tools=None):
+    """The arrays of ``mpeg_reference.npz``: for each MPEG-1/2 file
+    ``<name>:info`` (width, height, frames, fps, pixel-format class, as
+    ``dali_tpu.native.VideoFile`` opens it), ``<name>:rgb_sha`` of its RGB
+    read of every frame from frame 0 on a new handle, ``<name>:yuv_sha`` of
+    its planar read (4:2:0 files; for a file whose size changes mid-stream
+    ``<name>:yuv_changed_at``, the frames its planar read got before
+    ``VideoPixfmtChanged``), and ``<name>:display_sha``, the planes of each
+    frame of FFmpeg's whole-stream decode in display order (the frames a
+    seek reads; 4:2:0 files of one size). A raw elementary stream counts
+    no frames: its reads take as many as FFmpeg shows."""
+    import dali_tpu.native as reference
+
+    tools = tools or FFmpegTools()
+    out = {}
+    for name in mpeg_names(fixture_dir):
+        path = os.path.join(fixture_dir, name)
+        vf = reference.VideoFile(path)
+        n = vf.num_frames or len(tools.decode(path)[0])
+        out[name + ":info"] = np.array([vf.width, vf.height, vf.num_frames, vf.fps,
+                                        vf.pixfmt_class], np.float64)
+        out[name + ":rgb_sha"] = frame_hashes(vf.read(0, n, pad=False))
+        vf.close()
+        if not out[name + ":info"][4]:
+            continue
+        vf = reference.VideoFile(path)
+        try:
+            y, u, v, got = vf.read_yuv(0, n, pad=False)
+            out[name + ":yuv_sha"] = yuv_hashes(y[:got], u[:got], v[:got])
+        except reference.VideoPixfmtChanged as e:
+            out[name + ":yuv_changed_at"] = np.array([e.got])
+            continue
+        finally:
+            vf.close()
+        y, u, v = display_order_decode(tools, path)
+        out[name + ":display_sha"] = yuv_hashes(y, u, v)
+    return out
+
+
 def main(argv):
     args = [a for a in argv[1:] if not a.startswith("--")]
     fixture_dir = args[0] if args else FIXTURES
@@ -562,6 +644,10 @@ def main(argv):
         np.savez_compressed(os.path.join(fixture_dir, "capture_reference.npz"),
                             **capture_reference_decodes(fixture_dir))
         return
+    if "--mpeg" in argv:
+        np.savez_compressed(os.path.join(fixture_dir, "mpeg_reference.npz"),
+                            **mpeg_reference_decodes(fixture_dir))
+        return
     np.savez_compressed(os.path.join(fixture_dir, "reference.npz"),
                         **reference_decodes(fixture_dir))
     if avi_names(fixture_dir):
@@ -570,6 +656,9 @@ def main(argv):
     if capture_names(fixture_dir):
         np.savez_compressed(os.path.join(fixture_dir, "capture_reference.npz"),
                             **capture_reference_decodes(fixture_dir))
+    if mpeg_names(fixture_dir):
+        np.savez_compressed(os.path.join(fixture_dir, "mpeg_reference.npz"),
+                            **mpeg_reference_decodes(fixture_dir))
 
 
 if __name__ == "__main__":
