@@ -512,6 +512,33 @@ on failure:
    thread and on 8; and the cpu reader then ``.gpu()`` against the mixed
    reader for 2 batches: the uint8 frames equal on the card.
 
+46. mkv_archive_train (``tools/bench_mkv.py``): every committed Matroska
+   file of ``testdata/video/mkv`` and ``mkv_corpus`` (FFmpeg's mpeg4,
+   libxvid (packed and not), ffv1 and mpeg2video encoders through its
+   matroska muxer; cv2's Matroska writes of MPEG-4 Part 2, Motion JPEG,
+   FFV1, MPEG-1/2 and HuffYUV, one at 30000/1001; tracks without
+   DefaultDuration; rewrites of FFmpeg's files with Segment and Cluster
+   sizes unknown, the three lacings, header stripping, zlib, an audio
+   track first and BlockGroups) decoded on this machine by the port's host
+   decoder against ``mkv_reference.npz`` (dali_tpu's FFmpeg 5.1 read and
+   info from frame 0, and its reads after seeks through one handle), in RGB
+   and planar YUV, and H.264, VP8 and VP9 raising with their items; then
+   the recipe over the corpus (16 Xvid clips with B-frames, 16 FFV1 version
+   3 archival clips; 320x240 at 25 fps; class 1, the planar YUV wire):
+   ``readers.video(device="mixed", file_root=..., sequence_length=8,
+   stride=1, random_shuffle=True, pad_mode="edge")``, resize 112x112,
+   rotate and gaussian_blur, CMN to FLOAT FCHW, batch 32: 3 warm-up + 10
+   timed batches, each checked; clips/s and frames/s beside rn50_train's
+   rate, host ms by schema with readers.Video's share, the device wait,
+   device ms by stage of one batch alone, peak memory, the exact CMN
+   launch count; the CMN kernel (FCHW fold) held against its plain version
+   on the path's own batch (max abs diff 0) and timed on it; the open's
+   time and the handle's index bytes against the file's length (1, 16 and
+   64 corpus clips in one file, each codec); the host decode rate of each
+   codec on one thread and on 8; and the cpu reader then ``.gpu()``
+   against the mixed reader for 2 batches: the uint8 frames equal on the
+   card.
+
 The kernel table (its CMN entry with the main form's numbers, the launches of
 each path and every form's readings, the SSD and reader paths' own batches
 among them) is the JSON object on the line before
@@ -563,6 +590,7 @@ VIDEO_FLOW_TIMED = 5
 AVI_TIMED = 10
 CAPTURE_TIMED = 10
 MPEG_TIMED = 10
+MKV_TIMED = 10
 FORM_KEYS = ("name", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err")
 F16_STEP = 2.0 ** -9  # one float16 step for 2 <= |x| < 4; normalized images stay within (-3, 3)
 
@@ -2262,6 +2290,62 @@ def mpeg_phase(card, rn50_ips):
     return r["cmn_launches"], c
 
 
+def mkv_phase(card, rn50_ips):
+    """Phase 46: the Matroska fixtures, then mkv_archive_train, the open's
+    cost, the decode rate by codec and the mixed reader against the cpu
+    one; returns its CMN launches and the kernel's readings on the path's
+    batch."""
+    from dali_tpu_torch.tools import bench_mkv as bk
+    from dali_tpu_torch.tools import bench_video as bv
+
+    t0 = time.perf_counter()
+    form = bk.FORM
+    f = bk.check_fixtures()
+    print(f"Matroska fixtures: {f['files']} files, {f['frames']} frames decoded on this machine, "
+          f"each frame's RGB and YUV bytes and each file's info equal to mkv_reference.npz "
+          f"(dali_tpu's FFmpeg 5.1 read and info), {f['seeks']} reads after seeks equal to "
+          f"dali_tpu's; {f['unported']} forms left to items 8b(e) and 8b(f) raise ({card})")
+    r = bk.run(warmup=WARMUP, timed=MKV_TIMED)
+    c = r["cmn"]
+    print(f"{form} batch {r['batch']}x{bv.FRAMES} frames: {r['clips_per_s']:.1f} clips/s, "
+          f"{r['frames_per_s']:.1f} frames/s over {r['timed']} batches "
+          f"({100 * r['frames_per_s'] / rn50_ips:.1f}% of rn50_train's {rn50_ips:.1f} images/s "
+          f"in this run); host phase {r['host_ms_per_batch']:.2f} ms/batch ({os.cpu_count()} "
+          f"host cores); device stage waited {r['device_wait_ms_per_batch']:.2f} ms/batch; cmn "
+          f"launches {r['cmn_launches']} ({card})")
+    by = r["host_ms_by_schema"]
+    reader_ms = by.get("readers.Video", 0.0)
+    print(f"{form} host ms/batch by schema: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in by.items() if v >= 0.05)
+        + f"; readers.Video {100 * reader_ms / max(r['host_ms_per_batch'], 1e-9):.1f}% of the "
+          f"host phase ({card})")
+    print(f"{form} device ms of one batch alone: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r["stage_ms"].items())
+        + f"; peak device memory {r['peak_gib']:.2f} GiB ({card})")
+    require(r["cmn_launches"] > 0, f"{form}: the CMN kernel was not launched")
+    require(c["max_abs_err"] == 0, f"{form}: CMN kernel {c['max_abs_err']} from its plain version")
+    print(f"{form} CMN kernel (FCHW fold) on the path's own batch {c['shape_in']} "
+          f"{c['dtype_in']} -> {c['shape_out']} float32: max abs diff vs plain "
+          f"{c['max_abs_err']:.3e}; kernel alone {c['ms']:.4f} ms (cold L2), wrapper "
+          f"{c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; {c['bytes']} bytes, bound "
+          f"{c['bound_ms']:.4f} ms, {100 * c['bound_share']:.1f}% of it ({card})")
+    for o in bk.open_cost():
+        print(f"{form} open of {o['clips']} {o['codec']} clip(s) in one Matroska file: "
+              f"{o['bytes']} bytes, {o['pictures']} pictures, {o['open_ms']:.3f} ms "
+              f"({o['ms_per_mib']:.2f} ms/MiB, {1e3 * o['open_ms'] / o['pictures']:.2f} us a "
+              f"picture); index {o['index_bytes']} bytes ({o['index_bytes_per_picture']:.1f} a "
+              f"picture) ({card})")
+    for codec, d in bk.decode_rate(threads=8).items():
+        print(f"{form} host decode of the {codec} clips ({d['clips']} clips, {d['frames']} "
+              f"frames of 320x240): {d['frames_per_s_one_thread']:.0f} frames/s on one thread, "
+              f"{d['frames_per_s_pool']:.0f} on {d['threads']} ({card})")
+    k = bk.check_mixed_vs_cpu()
+    print(f"{form} recipe as written (cpu reader, .gpu()) against the mixed reader: "
+          f"{k['frames']} uint8 frames of {k['batches']} batches equal on the card; "
+          f"{form} phase: {time.perf_counter() - t0:.1f} s ({card})")
+    return r["cmn_launches"], c
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2332,6 +2416,7 @@ def main():
     launches["ucf_avi_train"], path_cmn["ucf_avi_train"] = avi_phase(card, rn50_ips)
     launches["capture_avi_train"], path_cmn["capture_avi_train"] = capture_phase(card, rn50_ips)
     launches["mpeg_ts_train"], path_cmn["mpeg_ts_train"] = mpeg_phase(card, rn50_ips)
+    launches["mkv_archive_train"], path_cmn["mkv_archive_train"] = mkv_phase(card, rn50_ips)
     print("CMN launches of the main paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     main_form = forms[0]  # u8 -> f32 CHW, the RN50 and augmentation paths' form
     print(json.dumps({"kernels": [{

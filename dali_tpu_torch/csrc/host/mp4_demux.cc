@@ -295,8 +295,6 @@ const char* codec_name(uint32_t c) {
 
 // Recognises a container other than ISO BMFF that libavformat opens.
 const char* other_container(const uint8_t* d, size_t n) {
-  if (n >= 4 && d[0] == 0x1a && d[1] == 0x45 && d[2] == 0xdf && d[3] == 0xa3)
-    return "Matroska/WebM";
   if (n >= 4 && d[0] == 0 && d[1] == 0 && d[2] == 1 && (d[3] == 0xb0 || d[3] <= 0x2f))
     return "raw MPEG-4 Part 2 elementary stream";
   if (n >= 3 && !memcmp(d, "FLV", 3)) return "FLV";
@@ -353,8 +351,8 @@ int finish(const TopLevel& top, const uint8_t* head, size_t head_n, uint64_t fil
     const char* other = other_container(head, head_n);
     if (other) {
       *msg = std::string(other) +
-             " input: the port reads MP4 (ISO BMFF), AVI, MPEG-PS, MPEG-TS and MPEG-1/2 "
-                           "elementary streams, ROADMAP.md Queue 1 item 8b";
+             " input: the port reads MP4 (ISO BMFF), AVI, Matroska, MPEG-PS, MPEG-TS and "
+                           "MPEG-1/2 elementary streams, ROADMAP.md Queue 1 item 8b";
       return kUnsupported;
     }
     *msg = "not a video file";
@@ -526,6 +524,10 @@ int demux_mp4_fd(int fd, uint64_t size, Track* track, std::string* msg) {
     pos += box;
   }
   return finish(top, head, head_n, size, track, msg);
+}
+
+bool is_mp4(const uint8_t* head, size_t n) {
+  return n >= 8 && is_iso_box(fourcc(reinterpret_cast<const char*>(head + 4)));
 }
 
 }  // namespace video

@@ -492,6 +492,7 @@ struct Mpeg4Decoder::Impl {
   // the tag of its first byte
   std::vector<uint8_t> stored;
   int64_t stored_tag = 0;
+  int64_t packet_tag = 0;  // packet_mode: the tag base of the packet being decoded
   int64_t vop_offset = 0;  // start code of the VOP of the last walk, in its buffer
   // per-VOP state
   int mb_w = 0, mb_h = 0, mb_num = 0;
@@ -1504,7 +1505,28 @@ struct Mpeg4Decoder::Impl {
     if (!workarounds()) return kUnsupported;
     alloc_vop();
     if (type == 2 && ref_last < 0) return 0;  // FFmpeg skips a B-VOP without its references
-    if (type == 1 && ref_next < 0) return 0;  // a P-VOP with nothing to predict from
+    if (type == 1 && ref_next < 0) {
+      // a P-VOP with nothing to predict from (a stream cut mid-way): FFmpeg
+      // predicts it from ff_mpv_frame_start's dummy picture, samples 0x80
+      // over the frame's size and the new buffer's zeros past it in the
+      // macroblock rows, and where output is delayed shows that picture,
+      // as of the P-VOP's packet; MP4, whose reads start at sync samples,
+      // drops it
+      if (!packet_mode) return 0;
+      ref_next = ref_last == 0 ? 1 : 0;
+      Picture& grey = pics[ref_next];
+      grey.tag = packet_tag + 0xffffffffLL;
+      if (!headers_only) {
+        const int cw = (width + 1) / 2, ch = (height + 1) / 2;
+        for (auto* plane : {&grey.y, &grey.u, &grey.v}) std::fill(plane->begin(), plane->end(), 0);
+        for (int r = 0; r < height; r++)
+          std::fill_n(grey.y.begin() + ptrdiff_t(r) * grey.stride_y, width, 0x80);
+        for (int r = 0; r < ch; r++) {
+          std::fill_n(grey.u.begin() + ptrdiff_t(r) * grey.stride_c, cw, 0x80);
+          std::fill_n(grey.v.begin() + ptrdiff_t(r) * grey.stride_c, cw, 0x80);
+        }
+      }
+    }
     // the picture to write: a free one; an I- or P-VOP becomes the future
     // reference and the future one the past
     int target = 0;
@@ -1625,6 +1647,7 @@ struct Mpeg4Decoder::Impl {
       held.swap(stored);
       base = stored_tag;
     }
+    packet_tag = index << 32;
     stored.clear();
     if (st.picture_number == 0 && !config.empty()) walk(config.data(), config.size(), true);
     err.clear();

@@ -544,8 +544,70 @@ const uint8_t* BlockReader::at(uint64_t pos, size_t k) {
   return buf.data() + (pos - buf_pos);
 }
 
-bool is_mpeg_ps(const uint8_t* d, size_t n) {
-  return n >= 4 && d[0] == 0 && d[1] == 0 && d[2] == 1 && d[3] == 0xba;
+namespace {
+
+// mpeg.c's check_pes at a start code's id byte ``p``
+bool check_pes(const uint8_t* p, const uint8_t* end) {
+  const bool pes2 = (p[3] & 0xc0) == 0x80 && (p[4] & 0xc0) != 0x40 &&
+                    ((p[4] & 0xc0) == 0x00 || (p[4] >> 6) == (p[6] >> 4));
+  for (p += 3; p < end && *p == 0xff; p++) {
+  }
+  if ((*p & 0xc0) == 0x40) p += 2;
+  bool pes1;
+  if ((*p & 0xf0) == 0x20) pes1 = p[0] & p[2] & p[4] & 1;
+  else if ((*p & 0xf0) == 0x30) pes1 = p[0] & p[2] & p[4] & p[5] & p[7] & p[9] & 1;
+  else pes1 = *p == 0x0f;
+  return pes1 || pes2;
+}
+
+}  // namespace
+
+int mpegps_probe(const uint8_t* b, size_t n) {
+  // the probe buffer's zero padding: the checks read a few bytes past it
+  std::vector<uint8_t> pad(b, b + n);
+  pad.resize(n + 64, 0);
+  const uint8_t* buf = pad.data();
+  const uint8_t* end = buf + n;
+  uint32_t code = 0xffffffffu;
+  int sys = 0, pspack = 0, priv1 = 0, vid = 0, audio = 0, invalid = 0, score = 0;
+  int64_t endpes = 0;
+  for (int64_t i = 0; i < int64_t(n); i++) {
+    code = (code << 8) + buf[i];
+    if ((code & 0xffffff00u) != 0x100) continue;
+    const int len = buf[i + 1] << 8 | buf[i + 2];
+    const bool pes = endpes <= i && check_pes(buf + i, end);
+    const bool pack = (buf[i + 1] & 0xcc) == 0x44 || (buf[i + 2] & 0x01);
+    if (code == 0x1bb) {
+      sys++;
+    } else if (code == 0x1ba && pack) {
+      pspack++;
+    } else if ((code & 0xf0) == 0xe0 && pes) {
+      endpes = i + len;
+      vid++;
+    } else if ((code & 0xe0) == 0xc0 && pes) {
+      audio++;
+      i += len;
+    } else if (code == 0x1bd && pes) {
+      priv1++;
+      i += len;
+    } else if (code == 0x1fd && pes) {
+      vid++;
+    } else if ((code & 0xf0) == 0xe0 && !pes) {
+      invalid++;
+    } else if ((code & 0xe0) == 0xc0 && !pes) {
+      invalid++;
+    } else if (code == 0x1bd && !pes) {
+      invalid++;
+    }
+  }
+  if (vid + audio > invalid + 1) score = 25;
+  if (sys > invalid && sys * 9 <= pspack * 10)
+    return (audio > 12 || vid > 3 || pspack > 2) ? 52 : 25 + (audio + vid + pspack > 1);
+  if (pspack > invalid && (priv1 + vid + audio) * 10 >= pspack * 9) return pspack > 2 ? 52 : 25;
+  if ((!!vid ^ !!audio) && (audio > 4 || vid > 1) && !sys && !pspack && n > 2048 &&
+      vid + audio > invalid)
+    return (audio > 12 || vid > 6 + 2 * invalid) ? 52 : 25;
+  return score;
 }
 
 bool is_mpeg_es(const uint8_t* d, size_t n) {

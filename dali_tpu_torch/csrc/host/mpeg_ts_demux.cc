@@ -22,6 +22,8 @@ namespace video {
 namespace {
 
 constexpr int kPacket = 188;
+// libavformat's default probesize, the bytes its header scan reads
+constexpr uint64_t kProbeSize = 5000000;
 
 const char* stream_type_name(int t) {
   switch (t) {
@@ -89,34 +91,60 @@ int ts_step(BlockReader& in, uint64_t* pos, TsPacket* k) {
 
 }  // namespace
 
-bool is_mpeg_ts(const uint8_t* d, size_t n) {
-  for (const int step : {188, 192, 204}) {
-    const size_t first = step == 192 ? 4 : 0;
-    if (n >= first + 2 * size_t(step) + 1 && d[first] == 0x47 && d[first + size_t(step)] == 0x47 &&
-        d[first + 2 * size_t(step)] == 0x47)
-      return true;
+// mpegts.c's analyze: the sync bytes at the most frequent offset modulo
+// ``step``, less a tenth of those elsewhere past ten times as many (with
+// ``probe``, only bytes whose packet would carry a payload or an adaptation
+// field count; FFmpeg reads the PID of that test at the buffer's start)
+int ts_analyze(const uint8_t* b, size_t n, int step, bool probe) {
+  std::vector<int> stat(size_t(step), 0);
+  int all = 0, best = 0;
+  const int pid = n >= 3 ? ((b[1] << 8) | b[2]) & 0x1fff : 0;
+  for (size_t i = 0; i + 3 < n; i++) {
+    if (b[i] != 0x47) continue;
+    if (probe && pid != 0x1fff && !(b[i + 3] & 0x30)) continue;
+    const int x = ++stat[i % size_t(step)];
+    all++;
+    best = std::max(best, x);
   }
-  return false;
+  return best - std::max(all - 10 * best, 0) / 10;
+}
+
+int mpegts_probe(const uint8_t* b, size_t n) {
+  const int check = int(n / 204);
+  if (!check) return 0;
+  int sum = 0, maxscore = 0;
+  for (int i = 0; i < check; i += 100) {
+    const size_t left = size_t(std::min(check - i, 100));
+    int score = 0;
+    for (const int step : {188, 192, 204})
+      score = std::max(score, ts_analyze(b + size_t(step) * size_t(i), size_t(step) * left,
+                                         step, true));
+    sum += score;
+    maxscore = std::max(maxscore, score);
+  }
+  sum = sum * 10 / check;
+  maxscore = maxscore * 10 / 100;
+  if (check > 10 && sum > 6) return 100 + sum - 10;
+  if (check >= 10 && (sum > 6 || maxscore > 6)) return 50 + sum - 10;
+  return sum > 6 ? 2 : 0;
 }
 
 int demux_mpeg_ts_fd(int fd, const uint8_t* mem, uint64_t size, Track* track, std::string* msg,
                      PictureSink* sink) {
   BlockReader in{fd, mem, size};
   {
-    // libavformat's packet-size probe: 188, else 192 (M2TS) or 204
-    const uint8_t* h = in.at(0, std::min<uint64_t>(size, 5 * 204));
-    if (!h) {
-      *msg = "not a video file";
-      return kInvalid;
-    }
-    const size_t n = size_t(std::min<uint64_t>(size, 5 * 204));
-    auto fits = [&](int step, int off) {
-      int hits = 0;
-      for (size_t k = size_t(off); k < n; k += size_t(step)) hits += h[k] == 0x47;
-      return hits;
-    };
-    if (!(n >= 3 * kPacket && h[0] == 0x47 && h[kPacket] == 0x47 && h[2 * kPacket] == 0x47)) {
-      if (fits(192, 4) >= 3 || fits(204, 0) >= 3) {
+    // get_packet_size: 188, else 192 (M2TS) or 204, the size whose sync
+    // bytes in the first 8 KiB outscore the median of the three (by 5 more
+    // in a shorter file); none: the open fails
+    const size_t n = size_t(std::min<uint64_t>(size, 8192));
+    const uint8_t* h = in.at(0, n);
+    const int s188 = h ? ts_analyze(h, n, 188, false) : 0,
+              s192 = h ? ts_analyze(h, n, 192, false) : 0,
+              s204 = h ? ts_analyze(h, n, 204, false) : 0;
+    const int margin = std::max(std::min(s188, s192), std::min(std::max(s188, s192), s204)) +
+                       (n < 8192 ? 5 : 0);
+    if (s188 <= margin) {
+      if (s192 > margin || s204 > margin) {
         *msg = "MPEG-TS with 192- or 204-byte packets: the port reads 188-byte packets; the "
                "rest is ROADMAP.md Queue 1 item 8b";
         return kUnsupported;
@@ -127,6 +155,7 @@ int demux_mpeg_ts_fd(int fd, const uint8_t* mem, uint64_t size, Track* track, st
   }
   int pmt_pid = -1, video_pid = -1;
   std::string other;  // a video stream type the port does not read
+  std::vector<int> declared;  // the PIDs of the program maps' streams
   Section pat, pmt;
   Pes pes;
   std::unique_ptr<MpegEsSplitter> split;
@@ -188,6 +217,7 @@ int demux_mpeg_ts_fd(int fd, const uint8_t* mem, uint64_t size, Track* track, st
     while (k + 5 <= end) {
       const int type = s[k], pid = ((s[k + 1] & 0x1f) << 8) | s[k + 2];
       const size_t info = ((s[k + 3] & 0x0f) << 8) | s[k + 4];
+      declared.push_back(pid);
       if (type == 0x01 || type == 0x02 || type == 0x10) {
         video_pid = pid;
         track->es_codec = type == 0x10 ? kEsMpeg4 : kEsMpeg12;  // the header pass reads it
@@ -199,39 +229,68 @@ int demux_mpeg_ts_fd(int fd, const uint8_t* mem, uint64_t size, Track* track, st
     }
   };
 
+  // No video stream in a program map of the scan (a stream cut after its
+  // last repeat, a damaged map): libavformat then takes each PID that no
+  // map declared and whose packets start a PES as a stream of its own
+  // (auto_guess), a video stream id (0xE0-0xEF) as video whose codec it
+  // probes from the payload
+  bool auto_guess = false;
+  auto guess = [&](const uint8_t* pay, size_t n, int pid) {
+    if (n < 4 || pay[0] || pay[1] || pay[2] != 1 || (pay[3] & 0xf0) != 0xe0) return;
+    if (std::find(declared.begin(), declared.end(), pid) != declared.end()) return;
+    int codec = kEsMpeg12;
+    for (size_t i = 0; i + 3 < n; i++)
+      if (!pay[i] && !pay[i + 1] && pay[i + 2] == 1 &&
+          (pay[i + 3] == 0xb6 || (pay[i + 3] & 0xf0) == 0x20))
+        codec = kEsMpeg4;
+    video_pid = pid;
+    track->es_codec = codec;
+    split.reset(new MpegEsSplitter(codec, 90000, sink));
+  };
+  // mpegts_read_header: a scan of the first probesize bytes for the
+  // program tables, then the packets from the start of the file again (a
+  // PES before the first PAT/PMT counts once its PID is known; the PES
+  // buffers start empty, so the first PES whose start is seen is the
+  // first read)
   uint64_t pos = 0;
   TsPacket k;
-  while (ts_step(in, &pos, &k)) {
-    if (!k.payload) continue;
-    const uint8_t* pay = k.payload;
-    const size_t n = k.n;
-    const int pid = k.pid;
-    if (pid == 0 || (pmt_pid >= 0 && pid == pmt_pid)) {
-      Section& s = pid == 0 ? pat : pmt;
+  for (bool scan : {true, false}) {
+    pos = 0;
+    auto_guess = !scan && video_pid < 0;
+    while (ts_step(in, &pos, &k)) {
+      if (scan && (video_pid >= 0 || k.pos >= kProbeSize)) break;
+      if (!k.payload) continue;
+      const uint8_t* pay = k.payload;
+      const size_t n = k.n;
+      const int pid = k.pid;
+      if (pid == 0 || (pmt_pid >= 0 && pid == pmt_pid)) {
+        Section& s = pid == 0 ? pat : pmt;
+        if (k.start) {
+          const size_t ptr = pay[0];
+          if (1 + ptr >= n) continue;
+          s.data.assign(pay + 1 + ptr, pay + n);
+          s.open = true;
+        } else if (s.open) {
+          s.data.insert(s.data.end(), pay, pay + n);
+        }
+        if (s.open && s.data.size() >= 3 &&
+            s.data.size() >= 3 + size_t(((s.data[1] & 0x0f) << 8) | s.data[2])) {
+          s.open = false;
+          if (pid == 0) parse_pat();
+          else parse_pmt();
+        }
+        continue;
+      }
+      if (!scan && auto_guess && video_pid < 0 && k.start) guess(pay, n, pid);
+      if (scan || video_pid < 0 || pid != video_pid) continue;
       if (k.start) {
-        const size_t ptr = pay[0];
-        if (1 + ptr >= n) continue;
-        s.data.assign(pay + 1 + ptr, pay + n);
-        s.open = true;
-      } else if (s.open) {
-        s.data.insert(s.data.end(), pay, pay + n);
+        emit();
+        pes.pos = int64_t(k.pos);
+      } else if (pes.pos < 0) {
+        continue;  // the middle of a PES whose start was not seen
       }
-      if (s.open && s.data.size() >= 3 &&
-          s.data.size() >= 3 + size_t(((s.data[1] & 0x0f) << 8) | s.data[2])) {
-        s.open = false;
-        if (pid == 0) parse_pat();
-        else parse_pmt();
-      }
-      continue;
+      pes.data.insert(pes.data.end(), pay, pay + n);
     }
-    if (video_pid < 0 || pid != video_pid) continue;
-    if (k.start) {
-      emit();
-      pes.pos = int64_t(k.pos);
-    } else if (pes.pos < 0) {
-      continue;  // the middle of a PES whose start was not seen
-    }
-    pes.data.insert(pes.data.end(), pay, pay + n);
   }
   emit();
   if (video_pid < 0) {

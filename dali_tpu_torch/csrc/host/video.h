@@ -1,6 +1,6 @@
-// Shared declarations of the host video stack: the ISO BMFF, AVI, MPEG-PS
-// and MPEG-TS demuxers (mp4_demux.cc, avi_demux.cc, mpeg_ps_demux.cc,
-// mpeg_ts_demux.cc), the MPEG-4 Part 2 and MPEG-1/2 decoders
+// Shared declarations of the host video stack: the ISO BMFF, AVI, MPEG-PS,
+// MPEG-TS and Matroska demuxers (mp4_demux.cc, avi_demux.cc,
+// mpeg_ps_demux.cc, mpeg_ts_demux.cc, mkv_demux.cc), the MPEG-4 Part 2 and MPEG-1/2 decoders
 // (mpeg4_decode.cc, mpeg12_decode.cc), the Motion JPEG, HuffYUV and FFV1 frame decoders
 // (mjpeg_decode.cc, huffyuv_decode.cc, ffv1_decode.cc), the rebuild of
 // libswscale's RGB24 conversion (sws_rgb.cc) and the frame-accurate reader
@@ -49,7 +49,7 @@ struct EsPiece {
 };
 
 // The containers and the stream codecs of a Track
-enum Container { kMp4 = 0, kAvi = 1, kMpegPs = 2, kMpegTs = 3, kMpegEs = 4 };
+enum Container { kMp4 = 0, kAvi = 1, kMpegPs = 2, kMpegTs = 3, kMpegEs = 4, kMkv = 5 };
 enum EsCodec { kEsMpeg12 = 1, kEsMpeg4 = 4 };
 
 struct Track {
@@ -62,12 +62,21 @@ struct Track {
   int width = 0, height = 0; // AVI: the BITMAPINFOHEADER's frame size
   int bits = 0;              // AVI: biBitCount (bits_per_coded_sample)
   int64_t timescale = 0;
+  int64_t tb_num = 1;      // the time base is tb_num / timescale seconds
   int64_t start_time = 0;  // pts of the first sample, in timescale units
   int64_t nb_frames = 0;   // samples counted by stts
   int64_t duration = 0;    // mdhd duration
   double fps = 0.0;        // avg_frame_rate as libavformat's mov demuxer computes it
   std::vector<uint8_t> config;  // esds DecoderSpecificInfo (VOS/VO/VOL headers)
   std::vector<Sample> samples;
+  // Matroska: a V_MS/VFW/FOURCC track (its block timestamps are dts, its
+  // codec the BITMAPINFOHEADER's FourCC in codec_tag), the frames'
+  // ContentEncoding (-1 none, 0 zlib, 3 header stripping, whose bytes
+  // comp_settings holds) and the file's duration in microseconds
+  bool ms_compat = false;
+  int content_comp = -1;
+  std::vector<uint8_t> comp_settings;
+  int64_t format_duration = kNoPts;
 };
 
 // Parses an ISO BMFF file held in memory; picks the first video track.
@@ -78,6 +87,8 @@ int demux_mp4(const uint8_t* data, size_t n, Track* track, std::string* msg);
 // its top-level box headers and its ``moov`` boxes only: the samples stay
 // on disk.
 int demux_mp4_fd(int fd, uint64_t size, Track* track, std::string* msg);
+// Whether a file starts with a box the MP4 demuxer reads (ftyp, moov, mdat...)
+bool is_mp4(const uint8_t* head, size_t n);
 // Reads ``k`` bytes at ``pos`` of an open file; false when they are not all there.
 bool read_at(int fd, uint64_t pos, uint8_t* dst, size_t k);
 
@@ -87,6 +98,20 @@ bool read_at(int fd, uint64_t pos, uint8_t* dst, size_t k);
 int demux_avi(const uint8_t* data, size_t n, Track* track, std::string* msg);
 int demux_avi_fd(int fd, uint64_t size, Track* track, std::string* msg);
 bool is_avi(const uint8_t* head, size_t n);
+
+// Matroska (mkv_demux.cc): the frames of the first video track, each lace
+// a sample at its place in the file (pts, or for V_MS/VFW/FOURCC dts, in
+// units of tb_num / timescale s; ``key`` a key frame); fps from the
+// track's DefaultDuration (0 without one), the file's duration from the
+// Segment's. V_MPEG4/ISO/* and V_MPEG1/2 set es_codec, every codec a
+// codec_tag for open_avi's dispatch (MP4V, MPG1, MPG2, MJPG, FFV1, or the
+// BITMAPINFOHEADER's FourCC).
+bool is_mkv(const uint8_t* head, size_t n);
+int demux_mkv_fd(int fd, const uint8_t* mem, uint64_t size, Track* track, std::string* msg);
+// A frame's ContentEncoding undone: ``algo`` 3 puts ``settings`` before it,
+// 0 inflates it (zlib); false when it does not inflate.
+bool mkv_decode_frame(uint64_t algo, const std::vector<uint8_t>& settings, const uint8_t* p,
+                      size_t n, std::vector<uint8_t>* out);
 
 // MPEG-PS (mpeg_ps_demux.cc) and MPEG-TS (mpeg_ts_demux.cc): the pictures
 // of the first video stream (MPEG-1/2; in TS also MPEG-4 Part 2) as
@@ -123,8 +148,11 @@ struct PictureSink {
 // A PES header's 33-bit PTS or DTS (its five bytes)
 int64_t pes_timestamp(const uint8_t* p);
 
-bool is_mpeg_ps(const uint8_t* head, size_t n);
-bool is_mpeg_ts(const uint8_t* head, size_t n);
+// libavformat's probe scores (0-100) of the first ``n`` bytes of a file as
+// MPEG-PS (mpeg.c's mpegps_probe) and as MPEG-TS (mpegts.c's mpegts_probe):
+// a file cut mid-stream scores by its packets, not by its first bytes.
+int mpegps_probe(const uint8_t* head, size_t n);
+int mpegts_probe(const uint8_t* head, size_t n);
 bool is_mpeg_es(const uint8_t* head, size_t n);
 // ``sink`` sees each picture as the split hands it on.
 int demux_mpeg_ps_fd(int fd, const uint8_t* mem, uint64_t size, Track* track, std::string* msg,

@@ -1,4 +1,4 @@
-// Frame-accurate video reads over the MP4, AVI, MPEG-PS and MPEG-TS
+// Frame-accurate video reads over the MP4, AVI, Matroska, MPEG-PS and MPEG-TS
 // demuxers and the MPEG-4 Part 2, MPEG-1/2, Motion JPEG, HuffYUV, FFV1 and
 // raw 4:2:0 decoders: the counterpart of dali_tpu's FFmpeg-backed
 // video_decode.cc, with its contract:
@@ -57,6 +57,25 @@
 // from the PES timestamps; an elementary stream's comes from an MPEG-1
 // header's bit rate.
 //
+// Matroska takes AVI's codec dispatch by its tracks' codecs (a
+// V_MS/VFW/FOURCC track by its BITMAPINFOHEADER's FourCC). Its frames are
+// numbered by their timestamps, as the reference numbers them: MPEG-4 Part
+// 2 and MPEG-1/2 through the header pass by pts (a V_MS/VFW/FOURCC track,
+// which stores dts, and a packed MPEG-4 bitstream, whose pts belong to the
+// packets, in display order as in AVI), the intra-only codecs each frame
+// by its own timestamp. fps is the track's DefaultDuration (else
+// libavformat's guess from the timestamps), the frame count the Segment's
+// duration times it.
+//
+// Where a file is found: an AVI by its RIFF header, Matroska by its EBML
+// magic, MP4 by its first box, MPEG-PS and MPEG-TS by libavformat's probe
+// scores over the file's first bytes (so that a stream cut mid-way, which
+// starts with no pack header or off the TS sync, is found), an MPEG-1/2
+// elementary stream by its sequence header. The decoder of MPEG-1/2 starts
+// with the headers of the first packet that holds a sequence header (the
+// extradata libavformat extracts), so the pictures of a stream cut before
+// one decode as the reference decodes them.
+//
 // A handle's index grows with the file by about 100-150 bytes a picture
 // (``dali_tpu_torch_video_index_bytes``): the sample table, the numbering,
 // the seek points (an MPEG-1/2 state, 624 bytes, kept once however many
@@ -80,6 +99,7 @@
 #include <climits>
 #include <initializer_list>
 #include <cmath>
+#include <numeric>
 #include <cstdio>
 #include <cstring>
 #include <string>
@@ -108,6 +128,7 @@ struct VideoHandle {
   int fd = -1;                // the file, when opened from a path
   uint64_t size = 0;          // the file's size
   std::vector<uint8_t> sample;  // the bytes of the sample being decoded (fd)
+  std::vector<uint8_t> decoded;  // Matroska: the sample with its ContentEncoding undone
   video::Track track;
   int codec = kMpeg4Mp4;
   video::Mpeg4Decoder dec;
@@ -154,9 +175,29 @@ struct VideoHandle {
   }
 };
 
-// The bytes of sample ``s``, which lies within the file; null when the file
-// cannot be read there.
-const uint8_t* sample_bytes(VideoHandle* v, const video::Sample& s) {
+// The bytes of sample ``s``, which lies within the file (``*n`` of them);
+// null when the file cannot be read there.
+const uint8_t* sample_bytes(VideoHandle* v, const video::Sample& s, size_t* n) {
+  *n = size_t(s.size);
+  if (v->track.content_comp >= 0) {
+    // Matroska: the frame's ContentEncoding undone
+    const uint8_t* raw;
+    if (v->fd < 0) {
+      raw = v->data.data() + s.offset;
+    } else {
+      v->sample.resize(size_t(s.size));
+      if (!video::read_at(v->fd, uint64_t(s.offset), v->sample.data(), v->sample.size()))
+        return nullptr;
+      raw = v->sample.data();
+    }
+    std::vector<uint8_t> out;
+    if (!video::mkv_decode_frame(uint64_t(v->track.content_comp), v->track.comp_settings, raw,
+                                 size_t(s.size), &out))
+      return nullptr;
+    v->decoded.swap(out);
+    *n = v->decoded.size();
+    return v->decoded.data();
+  }
   if (!v->track.pieces.empty()) {
     // MPEG-PS / TS / elementary stream: the walk over the packets that hold them
     v->sample.resize(size_t(s.size));
@@ -178,7 +219,7 @@ int64_t sat_i64(double x) {
 
 int64_t pts_to_frame(const VideoHandle* v, int64_t pts) {
   const double start = v->track.start_time == video::kNoPts ? 0.0 : (double)v->track.start_time;
-  double sec = ((double)pts - start) * (1.0 / (double)v->track.timescale);
+  double sec = ((double)pts - start) * ((double)v->track.tb_num / (double)v->track.timescale);
   return sat_i64(sec * v->fps + 0.5);
 }
 
@@ -187,8 +228,14 @@ int64_t read_fail(VideoHandle* v, int r, const std::string& msg) {
   return r == video::kUnsupported ? kUnsupportedRead : kDamaged;
 }
 
-// One packet of an AVI, MPEG-PS, MPEG-TS or elementary stream: the frame it
-// shows, or -2 for none.
+// The frame a packet of an intra-only codec shows: in AVI its place, in
+// Matroska the frame its timestamp names
+int64_t frame_of(const VideoHandle* v, size_t index) {
+  return index < v->frame_at.size() ? v->frame_at[index] : int64_t(index);
+}
+
+// One packet of an AVI, MPEG-PS, MPEG-TS, Matroska or elementary stream: the
+// frame it shows, or -2 for none.
 int64_t decode_avi(VideoHandle* v, size_t index, const uint8_t* bytes, size_t size) {
   std::string msg;
   if (v->codec == kMpeg12) {
@@ -215,14 +262,14 @@ int64_t decode_avi(VideoHandle* v, size_t index, const uint8_t* bytes, size_t si
     int r = v->mjpeg.decode(bytes, size, v->track.height, &msg);
     if (r < 0) return read_fail(v, r, msg);
     v->shown = &v->mjpeg.picture();
-    return int64_t(index);
+    return frame_of(v, index);
   }
   if (v->codec == kHuffyuvAvi || v->codec == kFfv1Avi) {
     int r = v->codec == kHuffyuvAvi ? v->huffyuv.decode(bytes, size, &msg)
                                     : v->ffv1.decode(bytes, size, &msg);
     if (r < 0) return read_fail(v, r, msg);
     v->shown = v->codec == kHuffyuvAvi ? &v->huffyuv.picture() : &v->ffv1.picture();
-    return int64_t(index);
+    return frame_of(v, index);
   }
   video::Picture& p = v->raw;
   const size_t ys = size_t(p.stride_y) * p.rows_y, cs = size_t(p.stride_c) * p.rows_c;
@@ -232,7 +279,7 @@ int64_t decode_avi(VideoHandle* v, size_t index, const uint8_t* bytes, size_t si
   memcpy((v->yv12 ? p.v : p.u).data(), bytes + ys, cs);
   memcpy((v->yv12 ? p.u : p.v).data(), bytes + ys + cs, cs);
   v->shown = &p;
-  return int64_t(index);
+  return frame_of(v, index);
 }
 
 // Decodes up to the next picture; returns its frame index, kEof, kDamaged
@@ -259,13 +306,14 @@ int64_t decode_next(VideoHandle* v) {
     }
     const video::Sample& s = v->track.samples[v->next_sample++];
     if (s.offset < 0 || s.size <= 0 || uint64_t(s.offset) >= v->size) continue;
-    size_t size = size_t(s.size);
+    size_t size = 0;
     const uint8_t* bytes = uint64_t(s.size) <= v->size - uint64_t(s.offset)
-                               ? sample_bytes(v, s) : nullptr;
+                               ? sample_bytes(v, s, &size) : nullptr;
     if (!bytes) {
-      // a sample cut by the end of the file ends the stream
-      v->at_end = true;
-      return kEof;
+      // a sample cut by the end of the file ends the stream (the decoder
+      // still shows the picture it holds)
+      v->next_sample = v->track.samples.size();
+      continue;
     }
     if (v->codec != kMpeg4Mp4) {
       int64_t idx = decode_avi(v, v->next_sample - 1, bytes, size);
@@ -516,13 +564,14 @@ bool read_head(VideoHandle* v, const video::Sample& s, uint8_t* dst, size_t k) {
   return true;
 }
 
-// The bytes of sample i, or null when they are not all in the file.
-const uint8_t* whole_sample(VideoHandle* v, size_t i) {
+// The bytes of sample i (``*n`` of them), or null when they are not all in
+// the file.
+const uint8_t* whole_sample(VideoHandle* v, size_t i, size_t* n) {
   const video::Sample& s = v->track.samples[i];
   if (s.offset < 0 || s.size <= 0 || uint64_t(s.offset) >= v->size ||
       uint64_t(s.size) > v->size - uint64_t(s.offset))
     return nullptr;
-  return sample_bytes(v, s);
+  return sample_bytes(v, s, n);
 }
 
 // av_image_check_size2 without a pixel format: (8 w + 1024) (h + 128) below
@@ -597,7 +646,6 @@ struct HeaderPass : video::PictureSink {
   VideoHandle* v;
   int mpeg4;              // 1: MPEG-4 Part 2, 0: MPEG-1/2, -1: the track's, at its first picture
   uint32_t tag4;          // MPEG-4 Part 2: the AVI codec tag of its packet mode
-  bool configured = false;
   video::Mpeg12Decoder m12;
   video::Mpeg4Decoder m4;
   video::Mpeg12State first;  // MPEG-1/2: the first sequence header's
@@ -628,17 +676,19 @@ struct HeaderPass : video::PictureSink {
 
   HeaderPass(VideoHandle* h, int is_mpeg4, uint32_t tag) : v(h), mpeg4(is_mpeg4), tag4(tag) {}
 
-  // MPEG-4 Part 2: the VOL headers (the extradata, else those before the
-  // first VOP of the first packet, as libavformat extracts them)
+  // MPEG-4 Part 2: the VOL headers (the extradata, else the bytes before
+  // the first GOV or VOP start code of the first packet that has any, as
+  // libavformat's extract_extradata takes them)
+  static size_t mpeg4_extradata_end(const uint8_t* b, size_t len) {
+    for (size_t k = 0; k + 4 <= len; k++)
+      if (b[k] == 0 && b[k + 1] == 0 && b[k + 2] == 1 && (b[k + 3] == 0xb3 || b[k + 3] == 0xb6))
+        return k;
+    return 0;
+  }
+
   void configure(const uint8_t* b, size_t len) {
-    configured = true;
     std::vector<uint8_t> config = v->track.config;
-    if (config.empty() && b) {
-      size_t k = 0;
-      while (k + 4 <= len && !(b[k] == 0 && b[k + 1] == 0 && b[k + 2] == 1 && b[k + 3] == 0xb6))
-        k++;
-      if (k + 4 <= len) config.assign(b, b + k);
-    }
+    if (config.empty() && b) config.assign(b, b + len);
     for (video::Mpeg4Decoder* d : {&v->dec, &m4}) {
       d->set_packet_mode(tag4);
       if (!config.empty() &&
@@ -650,10 +700,56 @@ struct HeaderPass : video::PictureSink {
     }
   }
 
+  // MPEG-1/2: libavformat gives the decoder the headers of the first packet
+  // that holds a sequence header as its extradata (find_stream_info's
+  // extract_extradata: the packet's bytes to the first start code after the
+  // sequence header other than an extension), which the decoder reads
+  // before its first packet. The packets before that one (a stream cut
+  // mid-way) are held until it comes, then decoded with those headers.
+  std::vector<std::pair<std::vector<uint8_t>, bool>> held;
+  bool primed = false;
+
+  static size_t extradata_end(const uint8_t* b, size_t len) {
+    uint32_t st = 0xffffffffu;
+    bool found = false;
+    for (size_t k = 0; k < len; k++) {
+      st = (st << 8) | b[k];
+      if (st == 0x1b3) found = true;
+      else if (found && st != 0x1b5 && st >= 0x100 && st < 0x200) return k - 3;
+    }
+    return 0;
+  }
+
   void picture(const uint8_t* b, size_t len, bool key) override {
-    const size_t i = packets++;
     if (mpeg4 < 0) mpeg4 = v->track.es_codec == video::kEsMpeg4;
-    if (mpeg4 && !configured) configure(b, len);
+    if (!primed && !v->track.config.empty()) prime(nullptr, 0);  // the container's extradata
+    if (!primed) {
+      const size_t end = mpeg4 ? mpeg4_extradata_end(b, len) : extradata_end(b, len);
+      if (!end) {
+        held.push_back({std::vector<uint8_t>(b, b + len), key});
+        return;
+      }
+      prime(b, end);
+    }
+    take(b, len, key);
+  }
+
+  // the extradata's headers (``b``, else the container's, else none), then
+  // the packets held for them
+  void prime(const uint8_t* b, size_t end) {
+    primed = true;
+    if (mpeg4) {
+      configure(b, end);
+    } else if (b || !v->track.config.empty()) {
+      m12.decode_packet(b ? b : v->track.config.data(), b ? end : v->track.config.size(), -1,
+                        true, &msg);
+    }
+    for (const auto& h : held) take(h.first.data(), h.first.size(), h.second);
+    held = {};
+  }
+
+  void take(const uint8_t* b, size_t len, bool key) {
+    const size_t i = packets++;
     if (stopped) return;
     if (mpeg4) {
       const video::Mpeg4State before = m4.state();
@@ -697,12 +793,12 @@ struct HeaderPass : video::PictureSink {
   // dts of the packet it left with, else one past the last), in AVI its
   // place in display order; and the seek points by display position.
   int finish(bool by_pts, std::string* out_msg) {
+    if (mpeg4 < 0) mpeg4 = v->track.es_codec == video::kEsMpeg4;
+    if (!primed) prime(nullptr, 0);
     if (status != video::kOk) {
       *out_msg = msg;
       return status;
     }
-    if (mpeg4 < 0) mpeg4 = v->track.es_codec == video::kEsMpeg4;
-    if (mpeg4 && !configured) configure(nullptr, 0);
     if (mpeg4 ? m4.drain() : m12.drain())
       shown.push_back({mpeg4 ? m4.output().tag : m12.output().tag, SIZE_MAX});
     const auto& smp = v->track.samples;
@@ -744,28 +840,35 @@ struct HeaderPass : video::PictureSink {
 // is not in the file.
 void pass_avi_samples(VideoHandle* v, HeaderPass* pass) {
   for (size_t i = 0; i < v->track.samples.size(); i++) {
-    const uint8_t* b = whole_sample(v, i);
+    size_t n;
+    const uint8_t* b = whole_sample(v, i, &n);
     if (!b) break;
-    pass->picture(b, size_t(v->track.samples[i].size), v->track.samples[i].key);
+    pass->picture(b, n, v->track.samples[i].key);
   }
 }
 
 // MPEG-1/2 after its header pass: the size and format of the first
-// sequence header, the fps and the frame count.
+// sequence header, the fps and the frame count. Numbered by pts but in AVI
+// and in Matroska's V_MS/VFW/FOURCC, which store none.
 int open_mpeg12(VideoHandle* v, HeaderPass* pass, std::string* msg) {
   video::Track& t = v->track;
   v->codec = kMpeg12;
-  if (t.container != video::kAvi) v->fps = (t.fps > 0.0 && std::isfinite(t.fps)) ? t.fps : 25.0;
-  const int r = pass->finish(t.container != video::kAvi, msg);
+  const bool es = t.container != video::kAvi && t.container != video::kMkv;
+  if (es) v->fps = (t.fps > 0.0 && std::isfinite(t.fps)) ? t.fps : 25.0;
+  const int r = pass->finish(t.container != video::kAvi && !t.ms_compat, msg);
   if (r != video::kOk) return r;
   if (!pass->first.seen) {
     *msg = "no MPEG-1/2 sequence header";
     return video::kInvalid;
   }
+  // a new handle's decoder starts as the pass's did: with the extradata's
+  // headers
+  if (!v->seek_points.empty() && size_t(v->seek_points[0].state) < v->seek_state12.size())
+    v->m12.restore(v->seek_state12[size_t(v->seek_points[0].state)]);
   v->width = pass->first.width;
   v->height = pass->first.height;
   v->format = pass->first.chroma_format == 2 ? video::kYuv422p : video::kYuv420p;
-  if (t.container != video::kAvi) v->num_frames = es_num_frames(v);
+  if (es) v->num_frames = es_num_frames(v);
   return video::kOk;
 }
 
@@ -780,6 +883,41 @@ int open_mpeg4_packets(VideoHandle* v, HeaderPass* pass, bool by_pts, std::strin
   return video::kOk;
 }
 
+
+// avformat_find_stream_info's guess of a frame rate the container does not
+// state (a Matroska track without DefaultDuration), from the frames'
+// timestamps in order: the greatest common step of more than 15 steps
+// when it is coarser than 2 ms (its r_frame_rate), else their mean step
+// rounded to a standard rate within 1%
+double guess_fps(const VideoHandle* v) {
+  std::vector<int64_t> ts;
+  for (const auto& s : v->track.samples) {
+    const int64_t t = v->track.ms_compat ? s.dts : s.pts;
+    if (t != video::kNoPts) ts.push_back(t);
+  }
+  std::sort(ts.begin(), ts.end());
+  ts.erase(std::unique(ts.begin(), ts.end()), ts.end());
+  if (ts.size() < 2) return 0.0;
+  const double tb = double(v->track.tb_num) / double(v->track.timescale);
+  int64_t g = 0;
+  for (size_t i = 1; i < ts.size(); i++) g = std::gcd(g, ts[i] - ts[i - 1]);
+  if (ts.size() > 16 && double(g) * tb > 0.002) return 1.0 / (double(g) * tb);
+  const double raw = double(ts.size() - 1) / (double(ts.back() - ts.front()) * tb);
+  double best = 0.0, err = 0.01;
+  // get_std_framerate: n/12 for n = 1..360, 61..90, 80, 120, 240, and the
+  // 1000/1001 rates of 24, 30, 60, 12, 15 and 48
+  auto take = [&](double f) {
+    if (std::fabs(raw / f - 1) < err) {
+      err = std::fabs(raw / f - 1);
+      best = f;
+    }
+  };
+  for (int i = 1; i <= 360; i++) take(i / 12.0);
+  for (int i = 61; i <= 90; i++) take(i);
+  for (int r : {80, 120, 240}) take(r);
+  for (int r : {24, 30, 60, 12, 15, 48}) take(r * 1000.0 / 1001.0);
+  return best > 0 ? best : raw;
+}
 
 // The frame size and format an open ends with
 int check_size(const VideoHandle* v, std::string* msg) {
@@ -805,28 +943,35 @@ int open_avi(VideoHandle* v, std::string* msg) {
     tag |= (c >= 'a' && c <= 'z' ? c - 32 : c) << i;
   }
   const size_t n = t.samples.size();
-  v->num_frames = t.nb_frames > 0 ? t.nb_frames : t.duration;
-  v->fps = (t.fps > 0.0 && std::isfinite(t.fps)) ? t.fps : 25.0;
+  const bool mkv = t.container == video::kMkv;
+  if (!mkv) {
+    v->num_frames = t.nb_frames > 0 ? t.nb_frames : t.duration;
+    v->fps = (t.fps > 0.0 && std::isfinite(t.fps)) ? t.fps : 25.0;
+  }
   if (tag_in(tag, {"XVID", "DIVX", "DX50", "FMP4", "MP4V", "MP4S", "M4S2", "DIV1", "BLZ0", "XVIX",
                    "RMP4", "ZMP4", "3IV2", "WV1F", "SEDG", "WAWV", "FFDS", "FVFW", "DCOD", "MVXM",
                    "PM4V", "SMP4", "DXGM", "VIDM", "M4T3", "HDX4", "DM4V", "DMK2", "DYM4", "DIGI",
                    "EPHV", "EM4A", "M4CC", "SN40", "VSPX", "ULDX", "SIPP", "SM4V", "DREX", "QMP4",
                    "PLV1", "GLV4", "GMP4", "MNM4", "GTM4", "UMP4", "GEOV", "GEOX"}) ||
       t.codec_tag == 0x04000000u) {
+    // Matroska's V_MPEG4/ISO/* tracks carry no codec tag, and pts (which
+    // in a packed stream belong to the packets: numbered in display order)
+    const bool native = mkv && !t.ms_compat;
     v->codec = kMpeg4Avi;
-    HeaderPass pass(v, 1, tag);
+    HeaderPass pass(v, 1, native ? 0 : tag);
     pass_avi_samples(v, &pass);
-    const int r = open_mpeg4_packets(v, &pass, false, msg);
+    const int r = open_mpeg4_packets(v, &pass, native && !pass.m4.state().packed, msg);
     if (r != video::kOk) return r;
   } else if (tag_in(tag, {"MJPG", "DMB1", "MJPA", "AVRN", "ACDV", "QIVG", "SLMJ", "CJPG", "IJLV",
                           "MVJ1", "AVI1", "AVI2", "MTSJ", "ZJPG", "MMJP", "JPGL"})) {
     v->codec = kMjpegAvi;
     v->full_range = true;
     v->shown_total = int64_t(n);
-    const uint8_t* b = n ? whole_sample(v, 0) : nullptr;
+    size_t len = 0;
+    const uint8_t* b = n ? whole_sample(v, 0, &len) : nullptr;
     if (b) {
       video::MjpegDecoder probe;
-      int r = probe.decode(b, size_t(t.samples[0].size), t.height, msg);
+      int r = probe.decode(b, len, t.height, msg);
       if (r == video::kUnsupported) return r;
       if (r == 1) {
         v->width = probe.picture().width;
@@ -858,6 +1003,12 @@ int open_avi(VideoHandle* v, std::string* msg) {
     for (size_t i = 0; i < n; i++) {
       const video::Sample& s = t.samples[i];
       uint8_t head[2];
+      if (t.content_comp >= 0) {
+        size_t len;
+        const uint8_t* b = s.key ? whole_sample(v, i, &len) : nullptr;
+        keys[i] = b && video::Ffv1Decoder::is_key(b, len);
+        continue;
+      }
       keys[i] = s.key && s.size >= 2 && read_head(v, s, head, 2) &&
                 video::Ffv1Decoder::is_key(head, 2);
     }
@@ -872,9 +1023,10 @@ int open_avi(VideoHandle* v, std::string* msg) {
       probe.configure(t.config.data(), t.config.size(), t.width, t.height, msg);
       for (size_t i = 0; i < n && v->format < 0; i++) {
         if (!keys[i]) continue;
-        const uint8_t* b = whole_sample(v, i);
+        size_t len;
+        const uint8_t* b = whole_sample(v, i, &len);
         if (!b) break;
-        r = probe.decode(b, size_t(t.samples[i].size), msg);
+        r = probe.decode(b, len, msg);
         if (r == video::kUnsupported) return r;
         v->format = probe.format();
         break;
@@ -912,6 +1064,52 @@ int open_avi(VideoHandle* v, std::string* msg) {
     return video::kUnsupported;
   }
   return check_size(v, msg);
+}
+
+// av_probe_input_buffer2 between MPEG-PS and MPEG-TS (a stream cut mid-way
+// scores by its packets): the first 2 KiB, then twice as many bytes each
+// time up to a MiB, until one scores above 25, or above 0 once the whole
+// file is in; MPEG-PS on a tie, as it is registered first. kMpegPs,
+// kMpegTs, or 0 for neither.
+int sniff_mpeg(video::BlockReader* in) {
+  constexpr uint64_t kMax = uint64_t(1) << 20;
+  uint64_t seen = 0;
+  for (uint64_t probe = 2048;; probe = std::min(probe * 2, kMax)) {
+    const bool eof = seen > 0 && seen >= in->size;
+    const size_t n = size_t(std::min(probe, in->size));
+    const uint8_t* head = in->at(0, n);
+    if (!head) return 0;
+    const int ps = video::mpegps_probe(head, n), ts = video::mpegts_probe(head, n);
+    if (std::max(ps, ts) > (probe < kMax && !eof ? 25 : 0))
+      return ps >= ts ? video::kMpegPs : video::kMpegTs;
+    if (eof || probe >= kMax) return 0;
+    seen = n;
+  }
+}
+
+// Matroska: the codec by its tag as open_avi dispatches it, the fps from
+// the track's DefaultDuration (else the timestamps), the frame count from
+// the Segment's duration, and for the intra-only codecs each frame's index
+// from its timestamp (a frame without one follows the frame before)
+int open_mkv(VideoHandle* v, std::string* msg) {
+  video::Track& t = v->track;
+  const double fps = t.fps > 0.0 && std::isfinite(t.fps) ? t.fps : guess_fps(v);
+  v->fps = fps > 0.0 && std::isfinite(fps) ? fps : 25.0;
+  const int r = open_avi(v, msg);
+  if (r != video::kOk) return r;
+  v->num_frames = t.format_duration != video::kNoPts
+                      ? sat_i64(double(t.format_duration) / 1000000.0 * v->fps + 0.5) : 0;
+  if (v->codec == kMjpegAvi || v->codec == kHuffyuvAvi || v->codec == kFfv1Avi ||
+      v->codec == kRawAvi) {
+    v->frame_at.resize(t.samples.size());
+    int64_t next = 0;
+    for (size_t i = 0; i < t.samples.size(); i++) {
+      const int64_t ts = t.ms_compat ? t.samples[i].dts : t.samples[i].pts;
+      v->frame_at[i] = ts != video::kNoPts ? pts_to_frame(v, ts) : next;
+      next = v->frame_at[i] + 1;
+    }
+  }
+  return video::kOk;
 }
 
 }  // namespace
@@ -974,12 +1172,17 @@ void* dali_tpu_torch_video_open(const char* path, const unsigned char* data, siz
   v->in.mem = mem;
   v->in.size = v->size;
   v->in.block = size_t(1) << 16;
-  if (video::is_avi(head, head_n)) {
+  const bool mkv = video::is_mkv(head, head_n);
+  const int mpeg =
+      video::is_avi(head, head_n) || video::is_mp4(head, head_n) || mkv ? 0 : sniff_mpeg(&v->in);
+  if (mkv) {
+    r = video::demux_mkv_fd(v->fd, mem, v->size, &v->track, &msg);
+  } else if (video::is_avi(head, head_n)) {
     r = mem ? video::demux_avi(mem, v->size, &v->track, &msg)
             : video::demux_avi_fd(v->fd, v->size, &v->track, &msg);
-  } else if (video::is_mpeg_ps(head, head_n)) {
+  } else if (mpeg == video::kMpegPs) {
     r = video::demux_mpeg_ps_fd(v->fd, mem, v->size, &v->track, &msg, &pass);
-  } else if (video::is_mpeg_ts(head, head_n)) {
+  } else if (mpeg == video::kMpegTs) {
     r = video::demux_mpeg_ts_fd(v->fd, mem, v->size, &v->track, &msg, &pass);
   } else if (video::is_mpeg_es(head, head_n)) {
     r = video::demux_mpeg_es_fd(v->fd, mem, v->size, &v->track, &msg, &pass);
@@ -990,6 +1193,7 @@ void* dali_tpu_torch_video_open(const char* path, const unsigned char* data, siz
   if (r != video::kOk) return fail(r == video::kUnsupported ? 2 : 1, msg);
   if (v->track.container != video::kMp4) {
     if (v->track.container == video::kAvi) r = open_avi(v, &msg);
+    else if (v->track.container == video::kMkv) r = open_mkv(v, &msg);
     else if (v->track.es_codec == video::kEsMpeg4) {
       v->codec = kMpeg4Ts;
       v->fps = (v->track.fps > 0.0 && std::isfinite(v->track.fps)) ? v->track.fps : 25.0;
@@ -1021,10 +1225,11 @@ void* dali_tpu_torch_video_open(const char* path, const unsigned char* data, siz
       if (s.offset < 0 || s.size <= 0 || uint64_t(s.offset) >= v->size ||
           uint64_t(s.size) > v->size - uint64_t(s.offset))
         break;
-      const uint8_t* bytes = sample_bytes(v, s);
+      size_t len;
+      const uint8_t* bytes = sample_bytes(v, s, &len);
       if (!bytes) break;
       video::Mpeg4Decoder probe;
-      r = probe.configure(bytes, size_t(s.size), &msg);
+      r = probe.configure(bytes, len, &msg);
       if (r == video::kUnsupported) return fail(2, msg);
       v->width = probe.width();
       v->height = probe.height();

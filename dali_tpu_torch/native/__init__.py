@@ -1099,22 +1099,23 @@ class VideoPixfmtChanged(RuntimeError):
 
 
 def has_video() -> bool:
-    """The port decodes MP4, AVI, MPEG-PS, MPEG-TS and MPEG-1/2 elementary
-    stream video itself: always available."""
+    """The port decodes MP4, AVI, Matroska, MPEG-PS, MPEG-TS and MPEG-1/2
+    elementary stream video itself: always available."""
     return True
 
 
 class VideoFile:
-    """Frame-accurate sequence reads of an MP4, AVI, MPEG-PS (``.mpg``,
-    ``.vob``), MPEG-TS or MPEG-1/2 elementary stream (``.m1v``, ``.m2v``)
-    file, to RGB24
-    or planar YUV 4:2:0 (counterpart of ``dali_tpu.native.VideoFile``: its
+    """Frame-accurate sequence reads of an MP4, AVI, Matroska (``.mkv``),
+    MPEG-PS (``.mpg``, ``.vob``), MPEG-TS or MPEG-1/2 elementary stream
+    (``.m1v``, ``.m2v``) file, a PS or TS cut mid-stream too, to RGB24 or
+    planar YUV 4:2:0 (counterpart of ``dali_tpu.native.VideoFile``: its
     signatures, its errors and its frames). ``path`` may instead be the
     encoded bytes of the file. Raises ``ValueError`` where the reference
     fails to open a file, ``NotImplementedError`` for a container or codec
     that FFmpeg reads and the port does not yet (ROADMAP.md Queue 1 item
-    8b), and ``ValueError`` naming the damage when a stream that the
-    reference would conceal is damaged."""
+    8b: WebM's VP8/VP9 name 8b(f), H.264 8b(e)), and ``ValueError`` naming
+    the damage when a stream that the reference would conceal is
+    damaged."""
 
     def __init__(self, path):
         lib = host_lib()

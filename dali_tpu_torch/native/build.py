@@ -63,7 +63,8 @@ HOST_SOURCES = [os.path.join(_HOST_SRC, f) for f in (
     "pnm_decode.cc", "image_decode_batch.cc", "mp3_decode.cc", "ogg.cc", "vorbis_decode.cc",
     "audio_decode_batch.cc", "mp4_demux.cc", "avi_demux.cc", "mpeg4_decode.cc",
     "mjpeg_decode.cc", "huffyuv_decode.cc", "ffv1_decode.cc", "sws_rgb.cc", "video_decode.cc",
-    "optical_flow.cc", "mpeg12_decode.cc", "mpeg_ps_demux.cc", "mpeg_ts_demux.cc")]
+    "optical_flow.cc", "mpeg12_decode.cc", "mpeg_ps_demux.cc", "mpeg_ts_demux.cc",
+    "mkv_demux.cc")]
 # compiled with dali_tpu's own flags (contraction on): its float filters sum
 # into the fused multiply-adds of the reference's library
 HOST_CONTRACT_SOURCES = [os.path.join(_HOST_SRC, "host_ops.cc")]

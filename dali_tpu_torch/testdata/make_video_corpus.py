@@ -204,14 +204,19 @@ _AVI_HELPER_C = r"""
    then U, then V) with encoder ``codec`` (FourCC ``tag`` when not empty,
    "k=v:k=v" options, custom intra and non-intra quantiser matrices when
    not null) into the muxer ``muxer`` (AVI when empty) at ``path``;
-   ``strip_dht`` drops every DHT segment of a JPEG packet. Returns 0, or a
-   negative code. */
+   ``strip_dht`` drops every DHT segment of a JPEG packet; ``global_header``
+   1 asks the encoder for global headers (as ffmpeg does for a muxer that
+   wants them), 0 not, -1 as the muxer wants; ``timing`` gives every packet
+   a duration of one frame and the stream its frame rate, as ffmpeg does.
+   Returns 0, or a negative code. */
 int encode_avi(const unsigned char* yuv, int n, int w, int h, int fps, const char* path,
                const char* codec, const char* tag, const char* opts, int pixfmt,
                long bit_rate, int strip_dht, const char* muxer, const unsigned short* intra,
-               const unsigned short* inter) {
+               const unsigned short* inter, int global_header, int timing) {
   AVFormatContext* fmt = NULL;
   if (avformat_alloc_output_context2(&fmt, NULL, *muxer ? muxer : "avi", path) < 0) return -1;
+  /* Matroska: segment and track UIDs from the file's contents, not drawn */
+  if (!strcmp(fmt->oformat->name, "matroska")) fmt->flags |= AVFMT_FLAG_BITEXACT;
   const AVCodec* cd = avcodec_find_encoder_by_name(codec);
   if (!cd) return -2;
   AVStream* st = avformat_new_stream(fmt, NULL);
@@ -223,6 +228,8 @@ int encode_avi(const unsigned char* yuv, int n, int w, int h, int fps, const cha
   c->framerate = (AVRational){fps, 1};
   c->gop_size = 12;
   if (bit_rate > 0) c->bit_rate = bit_rate;
+  if (global_header > 0 || (global_header < 0 && (fmt->oformat->flags & AVFMT_GLOBALHEADER)))
+    c->flags |= AV_CODEC_FLAG_GLOBAL_HEADER;
   if (*tag) c->codec_tag = MKTAG(tag[0], tag[1], tag[2], tag[3]);
   if (intra) {
     c->intra_matrix = av_malloc(64 * sizeof(uint16_t));
@@ -239,6 +246,7 @@ int encode_avi(const unsigned char* yuv, int n, int w, int h, int fps, const cha
   if (rc < 0) return -3;
   avcodec_parameters_from_context(st->codecpar, c);
   st->time_base = c->time_base;
+  if (timing) st->avg_frame_rate = c->framerate;
   if (avio_open(&fmt->pb, path, AVIO_FLAG_WRITE) < 0) return -4;
   if (avformat_write_header(fmt, NULL) < 0) return -5;
   AVFrame* f = av_frame_alloc();
@@ -275,6 +283,7 @@ int encode_avi(const unsigned char* yuv, int n, int w, int h, int fps, const cha
         memmove(pkt->data + k, pkt->data + o, pkt->size - o);
         pkt->size = k + pkt->size - o;
       }
+      if (timing) pkt->duration = 1;
       av_packet_rescale_ts(pkt, c->time_base, st->time_base);
       pkt->stream_index = 0;
       av_interleaved_write_frame(fmt, pkt);
@@ -357,7 +366,8 @@ class AviWriter:
         c = ctypes
         self._lib.encode_avi.argtypes = [c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int,
                                          c.c_char_p, c.c_char_p, c.c_char_p, c.c_char_p, c.c_int,
-                                         c.c_long, c.c_int, c.c_char_p, c.c_void_p, c.c_void_p]
+                                         c.c_long, c.c_int, c.c_char_p, c.c_void_p, c.c_void_p,
+                                         c.c_int, c.c_int]
         self._lib.mux_avi.argtypes = [c.c_char_p, c.c_char_p, c.c_char_p, c.c_int, c.c_int,
                                       c.c_int, c.c_int, c.c_void_p, c.c_int, c.c_void_p,
                                       c.c_void_p, c.c_void_p, c.c_int]
@@ -366,12 +376,16 @@ class AviWriter:
         self._avutil.av_get_pix_fmt.argtypes = [c.c_char_p]
 
     def write(self, path, frames, codec, tag="", opts="", pixfmt=YUV420P, bit_rate=0,
-              strip_dht=False, fps=FPS, size=None, muxer="", matrices=None):
+              strip_dht=False, fps=FPS, size=None, muxer="", matrices=None, global_header=-1,
+              timing=False):
         """``frames``: BGR images of one size, coded from planar 4:2:0; or,
         with ``pixfmt`` an FFmpeg pixel format name, frames of ``size``
         (w, h) already in that format's bytes (``planes``). ``muxer``: an
         FFmpeg muxer name (AVI when empty); ``matrices``: custom intra and
-        non-intra quantiser matrices (64 values each, raster order)."""
+        non-intra quantiser matrices (64 values each, raster order);
+        ``global_header``: 1 or 0 asks the encoder for global headers or
+        not, -1 (the default) as the muxer wants them; ``timing``: packet
+        durations and the stream's frame rate, as ffmpeg writes them."""
         w, h = size or frames[0].shape[1::-1]
         if isinstance(pixfmt, str):
             data = np.ascontiguousarray(np.stack([np.asarray(f).reshape(-1) for f in frames]))
@@ -383,7 +397,8 @@ class AviWriter:
         rc = self._lib.encode_avi(data.ctypes.data, len(data), w, h, fps, path.encode(),
                                   codec.encode(), tag.encode(), opts.encode(), pixfmt,
                                   bit_rate, int(strip_dht), muxer.encode(),
-                                  *[None if m is None else m.ctypes.data for m in mats])
+                                  *[None if m is None else m.ctypes.data for m in mats],
+                                  global_header, int(timing))
         if rc != 0:
             raise RuntimeError(f"{codec} into {path} failed: {rc}")
         return path
@@ -758,6 +773,358 @@ def write_mpeg_corpus(root):
                       frames, fourcc)
 
 
+# --------------------------------------------------------------------------- Matroska
+# EBML IDs the rewrites read or write
+MKV_SEGMENT, MKV_SEEKHEAD, MKV_CUES, MKV_TRACKS, MKV_CLUSTER = (0x18538067, 0x114D9B74,
+                                                              0x1C53BB6B, 0x1654AE6B, 0x1F43B675)
+MKV_TRACK_ENTRY, MKV_TRACK_NUMBER, MKV_DEFAULT_DURATION = 0xAE, 0xD7, 0x23E383
+MKV_SIMPLE_BLOCK, MKV_BLOCK_GROUP, MKV_BLOCK, MKV_REFERENCE_BLOCK = 0xA3, 0xA0, 0xA1, 0xFB
+# the master elements the rewrites descend into
+_MKV_MASTERS = {MKV_SEGMENT, MKV_TRACKS, MKV_TRACK_ENTRY, MKV_CLUSTER, MKV_BLOCK_GROUP}
+
+
+def _ebml_num(data, pos, keep_marker):
+    """An EBML variable-length number at ``pos``: (value, length)."""
+    first = data[pos]
+    n = 1
+    while not first & (0x80 >> (n - 1)):
+        n += 1
+    v = first if keep_marker else first & (0xFF >> n)
+    for b in data[pos + 1: pos + n]:
+        v = (v << 8) | b
+    return v, n
+
+
+def ebml_parse(data, start=0, end=None):
+    """The elements of ``data[start:end]`` as [id, body] pairs, a master's
+    body (``_MKV_MASTERS``) a list of its children, any other's its bytes."""
+    end = len(data) if end is None else end
+    out, pos = [], start
+    while pos < end:
+        eid, il = _ebml_num(data, pos, True)
+        size, sl = _ebml_num(data, pos + il, False)
+        body = pos + il + sl
+        if size == (1 << (7 * sl)) - 1:  # unknown: to the end of the parent
+            size = end - body
+        out.append([eid, ebml_parse(data, body, body + size) if eid in _MKV_MASTERS
+                    else bytes(data[body: body + size])])
+        pos = body + size
+    return out
+
+
+def _ebml_size(n, unknown=False):
+    if unknown:
+        return bytes([0x01]) + b"\xff" * 7
+    k = 1
+    while n >= (1 << (7 * k)) - 1:
+        k += 1
+    return ((1 << (7 * k)) | n).to_bytes(k, "big") if k < 8 else (
+        (1 << 56) | n).to_bytes(8, "big")
+
+
+def ebml_write(elements, unknown=()):
+    """The bytes of [id, body] elements; the IDs in ``unknown`` are written
+    with an unknown size (all ones), as a live writer leaves them."""
+    out = bytearray()
+    for eid, body in elements:
+        b = ebml_write(body, unknown) if isinstance(body, list) else bytes(body)
+        out += eid.to_bytes((eid.bit_length() + 7) // 8, "big")
+        out += _ebml_size(len(b), eid in unknown) + b
+    return bytes(out)
+
+
+def ebml_uint(eid, v):
+    return [eid, v.to_bytes(max(1, (v.bit_length() + 7) // 8), "big")]
+
+
+def mkv_segment(elements):
+    return next(body for eid, body in elements if eid == MKV_SEGMENT)
+
+
+def mkv_without_index(elements):
+    """The file without its SeekHead and Cues (whose offsets a rewrite
+    would break): libavformat then finds the clusters by reading them."""
+    seg = mkv_segment(elements)
+    seg[:] = [e for e in seg if e[0] not in (MKV_SEEKHEAD, MKV_CUES)]
+    return elements
+
+
+def mkv_blocks(elements, track=1):
+    """The video track's SimpleBlocks: (cluster, index in it, body)."""
+    for eid, cl in mkv_segment(elements):
+        if eid != MKV_CLUSTER:
+            continue
+        for i, (bid, body) in enumerate(cl):
+            if bid == MKV_SIMPLE_BLOCK and body[0] == 0x80 | track:
+                yield cl, i, body
+
+
+def mkv_track_entry(elements, number=1):
+    tracks = next(b for e, b in mkv_segment(elements) if e == MKV_TRACKS)
+    return next(t for e, t in tracks if e == MKV_TRACK_ENTRY and
+                any(i == MKV_TRACK_NUMBER and int.from_bytes(v, "big") == number for i, v in t))
+
+
+def mkv_one_cluster(elements):
+    """Every Cluster's blocks in the first Cluster, their 16-bit timestamps
+    restated against its Timestamp (FFmpeg's muxer starts a Cluster a
+    frame for large frames)."""
+    seg = mkv_segment(elements)
+    clusters = [cl for eid, cl in seg if eid == MKV_CLUSTER]
+    base = None
+    blocks = []
+    for cl in clusters:
+        t = int.from_bytes(next(b for i, b in cl if i == 0xE7), "big")
+        base = t if base is None else base
+        for i, b in cl:
+            if i == MKV_SIMPLE_BLOCK:
+                rel = t + int.from_bytes(b[1:3], "big", signed=True) - base
+                blocks.append([i, b[:1] + rel.to_bytes(2, "big", signed=True) + b[3:]])
+    first = clusters[0]
+    first[:] = [[i, b] for i, b in first if i == 0xE7] + blocks
+    seg[:] = [e for e in seg if e[0] != MKV_CLUSTER or e[1] is first]
+    return elements
+
+
+def mkv_laced(elements, kind, per_block=4):
+    """Runs of ``per_block`` SimpleBlocks merged into one block with Xiph
+    (``xiph``), EBML (``ebml``) or fixed-size (``fixed``) lacing, in one
+    Cluster; the frames after a block's first take their timestamps from
+    the track's DefaultDuration."""
+    mkv_one_cluster(elements)
+    for eid, cl in mkv_segment(elements):
+        if eid != MKV_CLUSTER:
+            continue
+        out, run = [], []
+
+        def flush():
+            if not run:
+                return
+            if len(run) == 1:
+                out.append([MKV_SIMPLE_BLOCK, run[0]])
+            else:
+                frames = [b[4:] for b in run]
+                sizes = [len(f) for f in frames]
+                head = bytearray(run[0][:3]) + bytes([run[0][3] | {"xiph": 2, "fixed": 4,
+                                                                   "ebml": 6}[kind]])
+                head.append(len(frames) - 1)
+                if kind == "xiph":
+                    for n in sizes[:-1]:
+                        head += b"\xff" * (n // 255) + bytes([n % 255])
+                elif kind == "ebml":
+                    head += _ebml_size(sizes[0])
+                    for a, b in zip(sizes[:-2], sizes[1:-1]):
+                        # a signed difference in two bytes: 14 bits, biased
+                        head += ((1 << 14) | (b - a + (1 << 13) - 1)).to_bytes(2, "big")
+                elif len(set(sizes)) != 1:
+                    raise ValueError("fixed lacing needs frames of one size")
+                out.append([MKV_SIMPLE_BLOCK, bytes(head) + b"".join(frames)])
+            run.clear()
+
+        for bid, body in cl:
+            if bid == MKV_SIMPLE_BLOCK and body[0] == 0x81:
+                run.append(body)
+                if len(run) == per_block:
+                    flush()
+            else:
+                flush()
+                out.append([bid, body])
+        flush()
+        cl[:] = out
+    return elements
+
+
+def mkv_compressed(elements, algo):
+    """Every video frame stored with a ContentEncoding: header stripping
+    (``algo`` 3: the bytes every frame starts with go into the track's
+    ContentCompSettings) or zlib (``algo`` 0)."""
+    import zlib
+
+    blocks = list(mkv_blocks(elements))
+    frames = [b[4:] for _, _, b in blocks]
+    if algo == 3:
+        k = 0
+        while all(len(f) > k + 1 and f[k] == frames[0][k] for f in frames):
+            k += 1
+        prefix = frames[0][:k]
+        for cl, i, b in blocks:
+            cl[i][1] = b[:4] + b[4 + k:]
+        comp = [ebml_uint(0x4254, 3), [0x4255, prefix]]
+    else:
+        for cl, i, b in blocks:
+            cl[i][1] = b[:4] + zlib.compress(b[4:], 9)
+        comp = [ebml_uint(0x4254, 0)]
+    encoding = [0x6240, [ebml_uint(0x5031, 0), ebml_uint(0x5032, 1), ebml_uint(0x5033, 0),
+                         [0x5034, comp]]]
+    mkv_track_entry(elements).append([0x6D80, [encoding]])
+    return elements
+
+
+def mkv_block_groups(elements):
+    """Every video SimpleBlock as a BlockGroup: its Block, and a
+    ReferenceBlock (one frame back) unless it is a key frame."""
+    for cl, i, b in list(mkv_blocks(elements)):
+        group = [[MKV_BLOCK, b[:3] + bytes([b[3] & 0x7F]) + b[4:]]]
+        if not b[3] & 0x80:
+            group.append([MKV_REFERENCE_BLOCK, (-40 & 0xFF).to_bytes(1, "big")])
+        cl[i] = [MKV_BLOCK_GROUP, group]
+    return elements
+
+
+def mkv_with_audio_first(elements):
+    """An A_PCM/INT/LIT track (8 kHz mono, 16 bits) as track 1, the video
+    renumbered 2, and a block of silence beside each video block."""
+    import struct
+
+    tracks = next(b for e, b in mkv_segment(elements) if e == MKV_TRACKS)
+    video = mkv_track_entry(elements)
+    for item in video:
+        if item[0] == MKV_TRACK_NUMBER:
+            item[1] = b"\x02"
+        if item[0] == 0x73C5:  # TrackUID
+            item[1] = b"\x02"
+    audio = [MKV_TRACK_ENTRY, [ebml_uint(MKV_TRACK_NUMBER, 1), ebml_uint(0x73C5, 1),
+                               ebml_uint(0x83, 2), [0x86, b"A_PCM/INT/LIT"],
+                               [0xE1, [[0xB5, struct.pack(">d", 8000.0)],
+                                       ebml_uint(0x9F, 1), ebml_uint(0x6264, 16)]]]]
+    tracks.insert(0, audio)
+    for eid, cl in mkv_segment(elements):
+        if eid != MKV_CLUSTER:
+            continue
+        out = []
+        for bid, body in cl:
+            if bid == MKV_SIMPLE_BLOCK and body[0] == 0x81:
+                out.append([MKV_SIMPLE_BLOCK, bytes([0x81]) + body[1:3] + b"\x80" + bytes(640)])
+                body = bytes([0x82]) + body[1:]
+            out.append([bid, body])
+        cl[:] = out
+    return elements
+
+
+def mkv_vfw_i420(elements, w, h):
+    """A V_UNCOMPRESSED I420 track restated as V_MS/VFW/FOURCC with a
+    BITMAPINFOHEADER (the form a VfW capture remuxed from AVI takes)."""
+    import struct
+
+    entry = mkv_track_entry(elements)
+    bih = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 12, b"I420", w * h * 3 // 2, 0, 0, 0, 0)
+    entry[:] = [[e, b] for e, b in entry if e not in (0x86, 0x63A2)]
+    entry += [[0x86, b"V_MS/VFW/FOURCC"], [0x63A2, bih]]
+    return elements
+
+
+# The Matroska fixtures (``video/mkv``) FFmpeg's encoders write through the
+# helper's ``matroska`` muxer: name -> (encoder, options, size, frames, pixel
+# format, timing (packet durations and DefaultDuration), global headers)
+MKV = {
+    "mpeg4_bf_160x120.mkv": ("mpeg4", "bf=2", (160, 120), 40, "yuv420p", True, -1),
+    "mpeg4_bf_long_96x64.mkv": ("mpeg4", "bf=2", (96, 64), 90, "yuv420p", True, -1),
+    "xvid_bf_160x120.mkv": ("libxvid", "bf=2", (160, 120), 40, "yuv420p", True, -1),
+    "xvid_packed_160x120.mkv": ("libxvid", "bf=2", (160, 120), 40, "yuv420p", True, 0),
+    "ffv1_v3_420_64x48.mkv": ("ffv1", "level=3:g=1:slicecrc=1:slices=4", (64, 48), 80,
+                              "yuv420p", True, -1),
+    "mpeg2_bf2_64x48.mkv": ("mpeg2video", "bf=2", (64, 48), 30, "yuv420p", True, -1),
+    "nodefault_mpeg4_64x48.mkv": ("mpeg4", "bf=2", (64, 48), 30, "yuv420p", False, -1),
+    "nodefault_ffv1_64x48.mkv": ("ffv1", "level=1", (64, 48), 20, "yuv420p", False, -1),
+    "h264_64x48.mkv": ("libx264", "", (64, 48), 12, "yuv420p", True, -1),
+}
+# cv2's Matroska writes: name -> (FourCC, fps)
+MKV_CV2 = {"cv2_xvid_64x48.mkv": ("XVID", FPS), "cv2_mjpg_64x48.mkv": ("MJPG", FPS),
+           "cv2_ffv1_64x48.mkv": ("FFV1", FPS), "cv2_mpg2_64x48.mkv": ("MPG2", FPS),
+           "cv2_mpg1_64x48.mkv": ("MPG1", FPS), "cv2_hfyu_64x48.mkv": ("HFYU", FPS),
+           "cv2_mp4v_2997_64x48.mkv": ("mp4v", 30000 / 1001),
+           "vp8_64x48.webm": ("VP80", FPS), "vp9_64x48.webm": ("VP90", FPS)}
+# the forms FFmpeg's muxer does not write, rewritten from its files: name ->
+# (source encoder, options, pixel format, the rewrite)
+MKV_REWRITES = {
+    "unknown_sizes_mpeg4_64x48.mkv": ("mpeg4", "bf=2", "yuv420p", "unknown"),
+    "lace_xiph_mjpeg_64x48.mkv": ("mjpeg", "", "yuvj420p", "xiph"),
+    "lace_ebml_mjpeg_64x48.mkv": ("mjpeg", "", "yuvj420p", "ebml"),
+    "lace_fixed_i420_64x48.mkv": ("rawvideo", "", "yuv420p", "fixed"),
+    "headerstrip_mjpeg_64x48.mkv": ("mjpeg", "", "yuvj420p", "strip"),
+    "zlib_mpeg4_64x48.mkv": ("mpeg4", "bf=2", "yuv420p", "zlib"),
+    "audio_first_mpeg4_64x48.mkv": ("mpeg4", "bf=2", "yuv420p", "audio"),
+    "blockgroups_mpeg4_64x48.mkv": ("mpeg4", "bf=2", "yuv420p", "groups"),
+}
+
+
+def mkv_rewrite(data, form, size):
+    """One of ``MKV_REWRITES``' forms of an FFmpeg Matroska file."""
+    el = mkv_without_index(ebml_parse(data))
+    unknown = ()
+    if form == "unknown":
+        unknown = (MKV_SEGMENT, MKV_CLUSTER)
+    elif form in ("xiph", "ebml"):
+        mkv_laced(el, form)
+    elif form == "fixed":
+        mkv_laced(mkv_vfw_i420(el, *size), form)
+    elif form == "strip":
+        mkv_compressed(el, 3)
+    elif form == "zlib":
+        mkv_compressed(el, 0)
+    elif form == "audio":
+        mkv_with_audio_first(el)
+    elif form == "groups":
+        mkv_block_groups(el)
+    return ebml_write(el, unknown)
+
+
+def write_mkv_fixtures(out_dir=OUT):
+    import tempfile
+
+    d = os.path.join(out_dir, "mkv")
+    os.makedirs(d, exist_ok=True)
+    wr = AviWriter()
+    for k, (name, (codec, opts, (w, h), n, pixfmt, timing, gh)) in enumerate(sorted(MKV.items())):
+        frames = moving_frames(np.random.default_rng(500 + k), n, w, h,
+                               ("pan", "drift", "zoom")[k % 3],
+                               cut_at=n // 2 if k % 4 == 0 else None)
+        wr.write(os.path.join(d, name), [planes(f, pixfmt) for f in frames], codec, opts=opts,
+                 pixfmt=pixfmt, size=(w, h), muxer="matroska", timing=timing, global_header=gh)
+    small = moving_frames(np.random.default_rng(520), 30, 64, 48, "drift")
+    for name, (fourcc, fps) in MKV_CV2.items():
+        # HuffYUV is as large as raw video: 12 frames
+        cv2_video(os.path.join(d, name), small[:12] if fourcc == "HFYU" else small, fourcc,
+                  fps=fps)
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, (name, (codec, opts, pixfmt, form)) in enumerate(sorted(MKV_REWRITES.items())):
+            # raw frames: 12
+            frames = moving_frames(np.random.default_rng(540 + k), 12 if form == "fixed" else 24,
+                                   64, 48, ("pan", "drift", "zoom")[k % 3])
+            src = wr.write(os.path.join(tmp, name), [planes(f, pixfmt) for f in frames], codec,
+                           opts=opts, pixfmt=pixfmt, size=(64, 48), muxer="matroska",
+                           timing=True)
+            with open(src, "rb") as f:
+                data = mkv_rewrite(f.read(), form, (64, 48))
+            with open(os.path.join(d, name), "wb") as f:
+                f.write(data)
+
+
+def mkv_corpus_files(root):
+    return [os.path.join(root, c, f"{c}_{k:02d}.mkv") for c in ("xvid", "ffv1") for k in range(16)]
+
+
+# The mkv_archive_train corpus: 16 Xvid clips with B-frames at 600 kbit/s
+# (48 frames) and 16 FFV1 version 3 clips at 4:2:0 with the archival
+# settings (intra-only, slice CRCs, 16 slices; 12 frames: FFV1 at 320x240
+# is ~36 KB a frame), 320x240 at 25 fps, in Matroska
+MKV_CORPUS = (("xvid", "libxvid", "bf=2", 48, 600_000),
+              ("ffv1", "ffv1", "level=3:g=1:slicecrc=1:slices=16", 12, 0))
+
+
+def write_mkv_corpus(root):
+    w, h = CORPUS_SIZE
+    wr = AviWriter()
+    for ci, (cls, codec, opts, n, rate) in enumerate(MKV_CORPUS):
+        os.makedirs(os.path.join(root, cls), exist_ok=True)
+        for k in range(16):
+            frames = moving_frames(np.random.default_rng(8000 + 100 * ci + k), n, w, h,
+                                   ("pan", "drift", "zoom")[(ci + k) % 3], noise=1.0,
+                                   cut_at=n // 2 if k % 5 == 4 else None)
+            wr.write(os.path.join(root, cls, f"{cls}_{k:02d}.mkv"), frames, codec, opts=opts,
+                     bit_rate=rate, muxer="matroska", timing=True)
+
+
 def write_huffyuv_tables(path=os.path.join(os.path.dirname(HERE), "csrc", "host",
                                            "huffyuv_tables.h")):
     """``csrc/host/huffyuv_tables.h`` from this machine's libavcodec: its
@@ -901,6 +1268,13 @@ def main(argv):
         total = sum(os.path.getsize(os.path.join(dd, f)) for sub in ("capture", "capture_corpus")
                     for dd, _, fs in os.walk(os.path.join(out_dir, sub)) for f in fs)
         print(f"{out_dir}: capture set {total} bytes")
+        return
+    if "--mkv" in argv:
+        write_mkv_fixtures(out_dir)
+        write_mkv_corpus(os.path.join(out_dir, "mkv_corpus"))
+        total = sum(os.path.getsize(os.path.join(dd, f)) for sub in ("mkv", "mkv_corpus")
+                    for dd, _, fs in os.walk(os.path.join(out_dir, sub)) for f in fs)
+        print(f"{out_dir}: Matroska set {total} bytes")
         return
     if "--mpeg" in argv:
         write_mpeg_fixtures(out_dir)

@@ -166,13 +166,13 @@ def corpus_files(root=CORPUS):
             for f in sorted(os.listdir(os.path.join(root, c)))]
 
 
-def decode_rate(root=CORPUS, threads=None):
-    """Frames/s of the host decode of every corpus clip, whole, as planar
-    YUV: on one thread, and on the task pool of ``threads`` workers (one
-    task a clip, ``native.video_read_batch``)."""
+def decode_rate(root=CORPUS, threads=None, files=None):
+    """Frames/s of the host decode of every corpus clip (or of ``files``),
+    whole, as planar YUV: on one thread, and on the task pool of
+    ``threads`` workers (one task a clip, ``native.video_read_batch``)."""
     from dali_tpu_torch import native
 
-    files = corpus_files(root)
+    files = files or corpus_files(root)
     threads = threads or os.cpu_count() or 1
     vfs = [native.VideoFile(p) for p in files]
     counts = [vf.num_frames for vf in vfs]

@@ -1,5 +1,6 @@
 """Mutation probe of dali_tpu_torch's host video stack (``csrc/host/
 mp4_demux.cc``, ``avi_demux.cc``, ``mpeg_ps_demux.cc``, ``mpeg_ts_demux.cc``,
+``mkv_demux.cc`` with ``inflate.cc``,
 ``mpeg4_decode.cc``, ``mpeg12_decode.cc``, ``mjpeg_decode.cc`` with the JPEG
 reader it takes, ``huffyuv_decode.cc``, ``ffv1_decode.cc``, ``sws_rgb.cc``,
 ``video_decode.cc``) under
@@ -11,15 +12,18 @@ It compiles those sources and ``tasking.cc`` with a small C++ harness,
 then, for every input file, opens it unchanged and then ``--iters``
 damaged copies (bit flips, random bytes, fake start codes: MPEG-4 VOLs,
 MPEG-1/2 pictures, slices, sequence, GOP, extension, end and pack headers;
-cuts, flips in the last 2 KiB where cv2's files keep ``moov``), alternately
+EBML sizes of all ones (unknown) and IDs of Clusters, SimpleBlocks and
+BlockGroups; cuts, flips in the last 2 KiB where cv2's files keep
+``moov``), alternately
 from a path
 and from memory, and reads each through RGB, planar and batched reads at
 several starts and strides. Inputs: the committed MP4 and AVI fixtures
 (Xvid with packed B-VOPs, FFmpeg's unpacked ones, Motion JPEG with and
 without DHT, raw I420, a file without an index, the HuffYUV, FFV1 and
 Motion JPEG 4:2:2/4:4:4/grey files of ``capture``, the MPEG-1/2 files of
-``mpeg``: TS, PS, VOB, elementary streams and AVI, a splice), one clip of
-each corpus, and three
+``mpeg``: TS, PS, VOB, elementary streams and AVI, a splice, the Matroska
+files of ``mkv``: every codec, lacing, ContentEncoding and unknown size),
+one clip of each corpus, a TS and a PS cut mid-stream, and three
 files whose frame size changes mid-stream (a smaller clip spliced in after
 frame 5, one of the same macroblock grid, a smaller VOL before one P-VOP),
 written with cv2 here, and cv2's MPEG-2 TS with its program map sections
@@ -99,7 +103,7 @@ int main(int argc, char** argv) {
     if (base.empty()) continue;
     for (int it = 0; it < iters; it++) {
       std::vector<unsigned char> d = base;
-      int mode = it % 5;
+      int mode = it % 6;
       int flips = it == 0 ? 0 : 1 + int(rng() % 8);
       for (int k = 0; k < flips; k++) {
         size_t pos = rng() % d.size();
@@ -111,6 +115,17 @@ int main(int argc, char** argv) {
           d[pos] = 0; d[pos+1] = 0; d[pos+2] = 1; d[pos+3] = codes[rng() % 12];
         }
         else if (mode == 3) d.resize(pos + 1);
+        else if (mode == 5 && pos + 9 < d.size()) {
+          // EBML: a size of all ones, or a Cluster, SimpleBlock or BlockGroup ID
+          static const unsigned char ids[][4] = {{0x1f, 0x43, 0xb6, 0x75}, {0xa3, 0x88, 0x81, 0},
+                                                 {0xa0, 0x8c, 0xa1, 0x8a}};
+          if (rng() & 1) {
+            d[pos] = 0x01;
+            for (int q = 1; q < 8; q++) d[pos + q] = 0xff;
+          } else {
+            memcpy(&d[pos], ids[rng() % 3], 4);
+          }
+        }
         else d[(d.size() - 1 - pos % 2048)] ^= 1u << (rng() % 8);  // the tail: moov in cv2's files
         if (d.empty()) break;
       }
@@ -150,6 +165,20 @@ int main(int argc, char** argv) {
   return 0;
 }
 '''
+
+
+def cut_files(work):
+    """A TS and a PS cut mid-stream (F10's form): off the TS sync, and
+    inside a pack."""
+    out = []
+    for name, cut in (("ts/ts_00.ts", 37 * 188 + 61), ("ps/ps_00.mpg", 9 * 2048 + 700)):
+        data = open(os.path.join(ROOT, "dali_tpu_torch", "testdata", "video", "mpeg_corpus",
+                                 name), "rb").read()
+        path = os.path.join(work, "cut_" + os.path.basename(name))
+        with open(path, "wb") as f:
+            f.write(data[cut:])
+        out.append(path)
+    return out
 
 
 def size_change_files(work):
@@ -214,7 +243,8 @@ def main(argv):
     with open(drv, "w") as f:
         f.write(_HARNESS)
     srcs = [os.path.join(HOST, s) for s in ("mp4_demux.cc", "avi_demux.cc", "mpeg_ps_demux.cc",
-                                            "mpeg_ts_demux.cc", "mpeg4_decode.cc",
+                                            "mpeg_ts_demux.cc", "mkv_demux.cc", "inflate.cc",
+                                            "mpeg4_decode.cc",
                                             "mpeg12_decode.cc", "mjpeg_decode.cc", "jpeg_huff.cc",
                                             "jpeg_arith.cc", "huffyuv_decode.cc",
                                             "ffv1_decode.cc", "sws_rgb.cc", "video_decode.cc",
@@ -235,6 +265,9 @@ def main(argv):
     files += sorted(glob.glob(os.path.join(fixtures, "mpeg", "*")))
     files += [os.path.join(fixtures, "mpeg_corpus", "ts", "ts_00.ts"),
               os.path.join(fixtures, "mpeg_corpus", "ps", "ps_00.mpg")]
+    files += sorted(glob.glob(os.path.join(fixtures, "mkv", "*")))
+    files += [os.path.join(fixtures, "mkv_corpus", c, f"{c}_00.mkv") for c in ("xvid", "ffv1")]
+    files += cut_files(work)
     files += size_change_files(work)
     files += pmt_damage_files(work)
     env = dict(os.environ, FUZZ_CASE=os.path.join(work, "case.mp4"))

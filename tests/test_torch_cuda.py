@@ -47,7 +47,9 @@ video reader on device="mixed" gives the cpu placement's frames bit for bit,
 and ucf_avi_train's Xvid AVI corpus and one AVI file of each codec the
 same way, and so do capture_avi_train's HuffYUV, FFV1 and Motion JPEG 4:2:2
 corpus and one file of each swscale-route form, and mpeg_ts_train's MPEG-2
-TS and MPEG-1 PS corpus and one MPEG-1/2 file of each form, and video_flow_train (the resizing reader, optical flow, CMN's FCHW fold)
+TS and MPEG-1 PS corpus and one MPEG-1/2 file of each form, and
+mkv_archive_train's Xvid and FFV1 Matroska corpus and one Matroska file of
+several forms, and video_flow_train (the resizing reader, optical flow, CMN's FCHW fold)
 matches its CPU run: flows and labels equal, images within one uint8 step
 / std."""
 
@@ -1961,6 +1963,51 @@ def test_capture_files_on_card_equal_cpu(card, name):
 
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "dali_tpu_torch", "testdata", "video", "capture", name + ".avi")
+    outs = []
+    for reader in ("cpu", "mixed"):
+        @pipeline_def(batch_size=2, num_threads=2, seed=3, device=card)
+        def p():
+            return fn.readers.video(filenames=[path], sequence_length=4, step=3,
+                                    random_shuffle=True, device=reader)
+        pipe = p()
+        pipe.build()
+        try:
+            outs.append([pipe.run()[0].as_tensor() for _ in range(2)])
+        finally:
+            pipe.shutdown()
+    for c, m in zip(*outs):
+        assert m.is_cuda and m.dtype == torch.uint8
+        assert torch.equal(c.cpu(), m.cpu())
+
+
+# ------------------------------------------------------------------ mkv_archive_train (item 8b(b))
+
+def test_mkv_mixed_reader_equals_cpu_reader(card):
+    """mkv_archive_train's recipe at batch 4 over the Matroska corpus (Xvid
+    with B-frames, FFV1 version 3 archival clips): the mixed reader's
+    frames (the planar YUV wire, RGB on the card) equal the cpu reader's
+    moved with ``.gpu()``; every committed Matroska file decodes on this
+    machine to mkv_reference.npz, reads after seeks included."""
+    from dali_tpu_torch.tools import bench_mkv, bench_video
+
+    r = bench_video.check_mixed_vs_cpu(batch=4, batches=2, root=bench_mkv.MKV_CORPUS,
+                                       form=bench_mkv.FORM, stride=bench_mkv.STRIDE)
+    assert r["frames"] == 2 * 4 * bench_video.FRAMES
+    f = bench_mkv.check_fixtures()
+    assert f["files"] == 55 and f["seeks"] > 200
+
+
+@pytest.mark.parametrize("name", ["cv2_ffv1_64x48.mkv", "lace_xiph_mjpeg_64x48.mkv",
+                                  "xvid_bf_160x120.mkv", "zlib_mpeg4_64x48.mkv"])
+def test_mkv_files_on_card_equal_cpu(card, name):
+    """readers.video over cv2's RGB FFV1 (class 0: dense RGB), laced Motion
+    JPEG (class 2), Xvid with B-frames and zlib-compressed MPEG-4 Part 2
+    frames (class 1: the planar YUV wire) in Matroska, batch 2, shuffled:
+    the mixed reader's uint8 frames on the card equal the cpu reader's."""
+    from dali_tpu_torch import fn, pipeline_def
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "dali_tpu_torch", "testdata", "video", "mkv", name)
     outs = []
     for reader in ("cpu", "mixed"):
         @pipeline_def(batch_size=2, num_threads=2, seed=3, device=card)

@@ -178,6 +178,145 @@ def test_ps_frame_count_is_libavformats_estimate():
         assert len(REF[name + ":display_sha"]) >= n
 
 
+# --------------------------------------------------------------------------- F10: cut mid-stream
+
+# F10's fixtures: cut at every TS packet (188 bytes) or 2048-byte PS pack
+# boundary, and at a few offsets on no boundary
+CUT_FIXTURES = {"mpeg_corpus/ts/ts_00.ts": 188, "mpeg/cv2_mpg2_160x120.ts": 188,
+                "mpeg_corpus/ps/ps_00.mpg": 2048, "mpeg/cv2_mpeg_160x120.mpg": 2048}
+CUT_PARTS = 3
+
+
+def _cuts(name, part):
+    unit = CUT_FIXTURES[name]
+    size = os.path.getsize(_path(name))
+    cuts = list(range(unit, size, unit)) + list(range(unit // 3 + 7, size, 1777))
+    return cuts[part::CUT_PARTS]
+
+
+def _planes(vf):
+    """Every frame a read from frame 0 gets, as planar YUV hashes."""
+    return _yuv_sha(vf, 0, vf.num_frames + 2) if vf.num_frames else np.zeros((0, 32), np.uint8)
+
+
+@pytest.mark.parametrize("part", range(CUT_PARTS))
+@pytest.mark.parametrize("name", sorted(CUT_FIXTURES))
+def test_stream_cut_mid_way_reads_as_the_reference(tmp_path, name, part):
+    """F10 (ROADMAP Queue 3): a TS or PS cut mid-stream, as a broadcast
+    capture started mid-programme or a split file is, opens as dali_tpu
+    opens it. libavformat finds the format by its probe scores (mpegps_probe,
+    mpegts_probe: a cut file starts with no pack header, or off the TS
+    sync), scans the first 5 MB for the program tables then reads from the
+    first PES start, gives the decoder the first sequence header it finds as
+    extradata (so the pictures before it decode with it), takes the first
+    PTS as the start time and estimates the duration from the tail's
+    timestamps. Every cut: the info and every frame equal, from a path and
+    from memory; where the reference fails to open the cut, the port raises
+    ValueError."""
+    data = open(_path(name), "rb").read()
+    path = tmp_path / ("cut" + os.path.splitext(name)[1])
+    opened = 0
+    for cut in _cuts(name, part):
+        path.write_bytes(data[cut:])
+        try:
+            ref = ref_native.VideoFile(str(path))
+        except ValueError:
+            for src in (str(path), data[cut:]):
+                with pytest.raises(ValueError):
+                    native.VideoFile(src)
+            continue
+        want = _planes(ref)
+        for src in (str(path), data[cut:]):
+            mine = native.VideoFile(src)
+            assert _info(mine) == _info(ref), cut
+            np.testing.assert_array_equal(_planes(mine), want, err_msg=str(cut))
+        opened += 1
+    assert opened >= 5
+
+
+@pytest.mark.parametrize("name,cut", [("mpeg_corpus/ts/ts_00.ts", 37 * 188),
+                                      ("mpeg_corpus/ts/ts_00.ts", 101 * 188),
+                                      ("mpeg_corpus/ps/ps_00.mpg", 9 * 2048),
+                                      ("mpeg_corpus/ps/ps_00.mpg", 20 * 2048)])
+def test_f10_cuts_it_was_found_on(name, cut):
+    """The cuts F10 was found on: dali_tpu counts 45, 38, 33 and 19 frames
+    and reads them; the port, which raised ValueError, gives the same
+    count, fps and RGB frames."""
+    data = open(_path(name), "rb").read()[cut:]
+    mine = native.VideoFile(data)
+    assert mine.num_frames == {37 * 188: 45, 101 * 188: 38, 9 * 2048: 33, 20 * 2048: 19}[cut]
+    got = mine.read(0, 4)
+    assert got.shape == (4, 240, 320, 3)
+    import tempfile
+
+    with tempfile.NamedTemporaryFile(suffix=os.path.splitext(name)[1]) as f:
+        f.write(data)
+        f.flush()
+        ref = ref_native.VideoFile(f.name)
+        assert _info(mine) == _info(ref)
+        np.testing.assert_array_equal(got, ref.read(0, 4))
+
+
+@pytest.mark.parametrize("form", ["cv2_fmp4", "mpeg4_bf2"])
+def test_mpeg4_ts_cut_mid_stream_reads_as_the_reference(tmp_path, form):
+    """F10 in MPEG-4 Part 2 in TS: cut at every third TS packet. The VOL
+    comes from the first packet with headers before its VOP, as
+    libavformat's extract_extradata takes it; the P-VOPs before the first
+    I-VOP are predicted from FFmpeg's grey dummy picture (0x80 over the
+    frame, zeros below it in the macroblock rows), which a stream with
+    B-VOPs also shows, as of the first P-VOP's packet. cv2's FMP4 (no
+    B-VOPs) and FFmpeg's mpeg4 with two B-frames: dali_tpu's info and
+    frames."""
+    from dali_tpu_torch.testdata.make_video_corpus import AviWriter, moving_frames
+
+    frames = moving_frames(np.random.default_rng(4), 60, 96, 64, "drift")
+    src = tmp_path / "src.ts"
+    if form == "cv2_fmp4":
+        wr = cv2.VideoWriter(str(src), cv2.VideoWriter_fourcc(*"FMP4"), 25, (96, 64))
+        if not wr.isOpened():
+            pytest.skip("cv2 cannot write FMP4 into TS")
+        for f in frames:
+            wr.write(f)
+        wr.release()
+    else:
+        try:
+            AviWriter().write(str(src), frames, "mpeg4", opts="bf=2", muxer="mpegts")
+        except Exception as e:  # no compiler or FFmpeg headers
+            pytest.skip(f"FFmpeg helper unavailable: {e}")
+    data = src.read_bytes()
+    path = tmp_path / "cut.ts"
+    opened = 0
+    for cut in range(188, len(data), 3 * 188):
+        path.write_bytes(data[cut:])
+        try:
+            ref = ref_native.VideoFile(str(path))
+        except ValueError:
+            with pytest.raises(ValueError):
+                native.VideoFile(data[cut:])
+            continue
+        mine = native.VideoFile(data[cut:])
+        assert _info(mine) == _info(ref), cut
+        np.testing.assert_array_equal(_planes(mine), _planes(ref), err_msg=str(cut))
+        opened += 1
+    assert opened >= 20
+
+
+def test_ps_cut_the_reference_reads_as_an_elementary_stream_departs(tmp_path):
+    """Pinned departure (ROADMAP Queue 3): FFmpeg's small MPEG-1 program
+    cut two packs in leaves 2 KiB, on which libavformat's probe gives the
+    raw video demuxer (mpegvideo_probe) a higher score than the program
+    stream's, and dali_tpu (dali_tpu/native/src/video_decode.cc:133-136)
+    reads the packs as one elementary stream. The port reads MPEG-PS by
+    its packets only and raises ValueError."""
+    data = open(_path("mpeg/mpeg1_bf2_64x48.mpg"), "rb").read()[4096:]
+    path = tmp_path / "cut.mpg"
+    path.write_bytes(data)
+    ref = ref_native.VideoFile(str(path))
+    assert ref.fps == 25.0 and len(ref.read(0, 4, pad=False)) >= 1
+    with pytest.raises(ValueError):
+        native.VideoFile(data)
+
+
 # --------------------------------------------------------------------------- the spliced TS
 
 def _write_ts(path, w, h, num_frames, seed):
@@ -449,11 +588,14 @@ def _pmt_sections(data):
 
 
 @pytest.mark.parametrize("damage", ["section_length_0", "program_info_past_section"])
-def test_damaged_program_map_raises_value_error(damage):
+def test_damaged_program_map_raises_value_error(damage, tmp_path):
     """A program map section whose section_length is 0 (once read as
     ending past the section: the stream loop ran over the heap) or whose
-    program_info_length runs past it: no video stream is found in the
-    map, and the open raises ValueError, from memory and from a path."""
+    program_info_length runs past it: no video stream is found in the map.
+    The port once raised ValueError here; libavformat then takes the PES
+    stream no map declared as a stream of its own (mpegts.c's auto_guess),
+    and since F10's fix so does the port: dali_tpu's frames, from memory
+    and from a path."""
     data = bytearray(open(_path("mpeg/cv2_mpg2_160x120.ts"), "rb").read())
     for s in _pmt_sections(data):
         if damage == "section_length_0":
@@ -462,8 +604,13 @@ def test_damaged_program_map_raises_value_error(damage):
         else:
             data[s + 10] |= 0x0f
             data[s + 11] = 0xff
-    with pytest.raises(ValueError, match="Failed to open"):
-        native.VideoFile(bytes(data))
+    path = tmp_path / "damaged.ts"
+    path.write_bytes(bytes(data))
+    ref = ref_native.VideoFile(str(path))
+    want = ref.read(0, ref.num_frames, pad=False)
+    for mine in (native.VideoFile(bytes(data)), native.VideoFile(str(path))):
+        assert _info(mine) == _info(ref)
+        np.testing.assert_array_equal(mine.read(0, ref.num_frames, pad=False), want)
 
 
 def _noise_clip(path, fourcc, frames=12, w=320, h=240, seed=7):

@@ -484,12 +484,14 @@ def test_full_range_source_cpu_and_mixed(tmp_path):
             _assert_same(got[it], want[it], (key, it))
 
 
-@pytest.mark.parametrize("fmt,fourcc", [("avi", "MJPG"), ("avi", "XVID"), ("mkv", "mp4v")])
+@pytest.mark.parametrize("fmt,fourcc", [("avi", "MJPG"), ("avi", "XVID"), ("mkv", "mp4v"),
+                                        ("webm", "VP80")])
 def test_other_containers_raise_item_8b(tmp_path, fmt, fourcc):
-    """Matroska files, which dali_tpu's FFmpeg reads, raise
-    NotImplementedError naming item 8b in the port, at open and through
-    the reader. cv2's AVIs (MJPG and XVID), once among them, read since the
-    AVI part of item 8b: the same frames as dali_tpu's, from the file and
+    """VP8 in WebM, which dali_tpu's FFmpeg reads, raises
+    NotImplementedError naming item 8b (its part f) in the port, at open
+    and through the reader. cv2's AVIs (MJPG and XVID) and its MPEG-4
+    Part 2 in Matroska, once among them, read since the AVI part and part
+    (b) of item 8b: the same frames as dali_tpu's, from the file and
     through the reader, cpu and mixed."""
     from dali_tpu import native as ref_native
 
@@ -503,7 +505,7 @@ def test_other_containers_raise_item_8b(tmp_path, fmt, fourcc):
         wr.write(np.full((48, 64, 3), 20 * i, np.uint8))
     wr.release()
     ref_native.VideoFile(path).close()  # the reference reads it
-    if fmt == "avi":
+    if fmt in ("avi", "mkv"):
         mine, ref = native.VideoFile(path), ref_native.VideoFile(path)
         assert (mine.num_frames, mine.fps, mine.pixfmt_class) == (ref.num_frames, ref.fps,
                                                                   ref.pixfmt_class)
@@ -527,16 +529,16 @@ def test_other_containers_raise_item_8b(tmp_path, fmt, fourcc):
 
 def test_unported_video_names_name_item_8b(tmp_path):
     """readers.VideoResize and OpticalFlow came with item 8b's registry part;
-    the rest of item 8b, here Xvid in Matroska (item 8b(b); Motion JPEG,
-    HuffYUV and MPEG-1 in AVI, this test's files before, read since the AVI
-    part, the swscale route and part (a)), still raises naming it, through
-    the resizing reader too."""
+    the rest of item 8b, here VP8 in WebM (item 8b(f); Motion JPEG, HuffYUV
+    and MPEG-1 in AVI and then Xvid in Matroska, this test's files before,
+    read since the AVI part, the swscale route and parts (a) and (b)), still
+    raises naming it, through the resizing reader too."""
     assert callable(dali_tpu_torch.fn.readers.video_resize)
     assert callable(dali_tpu_torch.fn.optical_flow)
-    path = str(tmp_path / "v.mkv")
-    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"XVID"), 25, (64, 48))
+    path = str(tmp_path / "v.webm")
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"VP80"), 25, (64, 48))
     if not wr.isOpened():
-        pytest.skip("cv2 cannot write XVID in mkv")
+        pytest.skip("cv2 cannot write VP80 in webm")
     for i in range(4):
         wr.write(np.full((48, 64, 3), 30 * i, np.uint8))
     wr.release()
